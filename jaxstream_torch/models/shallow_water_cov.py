@@ -1,0 +1,151 @@
+"""Covariant-component shallow water (counterpart of
+:class:`jaxstream.models.shallow_water_cov.CovariantShallowWater`).
+
+    dh/dt   = -(1/sqrtg) [ d_a(sqrtg u^a h*) + d_b(sqrtg u^b h*) ]
+    du_a/dt =  (zeta + f) sqrtg u^b - d_a(g (h + b) + K)
+    du_b/dt = -(zeta + f) sqrtg u^a - d_b(g (h + b) + K)
+
+with ``u^i = g^ij u_j``, ``K = (u^a u_a + u^b u_b)/2`` and
+``zeta = (d_a u_b - d_b u_a)/sqrtg``.  Two paths, as in the JAX package:
+
+* :meth:`CovariantShallowWater.rhs` — the classic path: halo exchange
+  plus the finite-volume operators of :mod:`jaxstream_torch.ops.fv`,
+  stepped by :meth:`make_step`.  It runs on any device and is the port's
+  own oracle for the fused path.
+* :meth:`make_fused_step` — the compact fused SSPRK3 stepper: per stage
+  one strip route and one launch of the CUDA stage kernel (its plain
+  PyTorch version on the CPU).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..geometry.cubed_sphere import CubedSphereGrid
+from ..ops.fv import (covariant_components, covariant_face_normal_velocity,
+                      embed_interior, flux_divergence_faces, vorticity_cov)
+from ..parallel.vector_halo import make_vector_halo_exchanger
+from .base import State
+from .shallow_water import SWEBase
+
+__all__ = ["CovariantShallowWater"]
+
+
+def _not_ported(knob: str, item: str):
+    raise NotImplementedError(
+        f"make_fused_step({knob}) is not ported yet: ROADMAP {item}")
+
+
+class CovariantShallowWater(SWEBase):
+    """State ``{"h": (6, n, n), "u": (2, 6, n, n)}``, u covariant."""
+
+    def __init__(self, grid: CubedSphereGrid, gravity: float, omega: float,
+                 b_ext: Optional[torch.Tensor] = None, scheme: str = "plr",
+                 limiter: str = "mc", nu4: float = 0.0):
+        super().__init__(grid, gravity, omega, b_ext=b_ext, scheme=scheme,
+                         limiter=limiter, nu4=nu4)
+        self.exchange_u = make_vector_halo_exchanger(grid)
+        # Cell-center inverse metric on the extended grid, g^ij = a^i . a^j.
+        self.ginv_aa = torch.sum(grid.a_a * grid.a_a, dim=0)
+        self.ginv_ab = torch.sum(grid.a_a * grid.a_b, dim=0)
+        self.ginv_bb = torch.sum(grid.a_b * grid.a_b, dim=0)
+
+    # -- states -------------------------------------------------------------
+    def initial_state(self, h_ext, v_ext) -> State:
+        """From extended Cartesian fields (the IC functions' output)."""
+        return {
+            "h": self.grid.interior(h_ext).contiguous(),
+            "u": self.grid.interior(
+                covariant_components(self.grid, v_ext)).contiguous(),
+        }
+
+    def compact_state(self, state: State) -> State:
+        """Interior state -> the compact fused-stepper carry."""
+        from ..ops.cuda.swe_cov import pack_strips_cov_split
+
+        g = self.grid
+        sn, we = pack_strips_cov_split(state["h"], state["u"], g.n, g.halo)
+        return {"h": state["h"], "u": state["u"],
+                "strips_sn": sn, "strips_we": we}
+
+    def restrict_state(self, y: State) -> State:
+        """The compact carry -> the interior state (strips dropped)."""
+        return {"h": y["h"], "u": y["u"]}
+
+    # -- fused path ----------------------------------------------------------
+    def make_fused_step(self, dt: float, compact: bool = True,
+                        carry_dtype=None, h_offset: float = 0.0,
+                        h_scale: float = 1.0, u_scale: float = 1.0,
+                        nu4_mode: str = "split", temporal_block: int = 1,
+                        ensemble: int = 0, precision=None):
+        """The compact fused SSPRK3 step ``step(y, t) -> y`` over
+        ``y = compact_state(state)``.
+
+        Ported: the production configuration — compact carry, f32 carry,
+        ``nu4 == 0``, one step per call, one member, f32 arithmetic.
+        Every other knob of the JAX package raises
+        ``NotImplementedError`` naming its ROADMAP item.
+        """
+        from ..ops.cuda.swe_cov import make_fused_ssprk3_cov_compact
+
+        if not compact:
+            _not_ported("compact=False", "queue B item 8 "
+                        "(make_cov_stage_inkernel, the extended carry)")
+        if (carry_dtype is not None or h_offset or h_scale != 1.0
+                or u_scale != 1.0):
+            _not_ported("carry_dtype/h_offset/h_scale/u_scale",
+                        "queue A item 5 (16-bit carry encodings)")
+        if temporal_block != 1:
+            _not_ported(f"temporal_block={temporal_block}",
+                        "queue A item 5 (temporal_block)")
+        if ensemble:
+            _not_ported(f"ensemble={ensemble}",
+                        "queue A item 5 (the ensemble member axis)")
+        if precision is not None:
+            _not_ported(f"precision={precision!r}",
+                        "queue A item 5 (ops/pallas/precision.py)")
+        if nu4_mode != "split":
+            _not_ported(f"nu4_mode={nu4_mode!r}",
+                        "queue A items 3 and 5 (del^4 modes)")
+        if self.grid.dtype != torch.float32:
+            raise ValueError(
+                f"the fused stepper runs float32 grids only (the stage "
+                f"kernel is f32); got {self.grid.dtype}. Use make_step or "
+                f"build the grid with dtype=torch.float32.")
+        return make_fused_ssprk3_cov_compact(
+            self.grid, self.gravity, self.omega, dt, self.b_ext,
+            scheme=self.scheme, limiter=self.limiter)
+
+    # -- classic path --------------------------------------------------------
+    def _fill_u(self, u_int):
+        return self.exchange_u(embed_interior(self.grid, u_int))
+
+    def rhs(self, state: State, t) -> State:
+        grid = self.grid
+        h_ext = self.fill(state["h"])
+        u_ext = self._fill_u(state["u"])
+
+        # Contravariant components and kinetic energy on the extended
+        # grid (the Bernoulli gradient reads one ghost deep).
+        uc_a = self.ginv_aa * u_ext[0] + self.ginv_ab * u_ext[1]
+        uc_b = self.ginv_ab * u_ext[0] + self.ginv_bb * u_ext[1]
+        ke = 0.5 * (uc_a * u_ext[0] + uc_b * u_ext[1])
+
+        ux, uy = covariant_face_normal_velocity(grid, u_ext)
+        dh = -flux_divergence_faces(grid, h_ext, ux, uy, scheme=self.scheme,
+                                    limiter=self.limiter)
+
+        zeta = vorticity_cov(grid, u_ext)
+        bern = self.gravity * (h_ext + self.b_ext) + ke
+        h_, n, d = grid.halo, grid.n, grid.dalpha
+        dba = (bern[..., h_:h_ + n, h_ + 1:h_ + n + 1]
+               - bern[..., h_:h_ + n, h_ - 1:h_ + n - 1]) / (2 * d)
+        dbb = (bern[..., h_ + 1:h_ + n + 1, h_:h_ + n]
+               - bern[..., h_ - 1:h_ + n - 1, h_:h_ + n]) / (2 * d)
+
+        absv = (zeta + self.fcor) * grid.interior(grid.sqrtg)
+        dua = absv * grid.interior(uc_b) - dba
+        dub = -absv * grid.interior(uc_a) - dbb
+        return {"h": dh, "u": torch.stack([dua, dub])}

@@ -1,0 +1,596 @@
+"""The covariant shallow-water compact fused stepper: router, stage, step.
+
+Counterpart of the compact-carry path of
+:mod:`jaxstream.ops.pallas.swe_cov`:
+
+* :func:`pack_strips_cov_split` and :func:`make_cov_strip_router_split`
+  (the JAX router's ``prescale_sym=True`` form): the boundary-strip
+  carry and the static row-gather + 2x2 covariant rotation + seam
+  symmetrization that turn one stage's strips into the next stage's
+  ghost blocks.  Plain torch index
+  ops, as the JAX package runs them as XLA ops.
+* :class:`CovStageCompact`: one SSPRK3 stage over interior-only state.
+  On CUDA tensors it launches the hand-written Hopper kernel
+  ``csrc/cov_stage.cu`` (the port of the Pallas kernel
+  ``make_cov_stage_compact``); on CPU tensors it runs the plain PyTorch
+  version :func:`cov_stage_compact_reference`, which
+  :func:`rhs_core_cov` implements op for op after the JAX package.
+* :func:`make_fused_ssprk3_cov_compact`: route + stage, three times.
+
+Layouts are the JAX package's: state ``h (6, n, n)``, ``u (2, 6, n, n)``;
+strips ``strips_sn (6, 6h, n)`` / ``strips_we (6, n, 6h)``; routed ghosts
+``gsn (6, 6h+2, n)`` / ``gwe (6, n, 6h+2)`` whose last two rows/columns
+are the sqrtg-prescaled symmetrized edge normals (S, N / W, E).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ... import _build
+from ...geometry.connectivity import (EDGE_E, EDGE_N, EDGE_S, EDGE_W,
+                                      build_connectivity, edge_pairs)
+from ..reconstruct import plr_face_states
+from .swe_rhs import _f32, _fast_frame, coord_rows
+
+__all__ = [
+    "pack_strips_cov_split",
+    "make_cov_strip_router_split",
+    "rhs_core_cov",
+    "CovStageCompact",
+    "make_cov_stage_compact",
+    "cov_stage_compact_reference",
+    "make_fused_ssprk3_cov_compact",
+    "SSPRK3_COEFFS",
+]
+
+#: Shu-Osher SSPRK3 stage coefficients ``(a, b)``: stage k computes
+#: ``a*y0 + b*yc + b*dt*L(yc)``.
+SSPRK3_COEFFS = ((0.0, 1.0), (0.75, 0.25), (1.0 / 3.0, 2.0 / 3.0))
+
+_OUT_SIGN = {EDGE_S: -1.0, EDGE_W: -1.0, EDGE_N: 1.0, EDGE_E: 1.0}
+# Slot order of the routers' per-face edge tables.
+_EORDER = (EDGE_S, EDGE_N, EDGE_W, EDGE_E)
+_SLOT = {e: s for s, e in enumerate(_EORDER)}
+
+
+# ---------------------------------------------------------------------------
+# Router tables
+# ---------------------------------------------------------------------------
+
+
+def _pair_sym_tables(grid):
+    """Static tables of the seam symmetrization.
+
+    Returns ``(M0, M1, link_rows, back_rows, rev, sga, sgb, sym_src)``:
+    the (1, 4, n) edge-face inverse-metric rows per slot (face-independent
+    on the equiangular grid), the 12 physical edges' row selections into
+    the (24, n) local-normal table, reversal/sign columns, and the scatter
+    order back to (face*4 + slot) rows.
+    """
+    n, halo = grid.n, grid.halo
+    i0, i1 = halo, halo + n
+    dev = grid.device
+    adj = build_connectivity()
+    met = {
+        EDGE_W: (grid.ginv_aa_xf[0, i0:i1, i0], grid.ginv_ab_xf[0, i0:i1, i0]),
+        EDGE_E: (grid.ginv_aa_xf[0, i0:i1, i1], grid.ginv_ab_xf[0, i0:i1, i1]),
+        EDGE_S: (grid.ginv_ab_yf[0, i0, i0:i1], grid.ginv_bb_yf[0, i0, i0:i1]),
+        EDGE_N: (grid.ginv_ab_yf[0, i1, i0:i1], grid.ginv_bb_yf[0, i1, i0:i1]),
+    }
+    M0 = torch.stack([met[e][0] for e in _EORDER])[None]
+    M1 = torch.stack([met[e][1] for e in _EORDER])[None]
+
+    pairs = edge_pairs(adj)
+    links = [lk for lk, _ in pairs]
+    backs = [bk for _, bk in pairs]
+
+    def T(vals, dtype):
+        return torch.tensor(vals, dtype=dtype, device=dev)
+
+    link_rows = T([lk.face * 4 + _SLOT[lk.edge] for lk in links], torch.long)
+    back_rows = T([bk.face * 4 + _SLOT[bk.edge] for bk in backs], torch.long)
+    rev = T([[lk.reversed_] for lk in links], torch.bool)
+    sga = T([[_OUT_SIGN[lk.edge]] for lk in links], torch.float32)
+    sgb = T([[_OUT_SIGN[bk.edge]] for bk in backs], torch.float32)
+    sym_src = np.empty(24, np.int64)
+    for i, (lk, bk) in enumerate(zip(links, backs)):
+        sym_src[lk.face * 4 + _SLOT[lk.edge]] = i
+        sym_src[bk.face * 4 + _SLOT[bk.edge]] = 12 + i
+    return (M0, M1, link_rows, back_rows, rev, sga, sgb,
+            torch.from_numpy(sym_src).to(dev))
+
+
+def _pair_symmetrize(I_u, gadj_a, gadj_b, tables):
+    """Seam-symmetrized edge normals, (6, 4, n) in slot order.
+
+    ``I_u``: (2, 6, 4, n) interior boundary-adjacent covariant rows;
+    ``gadj_*``: (6, 4, n) edge-adjacent rotated ghost rows.  One average
+    per physical edge, distributed to both faces by exact permutation.
+    """
+    M0, M1, link_rows, back_rows, rev, sga, sgb, sym_src = tables
+    ubar0 = 0.5 * (I_u[0] + gadj_a)
+    ubar1 = 0.5 * (I_u[1] + gadj_b)
+    L = (M0 * ubar0 + M1 * ubar1).reshape(24, -1)
+    la = L.index_select(0, link_rows)
+    lb = L.index_select(0, back_rows)
+    lb = torch.where(rev, torch.flip(lb, dims=[-1]), lb)
+    avg = 0.5 * (sga * la - sgb * lb)
+    na = sga * avg
+    nb = sgb * (-avg)
+    nb = torch.where(rev, torch.flip(nb, dims=[-1]), nb)
+    return torch.cat([na, nb], dim=0).index_select(0, sym_src).reshape(6, 4, -1)
+
+
+def _rotation_tables(grid) -> torch.Tensor:
+    """Per-ghost-slot covariant rotations in canonical strip layout.
+
+    ``T[i*2+j][f, e] = e_i^local(ghost cell) . a_j^src(source cell)``,
+    indexed by the receiving (face, edge) in canonical (depth, along)
+    order with the pair's reversal folded into the source side.  Float64
+    numpy from the grid's stored bases, exactly as the JAX package; a
+    float32 ``(4, 6, 4, halo, n)`` tensor on the grid's device.
+    """
+    from ...parallel.vector_halo import _strip_indices
+
+    n, halo, m = grid.n, grid.halo, grid.m
+    adj = build_connectivity()
+    src_idx, dst_idx = _strip_indices(n, halo)
+
+    def f64(t):
+        return np.moveaxis(t.cpu().numpy().astype(np.float64), 0, -1)
+
+    ef = np.stack([f64(grid.e_a), f64(grid.e_b)]).reshape(2, 6 * m * m, 3)
+    af = np.stack([f64(grid.a_a), f64(grid.a_b)]).reshape(2, 6 * m * m, 3)
+
+    out = np.zeros((4, 6, 4, halo, n), np.float32)
+    for f in range(6):
+        for e in range(4):
+            link = adj[f][e]
+            src = src_idx[link.nbr_edge].reshape(halo, n)
+            if link.reversed_:
+                src = src[:, ::-1]
+            src = src.reshape(-1) + link.nbr_face * m * m
+            dst = dst_idx[e] + f * m * m
+            for i in range(2):
+                for j in range(2):
+                    out[i * 2 + j, f, e] = np.einsum(
+                        "...k,...k->...", ef[i][dst], af[j][src]
+                    ).reshape(halo, n)
+    return torch.from_numpy(out).to(grid.device)
+
+
+# ---------------------------------------------------------------------------
+# Strip carry and router
+# ---------------------------------------------------------------------------
+
+
+def pack_strips_cov_split(h_int, u_int, n: int, halo: int):
+    """Boundary strips of interior fields, split by orientation.
+
+    Returns ``(strips_sn (6, 6h, n), strips_we (6, n, 6h))``: per field in
+    (h, u_a, u_b), the raw S rows then N rows / W columns then E columns
+    in storage order.
+    """
+    h = halo
+    fields = (h_int, u_int[0], u_int[1])
+    sn = torch.cat([blk for q in fields
+                    for blk in (q[:, 0:h, :], q[:, n - h:n, :])], dim=1)
+    we = torch.cat([blk for q in fields
+                    for blk in (q[:, :, 0:h], q[:, :, n - h:n])], dim=2)
+    return sn, we
+
+
+def make_cov_strip_router_split(grid):
+    """``route(strips_sn, strips_we) -> (gsn, gwe)``.
+
+    ``gsn`` ``(6, 6h+2, n)``: placed S/N ghost blocks per field plus the
+    two symmetrized S/N edge-normal rows; ``gwe`` ``(6, n, 6h+2)``: placed
+    W/E ghost columns plus the W/E sym columns.  Same algebra and operand
+    order as the JAX package's router with ``prescale_sym=True``: the sym
+    rows are multiplied by the static edge sqrtg, so the stage imposes
+    them as they are.
+    """
+    n, halo = grid.n, grid.halo
+    h = halo
+    dev = grid.device
+    adj = build_connectivity()
+    F = 2 * 6 * 6 * h          # sn section + weT section row count
+
+    def src_row(fi: int, g: int, e: int, depth: int) -> int:
+        """Flat source row of face g / edge e / field fi at canonical
+        ``depth`` (0 = nearest the edge), in [sn ; weT] order."""
+        kr = depth if e in (EDGE_S, EDGE_W) else h - 1 - depth
+        sec = 0 if e in (EDGE_S, EDGE_N) else 6 * 6 * h
+        pair = 0 if e in (EDGE_S, EDGE_W) else h
+        return sec + g * 6 * h + fi * 2 * h + pair + kr
+
+    def ghost_idx(edges):
+        out = np.empty((3, 6, 2, h), np.int64)
+        for fi in range(3):
+            for f in range(6):
+                for p, e in enumerate(edges):
+                    link = adj[f][e]
+                    for k in range(h):
+                        dep = (h - 1 - k) if e in (EDGE_S, EDGE_W) else k
+                        r = src_row(fi, link.nbr_face, link.nbr_edge, dep)
+                        out[fi, f, p, k] = r + (F if link.reversed_ else 0)
+        return out
+
+    idx_sn = ghost_idx((EDGE_S, EDGE_N))
+    idx_we = ghost_idx((EDGE_W, EDGE_E))
+    idx_int = np.empty((2, 6, 4), np.int64)
+    for c in range(2):
+        for f in range(6):
+            for s, e in enumerate(_EORDER):
+                idx_int[c, f, s] = src_row(1 + c, f, e, 0)
+    idx_all = torch.from_numpy(np.concatenate(
+        [idx_sn.reshape(-1), idx_we.reshape(-1), idx_int.reshape(-1)])).to(dev)
+    n_sn = idx_sn.size
+    n_we = idx_we.size
+
+    # Placed rotation tables, split by orientation: (4, 6, 2, h, n).
+    Tc = _rotation_tables(grid)
+    T_sn = torch.stack([torch.flip(Tc[:, :, EDGE_S], dims=[-2]),
+                        Tc[:, :, EDGE_N]], dim=2)
+    T_we = torch.stack([torch.flip(Tc[:, :, EDGE_W], dims=[-2]),
+                        Tc[:, :, EDGE_E]], dim=2)
+
+    sym_tables = _pair_sym_tables(grid)
+    adj_k = [h - 1, 0]          # placed edge-adjacent row: S/W flip, N/E not
+
+    # Static edge sqrtg rows in [S, N, W, E] order, identical for all
+    # faces, from the same closed forms the stage would evaluate.
+    x_row, xf_row, x_col, xf_col, _ = coord_rows(n, h, dev)
+    h0, h1 = h, h + n
+    r = float(grid.radius)
+    sgS = _fast_frame(x_row[:, h0:h1], xf_col[h0:h0 + 1], r)["sqrtg"]
+    sgN = _fast_frame(x_row[:, h0:h1], xf_col[h1:h1 + 1], r)["sqrtg"]
+    sgW = _fast_frame(xf_row[:, h0:h0 + 1], x_col[h0:h1], r)["sqrtg"]
+    sgE = _fast_frame(xf_row[:, h1:h1 + 1], x_col[h0:h1], r)["sqrtg"]
+    sym_scale = torch.stack([sgS.reshape(n), sgN.reshape(n),
+                             sgW.reshape(n), sgE.reshape(n)])[None]
+
+    def route(strips_sn, strips_we):
+        s_src = torch.cat([strips_sn.reshape(6 * 6 * h, n),
+                           strips_we.transpose(1, 2).reshape(6 * 6 * h, n)],
+                          dim=0)
+        s_all = torch.cat([s_src, torch.flip(s_src, dims=[-1])], dim=0)
+        rows = s_all.index_select(0, idx_all)
+        C_sn = rows[:n_sn].reshape(3, 6, 2, h, n)
+        C_we = rows[n_sn:n_sn + n_we].reshape(3, 6, 2, h, n)
+        I_u = rows[n_sn + n_we:].reshape(2, 6, 4, n)
+
+        G_sn = [C_sn[0],
+                T_sn[0] * C_sn[1] + T_sn[1] * C_sn[2],
+                T_sn[2] * C_sn[1] + T_sn[3] * C_sn[2]]
+        G_we = [C_we[0],
+                T_we[0] * C_we[1] + T_we[1] * C_we[2],
+                T_we[2] * C_we[1] + T_we[3] * C_we[2]]
+
+        gadj_a = torch.stack(
+            [G_sn[1][:, 0, adj_k[0]], G_sn[1][:, 1, adj_k[1]],
+             G_we[1][:, 0, adj_k[0]], G_we[1][:, 1, adj_k[1]]], dim=1)
+        gadj_b = torch.stack(
+            [G_sn[2][:, 0, adj_k[0]], G_sn[2][:, 1, adj_k[1]],
+             G_we[2][:, 0, adj_k[0]], G_we[2][:, 1, adj_k[1]]], dim=1)
+        sym = _pair_symmetrize(I_u, gadj_a, gadj_b, sym_tables) * sym_scale
+
+        gsn = torch.cat([g.reshape(6, 2 * h, n) for g in G_sn]
+                        + [sym[:, 0:2]], dim=1)
+        gwe_rows = torch.cat([g.reshape(6, 2 * h, n) for g in G_we]
+                             + [sym[:, 2:4]], dim=1)
+        return gsn, gwe_rows.transpose(1, 2).contiguous()
+
+    return route
+
+
+# ---------------------------------------------------------------------------
+# The stage: plain version
+# ---------------------------------------------------------------------------
+
+
+def _center(v):
+    """Interior slice of a band-frame entry (row, column or full)."""
+    if v.shape[-2] == 1:
+        return v[..., :, 1:-1]
+    if v.shape[-1] == 1:
+        return v[..., 1:-1, :]
+    return v[..., 1:-1, 1:-1]
+
+
+def rhs_core_cov(fz, xr, xfr, yc, yfc, hf, ua, ub, bf, sym_sn, sym_we, *,
+                 n, halo, d, radius, gravity, omega, limiter="mc"):
+    """Covariant-SWE right-hand side of all faces at once (plain torch).
+
+    ``fz = (c0z, cxz, cyz)``: the face frames' z-components, each
+    broadcastable against ``(6, 1, 1)``; ``xr``/``xfr`` (1, M) and
+    ``yc``/``yfc`` (M, 1) coordinate rows/columns; ``hf``, ``ua``, ``ub``,
+    ``bf`` (6, M, M) with edge ghosts filled (corners are never read by a
+    kept output).  ``sym_sn`` (6, 2, n) / ``sym_we`` (6, n, 2): the
+    prescaled symmetrized edge normals imposed on the boundary faces.
+    Returns interior ``(dh, dua, dub)``.  The operations and their order
+    follow the JAX package's ``rhs_core_cov`` (``sym_prescaled=True``).
+    """
+    h0, h1 = halo, halo + n
+    inv2d = _f32(1.0 / (2.0 * d))
+    g = _f32(gravity)
+    two_omega = _f32(2.0 * omega)
+
+    # ---- continuity: upwind PLR flux with the sqrtg-folded metric ------
+    Fx = _fast_frame(xfr[:, h0:h1 + 1], yc[h0:h1], radius)
+    uba = 0.5 * (ua[:, h0:h1, h0 - 1:h1] + ua[:, h0:h1, h0:h1 + 1])
+    ubb = 0.5 * (ub[:, h0:h1, h0 - 1:h1] + ub[:, h0:h1, h0:h1 + 1])
+    ux = Fx["fg_aa"] * uba + Fx["fg_ab"] * ubb          # sqrtg u^a
+    ux = torch.cat([sym_we[:, :, 0:1], ux[:, :, 1:n], sym_we[:, :, 1:2]],
+                   dim=-1)
+    qL, qR = plr_face_states(hf[:, h0:h1, :], -1, halo, n, limiter)
+    fx = torch.clamp(ux, min=0.0) * qL + torch.clamp(ux, max=0.0) * qR
+
+    Fy = _fast_frame(xr[:, h0:h1], yfc[h0:h1 + 1], radius)
+    vba = 0.5 * (ua[:, h0 - 1:h1, h0:h1] + ua[:, h0:h1 + 1, h0:h1])
+    vbb = 0.5 * (ub[:, h0 - 1:h1, h0:h1] + ub[:, h0:h1 + 1, h0:h1])
+    uy = Fy["fg_ab"] * vba + Fy["fg_bb"] * vbb          # sqrtg u^b
+    uy = torch.cat([sym_sn[:, 0:1, :], uy[:, 1:n, :], sym_sn[:, 1:2, :]],
+                   dim=-2)
+    qL, qR = plr_face_states(hf[:, :, h0:h1], -2, halo, n, limiter)
+    fy = torch.clamp(uy, min=0.0) * qL + torch.clamp(uy, max=0.0) * qR
+
+    # ---- momentum, vector-invariant in covariant components ------------
+    b0, b1 = h0 - 1, h1 + 1
+    Fb = _fast_frame(xr[:, b0:b1], yc[b0:b1], radius)
+    Fc = {k: _center(v) for k, v in Fb.items()}
+    inv_sg_d = Fc["inv_sqrtg"] * _f32(1.0 / d)
+    dh = -((fx[..., 1:] - fx[..., :-1])
+           + (fy[..., 1:, :] - fy[..., :-1, :])) * inv_sg_d
+    uab = ua[:, b0:b1, b0:b1]
+    ubb_ = ub[:, b0:b1, b0:b1]
+    uca = Fb["inv_aa"] * uab + Fb["inv_ab"] * ubb_       # u^alpha, band
+    ucb = Fb["inv_ab"] * uab + Fb["inv_bb"] * ubb_       # u^beta, band
+    ke = 0.5 * (uca * uab + ucb * ubb_)
+    bern = g * (hf[:, b0:b1, b0:b1] + bf[:, b0:b1, b0:b1]) + ke
+    dba = (bern[:, 1:-1, 2:] - bern[:, 1:-1, :-2]) * inv2d
+    dbb = (bern[:, 2:, 1:-1] - bern[:, :-2, 1:-1]) * inv2d
+
+    dub_da = (ub[:, h0:h1, h0 + 1:h1 + 1] - ub[:, h0:h1, h0 - 1:h1 - 1]) * inv2d
+    dua_db = (ua[:, h0 + 1:h1 + 1, h0:h1] - ua[:, h0 - 1:h1 - 1, h0:h1]) * inv2d
+
+    # (zeta + f) sqrtg = covariant curl + 2 Omega rhat_z sqrtg.
+    rz = (fz[0] + Fc["x"] * fz[1] + Fc["y"] * fz[2]) * Fc["inv_rho"]
+    absv = (dub_da - dua_db) + (two_omega * rz) * Fc["sqrtg"]
+
+    dua = absv * ucb[:, 1:-1, 1:-1] - dba
+    dub = -absv * uca[:, 1:-1, 1:-1] - dbb
+    return dh, dua, dub
+
+
+def _fill(q_int, gsn, gwe, fi, n, halo):
+    """Extended (6, M, M) field from the interior and the routed ghosts
+    (the placement of the JAX package's ``_make_fill``; corners zero)."""
+    h = halo
+    i0, i1 = h, h + n
+    ext = q_int.new_zeros((6, n + 2 * h, n + 2 * h))
+    ext[:, i0:i1, i0:i1] = q_int
+    ext[:, 0:h, i0:i1] = gsn[:, fi * 2 * h:fi * 2 * h + h]
+    ext[:, i1:i1 + h, i0:i1] = gsn[:, fi * 2 * h + h:(fi + 1) * 2 * h]
+    ext[:, i0:i1, 0:h] = gwe[:, :, fi * 2 * h:fi * 2 * h + h]
+    ext[:, i0:i1, i1:i1 + h] = gwe[:, :, fi * 2 * h + h:(fi + 1) * 2 * h]
+    return ext
+
+
+def cov_stage_compact_reference(stage, *args):
+    """The plain PyTorch version of one compact stage.
+
+    ``stage`` is a :class:`CovStageCompact` (its coefficients, constants
+    and coordinate rows); ``args`` as for calling it.  Used on CPU tensors
+    by the stage itself, and by the tests and ``chip_smoke.py`` to hold
+    the CUDA kernel against it.  Returns ``(h, u, strips_sn, strips_we)``.
+    """
+    h0, u0, hc, uc, gsn, gwe, b_ext = stage._unpack(args)
+    n, h = stage.n, stage.halo
+    x_row, xf_row, x_col, xf_col = stage.coords
+    fz = tuple(stage.fz[:, k].reshape(6, 1, 1) for k in range(3))
+    hf = _fill(hc, gsn, gwe, 0, n, h)
+    ua = _fill(uc[0], gsn, gwe, 1, n, h)
+    ub = _fill(uc[1], gsn, gwe, 2, n, h)
+    dh, dua, dub = rhs_core_cov(
+        fz, x_row, xf_row, x_col, xf_col, hf, ua, ub, b_ext,
+        gsn[:, 6 * h:6 * h + 2], gwe[:, :, 6 * h:6 * h + 2],
+        n=n, halo=h, d=stage.dalpha, radius=stage.radius,
+        gravity=stage.gravity, omega=stage.omega, limiter=stage.limiter)
+
+    fa, fb, fg = stage.fa, stage.fb, stage.fg
+
+    def combine(yc, y0, tend):
+        if stage.with_y0:
+            return (fa * y0 + fb * yc) + fg * tend
+        return yc + fg * tend
+
+    h_new = combine(hc, h0, dh)
+    u_new = torch.stack([
+        combine(uc[0], None if u0 is None else u0[0], dua),
+        combine(uc[1], None if u0 is None else u0[1], dub)])
+    sn, we = pack_strips_cov_split(h_new, u_new, n, h)
+    return h_new, u_new, sn, we
+
+
+# ---------------------------------------------------------------------------
+# The stage: kernel wrapper
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+# 14 tensor pointers; n, halo, with_y0; 8 float constants; the stream.
+_KERNEL_ARGTYPES = (
+    [_P] * 14 + [ctypes.c_int] * 3 + [ctypes.c_float] * 8 + [_P])
+
+
+def _kernel():
+    """The built stage kernel's C entry point (built at first use)."""
+    lib = _build.load("cov_stage")
+    fn = lib.cov_stage_compact_f32
+    if fn.argtypes is None:
+        fn.argtypes = _KERNEL_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+class CovStageCompact:
+    """One fused covariant SSPRK3 stage over interior-only state.
+
+    ``a == 0``: ``stage(hc, uc, gsn, gwe, b_ext)``; else
+    ``stage(h0, u0, hc, uc, gsn, gwe, b_ext)``.  Computes
+    ``a*y0 + b*yc + b*dt*L(yc)`` with the combine association of the JAX
+    kernel, and returns ``(h, u, strips_sn, strips_we)``.
+
+    CUDA tensors launch ``csrc/cov_stage.cu``; CPU tensors run
+    :func:`cov_stage_compact_reference`.  There is no other path: a
+    kernel that fails to build or launch raises.
+    """
+
+    #: Launches of the CUDA kernel, all instances together (the plain
+    #: version does not count).
+    launches = 0
+
+    def __init__(self, n: int, halo: int, dalpha: float, radius: float,
+                 gravity: float, omega: float, dt: float, a: float, b: float,
+                 scheme: str = "plr", limiter: str = "mc", device="cuda"):
+        if scheme != "plr" or limiter != "mc":
+            raise NotImplementedError(
+                f"the stage kernel implements PLR with the MC limiter; got "
+                f"scheme={scheme!r}, limiter={limiter!r} (other "
+                "reconstructions: ROADMAP queue A item 1 and queue B item 1)")
+        if halo < 2:
+            raise ValueError(f"PLR needs halo >= 2, got {halo}")
+        self.n, self.halo, self.m = n, halo, n + 2 * halo
+        self.dalpha, self.radius = float(dalpha), float(radius)
+        self.gravity, self.omega = float(gravity), float(omega)
+        self.limiter = limiter
+        self.a, self.b, self.dt = float(a), float(b), float(dt)
+        if self.a == 0.0 and self.b != 1.0:
+            raise NotImplementedError(
+                f"a stage with a == 0 must have b == 1 (SSPRK3 stage 1); "
+                f"got b={b!r}")
+        # Stage 1 computes yc + g*L; stages 2-3 (a*y0 + b*yc) + g*L.
+        self.with_y0 = self.a != 0.0
+        self.fa, self.fb = _f32(self.a), _f32(self.b)
+        self.fg = _f32(self.b * self.dt)
+        # The kernel's float32 constants, rounded as rhs_core_cov and
+        # _fast_frame round them.
+        self._kconsts = (
+            _f32(_f32(self.radius) ** 2), _f32(self.gravity),
+            _f32(2.0 * self.omega), _f32(1.0 / (2.0 * self.dalpha)),
+            _f32(1.0 / self.dalpha), self.fa, self.fb, self.fg)
+        self.device = torch.device(device)
+        x_row, xf_row, x_col, xf_col, frames = coord_rows(n, halo, self.device)
+        self.coords = (x_row, xf_row, x_col, xf_col)
+        self.fz = frames[:, :, 2].contiguous()            # (6, 3) frame z
+        self._xc = x_row.reshape(-1).contiguous()
+        self._xf = xf_row.reshape(-1).contiguous()
+
+    def _unpack(self, args):
+        if self.with_y0:
+            if len(args) != 7:
+                raise TypeError("stage(h0, u0, hc, uc, gsn, gwe, b_ext) "
+                                f"takes 7 tensors, got {len(args)}")
+            return args
+        if len(args) != 5:
+            raise TypeError("stage(hc, uc, gsn, gwe, b_ext) takes 5 "
+                            f"tensors, got {len(args)}")
+        return (None, None) + tuple(args)
+
+    def _check(self, h0, u0, hc, uc, gsn, gwe, b_ext):
+        n, h, m = self.n, self.halo, self.m
+        want = {"hc": (hc, (6, n, n)), "uc": (uc, (2, 6, n, n)),
+                "gsn": (gsn, (6, 6 * h + 2, n)),
+                "gwe": (gwe, (6, n, 6 * h + 2)), "b_ext": (b_ext, (6, m, m))}
+        if self.with_y0:
+            want["h0"] = (h0, (6, n, n))
+            want["u0"] = (u0, (2, 6, n, n))
+        for name, (t, shape) in want.items():
+            if not isinstance(t, torch.Tensor):
+                raise TypeError(f"{name} must be a tensor, got {type(t)}")
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name}: expected shape {shape}, got "
+                                 f"{tuple(t.shape)}")
+            if t.dtype != torch.float32:
+                raise ValueError(f"{name}: expected float32, got {t.dtype}")
+            if t.device != self.device:
+                raise ValueError(f"{name} is on {t.device}; this stage was "
+                                 f"built for {self.device}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+
+    def __call__(self, *args):
+        h0, u0, hc, uc, gsn, gwe, b_ext = self._unpack(args)
+        self._check(h0, u0, hc, uc, gsn, gwe, b_ext)
+        if hc.device.type == "cpu":
+            return cov_stage_compact_reference(self, *args)
+        if hc.device.type != "cuda":
+            raise ValueError(f"unsupported device {hc.device}")
+        return self._launch(h0, u0, hc, uc, gsn, gwe, b_ext)
+
+    def reference(self, *args):
+        """The plain version on the same arguments (tests and smoke)."""
+        return cov_stage_compact_reference(self, *args)
+
+    def _launch(self, h0, u0, hc, uc, gsn, gwe, b_ext):
+        n, h = self.n, self.halo
+        ho = torch.empty_like(hc)
+        uo = torch.empty_like(uc)
+        ssn = hc.new_empty((6, 6 * h, n))
+        swe = hc.new_empty((6, n, 6 * h))
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        ptr = (lambda t: None if t is None else t.data_ptr())
+        rc = _kernel()(
+            ptr(h0), ptr(u0), hc.data_ptr(), uc.data_ptr(), gsn.data_ptr(),
+            gwe.data_ptr(), b_ext.data_ptr(), self._xc.data_ptr(),
+            self._xf.data_ptr(), self.fz.data_ptr(), ho.data_ptr(),
+            uo.data_ptr(), ssn.data_ptr(), swe.data_ptr(),
+            n, h, int(self.with_y0), *self._kconsts, stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"cov_stage kernel launch failed: cudaError {rc} "
+                f"(n={n}, halo={h})")
+        CovStageCompact.launches += 1
+        return ho, uo, ssn, swe
+
+
+def make_cov_stage_compact(n, halo, dalpha, radius, gravity, omega, dt, a, b,
+                           scheme="plr", limiter="mc", device="cuda"):
+    """One compact stage (see :class:`CovStageCompact`)."""
+    return CovStageCompact(n, halo, dalpha, radius, gravity, omega, dt, a, b,
+                           scheme=scheme, limiter=limiter, device=device)
+
+
+def make_fused_ssprk3_cov_compact(grid, gravity: float, omega: float,
+                                  dt: float, b_ext, scheme: str = "plr",
+                                  limiter: str = "mc"):
+    """``step(y, t) -> y`` over ``y = {h, u, strips_sn, strips_we}``.
+
+    Three stages, each one strip route and one stage launch; initialise
+    the carry with ``CovariantShallowWater.compact_state``.
+    """
+    route = make_cov_strip_router_split(grid)
+    stages = [make_cov_stage_compact(
+        grid.n, grid.halo, grid.dalpha, grid.radius, gravity, omega, dt,
+        a, b, scheme=scheme, limiter=limiter, device=grid.device)
+        for a, b in SSPRK3_COEFFS]
+    stage1, stage2, stage3 = stages
+
+    def step(y, t):
+        del t
+        h0, u0 = y["h"], y["u"]
+        gsn, gwe = route(y["strips_sn"], y["strips_we"])
+        h1, u1, sn1, we1 = stage1(h0, u0, gsn, gwe, b_ext)
+        gsn, gwe = route(sn1, we1)
+        h2, u2, sn2, we2 = stage2(h0, u0, h1, u1, gsn, gwe, b_ext)
+        gsn, gwe = route(sn2, we2)
+        h3, u3, sn3, we3 = stage3(h0, u0, h2, u2, gsn, gwe, b_ext)
+        return {"h": h3, "u": u3, "strips_sn": sn3, "strips_we": we3}
+
+    step.route = route
+    step.stages = stages
+    return step

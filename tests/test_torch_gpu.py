@@ -1,0 +1,66 @@
+"""The CUDA stage kernel against its plain PyTorch version, on the GPU.
+
+Marked ``gpu``: it needs a CUDA card and ``nvcc`` (the kernel is built
+from ``jaxstream_torch/csrc/`` at first use) and skips, with its reason,
+where there is none.  Run it on the card with
+``python -m pytest tests/test_torch_gpu.py -q -m gpu``.
+"""
+
+import pytest
+import torch
+
+from jaxstream_torch.config import EARTH_GRAVITY, EARTH_OMEGA, EARTH_RADIUS
+from jaxstream_torch.geometry.cubed_sphere import build_grid
+from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
+from jaxstream_torch.ops.cuda import swe_cov as tcov
+from jaxstream_torch.physics.initial_conditions import williamson_tc5
+
+# Budget for f32 op-order roundoff (rsqrtf against torch.rsqrt, per-cell
+# against row-broadcast metrics); the kernel, built with -fmad=false, has
+# matched the plain version bitwise on the H100.
+TOL = 1e-5
+# The tendency alone (the last case below) is ill-conditioned in float32:
+# any two f32 evaluations differ by ~1e-5 of its max.
+TENDENCY_TOL = 1e-4
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).abs().max()
+                 / (a.double().abs().max() + 1e-300))
+
+
+@pytest.mark.gpu
+def test_stage_kernel_matches_plain_c48():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the stage kernel has no CPU form)")
+    g = build_grid(48, halo=2, radius=EARTH_RADIUS, device="cuda")
+    h, v, b = williamson_tc5(g, EARTH_GRAVITY, EARTH_OMEGA)
+    m = CovariantShallowWater(g, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA,
+                              b_ext=b)
+    s0 = m.initial_state(h, v)
+    y = m.compact_state(s0)
+    route = tcov.make_cov_strip_router_split(g)
+    gsn, gwe = route(y["strips_sn"], y["strips_we"])
+    # The last case is stage 3 with y0 = -2*yc: its base a*y0 + b*yc is
+    # exactly 0, so the outputs are the scaled tendency g*L alone, which
+    # the full outputs hide under yc at this dt.
+    cases = [(a, bb, None) for a, bb in tcov.SSPRK3_COEFFS]
+    cases.append(tcov.SSPRK3_COEFFS[2] + (-2.0,))
+    for a, bb, y0_scale in cases:
+        stage = tcov.make_cov_stage_compact(
+            g.n, g.halo, g.dalpha, g.radius, EARTH_GRAVITY, EARTH_OMEGA,
+            75.0, a, bb, device=g.device)
+        args = [s0["h"], s0["u"], gsn, gwe, m.b_ext]
+        if y0_scale is not None:
+            args = [y0_scale * s0["h"], y0_scale * s0["u"]] + args
+        elif a != 0.0:
+            args = [s0["h"], s0["u"]] + args
+        before = tcov.CovStageCompact.launches
+        out = stage(*args)
+        torch.cuda.synchronize()
+        assert tcov.CovStageCompact.launches == before + 1
+        ref = stage.reference(*args)
+        for name, x, r in zip(("h", "u", "strips_sn", "strips_we"), out, ref):
+            assert bool(torch.all(torch.isfinite(x))), name
+            tol = TOL if y0_scale is None else TENDENCY_TOL
+            assert _rel(r, x) <= tol, (name, _rel(r, x))
