@@ -28,11 +28,12 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "jaxstream_torch"
 
 #: Kernel library name -> its source under ``csrc/``.
-KERNELS = {"cov_stage": "cov_stage.cu"}
+KERNELS = {"cov_stage": "cov_stage.cu",
+           "cov_nu4_filter": "cov_nu4_filter.cu"}
 
 # -fmad=false keeps every multiply and add separately rounded, as the
-# plain PyTorch version rounds them; the stage is memory-bound, so the
-# fused multiply-adds would buy no time.
+# plain PyTorch version rounds them; both kernels are memory-bound, so
+# the fused multiply-adds would buy no time.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-lineinfo", "-Xptxas", "-v",
               "-shared", "-Xcompiler", "-fPIC")

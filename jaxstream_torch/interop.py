@@ -3,7 +3,8 @@
 The JAX package's states are dicts of arrays; this port's are dicts of
 tensors with the same layouts (interior state ``{"h": (6, n, n),
 "u": (2, 6, n, n)}``, compact carry adds ``strips_sn (6, 6h, n)`` and
-``strips_we (6, n, 6h)``, extended fields such as ``b_ext`` ``(6, M, M)``).
+``strips_we (6, n, 6h)``, the filter-cycling carry adds ``filter_k``,
+extended fields such as ``b_ext`` ``(6, M, M)``).
 Arrays cross as numpy, so neither package imports the other:
 :func:`to_torch` turns numpy arrays (or anything ``np.asarray`` accepts,
 such as a JAX array) into tensors on a device, :func:`to_numpy` turns
@@ -21,19 +22,26 @@ from ._device import resolve_device
 
 __all__ = ["to_torch", "to_numpy"]
 
+#: The split del^4 stepper's filter-cycling counter: an integer array in
+#: the JAX package's carry, a Python int in the port's (no device sync).
+FILTER_K = "filter_k"
+
 
 def to_torch(tree, device=None):
     """Array or dict of arrays -> tensor(s) on ``device`` (default: the
-    GPU)."""
+    GPU).  A carry's ``filter_k`` step counter becomes a plain int."""
     dev = resolve_device(device)
     if isinstance(tree, Mapping):
-        return {k: to_torch(v, dev) for k, v in tree.items()}
+        return {k: int(v) if k == FILTER_K else to_torch(v, dev)
+                for k, v in tree.items()}
     # np.array copies: JAX hands out read-only buffers.
     return torch.from_numpy(np.array(tree, order="C")).to(dev)
 
 
 def to_numpy(tree):
-    """Tensor or dict of tensors -> numpy array(s) on the host."""
+    """Tensor or dict of tensors -> numpy array(s) on the host; a
+    ``filter_k`` step counter stays a plain int."""
     if isinstance(tree, Mapping):
-        return {k: to_numpy(v) for k, v in tree.items()}
+        return {k: int(v) if k == FILTER_K else to_numpy(v)
+                for k, v in tree.items()}
     return tree.detach().cpu().numpy()

@@ -18,7 +18,10 @@ __all__ = ["SWEBase"]
 
 
 class SWEBase(Model):
-    """Scheme validation, Coriolis parameter and filled topography."""
+    """Scheme validation, Coriolis parameter and filled topography.
+
+    ``nu4``: the del^4 hyperdiffusion coefficient (m^4/s); 0 turns the
+    filter off."""
 
     def __init__(self, grid: CubedSphereGrid, gravity: float, omega: float,
                  b_ext: Optional[torch.Tensor] = None, scheme: str = "plr",
@@ -28,10 +31,6 @@ class SWEBase(Model):
             raise NotImplementedError(
                 f"scheme={scheme!r}: only PLR is ported (PPM is ROADMAP "
                 "queue A item 1, ops/reconstruct.py)")
-        if nu4 != 0.0:
-            raise NotImplementedError(
-                "nu4 > 0 (the del^4 filter) is not ported yet: ROADMAP "
-                "queue A item 3 (Galewsky / del^4) and queue B kernel 2")
         self.gravity = gravity
         self.omega = omega
         self.scheme = scheme

@@ -14,7 +14,11 @@ with ``u^i = g^ij u_j``, ``K = (u^a u_a + u^b u_b)/2`` and
   own oracle for the fused path.
 * :meth:`make_fused_step` — the compact fused SSPRK3 stepper: per stage
   one strip route and one launch of the CUDA stage kernel (its plain
-  PyTorch version on the CPU).
+  PyTorch version on the CPU); with ``nu4 > 0`` one more route and one
+  launch of the CUDA del^4 filter kernel per step.
+
+With ``nu4 > 0`` the classic ``rhs`` adds ``-nu4 lap(fill(lap q))`` to
+every prognostic, as the JAX package's jnp path does.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import torch
 
 from ..geometry.cubed_sphere import CubedSphereGrid
 from ..ops.fv import (covariant_components, covariant_face_normal_velocity,
-                      embed_interior, flux_divergence_faces, vorticity_cov)
+                      embed_interior, flux_divergence_faces, laplacian,
+                      vorticity_cov)
 from ..parallel.vector_halo import make_vector_halo_exchanger
 from .base import State
 from .shallow_water import SWEBase
@@ -84,12 +89,27 @@ class CovariantShallowWater(SWEBase):
         ``y = compact_state(state)``.
 
         Ported: the production configuration — compact carry, f32 carry,
-        ``nu4 == 0``, one step per call, one member, f32 arithmetic.
-        Every other knob of the JAX package raises
-        ``NotImplementedError`` naming its ROADMAP item.
+        one step per call, one member, f32 arithmetic.  With ``nu4 == 0``
+        it is :func:`make_fused_ssprk3_cov_compact`; with ``nu4 > 0`` the
+        ``nu4_mode='split'`` stepper
+        :func:`make_fused_ssprk3_cov_split_nu4` (three stages, then one
+        del^4 filter launch per step).  Every other knob of the JAX
+        package raises ``NotImplementedError`` naming its ROADMAP item.
         """
-        from ..ops.cuda.swe_cov import make_fused_ssprk3_cov_compact
+        from ..ops.cuda.swe_cov import (make_fused_ssprk3_cov_compact,
+                                        make_fused_ssprk3_cov_split_nu4)
 
+        if nu4_mode not in ("split", "stage", "refused"):
+            raise ValueError(f"nu4_mode must be 'split', 'stage' or "
+                             f"'refused', got {nu4_mode!r}")
+        if self.nu4 != 0.0:
+            # The JAX package's own refusals for the del^4 paths.
+            if not compact:
+                raise ValueError("nu4 > 0 requires the compact carry")
+            if (carry_dtype is not None or h_offset or h_scale != 1.0
+                    or u_scale != 1.0):
+                raise ValueError("carry_dtype/h_offset/h_scale/u_scale are "
+                                 "not supported on the nu4 paths")
         if not compact:
             _not_ported("compact=False", "queue B item 8 "
                         "(make_cov_stage_inkernel, the extended carry)")
@@ -106,14 +126,21 @@ class CovariantShallowWater(SWEBase):
         if precision is not None:
             _not_ported(f"precision={precision!r}",
                         "queue A item 5 (ops/pallas/precision.py)")
-        if nu4_mode != "split":
-            _not_ported(f"nu4_mode={nu4_mode!r}",
-                        "queue A items 3 and 5 (del^4 modes)")
+        if nu4_mode == "refused":
+            _not_ported("nu4_mode='refused'",
+                        "queue B item 3 (make_cov_stage_refused_nu4)")
+        if nu4_mode == "stage":
+            _not_ported("nu4_mode='stage'",
+                        "queue B item 7 (make_cov_stage_nu4)")
         if self.grid.dtype != torch.float32:
             raise ValueError(
                 f"the fused stepper runs float32 grids only (the stage "
                 f"kernel is f32); got {self.grid.dtype}. Use make_step or "
                 f"build the grid with dtype=torch.float32.")
+        if self.nu4 != 0.0:
+            return make_fused_ssprk3_cov_split_nu4(
+                self.grid, self.gravity, self.omega, dt, self.b_ext,
+                self.nu4, scheme=self.scheme, limiter=self.limiter)
         return make_fused_ssprk3_cov_compact(
             self.grid, self.gravity, self.omega, dt, self.b_ext,
             scheme=self.scheme, limiter=self.limiter)
@@ -148,4 +175,11 @@ class CovariantShallowWater(SWEBase):
         absv = (zeta + self.fcor) * grid.interior(grid.sqrtg)
         dua = absv * grid.interior(uc_b) - dba
         dub = -absv * grid.interior(uc_a) - dbb
-        return {"h": dh, "u": torch.stack([dua, dub])}
+        du = torch.stack([dua, dub])
+
+        if self.nu4 > 0.0:
+            l1h = laplacian(grid, h_ext)
+            dh = dh - self.nu4 * laplacian(grid, self.fill(l1h))
+            l1u = laplacian(grid, u_ext)
+            du = du - self.nu4 * laplacian(grid, self._fill_u(l1u))
+        return {"h": dh, "u": du}

@@ -16,6 +16,14 @@ Counterpart of the compact-carry path of
   version :func:`cov_stage_compact_reference`, which
   :func:`rhs_core_cov` implements op for op after the JAX package.
 * :func:`make_fused_ssprk3_cov_compact`: route + stage, three times.
+* :class:`CovNu4Filter`: the once-per-step del^4 filter
+  ``q -= dt nu4 lap(lap q)`` on h, u_a, u_b.  On CUDA tensors it
+  launches ``csrc/cov_nu4_filter.cu`` (the port of the Pallas kernel
+  ``make_cov_nu4_filter``); on CPU tensors it runs
+  :func:`cov_nu4_filter_reference` (:func:`lap_core`,
+  :func:`_nu4_filtered_value`, :func:`_fill` with corners).
+* :func:`make_fused_ssprk3_cov_split_nu4`: the three stages, then route
+  + filter (the JAX package's ``nu4_mode='split'``).
 
 Layouts are the JAX package's: state ``h (6, n, n)``, ``u (2, 6, n, n)``;
 strips ``strips_sn (6, 6h, n)`` / ``strips_we (6, n, 6h)``; routed ghosts
@@ -33,6 +41,7 @@ import torch
 from ... import _build
 from ...geometry.connectivity import (EDGE_E, EDGE_N, EDGE_S, EDGE_W,
                                       build_connectivity, edge_pairs)
+from ...parallel.halo import _fill_corners
 from ..reconstruct import plr_face_states
 from .swe_rhs import _f32, _fast_frame, coord_rows
 
@@ -44,6 +53,11 @@ __all__ = [
     "make_cov_stage_compact",
     "cov_stage_compact_reference",
     "make_fused_ssprk3_cov_compact",
+    "lap_core",
+    "CovNu4Filter",
+    "make_cov_nu4_filter",
+    "cov_nu4_filter_reference",
+    "make_fused_ssprk3_cov_split_nu4",
     "SSPRK3_COEFFS",
 ]
 
@@ -367,9 +381,16 @@ def rhs_core_cov(fz, xr, xfr, yc, yfc, hf, ua, ub, bf, sym_sn, sym_we, *,
     return dh, dua, dub
 
 
-def _fill(q_int, gsn, gwe, fi, n, halo):
-    """Extended (6, M, M) field from the interior and the routed ghosts
-    (the placement of the JAX package's ``_make_fill``; corners zero)."""
+def _fill(q_int, gsn, gwe, fi, n, halo, corners=False):
+    """Extended (6, M, M) field ``fi`` from the interior and the routed
+    ghosts, in the placement of the JAX package's ``_make_fill``.
+
+    ``corners=False`` leaves the h x h ghost corners zero: the stage's
+    dimension-split stencils never read them.  ``corners=True`` fills
+    them by edge-ghost averaging (``_make_fill(corners=True)``, the same
+    formula as the halo exchanger's): the del^4 filter needs them, since
+    its Laplacians' cross-derivative terms read the corners.
+    """
     h = halo
     i0, i1 = h, h + n
     ext = q_int.new_zeros((6, n + 2 * h, n + 2 * h))
@@ -378,6 +399,8 @@ def _fill(q_int, gsn, gwe, fi, n, halo):
     ext[:, i1:i1 + h, i0:i1] = gsn[:, fi * 2 * h + h:(fi + 1) * 2 * h]
     ext[:, i0:i1, 0:h] = gwe[:, :, fi * 2 * h:fi * 2 * h + h]
     ext[:, i0:i1, i1:i1 + h] = gwe[:, :, fi * 2 * h + h:(fi + 1) * 2 * h]
+    if corners:
+        _fill_corners(ext, h, n)
     return ext
 
 
@@ -422,19 +445,41 @@ def cov_stage_compact_reference(stage, *args):
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
-# 14 tensor pointers; n, halo, with_y0; 8 float constants; the stream.
-_KERNEL_ARGTYPES = (
-    [_P] * 14 + [ctypes.c_int] * 3 + [ctypes.c_float] * 8 + [_P])
+
+
+def _entry(lib_name: str, fn_name: str, argtypes):
+    """A built kernel library's C entry point (built at first use)."""
+    fn = getattr(_build.load(lib_name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_tensors(want, device):
+    """Validate ``{name: (tensor, shape)}`` before pointers are passed:
+    float32, contiguous, the expected shape, on ``device``."""
+    for name, (t, shape) in want.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor, got {type(t)}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: expected float32, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}; this kernel was "
+                             f"built for {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def _kernel():
-    """The built stage kernel's C entry point (built at first use)."""
-    lib = _build.load("cov_stage")
-    fn = lib.cov_stage_compact_f32
-    if fn.argtypes is None:
-        fn.argtypes = _KERNEL_ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+    """The stage kernel: 14 tensor pointers; n, halo, with_y0; 8 float
+    constants; the stream."""
+    return _entry("cov_stage", "cov_stage_compact_f32",
+                  [_P] * 14 + [ctypes.c_int] * 3 + [ctypes.c_float] * 8
+                  + [_P])
 
 
 class CovStageCompact:
@@ -509,19 +554,7 @@ class CovStageCompact:
         if self.with_y0:
             want["h0"] = (h0, (6, n, n))
             want["u0"] = (u0, (2, 6, n, n))
-        for name, (t, shape) in want.items():
-            if not isinstance(t, torch.Tensor):
-                raise TypeError(f"{name} must be a tensor, got {type(t)}")
-            if tuple(t.shape) != shape:
-                raise ValueError(f"{name}: expected shape {shape}, got "
-                                 f"{tuple(t.shape)}")
-            if t.dtype != torch.float32:
-                raise ValueError(f"{name}: expected float32, got {t.dtype}")
-            if t.device != self.device:
-                raise ValueError(f"{name} is on {t.device}; this stage was "
-                                 f"built for {self.device}")
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
+        _check_tensors(want, self.device)
 
     def __call__(self, *args):
         h0, u0, hc, uc, gsn, gwe, b_ext = self._unpack(args)
@@ -593,4 +626,238 @@ def make_fused_ssprk3_cov_compact(grid, gravity: float, omega: float,
 
     step.route = route
     step.stages = stages
+    return step
+
+
+# ---------------------------------------------------------------------------
+# The del^4 filter: plain version
+# ---------------------------------------------------------------------------
+
+
+def lap_core(xr, xfr, yc, yfc, psi, *, n, halo, d, radius, ring=0):
+    """Laplace-Beltrami of ghost-filled ``(..., M, M)`` faces.
+
+    The plain twin of the JAX package's ``lap_core``: the conservative
+    flux form of :func:`jaxstream_torch.ops.fv.laplacian` with face
+    metrics from the closed forms of :func:`_fast_frame`.  ``ring``: how
+    many ghost rings the output includes — 0 gives the interior
+    ``(n, n)``, ``ring=g`` gives ``(n+2g, n+2g)``, the operator evaluated
+    face-locally on the innermost ``g`` ghost rings too.  Those stencils
+    read ghosts to depth ``g+1`` and the filled corners, so
+    ``0 <= ring <= halo-1``.
+    """
+    if not 0 <= ring <= halo - 1:
+        raise ValueError(f"lap_core: ring={ring} needs 0 <= ring <= "
+                         f"halo-1 (halo={halo}; the ring stencil reads "
+                         "ghosts to depth ring+1)")
+    h0, h1 = halo - ring, halo + n + ring
+    invd = _f32(1.0 / d)
+    inv2d = _f32(0.5 / d)
+
+    pr = psi[..., h0:h1, :]
+    dpa = (pr[..., h0:h1 + 1] - pr[..., h0 - 1:h1]) * invd
+    dpb_c = (psi[..., h0 + 1:h1 + 1, :] - psi[..., h0 - 1:h1 - 1, :]) * inv2d
+    dpb_f = 0.5 * (dpb_c[..., h0 - 1:h1] + dpb_c[..., h0:h1 + 1])
+    Fx = _fast_frame(xfr[:, h0:h1 + 1], yc[h0:h1], radius)
+    fx = Fx["fg_aa"] * dpa + Fx["fg_ab"] * dpb_f
+
+    pc = psi[..., :, h0:h1]
+    dpb = (pc[..., h0:h1 + 1, :] - pc[..., h0 - 1:h1, :]) * invd
+    dpa_c = (psi[..., :, h0 + 1:h1 + 1] - psi[..., :, h0 - 1:h1 - 1]) * inv2d
+    dpa_f = 0.5 * (dpa_c[..., h0 - 1:h1, :] + dpa_c[..., h0:h1 + 1, :])
+    Fy = _fast_frame(xr[:, h0:h1], yfc[h0:h1 + 1], radius)
+    fy = Fy["fg_bb"] * dpb + Fy["fg_ab"] * dpa_f
+
+    Fc = _fast_frame(xr[:, h0:h1], yc[h0:h1], radius)
+    return ((fx[..., 1:] - fx[..., :-1]) + (fy[..., 1:, :] - fy[..., :-1, :])
+            ) * (Fc["inv_sqrtg"] * invd)
+
+
+def _nu4_filtered_value(xr, xfr, yc, yfc, psi, iv, *, n, halo, d, radius,
+                        damp):
+    """``q - damp * lap(lap q)``: the one definition of the filter's
+    arithmetic.  The first Laplacian runs on ring 1 of the halo-deep
+    frame ``psi``, so the second needs no ghost exchange; the second runs
+    on l1's ``(n+2)^2`` window, whose coordinate windows are
+    ``[h-1 : m-h+1]`` (centers) and ``[h-1 : m-h+2]`` (faces).  ``iv``:
+    the unfiltered interior values."""
+    m = n + 2 * halo
+    h = halo
+    l1 = lap_core(xr, xfr, yc, yfc, psi, n=n, halo=halo, d=d,
+                  radius=radius, ring=1)
+    l2 = lap_core(xr[:, h - 1:m - h + 1], xfr[:, h - 1:m - h + 2],
+                  yc[h - 1:m - h + 1, :], yfc[h - 1:m - h + 2, :],
+                  l1, n=n, halo=1, d=d, radius=radius)
+    return iv - damp * l2
+
+
+def cov_nu4_filter_reference(filt, hc, uc, gsn, gwe):
+    """The plain PyTorch version of the whole filter.
+
+    ``filt`` is a :class:`CovNu4Filter` (its constants and coordinate
+    rows).  Each of h, u_a, u_b gets its ghosts and averaged corners
+    from the routed blocks ``gsn``/``gwe`` (their sym rows are not read)
+    and becomes ``q - damp * lap(lap q)``.  Used on CPU tensors by the
+    filter itself and by the tests and ``chip_smoke.py`` to hold the CUDA
+    kernel against it; it also runs in float64.  Returns
+    ``(h, u, strips_sn, strips_we)``.
+    """
+    n, h = filt.n, filt.halo
+    x_row, xf_row, x_col, xf_col = filt.coords
+    out = [_nu4_filtered_value(
+        x_row, xf_row, x_col, xf_col,
+        _fill(q, gsn, gwe, fi, n, h, corners=True), q,
+        n=n, halo=h, d=filt.dalpha, radius=filt.radius, damp=filt.damp)
+        for fi, q in enumerate((hc, uc[0], uc[1]))]
+    h_new, u_new = out[0], torch.stack(out[1:])
+    sn, we = pack_strips_cov_split(h_new, u_new, n, h)
+    return h_new, u_new, sn, we
+
+
+# ---------------------------------------------------------------------------
+# The del^4 filter: kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def _filter_kernel():
+    """The filter kernel: 10 tensor pointers; n, halo; R^2, 1/d, 0.5/d,
+    damp; the stream."""
+    return _entry("cov_nu4_filter", "cov_nu4_filter_f32",
+                  [_P] * 10 + [ctypes.c_int] * 2 + [ctypes.c_float] * 4
+                  + [_P])
+
+
+class CovNu4Filter:
+    """The once-per-step del^4 filter ``q -= dt_eff nu4 lap(lap q)``.
+
+    ``filt(hc, uc, gsn, gwe) -> (h, u, strips_sn, strips_we)`` on h,
+    u_a, u_b, with ghosts from the routed blocks of the state's strips.
+    CUDA tensors launch ``csrc/cov_nu4_filter.cu`` (the port of the
+    Pallas kernel ``make_cov_nu4_filter``); CPU tensors run
+    :func:`cov_nu4_filter_reference`.  There is no other path: a kernel
+    that fails to build or launch raises.
+    """
+
+    #: Launches of the CUDA kernel, all instances together (the plain
+    #: version does not count).
+    launches = 0
+
+    def __init__(self, n: int, halo: int, dalpha: float, radius: float,
+                 nu4: float, dt_eff: float, device="cuda"):
+        if halo < 2:
+            raise ValueError(f"split nu4 filter needs halo >= 2 (ring-1 "
+                             f"first Laplacian), got halo={halo}")
+        self.n, self.halo = n, halo
+        self.dalpha, self.radius = float(dalpha), float(radius)
+        self.nu4, self.dt_eff = float(nu4), float(dt_eff)
+        # Rounded once from float64, as the JAX kernel rounds it.
+        self.damp = _f32(self.dt_eff * self.nu4)
+        # The kernel's float32 constants, rounded as lap_core and
+        # _fast_frame round them.
+        self._kconsts = (_f32(_f32(self.radius) ** 2),
+                         _f32(1.0 / self.dalpha), _f32(0.5 / self.dalpha),
+                         self.damp)
+        self.device = torch.device(device)
+        x_row, xf_row, x_col, xf_col, _ = coord_rows(n, halo, self.device)
+        self.coords = (x_row, xf_row, x_col, xf_col)
+        self._xc = x_row.reshape(-1).contiguous()
+        self._xf = xf_row.reshape(-1).contiguous()
+
+    def _check(self, hc, uc, gsn, gwe):
+        n, h = self.n, self.halo
+        _check_tensors({"hc": (hc, (6, n, n)), "uc": (uc, (2, 6, n, n)),
+                        "gsn": (gsn, (6, 6 * h + 2, n)),
+                        "gwe": (gwe, (6, n, 6 * h + 2))}, self.device)
+
+    def __call__(self, hc, uc, gsn, gwe):
+        self._check(hc, uc, gsn, gwe)
+        if hc.device.type == "cpu":
+            return cov_nu4_filter_reference(self, hc, uc, gsn, gwe)
+        if hc.device.type != "cuda":
+            raise ValueError(f"unsupported device {hc.device}")
+        return self._launch(hc, uc, gsn, gwe)
+
+    def reference(self, hc, uc, gsn, gwe):
+        """The plain version on the same arguments (tests and smoke)."""
+        return cov_nu4_filter_reference(self, hc, uc, gsn, gwe)
+
+    def _launch(self, hc, uc, gsn, gwe):
+        n, h = self.n, self.halo
+        ho = torch.empty_like(hc)
+        uo = torch.empty_like(uc)
+        ssn = hc.new_empty((6, 6 * h, n))
+        swe = hc.new_empty((6, n, 6 * h))
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        rc = _filter_kernel()(
+            hc.data_ptr(), uc.data_ptr(), gsn.data_ptr(), gwe.data_ptr(),
+            self._xc.data_ptr(), self._xf.data_ptr(), ho.data_ptr(),
+            uo.data_ptr(), ssn.data_ptr(), swe.data_ptr(),
+            n, h, *self._kconsts, stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"cov_nu4_filter kernel launch failed: cudaError {rc} "
+                f"(n={n}, halo={h})")
+        CovNu4Filter.launches += 1
+        return ho, uo, ssn, swe
+
+
+def make_cov_nu4_filter(grid, nu4: float, dt_eff: float, device=None):
+    """The del^4 filter on ``grid`` (see :class:`CovNu4Filter`); ``device``
+    defaults to the grid's."""
+    return CovNu4Filter(grid.n, grid.halo, grid.dalpha, grid.radius, nu4,
+                        dt_eff, device=grid.device if device is None
+                        else device)
+
+
+def make_fused_ssprk3_cov_split_nu4(grid, gravity: float, omega: float,
+                                    dt: float, b_ext, nu4: float,
+                                    interval: int = 1, scheme: str = "plr",
+                                    limiter: str = "mc"):
+    """``step(y, t) -> y``: the three compact stages of
+    :func:`make_fused_ssprk3_cov_compact`, then one route and one del^4
+    filter launch — the JAX package's ``nu4_mode='split'`` stepper.
+
+    The split is first order in time in the filter term, the standard
+    operator-split treatment of hyperdiffusion.  The stages and the
+    filter share the prescaled router: the filter reads only the ghost
+    blocks, never the sym rows.
+
+    ``interval``: filter every ``interval``-th step with an
+    ``interval x`` coefficient.  For ``interval > 1`` the carry needs an
+    integer step counter ``"filter_k"`` (a Python int, so the branch
+    costs no device sync): seed it as
+    ``dict(model.compact_state(state), filter_k=0)``.  It is never
+    reconstructed as ``round(t/dt)``, which an accumulated ``t`` can make
+    skip or repeat an index.
+    """
+    if interval < 1:
+        raise ValueError(f"interval must be >= 1, got {interval}")
+    advance = make_fused_ssprk3_cov_compact(grid, gravity, omega, dt, b_ext,
+                                            scheme=scheme, limiter=limiter)
+    route = advance.route
+    filt = make_cov_nu4_filter(grid, nu4, dt * interval)
+
+    def filtered(y):
+        gsn, gwe = route(y["strips_sn"], y["strips_we"])
+        hf, uf, snf, wef = filt(y["h"], y["u"], gsn, gwe)
+        return {"h": hf, "u": uf, "strips_sn": snf, "strips_we": wef}
+
+    def step(y, t):
+        y3 = advance(y, t)
+        if interval == 1:
+            return filtered(y3)
+        if "filter_k" not in y:
+            raise ValueError(
+                "the interval > 1 filter-cycling carry needs an integer "
+                "'filter_k' step counter; seed it as "
+                "dict(model.compact_state(state), filter_k=0)")
+        k = y["filter_k"]
+        if not isinstance(k, int):
+            raise TypeError(f"filter_k must be a Python int, got {type(k)}")
+        out = filtered(y3) if k % interval == interval - 1 else y3
+        return dict(out, filter_k=(k + 1) % interval)
+
+    step.route = route
+    step.stages = advance.stages
+    step.filter = filt
     return step

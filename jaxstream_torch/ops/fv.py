@@ -26,6 +26,7 @@ __all__ = [
     "covariant_components",
     "covariant_face_normal_velocity",
     "flux_divergence_faces",
+    "laplacian",
     "vorticity_cov",
 ]
 
@@ -154,6 +155,45 @@ def flux_divergence_faces(grid: CubedSphereGrid, q, ux, uy,
     qL, qR = plr_face_states(qy, -2, h, n, limiter=limiter)
     sgy = _sl(_sl(grid.sqrtg_yf, h, h + n + 1, -2), h, h + n, -1)
     fy = sgy * (torch.clamp(uy, min=0.0) * qL + torch.clamp(uy, max=0.0) * qR)
+
+    sg_c = grid.interior(grid.sqrtg)
+    return ((_sl(fx, 1, None, -1) - _sl(fx, 0, -1, -1))
+            + (_sl(fy, 1, None, -2) - _sl(fy, 0, -1, -2))) / (sg_c * d)
+
+
+def laplacian(grid: CubedSphereGrid, psi):
+    """Laplace-Beltrami operator in conservative flux form.
+
+    ``lap(psi) = (1/sqrtg) [d_a(sqrtg (g^aa psi_a + g^ab psi_b))
+    + d_b(sqrtg (g^ab psi_a + g^bb psi_b))]`` with the stored face
+    metrics; iterated, with a ghost refill between applications, it is
+    the classic path's del^4 hyperdiffusion.  ``psi``: ``(..., 6, M, M)``
+    with ghosts and corners filled -> ``(..., 6, n, n)``.
+    """
+    h, n, d = grid.halo, grid.n, grid.dalpha
+
+    # x-faces i = h..h+n on interior rows; d/d beta at the face averages
+    # the centered row derivatives of the two abutting cells.
+    pr = _sl(psi, h, h + n, -2)
+    dpa = (_sl(pr, h, h + n + 1, -1) - _sl(pr, h - 1, h + n, -1)) / d
+    dpb_c = (_sl(psi, h + 1, h + n + 1, -2)
+             - _sl(psi, h - 1, h + n - 1, -2)) / (2 * d)
+    dpb_f = 0.5 * (_sl(dpb_c, h - 1, h + n, -1) + _sl(dpb_c, h, h + n + 1, -1))
+    sgx = _sl(_sl(grid.sqrtg_xf, h, h + n + 1, -1), h, h + n, -2)
+    iaa = _sl(_sl(grid.ginv_aa_xf, h, h + n + 1, -1), h, h + n, -2)
+    iab = _sl(_sl(grid.ginv_ab_xf, h, h + n + 1, -1), h, h + n, -2)
+    fx = sgx * (iaa * dpa + iab * dpb_f)
+
+    # y-faces j = h..h+n on interior columns.
+    pc = _sl(psi, h, h + n, -1)
+    dpb = (_sl(pc, h, h + n + 1, -2) - _sl(pc, h - 1, h + n, -2)) / d
+    dpa_c = (_sl(psi, h + 1, h + n + 1, -1)
+             - _sl(psi, h - 1, h + n - 1, -1)) / (2 * d)
+    dpa_f = 0.5 * (_sl(dpa_c, h - 1, h + n, -2) + _sl(dpa_c, h, h + n + 1, -2))
+    sgy = _sl(_sl(grid.sqrtg_yf, h, h + n + 1, -2), h, h + n, -1)
+    ibb = _sl(_sl(grid.ginv_bb_yf, h, h + n + 1, -2), h, h + n, -1)
+    iab2 = _sl(_sl(grid.ginv_ab_yf, h, h + n + 1, -2), h, h + n, -1)
+    fy = sgy * (ibb * dpb + iab2 * dpa_f)
 
     sg_c = grid.interior(grid.sqrtg)
     return ((_sl(fx, 1, None, -1) - _sl(fx, 0, -1, -1))

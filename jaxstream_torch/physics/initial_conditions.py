@@ -1,4 +1,4 @@
-"""Initial conditions: Williamson TC2 and TC5.
+"""Initial conditions: Williamson TC2 and TC5, and the Galewsky jet.
 
 Counterpart of :mod:`jaxstream.physics.initial_conditions`.  Fields are
 evaluated analytically at extended cell centers (ghosts included) in
@@ -17,7 +17,7 @@ from ..config import EARTH_RADIUS
 from ..geometry.cubed_sphere import CubedSphereGrid, _np_dtype
 
 __all__ = ["solid_body_wind", "zonal_meridional_to_cartesian",
-           "williamson_tc2", "williamson_tc5"]
+           "williamson_tc2", "williamson_tc5", "galewsky"]
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
@@ -86,3 +86,43 @@ def williamson_tc5(grid: CubedSphereGrid, gravity: float, omega: float,
     b = mountain_h * (1.0 - r / mountain_r)
     h = gh / gravity - b
     return _out(grid, h), solid_body_wind(grid, u0, 0.0), _out(grid, b)
+
+
+def galewsky(grid: CubedSphereGrid, gravity: float, omega: float,
+             u_max: float = 80.0, h_mean: float = 10158.0,
+             lat0: float = np.pi / 7, lat1: float = np.pi / 2 - np.pi / 7,
+             perturb: bool = True, h_hat: float = 120.0,
+             alpha_p: float = 1.0 / 3.0, beta_p: float = 1.0 / 15.0,
+             lat2: float = np.pi / 4):
+    """Galewsky et al. (2004) barotropic-instability jet: ``(h_ext, v_ext)``.
+
+    The balanced height is integrated numerically (fine trapezoid in
+    float64) from ``gh'(lat) = -a u (f + u tan(lat) / a)``.
+    """
+    a = grid.radius
+    en = np.exp(-4.0 / (lat1 - lat0) ** 2)
+
+    def u_of(phi):
+        inside = (phi > lat0) & (phi < lat1)
+        safe = np.where(inside, (phi - lat0) * (phi - lat1), -1.0)
+        return np.where(inside, u_max / en * np.exp(1.0 / safe), 0.0)
+
+    # Fine latitude grid for the balance integral.
+    phi_f = np.linspace(-np.pi / 2, np.pi / 2, 20001)
+    u_f = u_of(phi_f)
+    integrand = a * u_f * (2 * omega * np.sin(phi_f)
+                           + u_f * np.tan(phi_f) / a)
+    gh_f = -np.concatenate([[0.0], np.cumsum(
+        0.5 * (integrand[1:] + integrand[:-1]) * np.diff(phi_f))])
+    gh_f = gh_f - gh_f.mean() + gravity * h_mean
+
+    lat = _np(grid.lat)
+    lon = _np(grid.lon)
+    h = np.interp(lat, phi_f, gh_f) / gravity
+    if perturb:
+        lonp = np.arctan2(np.sin(lon), np.cos(lon))  # wrap to (-pi, pi)
+        h = h + h_hat * np.cos(lat) * np.exp(-((lonp / alpha_p) ** 2)) * \
+            np.exp(-(((lat2 - lat) / beta_p) ** 2))
+    u = u_of(lat)
+    return _out(grid, h), zonal_meridional_to_cartesian(grid, u,
+                                                        np.zeros_like(u))

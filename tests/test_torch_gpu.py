@@ -1,6 +1,6 @@
-"""The CUDA stage kernel against its plain PyTorch version, on the GPU.
+"""The CUDA kernels against their plain PyTorch versions, on the GPU.
 
-Marked ``gpu``: it needs a CUDA card and ``nvcc`` (the kernel is built
+Marked ``gpu``: it needs a CUDA card and ``nvcc`` (the kernels are built
 from ``jaxstream_torch/csrc/`` at first use) and skips, with its reason,
 where there is none.  Run it on the card with
 ``python -m pytest tests/test_torch_gpu.py -q -m gpu``.
@@ -13,7 +13,8 @@ from jaxstream_torch.config import EARTH_GRAVITY, EARTH_OMEGA, EARTH_RADIUS
 from jaxstream_torch.geometry.cubed_sphere import build_grid
 from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
 from jaxstream_torch.ops.cuda import swe_cov as tcov
-from jaxstream_torch.physics.initial_conditions import williamson_tc5
+from jaxstream_torch.physics.initial_conditions import (galewsky,
+                                                        williamson_tc5)
 
 # Budget for f32 op-order roundoff (rsqrtf against torch.rsqrt, per-cell
 # against row-broadcast metrics); the kernel, built with -fmad=false, has
@@ -22,6 +23,9 @@ TOL = 1e-5
 # The tendency alone (the last case below) is ill-conditioned in float32:
 # any two f32 evaluations differ by ~1e-5 of its max.
 TENDENCY_TOL = 1e-4
+# The filter's increment probe: its outputs are lap(lap q) scaled, whose
+# f32 evaluation cancels (tests/test_torch_nu4.py, PROBE_TOL).
+PROBE_TOL = 1e-4
 
 
 def _rel(a, b):
@@ -63,4 +67,35 @@ def test_stage_kernel_matches_plain_c48():
         for name, x, r in zip(("h", "u", "strips_sn", "strips_we"), out, ref):
             assert bool(torch.all(torch.isfinite(x))), name
             tol = TOL if y0_scale is None else TENDENCY_TOL
+            assert _rel(r, x) <= tol, (name, _rel(r, x))
+
+
+@pytest.mark.gpu
+def test_filter_kernel_matches_plain_c48():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the filter kernel has no CPU form)")
+    g = build_grid(48, halo=2, radius=EARTH_RADIUS, device="cuda")
+    m = CovariantShallowWater(g, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA,
+                              nu4=1.0e14)
+    step = m.make_fused_step(480.0)
+    y = step(m.compact_state(m.initial_state(
+        *galewsky(g, EARTH_GRAVITY, EARTH_OMEGA))), 0.0)
+    args = (y["h"], y["u"]) + step.route(y["strips_sn"], y["strips_we"])
+    filt = step.filter
+    # The probe scales nu4 until damp*max|l2| is 1e3 x max|q| for every
+    # field, so its outputs are the filter term, which the full outputs
+    # hide under q (see tests/test_torch_nu4.py for its tolerance).
+    exact = filt.reference(*[t.double() for t in args])
+    ratio = min(float((a.double() - b).abs().max() / a.abs().max())
+                for a, b in zip((args[0], args[1][0], args[1][1]),
+                                (exact[0], exact[1][0], exact[1][1])))
+    probe = tcov.make_cov_nu4_filter(g, filt.nu4 * 1e3 / ratio, filt.dt_eff)
+    for f, tol in ((filt, TOL), (probe, PROBE_TOL)):
+        before = tcov.CovNu4Filter.launches
+        out = f(*args)
+        torch.cuda.synchronize()
+        assert tcov.CovNu4Filter.launches == before + 1
+        ref = f.reference(*args)
+        for name, x, r in zip(("h", "u", "strips_sn", "strips_we"), out, ref):
+            assert bool(torch.all(torch.isfinite(x))), name
             assert _rel(r, x) <= tol, (name, _rel(r, x))

@@ -97,7 +97,8 @@ def test_fused_step_conserves_mass():
     ({"temporal_block": 2}, "queue A item 5"),
     ({"ensemble": 2}, "queue A item 5"),
     ({"precision": "bf16"}, "queue A item 5"),
-    ({"nu4_mode": "refused"}, "queue A items 3 and 5"),
+    ({"nu4_mode": "refused"}, "queue B item 3"),
+    ({"nu4_mode": "stage"}, "queue B item 7"),
 ])
 def test_unported_knobs_raise(kwargs, item):
     g, m, _ = _port(8)
@@ -107,8 +108,10 @@ def test_unported_knobs_raise(kwargs, item):
 
 def test_unported_model_options_raise():
     g = build_grid(8, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        CovariantShallowWater(g, gravity=9.8, omega=0.0, nu4=1e14)
+    # nu4 > 0 is ported: the model builds, and its fused step is the
+    # split del^4 stepper (tests/test_torch_nu4.py).
+    m = CovariantShallowWater(g, gravity=9.8, omega=0.0, nu4=1e14)
+    assert m.nu4 == 1e14 and m.make_fused_step(1.0).filter.nu4 == 1e14
     with pytest.raises(NotImplementedError, match="PPM"):
         CovariantShallowWater(g, gravity=9.8, omega=0.0, scheme="ppm")
     with pytest.raises(NotImplementedError, match="queue A item 1"):
