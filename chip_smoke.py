@@ -2,24 +2,30 @@
 
     python3 chip_smoke.py
 
-Two paths, both at C384, halo 2, float32, PLR + MC, through the port's
-entry points:
+Four paths, all at C384, halo 2, float32, PLR + MC, through the port's
+entry points (``CovariantShallowWater.make_fused_step``):
 
 * Williamson TC5 (flow over a mountain), dt = 75 s, stepped by the
   compact fused SSPRK3 stepper: per step three strip routes (torch ops)
   and three launches of the hand-written CUDA stage kernel
   (``jaxstream_torch/csrc/cov_stage.cu``);
-* the Galewsky barotropic-instability jet, dt = 60 s, nu4 = 1e14, stepped
-  by the split del^4 stepper: the same three routes and stage launches,
-  then a fourth route and one launch of the CUDA filter kernel
-  (``jaxstream_torch/csrc/cov_nu4_filter.cu``).
+* the Galewsky barotropic-instability jet, dt = 60 s, nu4 = 1e14, under
+  each of the three ``nu4_mode`` values:
+  - ``split``: the same three routes and stage launches, then a fourth
+    route and one launch of the CUDA filter kernel
+    (``csrc/cov_nu4_filter.cu``);
+  - ``refused``: route, one launch of the re-fused stage-1 kernel
+    (``csrc/cov_stage_refused_nu4.cu``), then two routes and stage
+    launches;
+  - ``stage``: per RK stage a route, kernel A, a route of A's l1 strips
+    and kernel B (``csrc/cov_stage_nu4.cu``).
 
 Phases, each fatal on failure:
 
 1. the card, its power limit, and the kernel builds (one nvcc per
    source, all started together; -Xptxas -v);
-2. the kernel against its plain PyTorch version at C384, as stage 1
-   and as stage 2 (<= 1e-5 of each output's max), and as stage 3 with
+2. the stage kernel against its plain PyTorch version at C384, as stage
+   1 and as stage 2 (<= 1e-5 of each output's max), and as stage 3 with
    y0 = -2 yc, where the outputs are the scaled tendency g*L alone
    (<= 1e-4 of its max: f32 roundoff of the tendency is ~1e-5);
 3. three fused steps against three steps of the port's classic path
@@ -31,20 +37,40 @@ Phases, each fatal on failure:
 5. a short window traced by ``torch.profiler`` for the device's busy
    share (apart from the timed window, so tracing costs it nothing);
 6. the filter kernel against its plain version at C384 on the Galewsky
-   state after one step (<= 1e-5 of each output's max), and an increment
-   probe: the filter with nu4 scaled until damp*max|lap(lap q)| is
-   1e3 x max|q|, whose outputs are the filter term itself (<= 1e-4 of
-   its max, the tolerance of ``tests/test_torch_nu4.py``);
+   state after one split step (<= 1e-5 of each output's max), and an
+   increment probe: the filter with nu4 scaled until
+   damp*max|lap(lap q)| is 1e3 x max|q|, whose outputs are the filter
+   term itself (<= 1e-4 of its max, the tolerance of
+   ``tests/test_torch_nu4.py``);
 7. three split steps against three classic del^4 steps (<= 2e-3 of max,
    the JAX package's own split-vs-classic budget);
-8. the Galewsky jet to day 6 (8 640 steps), gated as
-   ``bench.py::bench_galewsky`` gates it (finite, 8500 < h < 10800 m,
+8. the Galewsky jet to day 6 (8 640 steps) on the split stepper, gated
+   as ``bench.py::bench_galewsky`` gates it (finite, 8500 < h < 10800 m,
    mass drift < 1e-3, 5e-5 < max|zeta| north of 0.2 rad < 5e-4,
    max|zeta| south of -0.2 rad < 5e-6), with the filter launches checked
    against the steps and the stage launches against 3 x steps;
-9. a timed window of 2 000 Galewsky steps, its breakdown (4 routes,
-   3 stage launches, 1 filter launch, the rest), the filter's time
-   against its plain version and its bound, and a traced window.
+9. a timed window of 2 000 split steps, its breakdown (4 routes, 3 stage
+   launches, 1 filter launch, the rest), the filter's time against its
+   plain version and its bound, and a traced window;
+10. the re-fused kernel against its plain version on the Galewsky state
+    after one re-fused step (<= 1e-5 of each output's max), and its
+    increment probe (nu4 scaled until the filtered base h0f, u0f is the
+    filter term; <= 1e-4), with the plain version's f32-vs-f64 spread;
+11. three re-fused steps against three split steps (<= 2e-3 of max, the
+    JAX package's damp-scale budget: the two differ by one endpoint
+    filter application; mass <= 1e-5);
+12. the jet to day 6 on the re-fused stepper under the same gate, with
+    the launches checked (re-fused 8 640, stage 17 280), then a timed
+    window of 2 000 steps, its breakdown (3 routes, 1 re-fused launch,
+    2 stage launches, the rest), a traced window, and 500-step windows
+    of the split and re-fused steppers in turns (split, re-fused,
+    re-fused, split);
+13. kernels A and B against their plain versions as stage 1 and stage 2
+    (<= 1e-5), B with its probe (<= 1e-4); then three in-stage steps
+    against three classic del^4 steps (<= 5e-4) and three split steps
+    (<= 2e-3);
+14. a timed window of 500 in-stage steps with the launches checked
+    (A and B 3 x steps) and its breakdown (6 routes, 3 A, 3 B, the rest).
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -77,6 +103,12 @@ FLOPS_PER_CELL = 137
 # for the damp, 31 for the metric terms the kernel shares between them
 # (a square root or a division counts as one).
 FILTER_FLOPS_PER_CELL = 169
+# The re-fused stage 1: the filter, then the stage.
+REFUSED_FLOPS_PER_CELL = FILTER_FLOPS_PER_CELL + FLOPS_PER_CELL
+# Kernel A: the stage, a Laplacian per field, the Laplacian's metric
+# terms; kernel B: a Laplacian and the damp per field, the metric terms.
+A_FLOPS_PER_CELL = FLOPS_PER_CELL + 3 * 22 + 31
+B_FLOPS_PER_CELL = 3 * 24 + 31
 KERNEL_TOL = 1e-5
 # The tendency alone is ill-conditioned in float32 (its flux differences
 # cancel): two f32 evaluations differ by ~1e-5 of its max.
@@ -86,12 +118,20 @@ FUSED_VS_CLASSIC_TOL = 2e-4
 GAL_DT = 60.0
 GAL_NU4 = 1.0e14
 GAL_DAY6_STEPS = 8640
+STAGE_TIMED_STEPS = 500
+PAIRED_STEPS = 500
 # The filter's increment probe: lap(lap q) in float32 cancels; the plain
 # version at f32 against its float64 evaluation measured up to 2.2e-6 of
 # the probe's max at C8-C48 on the CPU (tests/test_torch_nu4.py).
 PROBE_TOL = 1e-4
 PROBE_MARGIN = 1e3
 SPLIT_VS_CLASSIC_TOL = 2e-3
+# The JAX package's damp-scale budget for two del^4 placements
+# (tests/test_cov_swe.py:495): refused vs split and stage vs split.
+DAMP_SCALE_TOL = 2e-3
+DAMP_SCALE_MASS_TOL = 1e-5
+# In-stage vs classic del^4 (tests/test_cov_swe.py:463).
+STAGE_VS_CLASSIC_TOL = 5e-4
 
 
 def log(msg: str) -> None:
@@ -127,6 +167,47 @@ def bound_ms(args, outs, n: int, flops_per_cell: int) -> tuple:
                                  "operations"), moved
 
 
+def check_kernel(label: str, call, ref, args, names, tol: float, count):
+    """Launch ``call(*args)`` once and hold each output against the plain
+    version ``ref(*args)`` (<= ``tol`` of its max); ``count()`` reads the
+    kernel's launch counter, which must move by one.  Returns the largest
+    absolute difference."""
+    before = count()
+    out = call(*args)
+    torch.cuda.synchronize()
+    if count() != before + 1:
+        raise RuntimeError(f"{label} did not count its launch")
+    expect = ref(*args)
+    errs = {nm: rel_err(r, x) for nm, r, x in zip(names, expect, out)}
+    max_abs = max(float((r - x).abs().max()) for r, x in zip(expect, out))
+    finite = all(bool(torch.isfinite(x).all()) for x in out)
+    bitwise = all(torch.equal(r, x) for r, x in zip(expect, out))
+    log(f"{label}: max rel diff "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {tol:g}); finite={finite} bitwise={bitwise}"
+        + f"; max |out0| {float(out[0].abs().max()):.4e}")
+    if not finite or max(errs.values()) > tol:
+        raise RuntimeError(f"kernel disagrees with plain ({label})")
+    return max_abs
+
+
+def probe_scale(q, out) -> float:
+    """The factor on nu4 that makes the filter term PROBE_MARGIN x the
+    state for the field where it is weakest (``out`` from a float64
+    evaluation), and the increments ``max|dq|/max|q|`` per field."""
+    incr = [float((a.double() - b).abs().max() / a.double().abs().max())
+            for a, b in zip(q, out)]
+    return PROBE_MARGIN / min(incr), incr
+
+
+def f64_spread(ref, args, names) -> str:
+    """The plain version at f32 against its float64 evaluation."""
+    f32 = ref(*args)
+    f64 = ref(*[a.double() for a in args])
+    return ", ".join(f"{k} {rel_err(r, x):.3e}"
+                     for k, r, x in zip(names, f64, f32))
+
+
 def device_busy(run, nsteps: int, step_us: float, card: str,
                 names: tuple) -> None:
     """Trace ``run()`` (``nsteps`` steps) with ``torch.profiler`` and log
@@ -155,30 +236,160 @@ def device_busy(run, nsteps: int, step_us: float, card: str,
         f"{per}; {kernels:.0f} kernels/step; card {card}")
 
 
-def galewsky_path(card: str) -> dict:
+def timed_window(label: str, step, y, t, nsteps: int, card: str):
+    """Integrate ``nsteps`` steps on the host clock; returns the carry,
+    the time and the step's microseconds."""
+    from jaxstream_torch.stepping import integrate
+
+    t0 = time.perf_counter()
+    y, t = integrate(step, y, t, nsteps, GAL_DT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not bool(torch.isfinite(y["h"]).all()):
+        raise RuntimeError(f"{label}: state not finite after the timed "
+                           "window")
+    steps_s = nsteps / wall
+    log(f"main path C{N} {label} dt={GAL_DT:g}: {nsteps} steps in "
+        f"{wall:.3f} s -> {steps_s:.1f} steps/s, {1e6 / steps_s:.1f} "
+        f"us/step, {steps_s * GAL_DT / 86400.0:.4f} sim-days/s; card {card}")
+    return y, t, 1e6 / steps_s
+
+
+def paired_rates(steps: dict, y, t, nsteps: int, card: str) -> None:
+    """Steps/s of two steppers in turns A, B, B, A over ``nsteps`` steps
+    each from the same carry: the host's speed drifts within a call, so
+    only windows taken in turns compare two steppers."""
+    from jaxstream_torch.stepping import integrate
+
+    (na, sa), (nb, sb) = steps.items()
+    rates = {na: [], nb: []}
+    for name, step in ((na, sa), (nb, sb), (nb, sb), (na, sa)):
+        t0 = time.perf_counter()
+        integrate(step, y, t, nsteps, GAL_DT)
+        torch.cuda.synchronize()
+        rates[name].append(nsteps / (time.perf_counter() - t0))
+    mean = {k: sum(v) / len(v) for k, v in rates.items()}
+    log(f"paired windows ({nsteps} steps each, in turns {na}, {nb}, {nb}, "
+        f"{na}): {na} " + ", ".join(f"{r:.1f}" for r in rates[na])
+        + f" steps/s; {nb} " + ", ".join(f"{r:.1f}" for r in rates[nb])
+        + f" steps/s; {nb}/{na} {mean[nb] / mean[na]:.3f}; card {card}")
+
+
+def kernel_record(name: str, source: str, replaces: str, launches: int,
+                  max_abs: float, forms, flops_per_cell: int, card: str):
+    """Time a kernel and its plain version at each of ``forms`` (label,
+    call, reference, args), log them with the bound, and return the
+    kernels-line record (times and bounds averaged over the forms)."""
+    ms, plain, bounds, bound_by = [], [], [], set()
+    for label, call, ref, args in forms:
+        k_ms = event_ms(lambda: call(*args), 200)
+        p_ms = event_ms(lambda: ref(*args), 10)
+        bound, by, nbytes = bound_ms(args, call(*args), N, flops_per_cell)
+        ms.append(k_ms)
+        plain.append(p_ms)
+        bounds.append(bound)
+        bound_by.add(by)
+        log(f"{label} kernel: {k_ms * 1e3:.2f} us/launch, bound "
+            f"{bound * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB, "
+            f"{flops_per_cell} flops/cell), {bound / k_ms:.1%} of bound, "
+            f"{nbytes / (k_ms * 1e-3) / 1e12:.2f} TB/s; plain "
+            f"{p_ms * 1e3:.1f} us; card {card}")
+    mean = lambda v: sum(v) / len(v)
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max_abs,
+        "ms": mean(ms),
+        "plain_ms": mean(plain),
+        "bound_ms": mean(bounds),
+        "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
+        "library_ms": None,
+    }
+
+
+class Galewsky:
+    """The C384 Galewsky configuration: grid, model (nu4 = 1e14), initial
+    state and carry, and its day-6 gate."""
+
+    def __init__(self):
+        from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
+                                            EARTH_RADIUS)
+        from jaxstream_torch.geometry.cubed_sphere import build_grid
+        from jaxstream_torch.models.shallow_water_cov import (
+            CovariantShallowWater)
+        from jaxstream_torch.physics.initial_conditions import galewsky
+
+        t0 = time.perf_counter()
+        self.grid = build_grid(N, halo=2, radius=EARTH_RADIUS,
+                               dtype=torch.float32)
+        h_ext, v_ext = galewsky(self.grid, EARTH_GRAVITY, EARTH_OMEGA)
+        self.model = CovariantShallowWater(self.grid, gravity=EARTH_GRAVITY,
+                                           omega=EARTH_OMEGA, nu4=GAL_NU4)
+        self.s0 = self.model.initial_state(h_ext, v_ext)
+        self.y0 = self.model.compact_state(self.s0)
+        self.area = self.grid.interior(self.grid.area).double()
+        self.mass0 = float(torch.sum(self.area * self.s0["h"].double()))
+        torch.cuda.synchronize()
+        log(f"setup: C{N} grid, Galewsky, model (nu4 {GAL_NU4:g}) in "
+            f"{time.perf_counter() - t0:.2f} s on {self.grid.device}")
+
+    def drift(self, h) -> float:
+        return abs(float(torch.sum(self.area * h.double())) - self.mass0) \
+            / self.mass0
+
+    def gate(self, label: str, y, t: float, extra: str) -> None:
+        """``bench_galewsky``'s day-6 gate on the carry ``y``."""
+        from jaxstream_torch.ops.fv import vorticity_cov
+
+        grid = self.grid
+        h = y["h"].double()
+        drift = self.drift(h)
+        zeta = vorticity_cov(grid, self.model._fill_u(y["u"])).double()
+        lat = grid.interior(grid.lat)
+        z_n = float(zeta.abs()[lat > 0.2].max())
+        z_s = float(zeta.abs()[lat < -0.2].max())
+        finite = bool(torch.isfinite(h).all())
+        hmin, hmax = float(h.min()), float(h.max())
+        ok = (finite and 8500.0 < hmin and hmax < 10800.0 and drift < 1e-3
+              and 5e-5 < z_n < 5e-4 and z_s < 5e-6)
+        log(f"gate Galewsky C{N} nu4 ({label}) day {t / 86400.0:g}: "
+            f"finite={finite} h_range=[{hmin:.1f}, {hmax:.1f}] (in (8500, "
+            f"10800)) mass_drift={drift:.3e} (<1e-3) max|zeta| N={z_n:.3e} "
+            f"(in (5e-5, 5e-4)) S={z_s:.3e} (<5e-6); {extra} -> "
+            f"{'passed' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError(f"Galewsky day-6 gate failed ({label})")
+
+    def compare(self, label: str, ref, y, tol: float,
+                mass_tol: float | None = None) -> None:
+        """Hold the carry ``y`` against ``ref`` (<= ``tol`` of max in h
+        and u) and, where ``mass_tol`` is given, its mass drift."""
+        errs = {k: rel_err(ref[k], y[k]) for k in ("h", "u")}
+        line = (f"{label} C{N}, 3 steps: max rel diff h {errs['h']:.3e}, "
+                f"u {errs['u']:.3e} (tol {tol:g})")
+        bad = max(errs.values()) > tol
+        if mass_tol is not None:
+            drift = self.drift(y["h"])
+            line += f"; mass drift {drift:.3e} (tol {mass_tol:g})"
+            bad = bad or drift > mass_tol
+        log(line)
+        if bad:
+            raise RuntimeError(f"{label}: outside its budget")
+
+
+def galewsky_path(card: str, gal: Galewsky):
     """Phases 6-9: the Galewsky jet with the split del^4 filter.  Returns
-    the filter kernel's record for the kernels line."""
-    from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
-                                        EARTH_RADIUS)
-    from jaxstream_torch.geometry.cubed_sphere import build_grid
-    from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
+    the filter kernel's record for the kernels line and the split carry
+    after 3 steps (the yardstick of phases 11 and 13)."""
     from jaxstream_torch.ops.cuda import swe_cov
-    from jaxstream_torch.ops.fv import vorticity_cov
-    from jaxstream_torch.physics.initial_conditions import galewsky
     from jaxstream_torch.stepping import integrate
 
     Stage, Filter = swe_cov.CovStageCompact, swe_cov.CovNu4Filter
-    t0 = time.perf_counter()
-    grid = build_grid(N, halo=2, radius=EARTH_RADIUS, dtype=torch.float32)
-    h_ext, v_ext = galewsky(grid, EARTH_GRAVITY, EARTH_OMEGA)
-    model = CovariantShallowWater(grid, gravity=EARTH_GRAVITY,
-                                  omega=EARTH_OMEGA, nu4=GAL_NU4)
+    grid, model, s0, y0 = gal.grid, gal.model, gal.s0, gal.y0
     step = model.make_fused_step(GAL_DT)
-    s0 = model.initial_state(h_ext, v_ext)
-    y0 = model.compact_state(s0)
-    torch.cuda.synchronize()
-    log(f"setup: C{N} grid, Galewsky, model (nu4 {GAL_NU4:g}), split "
-        f"stepper in {time.perf_counter() - t0:.2f} s on {grid.device}")
 
     # ---- 6. filter kernel vs plain, on the state after one step ----------
     route, filt = step.route, step.filter
@@ -189,51 +400,28 @@ def galewsky_path(card: str) -> dict:
     # scales nu4 until damp*max|l2| is PROBE_MARGIN x max|q| for every
     # field: its outputs are the filter term.
     exact = filt.reference(*[a.double() for a in args])
-    q = (args[0], args[1][0], args[1][1])
-    incr = [float((a.double() - b).abs().max() / a.abs().max())
-            for a, b in zip(q, (exact[0], exact[1][0], exact[1][1]))]
-    probe = swe_cov.make_cov_nu4_filter(
-        grid, GAL_NU4 * PROBE_MARGIN / min(incr), filt.dt_eff)
+    scale, incr = probe_scale((args[0], args[1][0], args[1][1]),
+                              (exact[0], exact[1][0], exact[1][1]))
+    probe = swe_cov.make_cov_nu4_filter(grid, GAL_NU4 * scale, filt.dt_eff)
     log(f"filter increment at nu4 {GAL_NU4:g}, dt {GAL_DT:g}: max|dq|/max|q| "
         f"h {incr[0]:.3e}, u_a {incr[1]:.3e}, u_b {incr[2]:.3e}; probe nu4 "
         f"{probe.nu4:.4e}")
     names = ("h", "u", "strips_sn", "strips_we")
-    max_abs = 0.0
-    for label, f, tol in (("filter", filt, KERNEL_TOL),
-                          ("probe (filter term alone)", probe, PROBE_TOL)):
-        before = Filter.launches
-        out = f(*args)
-        torch.cuda.synchronize()
-        if Filter.launches != before + 1:
-            raise RuntimeError(f"{label} did not count its launch")
-        ref = f.reference(*args)
-        errs = {nm: rel_err(r, x) for nm, r, x in zip(names, ref, out)}
-        max_abs = max([max_abs] + [float((r - x).abs().max())
-                                   for r, x in zip(ref, out)])
-        finite = all(bool(torch.isfinite(x).all()) for x in out)
-        bitwise = all(torch.equal(r, x) for r, x in zip(ref, out))
-        line = (f"filter kernel vs plain C{N} {label}: max rel diff "
-                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-                + f" (tol {tol:g}); finite={finite} bitwise={bitwise}"
-                + f"; max |h| {float(out[0].abs().max()):.4e}")
-        if f is probe:
-            f64 = f.reference(*[a.double() for a in args])
-            line += "; plain f32 vs f64: " + ", ".join(
-                f"{k} {rel_err(r, x):.3e}"
-                for k, r, x in zip(names, f64, ref))
-        log(line)
-        if not finite or max(errs.values()) > tol:
-            raise RuntimeError(f"filter kernel disagrees with plain ({label})")
+    count = lambda: Filter.launches
+    max_abs = max(
+        check_kernel(f"filter kernel vs plain C{N} filter", filt,
+                     filt.reference, args, names, KERNEL_TOL, count),
+        check_kernel(f"filter kernel vs plain C{N} probe (filter term "
+                     "alone)", probe, probe.reference, args, names,
+                     PROBE_TOL, count))
+    log("filter probe, plain f32 vs f64: "
+        + f64_spread(probe.reference, args, names))
 
     # ---- 7. split vs classic del^4, 3 steps --------------------------------
-    yf, _ = integrate(step, y0, 0.0, 3, GAL_DT)
+    ysplit, _ = integrate(step, y0, 0.0, 3, GAL_DT)
     yc, _ = integrate(model.make_step(GAL_DT), s0, 0.0, 3, GAL_DT)
-    errs = {k: rel_err(yc[k], yf[k]) for k in ("h", "u")}
-    log(f"split vs classic del^4 C{N}, 3 steps: max rel diff "
-        f"h {errs['h']:.3e}, u {errs['u']:.3e} (tol {SPLIT_VS_CLASSIC_TOL:g})")
-    if max(errs.values()) > SPLIT_VS_CLASSIC_TOL:
-        raise RuntimeError("split step disagrees with the classic path")
-    del yf, yc
+    gal.compare("split vs classic del^4", yc, ysplit, SPLIT_VS_CLASSIC_TOL)
+    del yc
 
     # ---- 8. main path: the jet to day 6, gated as bench_galewsky ----------
     Stage.launches = 0
@@ -246,41 +434,14 @@ def galewsky_path(card: str) -> dict:
     if launches != (3 * GAL_DAY6_STEPS, GAL_DAY6_STEPS):
         raise RuntimeError(f"launches (stage, filter) {launches} != "
                            f"(3 x, 1 x) {GAL_DAY6_STEPS} steps")
-    h = y["h"].double()
-    area = grid.interior(grid.area).double()
-    mass0 = float(torch.sum(area * s0["h"].double()))
-    drift = abs(float(torch.sum(area * h)) - mass0) / mass0
-    zeta = vorticity_cov(grid, model._fill_u(y["u"])).double()
-    lat = grid.interior(grid.lat)
-    z_n = float(zeta.abs()[lat > 0.2].max())
-    z_s = float(zeta.abs()[lat < -0.2].max())
-    finite = bool(torch.isfinite(h).all())
-    hmin, hmax = float(h.min()), float(h.max())
-    gate = (finite and 8500.0 < hmin and hmax < 10800.0 and drift < 1e-3
-            and 5e-5 < z_n < 5e-4 and z_s < 5e-6)
-    log(f"gate Galewsky C{N} nu4 (split) day {t / 86400.0:g}: "
-        f"finite={finite} h_range=[{hmin:.1f}, {hmax:.1f}] (in (8500, "
-        f"10800)) mass_drift={drift:.3e} (<1e-3) max|zeta| N={z_n:.3e} (in "
-        f"(5e-5, 5e-4)) S={z_s:.3e} (<5e-6); launches stage {launches[0]} = "
-        f"3 x {GAL_DAY6_STEPS}, filter {launches[1]} = {GAL_DAY6_STEPS}; "
-        f"{GAL_DAY6_STEPS} steps in {wall6:.2f} s -> "
-        f"{'passed' if gate else 'FAILED'}")
-    if not gate:
-        raise RuntimeError("Galewsky day-6 gate failed")
+    gal.gate("split", y, t,
+             f"launches stage {launches[0]} = 3 x {GAL_DAY6_STEPS}, filter "
+             f"{launches[1]} = {GAL_DAY6_STEPS}; {GAL_DAY6_STEPS} steps in "
+             f"{wall6:.2f} s")
 
     # ---- 9. timed window, breakdown, filter times, traced window --------
-    t0 = time.perf_counter()
-    y, t = integrate(step, y, t, TIMED_STEPS, GAL_DT)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    if not bool(torch.isfinite(y["h"]).all()):
-        raise RuntimeError("Galewsky state not finite after the timed window")
-    steps_s = TIMED_STEPS / wall
-    step_us = 1e6 / steps_s
-    log(f"main path C{N} Galewsky nu4 dt={GAL_DT:g}: {TIMED_STEPS} steps in "
-        f"{wall:.3f} s -> {steps_s:.1f} steps/s, {step_us:.1f} us/step, "
-        f"{steps_s * GAL_DT / 86400.0:.4f} sim-days/s; card {card}")
-
+    y, t, step_us = timed_window("Galewsky nu4 (split)", step, y, t,
+                                 TIMED_STEPS, card)
     gsn, gwe = route(y["strips_sn"], y["strips_we"])
     fargs = (y["h"], y["u"], gsn, gwe)
     a1 = (y["h"], y["u"], gsn, gwe, model.b_ext)
@@ -289,34 +450,190 @@ def galewsky_path(card: str) -> dict:
     stage_us = 1e3 * sum(event_ms(lambda: st(*a), 200)
                          for st, a in ((st1, a1), (st2, a2), (st3, a2)))
     r_ms = event_ms(lambda: route(y["strips_sn"], y["strips_we"]), 200)
-    k_ms = event_ms(lambda: filt(*fargs), 200)
-    p_ms = event_ms(lambda: filt.reference(*fargs), 10)
-    bound, by, nbytes = bound_ms(fargs, filt(*fargs), N, FILTER_FLOPS_PER_CELL)
-    log(f"filter kernel: {k_ms * 1e3:.2f} us/launch, bound "
-        f"{bound * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB, "
-        f"{FILTER_FLOPS_PER_CELL} flops/cell), {bound / k_ms:.1%} of bound, "
-        f"{nbytes / (k_ms * 1e-3) / 1e12:.2f} TB/s; plain {p_ms * 1e3:.1f} "
-        f"us; card {card}")
-    other = step_us - stage_us - 1e3 * (4 * r_ms + k_ms)
+    record = kernel_record(
+        "cov_nu4_filter", "jaxstream_torch/csrc/cov_nu4_filter.cu",
+        "jaxstream/ops/pallas/swe_cov.py:2544", launches[1], max_abs,
+        [("filter", filt, filt.reference, fargs)], FILTER_FLOPS_PER_CELL,
+        card)
+    k_us = record["ms"] * 1e3
+    other = step_us - stage_us - (4 * r_ms * 1e3 + k_us)
     log(f"Galewsky step {step_us:.1f} us = routers 4 x {r_ms * 1e3:.2f} us + "
-        f"stage kernels {stage_us:.1f} us + filter {k_ms * 1e3:.2f} us + "
+        f"stage kernels {stage_us:.1f} us + filter {k_us:.2f} us + "
         f"{other:.1f} us other; card {card}")
     device_busy(lambda: integrate(step, y, t, PROFILED_STEPS, GAL_DT),
                 PROFILED_STEPS, step_us, card,
                 ("cov_stage_kernel", "cov_nu4_filter_kernel"))
-    return {
-        "name": "cov_nu4_filter",
-        "route": "cuda",
-        "source": "jaxstream_torch/csrc/cov_nu4_filter.cu",
-        "replaces": "jaxstream/ops/pallas/swe_cov.py:2544",
-        "launches": launches[1],
-        "max_abs_err": max_abs,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": bound,
-        "bound_by": by,
-        "library_ms": None,
-    }
+    return record, ysplit
+
+
+def refused_path(card: str, gal: Galewsky, ysplit) -> dict:
+    """Phases 10-12: the Galewsky jet on the re-fused del^4 stepper.
+    Returns the re-fused kernel's record for the kernels line."""
+    from jaxstream_torch.ops.cuda import swe_cov
+    from jaxstream_torch.stepping import integrate
+
+    Stage, Refused = swe_cov.CovStageCompact, swe_cov.CovStageRefusedNu4
+    grid, model, y0 = gal.grid, gal.model, gal.y0
+    step = model.make_fused_step(GAL_DT, nu4_mode="refused")
+    route, st1f = step.route, step.stage1f
+
+    # ---- 10. re-fused kernel vs plain, on the state after one step -------
+    y1 = step(y0, 0.0)
+    args = ((y1["h"], y1["u"]) + route(y1["strips_sn"], y1["strips_we"])
+            + (model.b_ext,))
+    exact = st1f.reference(*[a.double() for a in args])
+    scale, incr = probe_scale((args[0], args[1][0], args[1][1]),
+                              (exact[2], exact[3][0], exact[3][1]))
+    probe = swe_cov.make_cov_stage_refused_nu4(
+        grid, model.gravity, model.omega, GAL_DT, GAL_NU4 * scale)
+    log(f"re-fused filter increment at nu4 {GAL_NU4:g}, dt {GAL_DT:g}: "
+        f"max|dq|/max|q| h {incr[0]:.3e}, u_a {incr[1]:.3e}, u_b "
+        f"{incr[2]:.3e}; probe nu4 {probe.nu4:.4e}")
+    names = ("h1", "u1", "h0f", "u0f", "strips_sn", "strips_we")
+    count = lambda: Refused.launches
+    max_abs = max(
+        check_kernel(f"re-fused kernel vs plain C{N}", st1f, st1f.reference,
+                     args, names, KERNEL_TOL, count),
+        check_kernel(f"re-fused kernel vs plain C{N} probe (h0f, u0f the "
+                     "filter term)", probe, probe.reference, args, names,
+                     PROBE_TOL, count))
+    log("re-fused probe, plain f32 vs f64: "
+        + f64_spread(probe.reference, args, names))
+
+    # ---- 11. re-fused vs split, 3 steps -----------------------------------
+    yr, _ = integrate(step, y0, 0.0, 3, GAL_DT)
+    gal.compare("re-fused vs split del^4", ysplit, yr, DAMP_SCALE_TOL,
+                DAMP_SCALE_MASS_TOL)
+
+    # ---- 12. main path: day 6 on the re-fused stepper, timed window -------
+    Stage.launches = 0
+    Refused.launches = 0
+    t0 = time.perf_counter()
+    y, t = integrate(step, y0, 0.0, GAL_DAY6_STEPS, GAL_DT)
+    torch.cuda.synchronize()
+    wall6 = time.perf_counter() - t0
+    launches = (Refused.launches, Stage.launches)
+    if launches != (GAL_DAY6_STEPS, 2 * GAL_DAY6_STEPS):
+        raise RuntimeError(f"launches (re-fused, stage) {launches} != "
+                           f"(1 x, 2 x) {GAL_DAY6_STEPS} steps")
+    gal.gate("re-fused", y, t,
+             f"launches re-fused {launches[0]} = {GAL_DAY6_STEPS}, stage "
+             f"{launches[1]} = 2 x {GAL_DAY6_STEPS}; {GAL_DAY6_STEPS} steps "
+             f"in {wall6:.2f} s")
+    y, t, step_us = timed_window("Galewsky nu4 (re-fused)", step, y, t,
+                                 TIMED_STEPS, card)
+    gsn, gwe = route(y["strips_sn"], y["strips_we"])
+    a1 = (y["h"], y["u"], gsn, gwe, model.b_ext)
+    a2 = (y["h"], y["u"], y["h"], y["u"], gsn, gwe, model.b_ext)
+    st2, st3 = step.stages
+    stage_us = 1e3 * sum(event_ms(lambda: st(*a2), 200) for st in (st2, st3))
+    r_ms = event_ms(lambda: route(y["strips_sn"], y["strips_we"]), 200)
+    record = kernel_record(
+        "cov_stage_refused_nu4",
+        "jaxstream_torch/csrc/cov_stage_refused_nu4.cu",
+        "jaxstream/ops/pallas/swe_cov.py:2843", launches[0], max_abs,
+        [("re-fused stage 1", st1f, st1f.reference, a1)],
+        REFUSED_FLOPS_PER_CELL, card)
+    k_us = record["ms"] * 1e3
+    other = step_us - stage_us - (3 * r_ms * 1e3 + k_us)
+    log(f"re-fused step {step_us:.1f} us = routers 3 x {r_ms * 1e3:.2f} us + "
+        f"re-fused kernel {k_us:.2f} us + stage kernels {stage_us:.1f} us + "
+        f"{other:.1f} us other; card {card}")
+    device_busy(lambda: integrate(step, y, t, PROFILED_STEPS, GAL_DT),
+                PROFILED_STEPS, step_us, card,
+                ("cov_stage_kernel", "cov_stage_refused_nu4_kernel"))
+    paired_rates({"split": model.make_fused_step(GAL_DT), "re-fused": step},
+                 y, t, PAIRED_STEPS, card)
+    return record
+
+
+def stage_path(card: str, gal: Galewsky, ysplit) -> list:
+    """Phases 13-14: the in-stage del^4 kernel pair.  Returns the records
+    of kernels A and B for the kernels line."""
+    from jaxstream_torch.ops.cuda import swe_cov
+    from jaxstream_torch.stepping import integrate
+
+    Pair = swe_cov.CovStageNu4
+    model, s0, y0 = gal.model, gal.s0, gal.y0
+    step = model.make_fused_step(GAL_DT, nu4_mode="stage")
+    route = step.route
+
+    # ---- 13. A and B vs plain, as stage 1 and stage 2; parity --------------
+    gsn, gwe = route(y0["strips_sn"], y0["strips_we"])
+    a_names = ("h_adv", "u_adv", "l1h", "l1u", "strips_sn", "strips_we")
+    b_names = ("h", "u", "strips_sn", "strips_we")
+    count_a = lambda: Pair.launches_a
+    count_b = lambda: Pair.launches_b
+    err_a, err_b = [], []
+    for st in step.stages[:2]:
+        form = "stage 2" if st.with_y0 else "stage 1"
+        args = (y0["h"], y0["u"], gsn, gwe, model.b_ext)
+        if st.with_y0:
+            args = (y0["h"], y0["u"]) + args
+        err_a.append(check_kernel(f"kernel A vs plain C{N} {form}",
+                                  st.call_a, st.reference_a, args, a_names,
+                                  KERNEL_TOL, count_a))
+        out_a = st.reference_a(*args)
+        bargs = tuple(out_a[:4]) + route(out_a[4], out_a[5])
+        exact = st.reference_b(*[a.double() for a in bargs])
+        scale, _ = probe_scale((bargs[0], bargs[1][0], bargs[1][1]),
+                               (exact[0], exact[1][0], exact[1][1]))
+        probe = swe_cov.CovStageNu4(
+            st.n, st.halo, st.dalpha, st.radius, st.gravity, st.omega,
+            st.dt, st.a, st.b, st.nu4 * scale, device=st.device)
+        err_b.append(check_kernel(f"kernel B vs plain C{N} {form}",
+                                  st.call_b, st.reference_b, bargs, b_names,
+                                  KERNEL_TOL, count_b))
+        err_b.append(check_kernel(
+            f"kernel B vs plain C{N} {form} probe (the filter term, nu4 "
+            f"{probe.nu4:.4e})", probe.call_b, probe.reference_b, bargs,
+            b_names, PROBE_TOL, count_b))
+        if not st.with_y0:
+            log("kernel B probe, plain f32 vs f64: "
+                + f64_spread(probe.reference_b, bargs, b_names))
+    ys, _ = integrate(step, y0, 0.0, 3, GAL_DT)
+    yc, _ = integrate(model.make_step(GAL_DT), s0, 0.0, 3, GAL_DT)
+    gal.compare("in-stage vs classic del^4", yc, ys, STAGE_VS_CLASSIC_TOL)
+    gal.compare("in-stage vs split del^4", ysplit, ys, DAMP_SCALE_TOL,
+                DAMP_SCALE_MASS_TOL)
+    del yc
+
+    # ---- 14. main path: a timed in-stage window, breakdown ---------------
+    Pair.launches_a = 0
+    Pair.launches_b = 0
+    y, t, step_us = timed_window("Galewsky nu4 (in-stage)", step, ys,
+                                 3 * GAL_DT, STAGE_TIMED_STEPS, card)
+    launches = (Pair.launches_a, Pair.launches_b)
+    if launches != (3 * STAGE_TIMED_STEPS,) * 2:
+        raise RuntimeError(f"launches (A, B) {launches} != 3 x "
+                           f"{STAGE_TIMED_STEPS} steps each")
+    log(f"in-stage launches: A {launches[0]}, B {launches[1]} = 3 x "
+        f"{STAGE_TIMED_STEPS} each")
+    gsn, gwe = route(y["strips_sn"], y["strips_we"])
+    st1, st2, st3 = step.stages
+    a1 = (y["h"], y["u"], gsn, gwe, model.b_ext)
+    a2 = (y["h"], y["u"]) + a1
+    out_a = st1.call_a(*a1)
+    bargs = tuple(out_a[:4]) + route(out_a[4], out_a[5])
+    rec_a = kernel_record(
+        "cov_stage_nu4_a", "jaxstream_torch/csrc/cov_stage_nu4.cu",
+        "jaxstream/ops/pallas/swe_cov.py:2392", launches[0], max(err_a),
+        [("A stage 1", st1.call_a, st1.reference_a, a1),
+         ("A stage 2", st2.call_a, st2.reference_a, a2),
+         ("A stage 3", st3.call_a, st3.reference_a, a2)],
+        A_FLOPS_PER_CELL, card)
+    rec_b = kernel_record(
+        "cov_stage_nu4_b", "jaxstream_torch/csrc/cov_stage_nu4.cu",
+        "jaxstream/ops/pallas/swe_cov.py:2415", launches[1], max(err_b),
+        [("B stage 1", st1.call_b, st1.reference_b, bargs)],
+        B_FLOPS_PER_CELL, card)
+    r_ms = event_ms(lambda: route(y["strips_sn"], y["strips_we"]), 200)
+    a_us, b_us = 3e3 * rec_a["ms"], 3e3 * rec_b["ms"]
+    other = step_us - (6 * r_ms * 1e3 + a_us + b_us)
+    log(f"in-stage step {step_us:.1f} us = routers 6 x {r_ms * 1e3:.2f} us "
+        f"+ A 3 x {rec_a['ms'] * 1e3:.2f} us + B 3 x {rec_b['ms'] * 1e3:.2f}"
+        f" us + {other:.1f} us other; card {card}")
+    return [rec_a, rec_b]
 
 
 def main() -> int:
@@ -336,6 +653,7 @@ def main() -> int:
     from jaxstream_torch.utils.diagnostics import total_mass
 
     Stage = swe_cov.CovStageCompact
+    t_start = time.perf_counter()
 
     # ---- 1. card and build ----------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -373,47 +691,27 @@ def main() -> int:
     # ---- 2. kernel vs plain, at the main path's shapes -------------------
     route = step.route
     st1, st2, st3 = step.stages
+    names = ("h", "u", "strips_sn", "strips_we")
+    count = lambda: Stage.launches
     gsn, gwe = route(y0["strips_sn"], y0["strips_we"])
     args1 = (s0["h"], s0["u"], gsn, gwe, model.b_ext)
-    before = Stage.launches
-    k1 = st1(*args1)
-    torch.cuda.synchronize()
-    if Stage.launches != before + 1:
-        raise RuntimeError("stage 1 did not count its launch")
+    max_abs = check_kernel(f"kernel vs plain C{N} stage 1 (a=0)", st1,
+                           st1.reference, args1, names, KERNEL_TOL, count)
+    k1 = st1.reference(*args1)
     gsn2, gwe2 = route(k1[2], k1[3])
     args2 = (s0["h"], s0["u"], k1[0], k1[1], gsn2, gwe2, model.b_ext)
-    k2 = st2(*args2)
-    torch.cuda.synchronize()
-    if Stage.launches != before + 2:
-        raise RuntimeError("stage 2 did not count its launch")
     # At dt = 75 s the stage's increment g*L is a small share of yc, so
-    # agreement of the outputs above says little of the tendency L.
-    # Stage 3 with y0 = -2*yc isolates it: f32(2/3) is exactly
-    # 2*f32(1/3), so a*y0 + b*yc is exactly 0 and the outputs are g*L(yc).
+    # agreement of the outputs says little of the tendency L.  Stage 3
+    # with y0 = -2*yc isolates it: f32(2/3) is exactly 2*f32(1/3), so
+    # a*y0 + b*yc is exactly 0 and the outputs are g*L(yc).
     args3 = (-2.0 * k1[0], -2.0 * k1[1], k1[0], k1[1], gsn2, gwe2,
              model.b_ext)
-    k3 = st3(*args3)
-    torch.cuda.synchronize()
-    if Stage.launches != before + 3:
-        raise RuntimeError("stage 3 did not count its launch")
-    max_abs = 0.0
-    names = ("h", "u", "strips_sn", "strips_we")
-    for label, stage, args, out, tol in (
-            ("stage 1 (a=0)", st1, args1, k1, KERNEL_TOL),
-            ("stage 2 (a=0.75)", st2, args2, k2, KERNEL_TOL),
-            ("stage 3, y0=-2yc (g*L alone)", st3, args3, k3, TENDENCY_TOL)):
-        ref = stage.reference(*args)
-        errs = {nm: rel_err(r, x) for nm, r, x in zip(names, ref, out)}
-        max_abs = max([max_abs] + [float((r - x).abs().max())
-                                   for r, x in zip(ref, out)])
-        finite = all(bool(torch.isfinite(x).all()) for x in out)
-        bitwise = all(torch.equal(r, x) for r, x in zip(ref, out))
-        log(f"kernel vs plain C{N} {label}: max rel diff "
-            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-            + f" (tol {tol:g}); finite={finite} bitwise={bitwise}"
-            + f"; max |h| {float(out[0].abs().max()):.4e}")
-        if not finite or max(errs.values()) > tol:
-            raise RuntimeError(f"kernel disagrees with plain ({label})")
+    max_abs = max(
+        max_abs,
+        check_kernel(f"kernel vs plain C{N} stage 2 (a=0.75)", st2,
+                     st2.reference, args2, names, KERNEL_TOL, count),
+        check_kernel(f"kernel vs plain C{N} stage 3, y0=-2yc (g*L alone)",
+                     st3, st3.reference, args3, names, TENDENCY_TOL, count))
 
     # ---- 3. fused vs classic, 3 steps ------------------------------------
     yf, _ = integrate(step, y0, 0.0, 3, STEP_DT)
@@ -464,54 +762,38 @@ def main() -> int:
     gsn, gwe = route(y["strips_sn"], y["strips_we"])
     a1 = (y["h"], y["u"], gsn, gwe, model.b_ext)
     a2 = (y["h"], y["u"], y["h"], y["u"], gsn, gwe, model.b_ext)
-    forms = (("stage 1", st1, a1), ("stage 2", st2, a2),
-             ("stage 3", st3, a2))
-    ms, plain, bounds, bound_by = [], [], [], set()
-    for label, stage, args in forms:
-        k_ms = event_ms(lambda: stage(*args), 200)
-        p_ms = event_ms(lambda: stage.reference(*args), 10)
-        bound, by, nbytes = bound_ms(args, stage(*args), N, FLOPS_PER_CELL)
-        ms.append(k_ms)
-        plain.append(p_ms)
-        bounds.append(bound)
-        bound_by.add(by)
-        log(f"{label} kernel: {k_ms * 1e3:.2f} us/launch, bound "
-            f"{bound * 1e3:.2f} us ({by}, {nbytes / 1e6:.1f} MB), "
-            f"{bound / k_ms:.1%} of bound, "
-            f"{nbytes / (k_ms * 1e-3) / 1e12:.2f} TB/s; plain "
-            f"{p_ms * 1e3:.1f} us; card {card}")
+    stage_record = kernel_record(
+        "cov_stage_compact", "jaxstream_torch/csrc/cov_stage.cu",
+        "jaxstream/ops/pallas/swe_cov.py:1989", launches, max_abs,
+        [("stage 1", st1, st1.reference, a1),
+         ("stage 2", st2, st2.reference, a2),
+         ("stage 3", st3, st3.reference, a2)], FLOPS_PER_CELL, card)
     r_ms = event_ms(lambda: route(y["strips_sn"], y["strips_we"]), 200)
     step_us = 1e6 / steps_s
+    stages_us = 3e3 * stage_record["ms"]
     log(f"router: {r_ms * 1e3:.2f} us/call (3 per step); step {step_us:.1f}"
-        f" us = stage kernels {sum(ms) * 1e3:.1f} us + routers "
-        f"{3 * r_ms * 1e3:.1f} us + {step_us - 1e3 * (sum(ms) + 3 * r_ms):.1f}"
+        f" us = stage kernels {stages_us:.1f} us + routers "
+        f"{3 * r_ms * 1e3:.1f} us + {step_us - stages_us - 3e3 * r_ms:.1f}"
         f" us other; card {card}")
 
     # ---- 5. device busy share: a traced window, apart from the timed one
     device_busy(lambda: integrate(step, y, t, PROFILED_STEPS, STEP_DT),
                 PROFILED_STEPS, step_us, card, ("cov_stage_kernel",))
 
-    filter_record = galewsky_path(card)
+    gal = Galewsky()
+    filter_record, ysplit = galewsky_path(card, gal)
+    refused_record = refused_path(card, gal, ysplit)
+    pair_records = stage_path(card, gal, ysplit)
     # The same TC5 route again: host drift across the run, apart from any
-    # cost of the Galewsky path itself.
+    # cost of the Galewsky paths themselves.
     r2_ms = event_ms(lambda: route(y["strips_sn"], y["strips_we"]), 200)
     log(f"router (TC5 carry) after the Galewsky phases: {r2_ms * 1e3:.2f} "
         f"us/call (before them: {r_ms * 1e3:.2f}); card {card}")
+    log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s, "
+        "builds included")
 
-    mean = lambda v: sum(v) / len(v)
-    report = {"kernels": [{
-        "name": "cov_stage_compact",
-        "route": "cuda",
-        "source": "jaxstream_torch/csrc/cov_stage.cu",
-        "replaces": "jaxstream/ops/pallas/swe_cov.py:1989",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": mean(ms),
-        "plain_ms": mean(plain),
-        "bound_ms": mean(bounds),
-        "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
-        "library_ms": None,
-    }, filter_record]}
+    report = {"kernels": [stage_record, filter_record, refused_record]
+              + pair_records}
     log(json.dumps(report))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -29,10 +29,12 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "jaxstream_torch"
 
 #: Kernel library name -> its source under ``csrc/``.
 KERNELS = {"cov_stage": "cov_stage.cu",
-           "cov_nu4_filter": "cov_nu4_filter.cu"}
+           "cov_nu4_filter": "cov_nu4_filter.cu",
+           "cov_stage_refused_nu4": "cov_stage_refused_nu4.cu",
+           "cov_stage_nu4": "cov_stage_nu4.cu"}
 
 # -fmad=false keeps every multiply and add separately rounded, as the
-# plain PyTorch version rounds them; both kernels are memory-bound, so
+# plain PyTorch version rounds them; the kernels are memory-bound, so
 # the fused multiply-adds would buy no time.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-lineinfo", "-Xptxas", "-v",
@@ -67,8 +69,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / KERNELS[name]
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # The key covers the shared headers too: every kernel includes them.
+    sources = [CSRC_DIR / KERNELS[name]] + sorted(CSRC_DIR.glob("*.cuh"))
+    key = hashlib.sha256(b"".join(s.read_bytes() for s in sources)
+                         + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 

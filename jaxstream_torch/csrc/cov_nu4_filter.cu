@@ -48,18 +48,11 @@
 // This first design is simple and right; TMA / cp.async staging and
 // occupancy tuning are for later.
 
-#include <cuda_runtime.h>
+#include "cov_common.cuh"
 
 namespace {
 
-constexpr int TX = 32;       // tile width along alpha (i)
-constexpr int TY = 16;       // tile height along beta (j)
-constexpr int BX = 32;       // threads along i
-constexpr int BY = 8;        // threads along j
-constexpr int WX = TX + 2;   // l1 window: the tile plus ring 1
-constexpr int WY = TY + 2;
-constexpr int PX = TX + 4;   // psi window: the tile plus a 2-deep apron
-constexpr int PY = TY + 4;
+using namespace cov;
 
 struct Params {
   const float* hc;   // (6, n, n)
@@ -76,90 +69,10 @@ struct Params {
   float R2, invd, inv2d, damp;
 };
 
-// Field fi at face-local (j, i): the interior, or an edge ghost from the
-// routed blocks; 0 at a corner or past the ghost ring.
-__device__ __forceinline__ float edge_fetch(const float* __restrict__ q,
-                                            const float* __restrict__ gsn,
-                                            const float* __restrict__ gwe,
-                                            int fi, int n, int hh, int rw,
-                                            int j, int i) {
-  const bool jin = j >= 0 && j < n;
-  const bool iin = i >= 0 && i < n;
-  if (jin && iin) return q[j * n + i];
-  if (iin) {
-    if (j < 0 && j >= -hh) return gsn[(fi * 2 * hh + (j + hh)) * n + i];
-    if (j >= n && j < n + hh) return gsn[(fi * 2 * hh + hh + (j - n)) * n + i];
-  } else if (jin) {
-    if (i < 0 && i >= -hh) return gwe[j * rw + fi * 2 * hh + (i + hh)];
-    if (i >= n && i < n + hh) return gwe[j * rw + fi * 2 * hh + hh + (i - n)];
-  }
-  return 0.0f;
-}
-
-// psi at (j, i) as _fill(corners=True) builds it: a ghost corner is
-// 0.5 (S/N ghost at the nearest interior column + W/E ghost at the
-// nearest interior row).  Cells past the extended frame are 0 and feed
-// no kept output.
-__device__ __forceinline__ float filled(const float* __restrict__ q,
-                                        const float* __restrict__ gsn,
-                                        const float* __restrict__ gwe,
-                                        int fi, int n, int hh, int rw,
-                                        int j, int i) {
-  const bool jout = j < 0 || j >= n;
-  const bool iout = i < 0 || i >= n;
-  if (jout && iout) {
-    if (j < -hh || j >= n + hh || i < -hh || i >= n + hh) return 0.0f;
-    const int ie = i < 0 ? 0 : n - 1;
-    const int je = j < 0 ? 0 : n - 1;
-    return 0.5f * (edge_fetch(q, gsn, gwe, fi, n, hh, rw, j, ie)
-                   + edge_fetch(q, gsn, gwe, fi, n, hh, rw, je, i));
-  }
-  return edge_fetch(q, gsn, gwe, fi, n, hh, rw, j, i);
-}
-
-// Face-normal metric terms of the four faces of one cell and its
-// inv_sqrtg / d, read from the shared window tables.
-struct CellMetric {
-  float xa_l, xb_l, xa_r, xb_r;   // x-faces: fg_aa, fg_ab (left, right)
-  float yb_b, ya_b, yb_t, ya_t;   // y-faces: fg_bb, fg_ab (bottom, top)
-  float isg;                      // inv_sqrtg * (1/d)
-};
-
-// lap_core at one cell of a shared window s (row stride S), centred at
-// s[y][x]; the same operations in the same order as the plain version.
-template <int S>
-__device__ __forceinline__ float lap_at(const float* s, int y, int x,
-                                        const CellMetric& c, float invd,
-                                        float inv2d) {
-  const float* p = s + y * S + x;
-  const float dpbc_m = (p[S - 1] - p[-S - 1]) * inv2d;
-  const float dpbc_0 = (p[S] - p[-S]) * inv2d;
-  const float dpbc_p = (p[S + 1] - p[-S + 1]) * inv2d;
-  const float fx_l = c.xa_l * ((p[0] - p[-1]) * invd)
-                   + c.xb_l * (0.5f * (dpbc_m + dpbc_0));
-  const float fx_r = c.xa_r * ((p[1] - p[0]) * invd)
-                   + c.xb_r * (0.5f * (dpbc_0 + dpbc_p));
-  const float dpac_m = (p[-S + 1] - p[-S - 1]) * inv2d;
-  const float dpac_0 = (p[1] - p[-1]) * inv2d;
-  const float dpac_p = (p[S + 1] - p[S - 1]) * inv2d;
-  const float fy_b = c.yb_b * ((p[0] - p[-S]) * invd)
-                   + c.ya_b * (0.5f * (dpac_m + dpac_0));
-  const float fy_t = c.yb_t * ((p[S] - p[0]) * invd)
-                   + c.ya_t * (0.5f * (dpac_0 + dpac_p));
-  return ((fx_r - fx_l) + (fy_t - fy_b)) * c.isg;
-}
-
-__global__ void __launch_bounds__(BX * BY)
+__global__ void __launch_bounds__(BX * BY, 4)
 cov_nu4_filter_kernel(const Params p) {
-  __shared__ float s_psi[3][PY][PX];
-  __shared__ float s_l1[3][WY][WX];
-  // Metric terms of the l1 window, indexed by window cell: x-face k is
-  // the left face of window column k, y-face k the lower face of row k.
-  __shared__ float s_xa[WY][WX + 1];   // fg_aa at x-faces
-  __shared__ float s_xb[WY][WX + 1];   // fg_ab at x-faces
-  __shared__ float s_ya[WY + 1][WX];   // fg_ab at y-faces
-  __shared__ float s_yb[WY + 1][WX];   // fg_bb at y-faces
-  __shared__ float s_isg[WY][WX];      // inv_sqrtg * (1/d) at centers
+  __shared__ Nu4Window<0> s_w;    // psi on tile + 2, l1 on tile + 1
+  __shared__ Nu4Metric<0> s_mt;
 
   const int n = p.n, hh = p.halo, rw = 6 * hh + 2;
   const int f = blockIdx.z;
@@ -169,108 +82,26 @@ cov_nu4_filter_kernel(const Params p) {
   const float* q[3] = {p.hc + f * nn, p.uc + f * nn, p.uc + (6 + f) * nn};
   const float* gsn = p.gsn + (long)f * rw * n;
   const float* gwe = p.gwe + (long)f * n * rw;
-  const float* xc = p.xc;
-  const float* xf = p.xf;
-  const float invd = p.invd, inv2d = p.inv2d;
 
-  // ---- 1. psi windows and the window's metric terms ------------------
-  for (int ly = ty; ly < PY; ly += BY)
-    for (int lx = tx; lx < PX; lx += BX) {
-      const int j = j0 + ly - 2, i = i0 + lx - 2;
-      for (int fi = 0; fi < 3; ++fi)
-        s_psi[fi][ly][lx] = filled(q[fi], gsn, gwe, fi, n, hh, rw, j, i);
-    }
-  // x-faces between columns c-1 | c, on rows r in [-1, n].
-  for (int wy = ty; wy < WY; wy += BY)
-    for (int k = tx; k < WX + 1; k += BX) {
-      const int r = j0 - 1 + wy, c = i0 - 1 + k;
-      float fa = 0.0f, fb = 0.0f;
-      if (r >= -1 && r <= n && c >= -1 && c <= n + 1) {
-        const float x = xf[c + hh], y = xc[r + hh];
-        const float y2 = y * y;
-        const float dydb = 1.0f + y2;
-        const float rho2 = (1.0f + x * x) + y2;
-        const float inv_rho = rsqrtf(rho2);
-        fa = dydb * inv_rho;
-        fb = (x * y) * inv_rho;
-      }
-      s_xa[wy][k] = fa;
-      s_xb[wy][k] = fb;
-    }
-  // y-faces between rows r-1 | r, on columns c in [-1, n].
-  for (int k = ty; k < WY + 1; k += BY)
-    for (int wx = tx; wx < WX; wx += BX) {
-      const int r = j0 - 1 + k, c = i0 - 1 + wx;
-      float fa = 0.0f, fb = 0.0f;
-      if (r >= -1 && r <= n + 1 && c >= -1 && c <= n) {
-        const float x = xc[c + hh], y = xf[r + hh];
-        const float dxda = 1.0f + x * x;
-        const float rho2 = dxda + y * y;
-        const float inv_rho = rsqrtf(rho2);
-        fa = (x * y) * inv_rho;
-        fb = dxda * inv_rho;
-      }
-      s_ya[k][wx] = fa;
-      s_yb[k][wx] = fb;
-    }
-  for (int wy = ty; wy < WY; wy += BY)
-    for (int wx = tx; wx < WX; wx += BX) {
-      const int r = j0 - 1 + wy, c = i0 - 1 + wx;
-      float isg = 0.0f;
-      if (r >= -1 && r <= n && c >= -1 && c <= n) {
-        const float x = xc[c + hh], y = xc[r + hh];
-        const float dxda = 1.0f + x * x;
-        const float dydb = 1.0f + y * y;
-        const float rho2 = dxda + y * y;
-        const float inv_rho = rsqrtf(rho2);
-        const float sg_row = p.R2 * dxda;
-        const float inv_sqrtg = ((1.0f / sg_row) * (1.0f / dydb))
-                              * (rho2 * rho2 * inv_rho);
-        isg = inv_sqrtg * invd;
-      }
-      s_isg[wy][wx] = isg;
-    }
-  __syncthreads();
-
-  // ---- 2. l1 = lap(psi) on the ring-1 window ---------------------------
-  for (int wy = ty; wy < WY; wy += BY)
-    for (int wx = tx; wx < WX; wx += BX) {
-      const int r = j0 - 1 + wy, c = i0 - 1 + wx;
-      const bool ok = r >= -1 && r <= n && c >= -1 && c <= n;
-      const CellMetric cm{s_xa[wy][wx], s_xb[wy][wx], s_xa[wy][wx + 1],
-                          s_xb[wy][wx + 1], s_yb[wy][wx], s_ya[wy][wx],
-                          s_yb[wy + 1][wx], s_ya[wy + 1][wx], s_isg[wy][wx]};
-      for (int fi = 0; fi < 3; ++fi)
-        s_l1[fi][wy][wx] =
-            ok ? lap_at<PX>(&s_psi[fi][0][0], wy + 1, wx + 1, cm, invd, inv2d)
-               : 0.0f;
-    }
-  __syncthreads();
+  // ---- 1-2. psi, the metric terms, l1 = lap(psi) on the ring-1 window --
+  nu4_window<0>(s_w, s_mt, q, gsn, gwe, p.xc, p.xf, n, hh, j0, i0, p.R2,
+                p.invd, p.inv2d);
 
   // ---- 3. l2 = lap(l1) on the tile, damp, state and strip stores -------
-  const int sw = 6 * hh;   // strip width
-  float* ssn = p.ssn + (long)f * sw * n;
-  float* swe = p.swe + (long)f * n * sw;
+  float* ssn = p.ssn + (long)f * 6 * hh * n;
+  float* swe = p.swe + (long)f * n * 6 * hh;
   for (int ly = ty; ly < TY; ly += BY)
     for (int lx = tx; lx < TX; lx += BX) {
       const int j = j0 + ly, i = i0 + lx;
       if (j >= n || i >= n) continue;
-      const int wy = ly + 1, wx = lx + 1;
-      const CellMetric cm{s_xa[wy][wx], s_xb[wy][wx], s_xa[wy][wx + 1],
-                          s_xb[wy][wx + 1], s_yb[wy][wx], s_ya[wy][wx],
-                          s_yb[wy + 1][wx], s_ya[wy + 1][wx], s_isg[wy][wx]};
+      const CellMetric cm = s_mt.at(ly + 1, lx + 1);
       const long cidx = f * nn + (long)j * n + i;
       float* outs[3] = {p.ho + cidx, p.uo + cidx, p.uo + 6 * nn + cidx};
       for (int fi = 0; fi < 3; ++fi) {
-        const float l2 = lap_at<WX>(&s_l1[fi][0][0], wy, wx, cm, invd, inv2d);
-        const float v = s_psi[fi][ly + 2][lx + 2] - p.damp * l2;
+        const float v = nu4_filtered<0>(s_w, fi, ly, lx, cm, p.invd,
+                                        p.inv2d, p.damp);
         *outs[fi] = v;
-        // Boundary strips in pack_strips_cov_split's layout.
-        const int base = fi * 2 * hh;
-        if (j < hh) ssn[(base + j) * n + i] = v;
-        if (j >= n - hh) ssn[(base + hh + j - (n - hh)) * n + i] = v;
-        if (i < hh) swe[(long)j * sw + base + i] = v;
-        if (i >= n - hh) swe[(long)j * sw + base + hh + i - (n - hh)] = v;
+        put_strips(ssn, swe, fi, n, hh, j, i, v);
       }
     }
 }

@@ -36,7 +36,8 @@
 // ghosts only: no kept output reads an h x h ghost corner, and those
 // cells are staged as zeros.  Face fluxes and the Bernoulli band are
 // computed once per tile into shared memory (19 KB in all) and then
-// differenced.
+// differenced (cov_common.cuh's advective_tile, which the del^4 stage
+// kernels share).
 //
 // Bound.  With ~137 flops per cell per stage (jaxstream/utils/
 // profiling.py:136) the stage does 6 n^2 * 137 flops; it moves 7 field
@@ -48,14 +49,12 @@
 // wgmma does not apply.  TMA / cp.async staging and occupancy tuning are
 // for later.
 
-#include <cuda_runtime.h>
+#include "cov_common.cuh"
 
 namespace {
 
-constexpr int TX = 32;     // tile width along alpha (i)
-constexpr int TY = 16;     // tile height along beta (j)
-constexpr int BX = 32;     // threads along i
-constexpr int BY = 8;      // threads along j
+using namespace cov;
+
 constexpr int AP = 2;      // h apron: PLR reads two cells past a face
 
 struct Params {
@@ -77,54 +76,6 @@ struct Params {
   float R2, gravity, two_omega, inv2d, inv_d, a, bcoef, g_dt;
 };
 
-// Value of field fi at interior coordinates (j, i) of the face whose
-// interior is q and whose routed ghosts are gsn/gwe (already offset to
-// the face).  Ghost corners and cells past the ghost ring are zero: no
-// kept output reads them.
-__device__ __forceinline__ float fetch(const float* __restrict__ q,
-                                       const float* __restrict__ gsn,
-                                       const float* __restrict__ gwe,
-                                       int fi, int n, int hh, int rw,
-                                       int j, int i) {
-  const bool jin = j >= 0 && j < n;
-  const bool iin = i >= 0 && i < n;
-  if (jin && iin) return q[j * n + i];
-  if (iin) {
-    if (j < 0 && j >= -hh) return gsn[(fi * 2 * hh + (j + hh)) * n + i];
-    if (j >= n && j < n + hh) return gsn[(fi * 2 * hh + hh + (j - n)) * n + i];
-  } else if (jin) {
-    if (i < 0 && i >= -hh) return gwe[j * rw + fi * 2 * hh + (i + hh)];
-    if (i >= n && i < n + hh) return gwe[j * rw + fi * 2 * hh + hh + (i - n)];
-  }
-  return 0.0f;
-}
-
-// Monotonized-central slope, sign-free form (ops/reconstruct.py _slope_mc).
-__device__ __forceinline__ float slope_mc(float dqm, float dqp) {
-  const float a = 0.5f * (dqm + dqp);
-  const float b = 2.0f * dqm;
-  const float c = 2.0f * dqp;
-  return fmaxf(fminf(fminf(a, b), c), 0.0f)
-       + fminf(fmaxf(fmaxf(a, b), c), 0.0f);
-}
-
-// Upwind PLR flux through the face between cells q0 (= i-1) and q1 (= i)
-// with neighbours qm (i-2) and qp (i+1); U is the sqrtg-folded normal
-// velocity.
-__device__ __forceinline__ float upwind_flux(float U, float qm, float q0,
-                                             float q1, float qp) {
-  const float qL = q0 + 0.5f * slope_mc(q0 - qm, q1 - q0);
-  const float qR = q1 - 0.5f * slope_mc(q1 - q0, qp - q1);
-  return fmaxf(U, 0.0f) * qL + fminf(U, 0.0f) * qR;
-}
-
-__device__ __forceinline__ float combine(int with_y0, float a, float b,
-                                         float g_dt, float y0, float yc,
-                                         float tend) {
-  if (with_y0) return (a * y0 + b * yc) + g_dt * tend;
-  return yc + g_dt * tend;
-}
-
 // At least 4 resident blocks per SM caps the kernel at 64 registers.
 // Left to itself nvcc took 66, which allows only 3 blocks of 256 threads
 // per SM, and the stage ran ~18% slower on the H100.
@@ -133,11 +84,7 @@ cov_stage_kernel(const Params p) {
   __shared__ float s_h[TY + 2 * AP][TX + 2 * AP];
   __shared__ float s_ua[TY + 2][TX + 2];
   __shared__ float s_ub[TY + 2][TX + 2];
-  __shared__ float s_bern[TY + 2][TX + 2];
-  __shared__ float s_uca[TY][TX];
-  __shared__ float s_ucb[TY][TX];
-  __shared__ float s_fx[TY][TX + 1];
-  __shared__ float s_fy[TY + 1][TX];
+  __shared__ AdvScratch s_adv;
 
   const int n = p.n, hh = p.halo, m = n + 2 * hh, rw = 6 * hh + 2;
   const int f = blockIdx.z;
@@ -149,169 +96,48 @@ cov_stage_kernel(const Params p) {
   const float* ub = p.uc + (6 + f) * nn;
   const float* gsn = p.gsn + (long)f * rw * n;
   const float* gwe = p.gwe + (long)f * n * rw;
-  const float* bf = p.b + (long)f * m * m;
-  const float* xc = p.xc;
-  const float* xf = p.xf;
-  const float R2 = p.R2;
 
-  // ---- 1. stage the tile with its aprons ------------------------------
+  // ---- 1. stage the tile with its aprons (ghost corners as 0) ---------
   for (int ly = ty; ly < TY + 2 * AP; ly += BY)
     for (int lx = tx; lx < TX + 2 * AP; lx += BX)
-      s_h[ly][lx] = fetch(hc, gsn, gwe, 0, n, hh, rw, j0 + ly - AP,
-                          i0 + lx - AP);
+      s_h[ly][lx] = edge_fetch(hc, gsn, gwe, 0, n, hh, rw, j0 + ly - AP,
+                               i0 + lx - AP);
   for (int ly = ty; ly < TY + 2; ly += BY)
     for (int lx = tx; lx < TX + 2; lx += BX) {
       const int j = j0 + ly - 1, i = i0 + lx - 1;
-      s_ua[ly][lx] = fetch(ua, gsn, gwe, 1, n, hh, rw, j, i);
-      s_ub[ly][lx] = fetch(ub, gsn, gwe, 2, n, hh, rw, j, i);
+      s_ua[ly][lx] = edge_fetch(ua, gsn, gwe, 1, n, hh, rw, j, i);
+      s_ub[ly][lx] = edge_fetch(ub, gsn, gwe, 2, n, hh, rw, j, i);
     }
   __syncthreads();
 
-  // ---- 2a. Bernoulli function and contravariant u on the band ---------
-  for (int ly = ty; ly < TY + 2; ly += BY)
-    for (int lx = tx; lx < TX + 2; lx += BX) {
-      const int j = j0 + ly - 1, i = i0 + lx - 1;
-      const bool jin = j >= 0 && j < n, iin = i >= 0 && i < n;
-      float bern = 0.0f;
-      if (j >= -1 && j <= n && i >= -1 && i <= n && (jin || iin)) {
-        const float x = xc[i + hh], y = xc[j + hh];
-        const float dxda = 1.0f + x * x;
-        const float dydb = 1.0f + y * y;
-        const float rho2 = dxda + y * y;
-        const float inv_R2dxda = 1.0f / (R2 * dxda);
-        const float inv_dydb = 1.0f / dydb;
-        const float g_aa = rho2 * inv_R2dxda;
-        const float g_bb = (rho2 * inv_R2dxda) * (dxda * inv_dydb);
-        const float g_ab = rho2 * ((x * inv_R2dxda) * (y * inv_dydb));
-        const float va = s_ua[ly][lx], vb = s_ub[ly][lx];
-        const float uca = g_aa * va + g_ab * vb;
-        const float ucb = g_ab * va + g_bb * vb;
-        const float ke = 0.5f * (uca * va + ucb * vb);
-        bern = p.gravity * (s_h[ly + 1][lx + 1] + bf[(j + hh) * m + i + hh])
-             + ke;
-        if (ly >= 1 && ly <= TY && lx >= 1 && lx <= TX) {
-          s_uca[ly - 1][lx - 1] = uca;
-          s_ucb[ly - 1][lx - 1] = ucb;
+  // ---- 2. tendencies, RK combine, state and strip stores --------------
+  float* ssn = p.ssn + (long)f * 6 * hh * n;
+  float* swe = p.swe + (long)f * n * 6 * hh;
+  const StageConsts k{p.R2, p.gravity, p.two_omega, p.inv2d, p.inv_d};
+  advective_tile<TX + 2 * AP, TX + 2>(
+      &s_h[0][0], &s_ua[0][0], &s_ub[0][0], s_adv, gsn, gwe,
+      p.b + (long)f * m * m, p.xc, p.xf, p.fz + 3 * f, k, n, hh, j0, i0,
+      [=](int ly, int lx, int j, int i, float dh, float dua, float dub) {
+        const long c = f * nn + (long)j * n + i;
+        float y0h = 0.0f, y0a = 0.0f, y0b = 0.0f;
+        if (p.with_y0) {
+          y0h = p.h0[c];
+          y0a = p.u0[c];
+          y0b = p.u0[6 * nn + c];
         }
-      }
-      s_bern[ly][lx] = bern;
-    }
-
-  // ---- 2b. mass fluxes through the alpha-faces (i) and beta-faces (j) -
-  for (int ly = ty; ly < TY; ly += BY)
-    for (int lf = tx; lf < TX + 1; lf += BX) {
-      const int j = j0 + ly, i = i0 + lf;   // face i: cells i-1 | i
-      float flux = 0.0f;
-      if (j < n && i <= n) {
-        float U;
-        if (i == 0) {
-          U = gwe[j * rw + 6 * hh];          // W seam, prescaled
-        } else if (i == n) {
-          U = gwe[j * rw + 6 * hh + 1];      // E seam, prescaled
-        } else {
-          const float x = xf[i + hh], y = xc[j + hh];
-          const float dydb = 1.0f + y * y;
-          const float rho2 = (1.0f + x * x) + y * y;
-          const float inv_rho = rsqrtf(rho2);
-          const float fg_aa = dydb * inv_rho;
-          const float fg_ab = (x * y) * inv_rho;
-          const float uba = 0.5f * (s_ua[ly + 1][lf] + s_ua[ly + 1][lf + 1]);
-          const float ubb = 0.5f * (s_ub[ly + 1][lf] + s_ub[ly + 1][lf + 1]);
-          U = fg_aa * uba + fg_ab * ubb;
-        }
-        flux = upwind_flux(U, s_h[ly + AP][lf], s_h[ly + AP][lf + 1],
-                           s_h[ly + AP][lf + 2], s_h[ly + AP][lf + 3]);
-      }
-      s_fx[ly][lf] = flux;
-    }
-  for (int lf = ty; lf < TY + 1; lf += BY)
-    for (int lx = tx; lx < TX; lx += BX) {
-      const int j = j0 + lf, i = i0 + lx;   // face j: cells j-1 | j
-      float flux = 0.0f;
-      if (j <= n && i < n) {
-        float U;
-        if (j == 0) {
-          U = gsn[(6 * hh) * n + i];         // S seam, prescaled
-        } else if (j == n) {
-          U = gsn[(6 * hh + 1) * n + i];     // N seam, prescaled
-        } else {
-          const float x = xc[i + hh], y = xf[j + hh];
-          const float dxda = 1.0f + x * x;
-          const float rho2 = dxda + y * y;
-          const float inv_rho = rsqrtf(rho2);
-          const float fg_ab = (x * y) * inv_rho;
-          const float fg_bb = dxda * inv_rho;
-          const float vba = 0.5f * (s_ua[lf][lx + 1] + s_ua[lf + 1][lx + 1]);
-          const float vbb = 0.5f * (s_ub[lf][lx + 1] + s_ub[lf + 1][lx + 1]);
-          U = fg_ab * vba + fg_bb * vbb;
-        }
-        flux = upwind_flux(U, s_h[lf][lx + AP], s_h[lf + 1][lx + AP],
-                           s_h[lf + 2][lx + AP], s_h[lf + 3][lx + AP]);
-      }
-      s_fy[lf][lx] = flux;
-    }
-  __syncthreads();
-
-  // ---- 3. tendencies, RK combine, state and strip stores --------------
-  const int sw = 6 * hh;   // strip width
-  for (int ly = ty; ly < TY; ly += BY)
-    for (int lx = tx; lx < TX; lx += BX) {
-      const int j = j0 + ly, i = i0 + lx;
-      if (j >= n || i >= n) continue;
-      const float x = xc[i + hh], y = xc[j + hh];
-      const float dxda = 1.0f + x * x;
-      const float dydb = 1.0f + y * y;
-      const float rho2 = dxda + y * y;
-      const float inv_rho = rsqrtf(rho2);
-      const float inv_rho2 = inv_rho * inv_rho;
-      const float sg_row = R2 * dxda;
-      const float sqrtg = (sg_row * dydb) * (inv_rho2 * inv_rho);
-      const float inv_sqrtg = ((1.0f / sg_row) * (1.0f / dydb))
-                            * (rho2 * rho2 * inv_rho);
-
-      const float dh = -((s_fx[ly][lx + 1] - s_fx[ly][lx])
-                         + (s_fy[ly + 1][lx] - s_fy[ly][lx]))
-                     * (inv_sqrtg * p.inv_d);
-      const float dba = (s_bern[ly + 1][lx + 2] - s_bern[ly + 1][lx])
-                      * p.inv2d;
-      const float dbb = (s_bern[ly + 2][lx + 1] - s_bern[ly][lx + 1])
-                      * p.inv2d;
-      const float dub_da = (s_ub[ly + 1][lx + 2] - s_ub[ly + 1][lx])
-                         * p.inv2d;
-      const float dua_db = (s_ua[ly + 2][lx + 1] - s_ua[ly][lx + 1])
-                         * p.inv2d;
-      const float* fz = p.fz + 3 * f;
-      const float rz = ((fz[0] + x * fz[1]) + y * fz[2]) * inv_rho;
-      const float absv = (dub_da - dua_db) + (p.two_omega * rz) * sqrtg;
-      const float dua = absv * s_ucb[ly][lx] - dba;
-      const float dub = (-absv) * s_uca[ly][lx] - dbb;
-
-      const long c = f * nn + (long)j * n + i;
-      float y0h = 0.0f, y0a = 0.0f, y0b = 0.0f;
-      if (p.with_y0) {
-        y0h = p.h0[c];
-        y0a = p.u0[c];
-        y0b = p.u0[6 * nn + c];
-      }
-      const float vals[3] = {
-          combine(p.with_y0, p.a, p.bcoef, p.g_dt, y0h, s_h[ly + AP][lx + AP], dh),
-          combine(p.with_y0, p.a, p.bcoef, p.g_dt, y0a, s_ua[ly + 1][lx + 1], dua),
-          combine(p.with_y0, p.a, p.bcoef, p.g_dt, y0b, s_ub[ly + 1][lx + 1], dub)};
-      p.ho[c] = vals[0];
-      p.uo[c] = vals[1];
-      p.uo[6 * nn + c] = vals[2];
-
-      // Boundary strips in pack_strips_cov_split's layout.
-      float* ssn = p.ssn + (long)f * sw * n;
-      float* swe = p.swe + (long)f * n * sw;
-      for (int fi = 0; fi < 3; ++fi) {
-        const int base = fi * 2 * hh;
-        if (j < hh) ssn[(base + j) * n + i] = vals[fi];
-        if (j >= n - hh) ssn[(base + hh + j - (n - hh)) * n + i] = vals[fi];
-        if (i < hh) swe[(long)j * sw + base + i] = vals[fi];
-        if (i >= n - hh) swe[(long)j * sw + base + hh + i - (n - hh)] = vals[fi];
-      }
-    }
+        const float vals[3] = {
+            combine(p.with_y0, p.a, p.bcoef, p.g_dt, y0h,
+                    s_h[ly + AP][lx + AP], dh),
+            combine(p.with_y0, p.a, p.bcoef, p.g_dt, y0a,
+                    s_ua[ly + 1][lx + 1], dua),
+            combine(p.with_y0, p.a, p.bcoef, p.g_dt, y0b,
+                    s_ub[ly + 1][lx + 1], dub)};
+        p.ho[c] = vals[0];
+        p.uo[c] = vals[1];
+        p.uo[6 * nn + c] = vals[2];
+        for (int fi = 0; fi < 3; ++fi)
+          put_strips(ssn, swe, fi, n, hh, j, i, vals[fi]);
+      });
 }
 
 }  // namespace

@@ -14,8 +14,11 @@ with ``u^i = g^ij u_j``, ``K = (u^a u_a + u^b u_b)/2`` and
   own oracle for the fused path.
 * :meth:`make_fused_step` — the compact fused SSPRK3 stepper: per stage
   one strip route and one launch of the CUDA stage kernel (its plain
-  PyTorch version on the CPU); with ``nu4 > 0`` one more route and one
-  launch of the CUDA del^4 filter kernel per step.
+  PyTorch version on the CPU).  With ``nu4 > 0``, by ``nu4_mode``:
+  ``'split'`` adds one route and one launch of the CUDA del^4 filter
+  kernel per step; ``'refused'`` fuses the filter into the stage-1 kernel
+  (3 kernels, 3 routes per step); ``'stage'`` runs the in-stage kernel
+  pair in every stage (6 kernels, 6 routes).
 
 With ``nu4 > 0`` the classic ``rhs`` adds ``-nu4 lap(fill(lap q))`` to
 every prognostic, as the JAX package's jnp path does.
@@ -90,13 +93,20 @@ class CovariantShallowWater(SWEBase):
 
         Ported: the production configuration — compact carry, f32 carry,
         one step per call, one member, f32 arithmetic.  With ``nu4 == 0``
-        it is :func:`make_fused_ssprk3_cov_compact`; with ``nu4 > 0`` the
-        ``nu4_mode='split'`` stepper
+        it is :func:`make_fused_ssprk3_cov_compact` and ``nu4_mode`` is
+        ignored, as in the JAX package.  With ``nu4 > 0``, ``nu4_mode``
+        picks the del^4 stepper: ``'split'``
         :func:`make_fused_ssprk3_cov_split_nu4` (three stages, then one
-        del^4 filter launch per step).  Every other knob of the JAX
-        package raises ``NotImplementedError`` naming its ROADMAP item.
+        filter launch), ``'refused'``
+        :func:`make_fused_ssprk3_cov_refused_nu4` (the filter fused into
+        stage 1) or ``'stage'`` :func:`make_fused_ssprk3_cov_nu4` (the
+        in-stage kernel pair, the parity oracle).  Every other knob of the
+        JAX package raises ``NotImplementedError`` naming its ROADMAP
+        item, for every ``nu4_mode``.
         """
         from ..ops.cuda.swe_cov import (make_fused_ssprk3_cov_compact,
+                                        make_fused_ssprk3_cov_nu4,
+                                        make_fused_ssprk3_cov_refused_nu4,
                                         make_fused_ssprk3_cov_split_nu4)
 
         if nu4_mode not in ("split", "stage", "refused"):
@@ -126,21 +136,17 @@ class CovariantShallowWater(SWEBase):
         if precision is not None:
             _not_ported(f"precision={precision!r}",
                         "queue A item 5 (ops/pallas/precision.py)")
-        if nu4_mode == "refused":
-            _not_ported("nu4_mode='refused'",
-                        "queue B item 3 (make_cov_stage_refused_nu4)")
-        if nu4_mode == "stage":
-            _not_ported("nu4_mode='stage'",
-                        "queue B item 7 (make_cov_stage_nu4)")
         if self.grid.dtype != torch.float32:
             raise ValueError(
                 f"the fused stepper runs float32 grids only (the stage "
                 f"kernel is f32); got {self.grid.dtype}. Use make_step or "
                 f"build the grid with dtype=torch.float32.")
         if self.nu4 != 0.0:
-            return make_fused_ssprk3_cov_split_nu4(
-                self.grid, self.gravity, self.omega, dt, self.b_ext,
-                self.nu4, scheme=self.scheme, limiter=self.limiter)
+            make = {"split": make_fused_ssprk3_cov_split_nu4,
+                    "refused": make_fused_ssprk3_cov_refused_nu4,
+                    "stage": make_fused_ssprk3_cov_nu4}[nu4_mode]
+            return make(self.grid, self.gravity, self.omega, dt, self.b_ext,
+                        self.nu4, scheme=self.scheme, limiter=self.limiter)
         return make_fused_ssprk3_cov_compact(
             self.grid, self.gravity, self.omega, dt, self.b_ext,
             scheme=self.scheme, limiter=self.limiter)

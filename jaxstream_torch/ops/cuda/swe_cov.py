@@ -24,6 +24,20 @@ Counterpart of the compact-carry path of
   :func:`_nu4_filtered_value`, :func:`_fill` with corners).
 * :func:`make_fused_ssprk3_cov_split_nu4`: the three stages, then route
   + filter (the JAX package's ``nu4_mode='split'``).
+* :class:`CovStageRefusedNu4`: stage 1 with the filter fused in front of
+  it; CUDA tensors launch ``csrc/cov_stage_refused_nu4.cu`` (the port of
+  ``make_cov_stage_refused_nu4``), CPU tensors run
+  :func:`cov_stage_refused_nu4_reference`.
+  :func:`make_fused_ssprk3_cov_refused_nu4` steps with it and two
+  compact stages (``nu4_mode='refused'``).
+* :class:`CovStageNu4`: the in-stage del^4 kernel pair A / B; CUDA
+  tensors launch ``csrc/cov_stage_nu4.cu`` (the port of
+  ``make_cov_stage_nu4``), CPU tensors run
+  :func:`cov_stage_nu4_a_reference` / :func:`cov_stage_nu4_b_reference`.
+  :func:`make_fused_ssprk3_cov_nu4` steps with three of them
+  (``nu4_mode='stage'``).
+
+The kernels share their device code through ``csrc/cov_common.cuh``.
 
 Layouts are the JAX package's: state ``h (6, n, n)``, ``u (2, 6, n, n)``;
 strips ``strips_sn (6, 6h, n)`` / ``strips_we (6, n, 6h)``; routed ghosts
@@ -58,6 +72,15 @@ __all__ = [
     "make_cov_nu4_filter",
     "cov_nu4_filter_reference",
     "make_fused_ssprk3_cov_split_nu4",
+    "CovStageRefusedNu4",
+    "make_cov_stage_refused_nu4",
+    "cov_stage_refused_nu4_reference",
+    "make_fused_ssprk3_cov_refused_nu4",
+    "CovStageNu4",
+    "make_cov_stage_nu4",
+    "cov_stage_nu4_a_reference",
+    "cov_stage_nu4_b_reference",
+    "make_fused_ssprk3_cov_nu4",
     "SSPRK3_COEFFS",
 ]
 
@@ -404,26 +427,29 @@ def _fill(q_int, gsn, gwe, fi, n, halo, corners=False):
     return ext
 
 
-def cov_stage_compact_reference(stage, *args):
-    """The plain PyTorch version of one compact stage.
-
-    ``stage`` is a :class:`CovStageCompact` (its coefficients, constants
-    and coordinate rows); ``args`` as for calling it.  Used on CPU tensors
-    by the stage itself, and by the tests and ``chip_smoke.py`` to hold
-    the CUDA kernel against it.  Returns ``(h, u, strips_sn, strips_we)``.
-    """
-    h0, u0, hc, uc, gsn, gwe, b_ext = stage._unpack(args)
+def _stage_rhs(stage, hf, ua, ub, b_ext, gsn, gwe):
+    """:func:`rhs_core_cov` on ghost-filled frames with ``stage``'s
+    constants and coordinate rows and the routed (prescaled) sym rows."""
     n, h = stage.n, stage.halo
     x_row, xf_row, x_col, xf_col = stage.coords
     fz = tuple(stage.fz[:, k].reshape(6, 1, 1) for k in range(3))
-    hf = _fill(hc, gsn, gwe, 0, n, h)
-    ua = _fill(uc[0], gsn, gwe, 1, n, h)
-    ub = _fill(uc[1], gsn, gwe, 2, n, h)
-    dh, dua, dub = rhs_core_cov(
+    return rhs_core_cov(
         fz, x_row, xf_row, x_col, xf_col, hf, ua, ub, b_ext,
         gsn[:, 6 * h:6 * h + 2], gwe[:, :, 6 * h:6 * h + 2],
         n=n, halo=h, d=stage.dalpha, radius=stage.radius,
         gravity=stage.gravity, omega=stage.omega, limiter=stage.limiter)
+
+
+def _stage_advance(stage, args, corners=False):
+    """Fill, right-hand side and RK combine of one stage: the plain
+    version's core, shared by the compact stage and the in-stage del^4
+    kernel A.  Returns ``(h_new, u_new, (hf, ua, ub))``, the last the
+    ghost-filled stage input (``corners``: see :func:`_fill`)."""
+    h0, u0, hc, uc, gsn, gwe, b_ext = stage._unpack(args)
+    n, h = stage.n, stage.halo
+    frames = tuple(_fill(q, gsn, gwe, fi, n, h, corners=corners)
+                   for fi, q in enumerate((hc, uc[0], uc[1])))
+    dh, dua, dub = _stage_rhs(stage, *frames, b_ext, gsn, gwe)
 
     fa, fb, fg = stage.fa, stage.fb, stage.fg
 
@@ -436,7 +462,19 @@ def cov_stage_compact_reference(stage, *args):
     u_new = torch.stack([
         combine(uc[0], None if u0 is None else u0[0], dua),
         combine(uc[1], None if u0 is None else u0[1], dub)])
-    sn, we = pack_strips_cov_split(h_new, u_new, n, h)
+    return h_new, u_new, frames
+
+
+def cov_stage_compact_reference(stage, *args):
+    """The plain PyTorch version of one compact stage.
+
+    ``stage`` is a :class:`CovStageCompact` (its coefficients, constants
+    and coordinate rows); ``args`` as for calling it.  Used on CPU tensors
+    by the stage itself, and by the tests and ``chip_smoke.py`` to hold
+    the CUDA kernel against it.  Returns ``(h, u, strips_sn, strips_we)``.
+    """
+    h_new, u_new, _ = _stage_advance(stage, args)
+    sn, we = pack_strips_cov_split(h_new, u_new, stage.n, stage.halo)
     return h_new, u_new, sn, we
 
 
@@ -445,6 +483,12 @@ def cov_stage_compact_reference(stage, *args):
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
+
+
+def _ptr(t):
+    """A tensor's device pointer, or NULL for an operand a launch does not
+    read (a stage-1 kernel's y0)."""
+    return None if t is None else t.data_ptr()
 
 
 def _entry(lib_name: str, fn_name: str, argtypes):
@@ -482,22 +526,10 @@ def _kernel():
                   + [_P])
 
 
-class CovStageCompact:
-    """One fused covariant SSPRK3 stage over interior-only state.
-
-    ``a == 0``: ``stage(hc, uc, gsn, gwe, b_ext)``; else
-    ``stage(h0, u0, hc, uc, gsn, gwe, b_ext)``.  Computes
-    ``a*y0 + b*yc + b*dt*L(yc)`` with the combine association of the JAX
-    kernel, and returns ``(h, u, strips_sn, strips_we)``.
-
-    CUDA tensors launch ``csrc/cov_stage.cu``; CPU tensors run
-    :func:`cov_stage_compact_reference`.  There is no other path: a
-    kernel that fails to build or launch raises.
-    """
-
-    #: Launches of the CUDA kernel, all instances together (the plain
-    #: version does not count).
-    launches = 0
+class _StageBase:
+    """Coefficients, float32 constants and coordinate rows of one
+    covariant SSPRK3 stage ``a*y0 + b*yc + b*dt*L(yc)``, and the checks
+    of its arguments: what the stage kernels' wrappers share."""
 
     def __init__(self, n: int, halo: int, dalpha: float, radius: float,
                  gravity: float, omega: float, dt: float, a: float, b: float,
@@ -556,13 +588,42 @@ class CovStageCompact:
             want["u0"] = (u0, (2, 6, n, n))
         _check_tensors(want, self.device)
 
+    @staticmethod
+    def _on_cuda(t):
+        """True for a CUDA tensor (launch the kernel), False for a CPU
+        tensor (run the plain version); raises for any other device."""
+        if t.device.type == "cpu":
+            return False
+        if t.device.type != "cuda":
+            raise ValueError(f"unsupported device {t.device}")
+        return True
+
+    def _stream(self):
+        return torch.cuda.current_stream(self.device).cuda_stream
+
+
+class CovStageCompact(_StageBase):
+    """One fused covariant SSPRK3 stage over interior-only state.
+
+    ``a == 0``: ``stage(hc, uc, gsn, gwe, b_ext)``; else
+    ``stage(h0, u0, hc, uc, gsn, gwe, b_ext)``.  Computes
+    ``a*y0 + b*yc + b*dt*L(yc)`` with the combine association of the JAX
+    kernel, and returns ``(h, u, strips_sn, strips_we)``.
+
+    CUDA tensors launch ``csrc/cov_stage.cu``; CPU tensors run
+    :func:`cov_stage_compact_reference`.  There is no other path: a
+    kernel that fails to build or launch raises.
+    """
+
+    #: Launches of the CUDA kernel, all instances together (the plain
+    #: version does not count).
+    launches = 0
+
     def __call__(self, *args):
         h0, u0, hc, uc, gsn, gwe, b_ext = self._unpack(args)
         self._check(h0, u0, hc, uc, gsn, gwe, b_ext)
-        if hc.device.type == "cpu":
+        if not self._on_cuda(hc):
             return cov_stage_compact_reference(self, *args)
-        if hc.device.type != "cuda":
-            raise ValueError(f"unsupported device {hc.device}")
         return self._launch(h0, u0, hc, uc, gsn, gwe, b_ext)
 
     def reference(self, *args):
@@ -575,14 +636,12 @@ class CovStageCompact:
         uo = torch.empty_like(uc)
         ssn = hc.new_empty((6, 6 * h, n))
         swe = hc.new_empty((6, n, 6 * h))
-        stream = torch.cuda.current_stream(self.device).cuda_stream
-        ptr = (lambda t: None if t is None else t.data_ptr())
         rc = _kernel()(
-            ptr(h0), ptr(u0), hc.data_ptr(), uc.data_ptr(), gsn.data_ptr(),
+            _ptr(h0), _ptr(u0), hc.data_ptr(), uc.data_ptr(), gsn.data_ptr(),
             gwe.data_ptr(), b_ext.data_ptr(), self._xc.data_ptr(),
             self._xf.data_ptr(), self.fz.data_ptr(), ho.data_ptr(),
             uo.data_ptr(), ssn.data_ptr(), swe.data_ptr(),
-            n, h, int(self.with_y0), *self._kconsts, stream)
+            n, h, int(self.with_y0), *self._kconsts, self._stream())
         if rc != 0:
             raise RuntimeError(
                 f"cov_stage kernel launch failed: cudaError {rc} "
@@ -860,4 +919,368 @@ def make_fused_ssprk3_cov_split_nu4(grid, gravity: float, omega: float,
     step.route = route
     step.stages = advance.stages
     step.filter = filt
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Re-fused del^4: the filter folded into the stage-1 kernel
+# ---------------------------------------------------------------------------
+
+
+def cov_stage_refused_nu4_reference(stage, hc, uc, gsn, gwe, b_ext):
+    """The plain PyTorch version of the re-fused stage 1.
+
+    ``stage`` is a :class:`CovStageRefusedNu4`.  Each of h, u_a, u_b gets
+    its ghosts and averaged corners from the routed blocks and is filtered
+    on the interior, ``fv = q - damp lap(lap q)``
+    (:func:`_nu4_filtered_value`); ``fv`` replaces the frame's interior
+    and the ghosts stay unfiltered (the JAX design's O(damp) seam
+    inconsistency: filtered ghosts would need deeper strips).  The
+    right-hand side runs on those frames with the prescaled sym rows.
+    Returns ``(h1, u1, h0f, u0f, strips_sn, strips_we)``: ``h1 = fv +
+    f32(dt) L``, the filtered base ``(h0f, u0f)`` for stages 2 and 3, and
+    the strips of ``(h1, u1)``.  It also runs in float64.
+    """
+    n, h = stage.n, stage.halo
+    i0, i1 = h, h + n
+    x_row, xf_row, x_col, xf_col = stage.coords
+    frames, filt = [], []
+    for fi, q in enumerate((hc, uc[0], uc[1])):
+        ext = _fill(q, gsn, gwe, fi, n, h, corners=True)
+        fv = _nu4_filtered_value(
+            x_row, xf_row, x_col, xf_col, ext, q, n=n, halo=h,
+            d=stage.dalpha, radius=stage.radius, damp=stage.damp)
+        ext[:, i0:i1, i0:i1] = fv
+        frames.append(ext)
+        filt.append(fv)
+    tends = _stage_rhs(stage, *frames, b_ext, gsn, gwe)
+    h1, ua1, ub1 = (fv + stage.fg * tend for fv, tend in zip(filt, tends))
+    u1 = torch.stack([ua1, ub1])
+    sn, we = pack_strips_cov_split(h1, u1, n, h)
+    return h1, u1, filt[0], torch.stack(filt[1:]), sn, we
+
+
+def _refused_kernel():
+    """The re-fused stage-1 kernel: 14 tensor pointers; n, halo; 7 float
+    constants; the stream."""
+    return _entry("cov_stage_refused_nu4", "cov_stage_refused_nu4_f32",
+                  [_P] * 14 + [ctypes.c_int] * 2 + [ctypes.c_float] * 7
+                  + [_P])
+
+
+class CovStageRefusedNu4(_StageBase):
+    """Stage 1 with the del^4 filter fused in front of the RHS.
+
+    ``stage1f(hc, uc, gsn, gwe, b_ext) -> (h1, u1, h0f, u0f, strips_sn,
+    strips_we)``: the filter ``q -= dt nu4 lap(lap q)`` on the interiors
+    of h, u_a, u_b (the split filter's arithmetic, ring-1 first
+    Laplacian), then the plain stage-1 RHS and combine on the filtered
+    interior with the unfiltered routed ghosts.  CUDA tensors launch
+    ``csrc/cov_stage_refused_nu4.cu`` (the port of the Pallas kernel
+    ``make_cov_stage_refused_nu4``); CPU tensors run
+    :func:`cov_stage_refused_nu4_reference`.  There is no other path: a
+    kernel that fails to build or launch raises.
+    """
+
+    #: Launches of the CUDA kernel, all instances together (the plain
+    #: version does not count).
+    launches = 0
+
+    def __init__(self, n: int, halo: int, dalpha: float, radius: float,
+                 gravity: float, omega: float, dt: float, nu4: float,
+                 scheme: str = "plr", limiter: str = "mc", device="cuda"):
+        super().__init__(n, halo, dalpha, radius, gravity, omega, dt, 0.0,
+                         1.0, scheme=scheme, limiter=limiter, device=device)
+        self.nu4 = float(nu4)
+        # Rounded once from float64, as the JAX kernel rounds it.
+        self.damp = _f32(self.dt * self.nu4)
+        self._rconsts = self._kconsts[:5] + (self.fg, self.damp)
+
+    def __call__(self, hc, uc, gsn, gwe, b_ext):
+        self._check(None, None, hc, uc, gsn, gwe, b_ext)
+        if not self._on_cuda(hc):
+            return cov_stage_refused_nu4_reference(self, hc, uc, gsn, gwe,
+                                                   b_ext)
+        n, h = self.n, self.halo
+        outs = (torch.empty_like(hc), torch.empty_like(uc),
+                torch.empty_like(hc), torch.empty_like(uc),
+                hc.new_empty((6, 6 * h, n)), hc.new_empty((6, n, 6 * h)))
+        rc = _refused_kernel()(
+            hc.data_ptr(), uc.data_ptr(), gsn.data_ptr(), gwe.data_ptr(),
+            b_ext.data_ptr(), self._xc.data_ptr(), self._xf.data_ptr(),
+            self.fz.data_ptr(), *[t.data_ptr() for t in outs],
+            n, h, *self._rconsts, self._stream())
+        if rc != 0:
+            raise RuntimeError(
+                f"cov_stage_refused_nu4 kernel launch failed: cudaError "
+                f"{rc} (n={n}, halo={h})")
+        CovStageRefusedNu4.launches += 1
+        return outs
+
+    def reference(self, hc, uc, gsn, gwe, b_ext):
+        """The plain version on the same arguments (tests and smoke)."""
+        return cov_stage_refused_nu4_reference(self, hc, uc, gsn, gwe, b_ext)
+
+
+def make_cov_stage_refused_nu4(grid, gravity: float, omega: float,
+                               dt: float, nu4: float, scheme: str = "plr",
+                               limiter: str = "mc", device=None):
+    """The re-fused stage 1 on ``grid`` (see :class:`CovStageRefusedNu4`);
+    ``device`` defaults to the grid's."""
+    return CovStageRefusedNu4(
+        grid.n, grid.halo, grid.dalpha, grid.radius, gravity, omega, dt, nu4,
+        scheme=scheme, limiter=limiter,
+        device=grid.device if device is None else device)
+
+
+def make_fused_ssprk3_cov_refused_nu4(grid, gravity: float, omega: float,
+                                      dt: float, b_ext, nu4: float,
+                                      scheme: str = "plr",
+                                      limiter: str = "mc"):
+    """``step(y, t) -> y``: the re-fused del^4 stepper (the JAX package's
+    ``nu4_mode='refused'``), 3 kernels and 3 routes per step.
+
+    The split stepper's last operation (filter ``y`` with the routed
+    ghosts of ``y``'s strips) and the next step's first (stage 1 with the
+    same routed ghosts) are commuted into one kernel: route, the re-fused
+    stage 1 (:class:`CovStageRefusedNu4`), route, stage 2 against the
+    filtered base ``(h0f, u0f)``, route, stage 3 against it.  The two
+    trajectories differ by one filter application at the endpoints
+    (O(damp)); the Galewsky day-6 gate is the equivalence standard.  Same
+    carry and prescaled router as :func:`make_fused_ssprk3_cov_compact`.
+    No ``interval``: filter-cycling stays on the split stepper, as in the
+    JAX package.  ``step.stage1f`` is the re-fused kernel, ``step.stages``
+    the two compact stages.
+    """
+    route = make_cov_strip_router_split(grid)
+    stage1f = make_cov_stage_refused_nu4(grid, gravity, omega, dt, nu4,
+                                         scheme=scheme, limiter=limiter)
+    stage2, stage3 = [make_cov_stage_compact(
+        grid.n, grid.halo, grid.dalpha, grid.radius, gravity, omega, dt,
+        a, b, scheme=scheme, limiter=limiter, device=grid.device)
+        for a, b in SSPRK3_COEFFS[1:]]
+
+    def step(y, t):
+        del t
+        gsn, gwe = route(y["strips_sn"], y["strips_we"])
+        h1, u1, h0f, u0f, sn1, we1 = stage1f(y["h"], y["u"], gsn, gwe, b_ext)
+        gsn, gwe = route(sn1, we1)
+        h2, u2, sn2, we2 = stage2(h0f, u0f, h1, u1, gsn, gwe, b_ext)
+        gsn, gwe = route(sn2, we2)
+        h3, u3, sn3, we3 = stage3(h0f, u0f, h2, u2, gsn, gwe, b_ext)
+        return {"h": h3, "u": u3, "strips_sn": sn3, "strips_we": we3}
+
+    step.route = route
+    step.stage1f = stage1f
+    step.stages = [stage2, stage3]
+    return step
+
+
+# ---------------------------------------------------------------------------
+# In-stage del^4: the kernel pair A / B per RK stage
+# ---------------------------------------------------------------------------
+
+
+def cov_stage_nu4_a_reference(stage, *args):
+    """The plain PyTorch version of kernel A of the in-stage pair.
+
+    ``stage`` is a :class:`CovStageNu4`; ``args`` as for
+    ``stage.call_a``.  The compact stage's fill, RHS and combine (with
+    averaged ghost corners, which no advective output reads), and the
+    ring-0 Laplacian of the ghost-filled stage input.  Returns ``(h_adv,
+    u_adv, l1h, l1u, strips_sn, strips_we)``, the strips those of l1.
+    """
+    h_adv, u_adv, frames = _stage_advance(stage, args, corners=True)
+    x_row, xf_row, x_col, xf_col = stage.coords
+    l1h, l1a, l1b = (lap_core(x_row, xf_row, x_col, xf_col, psi, n=stage.n,
+                              halo=stage.halo, d=stage.dalpha,
+                              radius=stage.radius) for psi in frames)
+    l1u = torch.stack([l1a, l1b])
+    sn, we = pack_strips_cov_split(l1h, l1u, stage.n, stage.halo)
+    return h_adv, u_adv, l1h, l1u, sn, we
+
+
+def cov_stage_nu4_b_reference(stage, h_adv, u_adv, l1h, l1u, gsn, gwe):
+    """The plain PyTorch version of kernel B of the in-stage pair.
+
+    ``stage`` is a :class:`CovStageNu4`.  l1 gets its ghosts and averaged
+    corners from the routed l1 blocks ``gsn``/``gwe`` (their sym rows are
+    not read); the output is ``adv - damp lap(l1)``, ``damp = f32(b dt
+    nu4)``.  Returns ``(h, u, strips_sn, strips_we)``.
+    """
+    n, h = stage.n, stage.halo
+    x_row, xf_row, x_col, xf_col = stage.coords
+    out = [adv - stage.damp * lap_core(
+        x_row, xf_row, x_col, xf_col,
+        _fill(l1, gsn, gwe, fi, n, h, corners=True),
+        n=n, halo=h, d=stage.dalpha, radius=stage.radius)
+        for fi, (adv, l1) in enumerate(((h_adv, l1h), (u_adv[0], l1u[0]),
+                                        (u_adv[1], l1u[1])))]
+    h_new, u_new = out[0], torch.stack(out[1:])
+    sn, we = pack_strips_cov_split(h_new, u_new, n, h)
+    return h_new, u_new, sn, we
+
+
+def _nu4_a_kernel():
+    """Kernel A: 16 tensor pointers; n, halo, with_y0; 8 float constants;
+    the stream."""
+    return _entry("cov_stage_nu4", "cov_stage_nu4_a_f32",
+                  [_P] * 16 + [ctypes.c_int] * 3 + [ctypes.c_float] * 8
+                  + [_P])
+
+
+def _nu4_b_kernel():
+    """Kernel B: 12 tensor pointers; n, halo; R^2, 1/d, 0.5/d, damp; the
+    stream."""
+    return _entry("cov_stage_nu4", "cov_stage_nu4_b_f32",
+                  [_P] * 12 + [ctypes.c_int] * 2 + [ctypes.c_float] * 4
+                  + [_P])
+
+
+class CovStageNu4(_StageBase):
+    """One RK stage with in-stage del^4 filtering, as a kernel pair (the
+    JAX package's ``nu4_mode='stage'``, its parity oracle).
+
+    * ``call_a(*args) -> (h_adv, u_adv, l1h, l1u, sn_l1, we_l1)``, args
+      as for :class:`CovStageCompact`: the advective stage
+      ``a*y0 + b*yc + b*dt*L(yc)`` and ``l1 = lap(yc)``;
+    * ``call_b(h_adv, u_adv, l1h, l1u, gsn, gwe) -> (h, u, sn, we)``,
+      ``gsn``/``gwe`` the routed l1 strips: ``adv - b dt nu4 lap(l1)``.
+
+    CUDA tensors launch ``csrc/cov_stage_nu4.cu``'s two kernels (the port
+    of the Pallas pair of ``make_cov_stage_nu4``), each with its own
+    launch counter; CPU tensors run :func:`cov_stage_nu4_a_reference` /
+    :func:`cov_stage_nu4_b_reference`.  There is no other path.
+
+    The JAX pair routes with the unprescaled router and multiplies the
+    sym rows by the edge sqrtg in kernel A (``sym_prescaled=False``); the
+    port has the prescaled router only, and A imposes its sym rows as
+    they are.  The two differ in the sym rows by the rounding of the
+    prescale (``tests/test_torch_nu4_modes.py`` measures it).  B never
+    reads the sym rows.
+    """
+
+    #: Launches of kernel A and of kernel B, all instances together (the
+    #: plain versions do not count).
+    launches_a = 0
+    launches_b = 0
+
+    def __init__(self, n: int, halo: int, dalpha: float, radius: float,
+                 gravity: float, omega: float, dt: float, a: float, b: float,
+                 nu4: float, scheme: str = "plr", limiter: str = "mc",
+                 device="cuda"):
+        super().__init__(n, halo, dalpha, radius, gravity, omega, dt, a, b,
+                         scheme=scheme, limiter=limiter, device=device)
+        self.nu4 = float(nu4)
+        # f32(b dt nu4), rounded once from float64 as the JAX kernel B.
+        self.damp = _f32(self.b * self.dt * self.nu4)
+        # Kernel B's constants, rounded as lap_core rounds them.
+        self._bconsts = (self._kconsts[0], _f32(1.0 / self.dalpha),
+                         _f32(0.5 / self.dalpha), self.damp)
+
+    def call_a(self, *args):
+        h0, u0, hc, uc, gsn, gwe, b_ext = self._unpack(args)
+        self._check(h0, u0, hc, uc, gsn, gwe, b_ext)
+        if not self._on_cuda(hc):
+            return cov_stage_nu4_a_reference(self, *args)
+        n, h = self.n, self.halo
+        outs = (torch.empty_like(hc), torch.empty_like(uc),
+                torch.empty_like(hc), torch.empty_like(uc),
+                hc.new_empty((6, 6 * h, n)), hc.new_empty((6, n, 6 * h)))
+        rc = _nu4_a_kernel()(
+            _ptr(h0), _ptr(u0), hc.data_ptr(), uc.data_ptr(),
+            gsn.data_ptr(), gwe.data_ptr(), b_ext.data_ptr(),
+            self._xc.data_ptr(), self._xf.data_ptr(), self.fz.data_ptr(),
+            *[t.data_ptr() for t in outs], n, h, int(self.with_y0),
+            *self._kconsts, self._stream())
+        if rc != 0:
+            raise RuntimeError(f"cov_stage_nu4 kernel A launch failed: "
+                               f"cudaError {rc} (n={n}, halo={h})")
+        CovStageNu4.launches_a += 1
+        return outs
+
+    def call_b(self, h_adv, u_adv, l1h, l1u, gsn, gwe):
+        n, h = self.n, self.halo
+        _check_tensors({"h_adv": (h_adv, (6, n, n)),
+                        "u_adv": (u_adv, (2, 6, n, n)),
+                        "l1h": (l1h, (6, n, n)), "l1u": (l1u, (2, 6, n, n)),
+                        "gsn": (gsn, (6, 6 * h + 2, n)),
+                        "gwe": (gwe, (6, n, 6 * h + 2))}, self.device)
+        if not self._on_cuda(h_adv):
+            return cov_stage_nu4_b_reference(self, h_adv, u_adv, l1h, l1u,
+                                             gsn, gwe)
+        outs = (torch.empty_like(h_adv), torch.empty_like(u_adv),
+                h_adv.new_empty((6, 6 * h, n)),
+                h_adv.new_empty((6, n, 6 * h)))
+        rc = _nu4_b_kernel()(
+            h_adv.data_ptr(), u_adv.data_ptr(), l1h.data_ptr(),
+            l1u.data_ptr(), gsn.data_ptr(), gwe.data_ptr(),
+            self._xc.data_ptr(), self._xf.data_ptr(),
+            *[t.data_ptr() for t in outs], n, h, *self._bconsts,
+            self._stream())
+        if rc != 0:
+            raise RuntimeError(f"cov_stage_nu4 kernel B launch failed: "
+                               f"cudaError {rc} (n={n}, halo={h})")
+        CovStageNu4.launches_b += 1
+        return outs
+
+    def reference_a(self, *args):
+        """Kernel A's plain version on the same arguments."""
+        return cov_stage_nu4_a_reference(self, *args)
+
+    def reference_b(self, h_adv, u_adv, l1h, l1u, gsn, gwe):
+        """Kernel B's plain version on the same arguments."""
+        return cov_stage_nu4_b_reference(self, h_adv, u_adv, l1h, l1u, gsn,
+                                         gwe)
+
+
+def make_cov_stage_nu4(grid, gravity: float, omega: float, dt: float,
+                       a: float, b: float, nu4: float, scheme: str = "plr",
+                       limiter: str = "mc", device=None):
+    """``(stage_a, stage_b)``: the two halves of one :class:`CovStageNu4`
+    on ``grid`` (its bound ``call_a`` / ``call_b``), as the JAX package's
+    ``make_cov_stage_nu4`` returns them; ``device`` defaults to the
+    grid's."""
+    st = CovStageNu4(grid.n, grid.halo, grid.dalpha, grid.radius, gravity,
+                     omega, dt, a, b, nu4, scheme=scheme, limiter=limiter,
+                     device=grid.device if device is None else device)
+    return st.call_a, st.call_b
+
+
+def make_fused_ssprk3_cov_nu4(grid, gravity: float, omega: float, dt: float,
+                              b_ext, nu4: float, scheme: str = "plr",
+                              limiter: str = "mc"):
+    """``step(y, t) -> y``: the in-stage del^4 stepper (the JAX package's
+    ``nu4_mode='stage'``), 6 kernels and 6 routes per step.
+
+    Each RK stage is kernel A, a route of A's l1 strips, kernel B
+    (:class:`CovStageNu4`).  Same carry and prescaled router as
+    :func:`make_fused_ssprk3_cov_compact`; ``step.stages`` are the three
+    :class:`CovStageNu4`.
+    """
+    route = make_cov_strip_router_split(grid)
+    stages = [CovStageNu4(grid.n, grid.halo, grid.dalpha, grid.radius,
+                          gravity, omega, dt, a, b, nu4, scheme=scheme,
+                          limiter=limiter, device=grid.device)
+              for a, b in SSPRK3_COEFFS]
+    s1, s2, s3 = stages
+
+    def half_stage(st, *args):
+        ha, uadv, l1h, l1u, sn1, we1 = st.call_a(*args)
+        gsn, gwe = route(sn1, we1)
+        return st.call_b(ha, uadv, l1h, l1u, gsn, gwe)
+
+    def step(y, t):
+        del t
+        h0, u0 = y["h"], y["u"]
+        gsn, gwe = route(y["strips_sn"], y["strips_we"])
+        h1, u1, sn, we = half_stage(s1, h0, u0, gsn, gwe, b_ext)
+        gsn, gwe = route(sn, we)
+        h2, u2, sn, we = half_stage(s2, h0, u0, h1, u1, gsn, gwe, b_ext)
+        gsn, gwe = route(sn, we)
+        h3, u3, sn, we = half_stage(s3, h0, u0, h2, u2, gsn, gwe, b_ext)
+        return {"h": h3, "u": u3, "strips_sn": sn, "strips_we": we}
+
+    step.route = route
+    step.stages = stages
     return step

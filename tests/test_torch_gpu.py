@@ -99,3 +99,90 @@ def test_filter_kernel_matches_plain_c48():
         for name, x, r in zip(("h", "u", "strips_sn", "strips_we"), out, ref):
             assert bool(torch.all(torch.isfinite(x))), name
             assert _rel(r, x) <= tol, (name, _rel(r, x))
+
+
+def _galewsky_c48(nu4_mode):
+    """The C48 Galewsky model (nu4 = 1e14), its ``nu4_mode`` stepper and
+    the carry after one step of it."""
+    g = build_grid(48, halo=2, radius=EARTH_RADIUS, device="cuda")
+    m = CovariantShallowWater(g, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA,
+                              nu4=1.0e14)
+    step = m.make_fused_step(480.0, nu4_mode=nu4_mode)
+    y = step(m.compact_state(m.initial_state(
+        *galewsky(g, EARTH_GRAVITY, EARTH_OMEGA))), 0.0)
+    return g, m, step, y
+
+
+def _probe_scale(q, out):
+    """``PROBE_MARGIN / min over fields of max|dq| / max|q|``: the factor
+    on nu4 that makes the filter term 1e3 x the state."""
+    return 1e3 / min(float((a.double() - b.double()).abs().max()
+                           / a.double().abs().max()) for a, b in zip(q, out))
+
+
+@pytest.mark.gpu
+def test_refused_kernel_matches_plain_c48():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the re-fused stage kernel has no "
+                    "CPU form)")
+    g, m, step, y = _galewsky_c48("refused")
+    args = (y["h"], y["u"]) + step.route(y["strips_sn"], y["strips_we"]) \
+        + (m.b_ext,)
+    st = step.stage1f
+    # The probe scales nu4 until the filtered base h0f, u0f is the filter
+    # term alone (see tests/test_torch_nu4_modes.py).
+    exact = st.reference(*[t.double() for t in args])
+    scale = _probe_scale((args[0], args[1][0], args[1][1]),
+                         (exact[2], exact[3][0], exact[3][1]))
+    probe = tcov.make_cov_stage_refused_nu4(g, EARTH_GRAVITY, EARTH_OMEGA,
+                                            st.dt, st.nu4 * scale)
+    names = ("h1", "u1", "h0f", "u0f", "strips_sn", "strips_we")
+    for s, tol in ((st, TOL), (probe, PROBE_TOL)):
+        before = tcov.CovStageRefusedNu4.launches
+        out = s(*args)
+        torch.cuda.synchronize()
+        assert tcov.CovStageRefusedNu4.launches == before + 1
+        ref = s.reference(*args)
+        for name, x, r in zip(names, out, ref):
+            assert bool(torch.all(torch.isfinite(x))), name
+            assert _rel(r, x) <= tol, (name, _rel(r, x))
+
+
+@pytest.mark.gpu
+def test_stage_nu4_kernels_match_plain_c48():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the in-stage del^4 kernels have "
+                    "no CPU form)")
+    g, m, step, y = _galewsky_c48("stage")
+    route = step.route
+    gsn, gwe = route(y["strips_sn"], y["strips_we"])
+    for st in step.stages[:2]:
+        args = (y["h"], y["u"], gsn, gwe, m.b_ext)
+        if st.with_y0:
+            args = (y["h"], y["u"]) + args
+        before = tcov.CovStageNu4.launches_a
+        out_a = st.call_a(*args)
+        torch.cuda.synchronize()
+        assert tcov.CovStageNu4.launches_a == before + 1
+        ref_a = st.reference_a(*args)
+        for name, x, r in zip(("h_adv", "u_adv", "l1h", "l1u", "sn", "we"),
+                              out_a, ref_a):
+            assert bool(torch.all(torch.isfinite(x))), name
+            assert _rel(r, x) <= TOL, (name, _rel(r, x))
+        bargs = tuple(ref_a[:4]) + route(ref_a[4], ref_a[5])
+        # B's probe: damp scaled until the output is the filter term.
+        exact = st.reference_b(*[t.double() for t in bargs])
+        scale = _probe_scale((bargs[0], bargs[1][0], bargs[1][1]),
+                             (exact[0], exact[1][0], exact[1][1]))
+        probe = tcov.CovStageNu4(g.n, g.halo, g.dalpha, g.radius,
+                                 EARTH_GRAVITY, EARTH_OMEGA, st.dt, st.a,
+                                 st.b, st.nu4 * scale, device=g.device)
+        for s, tol in ((st, TOL), (probe, PROBE_TOL)):
+            before = tcov.CovStageNu4.launches_b
+            out = s.call_b(*bargs)
+            torch.cuda.synchronize()
+            assert tcov.CovStageNu4.launches_b == before + 1
+            for name, x, r in zip(("h", "u", "sn", "we"), out,
+                                  s.reference_b(*bargs)):
+                assert bool(torch.all(torch.isfinite(x))), name
+                assert _rel(r, x) <= tol, (name, _rel(r, x))

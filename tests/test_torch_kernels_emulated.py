@@ -1,0 +1,193 @@
+"""The CUDA kernel sources against their plain versions, on the CPU.
+
+The kernels under ``jaxstream_torch/csrc/`` are compiled here by the host
+C++ compiler (g++) instead of nvcc, through a small stand-in for
+``cuda_runtime.h``: ``__shared__`` arrays become statics, each block runs
+as 256 host threads with a real barrier for ``__syncthreads``, and blocks
+run one after another.  The wrappers' launch path then runs unchanged on
+CPU tensors.  This checks what the sources compute (indexing, aprons, tile
+seams, ragged edges, op order) at C40, where a face has 2 x 3 tiles with
+ragged last ones; it says nothing of how they run on a GPU, which the
+``gpu``-marked tests and ``chip_smoke.py`` check on the card.
+
+With ``-ffp-contract=off`` the host rounds every multiply and add
+separately, as the kernels' ``-fmad=false`` builds do, so the outputs are
+bitwise equal to the plain versions' (the stand-in ``rsqrtf`` is
+``1/sqrtf``, as PyTorch's CPU ``rsqrt`` is).  Skips where there is no g++.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+import types
+from concurrent.futures import ThreadPoolExecutor
+
+import pytest
+import torch
+
+from jaxstream_torch import _build
+from jaxstream_torch.config import EARTH_GRAVITY, EARTH_OMEGA, EARTH_RADIUS
+from jaxstream_torch.geometry.cubed_sphere import build_grid
+from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
+from jaxstream_torch.ops.cuda import swe_cov as tsc
+from jaxstream_torch.physics.initial_conditions import galewsky, williamson_tc5
+
+N = 40
+G, OM = EARTH_GRAVITY, EARTH_OMEGA
+
+# The stand-in for cuda_runtime.h.
+_SHIM = r"""
+#pragma once
+#include <cmath>
+#include <pthread.h>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__ static
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct emu_idx { unsigned x, y, z; };
+inline thread_local emu_idx threadIdx, blockIdx;
+typedef void* cudaStream_t;
+inline int cudaGetLastError() { return 0; }
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+inline pthread_barrier_t emu_barrier;
+inline void __syncthreads() { pthread_barrier_wait(&emu_barrier); }
+template <class K, class P>
+void emu_launch(K kernel, dim3 grid, dim3 block, const P& p) {
+  const unsigned nt = block.x * block.y * block.z;
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        pthread_barrier_init(&emu_barrier, nullptr, nt);
+        std::vector<std::thread> ts;
+        for (unsigned t = 0; t < nt; ++t)
+          ts.emplace_back([=, &p]() {
+            threadIdx = {t % block.x, (t / block.x) % block.y,
+                         t / (block.x * block.y)};
+            blockIdx = {bx, by, bz};
+            kernel(p);
+          });
+        for (auto& th : ts) th.join();
+        pthread_barrier_destroy(&emu_barrier);
+      }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """``{kernel name: host library}``, every kernel of ``_build.KERNELS``
+    compiled by g++ in parallel."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the CUDA sources for the host")
+    out = tmp_path_factory.mktemp("cuda_emu")
+    (out / "cuda_runtime.h").write_text(_SHIM)
+
+    def build(name):
+        src = (_build.CSRC_DIR / _build.KERNELS[name]).read_text()
+        src = re.sub(r"(\w+)<<<\s*(\w+),\s*(\w+),.*?>>>\((\w+)\)",
+                     r"emu_launch(\1, \2, \3, \4)", src, flags=re.S)
+        cpp, lib = out / f"{name}.cpp", out / f"lib{name}.so"
+        cpp.write_text(src)
+        proc = subprocess.run(
+            [gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
+             "-fPIC", "-pthread", f"-I{out}", f"-I{_build.CSRC_DIR}",
+             "-o", str(lib), str(cpp)], capture_output=True, text=True)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        return name, lib
+
+    with ThreadPoolExecutor(len(_build.KERNELS)) as pool:
+        return dict(pool.map(build, _build.KERNELS))
+
+
+@pytest.fixture
+def launch_on_cpu(emulated, monkeypatch):
+    """Route the wrappers' launch path to the host libraries for CPU
+    tensors."""
+    monkeypatch.setattr(_build, "load",
+                        lambda name: ctypes.CDLL(str(emulated[name])))
+    monkeypatch.setattr(tsc._StageBase, "_on_cuda",
+                        staticmethod(lambda t: True))
+    monkeypatch.setattr(tsc._StageBase, "_stream", lambda self: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=None))
+
+
+def _equal(out, ref):
+    for k, (x, r) in enumerate(zip(out, ref)):
+        assert x.shape == r.shape and torch.equal(x, r), k
+
+
+@pytest.fixture(scope="module")
+def galewsky_c40():
+    """The C40 Galewsky model (nu4 = 1e14), dt at the C384 CFL, and the
+    carry after one split step with its routed ghosts."""
+    g = build_grid(N, halo=2, radius=EARTH_RADIUS, device="cpu")
+    m = CovariantShallowWater(g, gravity=G, omega=OM, nu4=1.0e14)
+    dt = 60.0 * 384 / N
+    step = m.make_fused_step(dt)
+    y = step(m.compact_state(m.initial_state(*galewsky(g, G, OM))), 0.0)
+    return g, m, dt, step, (y["h"], y["u"]) + step.route(y["strips_sn"],
+                                                        y["strips_we"])
+
+
+def test_stage_kernel_source(launch_on_cpu):
+    g = build_grid(N, halo=2, radius=EARTH_RADIUS, device="cpu")
+    h, v, b = williamson_tc5(g, G, OM)
+    m = CovariantShallowWater(g, gravity=G, omega=OM, b_ext=b)
+    s0 = m.initial_state(h, v)
+    y = m.compact_state(s0)
+    gsn, gwe = tsc.make_cov_strip_router_split(g)(y["strips_sn"],
+                                                   y["strips_we"])
+    for a, bb in tsc.SSPRK3_COEFFS:
+        st = tsc.make_cov_stage_compact(g.n, g.halo, g.dalpha, g.radius, G,
+                                        OM, 75.0, a, bb, device="cpu")
+        args = (s0["h"], s0["u"], gsn, gwe, m.b_ext)
+        if a != 0.0:
+            args = (s0["h"], s0["u"]) + args
+        before = tsc.CovStageCompact.launches
+        _equal(st(*args), st.reference(*args))
+        assert tsc.CovStageCompact.launches == before + 1
+
+
+def test_filter_kernel_source(launch_on_cpu, galewsky_c40):
+    g, m, dt, step, args = galewsky_c40
+    for nu4 in (1.0e14, 1.0e21):            # the real filter, a probe
+        filt = tsc.make_cov_nu4_filter(g, nu4, dt)
+        _equal(filt._launch(*args), filt.reference(*args))
+
+
+def test_refused_kernel_source(launch_on_cpu, galewsky_c40):
+    g, m, dt, step, args = galewsky_c40
+    for nu4 in (1.0e14, 1.0e21):
+        st = tsc.make_cov_stage_refused_nu4(g, G, OM, dt, nu4)
+        before = tsc.CovStageRefusedNu4.launches
+        _equal(st(*args, m.b_ext), st.reference(*args, m.b_ext))
+        assert tsc.CovStageRefusedNu4.launches == before + 1
+
+
+@pytest.mark.parametrize("stage", [0, 1], ids=["stage1", "stage2"])
+def test_stage_nu4_kernel_sources(launch_on_cpu, galewsky_c40, stage):
+    g, m, dt, step, args = galewsky_c40
+    a, b = tsc.SSPRK3_COEFFS[stage]
+    st = tsc.CovStageNu4(g.n, g.halo, g.dalpha, g.radius, G, OM, dt, a, b,
+                         1.0e14, device="cpu")
+    h, u, gsn, gwe = args
+    a_args = (h, u, gsn, gwe, m.b_ext) if a == 0.0 else (h, u) + args + (
+        m.b_ext,)
+    before = (tsc.CovStageNu4.launches_a, tsc.CovStageNu4.launches_b)
+    out_a = st.call_a(*a_args)
+    _equal(out_a, st.reference_a(*a_args))
+    b_args = tuple(out_a[:4]) + step.route(out_a[4], out_a[5])
+    _equal(st.call_b(*b_args), st.reference_b(*b_args))
+    assert (tsc.CovStageNu4.launches_a,
+            tsc.CovStageNu4.launches_b) == (before[0] + 1, before[1] + 1)

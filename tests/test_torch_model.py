@@ -97,13 +97,27 @@ def test_fused_step_conserves_mass():
     ({"temporal_block": 2}, "queue A item 5"),
     ({"ensemble": 2}, "queue A item 5"),
     ({"precision": "bf16"}, "queue A item 5"),
-    ({"nu4_mode": "refused"}, "queue B item 3"),
-    ({"nu4_mode": "stage"}, "queue B item 7"),
 ])
 def test_unported_knobs_raise(kwargs, item):
     g, m, _ = _port(8)
     with pytest.raises(NotImplementedError, match=item):
         m.make_fused_step(DT, **kwargs)
+
+
+@pytest.mark.parametrize("nu4_mode", ["refused", "stage"])
+def test_nu4_mode_ignored_without_nu4(nu4_mode):
+    """With nu4 == 0 the fused step is the compact stepper whatever
+    ``nu4_mode`` says, as in the JAX package."""
+    from jaxstream_torch.ops.cuda.swe_cov import CovStageCompact
+
+    g, m, s0 = _port(8)
+    step = m.make_fused_step(DT, nu4_mode=nu4_mode)
+    assert not hasattr(step, "filter") and not hasattr(step, "stage1f")
+    assert [type(st) for st in step.stages] == [CovStageCompact] * 3
+    y = m.compact_state(s0)
+    plain = m.make_fused_step(DT)(y, 0.0)
+    for k, v in step(y, 0.0).items():
+        assert torch.equal(v, plain[k]), k
 
 
 def test_unported_model_options_raise():

@@ -306,11 +306,48 @@ def test_filter_wrapper_rejects_bad_inputs():
     ({"carry_dtype": torch.bfloat16}, ValueError, "nu4 paths"),
     ({"u_scale": 2.0}, ValueError, "nu4 paths"),
     ({"nu4_mode": "other"}, ValueError, "nu4_mode"),
-    ({"nu4_mode": "refused"}, NotImplementedError, "queue B item 3"),
-    ({"nu4_mode": "stage"}, NotImplementedError, "queue B item 7"),
 ])
 def test_nu4_fused_step_refusals(kwargs, err, match):
     tg = build_grid(8, halo=2, device="cpu")
     m = CovariantShallowWater(tg, gravity=9.8, omega=0.0, nu4=NU4)
     with pytest.raises(err, match=match):
         m.make_fused_step(DT, **kwargs)
+
+
+@pytest.mark.parametrize("nu4_mode, parts", [
+    ("split", {"filter": tsc.CovNu4Filter}),
+    ("refused", {"stage1f": tsc.CovStageRefusedNu4}),
+    ("stage", {}),
+])
+def test_nu4_modes_build_their_steppers(nu4_mode, parts):
+    tg = build_grid(8, halo=2, device="cpu")
+    m = CovariantShallowWater(tg, gravity=9.8, omega=0.0, nu4=NU4)
+    step = m.make_fused_step(DT, nu4_mode=nu4_mode)
+    for name, cls in parts.items():
+        assert type(getattr(step, name)) is cls, name
+    stage_cls = tsc.CovStageNu4 if nu4_mode == "stage" else tsc.CovStageCompact
+    assert [type(st) for st in step.stages] == [stage_cls] * (
+        2 if nu4_mode == "refused" else 3)
+    if nu4_mode == "stage":
+        assert all(st.nu4 == NU4 for st in step.stages)
+
+
+@pytest.mark.parametrize("nu4_mode", ["refused", "stage"])
+@pytest.mark.parametrize("kwargs", [
+    {"temporal_block": 2}, {"ensemble": 2}, {"precision": "bf16"}])
+def test_nu4_modes_refuse_unported_knobs(nu4_mode, kwargs):
+    """The knobs the port has not reached refuse on every del^4 mode,
+    naming their ROADMAP item."""
+    tg = build_grid(8, halo=2, device="cpu")
+    m = CovariantShallowWater(tg, gravity=9.8, omega=0.0, nu4=NU4)
+    with pytest.raises(NotImplementedError, match="queue A item 5"):
+        m.make_fused_step(DT, nu4_mode=nu4_mode, **kwargs)
+
+
+@pytest.mark.parametrize("make", [tsc.make_fused_ssprk3_cov_refused_nu4,
+                                  tsc.make_fused_ssprk3_cov_nu4])
+def test_nu4_modes_have_no_interval(make):
+    """Filter-cycling stays on the split stepper, as in the JAX package."""
+    tg = build_grid(8, halo=2, device="cpu")
+    with pytest.raises(TypeError, match="interval"):
+        make(tg, 9.8, 0.0, DT, torch.zeros(6, tg.m, tg.m), NU4, interval=2)
