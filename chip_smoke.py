@@ -2,13 +2,20 @@
 
     python3 chip_smoke.py
 
-Four paths, all at C384, halo 2, float32, PLR + MC, through the port's
-entry points (``CovariantShallowWater.make_fused_step``):
+Six paths, all at C384, halo 2, float32, PLR + MC, through the port's
+entry points (``CovariantShallowWater.make_fused_step`` and
+``make_step``):
 
 * Williamson TC5 (flow over a mountain), dt = 75 s, stepped by the
   compact fused SSPRK3 stepper: per step three strip routes (torch ops)
   and three launches of the hand-written CUDA stage kernel
   (``jaxstream_torch/csrc/cov_stage.cu``);
+* TC5 on the classic SSPRK3 path with ``backend='pallas'``: per RK stage
+  the halo exchangers and the symmetrized edge normals (torch ops) and one
+  launch of the CUDA RHS kernel (``csrc/cov_rhs.cu``);
+* TC5 on the extended-carry stepper (``compact=False``): per stage one
+  linear strip route and one launch of the CUDA stage kernel with the
+  ghost fill inside (``csrc/cov_stage_inkernel.cu``);
 * the Galewsky barotropic-instability jet, dt = 60 s, nu4 = 1e14, under
   each of the three ``nu4_mode`` values:
   - ``split``: the same three routes and stage launches, then a fourth
@@ -70,7 +77,24 @@ Phases, each fatal on failure:
     against three classic del^4 steps (<= 5e-4) and three split steps
     (<= 2e-3);
 14. a timed window of 500 in-stage steps with the launches checked
-    (A and B 3 x steps) and its breakdown (6 routes, 3 A, 3 B, the rest).
+    (A and B 3 x steps) and its breakdown (6 routes, 3 A, 3 B, the rest);
+15. the RHS kernel against its plain version on the TC5 state, six faces
+    and one face with external sym rows (<= 1e-5 of each output's max),
+    then the kernel-backed classic ``rhs`` and the torch one against a
+    float64 evaluation: the kernel-backed one no farther from it than
+    the torch one plus 5e-5 of max (``tests/test_cov_swe.py:172``'s
+    budget, set at C16: the tendency's f32 roundoff grows with n);
+16. a timed window of 300 classic steps with ``backend='pallas'``, the
+    RHS launches checked against 3 x steps, the TC5 gate, and its
+    breakdown (fills, the sym rows, the kernel, the rest);
+17. the extended stage kernel against its plain version on whole blocks
+    and strips, as stage 1 and stage 2 (<= 1e-5) and as stage 3 with
+    y0 = -2 yc (<= 1e-4); then three extended steps against three compact
+    steps (interiors and strips, <= 1e-6; bitwise predicted);
+18. a timed window of 2 000 extended steps with the launches checked
+    (3 x steps), the TC5 gate, its breakdown (3 routes, 3 stage launches,
+    the rest), a traced window, and 500-step windows of the compact and
+    extended steppers in turns (compact, extended, extended, compact).
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -132,6 +156,12 @@ DAMP_SCALE_TOL = 2e-3
 DAMP_SCALE_MASS_TOL = 1e-5
 # In-stage vs classic del^4 (tests/test_cov_swe.py:463).
 STAGE_VS_CLASSIC_TOL = 5e-4
+# The kernel-backed classic rhs vs the torch one (tests/test_cov_swe.py:172).
+PALLAS_VS_JNP_TOL = 5e-5
+CLASSIC_WARM_STEPS = 5
+CLASSIC_STEPS = 300
+# Extended vs compact carry: the same arithmetic (bitwise predicted).
+EXT_VS_COMPACT_TOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -255,15 +285,16 @@ def timed_window(label: str, step, y, t, nsteps: int, card: str):
     return y, t, 1e6 / steps_s
 
 
-def paired_rates(steps: dict, y, t, nsteps: int, card: str) -> None:
+def paired_rates(runs: dict, t, nsteps: int, card: str) -> None:
     """Steps/s of two steppers in turns A, B, B, A over ``nsteps`` steps
-    each from the same carry: the host's speed drifts within a call, so
-    only windows taken in turns compare two steppers."""
+    each; ``runs`` maps each name to its stepper and its carry.  The
+    host's speed drifts within a call, so only windows taken in turns
+    compare two steppers."""
     from jaxstream_torch.stepping import integrate
 
-    (na, sa), (nb, sb) = steps.items()
+    (na, ra), (nb, rb) = runs.items()
     rates = {na: [], nb: []}
-    for name, step in ((na, sa), (nb, sb), (nb, sb), (na, sa)):
+    for name, (step, y) in ((na, ra), (nb, rb), (nb, rb), (na, ra)):
         t0 = time.perf_counter()
         integrate(step, y, t, nsteps, GAL_DT)
         torch.cuda.synchronize()
@@ -308,6 +339,27 @@ def kernel_record(name: str, source: str, replaces: str, launches: int,
         "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
         "library_ms": None,
     }
+
+
+def tc5_gate(label: str, grid, s0, h_int, days: float) -> None:
+    """``bench.py::bench_tc5``'s gate on the interior height ``h_int``:
+    finite, 3000 < h < 6500 m, mass drift from ``s0`` < 1e-3."""
+    from jaxstream_torch.utils.diagnostics import total_mass
+
+    h = h_int.double()
+    area = grid.interior(grid.area).double()
+    mass0 = float(torch.sum(area * s0["h"].double()))
+    drift = abs(float(torch.sum(area * h)) - mass0) / mass0
+    finite = bool(torch.isfinite(h).all())
+    hmin, hmax = float(h.min()), float(h.max())
+    gate = finite and 3000.0 < hmin and hmax < 6500.0 and drift < 1e-3
+    log(f"gate C{N} TC5 ({label}) after {days:.2f} d: finite={finite} "
+        f"h_range=[{hmin:.1f}, {hmax:.1f}] (in (3000, 6500)) "
+        f"mass_drift={drift:.3e} (<1e-3) total_mass="
+        f"{float(total_mass(grid, h_int)):.6e} -> "
+        f"{'passed' if gate else 'FAILED'}")
+    if not gate:
+        raise RuntimeError(f"TC5 gate failed ({label})")
 
 
 class Galewsky:
@@ -542,8 +594,8 @@ def refused_path(card: str, gal: Galewsky, ysplit) -> dict:
     device_busy(lambda: integrate(step, y, t, PROFILED_STEPS, GAL_DT),
                 PROFILED_STEPS, step_us, card,
                 ("cov_stage_kernel", "cov_stage_refused_nu4_kernel"))
-    paired_rates({"split": model.make_fused_step(GAL_DT), "re-fused": step},
-                 y, t, PAIRED_STEPS, card)
+    paired_rates({"split": (model.make_fused_step(GAL_DT), y),
+                  "re-fused": (step, y)}, t, PAIRED_STEPS, card)
     return record
 
 
@@ -636,6 +688,198 @@ def stage_path(card: str, gal: Galewsky, ysplit) -> list:
     return [rec_a, rec_b]
 
 
+def pallas_rhs_path(card: str, grid, model, b_ext, s0) -> dict:
+    """Phases 15-16: TC5 on the classic SSPRK3 path with
+    ``backend='pallas'``, whose ``rhs`` launches the unfused RHS kernel
+    once per call.  Returns the kernel's record for the kernels line."""
+    from jaxstream_torch.geometry.cubed_sphere import build_grid
+    from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
+    from jaxstream_torch.ops.cuda import swe_cov
+    from jaxstream_torch.stepping import integrate
+
+    Rhs = swe_cov.CovRhs
+    pal = CovariantShallowWater(grid, gravity=model.gravity,
+                                omega=model.omega, b_ext=b_ext,
+                                backend="pallas")
+    kern = pal._pallas_rhs.kernel
+
+    # ---- 15. RHS kernel vs plain; kernel-backed vs torch classic rhs ----
+    h_ext, u_ext = pal.fill(s0["h"]), pal._fill_u(s0["u"])
+    sym = pal._pallas_rhs.sym(u_ext)
+    loop = swe_cov.sym_edge_normals(grid, u_ext)
+    same = all(torch.equal(a, b) for a, b in zip(sym, loop))
+    log(f"sym_edge_normals C{N}, vectorized vs loop form: bitwise={same}")
+    if not same:
+        raise RuntimeError("the vectorized sym rows differ from the loop "
+                           "form")
+    args = (kern.fz[:, None], h_ext, u_ext, pal.b_ext) + sym
+    count = lambda: Rhs.launches
+    # The outputs are the tendencies themselves: no base hides them.
+    max_abs = check_kernel(f"RHS kernel vs plain C{N} (six faces)", kern,
+                           kern.reference, args, ("dh", "du"), KERNEL_TOL,
+                           count)
+    one = swe_cov.make_cov_rhs_pallas(grid, model.gravity, model.omega,
+                                      n_faces=1, external_sym=True)
+    f1 = (kern.fz[2:3, None], h_ext[2:3], u_ext[:, 2:3].contiguous(),
+          pal.b_ext[2:3], sym[0][2:3], sym[1][2:3])
+    max_abs = max(max_abs, check_kernel(
+        f"RHS kernel vs plain C{N} (one face, external sym rows)", one,
+        one.reference, f1, ("dh", "du"), KERNEL_TOL, count))
+    # The tendency's float32 roundoff grows with n (its flux and gradient
+    # differences cancel): the JAX package's 5e-5 budget is set at C16.
+    # At C384 both float32 rhs are held against a float64 evaluation of
+    # the torch rhs on the same inputs; the kernel-backed one may be no
+    # farther from it than the torch one, plus that budget.
+    g64 = build_grid(N, halo=grid.halo, radius=grid.radius,
+                     dtype=torch.float64)
+    m64 = CovariantShallowWater(g64, gravity=model.gravity,
+                                omega=model.omega, b_ext=b_ext.double())
+    d64 = m64.rhs({k: v.double() for k, v in s0.items()}, 0.0)
+    d_pal, d_jnp = pal.rhs(s0, 0.0), model.rhs(s0, 0.0)
+    bad = False
+    for k in ("h", "u"):
+        e_pal, e_jnp = rel_err(d64[k], d_pal[k]), rel_err(d64[k], d_jnp[k])
+        log(f"classic rhs C{N} {k}: backend pallas vs jnp max rel diff "
+            f"{rel_err(d_jnp[k], d_pal[k]):.3e}; vs float64: pallas "
+            f"{e_pal:.3e}, jnp {e_jnp:.3e} (pallas <= jnp + "
+            f"{PALLAS_VS_JNP_TOL:g})")
+        bad = bad or e_pal > e_jnp + PALLAS_VS_JNP_TOL
+    del g64, m64, d64
+    if bad:
+        raise RuntimeError("kernel-backed rhs farther from float64 than the "
+                           "torch rhs")
+
+    # ---- 16. main path: a timed classic window, launches, gate ----------
+    step = pal.make_step(STEP_DT)
+    y, t = integrate(step, s0, 0.0, CLASSIC_WARM_STEPS, STEP_DT)
+    torch.cuda.synchronize()
+    Rhs.launches = 0
+    t0 = time.perf_counter()
+    y, t = integrate(step, y, t, CLASSIC_STEPS, STEP_DT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = Rhs.launches
+    if launches != 3 * CLASSIC_STEPS:
+        raise RuntimeError(f"RHS launches {launches} != 3 x {CLASSIC_STEPS}"
+                           " steps")
+    tc5_gate("classic, backend pallas", grid, s0, y["h"],
+             t / 86400.0)
+    step_us = wall / CLASSIC_STEPS * 1e6
+    log(f"main path C{N} TC5 classic (backend pallas) dt={STEP_DT:g}: "
+        f"{CLASSIC_STEPS} steps in {wall:.3f} s -> "
+        f"{CLASSIC_STEPS / wall:.1f} steps/s, {step_us:.1f} us/step; RHS "
+        f"launches {launches} = 3 x {CLASSIC_STEPS}; card {card}")
+    h_ext, u_ext = pal.fill(y["h"]), pal._fill_u(y["u"])
+    args = (kern.fz[:, None], h_ext, u_ext, pal.b_ext) \
+        + pal._pallas_rhs.sym(u_ext)
+    record = kernel_record(
+        "cov_rhs", "jaxstream_torch/csrc/cov_rhs.cu",
+        "jaxstream/ops/pallas/swe_cov.py:508", launches, max_abs,
+        [("RHS six faces", kern, kern.reference, args)], FLOPS_PER_CELL,
+        card)
+    fill_ms = event_ms(lambda: (pal.fill(y["h"]), pal._fill_u(y["u"])), 50)
+    sym_ms = event_ms(lambda: pal._pallas_rhs.sym(u_ext), 50)
+    k_us = record["ms"] * 1e3
+    other = step_us - 3e3 * (fill_ms + sym_ms) - 3 * k_us
+    log(f"classic step {step_us:.1f} us = 3 x (fills {fill_ms * 1e3:.1f} "
+        f"us + sym rows {sym_ms * 1e3:.1f} us + RHS kernel "
+        f"{k_us:.2f} us) + {other:.1f} us other (the RK combines); card "
+        f"{card}")
+    return record
+
+
+def extended_path(card: str, grid, model, step_c, s0) -> dict:
+    """Phases 17-18: TC5 on the extended-carry stepper
+    (``make_fused_step(compact=False)``).  Returns the stage kernel's
+    record for the kernels line."""
+    from jaxstream_torch.ops.cuda import swe_cov
+    from jaxstream_torch.stepping import integrate
+
+    Stage = swe_cov.CovStageInkernel
+    step = model.make_fused_step(STEP_DT, compact=False)
+    route = step.route
+    st1, st2, st3 = step.stages
+    names = ("h", "u", "strips")
+    count = lambda: Stage.launches
+
+    # ---- 17. kernel vs plain on whole blocks; extended vs compact --------
+    ye = model.extend_state(s0, with_strips=True)
+    y1 = step(ye, 0.0)             # a carry whose ghost ring is filled
+    args1 = (y1["h"], y1["u"], route(y1["strips"]), model.b_ext)
+    max_abs = check_kernel(f"extended stage kernel vs plain C{N} stage 1",
+                           st1, st1.reference, args1, names, KERNEL_TOL,
+                           count)
+    k1 = st1.reference(*args1)
+    gi2 = route(k1[2])
+    args2 = (y1["h"], y1["u"], k1[0], k1[1], gi2, model.b_ext)
+    # Stage 3 with y0 = -2*yc: the interiors are g*L(yc) alone.
+    args3 = (-2.0 * k1[0], -2.0 * k1[1], k1[0], k1[1], gi2, model.b_ext)
+    max_abs = max(
+        max_abs,
+        check_kernel(f"extended stage kernel vs plain C{N} stage 2", st2,
+                     st2.reference, args2, names, KERNEL_TOL, count),
+        check_kernel(f"extended stage kernel vs plain C{N} stage 3, "
+                     "y0=-2yc (interior g*L alone)", st3, st3.reference,
+                     args3, names, TENDENCY_TOL, count))
+    yc, _ = integrate(step_c, model.compact_state(s0), 0.0, 3, STEP_DT)
+    yx, _ = integrate(step, ye, 0.0, 3, STEP_DT)
+    out_x = model.restrict_state(yx)
+    ext = model.extend_state(yc)
+    strips = swe_cov.pack_strips_cov(ext["h"], ext["u"], grid.n, grid.halo)
+    pairs = {"h": (yc["h"], out_x["h"]), "u": (yc["u"], out_x["u"]),
+             "strips": (strips, yx["strips"])}
+    errs = {k: rel_err(a, b) for k, (a, b) in pairs.items()}
+    bitwise = all(torch.equal(a, b) for a, b in pairs.values())
+    log(f"extended vs compact C{N}, 3 steps: max rel diff "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {EXT_VS_COMPACT_TOL:g}); bitwise={bitwise}")
+    if max(errs.values()) > EXT_VS_COMPACT_TOL:
+        raise RuntimeError("extended stepper disagrees with the compact one")
+    del yc, yx, ext
+
+    # ---- 18. main path: a timed extended window, launches, gate ---------
+    y, t = integrate(step, ye, 0.0, WARM_STEPS, STEP_DT)
+    torch.cuda.synchronize()
+    Stage.launches = 0
+    t0 = time.perf_counter()
+    y, t = integrate(step, y, t, TIMED_STEPS, STEP_DT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = Stage.launches
+    if launches != 3 * TIMED_STEPS:
+        raise RuntimeError(f"extended stage launches {launches} != 3 x "
+                           f"{TIMED_STEPS} steps")
+    tc5_gate("extended", grid, s0, model.restrict_state(y)["h"],
+             t / 86400.0)
+    step_us = wall / TIMED_STEPS * 1e6
+    log(f"main path C{N} TC5 extended carry dt={STEP_DT:g}: {TIMED_STEPS} "
+        f"steps in {wall:.3f} s -> {TIMED_STEPS / wall:.1f} steps/s, "
+        f"{step_us:.1f} us/step, "
+        f"{TIMED_STEPS / wall * STEP_DT / 86400.0:.3f} sim-days/s; stage "
+        f"launches {launches} = 3 x {TIMED_STEPS}; card {card}")
+    gi = route(y["strips"])
+    a1 = (y["h"], y["u"], gi, model.b_ext)
+    a2 = (y["h"], y["u"]) + a1
+    record = kernel_record(
+        "cov_stage_inkernel", "jaxstream_torch/csrc/cov_stage_inkernel.cu",
+        "jaxstream/ops/pallas/swe_cov.py:1243", launches, max_abs,
+        [("extended stage 1", st1, st1.reference, a1),
+         ("extended stage 2", st2, st2.reference, a2),
+         ("extended stage 3", st3, st3.reference, a2)], FLOPS_PER_CELL,
+        card)
+    r_ms = event_ms(lambda: route(y["strips"]), 200)
+    stages_us = 3e3 * record["ms"]
+    log(f"extended step {step_us:.1f} us = routers 3 x {r_ms * 1e3:.2f} us "
+        f"+ stage kernels {stages_us:.1f} us + "
+        f"{step_us - stages_us - 3e3 * r_ms:.1f} us other; card {card}")
+    device_busy(lambda: integrate(step, y, t, PROFILED_STEPS, STEP_DT),
+                PROFILED_STEPS, step_us, card, ("cov_stage_inkernel_kernel",))
+    paired_rates({"compact": (step_c, model.compact_state(
+        model.restrict_state(y))), "extended": (step, y)}, t, PAIRED_STEPS,
+        card)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on "
@@ -650,7 +894,6 @@ def main() -> int:
     from jaxstream_torch.ops.cuda import swe_cov
     from jaxstream_torch.physics.initial_conditions import williamson_tc5
     from jaxstream_torch.stepping import integrate
-    from jaxstream_torch.utils.diagnostics import total_mass
 
     Stage = swe_cov.CovStageCompact
     t_start = time.perf_counter()
@@ -736,21 +979,8 @@ def main() -> int:
     if launches != 3 * TIMED_STEPS:
         raise RuntimeError(f"stage launches {launches} != 3 x "
                            f"{TIMED_STEPS} steps")
-    h = y["h"].double()
-    area = grid.interior(grid.area).double()
-    mass0 = float(torch.sum(area * s0["h"].double()))
-    drift = abs(float(torch.sum(area * h)) - mass0) / mass0
-    finite = bool(torch.isfinite(h).all())
-    hmin, hmax = float(h.min()), float(h.max())
-    days = (WARM_STEPS + TIMED_STEPS + 3) * STEP_DT / 86400.0
-    gate = finite and 3000.0 < hmin and hmax < 6500.0 and drift < 1e-3
-    log(f"gate C{N} TC5 after {days:.2f} d: finite={finite} "
-        f"h_range=[{hmin:.1f}, {hmax:.1f}] (in (3000, 6500)) "
-        f"mass_drift={drift:.3e} (<1e-3) total_mass="
-        f"{float(total_mass(grid, y['h'])):.6e} -> "
-        f"{'passed' if gate else 'FAILED'}")
-    if not gate:
-        raise RuntimeError("TC5 gate failed")
+    tc5_gate("compact", grid, s0, y["h"],
+             (WARM_STEPS + TIMED_STEPS + 3) * STEP_DT / 86400.0)
     steps_s = TIMED_STEPS / wall
     log(f"main path C{N} TC5 dt={STEP_DT:g}: {TIMED_STEPS} steps in "
         f"{wall:.3f} s -> {steps_s:.1f} steps/s, "
@@ -784,6 +1014,9 @@ def main() -> int:
     filter_record, ysplit = galewsky_path(card, gal)
     refused_record = refused_path(card, gal, ysplit)
     pair_records = stage_path(card, gal, ysplit)
+    del gal, ysplit
+    rhs_record = pallas_rhs_path(card, grid, model, b_ext, s0)
+    ext_record = extended_path(card, grid, model, step, s0)
     # The same TC5 route again: host drift across the run, apart from any
     # cost of the Galewsky paths themselves.
     r2_ms = event_ms(lambda: route(y["strips_sn"], y["strips_we"]), 200)
@@ -793,7 +1026,7 @@ def main() -> int:
         "builds included")
 
     report = {"kernels": [stage_record, filter_record, refused_record]
-              + pair_records}
+              + pair_records + [rhs_record, ext_record]}
     log(json.dumps(report))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -31,7 +31,9 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "jaxstream_torch"
 KERNELS = {"cov_stage": "cov_stage.cu",
            "cov_nu4_filter": "cov_nu4_filter.cu",
            "cov_stage_refused_nu4": "cov_stage_refused_nu4.cu",
-           "cov_stage_nu4": "cov_stage_nu4.cu"}
+           "cov_stage_nu4": "cov_stage_nu4.cu",
+           "cov_rhs": "cov_rhs.cu",
+           "cov_stage_inkernel": "cov_stage_inkernel.cu"}
 
 # -fmad=false keeps every multiply and add separately rounded, as the
 # plain PyTorch version rounds them; the kernels are memory-bound, so

@@ -319,24 +319,56 @@ struct StageConsts {
   float R2, gravity, two_omega, inv2d, inv_d;
 };
 
+// The symmetrized edge normals imposed on one face's boundary fluxes:
+// S[i] and N[i] along the S and N edges, W[j * ws] and E[j * ws] along W
+// and E.
+struct SymRows {
+  const float* s;
+  const float* n;
+  const float* w;
+  const float* e;
+  int ws;
+};
+
+// The sym rows of the compact stages' routed ghosts gsn (6h+2, n) / gwe
+// (n, 6h+2) of one face: its last two rows / columns.
+__device__ __forceinline__ SymRows routed_sym(const float* __restrict__ gsn,
+                                              const float* __restrict__ gwe,
+                                              int n, int hh) {
+  return SymRows{gsn + (6 * hh) * n, gsn + (6 * hh + 1) * n, gwe + 6 * hh,
+                 gwe + 6 * hh + 1, 6 * hh + 2};
+}
+
+// sqrtg of the closed-form frame at the point (X, Y) = (x, y)
+// (_fast_frame's "sqrtg").
+__device__ __forceinline__ float frame_sqrtg(float x, float y, float R2) {
+  const float dxda = 1.0f + x * x;
+  const float dydb = 1.0f + y * y;
+  const float rho2 = dxda + y * y;
+  const float inv_rho = rsqrtf(rho2);
+  const float inv_rho2 = inv_rho * inv_rho;
+  return ((R2 * dxda) * dydb) * (inv_rho2 * inv_rho);
+}
+
 // The covariant right-hand side of the TX x TY tile at (j0, i0) of face f
-// (rhs_core_cov with sym_prescaled=True).  It reads h from the shared
-// window sh (row stride SH; tile cell (y, x) at sh[(y+2)*SH + x+2], a
-// 2-deep apron) and u_a, u_b from sua, sub (stride SU; tile cell at
-// [(y+1)*SU + x+1], a 1-deep apron), all filled by the caller and
-// synchronised.  The apron's diagonal cells are never read by a kept
-// output.  gsn, gwe (offset to the face) give the prescaled sym rows
-// imposed on the boundary faces; bf is the face's (m, m) orography.  For
+// (rhs_core_cov).  It reads h from the shared window sh (row stride SH;
+// tile cell (y, x) at sh[(y+2)*SH + x+2], a 2-deep apron) and u_a, u_b
+// from sua, sub (stride SU; tile cell at [(y+1)*SU + x+1], a 1-deep
+// apron), all filled by the caller and synchronised.  The apron's
+// diagonal cells are never read by a kept output.  sym gives the face's
+// symmetrized edge normals imposed on the boundary faces: as they are
+// when Prescaled (sym_prescaled=True), else times the edge sqrtg of the
+// closed-form frame (sg * sym); bf is the face's (m, m) orography.  For
 // every interior cell of the tile it calls epi(ly, lx, j, i, dh, dua,
 // dub).  Every thread of the block must call it: it synchronises.
-template <int SH, int SU, class Epilogue>
+template <bool Prescaled, int SH, int SU, class Epilogue>
 __device__ __forceinline__ void advective_tile(
     const float* sh, const float* sua, const float* sub, AdvScratch& s,
-    const float* __restrict__ gsn, const float* __restrict__ gwe,
-    const float* __restrict__ bf, const float* __restrict__ xc,
-    const float* __restrict__ xf, const float* __restrict__ fz,
-    const StageConsts& k, int n, int hh, int j0, int i0, Epilogue epi) {
-  const int m = n + 2 * hh, rw = 6 * hh + 2;
+    const SymRows& sym, const float* __restrict__ bf,
+    const float* __restrict__ xc, const float* __restrict__ xf,
+    const float* __restrict__ fz, const StageConsts& k, int n, int hh,
+    int j0, int i0, Epilogue epi) {
+  const int m = n + 2 * hh;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const float R2 = k.R2;
   // Window accessors in tile coordinates.
@@ -381,10 +413,9 @@ __device__ __forceinline__ void advective_tile(
       float flux = 0.0f;
       if (j < n && i <= n) {
         float U;
-        if (i == 0) {
-          U = gwe[j * rw + 6 * hh];          // W seam, prescaled
-        } else if (i == n) {
-          U = gwe[j * rw + 6 * hh + 1];      // E seam, prescaled
+        if (i == 0 || i == n) {              // W / E seam
+          U = (i == 0 ? sym.w : sym.e)[j * sym.ws];
+          if (!Prescaled) U = frame_sqrtg(xf[i + hh], xc[j + hh], R2) * U;
         } else {
           float fg_aa, fg_ab;
           xface_metric(xf[i + hh], xc[j + hh], fg_aa, fg_ab);
@@ -403,10 +434,9 @@ __device__ __forceinline__ void advective_tile(
       float flux = 0.0f;
       if (j <= n && i < n) {
         float U;
-        if (j == 0) {
-          U = gsn[(6 * hh) * n + i];         // S seam, prescaled
-        } else if (j == n) {
-          U = gsn[(6 * hh + 1) * n + i];     // N seam, prescaled
+        if (j == 0 || j == n) {              // S / N seam
+          U = (j == 0 ? sym.s : sym.n)[i];
+          if (!Prescaled) U = frame_sqrtg(xc[i + hh], xf[j + hh], R2) * U;
         } else {
           float fg_ab, fg_bb;
           yface_metric(xc[i + hh], xf[j + hh], fg_ab, fg_bb);

@@ -114,9 +114,10 @@ cov_stage_kernel(const Params p) {
   float* ssn = p.ssn + (long)f * 6 * hh * n;
   float* swe = p.swe + (long)f * n * 6 * hh;
   const StageConsts k{p.R2, p.gravity, p.two_omega, p.inv2d, p.inv_d};
-  advective_tile<TX + 2 * AP, TX + 2>(
-      &s_h[0][0], &s_ua[0][0], &s_ub[0][0], s_adv, gsn, gwe,
-      p.b + (long)f * m * m, p.xc, p.xf, p.fz + 3 * f, k, n, hh, j0, i0,
+  advective_tile<true, TX + 2 * AP, TX + 2>(
+      &s_h[0][0], &s_ua[0][0], &s_ub[0][0], s_adv,
+      routed_sym(gsn, gwe, n, hh), p.b + (long)f * m * m, p.xc, p.xf,
+      p.fz + 3 * f, k, n, hh, j0, i0,
       [=](int ly, int lx, int j, int i, float dh, float dua, float dub) {
         const long c = f * nn + (long)j * n + i;
         float y0h = 0.0f, y0a = 0.0f, y0b = 0.0f;

@@ -117,9 +117,10 @@ cov_stage_refused_nu4_kernel(const Params p) {
   float* ssn = p.ssn + (long)f * 6 * hh * n;
   float* swe = p.swe + (long)f * n * 6 * hh;
   const StageConsts k{p.R2, p.gravity, p.two_omega, p.inv2d, p.inv_d};
-  advective_tile<EX, EX>(
-      &s_e[0][0][0], &s_e[1][1][1], &s_e[2][1][1], s.adv, gsn, gwe,
-      p.b + (long)f * m * m, p.xc, p.xf, p.fz + 3 * f, k, n, hh, j0, i0,
+  advective_tile<true, EX, EX>(
+      &s_e[0][0][0], &s_e[1][1][1], &s_e[2][1][1], s.adv,
+      routed_sym(gsn, gwe, n, hh), p.b + (long)f * m * m, p.xc, p.xf,
+      p.fz + 3 * f, k, n, hh, j0, i0,
       [=](int ly, int lx, int j, int i, float dh, float dua, float dub) {
         const long c = f * nn + (long)j * n + i;
         const float fv[3] = {s_e[0][ly + AE][lx + AE],

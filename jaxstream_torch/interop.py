@@ -4,7 +4,9 @@ The JAX package's states are dicts of arrays; this port's are dicts of
 tensors with the same layouts (interior state ``{"h": (6, n, n),
 "u": (2, 6, n, n)}``, compact carry adds ``strips_sn (6, 6h, n)`` and
 ``strips_we (6, n, 6h)``, the filter-cycling carry adds ``filter_k``,
-extended fields such as ``b_ext`` ``(6, M, M)``).
+the extended carry is ``{"h": (6, M, M), "u": (2, 6, M, M), "strips":
+(6, 12h, n)}``, extended fields such as ``b_ext`` ``(6, M, M)``).  The
+extended carry's ``strips`` is a plain array and crosses as one.
 Arrays cross as numpy, so neither package imports the other:
 :func:`to_torch` turns numpy arrays (or anything ``np.asarray`` accepts,
 such as a JAX array) into tensors on a device, :func:`to_numpy` turns

@@ -1,6 +1,6 @@
-"""The covariant shallow-water compact fused stepper: router, stage, step.
+"""The covariant shallow-water kernels' wrappers, routers and steppers.
 
-Counterpart of the compact-carry path of
+Counterpart of the single-device paths of
 :mod:`jaxstream.ops.pallas.swe_cov`:
 
 * :func:`pack_strips_cov_split` and :func:`make_cov_strip_router_split`
@@ -36,13 +36,31 @@ Counterpart of the compact-carry path of
   :func:`cov_stage_nu4_a_reference` / :func:`cov_stage_nu4_b_reference`.
   :func:`make_fused_ssprk3_cov_nu4` steps with three of them
   (``nu4_mode='stage'``).
+* :class:`CovRhs`: the unfused RHS of ghost-filled extended faces, the
+  classic path's ``backend='pallas'``; CUDA tensors launch
+  ``csrc/cov_rhs.cu`` (the port of ``make_cov_rhs_pallas``), CPU tensors
+  run :func:`cov_rhs_reference`.  :func:`make_cov_rhs_pallas` wraps it
+  with :func:`make_sym_edge_normals`, the vectorized twin of
+  :func:`sym_edge_normals`.
+* The extended carry: :func:`pack_strips_cov`, the loop router
+  :func:`make_cov_strip_router` and its linear twin
+  :func:`make_cov_strip_router_linear`, and :class:`CovStageInkernel`,
+  one stage with the ghost fill in the kernel; CUDA tensors launch
+  ``csrc/cov_stage_inkernel.cu`` (the port of
+  ``make_cov_stage_inkernel``), CPU tensors run
+  :func:`cov_stage_inkernel_reference`.
+  :func:`make_fused_ssprk3_cov_inkernel` steps with three of them
+  (``compact=False``).
 
 The kernels share their device code through ``csrc/cov_common.cuh``.
 
 Layouts are the JAX package's: state ``h (6, n, n)``, ``u (2, 6, n, n)``;
-strips ``strips_sn (6, 6h, n)`` / ``strips_we (6, n, 6h)``; routed ghosts
-``gsn (6, 6h+2, n)`` / ``gwe (6, n, 6h+2)`` whose last two rows/columns
-are the sqrtg-prescaled symmetrized edge normals (S, N / W, E).
+compact strips ``strips_sn (6, 6h, n)`` / ``strips_we (6, n, 6h)``;
+routed ghosts ``gsn (6, 6h+2, n)`` / ``gwe (6, n, 6h+2)`` whose last two
+rows/columns are the sqrtg-prescaled symmetrized edge normals (S, N /
+W, E).  The extended carry holds ``h (6, M, M)``, ``u (2, 6, M, M)`` and
+``strips (6, 12h, n)``; its routed ghosts ``(6, 12h+4, n)`` end in the
+four un-prescaled sym rows S, N, W, E.
 """
 
 from __future__ import annotations
@@ -81,6 +99,18 @@ __all__ = [
     "cov_stage_nu4_a_reference",
     "cov_stage_nu4_b_reference",
     "make_fused_ssprk3_cov_nu4",
+    "sym_edge_normals",
+    "make_sym_edge_normals",
+    "CovRhs",
+    "make_cov_rhs_pallas",
+    "cov_rhs_reference",
+    "pack_strips_cov",
+    "make_cov_strip_router",
+    "make_cov_strip_router_linear",
+    "CovStageInkernel",
+    "make_cov_stage_inkernel",
+    "cov_stage_inkernel_reference",
+    "make_fused_ssprk3_cov_inkernel",
     "SSPRK3_COEFFS",
 ]
 
@@ -148,10 +178,16 @@ def _pair_symmetrize(I_u, gadj_a, gadj_b, tables):
     ``gadj_*``: (6, 4, n) edge-adjacent rotated ghost rows.  One average
     per physical edge, distributed to both faces by exact permutation.
     """
-    M0, M1, link_rows, back_rows, rev, sga, sgb, sym_src = tables
+    M0, M1 = tables[:2]
     ubar0 = 0.5 * (I_u[0] + gadj_a)
     ubar1 = 0.5 * (I_u[1] + gadj_b)
-    L = (M0 * ubar0 + M1 * ubar1).reshape(24, -1)
+    return _pair_average((M0 * ubar0 + M1 * ubar1).reshape(24, -1), tables)
+
+
+def _pair_average(L, tables):
+    """The pair algebra of :func:`_pair_symmetrize` on the (24, n) local
+    edge normals ``L`` in (face*4 + slot) order: (6, 4, n) out."""
+    _, _, link_rows, back_rows, rev, sga, sgb, sym_src = tables
     la = L.index_select(0, link_rows)
     lb = L.index_select(0, back_rows)
     lb = torch.where(rev, torch.flip(lb, dims=[-1]), lb)
@@ -160,6 +196,116 @@ def _pair_symmetrize(I_u, gadj_a, gadj_b, tables):
     nb = sgb * (-avg)
     nb = torch.where(rev, torch.flip(nb, dims=[-1]), nb)
     return torch.cat([na, nb], dim=0).index_select(0, sym_src).reshape(6, 4, -1)
+
+
+def _local_edge_normal(grid, u_ext, face: int, edge: int):
+    """This panel's own normal velocity at one edge's boundary faces.
+
+    The stored +alpha (W/E) or +beta (S/N) face value as a canonical
+    along-edge ``(n,)`` strip, with the operands and their order of
+    :func:`jaxstream_torch.ops.fv.covariant_face_normal_velocity`
+    restricted to that edge and the face's own stored face metric.
+    """
+    h, n = grid.halo, grid.n
+    i0, i1 = h, h + n
+    if edge in (EDGE_W, EDGE_E):
+        fi = i0 if edge == EDGE_W else i1
+        ub_a = 0.5 * (u_ext[0, face, i0:i1, fi - 1] + u_ext[0, face, i0:i1, fi])
+        ub_b = 0.5 * (u_ext[1, face, i0:i1, fi - 1] + u_ext[1, face, i0:i1, fi])
+        return (grid.ginv_aa_xf[face, i0:i1, fi] * ub_a
+                + grid.ginv_ab_xf[face, i0:i1, fi] * ub_b)
+    fi = i0 if edge == EDGE_S else i1
+    ub_a = 0.5 * (u_ext[0, face, fi - 1, i0:i1] + u_ext[0, face, fi, i0:i1])
+    ub_b = 0.5 * (u_ext[1, face, fi - 1, i0:i1] + u_ext[1, face, fi, i0:i1])
+    return (grid.ginv_ab_yf[face, fi, i0:i1] * ub_a
+            + grid.ginv_bb_yf[face, fi, i0:i1] * ub_b)
+
+
+def _symmetrized_strips(local_normal):
+    """Average the two panels' edge normals and give both the result.
+
+    ``local_normal(face, edge) -> (n,)``: each panel's own edge-face
+    value in canonical along-edge order.  Once per physical edge, the
+    outward-sign and reversal algebra of the JAX package's loop form, so
+    both faces receive the same values.  Returns ``(sym_sn (6, 2, n),
+    sym_we (6, n, 2))``.
+    """
+    sn = [[None, None] for _ in range(6)]
+    we = [[None, None] for _ in range(6)]
+    slot = {EDGE_S: (sn, 0), EDGE_N: (sn, 1), EDGE_W: (we, 0),
+            EDGE_E: (we, 1)}
+    for link, back in edge_pairs(build_connectivity()):
+        s_a = local_normal(link.face, link.edge)
+        s_b = local_normal(back.face, back.edge)
+        if link.reversed_:
+            s_b = torch.flip(s_b, dims=[-1])
+        avg = 0.5 * (_OUT_SIGN[link.edge] * s_a - _OUT_SIGN[back.edge] * s_b)
+        new_a = _OUT_SIGN[link.edge] * avg
+        new_b = _OUT_SIGN[back.edge] * (-avg)
+        if link.reversed_:
+            new_b = torch.flip(new_b, dims=[-1])
+        for lk, val in ((link, new_a), (back, new_b)):
+            table, k = slot[lk.edge]
+            table[lk.face][k] = val
+    return (torch.stack([torch.stack(rows) for rows in sn]),
+            torch.stack([torch.stack(cols, dim=-1) for cols in we]))
+
+
+def sym_edge_normals(grid, u_ext):
+    """Symmetrized panel-edge normal velocities for the unfused RHS.
+
+    ``u_ext``: (2, 6, M, M) covariant components, ghosts filled.  Returns
+    ``(sym_sn (6, 2, n), sym_we (6, n, 2))``, not prescaled, from each
+    panel's stored face metric (:func:`_local_edge_normal`), so they equal
+    the classic path's seam values bit for bit.
+    """
+    return _symmetrized_strips(
+        lambda f, e: _local_edge_normal(grid, u_ext, f, e))
+
+
+def make_sym_edge_normals(grid):
+    """``sym(u_ext) -> (sym_sn, sym_we)``: :func:`sym_edge_normals` as a
+    few tensor ops.
+
+    One gather of the two cells straddling every boundary face, the
+    face-normal metric product with each face's own stored metric rows,
+    and :func:`_pair_average`, each element in the loop form's operand
+    order (bitwise equal to it).  The tables are built once here.
+    """
+    n, h, m = grid.n, grid.halo, grid.m
+    i0, i1 = h, h + n
+    k = np.arange(i0, i1)
+    # Flat (face, row, col) index of the cell before (A) and at (B) each
+    # boundary face, the operands of 0.5 * (A + B); per slot S, N, W, E.
+    idx = np.empty((2, 6, 4, n), np.int64)
+    met0, met1 = [], []
+    for s, e in enumerate(_EORDER):
+        fi = i0 if e in (EDGE_S, EDGE_W) else i1
+        if e in (EDGE_S, EDGE_N):
+            cells = ((fi - 1) * m + k, fi * m + k)
+            met0.append(grid.ginv_ab_yf[:, fi, i0:i1])
+            met1.append(grid.ginv_bb_yf[:, fi, i0:i1])
+        else:
+            cells = (k * m + fi - 1, k * m + fi)
+            met0.append(grid.ginv_aa_xf[:, i0:i1, fi])
+            met1.append(grid.ginv_ab_xf[:, i0:i1, fi])
+        for f in range(6):
+            idx[:, f, s] = np.stack(cells) + f * m * m
+    idx = torch.from_numpy(idx.reshape(-1)).to(grid.device)
+    M0 = torch.stack(met0, dim=1)                  # (6, 4, n)
+    M1 = torch.stack(met1, dim=1)
+    tables = _pair_sym_tables(grid)
+
+    def sym(u_ext):
+        A, B = u_ext.reshape(2, -1).index_select(1, idx).reshape(
+            2, 2, 6, 4, n).unbind(1)
+        ub = 0.5 * (A + B)
+        out = _pair_average((M0 * ub[0] + M1 * ub[1]).reshape(24, n),
+                            tables)
+        return (out[:, 0:2].contiguous(),
+                out[:, 2:4].transpose(1, 2).contiguous())
+
+    return sym
 
 
 def _rotation_tables(grid) -> torch.Tensor:
@@ -340,30 +486,44 @@ def _center(v):
 
 
 def rhs_core_cov(fz, xr, xfr, yc, yfc, hf, ua, ub, bf, sym_sn, sym_we, *,
-                 n, halo, d, radius, gravity, omega, limiter="mc"):
+                 n, halo, d, radius, gravity, omega, limiter="mc",
+                 sym_prescaled=True):
     """Covariant-SWE right-hand side of all faces at once (plain torch).
 
     ``fz = (c0z, cxz, cyz)``: the face frames' z-components, each
-    broadcastable against ``(6, 1, 1)``; ``xr``/``xfr`` (1, M) and
+    broadcastable against ``(F, 1, 1)``; ``xr``/``xfr`` (1, M) and
     ``yc``/``yfc`` (M, 1) coordinate rows/columns; ``hf``, ``ua``, ``ub``,
-    ``bf`` (6, M, M) with edge ghosts filled (corners are never read by a
-    kept output).  ``sym_sn`` (6, 2, n) / ``sym_we`` (6, n, 2): the
-    prescaled symmetrized edge normals imposed on the boundary faces.
-    Returns interior ``(dh, dua, dub)``.  The operations and their order
-    follow the JAX package's ``rhs_core_cov`` (``sym_prescaled=True``).
+    ``bf`` (F, M, M) with edge ghosts filled (corners are never read by a
+    kept output).  ``sym_sn`` (F, 2, n) / ``sym_we`` (F, n, 2): the
+    symmetrized edge normals imposed on the boundary faces, as they are
+    (``sym_prescaled=True``, the compact stages' routed rows) or times the
+    edge sqrtg of the closed-form frame (``False``: ``sg * sym``, the
+    unfused RHS and the extended-carry stage).  Returns interior ``(dh,
+    dua, dub)``.  The operations and their order follow the JAX package's
+    ``rhs_core_cov``.
     """
     h0, h1 = halo, halo + n
     inv2d = _f32(1.0 / (2.0 * d))
     g = _f32(gravity)
     two_omega = _f32(2.0 * omega)
+    if sym_prescaled:
+        uS, uN = sym_sn[:, 0:1, :], sym_sn[:, 1:2, :]
+        uW, uE = sym_we[:, :, 0:1], sym_we[:, :, 1:2]
+    else:
+        def sg(xr_, yc_):
+            return _fast_frame(xr_, yc_, radius)["sqrtg"]
+
+        uS = sg(xr[:, h0:h1], yfc[h0:h0 + 1]) * sym_sn[:, 0:1, :]
+        uN = sg(xr[:, h0:h1], yfc[h1:h1 + 1]) * sym_sn[:, 1:2, :]
+        uW = sg(xfr[:, h0:h0 + 1], yc[h0:h1]) * sym_we[:, :, 0:1]
+        uE = sg(xfr[:, h1:h1 + 1], yc[h0:h1]) * sym_we[:, :, 1:2]
 
     # ---- continuity: upwind PLR flux with the sqrtg-folded metric ------
     Fx = _fast_frame(xfr[:, h0:h1 + 1], yc[h0:h1], radius)
     uba = 0.5 * (ua[:, h0:h1, h0 - 1:h1] + ua[:, h0:h1, h0:h1 + 1])
     ubb = 0.5 * (ub[:, h0:h1, h0 - 1:h1] + ub[:, h0:h1, h0:h1 + 1])
     ux = Fx["fg_aa"] * uba + Fx["fg_ab"] * ubb          # sqrtg u^a
-    ux = torch.cat([sym_we[:, :, 0:1], ux[:, :, 1:n], sym_we[:, :, 1:2]],
-                   dim=-1)
+    ux = torch.cat([uW, ux[:, :, 1:n], uE], dim=-1)
     qL, qR = plr_face_states(hf[:, h0:h1, :], -1, halo, n, limiter)
     fx = torch.clamp(ux, min=0.0) * qL + torch.clamp(ux, max=0.0) * qR
 
@@ -371,8 +531,7 @@ def rhs_core_cov(fz, xr, xfr, yc, yfc, hf, ua, ub, bf, sym_sn, sym_we, *,
     vba = 0.5 * (ua[:, h0 - 1:h1, h0:h1] + ua[:, h0:h1 + 1, h0:h1])
     vbb = 0.5 * (ub[:, h0 - 1:h1, h0:h1] + ub[:, h0:h1 + 1, h0:h1])
     uy = Fy["fg_ab"] * vba + Fy["fg_bb"] * vbb          # sqrtg u^b
-    uy = torch.cat([sym_sn[:, 0:1, :], uy[:, 1:n, :], sym_sn[:, 1:2, :]],
-                   dim=-2)
+    uy = torch.cat([uS, uy[:, 1:n, :], uN], dim=-2)
     qL, qR = plr_face_states(hf[:, :, h0:h1], -2, halo, n, limiter)
     fy = torch.clamp(uy, min=0.0) * qL + torch.clamp(uy, max=0.0) * qR
 
@@ -430,14 +589,9 @@ def _fill(q_int, gsn, gwe, fi, n, halo, corners=False):
 def _stage_rhs(stage, hf, ua, ub, b_ext, gsn, gwe):
     """:func:`rhs_core_cov` on ghost-filled frames with ``stage``'s
     constants and coordinate rows and the routed (prescaled) sym rows."""
-    n, h = stage.n, stage.halo
-    x_row, xf_row, x_col, xf_col = stage.coords
-    fz = tuple(stage.fz[:, k].reshape(6, 1, 1) for k in range(3))
-    return rhs_core_cov(
-        fz, x_row, xf_row, x_col, xf_col, hf, ua, ub, b_ext,
-        gsn[:, 6 * h:6 * h + 2], gwe[:, :, 6 * h:6 * h + 2],
-        n=n, halo=h, d=stage.dalpha, radius=stage.radius,
-        gravity=stage.gravity, omega=stage.omega, limiter=stage.limiter)
+    h = stage.halo
+    return stage._rhs(stage.fz, hf, ua, ub, b_ext, gsn[:, 6 * h:6 * h + 2],
+                      gwe[:, :, 6 * h:6 * h + 2], sym_prescaled=True)
 
 
 def _stage_advance(stage, args, corners=False):
@@ -526,14 +680,14 @@ def _kernel():
                   + [_P])
 
 
-class _StageBase:
-    """Coefficients, float32 constants and coordinate rows of one
-    covariant SSPRK3 stage ``a*y0 + b*yc + b*dt*L(yc)``, and the checks
-    of its arguments: what the stage kernels' wrappers share."""
+class _RhsBase:
+    """Float32 constants, coordinate rows and face frames of the covariant
+    right-hand side, and what every kernel wrapper of this module shares:
+    the device test and the stream."""
 
     def __init__(self, n: int, halo: int, dalpha: float, radius: float,
-                 gravity: float, omega: float, dt: float, a: float, b: float,
-                 scheme: str = "plr", limiter: str = "mc", device="cuda"):
+                 gravity: float, omega: float, scheme: str = "plr",
+                 limiter: str = "mc", device="cuda"):
         if scheme != "plr" or limiter != "mc":
             raise NotImplementedError(
                 f"the stage kernel implements PLR with the MC limiter; got "
@@ -545,6 +699,54 @@ class _StageBase:
         self.dalpha, self.radius = float(dalpha), float(radius)
         self.gravity, self.omega = float(gravity), float(omega)
         self.limiter = limiter
+        # The kernels' float32 constants of the RHS, rounded as
+        # rhs_core_cov and _fast_frame round them.
+        self._rhs_consts = (
+            _f32(_f32(self.radius) ** 2), _f32(self.gravity),
+            _f32(2.0 * self.omega), _f32(1.0 / (2.0 * self.dalpha)),
+            _f32(1.0 / self.dalpha))
+        self.device = torch.device(device)
+        x_row, xf_row, x_col, xf_col, frames = coord_rows(n, halo, self.device)
+        self.coords = (x_row, xf_row, x_col, xf_col)
+        self.fz = frames[:, :, 2].contiguous()            # (6, 3) frame z
+        self._xc = x_row.reshape(-1).contiguous()
+        self._xf = xf_row.reshape(-1).contiguous()
+
+    def _rhs(self, fz, hf, ua, ub, b_ext, sym_sn, sym_we, sym_prescaled):
+        """:func:`rhs_core_cov` with these constants and coordinate rows;
+        ``fz`` (F, 3) gives the faces' frame z-components."""
+        x_row, xf_row, x_col, xf_col = self.coords
+        fzs = tuple(fz[:, k].reshape(-1, 1, 1) for k in range(3))
+        return rhs_core_cov(
+            fzs, x_row, xf_row, x_col, xf_col, hf, ua, ub, b_ext, sym_sn,
+            sym_we, n=self.n, halo=self.halo, d=self.dalpha,
+            radius=self.radius, gravity=self.gravity, omega=self.omega,
+            limiter=self.limiter, sym_prescaled=sym_prescaled)
+
+    @staticmethod
+    def _on_cuda(t):
+        """True for a CUDA tensor (launch the kernel), False for a CPU
+        tensor (run the plain version); raises for any other device."""
+        if t.device.type == "cpu":
+            return False
+        if t.device.type != "cuda":
+            raise ValueError(f"unsupported device {t.device}")
+        return True
+
+    def _stream(self):
+        return torch.cuda.current_stream(self.device).cuda_stream
+
+
+class _StageBase(_RhsBase):
+    """Coefficients and constants of one covariant SSPRK3 stage
+    ``a*y0 + b*yc + b*dt*L(yc)``, and the checks of its arguments: what
+    the stage kernels' wrappers share."""
+
+    def __init__(self, n: int, halo: int, dalpha: float, radius: float,
+                 gravity: float, omega: float, dt: float, a: float, b: float,
+                 scheme: str = "plr", limiter: str = "mc", device="cuda"):
+        super().__init__(n, halo, dalpha, radius, gravity, omega,
+                         scheme=scheme, limiter=limiter, device=device)
         self.a, self.b, self.dt = float(a), float(b), float(dt)
         if self.a == 0.0 and self.b != 1.0:
             raise NotImplementedError(
@@ -554,18 +756,7 @@ class _StageBase:
         self.with_y0 = self.a != 0.0
         self.fa, self.fb = _f32(self.a), _f32(self.b)
         self.fg = _f32(self.b * self.dt)
-        # The kernel's float32 constants, rounded as rhs_core_cov and
-        # _fast_frame round them.
-        self._kconsts = (
-            _f32(_f32(self.radius) ** 2), _f32(self.gravity),
-            _f32(2.0 * self.omega), _f32(1.0 / (2.0 * self.dalpha)),
-            _f32(1.0 / self.dalpha), self.fa, self.fb, self.fg)
-        self.device = torch.device(device)
-        x_row, xf_row, x_col, xf_col, frames = coord_rows(n, halo, self.device)
-        self.coords = (x_row, xf_row, x_col, xf_col)
-        self.fz = frames[:, :, 2].contiguous()            # (6, 3) frame z
-        self._xc = x_row.reshape(-1).contiguous()
-        self._xf = xf_row.reshape(-1).contiguous()
+        self._kconsts = self._rhs_consts + (self.fa, self.fb, self.fg)
 
     def _unpack(self, args):
         if self.with_y0:
@@ -587,19 +778,6 @@ class _StageBase:
             want["h0"] = (h0, (6, n, n))
             want["u0"] = (u0, (2, 6, n, n))
         _check_tensors(want, self.device)
-
-    @staticmethod
-    def _on_cuda(t):
-        """True for a CUDA tensor (launch the kernel), False for a CPU
-        tensor (run the plain version); raises for any other device."""
-        if t.device.type == "cpu":
-            return False
-        if t.device.type != "cuda":
-            raise ValueError(f"unsupported device {t.device}")
-        return True
-
-    def _stream(self):
-        return torch.cuda.current_stream(self.device).cuda_stream
 
 
 class CovStageCompact(_StageBase):
@@ -1280,6 +1458,456 @@ def make_fused_ssprk3_cov_nu4(grid, gravity: float, omega: float, dt: float,
         gsn, gwe = route(sn, we)
         h3, u3, sn, we = half_stage(s3, h0, u0, h2, u2, gsn, gwe, b_ext)
         return {"h": h3, "u": u3, "strips_sn": sn, "strips_we": we}
+
+    step.route = route
+    step.stages = stages
+    return step
+
+
+# ---------------------------------------------------------------------------
+# The unfused RHS of the classic path (backend='pallas')
+# ---------------------------------------------------------------------------
+
+
+def cov_rhs_reference(rhs, fz, h_ext, u_ext, b_ext, sym_sn, sym_we):
+    """The plain PyTorch version of the unfused covariant RHS.
+
+    ``rhs`` is a :class:`CovRhs` (its constants and coordinate rows);
+    the operands as for calling it.  :func:`rhs_core_cov` over the given
+    faces with the un-prescaled sym rows (``sg * sym``).  Used on CPU
+    tensors by the wrapper, and by the tests and ``chip_smoke.py`` to hold
+    the CUDA kernel against it; it also runs in float64.  Returns ``(dh
+    (F, n, n), du (2, F, n, n))``.
+    """
+    dh, dua, dub = rhs._rhs(fz[:, 0], h_ext, u_ext[0], u_ext[1], b_ext,
+                            sym_sn, sym_we, sym_prescaled=False)
+    return dh, torch.stack([dua, dub])
+
+
+def _rhs_kernel():
+    """The unfused RHS kernel: 10 tensor pointers; n_faces, n, halo; 5
+    float constants; the stream."""
+    return _entry("cov_rhs", "cov_rhs_f32",
+                  [_P] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
+                  + [_P])
+
+
+class CovRhs(_RhsBase):
+    """The covariant right-hand side of ghost-filled extended faces.
+
+    ``rhs(fz, h_ext, u_ext, b_ext, sym_sn, sym_we) -> (dh, du)`` over F =
+    ``n_faces`` faces: ``fz`` (F, 1, 3) the faces' frame z-components,
+    ``h_ext``, ``b_ext`` (F, M, M), ``u_ext`` (2, F, M, M), the
+    un-prescaled symmetrized edge normals ``sym_sn`` (F, 2, n) and
+    ``sym_we`` (F, n, 2); interior tendencies ``dh`` (F, n, n) and ``du``
+    (2, F, n, n) out.  CUDA tensors launch ``csrc/cov_rhs.cu`` (the port
+    of the Pallas kernel ``make_cov_rhs_pallas``); CPU tensors, or any
+    tensors with ``interpret=True``, run :func:`cov_rhs_reference`.
+    There is no other path: a kernel that fails to build or launch raises.
+    """
+
+    #: Launches of the CUDA kernel, all instances together (the plain
+    #: version does not count).
+    launches = 0
+
+    def __init__(self, n: int, halo: int, dalpha: float, radius: float,
+                 gravity: float, omega: float, n_faces: int = 6,
+                 scheme: str = "plr", limiter: str = "mc",
+                 interpret: bool = False, device="cuda"):
+        super().__init__(n, halo, dalpha, radius, gravity, omega,
+                         scheme=scheme, limiter=limiter, device=device)
+        self.n_faces = int(n_faces)
+        self.interpret = bool(interpret)
+
+    def _check(self, fz, h_ext, u_ext, b_ext, sym_sn, sym_we):
+        nf, n, m = self.n_faces, self.n, self.m
+        _check_tensors({"fz": (fz, (nf, 1, 3)), "h_ext": (h_ext, (nf, m, m)),
+                        "u_ext": (u_ext, (2, nf, m, m)),
+                        "b_ext": (b_ext, (nf, m, m)),
+                        "sym_sn": (sym_sn, (nf, 2, n)),
+                        "sym_we": (sym_we, (nf, n, 2))}, self.device)
+
+    def __call__(self, fz, h_ext, u_ext, b_ext, sym_sn, sym_we):
+        args = (fz, h_ext, u_ext, b_ext, sym_sn, sym_we)
+        self._check(*args)
+        if self.interpret or not self._on_cuda(h_ext):
+            return cov_rhs_reference(self, *args)
+        n, nf = self.n, self.n_faces
+        dh = h_ext.new_empty((nf, n, n))
+        du = h_ext.new_empty((2, nf, n, n))
+        rc = _rhs_kernel()(
+            *[t.data_ptr() for t in args], self._xc.data_ptr(),
+            self._xf.data_ptr(), dh.data_ptr(), du.data_ptr(), nf, n,
+            self.halo, *self._rhs_consts, self._stream())
+        if rc != 0:
+            raise RuntimeError(f"cov_rhs kernel launch failed: cudaError "
+                               f"{rc} (n={n}, halo={self.halo})")
+        CovRhs.launches += 1
+        return dh, du
+
+    def reference(self, *args):
+        """The plain version on the same arguments (tests and smoke)."""
+        return cov_rhs_reference(self, *args)
+
+
+def make_cov_rhs_pallas(grid, gravity: float, omega: float,
+                        scheme: str = "plr", limiter: str = "mc",
+                        interpret: bool = False, n_faces: int = 6,
+                        external_sym: bool = False, device=None):
+    """``rhs(h_ext, u_ext, b_ext) -> (dh, du)``: the unfused RHS kernel.
+
+    The stencil section of the classic
+    :meth:`CovariantShallowWater.rhs`: extended, ghost-filled inputs
+    (6, M, M) / (2, 6, M, M), interior tendencies out.  The symmetrized
+    edge normals are computed outside the kernel from the same ``u_ext``
+    (:func:`make_sym_edge_normals`, bitwise :func:`sym_edge_normals`).
+    ``rhs.kernel`` is the :class:`CovRhs`, ``rhs.sym`` the sym rows'
+    function.
+
+    ``n_faces=1, external_sym=True`` is the face tier's form: the
+    :class:`CovRhs` itself, called as ``rhs(fz, h_ext, u_ext, b_ext,
+    sym_sn, sym_we)`` with the faces' frame z-components (F, 1, 3) and
+    sym rows supplied by the caller.  ``interpret=True`` runs the plain
+    version on any device.  ``device`` defaults to the grid's.
+    """
+    kern = CovRhs(grid.n, grid.halo, grid.dalpha, grid.radius, gravity,
+                  omega, n_faces=n_faces, scheme=scheme, limiter=limiter,
+                  interpret=interpret,
+                  device=grid.device if device is None else device)
+    if external_sym:
+        return kern
+    if n_faces != 6:
+        raise ValueError(f"the six-face form needs n_faces=6, got {n_faces}"
+                         " (the one-face form is external_sym=True)")
+    frames_z = kern.fz[:, None, :]
+    sym = make_sym_edge_normals(grid)
+
+    def rhs(h_ext, u_ext, b_ext):
+        return kern(frames_z, h_ext, u_ext, b_ext, *sym(u_ext))
+
+    rhs.kernel = kern
+    rhs.sym = sym
+    return rhs
+
+
+# ---------------------------------------------------------------------------
+# The extended carry: packed strips, routers, the in-kernel-fill stage
+# ---------------------------------------------------------------------------
+
+
+def _strip_base(fi: int, halo: int) -> int:
+    """First row of field ``fi`` (h, u_a, u_b) in the packed strips."""
+    return fi * 4 * halo
+
+
+def pack_strips_cov(h_ext, u_ext, n: int, halo: int):
+    """Boundary strips of extended (h, u) as one ``(6, 12*halo, n)``: per
+    field, the interior's S rows, N rows, W columns transposed, E columns
+    transposed."""
+    i0, i1 = halo, halo + n
+    rows = []
+    for q in (h_ext, u_ext[0], u_ext[1]):
+        rows += [q[:, i0:i0 + halo, i0:i1], q[:, i1 - halo:i1, i0:i1],
+                 q[:, i0:i1, i0:i0 + halo].transpose(1, 2),
+                 q[:, i0:i1, i1 - halo:i1].transpose(1, 2)]
+    return torch.cat(rows, dim=1)
+
+
+def make_cov_strip_router(grid):
+    """``route(strips) -> ghosts``, the loop form: the readable oracle of
+    :func:`make_cov_strip_router_linear`.
+
+    ``strips``: (6, 12h, n) per :func:`pack_strips_cov`, raw covariant
+    components in each source panel's basis.  Returns (6, 12h+4, n): the
+    same row layout holding the placed ghost blocks (u rotated into the
+    receiving panel's basis), then the four symmetrized edge-normal rows
+    S, N, W, E (not prescaled), one average per physical edge.
+    """
+    n, h = grid.n, grid.halo
+    i0, i1 = h, h + n
+    Tc = _rotation_tables(grid)                     # (4, 6, 4, h, n)
+    adj = build_connectivity()
+    # Edge-face metric rows (the equiangular metric is face-independent).
+    met = {EDGE_W: (grid.ginv_aa_xf[0, i0:i1, i0], grid.ginv_ab_xf[0, i0:i1, i0]),
+           EDGE_E: (grid.ginv_aa_xf[0, i0:i1, i1], grid.ginv_ab_xf[0, i0:i1, i1]),
+           EDGE_S: (grid.ginv_ab_yf[0, i0, i0:i1], grid.ginv_bb_yf[0, i0, i0:i1]),
+           EDGE_N: (grid.ginv_ab_yf[0, i1, i0:i1], grid.ginv_bb_yf[0, i1, i0:i1])}
+    off = {EDGE_S: 0, EDGE_N: h, EDGE_W: 2 * h, EDGE_E: 3 * h}
+
+    def raw_block(strips, fi, f, e):
+        b = _strip_base(fi, h) + off[e]
+        return strips[f, b:b + h, :]
+
+    def canonical(strips, fi, f, e):
+        """Face f / edge e's canonical ghost source (depth 0 nearest)."""
+        link = adj[f][e]
+        c = raw_block(strips, fi, link.nbr_face, link.nbr_edge)
+        if link.nbr_edge in (EDGE_N, EDGE_E):
+            c = torch.flip(c, dims=[-2])
+        if link.reversed_:
+            c = torch.flip(c, dims=[-1])
+        return c
+
+    def place(c, e):
+        """Canonical ghost strip -> the slot layout the stage reads."""
+        return torch.flip(c, dims=[-2]) if e in (EDGE_S, EDGE_W) else c
+
+    def route(strips):
+        ghost_rows = [[None] * 12 for _ in range(6)]
+        g_adj = {}
+        for f in range(6):
+            for e in range(4):
+                cu = [canonical(strips, 1 + c, f, e) for c in range(2)]
+                ru = [place(Tc[0, f, e] * cu[0] + Tc[1, f, e] * cu[1], e),
+                      place(Tc[2, f, e] * cu[0] + Tc[3, f, e] * cu[1], e)]
+                s = _SLOT[e]
+                ghost_rows[f][s] = place(canonical(strips, 0, f, e), e)
+                ghost_rows[f][4 + s] = ru[0]
+                ghost_rows[f][8 + s] = ru[1]
+                # The edge-adjacent ghost row: h-1 in the depth-flipped
+                # S/W blocks, 0 in N/E.
+                k = h - 1 if e in (EDGE_S, EDGE_W) else 0
+                g_adj[(f, e)] = torch.stack([ru[0][k], ru[1][k]])
+
+        def local_normal(f, e):
+            ui = torch.stack([raw_block(strips, 1 + c, f, e)[
+                h - 1 if e in (EDGE_N, EDGE_E) else 0] for c in range(2)])
+            ubar = 0.5 * (ui + g_adj[(f, e)])
+            m0, m1 = met[e]
+            return m0 * ubar[0] + m1 * ubar[1]
+
+        sym_sn, sym_we = _symmetrized_strips(local_normal)
+        return torch.stack([torch.cat(
+            ghost_rows[f] + [sym_sn[f], sym_we[f].transpose(0, 1)], dim=0)
+            for f in range(6)])
+
+    return route
+
+
+def make_cov_strip_router_linear(grid):
+    """``route(strips) -> ghosts``: :func:`make_cov_strip_router`'s output
+    from a handful of tensor-sized ops.
+
+    Every output row is a linear function of the packed strip rows: one
+    lane flip, one static row gather (placement and orientation), two
+    multiply-adds (the 2x2 covariant rotations, tables in placed layout)
+    and the vectorized pair average of the edge normals, each element in
+    the loop router's operand order (bitwise equal to it).  Torch index
+    ops, as the JAX package runs it as XLA ops.
+    """
+    n, h = grid.n, grid.halo
+    R = 12 * h
+    adj = build_connectivity()
+    off = {EDGE_S: 0, EDGE_N: h, EDGE_W: 2 * h, EDGE_E: 3 * h}
+
+    # Rotation tables in placed layout, slot-ordered (4, 6, 4, h, n):
+    # place() depth-flips the S and W blocks and commutes with the
+    # elementwise rotation.
+    Tc = _rotation_tables(grid).cpu().numpy()
+    Tp = np.stack([Tc[:, :, e] for e in _EORDER], axis=2)
+    for s, e in enumerate(_EORDER):
+        if e in (EDGE_S, EDGE_W):
+            Tp[:, :, s] = Tp[:, :, s, ::-1]
+    Tp = torch.from_numpy(np.ascontiguousarray(Tp)).to(grid.device)
+
+    # Row gather: output row (fi, f, slot, k) <- packed strip row, offset
+    # by 6R where the pair is lane-reversed (the flipped copy).
+    idx = np.empty((3, 6, 4, h), np.int64)
+    for f in range(6):
+        for s, e in enumerate(_EORDER):
+            link = adj[f][e]
+            for k in range(h):
+                kc = (h - 1 - k) if e in (EDGE_S, EDGE_W) else k
+                kr = ((h - 1 - kc)
+                      if link.nbr_edge in (EDGE_N, EDGE_E) else kc)
+                row = link.nbr_face * R + off[link.nbr_edge] + kr
+                for fi in range(3):
+                    idx[fi, f, s, k] = (row + fi * 4 * h
+                                        + (6 * R if link.reversed_ else 0))
+    # Each face/edge's own interior boundary-adjacent (u_a, u_b) row for
+    # the edge normals: depth h-1 in N/E blocks, 0 in S/W.
+    idx_int = np.empty((2, 6, 4), np.int64)
+    for f in range(6):
+        for s, e in enumerate(_EORDER):
+            k = h - 1 if e in (EDGE_N, EDGE_E) else 0
+            for c in range(2):
+                idx_int[c, f, s] = f * R + (1 + c) * 4 * h + off[e] + k
+    idx_all = torch.from_numpy(np.concatenate(
+        [idx.reshape(-1), idx_int.reshape(-1)])).to(grid.device)
+
+    sym_tables = _pair_sym_tables(grid)
+    adj_k = [h - 1, 0, h - 1, 0]     # placed edge-adjacent row per slot
+
+    def route(strips):
+        s_flat = strips.reshape(6 * R, n)
+        s_all = torch.cat([s_flat, torch.flip(s_flat, dims=[-1])], dim=0)
+        rows = s_all.index_select(0, idx_all)
+        C = rows[:3 * 24 * h].reshape(3, 6, 4, h, n)
+        I_u = rows[3 * 24 * h:].reshape(2, 6, 4, n)
+        G_ua = Tp[0] * C[1] + Tp[1] * C[2]
+        G_ub = Tp[2] * C[1] + Tp[3] * C[2]
+        gadj_a = torch.stack([G_ua[:, s, adj_k[s]] for s in range(4)], dim=1)
+        gadj_b = torch.stack([G_ub[:, s, adj_k[s]] for s in range(4)], dim=1)
+        sym = _pair_symmetrize(I_u, gadj_a, gadj_b, sym_tables)
+        return torch.cat([C[0].reshape(6, 4 * h, n),
+                          G_ua.reshape(6, 4 * h, n),
+                          G_ub.reshape(6, 4 * h, n), sym], dim=1)
+
+    return route
+
+
+def _fill_ghosts(q_ext, ghosts, fi, n, halo):
+    """The stage's frame of field ``fi``: the whole input block (its old
+    ghost ring and corners too), its edge ghosts replaced by the routed
+    blocks (W/E arrive transposed), as the JAX kernel's ``fill_ghosts``."""
+    h = halo
+    i0, i1 = h, h + n
+    base = _strip_base(fi, h)
+    ext = q_ext.clone()
+    ext[:, 0:h, i0:i1] = ghosts[:, base:base + h]
+    ext[:, i1:i1 + h, i0:i1] = ghosts[:, base + h:base + 2 * h]
+    ext[:, i0:i1, 0:h] = ghosts[:, base + 2 * h:base + 3 * h].transpose(1, 2)
+    ext[:, i0:i1, i1:i1 + h] = ghosts[:, base + 3 * h:base + 4 * h
+                                      ].transpose(1, 2)
+    return ext
+
+
+def cov_stage_inkernel_reference(stage, *args):
+    """The plain PyTorch version of one extended-carry stage.
+
+    ``stage`` is a :class:`CovStageInkernel`; ``args`` as for calling it.
+    Each field's frame is the input block with the routed edge ghosts
+    (:func:`_fill_ghosts`); the RHS imposes the routed sym rows times the
+    edge sqrtg.  The whole block becomes ``val = a*y0 + b*frame`` (stage
+    1: the frame), its interior ``val + b*dt*L``: the ghost ring keeps
+    ``a*y0 + b*routed ghost`` and the corners ``a*y0 + b*input corner``,
+    as the JAX kernel writes them.  Returns ``(h (6, M, M), u (2, 6, M,
+    M), strips (6, 12h, n))``.
+    """
+    h0, u0, hc, uc, ghosts, b_ext = stage._unpack(args)
+    n, h = stage.n, stage.halo
+    i0, i1 = h, h + n
+    R = 12 * h
+    frames = [_fill_ghosts(q, ghosts, fi, n, h)
+              for fi, q in enumerate((hc, uc[0], uc[1]))]
+    tends = stage._rhs(stage.fz, *frames, b_ext, ghosts[:, R:R + 2],
+                       ghosts[:, R + 2:R + 4].transpose(1, 2),
+                       sym_prescaled=False)
+    bases = (None, None, None) if u0 is None else (h0, u0[0], u0[1])
+    outs = []
+    for frame, tend, y0 in zip(frames, tends, bases):
+        val = frame if y0 is None else stage.fa * y0 + stage.fb * frame
+        val[:, i0:i1, i0:i1] = val[:, i0:i1, i0:i1] + stage.fg * tend
+        outs.append(val)
+    h_new, u_new = outs[0], torch.stack(outs[1:])
+    return h_new, u_new, pack_strips_cov(h_new, u_new, n, h)
+
+
+def _inkernel_kernel():
+    """The extended-carry stage kernel: 12 tensor pointers; n, halo,
+    with_y0; 8 float constants; the stream."""
+    return _entry("cov_stage_inkernel", "cov_stage_inkernel_f32",
+                  [_P] * 12 + [ctypes.c_int] * 3 + [ctypes.c_float] * 8
+                  + [_P])
+
+
+class CovStageInkernel(_StageBase):
+    """One covariant SSPRK3 stage over the extended carry, with the ghost
+    fill in the kernel.
+
+    ``a == 0``: ``stage(hc, uc, ghosts, b_ext)``; else ``stage(h0, u0,
+    hc, uc, ghosts, b_ext)``, with ``h*`` (6, M, M), ``u*`` (2, 6, M, M)
+    and ``ghosts`` (6, 12h+4, n) from :func:`make_cov_strip_router_linear`.
+    Returns ``(h, u, strips)``: the whole new blocks (see
+    :func:`cov_stage_inkernel_reference`) and their packed strips.  CUDA
+    tensors launch ``csrc/cov_stage_inkernel.cu`` (the port of the Pallas
+    kernel ``make_cov_stage_inkernel``); CPU tensors run the plain
+    version.  There is no other path: a kernel that fails to build or
+    launch raises.
+    """
+
+    #: Launches of the CUDA kernel, all instances together (the plain
+    #: version does not count).
+    launches = 0
+
+    def _unpack(self, args):
+        if self.with_y0:
+            if len(args) != 6:
+                raise TypeError("stage(h0, u0, hc, uc, ghosts, b_ext) "
+                                f"takes 6 tensors, got {len(args)}")
+            return args
+        if len(args) != 4:
+            raise TypeError("stage(hc, uc, ghosts, b_ext) takes 4 tensors, "
+                            f"got {len(args)}")
+        return (None, None) + tuple(args)
+
+    def _check(self, h0, u0, hc, uc, ghosts, b_ext):
+        n, h, m = self.n, self.halo, self.m
+        want = {"hc": (hc, (6, m, m)), "uc": (uc, (2, 6, m, m)),
+                "ghosts": (ghosts, (6, 12 * h + 4, n)),
+                "b_ext": (b_ext, (6, m, m))}
+        if self.with_y0:
+            want["h0"] = (h0, (6, m, m))
+            want["u0"] = (u0, (2, 6, m, m))
+        _check_tensors(want, self.device)
+
+    def __call__(self, *args):
+        h0, u0, hc, uc, ghosts, b_ext = self._unpack(args)
+        self._check(h0, u0, hc, uc, ghosts, b_ext)
+        if not self._on_cuda(hc):
+            return cov_stage_inkernel_reference(self, *args)
+        ho = torch.empty_like(hc)
+        uo = torch.empty_like(uc)
+        so = hc.new_empty((6, 12 * self.halo, self.n))
+        rc = _inkernel_kernel()(
+            _ptr(h0), _ptr(u0), hc.data_ptr(), uc.data_ptr(),
+            ghosts.data_ptr(), b_ext.data_ptr(), self._xc.data_ptr(),
+            self._xf.data_ptr(), self.fz.data_ptr(), ho.data_ptr(),
+            uo.data_ptr(), so.data_ptr(), self.n, self.halo,
+            int(self.with_y0), *self._kconsts, self._stream())
+        if rc != 0:
+            raise RuntimeError(
+                f"cov_stage_inkernel kernel launch failed: cudaError {rc} "
+                f"(n={self.n}, halo={self.halo})")
+        CovStageInkernel.launches += 1
+        return ho, uo, so
+
+    def reference(self, *args):
+        """The plain version on the same arguments (tests and smoke)."""
+        return cov_stage_inkernel_reference(self, *args)
+
+
+def make_cov_stage_inkernel(n, halo, dalpha, radius, gravity, omega, dt, a,
+                            b, scheme="plr", limiter="mc", device="cuda"):
+    """One extended-carry stage (see :class:`CovStageInkernel`)."""
+    return CovStageInkernel(n, halo, dalpha, radius, gravity, omega, dt, a,
+                            b, scheme=scheme, limiter=limiter, device=device)
+
+
+def make_fused_ssprk3_cov_inkernel(grid, gravity: float, omega: float,
+                                   dt: float, b_ext, scheme: str = "plr",
+                                   limiter: str = "mc"):
+    """``step(y, t) -> y`` over the extended carry ``y = {h, u, strips}``.
+
+    Three stages, each one linear strip route and one stage launch;
+    initialise the carry with ``CovariantShallowWater.extend_state(state,
+    with_strips=True)``.  ``step.route`` is the router, ``step.stages``
+    the three :class:`CovStageInkernel`.
+    """
+    route = make_cov_strip_router_linear(grid)
+    stages = [make_cov_stage_inkernel(
+        grid.n, grid.halo, grid.dalpha, grid.radius, gravity, omega, dt,
+        a, b, scheme=scheme, limiter=limiter, device=grid.device)
+        for a, b in SSPRK3_COEFFS]
+    stage1, stage2, stage3 = stages
+
+    def step(y, t):
+        del t
+        h0, u0 = y["h"], y["u"]
+        h1, u1, s1 = stage1(h0, u0, route(y["strips"]), b_ext)
+        h2, u2, s2 = stage2(h0, u0, h1, u1, route(s1), b_ext)
+        h3, u3, s3 = stage3(h0, u0, h2, u2, route(s2), b_ext)
+        return {"h": h3, "u": u3, "strips": s3}
 
     step.route = route
     step.stages = stages

@@ -186,3 +186,65 @@ def test_stage_nu4_kernels_match_plain_c48():
                                   s.reference_b(*bargs)):
                 assert bool(torch.all(torch.isfinite(x))), name
                 assert _rel(r, x) <= tol, (name, _rel(r, x))
+
+
+def _tc5_c48():
+    g = build_grid(48, halo=2, radius=EARTH_RADIUS, device="cuda")
+    h, v, b = williamson_tc5(g, EARTH_GRAVITY, EARTH_OMEGA)
+    m = CovariantShallowWater(g, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA,
+                              b_ext=b)
+    return g, m, m.initial_state(h, v)
+
+
+def _check(name, call, ref, args, tol):
+    out = call(*args)
+    torch.cuda.synchronize()
+    for k, (x, r) in enumerate(zip(out, ref(*args))):
+        assert bool(torch.all(torch.isfinite(x))), (name, k)
+        assert _rel(r, x) <= tol, (name, k, _rel(r, x))
+
+
+@pytest.mark.gpu
+def test_rhs_kernel_matches_plain_c48():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the RHS kernel has no CPU form)")
+    g, m, s0 = _tc5_c48()
+    h_ext, u_ext = m.fill(s0["h"]), m._fill_u(s0["u"])
+    sym = tcov.sym_edge_normals(g, u_ext)
+    rhs = tcov.make_cov_rhs_pallas(g, EARTH_GRAVITY, EARTH_OMEGA)
+    kern = rhs.kernel
+    one = tcov.make_cov_rhs_pallas(g, EARTH_GRAVITY, EARTH_OMEGA, n_faces=1,
+                                   external_sym=True)
+    before = tcov.CovRhs.launches
+    # The outputs are the tendencies themselves (no RK combine).
+    _check("six faces", kern, kern.reference,
+           (kern.fz[:, None], h_ext, u_ext, m.b_ext) + sym, TOL)
+    for f in (0, 3):
+        args = (kern.fz[f:f + 1, None], h_ext[f:f + 1],
+                u_ext[:, f:f + 1].contiguous(), m.b_ext[f:f + 1],
+                sym[0][f:f + 1], sym[1][f:f + 1])
+        _check(f"face {f}", one, one.reference, args, TOL)
+    assert tcov.CovRhs.launches == before + 3
+
+
+@pytest.mark.gpu
+def test_stage_inkernel_matches_plain_c48():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the extended-carry stage kernel "
+                    "has no CPU form)")
+    g, m, s0 = _tc5_c48()
+    step = m.make_fused_step(75.0 * 384 / 48, compact=False)
+    y1 = step(m.extend_state(s0, with_strips=True), 0.0)
+    ghosts = step.route(y1["strips"])
+    yc = (y1["h"], y1["u"])
+    y0 = (m.fill(s0["h"]), m._fill_u(s0["u"]))
+    # The last case is stage 3 with y0 = -2*yc: the interiors are the
+    # scaled tendency g*L alone.
+    cases = [(st, yc if st.with_y0 else ()) for st in step.stages]
+    cases[1] = (step.stages[1], y0)
+    cases.append((step.stages[2], (-2.0 * yc[0], -2.0 * yc[1])))
+    for k, (st, base) in enumerate(cases):
+        before = tcov.CovStageInkernel.launches
+        _check(f"case {k}", st, st.reference,
+               base + yc + (ghosts, m.b_ext), TOL if k < 3 else TENDENCY_TOL)
+        assert tcov.CovStageInkernel.launches == before + 1

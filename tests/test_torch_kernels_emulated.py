@@ -114,9 +114,9 @@ def launch_on_cpu(emulated, monkeypatch):
     tensors."""
     monkeypatch.setattr(_build, "load",
                         lambda name: ctypes.CDLL(str(emulated[name])))
-    monkeypatch.setattr(tsc._StageBase, "_on_cuda",
+    monkeypatch.setattr(tsc._RhsBase, "_on_cuda",
                         staticmethod(lambda t: True))
-    monkeypatch.setattr(tsc._StageBase, "_stream", lambda self: None)
+    monkeypatch.setattr(tsc._RhsBase, "_stream", lambda self: None)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(
                             cuda_stream=None))
@@ -191,3 +191,52 @@ def test_stage_nu4_kernel_sources(launch_on_cpu, galewsky_c40, stage):
     _equal(st.call_b(*b_args), st.reference_b(*b_args))
     assert (tsc.CovStageNu4.launches_a,
             tsc.CovStageNu4.launches_b) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.fixture(scope="module")
+def tc5_c40():
+    """The C40 TC5 model, its state and the state's filled frames."""
+    g = build_grid(N, halo=2, radius=EARTH_RADIUS, device="cpu")
+    h, v, b = williamson_tc5(g, G, OM)
+    m = CovariantShallowWater(g, gravity=G, omega=OM, b_ext=b)
+    s0 = m.initial_state(h, v)
+    return g, m, s0, m.fill(s0["h"]), m._fill_u(s0["u"])
+
+
+def test_rhs_kernel_source(launch_on_cpu, tc5_c40):
+    g, m, s0, h_ext, u_ext = tc5_c40
+    rhs = tsc.make_cov_rhs_pallas(g, G, OM)
+    kern = rhs.kernel
+    sym = tsc.sym_edge_normals(g, u_ext)
+    before = tsc.CovRhs.launches
+    _equal(rhs(h_ext, u_ext, m.b_ext),
+           kern.reference(kern.fz[:, None], h_ext, u_ext, m.b_ext, *sym))
+    one = tsc.make_cov_rhs_pallas(g, G, OM, n_faces=1, external_sym=True)
+    for f in (1, 5):
+        args = (kern.fz[f:f + 1, None], h_ext[f:f + 1],
+                u_ext[:, f:f + 1].contiguous(), m.b_ext[f:f + 1],
+                sym[0][f:f + 1], sym[1][f:f + 1])
+        _equal(one(*args), one.reference(*args))
+    assert tsc.CovRhs.launches == before + 3
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2], ids=["stage1", "stage2",
+                                                   "stage3"])
+def test_stage_inkernel_kernel_source(launch_on_cpu, tc5_c40, stage):
+    g, m, s0, h_ext, u_ext = tc5_c40
+    step = m.make_fused_step(75.0 * 384 / N, compact=False)
+    y0 = m.extend_state(s0, with_strips=True)
+    y1 = step(y0, 0.0)
+    # Ghost corners the stage must carry through: the halo exchangers'.
+    hc = y1["h"].clone()
+    uc = y1["u"].clone()
+    for q, full in ((hc, h_ext), (uc, u_ext)):
+        for c in ((slice(0, 2), slice(0, 2)), (slice(-2, None),) * 2):
+            q[(...,) + c] = full[(...,) + c]
+    st = step.stages[stage]
+    args = (hc, uc, step.route(y1["strips"]), m.b_ext)
+    if st.with_y0:
+        args = (h_ext, u_ext) + args
+    before = tsc.CovStageInkernel.launches
+    _equal(st(*args), st.reference(*args))
+    assert tsc.CovStageInkernel.launches == before + 1

@@ -91,7 +91,7 @@ def test_fused_step_conserves_mass():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    ({"compact": False}, "queue B item 8"),
+    ({"compact": False, "temporal_block": 2}, "queue A item 5"),
     ({"carry_dtype": torch.bfloat16}, "queue A item 5"),
     ({"h_offset": 5000.0}, "queue A item 5"),
     ({"temporal_block": 2}, "queue A item 5"),
@@ -102,6 +102,20 @@ def test_unported_knobs_raise(kwargs, item):
     g, m, _ = _port(8)
     with pytest.raises(NotImplementedError, match=item):
         m.make_fused_step(DT, **kwargs)
+
+
+@pytest.mark.parametrize("nu4, kwargs, match", [
+    (1.0e14, {}, "nu4 > 0 requires the compact carry"),
+    (0.0, {"ensemble": 2}, "ensemble > 0 requires the compact carry"),
+    (0.0, {"carry_dtype": torch.bfloat16}, "require the compact carry"),
+    (0.0, {"h_offset": 5000.0}, "require the compact carry"),
+])
+def test_extended_carry_refusals(nu4, kwargs, match):
+    """The JAX package's refusals of ``compact=False``, as ValueError."""
+    g = build_grid(8, device="cpu")
+    m = CovariantShallowWater(g, gravity=9.8, omega=0.0, nu4=nu4)
+    with pytest.raises(ValueError, match=match):
+        m.make_fused_step(DT, compact=False, **kwargs)
 
 
 @pytest.mark.parametrize("nu4_mode", ["refused", "stage"])
