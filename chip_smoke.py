@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py
 
-Six paths, all at C384, halo 2, float32, PLR + MC, through the port's
-entry points (``CovariantShallowWater.make_fused_step`` and
-``make_step``):
+Nine paths, all at C384, halo 2, float32, PLR + MC, through the port's
+entry points (``CovariantShallowWater`` and ``ShallowWater``,
+``make_fused_step`` and ``make_step``):
 
 * Williamson TC5 (flow over a mountain), dt = 75 s, stepped by the
   compact fused SSPRK3 stepper: per step three strip routes (torch ops)
@@ -25,7 +25,15 @@ entry points (``CovariantShallowWater.make_fused_step`` and
     (``csrc/cov_stage_refused_nu4.cu``), then two routes and stage
     launches;
   - ``stage``: per RK stage a route, kernel A, a route of A's l1 strips
-    and kernel B (``csrc/cov_stage_nu4.cu``).
+    and kernel B (``csrc/cov_stage_nu4.cu``);
+* TC5 on the Cartesian-velocity ``ShallowWater`` (``backend='pallas'``),
+  three ways: the default fused stepper, per stage one strip route
+  (torch ops) and one launch of the CUDA stage kernel with the ghost fill
+  inside (``csrc/swe_stage_inkernel.cu``); the fused stepper with
+  ``in_kernel_exchange=False``, per stage two halo exchanges and one
+  launch of the fused stage kernel (``csrc/swe_stage.cu``); the classic
+  SSPRK3 path, per RK stage two halo exchanges and one launch of the RHS
+  kernel (``csrc/swe_rhs.cu``).
 
 Phases, each fatal on failure:
 
@@ -94,7 +102,29 @@ Phases, each fatal on failure:
 18. a timed window of 2 000 extended steps with the launches checked
     (3 x steps), the TC5 gate, its breakdown (3 routes, 3 stage launches,
     the rest), a traced window, and 500-step windows of the compact and
-    extended steppers in turns (compact, extended, extended, compact).
+    extended steppers in turns (compact, extended, extended, compact);
+19. the Cartesian RHS kernel against its plain version on the TC5 state
+    and on the state after the classic window (<= 1e-5 of each output's
+    max), the kernel-backed classic ``rhs`` and the torch one against a
+    float64 evaluation (as phase 15, the kernel no farther from it than
+    the larger of the torch rhs and the JAX package's own kernel, plus
+    5e-5: the Cartesian kernels rebuild the metric in float32), then 300
+    classic steps gated, the
+    launches checked against 3 x steps, and their breakdown (fills, the
+    kernel, the RK combines);
+20. the in-kernel-exchange and concat stage kernels against their plain
+    versions as stages 1, 2 and 3 on whole blocks (all outputs, strips
+    included; <= 1e-5) and as stage 3 with y0 = -2 yc (<= 1e-4); then
+    three steps of each fused form: in-kernel vs concat interiors
+    (<= 1e-6; bitwise predicted, corners are never read), each against
+    three classic steps (<= 2e-4, ``tests/test_fused_step.py:52``);
+21. the main path: 20 + 2 000 in-kernel steps of TC5 gated, the launches
+    checked against 3 x steps, the breakdown (3 routes, 3 stage launches,
+    the rest), a traced window, a timed window of the concat form with
+    its launches checked, and the kernels' times against their bounds;
+22. 500-step windows of the Cartesian in-kernel and the covariant
+    compact steppers in turns (Cartesian, covariant, covariant,
+    Cartesian).
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -162,6 +192,24 @@ CLASSIC_WARM_STEPS = 5
 CLASSIC_STEPS = 300
 # Extended vs compact carry: the same arithmetic (bitwise predicted).
 EXT_VS_COMPACT_TOL = 1e-6
+# The Cartesian kernels, per cell per launch, counted from the plain
+# versions' operations (a square root or a division counts as one): the
+# RHS through the general basis (four basis evaluations per cell, the
+# PLR flux, the band, the tendency) and the stage through the fast core
+# (the same stencils through the closed forms, plus the RK combine).
+# The JAX package's Cartesian RHS kernel (make_swe_rhs_pallas, interpret
+# mode) against a float64 evaluation of its jnp rhs, TC5 at C384: max
+# abs diff / max of each tendency, from `python
+# tests/test_torch_swe_cartesian.py 384` (float32 on the CPU).  Its
+# closed-form float32 metric puts it farther from float64 than the jnp
+# path (h 7.4702e-5 there); phase 19 holds the port's kernel to it.
+REF_KERNEL_F64_DIST = {"h": 1.2265e-4, "v": 1.0309e-3}
+SWE_RHS_FLOPS_PER_CELL = 470
+SWE_STAGE_FLOPS_PER_CELL = 380
+# In-kernel vs concat fused Cartesian steps: the same interiors (bitwise
+# predicted: the two differ only in the ghost corners, never read).
+INKERNEL_VS_CONCAT_TOL = 1e-6
+CART_CONCAT_STEPS = 500
 
 
 def log(msg: str) -> None:
@@ -189,8 +237,11 @@ def event_ms(fn, reps: int) -> float:
 
 def bound_ms(args, outs, n: int, flops_per_cell: int) -> tuple:
     """Least time of one launch: bytes (each input read once, each output
-    written once) over the memory rate, flops over the f32 rate."""
-    moved = sum(t.numel() * t.element_size() for t in list(args) + list(outs))
+    written once; a tuple of tensors counts each) over the memory rate,
+    flops over the f32 rate."""
+    flat = [t for a in list(args) + list(outs)
+            for t in (a if isinstance(a, tuple) else (a,))]
+    moved = sum(t.numel() * t.element_size() for t in flat)
     t_bytes = moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops_per_cell * 6 * n * n / PEAK_F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
@@ -880,6 +931,252 @@ def extended_path(card: str, grid, model, step_c, s0) -> dict:
     return record
 
 
+def cartesian_rhs_path(card: str, grid, b_ext, s0, ref) -> dict:
+    """Phase 19: TC5 on the Cartesian ``ShallowWater``'s classic SSPRK3
+    path with ``backend='pallas'``, whose ``rhs`` launches the Cartesian
+    RHS kernel once per call; ``ref`` is the torch (``backend='jnp'``)
+    model.  Returns the kernel's record for the kernels line."""
+    from jaxstream_torch.geometry.cubed_sphere import build_grid
+    from jaxstream_torch.models.shallow_water import ShallowWater
+    from jaxstream_torch.ops.cuda import swe_rhs
+    from jaxstream_torch.stepping import integrate
+
+    Rhs = swe_rhs.SweRhs
+    pal = ShallowWater(grid, gravity=ref.gravity, omega=ref.omega,
+                       b_ext=b_ext, backend="pallas")
+    kern = pal._pallas_rhs
+    count = lambda: Rhs.launches
+    names = ("dh", "dv")
+
+    # ---- 19. RHS kernel vs plain; kernel-backed vs torch classic rhs ----
+    args = (pal.fill(s0["h"]), pal.fill(s0["v"]), pal.b_ext)
+    max_abs = check_kernel(f"Cartesian RHS kernel vs plain C{N} (TC5 "
+                           "state)", kern, kern.reference, args, names,
+                           KERNEL_TOL, count)
+    g64 = build_grid(N, halo=grid.halo, radius=grid.radius,
+                     dtype=torch.float64)
+    m64 = ShallowWater(g64, gravity=ref.gravity, omega=ref.omega,
+                       b_ext=b_ext.double())
+    d64 = m64.rhs({k: v.double() for k, v in s0.items()}, 0.0)
+    d_pal, d_jnp = pal.rhs(s0, 0.0), ref.rhs(s0, 0.0)
+    # As phase 15, with the reference kernel's own distance from float64
+    # where it is the larger: the kernel rebuilds the metric in float32
+    # (the general basis), the torch rhs reads it stored from float64.
+    bad = False
+    for k in ("h", "v"):
+        e_pal, e_jnp = rel_err(d64[k], d_pal[k]), rel_err(d64[k], d_jnp[k])
+        ref_k = REF_KERNEL_F64_DIST[k] if N == 384 else 0.0
+        log(f"Cartesian classic rhs C{N} {k}: backend pallas vs jnp max rel "
+            f"diff {rel_err(d_jnp[k], d_pal[k]):.3e}; vs float64: pallas "
+            f"{e_pal:.4e}, jnp {e_jnp:.4e}, JAX kernel {ref_k:.4e} (pallas "
+            f"<= max(jnp, JAX kernel) + {PALLAS_VS_JNP_TOL:g})")
+        bad = bad or e_pal > max(e_jnp, ref_k) + PALLAS_VS_JNP_TOL
+    del g64, m64, d64
+    if bad:
+        raise RuntimeError("Cartesian kernel-backed rhs farther from float64 "
+                           "than the torch rhs")
+
+    # ---- the classic window: 300 steps, launches, gate, breakdown -------
+    step = pal.make_step(STEP_DT)
+    y, t = integrate(step, s0, 0.0, CLASSIC_WARM_STEPS, STEP_DT)
+    torch.cuda.synchronize()
+    Rhs.launches = 0
+    t0 = time.perf_counter()
+    y, t = integrate(step, y, t, CLASSIC_STEPS, STEP_DT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = Rhs.launches
+    if launches != 3 * CLASSIC_STEPS:
+        raise RuntimeError(f"Cartesian RHS launches {launches} != 3 x "
+                           f"{CLASSIC_STEPS} steps")
+    tc5_gate("Cartesian classic, backend pallas", grid, s0, y["h"],
+             t / 86400.0)
+    step_us = wall / CLASSIC_STEPS * 1e6
+    log(f"main path C{N} TC5 Cartesian classic (backend pallas) "
+        f"dt={STEP_DT:g}: {CLASSIC_STEPS} steps in {wall:.3f} s -> "
+        f"{CLASSIC_STEPS / wall:.1f} steps/s, {step_us:.1f} us/step; RHS "
+        f"launches {launches} = 3 x {CLASSIC_STEPS}; card {card}")
+    # The state after the window: its wind has all three components.
+    args = (pal.fill(y["h"]), pal.fill(y["v"]), pal.b_ext)
+    max_abs = max(max_abs, check_kernel(
+        f"Cartesian RHS kernel vs plain C{N} (after {CLASSIC_STEPS} steps)",
+        kern, kern.reference, args, names, KERNEL_TOL, count))
+    record = kernel_record(
+        "swe_rhs", "jaxstream_torch/csrc/swe_rhs.cu",
+        "jaxstream/ops/pallas/swe_rhs.py:434", launches, max_abs,
+        [("Cartesian RHS", kern, kern.reference, args)],
+        SWE_RHS_FLOPS_PER_CELL, card)
+    fill_ms = event_ms(lambda: (pal.fill(y["h"]), pal.fill(y["v"])), 50)
+    k_us = record["ms"] * 1e3
+    other = step_us - 3e3 * fill_ms - 3 * k_us
+    log(f"Cartesian classic step {step_us:.1f} us = 3 x (fills "
+        f"{fill_ms * 1e3:.1f} us + RHS kernel {k_us:.2f} us) + {other:.1f} "
+        f"us other (the RK combines); card {card}")
+    return record
+
+
+def cartesian_fused_path(card: str, grid, b_ext, s0, ref, cov_step,
+                         cov_y) -> list:
+    """Phases 20-22: TC5 on the Cartesian ``ShallowWater``'s fused
+    steppers (``backend='pallas'``): the in-kernel-exchange stepper (the
+    default, the main path of this model) and the concat form; then
+    windows in turns against the covariant compact stepper ``cov_step``
+    on its carry ``cov_y``.  Returns the two stage kernels' records."""
+    from jaxstream_torch.models.shallow_water import ShallowWater
+    from jaxstream_torch.ops.cuda import swe_step
+    from jaxstream_torch.stepping import integrate
+
+    Ink, Cat = swe_step.SweStageInkernel, swe_step.SweStage
+    model = ShallowWater(grid, gravity=ref.gravity, omega=ref.omega,
+                         b_ext=b_ext, backend="pallas")
+    step = model.make_fused_step(STEP_DT)
+    step_c = model.make_fused_step(STEP_DT, in_kernel_exchange=False)
+    route, ex = step.route, step_c.exchange
+    b = model.b_ext
+
+    # ---- 20. both stage kernels vs plain, stages 1-3 and the probe -------
+    ye = model.extend_state(s0, with_strips=True)
+    y1 = step(ye, 0.0)             # a carry whose ghost ring is filled
+    strips = lambda o: route(*o[2:])
+    names = ("h", "v", "sn", "we", "vsn", "vwe")
+    count = lambda: Ink.launches
+    st1, st2, st3 = step.stages
+    a1 = (y1["h"], y1["v"], route(y1["sh_sn"], y1["sh_we"], y1["sv_sn"],
+                                  y1["sv_we"]), b)
+    k1 = st1.reference(*a1)
+    a2 = (y1["h"], y1["v"], k1[0], k1[1], strips(k1), b)
+    k2 = st2.reference(*a2)
+    a3 = (y1["h"], y1["v"], k2[0], k2[1], strips(k2), b)
+    # Stage 3 with y0 = -2*yc: f32(2/3) is exactly 2*f32(1/3), so the
+    # interiors are g*L(yc) alone.
+    a3p = (-2.0 * k2[0], -2.0 * k2[1], k2[0], k2[1], strips(k2), b)
+    max_ink = max(
+        check_kernel(f"in-kernel stage kernel vs plain C{N} stage {k + 1}",
+                     st, st.reference, a, names, KERNEL_TOL, count)
+        for k, (st, a) in enumerate(((st1, a1), (st2, a2), (st3, a3))))
+    max_ink = max(max_ink, check_kernel(
+        f"in-kernel stage kernel vs plain C{N} stage 3, y0=-2yc (interior "
+        "g*L alone)", st3, st3.reference, a3p, names, TENDENCY_TOL, count))
+    count = lambda: Cat.launches
+    c1, c2, c3 = step_c.stages
+    h1, v1 = ex(y1["h"]), ex(y1["v"])
+    b1 = (h1, v1, b)
+    j1 = c1.reference(*b1)
+    b2 = (h1, v1, ex(j1[0]), ex(j1[1]), b)
+    j2 = c2.reference(*b2)
+    b3 = (h1, v1, ex(j2[0]), ex(j2[1]), b)
+    b3p = (-2.0 * b3[2], -2.0 * b3[3], b3[2], b3[3], b)
+    max_cat = max(
+        check_kernel(f"concat stage kernel vs plain C{N} stage {k + 1}", st,
+                     st.reference, a, ("h", "v"), KERNEL_TOL, count)
+        for k, (st, a) in enumerate(((c1, b1), (c2, b2), (c3, b3))))
+    max_cat = max(max_cat, check_kernel(
+        f"concat stage kernel vs plain C{N} stage 3, y0=-2yc (interior g*L "
+        "alone)", c3, c3.reference, b3p, ("h", "v"), TENDENCY_TOL, count))
+    del k1, k2, j1, j2
+
+    # ---- three steps: in-kernel vs concat, each vs classic ---------------
+    yi, _ = integrate(step, ye, 0.0, 3, STEP_DT)
+    yk, _ = integrate(step_c, model.extend_state(s0), 0.0, 3, STEP_DT)
+    ycl, _ = integrate(ref.make_step(STEP_DT), s0, 0.0, 3, STEP_DT)
+    oi, ok = model.restrict_state(yi), model.restrict_state(yk)
+    errs = {k: rel_err(ok[k], oi[k]) for k in ("h", "v")}
+    bitwise = all(torch.equal(ok[k], oi[k]) for k in ("h", "v"))
+    log(f"Cartesian in-kernel vs concat C{N}, 3 steps: max rel diff "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {INKERNEL_VS_CONCAT_TOL:g}); bitwise={bitwise}")
+    if max(errs.values()) > INKERNEL_VS_CONCAT_TOL:
+        raise RuntimeError("in-kernel and concat fused steps disagree")
+    for label, o in (("in-kernel", oi), ("concat", ok)):
+        errs = {k: rel_err(ycl[k], o[k]) for k in ("h", "v")}
+        log(f"Cartesian fused ({label}) vs classic C{N}, 3 steps: max rel "
+            f"diff h {errs['h']:.3e}, v {errs['v']:.3e} (tol "
+            f"{FUSED_VS_CLASSIC_TOL:g})")
+        if max(errs.values()) > FUSED_VS_CLASSIC_TOL:
+            raise RuntimeError(f"Cartesian fused ({label}) step disagrees "
+                               "with the classic path")
+    del yi, yk, ycl, oi, ok
+
+    # ---- 21. main path: 20 + 2 000 in-kernel steps, launches, gate --------
+    Ink.launches = 0
+    y, t = integrate(step, ye, 0.0, WARM_STEPS, STEP_DT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, t = integrate(step, y, t, TIMED_STEPS, STEP_DT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = Ink.launches
+    if launches != 3 * (WARM_STEPS + TIMED_STEPS):
+        raise RuntimeError(f"in-kernel stage launches {launches} != 3 x "
+                           f"{WARM_STEPS + TIMED_STEPS} steps")
+    tc5_gate("Cartesian in-kernel", grid, s0, model.restrict_state(y)["h"],
+             t / 86400.0)
+    step_us = wall / TIMED_STEPS * 1e6
+    log(f"main path C{N} TC5 Cartesian in-kernel dt={STEP_DT:g}: "
+        f"{TIMED_STEPS} steps in {wall:.3f} s -> {TIMED_STEPS / wall:.1f} "
+        f"steps/s, {step_us:.1f} us/step, "
+        f"{TIMED_STEPS / wall * STEP_DT / 86400.0:.3f} sim-days/s; stage "
+        f"launches {launches} = 3 x {WARM_STEPS + TIMED_STEPS}; card {card}")
+    g = route(y["sh_sn"], y["sh_we"], y["sv_sn"], y["sv_we"])
+    a1 = (y["h"], y["v"], g, b)
+    a2 = (y["h"], y["v"]) + a1
+    rec_ink = kernel_record(
+        "swe_stage_inkernel", "jaxstream_torch/csrc/swe_stage_inkernel.cu",
+        "jaxstream/ops/pallas/swe_step.py:424", launches, max_ink,
+        [("Cartesian in-kernel stage 1", st1, st1.reference, a1),
+         ("Cartesian in-kernel stage 2", st2, st2.reference, a2),
+         ("Cartesian in-kernel stage 3", st3, st3.reference, a2)],
+        SWE_STAGE_FLOPS_PER_CELL, card)
+    r_ms = event_ms(lambda: route(y["sh_sn"], y["sh_we"], y["sv_sn"],
+                                  y["sv_we"]), 200)
+    stages_us = 3e3 * rec_ink["ms"]
+    log(f"Cartesian in-kernel step {step_us:.1f} us = routes 3 x "
+        f"{r_ms * 1e3:.2f} us + stage kernels {stages_us:.1f} us + "
+        f"{step_us - stages_us - 3e3 * r_ms:.1f} us other; card {card}")
+    device_busy(lambda: integrate(step, y, t, PROFILED_STEPS, STEP_DT),
+                PROFILED_STEPS, step_us, card, ("swe_stage_inkernel_kernel",))
+
+    # The concat form: a timed window from the same state, its launches.
+    yk = model.extend_state(model.restrict_state(y))
+    Cat.launches = 0
+    yk, _ = integrate(step_c, yk, t, WARM_STEPS, STEP_DT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    yk, _ = integrate(step_c, yk, t, CART_CONCAT_STEPS, STEP_DT)
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    launches_c = Cat.launches
+    if launches_c != 3 * (WARM_STEPS + CART_CONCAT_STEPS):
+        raise RuntimeError(f"concat stage launches {launches_c} != 3 x "
+                           f"{WARM_STEPS + CART_CONCAT_STEPS} steps")
+    tc5_gate("Cartesian concat", grid, s0, model.restrict_state(yk)["h"],
+             (t + (WARM_STEPS + CART_CONCAT_STEPS) * STEP_DT) / 86400.0)
+    cat_us = wall_c / CART_CONCAT_STEPS * 1e6
+    hk, vk = ex(yk["h"]), ex(yk["v"])
+    b1 = (hk, vk, b)
+    b2 = (hk, vk) + b1
+    rec_cat = kernel_record(
+        "swe_stage", "jaxstream_torch/csrc/swe_stage.cu",
+        "jaxstream/ops/pallas/swe_step.py:147", launches_c, max_cat,
+        [("Cartesian concat stage 1", c1, c1.reference, b1),
+         ("Cartesian concat stage 2", c2, c2.reference, b2),
+         ("Cartesian concat stage 3", c3, c3.reference, b2)],
+        SWE_STAGE_FLOPS_PER_CELL, card)
+    x_ms = event_ms(lambda: (ex(yk["h"]), ex(yk["v"])), 200)
+    k_us = 3e3 * rec_cat["ms"]
+    log(f"main path C{N} TC5 Cartesian concat dt={STEP_DT:g}: "
+        f"{CART_CONCAT_STEPS} steps in {wall_c:.3f} s -> "
+        f"{CART_CONCAT_STEPS / wall_c:.1f} steps/s; step {cat_us:.1f} us = "
+        f"exchanges 3 x {x_ms * 1e3:.2f} us + stage kernels {k_us:.1f} us + "
+        f"{cat_us - k_us - 3e3 * x_ms:.1f} us other; launches {launches_c} "
+        f"= 3 x {WARM_STEPS + CART_CONCAT_STEPS}; card {card}")
+
+    # ---- 22. Cartesian in-kernel vs covariant compact, in turns ---------
+    paired_rates({"cartesian": (step, y), "covariant": (cov_step, cov_y)},
+                 t, PAIRED_STEPS, card)
+    return [rec_ink, rec_cat]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on "
@@ -890,6 +1187,7 @@ def main() -> int:
     from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
                                         EARTH_RADIUS)
     from jaxstream_torch.geometry.cubed_sphere import build_grid
+    from jaxstream_torch.models.shallow_water import ShallowWater
     from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
     from jaxstream_torch.ops.cuda import swe_cov
     from jaxstream_torch.physics.initial_conditions import williamson_tc5
@@ -1017,6 +1315,12 @@ def main() -> int:
     del gal, ysplit
     rhs_record = pallas_rhs_path(card, grid, model, b_ext, s0)
     ext_record = extended_path(card, grid, model, step, s0)
+    cart = ShallowWater(grid, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA,
+                        b_ext=b_ext)
+    cs0 = cart.initial_state(h_ext, v_ext)
+    cart_records = [cartesian_rhs_path(card, grid, b_ext, cs0, cart)]
+    cart_records += cartesian_fused_path(card, grid, b_ext, cs0, cart, step,
+                                         y)
     # The same TC5 route again: host drift across the run, apart from any
     # cost of the Galewsky paths themselves.
     r2_ms = event_ms(lambda: route(y["strips_sn"], y["strips_we"]), 200)
@@ -1026,7 +1330,7 @@ def main() -> int:
         "builds included")
 
     report = {"kernels": [stage_record, filter_record, refused_record]
-              + pair_records + [rhs_record, ext_record]}
+              + pair_records + [rhs_record, ext_record] + cart_records}
     log(json.dumps(report))
     log(card)
     log(json.dumps({"ok": True, "device": {

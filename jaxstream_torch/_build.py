@@ -33,7 +33,10 @@ KERNELS = {"cov_stage": "cov_stage.cu",
            "cov_stage_refused_nu4": "cov_stage_refused_nu4.cu",
            "cov_stage_nu4": "cov_stage_nu4.cu",
            "cov_rhs": "cov_rhs.cu",
-           "cov_stage_inkernel": "cov_stage_inkernel.cu"}
+           "cov_stage_inkernel": "cov_stage_inkernel.cu",
+           "swe_rhs": "swe_rhs.cu",
+           "swe_stage": "swe_stage.cu",
+           "swe_stage_inkernel": "swe_stage_inkernel.cu"}
 
 # -fmad=false keeps every multiply and add separately rounded, as the
 # plain PyTorch version rounds them; the kernels are memory-bound, so

@@ -5,8 +5,14 @@ tensors with the same layouts (interior state ``{"h": (6, n, n),
 "u": (2, 6, n, n)}``, compact carry adds ``strips_sn (6, 6h, n)`` and
 ``strips_we (6, n, 6h)``, the filter-cycling carry adds ``filter_k``,
 the extended carry is ``{"h": (6, M, M), "u": (2, 6, M, M), "strips":
-(6, 12h, n)}``, extended fields such as ``b_ext`` ``(6, M, M)``).  The
-extended carry's ``strips`` is a plain array and crosses as one.
+(6, 12h, n)}``, extended fields such as ``b_ext`` ``(6, M, M)``; the
+Cartesian model's interior state ``{"h": (6, n, n), "v": (3, 6, n, n)}``,
+its extended carry ``{"h": (6, M, M), "v": (3, 6, M, M)}`` and its
+in-kernel-exchange carry, which adds ``"sh_sn" (6, 2, h, n)``,
+``"sh_we" (6, 2, n, h)``, ``"sv_sn" (3, 6, 2, h, n)`` and ``"sv_we"
+(3, 6, 2, n, h)``).  The strip carries are plain arrays and cross as
+such.  The models hold no weights: the grid, ``b_ext`` and the state are
+their whole input.
 Arrays cross as numpy, so neither package imports the other:
 :func:`to_torch` turns numpy arrays (or anything ``np.asarray`` accepts,
 such as a JAX array) into tensors on a device, :func:`to_numpy` turns

@@ -70,11 +70,11 @@ import ctypes
 import numpy as np
 import torch
 
-from ... import _build
 from ...geometry.connectivity import (EDGE_E, EDGE_N, EDGE_S, EDGE_W,
                                       build_connectivity, edge_pairs)
 from ...parallel.halo import _fill_corners
 from ..reconstruct import plr_face_states
+from ._launch import KernelBase, _P, _check_tensors, _entry, _ptr
 from .swe_rhs import _f32, _fast_frame, coord_rows
 
 __all__ = [
@@ -636,41 +636,6 @@ def cov_stage_compact_reference(stage, *args):
 # The stage: kernel wrapper
 # ---------------------------------------------------------------------------
 
-_P = ctypes.c_void_p
-
-
-def _ptr(t):
-    """A tensor's device pointer, or NULL for an operand a launch does not
-    read (a stage-1 kernel's y0)."""
-    return None if t is None else t.data_ptr()
-
-
-def _entry(lib_name: str, fn_name: str, argtypes):
-    """A built kernel library's C entry point (built at first use)."""
-    fn = getattr(_build.load(lib_name), fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _check_tensors(want, device):
-    """Validate ``{name: (tensor, shape)}`` before pointers are passed:
-    float32, contiguous, the expected shape, on ``device``."""
-    for name, (t, shape) in want.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a tensor, got {type(t)}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: expected float32, got {t.dtype}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}; this kernel was "
-                             f"built for {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
 
 def _kernel():
     """The stage kernel: 14 tensor pointers; n, halo, with_y0; 8 float
@@ -680,10 +645,9 @@ def _kernel():
                   + [_P])
 
 
-class _RhsBase:
+class _RhsBase(KernelBase):
     """Float32 constants, coordinate rows and face frames of the covariant
-    right-hand side, and what every kernel wrapper of this module shares:
-    the device test and the stream."""
+    right-hand side: what every kernel wrapper of this module shares."""
 
     def __init__(self, n: int, halo: int, dalpha: float, radius: float,
                  gravity: float, omega: float, scheme: str = "plr",
@@ -722,19 +686,6 @@ class _RhsBase:
             sym_we, n=self.n, halo=self.halo, d=self.dalpha,
             radius=self.radius, gravity=self.gravity, omega=self.omega,
             limiter=self.limiter, sym_prescaled=sym_prescaled)
-
-    @staticmethod
-    def _on_cuda(t):
-        """True for a CUDA tensor (launch the kernel), False for a CPU
-        tensor (run the plain version); raises for any other device."""
-        if t.device.type == "cpu":
-            return False
-        if t.device.type != "cuda":
-            raise ValueError(f"unsupported device {t.device}")
-        return True
-
-    def _stream(self):
-        return torch.cuda.current_stream(self.device).cuda_stream
 
 
 class _StageBase(_RhsBase):

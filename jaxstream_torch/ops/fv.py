@@ -1,6 +1,8 @@
-"""Finite-volume operators of the covariant shallow-water path.
+"""Finite-volume operators of the shallow-water models.
 
-Counterpart of the covariant subset of :mod:`jaxstream.ops.fv`.  The
+Counterpart of :mod:`jaxstream.ops.fv`: the covariant operators and the
+Cartesian-velocity ones (:func:`flux_divergence`, :func:`gradient`,
+:func:`vorticity`, :func:`kinetic_energy`).  The
 operators take extended fields ``(..., 6, M, M)`` whose ghosts have been
 filled and return interior-shaped results ``(..., 6, n, n)``; same
 stencils and operand order as the JAX package.  Together with the halo
@@ -22,6 +24,10 @@ from .reconstruct import _sl, plr_face_states
 
 __all__ = [
     "embed_interior",
+    "flux_divergence",
+    "gradient",
+    "vorticity",
+    "kinetic_energy",
     "contravariant",
     "covariant_components",
     "covariant_face_normal_velocity",
@@ -133,12 +139,45 @@ def _symmetrize_edge_fluxes(fx, fy, n):
     return fx, fy
 
 
+def _face_normal_velocity(grid: CubedSphereGrid, v):
+    """Contravariant normal velocity at the interior-bounding faces of a
+    Cartesian ``v`` (3, 6, M, M): ``ux`` = u^alpha at the n+1 x-faces of
+    each interior row (6, n, n+1), ``uy`` = u^beta at the y-faces
+    (6, n+1, n).  The cell-centered v is averaged to the face and dotted
+    with the face dual basis."""
+    h, n = grid.halo, grid.n
+    vxf = 0.5 * (_sl(v, h - 1, h + n, -1) + _sl(v, h, h + n + 1, -1))
+    vxf = _sl(vxf, h, h + n, -2)
+    aaxf = _sl(_sl(grid.a_a_xf, h, h + n + 1, -1), h, h + n, -2)
+    ux = torch.sum(vxf * aaxf, dim=0)
+    vyf = 0.5 * (_sl(v, h - 1, h + n, -2) + _sl(v, h, h + n + 1, -2))
+    vyf = _sl(vyf, h, h + n, -1)
+    abyf = _sl(_sl(grid.a_b_yf, h, h + n + 1, -2), h, h + n, -1)
+    uy = torch.sum(vyf * abyf, dim=0)
+    return ux, uy
+
+
+def flux_divergence(grid: CubedSphereGrid, q, v, scheme: str = "plr",
+                    limiter: str = "mc", conservative_edges: bool = False):
+    """Divergence of the advective flux ``div(q v)`` of a Cartesian
+    velocity ``v`` (3, 6, M, M) on interior cells; ``q`` (6, M, M).
+    ``conservative_edges`` also averages the two panels' edge fluxes
+    (:func:`_symmetrize_edge_fluxes`).  Returns (6, n, n)."""
+    ux, uy = _face_normal_velocity(grid, v)
+    return flux_divergence_faces(grid, q, ux, uy, scheme=scheme,
+                                 limiter=limiter,
+                                 conservative_edges=conservative_edges)
+
+
 def flux_divergence_faces(grid: CubedSphereGrid, q, ux, uy,
-                          scheme: str = "plr", limiter: str = "mc"):
+                          scheme: str = "plr", limiter: str = "mc",
+                          conservative_edges: bool = False):
     """Divergence of the upwind PLR flux ``div(q u)`` on interior cells.
 
     ``q``: (6, M, M) extended scalar; ``ux`` (6, n, n+1) / ``uy``
     (6, n+1, n) contravariant face-normal velocities.  Returns (6, n, n).
+    ``conservative_edges`` replaces both panels' edge fluxes with their
+    averaged outward value.
     """
     if scheme != "plr":
         raise NotImplementedError(
@@ -156,9 +195,42 @@ def flux_divergence_faces(grid: CubedSphereGrid, q, ux, uy,
     sgy = _sl(_sl(grid.sqrtg_yf, h, h + n + 1, -2), h, h + n, -1)
     fy = sgy * (torch.clamp(uy, min=0.0) * qL + torch.clamp(uy, max=0.0) * qR)
 
+    if conservative_edges:
+        fx, fy = _symmetrize_edge_fluxes(fx, fy, n)
+
     sg_c = grid.interior(grid.sqrtg)
     return ((_sl(fx, 1, None, -1) - _sl(fx, 0, -1, -1))
             + (_sl(fy, 1, None, -2) - _sl(fy, 0, -1, -2))) / (sg_c * d)
+
+
+def gradient(grid: CubedSphereGrid, psi):
+    """Tangent-plane gradient of a scalar as a Cartesian 3-vector:
+    ``psi`` (6, M, M) extended -> (3, 6, n, n); centered differences."""
+    h, n, d = grid.halo, grid.n, grid.dalpha
+    dpa = (_sl(_sl(psi, h + 1, h + n + 1, -1), h, h + n, -2)
+           - _sl(_sl(psi, h - 1, h + n - 1, -1), h, h + n, -2)) / (2 * d)
+    dpb = (_sl(_sl(psi, h + 1, h + n + 1, -2), h, h + n, -1)
+           - _sl(_sl(psi, h - 1, h + n - 1, -2), h, h + n, -1)) / (2 * d)
+    return grid.interior(grid.a_a) * dpa + grid.interior(grid.a_b) * dpb
+
+
+def vorticity(grid: CubedSphereGrid, v):
+    """Radial relative vorticity of a Cartesian ``v`` (3, 6, M, M) on
+    interior cells: ``(d v_beta/d alpha - d v_alpha/d beta) / sqrtg`` with
+    the covariant components ``v . e_alpha``; (6, n, n)."""
+    h, n, d = grid.halo, grid.n, grid.dalpha
+    va = torch.sum(v * grid.e_a, dim=0)
+    vb = torch.sum(v * grid.e_b, dim=0)
+    dvb_da = (_sl(_sl(vb, h + 1, h + n + 1, -1), h, h + n, -2)
+              - _sl(_sl(vb, h - 1, h + n - 1, -1), h, h + n, -2)) / (2 * d)
+    dva_db = (_sl(_sl(va, h + 1, h + n + 1, -2), h, h + n, -1)
+              - _sl(_sl(va, h - 1, h + n - 1, -2), h, h + n, -1)) / (2 * d)
+    return (dvb_da - dva_db) / grid.interior(grid.sqrtg)
+
+
+def kinetic_energy(v):
+    """``|v|^2 / 2`` of a Cartesian vector field (any trailing shape)."""
+    return 0.5 * torch.sum(v * v, dim=0)
 
 
 def laplacian(grid: CubedSphereGrid, psi):

@@ -9,6 +9,13 @@ numpy index arrays) and applied as ``index_select`` — the same values,
 copied bit for bit.  The h-by-h ghost corners are then filled by
 edge-ghost averaging (:func:`_fill_corners`), as in the JAX package.
 
+:func:`make_concat_exchanger` is the JAX package's concat-layout
+exchanger, value for value the same exchange (same strips, same corner
+averaging); on one device the port builds it on the same gather.
+:func:`canonicalize_strip` and :func:`place_strip` are the per-edge frame
+transforms of a raw boundary slice and of a ghost block, shared with the
+Cartesian fused stepper's strip router.
+
 Field layout: ``(..., 6, M, M)``; leading axes are carried through.
 """
 
@@ -22,7 +29,39 @@ import torch
 from ..geometry.connectivity import (EDGE_E, EDGE_N, EDGE_S, EDGE_W,
                                      build_connectivity)
 
-__all__ = ["read_strip", "write_strip", "make_halo_exchanger"]
+__all__ = ["canonicalize_strip", "place_strip", "read_strip", "write_strip",
+           "make_halo_exchanger", "make_concat_exchanger"]
+
+
+def canonicalize_strip(edge: int, raw):
+    """Raw boundary slice -> canonical ``(..., halo, n)`` strip: the
+    per-edge frame of :func:`read_strip` applied to an already-sliced raw
+    strip (S/N row blocks ``(..., halo, n)``, W/E column blocks ``(...,
+    n, halo)``)."""
+    if edge == EDGE_S:
+        return raw
+    if edge == EDGE_N:
+        return torch.flip(raw, dims=[-2])
+    if edge == EDGE_W:
+        return torch.transpose(raw, -1, -2)
+    if edge == EDGE_E:
+        return torch.transpose(torch.flip(raw, dims=[-1]), -1, -2)
+    raise ValueError(edge)
+
+
+def place_strip(edge: int, strip):
+    """Canonical ``(..., halo, n)`` strip -> the ghost-ring block as it is
+    written: S flips depth, N is the identity, W/E transpose to ``(...,
+    n, halo)`` column blocks (the inverse frame of :func:`read_strip`)."""
+    if edge == EDGE_S:
+        return torch.flip(strip, dims=[-2])
+    if edge == EDGE_N:
+        return strip
+    if edge == EDGE_W:
+        return torch.flip(torch.transpose(strip, -1, -2), dims=[-1])
+    if edge == EDGE_E:
+        return torch.transpose(strip, -1, -2)
+    raise ValueError(edge)
 
 
 def read_strip(field: np.ndarray, face: int, edge: int, halo: int, n: int):
@@ -116,3 +155,12 @@ def make_halo_exchanger(n: int, halo: int,
         return _fill_corners(out, halo, n) if fill_corners else out
 
     return exchange
+
+
+
+def make_concat_exchanger(n: int, halo: int) -> Callable:
+    """The JAX package's concat-layout exchanger (each face rebuilt from
+    its interior and the placed neighbour strips, corners averaged from
+    the edge ghosts): value for value :func:`make_halo_exchanger`'s
+    exchange, which it is."""
+    return make_halo_exchanger(n, halo)

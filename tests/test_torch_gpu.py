@@ -11,8 +11,11 @@ import torch
 
 from jaxstream_torch.config import EARTH_GRAVITY, EARTH_OMEGA, EARTH_RADIUS
 from jaxstream_torch.geometry.cubed_sphere import build_grid
+from jaxstream_torch.models.shallow_water import ShallowWater
 from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
 from jaxstream_torch.ops.cuda import swe_cov as tcov
+from jaxstream_torch.ops.cuda import swe_rhs as tsr
+from jaxstream_torch.ops.cuda import swe_step as tss
 from jaxstream_torch.physics.initial_conditions import (galewsky,
                                                         williamson_tc5)
 
@@ -248,3 +251,70 @@ def test_stage_inkernel_matches_plain_c48():
         _check(f"case {k}", st, st.reference,
                base + yc + (ghosts, m.b_ext), TOL if k < 3 else TENDENCY_TOL)
         assert tcov.CovStageInkernel.launches == before + 1
+
+
+def _cart_c48():
+    """The Cartesian TC5 model at C48 (backend 'pallas'), its state, and
+    the state after one in-kernel fused step."""
+    g = build_grid(48, halo=2, radius=EARTH_RADIUS, device="cuda")
+    h, v, b = williamson_tc5(g, EARTH_GRAVITY, EARTH_OMEGA)
+    m = ShallowWater(g, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA, b_ext=b,
+                     backend="pallas")
+    s0 = m.initial_state(h, v)
+    step = m.make_fused_step(75.0 * 384 / 48)
+    return g, m, s0, step, step(m.extend_state(s0, with_strips=True), 0.0)
+
+
+@pytest.mark.gpu
+def test_swe_rhs_kernel_matches_plain_c48():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the Cartesian RHS kernel has no "
+                    "CPU form)")
+    g, m, s0, step, y1 = _cart_c48()
+    kern = m._pallas_rhs
+    before = tsr.SweRhs.launches
+    # The initial state and the state after a step (TC5's initial wind
+    # has a zero z-component, which hides some operation orders).
+    for s in (s0, m.restrict_state(y1)):
+        _check("swe rhs", kern, kern.reference,
+               (m.fill(s["h"]), m.fill(s["v"]), m.b_ext), TOL)
+    assert tsr.SweRhs.launches == before + 2
+
+
+@pytest.mark.gpu
+def test_swe_stage_kernels_match_plain_c48():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the Cartesian stage kernels have "
+                    "no CPU form)")
+    g, m, s0, step, y1 = _cart_c48()
+    dt = 75.0 * 384 / 48
+    y0 = (m.fill(s0["h"]), m.fill(s0["v"]))
+    s1 = m.restrict_state(y1)
+    yc = (m.fill(s1["h"]), m.fill(s1["v"]))
+    ghosts = step.route(y1["sh_sn"], y1["sh_we"], y1["sv_sn"], y1["sv_we"])
+    ink = (y1["h"], y1["v"])
+    # Stages 1-3, the general core in stage 2, and stage 3 with y0 =
+    # -2*yc: the interiors are the scaled tendency g*L alone.
+    for k, (a, b) in enumerate(tss.SSPRK3_COEFFS + (tss.SSPRK3_COEFFS[1],
+                                                    tss.SSPRK3_COEFFS[2])):
+        fast = k != 3
+        base = () if a == 0.0 else y0
+        if k == 4:
+            base = (-2.0 * yc[0], -2.0 * yc[1])
+        tol = TENDENCY_TOL if k == 4 else TOL
+        st = tss.make_swe_stage_pallas(g.n, g.halo, g.dalpha, g.radius,
+                                       EARTH_GRAVITY, EARTH_OMEGA, dt, a, b,
+                                       fast=fast, device=g.device)
+        before = tss.SweStage.launches
+        _check(f"concat stage {k}", st, st.reference,
+               base + yc + (m.b_ext,), tol)
+        assert tss.SweStage.launches == before + 1
+        if k == 4:
+            base = (-2.0 * ink[0], -2.0 * ink[1])
+        st = tss.make_swe_stage_inkernel(g.n, g.halo, g.dalpha, g.radius,
+                                         EARTH_GRAVITY, EARTH_OMEGA, dt, a,
+                                         b, fast=fast, device=g.device)
+        before = tss.SweStageInkernel.launches
+        _check(f"in-kernel stage {k}", st, st.reference,
+               base + ink + (ghosts, m.b_ext), tol)
+        assert tss.SweStageInkernel.launches == before + 1

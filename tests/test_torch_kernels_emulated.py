@@ -29,8 +29,12 @@ import torch
 from jaxstream_torch import _build
 from jaxstream_torch.config import EARTH_GRAVITY, EARTH_OMEGA, EARTH_RADIUS
 from jaxstream_torch.geometry.cubed_sphere import build_grid
+from jaxstream_torch.models.shallow_water import ShallowWater
 from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
+from jaxstream_torch.ops.cuda import _launch
 from jaxstream_torch.ops.cuda import swe_cov as tsc
+from jaxstream_torch.ops.cuda import swe_rhs as tsr
+from jaxstream_torch.ops.cuda import swe_step as tss
 from jaxstream_torch.physics.initial_conditions import galewsky, williamson_tc5
 
 N = 40
@@ -114,9 +118,9 @@ def launch_on_cpu(emulated, monkeypatch):
     tensors."""
     monkeypatch.setattr(_build, "load",
                         lambda name: ctypes.CDLL(str(emulated[name])))
-    monkeypatch.setattr(tsc._RhsBase, "_on_cuda",
+    monkeypatch.setattr(_launch.KernelBase, "_on_cuda",
                         staticmethod(lambda t: True))
-    monkeypatch.setattr(tsc._RhsBase, "_stream", lambda self: None)
+    monkeypatch.setattr(_launch.KernelBase, "_stream", lambda self: None)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(
                             cuda_stream=None))
@@ -240,3 +244,65 @@ def test_stage_inkernel_kernel_source(launch_on_cpu, tc5_c40, stage):
     before = tsc.CovStageInkernel.launches
     _equal(st(*args), st.reference(*args))
     assert tsc.CovStageInkernel.launches == before + 1
+
+
+@pytest.fixture(scope="module")
+def cart_c40():
+    """The C40 Cartesian TC5 model (backend 'pallas'), its state, the
+    state's filled frames, and the in-kernel carry after one step."""
+    g = build_grid(N, halo=2, radius=EARTH_RADIUS, device="cpu")
+    h, v, b = williamson_tc5(g, G, OM)
+    m = ShallowWater(g, gravity=G, omega=OM, b_ext=b, backend="pallas")
+    s0 = m.initial_state(h, v)
+    step = m.make_fused_step(75.0 * 384 / N)
+    y1 = step(m.extend_state(s0, with_strips=True), 0.0)
+    return g, m, s0, m.fill(s0["h"]), m.fill(s0["v"]), step, y1
+
+
+def test_swe_rhs_kernel_source(launch_on_cpu, cart_c40):
+    g, m, s0, h_ext, v_ext, step, y1 = cart_c40
+    kern = m._pallas_rhs
+    # The state after a step: TC5's initial wind has a zero z-component.
+    s1 = m.restrict_state(y1)
+    h1, v1 = m.fill(s1["h"]), m.fill(s1["v"])
+    before = tsr.SweRhs.launches
+    _equal(kern(h1, v1, m.b_ext), kern.reference(h1, v1, m.b_ext))
+    # The kernel-backed classic rhs launches it once per call.
+    m.rhs(s1, 0.0)
+    assert tsr.SweRhs.launches == before + 2
+
+
+@pytest.mark.parametrize("stage, fast", [(0, True), (1, True), (2, True),
+                                         (1, False)],
+                         ids=["stage1", "stage2", "stage3", "stage2-general"])
+def test_swe_stage_kernel_source(launch_on_cpu, cart_c40, stage, fast):
+    g, m, s0, h_ext, v_ext, step, y1 = cart_c40
+    a, b = tss.SSPRK3_COEFFS[stage]
+    st = tss.make_swe_stage_pallas(g.n, g.halo, g.dalpha, g.radius, G, OM,
+                                   75.0 * 384 / N, a, b, fast=fast,
+                                   device="cpu")
+    ex = m.fill
+    hc, vc = ex(m.restrict_state(y1)["h"]), ex(m.restrict_state(y1)["v"])
+    args = (hc, vc, m.b_ext) if a == 0.0 else (h_ext, v_ext, hc, vc, m.b_ext)
+    before = tss.SweStage.launches
+    _equal(st(*args), st.reference(*args))
+    assert tss.SweStage.launches == before + 1
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2], ids=["stage1", "stage2",
+                                                   "stage3"])
+def test_swe_stage_inkernel_kernel_source(launch_on_cpu, cart_c40, stage):
+    g, m, s0, h_ext, v_ext, step, y1 = cart_c40
+    # Ghost corners the stage must carry through: the halo exchanger's.
+    hc, vc = y1["h"].clone(), y1["v"].clone()
+    for q, full in ((hc, h_ext), (vc, v_ext)):
+        for c in ((slice(0, 2), slice(0, 2)), (slice(-2, None),) * 2):
+            q[(...,) + c] = full[(...,) + c]
+    st = step.stages[stage]
+    ghosts = step.route(y1["sh_sn"], y1["sh_we"], y1["sv_sn"], y1["sv_we"])
+    args = (hc, vc, ghosts, m.b_ext)
+    if st.with_y0:
+        args = (h_ext, v_ext) + args
+    before = tss.SweStageInkernel.launches
+    _equal(st(*args), st.reference(*args))
+    assert tss.SweStageInkernel.launches == before + 1
