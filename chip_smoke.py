@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Nine paths, all at C384, halo 2, float32, PLR + MC, through the port's
+Eleven paths, all at C384, halo 2, float32, PLR + MC, through the port's
 entry points (``CovariantShallowWater`` and ``ShallowWater``,
-``make_fused_step`` and ``make_step``):
+``make_fused_step`` and ``make_step``, and the steppers of
+``jaxstream_torch.experiments``):
 
 * Williamson TC5 (flow over a mountain), dt = 75 s, stepped by the
   compact fused SSPRK3 stepper: per step three strip routes (torch ops)
@@ -33,7 +34,13 @@ entry points (``CovariantShallowWater`` and ``ShallowWater``,
   ``in_kernel_exchange=False``, per stage two halo exchanges and one
   launch of the fused stage kernel (``csrc/swe_stage.cu``); the classic
   SSPRK3 path, per RK stage two halo exchanges and one launch of the RHS
-  kernel (``csrc/swe_rhs.cu``).
+  kernel (``csrc/swe_rhs.cu``);
+* TC5 on the two router-free covariant steppers: the neighbour-read
+  stepper (``make_fused_ssprk3_cov_nbr``), three launches per step of
+  the stage kernel that fills its ghosts from the neighbour faces
+  (``csrc/cov_stage_nbr.cu``) and nothing else; the whole-step stepper
+  (``make_fused_ssprk3_cov_mega``), one cooperative launch per step
+  (``csrc/cov_step_mega.cu``) over the compact carry.
 
 Phases, each fatal on failure:
 
@@ -124,7 +131,27 @@ Phases, each fatal on failure:
     its launches checked, and the kernels' times against their bounds;
 22. 500-step windows of the Cartesian in-kernel and the covariant
     compact steppers in turns (Cartesian, covariant, covariant,
-    Cartesian).
+    Cartesian);
+23. the neighbour-read stage kernel against its plain version as stages
+    1, 2 and 3 on the TC5 state and on the state after 300 steps (whole
+    blocks, <= 1e-5) and as stage 3 with y0 = -2 yc (<= 1e-4); then three
+    neighbour-read steps against three classic steps and three compact
+    steps (<= 2e-4: its edge normals take the closed-form metric, not
+    the routers' stored one);
+24. 20 + 2 000 neighbour-read steps of TC5 gated, the launches checked
+    against 3 x steps, the breakdown (3 stage launches, the rest), the
+    kernel's times against its bounds and a traced window;
+25. the whole-step kernel against its plain version, one step from the
+    TC5 state and one from the state after 300 steps (all four carry
+    fields, <= 1e-5), then three whole steps against three compact steps
+    (<= 1e-6, ``tests/test_cov_swe.py:533``'s budget; bitwise
+    predicted);
+26. 20 + 2 000 whole steps of TC5 gated, the launches checked against
+    the steps, the kernel's time against two bounds (the carry read and
+    written once; the compact stepper's three stages' bytes) and a
+    traced window;
+27. 500-step windows of the compact, neighbour-read and whole-step
+    steppers in turns (compact, nbr, mega, mega, nbr, compact).
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -210,6 +237,11 @@ SWE_STAGE_FLOPS_PER_CELL = 380
 # predicted: the two differ only in the ghost corners, never read).
 INKERNEL_VS_CONCAT_TOL = 1e-6
 CART_CONCAT_STEPS = 500
+# The router-free covariant steppers: the states the kernels are checked
+# on after the TC5 state, and the whole-step stepper against the compact
+# one (tests/test_cov_swe.py:533's budget; bitwise predicted).
+ROUTER_FREE_CHECK_STEPS = 300
+MEGA_VS_COMPACT_TOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -337,24 +369,29 @@ def timed_window(label: str, step, y, t, nsteps: int, card: str):
 
 
 def paired_rates(runs: dict, t, nsteps: int, card: str) -> None:
-    """Steps/s of two steppers in turns A, B, B, A over ``nsteps`` steps
-    each; ``runs`` maps each name to its stepper and its carry.  The
-    host's speed drifts within a call, so only windows taken in turns
-    compare two steppers."""
+    """Steps/s of steppers in turns A, B, ..., ..., B, A over ``nsteps``
+    steps each; ``runs`` maps each name to its stepper and its carry.
+    The host's speed drifts within a call, so only windows taken in turns
+    compare two steppers; each is compared with the first."""
     from jaxstream_torch.stepping import integrate
 
-    (na, ra), (nb, rb) = runs.items()
-    rates = {na: [], nb: []}
-    for name, (step, y) in ((na, ra), (nb, rb), (nb, rb), (na, ra)):
+    names = list(runs)
+    turns = names + names[::-1]
+    rates = {k: [] for k in names}
+    for name in turns:
+        step, y = runs[name]
         t0 = time.perf_counter()
         integrate(step, y, t, nsteps, GAL_DT)
         torch.cuda.synchronize()
         rates[name].append(nsteps / (time.perf_counter() - t0))
     mean = {k: sum(v) / len(v) for k, v in rates.items()}
-    log(f"paired windows ({nsteps} steps each, in turns {na}, {nb}, {nb}, "
-        f"{na}): {na} " + ", ".join(f"{r:.1f}" for r in rates[na])
-        + f" steps/s; {nb} " + ", ".join(f"{r:.1f}" for r in rates[nb])
-        + f" steps/s; {nb}/{na} {mean[nb] / mean[na]:.3f}; card {card}")
+    first = names[0]
+    log(f"paired windows ({nsteps} steps each, in turns "
+        f"{', '.join(turns)}): "
+        + "; ".join(f"{k} " + ", ".join(f"{r:.1f}" for r in rates[k])
+                    + " steps/s" for k in names)
+        + "; " + ", ".join(f"{k}/{first} {mean[k] / mean[first]:.3f}"
+                           for k in names[1:]) + f"; card {card}")
 
 
 def kernel_record(name: str, source: str, replaces: str, launches: int,
@@ -1177,6 +1214,172 @@ def cartesian_fused_path(card: str, grid, b_ext, s0, ref, cov_step,
     return [rec_ink, rec_cat]
 
 
+def nbr_path(card: str, grid, model, step_c, s0, ref_step) -> tuple:
+    """Phases 23-24: TC5 on the neighbour-read stepper
+    (``experiments.swe_cov_nbr.make_fused_ssprk3_cov_nbr``).  Returns
+    the stage kernel's record and the stepper with its carry."""
+    from jaxstream_torch.experiments import swe_cov_nbr
+    from jaxstream_torch.stepping import integrate
+
+    Stage = swe_cov_nbr.CovStageNbr
+    step = swe_cov_nbr.make_fused_ssprk3_cov_nbr(
+        grid, model.gravity, model.omega, STEP_DT, model.b_ext)
+    st1, st2, st3 = step.stages
+    b = model.b_ext
+    count = lambda: Stage.launches
+
+    # ---- 23. kernel vs plain: stages 1-3 on two states, the probe --------
+    ye = model.extend_state(s0)
+    y300, _ = integrate(step, ye, 0.0, ROUTER_FREE_CHECK_STEPS, STEP_DT)
+    max_abs = 0.0
+    for label, y in (("TC5 state", ye),
+                     (f"after {ROUTER_FREE_CHECK_STEPS} steps", y300)):
+        a1 = (y["h"], y["u"], b)
+        k1 = st1.reference(*a1)
+        a2 = (y["h"], y["u"]) + tuple(k1) + (b,)
+        k2 = st2.reference(*a2)
+        a3 = (y["h"], y["u"]) + tuple(k2) + (b,)
+        for k, (st, a) in enumerate(((st1, a1), (st2, a2), (st3, a3))):
+            max_abs = max(max_abs, check_kernel(
+                f"nbr stage kernel vs plain C{N} stage {k + 1}, {label}",
+                st, st.reference, a, ("h", "u"), KERNEL_TOL, count))
+    # Stage 3 with y0 = -2*yc: the interiors are g*L(yc) alone.
+    a3p = (-2.0 * k2[0], -2.0 * k2[1]) + tuple(k2) + (b,)
+    max_abs = max(max_abs, check_kernel(
+        f"nbr stage kernel vs plain C{N} stage 3, y0=-2yc (interior g*L "
+        "alone)", st3, st3.reference, a3p, ("h", "u"), TENDENCY_TOL, count))
+    del y300, k1, k2
+    yn, _ = integrate(step, ye, 0.0, 3, STEP_DT)
+    out = model.restrict_state(yn)
+    yc, _ = integrate(step_c, model.compact_state(s0), 0.0, 3, STEP_DT)
+    ycl, _ = integrate(ref_step, s0, 0.0, 3, STEP_DT)
+    for label, other in (("classic", ycl), ("compact", yc)):
+        errs = {k: rel_err(other[k], out[k]) for k in ("h", "u")}
+        log(f"nbr vs {label} C{N}, 3 steps: max rel diff h {errs['h']:.3e}, "
+            f"u {errs['u']:.3e} (tol {FUSED_VS_CLASSIC_TOL:g}; the edge "
+            "normals' closed-form metric is not the routers' stored one)")
+        if max(errs.values()) > FUSED_VS_CLASSIC_TOL:
+            raise RuntimeError(f"nbr stepper disagrees with the {label} one")
+    del yn, yc, ycl, out
+
+    # ---- 24. main path: 20 + 2 000 nbr steps, launches, gate --------------
+    Stage.launches = 0
+    y, t = integrate(step, ye, 0.0, WARM_STEPS, STEP_DT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, t = integrate(step, y, t, TIMED_STEPS, STEP_DT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = Stage.launches
+    if launches != 3 * (WARM_STEPS + TIMED_STEPS):
+        raise RuntimeError(f"nbr stage launches {launches} != 3 x "
+                           f"{WARM_STEPS + TIMED_STEPS} steps")
+    tc5_gate("nbr", grid, s0, model.restrict_state(y)["h"], t / 86400.0)
+    step_us = wall / TIMED_STEPS * 1e6
+    log(f"main path C{N} TC5 nbr dt={STEP_DT:g}: {TIMED_STEPS} steps in "
+        f"{wall:.3f} s -> {TIMED_STEPS / wall:.1f} steps/s, {step_us:.1f} "
+        f"us/step, {TIMED_STEPS / wall * STEP_DT / 86400.0:.3f} "
+        f"sim-days/s; stage launches {launches} = 3 x "
+        f"{WARM_STEPS + TIMED_STEPS}; card {card}")
+    a1 = (y["h"], y["u"], b)
+    a2 = (y["h"], y["u"]) + a1
+    record = kernel_record(
+        "cov_stage_nbr", "jaxstream_torch/csrc/cov_stage_nbr.cu",
+        "jaxstream/experiments/swe_cov_nbr.py:404", launches, max_abs,
+        [("nbr stage 1", st1, st1.reference, a1),
+         ("nbr stage 2", st2, st2.reference, a2),
+         ("nbr stage 3", st3, st3.reference, a2)], FLOPS_PER_CELL, card)
+    stages_us = 3e3 * record["ms"]
+    log(f"nbr step {step_us:.1f} us = stage kernels 3 x "
+        f"{record['ms'] * 1e3:.2f} us + {step_us - stages_us:.1f} us other "
+        f"(no router); card {card}")
+    device_busy(lambda: integrate(step, y, t, PROFILED_STEPS, STEP_DT),
+                PROFILED_STEPS, step_us, card, ("cov_stage_nbr_kernel",))
+    return record, step, y
+
+
+def mega_path(card: str, grid, model, step_c, s0) -> tuple:
+    """Phases 25-26: TC5 on the whole-step stepper
+    (``experiments.swe_mega.make_fused_ssprk3_cov_mega``).  Returns the
+    kernel's record and the stepper with its carry."""
+    from jaxstream_torch.experiments import swe_mega
+    from jaxstream_torch.stepping import integrate
+
+    Mega = swe_mega.CovMegaStep
+    step = swe_mega.make_fused_ssprk3_cov_mega(
+        grid, model.gravity, model.omega, STEP_DT, model.b_ext)
+    kern = step.kernel
+    b = model.b_ext
+    names = ("h", "u", "strips_sn", "strips_we")
+    count = lambda: Mega.launches
+    carry = lambda y: (y["h"], y["u"], y["strips_sn"], y["strips_we"], b)
+
+    # ---- 25. kernel vs plain on two states; mega vs compact ---------------
+    yc0 = model.compact_state(s0)
+    y300, _ = integrate(step, yc0, 0.0, ROUTER_FREE_CHECK_STEPS, STEP_DT)
+    max_abs = 0.0
+    for label, y in (("the TC5 state", yc0),
+                     (f"the state after {ROUTER_FREE_CHECK_STEPS} steps",
+                      y300)):
+        max_abs = max(max_abs, check_kernel(
+            f"mega kernel vs plain C{N}, one step from {label}", kern,
+            kern.reference, carry(y), names, KERNEL_TOL, count))
+    log(f"mega kernel grid: {kern.blocks} blocks of 256 threads "
+        "(cooperative, all resident)")
+    del y300
+    ym, _ = integrate(step, yc0, 0.0, 3, STEP_DT)
+    yc, _ = integrate(step_c, yc0, 0.0, 3, STEP_DT)
+    errs = {k: rel_err(yc[k], ym[k]) for k in names}
+    bitwise = {k: torch.equal(yc[k], ym[k]) for k in names}
+    log(f"mega vs compact C{N}, 3 steps: max rel diff "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {MEGA_VS_COMPACT_TOL:g}); bitwise "
+        + ", ".join(f"{k} {v}" for k, v in bitwise.items()))
+    if max(errs.values()) > MEGA_VS_COMPACT_TOL:
+        raise RuntimeError("mega stepper disagrees with the compact one")
+    del ym, yc
+
+    # ---- 26. main path: 20 + 2 000 mega steps, launches, gate -------------
+    Mega.launches = 0
+    y, t = integrate(step, yc0, 0.0, WARM_STEPS, STEP_DT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, t = integrate(step, y, t, TIMED_STEPS, STEP_DT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = Mega.launches
+    if launches != WARM_STEPS + TIMED_STEPS:
+        raise RuntimeError(f"mega launches {launches} != "
+                           f"{WARM_STEPS + TIMED_STEPS} steps")
+    tc5_gate("mega", grid, s0, y["h"], t / 86400.0)
+    step_us = wall / TIMED_STEPS * 1e6
+    log(f"main path C{N} TC5 mega dt={STEP_DT:g}: {TIMED_STEPS} steps in "
+        f"{wall:.3f} s -> {TIMED_STEPS / wall:.1f} steps/s, {step_us:.1f} "
+        f"us/step, {TIMED_STEPS / wall * STEP_DT / 86400.0:.3f} "
+        f"sim-days/s; launches {launches} = {WARM_STEPS + TIMED_STEPS}; "
+        f"card {card}")
+    record = kernel_record(
+        "cov_step_mega", "jaxstream_torch/csrc/cov_step_mega.cu",
+        "jaxstream/experiments/swe_mega.py:344", launches, max_abs,
+        [("mega step", kern, kern.reference, carry(y))],
+        3 * FLOPS_PER_CELL, card)
+    # The other bound: the bytes of the compact stepper's three stages.
+    st1, st2, st3 = step_c.stages
+    gsn, gwe = step_c.route(y["strips_sn"], y["strips_we"])
+    s1 = (y["h"], y["u"], gsn, gwe, b)
+    s2 = (y["h"], y["u"]) + s1
+    staged = sum(bound_ms(a, st(*a), N, FLOPS_PER_CELL)[0]
+                 for st, a in ((st1, s1), (st2, s2), (st3, s2)))
+    k_ms, once = record["ms"], record["bound_ms"]
+    log(f"mega step {step_us:.1f} us = kernel {k_ms * 1e3:.2f} us + "
+        f"{step_us - k_ms * 1e3:.1f} us other; bounds: the carry once "
+        f"{once * 1e3:.2f} us ({once / k_ms:.1%}), the compact stages' "
+        f"bytes {staged * 1e3:.2f} us ({staged / k_ms:.1%}); card {card}")
+    device_busy(lambda: integrate(step, y, t, PROFILED_STEPS, STEP_DT),
+                PROFILED_STEPS, step_us, card, ("cov_step_mega_kernel",))
+    return record, step, y
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on "
@@ -1321,6 +1524,13 @@ def main() -> int:
     cart_records = [cartesian_rhs_path(card, grid, b_ext, cs0, cart)]
     cart_records += cartesian_fused_path(card, grid, b_ext, cs0, cart, step,
                                          y)
+    nbr_record, nbr_step, nbr_y = nbr_path(card, grid, model, step, s0,
+                                           model.make_step(STEP_DT))
+    mega_record, mega_step, mega_y = mega_path(card, grid, model, step, s0)
+
+    # ---- 27. compact, nbr and mega in turns -------------------------------
+    paired_rates({"compact": (step, y), "nbr": (nbr_step, nbr_y),
+                  "mega": (mega_step, mega_y)}, t, PAIRED_STEPS, card)
     # The same TC5 route again: host drift across the run, apart from any
     # cost of the Galewsky paths themselves.
     r2_ms = event_ms(lambda: route(y["strips_sn"], y["strips_we"]), 200)
@@ -1330,7 +1540,8 @@ def main() -> int:
         "builds included")
 
     report = {"kernels": [stage_record, filter_record, refused_record]
-              + pair_records + [rhs_record, ext_record] + cart_records}
+              + pair_records + [rhs_record, ext_record] + cart_records
+              + [mega_record, nbr_record]}
     log(json.dumps(report))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -34,6 +34,8 @@ KERNELS = {"cov_stage": "cov_stage.cu",
            "cov_stage_nu4": "cov_stage_nu4.cu",
            "cov_rhs": "cov_rhs.cu",
            "cov_stage_inkernel": "cov_stage_inkernel.cu",
+           "cov_stage_nbr": "cov_stage_nbr.cu",
+           "cov_step_mega": "cov_step_mega.cu",
            "swe_rhs": "swe_rhs.cu",
            "swe_stage": "swe_stage.cu",
            "swe_stage_inkernel": "swe_stage_inkernel.cu"}

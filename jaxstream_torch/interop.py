@@ -5,7 +5,9 @@ tensors with the same layouts (interior state ``{"h": (6, n, n),
 "u": (2, 6, n, n)}``, compact carry adds ``strips_sn (6, 6h, n)`` and
 ``strips_we (6, n, 6h)``, the filter-cycling carry adds ``filter_k``,
 the extended carry is ``{"h": (6, M, M), "u": (2, 6, M, M), "strips":
-(6, 12h, n)}``, extended fields such as ``b_ext`` ``(6, M, M)``; the
+(6, 12h, n)}``, the neighbour-read stepper's carry the same without the
+strips (``{"h": (6, M, M), "u": (2, 6, M, M)}``; the whole-step stepper's
+is the compact carry), extended fields such as ``b_ext`` ``(6, M, M)``; the
 Cartesian model's interior state ``{"h": (6, n, n), "v": (3, 6, n, n)}``,
 its extended carry ``{"h": (6, M, M), "v": (3, 6, M, M)}`` and its
 in-kernel-exchange carry, which adds ``"sh_sn" (6, 2, h, n)``,

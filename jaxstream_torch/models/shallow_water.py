@@ -32,6 +32,7 @@ import torch
 from ..geometry.cubed_sphere import CubedSphereGrid
 from ..ops.fv import (embed_interior, flux_divergence, gradient,
                       kinetic_energy, laplacian, vorticity)
+from ..ops.reconstruct import LIMITERS
 from .base import Model, State
 
 __all__ = ["SWEBase", "ShallowWater"]
@@ -61,6 +62,10 @@ class SWEBase(Model):
             raise NotImplementedError(
                 f"scheme={scheme!r}: only PLR is ported (PPM is ROADMAP "
                 "queue A item 1, ops/reconstruct.py)")
+        if limiter not in LIMITERS:
+            raise NotImplementedError(
+                f"limiter={limiter!r}: not ported (ROADMAP queue A item 1, "
+                "ops/reconstruct.py); available: " + ", ".join(LIMITERS))
         self.gravity = gravity
         self.omega = omega
         self.scheme = scheme

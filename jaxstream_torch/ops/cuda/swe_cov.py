@@ -8,7 +8,9 @@ Counterpart of the single-device paths of
   carry and the static row-gather + 2x2 covariant rotation + seam
   symmetrization that turn one stage's strips into the next stage's
   ghost blocks.  Plain torch index
-  ops, as the JAX package runs them as XLA ops.
+  ops, as the JAX package runs them as XLA ops.  Its core,
+  :class:`_SplitRoute`, also serves the whole-step stepper of
+  :mod:`jaxstream_torch.experiments.swe_mega`, without the prescale.
 * :class:`CovStageCompact`: one SSPRK3 stage over interior-only state.
   On CUDA tensors it launches the hand-written Hopper kernel
   ``csrc/cov_stage.cu`` (the port of the Pallas kernel
@@ -367,82 +369,77 @@ def pack_strips_cov_split(h_int, u_int, n: int, halo: int):
     return sn, we
 
 
-def make_cov_strip_router_split(grid):
-    """``route(strips_sn, strips_we) -> (gsn, gwe)``.
+class _SplitRoute:
+    """The split router without its last step: ``route(strips_sn,
+    strips_we, sym_scale=None) -> (gsn, gwe)`` with the sym rows as the
+    pair average leaves them, times ``sym_scale`` where one is given.
 
-    ``gsn`` ``(6, 6h+2, n)``: placed S/N ghost blocks per field plus the
-    two symmetrized S/N edge-normal rows; ``gwe`` ``(6, n, 6h+2)``: placed
-    W/E ghost columns plus the W/E sym columns.  Same algebra and operand
-    order as the JAX package's router with ``prescale_sym=True``: the sym
-    rows are multiplied by the static edge sqrtg, so the stage imposes
-    them as they are.
+    :func:`make_cov_strip_router_split` (sqrtg-prescaled sym rows) and
+    the whole-step stepper of :mod:`jaxstream_torch.experiments.swe_mega`
+    (un-prescaled) share it, and its static tables: ``idx`` the flat
+    source row of every routed row in ``[sn ; weT ; their lane flips]``
+    order (``n_sn`` S/N ghost rows (3, 6, 2, h), ``n_we`` W/E ghost rows,
+    then the (2, 6, 4) interior edge-adjacent u rows), ``T_sn``/``T_we``
+    the placed rotation tables (4, 6, 2, h, n) and ``sym_tables`` those
+    of :func:`_pair_sym_tables`.
     """
-    n, halo = grid.n, grid.halo
-    h = halo
-    dev = grid.device
-    adj = build_connectivity()
-    F = 2 * 6 * 6 * h          # sn section + weT section row count
 
-    def src_row(fi: int, g: int, e: int, depth: int) -> int:
-        """Flat source row of face g / edge e / field fi at canonical
-        ``depth`` (0 = nearest the edge), in [sn ; weT] order."""
-        kr = depth if e in (EDGE_S, EDGE_W) else h - 1 - depth
-        sec = 0 if e in (EDGE_S, EDGE_N) else 6 * 6 * h
-        pair = 0 if e in (EDGE_S, EDGE_W) else h
-        return sec + g * 6 * h + fi * 2 * h + pair + kr
+    def __init__(self, grid):
+        n, h = grid.n, grid.halo
+        self.n, self.halo = n, h
+        adj = build_connectivity()
+        F = 2 * 6 * 6 * h          # sn section + weT section row count
 
-    def ghost_idx(edges):
-        out = np.empty((3, 6, 2, h), np.int64)
-        for fi in range(3):
+        def src_row(fi: int, g: int, e: int, depth: int) -> int:
+            """Flat source row of face g / edge e / field fi at canonical
+            ``depth`` (0 = nearest the edge), in [sn ; weT] order."""
+            kr = depth if e in (EDGE_S, EDGE_W) else h - 1 - depth
+            sec = 0 if e in (EDGE_S, EDGE_N) else 6 * 6 * h
+            pair = 0 if e in (EDGE_S, EDGE_W) else h
+            return sec + g * 6 * h + fi * 2 * h + pair + kr
+
+        def ghost_idx(edges):
+            out = np.empty((3, 6, 2, h), np.int64)
+            for fi in range(3):
+                for f in range(6):
+                    for p, e in enumerate(edges):
+                        link = adj[f][e]
+                        for k in range(h):
+                            dep = (h - 1 - k) if e in (EDGE_S, EDGE_W) else k
+                            r = src_row(fi, link.nbr_face, link.nbr_edge, dep)
+                            out[fi, f, p, k] = r + (F if link.reversed_ else 0)
+            return out
+
+        idx_sn = ghost_idx((EDGE_S, EDGE_N))
+        idx_we = ghost_idx((EDGE_W, EDGE_E))
+        idx_int = np.empty((2, 6, 4), np.int64)
+        for c in range(2):
             for f in range(6):
-                for p, e in enumerate(edges):
-                    link = adj[f][e]
-                    for k in range(h):
-                        dep = (h - 1 - k) if e in (EDGE_S, EDGE_W) else k
-                        r = src_row(fi, link.nbr_face, link.nbr_edge, dep)
-                        out[fi, f, p, k] = r + (F if link.reversed_ else 0)
-        return out
+                for s, e in enumerate(_EORDER):
+                    idx_int[c, f, s] = src_row(1 + c, f, e, 0)
+        self.idx = torch.from_numpy(np.concatenate(
+            [idx_sn.reshape(-1), idx_we.reshape(-1), idx_int.reshape(-1)]
+        )).to(grid.device)
+        self.n_sn = idx_sn.size
+        self.n_we = idx_we.size
 
-    idx_sn = ghost_idx((EDGE_S, EDGE_N))
-    idx_we = ghost_idx((EDGE_W, EDGE_E))
-    idx_int = np.empty((2, 6, 4), np.int64)
-    for c in range(2):
-        for f in range(6):
-            for s, e in enumerate(_EORDER):
-                idx_int[c, f, s] = src_row(1 + c, f, e, 0)
-    idx_all = torch.from_numpy(np.concatenate(
-        [idx_sn.reshape(-1), idx_we.reshape(-1), idx_int.reshape(-1)])).to(dev)
-    n_sn = idx_sn.size
-    n_we = idx_we.size
+        # Placed rotation tables, split by orientation: (4, 6, 2, h, n).
+        Tc = _rotation_tables(grid)
+        self.T_sn = torch.stack([torch.flip(Tc[:, :, EDGE_S], dims=[-2]),
+                                 Tc[:, :, EDGE_N]], dim=2)
+        self.T_we = torch.stack([torch.flip(Tc[:, :, EDGE_W], dims=[-2]),
+                                 Tc[:, :, EDGE_E]], dim=2)
+        self.sym_tables = _pair_sym_tables(grid)
 
-    # Placed rotation tables, split by orientation: (4, 6, 2, h, n).
-    Tc = _rotation_tables(grid)
-    T_sn = torch.stack([torch.flip(Tc[:, :, EDGE_S], dims=[-2]),
-                        Tc[:, :, EDGE_N]], dim=2)
-    T_we = torch.stack([torch.flip(Tc[:, :, EDGE_W], dims=[-2]),
-                        Tc[:, :, EDGE_E]], dim=2)
-
-    sym_tables = _pair_sym_tables(grid)
-    adj_k = [h - 1, 0]          # placed edge-adjacent row: S/W flip, N/E not
-
-    # Static edge sqrtg rows in [S, N, W, E] order, identical for all
-    # faces, from the same closed forms the stage would evaluate.
-    x_row, xf_row, x_col, xf_col, _ = coord_rows(n, h, dev)
-    h0, h1 = h, h + n
-    r = float(grid.radius)
-    sgS = _fast_frame(x_row[:, h0:h1], xf_col[h0:h0 + 1], r)["sqrtg"]
-    sgN = _fast_frame(x_row[:, h0:h1], xf_col[h1:h1 + 1], r)["sqrtg"]
-    sgW = _fast_frame(xf_row[:, h0:h0 + 1], x_col[h0:h1], r)["sqrtg"]
-    sgE = _fast_frame(xf_row[:, h1:h1 + 1], x_col[h0:h1], r)["sqrtg"]
-    sym_scale = torch.stack([sgS.reshape(n), sgN.reshape(n),
-                             sgW.reshape(n), sgE.reshape(n)])[None]
-
-    def route(strips_sn, strips_we):
+    def __call__(self, strips_sn, strips_we, sym_scale=None):
+        n, h = self.n, self.halo
+        n_sn, n_we = self.n_sn, self.n_we
+        T_sn, T_we = self.T_sn, self.T_we
         s_src = torch.cat([strips_sn.reshape(6 * 6 * h, n),
                            strips_we.transpose(1, 2).reshape(6 * 6 * h, n)],
                           dim=0)
         s_all = torch.cat([s_src, torch.flip(s_src, dims=[-1])], dim=0)
-        rows = s_all.index_select(0, idx_all)
+        rows = s_all.index_select(0, self.idx)
         C_sn = rows[:n_sn].reshape(3, 6, 2, h, n)
         C_we = rows[n_sn:n_sn + n_we].reshape(3, 6, 2, h, n)
         I_u = rows[n_sn + n_we:].reshape(2, 6, 4, n)
@@ -454,19 +451,51 @@ def make_cov_strip_router_split(grid):
                 T_we[0] * C_we[1] + T_we[1] * C_we[2],
                 T_we[2] * C_we[1] + T_we[3] * C_we[2]]
 
-        gadj_a = torch.stack(
-            [G_sn[1][:, 0, adj_k[0]], G_sn[1][:, 1, adj_k[1]],
-             G_we[1][:, 0, adj_k[0]], G_we[1][:, 1, adj_k[1]]], dim=1)
-        gadj_b = torch.stack(
-            [G_sn[2][:, 0, adj_k[0]], G_sn[2][:, 1, adj_k[1]],
-             G_we[2][:, 0, adj_k[0]], G_we[2][:, 1, adj_k[1]]], dim=1)
-        sym = _pair_symmetrize(I_u, gadj_a, gadj_b, sym_tables) * sym_scale
+        # The placed edge-adjacent row: h-1 in the depth-flipped S/W
+        # blocks, 0 in N/E.
+        ka, kb = h - 1, 0
+        gadj_a = torch.stack([G_sn[1][:, 0, ka], G_sn[1][:, 1, kb],
+                              G_we[1][:, 0, ka], G_we[1][:, 1, kb]], dim=1)
+        gadj_b = torch.stack([G_sn[2][:, 0, ka], G_sn[2][:, 1, kb],
+                              G_we[2][:, 0, ka], G_we[2][:, 1, kb]], dim=1)
+        sym = _pair_symmetrize(I_u, gadj_a, gadj_b, self.sym_tables)
+        if sym_scale is not None:
+            sym = sym * sym_scale
 
         gsn = torch.cat([g.reshape(6, 2 * h, n) for g in G_sn]
                         + [sym[:, 0:2]], dim=1)
         gwe_rows = torch.cat([g.reshape(6, 2 * h, n) for g in G_we]
                              + [sym[:, 2:4]], dim=1)
         return gsn, gwe_rows.transpose(1, 2).contiguous()
+
+
+def make_cov_strip_router_split(grid):
+    """``route(strips_sn, strips_we) -> (gsn, gwe)``.
+
+    ``gsn`` ``(6, 6h+2, n)``: placed S/N ghost blocks per field plus the
+    two symmetrized S/N edge-normal rows; ``gwe`` ``(6, n, 6h+2)``: placed
+    W/E ghost columns plus the W/E sym columns.  Same algebra and operand
+    order as the JAX package's router with ``prescale_sym=True``: the sym
+    rows are multiplied by the static edge sqrtg, so the stage imposes
+    them as they are.
+    """
+    n, h = grid.n, grid.halo
+    core = _SplitRoute(grid)
+
+    # Static edge sqrtg rows in [S, N, W, E] order, identical for all
+    # faces, from the same closed forms the stage would evaluate.
+    x_row, xf_row, x_col, xf_col, _ = coord_rows(n, h, grid.device)
+    h0, h1 = h, h + n
+    r = float(grid.radius)
+    sgS = _fast_frame(x_row[:, h0:h1], xf_col[h0:h0 + 1], r)["sqrtg"]
+    sgN = _fast_frame(x_row[:, h0:h1], xf_col[h1:h1 + 1], r)["sqrtg"]
+    sgW = _fast_frame(xf_row[:, h0:h0 + 1], x_col[h0:h1], r)["sqrtg"]
+    sgE = _fast_frame(xf_row[:, h1:h1 + 1], x_col[h0:h1], r)["sqrtg"]
+    sym_scale = torch.stack([sgS.reshape(n), sgN.reshape(n),
+                             sgW.reshape(n), sgE.reshape(n)])[None]
+
+    def route(strips_sn, strips_we):
+        return core(strips_sn, strips_we, sym_scale)
 
     return route
 

@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from jaxstream_torch.config import EARTH_GRAVITY, EARTH_OMEGA, EARTH_RADIUS
+from jaxstream_torch.experiments import swe_cov_nbr as nbr
+from jaxstream_torch.experiments import swe_mega as mega
 from jaxstream_torch.geometry.cubed_sphere import build_grid
 from jaxstream_torch.models.shallow_water import ShallowWater
 from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
@@ -251,6 +253,48 @@ def test_stage_inkernel_matches_plain_c48():
         _check(f"case {k}", st, st.reference,
                base + yc + (ghosts, m.b_ext), TOL if k < 3 else TENDENCY_TOL)
         assert tcov.CovStageInkernel.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_stage_nbr_matches_plain_c48():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the neighbour-read stage kernel "
+                    "has no CPU form)")
+    g, m, s0 = _tc5_c48()
+    step = nbr.make_fused_ssprk3_cov_nbr(g, EARTH_GRAVITY, EARTH_OMEGA,
+                                         75.0 * 384 / 48, m.b_ext)
+    y0 = m.extend_state(s0)
+    y1 = step(y0, 0.0)
+    yc = (y1["h"], y1["u"])
+    base = (y0["h"], y0["u"])
+    # The last case is stage 3 with y0 = -2*yc: the interiors are the
+    # scaled tendency g*L alone.
+    cases = [(st, base if st.with_y0 else ()) for st in step.stages]
+    cases.append((step.stages[2], (-2.0 * yc[0], -2.0 * yc[1])))
+    for k, (st, b0) in enumerate(cases):
+        before = nbr.CovStageNbr.launches
+        _check(f"case {k}", st, st.reference, b0 + yc + (m.b_ext,),
+               TOL if k < 3 else TENDENCY_TOL)
+        assert nbr.CovStageNbr.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_step_mega_matches_plain_c48():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the whole-step kernel has no CPU "
+                    "form)")
+    g, m, s0 = _tc5_c48()
+    step = mega.make_fused_ssprk3_cov_mega(g, EARTH_GRAVITY, EARTH_OMEGA,
+                                           75.0 * 384 / 48, m.b_ext)
+    kern = step.kernel
+    y = m.compact_state(s0)
+    for k in range(2):             # the TC5 state, then after a step
+        args = (y["h"], y["u"], y["strips_sn"], y["strips_we"], m.b_ext)
+        before = mega.CovMegaStep.launches
+        _check(f"step {k}", kern, kern.reference, args, TOL)
+        assert mega.CovMegaStep.launches == before + 1
+        assert kern.blocks >= 1
+        y = step(y, 0.0)
 
 
 def _cart_c48():

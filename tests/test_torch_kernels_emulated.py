@@ -4,11 +4,16 @@ The kernels under ``jaxstream_torch/csrc/`` are compiled here by the host
 C++ compiler (g++) instead of nvcc, through a small stand-in for
 ``cuda_runtime.h``: ``__shared__`` arrays become statics, each block runs
 as 256 host threads with a real barrier for ``__syncthreads``, and blocks
-run one after another.  The wrappers' launch path then runs unchanged on
-CPU tensors.  This checks what the sources compute (indexing, aprons, tile
-seams, ragged edges, op order) at C40, where a face has 2 x 3 tiles with
-ragged last ones; it says nothing of how they run on a GPU, which the
-``gpu``-marked tests and ``chip_smoke.py`` check on the card.
+run one after another.  A cooperative launch (the whole-step kernel's,
+``cudaLaunchCooperativeKernel``) runs all its blocks' threads at once
+instead, each block with its own barrier and its own arena for the
+dynamic shared memory, and ``this_grid().sync()`` waits on a grid-wide
+barrier; the stand-in occupancy API gives a grid of 5 blocks.  The
+wrappers' launch path then runs unchanged on CPU tensors.  This checks
+what the sources compute (indexing, aprons, tile seams, ragged edges, op
+order) at C40, where a face has 2 x 3 tiles with ragged last ones; it
+says nothing of how they run on a GPU, which the ``gpu``-marked tests and
+``chip_smoke.py`` check on the card.
 
 With ``-ffp-contract=off`` the host rounds every multiply and add
 separately, as the kernels' ``-fmad=false`` builds do, so the outputs are
@@ -28,6 +33,8 @@ import torch
 
 from jaxstream_torch import _build
 from jaxstream_torch.config import EARTH_GRAVITY, EARTH_OMEGA, EARTH_RADIUS
+from jaxstream_torch.experiments import swe_cov_nbr as nbr
+from jaxstream_torch.experiments import swe_mega as mega
 from jaxstream_torch.geometry.cubed_sphere import build_grid
 from jaxstream_torch.models.shallow_water import ShallowWater
 from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
@@ -58,30 +65,92 @@ struct dim3 {
 };
 struct emu_idx { unsigned x, y, z; };
 inline thread_local emu_idx threadIdx, blockIdx;
+inline thread_local emu_idx blockDim, gridDim;
 typedef void* cudaStream_t;
+typedef int cudaError_t;
+constexpr int cudaSuccess = 0;
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 inline int cudaGetLastError() { return 0; }
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 5;
+  return 0;
+}
+template <class F>
+int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* nb, F, int, size_t) {
+  *nb = 1;
+  return 0;
+}
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
-inline pthread_barrier_t emu_barrier;
-inline void __syncthreads() { pthread_barrier_wait(&emu_barrier); }
+inline float __ldcg(const float* p) { return *p; }
+inline thread_local pthread_barrier_t* emu_block_barrier;
+inline thread_local void* emu_dyn_smem;
+inline pthread_barrier_t emu_grid_barrier;
+inline void __syncthreads() { pthread_barrier_wait(emu_block_barrier); }
 template <class K, class P>
 void emu_launch(K kernel, dim3 grid, dim3 block, const P& p) {
   const unsigned nt = block.x * block.y * block.z;
+  pthread_barrier_t bar;
   for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x; ++bx) {
-        pthread_barrier_init(&emu_barrier, nullptr, nt);
+        pthread_barrier_init(&bar, nullptr, nt);
         std::vector<std::thread> ts;
         for (unsigned t = 0; t < nt; ++t)
-          ts.emplace_back([=, &p]() {
+          ts.emplace_back([=, &p, &bar]() {
             threadIdx = {t % block.x, (t / block.x) % block.y,
                          t / (block.x * block.y)};
             blockIdx = {bx, by, bz};
+            blockDim = {block.x, block.y, block.z};
+            gridDim = {grid.x, grid.y, grid.z};
+            emu_block_barrier = &bar;
             kernel(p);
           });
         for (auto& th : ts) th.join();
-        pthread_barrier_destroy(&emu_barrier);
+        pthread_barrier_destroy(&bar);
       }
 }
+// A cooperative launch: every block's threads at once (a 1-D grid).
+template <class P>
+int cudaLaunchCooperativeKernel(void (*kernel)(P), dim3 grid, dim3 block,
+                                void** args, size_t smem, cudaStream_t) {
+  const P& p = *static_cast<const P*>(args[0]);
+  const unsigned nt = block.x * block.y * block.z;
+  std::vector<pthread_barrier_t> bars(grid.x);
+  std::vector<std::vector<double>> arenas(grid.x,
+                                          std::vector<double>(smem / 8 + 1));
+  for (auto& b : bars) pthread_barrier_init(&b, nullptr, nt);
+  pthread_barrier_init(&emu_grid_barrier, nullptr, nt * grid.x);
+  std::vector<std::thread> ts;
+  for (unsigned bx = 0; bx < grid.x; ++bx)
+    for (unsigned t = 0; t < nt; ++t)
+      ts.emplace_back([=, &p, &bars, &arenas]() {
+        threadIdx = {t % block.x, (t / block.x) % block.y,
+                     t / (block.x * block.y)};
+        blockIdx = {bx, 0, 0};
+        blockDim = {block.x, block.y, block.z};
+        gridDim = {grid.x, 1, 1};
+        emu_block_barrier = &bars[bx];
+        emu_dyn_smem = arenas[bx].data();
+        kernel(p);
+      });
+  for (auto& th : ts) th.join();
+  for (auto& b : bars) pthread_barrier_destroy(&b);
+  pthread_barrier_destroy(&emu_grid_barrier);
+  return 0;
+}
+"""
+
+# The stand-in for cooperative_groups.h: the grid barrier.
+_CG_SHIM = r"""
+#pragma once
+#include "cuda_runtime.h"
+namespace cooperative_groups {
+struct grid_group {
+  void sync() const { pthread_barrier_wait(&emu_grid_barrier); }
+};
+inline grid_group this_grid() { return {}; }
+}  // namespace cooperative_groups
 """
 
 
@@ -94,11 +163,15 @@ def emulated(tmp_path_factory):
         pytest.skip("needs g++ to compile the CUDA sources for the host")
     out = tmp_path_factory.mktemp("cuda_emu")
     (out / "cuda_runtime.h").write_text(_SHIM)
+    (out / "cooperative_groups.h").write_text(_CG_SHIM)
 
     def build(name):
         src = (_build.CSRC_DIR / _build.KERNELS[name]).read_text()
         src = re.sub(r"(\w+)<<<\s*(\w+),\s*(\w+),.*?>>>\((\w+)\)",
                      r"emu_launch(\1, \2, \3, \4)", src, flags=re.S)
+        # Dynamic shared memory: the block's arena.
+        src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+                     r"\1* \2 = static_cast<\1*>(emu_dyn_smem);", src)
         cpp, lib = out / f"{name}.cpp", out / f"lib{name}.so"
         cpp.write_text(src)
         proc = subprocess.run(
@@ -244,6 +317,51 @@ def test_stage_inkernel_kernel_source(launch_on_cpu, tc5_c40, stage):
     before = tsc.CovStageInkernel.launches
     _equal(st(*args), st.reference(*args))
     assert tsc.CovStageInkernel.launches == before + 1
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3], ids=[
+    "stage1", "stage2", "stage3", "stage3-probe"])
+def test_stage_nbr_kernel_source(launch_on_cpu, tc5_c40, stage):
+    g, m, s0, h_ext, u_ext = tc5_c40
+    step = nbr.make_fused_ssprk3_cov_nbr(g, G, OM, 75.0 * 384 / N, m.b_ext)
+    st1, st2, st3 = step.stages
+    # The state after a step, by the plain versions: TC5's initial wind
+    # has a zero component in places, which hides some operation orders.
+    ye = m.extend_state(s0)
+    k1 = st1.reference(ye["h"], ye["u"], m.b_ext)
+    k2 = st2.reference(ye["h"], ye["u"], *k1, m.b_ext)
+    hc, uc = st3.reference(ye["h"], ye["u"], *k2, m.b_ext)
+    # Ghost corners the stage must carry through: the halo exchangers'.
+    for q, full in ((hc, h_ext), (uc, u_ext)):
+        for c in ((slice(0, 2), slice(0, 2)), (slice(-2, None),) * 2):
+            q[(...,) + c] = full[(...,) + c]
+    st = step.stages[min(stage, 2)]
+    args = (hc, uc, m.b_ext)
+    if stage == 3:
+        # y0 = -2*yc: the interiors are g*L(yc) alone.
+        args = (-2.0 * hc, -2.0 * uc) + args
+    elif st.with_y0:
+        args = (h_ext, u_ext) + args
+    before = nbr.CovStageNbr.launches
+    _equal(st(*args), st.reference(*args))
+    assert nbr.CovStageNbr.launches == before + 1
+
+
+@pytest.mark.parametrize("after", [0, 1], ids=["tc5", "after-a-step"])
+def test_step_mega_kernel_source(launch_on_cpu, tc5_c40, after):
+    g, m, s0, h_ext, u_ext = tc5_c40
+    kern = mega.CovMegaStep(g, G, OM, 75.0 * 384 / N)
+    y = m.compact_state(s0)
+    args = (y["h"], y["u"], y["strips_sn"], y["strips_we"])
+    for _ in range(after):      # the plain version's step
+        args = kern.reference(*args, m.b_ext)
+    args = tuple(args) + (m.b_ext,)
+    before = mega.CovMegaStep.launches
+    _equal(kern(*args), kern.reference(*args))
+    assert mega.CovMegaStep.launches == before + 1
+    # The stand-in occupancy API: 1 block per SM on 5 SMs, so the 36
+    # tiles and the routed rows fall unevenly on the blocks.
+    assert kern.blocks == 5
 
 
 @pytest.fixture(scope="module")
