@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py
 
-Fifteen paths, all at C384, halo 2, float32, PLR + MC, through the port's
+Sixteen paths, all at C384, halo 2, float32, PLR + MC, through the port's
 entry points (``CovariantShallowWater`` and ``ShallowWater``,
-``make_fused_step`` and ``make_step``, the steppers of
-``jaxstream_torch.experiments``, and ``setup_sharding`` with
+``make_fused_step`` and ``make_step``, the steppers and the step-budget
+bisection of ``jaxstream_torch.experiments``, and ``setup_sharding`` with
 ``make_stepper_for`` of ``jaxstream_torch.parallel``):
 
 * Williamson TC5 (flow over a mountain), dt = 75 s, stepped by the
@@ -28,6 +28,11 @@ entry points (``CovariantShallowWater`` and ``ShallowWater``,
     launches;
   - ``stage``: per RK stage a route, kernel A, a route of A's l1 strips
     and kernel B (``csrc/cov_stage_nu4.cu``);
+  and the step-budget bisection of the ``stage`` step
+  (``jaxstream_torch.experiments.nu4_bisect.run``): eight chains timed
+  on the host clock and as CUDA graphs on the GPU, three of them kernel
+  B with its ghost fill or its Laplacian ablated (the same source's
+  ablated entry, B14);
 * TC5 on the Cartesian-velocity ``ShallowWater`` (``backend='pallas'``),
   three ways: the default fused stepper, per stage one strip route
   (torch ops) and one launch of the CUDA stage kernel with the ghost fill
@@ -184,7 +189,22 @@ Phases, each fatal on failure:
     counters 0), steps/s, a traced window for the busy share, and the
     time of one exchange and one permutation;
 33. the kernel records of B5 (a face-tier and a block-tier launch) and
-    B6, and the face tier's per-stage kernels (B4 against B5 + band).
+    B6, and the face tier's per-stage kernels (B4 against B5 + band);
+34. (after phase 14, on the Galewsky jet) B14 in its three modes (full,
+    nofill, nolap) against its plain version, as stage 1 and stage 2,
+    from the Galewsky state and after 3 in-stage steps, at nu4 = 1e14
+    and with phase 13's probe: bitwise required, and full bitwise equal
+    to B7's kernel B;
+35. the bisection's main path, ``nu4_bisect.run`` at 1 000 iterations:
+    each chain's wall and device microseconds per iteration, its
+    launches checked against its windows (the in-stage pair's and
+    B14's counters), and B14's time per mode against its bound;
+36. the port's ``utils.profiling`` on the compact TC5 stepper:
+    ``steady_state_rate`` over 200- and 1 000-step windows with the
+    ``Roofline`` report of ``analytic_cov_step_cost(384)``, a
+    ``StepTimer`` p50, and ``integrate_with_metrics`` over 200 steps with
+    total mass and total energy every 20 steps, its carry bitwise
+    ``integrate``'s.
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -206,10 +226,6 @@ N = 384
 WARM_STEPS = 20
 TIMED_STEPS = 1000
 PROFILED_STEPS = 50
-# H100 SXM data-sheet peaks: HBM3 bytes/s
-# and float32 outside the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
 # Per cell per stage (jaxstream/utils/profiling.py: 137 for PLR-MC).
 FLOPS_PER_CELL = 137
 # Per cell of the del^4 filter, counted from its plain version's ops: 22
@@ -287,6 +303,19 @@ BLOCK_VS_FACE_TOL = 2e-4
 TIER_WARM_STEPS = 5
 TIER_TIMED_STEPS = 100
 TIER_PROFILED_STEPS = 3
+# The step-budget bisection (jaxstream_torch.experiments.nu4_bisect):
+# its two windows are BISECT_ITERS / 4 and BISECT_ITERS iterations.
+BISECT_ITERS = 1000
+# Kernel B14 per cell: full and nofill as B (a Laplacian and the damp
+# per field, the metric terms); nolap the damp alone.
+B14_FLOPS_PER_CELL = {"full": B_FLOPS_PER_CELL, "nofill": B_FLOPS_PER_CELL,
+                      "nolap": 3 * 2}
+# Phase 36: steady_state_rate's windows, StepTimer's samples, and the
+# metric stream of integrate_with_metrics.
+RATE_WINDOWS = (200, 1000)
+TIMER_REPS = 20
+METRIC_STEPS = 200
+METRIC_EVERY = 20
 
 
 def log(msg: str) -> None:
@@ -301,6 +330,16 @@ def stamp(t_start: float, label: str) -> None:
 def rel_err(ref: torch.Tensor, x: torch.Tensor) -> float:
     ref, x = ref.double(), x.double()
     return float((ref - x).abs().max() / (ref.abs().max() + 1e-300))
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds per call of ``fn()`` over ``reps`` calls
+    replayed as a CUDA graph (``profiling.device_seconds``; NaN where the
+    calls cannot be captured)."""
+    from jaxstream_torch.utils.profiling import device_seconds
+
+    busy = device_seconds(lambda: [fn() for _ in range(reps)])
+    return busy / reps * 1e3 if busy else float("nan")
 
 
 def event_ms(fn, reps: int) -> float:
@@ -322,13 +361,16 @@ def bound_ms(args, outs, n: int, flops_per_cell: int,
     """Least time of one launch: bytes (each input read once, each output
     written once; a tuple of tensors counts each) over the memory rate,
     flops over the f32 rate for ``cells`` output cells (default: six
-    n x n faces)."""
+    n x n faces); the rates are ``jaxstream_torch.utils.profiling``'s
+    H100 roof."""
+    from jaxstream_torch.utils.profiling import H100_SXM5
+
     flat = [t for a in list(args) + list(outs)
             for t in (a if isinstance(a, tuple) else (a,))]
     moved = sum(t.numel() * t.element_size() for t in flat)
     cells = 6 * n * n if cells is None else cells
-    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops_per_cell * cells / PEAK_F32_FLOPS * 1e3
+    t_bytes = moved / (H100_SXM5.hbm_gbps * 1e9) * 1e3
+    t_ops = flops_per_cell * cells / (H100_SXM5.peak_tflops * 1e12) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations"), moved
 
@@ -447,28 +489,31 @@ def paired_rates(runs: dict, t, nsteps: int, card: str) -> None:
                            for k in names[1:]) + f"; card {card}")
 
 
-def kernel_record(name: str, source: str, replaces: str, launches: int,
-                  max_abs: float, forms, flops_per_cell: int, card: str):
-    """Time a kernel and its plain version at each of ``forms`` (label,
-    call, reference, args[, output cells]), log them with the bound, and
-    return the kernels-line record (times and bounds averaged over the
-    forms)."""
-    ms, plain, bounds, bound_by = [], [], [], set()
-    for label, call, ref, args, *cells in forms:
-        k_ms = event_ms(lambda: call(*args), 200)
-        p_ms = event_ms(lambda: ref(*args), 10)
-        bound, by, nbytes = bound_ms(args, call(*args), N, flops_per_cell,
-                                     *cells)
-        ms.append(k_ms)
-        plain.append(p_ms)
-        bounds.append(bound)
-        bound_by.add(by)
-        log(f"{label} kernel: {k_ms * 1e3:.2f} us/launch, bound "
-            f"{bound * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB, "
-            f"{flops_per_cell} flops/cell), {bound / k_ms:.1%} of bound, "
-            f"{nbytes / (k_ms * 1e-3) / 1e12:.2f} TB/s; plain "
-            f"{p_ms * 1e3:.1f} us; card {card}")
-    mean = lambda v: sum(v) / len(v)
+def time_form(label: str, call, ref, args, flops_per_cell: int, card: str,
+              cells: int | None = None, read=None) -> tuple:
+    """Time one form of a kernel (``call(*args)``) and its plain version,
+    and log them against the bound of the launch, which reads ``read``
+    (default: all of ``args``) and computes ``cells`` output cells.
+    Returns ``(ms, plain_ms, bound_ms, bound_by)``."""
+    k_ms = event_ms(lambda: call(*args), 200)
+    d_ms = device_ms(lambda: call(*args))
+    p_ms = event_ms(lambda: ref(*args), 10)
+    bound, by, nbytes = bound_ms(args if read is None else read,
+                                 call(*args), N, flops_per_cell, cells)
+    log(f"{label} kernel: {k_ms * 1e3:.2f} us/launch (device "
+        f"{d_ms * 1e3:.2f}), bound {bound * 1e3:.2f} us ({by}, "
+        f"{nbytes / 1e6:.2f} MB, {flops_per_cell} flops/cell), "
+        f"{bound / k_ms:.1%} of bound (device {bound / d_ms:.1%}), "
+        f"{nbytes / (k_ms * 1e-3) / 1e12:.2f} TB/s; plain "
+        f"{p_ms * 1e3:.1f} us; card {card}")
+    return k_ms, p_ms, bound, by
+
+
+def record(name: str, source: str, replaces: str, launches: int,
+           max_abs: float, timed) -> dict:
+    """The kernels-line record of ``timed`` (:func:`time_form`'s results,
+    averaged over the forms)."""
+    mean = lambda k: sum(t[k] for t in timed) / len(timed)
     return {
         "name": name,
         "route": "cuda",
@@ -476,12 +521,24 @@ def kernel_record(name: str, source: str, replaces: str, launches: int,
         "replaces": replaces,
         "launches": launches,
         "max_abs_err": max_abs,
-        "ms": mean(ms),
-        "plain_ms": mean(plain),
-        "bound_ms": mean(bounds),
-        "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
+        "ms": mean(0),
+        "plain_ms": mean(1),
+        "bound_ms": mean(2),
+        "bound_by": ("bytes" if all(t[3] == "bytes" for t in timed)
+                     else "operations"),
         "library_ms": None,
     }
+
+
+def kernel_record(name: str, source: str, replaces: str, launches: int,
+                  max_abs: float, forms, flops_per_cell: int, card: str):
+    """Time a kernel and its plain version at each of ``forms`` (label,
+    call, reference, args[, output cells]) and return the kernels-line
+    record."""
+    return record(name, source, replaces, launches, max_abs,
+                  [time_form(label, call, ref, args, flops_per_cell, card,
+                             *cells)
+                   for label, call, ref, args, *cells in forms])
 
 
 def tc5_gate(label: str, grid, s0, h_int, days: float) -> None:
@@ -829,6 +886,169 @@ def stage_path(card: str, gal: Galewsky, ysplit) -> list:
         f"+ A 3 x {rec_a['ms'] * 1e3:.2f} us + B 3 x {rec_b['ms'] * 1e3:.2f}"
         f" us + {other:.1f} us other; card {card}")
     return [rec_a, rec_b]
+
+
+def b14_record(max_abs: float, launches: int, forms, card: str) -> dict:
+    """Time B14 and its plain version in each mode of ``forms`` (mode,
+    kernel, args), against each mode's bound (nofill reads no routed
+    ghosts; nolap does the damp alone), and return its record."""
+    timed = [time_form(f"B14 {mode}", b, b.reference, args,
+                       B14_FLOPS_PER_CELL[mode], card,
+                       read=args[:4] if mode == "nofill" else None)
+             for mode, b, args in forms]
+    return record("cov_stage_nu4_b_ablated",
+                  "jaxstream_torch/csrc/cov_stage_nu4.cu",
+                  "experiments/nu4_bisect.py:190", launches, max_abs, timed)
+
+
+def bisect_path(card: str, gal: Galewsky) -> dict:
+    """Phases 34-35: the step-budget bisection's ablated kernel B (B14)
+    and its harness.  Returns B14's record for the kernels line."""
+    from jaxstream_torch.experiments import nu4_bisect as nb
+    from jaxstream_torch.ops.cuda import swe_cov
+    from jaxstream_torch.stepping import integrate
+
+    Pair, B14 = swe_cov.CovStageNu4, nb.Nu4BisectB
+    model, y0 = gal.model, gal.y0
+    step = model.make_fused_step(GAL_DT, nu4_mode="stage")
+    route = step.route
+
+    # ---- 34. B14 vs plain in each mode: two states, stages 1 and 2 --------
+    names = ("h", "u", "strips_sn", "strips_we")
+    count = lambda: B14.launches
+    y3, _ = integrate(step, y0, 0.0, 3, GAL_DT)
+    max_abs = 0.0
+    for label, y in (("Galewsky IC", y0), ("after 3 in-stage steps", y3)):
+        gsn, gwe = route(y["strips_sn"], y["strips_we"])
+        for st in step.stages[:2]:
+            form = "stage 2" if st.with_y0 else "stage 1"
+            args = (y["h"], y["u"], gsn, gwe, model.b_ext)
+            if st.with_y0:
+                args = (y["h"], y["u"]) + args
+            out_a = st.reference_a(*args)
+            bargs = tuple(out_a[:4]) + route(out_a[4], out_a[5])
+            exact = st.reference_b(*[a.double() for a in bargs])
+            scale, _ = probe_scale((bargs[0], bargs[1][0], bargs[1][1]),
+                                   (exact[0], exact[1][0], exact[1][1]))
+            probe = swe_cov.CovStageNu4(
+                st.n, st.halo, st.dalpha, st.radius, st.gravity, st.omega,
+                st.dt, st.a, st.b, st.nu4 * scale, device=st.device)
+            for s, tag in ((st, ""), (probe, f" probe (nu4 {probe.nu4:.4e})")):
+                for mode in nb.MODES:
+                    b = B14(s, mode)
+                    max_abs = max(max_abs, check_bitwise(
+                        f"B14 {mode} vs plain C{N} {form}, {label}{tag}", b,
+                        b.reference, bargs, names, count))
+                full = B14(s, "full")(*bargs)
+                if not all(torch.equal(x, r)
+                           for x, r in zip(full, s.call_b(*bargs))):
+                    raise RuntimeError(f"B14 full is not B7's B ({form}, "
+                                       f"{label}{tag})")
+    log("B14 full = B7's kernel B bitwise on both states, stages 1 and 2, "
+        "probes included")
+
+    # ---- 35. main path: the bisection's chains, launches checked ---------
+    small, big = BISECT_ITERS // 4, BISECT_ITERS
+    windows = 2 * (small + big)
+    B14.launches = 0
+    Pair.launches_a = 0
+    Pair.launches_b = 0
+    t0 = time.perf_counter()
+    res = nb.run(N, BISECT_ITERS)
+    wall = time.perf_counter() - t0
+    launches = B14.launches
+    expect = {"step": {"A": 3 * windows, "B": 3 * windows, "B14": 0},
+              "stage A+r+B+r": {"A": windows, "B": windows, "B14": 0},
+              "A + route": {"A": windows, "B": 0, "B14": 0},
+              "B": {"A": 0, "B": windows, "B14": 0},
+              "route": {"A": 0, "B": 0, "B14": 0}}
+    expect.update({f"B[{m}]": {"A": 0, "B": 0, "B14": windows}
+                   for m in nb.MODES})
+    for name, c in res["chains"].items():
+        if c["launches"] != expect[name]:
+            raise RuntimeError(f"bisection chain {name}: launches "
+                               f"{c['launches']} != {expect[name]}")
+        if c["device_us"] is None or not c["device_us"] > 0.0:
+            raise RuntimeError(f"bisection chain {name}: no device time")
+        log(f"bisection C{N} {name}: wall {c['wall_us']:.2f} us/iter, "
+            f"device {c['device_us']:.2f} us/iter ({res['device_iters']} "
+            f"iters as a CUDA graph); launches {c['launches']} over 2 x "
+            f"({small} + {big}) iters; card {card}")
+    # Each mode's chain also runs its device window twice from the host
+    # (warm-up, graph capture); the graph's replays launch nothing.
+    expect_b14 = len(nb.MODES) * (windows + 2 * res["device_iters"])
+    if launches != expect_b14:
+        raise RuntimeError(f"B14 launches {launches} != {expect_b14}")
+    log(f"bisection C{N}, {BISECT_ITERS} iters: {wall:.1f} s; B14 launches "
+        f"{launches} = 3 modes x ({windows} + 2 x {res['device_iters']}); "
+        f"card {card}")
+    gsn, gwe = route(y0["strips_sn"], y0["strips_we"])
+    st1 = step.stages[0]
+    out_a = st1.call_a(y0["h"], y0["u"], gsn, gwe, model.b_ext)
+    bargs = tuple(out_a[:4]) + route(out_a[4], out_a[5])
+    return b14_record(max_abs, launches,
+                      [(m, B14(st1, m), bargs) for m in nb.MODES], card)
+
+
+def metric_vector(model):
+    """``metric_fn(y, t)``: total mass and total energy of a covariant
+    carry (its wind made Cartesian by ``model.to_cartesian``)."""
+    from jaxstream_torch.utils.diagnostics import total_energy, total_mass
+
+    g = model.grid
+    b_int = g.interior(model.b_ext)
+
+    def metrics(y, t):
+        return torch.stack([total_mass(g, y["h"]),
+                            total_energy(g, y["h"], model.to_cartesian(y),
+                                         model.gravity, b_int)])
+    return metrics
+
+
+def profiling_path(card: str, model, step, y, t) -> None:
+    """Phase 36: the port's profiling module on the compact TC5 stepper."""
+    from jaxstream_torch.stepping import integrate, integrate_with_metrics
+    from jaxstream_torch.utils import profiling
+
+    # ---- 36. steady-state rate, roofline, step timer, metric stream ------
+    k1, k2 = RATE_WINDOWS
+    rate, y = profiling.steady_state_rate(
+        lambda y, k: integrate(step, y, t, k, STEP_DT)[0], y, k1, k2)
+    cost = profiling.analytic_cov_step_cost(N)
+    log(f"steady_state_rate C{N} TC5 compact ({k1} and {k2} steps): "
+        f"{rate:.1f} steps/s, {1e6 / rate:.1f} us/step; "
+        f"{profiling.roofline(cost, 1.0 / rate).report()}; card {card}")
+    timer = profiling.StepTimer(discard=1)
+    timer.time(step, y, t, reps=TIMER_REPS)
+    st = timer.stats()
+    log(f"StepTimer C{N} TC5 compact ({st['n']} steps, each synchronized): "
+        f"p50 {st['p50_s'] * 1e6:.1f} us, p90 {st['p90_s'] * 1e6:.1f}, min "
+        f"{st['min_s'] * 1e6:.1f}; {timer.sim_days_per_sec(STEP_DT):.3f} "
+        f"sim-days/s at p50; card {card}")
+    ref, _ = integrate(step, y, t, METRIC_STEPS, STEP_DT)
+    n_samples = METRIC_STEPS // METRIC_EVERY
+    t0 = time.perf_counter()
+    ym, _, buf = integrate_with_metrics(
+        step, y, t, METRIC_STEPS, STEP_DT, metric_vector(model),
+        METRIC_EVERY, n_samples, 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bitwise = all(torch.equal(ref[k], ym[k]) for k in ref)
+    samples = buf.double().cpu()
+    finite = bool(torch.isfinite(samples).all())
+    mass_drift = float((samples[0] - samples[0, 0]).abs().max()
+                       / samples[0, 0])
+    energy_drift = float((samples[1] - samples[1, 0]).abs().max()
+                         / samples[1, 0])
+    log(f"integrate_with_metrics C{N} TC5 compact, {METRIC_STEPS} steps, "
+        f"mass and energy every {METRIC_EVERY}: carry bitwise integrate's: "
+        f"{bitwise}; {n_samples} samples finite: {finite}; mass drift "
+        f"{mass_drift:.3e}, energy drift {energy_drift:.3e} over the "
+        f"samples; {METRIC_STEPS / wall:.1f} steps/s with the stream; "
+        f"card {card}")
+    if not (bitwise and finite and tuple(buf.shape) == (2, n_samples)):
+        raise RuntimeError("integrate_with_metrics: carry not integrate's "
+                           "or samples not finite")
 
 
 def pallas_rhs_path(card: str, grid, model, b_ext, s0) -> dict:
@@ -1872,6 +2092,10 @@ def main() -> int:
     filter_record, ysplit = galewsky_path(card, gal)
     refused_record = refused_path(card, gal, ysplit)
     pair_records = stage_path(card, gal, ysplit)
+    stamp(t_start, "step-budget bisection (phases 34-35)")
+    b14 = bisect_path(card, gal)
+    stamp(t_start, "profiling (phase 36)")
+    profiling_path(card, model, step, y, t)
     del gal, ysplit
     stamp(t_start, "classic backend pallas (phases 15-16)")
     rhs_record = pallas_rhs_path(card, grid, model, b_ext, s0)
@@ -1908,7 +2132,7 @@ def main() -> int:
         "builds included")
 
     report = {"kernels": [stage_record, filter_record, refused_record]
-              + pair_records + [rhs_record, ext_record] + cart_records
+              + pair_records + [b14, rhs_record, ext_record] + cart_records
               + [mega_record, nbr_record] + tier_records}
     log(json.dumps(report))
     log(card)

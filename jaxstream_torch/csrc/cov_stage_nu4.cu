@@ -9,6 +9,11 @@
 // cov_stage_nu4_b_reference; each kernel reproduces its plain version's
 // operations in its order (built with -fmad=false).
 //
+// Kernel B's body also serves the ablated B of the step-budget bisection
+// (experiments/nu4_bisect.py::main, variant_b; pallas_call at :190),
+// launched through cov_stage_nu4_b_ablated_f32 (BMode below; plain
+// versions in jaxstream_torch.experiments.nu4_bisect).
+//
 // One RK stage is A, a route of A's l1 strips, then B:
 //   A   psi = h, u_a, u_b of the stage input yc, extended by the routed
 //       ghosts with averaged corners; the advective stage exactly as
@@ -156,6 +161,20 @@ cov_stage_nu4_a_kernel(const ParamsA p) {
       });
 }
 
+// What kernel B computes: Full is the in-stage pair's B; NoFill and NoLap
+// are the ablations of the JAX package's step-budget bisection
+// (experiments/nu4_bisect.py::main, variant_b), which time B without its
+// ghost fill and without its Laplacian.
+//   NoFill  the 1-deep apron holds the face interior where the cell is on
+//           the face and 0 outside it: no routed ghost, no corner
+//           average (the JAX variant leaves those cells as whatever its
+//           scratch held; 0 makes the output defined).
+//   NoLap   the apron filled as in Full; out = adv - damp l1 at the
+//           cell itself.
+// The three share one body; each emits its output's strips as Full does.
+enum class BMode : int { Full = 0, NoFill = 1, NoLap = 2 };
+
+template <BMode M>
 __global__ void __launch_bounds__(BX * BY, 4)
 cov_stage_nu4_b_kernel(const ParamsB p) {
   __shared__ float s_l1[3][TY + 2][TX + 2];
@@ -174,8 +193,13 @@ cov_stage_nu4_b_kernel(const ParamsB p) {
   for (int ly = ty; ly < TY + 2; ly += BY)
     for (int lx = tx; lx < TX + 2; lx += BX) {
       const int j = j0 + ly - 1, i = i0 + lx - 1;
-      for (int fi = 0; fi < 3; ++fi)
-        s_l1[fi][ly][lx] = filled(q[fi], gsn, gwe, fi, n, hh, rw, j, i);
+      for (int fi = 0; fi < 3; ++fi) {
+        if constexpr (M == BMode::NoFill)
+          s_l1[fi][ly][lx] = (j >= 0 && j < n && i >= 0 && i < n)
+                                 ? q[fi][j * n + i] : 0.0f;
+        else
+          s_l1[fi][ly][lx] = filled(q[fi], gsn, gwe, fi, n, hh, rw, j, i);
+      }
     }
   __syncthreads();
 
@@ -191,13 +215,27 @@ cov_stage_nu4_b_kernel(const ParamsB p) {
       const float* adv[3] = {p.ha + c, p.ua + c, p.ua + 6 * nn + c};
       float* outs[3] = {p.ho + c, p.uo + c, p.uo + 6 * nn + c};
       for (int fi = 0; fi < 3; ++fi) {
-        const float l2 = lap_at<TX + 2>(&s_l1[fi][0][0], ly + 1, lx + 1, cm,
-                                        p.invd, p.inv2d);
+        float l2;
+        if constexpr (M == BMode::NoLap)
+          l2 = s_l1[fi][ly + 1][lx + 1];
+        else
+          l2 = lap_at<TX + 2>(&s_l1[fi][0][0], ly + 1, lx + 1, cm, p.invd,
+                              p.inv2d);
         const float v = *adv[fi] - p.damp * l2;
         *outs[fi] = v;
         put_strips(ssn, swe, fi, n, hh, j, i, v);
       }
     }
+}
+
+// Launches kernel B in mode M on `stream`; returns cudaGetLastError().
+template <BMode M>
+int launch_b(const ParamsB& p, void* stream) {
+  const dim3 grid((p.n + TX - 1) / TX, (p.n + TY - 1) / TY, 6);
+  const dim3 block(BX, BY);
+  void (*kernel)(const ParamsB) = cov_stage_nu4_b_kernel<M>;
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -231,11 +269,30 @@ extern "C" int cov_stage_nu4_b_f32(
     const float* gsn, const float* gwe, const float* xc, const float* xf,
     float* ho, float* uo, float* ssn, float* swe, int n, int halo,
     float R2, float invd, float inv2d, float damp, void* stream) {
-  ParamsB p{ha, ua, l1h, l1u, gsn, gwe, xc, xf, ho, uo, ssn, swe,
-            n, halo, R2, invd, inv2d, damp};
-  const dim3 grid((n + TX - 1) / TX, (n + TY - 1) / TY, 6);
-  const dim3 block(BX, BY);
-  cov_stage_nu4_b_kernel<<<grid, block, 0,
-                           static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const ParamsB p{ha, ua, l1h, l1u, gsn, gwe, xc, xf, ho, uo, ssn, swe,
+                  n, halo, R2, invd, inv2d, damp};
+  return launch_b<BMode::Full>(p, stream);
+}
+
+// Launches kernel B in mode 0 (Full), 1 (NoFill) or 2 (NoLap) on
+// `stream`; returns cudaGetLastError(), or cudaErrorInvalidValue for
+// another mode.  Arguments as cov_stage_nu4_b_f32's; NoFill reads no
+// routed ghosts.
+extern "C" int cov_stage_nu4_b_ablated_f32(
+    const float* ha, const float* ua, const float* l1h, const float* l1u,
+    const float* gsn, const float* gwe, const float* xc, const float* xf,
+    float* ho, float* uo, float* ssn, float* swe, int n, int halo,
+    int mode, float R2, float invd, float inv2d, float damp, void* stream) {
+  const ParamsB p{ha, ua, l1h, l1u, gsn, gwe, xc, xf, ho, uo, ssn, swe,
+                  n, halo, R2, invd, inv2d, damp};
+  switch (mode) {
+    case static_cast<int>(BMode::Full):
+      return launch_b<BMode::Full>(p, stream);
+    case static_cast<int>(BMode::NoFill):
+      return launch_b<BMode::NoFill>(p, stream);
+    case static_cast<int>(BMode::NoLap):
+      return launch_b<BMode::NoLap>(p, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

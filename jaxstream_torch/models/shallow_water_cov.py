@@ -197,6 +197,16 @@ class CovariantShallowWater(SWEBase):
             return make(*args, self.nu4, **kw)
         return make_fused_ssprk3_cov_compact(*args, **kw)
 
+    def to_cartesian(self, state: State) -> torch.Tensor:
+        """Interior covariant velocity -> Cartesian (3, 6, n, n)."""
+        g = self.grid
+        iaa, iab, ibb = (g.interior(self.ginv_aa), g.interior(self.ginv_ab),
+                         g.interior(self.ginv_bb))
+        ua = iaa * state["u"][0] + iab * state["u"][1]
+        ub = iab * state["u"][0] + ibb * state["u"][1]
+        return (ua[None] * g.interior(g.e_a)
+                + ub[None] * g.interior(g.e_b))
+
     # -- classic path --------------------------------------------------------
     def _fill_u(self, u_int):
         return self.exchange_u(embed_interior(self.grid, u_int))

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from jaxstream_torch.config import EARTH_GRAVITY, EARTH_OMEGA, EARTH_RADIUS
+from jaxstream_torch.experiments import nu4_bisect as nb
 from jaxstream_torch.experiments import swe_cov_nbr as nbr
 from jaxstream_torch.experiments import swe_mega as mega
 from jaxstream_torch.geometry.cubed_sphere import build_grid
@@ -191,6 +192,40 @@ def test_stage_nu4_kernels_match_plain_c48():
                                   s.reference_b(*bargs)):
                 assert bool(torch.all(torch.isfinite(x))), name
                 assert _rel(r, x) <= tol, (name, _rel(r, x))
+
+
+@pytest.mark.gpu
+def test_stage_nu4_b_ablated_matches_plain_c48():
+    """B14 in its three modes, at nu4 = 1e14 and at the probe's nu4,
+    bitwise vs its plain version; ``full`` also bitwise vs B7's B."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the ablated kernel B has no CPU "
+                    "form)")
+    g, m, step, y = _galewsky_c48("stage")
+    route = step.route
+    st = step.stages[0]
+    out_a = st.reference_a(y["h"], y["u"],
+                           *route(y["strips_sn"], y["strips_we"]), m.b_ext)
+    bargs = tuple(out_a[:4]) + route(out_a[4], out_a[5])
+    exact = st.reference_b(*[t.double() for t in bargs])
+    scale = _probe_scale((bargs[0], bargs[1][0], bargs[1][1]),
+                         (exact[0], exact[1][0], exact[1][1]))
+    probe = tcov.CovStageNu4(g.n, g.halo, g.dalpha, g.radius, EARTH_GRAVITY,
+                             EARTH_OMEGA, st.dt, st.a, st.b, st.nu4 * scale,
+                             device=g.device)
+    for s in (st, probe):
+        for mode in nb.MODES:
+            b = nb.Nu4BisectB(s, mode)
+            before = nb.Nu4BisectB.launches
+            out = b(*bargs)
+            torch.cuda.synchronize()
+            assert nb.Nu4BisectB.launches == before + 1
+            for k, (x, r) in enumerate(zip(out, b.reference(*bargs))):
+                assert bool(torch.all(torch.isfinite(x))), (mode, k)
+                assert torch.equal(x, r), (mode, k, _rel(r, x))
+            if mode == "full":
+                assert all(torch.equal(x, r)
+                           for x, r in zip(out, s.call_b(*bargs)))
 
 
 def _tc5_c48():

@@ -33,6 +33,7 @@ import torch
 
 from jaxstream_torch import _build
 from jaxstream_torch.config import EARTH_GRAVITY, EARTH_OMEGA, EARTH_RADIUS
+from jaxstream_torch.experiments import nu4_bisect as nb
 from jaxstream_torch.experiments import swe_cov_nbr as nbr
 from jaxstream_torch.experiments import swe_mega as mega
 from jaxstream_torch.geometry.cubed_sphere import build_grid
@@ -69,6 +70,7 @@ inline thread_local emu_idx blockDim, gridDim;
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 constexpr int cudaSuccess = 0;
+constexpr int cudaErrorInvalidValue = 1;
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 inline int cudaGetLastError() { return 0; }
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
@@ -277,6 +279,54 @@ def test_stage_nu4_kernel_sources(launch_on_cpu, galewsky_c40, stage):
     _equal(st.call_b(*b_args), st.reference_b(*b_args))
     assert (tsc.CovStageNu4.launches_a,
             tsc.CovStageNu4.launches_b) == (before[0] + 1, before[1] + 1)
+
+
+def _b14_args(g, m, dt, step, args, nu4):
+    """A stage-1 in-stage pair at ``nu4``, and kernel B's operands at C40:
+    kernel A's outputs on the carry after one split step, and the routed
+    ghosts of their strips."""
+    st = tsc.CovStageNu4(g.n, g.halo, g.dalpha, g.radius, G, OM, dt, 0.0,
+                         1.0, nu4, device="cpu")
+    out_a = st.reference_a(*args, m.b_ext)
+    return st, tuple(out_a[:4]) + step.route(out_a[4], out_a[5])
+
+
+@pytest.mark.parametrize("nu4", [1.0e14, 1.0e21], ids=["nu4", "probe"])
+@pytest.mark.parametrize("mode", nb.MODES)
+def test_stage_nu4_b_ablated_kernel_source(launch_on_cpu, galewsky_c40,
+                                           mode, nu4):
+    """B14 in each mode, at the harness's nu4 and at a probe's (the
+    filter term dominant), bitwise vs its plain version; ``full`` also
+    bitwise vs B7's own kernel B."""
+    g, m, dt, step, args = galewsky_c40
+    st, b_args = _b14_args(g, m, dt, step, args, nu4)
+    b = nb.Nu4BisectB(st, mode)
+    before = nb.Nu4BisectB.launches
+    out = b(*b_args)
+    assert nb.Nu4BisectB.launches == before + 1
+    _equal(out, b.reference(*b_args))
+    if mode == "full":
+        _equal(out, st.call_b(*b_args))
+
+
+def test_stage_nu4_b_ablated_mutation_is_caught(emulated, launch_on_cpu,
+                                                 monkeypatch, galewsky_c40):
+    """The mutation check of B14: NoFill reading the routed ghosts
+    instead of its zero apron must disagree with its plain version."""
+    name = "cov_stage_nu4"
+    src = (_build.CSRC_DIR / _build.KERNELS[name]).read_text()
+    zero = "? q[fi][j * n + i] : 0.0f;"
+    assert src.count(zero) == 1
+    lib = emulated["_compile"](src.replace(
+        zero, "? q[fi][j * n + i]\n : filled(q[fi], gsn, gwe, fi, n, hh, "
+        "rw, j, i);"), name + "_mut")
+    monkeypatch.setattr(_build, "load", lambda nm: ctypes.CDLL(
+        str(lib if nm == name else emulated[nm])))
+    g, m, dt, step, args = galewsky_c40
+    st, b_args = _b14_args(g, m, dt, step, args, 1.0e21)
+    b = nb.Nu4BisectB(st, "nofill")
+    out, ref = b(*b_args), b.reference(*b_args)
+    assert not all(torch.equal(x, r) for x, r in zip(out, ref))
 
 
 @pytest.fixture(scope="module")
