@@ -63,13 +63,18 @@ Phases, each fatal on failure:
 2. the stage kernel against its plain PyTorch version at C384, as stage
    1 and as stage 2 (<= 1e-5 of each output's max), and as stage 3 with
    y0 = -2 yc, where the outputs are the scaled tendency g*L alone
-   (<= 1e-4 of its max: f32 roundoff of the tendency is ~1e-5);
+   (<= 1e-4 of its max: f32 roundoff of the tendency is ~1e-5); each
+   form must also be bitwise equal;
 3. three fused steps against three steps of the port's classic path
    (<= 2e-4 of max, the JAX package's fused-vs-jnp budget);
 4. a warm-up and a timed window of integration through the port's
    entry points, gated like ``bench.py`` (finite, 3000 < h < 6500 m,
    mass drift < 1e-3), with the stage launch count checked against
-   3 x steps; then kernel, plain-version and router times;
+   3 x steps; then, on the run's own state, the stage kernel bitwise
+   against its plain version in its three forms, its times (events and
+   device time as a CUDA graph, beside the earlier design's), the plain
+   version's and the router's, and the step's device time as a CUDA
+   graph;
 5. a short window traced by ``torch.profiler`` for the device's busy
    share (apart from the timed window, so tracing costs it nothing);
 6. the filter kernel against its plain version at C384 on the Galewsky
@@ -77,7 +82,7 @@ Phases, each fatal on failure:
    increment probe: the filter with nu4 scaled until
    damp*max|lap(lap q)| is 1e3 x max|q|, whose outputs are the filter
    term itself (<= 1e-4 of its max, the tolerance of
-   ``tests/test_torch_nu4.py``);
+   ``tests/test_torch_nu4.py``); both must also be bitwise equal;
 7. three split steps against three classic del^4 steps (<= 2e-3 of max,
    the JAX package's own split-vs-classic budget);
 8. the Galewsky jet to day 6 (8 640 steps) on the split stepper, gated
@@ -86,8 +91,10 @@ Phases, each fatal on failure:
    max|zeta| south of -0.2 rad < 5e-6), with the filter launches checked
    against the steps and the stage launches against 3 x steps;
 9. a timed window of 1 000 split steps, its breakdown (4 routes, 3 stage
-   launches, 1 filter launch, the rest), the filter's time against its
-   plain version and its bound, and a traced window;
+   launches, 1 filter launch, the rest), the filter bitwise against its
+   plain version on the run's own state, its time (beside the earlier
+   design's) against its plain version and its bound, the step's device
+   time as a CUDA graph, and a traced window;
 10. the re-fused kernel against its plain version on the Galewsky state
     after one re-fused step (<= 1e-5 of each output's max), and its
     increment probe (nu4 scaled until the filtered base h0f, u0f is the
@@ -214,6 +221,7 @@ result, without a CUDA device or without the rest of the repository.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -240,6 +248,29 @@ REFUSED_FLOPS_PER_CELL = FILTER_FLOPS_PER_CELL + FLOPS_PER_CELL
 A_FLOPS_PER_CELL = FLOPS_PER_CELL + 3 * 22 + 31
 B_FLOPS_PER_CELL = 3 * 24 + 31
 KERNEL_TOL = 1e-5
+# Device microseconds per launch at C384 (CUDA graph) of the stage and
+# filter kernels in their earlier tile-per-block design (one 32 x 16 tile
+# of one face per block), measured by this script on an NVIDIA H100 80GB
+# HBM3 at 700 W: the log compares the faces-in-block kernels with them.
+EARLIER_DEVICE_US = {"cov_stage_compact": 60.06, "cov_nu4_filter": 62.94}
+# Steps captured in one CUDA graph for a step's device time.
+GRAPH_STEPS = 20
+# ptxas's (registers, shared bytes) per kernel function of the other
+# libraries as they were built before the faces-in-block kernels came
+# (nvcc of CUDA 12.8): the log says whether each still builds to the same.
+EARLIER_PTXAS = {
+    "cov_stage_refused_nu4": [(62, 47392)],
+    "cov_stage_nu4": [(64, 7344), (62, 7344), (62, 7344), (64, 18608)],
+    "cov_rhs": [(56, 18608)],
+    "cov_rhs_interior": [(55, 18608)],
+    "cov_rhs_local": [(55, 18608)],
+    "cov_stage_inkernel": [(48, 18608)],
+    "cov_stage_nbr": [(64, 19120)],
+    "cov_step_mega": [(64, 0)],
+    "swe_rhs": [(56, 21892)],
+    "swe_stage": [(56, 21892), (48, 21892)],
+    "swe_stage_inkernel": [(56, 21892), (56, 21892)],
+}
 # The tendency alone is ill-conditioned in float32 (its flux differences
 # cancel): two f32 evaluations differ by ~1e-5 of its max.
 TENDENCY_TOL = 1e-4
@@ -375,11 +406,12 @@ def bound_ms(args, outs, n: int, flops_per_cell: int,
                                  "operations"), moved
 
 
-def check_kernel(label: str, call, ref, args, names, tol: float, count):
+def check_kernel(label: str, call, ref, args, names, tol: float, count,
+                 exact: bool = False):
     """Launch ``call(*args)`` once and hold each output against the plain
-    version ``ref(*args)`` (<= ``tol`` of its max); ``count()`` reads the
-    kernel's launch counter, which must move by one.  Returns the largest
-    absolute difference."""
+    version ``ref(*args)`` (<= ``tol`` of its max; ``exact``: also bitwise
+    equal); ``count()`` reads the kernel's launch counter, which must move
+    by one.  Returns the largest absolute difference."""
     before = count()
     out = call(*args)
     torch.cuda.synchronize()
@@ -394,7 +426,7 @@ def check_kernel(label: str, call, ref, args, names, tol: float, count):
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
         + f" (tol {tol:g}); finite={finite} bitwise={bitwise}"
         + f"; max |out0| {float(out[0].abs().max()):.4e}")
-    if not finite or max(errs.values()) > tol:
+    if not finite or max(errs.values()) > tol or (exact and not bitwise):
         raise RuntimeError(f"kernel disagrees with plain ({label})")
     return max_abs
 
@@ -494,7 +526,7 @@ def time_form(label: str, call, ref, args, flops_per_cell: int, card: str,
     """Time one form of a kernel (``call(*args)``) and its plain version,
     and log them against the bound of the launch, which reads ``read``
     (default: all of ``args``) and computes ``cells`` output cells.
-    Returns ``(ms, plain_ms, bound_ms, bound_by)``."""
+    Returns ``(ms, plain_ms, bound_ms, bound_by, device_ms)``."""
     k_ms = event_ms(lambda: call(*args), 200)
     d_ms = device_ms(lambda: call(*args))
     p_ms = event_ms(lambda: ref(*args), 10)
@@ -506,7 +538,7 @@ def time_form(label: str, call, ref, args, flops_per_cell: int, card: str,
         f"{bound / k_ms:.1%} of bound (device {bound / d_ms:.1%}), "
         f"{nbytes / (k_ms * 1e-3) / 1e12:.2f} TB/s; plain "
         f"{p_ms * 1e3:.1f} us; card {card}")
-    return k_ms, p_ms, bound, by
+    return k_ms, p_ms, bound, by, d_ms
 
 
 def record(name: str, source: str, replaces: str, launches: int,
@@ -528,6 +560,32 @@ def record(name: str, source: str, replaces: str, launches: int,
                      else "operations"),
         "library_ms": None,
     }
+
+
+def step_device_us(step, y, t, dt: float) -> float:
+    """Device microseconds per step of ``step`` from the carry ``y``:
+    GRAPH_STEPS steps captured as one CUDA graph and replayed
+    (``profiling.device_seconds``); NaN where they cannot be captured."""
+    from jaxstream_torch.stepping import integrate
+    from jaxstream_torch.utils.profiling import device_seconds
+
+    busy = device_seconds(lambda: integrate(step, y, t, GRAPH_STEPS, dt))
+    return busy / GRAPH_STEPS * 1e6 if busy else float("nan")
+
+
+def redesign_line(name: str, timed, per_step: int, label: str,
+                  step_us: float, card: str) -> None:
+    """Log a redesigned kernel's device time per launch (CUDA graph; the
+    mean of :func:`time_form`'s forms in ``timed``) beside its earlier
+    design's, and
+    the device time of the step that launches it ``per_step`` times."""
+    dev_us = sum(t[4] for t in timed) / len(timed) * 1e3
+    old = EARLIER_DEVICE_US[name]
+    log(f"{name}: device {dev_us:.2f} us/launch as a CUDA graph (earlier "
+        f"design: {old:.2f}; x{dev_us / old:.3f}); {label} step: device "
+        f"{step_us:.2f} us/step as a CUDA graph of {GRAPH_STEPS} steps, "
+        f"{per_step} launch(es) = {per_step * dev_us:.2f} us of it; card "
+        f"{card}")
 
 
 def kernel_record(name: str, source: str, replaces: str, launches: int,
@@ -662,10 +720,11 @@ def galewsky_path(card: str, gal: Galewsky):
     count = lambda: Filter.launches
     max_abs = max(
         check_kernel(f"filter kernel vs plain C{N} filter", filt,
-                     filt.reference, args, names, KERNEL_TOL, count),
+                     filt.reference, args, names, KERNEL_TOL, count,
+                     exact=True),
         check_kernel(f"filter kernel vs plain C{N} probe (filter term "
                      "alone)", probe, probe.reference, args, names,
-                     PROBE_TOL, count))
+                     PROBE_TOL, count, exact=True))
     log("filter probe, plain f32 vs f64: "
         + f64_spread(probe.reference, args, names))
 
@@ -702,20 +761,25 @@ def galewsky_path(card: str, gal: Galewsky):
     stage_us = 1e3 * sum(event_ms(lambda: st(*a), 200)
                          for st, a in ((st1, a1), (st2, a2), (st3, a2)))
     r_ms = event_ms(lambda: route(y["strips_sn"], y["strips_we"]), 200)
-    record = kernel_record(
+    max_abs = max(max_abs, check_kernel(
+        f"filter kernel vs plain C{N} filter, day 6 + {TIMED_STEPS} steps",
+        filt, filt.reference, fargs, names, KERNEL_TOL, count, exact=True))
+    timed = [time_form("filter", filt, filt.reference, fargs,
+                       FILTER_FLOPS_PER_CELL, card)]
+    frecord = record(
         "cov_nu4_filter", "jaxstream_torch/csrc/cov_nu4_filter.cu",
-        "jaxstream/ops/pallas/swe_cov.py:2544", launches[1], max_abs,
-        [("filter", filt, filt.reference, fargs)], FILTER_FLOPS_PER_CELL,
-        card)
-    k_us = record["ms"] * 1e3
+        "jaxstream/ops/pallas/swe_cov.py:2544", launches[1], max_abs, timed)
+    k_us = frecord["ms"] * 1e3
     other = step_us - stage_us - (4 * r_ms * 1e3 + k_us)
     log(f"Galewsky step {step_us:.1f} us = routers 4 x {r_ms * 1e3:.2f} us + "
         f"stage kernels {stage_us:.1f} us + filter {k_us:.2f} us + "
         f"{other:.1f} us other; card {card}")
+    redesign_line("cov_nu4_filter", timed, 1, "split Galewsky",
+                  step_device_us(step, y, t, GAL_DT), card)
     device_busy(lambda: integrate(step, y, t, PROFILED_STEPS, GAL_DT),
                 PROFILED_STEPS, step_us, card,
                 ("cov_stage_kernel", "cov_nu4_filter_kernel"))
-    return record, ysplit
+    return frecord, ysplit
 
 
 def refused_path(card: str, gal: Galewsky, ysplit) -> dict:
@@ -1994,6 +2058,13 @@ def main() -> int:
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas: {line.strip()}")
+        if b.name in EARLIER_PTXAS and b.log:
+            got = [(int(r), int(sm or 0)) for r, sm in re.findall(
+                r"Used (\d+) registers[^\n]*?(?:, (\d+) bytes smem)?\n",
+                b.log)]
+            want = EARLIER_PTXAS[b.name]
+            log(f"  ptxas (registers, smem) {got}: "
+                + ("as before" if got == want else f"before: {want}"))
 
     # ---- the port's main path, through its entry points -----------------
     t0 = time.perf_counter()
@@ -2016,7 +2087,8 @@ def main() -> int:
     gsn, gwe = route(y0["strips_sn"], y0["strips_we"])
     args1 = (s0["h"], s0["u"], gsn, gwe, model.b_ext)
     max_abs = check_kernel(f"kernel vs plain C{N} stage 1 (a=0)", st1,
-                           st1.reference, args1, names, KERNEL_TOL, count)
+                           st1.reference, args1, names, KERNEL_TOL, count,
+                           exact=True)
     k1 = st1.reference(*args1)
     gsn2, gwe2 = route(k1[2], k1[3])
     args2 = (s0["h"], s0["u"], k1[0], k1[1], gsn2, gwe2, model.b_ext)
@@ -2029,9 +2101,11 @@ def main() -> int:
     max_abs = max(
         max_abs,
         check_kernel(f"kernel vs plain C{N} stage 2 (a=0.75)", st2,
-                     st2.reference, args2, names, KERNEL_TOL, count),
+                     st2.reference, args2, names, KERNEL_TOL, count,
+                     exact=True),
         check_kernel(f"kernel vs plain C{N} stage 3, y0=-2yc (g*L alone)",
-                     st3, st3.reference, args3, names, TENDENCY_TOL, count))
+                     st3, st3.reference, args3, names, TENDENCY_TOL, count,
+                     exact=True))
 
     # ---- 3. fused vs classic, 3 steps ------------------------------------
     yf, _ = integrate(step, y0, 0.0, 3, STEP_DT)
@@ -2065,16 +2139,26 @@ def main() -> int:
         f"{steps_s * STEP_DT / 86400.0:.3f} sim-days/s; stage launches "
         f"{launches} = 3 x {TIMED_STEPS}; card {card}")
 
-    # Kernel, plain and router times on the run's own state.
+    # Kernel bitwise, kernel, plain and router times on the run's own
+    # state, and the step's device time.
     gsn, gwe = route(y["strips_sn"], y["strips_we"])
     a1 = (y["h"], y["u"], gsn, gwe, model.b_ext)
     a2 = (y["h"], y["u"], y["h"], y["u"], gsn, gwe, model.b_ext)
-    stage_record = kernel_record(
+    a3 = (-2.0 * y["h"], -2.0 * y["u"], y["h"], y["u"], gsn, gwe,
+          model.b_ext)
+    for label, st, a, tol in (("stage 1", st1, a1, KERNEL_TOL),
+                              ("stage 2", st2, a2, KERNEL_TOL),
+                              ("stage 3", st3, a2, KERNEL_TOL),
+                              ("stage 3, y0=-2yc", st3, a3, TENDENCY_TOL)):
+        max_abs = max(max_abs, check_kernel(
+            f"kernel vs plain C{N} {label}, after {WARM_STEPS + TIMED_STEPS}"
+            " steps", st, st.reference, a, names, tol, count, exact=True))
+    timed = [time_form(label, st, st.reference, a, FLOPS_PER_CELL, card)
+             for label, st, a in (("stage 1", st1, a1), ("stage 2", st2, a2),
+                                  ("stage 3", st3, a2))]
+    stage_record = record(
         "cov_stage_compact", "jaxstream_torch/csrc/cov_stage.cu",
-        "jaxstream/ops/pallas/swe_cov.py:1989", launches, max_abs,
-        [("stage 1", st1, st1.reference, a1),
-         ("stage 2", st2, st2.reference, a2),
-         ("stage 3", st3, st3.reference, a2)], FLOPS_PER_CELL, card)
+        "jaxstream/ops/pallas/swe_cov.py:1989", launches, max_abs, timed)
     r_ms = event_ms(lambda: route(y["strips_sn"], y["strips_we"]), 200)
     step_us = 1e6 / steps_s
     stages_us = 3e3 * stage_record["ms"]
@@ -2082,6 +2166,8 @@ def main() -> int:
         f" us = stage kernels {stages_us:.1f} us + routers "
         f"{3 * r_ms * 1e3:.1f} us + {step_us - stages_us - 3e3 * r_ms:.1f}"
         f" us other; card {card}")
+    redesign_line("cov_stage_compact", timed, 3, "compact TC5",
+                  step_device_us(step, y, t, STEP_DT), card)
 
     # ---- 5. device busy share: a traced window, apart from the timed one
     device_busy(lambda: integrate(step, y, t, PROFILED_STEPS, STEP_DT),

@@ -1,0 +1,405 @@
+// Device code of the covariant kernels that take all faces of a tile in one
+// block: the compact stage (cov_stage.cu) and the split del^4 filter
+// (cov_nu4_filter.cu).  On the equiangular cube every face has the same
+// metric (it depends on the coordinate rows xc, xf alone), so such a block
+// computes the metric terms of its tile once, into shared memory, and then
+// runs the face-dependent part for each face of its group, while the next
+// face's window is copied into a second shared buffer asynchronously
+// (cp.async).  Every stored value is the float the plain version computes
+// with the same operations in the same order (built with -fmad=false), so
+// the kernels stay bitwise equal to it.  cov_common.cuh's advective_tile,
+// nu4_window, Nu4Metric and edge_fetch, which the other kernels share,
+// are untouched, so that those kernels build to the same code: edge_src,
+// LapMetric and lap_metric repeat their logic for this design.
+
+#pragma once
+
+#include "cov_common.cuh"
+
+namespace cov {
+
+// ---- asynchronous global -> shared copies (cp.async) ----------------------
+// The three helpers are all of the kernels' asynchronous staging; the host
+// emulation of the kernel sources gives them plain-copy stand-ins.
+
+#ifdef __CUDACC__
+// One float, cached in L1 (cp.async.ca).
+__device__ __forceinline__ void async_copy4(float* sdst, const float* gsrc) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(sdst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(gsrc)
+               : "memory");
+#endif
+}
+
+// Closes the thread's copies issued since the last commit into one group.
+__device__ __forceinline__ void async_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// Waits until at most N of the thread's committed groups are in flight.
+// Other threads' copies are visible only after a __syncthreads() too.
+template <int N>
+__device__ __forceinline__ void async_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+#endif  // __CUDACC__
+
+// Raises kernel's limit of dynamic shared memory to bytes (needed above
+// 48 KB), once per device; returns the cudaError_t (0 = ok).
+template <class Params>
+int dynamic_smem_limit(void (*kernel)(Params), int bytes) {
+  static bool done[64] = {};
+  int dev = 0;
+  int rc = static_cast<int>(cudaGetDevice(&dev));
+  if (rc != 0) return rc;
+  if (dev >= 0 && dev < 64 && done[dev]) return 0;
+  rc = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  if (rc == 0 && dev >= 0 && dev < 64) done[dev] = true;
+  return rc;
+}
+
+// ---- tile geometry --------------------------------------------------------
+
+constexpr int FTX = 32;            // output tile width along alpha (i)
+constexpr int FTY = 24;            // output tile height along beta (j)
+constexpr int FPB = 3;             // faces per block: a grid of 2 groups
+constexpr int NT = BX * BY;        // threads per block (256)
+constexpr int WOFF = 2;            // shared column of the tile's column 0
+constexpr int WS = FTX + 4;        // shared row stride of a staged window
+static_assert(FTX == BX && FTY % BY == 0, "one column per lane");
+
+// The source of field fi at face-local (j, i), as edge_fetch reads it: the
+// interior q or an edge ghost of the routed blocks gsn / gwe; nullptr at a
+// ghost corner or past the ghost ring.
+__device__ __forceinline__ const float* edge_src(const float* __restrict__ q,
+                                                 const float* __restrict__ gsn,
+                                                 const float* __restrict__ gwe,
+                                                 int fi, int n, int hh, int rw,
+                                                 int j, int i) {
+  const bool jin = j >= 0 && j < n;
+  const bool iin = i >= 0 && i < n;
+  if (jin && iin) return q + j * n + i;
+  if (iin) {
+    if (j < 0 && j >= -hh) return gsn + (fi * 2 * hh + (j + hh)) * n + i;
+    if (j >= n && j < n + hh)
+      return gsn + (fi * 2 * hh + hh + (j - n)) * n + i;
+  } else if (jin) {
+    if (i < 0 && i >= -hh) return gwe + j * rw + fi * 2 * hh + (i + hh);
+    if (i >= n && i < n + hh) return gwe + j * rw + fi * 2 * hh + hh + (i - n);
+  }
+  return nullptr;
+}
+
+// ---- a tile's regions, one column per lane --------------------------------
+
+// Calls fn(y, x) once for each cell of a ROWS x COLS region of the tile
+// (COLS >= BX): the thread's cells (ty + r * BY, tx) of the rows that the
+// block's warps cover evenly, with offsets known at compile time, then the
+// rest (the last rows and the columns past BX) one cell per thread.
+template <int ROWS, int COLS, class F>
+__device__ __forceinline__ void for_region(F fn) {
+  constexpr int RM = ROWS / BY * BY;            // rows of the even part
+  constexpr int BOTTOM = (ROWS - RM) * COLS;    // the last rows
+  constexpr int REST = BOTTOM + RM * (COLS - BX);
+  static_assert(COLS >= BX && REST <= NT, "one pass for the rest");
+#pragma unroll
+  for (int r = 0; r < RM / BY; ++r)
+    fn(threadIdx.y + r * BY, (int)threadIdx.x);
+  const int t = threadIdx.y * BX + threadIdx.x;
+  if (REST > 0 && t < REST) {
+    if (t < BOTTOM) {
+      const int y = t / COLS;
+      fn(RM + y, t - y * COLS);
+    } else {
+      const int u = t - BOTTOM, y = u / (COLS - BX);
+      fn(y, BX + u - y * (COLS - BX));
+    }
+  }
+}
+
+// Issues the copies of rows jw .. jw+ROWS-1, columns i0-A .. i0+FTX+A-1 of
+// field fi of one face into s (row stride WS, column c of the tile at
+// s[r * WS + WOFF + c]): each cell from edge_src (the interior q or the
+// routed ghosts gsn / gwe), 0 where it gives none (ghost corners, past
+// the ring, past a ragged tile's edge).
+template <int ROWS, int A>
+__device__ __forceinline__ void stage_field(float* s,
+                                            const float* __restrict__ q,
+                                            const float* __restrict__ gsn,
+                                            const float* __restrict__ gwe,
+                                            int fi, int n, int hh, int rw,
+                                            int jw, int i0) {
+  for_region<ROWS, FTX + 2 * A>([&](int r, int cc) {
+    const int c = cc - A;
+    float* dst = s + r * WS + WOFF + c;
+    const float* src = edge_src(q, gsn, gwe, fi, n, hh, rw, jw + r, i0 + c);
+    if (src != nullptr)
+      async_copy4(dst, src);
+    else
+      *dst = 0.0f;
+  });
+}
+
+// ---- the compact stage: metric terms and one face's tile -----------------
+
+// The face-independent terms of the stage on one tile, computed once per
+// block with advective_tile's operations: on the Bernoulli band (cell
+// (ly, lx) at (j0 + ly - 1, i0 + lx - 1)) the inverse metric g_aa, g_ab,
+// g_bb; at the alpha-faces (ly, lf) and beta-faces (lf, lx) the
+// xface_metric / yface_metric pair; at the centers inv_sqrtg / d, sqrtg
+// and inv_rho.  Entries that no kept output reads are 0.
+struct StageMetric {
+  float gaa[FTY + 2][FTX + 2], gab[FTY + 2][FTX + 2], gbb[FTY + 2][FTX + 2];
+  float xa[FTY][FTX + 1], xb[FTY][FTX + 1];   // fg_aa, fg_ab
+  float ya[FTY + 1][FTX], yb[FTY + 1][FTX];   // fg_ab, fg_bb
+  float isgd[FTY][FTX], sqrtg[FTY][FTX], irho[FTY][FTX];
+};
+
+// One face's staged inputs: h with a 2-deep apron, u_a and u_b with a
+// 1-deep one (tile cell (y, x) at h[y + 2][WOFF + x], ua[y + 1][WOFF + x]),
+// and the orography on the band (cell (ly, lx) as in StageMetric).
+struct StageWindow {
+  float h[FTY + 4][WS];
+  float ua[FTY + 2][WS];
+  float ub[FTY + 2][WS];
+  float b[FTY + 2][FTX + 2];
+};
+
+// The Bernoulli band and the face fluxes of one face's tile.
+struct StageScratch {
+  float bern[FTY + 2][FTX + 2];
+  float fx[FTY][FTX + 1];
+  float fy[FTY + 1][FTX];
+};
+
+// The band cell (j, i) holds a value: the face's ring-1 frame without its
+// corners.
+__device__ __forceinline__ bool band_cell(int n, int j, int i) {
+  const bool jin = j >= 0 && j < n, iin = i >= 0 && i < n;
+  return j >= -1 && j <= n && i >= -1 && i <= n && (jin || iin);
+}
+
+// Fills mt for the tile at (j0, i0).  xc, xf (row coordinates) and yc, yf
+// (column coordinates) as advective_tile takes them.  No barrier: the
+// caller's next __syncthreads() publishes mt.
+__device__ __forceinline__ void stage_metric(
+    StageMetric& mt, const float* __restrict__ xc,
+    const float* __restrict__ xf, const float* __restrict__ yc,
+    const float* __restrict__ yf, float R2, float inv_d, int n, int hh,
+    int j0, int i0) {
+  for_region<FTY + 2, FTX + 2>([&](int ly, int lx) {
+    const int j = j0 + ly - 1, i = i0 + lx - 1;
+    float g_aa = 0.0f, g_ab = 0.0f, g_bb = 0.0f;
+    if (band_cell(n, j, i)) {
+      const float x = xc[i + hh], y = yc[j + hh];
+      const float dxda = 1.0f + x * x;
+      const float dydb = 1.0f + y * y;
+      const float rho2 = dxda + y * y;
+      const float inv_R2dxda = 1.0f / (R2 * dxda);
+      const float inv_dydb = 1.0f / dydb;
+      g_aa = rho2 * inv_R2dxda;
+      g_bb = (rho2 * inv_R2dxda) * (dxda * inv_dydb);
+      g_ab = rho2 * ((x * inv_R2dxda) * (y * inv_dydb));
+    }
+    mt.gaa[ly][lx] = g_aa;
+    mt.gab[ly][lx] = g_ab;
+    mt.gbb[ly][lx] = g_bb;
+  });
+  for_region<FTY, FTX + 1>([&](int ly, int lf) {
+    const int j = j0 + ly, i = i0 + lf;
+    float fa = 0.0f, fb = 0.0f;
+    if (j < n && i <= n) xface_metric(xf[i + hh], yc[j + hh], fa, fb);
+    mt.xa[ly][lf] = fa;
+    mt.xb[ly][lf] = fb;
+  });
+  for_region<FTY + 1, FTX>([&](int lf, int lx) {
+    const int j = j0 + lf, i = i0 + lx;
+    float fa = 0.0f, fb = 0.0f;
+    if (j <= n && i < n) yface_metric(xc[i + hh], yf[j + hh], fa, fb);
+    mt.ya[lf][lx] = fa;
+    mt.yb[lf][lx] = fb;
+  });
+  for_region<FTY, FTX>([&](int ly, int lx) {
+    const int j = j0 + ly, i = i0 + lx;
+    float isgd = 0.0f, sqrtg = 0.0f, irho = 0.0f;
+    if (j < n && i < n) {
+      const float x = xc[i + hh], y = yc[j + hh];
+      const float dxda = 1.0f + x * x;
+      const float dydb = 1.0f + y * y;
+      const float rho2 = dxda + y * y;
+      const float inv_rho = rsqrtf(rho2);
+      const float inv_rho2 = inv_rho * inv_rho;
+      const float sg_row = R2 * dxda;
+      sqrtg = (sg_row * dydb) * (inv_rho2 * inv_rho);
+      const float inv_sqrtg = ((1.0f / sg_row) * (1.0f / dydb))
+                            * (rho2 * rho2 * inv_rho);
+      isgd = inv_sqrtg * inv_d;
+      irho = inv_rho;
+    }
+    mt.isgd[ly][lx] = isgd;
+    mt.sqrtg[ly][lx] = sqrtg;
+    mt.irho[ly][lx] = irho;
+  });
+}
+
+// advective_tile's right-hand side of one face's tile from its staged
+// window w and the tile's metric terms mt (both synchronised), with the
+// face's sym rows, coordinates (for the Coriolis term: xc along i, yc
+// along j) and frame fz.  For every interior cell it calls epi(r, j, i,
+// dh, dua, dub, hc, uac, ubc) with r the thread's row index (ly = ty + r *
+// BY, lx = tx) and the cell's current values.  Every thread of the block
+// must call it: it synchronises once, between the fluxes and the
+// tendencies.
+template <class Epilogue>
+__device__ __forceinline__ void stage_face_tile(
+    const StageWindow& w, const StageMetric& mt, StageScratch& s,
+    const SymRows& sym, const float* __restrict__ xc,
+    const float* __restrict__ yc, const float* __restrict__ fz,
+    const StageConsts& k, int n, int hh, int j0, int i0, Epilogue epi) {
+  auto H = [&](int y, int x) { return w.h[y + 2][WOFF + x]; };
+  auto UA = [&](int y, int x) { return w.ua[y + 1][WOFF + x]; };
+  auto UB = [&](int y, int x) { return w.ub[y + 1][WOFF + x]; };
+
+  // ---- Bernoulli function on the band -------------------------------------
+  for_region<FTY + 2, FTX + 2>([&](int ly, int lx) {
+    float bern = 0.0f;
+    if (band_cell(n, j0 + ly - 1, i0 + lx - 1)) {
+      const float va = UA(ly - 1, lx - 1), vb = UB(ly - 1, lx - 1);
+      const float uca = mt.gaa[ly][lx] * va + mt.gab[ly][lx] * vb;
+      const float ucb = mt.gab[ly][lx] * va + mt.gbb[ly][lx] * vb;
+      const float ke = 0.5f * (uca * va + ucb * vb);
+      bern = k.gravity * (H(ly - 1, lx - 1) + w.b[ly][lx]) + ke;
+    }
+    s.bern[ly][lx] = bern;
+  });
+
+  // ---- mass fluxes through the alpha-faces (i) and beta-faces (j) -------
+  for_region<FTY, FTX + 1>([&](int ly, int lf) {
+    const int j = j0 + ly, i = i0 + lf;   // face i: cells i-1 | i
+    float flux = 0.0f;
+    if (j < n && i <= n) {
+      float U;
+      if (i == 0 || i == n) {   // W / E seam
+        U = (i == 0 ? sym.w : sym.e)[j * sym.ws];
+      } else {
+        const float uba = 0.5f * (UA(ly, lf - 1) + UA(ly, lf));
+        const float ubb = 0.5f * (UB(ly, lf - 1) + UB(ly, lf));
+        U = mt.xa[ly][lf] * uba + mt.xb[ly][lf] * ubb;
+      }
+      flux = upwind_flux(U, H(ly, lf - 2), H(ly, lf - 1), H(ly, lf),
+                         H(ly, lf + 1));
+    }
+    s.fx[ly][lf] = flux;
+  });
+  for_region<FTY + 1, FTX>([&](int lf, int lx) {
+    const int j = j0 + lf, i = i0 + lx;   // face j: cells j-1 | j
+    float flux = 0.0f;
+    if (j <= n && i < n) {
+      float U;
+      if (j == 0 || j == n) {   // S / N seam
+        U = (j == 0 ? sym.s : sym.n)[i];
+      } else {
+        const float vba = 0.5f * (UA(lf - 1, lx) + UA(lf, lx));
+        const float vbb = 0.5f * (UB(lf - 1, lx) + UB(lf, lx));
+        U = mt.ya[lf][lx] * vba + mt.yb[lf][lx] * vbb;
+      }
+      flux = upwind_flux(U, H(lf - 2, lx), H(lf - 1, lx), H(lf, lx),
+                         H(lf + 1, lx));
+    }
+    s.fy[lf][lx] = flux;
+  });
+  __syncthreads();
+
+  // ---- tendencies ---------------------------------------------------------
+  const int lx = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < FTY / BY; ++r) {
+    const int ly = threadIdx.y + r * BY;
+    const int j = j0 + ly, i = i0 + lx;
+    if (j >= n || i >= n) continue;
+    const float x = xc[i + hh], y = yc[j + hh];
+    const float dh = -((s.fx[ly][lx + 1] - s.fx[ly][lx])
+                       + (s.fy[ly + 1][lx] - s.fy[ly][lx]))
+                   * mt.isgd[ly][lx];
+    const float dba = (s.bern[ly + 1][lx + 2] - s.bern[ly + 1][lx])
+                    * k.inv2d;
+    const float dbb = (s.bern[ly + 2][lx + 1] - s.bern[ly][lx + 1])
+                    * k.inv2d;
+    const float dub_da = (UB(ly, lx + 1) - UB(ly, lx - 1)) * k.inv2d;
+    const float dua_db = (UA(ly + 1, lx) - UA(ly - 1, lx)) * k.inv2d;
+    const float rz = ((fz[0] + x * fz[1]) + y * fz[2]) * mt.irho[ly][lx];
+    const float absv = (dub_da - dua_db)
+                     + (k.two_omega * rz) * mt.sqrtg[ly][lx];
+    // The contravariant u at the center, as the band computed it.
+    const float va = UA(ly, lx), vb = UB(ly, lx);
+    const float g_aa = mt.gaa[ly + 1][lx + 1], g_ab = mt.gab[ly + 1][lx + 1],
+                g_bb = mt.gbb[ly + 1][lx + 1];
+    const float uca = g_aa * va + g_ab * vb;
+    const float ucb = g_ab * va + g_bb * vb;
+    const float dua = absv * ucb - dba;
+    const float dub = (-absv) * uca - dbb;
+    epi(r, j, i, dh, dua, dub, H(ly, lx), va, vb);
+  }
+}
+
+// ---- the split del^4 filter: metric terms ----------------------------------
+
+// The face metric terms of a Laplacian window of LY x LX cells (x-face k
+// the left face of column k, y-face k the lower face of row k), as
+// Nu4Metric holds them for the stage kernels' tile.
+template <int LY, int LX>
+struct LapMetric {
+  float xa[LY][LX + 1];   // fg_aa at x-faces
+  float xb[LY][LX + 1];   // fg_ab at x-faces
+  float ya[LY + 1][LX];   // fg_ab at y-faces
+  float yb[LY + 1][LX];   // fg_bb at y-faces
+  float isg[LY][LX];      // inv_sqrtg * (1/d) at centers
+
+  __device__ __forceinline__ CellMetric at(int wy, int wx) const {
+    return CellMetric{xa[wy][wx], xb[wy][wx], xa[wy][wx + 1], xb[wy][wx + 1],
+                      yb[wy][wx], ya[wy][wx], yb[wy + 1][wx], ya[wy + 1][wx],
+                      isg[wy][wx]};
+  }
+};
+
+// nu4_window's metric terms of the l1 window with origin (lj, li), the
+// face's ring-1 window [-1, n]^2 clipped to it.  No barrier: the caller's
+// next __syncthreads() publishes mt.
+template <int LY, int LX>
+__device__ __forceinline__ void lap_metric(LapMetric<LY, LX>& mt,
+                                           const float* __restrict__ xc,
+                                           const float* __restrict__ xf,
+                                           int n, int hh, int lj, int li,
+                                           float R2, float invd) {
+  for_region<LY, LX + 1>([&](int wy, int k) {
+    const int r = lj + wy, c = li + k;
+    float fa = 0.0f, fb = 0.0f;
+    if (r >= -1 && r <= n && c >= -1 && c <= n + 1)
+      xface_metric(xf[c + hh], xc[r + hh], fa, fb);
+    mt.xa[wy][k] = fa;
+    mt.xb[wy][k] = fb;
+  });
+  for_region<LY + 1, LX>([&](int k, int wx) {
+    const int r = lj + k, c = li + wx;
+    float fa = 0.0f, fb = 0.0f;
+    if (r >= -1 && r <= n + 1 && c >= -1 && c <= n)
+      yface_metric(xc[c + hh], xf[r + hh], fa, fb);
+    mt.ya[k][wx] = fa;
+    mt.yb[k][wx] = fb;
+  });
+  for_region<LY, LX>([&](int wy, int wx) {
+    const int r = lj + wy, c = li + wx;
+    mt.isg[wy][wx] = (r >= -1 && r <= n && c >= -1 && c <= n)
+                         ? center_isg(xc[c + hh], xc[r + hh], R2, invd)
+                         : 0.0f;
+  });
+}
+
+}  // namespace cov

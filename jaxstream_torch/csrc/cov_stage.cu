@@ -25,37 +25,52 @@
 //   y_new    stage 1: yc + g*dt*L; stages 2-3: (a*y0 + b*yc) + b*dt*L;
 //            written with the new boundary strips (6, 6h, n) / (6, n, 6h).
 //
-// Design.  The TPU kernel holds a whole (m, m) face of three fields in
-// VMEM (602 KB per field at C384); a Hopper block has 227 KB of shared
-// memory, so each block takes one 32 x 16 tile of one face: a grid of
-// (ceil(n/32), ceil(n/16), 6) independent blocks, no atomics, bitwise
-// reproducible.  A block stages its tile of h with a 2-deep apron and of
-// u_a, u_b with a 1-deep apron in shared memory, reading each apron cell
-// from the interior arrays or, past the face edge, from the routed ghost
-// strips.  The stencils are dimension-split, so the apron needs edge
-// ghosts only: no kept output reads an h x h ghost corner, and those
-// cells are staged as zeros.  Face fluxes and the Bernoulli band are
-// computed once per tile into shared memory (19 KB in all) and then
-// differenced (cov_common.cuh's advective_tile, which the del^4 stage
-// kernels share).
-//
 // Bound.  With ~137 flops per cell per stage (jaxstream/utils/
 // profiling.py:136) the stage does 6 n^2 * 137 flops; it moves 7 field
 // passes of 6 n^2 float32 (stage 1: h, u_a, u_b in and out plus b) or 10
 // (stages 2-3: plus y0), and the strips.  At C384 that is ~24.8 MB ->
 // 7.4 us (stage 1) and ~35.4 MB -> 10.6 us (stages 2-3) at 3.35 TB/s,
 // against ~1.8 us of float32 arithmetic at 67 TFLOP/s: bound by memory.
-// This first design is simple and right; it has no matrix products, so
-// wgmma does not apply.  TMA / cp.async staging and occupancy tuning are
-// for later.
+// A launch's bytes fit the 50 MB L2, so what a tile-per-block kernel
+// spends instead is latency and instructions: loads that nothing
+// overlaps, and the closed-form metric (IEEE divisions, rsqrtf) rebuilt
+// for each face of a tile position though it is the same on all six.
+//
+// Design.  A block of 256 threads takes one 32 x 24 tile position and a
+// group of three faces (cov_faces.cuh): the grid is (ceil(n/32),
+// ceil(n/24), 2), 12 x 16 x 2 = 384 blocks at C384.  The block
+//   1. issues the asynchronous copies (cp.async) of its first face's
+//      window: h with a 2-deep apron, u_a and u_b with a 1-deep one (each
+//      cell from the interior or, past the face edge, the routed strips;
+//      ghost corners, which no kept output reads, and cells past a ragged
+//      tile as zeros), b on the Bernoulli band;
+//   2. meanwhile computes the tile's face-independent metric terms once
+//      into shared memory (StageMetric: g_aa, g_ab, g_bb on the band, the
+//      xface/yface_metric pairs, sqrtg, inv_sqrtg/d and inv_rho at the
+//      centers): the very floats advective_tile computes for each face;
+//   3. per face of its group: issues the next face's window into the
+//      other buffer, waits for this face's, and runs the band, the fluxes
+//      and the tendencies from shared memory; the epilogue's y0 loads are
+//      issued at the top of the face's step, so they land under its
+//      arithmetic.
+// Every per-cell phase maps one tile column to one lane (for_region), so
+// a thread's cells sit at offsets known at compile time: the kernel is
+// bound by instruction issue, most of it integer index and mask work
+// (the SASS of the first faces-in-block build was ~70% integer and
+// control instructions).  One code path serves every tile: an
+// instantiation for tiles whose window lies inside the face (no masks,
+// 16-byte copies) was measured slower on the H100, its larger code and
+// register pressure costing more than the masks it saved.
+// Occupancy: 72 576 B of dynamic shared memory (two windows 2 x 15 056,
+// metric 32 560, scratch 9 904) and __launch_bounds__(256, 3): 3 blocks
+// (24 warps) per SM, <= 80 registers.  384 blocks on 132 SMs x 3 slots
+// = 396: one wave, 120 SMs with three blocks and 12 with two.
 
-#include "cov_common.cuh"
+#include "cov_faces.cuh"
 
 namespace {
 
 using namespace cov;
-
-constexpr int AP = 2;      // h apron: PLR reads two cells past a face
 
 struct Params {
   const float* h0;   // (6, n, n) stage base, read only if with_y0
@@ -76,77 +91,116 @@ struct Params {
   float R2, gravity, two_omega, inv2d, inv_d, a, bcoef, g_dt;
 };
 
-// At least 4 resident blocks per SM caps the kernel at 64 registers.
-// Left to itself nvcc took 66, which allows only 3 blocks of 256 threads
-// per SM, and the stage ran ~18% slower on the H100.
-__global__ void __launch_bounds__(BX * BY, 4)
-cov_stage_kernel(const Params p) {
-  __shared__ float s_h[TY + 2 * AP][TX + 2 * AP];
-  __shared__ float s_ua[TY + 2][TX + 2];
-  __shared__ float s_ub[TY + 2][TX + 2];
-  __shared__ AdvScratch s_adv;
+struct Smem {
+  StageWindow w[2];   // this face's window and the next one's
+  StageMetric mt;
+  StageScratch s;
+};
 
+// Issues the copies of face f's window into w (no commit).
+__device__ __forceinline__ void stage_window(const Params& p, StageWindow& w,
+                                             int f, int j0, int i0) {
   const int n = p.n, hh = p.halo, m = n + 2 * hh, rw = 6 * hh + 2;
-  const int f = blockIdx.z;
-  const int i0 = blockIdx.x * TX, j0 = blockIdx.y * TY;
-  const int tx = threadIdx.x, ty = threadIdx.y;
   const long nn = (long)n * n;
-  const float* hc = p.hc + f * nn;
-  const float* ua = p.uc + f * nn;
-  const float* ub = p.uc + (6 + f) * nn;
   const float* gsn = p.gsn + (long)f * rw * n;
   const float* gwe = p.gwe + (long)f * n * rw;
+  stage_field<FTY + 4, 2>(&w.h[0][0], p.hc + f * nn, gsn, gwe, 0, n, hh, rw,
+                          j0 - 2, i0);
+  stage_field<FTY + 2, 1>(&w.ua[0][0], p.uc + f * nn, gsn, gwe, 1, n, hh,
+                          rw, j0 - 1, i0);
+  stage_field<FTY + 2, 1>(&w.ub[0][0], p.uc + (6 + f) * nn, gsn, gwe, 2, n,
+                          hh, rw, j0 - 1, i0);
+  // The orography on the band: rows and columns -1 .. n of b's frame.
+  const float* bf = p.b + (long)f * m * m;
+  for_region<FTY + 2, FTX + 2>([&](int r, int c) {
+    const int j = j0 + r - 1, i = i0 + c - 1;
+    if (j <= n && i <= n)
+      async_copy4(&w.b[r][c], bf + (long)(j + hh) * m + i + hh);
+    else
+      w.b[r][c] = 0.0f;
+  });
+}
 
-  // ---- 1. stage the tile with its aprons (ghost corners as 0) ---------
-  for (int ly = ty; ly < TY + 2 * AP; ly += BY)
-    for (int lx = tx; lx < TX + 2 * AP; lx += BX)
-      s_h[ly][lx] = edge_fetch(hc, gsn, gwe, 0, n, hh, rw, j0 + ly - AP,
-                               i0 + lx - AP);
-  for (int ly = ty; ly < TY + 2; ly += BY)
-    for (int lx = tx; lx < TX + 2; lx += BX) {
-      const int j = j0 + ly - 1, i = i0 + lx - 1;
-      s_ua[ly][lx] = edge_fetch(ua, gsn, gwe, 1, n, hh, rw, j, i);
-      s_ub[ly][lx] = edge_fetch(ub, gsn, gwe, 2, n, hh, rw, j, i);
-    }
-  __syncthreads();
-
-  // ---- 2. tendencies, RK combine, state and strip stores --------------
-  float* ssn = p.ssn + (long)f * 6 * hh * n;
-  float* swe = p.swe + (long)f * n * 6 * hh;
+// The three faces of the block's group on one tile position.
+__device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
+                                            int f0, int j0, int i0) {
+  const int n = p.n, hh = p.halo, rw = 6 * hh + 2;
+  const long nn = (long)n * n;
+  const int lx = threadIdx.x;
   const StageConsts k{p.R2, p.gravity, p.two_omega, p.inv2d, p.inv_d};
-  advective_tile<true, TX + 2 * AP, TX + 2>(
-      &s_h[0][0], &s_ua[0][0], &s_ub[0][0], s_adv,
-      routed_sym(gsn, gwe, n, hh), p.b + (long)f * m * m,
-      p.xc, p.xf, p.xc, p.xf, p.fz + 3 * f, k, n, hh, j0, i0,
-      [=](int ly, int lx, int j, int i, float dh, float dua, float dub) {
-        const long c = f * nn + (long)j * n + i;
-        float y0h = 0.0f, y0a = 0.0f, y0b = 0.0f;
-        if (p.with_y0) {
-          y0h = p.h0[c];
-          y0a = p.u0[c];
-          y0b = p.u0[6 * nn + c];
+  // The tile holds cells of the boundary strips.
+  const bool strips = j0 < hh || i0 < hh || j0 + FTY > n - hh
+                      || i0 + FTX > n - hh;
+
+  stage_window(p, sm.w[0], f0, j0, i0);
+  async_commit();
+  stage_metric(sm.mt, p.xc, p.xf, p.xc, p.xf, p.R2, p.inv_d, n, hh, j0, i0);
+
+  for (int q = 0; q < FPB; ++q) {
+    const int f = f0 + q, cur = q & 1;
+    if (q + 1 < FPB) {
+      stage_window(p, sm.w[cur ^ 1], f + 1, j0, i0);
+      async_commit();
+      async_wait<1>();
+    } else {
+      async_wait<0>();
+    }
+    // The combine's y0 at the thread's cells, loaded ahead of the
+    // arithmetic.
+    float y0[FTY / BY][3] = {};
+    if (p.with_y0) {
+#pragma unroll
+      for (int r = 0; r < FTY / BY; ++r) {
+        const int j = j0 + threadIdx.y + r * BY, i = i0 + lx;
+        if (j < n && i < n) {
+          const long c = f * nn + (long)j * n + i;
+          y0[r][0] = p.h0[c];
+          y0[r][1] = p.u0[c];
+          y0[r][2] = p.u0[6 * nn + c];
         }
-        const float vals[3] = {
-            combine(p.with_y0, p.a, p.bcoef, p.g_dt, y0h,
-                    s_h[ly + AP][lx + AP], dh),
-            combine(p.with_y0, p.a, p.bcoef, p.g_dt, y0a,
-                    s_ua[ly + 1][lx + 1], dua),
-            combine(p.with_y0, p.a, p.bcoef, p.g_dt, y0b,
-                    s_ub[ly + 1][lx + 1], dub)};
-        p.ho[c] = vals[0];
-        p.uo[c] = vals[1];
-        p.uo[6 * nn + c] = vals[2];
-        for (int fi = 0; fi < 3; ++fi)
-          put_strips(ssn, swe, fi, n, hh, j, i, vals[fi]);
-      });
+      }
+    }
+    __syncthreads();   // this face's window (and, first, mt) complete
+
+    const StageWindow& w = sm.w[cur];
+    const float* gsn = p.gsn + (long)f * rw * n;
+    const float* gwe = p.gwe + (long)f * n * rw;
+    float* ssn = p.ssn + (long)f * 6 * hh * n;
+    float* swe = p.swe + (long)f * n * 6 * hh;
+    stage_face_tile(
+        w, sm.mt, sm.s, routed_sym(gsn, gwe, n, hh), p.xc, p.xc,
+        p.fz + 3 * f, k, n, hh, j0, i0,
+        [&](int r, int j, int i, float dh, float dua, float dub, float hcv,
+            float uav, float ubv) {
+          const long c = f * nn + (long)j * n + i;
+          const float vals[3] = {
+              combine(p.with_y0, p.a, p.bcoef, p.g_dt, y0[r][0], hcv, dh),
+              combine(p.with_y0, p.a, p.bcoef, p.g_dt, y0[r][1], uav, dua),
+              combine(p.with_y0, p.a, p.bcoef, p.g_dt, y0[r][2], ubv, dub)};
+          p.ho[c] = vals[0];
+          p.uo[c] = vals[1];
+          p.uo[6 * nn + c] = vals[2];
+          if (strips)
+            for (int fi = 0; fi < 3; ++fi)
+              put_strips(ssn, swe, fi, n, hh, j, i, vals[fi]);
+        });
+    __syncthreads();   // w and the scratch are free for the next face
+  }
+}
+
+__global__ void __launch_bounds__(NT, 3) cov_stage_kernel(const Params p) {
+  extern __shared__ float smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  stage_faces(p, sm, blockIdx.z * FPB, blockIdx.y * FTY, blockIdx.x * FTX);
 }
 
 }  // namespace
 
-// Launches one stage on `stream`; returns cudaGetLastError() (0 = ok).
-// with_y0 == 0: yc + g_dt*L (stage 1); with_y0 != 0: (a*y0 + b*yc) +
-// g_dt*L (stages 2-3; h0/u0 read only then).  All tensors float32,
-// contiguous, in the layouts of Params.
+// Launches one stage on `stream`; returns the cudaError_t of the shared
+// memory attribute or of the launch (0 = ok).  with_y0 == 0: yc +
+// g_dt*L (stage 1); with_y0 != 0: (a*y0 + b*yc) + g_dt*L (stages 2-3;
+// h0/u0 read only then).  All tensors float32, contiguous, in the layouts
+// of Params.
 extern "C" int cov_stage_compact_f32(
     const float* h0, const float* u0, const float* hc, const float* uc,
     const float* gsn, const float* gwe, const float* b_ext,
@@ -157,8 +211,12 @@ extern "C" int cov_stage_compact_f32(
     float a, float b, float g_dt, void* stream) {
   Params p{h0, u0, hc, uc, gsn, gwe, b_ext, xc, xf, fz, ho, uo, ssn, swe,
            n, halo, with_y0, R2, gravity, two_omega, inv2d, inv_d, a, b, g_dt};
-  const dim3 grid((n + TX - 1) / TX, (n + TY - 1) / TY, 6);
+  const int rc = dynamic_smem_limit(cov_stage_kernel, sizeof(Smem));
+  if (rc != 0) return rc;
+  const dim3 grid((n + FTX - 1) / FTX, (n + FTY - 1) / FTY, 6 / FPB);
   const dim3 block(BX, BY);
-  cov_stage_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  const size_t smem = sizeof(Smem);
+  cov_stage_kernel<<<grid, block, smem,
+                     static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,368 @@
+"""Probe the compact stage (B1) and the split del^4 filter (B2) on one GPU:
+an earlier tree's kernels against this tree's, in turns, and three
+ablations of the earlier B1.
+
+    git archive <commit> jaxstream_torch/csrc | tar -x -C build/jaxstream_torch/parent
+    python3 scripts/torch_faces_probe.py [--n N] build/jaxstream_torch/parent [OTHER ...]
+
+Each OTHER is a further directory holding a ``jaxstream_torch/csrc`` (a
+variant of this tree's two kernels), timed in the same turns under its
+directory's name.  The earlier sources are built with this tree's nvcc flags
+(``jaxstream_torch._build.NVCC_FLAGS``) into ``build/jaxstream_torch/
+probe/``.  The ablations rewrite the earlier ``cov_stage.cu`` (the
+tile-per-block design: one 32 x 16 tile of one face per block), keeping
+its staging of the window and its loads and stores, and replacing the
+right-hand side:
+
+* ``staging``: the window staged, then each output the staged centre
+  plus y0 and b (no arithmetic of the stage);
+* ``staging+metric``: as ``staging``, and the closed-form metric terms
+  advective_tile computes per face (band g_aa/g_ab/g_bb, the face
+  metrics, the center sqrtg / inv_sqrtg / inv_rho), folded into the
+  outputs as ``0 * sum`` so nothing is dead;
+* ``full``: the earlier kernel as it is.
+
+Every figure is device time per launch of 20 launches captured as a
+CUDA graph and replayed (``profiling.device_seconds``) at C``N`` (default
+384) on the state after 20 compact TC5 steps (B1) or one split Galewsky
+step (B2); each form is timed in turns (A, B, ..., ..., B, A).  The
+script also checks this tree's and the earlier kernels bitwise against
+the plain versions, prints each build's ``ptxas`` lines and each kernel
+function's SASS instruction count (``cuobjdump -sass``), and ends with a
+JSON summary line.  Needs a CUDA GPU and nvcc; exits 1 without them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+REPS = 20          # launches per captured window
+REPLAYS = 5        # graph replays per figure
+
+# The earlier B1's right-hand side and epilogue, which the ablations
+# replace (from the advective_tile call to the end of its lambda).
+_RHS_CALL = re.compile(r"  advective_tile<true, TX \+ 2 \* AP, TX \+ 2>\(.*?"
+                       r"\n      \}\);\n", re.S)
+
+_METRIC = r"""
+  for (int ly = ty; ly < TY + 2; ly += BY)
+    for (int lx = tx; lx < TX + 2; lx += BX) {
+      const int j = j0 + ly - 1, i = i0 + lx - 1;
+      const bool jin = j >= 0 && j < n, iin = i >= 0 && i < n;
+      if (j >= -1 && j <= n && i >= -1 && i <= n && (jin || iin)) {
+        const float x = p.xc[i + hh], y = p.xc[j + hh];
+        const float dxda = 1.0f + x * x;
+        const float dydb = 1.0f + y * y;
+        const float rho2 = dxda + y * y;
+        const float inv_R2dxda = 1.0f / (p.R2 * dxda);
+        const float inv_dydb = 1.0f / dydb;
+        acc += rho2 * inv_R2dxda;
+        acc += (rho2 * inv_R2dxda) * (dxda * inv_dydb);
+        acc += rho2 * ((x * inv_R2dxda) * (y * inv_dydb));
+      }
+    }
+  for (int ly = ty; ly < TY; ly += BY)
+    for (int lf = tx; lf < TX + 1; lf += BX) {
+      const int j = j0 + ly, i = i0 + lf;
+      if (j < n && i <= n && i != 0 && i != n) {
+        float fa, fb;
+        xface_metric(p.xf[i + hh], p.xc[j + hh], fa, fb);
+        acc += fa + fb;
+      }
+    }
+  for (int lf = ty; lf < TY + 1; lf += BY)
+    for (int lx = tx; lx < TX; lx += BX) {
+      const int j = j0 + lf, i = i0 + lx;
+      if (j <= n && i < n && j != 0 && j != n) {
+        float fa, fb;
+        yface_metric(p.xc[i + hh], p.xf[j + hh], fa, fb);
+        acc += fa + fb;
+      }
+    }
+  for (int ly = ty; ly < TY; ly += BY)
+    for (int lx = tx; lx < TX; lx += BX) {
+      const int j = j0 + ly, i = i0 + lx;
+      if (j >= n || i >= n) continue;
+      const float x = p.xc[i + hh], y = p.xc[j + hh];
+      const float dxda = 1.0f + x * x;
+      const float dydb = 1.0f + y * y;
+      const float rho2 = dxda + y * y;
+      const float inv_rho = rsqrtf(rho2);
+      const float inv_rho2 = inv_rho * inv_rho;
+      const float sg_row = p.R2 * dxda;
+      const float sqrtg = (sg_row * dydb) * (inv_rho2 * inv_rho);
+      const float inv_sqrtg = ((1.0f / sg_row) * (1.0f / dydb))
+                            * (rho2 * rho2 * inv_rho);
+      acc += sqrtg + inv_sqrtg * p.inv_d + inv_rho;
+    }
+"""
+
+_STORES = r"""
+  for (int ly = ty; ly < TY; ly += BY)
+    for (int lx = tx; lx < TX; lx += BX) {
+      const int j = j0 + ly, i = i0 + lx;
+      if (j >= n || i >= n) continue;
+      const long c = f * nn + (long)j * n + i;
+      float y0h = 0.0f, y0a = 0.0f, y0b = 0.0f;
+      if (p.with_y0) {
+        y0h = p.h0[c];
+        y0a = p.u0[c];
+        y0b = p.u0[6 * nn + c];
+      }
+      const float bb = p.b[(long)f * m * m + (long)(j + hh) * m + i + hh];
+      const float vals[3] = {(s_h[ly + AP][lx + AP] + y0h) + (bb + 0.0f * acc),
+                             s_ua[ly + 1][lx + 1] + y0a,
+                             s_ub[ly + 1][lx + 1] + y0b};
+      p.ho[c] = vals[0];
+      p.uo[c] = vals[1];
+      p.uo[6 * nn + c] = vals[2];
+      for (int fi = 0; fi < 3; ++fi)
+        put_strips(ssn, swe, fi, n, hh, j, i, vals[fi]);
+    }
+"""
+
+
+def ablated_stage(src: str, mode: str) -> str:
+    """The earlier cov_stage.cu with its right-hand side replaced
+    (``staging`` or ``staging+metric``)."""
+    body = "  float acc = 0.0f;\n  (void)k;\n"
+    if mode == "staging+metric":
+        body += _METRIC
+    body += _STORES
+    new, count = _RHS_CALL.subn(lambda _: body, src)
+    if count != 1:
+        raise RuntimeError("the earlier cov_stage.cu has no advective_tile "
+                           "call of the expected form")
+    return new
+
+
+def nvcc_build(src: Path, out: Path, include: Path) -> str:
+    """``nvcc`` ``src`` into the shared library ``out`` with the port's
+    flags; returns the compiler's output (the ptxas lines)."""
+    from jaxstream_torch import _build
+
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
+                           f"-I{include}", "-o", str(out), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}")
+    return proc.stdout
+
+
+def ptxas_lines(log: str) -> list:
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln or "smem" in ln]
+
+
+def sass_counts(lib: Path) -> dict:
+    """SASS instructions per kernel function of ``lib``."""
+    from jaxstream_torch import _build
+
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                         capture_output=True, text=True).stdout
+    counts = {}
+    for sec in re.split(r"\n\s*Function : ", out)[1:]:
+        name = sec.split("\n", 1)[0].strip()
+        counts[name] = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+\S", sec))
+    return counts
+
+
+def entry(lib: Path, fn_name: str, argtypes):
+    fn = getattr(ctypes.CDLL(str(lib)), fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def device_us(call, args) -> float:
+    from jaxstream_torch.utils.profiling import device_seconds
+
+    s = device_seconds(lambda: [call(*args) for _ in range(REPS)],
+                       replays=REPLAYS)
+    return float("nan") if s is None else s / REPS * 1e6
+
+
+def in_turns(forms: dict, call, args) -> dict:
+    """Device µs per launch of each form (name -> function to install),
+    timed in turns A, B, ..., ..., B, A: {name: [first, second]}."""
+    names = list(forms)
+    times = {k: [] for k in names}
+    for name in names + names[::-1]:
+        forms[name]()
+        times[name].append(device_us(call, args))
+    return times
+
+
+def bitwise(call, ref, args) -> bool:
+    out = call(*args)
+    torch.cuda.synchronize()
+    return all(torch.equal(x, r) for x, r in zip(out, ref(*args)))
+
+
+def main() -> int:
+    args = sys.argv[1:]
+    n = 384
+    if args[:1] == ["--n"]:
+        n, args = int(args[1]), args[2:]
+    if not torch.cuda.is_available() or not args:
+        print("usage: torch_faces_probe.py [--n N] PARENT_DIR [OTHER ...] "
+              "(needs a CUDA GPU)", file=sys.stderr)
+        return 1
+    from jaxstream_torch import _build
+    from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
+                                        EARTH_RADIUS)
+    from jaxstream_torch.geometry.cubed_sphere import build_grid
+    from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
+    from jaxstream_torch.ops.cuda import swe_cov
+    from jaxstream_torch.physics.initial_conditions import (galewsky,
+                                                            williamson_tc5)
+    from jaxstream_torch.stepping import integrate
+
+    parent = Path(args[0]).resolve() / "jaxstream_torch" / "csrc"
+    others = {Path(a).resolve().name: Path(a).resolve() / "jaxstream_torch"
+              / "csrc" for a in args[1:]}
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
+
+    # ---- builds: this tree's and the earlier kernels, the ablations ------
+    probe = _build.BUILD_DIR / "probe"
+    libs, logs = {}, {}
+    for name in ("cov_stage", "cov_nu4_filter"):
+        b = _build.build(name)
+        libs[name], logs[name] = b.path, b.log or "(reused)"
+    src = (parent / "cov_stage.cu").read_text()
+    variants = {"parent_stage_full": src,
+                "parent_stage_staging": ablated_stage(src, "staging"),
+                "parent_stage_staging+metric": ablated_stage(
+                    src, "staging+metric"),
+                "parent_filter": (parent / "cov_nu4_filter.cu").read_text()}
+    includes = {name: parent for name in variants}
+    for other, csrc in others.items():
+        for kind, fname in (("stage", "cov_stage.cu"),
+                            ("filter", "cov_nu4_filter.cu")):
+            variants[f"{other}_{kind}"] = (csrc / fname).read_text()
+            includes[f"{other}_{kind}"] = csrc
+    for name, text in variants.items():
+        cu = probe / f"{name}.cu"
+        cu.parent.mkdir(parents=True, exist_ok=True)
+        cu.write_text(text)
+        libs[name] = probe / f"lib{name}.so"
+        logs[name] = nvcc_build(cu, libs[name], includes[name])
+    sass = {}
+    for name, lib in libs.items():
+        sass[name] = sass_counts(lib)
+        print(f"build {name}: " + "; ".join(ptxas_lines(logs[name])),
+              flush=True)
+        print(f"  SASS instructions: {sass[name]}", flush=True)
+
+    # ---- operands at C{n} -----------------------------------------------
+    grid = build_grid(n, halo=2, radius=EARTH_RADIUS, dtype=torch.float32)
+    h, v, b = williamson_tc5(grid, EARTH_GRAVITY, EARTH_OMEGA)
+    model = CovariantShallowWater(grid, gravity=EARTH_GRAVITY,
+                                  omega=EARTH_OMEGA, b_ext=b)
+    step = model.make_fused_step(75.0)
+    y, _ = integrate(step, model.compact_state(model.initial_state(h, v)),
+                     0.0, 20, 75.0)
+    gsn, gwe = step.route(y["strips_sn"], y["strips_we"])
+    st1, st2, st3 = step.stages
+    stage_args = {"stage 1": (st1, (y["h"], y["u"], gsn, gwe, b)),
+                  "stage 2": (st2, (y["h"], y["u"], y["h"], y["u"], gsn, gwe,
+                                    b)),
+                  "stage 3 y0=-2yc": (st3, (-2.0 * y["h"], -2.0 * y["u"],
+                                            y["h"], y["u"], gsn, gwe, b))}
+    gmodel = CovariantShallowWater(grid, gravity=EARTH_GRAVITY,
+                                   omega=EARTH_OMEGA, nu4=1.0e14)
+    gstep = gmodel.make_fused_step(60.0)
+    gy = gstep(gmodel.compact_state(gmodel.initial_state(
+        *galewsky(grid, EARTH_GRAVITY, EARTH_OMEGA))), 0.0)
+    fargs = (gy["h"], gy["u"]) + gstep.route(gy["strips_sn"],
+                                             gy["strips_we"])
+    filt = gstep.filter
+    probe_filt = swe_cov.make_cov_nu4_filter(grid, 1.0e21, filt.dt_eff)
+
+    stage_types = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
+                   + [ctypes.c_float] * 8 + [ctypes.c_void_p])
+    filter_types = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
+                    + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+    stage_keys = (["cov_stage", "parent_stage_full", "parent_stage_staging",
+                   "parent_stage_staging+metric"]
+                  + [f"{o}_stage" for o in others])
+    filter_keys = ["cov_nu4_filter", "parent_filter"] + [
+        f"{o}_filter" for o in others]
+    stage_fns = {k: entry(libs[k], "cov_stage_compact_f32", stage_types)
+                 for k in stage_keys}
+    filter_fns = {k: entry(libs[k], "cov_nu4_filter_f32", filter_types)
+                  for k in filter_keys}
+
+    def use_stage(key):
+        return lambda: setattr(swe_cov, "_kernel", lambda: stage_fns[key])
+
+    def use_filter(key):
+        return lambda: setattr(swe_cov, "_filter_kernel",
+                               lambda: filter_fns[key])
+
+    # ---- bitwise against the plain versions -----------------------------
+    checks = {}
+    for key in ["cov_stage", "parent_stage_full"] + [f"{o}_stage"
+                                                      for o in others]:
+        use_stage(key)()
+        for label, (st, a) in stage_args.items():
+            checks[f"{key} {label}"] = bitwise(st, st.reference, a)
+    for key in ["cov_nu4_filter", "parent_filter"] + [f"{o}_filter"
+                                                       for o in others]:
+        use_filter(key)()
+        for label, f in (("filter", filt), ("probe", probe_filt)):
+            checks[f"{key} {label}"] = bitwise(f, f.reference, fargs)
+    print(f"bitwise vs plain at C{n}: {checks}", flush=True)
+
+    # ---- device time per launch, in turns -------------------------------
+    times = {}
+    for label in ("stage 1", "stage 2"):
+        st, a = stage_args[label]
+        forms = {"parent": use_stage("parent_stage_full"),
+                 "staging": use_stage("parent_stage_staging"),
+                 "staging+metric": use_stage("parent_stage_staging+metric")}
+        forms.update({o: use_stage(f"{o}_stage") for o in others})
+        forms["new"] = use_stage("cov_stage")
+        times[f"B1 {label}"] = in_turns(forms, st, a)
+    forms = {"parent": use_filter("parent_filter")}
+    forms.update({o: use_filter(f"{o}_filter") for o in others})
+    forms["new"] = use_filter("cov_nu4_filter")
+    times["B2 filter"] = in_turns(forms, filt, fargs)
+    use_stage("cov_stage")()
+    use_filter("cov_nu4_filter")()
+    for label, t in times.items():
+        print(f"C{n} {label}, device us per launch (CUDA graph of {REPS}, "
+              "in turns): " + "; ".join(
+                  f"{k} {v[0]:.2f} / {v[1]:.2f} (mean "
+                  f"{sum(v) / len(v):.2f})" for k, v in t.items())
+              + f"; card {card}", flush=True)
+    # The variants may be ablations; this tree's and the earlier full
+    # kernels must be bitwise.
+    ok = all(v for k, v in checks.items()
+             if k.split()[0] in ("cov_stage", "parent_stage_full",
+                                 "cov_nu4_filter", "parent_filter"))
+    print(json.dumps({"ok": ok, "n": n, "card": card, "bitwise": checks,
+                      "times_us": times, "sass": sass}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

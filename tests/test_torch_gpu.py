@@ -39,11 +39,11 @@ def _rel(a, b):
                  / (a.double().abs().max() + 1e-300))
 
 
-@pytest.mark.gpu
-def test_stage_kernel_matches_plain_c48():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the stage kernel has no CPU form)")
-    g = build_grid(48, halo=2, radius=EARTH_RADIUS, device="cuda")
+def _stage_matches_plain(n):
+    """The stage kernel in its three SSPRK3 forms and with y0 = -2*yc at
+    C``n``: bitwise equal to its plain version (the budgets say how far
+    two f32 evaluations could differ; the kernel meets 0)."""
+    g = build_grid(n, halo=2, radius=EARTH_RADIUS, device="cuda")
     h, v, b = williamson_tc5(g, EARTH_GRAVITY, EARTH_OMEGA)
     m = CovariantShallowWater(g, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA,
                               b_ext=b)
@@ -74,16 +74,32 @@ def test_stage_kernel_matches_plain_c48():
             assert bool(torch.all(torch.isfinite(x))), name
             tol = TOL if y0_scale is None else TENDENCY_TOL
             assert _rel(r, x) <= tol, (name, _rel(r, x))
+            assert torch.equal(x, r), name
 
 
 @pytest.mark.gpu
-def test_filter_kernel_matches_plain_c48():
+def test_stage_kernel_matches_plain_c48():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the filter kernel has no CPU form)")
-    g = build_grid(48, halo=2, radius=EARTH_RADIUS, device="cuda")
+        pytest.skip("needs a CUDA device (the stage kernel has no CPU form)")
+    _stage_matches_plain(48)
+
+
+@pytest.mark.gpu
+def test_stage_kernel_matches_plain_c40():
+    """C40: every tile of the faces-in-block grid is ragged or on an
+    edge."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the stage kernel has no CPU form)")
+    _stage_matches_plain(40)
+
+
+def _filter_matches_plain(n):
+    """The filter kernel and its probe at C``n``, on the Galewsky carry
+    after one split step: bitwise equal to the plain version."""
+    g = build_grid(n, halo=2, radius=EARTH_RADIUS, device="cuda")
     m = CovariantShallowWater(g, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA,
                               nu4=1.0e14)
-    step = m.make_fused_step(480.0)
+    step = m.make_fused_step(60.0 * 384 / n)
     y = step(m.compact_state(m.initial_state(
         *galewsky(g, EARTH_GRAVITY, EARTH_OMEGA))), 0.0)
     args = (y["h"], y["u"]) + step.route(y["strips_sn"], y["strips_we"])
@@ -105,6 +121,23 @@ def test_filter_kernel_matches_plain_c48():
         for name, x, r in zip(("h", "u", "strips_sn", "strips_we"), out, ref):
             assert bool(torch.all(torch.isfinite(x))), name
             assert _rel(r, x) <= tol, (name, _rel(r, x))
+            assert torch.equal(x, r), name
+
+
+@pytest.mark.gpu
+def test_filter_kernel_matches_plain_c48():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the filter kernel has no CPU form)")
+    _filter_matches_plain(48)
+
+
+@pytest.mark.gpu
+def test_filter_kernel_matches_plain_c40():
+    """C40: every tile of the faces-in-block grid is ragged or on an
+    edge."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the filter kernel has no CPU form)")
+    _filter_matches_plain(40)
 
 
 def _galewsky_c48(nu4_mode):

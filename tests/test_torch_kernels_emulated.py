@@ -3,9 +3,11 @@
 The kernels under ``jaxstream_torch/csrc/`` are compiled here by the host
 C++ compiler (g++) instead of nvcc, through a small stand-in for
 ``cuda_runtime.h``: ``__shared__`` arrays become statics, each block runs
-as 256 host threads with a real barrier for ``__syncthreads``, and blocks
-run one after another.  A cooperative launch (the whole-step kernel's,
-``cudaLaunchCooperativeKernel``) runs all its blocks' threads at once
+as 256 host threads with a real barrier for ``__syncthreads`` and its own
+arena for the dynamic shared memory, and blocks run one after another;
+the asynchronous copies of ``cov_faces.cuh`` (cp.async) copy at once, and
+their commit and wait do nothing.  A cooperative launch (the whole-step
+kernel's, ``cudaLaunchCooperativeKernel``) runs all its blocks' threads at once
 instead, each block with its own barrier and its own arena for the
 dynamic shared memory, and ``this_grid().sync()`` waits on a grid-wide
 barrier; the stand-in occupancy API gives a grid of 5 blocks.  The
@@ -72,6 +74,9 @@ typedef int cudaError_t;
 constexpr int cudaSuccess = 0;
 constexpr int cudaErrorInvalidValue = 1;
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class F>
+int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
@@ -85,27 +90,34 @@ int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* nb, F, int, size_t) {
 }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline float __ldcg(const float* p) { return *p; }
+// cp.async: the copy happens at once; commit and wait have nothing to do.
+inline void async_copy4(float* d, const float* s) { *d = *s; }
+inline void async_commit() {}
+template <int N>
+inline void async_wait() {}
 inline thread_local pthread_barrier_t* emu_block_barrier;
 inline thread_local void* emu_dyn_smem;
 inline pthread_barrier_t emu_grid_barrier;
 inline void __syncthreads() { pthread_barrier_wait(emu_block_barrier); }
 template <class K, class P>
-void emu_launch(K kernel, dim3 grid, dim3 block, const P& p) {
+void emu_launch(K kernel, dim3 grid, dim3 block, const P& p, size_t smem) {
   const unsigned nt = block.x * block.y * block.z;
   pthread_barrier_t bar;
   for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x; ++bx) {
         pthread_barrier_init(&bar, nullptr, nt);
+        std::vector<double> arena(smem / 8 + 1);
         std::vector<std::thread> ts;
         for (unsigned t = 0; t < nt; ++t)
-          ts.emplace_back([=, &p, &bar]() {
+          ts.emplace_back([=, &p, &bar, &arena]() {
             threadIdx = {t % block.x, (t / block.x) % block.y,
                          t / (block.x * block.y)};
             blockIdx = {bx, by, bz};
             blockDim = {block.x, block.y, block.z};
             gridDim = {grid.x, grid.y, grid.z};
             emu_block_barrier = &bar;
+            emu_dyn_smem = arena.data();
             kernel(p);
           });
         for (auto& th : ts) th.join();
@@ -159,8 +171,8 @@ inline grid_group this_grid() { return {}; }
 def _emulate(src: str, name: str, out, gxx: str):
     """Compile CUDA source text ``src`` for the host as ``lib{name}.so``
     in ``out`` (which holds the stand-in headers)."""
-    src = re.sub(r"(\w+)<<<\s*(\w+),\s*(\w+),.*?>>>\((\w+)\)",
-                 r"emu_launch(\1, \2, \3, \4)", src, flags=re.S)
+    src = re.sub(r"(\w+)<<<\s*(\w+),\s*(\w+),\s*(\w+),.*?>>>\((\w+)\)",
+                 r"emu_launch(\1, \2, \3, \5, \4)", src, flags=re.S)
     # Dynamic shared memory: the block's arena.
     src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
                  r"\1* \2 = static_cast<\1*>(emu_dyn_smem);", src)
@@ -252,6 +264,98 @@ def test_filter_kernel_source(launch_on_cpu, galewsky_c40):
     for nu4 in (1.0e14, 1.0e21):            # the real filter, a probe
         filt = tsc.make_cov_nu4_filter(g, nu4, dt)
         _equal(filt._launch(*args), filt.reference(*args))
+
+
+# ---- the faces-in-block kernels (B1, B2) on larger grids ------------------
+#
+# At C40 every 32 x 24 tile of B1 and B2 touches a face edge.  At C72 a
+# face has 3 x 3 tile positions, the middle one's window inside the face
+# (no ghost read), and ragged last columns; at C74 the last row and column
+# of tiles are ragged by 2 and 10 cells.
+
+#: The window a face's tile computes from: the double buffer's index; the
+#: mutations read the other buffer (the next face's window).
+_FACES_WINDOW = {"cov_stage": "= sm.w[cur];",
+                 "cov_nu4_filter": "= sm.psi[cur];"}
+#: B1's prefetch of the next face's window; the mutation stages the
+#: current face again, which a field symmetric across faces would hide.
+_STAGE_PREFETCH = "stage_window(p, sm.w[cur ^ 1], f + 1, j0, i0);"
+
+
+def _faces_operands(n):
+    """C``n`` TC5: the compact stages, the filter at nu4 = 1e14 and a probe
+    (1e21), and their operands on the carry after one step of the plain
+    stages (TC5's initial wind has a zero component in places, which
+    hides some operation orders): stages 1-3 and stage 3 with y0 = -2*yc
+    (the outputs g*L alone)."""
+    g = build_grid(n, halo=2, radius=EARTH_RADIUS, device="cpu")
+    h, v, b = williamson_tc5(g, G, OM)
+    m = CovariantShallowWater(g, gravity=G, omega=OM, b_ext=b)
+    step = m.make_fused_step(75.0 * 384 / n)
+    route, (st1, st2, st3) = step.route, step.stages
+    y = m.compact_state(m.initial_state(h, v))
+    h0, u0 = y["h"], y["u"]
+    k = st1.reference(h0, u0, *route(y["strips_sn"], y["strips_we"]), b)
+    k = st2.reference(h0, u0, k[0], k[1], *route(k[2], k[3]), b)
+    k = st3.reference(h0, u0, k[0], k[1], *route(k[2], k[3]), b)
+    h1, u1 = k[0], k[1]
+    gsn, gwe = route(k[2], k[3])
+    stages = [(st1, (h1, u1, gsn, gwe, b)),
+              (st2, (h0, u0, h1, u1, gsn, gwe, b)),
+              (st3, (h0, u0, h1, u1, gsn, gwe, b)),
+              (st3, (-2.0 * h1, -2.0 * u1, h1, u1, gsn, gwe, b))]
+    filters = [tsc.make_cov_nu4_filter(g, nu4, 60.0 * 384 / n)
+               for nu4 in (1.0e14, 1.0e21)]
+    return stages, filters, (h1, u1, gsn, gwe)
+
+
+@pytest.fixture(scope="module")
+def faces_cases():
+    return {n: _faces_operands(n) for n in (72, 74)}
+
+
+@pytest.mark.parametrize("n", [72, 74], ids=["c72", "c74"])
+def test_stage_kernel_larger_grids(launch_on_cpu, faces_cases, n):
+    stages, _, _ = faces_cases[n]
+    before = tsc.CovStageCompact.launches
+    for st, args in stages:
+        _equal(st(*args), st.reference(*args))
+    assert tsc.CovStageCompact.launches == before + len(stages)
+
+
+@pytest.mark.parametrize("n", [72, 74], ids=["c72", "c74"])
+def test_filter_kernel_larger_grids(launch_on_cpu, faces_cases, n):
+    _, filters, args = faces_cases[n]
+    before = tsc.CovNu4Filter.launches
+    for filt in filters:
+        _equal(filt._launch(*args), filt.reference(*args))
+    assert tsc.CovNu4Filter.launches == before + len(filters)
+
+
+@pytest.mark.parametrize("name, old, new", [
+    ("cov_stage", _FACES_WINDOW["cov_stage"], "= sm.w[cur ^ 1];"),
+    ("cov_nu4_filter", _FACES_WINDOW["cov_nu4_filter"],
+     "= sm.psi[cur ^ 1];"),
+    ("cov_stage", _STAGE_PREFETCH, _STAGE_PREFETCH.replace("f + 1", "f"))],
+    ids=["stage-next-window", "filter-next-window", "stage-prefetch-face"])
+def test_faces_kernel_mutation_is_caught(emulated, launch_on_cpu,
+                                         monkeypatch, faces_cases, name, old,
+                                         new):
+    """The mutation checks of B1 and B2: a face computed from the other
+    buffer's window, and B1 prefetching the current face's window instead
+    of the next one's, must disagree with the plain versions at C72."""
+    src = (_build.CSRC_DIR / _build.KERNELS[name]).read_text()
+    assert src.count(old) == 1
+    lib = emulated["_compile"](src.replace(old, new), name + "_mut")
+    monkeypatch.setattr(_build, "load", lambda nm: ctypes.CDLL(
+        str(lib if nm == name else emulated[nm])))
+    stages, filters, args = faces_cases[72]
+    if name == "cov_stage":
+        st, args = stages[1]
+        out, ref = st(*args), st.reference(*args)
+    else:
+        out, ref = filters[1]._launch(*args), filters[1].reference(*args)
+    assert not all(torch.equal(x, r) for x, r in zip(out, ref))
 
 
 def test_refused_kernel_source(launch_on_cpu, galewsky_c40):
@@ -601,21 +705,35 @@ def test_block_kernel_mutation_is_caught(emulated, launch_on_cpu,
 
 
 def test_whole_face_kernels_pass_rows_as_columns():
-    """advective_tile takes separate row and column coordinates; every
-    kernel of whole faces passes its one coordinate pair as both, the
-    two block kernels their own rows and columns."""
+    """advective_tile, and the faces-in-block stage's stage_metric, take
+    separate row and column coordinates; every kernel of whole faces
+    passes its one coordinate pair as both, the two block kernels their
+    own rows and columns.  The faces-in-block stage's tile function
+    (stage_face_tile) takes the center rows along i and the center
+    columns along j: for whole faces the same array twice."""
     calls = {}
     for name, fname in _build.KERNELS.items():
         src = (_build.CSRC_DIR / fname).read_text()
-        for mt in re.finditer(r"(?m)^\s+advective_tile<.*?\);", src, re.S):
+        for mt in re.finditer(
+                r"(?m)^\s+(advective_tile<|stage_metric\(|stage_face_tile\()"
+                r".*?\);", src, re.S):
             args = re.sub(r"\s+", " ", mt.group(0))
-            calls.setdefault(name, []).append(args)
+            fn = mt.group(1).rstrip("<(")
+            calls.setdefault(name, {}).setdefault(fn, []).append(args)
     assert sorted(calls) == sorted(
         ["cov_stage", "cov_stage_refused_nu4", "cov_stage_nu4", "cov_rhs",
          "cov_stage_inkernel", "cov_stage_nbr", "cov_step_mega",
          "cov_rhs_interior", "cov_rhs_local"])
-    for name, found in calls.items():
-        assert len(found) == 1, name
-        want = ("p.xr, p.xfr, p.yc, p.yfc," if name.startswith("cov_rhs_")
-                and name != "cov_rhs" else "p.xc, p.xf, p.xc, p.xf,")
-        assert want in found[0], (name, found[0])
+    for name, fns in calls.items():
+        if name == "cov_stage":
+            assert sorted(fns) == ["stage_face_tile", "stage_metric"], fns
+            wants = {"stage_metric": "p.xc, p.xf, p.xc, p.xf,",
+                     "stage_face_tile": "p.xc, p.xc,"}
+        else:
+            assert sorted(fns) == ["advective_tile"], (name, fns)
+            wants = {"advective_tile": (
+                "p.xr, p.xfr, p.yc, p.yfc," if name.startswith("cov_rhs_")
+                and name != "cov_rhs" else "p.xc, p.xf, p.xc, p.xf,")}
+        for fn, want in wants.items():
+            assert len(fns[fn]) == 1, (name, fn)
+            assert want in fns[fn][0], (name, fns[fn][0])
