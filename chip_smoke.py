@@ -51,10 +51,11 @@ bisection of ``jaxstream_torch.experiments``, and ``setup_sharding`` with
   on the one card: the face tier (6 ranks, one face each) and the
   (6, 2, 2) block tier (24 ranks), each serialized (per RK stage the
   4-stage exchange, then per rank one launch of the one-face RHS kernel,
-  ``csrc/cov_rhs.cu``, or of the block RHS kernel with the block's
-  coordinates, ``csrc/cov_rhs_local.cu``) and overlapped (per RK stage
-  the exchange's first phase, per rank one launch of the interior kernel
-  ``csrc/cov_rhs_interior.cu``, the second phase, and the torch band).
+  ``csrc/cov_rhs.cu``, or one launch over all 24 ranks of the block RHS
+  kernel with the blocks' coordinates, ``csrc/cov_rhs_local.cu``) and
+  overlapped (per RK stage the exchange's first phase, one launch over
+  all ranks of the interior kernel ``csrc/cov_rhs_interior.cu``, the
+  second phase, and the torch band).
 
 Phases, each fatal on failure:
 
@@ -173,18 +174,20 @@ Phases, each fatal on failure:
     traced window;
 27. 300-step windows of the compact, neighbour-read and whole-step
     steppers in turns (compact, nbr, mega, mega, nbr, compact);
-28. the interior kernel (B5) against its plain version on every face's
-    ghost-free core (the face tier's operands), on the TC5 state and on
-    the state after 300 steps: bitwise required; its probe, phase 15's:
-    its distance from a float64 evaluation of its plain version, in
-    units of the face's tendency, no larger than B4's on the same cells
-    plus 5e-5;
+28. the interior kernel (B5) in one launch over the six faces' ghost-free
+    cores (the face tier's operands and group table: two groups of
+    three), on the TC5 state and on the state after 300 steps: bitwise
+    equal to its stacked plain version and to each face's per-block plain
+    version; its probe, phase 15's: its distance from a float64
+    evaluation of its plain version, in units of the face's tendency, no
+    larger than B4's on the same cells plus 5e-5;
 29. B5 + the torch band against B4's one-face form, on all six faces,
     from both states: bitwise required (the twin of
     ``tests/test_overlap_exchange.py:55``);
-30. the block kernel (B6) on all 24 blocks of the (6, 2, 2) split, and B5
-    on their cores, against their plain versions, from both states, the
-    operands from the block tier's own exchange: bitwise required;
+30. the block kernel (B6) in one launch over all 24 blocks of the
+    (6, 2, 2) split, and B5 over their cores (eight groups of three),
+    against their stacked and per-block plain versions, from both states,
+    the operands from the block tier's own exchange: bitwise required;
 31. each of the four tier paths, 3 steps from the TC5 state: against the
     single-device classic step (<= 2e-4 of max,
     ``tests/test_shard_cov.py:57-59``), mass drift < 2e-6; overlapped
@@ -192,11 +195,15 @@ Phases, each fatal on failure:
     ``tests/test_overlap_exchange.py:157``; bitwise expected), block
     against face (<= 2e-4, ``tests/cov_block_worker.py:70``);
 32. each tier path's main run: 5 + 100 steps gated as phase 4, the
-    kernel launches checked against 3 x ranks x steps (the other two
-    counters 0), steps/s, a traced window for the busy share, and the
+    kernel launches checked (B5 and B6: 3 x steps, one launch per RK
+    stage over all ranks; B4's one-face form: 3 x 6 x steps; the other
+    two counters 0), steps/s, a traced window for the busy share, and the
     time of one exchange and one permutation;
-33. the kernel records of B5 (a face-tier and a block-tier launch) and
-    B6, and the face tier's per-stage kernels (B4 against B5 + band);
+33. the kernel records of B5 (a stacked launch on each tier) and B6, each
+    beside its earlier design's launches per RK stage
+    (``EARLIER_DEVICE_US``), B4's one-face form as a CUDA graph, the face
+    tier's per-stage kernels (B4 against B5 + band), and each tier step's
+    device time as a CUDA graph;
 34. (after phase 14, on the Galewsky jet) B14 in its three modes (full,
     nofill, nolap) against its plain version, as stage 1 and stage 2,
     from the Galewsky state and after 3 in-stage steps, at nu4 = 1e14
@@ -252,7 +259,15 @@ KERNEL_TOL = 1e-5
 # filter kernels in their earlier tile-per-block design (one 32 x 16 tile
 # of one face per block), measured by this script on an NVIDIA H100 80GB
 # HBM3 at 700 W: the log compares the faces-in-block kernels with them.
-EARLIER_DEVICE_US = {"cov_stage_compact": 60.06, "cov_nu4_filter": 62.94}
+# The sharded tiers' RHS kernels in their earlier design (one launch per
+# rank and RK stage, one 32 x 16 tile per block), per rank's launch: B5 on
+# a face-tier rank (n = 384) and on a block-tier rank (n = 192), B6 on a
+# block-tier rank (the same card and run); the log compares one stacked
+# launch over all ranks with the ranks' launches together.
+EARLIER_DEVICE_US = {"cov_stage_compact": 60.06, "cov_nu4_filter": 62.94,
+                     "cov_rhs_interior face rank": 12.43,
+                     "cov_rhs_interior block rank": 9.94,
+                     "cov_rhs_local block rank": 9.60}
 # Steps captured in one CUDA graph for a step's device time.
 GRAPH_STEPS = 20
 # ptxas's (registers, shared bytes) per kernel function of the other
@@ -262,8 +277,6 @@ EARLIER_PTXAS = {
     "cov_stage_refused_nu4": [(62, 47392)],
     "cov_stage_nu4": [(64, 7344), (62, 7344), (62, 7344), (64, 18608)],
     "cov_rhs": [(56, 18608)],
-    "cov_rhs_interior": [(55, 18608)],
-    "cov_rhs_local": [(55, 18608)],
     "cov_stage_inkernel": [(48, 18608)],
     "cov_stage_nbr": [(64, 19120)],
     "cov_step_mega": [(64, 0)],
@@ -521,6 +534,18 @@ def paired_rates(runs: dict, t, nsteps: int, card: str) -> None:
                            for k in names[1:]) + f"; card {card}")
 
 
+def stacked_read(args) -> list:
+    """The tensors a stacked launch of B5 or B6 reads: its args with the
+    group table (a ``RankGroups``) as its table and rows."""
+    out = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            out.append(a)
+        else:
+            out += [a.table, a.xr, a.xfr, a.yc, a.yfc]
+    return out
+
+
 def time_form(label: str, call, ref, args, flops_per_cell: int, card: str,
               cells: int | None = None, read=None) -> tuple:
     """Time one form of a kernel (``call(*args)``) and its plain version,
@@ -574,18 +599,25 @@ def step_device_us(step, y, t, dt: float) -> float:
 
 
 def redesign_line(name: str, timed, per_step: int, label: str,
-                  step_us: float, card: str) -> None:
+                  step_us: float, card: str, ranks: int = 1) -> float:
     """Log a redesigned kernel's device time per launch (CUDA graph; the
     mean of :func:`time_form`'s forms in ``timed``) beside its earlier
-    design's, and
-    the device time of the step that launches it ``per_step`` times."""
+    design's (``ranks`` launches of ``EARLIER_DEVICE_US[name]`` where one
+    stacked launch replaces one per rank), its bound, and the device time
+    of the step that launches it ``per_step`` times.  Returns the device
+    microseconds per launch."""
     dev_us = sum(t[4] for t in timed) / len(timed) * 1e3
-    old = EARLIER_DEVICE_US[name]
+    bound_us = sum(t[2] for t in timed) / len(timed) * 1e3
+    old = ranks * EARLIER_DEVICE_US[name]
+    was = (f"{ranks} launches x {EARLIER_DEVICE_US[name]:.2f} = {old:.2f}"
+           if ranks > 1 else f"{old:.2f}")
     log(f"{name}: device {dev_us:.2f} us/launch as a CUDA graph (earlier "
-        f"design: {old:.2f}; x{dev_us / old:.3f}); {label} step: device "
+        f"design: {was}; x{dev_us / old:.3f}); bound {bound_us:.2f} us, "
+        f"{bound_us / dev_us:.1%} of it; {label} step: device "
         f"{step_us:.2f} us/step as a CUDA graph of {GRAPH_STEPS} steps, "
         f"{per_step} launch(es) = {per_step * dev_us:.2f} us of it; card "
         f"{card}")
+    return dev_us
 
 
 def kernel_record(name: str, source: str, replaces: str, launches: int,
@@ -1731,9 +1763,11 @@ def tier_setup(tiles: int, overlap: bool):
 
 def tier_operands(model, state, tiles: int):
     """Every rank's operands of the tier's RHS kernels on ``state``,
-    through the tier's own exchange: ``(ranks, n_loc, per-rank B5 args,
-    per-rank B4 (face tier) or B6 (block tier) args)`` and the band's
-    batched args (all ranks)."""
+    through the tier's own exchange, as the tier passes them: ``(ranks, n,
+    per-rank B5 args, per-rank B4 (face tier) or B6 (block tier) args, the
+    band's batched args, the stacked B5 args, the stacked B6 args (block
+    tier; None on the face tier))``.  The stacked launches take the tier's
+    group table (``shard_cov.rank_groups``)."""
     from jaxstream_torch.ops.cuda.swe_rhs import coord_rows
     from jaxstream_torch.parallel import shard_cov, shard_cov_block
     from jaxstream_torch.parallel.mesh import shard_state
@@ -1780,7 +1814,17 @@ def tier_operands(model, state, tiles: int):
     band = (fz, *(torch.stack(c) if tiles > 1 else c[0]
                   for c in zip(*rows)),
             q[:, 0], q[:, 1:3].transpose(0, 1), b, ssn[:, 0], swe[:, 0])
-    return ranks, n, b5, rhs, band
+    xr_s, xfr_s, yc_s, yfc_s = (torch.stack(c) for c in zip(*rows))
+    b5s = (fz, shard_cov.rank_groups(setup, ranks, xr_s[:, :, I],
+                                     xfr_s[:, :, I], yc_s[:, I],
+                                     yfc_s[:, I]),
+           local["h"], local["u"], b[:, None, I, I].contiguous())
+    b6s = None
+    if tiles > 1:
+        b6s = (fz, shard_cov.rank_groups(setup, ranks, xr_s, xfr_s, yc_s,
+                                         yfc_s),
+               q[:, 0:1], q[:, 1:3].unsqueeze(2), b[:, None], ssn, swe)
+    return ranks, n, b5, rhs, band, b5s, b6s
 
 
 def check_bitwise(label: str, call, ref, args, names, count) -> float:
@@ -1793,12 +1837,32 @@ def check_bitwise(label: str, call, ref, args, names, count) -> float:
     return max_abs
 
 
+def check_stacked(label: str, kern, args, per_rank):
+    """One stacked launch of ``kern`` (B5 or B6) over every rank of
+    ``args``, bitwise against the stacked plain version and against each
+    rank's per-block plain version (``per_rank``, the same operands one
+    rank at a time); the launch counter moves by one.  Returns the largest
+    absolute difference (0) and the outputs."""
+    max_abs = check_bitwise(label, kern.stacked, kern.stacked_reference,
+                            args, ("dh", "du"), lambda: type(kern).launches)
+    out = kern.stacked(*args)
+    same = [all(torch.equal(x[r], y) for x, y in
+                zip(out, kern.reference(*a))) for r, a in enumerate(per_rank)]
+    log(f"{label}: per-rank plain versions bitwise on "
+        f"{sum(same)} of {len(same)} ranks")
+    bad = [r for r, ok in enumerate(same) if not ok]
+    if bad:
+        raise RuntimeError(f"{label}: ranks {bad} differ from the per-rank "
+                           "plain version")
+    return max_abs, out
+
+
 def sharded_paths(card: str, grid, model, s0, y300, t_start) -> list:
     """Phases 28-33: the explicit sharded covariant tiers on virtual
     ranks on the card, the face tier (6 ranks) and the (6, 2, 2) block
     tier (24 ranks), each serialized and overlapped, through
-    ``setup_sharding`` and ``make_stepper_for``.  ``y300``: the TC5
-    state after 300 steps.  Returns the records of B5 and B6."""
+    ``setup_sharding`` and ``make_stepper_for``.  ``y300``: the TC5 state
+    after 300 steps.  Returns the records of B5 and B6."""
     from jaxstream_torch.ops.cuda import swe_cov
     from jaxstream_torch.parallel.mesh import shard_state, unshard_state
     from jaxstream_torch.parallel.sharded_model import make_stepper_for
@@ -1818,18 +1882,15 @@ def sharded_paths(card: str, grid, model, s0, y300, t_start) -> list:
     states = (("TC5 state", s0), (f"after {ROUTER_FREE_CHECK_STEPS} steps",
                                   y300))
     names = ("dh", "du")
-    core_count = lambda: Core.launches
     max_b5 = max_b6 = 0.0
 
-    # ---- 28-29. B5 vs plain on every face; B5 + band vs B4 one-face ------
+    # ---- 28-29. B5 stacked on the six faces; B5 + band vs B4 one-face ----
     for label, st in states:
-        ranks, n, b5, rhs, bargs = tier_operands(model, st, 1)
-        cores = []
-        for r, a in zip(ranks, b5):
-            max_b5 = max(max_b5, check_bitwise(
-                f"interior kernel (B5) vs plain C{N} face {r}, {label}",
-                face_core, face_core.reference, a, names, core_count))
-            cores.append(face_core(*a))
+        ranks, n, b5, rhs, bargs, b5s, _ = tier_operands(model, st, 1)
+        err, (dh_c, du_c) = check_stacked(
+            f"interior kernel (B5) stacked vs plain C{N}, 6 faces in "
+            f"{b5s[1].count} groups, {label}", face_core, b5s, b5)
+        max_b5 = max(max_b5, err)
         # The probe, phase 15's: the kernel against a float64 evaluation
         # of its plain version (coordinates in float64 too), in units of
         # the face's whole tendency (the core's own max is small where
@@ -1842,7 +1903,8 @@ def sharded_paths(card: str, grid, model, s0, y300, t_start) -> list:
         core64 = face_core.reference(*[x.double() for x in b5[0]])
         for k, nm in enumerate(names):
             scale = face32[k].double().abs().max()
-            e_b5 = float((cores[0][k] - core64[k]).abs().max() / scale)
+            e_b5 = float(((dh_c, du_c)[k][0] - core64[k]).abs().max()
+                         / scale)
             e_b4 = float((face32[k][..., c, c] - core64[k]).abs().max()
                          / scale)
             log(f"B5 face 0 {label} {nm}: kernel vs float64 {e_b5:.3e} of "
@@ -1850,8 +1912,7 @@ def sharded_paths(card: str, grid, model, s0, y300, t_start) -> list:
                 f" (B5 <= B4 + {PALLAS_VS_JNP_TOL:g})")
             if e_b5 > e_b4 + PALLAS_VS_JNP_TOL:
                 raise RuntimeError("B5 farther from float64 than B4")
-        dh, du = band(*bargs, torch.cat([c[0] for c in cores]),
-                      torch.cat([c[1] for c in cores], dim=1))
+        dh, du = band(*bargs, dh_c[:, 0], du_c[:, :, 0].transpose(0, 1))
         same = []
         for r, a in enumerate(rhs):
             full = one(*a)
@@ -1862,20 +1923,18 @@ def sharded_paths(card: str, grid, model, s0, y300, t_start) -> list:
         if not all(same):
             raise RuntimeError("B5 + band differs from B4's one-face form")
 
-    # ---- 30. B6 vs plain on all 24 blocks (and B5 on their cores) --------
+    # ---- 30. B6 stacked on all 24 blocks (and B5 on their cores) ---------
     stamp(t_start, "phase 30")
-    local_count = lambda: Local.launches
     for label, st in states:
-        ranks, n, b5, rhs, _ = tier_operands(model, st, 2)
-        for r, a in zip(ranks, rhs):
-            max_b6 = max(max_b6, check_bitwise(
-                f"block kernel (B6) vs plain C{N} block {r} of 24, {label}",
-                block_rhs, block_rhs.reference, a, names, local_count))
-        for r, a in zip(ranks, b5):
-            max_b5 = max(max_b5, check_bitwise(
-                f"interior kernel (B5) vs plain C{N} block core {r}, "
-                f"{label}", block_core, block_core.reference, a, names,
-                core_count))
+        ranks, n, b5, rhs, _, b5s, b6s = tier_operands(model, st, 2)
+        err, _ = check_stacked(
+            f"block kernel (B6) stacked vs plain C{N}, 24 blocks in "
+            f"{b6s[1].count} groups, {label}", block_rhs, b6s, rhs)
+        max_b6 = max(max_b6, err)
+        err, _ = check_stacked(
+            f"interior kernel (B5) stacked vs plain C{N}, 24 block cores in"
+            f" {b5s[1].count} groups, {label}", block_core, b5s, b5)
+        max_b5 = max(max_b5, err)
     log(f"B6 block 1, after {ROUTER_FREE_CHECK_STEPS} steps, plain f32 vs "
         f"f64: " + f64_spread(block_rhs.reference, rhs[1], names))
 
@@ -1920,11 +1979,13 @@ def sharded_paths(card: str, grid, model, s0, y300, t_start) -> list:
 
     # ---- 32. main paths: timed windows, launches, gate, busy share --------
     stamp(t_start, "phase 32")
-    # Kernel launches per step: 3 RK stages x one per rank.
+    # Kernel launches per step: 3 RK stages x one, over all ranks (B5, B6);
+    # x one per rank for B4's one-face form.
     counters = {(1, False): Rhs, (1, True): Core, (2, False): Local,
                 (2, True): Core}
     launches = {}
     rates = {}
+    tier_runs = {}
     for (tiles, overlap), cls in counters.items():
         tier = ("face" if tiles == 1 else "block") + (
             " overlapped" if overlap else " serialized")
@@ -1939,8 +2000,9 @@ def sharded_paths(card: str, grid, model, s0, y300, t_start) -> list:
         y, t = integrate(step, y, t, TIER_TIMED_STEPS, STEP_DT)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        per_stage = setup.num_devices if cls is Rhs else 1
         got = {c.__name__: c.launches for c in (Rhs, Core, Local)}
-        want = {c.__name__: (3 * setup.num_devices * TIER_TIMED_STEPS
+        want = {c.__name__: (3 * per_stage * TIER_TIMED_STEPS
                              if c is cls else 0) for c in (Rhs, Core, Local)}
         if got != want:
             raise RuntimeError(f"{tier} launches {got} != {want}")
@@ -1949,12 +2011,14 @@ def sharded_paths(card: str, grid, model, s0, y300, t_start) -> list:
                  t / 86400.0)
         step_us = wall / TIER_TIMED_STEPS * 1e6
         rates[tier] = TIER_TIMED_STEPS / wall
+        tier_runs[tier] = (step, y, t)
         log(f"main path C{N} TC5 {tier} tier ({setup.num_devices} virtual "
             f"ranks) dt={STEP_DT:g}: {TIER_TIMED_STEPS} steps in "
             f"{wall:.3f} s -> {rates[tier]:.1f} steps/s, {step_us:.1f} "
             f"us/step, {rates[tier] * STEP_DT / 86400.0:.4f} sim-days/s; "
             f"{cls.__name__} launches {got[cls.__name__]} = 3 x "
-            f"{setup.num_devices} x {TIER_TIMED_STEPS}; card {card}")
+            + (f"{per_stage} x " if per_stage > 1 else "")
+            + f"{TIER_TIMED_STEPS}; card {card}")
         device_busy(lambda: integrate(step, y, t, TIER_PROFILED_STEPS,
                                       STEP_DT),
                     TIER_PROFILED_STEPS, step_us, card,
@@ -1991,32 +2055,67 @@ def sharded_paths(card: str, grid, model, s0, y300, t_start) -> list:
 
     # ---- 33. kernel records: times, bounds, plain times -------------------
     stamp(t_start, "phase 33")
-    ranks, n, b5f, rhsf, _ = tier_operands(model, y300, 1)
-    ranks, n, b5b, rhsb, _ = tier_operands(model, y300, 2)
+    ranks, n, b5f, rhsf, bargs, b5sf, _ = tier_operands(model, y300, 1)
+    _, _, _, _, _, b5sb, b6sb = tier_operands(model, y300, 2)
     ni, nbi = N - 2 * grid.halo, nl - 2 * grid.halo
-    rec_b5 = kernel_record(
-        "cov_rhs_interior", "jaxstream_torch/csrc/cov_rhs_interior.cu",
-        "jaxstream/ops/pallas/swe_cov.py:733",
-        launches[(1, True)] + launches[(2, True)], max_b5,
-        [(f"B5 face-tier rank (n={N})", face_core, face_core.reference,
-          b5f[0], ni * ni),
-         (f"B5 block-tier rank (n={nl})", block_core, block_core.reference,
-          b5b[1], nbi * nbi)], FLOPS_PER_CELL, card)
-    rec_b6 = kernel_record(
-        "cov_rhs_local", "jaxstream_torch/csrc/cov_rhs_local.cu",
-        "jaxstream/ops/pallas/swe_cov.py:610", launches[(2, False)], max_b6,
-        [(f"B6 block-tier rank (n={nl})", block_rhs, block_rhs.reference,
-          rhsb[1], nl * nl)], FLOPS_PER_CELL, card)
-    bargs = tier_operands(model, y300, 1)[4]
-    cores = [face_core(*a) for a in b5f]
-    core_dh = torch.cat([c[0] for c in cores])
-    core_du = torch.cat([c[1] for c in cores], dim=1)
-    log(f"face tier per RK stage: B4 one-face form "
-        f"{event_ms(lambda: one(*rhsf[0]), 200) * 1e3:.2f} us/launch "
-        f"(serialized); B5 {rec_b5['ms'] * 1e3:.2f} us/launch (mean of the "
-        f"two forms) + torch band over 6 faces "
-        f"{event_ms(lambda: band(*bargs, core_dh, core_du), 20) * 1e3:.1f}"
-        f" us (overlapped); card {card}")
+    forms_b5 = [
+        (f"B5 stacked, face tier (6 ranks, n={N})", face_core.stacked,
+         face_core.stacked_reference, b5sf, 6 * ni * ni),
+        (f"B5 stacked, block tier (24 ranks, n={nl})", block_core.stacked,
+         block_core.stacked_reference, b5sb, 24 * nbi * nbi)]
+    timed_b5 = [time_form(label, call, ref, a, FLOPS_PER_CELL, card, cells,
+                          read=stacked_read(a))
+                for label, call, ref, a, cells in forms_b5]
+    timed_b6 = [time_form(f"B6 stacked, block tier (24 ranks, n={nl})",
+                          block_rhs.stacked, block_rhs.stacked_reference,
+                          b6sb, FLOPS_PER_CELL, card, 24 * nl * nl,
+                          read=stacked_read(b6sb))]
+    rec_b5 = record("cov_rhs_interior",
+                    "jaxstream_torch/csrc/cov_rhs_interior.cu",
+                    "jaxstream/ops/pallas/swe_cov.py:733",
+                    launches[(1, True)] + launches[(2, True)], max_b5,
+                    timed_b5)
+    rec_b6 = record("cov_rhs_local", "jaxstream_torch/csrc/cov_rhs_local.cu",
+                    "jaxstream/ops/pallas/swe_cov.py:610",
+                    launches[(2, False)], max_b6, timed_b6)
+    # Each tier step's device time: 20 steps captured as one CUDA graph
+    # (the warm-up cached the ranks' permutation indices).
+    step_us = {tier: step_device_us(step, y, t, STEP_DT)
+               for tier, (step, y, t) in tier_runs.items()}
+    for tier, us in step_us.items():
+        if us != us:
+            log(f"{tier} tier step: not captured as a CUDA graph; its device "
+                "time is the busy share of phase 32")
+    redesign_line("cov_rhs_interior face rank", timed_b5[:1], 3,
+                  "face overlapped tier", step_us["face overlapped"], card,
+                  ranks=6)
+    redesign_line("cov_rhs_interior block rank", timed_b5[1:], 3,
+                  "block overlapped tier", step_us["block overlapped"], card,
+                  ranks=24)
+    redesign_line("cov_rhs_local block rank", timed_b6, 3,
+                  "block serialized tier", step_us["block serialized"], card,
+                  ranks=24)
+    # B4's one-face form, which the face tier's serialized form launches
+    # once per face and RK stage.
+    b4 = time_form(f"B4 one-face form (face tier, n={N})", one,
+                   one.reference, rhsf[0], FLOPS_PER_CELL, card, N * N)
+    log(f"cov_rhs one-face form: device {b4[4] * 1e3:.2f} us/launch as a "
+        f"CUDA graph; face serialized tier step: device "
+        f"{step_us['face serialized']:.2f} us/step as a CUDA graph of "
+        f"{GRAPH_STEPS} steps, 18 launches = {18e3 * b4[4]:.2f} us of it; "
+        f"card {card}")
+    dh_c, du_c = face_core.stacked(*b5sf)
+    band_ms = event_ms(
+        lambda: band(*bargs, dh_c[:, 0], du_c[:, :, 0].transpose(0, 1)), 20)
+    log(f"face tier per RK stage: B4 one-face form {b4[0] * 1e3:.2f} "
+        f"us/launch (device {b4[4] * 1e3:.2f}) x 6 (serialized); B5 stacked "
+        f"{timed_b5[0][0] * 1e3:.2f} us/launch (device "
+        f"{timed_b5[0][4] * 1e3:.2f}) + torch band over 6 faces "
+        f"{band_ms * 1e3:.1f} us (overlapped); card {card}")
+    log("tier steps' device time (CUDA graph), us/step: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in step_us.items())
+        + "; host rates, steps/s: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in rates.items()) + f"; card {card}")
     return [rec_b5, rec_b6]
 
 

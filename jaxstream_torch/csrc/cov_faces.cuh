@@ -1,10 +1,13 @@
 // Device code of the covariant kernels that take all faces of a tile in one
-// block: the compact stage (cov_stage.cu) and the split del^4 filter
-// (cov_nu4_filter.cu).  On the equiangular cube every face has the same
-// metric (it depends on the coordinate rows xc, xf alone), so such a block
-// computes the metric terms of its tile once, into shared memory, and then
-// runs the face-dependent part for each face of its group, while the next
-// face's window is copied into a second shared buffer asynchronously
+// block: the compact stage (cov_stage.cu), the split del^4 filter
+// (cov_nu4_filter.cu), and the sharded tiers' right-hand sides over a
+// stack of ranks (cov_rhs_interior.cu, cov_rhs_local.cu).  On the
+// equiangular cube every face has the same metric (it depends on the
+// coordinate rows xc, xf alone), and so do the ranks that hold the same
+// block position of different faces, so such a block computes the metric
+// terms of its tile once, into shared memory, and then runs the
+// face-dependent part for each face (or rank) of its group, while the next
+// one's window is copied into a second shared buffer asynchronously
 // (cp.async).  Every stored value is the float the plain version computes
 // with the same operations in the same order (built with -fmad=false), so
 // the kernels stay bitwise equal to it.  cov_common.cuh's advective_tile,
@@ -147,7 +150,60 @@ __device__ __forceinline__ void stage_field(float* s,
   });
 }
 
+// Issues the copies of the orography on the Bernoulli band of the tile at
+// (j0, i0) into wb (cell (ly, lx) at (j0 + ly - 1, i0 + lx - 1)) from bf,
+// the (n + 2 hh)^2 frame of a face or a block: rows and columns -1 .. n;
+// 0 past them.
+__device__ __forceinline__ void stage_band(float (*wb)[FTX + 2],
+                                           const float* __restrict__ bf,
+                                           int n, int hh, int j0, int i0) {
+  const int m = n + 2 * hh;
+  for_region<FTY + 2, FTX + 2>([&](int r, int c) {
+    const int j = j0 + r - 1, i = i0 + c - 1;
+    if (j <= n && i <= n)
+      async_copy4(&wb[r][c], bf + (long)(j + hh) * m + i + hh);
+    else
+      wb[r][c] = 0.0f;
+  });
+}
+
+// Cell (j, i) of q, the extended array of an n x n output with a hh-deep
+// frame (row stride n + 2 hh): a block's ghost-filled frame (B6) or the
+// interior of a block around its ghost-free core (B5); nullptr past the
+// frame (the ragged last tiles' aprons, which feed no kept output).  The
+// sharded tiers' counterpart of edge_src.
+__device__ __forceinline__ const float* frame_src(const float* __restrict__ q,
+                                                  int n, int hh, int j,
+                                                  int i) {
+  if (j < -hh || j >= n + hh || i < -hh || i >= n + hh) return nullptr;
+  return q + (long)(j + hh) * (n + 2 * hh) + i + hh;
+}
+
+// stage_field's counterpart for an extended array q (frame_src): rows jw
+// .. jw+ROWS-1, columns i0-A .. i0+FTX+A-1 into s; 0 past the frame.
+template <int ROWS, int A>
+__device__ __forceinline__ void stage_frame(float* s,
+                                            const float* __restrict__ q,
+                                            int n, int hh, int jw, int i0) {
+  for_region<ROWS, FTX + 2 * A>([&](int r, int cc) {
+    const int c = cc - A;
+    float* dst = s + r * WS + WOFF + c;
+    const float* src = frame_src(q, n, hh, jw + r, i0 + c);
+    if (src != nullptr)
+      async_copy4(dst, src);
+    else
+      *dst = 0.0f;
+  });
+}
+
 // ---- the compact stage: metric terms and one face's tile -----------------
+
+// How stage_face_tile's boundary fluxes take the imposed edge normals.
+enum class Seam {
+  Prescaled,   // the sym rows as they are (the compact stage's routed rows)
+  Frame,       // times the edge sqrtg of the closed-form frame (B6)
+  None         // none imposed: a block's ghost-free core (B5)
+};
 
 // The face-independent terms of the stage on one tile, computed once per
 // block with advective_tile's operations: on the Bernoulli band (cell
@@ -251,17 +307,19 @@ __device__ __forceinline__ void stage_metric(
 
 // advective_tile's right-hand side of one face's tile from its staged
 // window w and the tile's metric terms mt (both synchronised), with the
-// face's sym rows, coordinates (for the Coriolis term: xc along i, yc
-// along j) and frame fz.  For every interior cell it calls epi(r, j, i,
-// dh, dua, dub, hc, uac, ubc) with r the thread's row index (ly = ty + r *
-// BY, lx = tx) and the cell's current values.  Every thread of the block
-// must call it: it synchronises once, between the fluxes and the
-// tendencies.
-template <class Epilogue>
+// face's sym rows imposed as S says, its coordinates (xc, xf along i, yc,
+// yf along j, as advective_tile takes them: the Coriolis term reads the
+// centres, a Frame seam's sqrtg the faces too) and frame fz.  For every
+// interior cell it calls epi(r, j, i, dh, dua, dub, hc, uac, ubc) with r
+// the thread's row index (ly = ty + r * BY, lx = tx) and the cell's
+// current values.  Every thread of the block must call it: it
+// synchronises once, between the fluxes and the tendencies.
+template <Seam S, class Epilogue>
 __device__ __forceinline__ void stage_face_tile(
     const StageWindow& w, const StageMetric& mt, StageScratch& s,
     const SymRows& sym, const float* __restrict__ xc,
-    const float* __restrict__ yc, const float* __restrict__ fz,
+    const float* __restrict__ xf, const float* __restrict__ yc,
+    const float* __restrict__ yf, const float* __restrict__ fz,
     const StageConsts& k, int n, int hh, int j0, int i0, Epilogue epi) {
   auto H = [&](int y, int x) { return w.h[y + 2][WOFF + x]; };
   auto UA = [&](int y, int x) { return w.ua[y + 1][WOFF + x]; };
@@ -286,8 +344,10 @@ __device__ __forceinline__ void stage_face_tile(
     float flux = 0.0f;
     if (j < n && i <= n) {
       float U;
-      if (i == 0 || i == n) {   // W / E seam
+      if (S != Seam::None && (i == 0 || i == n)) {   // W / E seam
         U = (i == 0 ? sym.w : sym.e)[j * sym.ws];
+        if (S == Seam::Frame)
+          U = frame_sqrtg(xf[i + hh], yc[j + hh], k.R2) * U;
       } else {
         const float uba = 0.5f * (UA(ly, lf - 1) + UA(ly, lf));
         const float ubb = 0.5f * (UB(ly, lf - 1) + UB(ly, lf));
@@ -303,8 +363,10 @@ __device__ __forceinline__ void stage_face_tile(
     float flux = 0.0f;
     if (j <= n && i < n) {
       float U;
-      if (j == 0 || j == n) {   // S / N seam
+      if (S != Seam::None && (j == 0 || j == n)) {   // S / N seam
         U = (j == 0 ? sym.s : sym.n)[i];
+        if (S == Seam::Frame)
+          U = frame_sqrtg(xc[i + hh], yf[j + hh], k.R2) * U;
       } else {
         const float vba = 0.5f * (UA(lf - 1, lx) + UA(lf, lx));
         const float vbb = 0.5f * (UB(lf - 1, lx) + UB(lf, lx));
@@ -400,6 +462,111 @@ __device__ __forceinline__ void lap_metric(LapMetric<LY, LX>& mt,
                          ? center_isg(xc[c + hh], xc[r + hh], R2, invd)
                          : 0.0f;
   });
+}
+
+// ---- the sharded tiers' right-hand sides over a stack of ranks ------------
+//
+// B5 (cov_rhs_interior.cu) and B6 (cov_rhs_local.cu) compute the covariant
+// RHS of every rank a tier's process holds in one launch.  A block takes
+// one 32 x 24 tile position and a group of at most FPB ranks that hold the
+// same block position (iy, ix) on different panels, and so the same
+// coordinate rows: the group table lists each group's ranks (-1 past its
+// last), and the rows come once per group.  The stacked ranks' fields are
+// read as extended arrays (frame_src), each rank's at its own offset.
+
+// The operands of one stacked launch over R ranks in G groups.
+struct RanksParams {
+  const float* fz;      // (R, 1, 3) face-frame z components (c0, cx, cy)
+  const float* xr;      // (G, 1, m) tan of the cell-centre alphas
+  const float* xfr;     // (G, 1, m) tan of the left-face alphas
+  const float* yc;      // (G, m, 1) tan of the cell-centre betas
+  const float* yfc;     // (G, m, 1) tan of the lower-face betas
+  const int* groups;    // (G, FPB) the group's ranks, then -1
+  const float* h;       // rank r's (m, m) frame at h + r * sh
+  const float* u;       // rank r's u_a at u + r * su, u_b m^2 after it
+  const float* b;       // rank r's (m, m) orography at b + r * sb
+  const float* sym_sn;  // (R, 1, 2, n) S, N edge normals (Seam::Frame)
+  const float* sym_we;  // (R, 1, n, 2) W, E edge normals (Seam::Frame)
+  float* dh;            // (R, 1, n, n)
+  float* du;            // (R, 2, 1, n, n)
+  long long sh, su, sb; // rank strides of h, u and b
+  int n, halo;          // the output width (B5: the core's) and the halo
+  float R2, gravity, two_omega, inv2d, inv_d;
+};
+
+struct RanksSmem {
+  StageWindow w[2];   // this rank's window and the next one's
+  StageMetric mt;
+  StageScratch s;
+};
+
+// Issues the copies of rank r's window into w (no commit).
+__device__ __forceinline__ void stage_rank_window(const RanksParams& p,
+                                                  StageWindow& w, int r,
+                                                  int j0, int i0) {
+  const int n = p.n, hh = p.halo, m = n + 2 * hh;
+  const float* u = p.u + r * p.su;
+  stage_frame<FTY + 4, 2>(&w.h[0][0], p.h + r * p.sh, n, hh, j0 - 2, i0);
+  stage_frame<FTY + 2, 1>(&w.ua[0][0], u, n, hh, j0 - 1, i0);
+  stage_frame<FTY + 2, 1>(&w.ub[0][0], u + (long)m * m, n, hh, j0 - 1, i0);
+  stage_band(w.b, p.b + r * p.sb, n, hh, j0, i0);
+}
+
+// The ranks of group g on the tile at (j0, i0): the group's metric terms
+// once, then each rank's tile from its window while the next rank's is
+// staged.
+template <Seam S>
+__device__ __forceinline__ void rhs_group(const RanksParams& p, RanksSmem& sm,
+                                          int g, int j0, int i0) {
+  const int n = p.n, hh = p.halo, m = n + 2 * hh;
+  const long nn = (long)n * n;
+  const StageConsts k{p.R2, p.gravity, p.two_omega, p.inv2d, p.inv_d};
+  const int* ranks = p.groups + g * FPB;
+  const long rows = (long)g * m;   // the group's block position
+  const float* xr = p.xr + rows;
+  const float* xfr = p.xfr + rows;
+  const float* yc = p.yc + rows;
+  const float* yfc = p.yfc + rows;
+
+  stage_rank_window(p, sm.w[0], ranks[0], j0, i0);
+  async_commit();
+  stage_metric(sm.mt, xr, xfr, yc, yfc, p.R2, p.inv_d, n, hh, j0, i0);
+
+  for (int q = 0; q < FPB; ++q) {
+    const int r = ranks[q];
+    if (r < 0) break;
+    const int cur = q & 1;
+    const int next = q + 1 < FPB ? ranks[q + 1] : -1;
+    if (next >= 0) {
+      stage_rank_window(p, sm.w[cur ^ 1], next, j0, i0);
+      async_commit();
+      async_wait<1>();
+    } else {
+      async_wait<0>();
+    }
+    __syncthreads();   // this rank's window (and, first, mt) complete
+
+    const StageWindow& w = sm.w[cur];
+    SymRows sym{nullptr, nullptr, nullptr, nullptr, 0};
+    if (S == Seam::Frame) {
+      const float* sn = p.sym_sn + 2L * r * n;
+      const float* we = p.sym_we + 2L * r * n;
+      sym = SymRows{sn, sn + n, we, we + 1, 2};
+    }
+    float* dh = p.dh + r * nn;
+    float* du = p.du + 2 * r * nn;
+    stage_face_tile<S>(
+        w, sm.mt, sm.s, sym, xr, xfr, yc, yfc, p.fz + 3 * r, k, n, hh, j0,
+        i0,
+        [&](int, int j, int i, float dhv, float dua, float dub, float,
+            float, float) {
+          const long c = (long)j * n + i;
+          dh[c] = dhv;
+          du[c] = dua;
+          du[nn + c] = dub;
+        });
+    __syncthreads();   // w and the scratch are free for the next rank
+  }
 }
 
 }  // namespace cov

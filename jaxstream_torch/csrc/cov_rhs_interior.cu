@@ -1,124 +1,91 @@
-// The covariant shallow-water right-hand side of the ghost-free core of
-// one block: the Hopper (sm_90a) kernel that the overlapped sharded tiers
-// (jaxstream_torch/parallel/shard_cov.py, shard_cov_block.py) run while
-// the halo exchange is between its two phases.
+// The covariant shallow-water right-hand side of the ghost-free cores of
+// a stack of ranks: the Hopper (sm_90a) kernel that the overlapped
+// sharded tiers (jaxstream_torch/parallel/shard_cov.py,
+// shard_cov_block.py) run while the halo exchange is between its two
+// phases, one launch per RK stage over every rank the process holds.
 //
 // Replaces the Pallas TPU kernel make_cov_rhs_interior_local
-// (jaxstream/ops/pallas/swe_cov.py:659, pallas_call at :733).  The plain
-// PyTorch version of the same function is
-// jaxstream_torch.ops.cuda.swe_cov.cov_rhs_interior_reference; the kernel
-// reproduces its operations in its order (built with -fmad=false, so
+// (jaxstream/ops/pallas/swe_cov.py:659, pallas_call at :733), which takes
+// one block.  The plain PyTorch versions of the same function are
+// jaxstream_torch.ops.cuda.swe_cov.cov_rhs_interior_reference (one block)
+// and cov_rhs_interior_stacked_reference (the stack); the kernel
+// reproduces their operations in their order (built with -fmad=false, so
 // every multiply and add rounds separately, as PyTorch's do).
 //
 // What it computes.  The halo depth h is the stencil radius of one RHS
 // evaluation, so a cell at distance >= h from the block's boundary reads
-// no ghost.  From the block's interior fields h (1, n, n), u (2, 1, n, n)
-// and orography b (1, n, n), with the interior coordinate windows xr, xfr
-// (1, n) along alpha and yc, yfc (n, 1) along beta, it writes the
-// tendencies of the ni x ni core, ni = n - 2h: dh (1, ni, ni) and du_a,
-// du_b (2, 1, ni, ni).  The block's own outer h-ring is the stencil halo;
-// no seam exists this deep inside, so no sym row is imposed.
+// no ghost.  From each rank's interior fields h (n, n), u_a, u_b and
+// orography b (n, n), with the interior coordinate windows xr, xfr (1, n)
+// along alpha and yc, yfc (n, 1) along beta (one set per group of ranks
+// at the same block position), it writes the tendencies of the ni x ni
+// core, ni = n - 2h: dh (R, 1, ni, ni) and du (R, 2, 1, ni, ni).  The
+// block's own outer h-ring is the stencil halo; no seam exists this deep
+// inside, so no sym row is imposed.
 //
-// Design.  cov_rhs.cu's tile with no ghost frames: the interior field is
-// read as the extended array of an ni x ni "face" (its m = ni + 2h is the
-// block's n), one 32 x 16 tile per block of threads, a grid of
-// (ceil(ni/32), ceil(ni/16)) independent blocks; advective_tile with its
-// seams off (Seams = false).
+// Bound.  Per rank it reads h, u_a, u_b and b (4 n^2 floats) and writes
+// 3 ni^2, plus the group's coordinates (4 n): at C384 that is 24.6 MB ->
+// 7.3 us at 3.35 TB/s over the face tier's 6 ranks (n = 384, ni = 380)
+// and 24.4 MB -> 7.3 us over the (6, 2, 2) mesh's 24 (n = 192, ni = 188),
+// against ~1.8 us of float32 arithmetic (~137 flops per cell at 67
+// TFLOP/s): bound by memory.  One launch per rank, the earlier design,
+// took 10-12 us of launch latency for 0.30-1.22 us of bytes.
 //
-// Bound.  It reads h, u_a, u_b and b (4 n^2 floats) and the coordinates
-// (4 n), and writes 3 ni^2: at C384 on the face tier (n = 384, ni = 380)
-// that is 4.10 MB -> 1.22 us at 3.35 TB/s; on the (6, 2, 2) block mesh
-// (n = 192) 1.02 MB -> 0.30 us.  Against ~137 flops per cell of float32
-// arithmetic (0.30 / 0.07 us at 67 TFLOP/s): bound by memory, and at these
-// sizes by the launch.  One launch per rank per RK stage.
+// Design: cov_faces.cuh's faces-in-block kernel with its seams off
+// (rhs_group<Seam::None>): the interior field is read as the extended
+// array of an ni x ni "face" (its m = ni + 2h is the block's n).  A block
+// of 256 threads takes one 32 x 24 tile position of the core and a group
+// of up to three ranks at one block position, computes the tile's metric
+// terms once, and per rank stages the window (cp.async, double-buffered)
+// and computes, one tile column per lane.  At C384: 12 x 16 x 2 = 384
+// blocks on the face tier, 6 x 8 x 8 = 384 on the block tier, one wave at
+// 3 blocks per SM (72 576 B of dynamic shared memory,
+// __launch_bounds__(256, 3)).
 
-#include "cov_common.cuh"
+#include "cov_faces.cuh"
 
 namespace {
 
 using namespace cov;
 
-constexpr int AP = 2;      // h apron: PLR reads two cells past a face
+// The launch's operands, as a type of this library's own: a function
+// template's static of a type that two libraries share is one object
+// across them (the dynamic loader unifies it), so dynamic_smem_limit's
+// once-per-device flag would be set by whichever stacked kernel ran
+// first and the other would launch without its shared memory attribute.
+struct Params : RanksParams {};
 
-struct Params {
-  const float* fz;      // (1, 1, 3) face-frame z components (c0, cx, cy)
-  const float* xr;      // (n,) tan of the interior cell-centre alphas
-  const float* xfr;     // (n,) tan of the interior left-face alphas
-  const float* yc;      // (n,) tan of the interior cell-centre betas
-  const float* yfc;     // (n,) tan of the interior lower-face betas
-  const float* h;       // (n, n) the block's interior
-  const float* u;       // (2, n, n)
-  const float* b;       // (n, n) orography window
-  float* dh;            // (ni, ni)
-  float* du;            // (2, ni, ni)
-  int ni, halo;
-  float R2, gravity, two_omega, inv2d, inv_d;
-};
-
-// Interior field q (n x n, n = ni + 2 hh) at core-local (j, i); 0 past
-// it (the ragged last tiles' aprons, which feed no kept output).
-__device__ __forceinline__ float core_at(const float* __restrict__ q,
-                                         int ni, int hh, int j, int i) {
-  if (j < -hh || j >= ni + hh || i < -hh || i >= ni + hh) return 0.0f;
-  return q[(j + hh) * (ni + 2 * hh) + i + hh];
-}
-
-__global__ void __launch_bounds__(BX * BY, 4)
+__global__ void __launch_bounds__(NT, 3)
 cov_rhs_interior_kernel(const Params p) {
-  __shared__ float s_h[TY + 2 * AP][TX + 2 * AP];
-  __shared__ float s_ua[TY + 2][TX + 2];
-  __shared__ float s_ub[TY + 2][TX + 2];
-  __shared__ AdvScratch s_adv;
-
-  const int ni = p.ni, hh = p.halo, n = ni + 2 * hh;
-  const int i0 = blockIdx.x * TX, j0 = blockIdx.y * TY;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const long nn = (long)n * n, core = (long)ni * ni;
-  const float* ua = p.u;
-  const float* ub = p.u + nn;
-
-  // ---- 1. stage the tile with its aprons from the interior fields -----
-  for (int ly = ty; ly < TY + 2 * AP; ly += BY)
-    for (int lx = tx; lx < TX + 2 * AP; lx += BX)
-      s_h[ly][lx] = core_at(p.h, ni, hh, j0 + ly - AP, i0 + lx - AP);
-  for (int ly = ty; ly < TY + 2; ly += BY)
-    for (int lx = tx; lx < TX + 2; lx += BX) {
-      const int j = j0 + ly - 1, i = i0 + lx - 1;
-      s_ua[ly][lx] = core_at(ua, ni, hh, j, i);
-      s_ub[ly][lx] = core_at(ub, ni, hh, j, i);
-    }
-  __syncthreads();
-
-  // ---- 2. tendencies, no seams ------------------------------------------
-  const SymRows none{nullptr, nullptr, nullptr, nullptr, 0};
-  const StageConsts k{p.R2, p.gravity, p.two_omega, p.inv2d, p.inv_d};
-  advective_tile<false, TX + 2 * AP, TX + 2, false>(
-      &s_h[0][0], &s_ua[0][0], &s_ub[0][0], s_adv, none, p.b, p.xr, p.xfr,
-      p.yc, p.yfc, p.fz, k, ni, hh, j0, i0,
-      [=](int, int, int j, int i, float dh, float dua, float dub) {
-        const long c = (long)j * ni + i;
-        p.dh[c] = dh;
-        p.du[c] = dua;
-        p.du[core + c] = dub;
-      });
+  extern __shared__ float smem_raw[];
+  RanksSmem& sm = *reinterpret_cast<RanksSmem*>(smem_raw);
+  rhs_group<Seam::None>(p, sm, blockIdx.z, blockIdx.y * FTY,
+                         blockIdx.x * FTX);
 }
 
 }  // namespace
 
-// Launches the core RHS of one block on `stream`; returns
-// cudaGetLastError() (0 = ok).  All tensors float32, contiguous, in the
-// layouts of Params; ni = n - 2 halo > 0.
+// Launches the stacked core RHS of the ranks in ngroups groups on
+// `stream`; returns the cudaError_t of the shared memory attribute or of
+// the launch (0 = ok).  Tensors float32 (groups int32) in the layouts of
+// cov::RanksParams with n = ni = the block's n - 2 halo > 0; h, u and b
+// with rank strides sh, su and sb, each rank's block contiguous.
 extern "C" int cov_rhs_interior_f32(
     const float* fz, const float* xr, const float* xfr, const float* yc,
-    const float* yfc, const float* h_int, const float* u_int,
-    const float* b_int, float* dh, float* du, int ni, int halo,
+    const float* yfc, const int* groups, const float* h_int,
+    const float* u_int, const float* b_int, float* dh, float* du,
+    long long sh, long long su, long long sb, int ni, int halo, int ngroups,
     float R2, float gravity, float two_omega, float inv2d, float inv_d,
     void* stream) {
-  Params p{fz, xr, xfr, yc, yfc, h_int, u_int, b_int, dh, du, ni, halo,
-           R2, gravity, two_omega, inv2d, inv_d};
-  const dim3 grid((ni + TX - 1) / TX, (ni + TY - 1) / TY, 1);
+  const Params p{{fz, xr, xfr, yc, yfc, groups, h_int, u_int,
+                  b_int, nullptr, nullptr, dh, du, sh, su, sb, ni,
+                  halo, R2, gravity, two_omega, inv2d, inv_d}};
+  const int rc =
+      dynamic_smem_limit(cov_rhs_interior_kernel, sizeof(RanksSmem));
+  if (rc != 0) return rc;
+  const dim3 grid((ni + FTX - 1) / FTX, (ni + FTY - 1) / FTY, ngroups);
   const dim3 block(BX, BY);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cov_rhs_interior_kernel<<<grid, block, 0, s>>>(p);
+  const size_t smem = sizeof(RanksSmem);
+  cov_rhs_interior_kernel<<<grid, block, smem,
+      static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -110,15 +110,7 @@ __device__ __forceinline__ void stage_window(const Params& p, StageWindow& w,
                           rw, j0 - 1, i0);
   stage_field<FTY + 2, 1>(&w.ub[0][0], p.uc + (6 + f) * nn, gsn, gwe, 2, n,
                           hh, rw, j0 - 1, i0);
-  // The orography on the band: rows and columns -1 .. n of b's frame.
-  const float* bf = p.b + (long)f * m * m;
-  for_region<FTY + 2, FTX + 2>([&](int r, int c) {
-    const int j = j0 + r - 1, i = i0 + c - 1;
-    if (j <= n && i <= n)
-      async_copy4(&w.b[r][c], bf + (long)(j + hh) * m + i + hh);
-    else
-      w.b[r][c] = 0.0f;
-  });
+  stage_band(w.b, p.b + (long)f * m * m, n, hh, j0, i0);
 }
 
 // The three faces of the block's group on one tile position.
@@ -167,9 +159,9 @@ __device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
     const float* gwe = p.gwe + (long)f * n * rw;
     float* ssn = p.ssn + (long)f * 6 * hh * n;
     float* swe = p.swe + (long)f * n * 6 * hh;
-    stage_face_tile(
-        w, sm.mt, sm.s, routed_sym(gsn, gwe, n, hh), p.xc, p.xc,
-        p.fz + 3 * f, k, n, hh, j0, i0,
+    stage_face_tile<Seam::Prescaled>(
+        w, sm.mt, sm.s, routed_sym(gsn, gwe, n, hh), p.xc, p.xf, p.xc,
+        p.xf, p.fz + 3 * f, k, n, hh, j0, i0,
         [&](int r, int j, int i, float dh, float dua, float dub, float hcv,
             float uav, float ubv) {
           const long c = f * nn + (long)j * n + i;

@@ -116,13 +116,16 @@ __all__ = [
     "CovRhs",
     "make_cov_rhs_pallas",
     "cov_rhs_reference",
+    "RankGroups",
     "CovRhsInterior",
     "make_cov_rhs_interior_local",
     "cov_rhs_interior_reference",
+    "cov_rhs_interior_stacked_reference",
     "make_cov_rhs_band_local",
     "CovRhsLocal",
     "make_cov_rhs_pallas_local",
     "cov_rhs_local_reference",
+    "cov_rhs_local_stacked_reference",
     "pack_strips_cov",
     "make_cov_strip_router",
     "make_cov_strip_router_linear",
@@ -1640,6 +1643,147 @@ def _fz3(fz):
     return tuple(fz[:, 0, k].reshape(-1, 1, 1) for k in range(3))
 
 
+class RankGroups:
+    """The stacked ranks of a sharded tier, grouped for the RHS kernels B5
+    and B6 (one launch over all of them).
+
+    ``RankGroups(keys, xr, xfr, yc, yfc)``: ``keys[r]`` is the block
+    position of stacked rank ``r`` (its ``(iy, ix)`` on the tier's mesh);
+    ``xr``/``xfr`` (R, 1, m) and ``yc``/``yfc`` (R, m, 1) are the ranks'
+    coordinate rows and columns.  On the equiangular cube the ranks at one
+    block position of different panels have the same rows, so a kernel
+    block computes its tile's metric terms once for all of them: the ranks
+    of each position, in stack order, form groups of at most :attr:`SIZE`.
+    ``table`` (G, SIZE) int32 lists each group's ranks (-1 past its last);
+    ``xr``, ``xfr`` (G, 1, m) and ``yc``, ``yfc`` (G, m, 1) are each
+    group's rows.  A tier builds its groups once, at construction; the
+    rows of a group's ranks are checked bitwise equal then, and a
+    ``ValueError`` refuses a group whose ranks' rows differ.
+    """
+
+    #: Ranks per group: a kernel block's double-buffered rank loop.
+    SIZE = 3
+
+    def __init__(self, keys, xr, xfr, yc, yfc):
+        names = ("xr", "xfr", "yc", "yfc")
+        rows = (xr, xfr, yc, yfc)
+        r, m = len(keys), xr.shape[-1]
+        for name, t, shape in zip(names, rows, ((r, 1, m), (r, 1, m),
+                                                (r, m, 1), (r, m, 1))):
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name}: expected shape {shape} for {r} "
+                                 f"ranks, got {tuple(t.shape)}")
+        members = {}
+        for i, key in enumerate(keys):
+            members.setdefault(key, []).append(i)
+        self.ranks = [ranks[k:k + self.SIZE] for ranks in members.values()
+                      for k in range(0, len(ranks), self.SIZE)]
+        for group in self.ranks:
+            for i in group[1:]:
+                for name, t in zip(names, rows):
+                    if not torch.equal(t[i], t[group[0]]):
+                        raise ValueError(
+                            f"ranks {group[0]} and {i} share block position "
+                            f"{keys[i]!r} but not their {name}: a group of "
+                            "the RHS kernels takes one position's rows")
+        dev = xr.device
+        self.table = torch.tensor(
+            [g + [-1] * (self.SIZE - len(g)) for g in self.ranks],
+            dtype=torch.int32, device=dev)
+        first = torch.tensor([g[0] for g in self.ranks], device=dev)
+        self.xr, self.xfr, self.yc, self.yfc = (
+            t.index_select(0, first).contiguous() for t in rows)
+        of = [0] * r
+        for gi, group in enumerate(self.ranks):
+            for i in group:
+                of[i] = gi
+        self.group_of = torch.tensor(of, device=dev)
+
+    @property
+    def count(self) -> int:
+        """The number of groups G: the launch grid's third axis."""
+        return len(self.ranks)
+
+    @property
+    def n_ranks(self) -> int:
+        return len(self.group_of)
+
+    def rank_rows(self):
+        """Each rank's rows, taken from its group's: ``(xr, xfr, yc, yfc)``
+        as (R, 1, m) / (R, m, 1)."""
+        return tuple(t.index_select(0, self.group_of)
+                     for t in (self.xr, self.xfr, self.yc, self.yfc))
+
+
+def _check_ranked(want, n_ranks, device):
+    """:func:`_check_tensors` for the stacked forms' operands ``{name:
+    (tensor, per-rank shape)}``: a leading axis of ``n_ranks``, float32, on
+    ``device``, each rank's block contiguous.  The rank stride is free, so
+    views of a tier's stacked blocks go to the kernel as they are."""
+    for name, (t, shape) in want.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor, got {type(t)}")
+        if tuple(t.shape) != (n_ranks,) + shape:
+            raise ValueError(f"{name}: expected shape {(n_ranks,) + shape}, "
+                             f"got {tuple(t.shape)}")
+        _check_tensors({name: (t[0], shape)}, device)
+
+
+class _RanksRhsBase(_ConstsBase):
+    """What the wrappers of B5 and B6 share: the checks of a stacked call
+    and its launch (one per call, whatever the rank count)."""
+
+    def __init__(self, n: int, halo: int, dalpha: float, radius: float,
+                 gravity: float, omega: float, scheme: str = "plr",
+                 limiter: str = "mc", interpret: bool = False,
+                 device="cuda"):
+        super().__init__(n, halo, dalpha, radius, gravity, omega,
+                         scheme=scheme, limiter=limiter, device=device)
+        self.interpret = bool(interpret)
+
+    def _check_groups(self, fz, groups, w):
+        """The rank count of a stacked call; raises where ``groups`` does
+        not fit ``fz`` or the row width ``w``."""
+        if not isinstance(groups, RankGroups):
+            raise TypeError(f"groups must be a RankGroups, got {type(groups)}")
+        r, g = groups.n_ranks, groups.count
+        _check_tensors({"fz": (fz, (r, 1, 3)),
+                        "groups.xr": (groups.xr, (g, 1, w)),
+                        "groups.xfr": (groups.xfr, (g, 1, w)),
+                        "groups.yc": (groups.yc, (g, w, 1)),
+                        "groups.yfc": (groups.yfc, (g, w, 1))}, self.device)
+        if groups.table.device != self.device:
+            raise ValueError(f"groups.table is on {groups.table.device}; "
+                             f"this kernel was built for {self.device}")
+        return r
+
+    def _launch(self, entry, fz, groups, h, u, b, sym, nout):
+        """One launch of ``entry`` over every rank of ``groups``; returns
+        ``(dh (R, 1, nout, nout), du (R, 2, 1, nout, nout))``."""
+        r = groups.n_ranks
+        dh = h.new_empty((r, 1, nout, nout))
+        du = h.new_empty((r, 2, 1, nout, nout))
+        rc = entry(
+            fz.data_ptr(), groups.xr.data_ptr(), groups.xfr.data_ptr(),
+            groups.yc.data_ptr(), groups.yfc.data_ptr(),
+            groups.table.data_ptr(), h.data_ptr(), u.data_ptr(),
+            b.data_ptr(), *[t.data_ptr() for t in sym], dh.data_ptr(),
+            du.data_ptr(), h.stride(0), u.stride(0), b.stride(0), nout,
+            self.halo, groups.count, *self._rhs_consts, self._stream())
+        if rc != 0:
+            raise RuntimeError(
+                f"{type(self).__name__} kernel launch failed: cudaError {rc}"
+                f" (n={self.n}, halo={self.halo}, {r} ranks in "
+                f"{groups.count} groups)")
+        type(self).launches += 1
+        return dh, du
+
+
+def _one_rank(xr, xfr, yc, yfc):
+    """The per-block form's group: one rank with its own rows."""
+    return RankGroups([0], xr[None], xfr[None], yc[None], yfc[None])
+
+
 def cov_rhs_interior_reference(rhs, fz, xr, xfr, yc, yfc, h_int, u_int,
                                b_int):
     """The plain PyTorch version of the interior pass: :func:`rhs_core_cov`
@@ -1655,29 +1799,58 @@ def cov_rhs_interior_reference(rhs, fz, xr, xfr, yc, yfc, h_int, u_int,
     return dh, torch.stack([dua, dub])
 
 
+def cov_rhs_interior_stacked_reference(rhs, fz, groups, h_int, u_int,
+                                       b_int):
+    """The plain version of the stacked interior pass: the per-block one
+    on every rank at once (:func:`rhs_core_cov` takes a leading rank
+    axis), each rank with its group's rows.  Returns ``(dh (R, 1, ni, ni),
+    du (R, 2, 1, ni, ni))``."""
+    xr, xfr, yc, yfc = groups.rank_rows()
+    dh, dua, dub = rhs_core_cov(
+        _fz3(fz), xr, xfr, yc, yfc, h_int[:, 0], u_int[:, 0, 0],
+        u_int[:, 1, 0], b_int[:, 0], None, None, n=rhs.ni, halo=rhs.halo,
+        d=rhs.dalpha, radius=rhs.radius, gravity=rhs.gravity,
+        omega=rhs.omega, limiter=rhs.limiter,
+        seam_edges=(False, False, False, False))
+    return dh[:, None], torch.stack([dua, dub], dim=1)[:, :, None]
+
+
 def _interior_kernel():
-    """The interior-pass kernel: 10 tensor pointers; ni, halo; 5 float
-    constants; the stream."""
+    """The interior pass's kernel: 11 pointers (fz, the groups' rows, the
+    group table, h, u, b, dh, du); the rank strides of h, u, b; ni, halo,
+    the group count; 5 float constants; the stream."""
     return _entry("cov_rhs_interior", "cov_rhs_interior_f32",
-                  [_P] * 10 + [ctypes.c_int] * 2 + [ctypes.c_float] * 5
-                  + [_P])
+                  [_P] * 11 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
+                  + [ctypes.c_float] * 5 + [_P])
 
 
-class CovRhsInterior(_ConstsBase):
-    """The covariant RHS of the ghost-free core of one block (B5).
+class CovRhsInterior(_RanksRhsBase):
+    """The covariant RHS of the ghost-free cores of blocks (B5).
 
-    ``rhs(fz, xr, xfr, yc, yfc, h_int, u_int, b_int) -> (dh, du)``: the
-    block's interior fields ``h_int`` (1, n, n), ``u_int`` (2, 1, n, n),
-    its orography window ``b_int`` (1, n, n), the interior coordinate
-    windows ``xr``/``xfr`` (1, n) and ``yc``/``yfc`` (n, 1), the face's
-    frame z-components ``fz`` (1, 1, 3); out ``dh`` (1, ni, ni) and ``du``
-    (2, 1, ni, ni), ``ni = n - 2*halo``.  CUDA tensors launch
-    ``csrc/cov_rhs_interior.cu`` (the port of the Pallas kernel
-    ``make_cov_rhs_interior_local``); CPU tensors, or any tensors with
-    ``interpret=True``, run :func:`cov_rhs_interior_reference`.
+    ``rhs.stacked(fz, groups, h_int, u_int, b_int) -> (dh, du)``: every
+    rank a tier's process holds in one launch.  ``groups`` a
+    :class:`RankGroups` of the R ranks with the interior coordinate
+    windows (G, 1, n) / (G, n, 1); the ranks' frame z-components ``fz``
+    (R, 1, 3), interior fields ``h_int`` (R, 1, n, n), ``u_int`` (R, 2, 1,
+    n, n) and orography windows ``b_int`` (R, 1, n, n), each rank's block
+    contiguous; out ``dh`` (R, 1, ni, ni) and ``du`` (R, 2, 1, ni, ni),
+    ``ni = n - 2*halo``.
+
+    ``rhs(fz, xr, xfr, yc, yfc, h_int, u_int, b_int) -> (dh, du)``: one
+    block, the JAX package's form: its interior fields ``h_int`` (1, n,
+    n), ``u_int`` (2, 1, n, n), ``b_int`` (1, n, n), the interior windows
+    ``xr``/``xfr`` (1, n) and ``yc``/``yfc`` (n, 1), ``fz`` (1, 1, 3); out
+    ``dh`` (1, ni, ni), ``du`` (2, 1, ni, ni): the same kernel over one
+    rank.
+
+    CUDA tensors launch ``csrc/cov_rhs_interior.cu`` (the port of the
+    Pallas kernel ``make_cov_rhs_interior_local``); CPU tensors, or any
+    tensors with ``interpret=True``, run the plain versions
+    :func:`cov_rhs_interior_stacked_reference` /
+    :func:`cov_rhs_interior_reference`.
     """
 
-    #: Launches of the CUDA kernel, all instances together.
+    #: Launches of the CUDA kernel, all instances together: one per call.
     launches = 0
 
     def __init__(self, n: int, halo: int, dalpha: float, radius: float,
@@ -1685,14 +1858,26 @@ class CovRhsInterior(_ConstsBase):
                  limiter: str = "mc", interpret: bool = False,
                  device="cuda"):
         super().__init__(n, halo, dalpha, radius, gravity, omega,
-                         scheme=scheme, limiter=limiter, device=device)
+                         scheme=scheme, limiter=limiter, interpret=interpret,
+                         device=device)
         self.ni = n - 2 * halo
         if self.ni <= 0:
             raise ValueError(
                 f"interior split needs n > 2*halo (got n={n}, halo={halo}): "
                 "with no ghost-free core the serialized exchange is the "
                 "whole kernel")
-        self.interpret = bool(interpret)
+
+    def stacked(self, fz, groups, h_int, u_int, b_int):
+        n = self.n
+        r = self._check_groups(fz, groups, n)
+        _check_ranked({"h_int": (h_int, (1, n, n)),
+                       "u_int": (u_int, (2, 1, n, n)),
+                       "b_int": (b_int, (1, n, n))}, r, self.device)
+        if self.interpret or not self._on_cuda(h_int):
+            return cov_rhs_interior_stacked_reference(self, fz, groups,
+                                                      h_int, u_int, b_int)
+        return self._launch(_interior_kernel(), fz, groups, h_int, u_int,
+                            b_int, (), self.ni)
 
     def __call__(self, fz, xr, xfr, yc, yfc, h_int, u_int, b_int):
         args = (fz, xr, xfr, yc, yfc, h_int, u_int, b_int)
@@ -1704,28 +1889,25 @@ class CovRhsInterior(_ConstsBase):
                         "b_int": (b_int, (1, n, n))}, self.device)
         if self.interpret or not self._on_cuda(h_int):
             return cov_rhs_interior_reference(self, *args)
-        ni = self.ni
-        dh = h_int.new_empty((1, ni, ni))
-        du = h_int.new_empty((2, 1, ni, ni))
-        rc = _interior_kernel()(
-            *[t.data_ptr() for t in args], dh.data_ptr(), du.data_ptr(), ni,
-            self.halo, *self._rhs_consts, self._stream())
-        if rc != 0:
-            raise RuntimeError(f"cov_rhs_interior kernel launch failed: "
-                               f"cudaError {rc} (n={n}, halo={self.halo})")
-        CovRhsInterior.launches += 1
-        return dh, du
+        dh, du = self.stacked(fz, _one_rank(xr, xfr, yc, yfc), h_int[None],
+                              u_int[None], b_int[None])
+        return dh[0], du[0]
 
     def reference(self, *args):
-        """The plain version on the same arguments (tests and smoke)."""
+        """The plain version of the per-block form on the same arguments
+        (tests and smoke)."""
         return cov_rhs_interior_reference(self, *args)
+
+    def stacked_reference(self, *args):
+        """The plain version of the stacked form on the same arguments."""
+        return cov_rhs_interior_stacked_reference(self, *args)
 
 
 def make_cov_rhs_interior_local(n: int, halo: int, dalpha: float,
                                 radius: float, gravity: float, omega: float,
                                 scheme: str = "plr", limiter: str = "mc",
                                 interpret: bool = False, device=None):
-    """The interior-pass RHS of one block: a :class:`CovRhsInterior`
+    """The interior-pass RHS of blocks: a :class:`CovRhsInterior`
     (``device`` defaults to the GPU)."""
     return CovRhsInterior(n, halo, dalpha, radius, gravity, omega,
                           scheme=scheme, limiter=limiter, interpret=interpret,
@@ -1810,40 +1992,72 @@ def cov_rhs_local_reference(rhs, fz, xr, xfr, yc, yfc, h_ext, u_ext, b_ext,
     return dh, torch.stack([dua, dub])
 
 
+def cov_rhs_local_stacked_reference(rhs, fz, groups, h_ext, u_ext, b_ext,
+                                    sym_sn, sym_we):
+    """The plain version of the stacked block RHS: the per-block one on
+    every rank at once, each rank with its group's rows and its own sym
+    strips.  Returns ``(dh (R, 1, n, n), du (R, 2, 1, n, n))``."""
+    xr, xfr, yc, yfc = groups.rank_rows()
+    dh, dua, dub = rhs_core_cov(
+        _fz3(fz), xr, xfr, yc, yfc, h_ext[:, 0], u_ext[:, 0, 0],
+        u_ext[:, 1, 0], b_ext[:, 0], sym_sn[:, 0], sym_we[:, 0], n=rhs.n,
+        halo=rhs.halo, d=rhs.dalpha, radius=rhs.radius, gravity=rhs.gravity,
+        omega=rhs.omega, limiter=rhs.limiter, sym_prescaled=False)
+    return dh[:, None], torch.stack([dua, dub], dim=1)[:, :, None]
+
+
 def _local_kernel():
-    """The block RHS kernel: 12 tensor pointers; n, halo; 5 float
-    constants; the stream."""
+    """The block RHS kernel: 13 pointers (fz, the groups' rows, the group
+    table, h, u, b, sym_sn, sym_we, dh, du); the rank strides of h, u, b;
+    n, halo, the group count; 5 float constants; the stream."""
     return _entry("cov_rhs_local", "cov_rhs_local_f32",
-                  [_P] * 12 + [ctypes.c_int] * 2 + [ctypes.c_float] * 5
-                  + [_P])
+                  [_P] * 13 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
+                  + [ctypes.c_float] * 5 + [_P])
 
 
-class CovRhsLocal(_ConstsBase):
-    """The covariant RHS of one extended block with runtime coordinates
-    (B6).
+class CovRhsLocal(_RanksRhsBase):
+    """The covariant RHS of extended blocks with runtime coordinates (B6).
+
+    ``rhs.stacked(fz, groups, h_ext, u_ext, b_ext, sym_sn, sym_we) -> (dh,
+    du)``: every rank a tier's process holds in one launch.  ``groups`` a
+    :class:`RankGroups` of the R ranks with their blocks' rows (G, 1, m)
+    and columns (G, m, 1); ``fz`` (R, 1, 3); the extended blocks ``h_ext``,
+    ``b_ext`` (R, 1, m, m) and ``u_ext`` (R, 2, 1, m, m) with ghosts
+    filled, each rank's block contiguous (views of the tier's stacked
+    blocks go as they are); the un-prescaled sym strips imposed at all
+    four block edges ``sym_sn`` (R, 1, 2, n), ``sym_we`` (R, 1, n, 2); out
+    ``dh`` (R, 1, n, n), ``du`` (R, 2, 1, n, n).
 
     ``rhs(fz, xr, xfr, yc, yfc, h_ext, u_ext, b_ext, sym_sn, sym_we) ->
-    (dh, du)``: the block's coordinate rows ``xr``/``xfr`` (1, m) and
-    columns ``yc``/``yfc`` (m, 1), ``fz`` (1, 1, 3), the extended block
-    ``h_ext``, ``b_ext`` (1, m, m), ``u_ext`` (2, 1, m, m) with ghosts
-    filled, the un-prescaled sym strips imposed at all four block edges
-    ``sym_sn`` (1, 2, n), ``sym_we`` (1, n, 2); out ``dh`` (1, n, n),
-    ``du`` (2, 1, n, n).  CUDA tensors launch ``csrc/cov_rhs_local.cu``
-    (the port of the Pallas kernel ``make_cov_rhs_pallas_local``); CPU
-    tensors, or any tensors with ``interpret=True``, run
+    (dh, du)``: one block, the JAX package's form: ``xr``/``xfr`` (1, m),
+    ``yc``/``yfc`` (m, 1), ``fz`` (1, 1, 3), ``h_ext``, ``b_ext`` (1, m,
+    m), ``u_ext`` (2, 1, m, m), ``sym_sn`` (1, 2, n), ``sym_we`` (1, n,
+    2); out ``dh`` (1, n, n), ``du`` (2, 1, n, n): the same kernel over
+    one rank.
+
+    CUDA tensors launch ``csrc/cov_rhs_local.cu`` (the port of the Pallas
+    kernel ``make_cov_rhs_pallas_local``); CPU tensors, or any tensors
+    with ``interpret=True``, run the plain versions
+    :func:`cov_rhs_local_stacked_reference` /
     :func:`cov_rhs_local_reference`.
     """
 
-    #: Launches of the CUDA kernel, all instances together.
+    #: Launches of the CUDA kernel, all instances together: one per call.
     launches = 0
 
-    def __init__(self, n: int, halo: int, dalpha: float, radius: float,
-                 gravity: float, omega: float, scheme: str = "plr",
-                 limiter: str = "mc", interpret: bool = False,
-                 device="cuda"):
-        super().__init__(n, halo, dalpha, radius, gravity, omega,
-                         scheme=scheme, limiter=limiter, device=device)
-        self.interpret = bool(interpret)
+    def stacked(self, fz, groups, h_ext, u_ext, b_ext, sym_sn, sym_we):
+        n, m = self.n, self.m
+        r = self._check_groups(fz, groups, m)
+        _check_ranked({"h_ext": (h_ext, (1, m, m)),
+                       "u_ext": (u_ext, (2, 1, m, m)),
+                       "b_ext": (b_ext, (1, m, m))}, r, self.device)
+        _check_tensors({"sym_sn": (sym_sn, (r, 1, 2, n)),
+                        "sym_we": (sym_we, (r, 1, n, 2))}, self.device)
+        if self.interpret or not self._on_cuda(h_ext):
+            return cov_rhs_local_stacked_reference(
+                self, fz, groups, h_ext, u_ext, b_ext, sym_sn, sym_we)
+        return self._launch(_local_kernel(), fz, groups, h_ext, u_ext, b_ext,
+                            (sym_sn, sym_we), n)
 
     def __call__(self, fz, xr, xfr, yc, yfc, h_ext, u_ext, b_ext, sym_sn,
                  sym_we):
@@ -1858,27 +2072,26 @@ class CovRhsLocal(_ConstsBase):
                         "sym_we": (sym_we, (1, n, 2))}, self.device)
         if self.interpret or not self._on_cuda(h_ext):
             return cov_rhs_local_reference(self, *args)
-        dh = h_ext.new_empty((1, n, n))
-        du = h_ext.new_empty((2, 1, n, n))
-        rc = _local_kernel()(
-            *[t.data_ptr() for t in args], dh.data_ptr(), du.data_ptr(), n,
-            self.halo, *self._rhs_consts, self._stream())
-        if rc != 0:
-            raise RuntimeError(f"cov_rhs_local kernel launch failed: "
-                               f"cudaError {rc} (n={n}, halo={self.halo})")
-        CovRhsLocal.launches += 1
-        return dh, du
+        dh, du = self.stacked(fz, _one_rank(xr, xfr, yc, yfc), h_ext[None],
+                              u_ext[None], b_ext[None], sym_sn[None],
+                              sym_we[None])
+        return dh[0], du[0]
 
     def reference(self, *args):
-        """The plain version on the same arguments (tests and smoke)."""
+        """The plain version of the per-block form on the same arguments
+        (tests and smoke)."""
         return cov_rhs_local_reference(self, *args)
+
+    def stacked_reference(self, *args):
+        """The plain version of the stacked form on the same arguments."""
+        return cov_rhs_local_stacked_reference(self, *args)
 
 
 def make_cov_rhs_pallas_local(n: int, halo: int, dalpha: float,
                               radius: float, gravity: float, omega: float,
                               scheme: str = "plr", limiter: str = "mc",
                               interpret: bool = False, device=None):
-    """The RHS of one extended block with runtime coordinates: a
+    """The RHS of extended blocks with runtime coordinates: a
     :class:`CovRhsLocal` (``device`` defaults to the GPU)."""
     return CovRhsLocal(n, halo, dalpha, radius, gravity, omega,
                        scheme=scheme, limiter=limiter, interpret=interpret,

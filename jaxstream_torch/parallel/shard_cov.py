@@ -26,8 +26,8 @@ reads the boundary strips and issues every permutation; ``finish``
 writes the ghosts and computes the seam normals.  The serialized form
 then runs the one-face RHS kernel (``make_cov_rhs_pallas(n_faces=1,
 external_sym=True)``, B4) per rank; the overlapped form runs the
-interior kernel (B5) per rank between the phases and the torch band
-after them.
+interior kernel (B5) between the phases, one launch over all local
+faces (:func:`rank_groups`), and the torch band after them.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from .halo import canonicalize_strip, place_strip
 __all__ = ["CovShardProgram", "CUBE_ROW_NAMES", "apply_cov_cube_recv",
            "ssprk3_sharded_body", "make_cov_shard_exchange_phases",
            "make_cov_shard_exchange", "make_sharded_cov_stepper",
-           "not_ported"]
+           "not_ported", "rank_groups"]
 
 _OUT_SIGN = {EDGE_S: -1.0, EDGE_W: -1.0, EDGE_N: 1.0, EDGE_E: 1.0}
 
@@ -265,6 +265,19 @@ def ssprk3_sharded_body(f, state, dt):
             "u": a3 * u0 + b3 * (u2 + dt * du)}
 
 
+def rank_groups(setup, local_ranks, xr, xfr, yc, yfc):
+    """The group table of a tier's stacked RHS launches (B5, B6): the
+    stacked ranks ``local_ranks`` keyed by their block position ``(iy,
+    ix)`` on the setup's mesh, with their coordinate rows ``xr``/``xfr``
+    (R, 1, m) and columns ``yc``/``yfc`` (R, m, 1), which must be bitwise
+    equal within a position (:class:`~..ops.cuda.swe_cov.RankGroups`
+    raises ``ValueError`` where not)."""
+    from ..ops.cuda.swe_cov import RankGroups
+
+    keys = [tuple(setup.coords(r)[1:]) for r in local_ranks]
+    return RankGroups(keys, xr, xfr, yc, yfc)
+
+
 def _local_rows(tables, local_ranks, device):
     """The tables' rows of this process's ranks, in stack order."""
     idx = torch.tensor(local_ranks, dtype=torch.long)
@@ -385,10 +398,11 @@ def _make_cov_face_rhs(model, program: CovShardProgram, setup, overlap):
             **kw)
         xr_f, xfr_f, yc_f, yfc_f, _ = coord_rows(n, halo, dev)
         sl = slice(halo, halo + n)
-        xr_i, xfr_i = xr_f[:, sl].contiguous(), xfr_f[:, sl].contiguous()
-        yc_i, yfc_i = yc_f[sl].contiguous(), yfc_f[sl].contiguous()
-        b_int = [b_loc[r:r + 1, sl, sl].contiguous()
-                 for r in range(len(faces))]
+        r = len(faces)
+        groups = rank_groups(setup, faces, *(
+            t.expand(r, -1, -1) for t in (xr_f[:, sl], xfr_f[:, sl],
+                                          yc_f[sl], yfc_f[sl])))
+        b_int = b_loc[:, None, sl, sl].contiguous()
         fz_loc = fz_all[faces]
 
     def f(h_int, u_int):
@@ -398,15 +412,13 @@ def _make_cov_face_rhs(model, program: CovShardProgram, setup, overlap):
             # pre-exchange strips; the interior kernel depends on none
             # of them, and the band consumes the received strips.
             recvs = start(q)
-            core = [rhs_interior(fz[r], xr_i, xfr_i, yc_i, yfc_i, h_int[r],
-                                 u_int[r], b_int[r])
-                    for r in range(len(faces))]
+            dh_c, du_c = rhs_interior.stacked(fz_loc, groups, h_int, u_int,
+                                              b_int)
             q, ssn, swe = finish(q, recvs)
             dh, du = rhs_band(
                 fz_loc, xr_f, xfr_f, yc_f, yfc_f, q[:, 0],
                 q[:, 1:3].transpose(0, 1), b_loc, ssn[:, 0], swe[:, 0],
-                torch.cat([c[0] for c in core]),
-                torch.cat([c[1] for c in core], dim=1))
+                dh_c[:, 0], du_c[:, :, 0].transpose(0, 1))
             return _band_outputs(dh, du)
         q, ssn, swe = finish(q, start(q))
         return _stack_outputs([
@@ -427,10 +439,11 @@ def make_sharded_cov_stepper(model, setup, dt: float, overlap=None,
     stage: one explicit 4-stage exchange, the one-face RHS kernel per
     local face (its plain version on CPU tensors), the combine.
     ``overlap`` (default: the setup's ``overlap_exchange``): issue the
-    four stages first, run the interior kernel on each face's ghost-free
-    ``(n-2h)^2`` core, then finish the exchange and the torch band —
-    the same arithmetic, tiled.  ``temporal_block > 1`` (the JAX
-    package's deep-halo stepper) and ``nu4 != 0`` are not ported.
+    four stages first, run the interior kernel on every face's
+    ghost-free ``(n-2h)^2`` core in one launch, then finish the exchange
+    and the torch band — the same arithmetic, tiled.
+    ``temporal_block > 1`` (the JAX package's deep-halo stepper) and
+    ``nu4 != 0`` are not ported.
     """
     if temporal_block > 1:
         not_ported(f"temporal_block={temporal_block} on the face tier (the "

@@ -16,10 +16,12 @@ Per SSPRK3 stage and rank:
   times the stored metric on intra-panel seams (bitwise the same on both
   sides), so cross-rank flux telescoping is exact.
 
-The serialized form runs the block RHS kernel with the block's own
-coordinate rows as operands (``make_cov_rhs_pallas_local``, B6) per rank;
-the overlapped form the interior kernel (B5) per rank between the
-exchange's phases and the torch band after them.  Layouts as in
+The serialized form runs the block RHS kernel with the blocks' own
+coordinate rows as operands (``make_cov_rhs_pallas_local``, B6), one
+launch per RK stage over all the process's ranks; the overlapped form the
+interior kernel (B5), likewise one launch, between the exchange's phases
+and the torch band after them.  Both take the ranks in groups at one
+block position (:func:`.shard_cov.rank_groups`).  Layouts as in
 :mod:`.shard_cov`: the stacked local state ``{"h": (R, 1, n_loc,
 n_loc), "u": (R, 2, 1, n_loc, n_loc)}`` and the stacked extended blocks
 ``q`` (R, 3, m_loc, m_loc).
@@ -35,8 +37,8 @@ from ..geometry.connectivity import (EDGE_E, EDGE_N, EDGE_S, EDGE_W,
 from ..geometry.cubed_sphere import FACE_AXES, extended_coords
 from .shard_cov import (_OUT_SIGN, CUBE_ROW_NAMES, _band_outputs, _embed,
                         _local_rows, _maybe_flip, _read_strips, _set_sym,
-                        _stack_outputs, _sym_strips, _write_ghosts,
-                        apply_cov_cube_recv, not_ported, ssprk3_sharded_body)
+                        _sym_strips, _write_ghosts, apply_cov_cube_recv,
+                        not_ported, rank_groups, ssprk3_sharded_body)
 from .shard_halo import _block_coords
 
 __all__ = ["CovBlockProgram", "make_cov_block_exchange_phases",
@@ -299,9 +301,11 @@ def make_sharded_cov_block_stepper(model, setup, dt: float, overlap=None,
     """``step(state, t) -> state`` for the covariant model on (6, s, s).
 
     ``state`` is :func:`~.mesh.shard_state`'s stacked local state.
-    ``overlap`` (default: the setup's ``overlap_exchange``): issue every
-    neighbour and cube-edge permutation first, run the interior kernel
-    on each block's ghost-free ``(n_loc-2h)^2`` core, then finish the
+    Per RK stage: the exchange, then one launch of the block RHS kernel
+    over every local block.  ``overlap`` (default: the setup's
+    ``overlap_exchange``): issue every neighbour and cube-edge
+    permutation first, run the interior kernel on every block's
+    ghost-free ``(n_loc-2h)^2`` core in one launch, then finish the
     exchange and the torch band; needs ``n_loc > 2*halo``.
     ``temporal_block = k``: k steps per call (``steps_per_call``), the
     same operations per step as k calls.  ``nu4 != 0`` is not ported.
@@ -334,7 +338,6 @@ def make_sharded_cov_block_stepper(model, setup, dt: float, overlap=None,
     n_loc = program.n_loc
     m_loc = n_loc + 2 * halo
     local = setup.local_ranks
-    nr = len(local)
     start, finish = make_cov_block_exchange_phases(program, setup.ranks,
                                                    local)
     t = program.rank_tables(local, dev)
@@ -346,18 +349,19 @@ def make_sharded_cov_block_stepper(model, setup, dt: float, overlap=None,
     b_loc = torch.stack([
         b_ext[f, iy * n_loc:iy * n_loc + m_loc, ix * n_loc:ix * n_loc + m_loc]
         for f, iy, ix in map(setup.coords, local)]).contiguous()
+    b_blk = b_loc[:, None]
     kw = dict(scheme=model.scheme, limiter=model.limiter)
     consts = (n_loc, halo, grid.dalpha, grid.radius, model.gravity,
               model.omega)
     rhs_local = make_cov_rhs_pallas_local(*consts, device=dev, **kw)
+    groups = rank_groups(setup, local, xr, xfr, yc, yfc)
     if overlap:
         rhs_interior = make_cov_rhs_interior_local(*consts, device=dev, **kw)
         rhs_band = make_cov_rhs_band_local(*consts, **kw)
         sl = slice(halo, halo + n_loc)
-        interior_ops = [
-            (xr[r, :, sl].contiguous(), xfr[r, :, sl].contiguous(),
-             yc[r, sl].contiguous(), yfc[r, sl].contiguous(),
-             b_loc[r:r + 1, sl, sl].contiguous()) for r in range(nr)]
+        groups_int = rank_groups(setup, local, xr[:, :, sl], xfr[:, :, sl],
+                                 yc[:, sl], yfc[:, sl])
+        b_int = b_loc[:, None, sl, sl].contiguous()
 
     def f(h_int, u_int):
         q = _embed(h_int, u_int, halo)
@@ -366,21 +370,17 @@ def make_sharded_cov_block_stepper(model, setup, dt: float, overlap=None,
             # pre-exchange strips, so the interior kernel needs none of
             # them; the band consumes the received strips.
             phase = start(q)
-            core = [rhs_interior(fz[r:r + 1], *interior_ops[r][:4],
-                                 h_int[r], u_int[r], interior_ops[r][4])
-                    for r in range(nr)]
+            dh_c, du_c = rhs_interior.stacked(fz, groups_int, h_int, u_int,
+                                              b_int)
             q, ssn, swe = finish(q, phase)
             dh, du = rhs_band(
                 fz, xr, xfr, yc, yfc, q[:, 0], q[:, 1:3].transpose(0, 1),
-                b_loc, ssn[:, 0], swe[:, 0],
-                torch.cat([c[0] for c in core]),
-                torch.cat([c[1] for c in core], dim=1))
+                b_loc, ssn[:, 0], swe[:, 0], dh_c[:, 0],
+                du_c[:, :, 0].transpose(0, 1))
             return _band_outputs(dh, du)
         q, ssn, swe = finish(q, start(q))
-        return _stack_outputs([
-            rhs_local(fz[r:r + 1], xr[r], xfr[r], yc[r], yfc[r], q[r, 0:1],
-                      q[r, 1:3].unsqueeze(1), b_loc[r:r + 1], ssn[r], swe[r])
-            for r in range(nr)])
+        return rhs_local.stacked(fz, groups, q[:, 0:1], q[:, 1:3].unsqueeze(2),
+                                 b_blk, ssn, swe)
 
     def step(state, t_now):
         del t_now

@@ -365,6 +365,51 @@ def test_block_rhs_kernels_match_plain_c48():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("cores", [True, False], ids=["B5", "B6"])
+def test_stacked_block_rhs_kernels_match_plain_c48(cores):
+    """B5 and B6 in one launch over a tier's stacked ranks: the six faces
+    (two groups of three), the 24 blocks of the 2 x 2 split (eight
+    groups), and six of them in groups of 3, 2 and 1, from the TC5 state
+    and after a classic step: bitwise equal to the stacked plain version
+    and to each rank's per-block plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the block RHS kernels have no CPU "
+                    "form)")
+    g, m, s0 = _tc5_c48()
+    s1 = m.make_step(600.0)(s0, 0.0)
+    make = (tcov.make_cov_rhs_interior_local if cores
+            else tcov.make_cov_rhs_pallas_local)
+    cls = tcov.CovRhsInterior if cores else tcov.CovRhsLocal
+    for s, ranks in ((1, range(6)), (2, range(24)),
+                     (2, [0, 4, 8, 12, 16, 1])):
+        kern = make(g.n // s, g.halo, g.dalpha, g.radius, EARTH_GRAVITY,
+                    EARTH_OMEGA, device=g.device)
+        for state in (s0, s1):
+            blocks = list(_block_operands(g, m, state, s, cores))
+            per = [blocks[r] for r in ranks]
+            keys = [((r // s) % s, r % s) for r in ranks]
+            groups = tcov.RankGroups(keys, *(
+                torch.stack([a[k] for a in per]) for k in (1, 2, 3, 4)))
+            args = (torch.cat([a[0] for a in per]), groups,
+                    torch.cat([a[5] for a in per])[:, None],
+                    torch.stack([a[6] for a in per]),
+                    torch.cat([a[7] for a in per])[:, None])
+            if not cores:
+                args += tuple(torch.stack([a[k] for a in per])
+                              for k in (8, 9))
+            before = cls.launches
+            out = kern.stacked(*args)
+            torch.cuda.synchronize()
+            assert cls.launches == before + 1
+            for x, r in zip(out, kern.stacked_reference(*args)):
+                assert bool(torch.all(torch.isfinite(x))), s
+                assert torch.equal(x, r), (s, _rel(r, x))
+            for i, a in enumerate(per):
+                for x, r in zip((out[0][i], out[1][i]), kern.reference(*a)):
+                    assert torch.equal(x, r), (s, i)
+
+
+@pytest.mark.gpu
 def test_stage_inkernel_matches_plain_c48():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the extended-carry stage kernel "

@@ -24,6 +24,7 @@ bitwise equal to the plain versions' (the stand-in ``rsqrtf`` is
 """
 
 import ctypes
+import itertools
 import re
 import shutil
 import subprocess
@@ -166,6 +167,26 @@ struct grid_group {
 inline grid_group this_grid() { return {}; }
 }  // namespace cooperative_groups
 """
+
+
+def _mutated_lib(emulated, name: str, old: str, new: str):
+    """Kernel ``name`` compiled for the host with the one occurrence of
+    ``old`` replaced by ``new``: in its source, or in ``cov_faces.cuh``,
+    which is then inlined into the source.  Each mutation gets a library
+    of its own: a path the process has loaded once is not loaded again."""
+    src = (_build.CSRC_DIR / _build.KERNELS[name]).read_text()
+    if old in src:
+        assert src.count(old) == 1
+        src = src.replace(old, new)
+    else:
+        hdr = (_build.CSRC_DIR / "cov_faces.cuh").read_text()
+        assert hdr.count(old) == 1
+        hdr = hdr.replace(old, new).replace("#pragma once\n", "")
+        src = src.replace('#include "cov_faces.cuh"\n', hdr)
+    return emulated["_compile"](src, f"{name}_mut{next(_MUTANTS)}")
+
+
+_MUTANTS = itertools.count()
 
 
 def _emulate(src: str, name: str, out, gxx: str):
@@ -344,9 +365,7 @@ def test_faces_kernel_mutation_is_caught(emulated, launch_on_cpu,
     """The mutation checks of B1 and B2: a face computed from the other
     buffer's window, and B1 prefetching the current face's window instead
     of the next one's, must disagree with the plain versions at C72."""
-    src = (_build.CSRC_DIR / _build.KERNELS[name]).read_text()
-    assert src.count(old) == 1
-    lib = emulated["_compile"](src.replace(old, new), name + "_mut")
+    lib = _mutated_lib(emulated, name, old, new)
     monkeypatch.setattr(_build, "load", lambda nm: ctypes.CDLL(
         str(lib if nm == name else emulated[nm])))
     stages, filters, args = faces_cases[72]
@@ -418,12 +437,9 @@ def test_stage_nu4_b_ablated_mutation_is_caught(emulated, launch_on_cpu,
     """The mutation check of B14: NoFill reading the routed ghosts
     instead of its zero apron must disagree with its plain version."""
     name = "cov_stage_nu4"
-    src = (_build.CSRC_DIR / _build.KERNELS[name]).read_text()
     zero = "? q[fi][j * n + i] : 0.0f;"
-    assert src.count(zero) == 1
-    lib = emulated["_compile"](src.replace(
-        zero, "? q[fi][j * n + i]\n : filled(q[fi], gsn, gwe, fi, n, hh, "
-        "rw, j, i);"), name + "_mut")
+    lib = _mutated_lib(emulated, name, zero, "? q[fi][j * n + i]\n : "
+                       "filled(q[fi], gsn, gwe, fi, n, hh, rw, j, i);")
     monkeypatch.setattr(_build, "load", lambda nm: ctypes.CDLL(
         str(lib if nm == name else emulated[nm])))
     g, m, dt, step, args = galewsky_c40
@@ -591,11 +607,18 @@ def test_swe_stage_inkernel_kernel_source(launch_on_cpu, cart_c40, stage):
 
 # ---- the sharded tiers' block kernels: B5 and B6 --------------------------
 
-#: The coordinate operands of the two block kernels' advective_tile calls;
-#: the mutation hands the tile the block's columns as its rows and the
-#: rows as its columns, which only a sub-face block can tell apart.
-_BLOCK_COORDS = "p.xr, p.xfr,\n      p.yc, p.yfc,"
-_BLOCK_COORDS_SWAPPED = "p.yc, p.yfc,\n      p.xr, p.xfr,"
+#: The group's coordinate operands of the two block kernels (cov_faces.cuh's
+#: rhs_group, which both include); the mutation hands the tile the block's
+#: columns as its rows and the rows as its columns, which only a sub-face
+#: block can tell apart.
+_BLOCK_COORDS = ("  const float* xr = p.xr + rows;\n"
+                 "  const float* xfr = p.xfr + rows;\n"
+                 "  const float* yc = p.yc + rows;\n"
+                 "  const float* yfc = p.yfc + rows;\n")
+_BLOCK_COORDS_SWAPPED = ("  const float* xr = p.yc + rows;\n"
+                         "  const float* xfr = p.yfc + rows;\n"
+                         "  const float* yc = p.xr + rows;\n"
+                         "  const float* yfc = p.xfr + rows;\n")
 
 
 @pytest.fixture(scope="module")
@@ -613,9 +636,10 @@ def tc5_c40_states(tc5_c40):
 
 
 def _blocks(g, m, state, s, cores=False):
-    """Every (face, iy, ix) block of the s x s split at C40: the interior
-    windows (``cores``) or the extended blocks, with the block's
-    coordinate rows and columns, frame z and seeded sym strips."""
+    """Every (face, iy, ix) block of the s x s split of ``g``, in the
+    tiers' rank order: the interior windows (``cores``) or the extended
+    blocks, with the block's coordinate rows and columns, frame z and
+    seeded sym strips."""
     import numpy as np
 
     st, he, ue, ssn, swe = state
@@ -686,10 +710,7 @@ def test_block_kernel_mutation_is_caught(emulated, launch_on_cpu,
     """The mutation check of both block kernels: rows and columns
     swapped in the tile's coordinates must disagree with the plain
     version on a sub-face block."""
-    src = (_build.CSRC_DIR / _build.KERNELS[name]).read_text()
-    assert src.count(_BLOCK_COORDS) == 1
-    lib = emulated["_compile"](
-        src.replace(_BLOCK_COORDS, _BLOCK_COORDS_SWAPPED), name + "_mut")
+    lib = _mutated_lib(emulated, name, _BLOCK_COORDS, _BLOCK_COORDS_SWAPPED)
     monkeypatch.setattr(_build, "load", lambda nm: ctypes.CDLL(
         str(lib if nm == name else emulated[nm])))
     g, m, states = tc5_c40_states
@@ -704,18 +725,138 @@ def test_block_kernel_mutation_is_caught(emulated, launch_on_cpu,
     assert not all(torch.equal(x, r) for x, r in zip(out, ref))
 
 
+# ---- B5 and B6 stacked: one launch over a tier's ranks ---------------------
+#
+# The tiers' layout: rank (f * s + iy) * s + ix holds block (f, iy, ix);
+# the ranks at one block position form groups of up to three.  At C40 and
+# s = 2 a block is 20 cells wide (one ragged tile, B5's core 16); at C72 it
+# is 36 (2 x 2 tiles, ragged by 4 and 12; B5's core 32 x 32, ragged along
+# beta).  The subset holds five ranks at one position and one at another:
+# groups of 3, 2 and 1.
+
+#: Ranks of the 2 x 2 split in groups of 3, 2 and 1 (positions (0, 0) x 5
+#: and (0, 1) x 1).
+_SUBSET = [0, 4, 8, 12, 16, 1]
+
+
+def _stacked_args(g, m, state, s, cores, ranks):
+    """The stacked operands of ``ranks`` of the s x s split: ``(fz,
+    groups, fields...)`` as the tiers pass them, with the groups built as
+    the tiers build them."""
+    blocks = list(_blocks(g, m, state, s, cores=cores))
+    per = [blocks[r] for r in ranks]
+    cat = lambda k: torch.cat([b[k] for b in per])
+    keys = [((r // s) % s, r % s) for r in ranks]
+    groups = tsc.RankGroups(keys, *(torch.stack([b[k] for b in per])
+                                    for k in (1, 2, 3, 4)))
+    fields = (cat(5)[:, None], torch.stack([b[6] for b in per]),
+              cat(7)[:, None])
+    if not cores:
+        fields += (torch.stack([b[8] for b in per]),
+                   torch.stack([b[9] for b in per]))
+    return (cat(0), groups) + fields, per
+
+
+@pytest.fixture(scope="module")
+def c72_states():
+    """C72 TC5, its state and the state after one classic step, with
+    their filled frames and sym rows."""
+    g = build_grid(72, halo=2, radius=EARTH_RADIUS, device="cpu")
+    h, v, b = williamson_tc5(g, G, OM)
+    m = CovariantShallowWater(g, gravity=G, omega=OM, b_ext=b)
+    s0 = m.initial_state(h, v)
+    s1 = m.make_step(75.0 * 384 / 72)(s0, 0.0)
+    out = []
+    for st in (s0, s1):
+        he, ue = m.fill(st["h"]), m._fill_u(st["u"])
+        out.append((st, he, ue) + tuple(tsc.sym_edge_normals(g, ue)))
+    return g, m, out
+
+
+def _stacked_kernel(g, s, cores):
+    make = (tsc.make_cov_rhs_interior_local if cores
+            else tsc.make_cov_rhs_pallas_local)
+    return make(g.n // s, g.halo, g.dalpha, g.radius, G, OM, device="cpu")
+
+
+@pytest.mark.parametrize("cores", [True, False], ids=["B5", "B6"])
+@pytest.mark.parametrize("grid, s, ranks, sizes", [
+    ("c40", 2, None, [3] * 8), ("c72", 2, None, [3] * 8),
+    ("c40", 2, _SUBSET, [3, 2, 1]), ("c72", 2, _SUBSET, [3, 2, 1]),
+    ("c40", 1, None, [3, 3])],
+    ids=["c40-24", "c72-24", "c40-groups-3-2-1", "c72-groups-3-2-1",
+         "c40-faces"])
+def test_stacked_block_kernels_source(launch_on_cpu, tc5_c40_states,
+                                      c72_states, grid, s, ranks, sizes,
+                                      cores):
+    """B5 and B6 over a stack of ranks, one launch per call, from the TC5
+    state and after a step: the 2 x 2 split's 24 ranks, a subset of them
+    in groups of 3, 2 and 1, and the six whole faces (the face tier's
+    form): bitwise equal to the stacked plain version and to the
+    per-block plain version of every rank."""
+    g, m, states = tc5_c40_states if grid == "c40" else c72_states
+    ranks = list(range(6 * s * s)) if ranks is None else ranks
+    kern = _stacked_kernel(g, s, cores)
+    cls = type(kern)
+    for state in states:
+        args, per = _stacked_args(g, m, state, s, cores, ranks)
+        assert [len(grp) for grp in args[1].ranks] == sizes
+        before = cls.launches
+        out = kern.stacked(*args)
+        assert cls.launches == before + 1
+        _equal(out, kern.stacked_reference(*args))
+        for i, a in enumerate(per):
+            _equal((out[0][i], out[1][i]), kern.reference(*a))
+
+
+#: The stacked kernels' group loop (cov_faces.cuh's rhs_group): its first
+#: rank's window, the group's rows, the double buffer.  The mutations stage
+#: the group's second rank's fields for its first, read every group with
+#: the first group's rows (another block position's), and compute each
+#: rank from the other buffer.
+_GROUP_MUTATIONS = {
+    "swapped-rank": ("stage_rank_window(p, sm.w[0], ranks[0], j0, i0);",
+                     "stage_rank_window(p, sm.w[0], ranks[1], j0, i0);"),
+    "wrong-position-rows": ("const long rows = (long)g * m;",
+                            "const long rows = 0;"),
+    "swapped-buffer": ("const StageWindow& w = sm.w[cur];",
+                       "const StageWindow& w = sm.w[cur ^ 1];"),
+}
+
+
+@pytest.mark.parametrize("name", ["cov_rhs_interior", "cov_rhs_local"])
+@pytest.mark.parametrize("mutation", sorted(_GROUP_MUTATIONS))
+def test_stacked_kernel_mutation_is_caught(emulated, launch_on_cpu,
+                                           monkeypatch, c72_states, name,
+                                           mutation):
+    """Each mutation of the group loop must disagree with the plain
+    version over the 24 ranks of the 2 x 2 split at C72 (groups of
+    three)."""
+    lib = _mutated_lib(emulated, name, *_GROUP_MUTATIONS[mutation])
+    monkeypatch.setattr(_build, "load", lambda nm: ctypes.CDLL(
+        str(lib if nm == name else emulated[nm])))
+    g, m, states = c72_states
+    cores = name == "cov_rhs_interior"
+    kern = _stacked_kernel(g, 2, cores)
+    args, _ = _stacked_args(g, m, states[1], 2, cores, list(range(24)))
+    out, ref = kern.stacked(*args), kern.stacked_reference(*args)
+    assert not all(torch.equal(x, r) for x, r in zip(out, ref))
+
+
 def test_whole_face_kernels_pass_rows_as_columns():
-    """advective_tile, and the faces-in-block stage's stage_metric, take
-    separate row and column coordinates; every kernel of whole faces
-    passes its one coordinate pair as both, the two block kernels their
-    own rows and columns.  The faces-in-block stage's tile function
-    (stage_face_tile) takes the center rows along i and the center
-    columns along j: for whole faces the same array twice."""
+    """advective_tile, and the faces-in-block design's stage_metric and
+    stage_face_tile, take separate row and column coordinates (centres
+    and faces along i, then along j); every kernel of whole faces passes
+    its one coordinate pair as both, the two block kernels their groups'
+    own rows and columns: both run cov_faces.cuh's rhs_group, which
+    passes them on."""
+    sources = {name: (_build.CSRC_DIR / fname).read_text()
+               for name, fname in _build.KERNELS.items()}
+    sources["cov_faces.cuh"] = (_build.CSRC_DIR / "cov_faces.cuh").read_text()
     calls = {}
-    for name, fname in _build.KERNELS.items():
-        src = (_build.CSRC_DIR / fname).read_text()
+    for name, src in sources.items():
         for mt in re.finditer(
-                r"(?m)^\s+(advective_tile<|stage_metric\(|stage_face_tile\()"
+                r"(?m)^\s+(advective_tile<|stage_metric\(|stage_face_tile<)"
                 r".*?\);", src, re.S):
             args = re.sub(r"\s+", " ", mt.group(0))
             fn = mt.group(1).rstrip("<(")
@@ -723,17 +864,19 @@ def test_whole_face_kernels_pass_rows_as_columns():
     assert sorted(calls) == sorted(
         ["cov_stage", "cov_stage_refused_nu4", "cov_stage_nu4", "cov_rhs",
          "cov_stage_inkernel", "cov_stage_nbr", "cov_step_mega",
-         "cov_rhs_interior", "cov_rhs_local"])
+         "cov_faces.cuh"])
     for name, fns in calls.items():
-        if name == "cov_stage":
+        if name in ("cov_stage", "cov_faces.cuh"):
             assert sorted(fns) == ["stage_face_tile", "stage_metric"], fns
-            wants = {"stage_metric": "p.xc, p.xf, p.xc, p.xf,",
-                     "stage_face_tile": "p.xc, p.xc,"}
+            pair = ("p.xc, p.xf, p.xc, p.xf," if name == "cov_stage"
+                    else " xr, xfr, yc, yfc,")
+            wants = {"stage_metric": pair, "stage_face_tile": pair}
         else:
             assert sorted(fns) == ["advective_tile"], (name, fns)
-            wants = {"advective_tile": (
-                "p.xr, p.xfr, p.yc, p.yfc," if name.startswith("cov_rhs_")
-                and name != "cov_rhs" else "p.xc, p.xf, p.xc, p.xf,")}
+            wants = {"advective_tile": "p.xc, p.xf, p.xc, p.xf,"}
         for fn, want in wants.items():
             assert len(fns[fn]) == 1, (name, fn)
             assert want in fns[fn][0], (name, fns[fn][0])
+    for name, seam in (("cov_rhs_interior", "None"),
+                       ("cov_rhs_local", "Frame")):
+        assert sources[name].count(f"rhs_group<Seam::{seam}>(p, sm,") == 1

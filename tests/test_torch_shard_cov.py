@@ -20,6 +20,12 @@ kernel wrappers run their plain versions on CPU tensors.  Budgets:
 * the interior pass + band against the port's own one-face form of the
   RHS kernel (B4, ``n_faces=1, external_sym=True``): bitwise, on all six
   faces (the same operands in the same op order, tiled);
+* the stacked forms of B5 and B6 (one launch over a tier's ranks, their
+  plain versions here): bitwise equal to the per-block plain forms on
+  every rank of the 2 x 2 split and of the face tier, and against the
+  JAX per-block kernels in interpret mode to the budget above; the group
+  table of the tiers' stacked launches, and its refusal of a group whose
+  ranks' coordinate rows differ;
 * the face tier on six virtual ranks (``device="cpu"``) against the JAX
   package's ``make_sharded_cov_stepper`` on six virtual CPU devices, 3
   steps at C8, serialized and overlapped: 1e-6 of each field's max
@@ -55,7 +61,7 @@ from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
 from jaxstream_torch.ops.cuda import swe_cov as tsc
 from jaxstream_torch.parallel.mesh import (setup_sharding, shard_state,
                                            unshard_state)
-from jaxstream_torch.parallel.shard_cov import CovShardProgram
+from jaxstream_torch.parallel.shard_cov import CovShardProgram, rank_groups
 from jaxstream_torch.parallel.shard_cov_block import CovBlockProgram
 from jaxstream_torch.parallel.sharded_model import make_stepper_for
 from jaxstream_torch.physics.initial_conditions import williamson_tc5
@@ -247,6 +253,180 @@ def test_interior_plus_band_equals_one_face_form():
                  m.b_ext[f:f + 1, I, I].contiguous())
         dh1, du1 = band(fz, xr, xfr, yc, yfc, *args, *c)
         assert torch.equal(dh0, dh1) and torch.equal(du0, du1), f
+
+
+# ---- the stacked forms of B5 and B6 ----------------------------------------
+
+
+def _tier_blocks(jg, jm, h_e, u_e, ssn, swe, s):
+    """Every rank's per-block B5 and B6 operands (JAX arrays) of the
+    (6, s, s) split in the tiers' rank order, the rows and frames from
+    the JAX package's block program (s = 1: the whole faces, the face's
+    own sym rows); B6's sym strips seeded inside a face."""
+    h = jg.halo
+    nl = jg.n // s
+    if s == 1:
+        xr, xfr, yc, yfc, _ = jax_coord_rows(jg.n, h)
+        tab = {"xr": xr[None, None, None], "xfr": xfr[None, None, None],
+               "yc": yc[None, None, None], "yfc": yfc[None, None, None]}
+        tab = {k: jnp.broadcast_to(v, (6, 1, 1) + v.shape[3:])
+               for k, v in tab.items()}
+        tab["fz"] = jnp.asarray(np.asarray(FACE_AXES)[:, None, None, None,
+                                                      :, 2], jnp.float32)
+    else:
+        tab = JaxBlockProgram(jg, s).tables
+    rng = np.random.default_rng(11)
+    I = slice(h, h + nl)
+    b5, b6 = [], []
+    for f in range(6):
+        for iy in range(s):
+            for ix in range(s):
+                ry = slice(iy * nl, iy * nl + nl + 2 * h)
+                rx = slice(ix * nl, ix * nl + nl + 2 * h)
+                rows = [tab[k][f, iy, ix] for k in ("xr", "xfr", "yc", "yfc")]
+                fz = tab["fz"][f, iy, ix].reshape(1, 1, 3)
+                he, ue = h_e[f:f + 1, ry, rx], u_e[:, f:f + 1, ry, rx]
+                be = jm.b_ext[f:f + 1, ry, rx]
+                b5.append((fz, rows[0][:, I], rows[1][:, I], rows[2][I],
+                           rows[3][I], he[:, I, I], ue[:, :, I, I],
+                           be[:, I, I]))
+                sym = ((ssn[f:f + 1], swe[f:f + 1]) if s == 1 else tuple(
+                    rng.standard_normal(sh).astype(np.float32)
+                    for sh in ((1, 2, nl), (1, nl, 2))))
+                b6.append((fz, *rows, he, ue, be) + sym)
+    return b5, b6
+
+
+def _stack(setup, per, interior):
+    """The stacked operands of per-block torch operands ``per``: (fz,
+    groups, fields...) as the tiers pass them."""
+    col = lambda k: [a[k] for a in per]
+    rows = [torch.stack(col(k)) for k in (1, 2, 3, 4)]
+    groups = rank_groups(setup, list(range(len(per))), *rows)
+    out = (torch.cat(col(0)), groups, torch.stack(col(5)),
+           torch.stack(col(6)), torch.stack(col(7)))
+    if not interior:
+        out += (torch.stack(col(8)), torch.stack(col(9)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def stacked_cases(tc5_c16_after_a_step):
+    """For the face tier (s = 1) and the 2 x 2 split (s = 2): the port's
+    B5 and B6, their stacked operands and per-block operands (torch), and
+    the JAX per-block kernels' outputs in interpret mode."""
+    jg, jm, st, h_e, u_e, ssn, swe = tc5_c16_after_a_step
+    cases = {}
+    for s in (1, 2):
+        ji, jl, _, ti, tl, _ = _kernels(jg, jg.n // s)
+        setup = setup_sharding({"parallelization": {
+            "tiles_per_edge": s, "num_devices": 6 * s * s,
+            "use_shard_map": True}}, device="cpu")
+        b5, b6 = _tier_blocks(jg, jm, h_e, u_e, ssn, swe, s)
+        for name, kern, jkern, per in (("B5", ti, ji, b5),
+                                       ("B6", tl, jl, b6)):
+            tper = [[_T(a) for a in args] for args in per]
+            cases[(name, s)] = (kern, _stack(setup, tper, name == "B5"),
+                                tper, [jkern(*args) for args in per])
+    return cases
+
+
+@pytest.mark.parametrize("name", ["B5", "B6"])
+@pytest.mark.parametrize("s", [1, 2], ids=["face-tier", "2x2-split"])
+def test_stacked_plain_forms_equal_per_rank(stacked_cases, name, s):
+    kern, args, per, _ = stacked_cases[(name, s)]
+    dh, du = kern.stacked(*args)
+    assert dh.shape[0] == du.shape[0] == 6 * s * s
+    for r, a in enumerate(per):
+        want = kern.reference(*a)
+        assert torch.equal(dh[r], want[0]), r
+        assert torch.equal(du[r], want[1]), r
+
+
+@pytest.mark.parametrize("name", ["B5", "B6"])
+@pytest.mark.parametrize("s", [1, 2], ids=["face-tier", "2x2-split"])
+def test_stacked_plain_forms_match_jax(stacked_cases, name, s):
+    """The stacked plain form against the JAX per-block kernel on every
+    rank (interpret mode) and against its own float64 evaluation, in
+    units of the tendency's float64 max as the per-block tests above take
+    it: B6's own block's; for B5's core, the whole face's (the core's own
+    max is small where the flow is near balance)."""
+    kern, args, per, jax_out = stacked_cases[(name, s)]
+    face_kern, _, face_args, _ = stacked_cases[("B6", 1)]
+    dh, du = kern.stacked(*args)
+    for r, (a, out_j) in enumerate(zip(per, jax_out)):
+        f64 = kern.reference(*[t.double() for t in a])
+        scale = f64 if name == "B6" else face_kern.reference(
+            *[t.double() for t in face_args[r // (s * s)]])
+        for k, x in enumerate((dh[r], du[r])):
+            assert _rel(out_j[k], to_numpy(x), scale[k]) <= TENDENCY_TOL, \
+                (r, k)
+            assert _rel(f64[k], to_numpy(x), scale[k]) <= TENDENCY_TOL, \
+                (r, k)
+
+
+def _rows(r, m, s=2, n=None):
+    """Seeded per-rank rows (R, 1, m) / (R, m, 1), equal at equal block
+    positions of the (6, s, s) mesh."""
+    rng = np.random.default_rng(5)
+    per_pos = {p: rng.standard_normal((4, m)).astype(np.float32)
+               for p in range(s * s)}
+    rows = np.stack([per_pos[i % (s * s)] for i in range(r)])
+    return (torch.from_numpy(rows[:, 0, None, :]),
+            torch.from_numpy(rows[:, 1, None, :]),
+            torch.from_numpy(rows[:, 2, :, None]),
+            torch.from_numpy(rows[:, 3, :, None]))
+
+
+@pytest.mark.parametrize("devices, local, want", [
+    (24, list(range(24)), [[0, 4, 8], [12, 16, 20], [1, 5, 9],
+                           [13, 17, 21], [2, 6, 10], [14, 18, 22],
+                           [3, 7, 11], [15, 19, 23]]),
+    (24, [5, 1, 9, 2], [[5, 1, 9], [2]]),
+    (6, list(range(6)), [[0, 1, 2], [3, 4, 5]]),
+    (24, [7], [[7]])],
+    ids=["block-tier", "block-subset", "face-tier", "one-rank"])
+def test_rank_groups_of_the_tiers(devices, local, want):
+    """Which stacked ranks share a group: those at one block position, in
+    stack order, at most three; the table lists them (stack indices) and
+    pads with -1, and each group's rows are its ranks'."""
+    s = 2 if devices == 24 else 1
+    setup = setup_sharding({"parallelization": {
+        "tiles_per_edge": s, "num_devices": devices,
+        "use_shard_map": True}}, device="cpu")
+    full = _rows(devices, 10, s)
+    rows = [t[local] for t in full]
+    groups = rank_groups(setup, local, *rows)
+    idx = {r: i for i, r in enumerate(local)}
+    want_idx = [[idx[r] for r in grp] for grp in want]
+    assert groups.ranks == want_idx
+    assert groups.count == len(want)
+    assert groups.table.dtype == torch.int32
+    assert groups.table.tolist() == [g + [-1] * (3 - len(g))
+                                     for g in want_idx]
+    for gi, grp in enumerate(want_idx):
+        for k, t in enumerate(rows):
+            assert torch.equal(
+                (groups.xr, groups.xfr, groups.yc, groups.yfc)[k][gi],
+                t[grp[0]])
+    for a, b in zip(groups.rank_rows(), rows):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("row", [0, 1, 2, 3],
+                         ids=["xr", "xfr", "yc", "yfc"])
+def test_rank_groups_refuse_unequal_rows(row):
+    """A group whose ranks' rows differ (here by one ulp) is refused."""
+    setup = setup_sharding({"parallelization": {
+        "tiles_per_edge": 2, "num_devices": 24, "use_shard_map": True}},
+        device="cpu")
+    rows = [t.clone() for t in _rows(24, 10)]
+    flat = rows[row].view(-1)
+    k = 8 * 10 + 3                       # rank 8, position (0, 0)'s group
+    flat[k] = torch.nextafter(flat[k], torch.tensor(np.inf))
+    with pytest.raises(ValueError, match="share block position"):
+        rank_groups(setup, list(range(24)), *rows)
+    rank_groups(setup, list(range(24)), *_rows(24, 10))
 
 
 @pytest.fixture(scope="module")
