@@ -50,9 +50,10 @@ bisection of ``jaxstream_torch.experiments``, and ``setup_sharding`` with
 * TC5 on the explicit sharded covariant tiers, every rank a virtual rank
   on the one card: the face tier (6 ranks, one face each) and the
   (6, 2, 2) block tier (24 ranks), each serialized (per RK stage the
-  4-stage exchange, then per rank one launch of the one-face RHS kernel,
-  ``csrc/cov_rhs.cu``, or one launch over all 24 ranks of the block RHS
-  kernel with the blocks' coordinates, ``csrc/cov_rhs_local.cu``) and
+  4-stage exchange, then one launch over the six faces of the RHS kernel
+  of whole faces, ``csrc/cov_rhs.cu``, or one launch over all 24 ranks of
+  the block RHS kernel with the blocks' coordinates,
+  ``csrc/cov_rhs_local.cu``) and
   overlapped (per RK stage the exchange's first phase, one launch over
   all ranks of the interior kernel ``csrc/cov_rhs_interior.cu``, the
   second phase, and the torch band).
@@ -123,7 +124,9 @@ Phases, each fatal on failure:
     budget, set at C16: the tendency's f32 roundoff grows with n);
 16. a timed window of 300 classic steps with ``backend='pallas'``, the
     RHS launches checked against 3 x steps, the TC5 gate, and its
-    breakdown (fills, the sym rows, the kernel, the rest);
+    breakdown (fills, the sym rows, the kernel, the rest); the kernel's
+    device time beside its earlier design's (``EARLIER_DEVICE_US``) and
+    the step's device time as a CUDA graph;
 17. the extended stage kernel against its plain version on whole blocks
     and strips, as stage 1 and stage 2 (<= 1e-5) and as stage 3 with
     y0 = -2 yc (<= 1e-4); then three extended steps against three compact
@@ -165,13 +168,16 @@ Phases, each fatal on failure:
     kernel's times against its bounds and a traced window;
 25. the whole-step kernel against its plain version, one step from the
     TC5 state and one from the state after 300 steps (all four carry
-    fields, <= 1e-5), then three whole steps against three compact steps
+    fields, bitwise required), and on 132 blocks (fewer than its 384 work
+    items: the metric per item) from the second, then three whole steps
+    against three compact steps
     (<= 1e-6, ``tests/test_cov_swe.py:533``'s budget; bitwise
     predicted);
 26. 20 + 1 000 whole steps of TC5 gated, the launches checked against
     the steps, the kernel's time against two bounds (the carry read and
-    written once; the compact stepper's three stages' bytes) and a
-    traced window;
+    written once; the compact stepper's three stages' bytes) and beside
+    its earlier design's (``EARLIER_DEVICE_US``), the step's device time
+    as a CUDA graph, and a traced window;
 27. 300-step windows of the compact, neighbour-read and whole-step
     steppers in turns (compact, nbr, mega, mega, nbr, compact);
 28. the interior kernel (B5) in one launch over the six faces' ghost-free
@@ -183,7 +189,11 @@ Phases, each fatal on failure:
     larger than B4's on the same cells plus 5e-5;
 29. B5 + the torch band against B4's one-face form, on all six faces,
     from both states: bitwise required (the twin of
-    ``tests/test_overlap_exchange.py:55``);
+    ``tests/test_overlap_exchange.py:55``); B4's stacked form (the face
+    tier's serialized launch, views of the tier's exchanged ``q``, two
+    groups of three) against its stacked plain version and each face's
+    one-face plain call, and its one-face form against its plain version,
+    from both states: bitwise required;
 30. the block kernel (B6) in one launch over all 24 blocks of the
     (6, 2, 2) split, and B5 over their cores (eight groups of three),
     against their stacked and per-block plain versions, from both states,
@@ -195,15 +205,16 @@ Phases, each fatal on failure:
     ``tests/test_overlap_exchange.py:157``; bitwise expected), block
     against face (<= 2e-4, ``tests/cov_block_worker.py:70``);
 32. each tier path's main run: 5 + 100 steps gated as phase 4, the
-    kernel launches checked (B5 and B6: 3 x steps, one launch per RK
-    stage over all ranks; B4's one-face form: 3 x 6 x steps; the other
-    two counters 0), steps/s, a traced window for the busy share, and the
-    time of one exchange and one permutation;
+    kernel launches checked (B4, B5 and B6: 3 x steps, one launch per
+    RK stage over all ranks; the other two counters 0), steps/s, a traced
+    window for the busy share, and the time of one exchange and one
+    permutation;
 33. the kernel records of B5 (a stacked launch on each tier) and B6, each
     beside its earlier design's launches per RK stage
-    (``EARLIER_DEVICE_US``), B4's one-face form as a CUDA graph, the face
-    tier's per-stage kernels (B4 against B5 + band), and each tier step's
-    device time as a CUDA graph;
+    (``EARLIER_DEVICE_US``), B4's stacked form beside its earlier
+    one-face launches per RK stage, the face tier's per-stage kernels (B4
+    against B5 + band), and each tier step's device time as a CUDA
+    graph;
 34. (after phase 14, on the Galewsky jet) B14 in its three modes (full,
     nofill, nolap) against its plain version, as stage 1 and stage 2,
     from the Galewsky state and after 3 in-stage steps, at nu4 = 1e14
@@ -263,23 +274,32 @@ KERNEL_TOL = 1e-5
 # rank and RK stage, one 32 x 16 tile per block), per rank's launch: B5 on
 # a face-tier rank (n = 384) and on a block-tier rank (n = 192), B6 on a
 # block-tier rank (the same card and run); the log compares one stacked
-# launch over all ranks with the ranks' launches together.
+# launch over all ranks with the ranks' launches together.  The
+# whole-step kernel (B12) and the RHS kernel of whole faces (B4) in their
+# tile-per-block design: one step, six faces, and one face-tier rank's
+# one-face launch (the same card; B4's one-face form in a later run).
 EARLIER_DEVICE_US = {"cov_stage_compact": 60.06, "cov_nu4_filter": 62.94,
                      "cov_rhs_interior face rank": 12.43,
                      "cov_rhs_interior block rank": 9.94,
-                     "cov_rhs_local block rank": 9.60}
+                     "cov_rhs_local block rank": 9.60,
+                     "cov_step_mega": 260.62, "cov_rhs": 49.34,
+                     "cov_rhs face rank": 12.95}
 # Steps captured in one CUDA graph for a step's device time.
 GRAPH_STEPS = 20
 # ptxas's (registers, shared bytes) per kernel function of the other
-# libraries as they were built before the faces-in-block kernels came
-# (nvcc of CUDA 12.8): the log says whether each still builds to the same.
+# libraries as they were built before the faces-in-block kernels came,
+# and of the faces-in-block kernels B1, B2, B5 and B6 as they were built
+# before B4 and B12 joined them on the shared header (nvcc of CUDA 12.8):
+# the log says whether each still builds to the same.
 EARLIER_PTXAS = {
+    "cov_stage": [(80, 0)],
+    "cov_nu4_filter": [(80, 0)],
+    "cov_rhs_interior": [(79, 0)],
+    "cov_rhs_local": [(79, 0)],
     "cov_stage_refused_nu4": [(62, 47392)],
     "cov_stage_nu4": [(64, 7344), (62, 7344), (62, 7344), (64, 18608)],
-    "cov_rhs": [(56, 18608)],
     "cov_stage_inkernel": [(48, 18608)],
     "cov_stage_nbr": [(64, 19120)],
-    "cov_step_mega": [(64, 0)],
     "swe_rhs": [(56, 21892)],
     "swe_stage": [(56, 21892), (48, 21892)],
     "swe_stage_inkernel": [(56, 21892), (56, 21892)],
@@ -335,6 +355,9 @@ CART_CONCAT_STEPS = 500
 # one (tests/test_cov_swe.py:533's budget; bitwise predicted).
 ROUTER_FREE_CHECK_STEPS = 300
 MEGA_VS_COMPACT_TOL = 1e-6
+# The whole-step kernel on a grid of fewer blocks than its 384 work items
+# (phase 25): one block per SM.
+MEGA_FEW_BLOCKS = 132
 # The sharded covariant tiers on virtual ranks: the JAX package's budgets
 # against the single-device classic step (tests/test_shard_cov.py:57-59)
 # and for mass (:84), overlapped vs serialized
@@ -1147,10 +1170,12 @@ def profiling_path(card: str, model, step, y, t) -> None:
                            "or samples not finite")
 
 
-def pallas_rhs_path(card: str, grid, model, b_ext, s0) -> dict:
+def pallas_rhs_path(card: str, grid, model, b_ext, s0) -> tuple:
     """Phases 15-16: TC5 on the classic SSPRK3 path with
     ``backend='pallas'``, whose ``rhs`` launches the unfused RHS kernel
-    once per call.  Returns the kernel's record for the kernels line."""
+    once per call.  Returns the kernel's timed six-face form, its launches
+    in the timed window and its largest difference from the plain version,
+    for its record in the kernels line (with the face tier's form)."""
     from jaxstream_torch.geometry.cubed_sphere import build_grid
     from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
     from jaxstream_torch.ops.cuda import swe_cov
@@ -1231,20 +1256,22 @@ def pallas_rhs_path(card: str, grid, model, b_ext, s0) -> dict:
     h_ext, u_ext = pal.fill(y["h"]), pal._fill_u(y["u"])
     args = (kern.fz[:, None], h_ext, u_ext, pal.b_ext) \
         + pal._pallas_rhs.sym(u_ext)
-    record = kernel_record(
-        "cov_rhs", "jaxstream_torch/csrc/cov_rhs.cu",
-        "jaxstream/ops/pallas/swe_cov.py:508", launches, max_abs,
-        [("RHS six faces", kern, kern.reference, args)], FLOPS_PER_CELL,
-        card)
+    max_abs = max(max_abs, check_bitwise(
+        f"RHS kernel vs plain C{N} (six faces), after {CLASSIC_STEPS} "
+        "classic steps", kern, kern.reference, args, ("dh", "du"), count))
+    timed = [time_form("RHS six faces", kern, kern.reference, args,
+                       FLOPS_PER_CELL, card)]
+    redesign_line("cov_rhs", timed, 3, "classic pallas TC5",
+                  step_device_us(step, y, t, STEP_DT), card)
     fill_ms = event_ms(lambda: (pal.fill(y["h"]), pal._fill_u(y["u"])), 50)
     sym_ms = event_ms(lambda: pal._pallas_rhs.sym(u_ext), 50)
-    k_us = record["ms"] * 1e3
+    k_us = timed[0][0] * 1e3
     other = step_us - 3e3 * (fill_ms + sym_ms) - 3 * k_us
     log(f"classic step {step_us:.1f} us = 3 x (fills {fill_ms * 1e3:.1f} "
         f"us + sym rows {sym_ms * 1e3:.1f} us + RHS kernel "
         f"{k_us:.2f} us) + {other:.1f} us other (the RK combines); card "
         f"{card}")
-    return record
+    return timed, launches, max_abs
 
 
 def extended_path(card: str, grid, model, step_c, s0) -> dict:
@@ -1692,12 +1719,20 @@ def mega_path(card: str, grid, model, step_c, s0) -> tuple:
     for label, y in (("the TC5 state", yc0),
                      (f"the state after {ROUTER_FREE_CHECK_STEPS} steps",
                       y300)):
-        max_abs = max(max_abs, check_kernel(
+        max_abs = max(max_abs, check_bitwise(
             f"mega kernel vs plain C{N}, one step from {label}", kern,
-            kern.reference, carry(y), names, KERNEL_TOL, count))
+            kern.reference, carry(y), names, count))
     log(f"mega kernel grid: {kern.blocks} blocks of 256 threads "
         "(cooperative, all resident)")
-    del y300
+    # A grid of fewer blocks than work items: each block takes ~3 items
+    # and recomputes its tiles' metric terms per item.
+    few = swe_mega.CovMegaStep(grid, model.gravity, model.omega, STEP_DT,
+                               max_blocks=MEGA_FEW_BLOCKS)
+    max_abs = max(max_abs, check_bitwise(
+        f"mega kernel on {MEGA_FEW_BLOCKS} blocks vs plain C{N}, one step "
+        f"from the state after {ROUTER_FREE_CHECK_STEPS} steps", few,
+        few.reference, carry(y300), names, count))
+    del y300, few
     ym, _ = integrate(step, yc0, 0.0, 3, STEP_DT)
     yc, _ = integrate(step_c, yc0, 0.0, 3, STEP_DT)
     errs = {k: rel_err(yc[k], ym[k]) for k in names}
@@ -1729,11 +1764,17 @@ def mega_path(card: str, grid, model, step_c, s0) -> tuple:
         f"us/step, {TIMED_STEPS / wall * STEP_DT / 86400.0:.3f} "
         f"sim-days/s; launches {launches} = {WARM_STEPS + TIMED_STEPS}; "
         f"card {card}")
-    record = kernel_record(
+    max_abs = max(max_abs, check_bitwise(
+        f"mega kernel vs plain C{N}, one step after "
+        f"{WARM_STEPS + TIMED_STEPS} steps", kern, kern.reference, carry(y),
+        names, count))
+    timed = [time_form("mega step", kern, kern.reference, carry(y),
+                       3 * FLOPS_PER_CELL, card)]
+    rec = record(
         "cov_step_mega", "jaxstream_torch/csrc/cov_step_mega.cu",
-        "jaxstream/experiments/swe_mega.py:344", launches, max_abs,
-        [("mega step", kern, kern.reference, carry(y))],
-        3 * FLOPS_PER_CELL, card)
+        "jaxstream/experiments/swe_mega.py:344", launches, max_abs, timed)
+    redesign_line("cov_step_mega", timed, 1, "mega TC5",
+                  step_device_us(step, y, t, STEP_DT), card)
     # The other bound: the bytes of the compact stepper's three stages.
     st1, st2, st3 = step_c.stages
     gsn, gwe = step_c.route(y["strips_sn"], y["strips_we"])
@@ -1741,14 +1782,14 @@ def mega_path(card: str, grid, model, step_c, s0) -> tuple:
     s2 = (y["h"], y["u"]) + s1
     staged = sum(bound_ms(a, st(*a), N, FLOPS_PER_CELL)[0]
                  for st, a in ((st1, s1), (st2, s2), (st3, s2)))
-    k_ms, once = record["ms"], record["bound_ms"]
+    k_ms, once = rec["ms"], rec["bound_ms"]
     log(f"mega step {step_us:.1f} us = kernel {k_ms * 1e3:.2f} us + "
         f"{step_us - k_ms * 1e3:.1f} us other; bounds: the carry once "
         f"{once * 1e3:.2f} us ({once / k_ms:.1%}), the compact stages' "
         f"bytes {staged * 1e3:.2f} us ({staged / k_ms:.1%}); card {card}")
     device_busy(lambda: integrate(step, y, t, PROFILED_STEPS, STEP_DT),
                 PROFILED_STEPS, step_us, card, ("cov_step_mega_kernel",))
-    return record, step, y
+    return rec, step, y
 
 
 def tier_setup(tiles: int, overlap: bool):
@@ -1765,8 +1806,8 @@ def tier_operands(model, state, tiles: int):
     """Every rank's operands of the tier's RHS kernels on ``state``,
     through the tier's own exchange, as the tier passes them: ``(ranks, n,
     per-rank B5 args, per-rank B4 (face tier) or B6 (block tier) args, the
-    band's batched args, the stacked B5 args, the stacked B6 args (block
-    tier; None on the face tier))``.  The stacked launches take the tier's
+    band's batched args, the stacked B5 args, the stacked B4 (face tier)
+    or B6 (block tier) args)``.  The stacked launches take the tier's
     group table (``shard_cov.rank_groups``)."""
     from jaxstream_torch.ops.cuda.swe_rhs import coord_rows
     from jaxstream_torch.parallel import shard_cov, shard_cov_block
@@ -1819,12 +1860,9 @@ def tier_operands(model, state, tiles: int):
                                      xfr_s[:, :, I], yc_s[:, I],
                                      yfc_s[:, I]),
            local["h"], local["u"], b[:, None, I, I].contiguous())
-    b6s = None
-    if tiles > 1:
-        b6s = (fz, shard_cov.rank_groups(setup, ranks, xr_s, xfr_s, yc_s,
-                                         yfc_s),
-               q[:, 0:1], q[:, 1:3].unsqueeze(2), b[:, None], ssn, swe)
-    return ranks, n, b5, rhs, band, b5s, b6s
+    ext = (fz, shard_cov.rank_groups(setup, ranks, xr_s, xfr_s, yc_s, yfc_s),
+           q[:, 0:1], q[:, 1:3].unsqueeze(2), b[:, None], ssn, swe)
+    return ranks, n, b5, rhs, band, b5s, ext
 
 
 def check_bitwise(label: str, call, ref, args, names, count) -> float:
@@ -1862,7 +1900,9 @@ def sharded_paths(card: str, grid, model, s0, y300, t_start) -> list:
     ranks on the card, the face tier (6 ranks) and the (6, 2, 2) block
     tier (24 ranks), each serialized and overlapped, through
     ``setup_sharding`` and ``make_stepper_for``.  ``y300``: the TC5 state
-    after 300 steps.  Returns the records of B5 and B6."""
+    after 300 steps.  Returns the records of B5 and B6, and B4's timed
+    stacked form, its launches on the face serialized tier and its
+    largest difference from the plain version (for B4's record)."""
     from jaxstream_torch.ops.cuda import swe_cov
     from jaxstream_torch.parallel.mesh import shard_state, unshard_state
     from jaxstream_torch.parallel.sharded_model import make_stepper_for
@@ -1882,11 +1922,12 @@ def sharded_paths(card: str, grid, model, s0, y300, t_start) -> list:
     states = (("TC5 state", s0), (f"after {ROUTER_FREE_CHECK_STEPS} steps",
                                   y300))
     names = ("dh", "du")
-    max_b5 = max_b6 = 0.0
+    max_b4 = max_b5 = max_b6 = 0.0
 
-    # ---- 28-29. B5 stacked on the six faces; B5 + band vs B4 one-face ----
+    # ---- 28-29. B5 stacked on the six faces; B5 + band vs B4 one-face; ---
+    # ---- B4 stacked --------------------------------------------------------
     for label, st in states:
-        ranks, n, b5, rhs, bargs, b5s, _ = tier_operands(model, st, 1)
+        ranks, n, b5, rhs, bargs, b5s, b4s = tier_operands(model, st, 1)
         err, (dh_c, du_c) = check_stacked(
             f"interior kernel (B5) stacked vs plain C{N}, 6 faces in "
             f"{b5s[1].count} groups, {label}", face_core, b5s, b5)
@@ -1922,6 +1963,12 @@ def sharded_paths(card: str, grid, model, s0, y300, t_start) -> list:
             f"on faces {[r for r, ok in enumerate(same) if ok]} of 0-5")
         if not all(same):
             raise RuntimeError("B5 + band differs from B4's one-face form")
+        err, _ = check_stacked(
+            f"RHS kernel (B4) stacked vs plain C{N}, 6 faces in "
+            f"{b4s[1].count} groups, {label}", one, b4s, rhs)
+        max_b4 = max(max_b4, err, check_bitwise(
+            f"RHS kernel (B4) one-face form vs plain C{N}, face 0, {label}",
+            one, one.reference, rhs[0], names, lambda: Rhs.launches))
 
     # ---- 30. B6 stacked on all 24 blocks (and B5 on their cores) ---------
     stamp(t_start, "phase 30")
@@ -1979,8 +2026,7 @@ def sharded_paths(card: str, grid, model, s0, y300, t_start) -> list:
 
     # ---- 32. main paths: timed windows, launches, gate, busy share --------
     stamp(t_start, "phase 32")
-    # Kernel launches per step: 3 RK stages x one, over all ranks (B5, B6);
-    # x one per rank for B4's one-face form.
+    # Kernel launches per step: 3 RK stages x one, over all ranks.
     counters = {(1, False): Rhs, (1, True): Core, (2, False): Local,
                 (2, True): Core}
     launches = {}
@@ -2000,10 +2046,9 @@ def sharded_paths(card: str, grid, model, s0, y300, t_start) -> list:
         y, t = integrate(step, y, t, TIER_TIMED_STEPS, STEP_DT)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        per_stage = setup.num_devices if cls is Rhs else 1
         got = {c.__name__: c.launches for c in (Rhs, Core, Local)}
-        want = {c.__name__: (3 * per_stage * TIER_TIMED_STEPS
-                             if c is cls else 0) for c in (Rhs, Core, Local)}
+        want = {c.__name__: (3 * TIER_TIMED_STEPS if c is cls else 0)
+                for c in (Rhs, Core, Local)}
         if got != want:
             raise RuntimeError(f"{tier} launches {got} != {want}")
         launches[(tiles, overlap)] = got[cls.__name__]
@@ -2017,8 +2062,7 @@ def sharded_paths(card: str, grid, model, s0, y300, t_start) -> list:
             f"{wall:.3f} s -> {rates[tier]:.1f} steps/s, {step_us:.1f} "
             f"us/step, {rates[tier] * STEP_DT / 86400.0:.4f} sim-days/s; "
             f"{cls.__name__} launches {got[cls.__name__]} = 3 x "
-            + (f"{per_stage} x " if per_stage > 1 else "")
-            + f"{TIER_TIMED_STEPS}; card {card}")
+            f"{TIER_TIMED_STEPS}; card {card}")
         device_busy(lambda: integrate(step, y, t, TIER_PROFILED_STEPS,
                                       STEP_DT),
                     TIER_PROFILED_STEPS, step_us, card,
@@ -2055,7 +2099,7 @@ def sharded_paths(card: str, grid, model, s0, y300, t_start) -> list:
 
     # ---- 33. kernel records: times, bounds, plain times -------------------
     stamp(t_start, "phase 33")
-    ranks, n, b5f, rhsf, bargs, b5sf, _ = tier_operands(model, y300, 1)
+    ranks, n, b5f, rhsf, bargs, b5sf, b4sf = tier_operands(model, y300, 1)
     _, _, _, _, _, b5sb, b6sb = tier_operands(model, y300, 2)
     ni, nbi = N - 2 * grid.halo, nl - 2 * grid.halo
     forms_b5 = [
@@ -2095,28 +2139,31 @@ def sharded_paths(card: str, grid, model, s0, y300, t_start) -> list:
     redesign_line("cov_rhs_local block rank", timed_b6, 3,
                   "block serialized tier", step_us["block serialized"], card,
                   ranks=24)
-    # B4's one-face form, which the face tier's serialized form launches
-    # once per face and RK stage.
-    b4 = time_form(f"B4 one-face form (face tier, n={N})", one,
-                   one.reference, rhsf[0], FLOPS_PER_CELL, card, N * N)
-    log(f"cov_rhs one-face form: device {b4[4] * 1e3:.2f} us/launch as a "
-        f"CUDA graph; face serialized tier step: device "
-        f"{step_us['face serialized']:.2f} us/step as a CUDA graph of "
-        f"{GRAPH_STEPS} steps, 18 launches = {18e3 * b4[4]:.2f} us of it; "
-        f"card {card}")
+    # B4's stacked form, which the face tier's serialized form launches
+    # once per RK stage (earlier: its one-face form once per face), and
+    # the one-face form itself.
+    timed_b4 = [time_form(f"B4 stacked, face tier (6 ranks, n={N})",
+                          one.stacked, one.stacked_reference, b4sf,
+                          FLOPS_PER_CELL, card, 6 * N * N,
+                          read=stacked_read(b4sf))]
+    redesign_line("cov_rhs face rank", timed_b4, 3, "face serialized tier",
+                  step_us["face serialized"], card, ranks=6)
+    b4one = time_form(f"B4 one-face form (n={N})", one, one.reference,
+                      rhsf[0], FLOPS_PER_CELL, card, N * N)
     dh_c, du_c = face_core.stacked(*b5sf)
     band_ms = event_ms(
         lambda: band(*bargs, dh_c[:, 0], du_c[:, :, 0].transpose(0, 1)), 20)
-    log(f"face tier per RK stage: B4 one-face form {b4[0] * 1e3:.2f} "
-        f"us/launch (device {b4[4] * 1e3:.2f}) x 6 (serialized); B5 stacked "
-        f"{timed_b5[0][0] * 1e3:.2f} us/launch (device "
-        f"{timed_b5[0][4] * 1e3:.2f}) + torch band over 6 faces "
+    log(f"face tier per RK stage: B4 stacked {timed_b4[0][0] * 1e3:.2f} "
+        f"us/launch (device {timed_b4[0][4] * 1e3:.2f}; its one-face form "
+        f"{b4one[0] * 1e3:.2f}, device {b4one[4] * 1e3:.2f}) x 1 "
+        f"(serialized); B5 stacked {timed_b5[0][0] * 1e3:.2f} us/launch "
+        f"(device {timed_b5[0][4] * 1e3:.2f}) + torch band over 6 faces "
         f"{band_ms * 1e3:.1f} us (overlapped); card {card}")
     log("tier steps' device time (CUDA graph), us/step: " + ", ".join(
         f"{k} {v:.2f}" for k, v in step_us.items())
         + "; host rates, steps/s: " + ", ".join(
             f"{k} {v:.1f}" for k, v in rates.items()) + f"; card {card}")
-    return [rec_b5, rec_b6]
+    return [rec_b5, rec_b6], (timed_b4, launches[(1, False)], max_b4)
 
 
 def main() -> int:
@@ -2283,7 +2330,8 @@ def main() -> int:
     profiling_path(card, model, step, y, t)
     del gal, ysplit
     stamp(t_start, "classic backend pallas (phases 15-16)")
-    rhs_record = pallas_rhs_path(card, grid, model, b_ext, s0)
+    rhs_timed, rhs_launches, rhs_max = pallas_rhs_path(card, grid, model,
+                                                       b_ext, s0)
     stamp(t_start, "extended carry (phases 17-18)")
     ext_record = extended_path(card, grid, model, step, s0)
     cart = ShallowWater(grid, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA,
@@ -2305,9 +2353,15 @@ def main() -> int:
 
     stamp(t_start, "sharded tiers (phases 28-33)")
     y300, _ = integrate(step, y0, 0.0, ROUTER_FREE_CHECK_STEPS, STEP_DT)
-    tier_records = sharded_paths(card, grid, model, s0,
-                                 model.restrict_state(y300), t_start)
+    tier_records, (b4_timed, b4_launches, b4_max) = sharded_paths(
+        card, grid, model, s0, model.restrict_state(y300), t_start)
     del y300
+    # B4's record: the classic path's six-face launches (phase 16) and the
+    # face serialized tier's stacked ones (phase 32).
+    rhs_record = record("cov_rhs", "jaxstream_torch/csrc/cov_rhs.cu",
+                        "jaxstream/ops/pallas/swe_cov.py:508",
+                        rhs_launches + b4_launches, max(rhs_max, b4_max),
+                        rhs_timed + b4_timed)
     # The same TC5 route again: host drift across the run, apart from any
     # cost of the Galewsky paths themselves.
     r2_ms = event_ms(lambda: route(y["strips_sn"], y["strips_we"]), 200)

@@ -1,7 +1,9 @@
 // Device code of the covariant kernels that take all faces of a tile in one
 // block: the compact stage (cov_stage.cu), the split del^4 filter
-// (cov_nu4_filter.cu), and the sharded tiers' right-hand sides over a
-// stack of ranks (cov_rhs_interior.cu, cov_rhs_local.cu).  On the
+// (cov_nu4_filter.cu), the whole-step kernel's face phases
+// (cov_step_mega.cu), the right-hand side of ghost-filled faces
+// (cov_rhs.cu), and the sharded tiers' right-hand sides over a stack of
+// ranks (cov_rhs_interior.cu, cov_rhs_local.cu).  On the
 // equiangular cube every face has the same metric (it depends on the
 // coordinate rows xc, xf alone), and so do the ranks that hold the same
 // block position of different faces, so such a block computes the metric
@@ -68,6 +70,37 @@ int dynamic_smem_limit(void (*kernel)(Params), int bytes) {
   return rc;
 }
 
+// ---- the thread's coordinates in its block ---------------------------------
+// What the body's per-cell loops read.  A kernel that runs the body many
+// times per launch (the whole-step kernel's face phases, three stages of
+// work items) defines COV_OPAQUE_TID before including this header: each
+// read is then a volatile register move, which the compiler neither hoists
+// nor shares across the runs, so it keeps no per-thread offsets alive
+// between them (shared, they spilled 840 B at the 80-register cap and the
+// step took 298 instead of 107 us on an H100 80GB HBM3 at 700 W,
+// scripts/torch_faces_probe.py).  Everywhere else they are threadIdx's
+// own fields.
+
+__device__ __forceinline__ unsigned tid_x() {
+#if defined(COV_OPAQUE_TID) && defined(__CUDA_ARCH__)
+  unsigned v;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
+  return v;
+#else
+  return threadIdx.x;
+#endif
+}
+
+__device__ __forceinline__ unsigned tid_y() {
+#if defined(COV_OPAQUE_TID) && defined(__CUDA_ARCH__)
+  unsigned v;
+  asm volatile("mov.u32 %0, %%tid.y;" : "=r"(v));
+  return v;
+#else
+  return threadIdx.y;
+#endif
+}
+
 // ---- tile geometry --------------------------------------------------------
 
 constexpr int FTX = 32;            // output tile width along alpha (i)
@@ -114,8 +147,8 @@ __device__ __forceinline__ void for_region(F fn) {
   static_assert(COLS >= BX && REST <= NT, "one pass for the rest");
 #pragma unroll
   for (int r = 0; r < RM / BY; ++r)
-    fn(threadIdx.y + r * BY, (int)threadIdx.x);
-  const int t = threadIdx.y * BX + threadIdx.x;
+    fn(tid_y() + r * BY, (int)tid_x());
+  const int t = tid_y() * BX + tid_x();
   if (REST > 0 && t < REST) {
     if (t < BOTTOM) {
       const int y = t / COLS;
@@ -201,9 +234,20 @@ __device__ __forceinline__ void stage_frame(float* s,
 // How stage_face_tile's boundary fluxes take the imposed edge normals.
 enum class Seam {
   Prescaled,   // the sym rows as they are (the compact stage's routed rows)
-  Frame,       // times the edge sqrtg of the closed-form frame (B6)
+  Frame,       // times the edge sqrtg of the closed-form frame (B4, B6)
+  FrameCg,     // as Frame, the rows read through L2 (__ldcg): rows written
+               // earlier in the same launch (the whole-step kernel's routes)
   None         // none imposed: a block's ghost-free core (B5)
 };
+
+// The sym row value at p, as seam S reads it.
+template <Seam S>
+__device__ __forceinline__ float sym_value(const float* p) {
+  if constexpr (S == Seam::FrameCg)
+    return __ldcg(p);
+  else
+    return *p;
+}
 
 // The face-independent terms of the stage on one tile, computed once per
 // block with advective_tile's operations: on the Bernoulli band (cell
@@ -345,8 +389,8 @@ __device__ __forceinline__ void stage_face_tile(
     if (j < n && i <= n) {
       float U;
       if (S != Seam::None && (i == 0 || i == n)) {   // W / E seam
-        U = (i == 0 ? sym.w : sym.e)[j * sym.ws];
-        if (S == Seam::Frame)
+        U = sym_value<S>((i == 0 ? sym.w : sym.e) + j * sym.ws);
+        if (S == Seam::Frame || S == Seam::FrameCg)
           U = frame_sqrtg(xf[i + hh], yc[j + hh], k.R2) * U;
       } else {
         const float uba = 0.5f * (UA(ly, lf - 1) + UA(ly, lf));
@@ -364,8 +408,8 @@ __device__ __forceinline__ void stage_face_tile(
     if (j <= n && i < n) {
       float U;
       if (S != Seam::None && (j == 0 || j == n)) {   // S / N seam
-        U = (j == 0 ? sym.s : sym.n)[i];
-        if (S == Seam::Frame)
+        U = sym_value<S>((j == 0 ? sym.s : sym.n) + i);
+        if (S == Seam::Frame || S == Seam::FrameCg)
           U = frame_sqrtg(xc[i + hh], yf[j + hh], k.R2) * U;
       } else {
         const float vba = 0.5f * (UA(lf - 1, lx) + UA(lf, lx));
@@ -380,10 +424,10 @@ __device__ __forceinline__ void stage_face_tile(
   __syncthreads();
 
   // ---- tendencies ---------------------------------------------------------
-  const int lx = threadIdx.x;
+  const int lx = tid_x();
 #pragma unroll
   for (int r = 0; r < FTY / BY; ++r) {
-    const int ly = threadIdx.y + r * BY;
+    const int ly = tid_y() + r * BY;
     const int j = j0 + ly, i = i0 + lx;
     if (j >= n || i >= n) continue;
     const float x = xc[i + hh], y = yc[j + hh];

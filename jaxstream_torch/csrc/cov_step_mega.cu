@@ -18,9 +18,9 @@
 //            their lane flips]), the 2 x 2 covariant rotations (T_sn,
 //            T_we) and the pair average of the edge normals, not
 //            prescaled;
-//   faces    the compact stage (cov_stage.cu) on every tile: ghosts from
-//            gsn / gwe, rhs_core_cov with the un-prescaled sym rows (the
-//            tile multiplies them by the edge sqrtg), the combine
+//   faces    the compact stage on every tile: ghosts from gsn / gwe,
+//            rhs_core_cov with the un-prescaled sym rows (the tile
+//            multiplies them by the closed-form edge sqrtg), the combine
 //            (A y0 + B cur) + C tend with the stage's row of the float32
 //            table AB, and the new boundary strips.
 //
@@ -30,31 +30,78 @@
 // here the state stays in global memory (L2 holds it: 50 MB) and the
 // phases are separated by grid-wide barriers: one cooperative launch of
 // as many 256-thread blocks as can be resident at once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SM count), each
-// looping over work.  A router phase gives each thread routed elements
-// (one ghost or sym value each, computed straight from the strips: no
-// barrier inside the router); a face phase gives each block 32 x 16
-// tiles.  A tile's apron reads its neighbours' cells, so the faces may
-// not overwrite their input: stage 1 writes y0 -> out, stage 2 out -> B,
-// stage 3 B -> out.  The strips need one buffer (the router reads them
-// before the next face phase writes them).  Data written inside the
-// launch is read with __ldcg (L2, coherent), never through the
-// read-only cache.
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SM count, 3 x 132
+// = 396 on the H100), three rounds of route -> barrier -> faces.  A
+// route phase gives each thread routed elements (one ghost or sym value
+// each, computed straight from the strips: no barrier inside the
+// router).  A face phase is the compact stage's faces-in-block body
+// (cov_faces.cuh, as cov_stage.cu): a work item is one 32 x 24 tile
+// position and a group of three faces, 12 x 16 x 2 = 384 items at C384,
+// so each face phase is one pass of the grid; a block loops over items
+// (t += gridDim.x), so a card with fewer slots still runs.  Per item the
+// block computes the tile's metric terms (StageMetric) into shared
+// memory and then, per face, stages the next face's window while it
+// computes this one's.  The metric is the same for all faces and all
+// three stages: a block that keeps one item through the launch (gridDim
+// >= items) computes it once, before stage 1, and keeps it in shared
+// memory through the barriers; a block that takes more than one item
+// recomputes it per item.  A tile's apron reads its neighbours' cells, so
+// the faces may not overwrite their input: stage 1 writes y0 -> out,
+// stage 2 out -> B, stage 3 B -> out.  The strips need one buffer (the
+// router reads them before the next face phase writes them).
+//
+// Load paths.  The L1 and the read-only cache are not kept coherent with
+// other SMs' writes inside a launch, so what the launch writes is read
+// through L2 only:
+//   windows   (the stage inputs ho / uo and bh / bu, and y0 for stage 1,
+//             with the routed ghosts gsn / gwe): each window row's body,
+//             tile columns 0 .. 31, in 16-byte cp.async.cg copies (L2
+//             only) where the row is an interior or S/N ghost row wholly
+//             inside the face; the apron columns (and W/E ghosts) as one
+//             register-staged __ldcg per thread, issued with the copies one
+//             face ahead and stored into the buffer after this face's
+//             arithmetic; ragged tiles and misaligned operands cell by cell
+//             with __ldcg;
+//   sym rows  (gsn / gwe's last rows) with __ldcg in the fluxes
+//             (Seam::FrameCg);
+//   strips    (sno / weo, the routers' input from stage 2 on) with __ldcg;
+//   b, y0     (never written in the launch: the orography band by
+//             cp.async.ca, as cov_stage.cu; the epilogue's y0, loaded
+//             before the face's arithmetic) through L1;
+//   tables    (idx, T_sn, T_we, met, xc, xf, fz) plain loads.
+// The 16-byte copies need 16-byte aligned rows (n % 4 == 0 and aligned
+// operands, checked by the host: `vec`) and destinations: the windows
+// start 8 bytes past a 16-byte boundary, so tile column 0 (at WOFF = 2)
+// is aligned.
+//
+// Occupancy: 72 584 B of dynamic shared memory (two windows, the metric,
+// the scratch) and __launch_bounds__(256, 3): 3 blocks per SM, <= 80
+// registers.  The occupancy query runs after the shared-memory attribute
+// is set (it reports 0 blocks above 48 KB until then).  The stages run as
+// one loop over one copy of the body, and the body reads the thread
+// coordinates opaquely (COV_OPAQUE_TID), so the compiler keeps no
+// per-thread offsets live across stages and route phases: where it could
+// share them, it did, and spilled them.
 //
 // Bound.  The compact stepper's three stages move 7.56 + 2 x 10.73 us of
 // bytes at C384.  This launch must read the carry and b once and write
 // the carry once: 25.5 MB -> ~7.6 us at 3.35 TB/s; what it moves between
-// phases stays in L2.
+// phases stays in L2.  The earlier design (one 32 x 16 tile of one face
+// per block, 4 blocks per SM, synchronous apron loads, the metric per
+// tile and stage) took 260.62 us.
 
 #include <cooperative_groups.h>
 
-#include "cov_common.cuh"
+#include <cstddef>
+
+// The face phases run the faces-in-block body once per stage and work
+// item: cov_faces.cuh reads the thread coordinates opaquely (see tid_x).
+#define COV_OPAQUE_TID
+#include "cov_faces.cuh"
 
 namespace {
 
 using namespace cov;
-
-constexpr int AP = 2;      // h apron: PLR reads two cells past a face
 
 struct Params {
   const float* y0h;  // (6, n, n) the carry: stage base and stage-1 input
@@ -82,17 +129,35 @@ struct Params {
   int rev[12];
   int sym_src[24];   // per face*4 + slot: edge i as link (i) or back (12+i)
   float AB[3][3];    // per stage: A, B, C of (A y0 + B cur) + C tend
-  int n, halo, n_sn, n_we;
+  int n, halo, n_sn, n_we, vec;
   float R2, gravity, two_omega, inv2d, inv_d;
 };
 
-// The shared memory of a face tile (dynamic: sized at launch).
 struct Smem {
-  float h[TY + 2 * AP][TX + 2 * AP];
-  float ua[TY + 2][TX + 2];
-  float ub[TY + 2][TX + 2];
-  AdvScratch adv;
+  float pad[2];       // puts tile column 0 of each window row on 16 bytes
+  StageWindow w[2];   // this face's window and the next one's
+  StageMetric mt;
+  StageScratch s;
 };
+static_assert(offsetof(Smem, w) % 16 == 8 && (WOFF * 4) % 16 == 8
+                  && (WS * 4) % 16 == 0 && sizeof(StageWindow) % 16 == 0
+                  && offsetof(StageWindow, ua) % 16 == 0
+                  && offsetof(StageWindow, ub) % 16 == 0,
+              "16-byte window rows at tile column 0");
+
+#ifdef __CUDACC__
+// Sixteen bytes global -> shared through L2 only (cp.async.cg); both
+// addresses 16-byte aligned.
+__device__ __forceinline__ void async_copy16_cg(float* sdst,
+                                                const float* gsrc) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(sdst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(gsrc)
+               : "memory");
+#endif
+}
+#endif  // __CUDACC__
 
 // The outward sign of slot s (S, N, W, E): -1 at S and W, +1 at N and E.
 __device__ __forceinline__ float out_sign(int s) {
@@ -196,119 +261,240 @@ __device__ __forceinline__ void route_phase(const Params& p, const float* sn,
   }
 }
 
-// Field fi at face-local (j, i) of face f: the interior q (6, n, n) or an
-// edge ghost from the routed blocks; 0 at a ghost corner or past the ring
-// (cov_common.cuh's edge_fetch, read through L2).
-__device__ __forceinline__ float routed_fetch(const Params& p, const float* q,
-                                              int fi, int f, int j, int i) {
-  const int n = p.n, hh = p.halo, rw = 6 * hh + 2;
-  const bool jin = j >= 0 && j < n;
-  const bool iin = i >= 0 && i < n;
-  if (jin && iin) return __ldcg(q + ((long)f * n + j) * n + i);
-  const float* gsn = p.gsn + (long)f * rw * n;
-  const float* gwe = p.gwe + (long)f * n * rw;
-  if (iin) {
-    if (j < 0 && j >= -hh)
-      return __ldcg(gsn + (long)(fi * 2 * hh + (j + hh)) * n + i);
-    if (j >= n && j < n + hh)
-      return __ldcg(gsn + (long)(fi * 2 * hh + hh + (j - n)) * n + i);
-  } else if (jin) {
-    if (i < 0 && i >= -hh)
-      return __ldcg(gwe + (long)j * rw + fi * 2 * hh + (i + hh));
-    if (i >= n && i < n + hh)
-      return __ldcg(gwe + (long)j * rw + fi * 2 * hh + hh + (i - n));
+// A thread's apron cell of a face window (the columns the 16-byte body
+// copies leave out): field fi, window row r, tile column c; fi < 0 for a
+// thread without one.  h has 4 apron columns per row, u_a and u_b 2.  A
+// function of the thread alone, recomputed where used (no registers held).
+struct ApronCell {
+  int fi, r, c;
+};
+
+__device__ __forceinline__ ApronCell apron_cell() {
+  constexpr int NH = (FTY + 4) * 4, NU = (FTY + 2) * 2;
+  static_assert(NH + 2 * NU <= NT, "one apron cell per thread");
+  const int t = tid_y() * BX + tid_x();
+  if (t < NH) {
+    const int k = t % 4;
+    return {0, t / 4, k < 2 ? k - 2 : FTX + k - 2};
   }
-  return 0.0f;
+  const int u = t - NH;
+  if (u < 2 * NU) {
+    const int v = u % NU;
+    return {1 + u / NU, v / 2, (v % 2) ? FTX : -1};
+  }
+  return {-1, 0, 0};
 }
 
-// The face phase of stage st: every tile of every face.
-__device__ __forceinline__ void face_phase(const Params& p, Smem& sm, int st,
-                                           const float* ch, const float* cu,
-                                           float* oh, float* ou) {
+// Copies the body columns (tile columns 0 .. FTX-1) of rows jw ..
+// jw+ROWS-1 of field fi of one face into s (row stride WS, tile column c
+// at s[r * WS + WOFF + c]): a 16-byte cp.async.cg per 4 cells of an
+// interior or S/N ghost row wholly inside the face's columns, else cell by
+// cell with __ldcg (0 where edge_src gives none).  No commit.
+template <int ROWS>
+__device__ __forceinline__ void stage_body(float* s, const float* q,
+                                           const float* gsn,
+                                           const float* gwe, int fi, int n,
+                                           int hh, int rw, int jw, int i0,
+                                           bool vec) {
+  constexpr int CH = FTX / 4;   // 16-byte chunks per row
+  static_assert(ROWS * CH <= NT, "one chunk per thread");
+  const int t = tid_y() * BX + tid_x();
+  if (t >= ROWS * CH) return;
+  const int r = t / CH, k = t - r * CH;
+  const int j = jw + r, i = i0 + 4 * k;
+  float* dst = s + r * WS + WOFF + 4 * k;
+  const float* row = nullptr;
+  if (j >= 0 && j < n)
+    row = q + (long)j * n;
+  else if (j < 0 && j >= -hh)
+    row = gsn + (long)(fi * 2 * hh + (j + hh)) * n;
+  else if (j >= n && j < n + hh)
+    row = gsn + (long)(fi * 2 * hh + hh + (j - n)) * n;
+  if (vec && row != nullptr && i + 4 <= n) {
+    async_copy16_cg(dst, row + i);
+    return;
+  }
+#pragma unroll 1
+  for (int c = 0; c < 4; ++c) {
+    const float* src = edge_src(q, gsn, gwe, fi, n, hh, rw, j, i + c);
+    dst[c] = src != nullptr ? __ldcg(src) : 0.0f;
+  }
+}
+
+// Issues the copies of face f's window of the stage input (h ch, u cu)
+// into w (no commit): the bodies and the orography band asynchronously;
+// returns the thread's apron cell's value (an __ldcg in flight), for
+// put_apron.
+__device__ __forceinline__ float stage_window(const Params& p, StageWindow& w,
+                                              const float* ch,
+                                              const float* cu, int f, int j0,
+                                              int i0) {
   const int n = p.n, hh = p.halo, m = n + 2 * hh, rw = 6 * hh + 2;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int nx = (n + TX - 1) / TX, ny = (n + TY - 1) / TY;
   const long nn = (long)n * n;
+  const float* gsn = p.gsn + (long)f * rw * n;
+  const float* gwe = p.gwe + (long)f * n * rw;
+  const float* qh = ch + f * nn;
+  const float* qa = cu + f * nn;
+  const float* qb = cu + (6 + f) * nn;
+  const bool vec = p.vec != 0;
+  stage_body<FTY + 4>(&w.h[0][0], qh, gsn, gwe, 0, n, hh, rw, j0 - 2, i0,
+                      vec);
+  stage_body<FTY + 2>(&w.ua[0][0], qa, gsn, gwe, 1, n, hh, rw, j0 - 1, i0,
+                      vec);
+  stage_body<FTY + 2>(&w.ub[0][0], qb, gsn, gwe, 2, n, hh, rw, j0 - 1, i0,
+                      vec);
+  stage_band(w.b, p.b + (long)f * m * m, n, hh, j0, i0);
+  const ApronCell a = apron_cell();
+  if (a.fi < 0) return 0.0f;
+  const int jw = a.fi == 0 ? j0 - 2 : j0 - 1;
+  const float* q = a.fi == 0 ? qh : a.fi == 1 ? qa : qb;
+  const float* src = edge_src(q, gsn, gwe, a.fi, n, hh, rw, jw + a.r,
+                              i0 + a.c);
+  return src != nullptr ? __ldcg(src) : 0.0f;
+}
+
+// Stores the thread's apron value v into window w.
+__device__ __forceinline__ void put_apron(StageWindow& w, float v) {
+  const ApronCell a = apron_cell();
+  if (a.fi == 0)
+    w.h[a.r][WOFF + a.c] = v;
+  else if (a.fi == 1)
+    w.ua[a.r][WOFF + a.c] = v;
+  else if (a.fi == 2)
+    w.ub[a.r][WOFF + a.c] = v;
+}
+
+// Stage st on work item t: the three faces from f0 of the tile at (j0,
+// i0), from the stage input (h ch, u cu) into oh / ou and the strips.
+// mt_item is the item whose metric terms sm.mt holds (-1: none yet).
+__device__ __forceinline__ void stage_faces(const Params& p, Smem& sm, int st,
+                                            const float* ch, const float* cu,
+                                            float* oh, float* ou, int t,
+                                            int f0, int j0, int i0,
+                                            int& mt_item) {
+  const int n = p.n, hh = p.halo, rw = 6 * hh + 2;
+  const long nn = (long)n * n;
+  const int lx = tid_x();
   const float A = p.AB[st][0], B = p.AB[st][1], C = p.AB[st][2];
   const StageConsts k{p.R2, p.gravity, p.two_omega, p.inv2d, p.inv_d};
-  for (int t = blockIdx.x; t < 6 * nx * ny; t += gridDim.x) {
-    const int f = t / (nx * ny);
-    const int j0 = (t / nx) % ny * TY, i0 = t % nx * TX;
-    const float* q[3] = {ch, cu, cu + 6 * nn};
-    for (int ly = ty; ly < TY + 2 * AP; ly += BY)
-      for (int lx = tx; lx < TX + 2 * AP; lx += BX)
-        sm.h[ly][lx] = routed_fetch(p, q[0], 0, f, j0 + ly - AP,
-                                    i0 + lx - AP);
-    for (int ly = ty; ly < TY + 2; ly += BY)
-      for (int lx = tx; lx < TX + 2; lx += BX) {
-        const int j = j0 + ly - 1, i = i0 + lx - 1;
-        sm.ua[ly][lx] = routed_fetch(p, q[1], 1, f, j, i);
-        sm.ub[ly][lx] = routed_fetch(p, q[2], 2, f, j, i);
-      }
-    __syncthreads();
+  // The tile holds cells of the boundary strips.
+  const bool strips = j0 < hh || i0 < hh || j0 + FTY > n - hh
+                      || i0 + FTX > n - hh;
 
-    float* ssn = p.sno + (long)f * 6 * hh * n;
-    float* swe = p.weo + (long)f * n * 6 * hh;
+  float apron = stage_window(p, sm.w[0], ch, cu, f0, j0, i0);
+  async_commit();
+  if (mt_item != t) {
+    stage_metric(sm.mt, p.xc, p.xf, p.xc, p.xf, p.R2, p.inv_d, n, hh, j0,
+                 i0);
+    mt_item = t;
+  }
+  put_apron(sm.w[0], apron);
+
+  for (int q = 0; q < FPB; ++q) {
+    const int f = f0 + q, cur = q & 1;
+    if (q + 1 < FPB) {
+      apron = stage_window(p, sm.w[cur ^ 1], ch, cu, f + 1, j0, i0);
+      async_commit();
+      async_wait<1>();
+    } else {
+      async_wait<0>();
+    }
+    // The combine's y0 at the thread's cells, loaded ahead of the
+    // arithmetic.
+    float y0[FTY / BY][3] = {};
+#pragma unroll
+    for (int r = 0; r < FTY / BY; ++r) {
+      const int j = j0 + tid_y() + r * BY, i = i0 + lx;
+      if (j < n && i < n) {
+        const long c = f * nn + (long)j * n + i;
+        y0[r][0] = p.y0h[c];
+        y0[r][1] = p.y0u[c];
+        y0[r][2] = p.y0u[6 * nn + c];
+      }
+    }
+    __syncthreads();   // this face's window (and, first, mt) complete
+
     const float* gsn = p.gsn + (long)f * rw * n;
     const float* gwe = p.gwe + (long)f * n * rw;
-    advective_tile<false, TX + 2 * AP, TX + 2>(
-        &sm.h[0][0], &sm.ua[0][0], &sm.ub[0][0], sm.adv,
-        routed_sym(gsn, gwe, n, hh), p.b + (long)f * m * m,
-        p.xc, p.xf, p.xc, p.xf, p.fz + 3 * f, k, n, hh, j0, i0,
-        [&](int ly, int lx, int j, int i, float dh, float dua, float dub) {
+    float* ssn = p.sno + (long)f * 6 * hh * n;
+    float* swe = p.weo + (long)f * n * 6 * hh;
+    stage_face_tile<Seam::FrameCg>(
+        sm.w[cur], sm.mt, sm.s, routed_sym(gsn, gwe, n, hh), p.xc, p.xf,
+        p.xc, p.xf, p.fz + 3 * f, k, n, hh, j0, i0,
+        [&](int r, int j, int i, float dh, float dua, float dub, float hcv,
+            float uav, float ubv) {
           const long c = f * nn + (long)j * n + i;
-          const float vals[3] = {
-              (A * p.y0h[c] + B * sm.h[ly + AP][lx + AP]) + C * dh,
-              (A * p.y0u[c] + B * sm.ua[ly + 1][lx + 1]) + C * dua,
-              (A * p.y0u[6 * nn + c] + B * sm.ub[ly + 1][lx + 1]) + C * dub};
+          const float vals[3] = {(A * y0[r][0] + B * hcv) + C * dh,
+                                 (A * y0[r][1] + B * uav) + C * dua,
+                                 (A * y0[r][2] + B * ubv) + C * dub};
           oh[c] = vals[0];
           ou[c] = vals[1];
           ou[6 * nn + c] = vals[2];
-          for (int fi = 0; fi < 3; ++fi)
-            put_strips(ssn, swe, fi, n, hh, j, i, vals[fi]);
+          if (strips)
+            for (int fi = 0; fi < 3; ++fi)
+              put_strips(ssn, swe, fi, n, hh, j, i, vals[fi]);
         });
-    __syncthreads();         // the next tile restages the shared memory
+    if (q + 1 < FPB) put_apron(sm.w[cur ^ 1], apron);
+    __syncthreads();   // w and the scratch are free for the next face
   }
 }
 
-// At least 4 resident blocks per SM caps the kernel at 64 registers, as
-// for the stage kernels.
-__global__ void __launch_bounds__(BX * BY, 4)
+// The face phase of stage st: every work item (tile positions x face
+// groups), one pass of the grid when gridDim.x >= the item count.
+__device__ __forceinline__ void face_phase(const Params& p, Smem& sm, int st,
+                                           int& mt_item) {
+  // Stage inputs and outputs: y0 -> out, out -> B, B -> out.
+  const float* ch = st == 0 ? p.y0h : st == 1 ? p.ho : p.bh;
+  const float* cu = st == 0 ? p.y0u : st == 1 ? p.uo : p.bu;
+  float* oh = st == 1 ? p.bh : p.ho;
+  float* ou = st == 1 ? p.bu : p.uo;
+  const int n = p.n;
+  const int nx = (n + FTX - 1) / FTX, ny = (n + FTY - 1) / FTY;
+  const int items = nx * ny * (6 / FPB);
+  for (int t = blockIdx.x; t < items; t += gridDim.x) {
+    const int g = t / (nx * ny), rem = t - g * nx * ny;
+    stage_faces(p, sm, st, ch, cu, oh, ou, t, g * FPB, rem / nx * FTY,
+                rem % nx * FTX, mt_item);
+  }
+}
+
+__global__ void __launch_bounds__(NT, 3)
 cov_step_mega_kernel(const Params p) {
-  extern __shared__ float smem_raw[];
+  extern __shared__ __align__(16) float smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  // Stage inputs and outputs: y0 -> out, out -> B, B -> out.
-  const float* ch[3] = {p.y0h, p.ho, p.bh};
-  const float* cu[3] = {p.y0u, p.uo, p.bu};
-  float* oh[3] = {p.ho, p.bh, p.ho};
-  float* ou[3] = {p.uo, p.bu, p.uo};
+  int mt_item = -1;
   for (int st = 0; st < 3; ++st) {
     route_phase(p, st == 0 ? p.sn0 : p.sno, st == 0 ? p.we0 : p.weo);
     grid.sync();
-    face_phase(p, sm, st, ch[st], cu[st], oh[st], ou[st]);
+    face_phase(p, sm, st, mt_item);
     if (st < 2) grid.sync();
   }
 }
 
 }  // namespace
 
-// Launches one step on `stream`; returns the launch's cudaError_t (0 =
-// ok) and the grid's block count in *blocks.  All tensors float32 (idx
-// int32), contiguous, in the layouts of Params; tab holds the host int32
-// arrays link_row (12), back_row (12), rev (12), sym_src (24), and ab the
-// host float32 table AB (3, 3), both copied into the launch's parameters.
+// Launches one step on `stream`; returns the cudaError_t of the shared
+// memory attribute, the occupancy query or the launch (0 = ok; -1: no
+// block fits) and the grid's block count in *blocks: every block the card
+// holds at once, at most max_blocks (> 0).  All tensors float32 (idx
+// int32), contiguous, in the layouts of Params; vec != 0 when n % 4 == 0
+// and the carry, its outputs and gsn / gwe are 16-byte aligned; tab holds
+// the host int32 arrays link_row (12), back_row (12), rev (12), sym_src
+// (24), and ab the host float32 table AB (3, 3), both copied into the
+// launch's parameters.
 extern "C" int cov_step_mega_f32(
     const float* y0h, const float* y0u, const float* sn0, const float* we0,
     const float* b_ext, const float* xc, const float* xf, const float* fz,
     const int* idx, const float* tsn, const float* twe, const float* met,
     float* ho, float* uo, float* sno, float* weo, float* bh, float* bu,
     float* gsn, float* gwe, const int* tab, const float* ab, int n,
-    int halo, int n_sn, int n_we, float R2, float gravity, float two_omega,
-    float inv2d, float inv_d, int* blocks, void* stream) {
+    int halo, int n_sn, int n_we, int vec, int max_blocks, float R2,
+    float gravity, float two_omega, float inv2d, float inv_d, int* blocks,
+    void* stream) {
   Params p{y0h, y0u, sn0, we0, b_ext, xc, xf, fz, idx, tsn, twe, met, ho,
            uo, sno, weo, bh, bu, gsn, gwe, {}, {}, {}, {}, {}, n, halo,
-           n_sn, n_we, R2, gravity, two_omega, inv2d, inv_d};
+           n_sn, n_we, vec, R2, gravity, two_omega, inv2d, inv_d};
   for (int i = 0; i < 12; ++i) {
     p.link_row[i] = tab[i];
     p.back_row[i] = tab[12 + i];
@@ -317,15 +503,19 @@ extern "C" int cov_step_mega_f32(
   for (int i = 0; i < 24; ++i) p.sym_src[i] = tab[36 + i];
   for (int i = 0; i < 9; ++i) p.AB[i / 3][i % 3] = ab[i];
 
+  *blocks = 0;
+  int rc = dynamic_smem_limit(cov_step_mega_kernel, sizeof(Smem));
+  if (rc != 0) return rc;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, cov_step_mega_kernel, BX * BY, sizeof(Smem));
+        &per_sm, cov_step_mega_kernel, NT, sizeof(Smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nb = per_sm * sms;
+  int nb = per_sm * sms;
+  if (max_blocks > 0 && max_blocks < nb) nb = max_blocks;
   *blocks = nb;
   if (nb < 1) return -1;
   void* args[] = {&p};

@@ -63,10 +63,10 @@ def cov_mega_step_reference(mega, h, u, strips_sn, strips_we, b_ext):
 
 def _mega_kernel():
     """The whole-step kernel: 20 tensor pointers, 2 host table pointers;
-    n, halo, n_sn, n_we; 5 float constants; the block-count out-pointer;
-    the stream."""
+    n, halo, n_sn, n_we, vec, max_blocks; 5 float constants; the
+    block-count out-pointer; the stream."""
     return _entry("cov_step_mega", "cov_step_mega_f32",
-                  [_P] * 22 + [ctypes.c_int] * 4 + [ctypes.c_float] * 5
+                  [_P] * 22 + [ctypes.c_int] * 6 + [ctypes.c_float] * 5
                   + [_P, _P])
 
 
@@ -78,10 +78,12 @@ class CovMegaStep(_RhsBase):
     strips_we)`` with ``h`` (6, n, n), ``u`` (2, 6, n, n), the strips
     (6, 6h, n) / (6, n, 6h) and ``b_ext`` (6, M, M).  CUDA tensors launch
     ``csrc/cov_step_mega.cu``, one cooperative launch per step on as many
-    blocks as the card holds at once; CPU tensors, or any tensors with ``interpret=True``, run
-    :func:`cov_mega_step_reference`.  There is no other path: a kernel
-    that fails to build or launch raises.  ``blocks`` is the last
-    launch's grid.
+    blocks as the card holds at once (at most ``max_blocks``, where given:
+    fewer blocks than work items take several each and recompute their
+    tiles' metric terms per item); CPU tensors, or any tensors with
+    ``interpret=True``, run :func:`cov_mega_step_reference`.  There is no
+    other path: a kernel that fails to build or launch raises.
+    ``blocks`` is the last launch's grid.
     """
 
     #: Launches of the CUDA kernel, all instances together (the plain
@@ -90,12 +92,13 @@ class CovMegaStep(_RhsBase):
 
     def __init__(self, grid, gravity: float, omega: float, dt: float,
                  scheme: str = "plr", limiter: str = "mc",
-                 interpret: bool = False):
+                 interpret: bool = False, max_blocks: int | None = None):
         super().__init__(grid.n, grid.halo, grid.dalpha, grid.radius,
                          gravity, omega, scheme=scheme, limiter=limiter,
                          device=grid.device)
         self.dt = float(dt)
         self.interpret = bool(interpret)
+        self.max_blocks = max_blocks
         self.blocks = None
         # The JAX kernel's float32 table: per stage (A, B, C) of
         # (A y0 + B cur) + C tend.
@@ -130,6 +133,9 @@ class CovMegaStep(_RhsBase):
         gsn = h.new_empty((6, 6 * hh + 2, n))
         gwe = h.new_empty((6, n, 6 * hh + 2))
         r = self.route
+        # The windows' 16-byte copies need 16-byte rows.
+        vec = n % 4 == 0 and all(
+            t.data_ptr() % 16 == 0 for t in (h, u, ho, uo, bh, bu, gsn, gwe))
         blocks = ctypes.c_int(0)
         rc = _mega_kernel()(
             *[t.data_ptr() for t in args], self._xc.data_ptr(),
@@ -138,8 +144,8 @@ class CovMegaStep(_RhsBase):
             ho.data_ptr(), uo.data_ptr(), sno.data_ptr(), weo.data_ptr(),
             bh.data_ptr(), bu.data_ptr(), gsn.data_ptr(), gwe.data_ptr(),
             self._tab.ctypes.data, self._ab.ctypes.data, n, hh, r.n_sn,
-            r.n_we, *self._rhs_consts, ctypes.addressof(blocks),
-            self._stream())
+            r.n_we, int(vec), self.max_blocks or 0, *self._rhs_consts,
+            ctypes.addressof(blocks), self._stream())
         if rc != 0:
             raise RuntimeError(
                 f"cov_step_mega kernel launch failed: cudaError {rc} "

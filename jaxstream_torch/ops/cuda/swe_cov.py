@@ -1518,25 +1518,44 @@ def cov_rhs_reference(rhs, fz, h_ext, u_ext, b_ext, sym_sn, sym_we):
 
 
 def _rhs_kernel():
-    """The unfused RHS kernel: 10 tensor pointers; n_faces, n, halo; 5
-    float constants; the stream."""
+    """The RHS kernel: 13 pointers (fz, the groups' rows, the group table,
+    h, u, b, sym_sn, sym_we, dh, du); the rank strides of h, u, the
+    component stride of u, the rank stride of b, the rank strides of dh,
+    du and the component stride of du; n, halo, the group count; 5 float
+    constants; the stream."""
     return _entry("cov_rhs", "cov_rhs_f32",
-                  [_P] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
-                  + [_P])
+                  [_P] * 13 + [ctypes.c_longlong] * 7 + [ctypes.c_int] * 3
+                  + [ctypes.c_float] * 5 + [_P])
 
 
 class CovRhs(_RhsBase):
     """The covariant right-hand side of ghost-filled extended faces.
 
     ``rhs(fz, h_ext, u_ext, b_ext, sym_sn, sym_we) -> (dh, du)`` over F =
-    ``n_faces`` faces: ``fz`` (F, 1, 3) the faces' frame z-components,
-    ``h_ext``, ``b_ext`` (F, M, M), ``u_ext`` (2, F, M, M), the
-    un-prescaled symmetrized edge normals ``sym_sn`` (F, 2, n) and
-    ``sym_we`` (F, n, 2); interior tendencies ``dh`` (F, n, n) and ``du``
-    (2, F, n, n) out.  CUDA tensors launch ``csrc/cov_rhs.cu`` (the port
-    of the Pallas kernel ``make_cov_rhs_pallas``); CPU tensors, or any
-    tensors with ``interpret=True``, run :func:`cov_rhs_reference`.
-    There is no other path: a kernel that fails to build or launch raises.
+    ``n_faces`` faces in the classic layout: ``fz`` (F, 1, 3) the faces'
+    frame z-components, ``h_ext``, ``b_ext`` (F, M, M), ``u_ext`` (2, F,
+    M, M), the un-prescaled symmetrized edge normals ``sym_sn`` (F, 2, n)
+    and ``sym_we`` (F, n, 2); interior tendencies ``dh`` (F, n, n) and
+    ``du`` (2, F, n, n) out.  ``n_faces=1`` is the JAX package's one-face
+    form.
+
+    ``rhs.stacked(fz, groups, h_ext, u_ext, b_ext, sym_sn, sym_we) -> (dh,
+    du)``: the face tier's form, every face a process holds in one launch.
+    ``groups`` a :class:`RankGroups` of the R faces with their full-face
+    rows (G, 1, M) and columns (G, M, 1); ``fz`` (R, 1, 3); ``h_ext``,
+    ``b_ext`` (R, 1, M, M) and ``u_ext`` (R, 2, 1, M, M), each face's block
+    contiguous (views of the tier's stacked ``q`` go as they are);
+    ``sym_sn`` (R, 1, 2, n), ``sym_we`` (R, 1, n, 2); out ``dh`` (R, 1, n,
+    n), ``du`` (R, 2, 1, n, n).
+
+    CUDA tensors launch ``csrc/cov_rhs.cu`` (the port of the Pallas kernel
+    ``make_cov_rhs_pallas``), one launch per call in either form; CPU
+    tensors, or any tensors with ``interpret=True``, run
+    :func:`cov_rhs_reference`, or for the stacked form the block RHS's
+    stacked plain version :func:`cov_rhs_local_stacked_reference` (whole
+    faces are blocks with the full-face rows; bitwise one
+    :func:`cov_rhs_reference` call per face).  There is no other path: a
+    kernel that fails to build or launch raises.
     """
 
     #: Launches of the CUDA kernel, all instances together (the plain
@@ -1551,6 +1570,11 @@ class CovRhs(_RhsBase):
                          scheme=scheme, limiter=limiter, device=device)
         self.n_faces = int(n_faces)
         self.interpret = bool(interpret)
+        # The classic layout's groups: its faces at one block position,
+        # each with the full-face rows.
+        nf = self.n_faces
+        self._groups = RankGroups([0] * nf, *(
+            t.expand((nf,) + tuple(t.shape)) for t in self.coords))
 
     def _check(self, fz, h_ext, u_ext, b_ext, sym_sn, sym_we):
         nf, n, m = self.n_faces, self.n, self.m
@@ -1560,6 +1584,27 @@ class CovRhs(_RhsBase):
                         "sym_sn": (sym_sn, (nf, 2, n)),
                         "sym_we": (sym_we, (nf, n, 2))}, self.device)
 
+    def _launch(self, fz, groups, h, ua, ub, b, sym, dh, dua, dub):
+        """One launch over every face of ``groups``: ``ua``/``ub`` and
+        ``dua``/``dub`` are the first and second components of ``u`` and
+        ``du`` (views), whose offset is the component stride."""
+        comp = lambda a, b: (b.data_ptr() - a.data_ptr()) // a.element_size()
+        rc = _rhs_kernel()(
+            fz.data_ptr(), groups.xr.data_ptr(), groups.xfr.data_ptr(),
+            groups.yc.data_ptr(), groups.yfc.data_ptr(),
+            groups.table.data_ptr(), h.data_ptr(), ua.data_ptr(),
+            b.data_ptr(), sym[0].data_ptr(), sym[1].data_ptr(),
+            dh.data_ptr(), dua.data_ptr(), h.stride(0), ua.stride(0),
+            comp(ua, ub), b.stride(0), dh.stride(0), dua.stride(0),
+            comp(dua, dub), self.n, self.halo, groups.count,
+            *self._rhs_consts, self._stream())
+        if rc != 0:
+            raise RuntimeError(
+                f"cov_rhs kernel launch failed: cudaError {rc} (n={self.n}, "
+                f"halo={self.halo}, {groups.n_ranks} faces in "
+                f"{groups.count} groups)")
+        CovRhs.launches += 1
+
     def __call__(self, fz, h_ext, u_ext, b_ext, sym_sn, sym_we):
         args = (fz, h_ext, u_ext, b_ext, sym_sn, sym_we)
         self._check(*args)
@@ -1568,19 +1613,34 @@ class CovRhs(_RhsBase):
         n, nf = self.n, self.n_faces
         dh = h_ext.new_empty((nf, n, n))
         du = h_ext.new_empty((2, nf, n, n))
-        rc = _rhs_kernel()(
-            *[t.data_ptr() for t in args], self._xc.data_ptr(),
-            self._xf.data_ptr(), dh.data_ptr(), du.data_ptr(), nf, n,
-            self.halo, *self._rhs_consts, self._stream())
-        if rc != 0:
-            raise RuntimeError(f"cov_rhs kernel launch failed: cudaError "
-                               f"{rc} (n={n}, halo={self.halo})")
-        CovRhs.launches += 1
+        self._launch(fz, self._groups, h_ext, u_ext[0], u_ext[1], b_ext,
+                     (sym_sn, sym_we), dh, du[0], du[1])
+        return dh, du
+
+    def stacked(self, fz, groups, h_ext, u_ext, b_ext, sym_sn, sym_we):
+        n, m = self.n, self.m
+        r = _RanksRhsBase._check_groups(self, fz, groups, m)
+        _check_ranked({"h_ext": (h_ext, (1, m, m)),
+                       "u_ext": (u_ext, (2, 1, m, m)),
+                       "b_ext": (b_ext, (1, m, m))}, r, self.device)
+        _check_tensors({"sym_sn": (sym_sn, (r, 1, 2, n)),
+                        "sym_we": (sym_we, (r, 1, n, 2))}, self.device)
+        if self.interpret or not self._on_cuda(h_ext):
+            return cov_rhs_local_stacked_reference(
+                self, fz, groups, h_ext, u_ext, b_ext, sym_sn, sym_we)
+        dh = h_ext.new_empty((r, 1, n, n))
+        du = h_ext.new_empty((r, 2, 1, n, n))
+        self._launch(fz, groups, h_ext, u_ext[:, 0], u_ext[:, 1], b_ext,
+                     (sym_sn, sym_we), dh, du[:, 0], du[:, 1])
         return dh, du
 
     def reference(self, *args):
         """The plain version on the same arguments (tests and smoke)."""
         return cov_rhs_reference(self, *args)
+
+    def stacked_reference(self, *args):
+        """The plain version of the stacked form on the same arguments."""
+        return cov_rhs_local_stacked_reference(self, *args)
 
 
 def make_cov_rhs_pallas(grid, gravity: float, omega: float,

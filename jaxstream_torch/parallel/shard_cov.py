@@ -24,10 +24,10 @@ JAX package's per-device block), and inside a stage the extended block
 The exchange is split at the wire as in the JAX package: ``start``
 reads the boundary strips and issues every permutation; ``finish``
 writes the ghosts and computes the seam normals.  The serialized form
-then runs the one-face RHS kernel (``make_cov_rhs_pallas(n_faces=1,
-external_sym=True)``, B4) per rank; the overlapped form runs the
-interior kernel (B5) between the phases, one launch over all local
-faces (:func:`rank_groups`), and the torch band after them.
+then runs the RHS kernel of whole faces (B4, ``CovRhs.stacked``) once
+over all local faces; the overlapped form runs the interior kernel (B5)
+between the phases, one launch over all local faces, and the torch band
+after them (both grouped by :func:`rank_groups`).
 """
 
 from __future__ import annotations
@@ -351,13 +351,6 @@ def _embed(h_int, u_int, halo: int):
     return q
 
 
-def _stack_outputs(outs):
-    """Per-rank ``(dh (1, n, n), du (2, 1, n, n))`` -> the local layout
-    ``(R, 1, n, n)``, ``(R, 2, 1, n, n)``."""
-    return (torch.stack([o[0] for o in outs]),
-            torch.stack([o[1] for o in outs]))
-
-
 def _band_outputs(dh, du):
     """The band's ``(F, n, n)``, ``(2, F, n, n)`` -> the local layout
     (contiguous: the next stage hands each rank's block to a kernel)."""
@@ -381,29 +374,32 @@ def _make_cov_face_rhs(model, program: CovShardProgram, setup, overlap):
     ranks = setup.ranks
     fz_all = torch.from_numpy(
         np.asarray(FACE_AXES)[:, None, :, 2].astype(np.float32)).to(dev)
-    fz = [fz_all[f:f + 1] for f in faces]                    # (1, 1, 3) each
+    fz_loc = fz_all[faces]                                   # (R, 1, 3)
     b_ext = model.b_ext.to(dev)
     b_loc = b_ext[faces].contiguous()                        # (R, M, M)
     kw = dict(scheme=model.scheme, limiter=model.limiter)
     start, finish = make_cov_shard_exchange_phases(program, ranks, faces)
-    rhs_local = make_cov_rhs_pallas(grid, model.gravity, model.omega,
-                                    n_faces=1, external_sym=True,
-                                    device=dev, **kw)
-    if overlap:
+    xr_f, xfr_f, yc_f, yfc_f, _ = coord_rows(n, halo, dev)
+    r = len(faces)
+    if not overlap:
+        rhs_faces = make_cov_rhs_pallas(grid, model.gravity, model.omega,
+                                        n_faces=1, external_sym=True,
+                                        device=dev, **kw)
+        groups = rank_groups(setup, faces, *(
+            t.expand(r, -1, -1) for t in (xr_f, xfr_f, yc_f, yfc_f)))
+        b_fr = b_loc[:, None]                                # (R, 1, M, M)
+    else:
         rhs_interior = make_cov_rhs_interior_local(
             n, halo, grid.dalpha, grid.radius, model.gravity, model.omega,
             device=dev, **kw)
         rhs_band = make_cov_rhs_band_local(
             n, halo, grid.dalpha, grid.radius, model.gravity, model.omega,
             **kw)
-        xr_f, xfr_f, yc_f, yfc_f, _ = coord_rows(n, halo, dev)
         sl = slice(halo, halo + n)
-        r = len(faces)
         groups = rank_groups(setup, faces, *(
             t.expand(r, -1, -1) for t in (xr_f[:, sl], xfr_f[:, sl],
                                           yc_f[sl], yfc_f[sl])))
         b_int = b_loc[:, None, sl, sl].contiguous()
-        fz_loc = fz_all[faces]
 
     def f(h_int, u_int):
         q = _embed(h_int, u_int, halo)
@@ -421,10 +417,8 @@ def _make_cov_face_rhs(model, program: CovShardProgram, setup, overlap):
                 dh_c[:, 0], du_c[:, :, 0].transpose(0, 1))
             return _band_outputs(dh, du)
         q, ssn, swe = finish(q, start(q))
-        return _stack_outputs([
-            rhs_local(fz[r], q[r, 0:1], q[r, 1:3].unsqueeze(1),
-                      b_loc[r:r + 1], ssn[r], swe[r])
-            for r in range(len(faces))])
+        return rhs_faces.stacked(fz_loc, groups, q[:, 0:1],
+                                 q[:, 1:3].unsqueeze(2), b_fr, ssn, swe)
 
     return f
 
@@ -436,8 +430,8 @@ def make_sharded_cov_stepper(model, setup, dt: float, overlap=None,
 
     Requires a ``(panel=6, 1, 1)`` mesh (one face per rank); ``state``
     is :func:`~.mesh.shard_state`'s stacked local state.  Each SSPRK3
-    stage: one explicit 4-stage exchange, the one-face RHS kernel per
-    local face (its plain version on CPU tensors), the combine.
+    stage: one explicit 4-stage exchange, one launch of the RHS kernel
+    over the local faces (its plain version on CPU tensors), the combine.
     ``overlap`` (default: the setup's ``overlap_exchange``): issue the
     four stages first, run the interior kernel on every face's
     ghost-free ``(n-2h)^2`` core in one launch, then finish the exchange

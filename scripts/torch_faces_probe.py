@@ -1,18 +1,19 @@
-"""Probe the compact stage (B1) and the split del^4 filter (B2) on one GPU:
-an earlier tree's kernels against this tree's, in turns, and three
-ablations of the earlier B1.
+"""Probe the faces-in-block kernels on one GPU: the compact stage (B1), the
+split del^4 filter (B2), the whole-step kernel (B12) and the RHS of
+ghost-filled faces (B4), an earlier tree's against this tree's, in turns,
+with ablations of the earlier B1 and levers of B12.
 
     git archive <commit> jaxstream_torch/csrc | tar -x -C build/jaxstream_torch/parent
-    python3 scripts/torch_faces_probe.py [--n N] build/jaxstream_torch/parent [OTHER ...]
+    python3 scripts/torch_faces_probe.py [--n N] [--mega DIR] build/jaxstream_torch/parent [OTHER ...]
 
 Each OTHER is a further directory holding a ``jaxstream_torch/csrc`` (a
 variant of this tree's two kernels), timed in the same turns under its
 directory's name.  The earlier sources are built with this tree's nvcc flags
 (``jaxstream_torch._build.NVCC_FLAGS``) into ``build/jaxstream_torch/
-probe/``.  The ablations rewrite the earlier ``cov_stage.cu`` (the
-tile-per-block design: one 32 x 16 tile of one face per block), keeping
-its staging of the window and its loads and stores, and replacing the
-right-hand side:
+probe/``.  The ablations, where the earlier ``cov_stage.cu`` is of the
+tile-per-block design (one 32 x 16 tile of one face per block), rewrite
+it, keeping its staging of the window and its loads and stores, and
+replacing the right-hand side:
 
 * ``staging``: the window staged, then each output the staged centre
   plus y0 and b (no arithmetic of the stage);
@@ -22,14 +23,37 @@ right-hand side:
   outputs as ``0 * sum`` so nothing is dead;
 * ``full``: the earlier kernel as it is.
 
+B12's forms (all on the same carry; the variants are this tree's
+``cov_step_mega.cu`` rewritten into ``build/jaxstream_torch/probe/``):
+
+* ``parent``: the earlier tree's B12 (its tile-per-block design);
+* ``shared tid``: this tree's with the thread index read as threadIdx
+  (``COV_OPAQUE_TID`` not defined), which the compiler shares across the
+  face phases' runs;
+* ``metric per stage``: this tree's, the metric terms recomputed for
+  every item of every stage;
+* ``new``: this tree's (the metric once per launch);
+* ``routes only``: this tree's with the face phases taken out: the three
+  route phases and the grid barriers alone (timing only);
+* each ``DIR/*.cu`` of ``--mega DIR``: a variant of this tree's
+  ``cov_step_mega.cu`` (built against this tree's headers), under its
+  file name.
+
+B4's forms: the six-face classic layout (earlier vs this tree's), and
+one RK stage of the face tier's serialized form: six one-face launches
+of the earlier kernel against one stacked launch of this tree's, on
+views of the tier's stacked ``q``.
+
 Every figure is device time per launch of 20 launches captured as a
 CUDA graph and replayed (``profiling.device_seconds``) at C``N`` (default
-384) on the state after 20 compact TC5 steps (B1) or one split Galewsky
-step (B2); each form is timed in turns (A, B, ..., ..., B, A).  The
-script also checks this tree's and the earlier kernels bitwise against
-the plain versions, prints each build's ``ptxas`` lines and each kernel
-function's SASS instruction count (``cuobjdump -sass``), and ends with a
-JSON summary line.  Needs a CUDA GPU and nvcc; exits 1 without them.
+384) on the state after 20 compact TC5 steps (B1, B12, B4) or one split
+Galewsky step (B2); each form is timed in turns (A, B, ..., ..., B, A).
+The script also checks this tree's and the earlier kernels bitwise
+against the plain versions (B12 also on a grid of 132 blocks, fewer than
+its work items), prints each build's ``ptxas`` lines and each kernel
+function's SASS instruction count (``cuobjdump -sass``; the earlier B5 and
+B6 too, which share B1's header), and ends with a JSON summary line.
+Needs a CUDA GPU and nvcc; exits 1 without them.
 """
 
 from __future__ import annotations
@@ -206,17 +230,159 @@ def in_turns(forms: dict, call, args) -> dict:
     return times
 
 
+def calls_in_turns(calls: dict) -> dict:
+    """Device µs per call of each of ``calls`` (name -> function of no
+    arguments), timed in turns: {name: [first, second]}."""
+    names = list(calls)
+    times = {k: [] for k in names}
+    for name in names + names[::-1]:
+        times[name].append(device_us(calls[name], ()))
+    return times
+
+
+def mega_variants(src: str) -> dict:
+    """This tree's B12 source with the thread index read as threadIdx
+    (shared across the face phases' runs), with the metric recomputed
+    per item and stage, and with its face phases taken out."""
+    shared_tid = src.replace("#define COV_OPAQUE_TID\n", "")
+    per_stage = src.replace("if (mt_item != t) {", "if (true) {")
+    routes = src.replace("    face_phase(p, sm, st, mt_item);\n", "")
+    if src in (shared_tid, per_stage, routes):
+        raise RuntimeError("cov_step_mega.cu has no opaque thread index, "
+                           "metric test or face phase of the expected form")
+    return {"mega_shared_tid": shared_tid,
+            "mega_metric_per_stage": per_stage, "mega_routes_only": routes}
+
+
 def bitwise(call, ref, args) -> bool:
     out = call(*args)
     torch.cuda.synchronize()
     return all(torch.equal(x, r) for x, r in zip(out, ref(*args)))
 
 
+def probe_mega(libs, grid, model, y, b, extra=()):
+    """B12's forms on the carry ``y`` (and the ``--mega`` variants named
+    ``extra``): bitwise checks and device µs per step in turns."""
+    from jaxstream_torch.config import EARTH_GRAVITY, EARTH_OMEGA
+    from jaxstream_torch.experiments import swe_mega
+
+    types = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 6
+             + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 2)
+    parent_types = types[:26] + types[28:]
+    fns = {k: entry(libs[k], "cov_step_mega_f32", types)
+           for k in ["cov_step_mega", "mega_shared_tid",
+                     "mega_metric_per_stage", "mega_routes_only"]
+           + [f"mega_{e}" for e in extra]}
+    parent_fn = entry(libs["parent_mega"], "cov_step_mega_f32", parent_types)
+    # The earlier entry takes no vec / max_blocks.
+    fns["parent_mega"] = lambda *a: parent_fn(*a[:26], *a[28:])
+
+    def use(key):
+        return lambda: setattr(swe_mega, "_mega_kernel", lambda: fns[key])
+
+    kern = swe_mega.CovMegaStep(grid, EARTH_GRAVITY, EARTH_OMEGA, 75.0)
+    few = swe_mega.CovMegaStep(grid, EARTH_GRAVITY, EARTH_OMEGA, 75.0,
+                               max_blocks=132)
+    args = (y["h"], y["u"], y["strips_sn"], y["strips_we"], b)
+    checks = {}
+    for key, label in [("cov_step_mega", "new"), ("parent_mega", "parent"),
+                       ("mega_shared_tid", "shared tid"),
+                       ("mega_metric_per_stage", "metric per stage")] + [
+                           (f"mega_{e}", e) for e in extra]:
+        use(key)()
+        checks[f"B12 {label}"] = bitwise(kern, kern.reference, args)
+    use("cov_step_mega")()
+    checks["B12 new, 132 blocks"] = bitwise(few, few.reference, args)
+    print(f"B12 grid: {kern.blocks} blocks (132 on the second)", flush=True)
+    forms = {"parent": use("parent_mega"),
+             "shared tid": use("mega_shared_tid"),
+             "metric per stage": use("mega_metric_per_stage"),
+             "new": use("cov_step_mega"),
+             "routes only": use("mega_routes_only")}
+    forms.update({e: use(f"mega_{e}") for e in extra})
+    times = {"B12 step": in_turns(forms, kern, args)}
+    use("cov_step_mega")()
+    return checks, times
+
+
+def probe_rhs(libs, grid, model, y):
+    """B4's forms on the filled state of the compact carry ``y``: the
+    six-face layout and one RK stage of the face tier, the earlier kernel
+    against this tree's; bitwise checks and device µs in turns."""
+    from jaxstream_torch.config import EARTH_GRAVITY, EARTH_OMEGA
+    from jaxstream_torch.ops.cuda import swe_cov
+
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    parent_fn = entry(libs["parent_rhs"], "cov_rhs_f32",
+                      [P] * 10 + [I] * 3 + [F] * 5 + [P])
+    six = swe_cov.make_cov_rhs_pallas(grid, EARTH_GRAVITY,
+                                      EARTH_OMEGA).kernel
+    one = swe_cov.make_cov_rhs_pallas(grid, EARTH_GRAVITY, EARTH_OMEGA,
+                                      n_faces=1, external_sym=True)
+    state = model.restrict_state(y)
+    he, ue = model.fill(state["h"]), model._fill_u(state["u"])
+    ssn, swe = swe_cov.sym_edge_normals(grid, ue)
+    b, fz = model.b_ext, six.fz[:, None].contiguous()
+    n, hh = grid.n, grid.halo
+    args6 = (fz, he, ue, b, ssn, swe)
+    # The face tier's stacked operands: views of q (6, 3, M, M).
+    q = torch.cat([he[:, None], ue.transpose(0, 1)], dim=1)
+    groups = swe_cov.RankGroups([(0, 0)] * 6, *(
+        t.expand((6,) + tuple(t.shape)) for t in six.coords))
+    argst = (fz, groups, q[:, 0:1], q[:, 1:3].unsqueeze(2), b[:, None],
+             ssn[:, None], swe[:, None])
+    dh6, du6 = he.new_empty((6, n, n)), he.new_empty((2, 6, n, n))
+    dh1, du1 = he.new_empty((6, 1, n, n)), he.new_empty((6, 2, 1, n, n))
+    consts = six._rhs_consts
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+
+    def parent_six():
+        rc = parent_fn(fz.data_ptr(), he.data_ptr(), ue.data_ptr(),
+                       b.data_ptr(), ssn.data_ptr(), swe.data_ptr(),
+                       six._xc.data_ptr(), six._xf.data_ptr(),
+                       dh6.data_ptr(), du6.data_ptr(), 6, n, hh, *consts,
+                       stream())
+        assert rc == 0, rc
+        return dh6, du6
+
+    def parent_faces():
+        for r in range(6):
+            rc = parent_fn(fz[r].data_ptr(), q[r, 0].data_ptr(),
+                           q[r, 1].data_ptr(), b[r].data_ptr(),
+                           ssn[r].data_ptr(), swe[r].data_ptr(),
+                           six._xc.data_ptr(), six._xf.data_ptr(),
+                           dh1[r].data_ptr(), du1[r].data_ptr(), 1, n, hh,
+                           *consts, stream())
+            assert rc == 0, rc
+        return dh1, du1
+
+    def same(out, ref):
+        torch.cuda.synchronize()
+        return all(torch.equal(x, r) for x, r in zip(out, ref))
+
+    ref6, reft = six.reference(*args6), one.stacked_reference(*argst)
+    checks = {"B4 new six faces": same(six(*args6), ref6),
+              "B4 parent six faces": same(parent_six(), ref6),
+              "B4 new stacked": same(one.stacked(*argst), reft),
+              "B4 parent per face": same(parent_faces(), reft)}
+    times = {"B4 six faces": calls_in_turns(
+                 {"parent": parent_six, "new": lambda: six(*args6)}),
+             "B4 face tier, one RK stage": calls_in_turns(
+                 {"parent 6 one-face launches": parent_faces,
+                  "new stacked": lambda: one.stacked(*argst)})}
+    return checks, times
+
+
 def main() -> int:
     args = sys.argv[1:]
     n = 384
-    if args[:1] == ["--n"]:
-        n, args = int(args[1]), args[2:]
+    mega_dir = None
+    while args[:1] in (["--n"], ["--mega"]):
+        if args[0] == "--n":
+            n = int(args[1])
+        else:
+            mega_dir = Path(args[1]).resolve()
+        args = args[2:]
     if not torch.cuda.is_available() or not args:
         print("usage: torch_faces_probe.py [--n N] PARENT_DIR [OTHER ...] "
               "(needs a CUDA GPU)", file=sys.stderr)
@@ -249,10 +415,12 @@ def main() -> int:
         libs[name], logs[name] = b.path, b.log or "(reused)"
     src = (parent / "cov_stage.cu").read_text()
     variants = {"parent_stage_full": src,
-                "parent_stage_staging": ablated_stage(src, "staging"),
-                "parent_stage_staging+metric": ablated_stage(
-                    src, "staging+metric"),
                 "parent_filter": (parent / "cov_nu4_filter.cu").read_text()}
+    # The ablations apply to an earlier B1 of the tile-per-block design.
+    ablations = [m for m in ("staging", "staging+metric")
+                 if _RHS_CALL.search(src)]
+    for mode in ablations:
+        variants[f"parent_stage_{mode}"] = ablated_stage(src, mode)
     includes = {name: parent for name in variants}
     for other, csrc in others.items():
         for kind, fname in (("stage", "cov_stage.cu"),
@@ -265,6 +433,29 @@ def main() -> int:
         cu.write_text(text)
         libs[name] = probe / f"lib{name}.so"
         logs[name] = nvcc_build(cu, libs[name], includes[name])
+    # B12 and B4: this tree's, the earlier tree's, B12's variants; the
+    # earlier B5 and B6 for their SASS.
+    for name in ("cov_step_mega", "cov_rhs", "cov_rhs_interior",
+                 "cov_rhs_local"):
+        b = _build.build(name)
+        libs[name], logs[name] = b.path, b.log or "(reused)"
+    more = {"parent_mega": (parent / "cov_step_mega.cu").read_text(),
+            "parent_rhs": (parent / "cov_rhs.cu").read_text(),
+            "parent_rhs_interior": (parent / "cov_rhs_interior.cu").read_text(),
+            "parent_rhs_local": (parent / "cov_rhs_local.cu").read_text()}
+    more_inc = {name: parent for name in more}
+    for name, text in mega_variants(
+            (_build.CSRC_DIR / "cov_step_mega.cu").read_text()).items():
+        more[name], more_inc[name] = text, _build.CSRC_DIR
+    extra = sorted(mega_dir.glob("*.cu")) if mega_dir else []
+    for cu in extra:
+        more[f"mega_{cu.stem}"] = cu.read_text()
+        more_inc[f"mega_{cu.stem}"] = _build.CSRC_DIR
+    for name, text in more.items():
+        cu = probe / f"{name}.cu"
+        cu.write_text(text)
+        libs[name] = probe / f"lib{name}.so"
+        logs[name] = nvcc_build(cu, libs[name], more_inc[name])
     sass = {}
     for name, lib in libs.items():
         sass[name] = sass_counts(lib)
@@ -301,8 +492,8 @@ def main() -> int:
                    + [ctypes.c_float] * 8 + [ctypes.c_void_p])
     filter_types = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
                     + [ctypes.c_float] * 4 + [ctypes.c_void_p])
-    stage_keys = (["cov_stage", "parent_stage_full", "parent_stage_staging",
-                   "parent_stage_staging+metric"]
+    stage_keys = (["cov_stage", "parent_stage_full"]
+                  + [f"parent_stage_{m}" for m in ablations]
                   + [f"{o}_stage" for o in others])
     filter_keys = ["cov_nu4_filter", "parent_filter"] + [
         f"{o}_filter" for o in others]
@@ -336,9 +527,8 @@ def main() -> int:
     times = {}
     for label in ("stage 1", "stage 2"):
         st, a = stage_args[label]
-        forms = {"parent": use_stage("parent_stage_full"),
-                 "staging": use_stage("parent_stage_staging"),
-                 "staging+metric": use_stage("parent_stage_staging+metric")}
+        forms = {"parent": use_stage("parent_stage_full")}
+        forms.update({m: use_stage(f"parent_stage_{m}") for m in ablations})
         forms.update({o: use_stage(f"{o}_stage") for o in others})
         forms["new"] = use_stage("cov_stage")
         times[f"B1 {label}"] = in_turns(forms, st, a)
@@ -348,6 +538,15 @@ def main() -> int:
     times["B2 filter"] = in_turns(forms, filt, fargs)
     use_stage("cov_stage")()
     use_filter("cov_nu4_filter")()
+    mega_checks, mega_times = probe_mega(libs, grid, model, y, b,
+                                         [cu.stem for cu in extra])
+    rhs_checks, rhs_times = probe_rhs(libs, grid, model, y)
+    checks.update(mega_checks)
+    checks.update(rhs_checks)
+    print(f"bitwise vs plain at C{n} (B12, B4): "
+          f"{dict(mega_checks, **rhs_checks)}", flush=True)
+    times.update(mega_times)
+    times.update(rhs_times)
     for label, t in times.items():
         print(f"C{n} {label}, device us per launch (CUDA graph of {REPS}, "
               "in turns): " + "; ".join(
@@ -358,7 +557,8 @@ def main() -> int:
     # kernels must be bitwise.
     ok = all(v for k, v in checks.items()
              if k.split()[0] in ("cov_stage", "parent_stage_full",
-                                 "cov_nu4_filter", "parent_filter"))
+                                 "cov_nu4_filter", "parent_filter",
+                                 "B12", "B4"))
     print(json.dumps({"ok": ok, "n": n, "card": card, "bitwise": checks,
                       "times_us": times, "sass": sass}))
     return 0 if ok else 1

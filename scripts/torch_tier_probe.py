@@ -5,7 +5,7 @@ one process.
     git archive <commit> jaxstream_torch \
         | tar -x -C build/jaxstream_torch/parent
     python3 scripts/torch_tier_probe.py [--n N] [--steps S] [--turns K] \
-        [TREE ...]
+        [--paths LABEL,...] [--no-kernels] [TREE ...]
 
 Each TREE is a directory holding a ``jaxstream_torch`` package (an earlier
 tree's, for instance); the default is this tree alone.  Each tree's
@@ -17,7 +17,8 @@ the host's state and take their windows in turns (A, B, ..., ..., B, A;
 2, dt = 75 s, and drives the four tier paths through each tree's entry
 points (``setup_sharding``, ``make_stepper_for``), every rank a virtual
 rank on the one card: the face tier (6 ranks) and the (6, 2, 2) block
-tier (24 ranks), serialized and overlapped.  Per path and tree:
+tier (24 ranks), serialized and overlapped (``--paths`` picks some of
+them by label, e.g. ``"face serialized"``).  Per path and tree:
 
 * ``device_us``: device microseconds per step, 20 steps captured as one
   CUDA graph and replayed 5 times (``profiling.device_seconds``; the
@@ -40,7 +41,8 @@ B6 over one RK stage's ranks as CUDA graphs, in the tiers' stacked form
 and with the design taken apart (groups of 2 and of 1, a launch per
 rank), each bitwise against the plain version on the TC5 state, and
 prints the two libraries' SASS instruction counts (``cuobjdump -sass``;
-``chip_smoke.py`` prints their ``ptxas`` lines).  The last line is a
+``chip_smoke.py`` prints their ``ptxas`` lines); ``--no-kernels`` skips
+that part.  The last line is a
 JSON summary.  Needs a CUDA GPU and nvcc; exits 1 without them.
 """
 
@@ -285,7 +287,16 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--turns", type=int, default=2,
                     help="rounds of turns A, B, ..., ..., B, A")
+    ap.add_argument("--paths", default=None,
+                    help="comma-separated path labels (default: all four)")
+    ap.add_argument("--no-kernels", action="store_true",
+                    help="skip this tree's B5/B6 kernel probe")
     a = ap.parse_args()
+    labels = [_label(*pt) for pt in PATHS]
+    picked = labels if a.paths is None else a.paths.split(",")
+    if set(picked) - set(labels):
+        ap.error(f"--paths: unknown {sorted(set(picked) - set(labels))}; "
+                 f"the labels are {labels}")
     if not torch.cuda.is_available():
         print("torch_tier_probe: no CUDA device", file=sys.stderr)
         return 1
@@ -301,6 +312,8 @@ def main() -> int:
     summary = {str(p): {} for p in paths}
     for tiles, overlap in PATHS:
         label = _label(tiles, overlap)
+        if label not in picked:
+            continue
         runs = [tr.stepper(tiles, overlap) for tr in trees]
         rates = [[] for _ in trees]
         devs = [[] for _ in trees]
@@ -329,7 +342,7 @@ def main() -> int:
                   f"launches/step; {clocks()}; card {card}", flush=True)
         del runs
     kernels = None
-    if ROOT in paths:
+    if ROOT in paths and not a.no_kernels:
         kernels = kernel_probe(trees[paths.index(ROOT)])
     print(json.dumps({"card": card, "n": a.n, "steps": a.steps,
                       "order": [str(paths[i]) for i in order],

@@ -300,6 +300,52 @@ def test_rhs_kernel_matches_plain_c48():
     assert tcov.CovRhs.launches == before + 3
 
 
+@pytest.mark.gpu
+def test_stacked_rhs_kernel_matches_plain_c48():
+    """B4's stacked form (the face tier's) over views of a stacked ``q``
+    (R, 3, M, M): the six faces in groups of 3 and 3, and of 3, 2 and 1,
+    from the TC5 state and after a classic step, one launch each: bitwise
+    equal to the stacked plain version, to each face's one-face plain
+    version and to the six-face form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the RHS kernel has no CPU form)")
+    g, m, s0 = _tc5_c48()
+    six = tcov.make_cov_rhs_pallas(g, EARTH_GRAVITY, EARTH_OMEGA).kernel
+    one = tcov.make_cov_rhs_pallas(g, EARTH_GRAVITY, EARTH_OMEGA, n_faces=1,
+                                   external_sym=True)
+    fz = six.fz[:, None]
+    for state in (s0, m.make_step(600.0)(s0, 0.0)):
+        he, ue = m.fill(state["h"]), m._fill_u(state["u"])
+        ssn, swe = tcov.sym_edge_normals(g, ue)
+        ref6 = six.reference(fz, he, ue, m.b_ext, ssn, swe)
+        q = torch.cat([he[:, None], ue.transpose(0, 1)], dim=1)
+        for keys, sizes in (([(0, 0)] * 6, [3, 3]),
+                            ([(0, 0)] * 5 + [(0, 1)], [3, 2, 1])):
+            groups = tcov.RankGroups(keys, *(
+                t.expand((6,) + tuple(t.shape)) for t in six.coords))
+            assert [len(grp) for grp in groups.ranks] == sizes
+            args = (fz, groups, q[:, 0:1], q[:, 1:3].unsqueeze(2),
+                    m.b_ext[:, None], ssn[:, None], swe[:, None])
+            before = tcov.CovRhs.launches
+            dh, du = one.stacked(*args)
+            torch.cuda.synchronize()
+            assert tcov.CovRhs.launches == before + 1
+            for x, r in zip((dh, du), one.stacked_reference(*args)):
+                assert bool(torch.all(torch.isfinite(x))), sizes
+                assert torch.equal(x, r), (sizes, _rel(r, x))
+            assert torch.equal(dh[:, 0], ref6[0])
+            assert torch.equal(du[:, :, 0].transpose(0, 1), ref6[1])
+            for f in range(6):
+                want = one.reference(fz[f:f + 1], he[f:f + 1],
+                                     ue[:, f:f + 1], m.b_ext[f:f + 1],
+                                     ssn[f:f + 1], swe[f:f + 1])
+                assert torch.equal(dh[f], want[0]), (sizes, f)
+                assert torch.equal(du[f], want[1]), (sizes, f)
+        out6 = six(fz, he, ue, m.b_ext, ssn, swe)
+        for x, r in zip(out6, ref6):
+            assert torch.equal(x, r)
+
+
 def _block_operands(g, m, state, s, cores):
     """Every block of the s x s split of each face at C48 (``cores``: the
     interior windows B5 reads, else the extended blocks B6 reads with the
@@ -457,6 +503,10 @@ def test_stage_nbr_matches_plain_c48():
 
 @pytest.mark.gpu
 def test_step_mega_matches_plain_c48():
+    """B12 on the grid the card holds at once and on one of 5 blocks (fewer
+    than the 8 work items: the metric recomputed per item), from the TC5
+    state, after one step and after 20: bitwise equal to its plain
+    version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the whole-step kernel has no CPU "
                     "form)")
@@ -464,13 +514,21 @@ def test_step_mega_matches_plain_c48():
     step = mega.make_fused_ssprk3_cov_mega(g, EARTH_GRAVITY, EARTH_OMEGA,
                                            75.0 * 384 / 48, m.b_ext)
     kern = step.kernel
+    small = mega.CovMegaStep(g, EARTH_GRAVITY, EARTH_OMEGA, 75.0 * 384 / 48,
+                             max_blocks=5)
     y = m.compact_state(s0)
-    for k in range(2):             # the TC5 state, then after a step
-        args = (y["h"], y["u"], y["strips_sn"], y["strips_we"], m.b_ext)
-        before = mega.CovMegaStep.launches
-        _check(f"step {k}", kern, kern.reference, args, TOL)
-        assert mega.CovMegaStep.launches == before + 1
-        assert kern.blocks >= 1
+    for k in range(21):            # the TC5 state, after 1 and 20 steps
+        if k in (0, 1, 20):
+            args = (y["h"], y["u"], y["strips_sn"], y["strips_we"], m.b_ext)
+            for kn in (kern, small):
+                before = mega.CovMegaStep.launches
+                out = kn(*args)
+                torch.cuda.synchronize()
+                assert mega.CovMegaStep.launches == before + 1
+                for j, (x, r) in enumerate(zip(out, kn.reference(*args))):
+                    assert bool(torch.all(torch.isfinite(x))), (k, j)
+                    assert torch.equal(x, r), (k, j, _rel(r, x))
+            assert kern.blocks >= 8 and small.blocks == 5
         y = step(y, 0.0)
 
 

@@ -5,12 +5,12 @@ C++ compiler (g++) instead of nvcc, through a small stand-in for
 ``cuda_runtime.h``: ``__shared__`` arrays become statics, each block runs
 as 256 host threads with a real barrier for ``__syncthreads`` and its own
 arena for the dynamic shared memory, and blocks run one after another;
-the asynchronous copies of ``cov_faces.cuh`` (cp.async) copy at once, and
-their commit and wait do nothing.  A cooperative launch (the whole-step
+the asynchronous copies (cp.async) copy at once, and their commit and
+wait do nothing.  A cooperative launch (the whole-step
 kernel's, ``cudaLaunchCooperativeKernel``) runs all its blocks' threads at once
 instead, each block with its own barrier and its own arena for the
 dynamic shared memory, and ``this_grid().sync()`` waits on a grid-wide
-barrier; the stand-in occupancy API gives a grid of 5 blocks.  The
+barrier; the stand-in occupancy API gives a grid of 8 blocks.  The
 wrappers' launch path then runs unchanged on CPU tensors.  This checks
 what the sources compute (indexing, aprons, tile seams, ragged edges, op
 order) at C40, where a face has 2 x 3 tiles with ragged last ones; it
@@ -81,7 +81,7 @@ int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-  *v = 5;
+  *v = 8;
   return 0;
 }
 template <class F>
@@ -93,6 +93,9 @@ inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline float __ldcg(const float* p) { return *p; }
 // cp.async: the copy happens at once; commit and wait have nothing to do.
 inline void async_copy4(float* d, const float* s) { *d = *s; }
+inline void async_copy16_cg(float* d, const float* s) {
+  for (int k = 0; k < 4; ++k) d[k] = s[k];
+}
 inline void async_commit() {}
 template <int N>
 inline void async_wait() {}
@@ -195,7 +198,7 @@ def _emulate(src: str, name: str, out, gxx: str):
     src = re.sub(r"(\w+)<<<\s*(\w+),\s*(\w+),\s*(\w+),.*?>>>\((\w+)\)",
                  r"emu_launch(\1, \2, \3, \5, \4)", src, flags=re.S)
     # Dynamic shared memory: the block's arena.
-    src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+    src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];",
                  r"\1* \2 = static_cast<\1*>(emu_dyn_smem);", src)
     cpp, lib = out / f"{name}.cpp", out / f"lib{name}.so"
     cpp.write_text(src)
@@ -459,21 +462,77 @@ def tc5_c40():
     return g, m, s0, m.fill(s0["h"]), m._fill_u(s0["u"])
 
 
-def test_rhs_kernel_source(launch_on_cpu, tc5_c40):
-    g, m, s0, h_ext, u_ext = tc5_c40
-    rhs = tsc.make_cov_rhs_pallas(g, G, OM)
-    kern = rhs.kernel
-    sym = tsc.sym_edge_normals(g, u_ext)
-    before = tsc.CovRhs.launches
-    _equal(rhs(h_ext, u_ext, m.b_ext),
-           kern.reference(kern.fz[:, None], h_ext, u_ext, m.b_ext, *sym))
+def _rhs_forms(g, m, state):
+    """B4's three forms on one state (filled frames, sym rows): the
+    six-face classic layout, each face alone (the JAX one-face form), and
+    the face tier's stacked form over views of a stacked ``q`` (R, 3, M,
+    M) in groups of three.  Returns ``(six, ones, stacked)``, each a list
+    of ``(kernel, call, reference, args)``."""
+    _, he, ue, ssn, swe = state
+    six = tsc.make_cov_rhs_pallas(g, G, OM).kernel
     one = tsc.make_cov_rhs_pallas(g, G, OM, n_faces=1, external_sym=True)
-    for f in (1, 5):
-        args = (kern.fz[f:f + 1, None], h_ext[f:f + 1],
-                u_ext[:, f:f + 1].contiguous(), m.b_ext[f:f + 1],
-                sym[0][f:f + 1], sym[1][f:f + 1])
-        _equal(one(*args), one.reference(*args))
-    assert tsc.CovRhs.launches == before + 3
+    fz = six.fz[:, None]
+    args6 = (fz, he, ue, m.b_ext, ssn, swe)
+    ones = [(one, one, one.reference,
+             (fz[f:f + 1], he[f:f + 1], ue[:, f:f + 1].contiguous(),
+              m.b_ext[f:f + 1], ssn[f:f + 1], swe[f:f + 1]))
+            for f in (1, 5)]
+    q = torch.cat([he[:, None], ue.transpose(0, 1)], dim=1)
+    groups = tsc.RankGroups([(0, 0)] * 6, *(
+        t.expand((6,) + tuple(t.shape)) for t in six.coords))
+    st_args = (fz, groups, q[:, 0:1], q[:, 1:3].unsqueeze(2),
+               m.b_ext[:, None], ssn[:, None], swe[:, None])
+    return ([(six, six, six.reference, args6)], ones,
+            [(one, one.stacked, one.stacked_reference, st_args)])
+
+
+@pytest.mark.parametrize("grid", ["c40", "c72"])
+def test_rhs_kernel_source(launch_on_cpu, tc5_c40_states, c72_states, grid):
+    """B4 in its three forms, from the TC5 state and after a step: the six
+    faces, one face, and the stacked form over views of the face tier's
+    ``q`` (one launch each), bitwise equal to their plain versions, and
+    the stacked form to the six-face form and to each face's one-face
+    plain version."""
+    g, m, states = tc5_c40_states if grid == "c40" else c72_states
+    before = tsc.CovRhs.launches
+    for state in states:
+        six, ones, stacked = _rhs_forms(g, m, state)
+        outs = {}
+        for form, cases in (("six", six), ("one", ones),
+                            ("stacked", stacked)):
+            for kern, call, ref, args in cases:
+                out = outs[form] = call(*args)
+                _equal(out, ref(*args))
+        dh, du = outs["stacked"]
+        assert torch.equal(dh[:, 0], outs["six"][0])
+        assert torch.equal(du[:, :, 0].transpose(0, 1), outs["six"][1])
+        for f, (kern, _, _, args) in zip((1, 5), ones):
+            _equal((dh[f], du[f]), kern.reference(*args))
+    assert tsc.CovRhs.launches == before + 4 * len(states)
+
+
+#: B4's operands of one face in its launch (cov_rhs.cu): the mutation swaps
+#: the rank stride and the component stride of u, which the six-face
+#: layout (M^2, F M^2) and the stacked one (3 M^2, M^2) both tell apart.
+_RHS_STRIDES = ("  const float* ua = p.u + r * p.su;\n"
+                "  const float* ub = ua + p.cu;\n")
+_RHS_STRIDES_SWAPPED = ("  const float* ua = p.u + r * p.cu;\n"
+                        "  const float* ub = ua + p.su;\n")
+
+
+def test_rhs_kernel_mutation_is_caught(emulated, launch_on_cpu, monkeypatch,
+                                       tc5_c40_states):
+    """B4 with the rank and component strides of u swapped must disagree
+    with the plain version in the six-face and the stacked form."""
+    lib = _mutated_lib(emulated, "cov_rhs", _RHS_STRIDES,
+                       _RHS_STRIDES_SWAPPED)
+    monkeypatch.setattr(_build, "load", lambda nm: ctypes.CDLL(
+        str(lib if nm == "cov_rhs" else emulated[nm])))
+    g, m, states = tc5_c40_states
+    six, _, stacked = _rhs_forms(g, m, states[1])
+    for _, call, ref, args in six + stacked:
+        out, expect = call(*args), ref(*args)
+        assert not all(torch.equal(x, r) for x, r in zip(out, expect))
 
 
 @pytest.mark.parametrize("stage", [0, 1, 2], ids=["stage1", "stage2",
@@ -526,21 +585,64 @@ def test_stage_nbr_kernel_source(launch_on_cpu, tc5_c40, stage):
     assert nbr.CovStageNbr.launches == before + 1
 
 
+def _mega_args(kern, m, s0, after):
+    """The carry of the C40 TC5 state after ``after`` steps of the plain
+    version, with ``b_ext``: TC5's initial wind has a zero component in
+    places, which hides some operation orders."""
+    y = m.compact_state(s0)
+    args = (y["h"], y["u"], y["strips_sn"], y["strips_we"])
+    for _ in range(after):
+        args = kern.reference(*args, m.b_ext)
+    return tuple(args) + (m.b_ext,)
+
+
 @pytest.mark.parametrize("after", [0, 1], ids=["tc5", "after-a-step"])
 def test_step_mega_kernel_source(launch_on_cpu, tc5_c40, after):
     g, m, s0, h_ext, u_ext = tc5_c40
     kern = mega.CovMegaStep(g, G, OM, 75.0 * 384 / N)
-    y = m.compact_state(s0)
-    args = (y["h"], y["u"], y["strips_sn"], y["strips_we"])
-    for _ in range(after):      # the plain version's step
-        args = kern.reference(*args, m.b_ext)
-    args = tuple(args) + (m.b_ext,)
+    args = _mega_args(kern, m, s0, after)
     before = mega.CovMegaStep.launches
     _equal(kern(*args), kern.reference(*args))
     assert mega.CovMegaStep.launches == before + 1
-    # The stand-in occupancy API: 1 block per SM on 5 SMs, so the 36
-    # tiles and the routed rows fall unevenly on the blocks.
+    # The stand-in occupancy API: 1 block per SM on 8 SMs, a block per
+    # work item (2 x 2 tile positions x 2 face groups): the metric terms
+    # once per launch; the routed rows fall unevenly on the blocks.
+    assert kern.blocks == 8
+
+
+@pytest.mark.parametrize("after", [0, 2], ids=["tc5", "after-two-steps"])
+def test_step_mega_kernel_small_grid(launch_on_cpu, tc5_c40, after):
+    """B12 on a grid of fewer blocks than work items (5 for 8): blocks
+    take two items in turn and recompute the metric terms per item."""
+    g, m, s0, h_ext, u_ext = tc5_c40
+    kern = mega.CovMegaStep(g, G, OM, 75.0 * 384 / N, max_blocks=5)
+    args = _mega_args(kern, m, s0, after)
+    _equal(kern(*args), kern.reference(*args))
     assert kern.blocks == 5
+
+
+#: Mutations of B12 (cov_step_mega.cu): stage 2 reading stage 1's input
+#: (the carry) instead of stage 1's result; a block keeping the metric
+#: terms of its first work item for the others.
+_MEGA_MUTATIONS = {
+    "stage2-reads-stage1-input": (
+        "const float* ch = st == 0 ? p.y0h : st == 1 ? p.ho : p.bh;",
+        "const float* ch = st == 0 ? p.y0h : st == 1 ? p.y0h : p.bh;"),
+    "metric-of-another-item": ("if (mt_item != t) {", "if (mt_item < 0) {"),
+}
+
+
+@pytest.mark.parametrize("mutation", sorted(_MEGA_MUTATIONS))
+def test_step_mega_mutation_is_caught(emulated, launch_on_cpu, monkeypatch,
+                                      tc5_c40, mutation):
+    lib = _mutated_lib(emulated, "cov_step_mega", *_MEGA_MUTATIONS[mutation])
+    monkeypatch.setattr(_build, "load", lambda nm: ctypes.CDLL(
+        str(lib if nm == "cov_step_mega" else emulated[nm])))
+    g, m, s0, h_ext, u_ext = tc5_c40
+    kern = mega.CovMegaStep(g, G, OM, 75.0 * 384 / N, max_blocks=5)
+    args = _mega_args(kern, m, s0, 1)
+    out, ref = kern(*args), kern.reference(*args)
+    assert not all(torch.equal(x, r) for x, r in zip(out, ref))
 
 
 @pytest.fixture(scope="module")
@@ -847,9 +949,10 @@ def test_whole_face_kernels_pass_rows_as_columns():
     """advective_tile, and the faces-in-block design's stage_metric and
     stage_face_tile, take separate row and column coordinates (centres
     and faces along i, then along j); every kernel of whole faces passes
-    its one coordinate pair as both, the two block kernels their groups'
-    own rows and columns: both run cov_faces.cuh's rhs_group, which
-    passes them on."""
+    its one coordinate pair as both, the group kernels their groups' own
+    rows and columns: the two block kernels through cov_faces.cuh's
+    rhs_group, B4 through its own group loop (its wrapper hands every
+    group the full-face pair as rows and columns)."""
     sources = {name: (_build.CSRC_DIR / fname).read_text()
                for name, fname in _build.KERNELS.items()}
     sources["cov_faces.cuh"] = (_build.CSRC_DIR / "cov_faces.cuh").read_text()
@@ -861,15 +964,18 @@ def test_whole_face_kernels_pass_rows_as_columns():
             args = re.sub(r"\s+", " ", mt.group(0))
             fn = mt.group(1).rstrip("<(")
             calls.setdefault(name, {}).setdefault(fn, []).append(args)
+    faces_in_block = {"cov_stage": "p.xc, p.xf, p.xc, p.xf,",
+                      "cov_step_mega": "p.xc, p.xf, p.xc, p.xf,",
+                      "cov_rhs": " xr, xfr, yc, yfc,",
+                      "cov_faces.cuh": " xr, xfr, yc, yfc,"}
     assert sorted(calls) == sorted(
         ["cov_stage", "cov_stage_refused_nu4", "cov_stage_nu4", "cov_rhs",
          "cov_stage_inkernel", "cov_stage_nbr", "cov_step_mega",
          "cov_faces.cuh"])
     for name, fns in calls.items():
-        if name in ("cov_stage", "cov_faces.cuh"):
+        if name in faces_in_block:
             assert sorted(fns) == ["stage_face_tile", "stage_metric"], fns
-            pair = ("p.xc, p.xf, p.xc, p.xf," if name == "cov_stage"
-                    else " xr, xfr, yc, yfc,")
+            pair = faces_in_block[name]
             wants = {"stage_metric": pair, "stage_face_tile": pair}
         else:
             assert sorted(fns) == ["advective_tile"], (name, fns)
@@ -880,3 +986,6 @@ def test_whole_face_kernels_pass_rows_as_columns():
     for name, seam in (("cov_rhs_interior", "None"),
                        ("cov_rhs_local", "Frame")):
         assert sources[name].count(f"rhs_group<Seam::{seam}>(p, sm,") == 1
+    for name, seam in (("cov_rhs", "Frame"), ("cov_step_mega", "FrameCg")):
+        assert calls[name]["stage_face_tile"][0].count(
+            f"stage_face_tile<Seam::{seam}>(") == 1

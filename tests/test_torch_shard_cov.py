@@ -26,6 +26,9 @@ kernel wrappers run their plain versions on CPU tensors.  Budgets:
   JAX per-block kernels in interpret mode to the budget above; the group
   table of the tiers' stacked launches, and its refusal of a group whose
   ranks' coordinate rows differ;
+* the face tier's serialized RHS, one stacked call of B4 over its six
+  faces (``CovRhs.stacked``, its plain version here): bitwise equal to
+  one one-face plain call per rank on the tier's own exchanged operands;
 * the face tier on six virtual ranks (``device="cpu"``) against the JAX
   package's ``make_sharded_cov_stepper`` on six virtual CPU devices, 3
   steps at C8, serialized and overlapped: 1e-6 of each field's max
@@ -427,6 +430,42 @@ def test_rank_groups_refuse_unequal_rows(row):
     with pytest.raises(ValueError, match="share block position"):
         rank_groups(setup, list(range(24)), *rows)
     rank_groups(setup, list(range(24)), *_rows(24, 10))
+
+
+def test_face_tier_serialized_rhs_equals_per_rank_calls():
+    """The face tier's serialized RHS, one stacked B4 call over its six
+    faces (on CPU tensors its plain version, ``CovRhs.stacked_reference``),
+    bitwise equal to one one-face plain call per rank on the tier's own
+    exchanged operands (the per-rank form it replaced), at C16 after a
+    classic step."""
+    from jaxstream_torch.geometry.cubed_sphere import FACE_AXES as T_AXES
+    from jaxstream_torch.parallel import shard_cov
+
+    n, h = 16, 2
+    g = build_grid(n, halo=h, radius=EARTH_RADIUS, device="cpu")
+    he, ve, be = williamson_tc5(g, G, OM)
+    m = CovariantShallowWater(g, gravity=G, omega=OM, b_ext=be)
+    st = m.make_step(600.0)(m.initial_state(he, ve), 0.0)
+    setup = setup_sharding({"parallelization": {
+        "num_devices": 6, "use_shard_map": True}}, device="cpu")
+    program = CovShardProgram(g)
+    local = shard_state(setup, st)
+    before = tsc.CovRhs.launches
+    dh, du = shard_cov._make_cov_face_rhs(m, program, setup, False)(
+        local["h"], local["u"])
+    assert tsc.CovRhs.launches == before          # the plain version ran
+    q = shard_cov._embed(local["h"], local["u"], h)
+    q, ssn, swe = shard_cov.make_cov_shard_exchange(
+        program, setup.ranks, setup.local_ranks)(q)
+    one = tsc.make_cov_rhs_pallas(g, G, OM, n_faces=1, external_sym=True)
+    fz = torch.from_numpy(np.asarray(T_AXES)[:, None, :, 2].astype(
+        np.float32))
+    assert dh.shape == (6, 1, n, n) and du.shape == (6, 2, 1, n, n)
+    for r, face in enumerate(setup.local_ranks):
+        want = one.reference(fz[face:face + 1], q[r, 0:1],
+                             q[r, 1:3].unsqueeze(1), m.b_ext[face:face + 1],
+                             ssn[r], swe[r])
+        assert torch.equal(dh[r], want[0]) and torch.equal(du[r], want[1]), r
 
 
 @pytest.fixture(scope="module")
