@@ -111,11 +111,14 @@ Phases, each fatal on failure:
     of the split and re-fused steppers in turns (split, re-fused,
     re-fused, split);
 13. kernels A and B against their plain versions as stage 1 and stage 2
-    (<= 1e-5), B with its probe (<= 1e-4); then three in-stage steps
-    against three classic del^4 steps (<= 5e-4) and three split steps
-    (<= 2e-3);
+    (<= 1e-5; A bitwise), B with its probe (<= 1e-4), and A on TC5 (its
+    mountain orography) after one in-stage step, as stage 1 and stage 2
+    (bitwise); then three in-stage steps against three classic del^4
+    steps (<= 5e-4) and three split steps (<= 2e-3);
 14. a timed window of 500 in-stage steps with the launches checked
     (A and B 3 x steps) and its breakdown (6 routes, 3 A, 3 B, the rest);
+    A's device time beside its earlier design's (``EARLIER_DEVICE_US``)
+    and the in-stage step's device time as a CUDA graph;
 15. the RHS kernel against its plain version on the TC5 state, six faces
     and one face with external sym rows (<= 1e-5 of each output's max),
     then the kernel-backed classic ``rhs`` and the torch one against a
@@ -146,7 +149,9 @@ Phases, each fatal on failure:
     kernel, the RK combines);
 20. the in-kernel-exchange and concat stage kernels against their plain
     versions as stages 1, 2 and 3 on whole blocks (all outputs, strips
-    included; <= 1e-5) and as stage 3 with y0 = -2 yc (<= 1e-4); then
+    included; <= 1e-5) and as stage 3 with y0 = -2 yc (<= 1e-4), the
+    in-kernel one bitwise and also with the general core (``fast=False``)
+    as stage 2; then
     three steps of each fused form: in-kernel vs concat interiors
     (<= 1e-6; bitwise predicted, corners are never read), each against
     three classic steps (<= 2e-4, ``tests/test_fused_step.py:52``);
@@ -154,6 +159,8 @@ Phases, each fatal on failure:
     checked against 3 x steps, the breakdown (3 routes, 3 stage launches,
     the rest), a traced window, a timed window of the concat form with
     its launches checked, and the kernels' times against their bounds;
+    the in-kernel stage's device time beside its earlier design's
+    (``EARLIER_DEVICE_US``) and the step's device time as a CUDA graph;
 22. 300-step windows of the Cartesian in-kernel and the covariant
     compact steppers in turns (Cartesian, covariant, covariant,
     Cartesian);
@@ -277,32 +284,38 @@ KERNEL_TOL = 1e-5
 # launch over all ranks with the ranks' launches together.  The
 # whole-step kernel (B12) and the RHS kernel of whole faces (B4) in their
 # tile-per-block design: one step, six faces, and one face-tier rank's
-# one-face launch (the same card; B4's one-face form in a later run).
+# one-face launch (the same card; B4's one-face form in a later run).  The
+# Cartesian in-kernel stage (B11) and the in-stage del^4 kernel A (B7 A) in
+# their tile-per-block design, per launch (the same card and run as B1's).
 EARLIER_DEVICE_US = {"cov_stage_compact": 60.06, "cov_nu4_filter": 62.94,
                      "cov_rhs_interior face rank": 12.43,
                      "cov_rhs_interior block rank": 9.94,
                      "cov_rhs_local block rank": 9.60,
                      "cov_step_mega": 260.62, "cov_rhs": 49.34,
-                     "cov_rhs face rank": 12.95}
+                     "cov_rhs face rank": 12.95,
+                     "swe_stage_inkernel": 70.96, "cov_stage_nu4_a": 70.58}
 # Steps captured in one CUDA graph for a step's device time.
 GRAPH_STEPS = 20
 # ptxas's (registers, shared bytes) per kernel function of the other
 # libraries as they were built before the faces-in-block kernels came,
 # and of the faces-in-block kernels B1, B2, B5 and B6 as they were built
 # before B4 and B12 joined them on the shared header (nvcc of CUDA 12.8):
-# the log says whether each still builds to the same.
+# the log says whether each still builds to the same.  A library's entry
+# names the kernel functions it covers (a substring of their names; None
+# for all): cov_stage_nu4's kernel B (and B14, its modes) keeps its
+# tile-per-block design beside the redesigned kernel A.
 EARLIER_PTXAS = {
-    "cov_stage": [(80, 0)],
-    "cov_nu4_filter": [(80, 0)],
-    "cov_rhs_interior": [(79, 0)],
-    "cov_rhs_local": [(79, 0)],
-    "cov_stage_refused_nu4": [(62, 47392)],
-    "cov_stage_nu4": [(64, 7344), (62, 7344), (62, 7344), (64, 18608)],
-    "cov_stage_inkernel": [(48, 18608)],
-    "cov_stage_nbr": [(64, 19120)],
-    "swe_rhs": [(56, 21892)],
-    "swe_stage": [(56, 21892), (48, 21892)],
-    "swe_stage_inkernel": [(56, 21892), (56, 21892)],
+    "cov_stage": (None, [(80, 0)]),
+    "cov_nu4_filter": (None, [(80, 0)]),
+    "cov_rhs_interior": (None, [(79, 0)]),
+    "cov_rhs_local": (None, [(79, 0)]),
+    "cov_stage_refused_nu4": (None, [(62, 47392)]),
+    "cov_stage_nu4": ("cov_stage_nu4_b_kernel",
+                      [(64, 7344), (62, 7344), (62, 7344)]),
+    "cov_stage_inkernel": (None, [(48, 18608)]),
+    "cov_stage_nbr": (None, [(64, 19120)]),
+    "swe_rhs": (None, [(56, 21892)]),
+    "swe_stage": (None, [(56, 21892), (48, 21892)]),
 }
 # The tendency alone is ill-conditioned in float32 (its flux differences
 # cancel): two f32 evaluations differ by ~1e-5 of its max.
@@ -387,6 +400,20 @@ METRIC_EVERY = 20
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def ptxas_usage(build_log: str) -> list:
+    """``(function, registers, shared bytes)`` of each kernel function in
+    an ``nvcc -Xptxas -v`` log, in the order ptxas compiled them."""
+    out = []
+    for fn, body in re.findall(r"Compiling entry function '([^']+)'(.*?)"
+                               r"(?=Compiling entry function|\Z)",
+                               build_log, re.S):
+        m = re.search(r"Used (\d+) registers[^\n]*?(?:, (\d+) bytes smem)?\n",
+                      body)
+        if m:
+            out.append((fn, int(m.group(1)), int(m.group(2) or 0)))
+    return out
 
 
 def stamp(t_start: float, label: str) -> None:
@@ -943,7 +970,7 @@ def stage_path(card: str, gal: Galewsky, ysplit) -> list:
             args = (y0["h"], y0["u"]) + args
         err_a.append(check_kernel(f"kernel A vs plain C{N} {form}",
                                   st.call_a, st.reference_a, args, a_names,
-                                  KERNEL_TOL, count_a))
+                                  KERNEL_TOL, count_a, exact=True))
         out_a = st.reference_a(*args)
         bargs = tuple(out_a[:4]) + route(out_a[4], out_a[5])
         exact = st.reference_b(*[a.double() for a in bargs])
@@ -962,6 +989,7 @@ def stage_path(card: str, gal: Galewsky, ysplit) -> list:
         if not st.with_y0:
             log("kernel B probe, plain f32 vs f64: "
                 + f64_spread(probe.reference_b, bargs, b_names))
+    err_a += tc5_kernel_a(model.grid, count_a, a_names)
     ys, _ = integrate(step, y0, 0.0, 3, GAL_DT)
     yc, _ = integrate(model.make_step(GAL_DT), s0, 0.0, 3, GAL_DT)
     gal.compare("in-stage vs classic del^4", yc, ys, STAGE_VS_CLASSIC_TOL)
@@ -986,13 +1014,14 @@ def stage_path(card: str, gal: Galewsky, ysplit) -> list:
     a2 = (y["h"], y["u"]) + a1
     out_a = st1.call_a(*a1)
     bargs = tuple(out_a[:4]) + route(out_a[4], out_a[5])
-    rec_a = kernel_record(
-        "cov_stage_nu4_a", "jaxstream_torch/csrc/cov_stage_nu4.cu",
-        "jaxstream/ops/pallas/swe_cov.py:2392", launches[0], max(err_a),
-        [("A stage 1", st1.call_a, st1.reference_a, a1),
-         ("A stage 2", st2.call_a, st2.reference_a, a2),
-         ("A stage 3", st3.call_a, st3.reference_a, a2)],
-        A_FLOPS_PER_CELL, card)
+    timed_a = [time_form(label, call, ref, a, A_FLOPS_PER_CELL, card)
+               for label, call, ref, a in (
+                   ("A stage 1", st1.call_a, st1.reference_a, a1),
+                   ("A stage 2", st2.call_a, st2.reference_a, a2),
+                   ("A stage 3", st3.call_a, st3.reference_a, a2))]
+    rec_a = record("cov_stage_nu4_a", "jaxstream_torch/csrc/cov_stage_nu4.cu",
+                   "jaxstream/ops/pallas/swe_cov.py:2392", launches[0],
+                   max(err_a), timed_a)
     rec_b = kernel_record(
         "cov_stage_nu4_b", "jaxstream_torch/csrc/cov_stage_nu4.cu",
         "jaxstream/ops/pallas/swe_cov.py:2415", launches[1], max(err_b),
@@ -1004,7 +1033,37 @@ def stage_path(card: str, gal: Galewsky, ysplit) -> list:
     log(f"in-stage step {step_us:.1f} us = routers 6 x {r_ms * 1e3:.2f} us "
         f"+ A 3 x {rec_a['ms'] * 1e3:.2f} us + B 3 x {rec_b['ms'] * 1e3:.2f}"
         f" us + {other:.1f} us other; card {card}")
+    redesign_line("cov_stage_nu4_a", timed_a, 3, "in-stage Galewsky",
+                  step_device_us(step, y, t, GAL_DT), card)
     return [rec_a, rec_b]
+
+
+def tc5_kernel_a(grid, count_a, names) -> list:
+    """Phase 13 on TC5 (its mountain orography; the Galewsky jet's is
+    zero): kernel A bitwise against its plain version as stages 1 and 2
+    on the state after one in-stage step at nu4 = 1e14.  Returns the
+    largest absolute differences."""
+    from jaxstream_torch.config import EARTH_GRAVITY, EARTH_OMEGA
+    from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
+    from jaxstream_torch.physics.initial_conditions import williamson_tc5
+
+    h, v, b = williamson_tc5(grid, EARTH_GRAVITY, EARTH_OMEGA)
+    model = CovariantShallowWater(grid, gravity=EARTH_GRAVITY,
+                                  omega=EARTH_OMEGA, b_ext=b, nu4=GAL_NU4)
+    step = model.make_fused_step(STEP_DT, nu4_mode="stage")
+    y = step(model.compact_state(model.initial_state(h, v)), 0.0)
+    gsn, gwe = step.route(y["strips_sn"], y["strips_we"])
+    errs = []
+    for st in step.stages[:2]:
+        args = (y["h"], y["u"], gsn, gwe, model.b_ext)
+        if st.with_y0:
+            args = (y["h"], y["u"]) + args
+        form = "stage 2" if st.with_y0 else "stage 1"
+        errs.append(check_kernel(
+            f"kernel A vs plain C{N} {form}, TC5 (orography) after one "
+            "in-stage step", st.call_a, st.reference_a, args, names,
+            KERNEL_TOL, count_a, exact=True))
+    return errs
 
 
 def b14_record(max_abs: float, launches: int, forms, card: str) -> dict:
@@ -1487,11 +1546,21 @@ def cartesian_fused_path(card: str, grid, b_ext, s0, ref, cov_step,
     a3p = (-2.0 * k2[0], -2.0 * k2[1], k2[0], k2[1], strips(k2), b)
     max_ink = max(
         check_kernel(f"in-kernel stage kernel vs plain C{N} stage {k + 1}",
-                     st, st.reference, a, names, KERNEL_TOL, count)
+                     st, st.reference, a, names, KERNEL_TOL, count,
+                     exact=True)
         for k, (st, a) in enumerate(((st1, a1), (st2, a2), (st3, a3))))
     max_ink = max(max_ink, check_kernel(
         f"in-kernel stage kernel vs plain C{N} stage 3, y0=-2yc (interior "
-        "g*L alone)", st3, st3.reference, a3p, names, TENDENCY_TOL, count))
+        "g*L alone)", st3, st3.reference, a3p, names, TENDENCY_TOL, count,
+        exact=True))
+    # The general core (fast=False, rhs_core), stage 2.
+    gen = swe_step.make_swe_stage_inkernel(
+        grid.n, grid.halo, grid.dalpha, grid.radius, ref.gravity, ref.omega,
+        STEP_DT, st2.a, st2.b, fast=False, device=grid.device)
+    max_ink = max(max_ink, check_kernel(
+        f"in-kernel stage kernel (general core) vs plain C{N} stage 2", gen,
+        gen.reference, a2, names, KERNEL_TOL, count, exact=True))
+    del gen
     count = lambda: Cat.launches
     c1, c2, c3 = step_c.stages
     h1, v1 = ex(y1["h"]), ex(y1["v"])
@@ -1555,19 +1624,25 @@ def cartesian_fused_path(card: str, grid, b_ext, s0, ref, cov_step,
     g = route(y["sh_sn"], y["sh_we"], y["sv_sn"], y["sv_we"])
     a1 = (y["h"], y["v"], g, b)
     a2 = (y["h"], y["v"]) + a1
-    rec_ink = kernel_record(
-        "swe_stage_inkernel", "jaxstream_torch/csrc/swe_stage_inkernel.cu",
-        "jaxstream/ops/pallas/swe_step.py:424", launches, max_ink,
-        [("Cartesian in-kernel stage 1", st1, st1.reference, a1),
-         ("Cartesian in-kernel stage 2", st2, st2.reference, a2),
-         ("Cartesian in-kernel stage 3", st3, st3.reference, a2)],
-        SWE_STAGE_FLOPS_PER_CELL, card)
+    timed_ink = [time_form(label, st, st.reference, a,
+                           SWE_STAGE_FLOPS_PER_CELL, card)
+                 for label, st, a in (
+                     ("Cartesian in-kernel stage 1", st1, a1),
+                     ("Cartesian in-kernel stage 2", st2, a2),
+                     ("Cartesian in-kernel stage 3", st3, a2))]
+    rec_ink = record("swe_stage_inkernel",
+                     "jaxstream_torch/csrc/swe_stage_inkernel.cu",
+                     "jaxstream/ops/pallas/swe_step.py:424", launches,
+                     max_ink, timed_ink)
     r_ms = event_ms(lambda: route(y["sh_sn"], y["sh_we"], y["sv_sn"],
                                   y["sv_we"]), 200)
     stages_us = 3e3 * rec_ink["ms"]
     log(f"Cartesian in-kernel step {step_us:.1f} us = routes 3 x "
         f"{r_ms * 1e3:.2f} us + stage kernels {stages_us:.1f} us + "
         f"{step_us - stages_us - 3e3 * r_ms:.1f} us other; card {card}")
+    redesign_line("swe_stage_inkernel", timed_ink, 3,
+                  "Cartesian in-kernel TC5",
+                  step_device_us(step, y, t, STEP_DT), card)
     device_busy(lambda: integrate(step, y, t, PROFILED_STEPS, STEP_DT),
                 PROFILED_STEPS, step_us, card, ("swe_stage_inkernel_kernel",))
 
@@ -2205,11 +2280,11 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas: {line.strip()}")
         if b.name in EARLIER_PTXAS and b.log:
-            got = [(int(r), int(sm or 0)) for r, sm in re.findall(
-                r"Used (\d+) registers[^\n]*?(?:, (\d+) bytes smem)?\n",
-                b.log)]
-            want = EARLIER_PTXAS[b.name]
-            log(f"  ptxas (registers, smem) {got}: "
+            which, want = EARLIER_PTXAS[b.name]
+            got = [(r, sm) for fn, r, sm in ptxas_usage(b.log)
+                   if which is None or which in fn]
+            log(f"  ptxas (registers, smem) {got}"
+                + (f" of {which}" if which else "") + ": "
                 + ("as before" if got == want else f"before: {want}"))
 
     # ---- the port's main path, through its entry points -----------------

@@ -1,10 +1,18 @@
 """Probe the faces-in-block kernels on one GPU: the compact stage (B1), the
-split del^4 filter (B2), the whole-step kernel (B12) and the RHS of
-ghost-filled faces (B4), an earlier tree's against this tree's, in turns,
-with ablations of the earlier B1 and levers of B12.
+split del^4 filter (B2), the whole-step kernel (B12), the RHS of
+ghost-filled faces (B4), the Cartesian in-kernel stage (B11) and the
+in-stage del^4 kernel A (B7 A), an earlier tree's against this tree's, in
+turns, with ablations of the earlier B1 and levers of B12, B11 and B7 A.
 
     git archive <commit> jaxstream_torch/csrc | tar -x -C build/jaxstream_torch/parent
-    python3 scripts/torch_faces_probe.py [--n N] [--mega DIR] build/jaxstream_torch/parent [OTHER ...]
+    python3 scripts/torch_faces_probe.py [--n N] [--mega DIR] [--parts P,...] build/jaxstream_torch/parent [OTHER ...]
+
+``--parts`` picks what runs (default all): ``b1b2`` (B1, B2 and the
+OTHER variants), ``b12``, ``b4``, ``b11b7a``.  ``--ink DIR`` and ``--nu4a
+DIR`` add variant .cu files of this tree's ``swe_stage_inkernel.cu`` and
+``cov_stage_nu4.cu`` (built against this tree's headers) to B11's and
+B7 A's turns under their file names; they may be ablations, so their
+bitwise checks do not decide the exit code.
 
 Each OTHER is a further directory holding a ``jaxstream_torch/csrc`` (a
 variant of this tree's two kernels), timed in the same turns under its
@@ -44,6 +52,27 @@ one RK stage of the face tier's serialized form: six one-face launches
 of the earlier kernel against one stacked launch of this tree's, on
 views of the tier's stacked ``q``.
 
+B11's and B7 A's forms (``b11b7a``; the levers are this tree's sources
+rewritten, ``redesign_levers``):
+
+* ``parent``: the earlier tree's kernel;
+* ``metric per face`` (B11): this tree's with fast_frame evaluated in
+  place at every band cell, face and centre of every face instead of
+  rebuilt from the tile's tables;
+* ``lap in epilogue`` (B7 A): this tree's with the Laplacian inside the
+  advective tile's epilogue instead of a pass of its own;
+* ``new``: this tree's.
+
+B11 on the Cartesian TC5 carry after 20 in-kernel steps, stages 1 and 2;
+A on the Galewsky carry after one in-stage step, stages 1 and 2.  Each
+step (the Cartesian in-kernel one, the in-stage one) is also timed with
+the parent's and this tree's kernel in turns: device µs per step as a
+CUDA graph of 20 steps, the host's issue time per step (the host clock
+around 20 steps enqueued, before the synchronise), and wall steps/s over
+200 steps.  The SASS counts
+of B7 B (and its B14 modes), B9 (``swe_rhs.cu``) and B10
+(``swe_stage.cu``) are printed beside the earlier tree's.
+
 Every figure is device time per launch of 20 launches captured as a
 CUDA graph and replayed (``profiling.device_seconds``) at C``N`` (default
 384) on the state after 20 compact TC5 steps (B1, B12, B4) or one split
@@ -62,6 +91,7 @@ import ctypes
 import json
 import re
 import subprocess
+import time
 import sys
 from pathlib import Path
 
@@ -373,19 +403,213 @@ def probe_rhs(libs, grid, model, y):
     return checks, times
 
 
+def _sub(text: str, old: str, new: str) -> str:
+    if text.count(old) != 1:
+        raise RuntimeError(f"expected one {old[:50]!r} in the source")
+    return text.replace(old, new)
+
+
+def redesign_levers() -> dict:
+    """This tree's B11 with fast_frame evaluated in place at every band
+    cell, face and centre of every face (the header's tile points
+    rewritten, inlined into the source), and its B7 A with the Laplacian
+    inside the advective tile's epilogue instead of its own pass."""
+    from jaxstream_torch import _build
+
+    csrc = _build.CSRC_DIR
+    hdr = (csrc / "swe_faces.cuh").read_text().replace("#pragma once\n", "")
+    for table in ("mt.xc, lx, mt.yc, ly, mt.irho_b[ly][lx]",
+                  "mt.xf, lf, mt.yc, ly + 1, mt.irho_x[ly][lf]",
+                  "mt.xc, lx + 1, mt.yf, lf, mt.irho_y[lf][lx]"):
+        hdr = _sub(hdr, f"return fast_at({table});",
+                   "return fast_frame(x, y, k);")
+    hdr = _sub(hdr, "  const SweMetric& mt;\n",
+               "  const SweMetric& mt;\n  const Consts& k;\n")
+    hdr = _sub(hdr, "const TilePoints pt{mt};", "const TilePoints pt{mt, k};")
+    ink = _sub((csrc / "swe_stage_inkernel.cu").read_text(),
+               '#include "swe_faces.cuh"\n', hdr)
+    a = (csrc / "cov_stage_nu4.cu").read_text()
+    own = a[a.index("    // l1 in a pass of its own"):]
+    own = own[:own.index("    __syncthreads();   // w and the scratch")]
+    a = _sub(a, own, "")
+    a = _sub(a, "                                     y0[r][2], ubv, dub);\n",
+             "                                     y0[r][2], ubv, dub);\n"
+             "          put_l1(p, w, sm.mt, f, threadIdx.y + r * BY, lx, j, "
+             "i, strips);\n")
+    return {"lever_metric_per_face": ink, "lever_lap_in_epilogue": a}
+
+
+def probe_redesign(libs, parent, n, card, sass, ink_vars=(), a_vars=()):
+    """B11 and B7 A: this tree's, the earlier tree's and the levers;
+    bitwise checks, device µs per launch and per step in turns, the
+    host's issue time per step, and the SASS counts of the kernels that
+    must not change (B7 B / B14, B9, B10)."""
+    from jaxstream_torch import _build
+    from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
+                                        EARTH_RADIUS)
+    from jaxstream_torch.geometry.cubed_sphere import build_grid
+    from jaxstream_torch.models.shallow_water import ShallowWater
+    from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
+    from jaxstream_torch.ops.cuda import swe_cov, swe_step
+    from jaxstream_torch.physics.initial_conditions import (galewsky,
+                                                            williamson_tc5)
+    from jaxstream_torch.stepping import integrate
+    from jaxstream_torch.utils.profiling import device_seconds
+
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ink_types = [P] * 18 + [I] * 4 + [F] * 9 + [P]
+    a_types = [P] * 16 + [I] * 3 + [F] * 8 + [P]
+    fns = {}
+    for key, lib in (("ink new", libs["swe_stage_inkernel"]),
+                     ("ink parent", libs["parent_swe_stage_inkernel"]),
+                     ("ink metric per face", libs["lever_metric_per_face"])):
+        fns[key] = entry(lib, "swe_stage_inkernel_f32", ink_types)
+    for key, lib in (("a new", libs["cov_stage_nu4"]),
+                     ("a parent", libs["parent_cov_stage_nu4"]),
+                     ("a lap in epilogue", libs["lever_lap_in_epilogue"])):
+        fns[key] = entry(lib, "cov_stage_nu4_a_f32", a_types)
+    for v in ink_vars:
+        fns[f"ink {v}"] = entry(libs[f"ink_{v}"], "swe_stage_inkernel_f32",
+                                ink_types)
+    for v in a_vars:
+        fns[f"a {v}"] = entry(libs[f"nu4a_{v}"], "cov_stage_nu4_a_f32",
+                              a_types)
+
+    def use_ink(key):
+        return lambda: setattr(swe_step, "_inkernel_kernel",
+                               lambda: fns[key])
+
+    def use_a(key):
+        return lambda: setattr(swe_cov, "_nu4_a_kernel", lambda: fns[key])
+
+    grid = build_grid(n, halo=2, radius=EARTH_RADIUS, dtype=torch.float32)
+    h, v, b = williamson_tc5(grid, EARTH_GRAVITY, EARTH_OMEGA)
+    cart = ShallowWater(grid, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA,
+                        b_ext=b, backend="pallas")
+    cstep = cart.make_fused_step(75.0)
+    cy, ct = integrate(cstep, cart.extend_state(cart.initial_state(h, v),
+                                                with_strips=True),
+                       0.0, 20, 75.0)
+    st1, st2, _ = cstep.stages
+    g = cstep.route(cy["sh_sn"], cy["sh_we"], cy["sv_sn"], cy["sv_we"])
+    ink_args = {"stage 1": (st1, (cy["h"], cy["v"], g, cart.b_ext)),
+                "stage 2": (st2, (cy["h"], cy["v"], cy["h"], cy["v"], g,
+                                  cart.b_ext))}
+    gmodel = CovariantShallowWater(grid, gravity=EARTH_GRAVITY,
+                                   omega=EARTH_OMEGA, nu4=1.0e14)
+    gstep = gmodel.make_fused_step(60.0, nu4_mode="stage")
+    gy = gstep(gmodel.compact_state(gmodel.initial_state(
+        *galewsky(grid, EARTH_GRAVITY, EARTH_OMEGA))), 0.0)
+    a1, a2, _ = gstep.stages
+    gg = gstep.route(gy["strips_sn"], gy["strips_we"])
+    a_args = {"stage 1": (a1, (gy["h"], gy["u"]) + gg + (gmodel.b_ext,)),
+              "stage 2": (a2, (gy["h"], gy["u"], gy["h"], gy["u"]) + gg
+                          + (gmodel.b_ext,))}
+
+    checks = {}
+    for key in ("ink new", "ink parent", "ink metric per face"):
+        use_ink(key)()
+        for label, (st, a) in ink_args.items():
+            checks[f"B11 {key[4:]} {label}"] = bitwise(st, st.reference, a)
+    for key in ("a new", "a parent", "a lap in epilogue"):
+        use_a(key)()
+        for label, (st, a) in a_args.items():
+            checks[f"B7 A {key[2:]} {label}"] = bitwise(st.call_a,
+                                                       st.reference_a, a)
+    for v in ink_vars:
+        use_ink(f"ink {v}")()
+        for label, (st, a) in ink_args.items():
+            checks[f"var B11 {v} {label}"] = bitwise(st, st.reference, a)
+    for v in a_vars:
+        use_a(f"a {v}")()
+        for label, (st, a) in a_args.items():
+            checks[f"var B7 A {v} {label}"] = bitwise(st.call_a,
+                                                      st.reference_a, a)
+    times = {}
+    for label, (st, a) in ink_args.items():
+        forms = {"parent": use_ink("ink parent"),
+                 "metric per face": use_ink("ink metric per face")}
+        forms.update({v: use_ink(f"ink {v}") for v in ink_vars})
+        forms["new"] = use_ink("ink new")
+        times[f"B11 {label}"] = in_turns(forms, st, a)
+    for label, (st, a) in a_args.items():
+        forms = {"parent": use_a("a parent"),
+                 "lap in epilogue": use_a("a lap in epilogue")}
+        forms.update({v: use_a(f"a {v}") for v in a_vars})
+        forms["new"] = use_a("a new")
+        times[f"B7 A {label}"] = in_turns(forms, st.call_a, a)
+
+    # The steps: device µs per step as a CUDA graph of 20, the host's
+    # issue time per step (20 steps enqueued, before the synchronise) and
+    # the wall steps/s of 200 steps, parent and new kernel in turns.
+    def step_times(step, y, t, dt):
+        s = device_seconds(lambda: integrate(step, y, t, 20, dt))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        integrate(step, y, t, 20, dt)
+        issue = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        integrate(step, y, t, 200, dt)
+        torch.cuda.synchronize()
+        rate = 200 / (time.perf_counter() - t0)
+        return (float("nan") if s is None else s / 20 * 1e6), issue, rate
+
+    steps = {}
+    for label, use, step, y, t, dt in (
+            ("Cartesian in-kernel step", use_ink, cstep, cy, ct, 75.0),
+            ("in-stage step", use_a, gstep, gy, 60.0, 60.0)):
+        tag = "ink" if use is use_ink else "a"
+        got = {"parent": [], "new": []}
+        for form in ("parent", "new", "new", "parent"):
+            use(f"{tag} {form}")()
+            got[form].append(step_times(step, y, t, dt))
+        steps[label] = got
+        print(f"C{n} {label} (parent / new kernel, in turns): "
+              + "; ".join(f"{k} device " + ", ".join(
+                  f"{d:.2f}" for d, _, _ in v) + " us/step, host issue "
+                  + ", ".join(f"{hst:.2f}" for _, hst, _ in v)
+                  + " us/step, wall " + ", ".join(
+                      f"{r:.1f}" for _, _, r in v) + " steps/s"
+                  for k, v in got.items()) + f"; card {card}", flush=True)
+    use_ink("ink new")()
+    use_a("a new")()
+
+    # The functions' names differ between two builds (an anonymous
+    # namespace is named after its file), so the counts are compared.
+    for name in ("cov_stage_nu4", "swe_rhs", "swe_stage"):
+        keep, was = ([c for k, c in sass[lib].items()
+                      if name != "cov_stage_nu4" or "nu4_b_kernel" in k]
+                     for lib in (name, f"parent_{name}"))
+        print(f"SASS {name}" + (" kernel B" if name == "cov_stage_nu4"
+                                else "") + f": {sorted(keep)} (parent "
+              f"{sorted(was)}): "
+              + ("same" if sorted(keep) == sorted(was) else "CHANGED"),
+              flush=True)
+    return checks, times, steps
+
+
 def main() -> int:
     args = sys.argv[1:]
     n = 384
     mega_dir = None
-    while args[:1] in (["--n"], ["--mega"]):
+    parts = {"b1b2", "b12", "b4", "b11b7a"}
+    var_dirs = {}
+    while args[:1] in (["--n"], ["--mega"], ["--parts"], ["--ink"],
+                       ["--nu4a"]):
         if args[0] == "--n":
             n = int(args[1])
-        else:
+        elif args[0] == "--mega":
             mega_dir = Path(args[1]).resolve()
+        elif args[0] == "--parts":
+            parts = set(args[1].split(","))
+        else:
+            var_dirs[args[0][2:]] = Path(args[1]).resolve()
         args = args[2:]
     if not torch.cuda.is_available() or not args:
-        print("usage: torch_faces_probe.py [--n N] PARENT_DIR [OTHER ...] "
-              "(needs a CUDA GPU)", file=sys.stderr)
+        print("usage: torch_faces_probe.py [--n N] [--mega DIR] [--parts "
+              "P,...] PARENT_DIR [OTHER ...] (needs a CUDA GPU)",
+              file=sys.stderr)
         return 1
     from jaxstream_torch import _build
     from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
@@ -407,55 +631,72 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
-    # ---- builds: this tree's and the earlier kernels, the ablations ------
+    # ---- builds: this tree's and the earlier kernels, the variants -------
+    # (one nvcc per source, all started together)
     probe = _build.BUILD_DIR / "probe"
+    probe.mkdir(parents=True, exist_ok=True)
+    ours, variants = [], {}        # this tree's libraries; name -> (text, include)
+    ablations, extra = [], []
+    if "b1b2" in parts:
+        ours += ["cov_stage", "cov_nu4_filter"]
+        src = (parent / "cov_stage.cu").read_text()
+        variants["parent_stage_full"] = (src, parent)
+        variants["parent_filter"] = (
+            (parent / "cov_nu4_filter.cu").read_text(), parent)
+        # The ablations apply to an earlier B1 of the tile-per-block design.
+        ablations = [m for m in ("staging", "staging+metric")
+                     if _RHS_CALL.search(src)]
+        for mode in ablations:
+            variants[f"parent_stage_{mode}"] = (ablated_stage(src, mode),
+                                                parent)
+        for other, csrc in others.items():
+            for kind, fname in (("stage", "cov_stage.cu"),
+                                ("filter", "cov_nu4_filter.cu")):
+                variants[f"{other}_{kind}"] = ((csrc / fname).read_text(),
+                                               csrc)
+    if "b12" in parts:
+        ours.append("cov_step_mega")
+        variants["parent_mega"] = ((parent / "cov_step_mega.cu").read_text(),
+                                   parent)
+        for name, text in mega_variants(
+                (_build.CSRC_DIR / "cov_step_mega.cu").read_text()).items():
+            variants[name] = (text, _build.CSRC_DIR)
+        extra = sorted(mega_dir.glob("*.cu")) if mega_dir else []
+        for cu in extra:
+            variants[f"mega_{cu.stem}"] = (cu.read_text(), _build.CSRC_DIR)
+    if "b4" in parts:
+        ours += ["cov_rhs", "cov_rhs_interior", "cov_rhs_local"]
+        for name in ("cov_rhs", "cov_rhs_interior", "cov_rhs_local"):
+            variants[f"parent_{name[4:]}"] = (
+                (parent / f"{name}.cu").read_text(), parent)
+    if "b11b7a" in parts:
+        ours += ["swe_stage_inkernel", "cov_stage_nu4", "swe_rhs",
+                 "swe_stage"]
+        for name in ("swe_stage_inkernel", "cov_stage_nu4", "swe_rhs",
+                     "swe_stage"):
+            variants[f"parent_{name}"] = ((parent / f"{name}.cu").read_text(),
+                                          parent)
+        for name, text in redesign_levers().items():
+            variants[name] = (text, _build.CSRC_DIR)
+        for kind, d in var_dirs.items():
+            for cu in sorted(d.glob("*.cu")):
+                variants[f"{kind}_{cu.stem}"] = (cu.read_text(),
+                                                 _build.CSRC_DIR)
+
+    def build_variant(item):
+        name, (text, include) = item
+        cu = probe / f"{name}.cu"
+        cu.write_text(text)
+        lib = probe / f"lib{name}.so"
+        return name, lib, nvcc_build(cu, lib, include)
+
+    from concurrent.futures import ThreadPoolExecutor
     libs, logs = {}, {}
-    for name in ("cov_stage", "cov_nu4_filter"):
-        b = _build.build(name)
-        libs[name], logs[name] = b.path, b.log or "(reused)"
-    src = (parent / "cov_stage.cu").read_text()
-    variants = {"parent_stage_full": src,
-                "parent_filter": (parent / "cov_nu4_filter.cu").read_text()}
-    # The ablations apply to an earlier B1 of the tile-per-block design.
-    ablations = [m for m in ("staging", "staging+metric")
-                 if _RHS_CALL.search(src)]
-    for mode in ablations:
-        variants[f"parent_stage_{mode}"] = ablated_stage(src, mode)
-    includes = {name: parent for name in variants}
-    for other, csrc in others.items():
-        for kind, fname in (("stage", "cov_stage.cu"),
-                            ("filter", "cov_nu4_filter.cu")):
-            variants[f"{other}_{kind}"] = (csrc / fname).read_text()
-            includes[f"{other}_{kind}"] = csrc
-    for name, text in variants.items():
-        cu = probe / f"{name}.cu"
-        cu.parent.mkdir(parents=True, exist_ok=True)
-        cu.write_text(text)
-        libs[name] = probe / f"lib{name}.so"
-        logs[name] = nvcc_build(cu, libs[name], includes[name])
-    # B12 and B4: this tree's, the earlier tree's, B12's variants; the
-    # earlier B5 and B6 for their SASS.
-    for name in ("cov_step_mega", "cov_rhs", "cov_rhs_interior",
-                 "cov_rhs_local"):
-        b = _build.build(name)
-        libs[name], logs[name] = b.path, b.log or "(reused)"
-    more = {"parent_mega": (parent / "cov_step_mega.cu").read_text(),
-            "parent_rhs": (parent / "cov_rhs.cu").read_text(),
-            "parent_rhs_interior": (parent / "cov_rhs_interior.cu").read_text(),
-            "parent_rhs_local": (parent / "cov_rhs_local.cu").read_text()}
-    more_inc = {name: parent for name in more}
-    for name, text in mega_variants(
-            (_build.CSRC_DIR / "cov_step_mega.cu").read_text()).items():
-        more[name], more_inc[name] = text, _build.CSRC_DIR
-    extra = sorted(mega_dir.glob("*.cu")) if mega_dir else []
-    for cu in extra:
-        more[f"mega_{cu.stem}"] = cu.read_text()
-        more_inc[f"mega_{cu.stem}"] = _build.CSRC_DIR
-    for name, text in more.items():
-        cu = probe / f"{name}.cu"
-        cu.write_text(text)
-        libs[name] = probe / f"lib{name}.so"
-        logs[name] = nvcc_build(cu, libs[name], more_inc[name])
+    with ThreadPoolExecutor(max(1, len(ours) + len(variants))) as pool:
+        for b in pool.map(_build.build, ours):
+            libs[b.name], logs[b.name] = b.path, b.log or "(reused)"
+        for name, lib, log in pool.map(build_variant, variants.items()):
+            libs[name], logs[name] = lib, log
     sass = {}
     for name, lib in libs.items():
         sass[name] = sass_counts(lib)
@@ -463,90 +704,107 @@ def main() -> int:
               flush=True)
         print(f"  SASS instructions: {sass[name]}", flush=True)
 
-    # ---- operands at C{n} -----------------------------------------------
-    grid = build_grid(n, halo=2, radius=EARTH_RADIUS, dtype=torch.float32)
-    h, v, b = williamson_tc5(grid, EARTH_GRAVITY, EARTH_OMEGA)
-    model = CovariantShallowWater(grid, gravity=EARTH_GRAVITY,
-                                  omega=EARTH_OMEGA, b_ext=b)
-    step = model.make_fused_step(75.0)
-    y, _ = integrate(step, model.compact_state(model.initial_state(h, v)),
-                     0.0, 20, 75.0)
-    gsn, gwe = step.route(y["strips_sn"], y["strips_we"])
-    st1, st2, st3 = step.stages
-    stage_args = {"stage 1": (st1, (y["h"], y["u"], gsn, gwe, b)),
-                  "stage 2": (st2, (y["h"], y["u"], y["h"], y["u"], gsn, gwe,
-                                    b)),
-                  "stage 3 y0=-2yc": (st3, (-2.0 * y["h"], -2.0 * y["u"],
-                                            y["h"], y["u"], gsn, gwe, b))}
-    gmodel = CovariantShallowWater(grid, gravity=EARTH_GRAVITY,
-                                   omega=EARTH_OMEGA, nu4=1.0e14)
-    gstep = gmodel.make_fused_step(60.0)
-    gy = gstep(gmodel.compact_state(gmodel.initial_state(
-        *galewsky(grid, EARTH_GRAVITY, EARTH_OMEGA))), 0.0)
-    fargs = (gy["h"], gy["u"]) + gstep.route(gy["strips_sn"],
-                                             gy["strips_we"])
-    filt = gstep.filter
-    probe_filt = swe_cov.make_cov_nu4_filter(grid, 1.0e21, filt.dt_eff)
+    checks, times = {}, {}
+    summary = {}
+    if parts & {"b1b2", "b12", "b4"}:
+        # ---- operands at C{n} -------------------------------------------
+        grid = build_grid(n, halo=2, radius=EARTH_RADIUS, dtype=torch.float32)
+        h, v, b = williamson_tc5(grid, EARTH_GRAVITY, EARTH_OMEGA)
+        model = CovariantShallowWater(grid, gravity=EARTH_GRAVITY,
+                                      omega=EARTH_OMEGA, b_ext=b)
+        step = model.make_fused_step(75.0)
+        y, _ = integrate(step, model.compact_state(model.initial_state(h, v)),
+                         0.0, 20, 75.0)
+    if "b1b2" in parts:
+        gsn, gwe = step.route(y["strips_sn"], y["strips_we"])
+        st1, st2, st3 = step.stages
+        stage_args = {"stage 1": (st1, (y["h"], y["u"], gsn, gwe, b)),
+                      "stage 2": (st2, (y["h"], y["u"], y["h"], y["u"], gsn,
+                                        gwe, b)),
+                      "stage 3 y0=-2yc": (st3, (-2.0 * y["h"], -2.0 * y["u"],
+                                                y["h"], y["u"], gsn, gwe,
+                                                b))}
+        gmodel = CovariantShallowWater(grid, gravity=EARTH_GRAVITY,
+                                       omega=EARTH_OMEGA, nu4=1.0e14)
+        gstep = gmodel.make_fused_step(60.0)
+        gy = gstep(gmodel.compact_state(gmodel.initial_state(
+            *galewsky(grid, EARTH_GRAVITY, EARTH_OMEGA))), 0.0)
+        fargs = (gy["h"], gy["u"]) + gstep.route(gy["strips_sn"],
+                                                 gy["strips_we"])
+        filt = gstep.filter
+        probe_filt = swe_cov.make_cov_nu4_filter(grid, 1.0e21, filt.dt_eff)
 
-    stage_types = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * 8 + [ctypes.c_void_p])
-    filter_types = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
-                    + [ctypes.c_float] * 4 + [ctypes.c_void_p])
-    stage_keys = (["cov_stage", "parent_stage_full"]
-                  + [f"parent_stage_{m}" for m in ablations]
-                  + [f"{o}_stage" for o in others])
-    filter_keys = ["cov_nu4_filter", "parent_filter"] + [
-        f"{o}_filter" for o in others]
-    stage_fns = {k: entry(libs[k], "cov_stage_compact_f32", stage_types)
-                 for k in stage_keys}
-    filter_fns = {k: entry(libs[k], "cov_nu4_filter_f32", filter_types)
-                  for k in filter_keys}
+        stage_types = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
+                       + [ctypes.c_float] * 8 + [ctypes.c_void_p])
+        filter_types = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
+                        + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+        stage_keys = (["cov_stage", "parent_stage_full"]
+                      + [f"parent_stage_{m}" for m in ablations]
+                      + [f"{o}_stage" for o in others])
+        filter_keys = ["cov_nu4_filter", "parent_filter"] + [
+            f"{o}_filter" for o in others]
+        stage_fns = {k: entry(libs[k], "cov_stage_compact_f32", stage_types)
+                     for k in stage_keys}
+        filter_fns = {k: entry(libs[k], "cov_nu4_filter_f32", filter_types)
+                      for k in filter_keys}
 
-    def use_stage(key):
-        return lambda: setattr(swe_cov, "_kernel", lambda: stage_fns[key])
+        def use_stage(key):
+            return lambda: setattr(swe_cov, "_kernel", lambda: stage_fns[key])
 
-    def use_filter(key):
-        return lambda: setattr(swe_cov, "_filter_kernel",
-                               lambda: filter_fns[key])
+        def use_filter(key):
+            return lambda: setattr(swe_cov, "_filter_kernel",
+                                   lambda: filter_fns[key])
 
-    # ---- bitwise against the plain versions -----------------------------
-    checks = {}
-    for key in ["cov_stage", "parent_stage_full"] + [f"{o}_stage"
-                                                      for o in others]:
-        use_stage(key)()
-        for label, (st, a) in stage_args.items():
-            checks[f"{key} {label}"] = bitwise(st, st.reference, a)
-    for key in ["cov_nu4_filter", "parent_filter"] + [f"{o}_filter"
-                                                       for o in others]:
-        use_filter(key)()
-        for label, f in (("filter", filt), ("probe", probe_filt)):
-            checks[f"{key} {label}"] = bitwise(f, f.reference, fargs)
-    print(f"bitwise vs plain at C{n}: {checks}", flush=True)
+        # ---- bitwise against the plain versions -------------------------
+        for key in ["cov_stage", "parent_stage_full"] + [f"{o}_stage"
+                                                          for o in others]:
+            use_stage(key)()
+            for label, (st, a) in stage_args.items():
+                checks[f"{key} {label}"] = bitwise(st, st.reference, a)
+        for key in ["cov_nu4_filter", "parent_filter"] + [f"{o}_filter"
+                                                           for o in others]:
+            use_filter(key)()
+            for label, f in (("filter", filt), ("probe", probe_filt)):
+                checks[f"{key} {label}"] = bitwise(f, f.reference, fargs)
+        print(f"bitwise vs plain at C{n}: {checks}", flush=True)
 
-    # ---- device time per launch, in turns -------------------------------
-    times = {}
-    for label in ("stage 1", "stage 2"):
-        st, a = stage_args[label]
-        forms = {"parent": use_stage("parent_stage_full")}
-        forms.update({m: use_stage(f"parent_stage_{m}") for m in ablations})
-        forms.update({o: use_stage(f"{o}_stage") for o in others})
-        forms["new"] = use_stage("cov_stage")
-        times[f"B1 {label}"] = in_turns(forms, st, a)
-    forms = {"parent": use_filter("parent_filter")}
-    forms.update({o: use_filter(f"{o}_filter") for o in others})
-    forms["new"] = use_filter("cov_nu4_filter")
-    times["B2 filter"] = in_turns(forms, filt, fargs)
-    use_stage("cov_stage")()
-    use_filter("cov_nu4_filter")()
-    mega_checks, mega_times = probe_mega(libs, grid, model, y, b,
-                                         [cu.stem for cu in extra])
-    rhs_checks, rhs_times = probe_rhs(libs, grid, model, y)
-    checks.update(mega_checks)
-    checks.update(rhs_checks)
-    print(f"bitwise vs plain at C{n} (B12, B4): "
-          f"{dict(mega_checks, **rhs_checks)}", flush=True)
-    times.update(mega_times)
-    times.update(rhs_times)
+        # ---- device time per launch, in turns ---------------------------
+        for label in ("stage 1", "stage 2"):
+            st, a = stage_args[label]
+            forms = {"parent": use_stage("parent_stage_full")}
+            forms.update({m: use_stage(f"parent_stage_{m}")
+                          for m in ablations})
+            forms.update({o: use_stage(f"{o}_stage") for o in others})
+            forms["new"] = use_stage("cov_stage")
+            times[f"B1 {label}"] = in_turns(forms, st, a)
+        forms = {"parent": use_filter("parent_filter")}
+        forms.update({o: use_filter(f"{o}_filter") for o in others})
+        forms["new"] = use_filter("cov_nu4_filter")
+        times["B2 filter"] = in_turns(forms, filt, fargs)
+        use_stage("cov_stage")()
+        use_filter("cov_nu4_filter")()
+    more = {}
+    if "b12" in parts:
+        mega_checks, mega_times = probe_mega(libs, grid, model, y, b,
+                                             [cu.stem for cu in extra])
+        more.update(mega_checks)
+        times.update(mega_times)
+    if "b4" in parts:
+        rhs_checks, rhs_times = probe_rhs(libs, grid, model, y)
+        more.update(rhs_checks)
+        times.update(rhs_times)
+    if "b11b7a" in parts:
+        red_checks, red_times, summary["steps_us"] = probe_redesign(
+            libs, parent, n, card, sass,
+            [cu.stem for cu in sorted(var_dirs["ink"].glob("*.cu"))]
+            if "ink" in var_dirs else [],
+            [cu.stem for cu in sorted(var_dirs["nu4a"].glob("*.cu"))]
+            if "nu4a" in var_dirs else [])
+        more.update(red_checks)
+        times.update(red_times)
+    checks.update(more)
+    print(f"bitwise vs plain at C{n} (B12, B4, B11, B7 A): {more}",
+          flush=True)
     for label, t in times.items():
         print(f"C{n} {label}, device us per launch (CUDA graph of {REPS}, "
               "in turns): " + "; ".join(
@@ -554,15 +812,14 @@ def main() -> int:
                   f"{sum(v) / len(v):.2f})" for k, v in t.items())
               + f"; card {card}", flush=True)
     # The variants may be ablations; this tree's and the earlier full
-    # kernels must be bitwise.
+    # kernels, and the levers, must be bitwise.
     ok = all(v for k, v in checks.items()
              if k.split()[0] in ("cov_stage", "parent_stage_full",
                                  "cov_nu4_filter", "parent_filter",
-                                 "B12", "B4"))
+                                 "B12", "B4", "B11", "B7"))
     print(json.dumps({"ok": ok, "n": n, "card": card, "bitwise": checks,
-                      "times_us": times, "sass": sass}))
+                      "times_us": times, "sass": sass, **summary}))
     return 0 if ok else 1
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -21,6 +21,7 @@ from jaxstream_torch.ops.cuda import swe_rhs as tsr
 from jaxstream_torch.ops.cuda import swe_step as tss
 from jaxstream_torch.physics.initial_conditions import (galewsky,
                                                         williamson_tc5)
+from jaxstream_torch.stepping import integrate
 
 # Budget for f32 op-order roundoff (rsqrtf against torch.rsqrt, per-cell
 # against row-broadcast metrics); the kernel, built with -fmad=false, has
@@ -187,12 +188,30 @@ def test_refused_kernel_matches_plain_c48():
             assert _rel(r, x) <= tol, (name, _rel(r, x))
 
 
+def _tc5_nu4_c48():
+    """The C48 TC5 model (its mountain orography; the Galewsky jet's is
+    zero) at nu4 = 1e14, its in-stage stepper and the carry after one
+    step of it."""
+    g = build_grid(48, halo=2, radius=EARTH_RADIUS, device="cuda")
+    h, v, b = williamson_tc5(g, EARTH_GRAVITY, EARTH_OMEGA)
+    m = CovariantShallowWater(g, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA,
+                              b_ext=b, nu4=1.0e14)
+    step = m.make_fused_step(75.0 * 384 / 48, nu4_mode="stage")
+    return g, m, step, step(m.compact_state(m.initial_state(h, v)), 0.0)
+
+
 @pytest.mark.gpu
 def test_stage_nu4_kernels_match_plain_c48():
+    """Kernels A and B as stages 1 and 2 on the Galewsky jet and on TC5
+    (A bitwise; B with its probe)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the in-stage del^4 kernels have "
                     "no CPU form)")
-    g, m, step, y = _galewsky_c48("stage")
+    for case in (_galewsky_c48("stage"), _tc5_nu4_c48()):
+        _stage_nu4_matches_plain(*case)
+
+
+def _stage_nu4_matches_plain(g, m, step, y):
     route = step.route
     gsn, gwe = route(y["strips_sn"], y["strips_we"])
     for st in step.stages[:2]:
@@ -208,6 +227,7 @@ def test_stage_nu4_kernels_match_plain_c48():
                               out_a, ref_a):
             assert bool(torch.all(torch.isfinite(x))), name
             assert _rel(r, x) <= TOL, (name, _rel(r, x))
+            assert torch.equal(x, r), name
         bargs = tuple(ref_a[:4]) + route(ref_a[4], ref_a[5])
         # B's probe: damp scaled until the output is the filter term.
         exact = st.reference_b(*[t.double() for t in bargs])
@@ -269,12 +289,13 @@ def _tc5_c48():
     return g, m, m.initial_state(h, v)
 
 
-def _check(name, call, ref, args, tol):
+def _check(name, call, ref, args, tol, exact=False):
     out = call(*args)
     torch.cuda.synchronize()
     for k, (x, r) in enumerate(zip(out, ref(*args))):
         assert bool(torch.all(torch.isfinite(x))), (name, k)
         assert _rel(r, x) <= tol, (name, k, _rel(r, x))
+        assert not exact or torch.equal(x, r), (name, k)
 
 
 @pytest.mark.gpu
@@ -562,21 +583,31 @@ def test_swe_rhs_kernel_matches_plain_c48():
 
 @pytest.mark.gpu
 def test_swe_stage_kernels_match_plain_c48():
+    """Both Cartesian stage kernels (the in-kernel one bitwise) in both
+    cores, from the carry after one step and after eleven."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the Cartesian stage kernels have "
                     "no CPU form)")
     g, m, s0, step, y1 = _cart_c48()
     dt = 75.0 * 384 / 48
+    y11, _ = integrate(step, y1, dt, 10, dt)
+    for y in (y1, y11):
+        _swe_stages_match_plain(g, m, s0, step, y, dt)
+
+
+def _swe_stages_match_plain(g, m, s0, step, y1, dt):
     y0 = (m.fill(s0["h"]), m.fill(s0["v"]))
     s1 = m.restrict_state(y1)
     yc = (m.fill(s1["h"]), m.fill(s1["v"]))
     ghosts = step.route(y1["sh_sn"], y1["sh_we"], y1["sv_sn"], y1["sv_we"])
     ink = (y1["h"], y1["v"])
-    # Stages 1-3, the general core in stage 2, and stage 3 with y0 =
-    # -2*yc: the interiors are the scaled tendency g*L alone.
-    for k, (a, b) in enumerate(tss.SSPRK3_COEFFS + (tss.SSPRK3_COEFFS[1],
-                                                    tss.SSPRK3_COEFFS[2])):
-        fast = k != 3
+    # Stages 1-3, the general core in stages 1 and 2, and stage 3 with y0
+    # = -2*yc: the interiors are the scaled tendency g*L alone.
+    coeffs = tss.SSPRK3_COEFFS + (tss.SSPRK3_COEFFS[1],
+                                  tss.SSPRK3_COEFFS[2],
+                                  tss.SSPRK3_COEFFS[0])
+    for k, (a, b) in enumerate(coeffs):
+        fast = k not in (3, 5)
         base = () if a == 0.0 else y0
         if k == 4:
             base = (-2.0 * yc[0], -2.0 * yc[1])
@@ -595,5 +626,5 @@ def test_swe_stage_kernels_match_plain_c48():
                                          b, fast=fast, device=g.device)
         before = tss.SweStageInkernel.launches
         _check(f"in-kernel stage {k}", st, st.reference,
-               base + ink + (ghosts, m.b_ext), tol)
+               base + ink + (ghosts, m.b_ext), tol, exact=True)
         assert tss.SweStageInkernel.launches == before + 1

@@ -707,6 +707,116 @@ def test_swe_stage_inkernel_kernel_source(launch_on_cpu, cart_c40, stage):
     assert tss.SweStageInkernel.launches == before + 1
 
 
+
+# ---- the faces-in-block redesigns of B11 and B7 A on larger grids ---------
+#
+# At C72 a face has 3 x 3 tile positions of 32 x 24 (ragged last columns,
+# a middle tile whose window reads no ghost); at C74 the last row and
+# column of tiles are ragged by 2 and 10 cells.  Edge tiles own B11's ghost
+# ring cells and build B7 A's ghost corners.
+
+def _cart_operands(n):
+    """The C``n`` Cartesian TC5 model (backend 'pallas'), the in-kernel
+    stepper, and the operands of its three stages from the carry after
+    one step (TC5's initial wind has an exactly zero z-component): the
+    stage-1 frames, and stages 2 and 3 on the plain stage 1's output."""
+    g = build_grid(n, halo=2, radius=EARTH_RADIUS, device="cpu")
+    h, v, b = williamson_tc5(g, G, OM)
+    m = ShallowWater(g, gravity=G, omega=OM, b_ext=b, backend="pallas")
+    step = m.make_fused_step(75.0 * 384 / n)
+    y1 = step(m.extend_state(m.initial_state(h, v), with_strips=True), 0.0)
+    st1, st2, st3 = step.stages
+    a1 = (y1["h"], y1["v"], step.route(y1["sh_sn"], y1["sh_we"],
+                                       y1["sv_sn"], y1["sv_we"]), m.b_ext)
+    k1 = st1.reference(*a1)
+    a2 = (y1["h"], y1["v"], k1[0], k1[1], step.route(*k1[2:]), m.b_ext)
+    return g, [(st1, a1), (st2, a2), (st3, a2)]
+
+
+def _tc5_nu4_operands(n):
+    """Kernel A's operands, stages 1 and 2, on the C``n`` TC5 state (its
+    mountain orography) after one in-stage step at nu4 = 1e14."""
+    g = build_grid(n, halo=2, radius=EARTH_RADIUS, device="cpu")
+    h, v, b = williamson_tc5(g, G, OM)
+    m = CovariantShallowWater(g, gravity=G, omega=OM, b_ext=b, nu4=1.0e14)
+    step = m.make_fused_step(75.0 * 384 / n, nu4_mode="stage")
+    y = step(m.compact_state(m.initial_state(h, v)), 0.0)
+    gsn, gwe = step.route(y["strips_sn"], y["strips_we"])
+    st1, st2 = step.stages[:2]
+    a1 = (y["h"], y["u"], gsn, gwe, m.b_ext)
+    return [(st1, a1), (st2, (y["h"], y["u"]) + a1)]
+
+
+@pytest.fixture(scope="module")
+def redesign_cases():
+    """B11's stages at C72 and C74 (and C24, a tile wider than its face:
+    more ghost ring cells than a pass of the block takes), kernel A's on
+    TC5 at C40 and C72."""
+    return {"cart": {n: _cart_operands(n) for n in (24, 72, 74)},
+            "tc5": {n: _tc5_nu4_operands(n) for n in (40, 72)}}
+
+
+@pytest.mark.parametrize("n, fast", [(72, True), (74, True), (72, False),
+                                     (24, True)],
+                         ids=["c72", "c74", "c72-general", "c24"])
+def test_swe_stage_inkernel_larger_grids(launch_on_cpu, redesign_cases, n,
+                                         fast):
+    g, stages = redesign_cases["cart"][n]
+    if not fast:   # the general core (rhs_core), stage 2
+        st, args = stages[1]
+        stages = [(tss.make_swe_stage_inkernel(
+            g.n, g.halo, g.dalpha, g.radius, G, OM, st.dt, st.a, st.b,
+            fast=False, device="cpu"), args)]
+    before = tss.SweStageInkernel.launches
+    for st, args in stages:
+        _equal(st(*args), st.reference(*args))
+    assert tss.SweStageInkernel.launches == before + len(stages)
+
+
+@pytest.mark.parametrize("n", [40, 72], ids=["c40", "c72"])
+def test_stage_nu4_a_kernel_tc5_orography(launch_on_cpu, redesign_cases, n):
+    """Kernel A on TC5 (the mountain's orography; the Galewsky jet's is
+    zero), stages 1 and 2: bitwise."""
+    stages = redesign_cases["tc5"][n]
+    before = tsc.CovStageNu4.launches_a
+    for st, args in stages:
+        _equal(st.call_a(*args), st.reference_a(*args))
+    assert tsc.CovStageNu4.launches_a == before + len(stages)
+
+
+_INK_WINDOW = "const SweWindow& w = sm.w[cur];"
+_INK_PREFETCH = "stage_window(p, sm.w[cur ^ 1], f + 1, j0, i0);"
+_A_CORNERS = "    if (edge) {\n      fill_corners<2>"
+_A_XFACES = "return CellMetric{mt.xa[ly][lx],     mt.xb[ly][lx],"
+
+
+@pytest.mark.parametrize("name, old, new", [
+    ("swe_stage_inkernel", _INK_WINDOW, _INK_WINDOW.replace("cur", "cur ^ 1")),
+    ("swe_stage_inkernel", _INK_PREFETCH, _INK_PREFETCH.replace("f + 1", "f")),
+    ("cov_stage_nu4", _A_CORNERS, _A_CORNERS.replace("edge", "false")),
+    ("cov_stage_nu4", _A_XFACES,
+     "return CellMetric{mt.xa[ly][lx + 1], mt.xb[ly][lx + 1],")],
+    ids=["inkernel-next-window", "inkernel-prefetch-face",
+         "nu4a-no-corners", "nu4a-right-xface"])
+def test_redesign_mutation_is_caught(emulated, launch_on_cpu, monkeypatch,
+                                     redesign_cases, name, old, new):
+    """The mutation checks of B11 and B7 A at C72: a face computed from the
+    other buffer's window, B11 prefetching the current face's window
+    instead of the next one's, A without its ghost-corner average, and A's
+    Laplacian taking the right x-face's metric for the left one's: each
+    must disagree with the plain version."""
+    lib = _mutated_lib(emulated, name, old, new)
+    monkeypatch.setattr(_build, "load", lambda nm: ctypes.CDLL(
+        str(lib if nm == name else emulated[nm])))
+    if name == "swe_stage_inkernel":
+        st, args = redesign_cases["cart"][72][1][1]
+        out, ref = st(*args), st.reference(*args)
+    else:
+        st, args = redesign_cases["tc5"][72][1]
+        out, ref = st.call_a(*args), st.reference_a(*args)
+    assert not all(torch.equal(x, r) for x, r in zip(out, ref))
+
+
 # ---- the sharded tiers' block kernels: B5 and B6 --------------------------
 
 #: The group's coordinate operands of the two block kernels (cov_faces.cuh's
@@ -965,6 +1075,7 @@ def test_whole_face_kernels_pass_rows_as_columns():
             fn = mt.group(1).rstrip("<(")
             calls.setdefault(name, {}).setdefault(fn, []).append(args)
     faces_in_block = {"cov_stage": "p.xc, p.xf, p.xc, p.xf,",
+                      "cov_stage_nu4": "p.xc, p.xf, p.xc, p.xf,",
                       "cov_step_mega": "p.xc, p.xf, p.xc, p.xf,",
                       "cov_rhs": " xr, xfr, yc, yfc,",
                       "cov_faces.cuh": " xr, xfr, yc, yfc,"}
