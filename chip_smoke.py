@@ -131,13 +131,16 @@ Phases, each fatal on failure:
     device time beside its earlier design's (``EARLIER_DEVICE_US``) and
     the step's device time as a CUDA graph;
 17. the extended stage kernel against its plain version on whole blocks
-    and strips, as stage 1 and stage 2 (<= 1e-5) and as stage 3 with
-    y0 = -2 yc (<= 1e-4); then three extended steps against three compact
+    and strips, as stages 1, 2 and 3 (<= 1e-5) and as stage 3 with y0 =
+    -2 yc (<= 1e-4), on the carry after one step and after 300 steps,
+    bitwise required; then three extended steps against three compact
     steps (interiors and strips, <= 1e-6; bitwise predicted);
 18. a timed window of 1 000 extended steps with the launches checked
     (3 x steps), the TC5 gate, its breakdown (3 routes, 3 stage launches,
-    the rest), a traced window, and 300-step windows of the compact and
-    extended steppers in turns (compact, extended, extended, compact);
+    the rest), the kernel's device time beside its earlier design's
+    (``EARLIER_DEVICE_US``) and the step's device time as a CUDA graph, a
+    traced window, and 300-step windows of the compact and extended
+    steppers in turns (compact, extended, extended, compact);
 19. the Cartesian RHS kernel against its plain version on the TC5 state
     and on the state after the classic window (<= 1e-5 of each output's
     max), the kernel-backed classic ``rhs`` and the torch one against a
@@ -166,13 +169,16 @@ Phases, each fatal on failure:
     Cartesian);
 23. the neighbour-read stage kernel against its plain version as stages
     1, 2 and 3 on the TC5 state and on the state after 300 steps (whole
-    blocks, <= 1e-5) and as stage 3 with y0 = -2 yc (<= 1e-4); then three
+    blocks, <= 1e-5) and as stage 3 with y0 = -2 yc (<= 1e-4), bitwise
+    required; then three
     neighbour-read steps against three classic steps and three compact
     steps (<= 2e-4: its edge normals take the closed-form metric, not
     the routers' stored one);
 24. 20 + 1 000 neighbour-read steps of TC5 gated, the launches checked
     against 3 x steps, the breakdown (3 stage launches, the rest), the
-    kernel's times against its bounds and a traced window;
+    kernel's times against its bounds, its device time beside its earlier
+    design's (``EARLIER_DEVICE_US``) and the step's device time as a CUDA
+    graph, and a traced window;
 25. the whole-step kernel against its plain version, one step from the
     TC5 state and one from the state after 300 steps (all four carry
     fields, bitwise required), and on 132 blocks (fewer than its 384 work
@@ -287,13 +293,16 @@ KERNEL_TOL = 1e-5
 # one-face launch (the same card; B4's one-face form in a later run).  The
 # Cartesian in-kernel stage (B11) and the in-stage del^4 kernel A (B7 A) in
 # their tile-per-block design, per launch (the same card and run as B1's).
+# The extended-carry stage (B8) and the neighbour-read stage (B13) in
+# their tile-per-block design, per launch (the same card and run as B1's).
 EARLIER_DEVICE_US = {"cov_stage_compact": 60.06, "cov_nu4_filter": 62.94,
                      "cov_rhs_interior face rank": 12.43,
                      "cov_rhs_interior block rank": 9.94,
                      "cov_rhs_local block rank": 9.60,
                      "cov_step_mega": 260.62, "cov_rhs": 49.34,
                      "cov_rhs face rank": 12.95,
-                     "swe_stage_inkernel": 70.96, "cov_stage_nu4_a": 70.58}
+                     "swe_stage_inkernel": 70.96, "cov_stage_nu4_a": 70.58,
+                     "cov_stage_inkernel": 62.82, "cov_stage_nbr": 65.76}
 # Steps captured in one CUDA graph for a step's device time.
 GRAPH_STEPS = 20
 # ptxas's (registers, shared bytes) per kernel function of the other
@@ -303,7 +312,9 @@ GRAPH_STEPS = 20
 # the log says whether each still builds to the same.  A library's entry
 # names the kernel functions it covers (a substring of their names; None
 # for all): cov_stage_nu4's kernel B (and B14, its modes) keeps its
-# tile-per-block design beside the redesigned kernel A.
+# tile-per-block design beside the redesigned kernel A.  B8 and B13 as
+# their faces-in-block redesigns were first built (80 registers, no
+# spill).
 EARLIER_PTXAS = {
     "cov_stage": (None, [(80, 0)]),
     "cov_nu4_filter": (None, [(80, 0)]),
@@ -312,8 +323,8 @@ EARLIER_PTXAS = {
     "cov_stage_refused_nu4": (None, [(62, 47392)]),
     "cov_stage_nu4": ("cov_stage_nu4_b_kernel",
                       [(64, 7344), (62, 7344), (62, 7344)]),
-    "cov_stage_inkernel": (None, [(48, 18608)]),
-    "cov_stage_nbr": (None, [(64, 19120)]),
+    "cov_stage_inkernel": (None, [(80, 0)]),
+    "cov_stage_nbr": (None, [(80, 0)]),
     "swe_rhs": (None, [(56, 21892)]),
     "swe_stage": (None, [(56, 21892), (48, 21892)]),
 }
@@ -1347,25 +1358,31 @@ def extended_path(card: str, grid, model, step_c, s0) -> dict:
     names = ("h", "u", "strips")
     count = lambda: Stage.launches
 
-    # ---- 17. kernel vs plain on whole blocks; extended vs compact --------
+    # ---- 17. kernel vs plain on whole blocks, two carries; extended vs
+    # compact.  The carries after one step (its ghost ring filled) and
+    # after ROUTER_FREE_CHECK_STEPS steps; stages 1-3 and stage 3 with y0 =
+    # -2*yc (the interiors g*L(yc) alone), each bitwise.
     ye = model.extend_state(s0, with_strips=True)
-    y1 = step(ye, 0.0)             # a carry whose ghost ring is filled
-    args1 = (y1["h"], y1["u"], route(y1["strips"]), model.b_ext)
-    max_abs = check_kernel(f"extended stage kernel vs plain C{N} stage 1",
-                           st1, st1.reference, args1, names, KERNEL_TOL,
-                           count)
-    k1 = st1.reference(*args1)
-    gi2 = route(k1[2])
-    args2 = (y1["h"], y1["u"], k1[0], k1[1], gi2, model.b_ext)
-    # Stage 3 with y0 = -2*yc: the interiors are g*L(yc) alone.
-    args3 = (-2.0 * k1[0], -2.0 * k1[1], k1[0], k1[1], gi2, model.b_ext)
-    max_abs = max(
-        max_abs,
-        check_kernel(f"extended stage kernel vs plain C{N} stage 2", st2,
-                     st2.reference, args2, names, KERNEL_TOL, count),
-        check_kernel(f"extended stage kernel vs plain C{N} stage 3, "
-                     "y0=-2yc (interior g*L alone)", st3, st3.reference,
-                     args3, names, TENDENCY_TOL, count))
+    y1 = step(ye, 0.0)
+    y300, _ = integrate(step, ye, 0.0, ROUTER_FREE_CHECK_STEPS, STEP_DT)
+    max_abs = 0.0
+    for label, yk in (("after 1 step", y1),
+                      (f"after {ROUTER_FREE_CHECK_STEPS} steps", y300)):
+        args1 = (yk["h"], yk["u"], route(yk["strips"]), model.b_ext)
+        k1 = st1.reference(*args1)
+        gi2 = route(k1[2])
+        args2 = (yk["h"], yk["u"], k1[0], k1[1], gi2, model.b_ext)
+        args3 = (-2.0 * k1[0], -2.0 * k1[1], k1[0], k1[1], gi2, model.b_ext)
+        for what, st, a, tol in (
+                ("stage 1", st1, args1, KERNEL_TOL),
+                ("stage 2", st2, args2, KERNEL_TOL),
+                ("stage 3", st3, args2, KERNEL_TOL),
+                ("stage 3, y0=-2yc (interior g*L alone)", st3, args3,
+                 TENDENCY_TOL)):
+            max_abs = max(max_abs, check_kernel(
+                f"extended stage kernel vs plain C{N} {what}, {label}", st,
+                st.reference, a, names, tol, count, exact=True))
+    del y300, k1, gi2
     yc, _ = integrate(step_c, model.compact_state(s0), 0.0, 3, STEP_DT)
     yx, _ = integrate(step, ye, 0.0, 3, STEP_DT)
     out_x = model.restrict_state(yx)
@@ -1405,24 +1422,26 @@ def extended_path(card: str, grid, model, step_c, s0) -> dict:
     gi = route(y["strips"])
     a1 = (y["h"], y["u"], gi, model.b_ext)
     a2 = (y["h"], y["u"]) + a1
-    record = kernel_record(
+    timed = [time_form(label, st, st.reference, a, FLOPS_PER_CELL, card)
+             for label, st, a in (("extended stage 1", st1, a1),
+                                  ("extended stage 2", st2, a2),
+                                  ("extended stage 3", st3, a2))]
+    rec = record(
         "cov_stage_inkernel", "jaxstream_torch/csrc/cov_stage_inkernel.cu",
-        "jaxstream/ops/pallas/swe_cov.py:1243", launches, max_abs,
-        [("extended stage 1", st1, st1.reference, a1),
-         ("extended stage 2", st2, st2.reference, a2),
-         ("extended stage 3", st3, st3.reference, a2)], FLOPS_PER_CELL,
-        card)
+        "jaxstream/ops/pallas/swe_cov.py:1243", launches, max_abs, timed)
     r_ms = event_ms(lambda: route(y["strips"]), 200)
-    stages_us = 3e3 * record["ms"]
+    stages_us = 3e3 * rec["ms"]
     log(f"extended step {step_us:.1f} us = routers 3 x {r_ms * 1e3:.2f} us "
         f"+ stage kernels {stages_us:.1f} us + "
         f"{step_us - stages_us - 3e3 * r_ms:.1f} us other; card {card}")
+    redesign_line("cov_stage_inkernel", timed, 3, "extended TC5",
+                  step_device_us(step, y, t, STEP_DT), card)
     device_busy(lambda: integrate(step, y, t, PROFILED_STEPS, STEP_DT),
                 PROFILED_STEPS, step_us, card, ("cov_stage_inkernel_kernel",))
     paired_rates({"compact": (step_c, model.compact_state(
         model.restrict_state(y))), "extended": (step, y)}, t, PAIRED_STEPS,
         card)
-    return record
+    return rec
 
 
 def cartesian_rhs_path(card: str, grid, b_ext, s0, ref) -> dict:
@@ -1715,12 +1734,14 @@ def nbr_path(card: str, grid, model, step_c, s0, ref_step) -> tuple:
         for k, (st, a) in enumerate(((st1, a1), (st2, a2), (st3, a3))):
             max_abs = max(max_abs, check_kernel(
                 f"nbr stage kernel vs plain C{N} stage {k + 1}, {label}",
-                st, st.reference, a, ("h", "u"), KERNEL_TOL, count))
+                st, st.reference, a, ("h", "u"), KERNEL_TOL, count,
+                exact=True))
     # Stage 3 with y0 = -2*yc: the interiors are g*L(yc) alone.
     a3p = (-2.0 * k2[0], -2.0 * k2[1]) + tuple(k2) + (b,)
     max_abs = max(max_abs, check_kernel(
         f"nbr stage kernel vs plain C{N} stage 3, y0=-2yc (interior g*L "
-        "alone)", st3, st3.reference, a3p, ("h", "u"), TENDENCY_TOL, count))
+        "alone)", st3, st3.reference, a3p, ("h", "u"), TENDENCY_TOL, count,
+        exact=True))
     del y300, k1, k2
     yn, _ = integrate(step, ye, 0.0, 3, STEP_DT)
     out = model.restrict_state(yn)
@@ -1756,19 +1777,22 @@ def nbr_path(card: str, grid, model, step_c, s0, ref_step) -> tuple:
         f"{WARM_STEPS + TIMED_STEPS}; card {card}")
     a1 = (y["h"], y["u"], b)
     a2 = (y["h"], y["u"]) + a1
-    record = kernel_record(
+    timed = [time_form(label, st, st.reference, a, FLOPS_PER_CELL, card)
+             for label, st, a in (("nbr stage 1", st1, a1),
+                                  ("nbr stage 2", st2, a2),
+                                  ("nbr stage 3", st3, a2))]
+    rec = record(
         "cov_stage_nbr", "jaxstream_torch/csrc/cov_stage_nbr.cu",
-        "jaxstream/experiments/swe_cov_nbr.py:404", launches, max_abs,
-        [("nbr stage 1", st1, st1.reference, a1),
-         ("nbr stage 2", st2, st2.reference, a2),
-         ("nbr stage 3", st3, st3.reference, a2)], FLOPS_PER_CELL, card)
-    stages_us = 3e3 * record["ms"]
+        "jaxstream/experiments/swe_cov_nbr.py:404", launches, max_abs, timed)
+    stages_us = 3e3 * rec["ms"]
     log(f"nbr step {step_us:.1f} us = stage kernels 3 x "
-        f"{record['ms'] * 1e3:.2f} us + {step_us - stages_us:.1f} us other "
+        f"{rec['ms'] * 1e3:.2f} us + {step_us - stages_us:.1f} us other "
         f"(no router); card {card}")
+    redesign_line("cov_stage_nbr", timed, 3, "nbr TC5",
+                  step_device_us(step, y, t, STEP_DT), card)
     device_busy(lambda: integrate(step, y, t, PROFILED_STEPS, STEP_DT),
                 PROFILED_STEPS, step_us, card, ("cov_stage_nbr_kernel",))
-    return record, step, y
+    return rec, step, y
 
 
 def mega_path(card: str, grid, model, step_c, s0) -> tuple:

@@ -2,8 +2,9 @@
 // block: the compact stage (cov_stage.cu), the split del^4 filter
 // (cov_nu4_filter.cu), the whole-step kernel's face phases
 // (cov_step_mega.cu), the right-hand side of ghost-filled faces
-// (cov_rhs.cu), and the sharded tiers' right-hand sides over a stack of
-// ranks (cov_rhs_interior.cu, cov_rhs_local.cu).  On the
+// (cov_rhs.cu), the sharded tiers' right-hand sides over a stack of
+// ranks (cov_rhs_interior.cu, cov_rhs_local.cu), and the stages over
+// whole extended blocks (cov_stage_inkernel.cu, cov_stage_nbr.cu).  On the
 // equiangular cube every face has the same metric (it depends on the
 // coordinate rows xc, xf alone), and so do the ranks that hold the same
 // block position of different faces, so such a block computes the metric
@@ -454,6 +455,53 @@ __device__ __forceinline__ void stage_face_tile(
     epi(r, j, i, dh, dua, dub, H(ly, lx), va, vb);
   }
 }
+
+// ---- the ghost ring of whole extended blocks -------------------------------
+
+// The ghost ring cells of a group's faces that the tile at (j0, i0) owns,
+// for the stages that write whole (n + 2 hh)^2 blocks (B8, B13): those
+// whose nearest interior cell the tile holds (interior tiles own none),
+// the ghost corners with the S and N rows.  The cells (at most 116 per
+// face for a corner tile at halo 2) are listed flat over the FPB faces,
+// S and N rows first, then W and E columns, so that a block writes them
+// in one pass, a thread taking up to two (swe_stage_inkernel.cu's Ring,
+// which that kernel keeps for itself).
+struct FrameRing {
+  int ilo, cols;          // the S/N rows' first column and width
+  int ns, nn, nw;         // S, N, W cells per face
+  int per_face, count;    // cells per face; all cells of the group
+
+  __device__ __forceinline__ FrameRing(int n, int hh, int j0, int i0) {
+    const bool s_edge = j0 == 0, n_edge = j0 + FTY >= n;
+    const bool w_edge = i0 == 0, e_edge = i0 + FTX >= n;
+    const int rows = (n_edge ? n : j0 + FTY) - j0;   // W/E column height
+    ilo = w_edge ? -hh : i0;
+    cols = (e_edge ? n + hh : i0 + FTX) - ilo;
+    ns = s_edge ? hh * cols : 0;
+    nn = n_edge ? hh * cols : 0;
+    nw = w_edge ? hh * rows : 0;
+    per_face = ns + nn + nw + (e_edge ? hh * rows : 0);
+    count = FPB * per_face;
+  }
+
+  // Cell kf (< count): its face's place q in the group and its
+  // face-local (j, i).
+  __device__ __forceinline__ void at(int kf, int n, int hh, int j0, int& q,
+                                     int& j, int& i) const {
+    q = kf / per_face;
+    const int k = kf - q * per_face;
+    if (k < ns + nn) {                  // S or N rows
+      const int r = k < ns ? k : k - ns, row = r / cols;
+      j = k < ns ? -hh + row : n + row;
+      i = ilo + r - row * cols;
+    } else {                            // W or E columns
+      const int r = k - ns - nn;
+      const int rr = r < nw ? r : r - nw, row = rr / hh;
+      j = j0 + row;
+      i = r < nw ? -hh + rr - row * hh : n + rr - row * hh;
+    }
+  }
+};
 
 // ---- the split del^4 filter: metric terms ----------------------------------
 

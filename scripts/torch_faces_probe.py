@@ -1,18 +1,22 @@
 """Probe the faces-in-block kernels on one GPU: the compact stage (B1), the
 split del^4 filter (B2), the whole-step kernel (B12), the RHS of
-ghost-filled faces (B4), the Cartesian in-kernel stage (B11) and the
-in-stage del^4 kernel A (B7 A), an earlier tree's against this tree's, in
-turns, with ablations of the earlier B1 and levers of B12, B11 and B7 A.
+ghost-filled faces (B4), the Cartesian in-kernel stage (B11), the
+in-stage del^4 kernel A (B7 A), the neighbour-read stage (B13) and the
+extended-carry stage (B8), an earlier tree's against this tree's, in
+turns, with ablations of the earlier B1 and levers of B12, B11, B7 A, B13
+and B8.
 
     git archive <commit> jaxstream_torch/csrc | tar -x -C build/jaxstream_torch/parent
     python3 scripts/torch_faces_probe.py [--n N] [--mega DIR] [--parts P,...] build/jaxstream_torch/parent [OTHER ...]
 
 ``--parts`` picks what runs (default all): ``b1b2`` (B1, B2 and the
-OTHER variants), ``b12``, ``b4``, ``b11b7a``.  ``--ink DIR`` and ``--nu4a
-DIR`` add variant .cu files of this tree's ``swe_stage_inkernel.cu`` and
-``cov_stage_nu4.cu`` (built against this tree's headers) to B11's and
-B7 A's turns under their file names; they may be ablations, so their
-bitwise checks do not decide the exit code.
+OTHER variants), ``b12``, ``b4``, ``b11b7a``, ``b13b8``.  ``--ink DIR``,
+``--nu4a DIR``, ``--nbr DIR`` and ``--ext DIR`` add variant .cu files of
+this tree's ``swe_stage_inkernel.cu``, ``cov_stage_nu4.cu``,
+``cov_stage_nbr.cu`` and ``cov_stage_inkernel.cu`` (built against this
+tree's headers) to B11's, B7 A's, B13's and B8's turns under their file
+names; they may be ablations, so their bitwise checks do not decide the
+exit code.
 
 Each OTHER is a further directory holding a ``jaxstream_torch/csrc`` (a
 variant of this tree's two kernels), timed in the same turns under its
@@ -72,6 +76,35 @@ around 20 steps enqueued, before the synchronise), and wall steps/s over
 200 steps.  The SASS counts
 of B7 B (and its B14 modes), B9 (``swe_rhs.cu``) and B10
 (``swe_stage.cu``) are printed beside the earlier tree's.
+
+B13's and B8's forms (``b13b8``; the levers are this tree's sources
+rewritten, ``b13b8_levers``):
+
+* ``parent``: the earlier tree's kernel;
+* ``ring after window`` (both): the ring's loads issued after the first
+  window's copies instead of ahead of them;
+* ``sym after window`` (B13): the sym rows' loads issued after the first
+  window's copies;
+* ``ghosts unstaged`` (B13): each face's u ghosts loaded and stored into
+  the window at once, before the face's arithmetic, instead of held in
+  registers over it;
+* ``no ring`` (both; an ablation, timing only): the ghost ring not
+  written;
+* ``W/E strips staged`` (B8; halo <= 4): the W/E strip values put into
+  shared memory and stored as coalesced strip rows after each face's
+  closing barrier, instead of at once from the epilogue, strided;
+* ``no W/E strips`` (B8; an ablation, timing only): the W/E strip stores
+  left out;
+* ``new``: this tree's.
+
+B13 on the nbr TC5 carry after 20 steps, B8 on the extended carry after
+20 steps, stages 1-3.  The nbr and extended steps are also timed with the
+parent's and this tree's kernel in turns: device µs per step as a CUDA
+graph of 20 steps, and for nbr the host's issue time per step and wall
+steps/s over 200 steps.  The SASS counts of B3
+(``cov_stage_refused_nu4.cu``), B7 B / B14, B9, B10 and of every
+faces-in-block kernel that shares ``cov_faces.cuh`` are printed beside
+the earlier tree's.
 
 Every figure is device time per launch of 20 launches captured as a
 CUDA graph and replayed (``profiling.device_seconds``) at C``N`` (default
@@ -589,14 +622,236 @@ def probe_redesign(libs, parent, n, card, sass, ink_vars=(), a_vars=()):
     return checks, times, steps
 
 
+def b13b8_levers() -> dict:
+    """This tree's B13 and B8 rewritten: the ring's (and B13's sym rows')
+    loads after the first window's copies; B13's u ghosts loaded and
+    stored at once; B8's W/E strip values staged; the ablations
+    without the ring and (B8) without the W/E strip stores."""
+    from jaxstream_torch import _build
+
+    csrc = _build.CSRC_DIR
+    nbr = (csrc / "cov_stage_nbr.cu").read_text()
+    ext = (csrc / "cov_stage_inkernel.cu").read_text()
+    window = ("  stage_window(p, sm.w[0], f0, j0, i0);\n"
+              "  async_commit();\n")
+    ring = "  ring_load(p, ring, f0, j0, 0, rp);\n"
+    sym = "  sym_load(p, span, f0, j0, i0, 0, sp);\n"
+    out = {}
+    for tag, src in (("nbr", nbr), ("ext", ext)):
+        late = _sub(src, ring, "")
+        out[f"{tag}_ring_after_window"] = _sub(late, window, window + ring)
+        out[f"{tag}_no_ring"] = src.replace("    ring_store(p, rp);\n", "") \
+            .replace("  ring_store(p, rp);\n", "")
+    late = _sub(nbr, sym, "")
+    out["nbr_sym_after_window"] = _sub(late, window, window + sym)
+    load = "      ghost_load(p, gu, f + 1, j0, i0, gq);\n"
+    store = "    if (q + 1 < FPB) ghost_store(sm.w[cur ^ 1], gq);\n"
+    out["nbr_ghosts_unstaged"] = _sub(
+        _sub(nbr, store, ""), load,
+        load + "      ghost_store(sm.w[cur ^ 1], gq);\n")
+    we = ("  if (i < hh) so[(base + 2 * hh + i) * n + j] = v;\n"
+          "  if (i >= n - hh) so[(base + 3 * hh + i - (n - hh)) * n + j] "
+          "= v;\n")
+    out["ext_no_we_strips"] = _sub(ext, we, "")
+    smem = "  StageScratch s;\n};\n"
+    staged = _sub(ext, smem, smem.replace("};", _WE_STAGED))
+    staged = _sub(staged, "put_packed(so, fi, n, hh, j, i, vals[fi]);",
+                  "put_packed_we(so, sm.we[fi], fi, n, hh, j0, j, i, "
+                  "vals[fi]);")
+    last = "    __syncthreads();   // w and the scratch are free for the next face\n"
+    out["ext_we_staged"] = _sub(
+        staged, last, last + "    if (i0 < hh || i0 + FTX > n - hh) "
+        "flush_we(sm, so, n, hh, j0, i0);\n")
+    for name, text in out.items():
+        if text in (nbr, ext):
+            raise RuntimeError(f"{name}: the source has no part of the "
+                               "expected form")
+    return out
+
+
+#: B8's W/E strip values staged through shared memory (the lever
+#: ``W/E strips staged``): the tile's values of one face in Smem::we, then,
+#: after the face's closing barrier, each strip row's stretch of tile rows
+#: stored as consecutive floats.
+_WE_STAGED = r"""  float we[3][2][4][FTY];   // field, W/E, strip column, tile row
+};
+
+__device__ __forceinline__ void put_packed_we(float* so,
+                                              float (*we)[4][FTY], int fi,
+                                              int n, int hh, int j0, int j,
+                                              int i, float v) {
+  const int base = fi * 4 * hh;
+  if (j < hh) so[(base + j) * n + i] = v;
+  if (j >= n - hh) so[(base + hh + j - (n - hh)) * n + i] = v;
+  if (i < hh) we[0][i][j - j0] = v;
+  if (i >= n - hh) we[1][i - (n - hh)][j - j0] = v;
+}
+
+__device__ __forceinline__ void flush_we(const Smem& sm, float* so, int n,
+                                         int hh, int j0, int i0) {
+  const int rows = n - j0 < FTY ? n - j0 : FTY;
+  for (int t = threadIdx.y * BX + threadIdx.x; t < 3 * 2 * hh * FTY;
+       t += NT) {
+    const int ly = t % FTY, c = t / FTY % hh, side = t / FTY / hh % 2;
+    const int fi = t / (2 * hh * FTY);
+    const int i = side == 0 ? c : n - hh + c;
+    if (ly >= rows || i < i0 || i >= i0 + FTX) continue;
+    so[(fi * 4 * hh + (side == 0 ? 2 : 3) * hh + c) * n + j0 + ly] =
+        sm.we[fi][side][c][ly];
+  }
+}"""
+
+
+#: The b13b8 forms of each kernel: label -> library name; the ablations
+#: (not bitwise by design) last.
+B13_FORMS = {"parent": "parent_cov_stage_nbr",
+             "ring after window": "nbr_ring_after_window",
+             "sym after window": "nbr_sym_after_window",
+             "ghosts unstaged": "nbr_ghosts_unstaged",
+             "new": "cov_stage_nbr", "no ring": "nbr_no_ring"}
+B8_FORMS = {"parent": "parent_cov_stage_inkernel",
+            "ring after window": "ext_ring_after_window",
+            "W/E strips staged": "ext_we_staged",
+            "new": "cov_stage_inkernel", "no ring": "ext_no_ring",
+            "no W/E strips": "ext_no_we_strips"}
+B13B8_ABLATIONS = ("no ring", "no W/E strips")
+
+
+def probe_b13b8(libs, n, card, sass, nbr_vars=(), ext_vars=()):
+    """B13 and B8: this tree's, the earlier tree's and the levers;
+    bitwise checks, device µs per launch and per step in turns, nbr's
+    host issue time and wall rate, and the SASS counts of the kernels
+    that must not change."""
+    from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
+                                        EARTH_RADIUS)
+    from jaxstream_torch.experiments import swe_cov_nbr
+    from jaxstream_torch.geometry.cubed_sphere import build_grid
+    from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
+    from jaxstream_torch.ops.cuda import swe_cov
+    from jaxstream_torch.physics.initial_conditions import williamson_tc5
+    from jaxstream_torch.stepping import integrate
+    from jaxstream_torch.utils.profiling import device_seconds
+
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    nbr_types = [P] * 15 + [I] * 3 + [F] * 8 + [P]
+    ext_types = [P] * 12 + [I] * 3 + [F] * 8 + [P]
+    nbr_forms = dict(B13_FORMS, **{v: f"nbr_{v}" for v in nbr_vars})
+    ext_forms = dict(B8_FORMS, **{v: f"ext_{v}" for v in ext_vars})
+    fns = {("nbr", k): entry(libs[lib], "cov_stage_nbr_f32", nbr_types)
+           for k, lib in nbr_forms.items()}
+    fns.update({("ext", k): entry(libs[lib], "cov_stage_inkernel_f32",
+                                  ext_types)
+                for k, lib in ext_forms.items()})
+
+    def use(tag, key):
+        mod, attr = ((swe_cov_nbr, "_nbr_kernel") if tag == "nbr"
+                     else (swe_cov, "_inkernel_kernel"))
+        return lambda: setattr(mod, attr, lambda: fns[(tag, key)])
+
+    grid = build_grid(n, halo=2, radius=EARTH_RADIUS, dtype=torch.float32)
+    h, v, b = williamson_tc5(grid, EARTH_GRAVITY, EARTH_OMEGA)
+    model = CovariantShallowWater(grid, gravity=EARTH_GRAVITY,
+                                  omega=EARTH_OMEGA, b_ext=b)
+    s0 = model.initial_state(h, v)
+    use("nbr", "new")()
+    use("ext", "new")()
+    nstep = swe_cov_nbr.make_fused_ssprk3_cov_nbr(
+        grid, EARTH_GRAVITY, EARTH_OMEGA, 75.0, b)
+    ny, nt = integrate(nstep, model.extend_state(s0), 0.0, 20, 75.0)
+    estep = model.make_fused_step(75.0, compact=False)
+    ey, et = integrate(estep, model.extend_state(s0, with_strips=True), 0.0,
+                       20, 75.0)
+    n1, n2, n3 = nstep.stages
+    e1, e2, e3 = estep.stages
+    gi = estep.route(ey["strips"])
+    cases = {
+        "nbr": {"stage 1": (n1, (ny["h"], ny["u"], b)),
+                "stage 2": (n2, (ny["h"], ny["u"], ny["h"], ny["u"], b)),
+                "stage 3": (n3, (ny["h"], ny["u"], ny["h"], ny["u"], b))},
+        "ext": {"stage 1": (e1, (ey["h"], ey["u"], gi, b)),
+                "stage 2": (e2, (ey["h"], ey["u"], ey["h"], ey["u"], gi, b)),
+                "stage 3": (e3, (ey["h"], ey["u"], ey["h"], ey["u"], gi,
+                                 b))}}
+    label = {"nbr": "B13", "ext": "B8"}
+    checks, times = {}, {}
+    for tag, forms in (("nbr", nbr_forms), ("ext", ext_forms)):
+        for key in forms:
+            if key in B13B8_ABLATIONS:
+                continue
+            use(tag, key)()
+            for stage, (st, a) in cases[tag].items():
+                var = "var " if key in nbr_vars + ext_vars else ""
+                checks[f"{var}{label[tag]} {key} {stage}"] = bitwise(
+                    st, st.reference, a)
+        for stage, (st, a) in cases[tag].items():
+            times[f"{label[tag]} {stage}"] = in_turns(
+                {k: use(tag, k) for k in forms}, st, a)
+        use(tag, "new")()
+
+    # The steps: device µs per step as a CUDA graph of 20 (both), the
+    # host's issue time per step (20 steps enqueued, before the
+    # synchronise) and the wall steps/s of 200 steps (nbr), parent and new
+    # kernel in turns.
+    def step_times(step, y, t, wall):
+        s = device_seconds(lambda: integrate(step, y, t, 20, 75.0))
+        dev = float("nan") if s is None else s / 20 * 1e6
+        if not wall:
+            return dev, float("nan"), float("nan")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        integrate(step, y, t, 20, 75.0)
+        issue = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        integrate(step, y, t, 200, 75.0)
+        torch.cuda.synchronize()
+        return dev, issue, 200 / (time.perf_counter() - t0)
+
+    steps = {}
+    for name, tag, step, y, t in (("nbr step", "nbr", nstep, ny, nt),
+                                  ("extended step", "ext", estep, ey, et)):
+        got = {"parent": [], "new": []}
+        for form in ("parent", "new", "new", "parent"):
+            use(tag, form)()
+            got[form].append(step_times(step, y, t, tag == "nbr"))
+        use(tag, "new")()
+        steps[name] = got
+        print(f"C{n} {name} (parent / new kernel, in turns): "
+              + "; ".join(f"{k} device " + ", ".join(
+                  f"{d:.2f}" for d, _, _ in v) + " us/step, host issue "
+                  + ", ".join(f"{hst:.2f}" for _, hst, _ in v)
+                  + " us/step, wall " + ", ".join(
+                      f"{r:.1f}" for _, _, r in v) + " steps/s"
+                  for k, v in got.items()) + f"; card {card}", flush=True)
+
+    # The functions' names differ between two builds (an anonymous
+    # namespace is named after its file), so the counts are compared.
+    for name in SASS_KEPT:
+        if f"parent_{name}" not in sass:
+            continue
+        keep, was = (sorted(sass[lib].values())
+                     for lib in (name, f"parent_{name}"))
+        print(f"SASS {name}: {keep} (parent {was}): "
+              + ("same" if keep == was else "CHANGED"), flush=True)
+    return checks, times, steps
+
+
+#: The libraries whose SASS b13b8 compares with the earlier tree's: the
+#: kernels this PR does not rebuild (B3, B7 / B14, B9, B10) and the
+#: faces-in-block kernels that share cov_faces.cuh with B8 and B13.
+SASS_KEPT = ("cov_stage_refused_nu4", "cov_stage_nu4", "swe_rhs", "swe_stage",
+             "cov_stage", "cov_nu4_filter", "cov_rhs", "cov_rhs_interior",
+             "cov_rhs_local", "cov_step_mega", "swe_stage_inkernel")
+
+
 def main() -> int:
     args = sys.argv[1:]
     n = 384
     mega_dir = None
-    parts = {"b1b2", "b12", "b4", "b11b7a"}
+    parts = {"b1b2", "b12", "b4", "b11b7a", "b13b8"}
     var_dirs = {}
     while args[:1] in (["--n"], ["--mega"], ["--parts"], ["--ink"],
-                       ["--nu4a"]):
+                       ["--nu4a"], ["--nbr"], ["--ext"]):
         if args[0] == "--n":
             n = int(args[1])
         elif args[0] == "--mega":
@@ -679,9 +934,23 @@ def main() -> int:
         for name, text in redesign_levers().items():
             variants[name] = (text, _build.CSRC_DIR)
         for kind, d in var_dirs.items():
-            for cu in sorted(d.glob("*.cu")):
-                variants[f"{kind}_{cu.stem}"] = (cu.read_text(),
-                                                 _build.CSRC_DIR)
+            if kind in ("ink", "nu4a"):
+                for cu in sorted(d.glob("*.cu")):
+                    variants[f"{kind}_{cu.stem}"] = (cu.read_text(),
+                                                     _build.CSRC_DIR)
+    if "b13b8" in parts:
+        ours += ["cov_stage_nbr", "cov_stage_inkernel"]
+        ours += [k for k in SASS_KEPT if k not in ours]
+        for name in ("cov_stage_nbr", "cov_stage_inkernel") + SASS_KEPT:
+            variants.setdefault(f"parent_{name}", (
+                (parent / f"{name}.cu").read_text(), parent))
+        for name, text in b13b8_levers().items():
+            variants[name] = (text, _build.CSRC_DIR)
+        for kind in ("nbr", "ext"):
+            if kind in var_dirs:
+                for cu in sorted(var_dirs[kind].glob("*.cu")):
+                    variants[f"{kind}_{cu.stem}"] = (cu.read_text(),
+                                                     _build.CSRC_DIR)
 
     def build_variant(item):
         name, (text, include) = item
@@ -692,6 +961,7 @@ def main() -> int:
 
     from concurrent.futures import ThreadPoolExecutor
     libs, logs = {}, {}
+    ours = list(dict.fromkeys(ours))
     with ThreadPoolExecutor(max(1, len(ours) + len(variants))) as pool:
         for b in pool.map(_build.build, ours):
             libs[b.name], logs[b.name] = b.path, b.log or "(reused)"
@@ -802,8 +1072,15 @@ def main() -> int:
             if "nu4a" in var_dirs else [])
         more.update(red_checks)
         times.update(red_times)
+    if "b13b8" in parts:
+        stems = {k: [cu.stem for cu in sorted(var_dirs[k].glob("*.cu"))]
+                 if k in var_dirs else [] for k in ("nbr", "ext")}
+        wb_checks, wb_times, summary["b13b8_steps_us"] = probe_b13b8(
+            libs, n, card, sass, stems["nbr"], stems["ext"])
+        more.update(wb_checks)
+        times.update(wb_times)
     checks.update(more)
-    print(f"bitwise vs plain at C{n} (B12, B4, B11, B7 A): {more}",
+    print(f"bitwise vs plain at C{n} (B12, B4, B11, B7 A, B13, B8): {more}",
           flush=True)
     for label, t in times.items():
         print(f"C{n} {label}, device us per launch (CUDA graph of {REPS}, "
@@ -816,7 +1093,8 @@ def main() -> int:
     ok = all(v for k, v in checks.items()
              if k.split()[0] in ("cov_stage", "parent_stage_full",
                                  "cov_nu4_filter", "parent_filter",
-                                 "B12", "B4", "B11", "B7"))
+                                 "B12", "B4", "B11", "B7", "B13",
+                                 "B8"))
     print(json.dumps({"ok": ok, "n": n, "card": card, "bitwise": checks,
                       "times_us": times, "sass": sass, **summary}))
     return 0 if ok else 1

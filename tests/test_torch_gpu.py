@@ -281,12 +281,16 @@ def test_stage_nu4_b_ablated_matches_plain_c48():
                            for x, r in zip(out, s.call_b(*bargs)))
 
 
-def _tc5_c48():
-    g = build_grid(48, halo=2, radius=EARTH_RADIUS, device="cuda")
+def _tc5(n):
+    g = build_grid(n, halo=2, radius=EARTH_RADIUS, device="cuda")
     h, v, b = williamson_tc5(g, EARTH_GRAVITY, EARTH_OMEGA)
     m = CovariantShallowWater(g, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA,
                               b_ext=b)
     return g, m, m.initial_state(h, v)
+
+
+def _tc5_c48():
+    return _tc5(48)
 
 
 def _check(name, call, ref, args, tol, exact=False):
@@ -476,13 +480,11 @@ def test_stacked_block_rhs_kernels_match_plain_c48(cores):
                     assert torch.equal(x, r), (s, i)
 
 
-@pytest.mark.gpu
-def test_stage_inkernel_matches_plain_c48():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the extended-carry stage kernel "
-                    "has no CPU form)")
-    g, m, s0 = _tc5_c48()
-    step = m.make_fused_step(75.0 * 384 / 48, compact=False)
+def _stage_inkernel_matches_plain(n):
+    """B8's stages 1-3 and the stage-3 probe at C``n``, on the carry after
+    one step: bitwise equal to the plain version, one launch each."""
+    g, m, s0 = _tc5(n)
+    step = m.make_fused_step(75.0 * 384 / n, compact=False)
     y1 = step(m.extend_state(s0, with_strips=True), 0.0)
     ghosts = step.route(y1["strips"])
     yc = (y1["h"], y1["u"])
@@ -494,19 +496,19 @@ def test_stage_inkernel_matches_plain_c48():
     cases.append((step.stages[2], (-2.0 * yc[0], -2.0 * yc[1])))
     for k, (st, base) in enumerate(cases):
         before = tcov.CovStageInkernel.launches
-        _check(f"case {k}", st, st.reference,
-               base + yc + (ghosts, m.b_ext), TOL if k < 3 else TENDENCY_TOL)
+        _check(f"C{n} case {k}", st, st.reference,
+               base + yc + (ghosts, m.b_ext), TOL if k < 3 else TENDENCY_TOL,
+               exact=True)
         assert tcov.CovStageInkernel.launches == before + 1
 
 
-@pytest.mark.gpu
-def test_stage_nbr_matches_plain_c48():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the neighbour-read stage kernel "
-                    "has no CPU form)")
-    g, m, s0 = _tc5_c48()
+def _stage_nbr_matches_plain(n):
+    """B13's stages 1-3 and the stage-3 probe at C``n``, on the state
+    after one step: bitwise equal to the plain version, one launch
+    each."""
+    g, m, s0 = _tc5(n)
     step = nbr.make_fused_ssprk3_cov_nbr(g, EARTH_GRAVITY, EARTH_OMEGA,
-                                         75.0 * 384 / 48, m.b_ext)
+                                         75.0 * 384 / n, m.b_ext)
     y0 = m.extend_state(s0)
     y1 = step(y0, 0.0)
     yc = (y1["h"], y1["u"])
@@ -517,9 +519,38 @@ def test_stage_nbr_matches_plain_c48():
     cases.append((step.stages[2], (-2.0 * yc[0], -2.0 * yc[1])))
     for k, (st, b0) in enumerate(cases):
         before = nbr.CovStageNbr.launches
-        _check(f"case {k}", st, st.reference, b0 + yc + (m.b_ext,),
-               TOL if k < 3 else TENDENCY_TOL)
+        _check(f"C{n} case {k}", st, st.reference, b0 + yc + (m.b_ext,),
+               TOL if k < 3 else TENDENCY_TOL, exact=True)
         assert nbr.CovStageNbr.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_stage_inkernel_matches_plain_c48():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the extended-carry stage kernel "
+                    "has no CPU form)")
+    _stage_inkernel_matches_plain(48)
+
+
+@pytest.mark.gpu
+def test_stage_nbr_matches_plain_c48():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the neighbour-read stage kernel "
+                    "has no CPU form)")
+    _stage_nbr_matches_plain(48)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [72, 74], ids=["c72", "c74"])
+def test_whole_block_stages_match_plain_larger_grids(n):
+    """B8 and B13 on 3 x 3 tile positions (C72: ragged last columns, a
+    middle tile that reads no ghost) and on tiles ragged by 2 and 10
+    cells (C74)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the whole-block stage kernels "
+                    "have no CPU form)")
+    _stage_inkernel_matches_plain(n)
+    _stage_nbr_matches_plain(n)
 
 
 @pytest.mark.gpu

@@ -817,6 +817,123 @@ def test_redesign_mutation_is_caught(emulated, launch_on_cpu, monkeypatch,
     assert not all(torch.equal(x, r) for x, r in zip(out, ref))
 
 
+# ---- the faces-in-block redesigns of B8 and B13 ----------------------------
+#
+# At C72 a face has 3 x 3 tile positions of 32 x 24 (ragged last columns, a
+# middle tile whose window reads no ghost); at C74 the last row and column
+# of tiles are ragged by 2 and 10 cells; at C65 the last column of tiles is
+# one cell wide, so B8's E strips fall on two tiles; at C24 one tile is
+# wider than its face and owns all of its faces' ghost ring cells, more
+# than one pass of the block takes.  Edge tiles own the ring cells and, in
+# B13, compute the sym rows and rotate the u ghosts.
+
+
+def _exchanged_corners(m, y):
+    """The whole blocks of carry ``y`` with their four ghost corners from
+    the halo exchangers' frames of its interiors: corners the stages must
+    carry through, not the zeros or copies a stepper may leave."""
+    s = m.restrict_state(y)
+    out = []
+    for q, full in ((y["h"], m.fill(s["h"])), (y["u"], m._fill_u(s["u"]))):
+        q = q.clone()
+        for c in itertools.product((slice(0, 2), slice(-2, None)), repeat=2):
+            q[(...,) + c] = full[(...,) + c]
+        out.append(q)
+    return out
+
+
+def _whole_block_operands(n):
+    """B8's and B13's steppers at C``n`` TC5 and the operands of their
+    stages 1-3 and of stage 3 with y0 = -2*yc (the interiors g*L alone),
+    on the carry after one step of the plain stages (TC5's initial wind
+    has a zero component in places, which hides some operation orders):
+    ``{"B8": [(stage, args), ...], "B13": [...]}``."""
+    g = build_grid(n, halo=2, radius=EARTH_RADIUS, device="cpu")
+    h, v, b = williamson_tc5(g, G, OM)
+    m = CovariantShallowWater(g, gravity=G, omega=OM, b_ext=b)
+    s0 = m.initial_state(h, v)
+    dt = 75.0 * 384 / n
+    ext = m.make_fused_step(dt, compact=False)
+    y1 = ext(m.extend_state(s0, with_strips=True), 0.0)
+    hc, uc = _exchanged_corners(m, y1)
+    st1, st2, st3 = ext.stages
+    a1 = (hc, uc, ext.route(y1["strips"]), b)
+    k1 = st1.reference(*a1)
+    rest = (k1[0], k1[1], ext.route(k1[2]), b)
+    cases = {"B8": [(st1, a1), (st2, (hc, uc) + rest), (st3, (hc, uc) + rest),
+                    (st3, (-2.0 * k1[0], -2.0 * k1[1]) + rest)]}
+    step = nbr.make_fused_ssprk3_cov_nbr(g, G, OM, dt, b)
+    hc, uc = _exchanged_corners(m, step(m.extend_state(s0), 0.0))
+    st1, st2, st3 = step.stages
+    k1 = st1.reference(hc, uc, b)
+    rest = tuple(k1) + (b,)
+    cases["B13"] = [(st1, (hc, uc, b)), (st2, (hc, uc) + rest),
+                    (st3, (hc, uc) + rest),
+                    (st3, (-2.0 * k1[0], -2.0 * k1[1]) + rest)]
+    return cases
+
+
+@pytest.fixture(scope="module")
+def whole_block_cases():
+    return {n: _whole_block_operands(n) for n in (24, 65, 72, 74)}
+
+
+_WHOLE_BLOCK = {"B8": ("cov_stage_inkernel", tsc.CovStageInkernel),
+                "B13": ("cov_stage_nbr", nbr.CovStageNbr)}
+
+
+@pytest.mark.parametrize("n", [24, 65, 72, 74],
+                         ids=["c24", "c65", "c72", "c74"])
+@pytest.mark.parametrize("kernel", ["B8", "B13"])
+def test_whole_block_stage_kernels_larger_grids(launch_on_cpu,
+                                                 whole_block_cases, kernel,
+                                                 n):
+    """B8 and B13, stages 1-3 and the stage-3 probe, one launch each:
+    bitwise equal to their plain versions."""
+    cls = _WHOLE_BLOCK[kernel][1]
+    stages = whole_block_cases[n][kernel]
+    before = cls.launches
+    for st, args in stages:
+        _equal(st(*args), st.reference(*args))
+    assert cls.launches == before + len(stages)
+
+
+_WB_WINDOW = "const StageWindow& w = sm.w[cur];"
+_WB_PREFETCH = "stage_window(p, sm.w[cur ^ 1], f + 1, j0, i0);"
+_NBR_GHOSTS = "ghost_load(p, gu, f + 1, j0, i0, gq);"
+_NBR_T = "g.ta = t_at(p, 2 * comp, f, a.s, 0, a.k);"
+_NBR_SYM = ("const SymRows rows{&sm.sym[q][0][0] - i0, "
+            "&sm.sym[q][1][0] - i0,")
+
+
+@pytest.mark.parametrize("kernel, old, new", [
+    ("B8", _WB_WINDOW, _WB_WINDOW.replace("cur", "cur ^ 1")),
+    ("B8", _WB_PREFETCH, _WB_PREFETCH.replace("f + 1", "f")),
+    ("B13", _WB_WINDOW, _WB_WINDOW.replace("cur", "cur ^ 1")),
+    ("B13", _WB_PREFETCH, _WB_PREFETCH.replace("f + 1", "f")),
+    ("B13", _NBR_GHOSTS, _NBR_GHOSTS.replace("f + 1", "f")),
+    ("B13", _NBR_T, _NBR_T.replace("2 * comp,", "2 * comp + 1,")),
+    ("B13", _NBR_SYM, _NBR_SYM.replace("[0][0]", "[9][0]")
+     .replace("[1][0]", "[0][0]").replace("[9][0]", "[1][0]"))],
+    ids=["b8-next-window", "b8-prefetch-face", "b13-next-window",
+         "b13-prefetch-face", "b13-ghost-prefetch-face", "b13-wrong-t",
+         "b13-sym-s-n-swapped"])
+def test_whole_block_mutation_is_caught(emulated, launch_on_cpu, monkeypatch,
+                                        whole_block_cases, kernel, old, new):
+    """The mutation checks of B8 and B13 at C72, stage 2: a face computed
+    from the other buffer's window; the next face's window (or B13's u
+    ghosts) prefetched for the current face; B13's u ghosts rotated with
+    the wrong T entry; B13's S and N sym rows swapped.  Each must disagree
+    with the plain version."""
+    name = _WHOLE_BLOCK[kernel][0]
+    lib = _mutated_lib(emulated, name, old, new)
+    monkeypatch.setattr(_build, "load", lambda nm: ctypes.CDLL(
+        str(lib if nm == name else emulated[nm])))
+    st, args = whole_block_cases[72][kernel][1]
+    out, ref = st(*args), st.reference(*args)
+    assert not all(torch.equal(x, r) for x, r in zip(out, ref))
+
+
 # ---- the sharded tiers' block kernels: B5 and B6 --------------------------
 
 #: The group's coordinate operands of the two block kernels (cov_faces.cuh's
@@ -1076,6 +1193,8 @@ def test_whole_face_kernels_pass_rows_as_columns():
             calls.setdefault(name, {}).setdefault(fn, []).append(args)
     faces_in_block = {"cov_stage": "p.xc, p.xf, p.xc, p.xf,",
                       "cov_stage_nu4": "p.xc, p.xf, p.xc, p.xf,",
+                      "cov_stage_inkernel": "p.xc, p.xf, p.xc, p.xf,",
+                      "cov_stage_nbr": "p.xc, p.xf, p.xc, p.xf,",
                       "cov_step_mega": "p.xc, p.xf, p.xc, p.xf,",
                       "cov_rhs": " xr, xfr, yc, yfc,",
                       "cov_faces.cuh": " xr, xfr, yc, yfc,"}
@@ -1097,6 +1216,8 @@ def test_whole_face_kernels_pass_rows_as_columns():
     for name, seam in (("cov_rhs_interior", "None"),
                        ("cov_rhs_local", "Frame")):
         assert sources[name].count(f"rhs_group<Seam::{seam}>(p, sm,") == 1
-    for name, seam in (("cov_rhs", "Frame"), ("cov_step_mega", "FrameCg")):
+    for name, seam in (("cov_rhs", "Frame"), ("cov_step_mega", "FrameCg"),
+                       ("cov_stage_inkernel", "Frame"),
+                       ("cov_stage_nbr", "Frame")):
         assert calls[name]["stage_face_tile"][0].count(
             f"stage_face_tile<Seam::{seam}>(") == 1
