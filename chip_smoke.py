@@ -143,27 +143,31 @@ Phases, each fatal on failure:
     steppers in turns (compact, extended, extended, compact);
 19. the Cartesian RHS kernel against its plain version on the TC5 state
     and on the state after the classic window (<= 1e-5 of each output's
-    max), the kernel-backed classic ``rhs`` and the torch one against a
-    float64 evaluation (as phase 15, the kernel no farther from it than
-    the larger of the torch rhs and the JAX package's own kernel, plus
-    5e-5: the Cartesian kernels rebuild the metric in float32), then 300
-    classic steps gated, the
-    launches checked against 3 x steps, and their breakdown (fills, the
-    kernel, the RK combines);
+    max, and bitwise), the kernel-backed classic ``rhs`` and the torch
+    one against a float64 evaluation (as phase 15, the kernel no farther
+    from it than the larger of the torch rhs and the JAX package's own
+    kernel, plus 5e-5: the Cartesian kernels rebuild the metric in
+    float32), then 300 classic steps gated, the launches checked against
+    3 x steps, and their breakdown (fills, the kernel, the RK combines);
+    the kernel's device time beside its earlier design's
+    (``EARLIER_DEVICE_US``), the step's device time as a CUDA graph and a
+    traced window;
 20. the in-kernel-exchange and concat stage kernels against their plain
     versions as stages 1, 2 and 3 on whole blocks (all outputs, strips
-    included; <= 1e-5) and as stage 3 with y0 = -2 yc (<= 1e-4), the
-    in-kernel one bitwise and also with the general core (``fast=False``)
-    as stage 2; then
+    included; <= 1e-5) and as stage 3 with y0 = -2 yc (<= 1e-4), both
+    bitwise and also with the general core (``fast=False``) as stage 2;
+    then
     three steps of each fused form: in-kernel vs concat interiors
     (<= 1e-6; bitwise predicted, corners are never read), each against
     three classic steps (<= 2e-4, ``tests/test_fused_step.py:52``);
 21. the main path: 20 + 1 000 in-kernel steps of TC5 gated, the launches
     checked against 3 x steps, the breakdown (3 routes, 3 stage launches,
     the rest), a traced window, a timed window of the concat form with
-    its launches checked, and the kernels' times against their bounds;
-    the in-kernel stage's device time beside its earlier design's
-    (``EARLIER_DEVICE_US``) and the step's device time as a CUDA graph;
+    its launches checked, its stages 1-3 bitwise against the plain
+    version on the carry after that window, and the kernels' times
+    against their bounds; each stage kernel's device time beside its
+    earlier design's (``EARLIER_DEVICE_US``) and its step's device time
+    as a CUDA graph, the concat step's traced window;
 22. 300-step windows of the Cartesian in-kernel and the covariant
     compact steppers in turns (Cartesian, covariant, covariant,
     Cartesian);
@@ -295,6 +299,8 @@ KERNEL_TOL = 1e-5
 # their tile-per-block design, per launch (the same card and run as B1's).
 # The extended-carry stage (B8) and the neighbour-read stage (B13) in
 # their tile-per-block design, per launch (the same card and run as B1's).
+# The Cartesian RHS (B9) and concat stage (B10) in their tile-per-block
+# design, per launch (the same card and run as B1's).
 EARLIER_DEVICE_US = {"cov_stage_compact": 60.06, "cov_nu4_filter": 62.94,
                      "cov_rhs_interior face rank": 12.43,
                      "cov_rhs_interior block rank": 9.94,
@@ -302,7 +308,8 @@ EARLIER_DEVICE_US = {"cov_stage_compact": 60.06, "cov_nu4_filter": 62.94,
                      "cov_step_mega": 260.62, "cov_rhs": 49.34,
                      "cov_rhs face rank": 12.95,
                      "swe_stage_inkernel": 70.96, "cov_stage_nu4_a": 70.58,
-                     "cov_stage_inkernel": 62.82, "cov_stage_nbr": 65.76}
+                     "cov_stage_inkernel": 62.82, "cov_stage_nbr": 65.76,
+                     "swe_rhs": 54.06, "swe_stage": 56.96}
 # Steps captured in one CUDA graph for a step's device time.
 GRAPH_STEPS = 20
 # ptxas's (registers, shared bytes) per kernel function of the other
@@ -312,9 +319,9 @@ GRAPH_STEPS = 20
 # the log says whether each still builds to the same.  A library's entry
 # names the kernel functions it covers (a substring of their names; None
 # for all): cov_stage_nu4's kernel B (and B14, its modes) keeps its
-# tile-per-block design beside the redesigned kernel A.  B8 and B13 as
-# their faces-in-block redesigns were first built (80 registers, no
-# spill).
+# tile-per-block design beside the redesigned kernel A.  B8 and B13, B9
+# and B10 as their faces-in-block redesigns were first built (80
+# registers, no spill).
 EARLIER_PTXAS = {
     "cov_stage": (None, [(80, 0)]),
     "cov_nu4_filter": (None, [(80, 0)]),
@@ -325,8 +332,8 @@ EARLIER_PTXAS = {
                       [(64, 7344), (62, 7344), (62, 7344)]),
     "cov_stage_inkernel": (None, [(80, 0)]),
     "cov_stage_nbr": (None, [(80, 0)]),
-    "swe_rhs": (None, [(56, 21892)]),
-    "swe_stage": (None, [(56, 21892), (48, 21892)]),
+    "swe_rhs": (None, [(80, 0)]),
+    "swe_stage": (None, [(80, 0), (80, 0)]),
 }
 # The tendency alone is ill-conditioned in float32 (its flux differences
 # cancel): two f32 evaluations differ by ~1e-5 of its max.
@@ -1465,7 +1472,7 @@ def cartesian_rhs_path(card: str, grid, b_ext, s0, ref) -> dict:
     args = (pal.fill(s0["h"]), pal.fill(s0["v"]), pal.b_ext)
     max_abs = check_kernel(f"Cartesian RHS kernel vs plain C{N} (TC5 "
                            "state)", kern, kern.reference, args, names,
-                           KERNEL_TOL, count)
+                           KERNEL_TOL, count, exact=True)
     g64 = build_grid(N, halo=grid.halo, radius=grid.radius,
                      dtype=torch.float64)
     m64 = ShallowWater(g64, gravity=ref.gravity, omega=ref.omega,
@@ -1513,19 +1520,24 @@ def cartesian_rhs_path(card: str, grid, b_ext, s0, ref) -> dict:
     args = (pal.fill(y["h"]), pal.fill(y["v"]), pal.b_ext)
     max_abs = max(max_abs, check_kernel(
         f"Cartesian RHS kernel vs plain C{N} (after {CLASSIC_STEPS} steps)",
-        kern, kern.reference, args, names, KERNEL_TOL, count))
-    record = kernel_record(
-        "swe_rhs", "jaxstream_torch/csrc/swe_rhs.cu",
-        "jaxstream/ops/pallas/swe_rhs.py:434", launches, max_abs,
-        [("Cartesian RHS", kern, kern.reference, args)],
-        SWE_RHS_FLOPS_PER_CELL, card)
+        kern, kern.reference, args, names, KERNEL_TOL, count, exact=True))
+    timed = [time_form("Cartesian RHS", kern, kern.reference, args,
+                       SWE_RHS_FLOPS_PER_CELL, card)]
+    rec = record("swe_rhs", "jaxstream_torch/csrc/swe_rhs.cu",
+                 "jaxstream/ops/pallas/swe_rhs.py:434", launches, max_abs,
+                 timed)
     fill_ms = event_ms(lambda: (pal.fill(y["h"]), pal.fill(y["v"])), 50)
-    k_us = record["ms"] * 1e3
+    k_us = rec["ms"] * 1e3
     other = step_us - 3e3 * fill_ms - 3 * k_us
     log(f"Cartesian classic step {step_us:.1f} us = 3 x (fills "
         f"{fill_ms * 1e3:.1f} us + RHS kernel {k_us:.2f} us) + {other:.1f} "
         f"us other (the RK combines); card {card}")
-    return record
+    redesign_line("swe_rhs", timed, 3,
+                  "Cartesian classic (backend pallas) TC5",
+                  step_device_us(step, y, t, STEP_DT), card)
+    device_busy(lambda: integrate(step, y, t, PROFILED_STEPS, STEP_DT),
+                PROFILED_STEPS, step_us, card, ("swe_rhs_kernel",))
+    return rec
 
 
 def cartesian_fused_path(card: str, grid, b_ext, s0, ref, cov_step,
@@ -1591,11 +1603,21 @@ def cartesian_fused_path(card: str, grid, b_ext, s0, ref, cov_step,
     b3p = (-2.0 * b3[2], -2.0 * b3[3], b3[2], b3[3], b)
     max_cat = max(
         check_kernel(f"concat stage kernel vs plain C{N} stage {k + 1}", st,
-                     st.reference, a, ("h", "v"), KERNEL_TOL, count)
+                     st.reference, a, ("h", "v"), KERNEL_TOL, count,
+                     exact=True)
         for k, (st, a) in enumerate(((c1, b1), (c2, b2), (c3, b3))))
     max_cat = max(max_cat, check_kernel(
         f"concat stage kernel vs plain C{N} stage 3, y0=-2yc (interior g*L "
-        "alone)", c3, c3.reference, b3p, ("h", "v"), TENDENCY_TOL, count))
+        "alone)", c3, c3.reference, b3p, ("h", "v"), TENDENCY_TOL, count,
+        exact=True))
+    # The general core (fast=False, rhs_core), stage 2.
+    gen = swe_step.make_swe_stage_pallas(
+        grid.n, grid.halo, grid.dalpha, grid.radius, ref.gravity, ref.omega,
+        STEP_DT, c2.a, c2.b, fast=False, device=grid.device)
+    max_cat = max(max_cat, check_kernel(
+        f"concat stage kernel (general core) vs plain C{N} stage 2", gen,
+        gen.reference, b2, ("h", "v"), KERNEL_TOL, count, exact=True))
+    del gen
     del k1, k2, j1, j2
 
     # ---- three steps: in-kernel vs concat, each vs classic ---------------
@@ -1684,13 +1706,20 @@ def cartesian_fused_path(card: str, grid, b_ext, s0, ref, cov_step,
     hk, vk = ex(yk["h"]), ex(yk["v"])
     b1 = (hk, vk, b)
     b2 = (hk, vk) + b1
-    rec_cat = kernel_record(
-        "swe_stage", "jaxstream_torch/csrc/swe_stage.cu",
-        "jaxstream/ops/pallas/swe_step.py:147", launches_c, max_cat,
-        [("Cartesian concat stage 1", c1, c1.reference, b1),
-         ("Cartesian concat stage 2", c2, c2.reference, b2),
-         ("Cartesian concat stage 3", c3, c3.reference, b2)],
-        SWE_STAGE_FLOPS_PER_CELL, card)
+    # The stages on the carry after the window (its wind has all three
+    # components and 520 steps of flow).
+    max_cat = max([max_cat] + [check_kernel(
+        f"concat stage kernel vs plain C{N} stage {k + 1} (after "
+        f"{WARM_STEPS + CART_CONCAT_STEPS} concat steps)", st, st.reference,
+        a, ("h", "v"), KERNEL_TOL, lambda: Cat.launches, exact=True)
+        for k, (st, a) in enumerate(((c1, b1), (c2, b2), (c3, b2)))])
+    timed_cat = [time_form(f"Cartesian concat stage {k + 1}", st,
+                           st.reference, a, SWE_STAGE_FLOPS_PER_CELL, card)
+                 for k, (st, a) in enumerate(((c1, b1), (c2, b2),
+                                              (c3, b2)))]
+    rec_cat = record("swe_stage", "jaxstream_torch/csrc/swe_stage.cu",
+                     "jaxstream/ops/pallas/swe_step.py:147", launches_c,
+                     max_cat, timed_cat)
     x_ms = event_ms(lambda: (ex(yk["h"]), ex(yk["v"])), 200)
     k_us = 3e3 * rec_cat["ms"]
     log(f"main path C{N} TC5 Cartesian concat dt={STEP_DT:g}: "
@@ -1699,6 +1728,10 @@ def cartesian_fused_path(card: str, grid, b_ext, s0, ref, cov_step,
         f"exchanges 3 x {x_ms * 1e3:.2f} us + stage kernels {k_us:.1f} us + "
         f"{cat_us - k_us - 3e3 * x_ms:.1f} us other; launches {launches_c} "
         f"= 3 x {WARM_STEPS + CART_CONCAT_STEPS}; card {card}")
+    redesign_line("swe_stage", timed_cat, 3, "Cartesian concat TC5",
+                  step_device_us(step_c, yk, t, STEP_DT), card)
+    device_busy(lambda: integrate(step_c, yk, t, PROFILED_STEPS, STEP_DT),
+                PROFILED_STEPS, cat_us, card, ("swe_stage_kernel",))
 
     # ---- 22. Cartesian in-kernel vs covariant compact, in turns ---------
     paired_rates({"cartesian": (step, y), "covariant": (cov_step, cov_y)},

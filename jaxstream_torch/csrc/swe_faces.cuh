@@ -1,12 +1,12 @@
-// Device code of the Cartesian stage kernel that takes all faces of a tile
-// in one block (swe_stage_inkernel.cu): cov_faces.cuh's design (a 32 x 24
-// tile position and a group of three faces per block, one tile column per
-// lane, cp.async double buffering) for the Cartesian right-hand side of
-// swe_common.cuh's swe_tile.  Every stored value is the float swe_tile
-// computes, with the same operations in the same order (built with
-// -fmad=false), so the kernel stays bitwise equal to the plain version.
-// swe_common.cuh is untouched, so that the other Cartesian kernels
-// (swe_rhs.cu, swe_stage.cu) build to the same code.
+// Device code of the Cartesian kernels that take all faces of a tile in one
+// block: the right-hand side of ghost-filled faces (swe_rhs.cu, B9), the
+// concat-layout stage (swe_stage.cu, B10) and the in-kernel stage
+// (swe_stage_inkernel.cu, B11).  cov_faces.cuh's design (a 32 x 24 tile
+// position and a group of three faces per block, one tile column per lane,
+// cp.async double buffering) for the Cartesian right-hand side of
+// rhs_core_fast and rhs_core.  Every stored value is the float the plain
+// version computes, with the same operations in the same order (built with
+// -fmad=false), so the kernels stay bitwise equal to it.
 //
 // The metric once per tile.  fast_frame(x, y) does not read the face
 // frame: all six faces of a tile position compute the same floats.  Of
@@ -18,9 +18,13 @@
 // fast_at rebuilds the Fast fields from them with fast_frame's remaining
 // multiplies in its order.  What reads the frame (fast_covariant, the
 // gradient, rk, Coriolis) runs per face.  The general core (rhs_core,
-// Fast_ = false) runs the same body with its basis per face in place.
+// Fast_ = false) runs the same body with its basis per face in place, or
+// with the basis's IEEE divisions (1/det g at the faces and centres,
+// 1/sqrtg at the centres) read from a per-tile SweBasis (12.5 KB).
 
 #pragma once
+
+#include <type_traits>
 
 #include "cov_faces.cuh"
 #include "swe_common.cuh"
@@ -211,21 +215,84 @@ struct TilePoints {
   }
 };
 
-// swe_tile's right-hand side of one face's tile from its staged window w
-// and the tile's metric terms mt (both synchronised): the fast core when
-// Fast_, else the general one (mt unread).  fr is the face frame (c0, cx,
-// cy).  For every interior cell it calls epi(r, ly, lx, j, i, dh, dv0,
-// dv1, dv2) with r the thread's row index (ly = ty + r * BY, lx = tx).
-// Every thread of the block must call it: it synchronises once, between
-// the fluxes and the tendencies.
-template <bool Fast_, class Epilogue>
+// Issues the copies of face f's window into w (no commit) from extended
+// ghost-filled arrays: h (6, m, m), v (3, 6, m, m), b (6, m, m), m = n +
+// 2 hh.  halo >= 2 puts every apron cell inside the m x m block; 0 past it
+// (the ragged last tiles' aprons, which feed no kept output).
+__device__ __forceinline__ void stage_frame_window(
+    SweWindow& w, const float* __restrict__ h, const float* __restrict__ v,
+    const float* __restrict__ b, int f, int n, int hh, int j0, int i0) {
+  const long mm = (long)(n + 2 * hh) * (n + 2 * hh);
+  cov::stage_frame<FTY + 4, 2>(&w.h[0][0], h + f * mm, n, hh, j0 - 2, i0);
+  for (int c = 0; c < 3; ++c)
+    cov::stage_frame<FTY + 2, 1>(&w.v[c][0][0], v + (c * 6 + f) * mm, n, hh,
+                                 j0 - 1, i0);
+  cov::stage_band(w.b, b + f * mm, n, hh, j0, i0);
+}
+
+// The general core's IEEE divisions at the tile's points, which do not
+// read the face frame: 1/det g at the x-faces (ly, lf), the y-faces (lf,
+// lx) and the centres (ly, lx), and 1/sqrtg at the centres.  Entries that
+// no kept output reads are 0.
+struct SweBasis {
+  float idet_x[FTY][FTX + 1];
+  float idet_y[FTY + 1][FTX];
+  float idet_c[FTY][FTX];
+  float isg_c[FTY][FTX];
+};
+
+// Fills bt for the tile at (j0, i0): each entry by the operations of
+// face_velocity / the tendencies' basis, in their order.  No barrier: the
+// caller's next __syncthreads() publishes bt.
+__device__ __forceinline__ void swe_basis(SweBasis& bt,
+                                          const float* __restrict__ xc,
+                                          const float* __restrict__ xf,
+                                          const Consts& k, int n, int hh,
+                                          int j0, int i0) {
+  auto idet = [&](float x, float y) {
+    return basis_inv_det(basis_g(x, y, prelude(x, y), k));
+  };
+  for_region<FTY, FTX + 1>([&](int ly, int lf) {
+    const int j = j0 + ly, i = i0 + lf;
+    bt.idet_x[ly][lf] = (j < n && i <= n) ? idet(xf[i + hh], xc[j + hh])
+                                          : 0.0f;
+  });
+  for_region<FTY + 1, FTX>([&](int lf, int lx) {
+    const int j = j0 + lf, i = i0 + lx;
+    bt.idet_y[lf][lx] = (j <= n && i < n) ? idet(xc[i + hh], xf[j + hh])
+                                          : 0.0f;
+  });
+  for_region<FTY, FTX>([&](int ly, int lx) {
+    const int j = j0 + ly, i = i0 + lx;
+    float det = 0.0f, isg = 0.0f;
+    if (j < n && i < n) {
+      const float x = xc[i + hh], y = xc[j + hh];
+      const Prelude p = prelude(x, y);
+      det = basis_inv_det(basis_g(x, y, p, k));
+      isg = 1.0f / basis_sqrtg(p, k);
+    }
+    bt.idet_c[ly][lx] = det;
+    bt.isg_c[ly][lx] = isg;
+  });
+}
+
+// The Cartesian right-hand side of one face's tile from its staged window
+// w (synchronised): the fast core (rhs_core_fast) when Fast_, from the
+// tile's SweMetric mt; else the general core (rhs_core), whose divisions
+// come from mt when it is the tile's SweBasis and are computed per face
+// for any other mt (unread then).  fr is the face frame (c0, cx, cy).
+// For every interior cell it calls epi(r, ly, lx, j, i, dh, dv0, dv1, dv2)
+// with r the thread's row index (ly = ty + r * BY, lx = tx).  Every
+// thread of the block must call it: it synchronises once, between the
+// fluxes and the tendencies.
+template <bool Fast_, class Mt, class Epilogue>
 __device__ __forceinline__ void swe_face_tile(
-    const SweWindow& w, const SweMetric& mt, SweScratch& s, const float* fr,
+    const SweWindow& w, const Mt& mt, SweScratch& s, const float* fr,
     const float* __restrict__ xc, const float* __restrict__ xf,
     const Consts& k, int n, int hh, int j0, int i0, Epilogue epi) {
+  constexpr bool table = std::is_same<Mt, SweBasis>::value;
   auto H = [&](int y, int x) { return w.h[y + 2][WOFF + x]; };
   auto V = [&](int c, int y, int x) { return w.v[c][y + 1][WOFF + x]; };
-  const TilePoints pt{mt};
 
   // ---- covariant components and Bernoulli function on the band ---------
   for_region<FTY + 2, FTX + 2>([&](int ly, int lx) {
@@ -234,9 +301,9 @@ __device__ __forceinline__ void swe_face_tile(
     if (band_cell(n, j, i)) {
       const float v[3] = {V(0, ly - 1, lx - 1), V(1, ly - 1, lx - 1),
                           V(2, ly - 1, lx - 1)};
-      if (Fast_) {
+      if constexpr (Fast_) {
         float x, y;
-        const Fast F = pt.band(ly, lx, x, y);
+        const Fast F = TilePoints{mt}.band(ly, lx, x, y);
         fast_covariant(fr, v, x, y, F, va, vb);
       } else {
         const float x = xc[i + hh], y = xc[j + hh];
@@ -264,14 +331,19 @@ __device__ __forceinline__ void swe_face_tile(
       for (int c = 0; c < 3; ++c)
         v[c] = 0.5f * (V(c, ly, lf - 1) + V(c, ly, lf));
       float u, sg;
-      if (Fast_) {
+      if constexpr (Fast_) {
         float x, y, vea, veb;
-        const Fast F = pt.xface(ly, lf, x, y);
+        const Fast F = TilePoints{mt}.xface(ly, lf, x, y);
         fast_covariant(fr, v, x, y, F, vea, veb);
         u = F.inv_aa * vea + F.inv_ab * veb;
         sg = F.sqrtg;
       } else {
-        face_velocity<false, true>(fr, v, xf[i + hh], xc[j + hh], k, u, sg);
+        face_velocity<true>(fr, v, xf[i + hh], xc[j + hh], k,
+                            [&](const Metric& g) {
+                              if constexpr (table) return mt.idet_x[ly][lf];
+                              else return basis_inv_det(g);
+                            },
+                            u, sg);
       }
       flux = sg * cov::upwind_flux(u, H(ly, lf - 2), H(ly, lf - 1),
                                    H(ly, lf), H(ly, lf + 1));
@@ -286,15 +358,19 @@ __device__ __forceinline__ void swe_face_tile(
       for (int c = 0; c < 3; ++c)
         v[c] = 0.5f * (V(c, lf - 1, lx) + V(c, lf, lx));
       float u, sg;
-      if (Fast_) {
+      if constexpr (Fast_) {
         float x, y, vea, veb;
-        const Fast F = pt.yface(lf, lx, x, y);
+        const Fast F = TilePoints{mt}.yface(lf, lx, x, y);
         fast_covariant(fr, v, x, y, F, vea, veb);
         u = F.inv_ab * vea + F.inv_bb * veb;
         sg = F.sqrtg;
       } else {
-        face_velocity<false, false>(fr, v, xc[i + hh], xf[j + hh], k, u,
-                                    sg);
+        face_velocity<false>(fr, v, xc[i + hh], xf[j + hh], k,
+                             [&](const Metric& g) {
+                               if constexpr (table) return mt.idet_y[lf][lx];
+                               else return basis_inv_det(g);
+                             },
+                             u, sg);
       }
       flux = sg * cov::upwind_flux(u, H(lf - 2, lx), H(lf - 1, lx),
                                    H(lf, lx), H(lf + 1, lx));
@@ -319,9 +395,9 @@ __device__ __forceinline__ void swe_face_tile(
     const float dpb = (s.bern[ly + 2][lx + 1] - s.bern[ly][lx + 1])
                     * k.inv2d;
     float dh, rk[3], grad[3], zeta;
-    if (Fast_) {
+    if constexpr (Fast_) {
       float x, y;
-      const Fast F = pt.band(ly + 1, lx + 1, x, y);
+      const Fast F = TilePoints{mt}.band(ly + 1, lx + 1, x, y);
       dh = (-div) * (F.inv_sqrtg * k.inv_d);
       zeta = (dvb_da - dva_db) * F.inv_sqrtg;
       // grad = A cx + B cy + C c0 in the constant frame.
@@ -343,8 +419,16 @@ __device__ __forceinline__ void swe_face_tile(
       float e_a[3], e_b[3], a_a[3], a_b[3];
       basis_rhat(fr, x, y, p, rk);
       basis_e(fr, rk, p, k, e_a, e_b);
-      basis_a(e_a, e_b, x, y, p, k, a_a, a_b);
-      const float inv_sg = 1.0f / basis_sqrtg(p, k);
+      const Metric g = basis_g(x, y, p, k);
+      float inv_det, inv_sg;
+      if constexpr (table) {
+        inv_det = mt.idet_c[ly][lx];
+        inv_sg = mt.isg_c[ly][lx];
+      } else {
+        inv_det = basis_inv_det(g);
+        inv_sg = 1.0f / basis_sqrtg(p, k);
+      }
+      basis_a(e_a, e_b, g, inv_det, a_a, a_b);
       dh = (-div) * (inv_sg * k.inv_d);
       zeta = (dvb_da - dva_db) * inv_sg;
       for (int c = 0; c < 3; ++c)

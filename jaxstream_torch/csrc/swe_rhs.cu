@@ -18,30 +18,42 @@
 // Coriolis term and the tangent projection.  Out: dh (6, n, n) and dv
 // (3, 6, n, n); the RK combine is the stepper's.
 //
-// Design.  As cov_rhs.cu: one 32 x 16 tile of one face per block, a grid
-// of (ceil(n/32), ceil(n/16), 6) independent blocks, no atomics, bitwise
-// reproducible.  A block stages its tile of h with a 2-deep apron and of
-// the three velocity components with a 1-deep apron in shared memory
-// straight from the extended frames (halo >= 2, so every apron cell lies
-// in the m x m block), and the face frame; swe_common.cuh's swe_tile
-// computes the band, the fluxes and the tendencies.  The general basis
-// (an inverse 2x2 metric per evaluation, four evaluations per cell) is
-// what the JAX kernel computes; the stage kernels use the fast core.
-//
 // Bound.  It reads h, v (3 components) and b (5 x 6 m^2 floats) and
 // writes 4 x 6 n^2: at C384 (m = 388) 32.22 MB -> 9.62 us at 3.35 TB/s.
-// The float32 arithmetic is a few hundred flops per cell (~5 us at
-// 67 TFLOP/s): bound by memory.  This first design is simple and right;
-// it reads the aprons again in each neighbouring block and has no TMA or
-// cp.async staging.
+// The float32 arithmetic (~470 flops per cell: the general basis is
+// evaluated four times per cell, with an rsqrtf at each and an IEEE
+// division at the x-face, the y-face and twice at the centre) is ~6 us at
+// 67 TFLOP/s: bound by memory, but the closest of the Cartesian kernels
+// to its arithmetic.  A launch's bytes fit the 50 MB L2, so what a
+// tile-per-block kernel spends instead is latency and instructions.
+//
+// Design.  swe_stage.cu's (B10's) faces-in-block body without the ring
+// and the combine: a block of 256 threads takes one 32 x 24 tile position
+// and a group of three faces (swe_faces.cuh), a grid of (ceil(n/32),
+// ceil(n/24), 2), 12 x 16 x 2 = 384 blocks at C384.  The block
+//   1. issues the asynchronous copies (cp.async) of its first face's
+//      window: h with a 2-deep apron, v0, v1, v2 with a 1-deep one, b on
+//      the Bernoulli band, straight from the extended frames (0 past
+//      them);
+//   2. meanwhile computes the general basis's IEEE divisions, which do not
+//      read the face frame, once for the group's three faces into shared
+//      memory (SweBasis: 1/det g at the x-faces, y-faces and centres,
+//      1/sqrtg at the centres), and loads the three face frames;
+//   3. per face of its group: issues the next face's window into the
+//      other buffer, waits for this face's window, runs
+//      swe_face_tile<false> (rhs_core) with the divisions from the table,
+//      and stores dh and dv at the tile's interior cells.
+// Occupancy: 67 196 B of dynamic shared memory (two windows 2 x 18 800,
+// basis 12 512, scratch 16 976, frames 108) and __launch_bounds__(256,
+// 3): 3 blocks (24 warps) per SM, <= 80 registers.  384 blocks on 132 SMs
+// x 3 slots = 396: one wave.
 
-#include "swe_common.cuh"
+#include "swe_faces.cuh"
 
 namespace {
 
+using namespace cov;
 using namespace swe;
-
-constexpr int AP = 2;      // h apron: PLR reads two cells past a face
 
 struct Params {
   const float* frames;  // (6, 3, 3) face frames c0, cx, cy
@@ -56,58 +68,62 @@ struct Params {
   Consts k;
 };
 
-// Extended frame q (m x m) at face-local (j, i); 0 past the frame (the
-// ragged last tiles' aprons, which feed no kept output).
-__device__ __forceinline__ float frame_at(const float* __restrict__ q,
-                                          int n, int hh, int j, int i) {
-  if (j < -hh || j >= n + hh || i < -hh || i >= n + hh) return 0.0f;
-  return q[(j + hh) * (n + 2 * hh) + i + hh];
+struct Smem {
+  SweWindow w[2];     // this face's window and the next one's
+  SweBasis bt;
+  SweScratch s;
+  float fr[FPB][9];   // the group's face frames
+};
+
+// The three faces of the block's group on one tile position.
+__device__ __forceinline__ void rhs_faces(const Params& p, Smem& sm, int f0,
+                                          int j0, int i0) {
+  const int n = p.n, hh = p.halo;
+  const long nn = (long)n * n;
+  stage_frame_window(sm.w[0], p.h, p.v, p.b, f0, n, hh, j0, i0);
+  async_commit();
+  swe_basis(sm.bt, p.xc, p.xf, p.k, n, hh, j0, i0);
+  {
+    const int t = threadIdx.y * BX + threadIdx.x;
+    if (t < FPB * 9) sm.fr[t / 9][t % 9] = p.frames[9 * f0 + t];
+  }
+
+  for (int q = 0; q < FPB; ++q) {
+    const int f = f0 + q, cur = q & 1;
+    if (q + 1 < FPB) {
+      stage_frame_window(sm.w[cur ^ 1], p.h, p.v, p.b, f + 1, n, hh, j0, i0);
+      async_commit();
+      async_wait<1>();
+    } else {
+      async_wait<0>();
+    }
+    __syncthreads();   // this face's window (and, first, bt) complete
+
+    swe_face_tile<false>(
+        sm.w[cur], sm.bt, sm.s, sm.fr[q], p.xc, p.xf, p.k, n, hh, j0, i0,
+        [&](int, int, int, int j, int i, float dh, float dv0, float dv1,
+            float dv2) {
+          const long c = f * nn + (long)j * n + i;
+          p.dh[c] = dh;
+          p.dv[c] = dv0;
+          p.dv[6 * nn + c] = dv1;
+          p.dv[12 * nn + c] = dv2;
+        });
+    __syncthreads();   // the window and the scratch are free for the next face
+  }
 }
 
-__global__ void __launch_bounds__(BX * BY, 4)
-swe_rhs_kernel(const Params p) {
-  __shared__ float s_h[TY + 2 * AP][TX + 2 * AP];
-  __shared__ float s_v[3][TY + 2][TX + 2];
-  __shared__ float s_fr[9];
-  __shared__ Scratch s;
-
-  const int n = p.n, hh = p.halo, m = n + 2 * hh;
-  const int f = blockIdx.z;
-  const int i0 = blockIdx.x * TX, j0 = blockIdx.y * TY;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const long mm = (long)m * m, nn = (long)n * n;
-
-  // ---- 1. stage the tile with its aprons, and the face frame ----------
-  for (int ly = ty; ly < TY + 2 * AP; ly += BY)
-    for (int lx = tx; lx < TX + 2 * AP; lx += BX)
-      s_h[ly][lx] = frame_at(p.h + f * mm, n, hh, j0 + ly - AP,
-                             i0 + lx - AP);
-  for (int ly = ty; ly < TY + 2; ly += BY)
-    for (int lx = tx; lx < TX + 2; lx += BX)
-      for (int c = 0; c < 3; ++c)
-        s_v[c][ly][lx] = frame_at(p.v + (c * 6 + f) * mm, n, hh,
-                                  j0 + ly - 1, i0 + lx - 1);
-  if (ty == 0 && tx < 9) s_fr[tx] = p.frames[9 * f + tx];
-  __syncthreads();
-
-  // ---- 2. tendencies ----------------------------------------------------
-  swe_tile<false>(
-      &s_h[0][0], &s_v[0][0][0], s, s_fr, p.b + f * mm, p.xc, p.xf, p.k, n,
-      hh, j0, i0,
-      [=](int, int, int j, int i, float dh, float dv0, float dv1,
-          float dv2) {
-        const long c = f * nn + (long)j * n + i;
-        p.dh[c] = dh;
-        p.dv[c] = dv0;
-        p.dv[6 * nn + c] = dv1;
-        p.dv[12 * nn + c] = dv2;
-      });
+__global__ void __launch_bounds__(NT, 3) swe_rhs_kernel(const Params p) {
+  extern __shared__ float smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  rhs_faces(p, sm, blockIdx.z * FPB, blockIdx.y * FTY, blockIdx.x * FTX);
 }
 
 }  // namespace
 
-// Launches the RHS on `stream`; returns cudaGetLastError() (0 = ok).  All
-// tensors float32, contiguous, in the layouts of Params.
+// Launches the RHS on `stream`; returns the cudaError_t of the shared
+// memory attribute or of the launch (0 = ok).  All tensors float32,
+// contiguous, in the layouts of Params.
 extern "C" int swe_rhs_f32(
     const float* frames, const float* h_ext, const float* v_ext,
     const float* b_ext, const float* xc, const float* xf, float* dh,
@@ -115,8 +131,11 @@ extern "C" int swe_rhs_f32(
     float two_omega, float inv2d, float inv_d, void* stream) {
   Params p{frames, h_ext, v_ext, b_ext, xc, xf, dh, dv, n, halo,
            Consts{R, R2, gravity, two_omega, inv2d, inv_d}};
-  const dim3 grid((n + TX - 1) / TX, (n + TY - 1) / TY, 6);
+  const int rc = dynamic_smem_limit(swe_rhs_kernel, sizeof(Smem));
+  if (rc != 0) return rc;
+  const dim3 grid((n + FTX - 1) / FTX, (n + FTY - 1) / FTY, 6 / FPB);
   const dim3 block(BX, BY);
-  swe_rhs_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  const size_t smem = sizeof(Smem);
+  swe_rhs_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,7 @@ and B8.
     python3 scripts/torch_faces_probe.py [--n N] [--mega DIR] [--parts P,...] build/jaxstream_torch/parent [OTHER ...]
 
 ``--parts`` picks what runs (default all): ``b1b2`` (B1, B2 and the
-OTHER variants), ``b12``, ``b4``, ``b11b7a``, ``b13b8``.  ``--ink DIR``,
+OTHER variants), ``b12``, ``b4``, ``b11b7a``, ``b13b8``, ``b9b10``.  ``--ink DIR``,
 ``--nu4a DIR``, ``--nbr DIR`` and ``--ext DIR`` add variant .cu files of
 this tree's ``swe_stage_inkernel.cu``, ``cov_stage_nu4.cu``,
 ``cov_stage_nbr.cu`` and ``cov_stage_inkernel.cu`` (built against this
@@ -73,9 +73,8 @@ step (the Cartesian in-kernel one, the in-stage one) is also timed with
 the parent's and this tree's kernel in turns: device µs per step as a
 CUDA graph of 20 steps, the host's issue time per step (the host clock
 around 20 steps enqueued, before the synchronise), and wall steps/s over
-200 steps.  The SASS counts
-of B7 B (and its B14 modes), B9 (``swe_rhs.cu``) and B10
-(``swe_stage.cu``) are printed beside the earlier tree's.
+200 steps.  The SASS counts of B7 B (and its B14 modes) are printed
+beside the earlier tree's.
 
 B13's and B8's forms (``b13b8``; the levers are this tree's sources
 rewritten, ``b13b8_levers``):
@@ -101,10 +100,29 @@ B13 on the nbr TC5 carry after 20 steps, B8 on the extended carry after
 20 steps, stages 1-3.  The nbr and extended steps are also timed with the
 parent's and this tree's kernel in turns: device µs per step as a CUDA
 graph of 20 steps, and for nbr the host's issue time per step and wall
-steps/s over 200 steps.  The SASS counts of B3
-(``cov_stage_refused_nu4.cu``), B7 B / B14, B9, B10 and of every
-faces-in-block kernel that shares ``cov_faces.cuh`` are printed beside
-the earlier tree's.
+steps/s over 200 steps.  The SASS counts of the kernels ``SASS_KEPT``
+names are printed beside the earlier tree's.
+
+B9's and B10's forms (``b9b10``; the levers are this tree's sources
+rewritten, ``b9b10_levers``):
+
+* ``parent``: the earlier tree's kernel;
+* ``basis per face`` (B9): the general basis's divisions computed at
+  every face and centre of every face instead of once per tile
+  (``SweBasis``);
+* ``ring loads ahead`` (B10): the ring's first pass loaded ahead of the
+  first window's copies and stored after them (B11's order) instead of
+  loaded and stored after the copies;
+* ``no ring`` (B10; an ablation, timing only): the ghost ring not
+  written;
+* ``new``: this tree's.
+
+Both on the Cartesian TC5 state after 20 in-kernel steps, exchanged: B9
+once, B10 stages 1-3 and the general core's stage 2.  The classic
+(``backend: pallas``) and concat steps are also timed with the parent's
+and this tree's kernel in turns: device µs per step as a CUDA graph of 20
+steps, and wall steps/s over 100 steps.  The SASS counts of the kernels
+``SASS_KEPT`` names are printed beside the earlier tree's.
 
 Every figure is device time per launch of 20 launches captured as a
 CUDA graph and replayed (``profiling.device_seconds``) at C``N`` (default
@@ -250,7 +268,8 @@ def nvcc_build(src: Path, out: Path, include: Path) -> str:
 
 def ptxas_lines(log: str) -> list:
     return [ln.strip() for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln or "smem" in ln]
+            if "registers" in ln or "spill" in ln or "smem" in ln
+            or "Compiling entry function" in ln]
 
 
 def sass_counts(lib: Path) -> dict:
@@ -458,7 +477,9 @@ def redesign_levers() -> dict:
                    "return fast_frame(x, y, k);")
     hdr = _sub(hdr, "  const SweMetric& mt;\n",
                "  const SweMetric& mt;\n  const Consts& k;\n")
-    hdr = _sub(hdr, "const TilePoints pt{mt};", "const TilePoints pt{mt, k};")
+    if hdr.count("TilePoints{mt}.") != 4:
+        raise RuntimeError("expected four TilePoints{mt} in swe_faces.cuh")
+    hdr = hdr.replace("TilePoints{mt}.", "TilePoints{mt, k}.")
     ink = _sub((csrc / "swe_stage_inkernel.cu").read_text(),
                '#include "swe_faces.cuh"\n', hdr)
     a = (csrc / "cov_stage_nu4.cu").read_text()
@@ -475,8 +496,8 @@ def redesign_levers() -> dict:
 def probe_redesign(libs, parent, n, card, sass, ink_vars=(), a_vars=()):
     """B11 and B7 A: this tree's, the earlier tree's and the levers;
     bitwise checks, device µs per launch and per step in turns, the
-    host's issue time per step, and the SASS counts of the kernels that
-    must not change (B7 B / B14, B9, B10)."""
+    host's issue time per step, and the SASS counts of kernel B (and
+    B14), which must not change."""
     from jaxstream_torch import _build
     from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
                                         EARTH_RADIUS)
@@ -610,15 +631,12 @@ def probe_redesign(libs, parent, n, card, sass, ink_vars=(), a_vars=()):
 
     # The functions' names differ between two builds (an anonymous
     # namespace is named after its file), so the counts are compared.
-    for name in ("cov_stage_nu4", "swe_rhs", "swe_stage"):
-        keep, was = ([c for k, c in sass[lib].items()
-                      if name != "cov_stage_nu4" or "nu4_b_kernel" in k]
-                     for lib in (name, f"parent_{name}"))
-        print(f"SASS {name}" + (" kernel B" if name == "cov_stage_nu4"
-                                else "") + f": {sorted(keep)} (parent "
-              f"{sorted(was)}): "
-              + ("same" if sorted(keep) == sorted(was) else "CHANGED"),
-              flush=True)
+    keep, was = ([c for k, c in sass[lib].items() if "nu4_b_kernel" in k]
+                 for lib in ("cov_stage_nu4", "parent_cov_stage_nu4"))
+    print(f"SASS cov_stage_nu4 kernel B: {sorted(keep)} (parent "
+          f"{sorted(was)}): "
+          + ("same" if sorted(keep) == sorted(was) else "CHANGED"),
+          flush=True)
     return checks, times, steps
 
 
@@ -824,31 +842,182 @@ def probe_b13b8(libs, n, card, sass, nbr_vars=(), ext_vars=()):
                       f"{r:.1f}" for _, _, r in v) + " steps/s"
                   for k, v in got.items()) + f"; card {card}", flush=True)
 
-    # The functions' names differ between two builds (an anonymous
-    # namespace is named after its file), so the counts are compared.
-    for name in SASS_KEPT:
-        if f"parent_{name}" not in sass:
-            continue
-        keep, was = (sorted(sass[lib].values())
-                     for lib in (name, f"parent_{name}"))
-        print(f"SASS {name}: {keep} (parent {was}): "
-              + ("same" if keep == was else "CHANGED"), flush=True)
+    sass_kept(sass)
     return checks, times, steps
 
 
-#: The libraries whose SASS b13b8 compares with the earlier tree's: the
-#: kernels this PR does not rebuild (B3, B7 / B14, B9, B10) and the
-#: faces-in-block kernels that share cov_faces.cuh with B8 and B13.
-SASS_KEPT = ("cov_stage_refused_nu4", "cov_stage_nu4", "swe_rhs", "swe_stage",
-             "cov_stage", "cov_nu4_filter", "cov_rhs", "cov_rhs_interior",
-             "cov_rhs_local", "cov_step_mega", "swe_stage_inkernel")
+def b9b10_levers() -> dict:
+    """This tree's B9 with the general basis's divisions per face (no
+    SweBasis), and its B10 with the ring's first pass loaded ahead of the
+    first window's copies (B11's order), and without the ring (an
+    ablation)."""
+    from jaxstream_torch import _build
+
+    csrc = _build.CSRC_DIR
+    rhs = (csrc / "swe_rhs.cu").read_text()
+    cat = (csrc / "swe_stage.cu").read_text()
+    per_face = _sub(rhs, "  SweBasis bt;\n", "")
+    per_face = _sub(per_face, "struct Smem {",
+                    "struct PerFace {};   // any Mt but SweBasis\n\n"
+                    "struct Smem {")
+    per_face = _sub(per_face,
+                    "  swe_basis(sm.bt, p.xc, p.xf, p.k, n, hh, j0, i0);\n",
+                    "")
+    per_face = _sub(per_face, "sm.w[cur], sm.bt, sm.s,",
+                    "sm.w[cur], PerFace{}, sm.s,")
+    window = ("  stage_frame_window(sm.w[0], p.hc, p.vc, p.b, f0, n, hh, j0, "
+              "i0);\n  async_commit();\n")
+    ring = "  const FrameRing ring(n, hh, j0, i0);\n"
+    first = ("  const FrameRing ring(n, hh, j0, i0);\n  RingCell rc0;\n"
+             "  ring_load(p, ring, f0, j0, 0, rc0);\n")
+    ahead = _sub(_sub(cat, window + ring, first + window
+                      + "  ring_store(p, rc0);\n"),
+                 "for (int k0 = 0; k0 < ring.count;",
+                 "for (int k0 = NT; k0 < ring.count;")
+    no_ring = _sub(cat, "    ring_store(p, rc);\n", "")
+    return {"rhs_basis_per_face": per_face, "cat_ring_ahead": ahead,
+            "cat_no_ring": no_ring}
+
+
+#: The b9b10 forms of each kernel: label -> library name; the ablation
+#: (not bitwise by design) last.
+B9_FORMS = {"parent": "parent_swe_rhs",
+            "basis per face": "rhs_basis_per_face", "new": "swe_rhs"}
+B10_FORMS = {"parent": "parent_swe_stage",
+             "ring loads ahead": "cat_ring_ahead",
+             "new": "swe_stage", "no ring": "cat_no_ring"}
+
+
+def probe_b9b10(libs, n, card, sass):
+    """B9 and B10: this tree's, the earlier tree's and the levers;
+    bitwise checks, device µs per launch and per step in turns, the
+    steps' wall rate, and the SASS counts of the kernels that must not
+    change."""
+    from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
+                                        EARTH_RADIUS)
+    from jaxstream_torch.geometry.cubed_sphere import build_grid
+    from jaxstream_torch.models.shallow_water import ShallowWater
+    from jaxstream_torch.ops.cuda import swe_rhs, swe_step
+    from jaxstream_torch.physics.initial_conditions import williamson_tc5
+    from jaxstream_torch.stepping import integrate
+    from jaxstream_torch.utils.profiling import device_seconds
+
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fns = {("rhs", k): entry(libs[lib], "swe_rhs_f32",
+                             [P] * 8 + [I] * 2 + [F] * 6 + [P])
+           for k, lib in B9_FORMS.items()}
+    fns.update({("cat", k): entry(libs[lib], "swe_stage_f32",
+                                  [P] * 10 + [I] * 4 + [F] * 9 + [P])
+                for k, lib in B10_FORMS.items()})
+
+    def use(tag, key):
+        mod, attr = ((swe_rhs, "_rhs_kernel") if tag == "rhs"
+                     else (swe_step, "_stage_kernel"))
+        return lambda: setattr(mod, attr, lambda: fns[(tag, key)])
+
+    grid = build_grid(n, halo=2, radius=EARTH_RADIUS, dtype=torch.float32)
+    h, v, b = williamson_tc5(grid, EARTH_GRAVITY, EARTH_OMEGA)
+    model = ShallowWater(grid, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA,
+                         b_ext=b, backend="pallas")
+    istep = model.make_fused_step(75.0)
+    y, t = integrate(istep, model.extend_state(model.initial_state(h, v),
+                                               with_strips=True),
+                     0.0, 20, 75.0)
+    s20 = model.restrict_state(y)
+    cstep = model.make_fused_step(75.0, in_kernel_exchange=False)
+    ex, bx = cstep.exchange, model.b_ext
+    hk, vk = ex(y["h"]), ex(y["v"])
+    c1, c2, c3 = cstep.stages
+    gen = swe_step.make_swe_stage_pallas(
+        grid.n, grid.halo, grid.dalpha, grid.radius, EARTH_GRAVITY,
+        EARTH_OMEGA, 75.0, c2.a, c2.b, fast=False, device=grid.device)
+    kern = model._pallas_rhs
+    cases = {
+        "rhs": {"TC5 after 20 steps": (kern, (model.fill(s20["h"]),
+                                              model.fill(s20["v"]), bx))},
+        "cat": {"stage 1": (c1, (hk, vk, bx)),
+                "stage 2": (c2, (hk, vk, hk, vk, bx)),
+                "stage 3": (c3, (hk, vk, hk, vk, bx)),
+                "general stage 2": (gen, (hk, vk, hk, vk, bx))}}
+    label = {"rhs": "B9", "cat": "B10"}
+    checks, times = {}, {}
+    for tag, forms in (("rhs", B9_FORMS), ("cat", B10_FORMS)):
+        for key in forms:
+            if key == "no ring":
+                continue
+            use(tag, key)()
+            for case, (st, a) in cases[tag].items():
+                checks[f"{label[tag]} {key} {case}"] = bitwise(
+                    st, st.reference, a)
+        for case, (st, a) in cases[tag].items():
+            times[f"{label[tag]} {case}"] = in_turns(
+                {k: use(tag, k) for k in forms}, st, a)
+        use(tag, "new")()
+
+    # The steps: device µs per step as a CUDA graph of 20 and the wall
+    # steps/s of 100 steps, parent and new kernel in turns.
+    def step_times(step, y0, t0_):
+        d = device_seconds(lambda: integrate(step, y0, t0_, 20, 75.0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        integrate(step, y0, t0_, 100, 75.0)
+        torch.cuda.synchronize()
+        return (float("nan") if d is None else d / 20 * 1e6,
+                100 / (time.perf_counter() - t0))
+
+    steps = {}
+    for name, tag, step, y0 in (
+            ("classic step", "rhs", model.make_step(75.0), s20),
+            ("concat step", "cat", cstep, {"h": hk, "v": vk})):
+        got = {"parent": [], "new": []}
+        for form in ("parent", "new", "new", "parent"):
+            use(tag, form)()
+            got[form].append(step_times(step, y0, t))
+        use(tag, "new")()
+        steps[name] = got
+        print(f"C{n} {name} (parent / new kernel, in turns): "
+              + "; ".join(f"{k} device " + ", ".join(
+                  f"{d:.2f}" for d, _ in v) + " us/step, wall " + ", ".join(
+                      f"{r:.1f}" for _, r in v) + " steps/s"
+                  for k, v in got.items()) + f"; card {card}", flush=True)
+    sass_kept(sass)
+    return checks, times, steps
+
+
+def sass_kept(sass) -> None:
+    """Print the SASS counts of the libraries (or the functions) of
+    ``SASS_KEPT`` beside the earlier tree's.  The functions' names differ
+    between two builds (an anonymous namespace is named after its file),
+    so the counts are compared."""
+    for name, which in SASS_KEPT.items():
+        if f"parent_{name}" not in sass:
+            continue
+        keep, was = (sorted(c for k, c in sass[lib].items()
+                            if which is None or which in k)
+                     for lib in (name, f"parent_{name}"))
+        print(f"SASS {name}" + (f" ({which})" if which else "")
+              + f": {keep} (parent {was}): "
+              + ("same" if keep == was else "CHANGED"), flush=True)
+
+
+#: The libraries whose SASS b13b8 and b9b10 compare with the earlier
+#: tree's, each with the kernel functions it covers (a substring of their
+#: names; None for all): the kernels that keep their tile-per-block design
+#: (B3, B7 B / B14), the faces-in-block kernels that share cov_faces.cuh,
+#: and B11's fast core, which the main Cartesian path runs and which
+#: shares swe_faces.cuh with B9 and B10.
+SASS_KEPT = {"cov_stage_refused_nu4": None, "cov_stage_nu4": None,
+             "cov_stage": None, "cov_nu4_filter": None, "cov_rhs": None,
+             "cov_rhs_interior": None, "cov_rhs_local": None,
+             "cov_step_mega": None, "cov_stage_inkernel": None,
+             "cov_stage_nbr": None, "swe_stage_inkernel": "ILb1E"}
 
 
 def main() -> int:
     args = sys.argv[1:]
     n = 384
     mega_dir = None
-    parts = {"b1b2", "b12", "b4", "b11b7a", "b13b8"}
+    parts = {"b1b2", "b12", "b4", "b11b7a", "b13b8", "b9b10"}
     var_dirs = {}
     while args[:1] in (["--n"], ["--mega"], ["--parts"], ["--ink"],
                        ["--nu4a"], ["--nbr"], ["--ext"]):
@@ -938,12 +1107,19 @@ def main() -> int:
                 for cu in sorted(d.glob("*.cu")):
                     variants[f"{kind}_{cu.stem}"] = (cu.read_text(),
                                                      _build.CSRC_DIR)
-    if "b13b8" in parts:
-        ours += ["cov_stage_nbr", "cov_stage_inkernel"]
+    if parts & {"b13b8", "b9b10"}:
         ours += [k for k in SASS_KEPT if k not in ours]
-        for name in ("cov_stage_nbr", "cov_stage_inkernel") + SASS_KEPT:
+        for name in SASS_KEPT:
             variants.setdefault(f"parent_{name}", (
                 (parent / f"{name}.cu").read_text(), parent))
+    if "b9b10" in parts:
+        ours += ["swe_rhs", "swe_stage"]
+        for name in ("swe_rhs", "swe_stage"):
+            variants.setdefault(f"parent_{name}", (
+                (parent / f"{name}.cu").read_text(), parent))
+        for name, text in b9b10_levers().items():
+            variants[name] = (text, _build.CSRC_DIR)
+    if "b13b8" in parts:
         for name, text in b13b8_levers().items():
             variants[name] = (text, _build.CSRC_DIR)
         for kind in ("nbr", "ext"):
@@ -1079,9 +1255,14 @@ def main() -> int:
             libs, n, card, sass, stems["nbr"], stems["ext"])
         more.update(wb_checks)
         times.update(wb_times)
+    if "b9b10" in parts:
+        bb_checks, bb_times, summary["b9b10_steps_us"] = probe_b9b10(
+            libs, n, card, sass)
+        more.update(bb_checks)
+        times.update(bb_times)
     checks.update(more)
-    print(f"bitwise vs plain at C{n} (B12, B4, B11, B7 A, B13, B8): {more}",
-          flush=True)
+    print(f"bitwise vs plain at C{n} (B12, B4, B11, B7 A, B13, B8, B9, "
+          f"B10): {more}", flush=True)
     for label, t in times.items():
         print(f"C{n} {label}, device us per launch (CUDA graph of {REPS}, "
               "in turns): " + "; ".join(
@@ -1094,7 +1275,7 @@ def main() -> int:
              if k.split()[0] in ("cov_stage", "parent_stage_full",
                                  "cov_nu4_filter", "parent_filter",
                                  "B12", "B4", "B11", "B7", "B13",
-                                 "B8"))
+                                 "B8", "B9", "B10"))
     print(json.dumps({"ok": ok, "n": n, "card": card, "bitwise": checks,
                       "times_us": times, "sass": sass, **summary}))
     return 0 if ok else 1

@@ -584,16 +584,30 @@ def test_step_mega_matches_plain_c48():
         y = step(y, 0.0)
 
 
-def _cart_c48():
-    """The Cartesian TC5 model at C48 (backend 'pallas'), its state, and
-    the state after one in-kernel fused step."""
-    g = build_grid(48, halo=2, radius=EARTH_RADIUS, device="cuda")
+def _cart(n):
+    """The Cartesian TC5 model at C``n`` (backend 'pallas'), its state,
+    and the state after one in-kernel fused step."""
+    g = build_grid(n, halo=2, radius=EARTH_RADIUS, device="cuda")
     h, v, b = williamson_tc5(g, EARTH_GRAVITY, EARTH_OMEGA)
     m = ShallowWater(g, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA, b_ext=b,
                      backend="pallas")
     s0 = m.initial_state(h, v)
-    step = m.make_fused_step(75.0 * 384 / 48)
+    step = m.make_fused_step(75.0 * 384 / n)
     return g, m, s0, step, step(m.extend_state(s0, with_strips=True), 0.0)
+
+
+def _cart_c48():
+    return _cart(48)
+
+
+def _swe_rhs_matches_plain(m, states):
+    """B9 on each state's filled frames: bitwise, one launch each."""
+    kern = m._pallas_rhs
+    for s in states:
+        before = tsr.SweRhs.launches
+        _check("swe rhs", kern, kern.reference,
+               (m.fill(s["h"]), m.fill(s["v"]), m.b_ext), TOL, exact=True)
+        assert tsr.SweRhs.launches == before + 1
 
 
 @pytest.mark.gpu
@@ -602,20 +616,15 @@ def test_swe_rhs_kernel_matches_plain_c48():
         pytest.skip("needs a CUDA device (the Cartesian RHS kernel has no "
                     "CPU form)")
     g, m, s0, step, y1 = _cart_c48()
-    kern = m._pallas_rhs
-    before = tsr.SweRhs.launches
     # The initial state and the state after a step (TC5's initial wind
     # has a zero z-component, which hides some operation orders).
-    for s in (s0, m.restrict_state(y1)):
-        _check("swe rhs", kern, kern.reference,
-               (m.fill(s["h"]), m.fill(s["v"]), m.b_ext), TOL)
-    assert tsr.SweRhs.launches == before + 2
+    _swe_rhs_matches_plain(m, (s0, m.restrict_state(y1)))
 
 
 @pytest.mark.gpu
 def test_swe_stage_kernels_match_plain_c48():
-    """Both Cartesian stage kernels (the in-kernel one bitwise) in both
-    cores, from the carry after one step and after eleven."""
+    """Both Cartesian stage kernels in both cores, bitwise, from the carry
+    after one step and after eleven."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the Cartesian stage kernels have "
                     "no CPU form)")
@@ -623,6 +632,24 @@ def test_swe_stage_kernels_match_plain_c48():
     dt = 75.0 * 384 / 48
     y11, _ = integrate(step, y1, dt, 10, dt)
     for y in (y1, y11):
+        _swe_stages_match_plain(g, m, s0, step, y, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [48, 72, 74], ids=["c48", "c72", "c74"])
+def test_swe_faces_kernels_match_plain(n):
+    """B9 and B10 (and B11) on 3 x 3 tile positions (C72: ragged last
+    columns, a middle tile that reads no ghost), on tiles ragged by 2 and
+    10 cells (C74) and at C48, from the carry after one step and after
+    eleven: bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the Cartesian kernels have no "
+                    "CPU form)")
+    g, m, s0, step, y1 = _cart(n)
+    dt = 75.0 * 384 / n
+    y11, _ = integrate(step, y1, dt, 10, dt)
+    for y in (y1, y11):
+        _swe_rhs_matches_plain(m, (m.restrict_state(y),))
         _swe_stages_match_plain(g, m, s0, step, y, dt)
 
 
@@ -648,7 +675,7 @@ def _swe_stages_match_plain(g, m, s0, step, y1, dt):
                                        fast=fast, device=g.device)
         before = tss.SweStage.launches
         _check(f"concat stage {k}", st, st.reference,
-               base + yc + (m.b_ext,), tol)
+               base + yc + (m.b_ext,), tol, exact=True)
         assert tss.SweStage.launches == before + 1
         if k == 4:
             base = (-2.0 * ink[0], -2.0 * ink[1])

@@ -174,18 +174,22 @@ inline grid_group this_grid() { return {}; }
 
 def _mutated_lib(emulated, name: str, old: str, new: str):
     """Kernel ``name`` compiled for the host with the one occurrence of
-    ``old`` replaced by ``new``: in its source, or in ``cov_faces.cuh``,
-    which is then inlined into the source.  Each mutation gets a library
+    ``old`` replaced by ``new``: in its source, or in the header it
+    includes (``cov_faces.cuh`` or ``swe_faces.cuh``), which is then
+    inlined into the source.  Each mutation gets a library
     of its own: a path the process has loaded once is not loaded again."""
     src = (_build.CSRC_DIR / _build.KERNELS[name]).read_text()
     if old in src:
         assert src.count(old) == 1
         src = src.replace(old, new)
     else:
-        hdr = (_build.CSRC_DIR / "cov_faces.cuh").read_text()
+        header = next(h for h in ("cov_faces.cuh", "swe_faces.cuh")
+                      if old in (_build.CSRC_DIR / h).read_text())
+        hdr = (_build.CSRC_DIR / header).read_text()
         assert hdr.count(old) == 1
         hdr = hdr.replace(old, new).replace("#pragma once\n", "")
-        src = src.replace('#include "cov_faces.cuh"\n', hdr)
+        assert f'#include "{header}"\n' in src
+        src = src.replace(f'#include "{header}"\n', hdr)
     return emulated["_compile"](src, f"{name}_mut{next(_MUTANTS)}")
 
 
@@ -719,7 +723,8 @@ def _cart_operands(n):
     """The C``n`` Cartesian TC5 model (backend 'pallas'), the in-kernel
     stepper, and the operands of its three stages from the carry after
     one step (TC5's initial wind has an exactly zero z-component): the
-    stage-1 frames, and stages 2 and 3 on the plain stage 1's output."""
+    stage-1 frames, and stages 2 and 3 on the plain stage 1's output;
+    and B9's and B10's operands from the same carry."""
     g = build_grid(n, halo=2, radius=EARTH_RADIUS, device="cpu")
     h, v, b = williamson_tc5(g, G, OM)
     m = ShallowWater(g, gravity=G, omega=OM, b_ext=b, backend="pallas")
@@ -730,7 +735,18 @@ def _cart_operands(n):
                                        y1["sv_sn"], y1["sv_we"]), m.b_ext)
     k1 = st1.reference(*a1)
     a2 = (y1["h"], y1["v"], k1[0], k1[1], step.route(*k1[2:]), m.b_ext)
-    return g, [(st1, a1), (st2, a2), (st3, a2)]
+    # B9 and B10 on the same carry's exchanged frames: the RHS, and the
+    # concat stages 1-3 (stages 2 and 3 on the plain stage 1's exchanged
+    # output) and stage 3 with y0 = -2*yc (the interiors g*L alone).
+    step_c = m.make_fused_step(step.stages[0].dt, in_kernel_exchange=False)
+    ex = step_c.exchange
+    c1, c2, c3 = step_c.stages
+    b1 = (ex(y1["h"]), ex(y1["v"]), m.b_ext)
+    j1 = c1.reference(*b1)
+    b2 = b1[:2] + (ex(j1[0]), ex(j1[1]), m.b_ext)
+    b3p = (-2.0 * b2[2], -2.0 * b2[3]) + b2[2:]
+    return g, [(st1, a1), (st2, a2), (st3, a2)], (
+        (m._pallas_rhs, b1), [(c1, b1), (c2, b2), (c3, b2), (c3, b3p)])
 
 
 def _tc5_nu4_operands(n):
@@ -750,9 +766,11 @@ def _tc5_nu4_operands(n):
 @pytest.fixture(scope="module")
 def redesign_cases():
     """B11's stages at C72 and C74 (and C24, a tile wider than its face:
-    more ghost ring cells than a pass of the block takes), kernel A's on
-    TC5 at C40 and C72."""
-    return {"cart": {n: _cart_operands(n) for n in (24, 72, 74)},
+    more ghost ring cells than a pass of the block takes), B9's and B10's
+    on the same carries, kernel A's on TC5 at C40 and C72."""
+    cart = {n: _cart_operands(n) for n in (24, 72, 74)}
+    return {"cart": {n: c[:2] for n, c in cart.items()},
+            "concat": {n: c[2] for n, c in cart.items()},
             "tc5": {n: _tc5_nu4_operands(n) for n in (40, 72)}}
 
 
@@ -814,6 +832,75 @@ def test_redesign_mutation_is_caught(emulated, launch_on_cpu, monkeypatch,
     else:
         st, args = redesign_cases["tc5"][72][1]
         out, ref = st.call_a(*args), st.reference_a(*args)
+    assert not all(torch.equal(x, r) for x, r in zip(out, ref))
+
+
+# ---- the faces-in-block redesigns of B9 and B10 ----------------------------
+#
+# The same grids as B11's: at C24 one tile is wider than its face and owns
+# more of its faces' ghost ring cells than one pass of the block takes
+# (B10); at C72 a middle tile reads no ghost; at C74 the last tiles are
+# ragged by 2 and 10 cells.
+
+@pytest.mark.parametrize("n", [24, 72, 74], ids=["c24", "c72", "c74"])
+def test_swe_rhs_larger_grids(launch_on_cpu, redesign_cases, n):
+    """B9 (the general core, its divisions from the tile's table) on the
+    carry after one step: bitwise."""
+    (kern, args), _ = redesign_cases["concat"][n]
+    before = tsr.SweRhs.launches
+    _equal(kern(*args), kern.reference(*args))
+    assert tsr.SweRhs.launches == before + 1
+
+
+@pytest.mark.parametrize("n, fast", [(24, True), (72, True), (74, True),
+                                     (24, False), (72, False), (74, False)],
+                         ids=["c24", "c72", "c74", "c24-general",
+                              "c72-general", "c74-general"])
+def test_swe_concat_stage_larger_grids(launch_on_cpu, redesign_cases, n,
+                                       fast):
+    """B10 in both cores: stages 1-3 and stage 3 with y0 = -2*yc, bitwise,
+    the ghost ring included."""
+    _, stages = redesign_cases["concat"][n]
+    if not fast:   # the general core (rhs_core)
+        stages = [(tss.make_swe_stage_pallas(
+            st.n, st.halo, st.dalpha, st.radius, G, OM, st.dt, st.a, st.b,
+            fast=False, device="cpu"), args) for st, args in stages]
+    before = tss.SweStage.launches
+    for st, args in stages:
+        _equal(st(*args), st.reference(*args))
+    assert tss.SweStage.launches == before + len(stages)
+
+
+_RHS_WINDOW = "sm.w[cur], sm.bt, sm.s,"
+_RHS_PREFETCH = "stage_frame_window(sm.w[cur ^ 1], p.h, p.v, p.b, f + 1,"
+_RHS_TABLE = "if constexpr (table) return mt.idet_x[ly][lf];"
+_CAT_WINDOW = "const SweWindow& w = sm.w[cur];"
+_CAT_PREFETCH = "stage_frame_window(sm.w[cur ^ 1], p.hc, p.vc, p.b, f + 1,"
+_CAT_RING = "p.a * (fi == 0 ? p.h0 : p.v0)[c] + p.bcoef * rc.yc[fi]"
+
+
+@pytest.mark.parametrize("name, old, new", [
+    ("swe_rhs", _RHS_WINDOW, _RHS_WINDOW.replace("cur", "cur ^ 1")),
+    ("swe_rhs", _RHS_PREFETCH, _RHS_PREFETCH.replace("f + 1", "f")),
+    ("swe_rhs", _RHS_TABLE, _RHS_TABLE.replace("[lf]", "[lf + 1]")),
+    ("swe_stage", _CAT_WINDOW, _CAT_WINDOW.replace("cur", "cur ^ 1")),
+    ("swe_stage", _CAT_PREFETCH, _CAT_PREFETCH.replace("f + 1", "f")),
+    ("swe_stage", _CAT_RING, "p.bcoef * rc.yc[fi]")],
+    ids=["rhs-next-window", "rhs-prefetch-face", "rhs-table-next-xface",
+         "concat-next-window", "concat-prefetch-face", "concat-ring-no-y0"])
+def test_b9_b10_mutation_is_caught(emulated, launch_on_cpu, monkeypatch,
+                                   redesign_cases, name, old, new):
+    """The mutation checks of B9 and B10 at C72: a face computed from the
+    other buffer's window; the current face's window prefetched instead
+    of the next one's; B9's x-face division read from the next x-face's
+    table entry; B10's ghost ring stored without its a*y0 term (stage 2).
+    Each must disagree with the plain version."""
+    lib = _mutated_lib(emulated, name, old, new)
+    monkeypatch.setattr(_build, "load", lambda nm: ctypes.CDLL(
+        str(lib if nm == name else emulated[nm])))
+    (kern, rargs), stages = redesign_cases["concat"][72]
+    call, args = (kern, rargs) if name == "swe_rhs" else stages[1]
+    out, ref = call(*args), call.reference(*args)
     assert not all(torch.equal(x, r) for x, r in zip(out, ref))
 
 
