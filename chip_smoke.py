@@ -100,25 +100,30 @@ Phases, each fatal on failure:
 10. the re-fused kernel against its plain version on the Galewsky state
     after one re-fused step (<= 1e-5 of each output's max), and its
     increment probe (nu4 scaled until the filtered base h0f, u0f is the
-    filter term; <= 1e-4), with the plain version's f32-vs-f64 spread;
+    filter term; <= 1e-4), with the plain version's f32-vs-f64 spread,
+    and on TC5 (its mountain orography) after one re-fused step at nu4 =
+    1e14; all bitwise required;
 11. three re-fused steps against three split steps (<= 2e-3 of max, the
     JAX package's damp-scale budget: the two differ by one endpoint
     filter application; mass <= 1e-5);
 12. the jet to day 6 on the re-fused stepper under the same gate, with
     the launches checked (re-fused 8 640, stage 17 280), then a timed
     window of 1 000 steps, its breakdown (3 routes, 1 re-fused launch,
-    2 stage launches, the rest), a traced window, and 300-step windows
-    of the split and re-fused steppers in turns (split, re-fused,
-    re-fused, split);
+    2 stage launches, the rest), the kernel's device time beside its
+    earlier design's (``EARLIER_DEVICE_US``) and the step's device time
+    as a CUDA graph, a traced window, and 300-step windows of the split
+    and re-fused steppers in turns (split, re-fused, re-fused, split);
 13. kernels A and B against their plain versions as stage 1 and stage 2
-    (<= 1e-5; A bitwise), B with its probe (<= 1e-4), and A on TC5 (its
-    mountain orography) after one in-stage step, as stage 1 and stage 2
-    (bitwise); then three in-stage steps against three classic del^4
-    steps (<= 5e-4) and three split steps (<= 2e-3);
+    (<= 1e-5), B with its probe (<= 1e-4), and A on TC5 (its mountain
+    orography) after one in-stage step, as stage 1 and stage 2; then
+    three in-stage steps against three classic del^4 steps (<= 5e-4) and
+    three split steps (<= 2e-3), and B again, with its probe, on the
+    state after those three steps; all bitwise required;
 14. a timed window of 500 in-stage steps with the launches checked
     (A and B 3 x steps) and its breakdown (6 routes, 3 A, 3 B, the rest);
-    A's device time beside its earlier design's (``EARLIER_DEVICE_US``)
-    and the in-stage step's device time as a CUDA graph;
+    A's and B's device times beside their earlier designs'
+    (``EARLIER_DEVICE_US``) and the in-stage step's device time as a
+    CUDA graph;
 15. the RHS kernel against its plain version on the TC5 state, six faces
     and one face with external sym rows (<= 1e-5 of each output's max),
     then the kernel-backed classic ``rhs`` and the torch one against a
@@ -240,7 +245,8 @@ Phases, each fatal on failure:
 35. the bisection's main path, ``nu4_bisect.run`` at 1 000 iterations:
     each chain's wall and device microseconds per iteration, its
     launches checked against its windows (the in-stage pair's and
-    B14's counters), and B14's time per mode against its bound;
+    B14's counters), and B14's time per mode against its bound and
+    beside its earlier design's (``EARLIER_DEVICE_US``);
 36. the port's ``utils.profiling`` on the compact TC5 stepper:
     ``steady_state_rate`` over 200- and 1 000-step windows with the
     ``Roofline`` report of ``analytic_cov_step_cost(384)``, a
@@ -300,7 +306,10 @@ KERNEL_TOL = 1e-5
 # The extended-carry stage (B8) and the neighbour-read stage (B13) in
 # their tile-per-block design, per launch (the same card and run as B1's).
 # The Cartesian RHS (B9) and concat stage (B10) in their tile-per-block
-# design, per launch (the same card and run as B1's).
+# design, per launch (the same card and run as B1's).  The re-fused stage
+# (B3), the in-stage kernel B (B7 B) and B's three ablated modes (B14) in
+# their tile-per-block design, per launch (the same card, a run of this
+# script before the faces-in-block kernels came).
 EARLIER_DEVICE_US = {"cov_stage_compact": 60.06, "cov_nu4_filter": 62.94,
                      "cov_rhs_interior face rank": 12.43,
                      "cov_rhs_interior block rank": 9.94,
@@ -309,31 +318,34 @@ EARLIER_DEVICE_US = {"cov_stage_compact": 60.06, "cov_nu4_filter": 62.94,
                      "cov_rhs face rank": 12.95,
                      "swe_stage_inkernel": 70.96, "cov_stage_nu4_a": 70.58,
                      "cov_stage_inkernel": 62.82, "cov_stage_nbr": 65.76,
-                     "swe_rhs": 54.06, "swe_stage": 56.96}
+                     "swe_rhs": 54.06, "swe_stage": 56.96,
+                     "cov_stage_refused_nu4": 115.66,
+                     "cov_stage_nu4_b": 39.62,
+                     "cov_stage_nu4_b_ablated full": 39.97,
+                     "cov_stage_nu4_b_ablated nofill": 23.65,
+                     "cov_stage_nu4_b_ablated nolap": 35.62}
 # Steps captured in one CUDA graph for a step's device time.
 GRAPH_STEPS = 20
-# ptxas's (registers, shared bytes) per kernel function of the other
-# libraries as they were built before the faces-in-block kernels came,
-# and of the faces-in-block kernels B1, B2, B5 and B6 as they were built
-# before B4 and B12 joined them on the shared header (nvcc of CUDA 12.8):
-# the log says whether each still builds to the same.  A library's entry
-# names the kernel functions it covers (a substring of their names; None
-# for all): cov_stage_nu4's kernel B (and B14, its modes) keeps its
-# tile-per-block design beside the redesigned kernel A.  B8 and B13, B9
-# and B10 as their faces-in-block redesigns were first built (80
-# registers, no spill).
+# ptxas's (registers, static shared bytes, spill-store bytes) per kernel
+# function of every library, in the order ptxas compiled them (nvcc of
+# CUDA 12.8), as the faces-in-block redesigns left them (cov_stage_nu4:
+# kernel B's NoLap, NoFill and Full instantiations, then kernel A; the
+# dynamic shared memory is not in these lines).  The log says whether
+# each still builds to the same.
 EARLIER_PTXAS = {
-    "cov_stage": (None, [(80, 0)]),
-    "cov_nu4_filter": (None, [(80, 0)]),
-    "cov_rhs_interior": (None, [(79, 0)]),
-    "cov_rhs_local": (None, [(79, 0)]),
-    "cov_stage_refused_nu4": (None, [(62, 47392)]),
-    "cov_stage_nu4": ("cov_stage_nu4_b_kernel",
-                      [(64, 7344), (62, 7344), (62, 7344)]),
-    "cov_stage_inkernel": (None, [(80, 0)]),
-    "cov_stage_nbr": (None, [(80, 0)]),
-    "swe_rhs": (None, [(80, 0)]),
-    "swe_stage": (None, [(80, 0), (80, 0)]),
+    "cov_stage": [(80, 0, 0)],
+    "cov_nu4_filter": [(80, 0, 16)],
+    "cov_rhs": [(80, 0, 0)],
+    "cov_rhs_interior": [(79, 0, 0)],
+    "cov_rhs_local": [(79, 0, 0)],
+    "cov_stage_refused_nu4": [(80, 0, 16)],
+    "cov_stage_nu4": [(80, 0, 0), (80, 0, 0), (80, 0, 20), (80, 0, 0)],
+    "cov_stage_inkernel": [(80, 0, 0)],
+    "cov_stage_nbr": [(80, 0, 0)],
+    "cov_step_mega": [(80, 0, 60)],
+    "swe_rhs": [(80, 0, 12)],
+    "swe_stage": [(80, 0, 20), (80, 0, 0)],
+    "swe_stage_inkernel": [(80, 0, 0), (80, 0, 0)],
 }
 # The tendency alone is ill-conditioned in float32 (its flux differences
 # cancel): two f32 evaluations differ by ~1e-5 of its max.
@@ -421,16 +433,19 @@ def log(msg: str) -> None:
 
 
 def ptxas_usage(build_log: str) -> list:
-    """``(function, registers, shared bytes)`` of each kernel function in
-    an ``nvcc -Xptxas -v`` log, in the order ptxas compiled them."""
+    """``(function, registers, static shared bytes, spill-store bytes)`` of
+    each kernel function in an ``nvcc -Xptxas -v`` log, in the order
+    ptxas compiled them."""
     out = []
     for fn, body in re.findall(r"Compiling entry function '([^']+)'(.*?)"
                                r"(?=Compiling entry function|\Z)",
                                build_log, re.S):
         m = re.search(r"Used (\d+) registers[^\n]*?(?:, (\d+) bytes smem)?\n",
                       body)
+        spill = re.search(r"(\d+) bytes spill stores", body)
         if m:
-            out.append((fn, int(m.group(1)), int(m.group(2) or 0)))
+            out.append((fn, int(m.group(1)), int(m.group(2) or 0),
+                        int(spill.group(1)) if spill else 0))
     return out
 
 
@@ -667,24 +682,26 @@ def step_device_us(step, y, t, dt: float) -> float:
 
 
 def redesign_line(name: str, timed, per_step: int, label: str,
-                  step_us: float, card: str, ranks: int = 1) -> float:
+                  step_us: float | None, card: str, ranks: int = 1) -> float:
     """Log a redesigned kernel's device time per launch (CUDA graph; the
     mean of :func:`time_form`'s forms in ``timed``) beside its earlier
     design's (``ranks`` launches of ``EARLIER_DEVICE_US[name]`` where one
     stacked launch replaces one per rank), its bound, and the device time
-    of the step that launches it ``per_step`` times.  Returns the device
-    microseconds per launch."""
+    of the step that launches it ``per_step`` times (``step_us`` None: no
+    model step launches it; ``label`` names its harness).  Returns the
+    device microseconds per launch."""
     dev_us = sum(t[4] for t in timed) / len(timed) * 1e3
     bound_us = sum(t[2] for t in timed) / len(timed) * 1e3
     old = ranks * EARLIER_DEVICE_US[name]
     was = (f"{ranks} launches x {EARLIER_DEVICE_US[name]:.2f} = {old:.2f}"
            if ranks > 1 else f"{old:.2f}")
+    step = (f"{label} step: device {step_us:.2f} us/step as a CUDA graph "
+            f"of {GRAPH_STEPS} steps, {per_step} launch(es) = "
+            f"{per_step * dev_us:.2f} us of it" if step_us is not None
+            else f"launched by {label}, no model step")
     log(f"{name}: device {dev_us:.2f} us/launch as a CUDA graph (earlier "
         f"design: {was}; x{dev_us / old:.3f}); bound {bound_us:.2f} us, "
-        f"{bound_us / dev_us:.1%} of it; {label} step: device "
-        f"{step_us:.2f} us/step as a CUDA graph of {GRAPH_STEPS} steps, "
-        f"{per_step} launch(es) = {per_step * dev_us:.2f} us of it; card "
-        f"{card}")
+        f"{bound_us / dev_us:.1%} of it; {step}; card {card}")
     return dev_us
 
 
@@ -909,12 +926,23 @@ def refused_path(card: str, gal: Galewsky, ysplit) -> dict:
     count = lambda: Refused.launches
     max_abs = max(
         check_kernel(f"re-fused kernel vs plain C{N}", st1f, st1f.reference,
-                     args, names, KERNEL_TOL, count),
+                     args, names, KERNEL_TOL, count, exact=True),
         check_kernel(f"re-fused kernel vs plain C{N} probe (h0f, u0f the "
                      "filter term)", probe, probe.reference, args, names,
-                     PROBE_TOL, count))
+                     PROBE_TOL, count, exact=True))
     log("re-fused probe, plain f32 vs f64: "
         + f64_spread(probe.reference, args, names))
+    # TC5: its mountain's orography (the Galewsky jet's is zero) feeds the
+    # Bernoulli band's b.
+    tmodel, tstep, ty = tc5_nu4_step(grid, "refused")
+    targs = ((ty["h"], ty["u"]) + tstep.route(ty["strips_sn"],
+                                              ty["strips_we"])
+             + (tmodel.b_ext,))
+    max_abs = max(max_abs, check_kernel(
+        f"re-fused kernel vs plain C{N}, TC5 (orography) after one re-fused "
+        "step", tstep.stage1f, tstep.stage1f.reference, targs, names,
+        KERNEL_TOL, count, exact=True))
+    del tmodel, tstep, ty, targs
 
     # ---- 11. re-fused vs split, 3 steps -----------------------------------
     yr, _ = integrate(step, y0, 0.0, 3, GAL_DT)
@@ -944,23 +972,28 @@ def refused_path(card: str, gal: Galewsky, ysplit) -> dict:
     st2, st3 = step.stages
     stage_us = 1e3 * sum(event_ms(lambda: st(*a2), 200) for st in (st2, st3))
     r_ms = event_ms(lambda: route(y["strips_sn"], y["strips_we"]), 200)
-    record = kernel_record(
-        "cov_stage_refused_nu4",
-        "jaxstream_torch/csrc/cov_stage_refused_nu4.cu",
-        "jaxstream/ops/pallas/swe_cov.py:2843", launches[0], max_abs,
-        [("re-fused stage 1", st1f, st1f.reference, a1)],
-        REFUSED_FLOPS_PER_CELL, card)
-    k_us = record["ms"] * 1e3
+    max_abs = max(max_abs, check_kernel(
+        f"re-fused kernel vs plain C{N}, day 6 + {TIMED_STEPS} steps", st1f,
+        st1f.reference, a1, names, KERNEL_TOL, count, exact=True))
+    timed = [time_form("re-fused stage 1", st1f, st1f.reference, a1,
+                       REFUSED_FLOPS_PER_CELL, card)]
+    rec = record("cov_stage_refused_nu4",
+                 "jaxstream_torch/csrc/cov_stage_refused_nu4.cu",
+                 "jaxstream/ops/pallas/swe_cov.py:2843", launches[0],
+                 max_abs, timed)
+    k_us = rec["ms"] * 1e3
     other = step_us - stage_us - (3 * r_ms * 1e3 + k_us)
     log(f"re-fused step {step_us:.1f} us = routers 3 x {r_ms * 1e3:.2f} us + "
         f"re-fused kernel {k_us:.2f} us + stage kernels {stage_us:.1f} us + "
         f"{other:.1f} us other; card {card}")
+    redesign_line("cov_stage_refused_nu4", timed, 1, "re-fused Galewsky",
+                  step_device_us(step, y, t, GAL_DT), card)
     device_busy(lambda: integrate(step, y, t, PROFILED_STEPS, GAL_DT),
                 PROFILED_STEPS, step_us, card,
                 ("cov_stage_kernel", "cov_stage_refused_nu4_kernel"))
     paired_rates({"split": (model.make_fused_step(GAL_DT), y),
                   "re-fused": (step, y)}, t, PAIRED_STEPS, card)
-    return record
+    return rec
 
 
 def stage_path(card: str, gal: Galewsky, ysplit) -> list:
@@ -977,10 +1010,8 @@ def stage_path(card: str, gal: Galewsky, ysplit) -> list:
     # ---- 13. A and B vs plain, as stage 1 and stage 2; parity --------------
     gsn, gwe = route(y0["strips_sn"], y0["strips_we"])
     a_names = ("h_adv", "u_adv", "l1h", "l1u", "strips_sn", "strips_we")
-    b_names = ("h", "u", "strips_sn", "strips_we")
     count_a = lambda: Pair.launches_a
-    count_b = lambda: Pair.launches_b
-    err_a, err_b = [], []
+    err_a = []
     for st in step.stages[:2]:
         form = "stage 2" if st.with_y0 else "stage 1"
         args = (y0["h"], y0["u"], gsn, gwe, model.b_ext)
@@ -989,24 +1020,7 @@ def stage_path(card: str, gal: Galewsky, ysplit) -> list:
         err_a.append(check_kernel(f"kernel A vs plain C{N} {form}",
                                   st.call_a, st.reference_a, args, a_names,
                                   KERNEL_TOL, count_a, exact=True))
-        out_a = st.reference_a(*args)
-        bargs = tuple(out_a[:4]) + route(out_a[4], out_a[5])
-        exact = st.reference_b(*[a.double() for a in bargs])
-        scale, _ = probe_scale((bargs[0], bargs[1][0], bargs[1][1]),
-                               (exact[0], exact[1][0], exact[1][1]))
-        probe = swe_cov.CovStageNu4(
-            st.n, st.halo, st.dalpha, st.radius, st.gravity, st.omega,
-            st.dt, st.a, st.b, st.nu4 * scale, device=st.device)
-        err_b.append(check_kernel(f"kernel B vs plain C{N} {form}",
-                                  st.call_b, st.reference_b, bargs, b_names,
-                                  KERNEL_TOL, count_b))
-        err_b.append(check_kernel(
-            f"kernel B vs plain C{N} {form} probe (the filter term, nu4 "
-            f"{probe.nu4:.4e})", probe.call_b, probe.reference_b, bargs,
-            b_names, PROBE_TOL, count_b))
-        if not st.with_y0:
-            log("kernel B probe, plain f32 vs f64: "
-                + f64_spread(probe.reference_b, bargs, b_names))
+    err_b = check_kernel_b(step, model, y0, "Galewsky IC")
     err_a += tc5_kernel_a(model.grid, count_a, a_names)
     ys, _ = integrate(step, y0, 0.0, 3, GAL_DT)
     yc, _ = integrate(model.make_step(GAL_DT), s0, 0.0, 3, GAL_DT)
@@ -1014,6 +1028,7 @@ def stage_path(card: str, gal: Galewsky, ysplit) -> list:
     gal.compare("in-stage vs split del^4", ysplit, ys, DAMP_SCALE_TOL,
                 DAMP_SCALE_MASS_TOL)
     del yc
+    err_b += check_kernel_b(step, model, ys, "after 3 in-stage steps")
 
     # ---- 14. main path: a timed in-stage window, breakdown ---------------
     Pair.launches_a = 0
@@ -1040,27 +1055,67 @@ def stage_path(card: str, gal: Galewsky, ysplit) -> list:
     rec_a = record("cov_stage_nu4_a", "jaxstream_torch/csrc/cov_stage_nu4.cu",
                    "jaxstream/ops/pallas/swe_cov.py:2392", launches[0],
                    max(err_a), timed_a)
-    rec_b = kernel_record(
-        "cov_stage_nu4_b", "jaxstream_torch/csrc/cov_stage_nu4.cu",
-        "jaxstream/ops/pallas/swe_cov.py:2415", launches[1], max(err_b),
-        [("B stage 1", st1.call_b, st1.reference_b, bargs)],
-        B_FLOPS_PER_CELL, card)
+    timed_b = [time_form("B stage 1", st1.call_b, st1.reference_b, bargs,
+                         B_FLOPS_PER_CELL, card)]
+    rec_b = record("cov_stage_nu4_b", "jaxstream_torch/csrc/cov_stage_nu4.cu",
+                   "jaxstream/ops/pallas/swe_cov.py:2415", launches[1],
+                   max(err_b), timed_b)
     r_ms = event_ms(lambda: route(y["strips_sn"], y["strips_we"]), 200)
     a_us, b_us = 3e3 * rec_a["ms"], 3e3 * rec_b["ms"]
     other = step_us - (6 * r_ms * 1e3 + a_us + b_us)
     log(f"in-stage step {step_us:.1f} us = routers 6 x {r_ms * 1e3:.2f} us "
         f"+ A 3 x {rec_a['ms'] * 1e3:.2f} us + B 3 x {rec_b['ms'] * 1e3:.2f}"
         f" us + {other:.1f} us other; card {card}")
+    dev_step = step_device_us(step, y, t, GAL_DT)
     redesign_line("cov_stage_nu4_a", timed_a, 3, "in-stage Galewsky",
-                  step_device_us(step, y, t, GAL_DT), card)
+                  dev_step, card)
+    redesign_line("cov_stage_nu4_b", timed_b, 3, "in-stage Galewsky",
+                  dev_step, card)
     return [rec_a, rec_b]
 
 
-def tc5_kernel_a(grid, count_a, names) -> list:
-    """Phase 13 on TC5 (its mountain orography; the Galewsky jet's is
-    zero): kernel A bitwise against its plain version as stages 1 and 2
-    on the state after one in-stage step at nu4 = 1e14.  Returns the
-    largest absolute differences."""
+def check_kernel_b(step, model, y, label: str) -> list:
+    """Phase 13: kernel B bitwise against its plain version as stages 1
+    and 2 on kernel A's plain outputs from the carry ``y`` (and the routed
+    ghosts of their strips), with its probe (nu4 scaled until the output
+    is the filter term).  Returns the largest absolute differences."""
+    from jaxstream_torch.ops.cuda import swe_cov
+
+    route = step.route
+    gsn, gwe = route(y["strips_sn"], y["strips_we"])
+    names = ("h", "u", "strips_sn", "strips_we")
+    count = lambda: swe_cov.CovStageNu4.launches_b
+    errs = []
+    for st in step.stages[:2]:
+        form = "stage 2" if st.with_y0 else "stage 1"
+        args = (y["h"], y["u"], gsn, gwe, model.b_ext)
+        if st.with_y0:
+            args = (y["h"], y["u"]) + args
+        out_a = st.reference_a(*args)
+        bargs = tuple(out_a[:4]) + route(out_a[4], out_a[5])
+        exact = st.reference_b(*[a.double() for a in bargs])
+        scale, _ = probe_scale((bargs[0], bargs[1][0], bargs[1][1]),
+                               (exact[0], exact[1][0], exact[1][1]))
+        probe = swe_cov.CovStageNu4(
+            st.n, st.halo, st.dalpha, st.radius, st.gravity, st.omega,
+            st.dt, st.a, st.b, st.nu4 * scale, device=st.device)
+        errs.append(check_kernel(f"kernel B vs plain C{N} {form}, {label}",
+                                 st.call_b, st.reference_b, bargs, names,
+                                 KERNEL_TOL, count, exact=True))
+        errs.append(check_kernel(
+            f"kernel B vs plain C{N} {form}, {label}, probe (the filter "
+            f"term, nu4 {probe.nu4:.4e})", probe.call_b, probe.reference_b,
+            bargs, names, PROBE_TOL, count, exact=True))
+        if not st.with_y0 and label == "Galewsky IC":
+            log("kernel B probe, plain f32 vs f64: "
+                + f64_spread(probe.reference_b, bargs, names))
+    return errs
+
+
+def tc5_nu4_step(grid, nu4_mode: str) -> tuple:
+    """TC5 (its mountain orography; the Galewsky jet's is zero) at nu4 =
+    1e14 and dt = 75 s: the model, its ``nu4_mode`` stepper and the carry
+    after one step of it."""
     from jaxstream_torch.config import EARTH_GRAVITY, EARTH_OMEGA
     from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
     from jaxstream_torch.physics.initial_conditions import williamson_tc5
@@ -1068,8 +1123,16 @@ def tc5_kernel_a(grid, count_a, names) -> list:
     h, v, b = williamson_tc5(grid, EARTH_GRAVITY, EARTH_OMEGA)
     model = CovariantShallowWater(grid, gravity=EARTH_GRAVITY,
                                   omega=EARTH_OMEGA, b_ext=b, nu4=GAL_NU4)
-    step = model.make_fused_step(STEP_DT, nu4_mode="stage")
-    y = step(model.compact_state(model.initial_state(h, v)), 0.0)
+    step = model.make_fused_step(STEP_DT, nu4_mode=nu4_mode)
+    return model, step, step(model.compact_state(model.initial_state(h, v)),
+                             0.0)
+
+
+def tc5_kernel_a(grid, count_a, names) -> list:
+    """Phase 13 on TC5: kernel A bitwise against its plain version as
+    stages 1 and 2 on the state after one in-stage step at nu4 = 1e14.
+    Returns the largest absolute differences."""
+    model, step, y = tc5_nu4_step(grid, "stage")
     gsn, gwe = step.route(y["strips_sn"], y["strips_we"])
     errs = []
     for st in step.stages[:2]:
@@ -1092,6 +1155,9 @@ def b14_record(max_abs: float, launches: int, forms, card: str) -> dict:
                        B14_FLOPS_PER_CELL[mode], card,
                        read=args[:4] if mode == "nofill" else None)
              for mode, b, args in forms]
+    for (mode, _, _), t in zip(forms, timed):
+        redesign_line(f"cov_stage_nu4_b_ablated {mode}", [t], 0,
+                      "the step-budget bisection", None, card)
     return record("cov_stage_nu4_b_ablated",
                   "jaxstream_torch/csrc/cov_stage_nu4.cu",
                   "experiments/nu4_bisect.py:190", launches, max_abs, timed)
@@ -2337,11 +2403,9 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas: {line.strip()}")
         if b.name in EARLIER_PTXAS and b.log:
-            which, want = EARLIER_PTXAS[b.name]
-            got = [(r, sm) for fn, r, sm in ptxas_usage(b.log)
-                   if which is None or which in fn]
-            log(f"  ptxas (registers, smem) {got}"
-                + (f" of {which}" if which else "") + ": "
+            want = EARLIER_PTXAS[b.name]
+            got = [tuple(use) for _, *use in ptxas_usage(b.log)]
+            log(f"  ptxas (registers, smem, spill stores) {got}: "
                 + ("as before" if got == want else f"before: {want}"))
 
     # ---- the port's main path, through its entry points -----------------

@@ -1,8 +1,9 @@
 // Device code of the covariant kernels that take all faces of a tile in one
 // block: the compact stage (cov_stage.cu), the split del^4 filter
-// (cov_nu4_filter.cu), the whole-step kernel's face phases
-// (cov_step_mega.cu), the right-hand side of ghost-filled faces
-// (cov_rhs.cu), the sharded tiers' right-hand sides over a stack of
+// (cov_nu4_filter.cu), the re-fused stage and the in-stage pair
+// (cov_stage_refused_nu4.cu, cov_stage_nu4.cu), the whole-step kernel's
+// face phases (cov_step_mega.cu), the right-hand side of ghost-filled
+// faces (cov_rhs.cu), the sharded tiers' right-hand sides over a stack of
 // ranks (cov_rhs_interior.cu, cov_rhs_local.cu), and the stages over
 // whole extended blocks (cov_stage_inkernel.cu, cov_stage_nbr.cu).  On the
 // equiangular cube every face has the same metric (it depends on the
@@ -13,10 +14,7 @@
 // one's window is copied into a second shared buffer asynchronously
 // (cp.async).  Every stored value is the float the plain version computes
 // with the same operations in the same order (built with -fmad=false), so
-// the kernels stay bitwise equal to it.  cov_common.cuh's advective_tile,
-// nu4_window, Nu4Metric and edge_fetch, which the other kernels share,
-// are untouched, so that those kernels build to the same code: edge_src,
-// LapMetric and lap_metric repeat their logic for this design.
+// the kernels stay bitwise equal to it.
 
 #pragma once
 
@@ -112,9 +110,10 @@ constexpr int WOFF = 2;            // shared column of the tile's column 0
 constexpr int WS = FTX + 4;        // shared row stride of a staged window
 static_assert(FTX == BX && FTY % BY == 0, "one column per lane");
 
-// The source of field fi at face-local (j, i), as edge_fetch reads it: the
-// interior q or an edge ghost of the routed blocks gsn / gwe; nullptr at a
-// ghost corner or past the ghost ring.
+// The source of field fi at face-local (j, i): the interior q, or an edge
+// ghost of the face's routed blocks gsn (6h+2, n) / gwe (n, 6h+2) (field
+// fi at rows / columns fi*2h .. fi*2h+2h, S|N and W|E); nullptr at a ghost
+// corner or past the hh-deep ghost ring.
 __device__ __forceinline__ const float* edge_src(const float* __restrict__ q,
                                                  const float* __restrict__ gsn,
                                                  const float* __restrict__ gwe,
@@ -139,34 +138,48 @@ __device__ __forceinline__ const float* edge_src(const float* __restrict__ q,
 // Calls fn(y, x) once for each cell of a ROWS x COLS region of the tile
 // (COLS >= BX): the thread's cells (ty + r * BY, tx) of the rows that the
 // block's warps cover evenly, with offsets known at compile time, then the
-// rest (the last rows and the columns past BX) one cell per thread.
+// rest (the last rows and the columns past BX) one cell per thread, in
+// one pass where the block has threads enough, else in a loop.
 template <int ROWS, int COLS, class F>
 __device__ __forceinline__ void for_region(F fn) {
   constexpr int RM = ROWS / BY * BY;            // rows of the even part
   constexpr int BOTTOM = (ROWS - RM) * COLS;    // the last rows
   constexpr int REST = BOTTOM + RM * (COLS - BX);
-  static_assert(COLS >= BX && REST <= NT, "one pass for the rest");
+  static_assert(COLS >= BX, "one column per lane");
 #pragma unroll
   for (int r = 0; r < RM / BY; ++r)
     fn(tid_y() + r * BY, (int)tid_x());
   const int t = tid_y() * BX + tid_x();
-  if (REST > 0 && t < REST) {
-    if (t < BOTTOM) {
-      const int y = t / COLS;
-      fn(RM + y, t - y * COLS);
-    } else {
-      const int u = t - BOTTOM, y = u / (COLS - BX);
-      fn(y, BX + u - y * (COLS - BX));
+  if constexpr (REST <= NT) {
+    if (REST > 0 && t < REST) {
+      if (t < BOTTOM) {
+        const int y = t / COLS;
+        fn(RM + y, t - y * COLS);
+      } else {
+        const int u = t - BOTTOM, y = u / (COLS - BX);
+        fn(y, BX + u - y * (COLS - BX));
+      }
+    }
+  } else {
+    for (int k = t; k < REST; k += NT) {
+      if (k < BOTTOM) {
+        const int y = k / COLS;
+        fn(RM + y, k - y * COLS);
+      } else {
+        const int u = k - BOTTOM, y = u / (COLS - BX);
+        fn(y, BX + u - y * (COLS - BX));
+      }
     }
   }
 }
 
 // Issues the copies of rows jw .. jw+ROWS-1, columns i0-A .. i0+FTX+A-1 of
-// field fi of one face into s (row stride WS, column c of the tile at
-// s[r * WS + WOFF + c]): each cell from edge_src (the interior q or the
-// routed ghosts gsn / gwe), 0 where it gives none (ghost corners, past
-// the ring, past a ragged tile's edge).
-template <int ROWS, int A>
+// field fi of one face into s (row stride S, column c of the tile at
+// s[r * S + OFF + c]; OFF >= A): each cell from edge_src (the interior q
+// or the routed ghosts gsn / gwe), 0 where it gives none (ghost corners,
+// past the ring, past a ragged tile's edge; with hh = 0 every cell off
+// the face).
+template <int ROWS, int A, int S = WS, int OFF = WOFF>
 __device__ __forceinline__ void stage_field(float* s,
                                             const float* __restrict__ q,
                                             const float* __restrict__ gsn,
@@ -175,13 +188,36 @@ __device__ __forceinline__ void stage_field(float* s,
                                             int jw, int i0) {
   for_region<ROWS, FTX + 2 * A>([&](int r, int cc) {
     const int c = cc - A;
-    float* dst = s + r * WS + WOFF + c;
+    float* dst = s + r * S + OFF + c;
     const float* src = edge_src(q, gsn, gwe, fi, n, hh, rw, jw + r, i0 + c);
     if (src != nullptr)
       async_copy4(dst, src);
     else
       *dst = 0.0f;
   });
+}
+
+// The h x h ghost corners of one staged field s (rows j0-A .. j0+FTY+A-1,
+// columns i0-A .. i0+FTX+A-1; row stride S, tile column c at s[r][OFF +
+// c]): _fill(corners=True)'s average of the S/N ghost at the nearest
+// interior column and the W/E ghost at the nearest interior row, both in
+// the window already.  The cells at most D deep (D <= A, D <= the halo)
+// are built; the window holds at most D x D of them at each of the face's
+// four corners: thread t < 4 D^2 takes one.
+template <int A, int D = A, int S = WS, int OFF = WOFF>
+__device__ __forceinline__ void fill_corners(float (*s)[S], int n, int j0,
+                                             int i0) {
+  const int t = threadIdx.y * BX + threadIdx.x;
+  if (t >= 4 * D * D) return;
+  const int corner = t / (D * D), e = t - corner * (D * D);
+  const int dj = e / D, di = e - dj * D;
+  const int j = corner & 1 ? n + dj : -1 - dj;   // N : S
+  const int i = corner & 2 ? n + di : -1 - di;   // E : W
+  const int r = j - (j0 - A), c = i - i0;        // window row, tile column
+  if (r < 0 || r >= FTY + 2 * A || c < -A || c >= FTX + A) return;
+  const int ce = (i < 0 ? 0 : n - 1) - i0;       // nearest interior column
+  const int re = (j < 0 ? 0 : n - 1) - (j0 - A); // and row
+  s[r][OFF + c] = 0.5f * (s[r][OFF + ce] + s[re][OFF + c]);
 }
 
 // Issues the copies of the orography on the Bernoulli band of the tile at
@@ -251,7 +287,7 @@ __device__ __forceinline__ float sym_value(const float* p) {
 }
 
 // The face-independent terms of the stage on one tile, computed once per
-// block with advective_tile's operations: on the Bernoulli band (cell
+// block with rhs_core_cov's operations: on the Bernoulli band (cell
 // (ly, lx) at (j0 + ly - 1, i0 + lx - 1)) the inverse metric g_aa, g_ab,
 // g_bb; at the alpha-faces (ly, lf) and beta-faces (lf, lx) the
 // xface_metric / yface_metric pair; at the centers inv_sqrtg / d, sqrtg
@@ -287,8 +323,40 @@ __device__ __forceinline__ bool band_cell(int n, int j, int i) {
   return j >= -1 && j <= n && i >= -1 && i <= n && (jin || iin);
 }
 
+// The inverse metric g_aa, g_ab, g_bb at a band cell with coordinates
+// (X, Y) = (x, y).
+__device__ __forceinline__ void inverse_metric(float x, float y, float R2,
+                                               float& g_aa, float& g_ab,
+                                               float& g_bb) {
+  const float dxda = 1.0f + x * x;
+  const float dydb = 1.0f + y * y;
+  const float rho2 = dxda + y * y;
+  const float inv_R2dxda = 1.0f / (R2 * dxda);
+  const float inv_dydb = 1.0f / dydb;
+  g_aa = rho2 * inv_R2dxda;
+  g_bb = (rho2 * inv_R2dxda) * (dxda * inv_dydb);
+  g_ab = rho2 * ((x * inv_R2dxda) * (y * inv_dydb));
+}
+
+// inv_sqrtg / d, sqrtg and inv_rho at a cell centre (x, y).
+__device__ __forceinline__ void center_terms(float x, float y, float R2,
+                                             float inv_d, float& isgd,
+                                             float& sqrtg, float& irho) {
+  const float dxda = 1.0f + x * x;
+  const float dydb = 1.0f + y * y;
+  const float rho2 = dxda + y * y;
+  const float inv_rho = rsqrtf(rho2);
+  const float inv_rho2 = inv_rho * inv_rho;
+  const float sg_row = R2 * dxda;
+  sqrtg = (sg_row * dydb) * (inv_rho2 * inv_rho);
+  const float inv_sqrtg = ((1.0f / sg_row) * (1.0f / dydb))
+                        * (rho2 * rho2 * inv_rho);
+  isgd = inv_sqrtg * inv_d;
+  irho = inv_rho;
+}
+
 // Fills mt for the tile at (j0, i0).  xc, xf (row coordinates) and yc, yf
-// (column coordinates) as advective_tile takes them.  No barrier: the
+// (column coordinates) as stage_face_tile takes them.  No barrier: the
 // caller's next __syncthreads() publishes mt.
 __device__ __forceinline__ void stage_metric(
     StageMetric& mt, const float* __restrict__ xc,
@@ -298,17 +366,8 @@ __device__ __forceinline__ void stage_metric(
   for_region<FTY + 2, FTX + 2>([&](int ly, int lx) {
     const int j = j0 + ly - 1, i = i0 + lx - 1;
     float g_aa = 0.0f, g_ab = 0.0f, g_bb = 0.0f;
-    if (band_cell(n, j, i)) {
-      const float x = xc[i + hh], y = yc[j + hh];
-      const float dxda = 1.0f + x * x;
-      const float dydb = 1.0f + y * y;
-      const float rho2 = dxda + y * y;
-      const float inv_R2dxda = 1.0f / (R2 * dxda);
-      const float inv_dydb = 1.0f / dydb;
-      g_aa = rho2 * inv_R2dxda;
-      g_bb = (rho2 * inv_R2dxda) * (dxda * inv_dydb);
-      g_ab = rho2 * ((x * inv_R2dxda) * (y * inv_dydb));
-    }
+    if (band_cell(n, j, i))
+      inverse_metric(xc[i + hh], yc[j + hh], R2, g_aa, g_ab, g_bb);
     mt.gaa[ly][lx] = g_aa;
     mt.gab[ly][lx] = g_ab;
     mt.gbb[ly][lx] = g_bb;
@@ -330,38 +389,29 @@ __device__ __forceinline__ void stage_metric(
   for_region<FTY, FTX>([&](int ly, int lx) {
     const int j = j0 + ly, i = i0 + lx;
     float isgd = 0.0f, sqrtg = 0.0f, irho = 0.0f;
-    if (j < n && i < n) {
-      const float x = xc[i + hh], y = yc[j + hh];
-      const float dxda = 1.0f + x * x;
-      const float dydb = 1.0f + y * y;
-      const float rho2 = dxda + y * y;
-      const float inv_rho = rsqrtf(rho2);
-      const float inv_rho2 = inv_rho * inv_rho;
-      const float sg_row = R2 * dxda;
-      sqrtg = (sg_row * dydb) * (inv_rho2 * inv_rho);
-      const float inv_sqrtg = ((1.0f / sg_row) * (1.0f / dydb))
-                            * (rho2 * rho2 * inv_rho);
-      isgd = inv_sqrtg * inv_d;
-      irho = inv_rho;
-    }
+    if (j < n && i < n)
+      center_terms(xc[i + hh], yc[j + hh], R2, inv_d, isgd, sqrtg, irho);
     mt.isgd[ly][lx] = isgd;
     mt.sqrtg[ly][lx] = sqrtg;
     mt.irho[ly][lx] = irho;
   });
 }
 
-// advective_tile's right-hand side of one face's tile from its staged
-// window w and the tile's metric terms mt (both synchronised), with the
-// face's sym rows imposed as S says, its coordinates (xc, xf along i, yc,
-// yf along j, as advective_tile takes them: the Coriolis term reads the
-// centres, a Frame seam's sqrtg the faces too) and frame fz.  For every
+// The covariant right-hand side (rhs_core_cov) of one face's tile from
+// its staged window w and the tile's metric terms mt (both synchronised),
+// with the face's sym rows imposed as S says, its coordinates (the tan of
+// the centres and left faces along i, xc and xf, and along j, yc and yf;
+// a whole face passes its pair twice: the Coriolis term reads the
+// centres, a Frame seam's sqrtg the faces too) and frame fz.  w is read
+// as a StageWindow (or a type with its members h, ua, ub, b indexed
+// alike), mt as a StageMetric (likewise).  For every
 // interior cell it calls epi(r, j, i, dh, dua, dub, hc, uac, ubc) with r
 // the thread's row index (ly = ty + r * BY, lx = tx) and the cell's
 // current values.  Every thread of the block must call it: it
 // synchronises once, between the fluxes and the tendencies.
-template <Seam S, class Epilogue>
+template <Seam S, class W, class Mt, class Epilogue>
 __device__ __forceinline__ void stage_face_tile(
-    const StageWindow& w, const StageMetric& mt, StageScratch& s,
+    const W& w, const Mt& mt, StageScratch& s,
     const SymRows& sym, const float* __restrict__ xc,
     const float* __restrict__ xf, const float* __restrict__ yc,
     const float* __restrict__ yf, const float* __restrict__ fz,
@@ -503,11 +553,11 @@ struct FrameRing {
   }
 };
 
-// ---- the split del^4 filter: metric terms ----------------------------------
+// ---- the Laplacian's metric terms -------------------------------------------
 
 // The face metric terms of a Laplacian window of LY x LX cells (x-face k
-// the left face of column k, y-face k the lower face of row k), as
-// Nu4Metric holds them for the stage kernels' tile.
+// the left face of column k, y-face k the lower face of row k): every
+// float lap_at reads of a cell, at(wy, wx) gathering them.
 template <int LY, int LX>
 struct LapMetric {
   float xa[LY][LX + 1];   // fg_aa at x-faces
@@ -523,9 +573,10 @@ struct LapMetric {
   }
 };
 
-// nu4_window's metric terms of the l1 window with origin (lj, li), the
-// face's ring-1 window [-1, n]^2 clipped to it.  No barrier: the caller's
-// next __syncthreads() publishes mt.
+// The metric terms of the Laplacian window with origin (lj, li) (xc, xf
+// of a whole face), on the face's ring-1 window [-1, n]^2 clipped to it
+// (0 elsewhere).  No barrier: the caller's next __syncthreads() publishes
+// mt.
 template <int LY, int LX>
 __device__ __forceinline__ void lap_metric(LapMetric<LY, LX>& mt,
                                            const float* __restrict__ xc,

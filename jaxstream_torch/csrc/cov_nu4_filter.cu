@@ -42,11 +42,11 @@
 // asynchronous copies (cp.async) of its first face's psi (three fields on
 // the tile plus a 2-deep apron, each cell from the interior or the routed
 // strips), computes the l1 window's metric terms once into shared memory
-// (LapMetric: the floats nu4_window computes for each face), and then per
+// (LapMetric: the floats lap_at reads, once and not per face), and then per
 // face of its group issues the next face's psi into the other buffer,
 // waits for this face's, builds the ghost corners from the staged edges
 // in shared memory (tiles at a face edge only), computes l1 of the three
-// fields on the (TY+2) x (TX+2) window, then l2 and the outputs.  Each
+// fields on the (FTY+2) x (FTX+2) window, then l2 and the outputs.  Each
 // per-cell phase maps one tile column to one lane (for_region).  One code
 // path serves every tile, as in cov_stage.cu.  Occupancy: 52 960 B of
 // dynamic shared memory (psi 2 x 12 096, l1 10 608, metric 18 160) and
@@ -83,8 +83,8 @@ struct Smem {
   LapMetric<LY, LX> mt;
 };
 
-// Issues the copies of face f's psi (h, u_a, u_b on rows j0-2 .. j0+TY+1,
-// columns i0-2 .. i0+TX+1) into psi (no commit); edge tiles stage the
+// Issues the copies of face f's psi (h, u_a, u_b on rows j0-2 .. j0+FTY+1,
+// columns i0-2 .. i0+FTX+1) into psi (no commit); edge tiles stage the
 // ghost corners as zeros.
 __device__ __forceinline__ void stage_psi(const Params& p,
                                           float (*psi)[PY][WS], int f,

@@ -47,7 +47,7 @@
 //   2. meanwhile computes the tile's face-independent metric terms once
 //      into shared memory (StageMetric: g_aa, g_ab, g_bb on the band, the
 //      xface/yface_metric pairs, sqrtg, inv_sqrtg/d and inv_rho at the
-//      centers): the very floats advective_tile computes for each face;
+//      centers): the very floats rhs_core_cov computes for each face;
 //   3. per face of its group: issues the next face's window into the
 //      other buffer, waits for this face's, and runs the band, the fluxes
 //      and the tendencies from shared memory; the epilogue's y0 loads are

@@ -51,15 +51,28 @@
 // advective outputs are B1's).  stage_face_tile<Seam::Prescaled>
 // writes h_adv, u_adv; l1 = lap(psi) of the three fields follows on the
 // tile from the same window, with the metric terms StageMetric already
-// holds (every float cell_metric gives for a tile cell: the x-face pair
+// holds (every float lap_metric gives for a tile cell: the x-face pair
 // at i and i + 1, the y-face pair at j and j + 1, inv_sqrtg / d), so the
 // Laplacian needs no metric and no shared memory of its own.  72 576 B of
 // dynamic shared memory and __launch_bounds__(256, 3), as B1: one wave.
 //
-// Design of B (also B14's body).  One block per 32 x 16 output tile of
-// one face.  B stages l1 with a 1-deep apron through filled(), its corners
-// averaged, and evaluates the Laplacian's metric terms per cell
-// (cell_metric).  7.3 KB of shared memory per block.
+// Design of B (also B14's body): B2's second half on the same body.  A
+// block of 256 threads takes one 32 x 24 tile position and a group of
+// three faces, 384 blocks at C384.  It issues the cp.async copies of its
+// first face's l1 window (three fields with a 1-deep apron, each cell from
+// the interior or the routed l1 strips, the ghost corners as zeros),
+// computes the Laplacian's metric terms of the tile once
+// (LapMetric<24, 32>, 15 808 B), then per face issues the next face's
+// window into the other buffer, loads the face's adv into registers,
+// waits for this face's window, builds its ghost corners on edge tiles
+// (one thread per corner cell), and computes out = adv - damp lap(l1),
+// one tile column per lane, with the strips stored on strip tiles only.
+// 38 272 B of dynamic shared memory, __launch_bounds__(256, 3): one wave.
+// B14's NoFill stages a 0-deep ring (edge_src with hh = 0) and builds no
+// corner; NoLap computes no metric.  Full spills 20 B at the 80-register
+// cap; with the field loop unrolled it takes 68 registers and no spill
+// but measured 0.16 us slower per launch at C384 (H100 80GB HBM3, 700 W;
+// scripts/torch_faces_probe.py --parts b3b7b).
 
 #include "cov_faces.cuh"
 
@@ -130,29 +143,7 @@ __device__ __forceinline__ void stage_window_a(const ParamsA& p,
   stage_band(w.b, p.b + (long)f * m * m, n, hh, j0, i0);
 }
 
-// The h x h ghost corners of one staged field s (rows j0-A .. j0+FTY+A-1,
-// columns i0-A .. i0+FTX+A-1; row stride WS): _fill(corners=True)'s
-// average of the S/N ghost at the nearest interior column and the W/E
-// ghost at the nearest interior row, both in the window already.  The
-// window holds at most A x A cells of each of the face's four corners:
-// thread t < 4 A^2 takes one of them.
-template <int A>
-__device__ __forceinline__ void fill_corners(float (*s)[WS], int n, int j0,
-                                             int i0) {
-  const int t = threadIdx.y * BX + threadIdx.x;
-  if (t >= 4 * A * A) return;
-  const int corner = t / (A * A), e = t - corner * (A * A);
-  const int dj = e / A, di = e - dj * A;
-  const int j = corner & 1 ? n + dj : -1 - dj;   // N : S
-  const int i = corner & 2 ? n + di : -1 - di;   // E : W
-  const int r = j - (j0 - A), c = i - i0;        // window row, tile column
-  if (r < 0 || r >= FTY + 2 * A || c < -A || c >= FTX + A) return;
-  const int ce = (i < 0 ? 0 : n - 1) - i0;       // nearest interior column
-  const int re = (j < 0 ? 0 : n - 1) - (j0 - A); // and row
-  s[r][WOFF + c] = 0.5f * (s[r][WOFF + ce] + s[re][WOFF + c]);
-}
-
-// lap_at's metric terms of tile cell (ly, lx), as cell_metric computes
+// lap_at's metric terms of tile cell (ly, lx), as LapMetric::at gathers
 // them: the x-face pairs at its left and right faces, the y-face pairs at
 // its lower and upper faces, inv_sqrtg / d at its centre.
 __device__ __forceinline__ CellMetric tile_cell_metric(const StageMetric& mt,
@@ -285,67 +276,123 @@ cov_stage_nu4_a_kernel(const ParamsA p) {
 // The three share one body; each emits its output's strips as Full does.
 enum class BMode : int { Full = 0, NoFill = 1, NoLap = 2 };
 
-template <BMode M>
-__global__ void __launch_bounds__(BX * BY, 4)
-cov_stage_nu4_b_kernel(const ParamsB p) {
-  __shared__ float s_l1[3][TY + 2][TX + 2];
+struct SmemB {
+  float l1[2][3][FTY + 2][WS];   // this face's l1 window and the next one's
+  LapMetric<FTY, FTX> mt;
+};
 
-  const int n = p.n, hh = p.halo, rw = 6 * hh + 2;
-  const int f = blockIdx.z;
-  const int i0 = blockIdx.x * TX, j0 = blockIdx.y * TY;
-  const int tx = threadIdx.x, ty = threadIdx.y;
+// Issues the copies of face f's l1 window (rows j0-1 .. j0+FTY, columns
+// i0-1 .. i0+FTX of l1h, l1u_a, l1u_b) into l1 (no commit): each cell from
+// the interior or the routed l1 strips; NoFill stages the face's cells
+// alone (a 0-deep ring: 0 elsewhere).
+template <BMode M>
+__device__ __forceinline__ void stage_l1(const ParamsB& p,
+                                         float (*l1)[FTY + 2][WS], int f,
+                                         int j0, int i0) {
+  const int n = p.n, rw = 6 * p.halo + 2;
+  const int hh = M == BMode::NoFill ? 0 : p.halo;
   const long nn = (long)n * n;
-  const float* q[3] = {p.l1h + f * nn, p.l1u + f * nn,
-                       p.l1u + (6 + f) * nn};
   const float* gsn = p.gsn + (long)f * rw * n;
   const float* gwe = p.gwe + (long)f * n * rw;
+  stage_field<FTY + 2, 1>(&l1[0][0][0], p.l1h + f * nn, gsn, gwe, 0, n, hh,
+                          rw, j0 - 1, i0);
+  stage_field<FTY + 2, 1>(&l1[1][0][0], p.l1u + f * nn, gsn, gwe, 1, n, hh,
+                          rw, j0 - 1, i0);
+  stage_field<FTY + 2, 1>(&l1[2][0][0], p.l1u + (6 + f) * nn, gsn, gwe, 2,
+                          n, hh, rw, j0 - 1, i0);
+}
 
-  // ---- 1. l1 with a 1-deep apron, its ghost corners averaged ----------
-  for (int ly = ty; ly < TY + 2; ly += BY)
-    for (int lx = tx; lx < TX + 2; lx += BX) {
-      const int j = j0 + ly - 1, i = i0 + lx - 1;
-      for (int fi = 0; fi < 3; ++fi) {
-        if constexpr (M == BMode::NoFill)
-          s_l1[fi][ly][lx] = (j >= 0 && j < n && i >= 0 && i < n)
-                                 ? q[fi][j * n + i] : 0.0f;
-        else
-          s_l1[fi][ly][lx] = filled(q[fi], gsn, gwe, fi, n, hh, rw, j, i);
+// The three faces of the block's group on one tile position.
+template <BMode M>
+__device__ __forceinline__ void stage_faces_b(const ParamsB& p, SmemB& sm,
+                                              int f0, int j0, int i0) {
+  const int n = p.n, hh = p.halo;
+  const long nn = (long)n * n;
+  const int lx = threadIdx.x;
+  // The window crosses the face edge (ghost corners to build), the tile
+  // holds cells of the boundary strips.
+  const bool edge = j0 < 1 || i0 < 1 || j0 + FTY + 1 > n || i0 + FTX + 1 > n;
+  const bool strips = j0 < hh || i0 < hh || j0 + FTY > n - hh
+                      || i0 + FTX > n - hh;
+
+  stage_l1<M>(p, sm.l1[0], f0, j0, i0);
+  async_commit();
+  if constexpr (M != BMode::NoLap)
+    lap_metric(sm.mt, p.xc, p.xf, n, hh, j0, i0, p.R2, p.invd);
+
+  for (int q = 0; q < FPB; ++q) {
+    const int f = f0 + q, cur = q & 1;
+    if (q + 1 < FPB) {
+      stage_l1<M>(p, sm.l1[cur ^ 1], f + 1, j0, i0);
+      async_commit();
+    }
+    // The face's adv at the thread's cells, loaded while the window's
+    // copies are in flight.
+    float adv[FTY / BY][3] = {};
+#pragma unroll
+    for (int r = 0; r < FTY / BY; ++r) {
+      const int j = j0 + threadIdx.y + r * BY, i = i0 + lx;
+      if (j < n && i < n) {
+        const long c = f * nn + (long)j * n + i;
+        adv[r][0] = p.ha[c];
+        adv[r][1] = p.ua[c];
+        adv[r][2] = p.ua[6 * nn + c];
       }
     }
-  __syncthreads();
+    if (q + 1 < FPB)
+      async_wait<1>();
+    else
+      async_wait<0>();
+    __syncthreads();   // this face's window (and, first, mt) complete
+    float(*l1)[FTY + 2][WS] = sm.l1[cur];
+    if (M != BMode::NoFill && edge) {
+      for (int fi = 0; fi < 3; ++fi) fill_corners<1>(l1[fi], n, j0, i0);
+      __syncthreads();
+    }
 
-  // ---- 2. l2 = lap(l1), out = adv - damp l2, stores --------------------
-  float* ssn = p.ssn + (long)f * 6 * hh * n;
-  float* swe = p.swe + (long)f * n * 6 * hh;
-  for (int ly = ty; ly < TY; ly += BY)
-    for (int lx = tx; lx < TX; lx += BX) {
+    // ---- l2 = lap(l1), out = adv - damp l2, stores ----------------------
+    float* ssn = p.ssn + (long)f * 6 * hh * n;
+    float* swe = p.swe + (long)f * n * 6 * hh;
+#pragma unroll
+    for (int r = 0; r < FTY / BY; ++r) {
+      const int ly = threadIdx.y + r * BY;
       const int j = j0 + ly, i = i0 + lx;
       if (j >= n || i >= n) continue;
-      const CellMetric cm = cell_metric(p.xc, p.xf, hh, j, i, p.R2, p.invd);
       const long c = f * nn + (long)j * n + i;
-      const float* adv[3] = {p.ha + c, p.ua + c, p.ua + 6 * nn + c};
       float* outs[3] = {p.ho + c, p.uo + c, p.uo + 6 * nn + c};
       for (int fi = 0; fi < 3; ++fi) {
         float l2;
         if constexpr (M == BMode::NoLap)
-          l2 = s_l1[fi][ly + 1][lx + 1];
+          l2 = l1[fi][ly + 1][WOFF + lx];
         else
-          l2 = lap_at<TX + 2>(&s_l1[fi][0][0], ly + 1, lx + 1, cm, p.invd,
-                              p.inv2d);
-        const float v = *adv[fi] - p.damp * l2;
+          l2 = lap_at<WS>(&l1[fi][0][0], ly + 1, WOFF + lx, sm.mt.at(ly, lx),
+                          p.invd, p.inv2d);
+        const float v = adv[r][fi] - p.damp * l2;
         *outs[fi] = v;
-        put_strips(ssn, swe, fi, n, hh, j, i, v);
+        if (strips) put_strips(ssn, swe, fi, n, hh, j, i, v);
       }
     }
+    __syncthreads();   // l1[cur] is free for the face after next
+  }
+}
+
+template <BMode M>
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_nu4_b_kernel(const ParamsB p) {
+  extern __shared__ float smem_raw[];
+  SmemB& sm = *reinterpret_cast<SmemB*>(smem_raw);
+  stage_faces_b<M>(p, sm, blockIdx.z * FPB, blockIdx.y * FTY,
+                   blockIdx.x * FTX);
 }
 
 // Launches kernel B in mode M on `stream`; returns cudaGetLastError().
 template <BMode M>
 int launch_b(const ParamsB& p, void* stream) {
-  const dim3 grid((p.n + TX - 1) / TX, (p.n + TY - 1) / TY, 6);
+  const dim3 grid((p.n + FTX - 1) / FTX, (p.n + FTY - 1) / FTY, 6 / FPB);
   const dim3 block(BX, BY);
+  const size_t smem = sizeof(SmemB);
   void (*kernel)(const ParamsB) = cov_stage_nu4_b_kernel<M>;
-  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,16 +1,18 @@
 """Probe the faces-in-block kernels on one GPU: the compact stage (B1), the
 split del^4 filter (B2), the whole-step kernel (B12), the RHS of
 ghost-filled faces (B4), the Cartesian in-kernel stage (B11), the
-in-stage del^4 kernel A (B7 A), the neighbour-read stage (B13) and the
-extended-carry stage (B8), an earlier tree's against this tree's, in
-turns, with ablations of the earlier B1 and levers of B12, B11, B7 A, B13
-and B8.
+in-stage del^4 kernels A and B (B7; B14, B's modes), the neighbour-read
+stage (B13), the extended-carry stage (B8), the Cartesian RHS and concat
+stage (B9, B10) and the re-fused del^4 stage (B3), an earlier tree's
+against this tree's, in turns, with ablations of the earlier B1 and
+levers of B12, B11, B7 A, B13, B8, B9, B10, B3 and B7 B.
 
     git archive <commit> jaxstream_torch/csrc | tar -x -C build/jaxstream_torch/parent
     python3 scripts/torch_faces_probe.py [--n N] [--mega DIR] [--parts P,...] build/jaxstream_torch/parent [OTHER ...]
 
 ``--parts`` picks what runs (default all): ``b1b2`` (B1, B2 and the
-OTHER variants), ``b12``, ``b4``, ``b11b7a``, ``b13b8``, ``b9b10``.  ``--ink DIR``,
+OTHER variants), ``b12``, ``b4``, ``b11b7a``, ``b13b8``, ``b9b10``,
+``b3b7b``.  ``--ink DIR``,
 ``--nu4a DIR``, ``--nbr DIR`` and ``--ext DIR`` add variant .cu files of
 this tree's ``swe_stage_inkernel.cu``, ``cov_stage_nu4.cu``,
 ``cov_stage_nbr.cu`` and ``cov_stage_inkernel.cu`` (built against this
@@ -73,8 +75,7 @@ step (the Cartesian in-kernel one, the in-stage one) is also timed with
 the parent's and this tree's kernel in turns: device µs per step as a
 CUDA graph of 20 steps, the host's issue time per step (the host clock
 around 20 steps enqueued, before the synchronise), and wall steps/s over
-200 steps.  The SASS counts of B7 B (and its B14 modes) are printed
-beside the earlier tree's.
+200 steps.
 
 B13's and B8's forms (``b13b8``; the levers are this tree's sources
 rewritten, ``b13b8_levers``):
@@ -123,6 +124,33 @@ once, B10 stages 1-3 and the general core's stage 2.  The classic
 and this tree's kernel in turns: device µs per step as a CUDA graph of 20
 steps, and wall steps/s over 100 steps.  The SASS counts of the kernels
 ``SASS_KEPT`` names are printed beside the earlier tree's.
+
+B3's, B7 B's and B14's forms (``b3b7b``; the levers are this tree's
+sources rewritten, ``b3b7b_levers``):
+
+* ``parent``: the earlier tree's kernel;
+* ``psi double-buffered, 2/SM`` (B3): the next face's psi (and band b)
+  staged into a second buffer during this face's work (88 KB of shared
+  memory, ``__launch_bounds__(256, 2)``) instead of after its stage;
+* ``u on tile + 2`` (B3): u_a and u_b filtered on tile + 2 and their l1
+  computed on tile + 3, as h's (``EU = 2``), where the stage reads u on
+  tile + 1 only;
+* ``no filter`` (B3; an ablation, timing only): the l1 and E passes
+  taken out, the stage run on psi;
+* ``adv after the wait`` (B7 B): adv loaded after the window's wait
+  (kernel A's order for y0) instead of while the copies are in flight;
+* ``fields unrolled`` (B7 B): the loop over the three fields unrolled,
+  which takes Full from 80 registers and a 20 B spill to 68 and none;
+* ``new``: this tree's.
+
+B3 on the Galewsky carry after one re-fused step (also bitwise on TC5's
+carry after one, and with a probe's nu4), B7 B as stages 1 and 2 on the
+Galewsky carry after one in-stage step, B14's modes as stage 1 (parent
+and new).  The re-fused and in-stage steps are also timed with the
+parent's and this tree's kernels in turns: device µs per step as a CUDA
+graph of 20 steps, the host's issue time per step and wall steps/s over
+200 steps.  The SASS counts of the kernels ``SASS_KEPT`` names are
+printed beside the earlier tree's.
 
 Every figure is device time per launch of 20 launches captured as a
 CUDA graph and replayed (``profiling.device_seconds``) at C``N`` (default
@@ -495,9 +523,8 @@ def redesign_levers() -> dict:
 
 def probe_redesign(libs, parent, n, card, sass, ink_vars=(), a_vars=()):
     """B11 and B7 A: this tree's, the earlier tree's and the levers;
-    bitwise checks, device µs per launch and per step in turns, the
-    host's issue time per step, and the SASS counts of kernel B (and
-    B14), which must not change."""
+    bitwise checks, device µs per launch and per step in turns, and the
+    host's issue time per step."""
     from jaxstream_torch import _build
     from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
                                         EARTH_RADIUS)
@@ -628,15 +655,6 @@ def probe_redesign(libs, parent, n, card, sass, ink_vars=(), a_vars=()):
                   for k, v in got.items()) + f"; card {card}", flush=True)
     use_ink("ink new")()
     use_a("a new")()
-
-    # The functions' names differ between two builds (an anonymous
-    # namespace is named after its file), so the counts are compared.
-    keep, was = ([c for k, c in sass[lib].items() if "nu4_b_kernel" in k]
-                 for lib in ("cov_stage_nu4", "parent_cov_stage_nu4"))
-    print(f"SASS cov_stage_nu4 kernel B: {sorted(keep)} (parent "
-          f"{sorted(was)}): "
-          + ("same" if sorted(keep) == sorted(was) else "CHANGED"),
-          flush=True)
     return checks, times, steps
 
 
@@ -984,6 +1002,196 @@ def probe_b9b10(libs, n, card, sass):
     return checks, times, steps
 
 
+def b3b7b_levers() -> dict:
+    """This tree's B3 with psi double-buffered one face ahead (two blocks
+    per SM), with u filtered on tile + 2 as h is, and without its filter
+    passes (an ablation: the stage on psi); its B with adv loaded after
+    the window's wait (kernel A's order) and with the field loop
+    unrolled (no spill)."""
+    from jaxstream_torch import _build
+
+    csrc = _build.CSRC_DIR
+    b3 = (csrc / "cov_stage_refused_nu4.cu").read_text()
+    b = (csrc / "cov_stage_nu4.cu").read_text()
+    double = b3
+    for old, new in (
+            ("  FaceWindow w;\n", "  FaceWindow w[2];\n"),
+            ("  stage_psi(p, sm.w, f0, j0, i0);",
+             "  stage_psi(p, sm.w[0], f0, j0, i0);"),
+            ("    if (q > 0) {   // E was built over the last face's psi\n"
+             "      stage_psi(p, sm.w, f, j0, i0);\n"
+             "      async_commit();\n    }\n    async_wait<0>();\n",
+             "    if (q + 1 < FPB) {\n"
+             "      stage_psi(p, sm.w[(q + 1) & 1], f + 1, j0, i0);\n"
+             "      async_commit();\n      async_wait<1>();\n"
+             "    } else {\n      async_wait<0>();\n    }\n"),
+            ("= sm.w.psi;", "= sm.w[q & 1].psi;"),
+            ("&sm.w.b[0][0]", "&sm.w[q & 1].b[0][0]"),
+            ("__launch_bounds__(NT, 3)\ncov_stage_refused_nu4_kernel",
+             "__launch_bounds__(NT, 2)\ncov_stage_refused_nu4_kernel")):
+        double = _sub(double, old, new)
+    wide_u = _sub(b3, "constexpr int EU = 1;", "constexpr int EU = 2;")
+    wait = ("    if (q + 1 < FPB)\n      async_wait<1>();\n    else\n"
+            "      async_wait<0>();\n")
+    loads = "    // The face's adv at the thread's cells, loaded while the"
+    late = _sub(_sub(b, wait, ""), loads, wait + loads)
+    loop = "      for (int fi = 0; fi < 3; ++fi) {\n        float l2;"
+    unrolled = _sub(b, loop, "#pragma unroll\n" + loop)
+    a = b3.index("    // ---- l1 = lap(psi)")
+    no_filter = b3[:a] + b3[b3.index("    // ---- the stage on E"):]
+    return {"b3_psi_double": double, "b3_u_tile2": wide_u,
+            "b3_no_filter": no_filter, "b_adv_after_wait": late,
+            "b_fields_unrolled": unrolled}
+
+
+#: The b3b7b forms of each kernel: label -> library name; the ablation
+#: (not bitwise by design) last.
+B3_FORMS = {"parent": "parent_cov_stage_refused_nu4",
+            "psi double-buffered, 2/SM": "b3_psi_double",
+            "u on tile + 2": "b3_u_tile2", "new": "cov_stage_refused_nu4",
+            "no filter": "b3_no_filter"}
+B7B_FORMS = {"parent": "parent_cov_stage_nu4",
+             "adv after the wait": "b_adv_after_wait",
+             "fields unrolled": "b_fields_unrolled", "new": "cov_stage_nu4"}
+
+
+def probe_b3b7b(libs, n, card, sass):
+    """B3, B7 B and B14's modes: this tree's, the earlier tree's and the
+    levers; bitwise checks, device µs per launch and the re-fused and
+    in-stage steps' device µs per step in turns, the steps' host issue
+    time and wall rate, and the SASS counts of the kernels that must not
+    change."""
+    from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
+                                        EARTH_RADIUS)
+    from jaxstream_torch.experiments import nu4_bisect as nb
+    from jaxstream_torch.geometry.cubed_sphere import build_grid
+    from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
+    from jaxstream_torch.ops.cuda import swe_cov
+    from jaxstream_torch.physics.initial_conditions import (galewsky,
+                                                            williamson_tc5)
+    from jaxstream_torch.stepping import integrate
+    from jaxstream_torch.utils.profiling import device_seconds
+
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    b3_types = [P] * 14 + [I] * 2 + [F] * 7 + [P]
+    b_types = [P] * 12 + [I] * 2 + [F] * 4 + [P]
+    b14_types = [P] * 12 + [I] * 3 + [F] * 4 + [P]
+    fns = {("b3", k): entry(libs[lib], "cov_stage_refused_nu4_f32",
+                            b3_types) for k, lib in B3_FORMS.items()}
+    fns.update({("b", k): entry(libs[lib], "cov_stage_nu4_b_f32", b_types)
+                for k, lib in B7B_FORMS.items()})
+    fns.update({("b14", k): entry(libs[lib], "cov_stage_nu4_b_ablated_f32",
+                                  b14_types)
+                for k, lib in B7B_FORMS.items()})
+
+    def use(tag, key):
+        mod, attr = {"b3": (swe_cov, "_refused_kernel"),
+                     "b": (swe_cov, "_nu4_b_kernel"),
+                     "b14": (nb, "_ablated_kernel")}[tag]
+        return lambda: setattr(mod, attr, lambda: fns[(tag, key)])
+
+    grid = build_grid(n, halo=2, radius=EARTH_RADIUS, dtype=torch.float32)
+    h, v, b = williamson_tc5(grid, EARTH_GRAVITY, EARTH_OMEGA)
+    gal = CovariantShallowWater(grid, gravity=EARTH_GRAVITY,
+                                omega=EARTH_OMEGA, nu4=1.0e14)
+    tc5 = CovariantShallowWater(grid, gravity=EARTH_GRAVITY,
+                                omega=EARTH_OMEGA, b_ext=b, nu4=1.0e14)
+    rstep = gal.make_fused_step(60.0, nu4_mode="refused")
+    sstep = gal.make_fused_step(60.0, nu4_mode="stage")
+    y0 = gal.compact_state(gal.initial_state(
+        *galewsky(grid, EARTH_GRAVITY, EARTH_OMEGA)))
+    ry = rstep(y0, 0.0)
+    sy = sstep(y0, 0.0)
+    tstep = tc5.make_fused_step(75.0, nu4_mode="refused")
+    ty = tstep(tc5.compact_state(tc5.initial_state(h, v)), 0.0)
+    b3_cases = {
+        "Galewsky": (rstep.stage1f, (ry["h"], ry["u"]) + rstep.route(
+            ry["strips_sn"], ry["strips_we"]) + (gal.b_ext,)),
+        "TC5 orography": (tstep.stage1f, (ty["h"], ty["u"]) + tstep.route(
+            ty["strips_sn"], ty["strips_we"]) + (tc5.b_ext,))}
+    b3_cases["Galewsky probe"] = (swe_cov.make_cov_stage_refused_nu4(
+        grid, EARTH_GRAVITY, EARTH_OMEGA, 60.0, 1.0e21),
+        b3_cases["Galewsky"][1])
+    gsn, gwe = sstep.route(sy["strips_sn"], sy["strips_we"])
+    b_cases = {}
+    for label, st in zip(("stage 1", "stage 2"), sstep.stages[:2]):
+        args = (sy["h"], sy["u"], gsn, gwe, gal.b_ext)
+        if st.with_y0:
+            args = (sy["h"], sy["u"]) + args
+        out_a = st.reference_a(*args)
+        b_cases[label] = (st, tuple(out_a[:4]) + sstep.route(out_a[4],
+                                                            out_a[5]))
+    b14 = {m: nb.Nu4BisectB(b_cases["stage 1"][0], m) for m in nb.MODES}
+
+    checks = {}
+    for key in B3_FORMS:
+        if key == "no filter":
+            continue
+        use("b3", key)()
+        for label, (st, a) in b3_cases.items():
+            checks[f"B3 {key} {label}"] = bitwise(st, st.reference, a)
+    for key in B7B_FORMS:
+        use("b", key)()
+        use("b14", key)()
+        for label, (st, a) in b_cases.items():
+            checks[f"B7 B {key} {label}"] = bitwise(st.call_b,
+                                                   st.reference_b, a)
+        a = b_cases["stage 1"][1]
+        for m, kb in b14.items():
+            checks[f"B14 {key} {m}"] = bitwise(kb, kb.reference, a)
+    times = {}
+    st, a = b3_cases["Galewsky"]
+    times["B3 Galewsky"] = in_turns({k: use("b3", k) for k in B3_FORMS}, st,
+                                    a)
+    for label, (st, a) in b_cases.items():
+        times[f"B7 B {label}"] = in_turns(
+            {k: use("b", k) for k in B7B_FORMS}, st.call_b, a)
+    a = b_cases["stage 1"][1]
+    for m, kb in b14.items():
+        times[f"B14 {m}"] = in_turns(
+            {k: use("b14", k) for k in ("parent", "new")}, kb, a)
+    use("b3", "new")()
+    use("b", "new")()
+    use("b14", "new")()
+
+    # The steps: device µs per step as a CUDA graph of 20, the host's
+    # issue time per step (20 steps enqueued, before the synchronise) and
+    # the wall steps/s of 200 steps, parent and new kernels in turns.
+    def step_times(step, y):
+        d = device_seconds(lambda: integrate(step, y, 60.0, 20, 60.0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        integrate(step, y, 60.0, 20, 60.0)
+        issue = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        integrate(step, y, 60.0, 200, 60.0)
+        torch.cuda.synchronize()
+        return ((float("nan") if d is None else d / 20 * 1e6), issue,
+                200 / (time.perf_counter() - t0))
+
+    steps = {}
+    for name, tags, step, y in (("re-fused step", ("b3",), rstep, ry),
+                                ("in-stage step", ("b", "b14"), sstep, sy)):
+        got = {"parent": [], "new": []}
+        for form in ("parent", "new", "new", "parent"):
+            for tag in tags:
+                use(tag, form)()
+            got[form].append(step_times(step, y))
+        steps[name] = got
+        print(f"C{n} {name} (parent / new kernels, in turns): "
+              + "; ".join(f"{k} device " + ", ".join(
+                  f"{d:.2f}" for d, _, _ in v) + " us/step, host issue "
+                  + ", ".join(f"{hst:.2f}" for _, hst, _ in v)
+                  + " us/step, wall " + ", ".join(
+                      f"{r:.1f}" for _, _, r in v) + " steps/s"
+                  for k, v in got.items()) + f"; card {card}", flush=True)
+    for tag in ("b3", "b", "b14"):
+        use(tag, "new")()
+    sass_kept(sass)
+    return checks, times, steps
+
+
 def sass_kept(sass) -> None:
     """Print the SASS counts of the libraries (or the functions) of
     ``SASS_KEPT`` beside the earlier tree's.  The functions' names differ
@@ -1000,24 +1208,24 @@ def sass_kept(sass) -> None:
               + ("same" if keep == was else "CHANGED"), flush=True)
 
 
-#: The libraries whose SASS b13b8 and b9b10 compare with the earlier
-#: tree's, each with the kernel functions it covers (a substring of their
-#: names; None for all): the kernels that keep their tile-per-block design
-#: (B3, B7 B / B14), the faces-in-block kernels that share cov_faces.cuh,
-#: and B11's fast core, which the main Cartesian path runs and which
-#: shares swe_faces.cuh with B9 and B10.
-SASS_KEPT = {"cov_stage_refused_nu4": None, "cov_stage_nu4": None,
-             "cov_stage": None, "cov_nu4_filter": None, "cov_rhs": None,
+#: The libraries whose SASS b3b7b, b13b8 and b9b10 compare with the
+#: earlier tree's, each with the kernel functions it covers (a substring
+#: of their names; None for all): every kernel that shares cov_faces.cuh
+#: and cov_common.cuh but B3 and B7 B / B14 (redesigned in the b3b7b
+#: tree), kernel A among them.
+SASS_KEPT = {"cov_stage_nu4": "nu4_a_kernel", "cov_stage": None,
+             "cov_nu4_filter": None, "cov_rhs": None,
              "cov_rhs_interior": None, "cov_rhs_local": None,
              "cov_step_mega": None, "cov_stage_inkernel": None,
-             "cov_stage_nbr": None, "swe_stage_inkernel": "ILb1E"}
+             "cov_stage_nbr": None, "swe_rhs": None, "swe_stage": None,
+             "swe_stage_inkernel": None}
 
 
 def main() -> int:
     args = sys.argv[1:]
     n = 384
     mega_dir = None
-    parts = {"b1b2", "b12", "b4", "b11b7a", "b13b8", "b9b10"}
+    parts = {"b1b2", "b12", "b4", "b11b7a", "b13b8", "b9b10", "b3b7b"}
     var_dirs = {}
     while args[:1] in (["--n"], ["--mega"], ["--parts"], ["--ink"],
                        ["--nu4a"], ["--nbr"], ["--ext"]):
@@ -1107,7 +1315,7 @@ def main() -> int:
                 for cu in sorted(d.glob("*.cu")):
                     variants[f"{kind}_{cu.stem}"] = (cu.read_text(),
                                                      _build.CSRC_DIR)
-    if parts & {"b13b8", "b9b10"}:
+    if parts & {"b13b8", "b9b10", "b3b7b"}:
         ours += [k for k in SASS_KEPT if k not in ours]
         for name in SASS_KEPT:
             variants.setdefault(f"parent_{name}", (
@@ -1118,6 +1326,13 @@ def main() -> int:
             variants.setdefault(f"parent_{name}", (
                 (parent / f"{name}.cu").read_text(), parent))
         for name, text in b9b10_levers().items():
+            variants[name] = (text, _build.CSRC_DIR)
+    if "b3b7b" in parts:
+        ours += ["cov_stage_refused_nu4", "cov_stage_nu4"]
+        for name in ("cov_stage_refused_nu4", "cov_stage_nu4"):
+            variants.setdefault(f"parent_{name}", (
+                (parent / f"{name}.cu").read_text(), parent))
+        for name, text in b3b7b_levers().items():
             variants[name] = (text, _build.CSRC_DIR)
     if "b13b8" in parts:
         for name, text in b13b8_levers().items():
@@ -1260,9 +1475,14 @@ def main() -> int:
             libs, n, card, sass)
         more.update(bb_checks)
         times.update(bb_times)
+    if "b3b7b" in parts:
+        nu4_checks, nu4_times, summary["b3b7b_steps_us"] = probe_b3b7b(
+            libs, n, card, sass)
+        more.update(nu4_checks)
+        times.update(nu4_times)
     checks.update(more)
     print(f"bitwise vs plain at C{n} (B12, B4, B11, B7 A, B13, B8, B9, "
-          f"B10): {more}", flush=True)
+          f"B10, B3, B7 B, B14): {more}", flush=True)
     for label, t in times.items():
         print(f"C{n} {label}, device us per launch (CUDA graph of {REPS}, "
               "in turns): " + "; ".join(
@@ -1275,7 +1495,7 @@ def main() -> int:
              if k.split()[0] in ("cov_stage", "parent_stage_full",
                                  "cov_nu4_filter", "parent_filter",
                                  "B12", "B4", "B11", "B7", "B13",
-                                 "B8", "B9", "B10"))
+                                 "B8", "B9", "B10", "B3", "B14"))
     print(json.dumps({"ok": ok, "n": n, "card": card, "bitwise": checks,
                       "times_us": times, "sass": sass, **summary}))
     return 0 if ok else 1

@@ -281,6 +281,69 @@ def test_stage_nu4_b_ablated_matches_plain_c48():
                            for x, r in zip(out, s.call_b(*bargs)))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [48, 72, 74], ids=["c48", "c72", "c74"])
+def test_nu4_faces_kernels_match_plain(n):
+    """B3 on the Galewsky jet and on TC5's orography, B as stages 1 and 2,
+    and B14's three modes, at nu4 = 1e14 and at a probe's (1e21: the
+    filter term dominant), from the carry after one step and after
+    eleven: bitwise.  C72 has 3 x 3 tile positions (ragged last columns);
+    C74's last tiles are ragged by 2 and 10 cells."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the del^4 kernels have no CPU "
+                    "form)")
+    g = build_grid(n, halo=2, radius=EARTH_RADIUS, device="cuda")
+    h, v, b = williamson_tc5(g, EARTH_GRAVITY, EARTH_OMEGA)
+    models = {
+        "Galewsky": (CovariantShallowWater(
+            g, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA, nu4=1.0e14),
+            galewsky(g, EARTH_GRAVITY, EARTH_OMEGA), 60.0 * 384 / n),
+        "TC5": (CovariantShallowWater(
+            g, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA, b_ext=b,
+            nu4=1.0e14), (h, v), 75.0 * 384 / n)}
+    for label, (m, ic, dt) in models.items():
+        y0 = m.compact_state(m.initial_state(*ic))
+        step = m.make_fused_step(dt, nu4_mode="refused")
+        probe = tcov.make_cov_stage_refused_nu4(g, EARTH_GRAVITY,
+                                                EARTH_OMEGA, dt, 1.0e21)
+        y1 = step(y0, 0.0)
+        y11, _ = integrate(step, y1, dt, 10, dt)
+        for y in (y1, y11):
+            args = (y["h"], y["u"]) + step.route(
+                y["strips_sn"], y["strips_we"]) + (m.b_ext,)
+            for st, tol in ((step.stage1f, TOL), (probe, PROBE_TOL)):
+                before = tcov.CovStageRefusedNu4.launches
+                _check(f"B3 {label}", st, st.reference, args, tol, exact=True)
+                assert tcov.CovStageRefusedNu4.launches == before + 1
+    m, ic, dt = models["Galewsky"]
+    step = m.make_fused_step(dt, nu4_mode="stage")
+    y1 = step(m.compact_state(m.initial_state(*ic)), 0.0)
+    y11, _ = integrate(step, y1, dt, 10, dt)
+    for y in (y1, y11):
+        gsn, gwe = step.route(y["strips_sn"], y["strips_we"])
+        for st in step.stages[:2]:
+            args = (y["h"], y["u"], gsn, gwe, m.b_ext)
+            if st.with_y0:
+                args = (y["h"], y["u"]) + args
+            out_a = st.reference_a(*args)
+            bargs = tuple(out_a[:4]) + step.route(out_a[4], out_a[5])
+            probe = tcov.CovStageNu4(g.n, g.halo, g.dalpha, g.radius,
+                                     EARTH_GRAVITY, EARTH_OMEGA, st.dt, st.a,
+                                     st.b, 1.0e21, device=g.device)
+            for s, tol in ((st, TOL), (probe, PROBE_TOL)):
+                before = tcov.CovStageNu4.launches_b
+                _check("B", s.call_b, s.reference_b, bargs, tol, exact=True)
+                assert tcov.CovStageNu4.launches_b == before + 1
+                out = s.call_b(*bargs)
+                for mode in nb.MODES:
+                    kb = nb.Nu4BisectB(s, mode)
+                    _check(f"B14 {mode}", kb, kb.reference, bargs, tol,
+                           exact=True)
+                    if mode == "full":
+                        assert all(torch.equal(x, r) for x, r in
+                                   zip(kb(*bargs), out))
+
+
 def _tc5(n):
     g = build_grid(n, halo=2, radius=EARTH_RADIUS, device="cuda")
     h, v, b = williamson_tc5(g, EARTH_GRAVITY, EARTH_OMEGA)

@@ -441,12 +441,11 @@ def test_stage_nu4_b_ablated_kernel_source(launch_on_cpu, galewsky_c40,
 
 def test_stage_nu4_b_ablated_mutation_is_caught(emulated, launch_on_cpu,
                                                  monkeypatch, galewsky_c40):
-    """The mutation check of B14: NoFill reading the routed ghosts
+    """The mutation check of B14: NoFill staging the routed ghosts
     instead of its zero apron must disagree with its plain version."""
     name = "cov_stage_nu4"
-    zero = "? q[fi][j * n + i] : 0.0f;"
-    lib = _mutated_lib(emulated, name, zero, "? q[fi][j * n + i]\n : "
-                       "filled(q[fi], gsn, gwe, fi, n, hh, rw, j, i);")
+    zero = "const int hh = M == BMode::NoFill ? 0 : p.halo;"
+    lib = _mutated_lib(emulated, name, zero, "const int hh = p.halo;")
     monkeypatch.setattr(_build, "load", lambda nm: ctypes.CDLL(
         str(lib if nm == name else emulated[nm])))
     g, m, dt, step, args = galewsky_c40
@@ -832,6 +831,151 @@ def test_redesign_mutation_is_caught(emulated, launch_on_cpu, monkeypatch,
     else:
         st, args = redesign_cases["tc5"][72][1]
         out, ref = st.call_a(*args), st.reference_a(*args)
+    assert not all(torch.equal(x, r) for x, r in zip(out, ref))
+
+
+# ---- the faces-in-block redesigns of B3 and B7 B (with B14's modes) -------
+#
+# At C24 one tile is wider than its face; at C72 a face has 3 x 3 tile
+# positions of 32 x 24 (ragged last columns; B7 B's middle tile reads no
+# ghost, B3's psi window, 4 cells past the tile, reaches the ghosts from
+# every tile); at C74 the last row and column of tiles are ragged by 2 and
+# 10 cells.  The probe's nu4 (1e21) makes the filter term dominate the
+# outputs at these grids (damp max|lap(lap q)| is 30-1 000 x max|q|).
+
+_PROBE_NU4 = 1.0e21
+
+
+def _refused_operands(n, tc5):
+    """The re-fused stage 1 at C``n`` at nu4 = 1e14 and at the probe's, on
+    the carry after one re-fused step: the Galewsky jet (its orography
+    zero) or TC5 (the mountain's: the Bernoulli band's b)."""
+    g = build_grid(n, halo=2, radius=EARTH_RADIUS, device="cpu")
+    if tc5:
+        h, v, b = williamson_tc5(g, G, OM)
+        m = CovariantShallowWater(g, gravity=G, omega=OM, b_ext=b,
+                                  nu4=1.0e14)
+        dt = 75.0 * 384 / n
+    else:
+        h, v = galewsky(g, G, OM)
+        m = CovariantShallowWater(g, gravity=G, omega=OM, nu4=1.0e14)
+        dt = 60.0 * 384 / n
+    step = m.make_fused_step(dt, nu4_mode="refused")
+    y = step(m.compact_state(m.initial_state(h, v)), 0.0)
+    args = (y["h"], y["u"]) + step.route(y["strips_sn"],
+                                         y["strips_we"]) + (m.b_ext,)
+    probe = tsc.make_cov_stage_refused_nu4(g, G, OM, dt, _PROBE_NU4)
+    return [(step.stage1f, args), (probe, args)]
+
+
+def _nu4_b_operands(n):
+    """Kernel B's operands at C``n`` on the Galewsky carry after one
+    in-stage step, as stages 1 and 2: kernel A's plain outputs and the
+    routed ghosts of their l1 strips; each stage at nu4 = 1e14 and at the
+    probe's.  Returns ``[(pair, args), ...]``."""
+    g = build_grid(n, halo=2, radius=EARTH_RADIUS, device="cpu")
+    m = CovariantShallowWater(g, gravity=G, omega=OM, nu4=1.0e14)
+    step = m.make_fused_step(60.0 * 384 / n, nu4_mode="stage")
+    y = step(m.compact_state(m.initial_state(*galewsky(g, G, OM))), 0.0)
+    gsn, gwe = step.route(y["strips_sn"], y["strips_we"])
+    cases = []
+    for st in step.stages[:2]:
+        args = (y["h"], y["u"], gsn, gwe, m.b_ext)
+        if st.with_y0:
+            args = (y["h"], y["u"]) + args
+        out_a = st.reference_a(*args)
+        bargs = tuple(out_a[:4]) + step.route(out_a[4], out_a[5])
+        probe = tsc.CovStageNu4(g.n, g.halo, g.dalpha, g.radius, G, OM,
+                                st.dt, st.a, st.b, _PROBE_NU4, device="cpu")
+        cases += [(st, bargs), (probe, bargs)]
+    return cases
+
+
+@pytest.fixture(scope="module")
+def nu4_faces_cases():
+    """B3's operands on the Galewsky jet and on TC5, and B's, at C24, C72
+    and C74."""
+    return {n: {"galewsky": _refused_operands(n, False),
+                "tc5": _refused_operands(n, True),
+                "b": _nu4_b_operands(n)} for n in (24, 72, 74)}
+
+
+@pytest.mark.parametrize("case", ["galewsky", "tc5"])
+@pytest.mark.parametrize("n", [24, 74], ids=["c24", "c74"])
+def test_refused_kernel_larger_grids(launch_on_cpu, nu4_faces_cases, n,
+                                     case):
+    """B3 at nu4 = 1e14 and at the probe's, on the Galewsky jet and on
+    TC5's orography: bitwise, strips included."""
+    cases = nu4_faces_cases[n][case]
+    before = tsc.CovStageRefusedNu4.launches
+    for st, args in cases:
+        _equal(st(*args), st.reference(*args))
+    assert tsc.CovStageRefusedNu4.launches == before + len(cases)
+
+
+@pytest.mark.parametrize("n", [24, 72, 74], ids=["c24", "c72", "c74"])
+def test_stage_nu4_b_larger_grids(launch_on_cpu, nu4_faces_cases, n):
+    """B as stages 1 and 2, at nu4 = 1e14 and at the probe's, and B14's
+    three modes as stage 2 at the probe's: bitwise equal to their plain
+    versions, B14's full mode to B."""
+    before = (tsc.CovStageNu4.launches_b, nb.Nu4BisectB.launches)
+    cases = nu4_faces_cases[n]["b"]
+    for st, args in cases:
+        out = st.call_b(*args)
+        _equal(out, st.reference_b(*args))
+    for mode in nb.MODES:
+        b = nb.Nu4BisectB(st, mode)
+        got = b(*args)
+        _equal(got, b.reference(*args))
+        if mode == "full":
+            _equal(got, out)
+    assert (tsc.CovStageNu4.launches_b, nb.Nu4BisectB.launches) == (
+        before[0] + len(cases), before[1] + len(nb.MODES))
+
+
+#: Mutations of B3 (cov_stage_refused_nu4.cu) and of B (cov_stage_nu4.cu):
+#: B3 filtering the ring-1 ghosts too (E then holds filtered values past
+#: the face edge); B3 staging the group's first face for every face; B3's
+#: stage reading u_b's E as u_a's; B without its ghost-corner average; B
+#: computing each face from the other buffer's window.
+_B3B_MUTATIONS = {
+    "b3-filtered-ghosts": (
+        "cov_stage_refused_nu4",
+        "if (j < 0 || j >= n || i < 0 || i >= n) return;",
+        "if (j < -1 || j > n || i < -1 || i > n) return;"),
+    "b3-first-face-psi": (
+        "cov_stage_refused_nu4",
+        "stage_psi(p, sm.w, f, j0, i0);",
+        "stage_psi(p, sm.w, f0, j0, i0);"),
+    "b3-wrong-field": (
+        "cov_stage_refused_nu4",
+        "rows_at<PX>(&psi[1][AP - 1][AP - WOFF]),",
+        "rows_at<PX>(&psi[2][AP - 1][AP - WOFF]),"),
+    "b-no-corners": (
+        "cov_stage_nu4", "if (M != BMode::NoFill && edge) {",
+        "if (false) {"),
+    "b-next-window": (
+        "cov_stage_nu4", "float(*l1)[FTY + 2][WS] = sm.l1[cur];",
+        "float(*l1)[FTY + 2][WS] = sm.l1[cur ^ 1];"),
+}
+
+
+@pytest.mark.parametrize("mutation", sorted(_B3B_MUTATIONS))
+def test_b3_b_mutation_is_caught(emulated, launch_on_cpu, monkeypatch,
+                                 nu4_faces_cases, mutation):
+    """Each mutation of B3 or B must disagree with the plain version (B3
+    at C74 on TC5 at the probe's nu4, B at C72 as stage 2 at the
+    probe's)."""
+    name, old, new = _B3B_MUTATIONS[mutation]
+    lib = _mutated_lib(emulated, name, old, new)
+    monkeypatch.setattr(_build, "load", lambda nm: ctypes.CDLL(
+        str(lib if nm == name else emulated[nm])))
+    if name == "cov_stage_refused_nu4":
+        st, args = nu4_faces_cases[74]["tc5"][1]
+        out, ref = st(*args), st.reference(*args)
+    else:
+        st, args = nu4_faces_cases[72]["b"][3]
+        out, ref = st.call_b(*args), st.reference_b(*args)
     assert not all(torch.equal(x, r) for x, r in zip(out, ref))
 
 
@@ -1260,13 +1404,15 @@ def test_stacked_kernel_mutation_is_caught(emulated, launch_on_cpu,
 
 
 def test_whole_face_kernels_pass_rows_as_columns():
-    """advective_tile, and the faces-in-block design's stage_metric and
-    stage_face_tile, take separate row and column coordinates (centres
-    and faces along i, then along j); every kernel of whole faces passes
-    its one coordinate pair as both, the group kernels their groups' own
-    rows and columns: the two block kernels through cov_faces.cuh's
-    rhs_group, B4 through its own group loop (its wrapper hands every
-    group the full-face pair as rows and columns)."""
+    """The faces-in-block design's stage_metric and stage_face_tile take
+    separate row and column coordinates (centres and faces along i, then
+    along j); every kernel of whole faces passes its one coordinate pair
+    as both (the re-fused stage calls stage_face_tile alone: its metric
+    terms come from lap_metric and its own band metric, which take the
+    face's one pair), the group kernels their groups' own rows and
+    columns: the two block kernels through cov_faces.cuh's rhs_group, B4
+    through its own group loop (its wrapper hands every group the
+    full-face pair as rows and columns)."""
     sources = {name: (_build.CSRC_DIR / fname).read_text()
                for name, fname in _build.KERNELS.items()}
     sources["cov_faces.cuh"] = (_build.CSRC_DIR / "cov_faces.cuh").read_text()
@@ -1279,31 +1425,26 @@ def test_whole_face_kernels_pass_rows_as_columns():
             fn = mt.group(1).rstrip("<(")
             calls.setdefault(name, {}).setdefault(fn, []).append(args)
     faces_in_block = {"cov_stage": "p.xc, p.xf, p.xc, p.xf,",
+                      "cov_stage_refused_nu4": "p.xc, p.xf, p.xc, p.xf,",
                       "cov_stage_nu4": "p.xc, p.xf, p.xc, p.xf,",
                       "cov_stage_inkernel": "p.xc, p.xf, p.xc, p.xf,",
                       "cov_stage_nbr": "p.xc, p.xf, p.xc, p.xf,",
                       "cov_step_mega": "p.xc, p.xf, p.xc, p.xf,",
                       "cov_rhs": " xr, xfr, yc, yfc,",
                       "cov_faces.cuh": " xr, xfr, yc, yfc,"}
-    assert sorted(calls) == sorted(
-        ["cov_stage", "cov_stage_refused_nu4", "cov_stage_nu4", "cov_rhs",
-         "cov_stage_inkernel", "cov_stage_nbr", "cov_step_mega",
-         "cov_faces.cuh"])
+    assert sorted(calls) == sorted(faces_in_block)
     for name, fns in calls.items():
-        if name in faces_in_block:
-            assert sorted(fns) == ["stage_face_tile", "stage_metric"], fns
-            pair = faces_in_block[name]
-            wants = {"stage_metric": pair, "stage_face_tile": pair}
-        else:
-            assert sorted(fns) == ["advective_tile"], (name, fns)
-            wants = {"advective_tile": "p.xc, p.xf, p.xc, p.xf,"}
-        for fn, want in wants.items():
+        want = (["stage_face_tile"] if name == "cov_stage_refused_nu4"
+                else ["stage_face_tile", "stage_metric"])
+        assert sorted(fns) == want, (name, fns)
+        for fn in want:
             assert len(fns[fn]) == 1, (name, fn)
-            assert want in fns[fn][0], (name, fns[fn][0])
+            assert faces_in_block[name] in fns[fn][0], (name, fns[fn][0])
     for name, seam in (("cov_rhs_interior", "None"),
                        ("cov_rhs_local", "Frame")):
         assert sources[name].count(f"rhs_group<Seam::{seam}>(p, sm,") == 1
     for name, seam in (("cov_rhs", "Frame"), ("cov_step_mega", "FrameCg"),
+                       ("cov_stage_refused_nu4", "Prescaled"),
                        ("cov_stage_inkernel", "Frame"),
                        ("cov_stage_nbr", "Frame")):
         assert calls[name]["stage_face_tile"][0].count(
