@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Sixteen paths, all at C384, halo 2, float32, PLR + MC, through the port's
-entry points (``CovariantShallowWater`` and ``ShallowWater``,
-``make_fused_step`` and ``make_step``, the steppers and the step-budget
-bisection of ``jaxstream_torch.experiments``, and ``setup_sharding`` with
+Sixteen paths at C384, halo 2, float32, PLR + MC, and the other
+reconstructions' paths, through the port's entry points
+(``CovariantShallowWater`` and ``ShallowWater``, ``make_fused_step`` and
+``make_step``, the steppers and the step-budget bisection of
+``jaxstream_torch.experiments``, and ``setup_sharding`` with
 ``make_stepper_for`` of ``jaxstream_torch.parallel``):
 
 * Williamson TC5 (flow over a mountain), dt = 75 s, stepped by the
@@ -56,7 +57,12 @@ bisection of ``jaxstream_torch.experiments``, and ``setup_sharding`` with
   ``csrc/cov_rhs_local.cu``) and
   overlapped (per RK stage the exchange's first phase, one launch over
   all ranks of the interior kernel ``csrc/cov_rhs_interior.cu``, the
-  second phase, and the torch band).
+  second phase, and the torch band);
+* TC5 on the compact stepper and the kernel-backed classic path in each
+  reconstruction besides PLR-MC (PLR with the limiters ``none``,
+  ``minmod``, ``mc_sign``, ``vanleer`` at halo 2; PPM at halo 3), each
+  launching its mode's instance of the stage and RHS kernels; and the
+  Galewsky jet with PPM at halo 3 on the split del^4 stepper.
 
 Phases, each fatal on failure:
 
@@ -252,7 +258,22 @@ Phases, each fatal on failure:
     ``Roofline`` report of ``analytic_cov_step_cost(384)``, a
     ``StepTimer`` p50, and ``integrate_with_metrics`` over 200 steps with
     total mass and total energy every 20 steps, its carry bitwise
-    ``integrate``'s.
+    ``integrate``'s;
+37. (after phase 33) for each reconstruction besides PLR-MC, its path:
+    three compact steps against three steps of the kernel-backed classic
+    path (``backend='pallas'``, <= 2e-4 of max), then 20 compact steps
+    (PPM: 20 + 1 000, timed, gated as phase 4), the launches of the
+    mode's stage (B1) and RHS (B4) instances checked;
+38. B1 in that mode as stages 1-3 and as stage 3 with y0 = -2 yc, and B4
+    over six faces, against their plain versions on the TC5 state and on
+    the stepped carry (bitwise required), and their times;
+39. (PPM) the step's device time as a CUDA graph and the halo-3 route;
+40. the Galewsky jet with PPM at halo 3 (dt = 60 s, nu4 = 1e14, split):
+    the filter kernel (B2) bitwise against its plain version at halo 3
+    on the carry after one step, with its probe; three split steps
+    against three classic del^4 steps (<= 2e-3 of max, mass <= 1e-5);
+    1 000 timed steps, finite, mass drift < 1e-3, the launches checked,
+    and B2 bitwise and timed on that carry.
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -426,6 +447,17 @@ RATE_WINDOWS = (200, 1000)
 TIMER_REPS = 20
 METRIC_STEPS = 200
 METRIC_EVERY = 20
+# Phases 37-40: the reconstructions besides PLR-MC, as (scheme, limiter);
+# PPM runs at halo 3 (its face states read three cells each side), the
+# PLR limiters at halo 2.  Each mode's kernels are checked on the TC5
+# state and after RECON_WARM_STEPS steps of its own compact stepper.
+RECON_MODES = {"none": ("plr", "none"), "minmod": ("plr", "minmod"),
+               "mc_sign": ("plr", "mc_sign"), "vanleer": ("plr", "vanleer"),
+               "ppm": ("ppm", "mc")}
+RECON_WARM_STEPS = 20
+# The C functions' mangled names of the mode instances (cov_stage.cu,
+# cov_rhs.cu): the ptxas lines of EARLIER_PTXAS are the other functions.
+MODE_KERNEL = re.compile(r"_kernel_(none|minmod|mc_sign|vanleer|ppm)E")
 
 
 def log(msg: str) -> None:
@@ -739,9 +771,10 @@ def tc5_gate(label: str, grid, s0, h_int, days: float) -> None:
 
 class Galewsky:
     """The C384 Galewsky configuration: grid, model (nu4 = 1e14), initial
-    state and carry, and its day-6 gate."""
+    state and carry, and its day-6 gate; ``halo`` and ``scheme`` as the
+    model takes them (PPM needs halo 3)."""
 
-    def __init__(self):
+    def __init__(self, halo: int = 2, scheme: str = "plr"):
         from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
                                             EARTH_RADIUS)
         from jaxstream_torch.geometry.cubed_sphere import build_grid
@@ -750,18 +783,20 @@ class Galewsky:
         from jaxstream_torch.physics.initial_conditions import galewsky
 
         t0 = time.perf_counter()
-        self.grid = build_grid(N, halo=2, radius=EARTH_RADIUS,
+        self.grid = build_grid(N, halo=halo, radius=EARTH_RADIUS,
                                dtype=torch.float32)
         h_ext, v_ext = galewsky(self.grid, EARTH_GRAVITY, EARTH_OMEGA)
         self.model = CovariantShallowWater(self.grid, gravity=EARTH_GRAVITY,
-                                           omega=EARTH_OMEGA, nu4=GAL_NU4)
+                                           omega=EARTH_OMEGA, nu4=GAL_NU4,
+                                           scheme=scheme)
         self.s0 = self.model.initial_state(h_ext, v_ext)
         self.y0 = self.model.compact_state(self.s0)
         self.area = self.grid.interior(self.grid.area).double()
         self.mass0 = float(torch.sum(self.area * self.s0["h"].double()))
         torch.cuda.synchronize()
-        log(f"setup: C{N} grid, Galewsky, model (nu4 {GAL_NU4:g}) in "
-            f"{time.perf_counter() - t0:.2f} s on {self.grid.device}")
+        log(f"setup: C{N} grid (halo {halo}), Galewsky, model (nu4 "
+            f"{GAL_NU4:g}, {scheme}) in {time.perf_counter() - t0:.2f} s on "
+            f"{self.grid.device}")
 
     def drift(self, h) -> float:
         return abs(float(torch.sum(self.area * h.double())) - self.mass0) \
@@ -2364,6 +2399,197 @@ def sharded_paths(card: str, grid, model, s0, y300, t_start) -> list:
     return [rec_b5, rec_b6], (timed_b4, launches[(1, False)], max_b4)
 
 
+def recon_mode_path(card: str, mode: str) -> list:
+    """Phases 37-39 for one reconstruction: TC5 at C384 in ``mode``
+    (halo 3 for PPM).  Its path first: the compact stepper (20 steps; for
+    PPM 20 + 1 000, timed and gated) and 3 steps of the kernel-backed
+    classic path (``backend='pallas'``) against 3 fused steps, the
+    launches counted around it; then B1 (stages 1-3, stage 3 with y0 =
+    -2 yc) and B4 (six faces) bitwise against their plain versions on the
+    TC5 state and on the stepped carry, and timed there.  Returns the two
+    kernels' records for the kernels line."""
+    from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
+                                        EARTH_RADIUS)
+    from jaxstream_torch.geometry.cubed_sphere import build_grid
+    from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
+    from jaxstream_torch.ops.cuda import swe_cov
+    from jaxstream_torch.physics.initial_conditions import williamson_tc5
+    from jaxstream_torch.stepping import integrate
+
+    Stage, Rhs = swe_cov.CovStageCompact, swe_cov.CovRhs
+    scheme, limiter = RECON_MODES[mode]
+    halo = 3 if scheme == "ppm" else 2
+    t0 = time.perf_counter()
+    grid = build_grid(N, halo=halo, radius=EARTH_RADIUS, dtype=torch.float32)
+    h_ext, v_ext, b_ext = williamson_tc5(grid, EARTH_GRAVITY, EARTH_OMEGA)
+    model = CovariantShallowWater(grid, gravity=EARTH_GRAVITY,
+                                  omega=EARTH_OMEGA, b_ext=b_ext,
+                                  scheme=scheme, limiter=limiter,
+                                  backend="pallas")
+    step = model.make_fused_step(STEP_DT)
+    s0 = model.initial_state(h_ext, v_ext)
+    y0 = model.compact_state(s0)
+    route, stages, kern = step.route, step.stages, model._pallas_rhs.kernel
+    if [st.mode for st in stages] + [kern.mode] != [mode] * 4:
+        raise RuntimeError(f"{mode}: the stepper's kernels are not in mode "
+                           f"{mode}")
+    torch.cuda.synchronize()
+    log(f"setup: C{N} grid (halo {halo}), TC5, {mode} model and steppers in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # ---- the mode's path: its launches counted around it ----------------
+    Stage.launches = Rhs.launches = 0
+    yf, _ = integrate(step, y0, 0.0, 3, STEP_DT)
+    yc, _ = integrate(model.make_step(STEP_DT), s0, 0.0, 3, STEP_DT)
+    errs = {k: rel_err(yc[k], yf[k]) for k in ("h", "u")}
+    log(f"{mode} fused vs kernel-backed classic C{N}, 3 steps: max rel diff "
+        f"h {errs['h']:.3e}, u {errs['u']:.3e} (tol "
+        f"{FUSED_VS_CLASSIC_TOL:g})")
+    if max(errs.values()) > FUSED_VS_CLASSIC_TOL:
+        raise RuntimeError(f"{mode}: fused step disagrees with the classic "
+                           "path")
+    del yf, yc
+    y, t = integrate(step, y0, 0.0, RECON_WARM_STEPS, STEP_DT)
+    torch.cuda.synchronize()
+    nsteps = 3 + RECON_WARM_STEPS
+    if mode == "ppm":
+        t_w = time.perf_counter()
+        y, t = integrate(step, y, t, TIMED_STEPS, STEP_DT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_w
+        nsteps += TIMED_STEPS
+        steps_s = TIMED_STEPS / wall
+        log(f"main path C{N} TC5 PPM (halo 3) dt={STEP_DT:g}: "
+            f"{TIMED_STEPS} steps in {wall:.3f} s -> {steps_s:.1f} steps/s, "
+            f"{1e6 / steps_s:.1f} us/step, "
+            f"{steps_s * STEP_DT / 86400.0:.3f} sim-days/s; card {card}")
+        tc5_gate("compact, PPM", grid, s0, y["h"], t / 86400.0)
+    launches = (Stage.launches, Rhs.launches)
+    if launches != (3 * nsteps, 9):
+        raise RuntimeError(f"{mode}: launches (B1, B4) {launches} != "
+                           f"(3 x {nsteps}, 3 x 3)")
+    if not bool(torch.isfinite(y["h"]).all()):
+        raise RuntimeError(f"{mode}: carry not finite")
+    log(f"{mode} path: {nsteps} fused steps, 3 classic; launches B1 "
+        f"{launches[0]} = 3 x {nsteps}, B4 {launches[1]} = 3 x 3")
+
+    # ---- 37-38. B1 and B4 vs plain on the TC5 state and the carry -------
+    names = ("h", "u", "strips_sn", "strips_we")
+    st1, st2, st3 = stages
+    max_b1 = max_b4 = 0.0
+    forms = []
+    for label, c in (("TC5 state", y0), (f"after {nsteps} steps", y)):
+        hc, uc = c["h"], c["u"]
+        gsn, gwe = route(c["strips_sn"], c["strips_we"])
+        a1 = (hc, uc, gsn, gwe, model.b_ext)
+        a2 = (hc, uc, hc, uc, gsn, gwe, model.b_ext)
+        a3 = (-2.0 * hc, -2.0 * uc, hc, uc, gsn, gwe, model.b_ext)
+        for sl, st, a, tol in (("stage 1", st1, a1, KERNEL_TOL),
+                               ("stage 2", st2, a2, KERNEL_TOL),
+                               ("stage 3", st3, a2, KERNEL_TOL),
+                               ("stage 3, y0=-2yc", st3, a3, TENDENCY_TOL)):
+            max_b1 = max(max_b1, check_kernel(
+                f"B1 {mode} vs plain C{N} {sl}, {label}", st, st.reference,
+                a, names, tol, lambda: Stage.launches, exact=True))
+        he, ue = model.fill(hc), model._fill_u(uc)
+        args = (kern.fz[:, None], he, ue, model.b_ext) \
+            + model._pallas_rhs.sym(ue)
+        max_b4 = max(max_b4, check_kernel(
+            f"B4 {mode} vs plain C{N} (six faces), {label}", kern,
+            kern.reference, args, ("dh", "du"), TENDENCY_TOL,
+            lambda: Rhs.launches, exact=True))
+        forms = ((a1, a2), args)
+    (a1, a2), args = forms
+    b1 = record(f"cov_stage_compact {mode}",
+                "jaxstream_torch/csrc/cov_stage.cu",
+                "jaxstream/ops/pallas/swe_cov.py:1989", launches[0], max_b1,
+                [time_form(f"B1 {mode} {sl}", st, st.reference, a,
+                           FLOPS_PER_CELL, card)
+                 for sl, st, a in (("stage 1", st1, a1), ("stage 2", st2, a2),
+                                   ("stage 3", st3, a2))])
+    b4 = record(f"cov_rhs {mode}", "jaxstream_torch/csrc/cov_rhs.cu",
+                "jaxstream/ops/pallas/swe_cov.py:508", launches[1], max_b4,
+                [time_form(f"B4 {mode} six faces", kern, kern.reference,
+                           args, FLOPS_PER_CELL, card)])
+    if mode == "ppm":
+        r_ms = event_ms(lambda: route(y["strips_sn"], y["strips_we"]), 200)
+        log(f"PPM TC5 step: device {step_device_us(step, y, t, STEP_DT):.2f}"
+            f" us/step as a CUDA graph of {GRAPH_STEPS} steps; B1 "
+            f"{b1['ms'] * 1e3:.2f} us/launch (events), router (halo 3) "
+            f"{r_ms * 1e3:.2f} us/call; card {card}")
+    return [b1, b4]
+
+
+def ppm_galewsky_path(card: str) -> dict:
+    """Phase 40: the Galewsky jet with PPM at halo 3 on the split del^4
+    stepper (dt = 60 s, nu4 = 1e14): B2 bitwise against its plain version
+    at halo 3 on the carry after one split step, with its probe; 3 split
+    steps against 3 classic del^4 steps (<= 2e-3 of max, mass <= 1e-5);
+    then 1 000 timed steps (finite, mass drift < 1e-3) with the launches
+    checked, and B2's times there.  Returns B2's halo-3 record."""
+    from jaxstream_torch.ops.cuda import swe_cov
+    from jaxstream_torch.stepping import integrate
+
+    Stage, Filter = swe_cov.CovStageCompact, swe_cov.CovNu4Filter
+    gal = Galewsky(halo=3, scheme="ppm")
+    grid, model, s0, y0 = gal.grid, gal.model, gal.s0, gal.y0
+    step = model.make_fused_step(GAL_DT)
+    route, filt = step.route, step.filter
+    y1 = step(y0, 0.0)
+    args = (y1["h"], y1["u"]) + route(y1["strips_sn"], y1["strips_we"])
+    exact = filt.reference(*[a.double() for a in args])
+    scale, _ = probe_scale((args[0], args[1][0], args[1][1]),
+                           (exact[0], exact[1][0], exact[1][1]))
+    probe = swe_cov.make_cov_nu4_filter(grid, GAL_NU4 * scale, filt.dt_eff)
+    names = ("h", "u", "strips_sn", "strips_we")
+    count = lambda: Filter.launches
+    max_abs = max(
+        check_kernel(f"B2 halo 3 vs plain C{N} (gsn {tuple(args[2].shape)})",
+                     filt, filt.reference, args, names, KERNEL_TOL, count,
+                     exact=True),
+        check_kernel(f"B2 halo 3 vs plain C{N} probe (filter term alone)",
+                     probe, probe.reference, args, names, PROBE_TOL, count,
+                     exact=True))
+    ysplit, _ = integrate(step, y0, 0.0, 3, GAL_DT)
+    yc, _ = integrate(model.make_step(GAL_DT), s0, 0.0, 3, GAL_DT)
+    gal.compare("PPM split vs classic del^4", yc, ysplit,
+                SPLIT_VS_CLASSIC_TOL, DAMP_SCALE_MASS_TOL)
+    del yc, ysplit
+    Stage.launches = Filter.launches = 0
+    y, t, step_us = timed_window("Galewsky nu4 (split, PPM, halo 3)", step,
+                                 y0, 0.0, TIMED_STEPS, card)
+    launches = (Stage.launches, Filter.launches)
+    drift = gal.drift(y["h"])
+    log(f"PPM Galewsky after {TIMED_STEPS} steps: launches (B1 ppm, B2) "
+        f"{launches}; mass drift {drift:.3e} (<1e-3)")
+    if launches != (3 * TIMED_STEPS, TIMED_STEPS) or not drift < 1e-3:
+        raise RuntimeError("PPM Galewsky: launches or mass drift")
+    fargs = (y["h"], y["u"]) + route(y["strips_sn"], y["strips_we"])
+    max_abs = max(max_abs, check_kernel(
+        f"B2 halo 3 vs plain C{N}, after {TIMED_STEPS} steps", filt,
+        filt.reference, fargs, names, KERNEL_TOL, count, exact=True))
+    timed = [time_form("B2 halo 3", filt, filt.reference, fargs,
+                       FILTER_FLOPS_PER_CELL, card)]
+    log(f"PPM Galewsky step: device {step_device_us(step, y, t, GAL_DT):.2f}"
+        f" us/step as a CUDA graph of {GRAPH_STEPS} steps; card {card}")
+    return record("cov_nu4_filter halo3",
+                  "jaxstream_torch/csrc/cov_nu4_filter.cu",
+                  "jaxstream/ops/pallas/swe_cov.py:2544", launches[1],
+                  max_abs, timed)
+
+
+def recon_paths(card: str, t_start: float) -> list:
+    """Phases 37-40: every reconstruction besides PLR-MC (see
+    :func:`recon_mode_path`), then the PPM Galewsky path."""
+    records = []
+    for mode in RECON_MODES:
+        stamp(t_start, f"reconstruction {mode} (phases 37-39)")
+        records += recon_mode_path(card, mode)
+    stamp(t_start, "Galewsky PPM, halo 3 (phase 40)")
+    records.append(ppm_galewsky_path(card))
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on "
@@ -2404,9 +2630,16 @@ def main() -> int:
                 log(f"  ptxas: {line.strip()}")
         if b.name in EARLIER_PTXAS and b.log:
             want = EARLIER_PTXAS[b.name]
-            got = [tuple(use) for _, *use in ptxas_usage(b.log)]
+            usage = ptxas_usage(b.log)
+            got = [tuple(use) for fn, *use in usage
+                   if not MODE_KERNEL.search(fn)]
             log(f"  ptxas (registers, smem, spill stores) {got}: "
                 + ("as before" if got == want else f"before: {want}"))
+            modes = [(MODE_KERNEL.search(fn).group(1), *use)
+                     for fn, *use in usage if MODE_KERNEL.search(fn)]
+            if modes:
+                log(f"  ptxas of the mode instances (mode, registers, "
+                    f"smem, spill stores): {modes}")
 
     # ---- the port's main path, through its entry points -----------------
     t0 = time.perf_counter()
@@ -2552,6 +2785,7 @@ def main() -> int:
     tier_records, (b4_timed, b4_launches, b4_max) = sharded_paths(
         card, grid, model, s0, model.restrict_state(y300), t_start)
     del y300
+    recon_records = recon_paths(card, t_start)
     # B4's record: the classic path's six-face launches (phase 16) and the
     # face serialized tier's stacked ones (phase 32).
     rhs_record = record("cov_rhs", "jaxstream_torch/csrc/cov_rhs.cu",
@@ -2568,7 +2802,7 @@ def main() -> int:
 
     report = {"kernels": [stage_record, filter_record, refused_record]
               + pair_records + [b14, rhs_record, ext_record] + cart_records
-              + [mega_record, nbr_record] + tier_records}
+              + [mega_record, nbr_record] + tier_records + recon_records}
     log(json.dumps(report))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 // Device code shared by the covariant shallow-water kernels of
-// jaxstream_torch: the boundary strips, the PLR-MC upwind flux, the RK
-// combine, the closed-form metric terms (_fast_frame), the conservative
-// Laplacian (lap_core) and the stage's constants and imposed edge
-// normals.  Every function reproduces the plain PyTorch
-// version's operations in its order; the kernels are built with
-// -fmad=false, so each multiply and add rounds separately, as PyTorch's
-// do.  Everything is __forceinline__: each kernel compiles to the code it
-// would have with the functions written out in it.
+// jaxstream_torch: the boundary strips, the face-state policies (PLR with
+// each limiter, PPM) and the upwind flux, the RK combine, the closed-form
+// metric terms (_fast_frame), the conservative Laplacian (lap_core) and
+// the stage's constants and imposed edge normals.  Every function
+// reproduces the plain PyTorch version's operations in its order; the
+// kernels are built with -fmad=false, so each multiply and add rounds
+// separately, as PyTorch's do.  Everything is __forceinline__: each
+// kernel compiles to the code it would have with the functions written
+// out in it.
 
 #pragma once
 
@@ -30,6 +31,14 @@ __device__ __forceinline__ void put_strips(float* ssn, float* swe, int fi,
   if (i >= n - hh) swe[(long)j * sw + base + hh + i - (n - hh)] = v;
 }
 
+// ---- face states: one policy type per reconstruction ----------------------
+//
+// A policy R gives the apron R::A its stencil reads on each side of the
+// cell row and R::states(q, qL, qR): the upwind states at the face between
+// cells i-1 and i from q(k), the value of cell i+k (k = -A .. A-1).  The
+// PLR policies take a slope (ops/reconstruct.py's LIMITERS); Ppm is
+// ppm_face_states.  Each is the plain version's operations in its order.
+
 // Monotonized-central slope, sign-free form (ops/reconstruct.py _slope_mc).
 __device__ __forceinline__ float slope_mc(float dqm, float dqp) {
   const float a = 0.5f * (dqm + dqp);
@@ -39,13 +48,130 @@ __device__ __forceinline__ float slope_mc(float dqm, float dqp) {
        + fminf(fmaxf(fmaxf(a, b), c), 0.0f);
 }
 
-// Upwind PLR flux through the face between cells q0 (= i-1) and q1 (= i)
-// with neighbours qm (i-2) and qp (i+1); U is the sqrtg-folded normal
+// The unlimited centered slope (_slope_none).
+struct SlopeNone {
+  static __device__ __forceinline__ float f(float dqm, float dqp) {
+    return 0.5f * (dqm + dqp);
+  }
+};
+
+// minmod, sign-free (_slope_minmod).
+struct SlopeMinmod {
+  static __device__ __forceinline__ float f(float dqm, float dqp) {
+    return fmaxf(fminf(dqm, dqp), 0.0f) + fminf(fmaxf(dqm, dqp), 0.0f);
+  }
+};
+
+struct SlopeMc {
+  static __device__ __forceinline__ float f(float dqm, float dqp) {
+    return slope_mc(dqm, dqp);
+  }
+};
+
+// torch.sign: 1, -1, or 0 for either zero.
+__device__ __forceinline__ float sign_of(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+
+// The sign() form of MC (_slope_mc_sign).
+struct SlopeMcSign {
+  static __device__ __forceinline__ float f(float dqm, float dqp) {
+    const float sgn = 0.5f * (sign_of(dqm) + sign_of(dqp));
+    const float mag = fminf(0.5f * fabsf(dqm + dqp),
+                            2.0f * fminf(fabsf(dqm), fabsf(dqp)));
+    return sgn * mag;
+  }
+};
+
+// van Leer (_slope_vanleer): the plain version's 1e-300 is 0 in float32,
+// added all the same (it turns a -0 sum into +0); IEEE division (the
+// kernels are built without --use_fast_math); the select evaluates only
+// the branch it takes.
+struct SlopeVanleer {
+  static __device__ __forceinline__ float f(float dqm, float dqp) {
+    const float prod = dqm * dqp;
+    return prod > 0.0f ? (2.0f * prod) / ((dqm + dqp) + 0.0f) : 0.0f;
+  }
+};
+
+// PLR with slope L (plr_face_states): a 2-deep apron.
+template <class L>
+struct Plr {
+  static constexpr int A = 2;
+
+  // From the four cells i-2 (qm), i-1 (q0), i (q1), i+1 (qp).
+  static __device__ __forceinline__ void face(float qm, float q0, float q1,
+                                              float qp, float& qL,
+                                              float& qR) {
+    qL = q0 + 0.5f * L::f(q0 - qm, q1 - q0);
+    qR = q1 - 0.5f * L::f(q1 - q0, qp - q1);
+  }
+
+  template <class Q>
+  static __device__ __forceinline__ void states(Q q, float& qL, float& qR) {
+    face(q(-2), q(-1), q(0), q(1), qL, qR);
+  }
+};
+
+using PlrMc = Plr<SlopeMc>;
+
+// PPM (ppm_face_states): a 3-deep apron.  Face i's states are the right
+// edge of cell i-1's parabola and the left edge of cell i's; the three
+// edge values they need are computed here for this face (a neighbouring
+// face computes the same floats from the same cells).
+struct Ppm {
+  static constexpr int A = 3;
+
+  // The edge value at the face between cells i+k-1 and i+k:
+  // 7/12 (q_{k-1} + q_k) - 1/12 (q_{k-2} + q_{k+1}), the constants the
+  // float32 roundings of 7/12 and 1/12.
+  template <class Q>
+  static __device__ __forceinline__ float edge(Q q, int k) {
+    return 0x1.2aaaaap-1f * (q(k - 1) + q(k))
+         - 0x1.555556p-4f * (q(k - 2) + q(k + 1));
+  }
+
+  // CW84 eq. 1.10 on the parabola of the cell with mean qc and edges
+  // ql, qr: flattened at a local extremum, then the overshoots clipped
+  // (the second clip reads the first's result).
+  static __device__ __forceinline__ void limit(float qc, float& ql,
+                                               float& qr) {
+    const bool extremum = (qr - qc) * (qc - ql) <= 0.0f;
+    ql = extremum ? qc : ql;
+    qr = extremum ? qc : qr;
+    const float dq = qr - ql;
+    const float q6 = 6.0f * (qc - 0.5f * (ql + qr));
+    ql = dq * q6 > dq * dq ? 3.0f * qc - 2.0f * qr : ql;
+    qr = -(dq * dq) > dq * q6 ? 3.0f * qc - 2.0f * ql : qr;
+  }
+
+  template <class Q>
+  static __device__ __forceinline__ void states(Q q, float& qL, float& qR) {
+    const float em = edge(q, -1), e0 = edge(q, 0), ep = edge(q, 1);
+    float l0 = em, r0 = e0, l1 = e0, r1 = ep;
+    limit(q(-1), l0, r0);   // cell i-1
+    limit(q(0), l1, r1);    // cell i
+    qL = r0;
+    qR = l1;
+  }
+};
+
+// Upwind flux through the face between cells i-1 and i, its states from
+// policy R over the cells q(k) = cell i+k; U is the sqrtg-folded normal
 // velocity.
+template <class R, class Q>
+__device__ __forceinline__ float upwind_flux(float U, Q q) {
+  float qL, qR;
+  R::states(q, qL, qR);
+  return fmaxf(U, 0.0f) * qL + fminf(U, 0.0f) * qR;
+}
+
+// The PLR-MC flux from the four cells qm (i-2), q0 (i-1), q1 (i) and qp
+// (i+1) (the Cartesian kernels').
 __device__ __forceinline__ float upwind_flux(float U, float qm, float q0,
                                              float q1, float qp) {
-  const float qL = q0 + 0.5f * slope_mc(q0 - qm, q1 - q0);
-  const float qR = q1 - 0.5f * slope_mc(q1 - q0, qp - q1);
+  float qL, qR;
+  PlrMc::face(qm, q0, q1, qp, qL, qR);
   return fmaxf(U, 0.0f) * qL + fminf(U, 0.0f) * qR;
 }
 

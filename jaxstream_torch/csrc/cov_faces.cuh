@@ -18,6 +18,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "cov_common.cuh"
 
 namespace cov {
@@ -55,8 +57,10 @@ __device__ __forceinline__ void async_wait() {
 #endif  // __CUDACC__
 
 // Raises kernel's limit of dynamic shared memory to bytes (needed above
-// 48 KB), once per device; returns the cudaError_t (0 = ok).
-template <class Params>
+// 48 KB), once per device; returns the cudaError_t (0 = ok).  The "once"
+// is per (Tag, Params): kernels of one library that share their Params
+// type (one instance per reconstruction) pass a Tag each.
+template <class Tag = void, class Params>
 int dynamic_smem_limit(void (*kernel)(Params), int bytes) {
   static bool done[64] = {};
   int dev = 0;
@@ -250,14 +254,15 @@ __device__ __forceinline__ const float* frame_src(const float* __restrict__ q,
 }
 
 // stage_field's counterpart for an extended array q (frame_src): rows jw
-// .. jw+ROWS-1, columns i0-A .. i0+FTX+A-1 into s; 0 past the frame.
-template <int ROWS, int A>
+// .. jw+ROWS-1, columns i0-A .. i0+FTX+A-1 into s (row stride S, tile
+// column c at s[r * S + OFF + c]); 0 past the frame.
+template <int ROWS, int A, int S = WS, int OFF = WOFF>
 __device__ __forceinline__ void stage_frame(float* s,
                                             const float* __restrict__ q,
                                             int n, int hh, int jw, int i0) {
   for_region<ROWS, FTX + 2 * A>([&](int r, int cc) {
     const int c = cc - A;
-    float* dst = s + r * WS + WOFF + c;
+    float* dst = s + r * S + OFF + c;
     const float* src = frame_src(q, n, hh, jw + r, i0 + c);
     if (src != nullptr)
       async_copy4(dst, src);
@@ -299,14 +304,32 @@ struct StageMetric {
   float isgd[FTY][FTX], sqrtg[FTY][FTX], irho[FTY][FTX];
 };
 
-// One face's staged inputs: h with a 2-deep apron, u_a and u_b with a
-// 1-deep one (tile cell (y, x) at h[y + 2][WOFF + x], ua[y + 1][WOFF + x]),
-// and the orography on the band (cell (ly, lx) as in StageMetric).
-struct StageWindow {
-  float h[FTY + 4][WS];
+// One face's staged inputs for h's face-state policy R: h with R's
+// apron A (Plr::A = 2, Ppm::A = 3), u_a and u_b with a 1-deep one (the
+// momentum terms reconstruct nothing; tile cell (y, x) at h[y + A][A +
+// x], ua[y + 1][WOFF + x]), and the orography on the band (cell (ly, lx)
+// as in StageMetric).  StageWindow, PLR-MC's, is what every kernel but
+// B1's and B4's other modes stage.
+template <class R>
+struct StageWindowR {
+  using Recon = R;
+  float h[FTY + 2 * R::A][FTX + 2 * R::A];
   float ua[FTY + 2][WS];
   float ub[FTY + 2][WS];
   float b[FTY + 2][FTX + 2];
+};
+using StageWindow = StageWindowR<PlrMc>;
+static_assert(WS == FTX + 4 && WOFF == 2, "StageWindow's h is WS wide");
+
+// The face-state policy of a window type W: its Recon, else PLR-MC (the
+// windows of the kernels that take no other mode).
+template <class W, class = void>
+struct ReconOf {
+  using type = PlrMc;
+};
+template <class W>
+struct ReconOf<W, std::void_t<typename W::Recon>> {
+  using type = typename W::Recon;
 };
 
 // The Bernoulli band and the face fluxes of one face's tile.
@@ -399,7 +422,8 @@ __device__ __forceinline__ void stage_metric(
 
 // The covariant right-hand side (rhs_core_cov) of one face's tile from
 // its staged window w and the tile's metric terms mt (both synchronised),
-// with the face's sym rows imposed as S says, its coordinates (the tan of
+// with h's face states from w's policy (ReconOf: w's h apron is its
+// A deep), the face's sym rows imposed as S says, its coordinates (the tan of
 // the centres and left faces along i, xc and xf, and along j, yc and yf;
 // a whole face passes its pair twice: the Coriolis term reads the
 // centres, a Frame seam's sqrtg the faces too) and frame fz.  w is read
@@ -416,7 +440,9 @@ __device__ __forceinline__ void stage_face_tile(
     const float* __restrict__ xf, const float* __restrict__ yc,
     const float* __restrict__ yf, const float* __restrict__ fz,
     const StageConsts& k, int n, int hh, int j0, int i0, Epilogue epi) {
-  auto H = [&](int y, int x) { return w.h[y + 2][WOFF + x]; };
+  using R = typename ReconOf<W>::type;
+  constexpr int A = R::A;
+  auto H = [&](int y, int x) { return w.h[y + A][A + x]; };
   auto UA = [&](int y, int x) { return w.ua[y + 1][WOFF + x]; };
   auto UB = [&](int y, int x) { return w.ub[y + 1][WOFF + x]; };
 
@@ -448,8 +474,7 @@ __device__ __forceinline__ void stage_face_tile(
         const float ubb = 0.5f * (UB(ly, lf - 1) + UB(ly, lf));
         U = mt.xa[ly][lf] * uba + mt.xb[ly][lf] * ubb;
       }
-      flux = upwind_flux(U, H(ly, lf - 2), H(ly, lf - 1), H(ly, lf),
-                         H(ly, lf + 1));
+      flux = upwind_flux<R>(U, [&](int k) { return H(ly, lf + k); });
     }
     s.fx[ly][lf] = flux;
   });
@@ -467,8 +492,7 @@ __device__ __forceinline__ void stage_face_tile(
         const float vbb = 0.5f * (UB(lf - 1, lx) + UB(lf, lx));
         U = mt.ya[lf][lx] * vba + mt.yb[lf][lx] * vbb;
       }
-      flux = upwind_flux(U, H(lf - 2, lx), H(lf - 1, lx), H(lf, lx),
-                         H(lf + 1, lx));
+      flux = upwind_flux<R>(U, [&](int k) { return H(lf + k, lx); });
     }
     s.fy[lf][lx] = flux;
   });
@@ -637,11 +661,14 @@ struct RanksParams {
   float R2, gravity, two_omega, inv2d, inv_d;
 };
 
-struct RanksSmem {
-  StageWindow w[2];   // this rank's window and the next one's
+// R is h's face-state policy (B4's modes; the block kernels take PLR-MC).
+template <class R>
+struct RanksSmemR {
+  StageWindowR<R> w[2];   // this rank's window and the next one's
   StageMetric mt;
   StageScratch s;
 };
+using RanksSmem = RanksSmemR<PlrMc>;
 
 // Issues the copies of rank r's window into w (no commit).
 __device__ __forceinline__ void stage_rank_window(const RanksParams& p,

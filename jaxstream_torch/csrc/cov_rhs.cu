@@ -50,6 +50,13 @@
 // tier's serialized form launches it once per RK stage over its six
 // faces.  Its inputs are never written in the launch, so they take
 // cp.async.ca like B6's.
+//
+// Modes.  h's face states follow the launch's reconstruction: the body is
+// a template on the face-state policy of cov_common.cuh, one kernel and
+// one C entry point per mode (cov_rhs_<mode>_f32; PLR-MC keeps
+// cov_rhs_kernel and cov_rhs_f32).  PPM stages h with a 3-deep apron
+// (73 632 B of dynamic shared memory, still 3 blocks per SM).  The face
+// tier launches PLR-MC only: the tiers take no other mode yet.
 
 #include "cov_faces.cuh"
 
@@ -80,13 +87,16 @@ struct Params {
 };
 
 // Issues the copies of face r's window into w (no commit).
+template <class R>
 __device__ __forceinline__ void stage_face_window(const Params& p,
-                                                  StageWindow& w, int r,
+                                                  StageWindowR<R>& w, int r,
                                                   int j0, int i0) {
+  constexpr int A = R::A;
   const int n = p.n, hh = p.halo;
   const float* ua = p.u + r * p.su;
   const float* ub = ua + p.cu;
-  stage_frame<FTY + 4, 2>(&w.h[0][0], p.h + r * p.sh, n, hh, j0 - 2, i0);
+  stage_frame<FTY + 2 * A, A, FTX + 2 * A, A>(&w.h[0][0], p.h + r * p.sh, n,
+                                              hh, j0 - A, i0);
   stage_frame<FTY + 2, 1>(&w.ua[0][0], ua, n, hh, j0 - 1, i0);
   stage_frame<FTY + 2, 1>(&w.ub[0][0], ub, n, hh, j0 - 1, i0);
   stage_band(w.b, p.b + r * p.sb, n, hh, j0, i0);
@@ -94,9 +104,11 @@ __device__ __forceinline__ void stage_face_window(const Params& p,
 
 // The faces of group g on the tile at (j0, i0): the group's metric terms
 // once, then each face's tile from its window while the next face's is
-// staged.
-__device__ __forceinline__ void rhs_faces(const Params& p, RanksSmem& sm,
-                                          int g, int j0, int i0) {
+// staged; h's face states by policy R.
+template <class R>
+__device__ __forceinline__ void rhs_faces(const Params& p,
+                                          RanksSmemR<R>& sm, int g,
+                                          int j0, int i0) {
   const int n = p.n, hh = p.halo, m = n + 2 * hh;
   const StageConsts k{p.R2, p.gravity, p.two_omega, p.inv2d, p.inv_d};
   const int* faces = p.groups + g * FPB;
@@ -143,35 +155,79 @@ __device__ __forceinline__ void rhs_faces(const Params& p, RanksSmem& sm,
   }
 }
 
-__global__ void __launch_bounds__(NT, 3) cov_rhs_kernel(const Params p) {
+template <class R>
+__device__ __forceinline__ void rhs_block(const Params& p) {
   extern __shared__ float smem_raw[];
-  RanksSmem& sm = *reinterpret_cast<RanksSmem*>(smem_raw);
-  rhs_faces(p, sm, blockIdx.z, blockIdx.y * FTY, blockIdx.x * FTX);
+  RanksSmemR<R>& sm = *reinterpret_cast<RanksSmemR<R>*>(smem_raw);
+  rhs_faces<R>(p, sm, blockIdx.z, blockIdx.y * FTY, blockIdx.x * FTX);
+}
+
+// One kernel per reconstruction; PLR-MC's keeps its name.
+__global__ void __launch_bounds__(NT, 3) cov_rhs_kernel(const Params p) {
+  rhs_block<PlrMc>(p);
+}
+__global__ void __launch_bounds__(NT, 3) cov_rhs_kernel_none(
+    const Params p) {
+  rhs_block<Plr<SlopeNone>>(p);
+}
+__global__ void __launch_bounds__(NT, 3) cov_rhs_kernel_minmod(
+    const Params p) {
+  rhs_block<Plr<SlopeMinmod>>(p);
+}
+__global__ void __launch_bounds__(NT, 3) cov_rhs_kernel_mc_sign(
+    const Params p) {
+  rhs_block<Plr<SlopeMcSign>>(p);
+}
+__global__ void __launch_bounds__(NT, 3) cov_rhs_kernel_vanleer(
+    const Params p) {
+  rhs_block<Plr<SlopeVanleer>>(p);
+}
+__global__ void __launch_bounds__(NT, 3) cov_rhs_kernel_ppm(const Params p) {
+  rhs_block<Ppm>(p);
+}
+
+// Launches kernel (the instance of policy R) over ngroups groups.
+template <class R>
+int launch(void (*kernel)(Params), const Params& p, int ngroups,
+           void* stream) {
+  const int rc = dynamic_smem_limit<R>(kernel, sizeof(RanksSmemR<R>));
+  if (rc != 0) return rc;
+  const int n = p.n;
+  const dim3 grid((n + FTX - 1) / FTX, (n + FTY - 1) / FTY, ngroups);
+  const dim3 block(BX, BY);
+  const size_t smem = sizeof(RanksSmemR<R>);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches the RHS of the faces in ngroups groups on `stream`; returns the
-// cudaError_t of the shared memory attribute or of the launch (0 = ok).
-// Tensors float32 (groups int32) in the layouts of Params, each face's
-// (m, m) frames and (n, n) outputs contiguous.
-extern "C" int cov_rhs_f32(
-    const float* fz, const float* xr, const float* xfr, const float* yc,
-    const float* yfc, const int* groups, const float* h_ext,
-    const float* u_ext, const float* b_ext, const float* sym_sn,
-    const float* sym_we, float* dh, float* du, long long sh, long long su,
-    long long cu, long long sb, long long sdh, long long sdu, long long cdu,
-    int n, int halo, int ngroups, float R2, float gravity, float two_omega,
-    float inv2d, float inv_d, void* stream) {
-  const Params p{fz, xr, xfr, yc, yfc, groups, h_ext, u_ext, b_ext, sym_sn,
-                 sym_we, dh, du, sh, su, cu, sb, sdh, sdu, cdu, n, halo,
-                 R2, gravity, two_omega, inv2d, inv_d};
-  const int rc = dynamic_smem_limit(cov_rhs_kernel, sizeof(RanksSmem));
-  if (rc != 0) return rc;
-  const dim3 grid((n + FTX - 1) / FTX, (n + FTY - 1) / FTY, ngroups);
-  const dim3 block(BX, BY);
-  const size_t smem = sizeof(RanksSmem);
-  cov_rhs_kernel<<<grid, block, smem,
-                   static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
+// Launch the RHS of the faces in ngroups groups on `stream`; each returns
+// the cudaError_t of the shared memory attribute or of the launch (0 =
+// ok).  Tensors float32 (groups int32) in the layouts of Params, each
+// face's (m, m) frames and (n, n) outputs contiguous.  cov_rhs_f32 is
+// PLR-MC, cov_rhs_<mode>_f32 the other reconstructions (PPM needs halo >=
+// 3).
+#define COV_RHS_ENTRY(NAME, KERNEL, POLICY)                                  \
+  extern "C" int NAME(                                                      \
+      const float* fz, const float* xr, const float* xfr, const float* yc,  \
+      const float* yfc, const int* groups, const float* h_ext,              \
+      const float* u_ext, const float* b_ext, const float* sym_sn,          \
+      const float* sym_we, float* dh, float* du, long long sh,              \
+      long long su, long long cu, long long sb, long long sdh,              \
+      long long sdu, long long cdu, int n, int halo, int ngroups,           \
+      float R2, float gravity, float two_omega, float inv2d, float inv_d,   \
+      void* stream) {                                                       \
+    const Params p{fz, xr, xfr, yc, yfc, groups, h_ext, u_ext, b_ext,       \
+                   sym_sn, sym_we, dh, du, sh, su, cu, sb, sdh, sdu, cdu,   \
+                   n, halo, R2, gravity, two_omega, inv2d, inv_d};          \
+    return launch<POLICY>(KERNEL, p, ngroups, stream);                      \
+  }
+
+COV_RHS_ENTRY(cov_rhs_f32, cov_rhs_kernel, PlrMc)
+COV_RHS_ENTRY(cov_rhs_none_f32, cov_rhs_kernel_none, Plr<SlopeNone>)
+COV_RHS_ENTRY(cov_rhs_minmod_f32, cov_rhs_kernel_minmod, Plr<SlopeMinmod>)
+COV_RHS_ENTRY(cov_rhs_mc_sign_f32, cov_rhs_kernel_mc_sign, Plr<SlopeMcSign>)
+COV_RHS_ENTRY(cov_rhs_vanleer_f32, cov_rhs_kernel_vanleer,
+              Plr<SlopeVanleer>)
+COV_RHS_ENTRY(cov_rhs_ppm_f32, cov_rhs_kernel_ppm, Ppm)

@@ -17,8 +17,10 @@
 //            at rows/columns fi*2h .. fi*2h+2h (S|N, W|E); the last two
 //            rows/columns are the sqrtg-prescaled symmetrized edge
 //            normals, imposed as they are on the boundary fluxes.
-//   dh       -(1/(sqrtg d)) [flux differences], upwind PLR-MC h times the
-//            sqrtg-folded contravariant face velocity.
+//   dh       -(1/(sqrtg d)) [flux differences], upwind h times the
+//            sqrtg-folded contravariant face velocity, h's face states by
+//            the launch's reconstruction: PLR with one of the five
+//            limiters, or PPM (halo >= 3).
 //   du       vector-invariant momentum: (zeta + f) sqrtg u^perp minus the
 //            centered gradient of g (h + b) + K; metrics in closed form
 //            from X = tan(alpha), Y = tan(beta) (no metric arrays read).
@@ -40,7 +42,8 @@
 // group of three faces (cov_faces.cuh): the grid is (ceil(n/32),
 // ceil(n/24), 2), 12 x 16 x 2 = 384 blocks at C384.  The block
 //   1. issues the asynchronous copies (cp.async) of its first face's
-//      window: h with a 2-deep apron, u_a and u_b with a 1-deep one (each
+//      window: h with the reconstruction's apron (2 deep for PLR, 3 for
+//      PPM), u_a and u_b with a 1-deep one (each
 //      cell from the interior or, past the face edge, the routed strips;
 //      ghost corners, which no kept output reads, and cells past a ragged
 //      tile as zeros), b on the Bernoulli band;
@@ -62,9 +65,15 @@
 // 16-byte copies) was measured slower on the H100, its larger code and
 // register pressure costing more than the masks it saved.
 // Occupancy: 72 576 B of dynamic shared memory (two windows 2 x 15 056,
-// metric 32 560, scratch 9 904) and __launch_bounds__(256, 3): 3 blocks
-// (24 warps) per SM, <= 80 registers.  384 blocks on 132 SMs x 3 slots
-// = 396: one wave, 120 SMs with three blocks and 12 with two.
+// metric 32 560, scratch 9 904; PPM's 3-deep h apron adds 2 x 528) and
+// __launch_bounds__(256, 3): 3 blocks (24 warps) per SM, <= 80
+// registers.  384 blocks on 132 SMs x 3 slots = 396: one wave, 120 SMs
+// with three blocks and 12 with two.
+//
+// Modes.  The body is a template on the face-state policy of
+// cov_common.cuh; each of the six reconstructions is its own kernel and
+// its own C entry point (cov_stage_compact_<mode>_f32; PLR-MC keeps the
+// kernel cov_stage_kernel and the entry cov_stage_compact_f32).
 
 #include "cov_faces.cuh"
 
@@ -91,21 +100,25 @@ struct Params {
   float R2, gravity, two_omega, inv2d, inv_d, a, bcoef, g_dt;
 };
 
+template <class R>
 struct Smem {
-  StageWindow w[2];   // this face's window and the next one's
+  StageWindowR<R> w[2];   // this face's window and the next one's
   StageMetric mt;
   StageScratch s;
 };
 
 // Issues the copies of face f's window into w (no commit).
-__device__ __forceinline__ void stage_window(const Params& p, StageWindow& w,
-                                             int f, int j0, int i0) {
+template <class R>
+__device__ __forceinline__ void stage_window(const Params& p,
+                                             StageWindowR<R>& w, int f,
+                                             int j0, int i0) {
+  constexpr int A = R::A;
   const int n = p.n, hh = p.halo, m = n + 2 * hh, rw = 6 * hh + 2;
   const long nn = (long)n * n;
   const float* gsn = p.gsn + (long)f * rw * n;
   const float* gwe = p.gwe + (long)f * n * rw;
-  stage_field<FTY + 4, 2>(&w.h[0][0], p.hc + f * nn, gsn, gwe, 0, n, hh, rw,
-                          j0 - 2, i0);
+  stage_field<FTY + 2 * A, A, FTX + 2 * A, A>(
+      &w.h[0][0], p.hc + f * nn, gsn, gwe, 0, n, hh, rw, j0 - A, i0);
   stage_field<FTY + 2, 1>(&w.ua[0][0], p.uc + f * nn, gsn, gwe, 1, n, hh,
                           rw, j0 - 1, i0);
   stage_field<FTY + 2, 1>(&w.ub[0][0], p.uc + (6 + f) * nn, gsn, gwe, 2, n,
@@ -113,8 +126,10 @@ __device__ __forceinline__ void stage_window(const Params& p, StageWindow& w,
   stage_band(w.b, p.b + (long)f * m * m, n, hh, j0, i0);
 }
 
-// The three faces of the block's group on one tile position.
-__device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
+// The three faces of the block's group on one tile position, h's face
+// states by policy R.
+template <class R>
+__device__ __forceinline__ void stage_faces(const Params& p, Smem<R>& sm,
                                             int f0, int j0, int i0) {
   const int n = p.n, hh = p.halo, rw = 6 * hh + 2;
   const long nn = (long)n * n;
@@ -154,7 +169,7 @@ __device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
     }
     __syncthreads();   // this face's window (and, first, mt) complete
 
-    const StageWindow& w = sm.w[cur];
+    const StageWindowR<R>& w = sm.w[cur];
     const float* gsn = p.gsn + (long)f * rw * n;
     const float* gwe = p.gwe + (long)f * n * rw;
     float* ssn = p.ssn + (long)f * 6 * hh * n;
@@ -180,35 +195,81 @@ __device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
   }
 }
 
-__global__ void __launch_bounds__(NT, 3) cov_stage_kernel(const Params p) {
+template <class R>
+__device__ __forceinline__ void stage_block(const Params& p) {
   extern __shared__ float smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  stage_faces(p, sm, blockIdx.z * FPB, blockIdx.y * FTY, blockIdx.x * FTX);
+  Smem<R>& sm = *reinterpret_cast<Smem<R>*>(smem_raw);
+  stage_faces<R>(p, sm, blockIdx.z * FPB, blockIdx.y * FTY,
+                 blockIdx.x * FTX);
+}
+
+// One kernel per reconstruction; PLR-MC's keeps its name.
+__global__ void __launch_bounds__(NT, 3) cov_stage_kernel(const Params p) {
+  stage_block<PlrMc>(p);
+}
+__global__ void __launch_bounds__(NT, 3) cov_stage_kernel_none(
+    const Params p) {
+  stage_block<Plr<SlopeNone>>(p);
+}
+__global__ void __launch_bounds__(NT, 3) cov_stage_kernel_minmod(
+    const Params p) {
+  stage_block<Plr<SlopeMinmod>>(p);
+}
+__global__ void __launch_bounds__(NT, 3) cov_stage_kernel_mc_sign(
+    const Params p) {
+  stage_block<Plr<SlopeMcSign>>(p);
+}
+__global__ void __launch_bounds__(NT, 3) cov_stage_kernel_vanleer(
+    const Params p) {
+  stage_block<Plr<SlopeVanleer>>(p);
+}
+__global__ void __launch_bounds__(NT, 3) cov_stage_kernel_ppm(
+    const Params p) {
+  stage_block<Ppm>(p);
+}
+
+// Launches kernel (the instance of policy R) on `stream`.
+template <class R>
+int launch(void (*kernel)(Params), const Params& p, void* stream) {
+  const int rc = dynamic_smem_limit<R>(kernel, sizeof(Smem<R>));
+  if (rc != 0) return rc;
+  const int n = p.n;
+  const dim3 grid((n + FTX - 1) / FTX, (n + FTY - 1) / FTY, 6 / FPB);
+  const dim3 block(BX, BY);
+  const size_t smem = sizeof(Smem<R>);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches one stage on `stream`; returns the cudaError_t of the shared
+// Launch one stage on `stream`; each returns the cudaError_t of the shared
 // memory attribute or of the launch (0 = ok).  with_y0 == 0: yc +
 // g_dt*L (stage 1); with_y0 != 0: (a*y0 + b*yc) + g_dt*L (stages 2-3;
 // h0/u0 read only then).  All tensors float32, contiguous, in the layouts
-// of Params.
-extern "C" int cov_stage_compact_f32(
-    const float* h0, const float* u0, const float* hc, const float* uc,
-    const float* gsn, const float* gwe, const float* b_ext,
-    const float* xc, const float* xf, const float* fz,
-    float* ho, float* uo, float* ssn, float* swe,
-    int n, int halo, int with_y0,
-    float R2, float gravity, float two_omega, float inv2d, float inv_d,
-    float a, float b, float g_dt, void* stream) {
-  Params p{h0, u0, hc, uc, gsn, gwe, b_ext, xc, xf, fz, ho, uo, ssn, swe,
-           n, halo, with_y0, R2, gravity, two_omega, inv2d, inv_d, a, b, g_dt};
-  const int rc = dynamic_smem_limit(cov_stage_kernel, sizeof(Smem));
-  if (rc != 0) return rc;
-  const dim3 grid((n + FTX - 1) / FTX, (n + FTY - 1) / FTY, 6 / FPB);
-  const dim3 block(BX, BY);
-  const size_t smem = sizeof(Smem);
-  cov_stage_kernel<<<grid, block, smem,
-                     static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
+// of Params.  cov_stage_compact_f32 is PLR-MC, cov_stage_compact_<mode>_f32
+// the other reconstructions (PPM needs halo >= 3).
+#define COV_STAGE_ENTRY(NAME, KERNEL, POLICY)                               \
+  extern "C" int NAME(                                                      \
+      const float* h0, const float* u0, const float* hc, const float* uc,   \
+      const float* gsn, const float* gwe, const float* b_ext,               \
+      const float* xc, const float* xf, const float* fz, float* ho,         \
+      float* uo, float* ssn, float* swe, int n, int halo, int with_y0,      \
+      float R2, float gravity, float two_omega, float inv2d, float inv_d,   \
+      float a, float b, float g_dt, void* stream) {                         \
+    const Params p{h0, u0, hc, uc, gsn, gwe, b_ext, xc, xf, fz, ho, uo,     \
+                   ssn, swe, n, halo, with_y0, R2, gravity, two_omega,      \
+                   inv2d, inv_d, a, b, g_dt};                               \
+    return launch<POLICY>(KERNEL, p, stream);                               \
+  }
+
+COV_STAGE_ENTRY(cov_stage_compact_f32, cov_stage_kernel, PlrMc)
+COV_STAGE_ENTRY(cov_stage_compact_none_f32, cov_stage_kernel_none,
+                Plr<SlopeNone>)
+COV_STAGE_ENTRY(cov_stage_compact_minmod_f32, cov_stage_kernel_minmod,
+                Plr<SlopeMinmod>)
+COV_STAGE_ENTRY(cov_stage_compact_mc_sign_f32, cov_stage_kernel_mc_sign,
+                Plr<SlopeMcSign>)
+COV_STAGE_ENTRY(cov_stage_compact_vanleer_f32, cov_stage_kernel_vanleer,
+                Plr<SlopeVanleer>)
+COV_STAGE_ENTRY(cov_stage_compact_ppm_f32, cov_stage_kernel_ppm, Ppm)

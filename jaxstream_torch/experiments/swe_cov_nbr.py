@@ -282,6 +282,7 @@ class CovStageNbr(_StageBase):
         super().__init__(grid.n, grid.halo, grid.dalpha, grid.radius,
                          gravity, omega, dt, a, b, scheme=scheme,
                          limiter=limiter, device=grid.device)
+        self._mc_only("neighbour-read stage (B13)")
         self.interpret = bool(interpret)
         n, h = self.n, self.halo
         self.tables = _nbr_tables(grid) if tables is None else tables

@@ -96,6 +96,7 @@ class CovMegaStep(_RhsBase):
         super().__init__(grid.n, grid.halo, grid.dalpha, grid.radius,
                          gravity, omega, scheme=scheme, limiter=limiter,
                          device=grid.device)
+        self._mc_only("whole-step (B12)")
         self.dt = float(dt)
         self.interpret = bool(interpret)
         self.max_blocks = max_blocks

@@ -32,7 +32,7 @@ import torch
 from ..geometry.cubed_sphere import CubedSphereGrid
 from ..ops.fv import (embed_interior, flux_divergence, gradient,
                       kinetic_energy, laplacian, vorticity)
-from ..ops.reconstruct import LIMITERS
+from ..ops.reconstruct import LIMITERS, SCHEMES
 from .base import Model, State
 
 __all__ = ["SWEBase", "ShallowWater"]
@@ -41,6 +41,11 @@ __all__ = ["SWEBase", "ShallowWater"]
 class SWEBase(Model):
     """Scheme validation, the RHS backend, Coriolis parameter and filled
     topography.
+
+    ``scheme``: ``'plr'`` (with ``limiter``, one of
+    :data:`~jaxstream_torch.ops.reconstruct.LIMITERS`) or ``'ppm'``, which
+    needs a grid built with halo >= 3 (``ValueError`` otherwise, as in
+    the JAX package).
 
     ``nu4``: the del^4 hyperdiffusion coefficient (m^4/s); 0 turns the
     filter off.  ``backend`` picks the classic ``rhs``'s stencil section,
@@ -58,14 +63,14 @@ class SWEBase(Model):
                  limiter: str = "mc", nu4: float = 0.0,
                  backend: str = "jnp"):
         super().__init__(grid)
-        if scheme != "plr":
-            raise NotImplementedError(
-                f"scheme={scheme!r}: only PLR is ported (PPM is ROADMAP "
-                "queue A item 1, ops/reconstruct.py)")
+        if scheme not in SCHEMES:
+            raise ValueError(f"unknown scheme {scheme!r}; available: "
+                             + ", ".join(SCHEMES))
         if limiter not in LIMITERS:
-            raise NotImplementedError(
-                f"limiter={limiter!r}: not ported (ROADMAP queue A item 1, "
-                "ops/reconstruct.py); available: " + ", ".join(LIMITERS))
+            raise ValueError(f"unknown limiter {limiter!r}; available: "
+                             + ", ".join(LIMITERS))
+        if scheme == "ppm" and grid.halo < 3:
+            raise ValueError("PPM fluxes need a grid built with halo >= 3")
         self.gravity = gravity
         self.omega = omega
         self.scheme = scheme

@@ -85,7 +85,7 @@ from ..._device import resolve_device
 from ...geometry.connectivity import (EDGE_E, EDGE_N, EDGE_S, EDGE_W,
                                       build_connectivity, edge_pairs)
 from ...parallel.halo import _fill_corners
-from ..reconstruct import plr_face_states
+from ..reconstruct import LIMITERS, SCHEMES, pick_recon
 from ._launch import KernelBase, _P, _check_tensors, _entry, _ptr
 from .swe_rhs import _f32, _fast_frame, coord_rows
 
@@ -535,8 +535,9 @@ def _center(v):
 
 
 def rhs_core_cov(fz, xr, xfr, yc, yfc, hf, ua, ub, bf, sym_sn, sym_we, *,
-                 n, halo, d, radius, gravity, omega, limiter="mc",
-                 sym_prescaled=True, seam_edges=(True, True, True, True)):
+                 n, halo, d, radius, gravity, omega, scheme="plr",
+                 limiter="mc", sym_prescaled=True,
+                 seam_edges=(True, True, True, True)):
     """Covariant-SWE right-hand side of all faces at once (plain torch).
 
     ``fz = (c0z, cxz, cyz)``: the face frames' z-components, each
@@ -548,8 +549,10 @@ def rhs_core_cov(fz, xr, xfr, yc, yfc, hf, ua, ub, bf, sym_sn, sym_we, *,
     the symmetrized edge normals imposed on the boundary faces, as they
     are (``sym_prescaled=True``, the compact stages' routed rows) or times
     the edge sqrtg of the closed-form frame (``False``: ``sg * sym``, the
-    unfused RHS and the extended-carry stage).  Returns interior ``(dh,
-    dua, dub)``.  The operations and their order follow the JAX package's
+    unfused RHS and the extended-carry stage).  h's face states are
+    :func:`~jaxstream_torch.ops.reconstruct.pick_recon`'s for ``scheme``
+    and ``limiter`` (PPM needs halo >= 3).  Returns interior ``(dh, dua,
+    dub)``.  The operations and their order follow the JAX package's
     ``rhs_core_cov``.
 
     Rectangular windows, as the JAX package's: ``n=(ny, nx)`` with
@@ -583,7 +586,7 @@ def rhs_core_cov(fz, xr, xfr, yc, yfc, hf, ua, ub, bf, sym_sn, sym_we, *,
     uE = seam(sym_we, (slice(None), slice(None), slice(1, 2)),
               xfr[..., h1x:h1x + 1], yc[..., h0y:h1y, :], eE)
 
-    # ---- continuity: upwind PLR flux with the sqrtg-folded metric ------
+    # ---- continuity: upwind flux with the sqrtg-folded metric ----------
     Fx = _fast_frame(xfr[..., h0x:h1x + 1], yc[..., h0y:h1y, :], radius)
     uba = 0.5 * (ua[..., h0y:h1y, h0x - 1:h1x] + ua[..., h0y:h1y, h0x:h1x + 1])
     ubb = 0.5 * (ub[..., h0y:h1y, h0x - 1:h1x] + ub[..., h0y:h1y, h0x:h1x + 1])
@@ -591,7 +594,7 @@ def rhs_core_cov(fz, xr, xfr, yc, yfc, hf, ua, ub, bf, sym_sn, sym_we, *,
     if eW or eE:
         ux = torch.cat([uW if eW else ux[..., 0:1], ux[..., 1:nx],
                         uE if eE else ux[..., nx:nx + 1]], dim=-1)
-    qL, qR = plr_face_states(hf[..., h0y:h1y, :], -1, halo, nx, limiter)
+    qL, qR = pick_recon(scheme, halo, nx, limiter)(hf[..., h0y:h1y, :], -1)
     fx = torch.clamp(ux, min=0.0) * qL + torch.clamp(ux, max=0.0) * qR
 
     Fy = _fast_frame(xr[..., h0x:h1x], yfc[..., h0y:h1y + 1, :], radius)
@@ -601,7 +604,7 @@ def rhs_core_cov(fz, xr, xfr, yc, yfc, hf, ua, ub, bf, sym_sn, sym_we, *,
     if eS or eN:
         uy = torch.cat([uS if eS else uy[..., 0:1, :], uy[..., 1:ny, :],
                         uN if eN else uy[..., ny:ny + 1, :]], dim=-2)
-    qL, qR = plr_face_states(hf[..., :, h0x:h1x], -2, halo, ny, limiter)
+    qL, qR = pick_recon(scheme, halo, ny, limiter)(hf[..., :, h0x:h1x], -2)
     fy = torch.clamp(uy, min=0.0) * qL + torch.clamp(uy, max=0.0) * qR
 
     # ---- momentum, vector-invariant in covariant components ------------
@@ -709,32 +712,47 @@ def cov_stage_compact_reference(stage, *args):
 # ---------------------------------------------------------------------------
 
 
-def _kernel():
-    """The stage kernel: 14 tensor pointers; n, halo, with_y0; 8 float
-    constants; the stream."""
-    return _entry("cov_stage", "cov_stage_compact_f32",
+def _entry_name(stem: str, mode: str) -> str:
+    """A mode's C entry point: ``{stem}_f32`` for PLR-MC (the name the
+    kernel had before it took modes), else ``{stem}_{mode}_f32``."""
+    return f"{stem}_f32" if mode == "mc" else f"{stem}_{mode}_f32"
+
+
+def _kernel(mode: str = "mc"):
+    """The stage kernel of reconstruction ``mode``: 14 tensor pointers; n,
+    halo, with_y0; 8 float constants; the stream."""
+    return _entry("cov_stage", _entry_name("cov_stage_compact", mode),
                   [_P] * 14 + [ctypes.c_int] * 3 + [ctypes.c_float] * 8
                   + [_P])
 
 
 class _ConstsBase(KernelBase):
     """Float32 constants of the covariant right-hand side: what every
-    kernel wrapper of this module shares."""
+    kernel wrapper of this module shares.
+
+    ``scheme`` and ``limiter`` pick the reconstruction, ``mode`` names it
+    (``"ppm"``, or the PLR limiter): the compact stage and the unfused
+    RHS take every mode, the other kernels PLR-MC only
+    (:meth:`_mc_only`)."""
 
     def __init__(self, n: int, halo: int, dalpha: float, radius: float,
                  gravity: float, omega: float, scheme: str = "plr",
                  limiter: str = "mc", device="cuda"):
-        if scheme != "plr" or limiter != "mc":
-            raise NotImplementedError(
-                f"the stage kernel implements PLR with the MC limiter; got "
-                f"scheme={scheme!r}, limiter={limiter!r} (other "
-                "reconstructions: ROADMAP queue A item 1 and queue B item 1)")
+        if scheme not in SCHEMES:
+            raise ValueError(f"unknown scheme {scheme!r}; available: "
+                             + ", ".join(SCHEMES))
+        if limiter not in LIMITERS:
+            raise ValueError(f"unknown limiter {limiter!r}; available: "
+                             + ", ".join(LIMITERS))
         if halo < 2:
             raise ValueError(f"PLR needs halo >= 2, got {halo}")
+        if scheme == "ppm" and halo < 3:
+            raise ValueError(f"PPM needs halo >= 3, got {halo}")
         self.n, self.halo, self.m = n, halo, n + 2 * halo
         self.dalpha, self.radius = float(dalpha), float(radius)
         self.gravity, self.omega = float(gravity), float(omega)
-        self.limiter = limiter
+        self.scheme, self.limiter = scheme, limiter
+        self.mode = "ppm" if scheme == "ppm" else limiter
         # The kernels' float32 constants of the RHS, rounded as
         # rhs_core_cov and _fast_frame round them.
         self._rhs_consts = (
@@ -742,6 +760,16 @@ class _ConstsBase(KernelBase):
             _f32(2.0 * self.omega), _f32(1.0 / (2.0 * self.dalpha)),
             _f32(1.0 / self.dalpha))
         self.device = torch.device(device)
+
+    def _mc_only(self, kernel: str):
+        """Refuse every reconstruction but PLR-MC: ``kernel``'s modes are
+        still owed."""
+        if self.mode != "mc":
+            raise NotImplementedError(
+                f"the {kernel} kernel implements PLR with the MC limiter; "
+                f"got scheme={self.scheme!r}, limiter={self.limiter!r} "
+                "(other reconstructions on this kernel: ROADMAP queue B "
+                "item 1)")
 
 
 class _RhsBase(_ConstsBase):
@@ -767,7 +795,8 @@ class _RhsBase(_ConstsBase):
             fzs, x_row, xf_row, x_col, xf_col, hf, ua, ub, b_ext, sym_sn,
             sym_we, n=self.n, halo=self.halo, d=self.dalpha,
             radius=self.radius, gravity=self.gravity, omega=self.omega,
-            limiter=self.limiter, sym_prescaled=sym_prescaled)
+            scheme=self.scheme, limiter=self.limiter,
+            sym_prescaled=sym_prescaled)
 
 
 class _StageBase(_RhsBase):
@@ -821,9 +850,10 @@ class CovStageCompact(_StageBase):
     ``a*y0 + b*yc + b*dt*L(yc)`` with the combine association of the JAX
     kernel, and returns ``(h, u, strips_sn, strips_we)``.
 
-    CUDA tensors launch ``csrc/cov_stage.cu``; CPU tensors run
-    :func:`cov_stage_compact_reference`.  There is no other path: a
-    kernel that fails to build or launch raises.
+    Every reconstruction (PLR with each limiter; PPM at halo >= 3):
+    CUDA tensors launch the mode's instance of ``csrc/cov_stage.cu``;
+    CPU tensors run :func:`cov_stage_compact_reference`.  There is no
+    other path: a kernel that fails to build or launch raises.
     """
 
     #: Launches of the CUDA kernel, all instances together (the plain
@@ -847,7 +877,7 @@ class CovStageCompact(_StageBase):
         uo = torch.empty_like(uc)
         ssn = hc.new_empty((6, 6 * h, n))
         swe = hc.new_empty((6, n, 6 * h))
-        rc = _kernel()(
+        rc = _kernel(self.mode)(
             _ptr(h0), _ptr(u0), hc.data_ptr(), uc.data_ptr(), gsn.data_ptr(),
             gwe.data_ptr(), b_ext.data_ptr(), self._xc.data_ptr(),
             self._xf.data_ptr(), self.fz.data_ptr(), ho.data_ptr(),
@@ -856,7 +886,7 @@ class CovStageCompact(_StageBase):
         if rc != 0:
             raise RuntimeError(
                 f"cov_stage kernel launch failed: cudaError {rc} "
-                f"(n={n}, halo={h})")
+                f"(n={n}, halo={h}, mode={self.mode})")
         CovStageCompact.launches += 1
         return ho, uo, ssn, swe
 
@@ -1202,6 +1232,7 @@ class CovStageRefusedNu4(_StageBase):
                  scheme: str = "plr", limiter: str = "mc", device="cuda"):
         super().__init__(n, halo, dalpha, radius, gravity, omega, dt, 0.0,
                          1.0, scheme=scheme, limiter=limiter, device=device)
+        self._mc_only("re-fused del^4 stage (B3)")
         self.nu4 = float(nu4)
         # Rounded once from float64, as the JAX kernel rounds it.
         self.damp = _f32(self.dt * self.nu4)
@@ -1382,6 +1413,7 @@ class CovStageNu4(_StageBase):
                  device="cuda"):
         super().__init__(n, halo, dalpha, radius, gravity, omega, dt, a, b,
                          scheme=scheme, limiter=limiter, device=device)
+        self._mc_only("in-stage del^4 pair (B7)")
         self.nu4 = float(nu4)
         # f32(b dt nu4), rounded once from float64 as the JAX kernel B.
         self.damp = _f32(self.b * self.dt * self.nu4)
@@ -1517,13 +1549,13 @@ def cov_rhs_reference(rhs, fz, h_ext, u_ext, b_ext, sym_sn, sym_we):
     return dh, torch.stack([dua, dub])
 
 
-def _rhs_kernel():
-    """The RHS kernel: 13 pointers (fz, the groups' rows, the group table,
-    h, u, b, sym_sn, sym_we, dh, du); the rank strides of h, u, the
-    component stride of u, the rank stride of b, the rank strides of dh,
-    du and the component stride of du; n, halo, the group count; 5 float
-    constants; the stream."""
-    return _entry("cov_rhs", "cov_rhs_f32",
+def _rhs_kernel(mode: str = "mc"):
+    """The RHS kernel of reconstruction ``mode``: 13 pointers (fz, the
+    groups' rows, the group table, h, u, b, sym_sn, sym_we, dh, du); the
+    rank strides of h, u, the component stride of u, the rank stride of
+    b, the rank strides of dh, du and the component stride of du; n,
+    halo, the group count; 5 float constants; the stream."""
+    return _entry("cov_rhs", _entry_name("cov_rhs", mode),
                   [_P] * 13 + [ctypes.c_longlong] * 7 + [ctypes.c_int] * 3
                   + [ctypes.c_float] * 5 + [_P])
 
@@ -1549,7 +1581,9 @@ class CovRhs(_RhsBase):
     n), ``du`` (R, 2, 1, n, n).
 
     CUDA tensors launch ``csrc/cov_rhs.cu`` (the port of the Pallas kernel
-    ``make_cov_rhs_pallas``), one launch per call in either form; CPU
+    ``make_cov_rhs_pallas``), one launch per call in either form, the
+    classic forms in every reconstruction (the mode's instance), the
+    stacked one in PLR-MC only (the tiers take no other mode yet); CPU
     tensors, or any tensors with ``interpret=True``, run
     :func:`cov_rhs_reference`, or for the stacked form the block RHS's
     stacked plain version :func:`cov_rhs_local_stacked_reference` (whole
@@ -1589,7 +1623,7 @@ class CovRhs(_RhsBase):
         ``dua``/``dub`` are the first and second components of ``u`` and
         ``du`` (views), whose offset is the component stride."""
         comp = lambda a, b: (b.data_ptr() - a.data_ptr()) // a.element_size()
-        rc = _rhs_kernel()(
+        rc = _rhs_kernel(self.mode)(
             fz.data_ptr(), groups.xr.data_ptr(), groups.xfr.data_ptr(),
             groups.yc.data_ptr(), groups.yfc.data_ptr(),
             groups.table.data_ptr(), h.data_ptr(), ua.data_ptr(),
@@ -1601,8 +1635,8 @@ class CovRhs(_RhsBase):
         if rc != 0:
             raise RuntimeError(
                 f"cov_rhs kernel launch failed: cudaError {rc} (n={self.n}, "
-                f"halo={self.halo}, {groups.n_ranks} faces in "
-                f"{groups.count} groups)")
+                f"halo={self.halo}, mode={self.mode}, {groups.n_ranks} "
+                f"faces in {groups.count} groups)")
         CovRhs.launches += 1
 
     def __call__(self, fz, h_ext, u_ext, b_ext, sym_sn, sym_we):
@@ -1618,6 +1652,11 @@ class CovRhs(_RhsBase):
         return dh, du
 
     def stacked(self, fz, groups, h_ext, u_ext, b_ext, sym_sn, sym_we):
+        if self.mode != "mc":
+            raise NotImplementedError(
+                f"the face tier's stacked RHS runs PLR with the MC limiter "
+                f"only; got mode {self.mode!r} (the tiers' reconstructions: "
+                "ROADMAP queue A item 4 (A8))")
         n, m = self.n, self.m
         r = _RanksRhsBase._check_groups(self, fz, groups, m)
         _check_ranked({"h_ext": (h_ext, (1, m, m)),
@@ -1799,6 +1838,7 @@ class _RanksRhsBase(_ConstsBase):
                  device="cuda"):
         super().__init__(n, halo, dalpha, radius, gravity, omega,
                          scheme=scheme, limiter=limiter, device=device)
+        self._mc_only(self._KERNEL)
         self.interpret = bool(interpret)
 
     def _check_groups(self, fz, groups, w):
@@ -1912,6 +1952,7 @@ class CovRhsInterior(_RanksRhsBase):
 
     #: Launches of the CUDA kernel, all instances together: one per call.
     launches = 0
+    _KERNEL = "block interior RHS (B5)"
 
     def __init__(self, n: int, halo: int, dalpha: float, radius: float,
                  gravity: float, omega: float, scheme: str = "plr",
@@ -1991,10 +2032,6 @@ def make_cov_rhs_band_local(n: int, halo: int, dalpha: float, radius: float,
     ``ni`` rows; each window imposes exactly the sym rows the whole block
     imposes there.
     """
-    if scheme != "plr":
-        raise NotImplementedError(
-            f"scheme={scheme!r}: only PLR is ported (PPM is ROADMAP queue A "
-            "item 1, ops/reconstruct.py)")
     h = halo
     ni = n - 2 * h
     if ni <= 0:
@@ -2002,8 +2039,8 @@ def make_cov_rhs_band_local(n: int, halo: int, dalpha: float, radius: float,
             f"band split needs n > 2*halo (got n={n}, halo={halo})")
     m = n + 2 * h
     kw = dict(halo=h, d=float(dalpha), radius=float(radius),
-              gravity=float(gravity), omega=float(omega), limiter=limiter,
-              sym_prescaled=False)
+              gravity=float(gravity), omega=float(omega), scheme=scheme,
+              limiter=limiter, sym_prescaled=False)
 
     def band(fz, xr, xfr, yc, yfc, h_ext, u_ext, b_ext, sym_sn, sym_we,
              dh_core, du_core):
@@ -2104,6 +2141,7 @@ class CovRhsLocal(_RanksRhsBase):
 
     #: Launches of the CUDA kernel, all instances together: one per call.
     launches = 0
+    _KERNEL = "block RHS (B6)"
 
     def stacked(self, fz, groups, h_ext, u_ext, b_ext, sym_sn, sym_we):
         n, m = self.n, self.m
@@ -2397,6 +2435,10 @@ class CovStageInkernel(_StageBase):
     #: Launches of the CUDA kernel, all instances together (the plain
     #: version does not count).
     launches = 0
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._mc_only("extended-carry stage (B8)")
 
     def _unpack(self, args):
         if self.with_y0:

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ...geometry.cubed_sphere import FACE_AXES, extended_coords
-from ..reconstruct import plr_face_states
+from ..reconstruct import pick_recon
 from ._launch import KernelBase, _P, _check_tensors, _entry
 
 __all__ = ["coord_rows", "_fast_frame", "_basis", "pick_recon", "rhs_core",
@@ -157,20 +157,6 @@ def _fast_frame(xr, yc, radius: float):
         "fg_bb": dxda_r * inv_rho,
         "fg_ab": (xr * yc) * inv_rho,
     }
-
-
-def pick_recon(scheme: str, halo: int, n: int, limiter: str):
-    """Face-state reconstruction of the cores: ``recon(q, axis) -> (qL,
-    qR)``.  PLR only; PPM waits for ROADMAP queue A item 1."""
-    if scheme != "plr":
-        raise NotImplementedError(
-            f"scheme={scheme!r}: only PLR is ported (PPM is ROADMAP "
-            "queue A item 1, ops/reconstruct.py)")
-
-    def recon(q, axis):
-        return plr_face_states(q, axis, halo, n, limiter)
-
-    return recon
 
 
 def _upwind(u, qL, qR):
@@ -357,9 +343,9 @@ class _SweBase(KernelBase):
         if scheme != "plr" or limiter != "mc":
             raise NotImplementedError(
                 f"the Cartesian kernels implement PLR with the MC limiter; "
-                f"got scheme={scheme!r}, limiter={limiter!r} (other "
-                "reconstructions: ROADMAP queue A item 1; backend='jnp' "
-                "runs every ported limiter)")
+                f"got scheme={scheme!r}, limiter={limiter!r} (PPM and the "
+                "other limiters on B9-B11: ROADMAP queue B item 1; "
+                "backend='jnp' runs every reconstruction)")
         if halo < 2:
             raise ValueError(f"PLR needs halo >= 2, got {halo}")
         self.n, self.halo, self.m = n, halo, n + 2 * halo

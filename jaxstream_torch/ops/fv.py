@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from ..geometry.connectivity import (EDGE_E, EDGE_N, EDGE_S, EDGE_W,
                                      build_connectivity, edge_pairs)
 from ..geometry.cubed_sphere import CubedSphereGrid
-from .reconstruct import _sl, plr_face_states
+from .reconstruct import _sl, pick_recon
 
 __all__ = [
     "embed_interior",
@@ -172,26 +172,25 @@ def flux_divergence(grid: CubedSphereGrid, q, v, scheme: str = "plr",
 def flux_divergence_faces(grid: CubedSphereGrid, q, ux, uy,
                           scheme: str = "plr", limiter: str = "mc",
                           conservative_edges: bool = False):
-    """Divergence of the upwind PLR flux ``div(q u)`` on interior cells.
+    """Divergence of the upwind flux ``div(q u)`` on interior cells, its
+    face states PLR with ``limiter`` or, for ``scheme="ppm"``, PPM
+    (which needs halo >= 3).
 
     ``q``: (6, M, M) extended scalar; ``ux`` (6, n, n+1) / ``uy``
     (6, n+1, n) contravariant face-normal velocities.  Returns (6, n, n).
     ``conservative_edges`` replaces both panels' edge fluxes with their
     averaged outward value.
     """
-    if scheme != "plr":
-        raise NotImplementedError(
-            f"scheme={scheme!r}: only PLR is ported (PPM is ROADMAP "
-            "queue A item 1, ops/reconstruct.py)")
     h, n, d = grid.halo, grid.n, grid.dalpha
+    recon = pick_recon(scheme, h, n, limiter)
 
     qx = _sl(q, h, h + n, -2)
-    qL, qR = plr_face_states(qx, -1, h, n, limiter=limiter)
+    qL, qR = recon(qx, -1)
     sgx = _sl(_sl(grid.sqrtg_xf, h, h + n + 1, -1), h, h + n, -2)
     fx = sgx * (torch.clamp(ux, min=0.0) * qL + torch.clamp(ux, max=0.0) * qR)
 
     qy = _sl(q, h, h + n, -1)
-    qL, qR = plr_face_states(qy, -2, h, n, limiter=limiter)
+    qL, qR = recon(qy, -2)
     sgy = _sl(_sl(grid.sqrtg_yf, h, h + n + 1, -2), h, h + n, -1)
     fy = sgy * (torch.clamp(uy, min=0.0) * qL + torch.clamp(uy, max=0.0) * qR)
 

@@ -47,6 +47,10 @@ def make_stepper_for(model, setup, example_state, dt: float,
                    "batched exchange)")
     if float(getattr(model, "nu4", 0.0)) != 0.0:
         not_ported("nu4 != 0 on the sharded covariant tiers")
+    if (model.scheme, model.limiter) != ("plr", "mc"):
+        not_ported(f"scheme={model.scheme!r}, limiter={model.limiter!r} on "
+                   "the sharded covariant tiers (their kernels B4's stacked "
+                   "form, B5 and B6 run PLR-MC)")
     from .shard_cov import make_sharded_cov_stepper
     from .shard_cov_block import make_sharded_cov_block_stepper
 

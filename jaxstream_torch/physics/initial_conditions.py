@@ -1,4 +1,5 @@
-"""Initial conditions: Williamson TC2 and TC5, and the Galewsky jet.
+"""Initial conditions: the cosine bell (Williamson TC1), the checkerboard
+heat source, Williamson TC2, TC5 and TC6, and the Galewsky jet.
 
 Counterpart of :mod:`jaxstream.physics.initial_conditions`.  Fields are
 evaluated analytically at extended cell centers (ghosts included) in
@@ -17,7 +18,8 @@ from ..config import EARTH_RADIUS
 from ..geometry.cubed_sphere import CubedSphereGrid, _np_dtype
 
 __all__ = ["solid_body_wind", "zonal_meridional_to_cartesian",
-           "williamson_tc2", "williamson_tc5", "galewsky"]
+           "cosine_bell", "checkerboard", "williamson_tc2",
+           "williamson_tc5", "williamson_tc6", "galewsky"]
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
@@ -58,6 +60,38 @@ def zonal_meridional_to_cartesian(grid: CubedSphereGrid, u, v):
     return _out(grid, u * e_lon + v * e_lat)
 
 
+def _great_circle(grid: CubedSphereGrid, lon_c: float, lat_c: float):
+    lon = _np(grid.lon)
+    lat = _np(grid.lat)
+    c = (np.sin(lat_c) * np.sin(lat)
+         + np.cos(lat_c) * np.cos(lat) * np.cos(lon - lon_c))
+    return grid.radius * np.arccos(np.clip(c, -1.0, 1.0))
+
+
+def cosine_bell(grid: CubedSphereGrid, h0: float = 1000.0,
+                lon_c: float = 3 * np.pi / 2, lat_c: float = 0.0,
+                radius_frac: float = 1.0 / 3.0):
+    """Williamson TC1's cosine bell: the extended scalar ``(6, M, M)``."""
+    r = _great_circle(grid, lon_c, lat_c)
+    R = radius_frac * grid.radius
+    h = np.where(r < R, 0.5 * h0 * (1.0 + np.cos(np.pi * r / R)), 0.0)
+    return _out(grid, h)
+
+
+def checkerboard(grid: CubedSphereGrid, face: int = 4, lo: float = 1.0,
+                 hi: float = 1000.0, tiles: int = 6):
+    """A checkerboard heat source on one panel: alternating ``lo`` /
+    ``hi`` blocks on ``face``, ``lo`` elsewhere; extended ``(6, M, M)``."""
+    m = grid.m
+    jj, ii = np.meshgrid(np.arange(m), np.arange(m), indexing="ij")
+    block = max(1, grid.n // tiles)
+    pattern = np.where(((jj - grid.halo) // block
+                        + (ii - grid.halo) // block) % 2 == 0, hi, lo)
+    field = np.full((6, m, m), lo)
+    field[face] = pattern
+    return _out(grid, field)
+
+
 def williamson_tc2(grid: CubedSphereGrid, gravity: float, omega: float,
                    u0: float = 2 * np.pi * EARTH_RADIUS / (12 * 86400),
                    gh0: float = 2.94e4, alpha_rot: float = 0.0):
@@ -86,6 +120,30 @@ def williamson_tc5(grid: CubedSphereGrid, gravity: float, omega: float,
     b = mountain_h * (1.0 - r / mountain_r)
     h = gh / gravity - b
     return _out(grid, h), solid_body_wind(grid, u0, 0.0), _out(grid, b)
+
+
+def williamson_tc6(grid: CubedSphereGrid, gravity: float, omega: float,
+                   omega_w: float = 7.848e-6, k_w: float = 7.848e-6,
+                   h0: float = 8000.0, r_w: int = 4):
+    """TC6 Rossby-Haurwitz wave: ``(h_ext, v_ext)``."""
+    lon = _np(grid.lon)
+    th = _np(grid.lat)
+    a = grid.radius
+    R = r_w
+    cos = np.cos(th)
+    sin = np.sin(th)
+    u = a * omega_w * cos + a * k_w * cos ** (R - 1) * (
+        R * sin * sin - cos * cos) * np.cos(R * lon)
+    v = -a * k_w * R * cos ** (R - 1) * sin * np.sin(R * lon)
+    A = 0.5 * omega_w * (2 * omega + omega_w) * cos**2 \
+        + 0.25 * k_w**2 * cos ** (2 * R) * (
+            (R + 1) * cos**2 + (2 * R**2 - R - 2) - 2 * R**2 * cos ** (-2))
+    B = (2 * (omega + omega_w) * k_w / ((R + 1) * (R + 2)) * cos**R
+         * ((R**2 + 2 * R + 2) - (R + 1) ** 2 * cos**2))
+    C = 0.25 * k_w**2 * cos ** (2 * R) * ((R + 1) * cos**2 - (R + 2))
+    gh = gravity * h0 + a * a * (A + B * np.cos(R * lon)
+                                 + C * np.cos(2 * R * lon))
+    return _out(grid, gh / gravity), zonal_meridional_to_cartesian(grid, u, v)
 
 
 def galewsky(grid: CubedSphereGrid, gravity: float, omega: float,

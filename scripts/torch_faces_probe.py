@@ -1410,7 +1410,8 @@ def main() -> int:
                       for k in filter_keys}
 
         def use_stage(key):
-            return lambda: setattr(swe_cov, "_kernel", lambda: stage_fns[key])
+            return lambda: setattr(swe_cov, "_kernel",
+                                   lambda mode="mc": stage_fns[key])
 
         def use_filter(key):
             return lambda: setattr(swe_cov, "_filter_kernel",

@@ -749,3 +749,67 @@ def _swe_stages_match_plain(g, m, s0, step, y1, dt):
         _check(f"in-kernel stage {k}", st, st.reference,
                base + ink + (ghosts, m.b_ext), tol, exact=True)
         assert tss.SweStageInkernel.launches == before + 1
+
+
+#: (scheme, limiter) of the reconstructions besides PLR-MC.
+_NEW_MODES = {"none": ("plr", "none"), "minmod": ("plr", "minmod"),
+              "mc_sign": ("plr", "mc_sign"), "vanleer": ("plr", "vanleer"),
+              "ppm": ("ppm", "mc")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [48, 72, 74], ids=["c48", "c72", "c74"])
+def test_recon_mode_kernels_match_plain(n):
+    """B1 (stages 1-3 and stage 3 with y0 = -2*yc) and B4 (six faces) in
+    each reconstruction besides PLR-MC (PPM at halo 3), on the TC5 carry
+    after one step and after eleven, and B2 at halo 3 on the Galewsky
+    carry after one split PPM step and its probe (nu4 1e21): bitwise
+    equal to their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the stage, RHS and filter kernels "
+                    "have no CPU form)")
+    for mode, (scheme, limiter) in _NEW_MODES.items():
+        g = build_grid(n, halo=3 if scheme == "ppm" else 2,
+                       radius=EARTH_RADIUS, device="cuda")
+        h, v, b = williamson_tc5(g, EARTH_GRAVITY, EARTH_OMEGA)
+        m = CovariantShallowWater(g, gravity=EARTH_GRAVITY,
+                                  omega=EARTH_OMEGA, b_ext=b, scheme=scheme,
+                                  limiter=limiter)
+        step = m.make_fused_step(75.0 * 384 / n)
+        rhs = tcov.make_cov_rhs_pallas(g, EARTH_GRAVITY, EARTH_OMEGA,
+                                       scheme=scheme, limiter=limiter)
+        y1 = step(m.compact_state(m.initial_state(h, v)), 0.0)
+        y11, _ = integrate(step, y1, 0.0, 10, 75.0 * 384 / n)
+        for y in (y1, y11):
+            hc, uc = y["h"], y["u"]
+            gsn, gwe = step.route(y["strips_sn"], y["strips_we"])
+            st1, st2, st3 = step.stages
+            cases = [(st1, (hc, uc, gsn, gwe, m.b_ext), TOL),
+                     (st2, (hc, uc, hc, uc, gsn, gwe, m.b_ext), TOL),
+                     (st3, (hc, uc, hc, uc, gsn, gwe, m.b_ext), TOL),
+                     (st3, (-2.0 * hc, -2.0 * uc, hc, uc, gsn, gwe, m.b_ext),
+                      TENDENCY_TOL)]
+            for st, args, tol in cases:
+                assert st.mode == mode
+                before = tcov.CovStageCompact.launches
+                _check(f"B1 {mode}", st, st.reference, args, tol, exact=True)
+                assert tcov.CovStageCompact.launches == before + 1
+            he, ue = m.fill(hc), m._fill_u(uc)
+            args = (rhs.kernel.fz[:, None], he, ue, m.b_ext) + tuple(
+                rhs.sym(ue))
+            before = tcov.CovRhs.launches
+            _check(f"B4 {mode}", rhs.kernel, rhs.kernel.reference, args,
+                   TENDENCY_TOL, exact=True)
+            assert tcov.CovRhs.launches == before + 1
+    g = build_grid(n, halo=3, radius=EARTH_RADIUS, device="cuda")
+    m = CovariantShallowWater(g, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA,
+                              nu4=1.0e14, scheme="ppm")
+    step = m.make_fused_step(60.0 * 384 / n)
+    y = step(m.compact_state(m.initial_state(
+        *galewsky(g, EARTH_GRAVITY, EARTH_OMEGA))), 0.0)
+    args = (y["h"], y["u"]) + step.route(y["strips_sn"], y["strips_we"])
+    probe = tcov.make_cov_nu4_filter(g, 1.0e21, step.filter.dt_eff)
+    for f, tol in ((step.filter, TOL), (probe, PROBE_TOL)):
+        before = tcov.CovNu4Filter.launches
+        _check("B2 halo 3", f, f.reference, args, tol, exact=True)
+        assert tcov.CovNu4Filter.launches == before + 1

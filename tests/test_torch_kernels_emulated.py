@@ -175,19 +175,27 @@ inline grid_group this_grid() { return {}; }
 def _mutated_lib(emulated, name: str, old: str, new: str):
     """Kernel ``name`` compiled for the host with the one occurrence of
     ``old`` replaced by ``new``: in its source, or in the header it
-    includes (``cov_faces.cuh`` or ``swe_faces.cuh``), which is then
-    inlined into the source.  Each mutation gets a library
-    of its own: a path the process has loaded once is not loaded again."""
+    includes (``cov_faces.cuh`` or ``swe_faces.cuh``, or ``cov_common.cuh``
+    through ``cov_faces.cuh``), which is then inlined into the source.
+    Each mutation gets a library of its own: a path the process has
+    loaded once is not loaded again."""
     src = (_build.CSRC_DIR / _build.KERNELS[name]).read_text()
     if old in src:
         assert src.count(old) == 1
         src = src.replace(old, new)
     else:
-        header = next(h for h in ("cov_faces.cuh", "swe_faces.cuh")
+        header = next(h for h in ("cov_faces.cuh", "swe_faces.cuh",
+                                  "cov_common.cuh")
                       if old in (_build.CSRC_DIR / h).read_text())
         hdr = (_build.CSRC_DIR / header).read_text()
         assert hdr.count(old) == 1
         hdr = hdr.replace(old, new).replace("#pragma once\n", "")
+        if header == "cov_common.cuh":
+            # Included by cov_faces.cuh: inline it there, then that.
+            faces = (_build.CSRC_DIR / "cov_faces.cuh").read_text()
+            hdr = faces.replace("#pragma once\n", "").replace(
+                f'#include "{header}"\n', hdr)
+            header = "cov_faces.cuh"
         assert f'#include "{header}"\n' in src
         src = src.replace(f'#include "{header}"\n', hdr)
     return emulated["_compile"](src, f"{name}_mut{next(_MUTANTS)}")
@@ -310,15 +318,17 @@ _FACES_WINDOW = {"cov_stage": "= sm.w[cur];",
 _STAGE_PREFETCH = "stage_window(p, sm.w[cur ^ 1], f + 1, j0, i0);"
 
 
-def _faces_operands(n):
-    """C``n`` TC5: the compact stages, the filter at nu4 = 1e14 and a probe
-    (1e21), and their operands on the carry after one step of the plain
-    stages (TC5's initial wind has a zero component in places, which
-    hides some operation orders): stages 1-3 and stage 3 with y0 = -2*yc
-    (the outputs g*L alone)."""
-    g = build_grid(n, halo=2, radius=EARTH_RADIUS, device="cpu")
+def _faces_operands(n, scheme="plr", limiter="mc"):
+    """C``n`` TC5 (halo 3 for PPM): the compact stages, the filter at nu4
+    = 1e14 and a probe (1e21), and their operands on the carry after one
+    step of the plain stages (TC5's initial wind has a zero component in
+    places, which hides some operation orders): stages 1-3 and stage 3
+    with y0 = -2*yc (the outputs g*L alone); and the model."""
+    g = build_grid(n, halo=3 if scheme == "ppm" else 2, radius=EARTH_RADIUS,
+                   device="cpu")
     h, v, b = williamson_tc5(g, G, OM)
-    m = CovariantShallowWater(g, gravity=G, omega=OM, b_ext=b)
+    m = CovariantShallowWater(g, gravity=G, omega=OM, b_ext=b, scheme=scheme,
+                              limiter=limiter)
     step = m.make_fused_step(75.0 * 384 / n)
     route, (st1, st2, st3) = step.route, step.stages
     y = m.compact_state(m.initial_state(h, v))
@@ -334,7 +344,7 @@ def _faces_operands(n):
               (st3, (-2.0 * h1, -2.0 * u1, h1, u1, gsn, gwe, b))]
     filters = [tsc.make_cov_nu4_filter(g, nu4, 60.0 * 384 / n)
                for nu4 in (1.0e14, 1.0e21)]
-    return stages, filters, (h1, u1, gsn, gwe)
+    return stages, filters, (h1, u1, gsn, gwe), m
 
 
 @pytest.fixture(scope="module")
@@ -344,7 +354,7 @@ def faces_cases():
 
 @pytest.mark.parametrize("n", [72, 74], ids=["c72", "c74"])
 def test_stage_kernel_larger_grids(launch_on_cpu, faces_cases, n):
-    stages, _, _ = faces_cases[n]
+    stages, _, _, _ = faces_cases[n]
     before = tsc.CovStageCompact.launches
     for st, args in stages:
         _equal(st(*args), st.reference(*args))
@@ -353,7 +363,7 @@ def test_stage_kernel_larger_grids(launch_on_cpu, faces_cases, n):
 
 @pytest.mark.parametrize("n", [72, 74], ids=["c72", "c74"])
 def test_filter_kernel_larger_grids(launch_on_cpu, faces_cases, n):
-    _, filters, args = faces_cases[n]
+    _, filters, args, _ = faces_cases[n]
     before = tsc.CovNu4Filter.launches
     for filt in filters:
         _equal(filt._launch(*args), filt.reference(*args))
@@ -375,7 +385,7 @@ def test_faces_kernel_mutation_is_caught(emulated, launch_on_cpu,
     lib = _mutated_lib(emulated, name, old, new)
     monkeypatch.setattr(_build, "load", lambda nm: ctypes.CDLL(
         str(lib if nm == name else emulated[nm])))
-    stages, filters, args = faces_cases[72]
+    stages, filters, args, _ = faces_cases[72]
     if name == "cov_stage":
         st, args = stages[1]
         out, ref = st(*args), st.reference(*args)
@@ -452,6 +462,97 @@ def test_stage_nu4_b_ablated_mutation_is_caught(emulated, launch_on_cpu,
     st, b_args = _b14_args(g, m, dt, step, args, 1.0e21)
     b = nb.Nu4BisectB(st, "nofill")
     out, ref = b(*b_args), b.reference(*b_args)
+    assert not all(torch.equal(x, r) for x, r in zip(out, ref))
+
+
+# ---- B1 and B4 in every reconstruction, B2 at halo 3 -----------------------
+#
+# Each mode is its own instance of the stage and RHS bodies (csrc/
+# cov_stage.cu, csrc/cov_rhs.cu): PLR with the four limiters besides MC at
+# halo 2, and PPM at halo 3, whose h window has a 3-deep apron.
+
+#: (scheme, limiter) of the five modes besides PLR-MC.
+_NEW_MODES = {"none": ("plr", "none"), "minmod": ("plr", "minmod"),
+              "mc_sign": ("plr", "mc_sign"), "vanleer": ("plr", "vanleer"),
+              "ppm": ("ppm", "mc")}
+
+
+def _mode_operands(n, mode):
+    """:func:`_faces_operands`' stages in ``mode``, and B4 (six faces) on
+    their carry's filled frames."""
+    stages, _, (h1, u1, _, _), m = _faces_operands(n, *_NEW_MODES[mode])
+    rhs = tsc.make_cov_rhs_pallas(m.grid, G, OM, scheme=m.scheme,
+                                  limiter=m.limiter)
+    he, ue = m.fill(h1), m._fill_u(u1)
+    rhs_args = (rhs.kernel.fz[:, None], he, ue, m.b_ext) + tuple(rhs.sym(ue))
+    return stages, (rhs.kernel, rhs_args)
+
+
+#: C40 in the fast tier; C74 (24 blocks a launch, ~15 s a case under
+#: the tier's load) in the slow one.
+_MODE_SIZES = [pytest.param(40, id="c40"),
+               pytest.param(74, id="c74", marks=pytest.mark.slow)]
+
+
+@pytest.mark.parametrize("mode", sorted(_NEW_MODES))
+@pytest.mark.parametrize("n", _MODE_SIZES)
+def test_stage_and_rhs_kernels_in_each_mode(launch_on_cpu, n, mode):
+    """B1 as stages 1-3 and as stage 3 with y0 = -2*yc, and B4 over six
+    faces, in each mode besides PLR-MC, bitwise equal to their plain
+    versions: at C40 (every tile on an edge, ragged) and C74 (ragged by 2
+    and 10 cells)."""
+    stages, (rhs, rhs_args) = _mode_operands(n, mode)
+    before = (tsc.CovStageCompact.launches, tsc.CovRhs.launches)
+    for st, args in stages:
+        assert st.mode == mode
+        _equal(st(*args), st.reference(*args))
+    assert rhs.mode == mode
+    _equal(rhs(*rhs_args), rhs.reference(*rhs_args))
+    assert (tsc.CovStageCompact.launches, tsc.CovRhs.launches) == (
+        before[0] + len(stages), before[1] + 1)
+
+
+@pytest.mark.parametrize("n", _MODE_SIZES)
+def test_filter_kernel_halo3(launch_on_cpu, n):
+    """B2 at halo 3 (its ring-2 ghosts from the 20-row strips), on the
+    Galewsky carry after one split PPM step, at nu4 = 1e14 and a probe's
+    1e21: bitwise equal to its plain version."""
+    g = build_grid(n, halo=3, radius=EARTH_RADIUS, device="cpu")
+    m = CovariantShallowWater(g, gravity=G, omega=OM, nu4=1.0e14,
+                              scheme="ppm")
+    dt = 60.0 * 384 / n
+    step = m.make_fused_step(dt)
+    y = m.compact_state(m.initial_state(*galewsky(g, G, OM)))
+    h0, u0 = y["h"], y["u"]
+    st1, st2, st3 = step.stages
+    k = st1.reference(h0, u0, *step.route(y["strips_sn"], y["strips_we"]),
+                      m.b_ext)
+    k = st2.reference(h0, u0, k[0], k[1], *step.route(k[2], k[3]), m.b_ext)
+    k = st3.reference(h0, u0, k[0], k[1], *step.route(k[2], k[3]), m.b_ext)
+    args = (k[0], k[1]) + step.route(k[2], k[3])
+    assert args[2].shape == (6, 20, n)
+    before = tsc.CovNu4Filter.launches
+    for nu4 in (1.0e14, 1.0e21):
+        filt = tsc.make_cov_nu4_filter(g, nu4, dt)
+        _equal(filt._launch(*args), filt.reference(*args))
+    assert tsc.CovNu4Filter.launches == before + 2
+
+
+#: PPM's edge value (cov_common.cuh): the mutation reads cell k-1 for the
+#: far right cell k+1 of the 1/12 term.
+_PPM_EDGE = "- 0x1.555556p-4f * (q(k - 2) + q(k + 1));"
+
+
+def test_ppm_edge_mutation_is_caught(emulated, launch_on_cpu, monkeypatch):
+    """The mutation check of the PPM policy: an edge value from the wrong
+    cell must disagree with the plain version (B1, stage 2, C40)."""
+    lib = _mutated_lib(emulated, "cov_stage", _PPM_EDGE,
+                       _PPM_EDGE.replace("q(k + 1)", "q(k - 1)"))
+    monkeypatch.setattr(_build, "load", lambda nm: ctypes.CDLL(
+        str(lib if nm == "cov_stage" else emulated[nm])))
+    stages, _ = _mode_operands(40, "ppm")
+    st, args = stages[1]
+    out, ref = st(*args), st.reference(*args)
     assert not all(torch.equal(x, r) for x, r in zip(out, ref))
 
 

@@ -140,8 +140,13 @@ def test_unported_model_options_raise():
     # split del^4 stepper (tests/test_torch_nu4.py).
     m = CovariantShallowWater(g, gravity=9.8, omega=0.0, nu4=1e14)
     assert m.nu4 == 1e14 and m.make_fused_step(1.0).filter.nu4 == 1e14
-    with pytest.raises(NotImplementedError, match="PPM"):
+    # PPM is ported: at halo 2 it raises the JAX package's ValueError, at
+    # halo 3 the model builds and its fused stages run PPM.
+    with pytest.raises(ValueError, match="halo >= 3"):
         CovariantShallowWater(g, gravity=9.8, omega=0.0, scheme="ppm")
+    g3 = build_grid(8, halo=3, device="cpu")
+    ppm = CovariantShallowWater(g3, gravity=9.8, omega=0.0, scheme="ppm")
+    assert [st.mode for st in ppm.make_fused_step(1.0).stages] == ["ppm"] * 3
     # Every scheme of the JAX package is ported; an unknown one is refused
     # by the scheme table, as there.
     with pytest.raises(KeyError):

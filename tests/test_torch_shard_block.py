@@ -173,7 +173,7 @@ def c8_models():
 
 @pytest.mark.parametrize("case", [
     "ensemble", "deep-halo", "face-nu4", "block-nu4", "gspmd", "single",
-    "cartesian", "bf16"])
+    "cartesian", "bf16", "vanleer"])
 def test_unported_options_name_a8(c8_models, case):
     cov, cov_nu4, cart = c8_models
     face, block = _setup(1, 6), _setup(2, 24)
@@ -192,6 +192,9 @@ def test_unported_options_name_a8(c8_models, case):
         "cartesian": lambda: make_stepper_for(cart, face, None, DT),
         "bf16": lambda: make_stepper_for(cov, face, None, DT,
                                          precision="bf16"),
+        "vanleer": lambda: make_stepper_for(CovariantShallowWater(
+            cov.grid, gravity=G, omega=OM, limiter="vanleer"), face, None,
+            DT),
     }
     with pytest.raises(NotImplementedError, match=r"queue A item 4 \(A8\)"):
         calls[case]()
