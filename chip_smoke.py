@@ -67,7 +67,13 @@ reconstructions' paths, through the port's entry points
   ``python -m jaxstream_torch run``): TC5 on the compact and Cartesian
   steppers, the Galewsky jet from ``examples/configs/galewsky_c384.yaml``
   (split del^4) with its resume from a checkpoint, and TC5 on the face
-  tier, each segmented by its history and checkpoint strides.
+  tier, each segmented by its history and checkpoint strides;
+* TC5 on the Cartesian model's three paths (in-kernel, concat, classic
+  ``backend='pallas'``) and on the covariant extended-carry stepper in
+  each reconstruction besides PLR-MC, each launching its mode's instance
+  of ``csrc/swe_stage_inkernel.cu``, ``swe_stage.cu``, ``swe_rhs.cu`` and
+  ``cov_stage_inkernel.cu``; and a ``Simulation`` of Cartesian TC5 with
+  PPM at halo 3.
 
 Phases, each fatal on failure:
 
@@ -305,7 +311,27 @@ Phases, each fatal on failure:
     ``diagnostics`` equal to an in-process run's;
 47. ``Simulation.run`` (segments, history, checkpoints) against the bare
     stepper under ``integrate`` in turns, for phases 41 and 42's
-    configurations.
+    configurations;
+48. for each reconstruction besides PLR-MC, Cartesian TC5 on the
+    in-kernel stepper in that mode (its B11 instance): 20 steps (PPM at
+    halo 3: 20 + 1 000, timed and gated as phase 4), the launches
+    checked;
+49. its concat (B10) and classic ``backend='pallas'`` (B9) paths: 3
+    steps of each and of the in-kernel stepper against 3 classic
+    ``backend='jnp'`` steps (<= 2e-4 of max), in-kernel against concat
+    (<= 1e-6), the launches checked; B11 and B10 as stages 1-3 and as
+    stage 3 with y0 = -2 yc, and B9, bitwise against their plain
+    versions on the TC5 carry and on the stepped one, and their times;
+50. TC5 on the covariant extended-carry stepper in that mode (its B8
+    instance): 3 steps against 3 compact steps (<= 1e-6), B8 as stages
+    1-3 and the probe bitwise on the TC5 carry and after the 3 steps,
+    and its times;
+51. (PPM) the in-kernel and concat steps' device time as CUDA graphs and
+    the halo-3 strip router;
+52. ``Simulation`` of Cartesian TC5 with PPM at halo 3 (``backend:
+    pallas``, 200 steps, history and checkpoints every 100): the
+    in-kernel stepper in mode PPM, B11 600 launches, the TC5 gate,
+    bitwise equal to its stepper with the same segmentation.
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -400,6 +426,15 @@ EARLIER_PTXAS = {
     "swe_stage": [(80, 0, 20), (80, 0, 0)],
     "swe_stage_inkernel": [(80, 0, 0), (80, 0, 0)],
 }
+# SASS instructions (cuobjdump -sass) of the PLR-MC kernel functions, in
+# ptxas's order, of the libraries that carry one instance per
+# reconstruction, as the tree before B8-B11 took their modes built them
+# with nvcc of CUDA 12.8 (scripts/torch_sass_counts.py on an NVIDIA H100
+# 80GB HBM3): the log says whether each still builds to the same code.
+EARLIER_SASS = {"cov_stage": [5624], "cov_rhs": [3472],
+                "cov_stage_inkernel": [6608], "swe_rhs": [4920],
+                "swe_stage": [5424, 4616],
+                "swe_stage_inkernel": [8488, 7984]}
 # The tendency alone is ill-conditioned in float32 (its flux differences
 # cancel): two f32 evaluations differ by ~1e-5 of its max.
 TENDENCY_TOL = 1e-4
@@ -488,8 +523,11 @@ RECON_MODES = {"none": ("plr", "none"), "minmod": ("plr", "minmod"),
                "ppm": ("ppm", "mc")}
 RECON_WARM_STEPS = 20
 # The C functions' mangled names of the mode instances (cov_stage.cu,
-# cov_rhs.cu): the ptxas lines of EARLIER_PTXAS are the other functions.
-MODE_KERNEL = re.compile(r"_kernel_(none|minmod|mc_sign|vanleer|ppm)E")
+# cov_rhs.cu, cov_stage_inkernel.cu, swe_rhs.cu, swe_stage.cu,
+# swe_stage_inkernel.cu): the kernel's stem and the mode.  The ptxas
+# lines of EARLIER_PTXAS are the other functions.
+MODE_KERNEL = re.compile(
+    r"([a-z][a-z_]*)_kernel_(none|minmod|mc_sign|vanleer|ppm)E")
 
 
 def log(msg: str) -> None:
@@ -511,6 +549,23 @@ def ptxas_usage(build_log: str) -> list:
             out.append((fn, int(m.group(1)), int(m.group(2) or 0),
                         int(spill.group(1)) if spill else 0))
     return out
+
+
+def sass_counts(lib) -> dict:
+    """SASS instructions per kernel function of the built library
+    ``lib`` (``cuobjdump -sass``, beside nvcc)."""
+    from pathlib import Path
+
+    from jaxstream_torch import _build
+
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                         capture_output=True, text=True).stdout
+    counts = {}
+    for sec in re.split(r"\n\s*Function : ", out)[1:]:
+        name = sec.split("\n", 1)[0].strip()
+        counts[name] = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+\S", sec))
+    return counts
 
 
 def stamp(t_start: float, label: str) -> None:
@@ -716,7 +771,8 @@ def time_form(label: str, call, ref, args, flops_per_cell: int, card: str,
 def record(name: str, source: str, replaces: str, launches: int,
            max_abs: float, timed) -> dict:
     """The kernels-line record of ``timed`` (:func:`time_form`'s results,
-    averaged over the forms)."""
+    averaged over the forms); ``device_ms`` is the device time per launch
+    as a CUDA graph beside ``ms``'s CUDA events."""
     mean = lambda k: sum(t[k] for t in timed) / len(timed)
     return {
         "name": name,
@@ -726,6 +782,7 @@ def record(name: str, source: str, replaces: str, launches: int,
         "launches": launches,
         "max_abs_err": max_abs,
         "ms": mean(0),
+        "device_ms": mean(4),
         "plain_ms": mean(1),
         "bound_ms": mean(2),
         "bound_by": ("bytes" if all(t[3] == "bytes" for t in timed)
@@ -2970,13 +3027,373 @@ def simulation_paths(card: str, t_start: float) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# Phases 48-52: every reconstruction besides PLR-MC on the Cartesian
+# model's kernels (B9, B10, B11) and on the extended-carry stage (B8).
+# Each mode's paths step RECON_WARM_STEPS steps (PPM: + TIMED_STEPS, timed
+# and gated); the checks run on the TC5 carry and on the stepped one.
+FUSED_RECON_SIM_STEPS = 200
+FUSED_RECON_SIM_STRIDE = 100
+
+
+def cartesian_mode_path(card: str, mode: str) -> list:
+    """Phases 48-49 for one reconstruction: TC5 at C384 on the Cartesian
+    ``ShallowWater`` (``backend='pallas'``) in ``mode`` (halo 3 for PPM).
+    Its paths first, their launches counted around them: the in-kernel
+    stepper (B11), RECON_WARM_STEPS steps (PPM: + TIMED_STEPS, timed and
+    gated), 3 concat steps (B10) and 3 classic steps (B9) against 3
+    classic ``backend='jnp'`` steps (<= 2e-4 of max) and in-kernel
+    against concat (<= 1e-6).  Then B11 and B10 (stages 1-3 and stage 3
+    with y0 = -2 yc) and B9 bitwise against their plain versions on the
+    TC5 carry and on the stepped one, and their times there.  Returns
+    the three kernels' records."""
+    from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
+                                        EARTH_RADIUS)
+    from jaxstream_torch.geometry.cubed_sphere import build_grid
+    from jaxstream_torch.models.shallow_water import ShallowWater
+    from jaxstream_torch.ops.cuda import swe_rhs, swe_step
+    from jaxstream_torch.physics.initial_conditions import williamson_tc5
+    from jaxstream_torch.stepping import integrate
+
+    Ink, Cat, Rhs = (swe_step.SweStageInkernel, swe_step.SweStage,
+                     swe_rhs.SweRhs)
+    scheme, limiter = RECON_MODES[mode]
+    halo = 3 if scheme == "ppm" else 2
+    t0 = time.perf_counter()
+    grid = build_grid(N, halo=halo, radius=EARTH_RADIUS, dtype=torch.float32)
+    h_ext, v_ext, b_ext = williamson_tc5(grid, EARTH_GRAVITY, EARTH_OMEGA)
+    model = ShallowWater(grid, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA,
+                         b_ext=b_ext, scheme=scheme, limiter=limiter,
+                         backend="pallas")
+    ref = ShallowWater(grid, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA,
+                       b_ext=b_ext, scheme=scheme, limiter=limiter)
+    s0 = model.initial_state(h_ext, v_ext)
+    step = model.make_fused_step(STEP_DT)
+    step_c = model.make_fused_step(STEP_DT, in_kernel_exchange=False)
+    kern, route, ex, b = model._pallas_rhs, step.route, step_c.exchange, \
+        model.b_ext
+    modes = [st.mode for st in step.stages + step_c.stages] + [kern.mode]
+    if modes != [mode] * 7:
+        raise RuntimeError(f"Cartesian {mode}: the steppers' kernels are in "
+                           f"modes {modes}")
+    torch.cuda.synchronize()
+    log(f"setup: C{N} grid (halo {halo}), TC5, Cartesian {mode} models and "
+        f"steppers in {time.perf_counter() - t0:.2f} s")
+
+    # ---- 48-49. the mode's paths, their launches counted around them ----
+    Ink.launches = Cat.launches = Rhs.launches = 0
+    ye = model.extend_state(s0, with_strips=True)
+    yi, _ = integrate(step, ye, 0.0, 3, STEP_DT)
+    yk, _ = integrate(step_c, model.extend_state(s0), 0.0, 3, STEP_DT)
+    yp, _ = integrate(model.make_step(STEP_DT), s0, 0.0, 3, STEP_DT)
+    yj, _ = integrate(ref.make_step(STEP_DT), s0, 0.0, 3, STEP_DT)
+    oi, ok = model.restrict_state(yi), model.restrict_state(yk)
+    errs = {k: rel_err(ok[k], oi[k]) for k in ("h", "v")}
+    log(f"Cartesian {mode} in-kernel vs concat C{N}, 3 steps: max rel diff "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {INKERNEL_VS_CONCAT_TOL:g}); bitwise="
+        + str(all(torch.equal(ok[k], oi[k]) for k in ("h", "v"))))
+    bad = max(errs.values()) > INKERNEL_VS_CONCAT_TOL
+    for label, o in (("in-kernel", oi), ("concat", ok),
+                     ("classic pallas", yp)):
+        errs = {k: rel_err(yj[k], o[k]) for k in ("h", "v")}
+        log(f"Cartesian {mode} {label} vs classic jnp C{N}, 3 steps: max "
+            f"rel diff h {errs['h']:.3e}, v {errs['v']:.3e} (tol "
+            f"{FUSED_VS_CLASSIC_TOL:g})")
+        bad = bad or max(errs.values()) > FUSED_VS_CLASSIC_TOL
+    if bad:
+        raise RuntimeError(f"Cartesian {mode}: the paths disagree")
+    del yi, yk, yp, yj, oi, ok
+    y, t = integrate(step, ye, 0.0, RECON_WARM_STEPS, STEP_DT)
+    torch.cuda.synchronize()
+    nsteps = 3 + RECON_WARM_STEPS
+    if mode == "ppm":
+        t_w = time.perf_counter()
+        y, t = integrate(step, y, t, TIMED_STEPS, STEP_DT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_w
+        nsteps += TIMED_STEPS
+        steps_s = TIMED_STEPS / wall
+        log(f"main path C{N} TC5 Cartesian in-kernel PPM (halo 3) "
+            f"dt={STEP_DT:g}: {TIMED_STEPS} steps in {wall:.3f} s -> "
+            f"{steps_s:.1f} steps/s, {1e6 / steps_s:.1f} us/step, "
+            f"{steps_s * STEP_DT / 86400.0:.3f} sim-days/s; card {card}")
+        tc5_gate("Cartesian in-kernel, PPM", grid, s0,
+                 model.restrict_state(y)["h"], t / 86400.0)
+    launches = (Ink.launches, Cat.launches, Rhs.launches)
+    if launches != (3 * nsteps, 9, 9):
+        raise RuntimeError(f"Cartesian {mode}: launches (B11, B10, B9) "
+                           f"{launches} != (3 x {nsteps}, 3 x 3, 3 x 3)")
+    if not bool(torch.isfinite(y["h"]).all()):
+        raise RuntimeError(f"Cartesian {mode}: carry not finite")
+    log(f"Cartesian {mode} paths: {nsteps} in-kernel steps, 3 concat, 3 "
+        f"classic; launches B11 {launches[0]} = 3 x {nsteps}, B10 "
+        f"{launches[1]} = 3 x 3, B9 {launches[2]} = 3 x 3")
+
+    # ---- B11, B10 and B9 vs plain on the TC5 carry and the stepped one --
+    names = ("h", "v", "sn", "we", "vsn", "vwe")
+    st1, st2, st3 = step.stages
+    c1, c2, c3 = step_c.stages
+    max_ink = max_cat = max_rhs = 0.0
+    for label, c in (("TC5 state", ye), (f"after {nsteps} steps", y)):
+        g = route(c["sh_sn"], c["sh_we"], c["sv_sn"], c["sv_we"])
+        a1 = (c["h"], c["v"], g, b)
+        a2 = (c["h"], c["v"]) + a1
+        a3 = (-2.0 * c["h"], -2.0 * c["v"]) + a1
+        hx, vx = ex(c["h"]), ex(c["v"])
+        b1 = (hx, vx, b)
+        b2 = (hx, vx) + b1
+        b3 = (-2.0 * hx, -2.0 * vx) + b1
+        for sl, (st, a), (cs, bb), tol in (
+                ("stage 1", (st1, a1), (c1, b1), KERNEL_TOL),
+                ("stage 2", (st2, a2), (c2, b2), KERNEL_TOL),
+                ("stage 3", (st3, a2), (c3, b2), KERNEL_TOL),
+                ("stage 3, y0=-2yc", (st3, a3), (c3, b3), TENDENCY_TOL)):
+            max_ink = max(max_ink, check_kernel(
+                f"B11 {mode} vs plain C{N} {sl}, {label}", st, st.reference,
+                a, names, tol, lambda: Ink.launches, exact=True))
+            max_cat = max(max_cat, check_kernel(
+                f"B10 {mode} vs plain C{N} {sl}, {label}", cs, cs.reference,
+                bb, ("h", "v"), tol, lambda: Cat.launches, exact=True))
+        max_rhs = max(max_rhs, check_kernel(
+            f"B9 {mode} vs plain C{N}, {label}", kern, kern.reference, b1,
+            ("dh", "dv"), TENDENCY_TOL, lambda: Rhs.launches, exact=True))
+    forms = {
+        "swe_stage_inkernel": (st1, st2, st3, a1, a2),
+        "swe_stage": (c1, c2, c3, b1, b2)}
+    records = []
+    for name, (s1, s2, s3, x1, x2) in forms.items():
+        kind = "in-kernel" if name == "swe_stage_inkernel" else "concat"
+        timed = [time_form(f"Cartesian {kind} {mode} {sl}", st, st.reference,
+                           a, SWE_STAGE_FLOPS_PER_CELL, card)
+                 for sl, st, a in (("stage 1", s1, x1), ("stage 2", s2, x2),
+                                   ("stage 3", s3, x2))]
+        records.append(mode_record(
+            name, mode, "jaxstream/ops/pallas/swe_step.py:"
+            + ("424" if kind == "in-kernel" else "147"),
+            launches[0 if kind == "in-kernel" else 1],
+            max_ink if kind == "in-kernel" else max_cat, timed, card))
+    timed = [time_form(f"Cartesian RHS {mode}", kern, kern.reference, b1,
+                       SWE_RHS_FLOPS_PER_CELL, card)]
+    records.append(mode_record("swe_rhs", mode,
+                               "jaxstream/ops/pallas/swe_rhs.py:434",
+                               launches[2], max_rhs, timed, card))
+    if mode == "ppm":
+        # ---- 51. the PPM steps' device time and the halo-3 router -------
+        r_ms = event_ms(lambda: route(y["sh_sn"], y["sh_we"], y["sv_sn"],
+                                      y["sv_we"]), 200)
+        yk = model.extend_state(model.restrict_state(y))
+        log(f"Cartesian PPM TC5 steps: device in-kernel "
+            f"{step_device_us(step, y, t, STEP_DT):.2f}, concat "
+            f"{step_device_us(step_c, yk, t, STEP_DT):.2f} us/step as CUDA "
+            f"graphs of {GRAPH_STEPS} steps; strip router (halo 3) "
+            f"{r_ms * 1e3:.2f} us/call; card {card}")
+    return records
+
+
+def mode_record(name: str, mode: str, replaces: str, launches: int,
+                max_abs: float, timed, card: str) -> dict:
+    """The kernels-line record of ``name``'s ``mode`` instance (source
+    ``csrc/<name>.cu``), with its device time per launch as a CUDA graph
+    (the mean of :func:`time_form`'s forms) logged beside its bound."""
+    dev_us = sum(t[4] for t in timed) / len(timed) * 1e3
+    bound_us = sum(t[2] for t in timed) / len(timed) * 1e3
+    log(f"{name} {mode}: device {dev_us:.2f} us/launch as a CUDA graph, "
+        f"events {sum(t[0] for t in timed) / len(timed) * 1e3:.2f}; bound "
+        f"{bound_us:.2f} us, {bound_us / dev_us:.1%} of it; card {card}")
+    return record(f"{name} {mode}", f"jaxstream_torch/csrc/{name}.cu",
+                  replaces, launches, max_abs, timed)
+
+
+def extended_mode_path(card: str, mode: str) -> dict:
+    """Phase 50 for one reconstruction: TC5 at C384 on the covariant
+    extended-carry stepper (``make_fused_step(compact=False)``, B8) in
+    ``mode`` (halo 3 for PPM): 3 steps against 3 compact steps (<= 1e-6
+    of max, bitwise predicted), the launches counted around them, then B8
+    as stages 1-3 and stage 3 with y0 = -2 yc bitwise against its plain
+    version on the TC5 carry and on the carry after the 3 steps, and its
+    times there.  Returns its record."""
+    from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
+                                        EARTH_RADIUS)
+    from jaxstream_torch.geometry.cubed_sphere import build_grid
+    from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
+    from jaxstream_torch.ops.cuda import swe_cov
+    from jaxstream_torch.physics.initial_conditions import williamson_tc5
+    from jaxstream_torch.stepping import integrate
+
+    Stage = swe_cov.CovStageInkernel
+    scheme, limiter = RECON_MODES[mode]
+    halo = 3 if scheme == "ppm" else 2
+    grid = build_grid(N, halo=halo, radius=EARTH_RADIUS, dtype=torch.float32)
+    h_ext, v_ext, b_ext = williamson_tc5(grid, EARTH_GRAVITY, EARTH_OMEGA)
+    model = CovariantShallowWater(grid, gravity=EARTH_GRAVITY,
+                                  omega=EARTH_OMEGA, b_ext=b_ext,
+                                  scheme=scheme, limiter=limiter)
+    s0 = model.initial_state(h_ext, v_ext)
+    step = model.make_fused_step(STEP_DT, compact=False)
+    if [st.mode for st in step.stages] != [mode] * 3:
+        raise RuntimeError(f"extended {mode}: the stages are not in mode "
+                           f"{mode}")
+    route = step.route
+    Stage.launches = 0
+    ye = model.extend_state(s0, with_strips=True)
+    yx, _ = integrate(step, ye, 0.0, 3, STEP_DT)
+    launches = Stage.launches
+    yc, _ = integrate(model.make_fused_step(STEP_DT), model.compact_state(s0),
+                      0.0, 3, STEP_DT)
+    out_x = model.restrict_state(yx)
+    ext = model.extend_state(yc)
+    pairs = {"h": (yc["h"], out_x["h"]), "u": (yc["u"], out_x["u"]),
+             "strips": (swe_cov.pack_strips_cov(ext["h"], ext["u"], grid.n,
+                                                grid.halo), yx["strips"])}
+    errs = {k: rel_err(a, x) for k, (a, x) in pairs.items()}
+    log(f"extended vs compact {mode} C{N}, 3 steps: max rel diff "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {EXT_VS_COMPACT_TOL:g}); bitwise="
+        + str(all(torch.equal(a, x) for a, x in pairs.values()))
+        + f"; B8 launches {launches} = 3 x 3")
+    if max(errs.values()) > EXT_VS_COMPACT_TOL or launches != 9:
+        raise RuntimeError(f"extended {mode}: disagrees with the compact "
+                           "stepper, or its launches")
+    del yc, ext, out_x
+    names = ("h", "u", "strips")
+    st1, st2, st3 = step.stages
+    max_abs = 0.0
+    for label, c in (("TC5 state", ye), ("after 3 steps", yx)):
+        gi = route(c["strips"])
+        a1 = (c["h"], c["u"], gi, model.b_ext)
+        a2 = (c["h"], c["u"]) + a1
+        a3 = (-2.0 * c["h"], -2.0 * c["u"]) + a1
+        for sl, st, a, tol in (("stage 1", st1, a1, KERNEL_TOL),
+                               ("stage 2", st2, a2, KERNEL_TOL),
+                               ("stage 3", st3, a2, KERNEL_TOL),
+                               ("stage 3, y0=-2yc", st3, a3, TENDENCY_TOL)):
+            max_abs = max(max_abs, check_kernel(
+                f"B8 {mode} vs plain C{N} {sl}, {label}", st, st.reference,
+                a, names, tol, lambda: Stage.launches, exact=True))
+    timed = [time_form(f"extended {mode} {sl}", st, st.reference, a,
+                       FLOPS_PER_CELL, card)
+             for sl, st, a in (("stage 1", st1, a1), ("stage 2", st2, a2),
+                               ("stage 3", st3, a2))]
+    return mode_record("cov_stage_inkernel", mode,
+                       "jaxstream/ops/pallas/swe_cov.py:1243", launches,
+                       max_abs, timed, card)
+
+
+def cartesian_ppm_simulation(card: str) -> None:
+    """Phase 52: ``Simulation`` of Cartesian TC5 with PPM at halo 3
+    (``backend: pallas``, FUSED_RECON_SIM_STEPS steps, history every
+    FUSED_RECON_SIM_STRIDE into a directory of ``build/``): the in-kernel
+    stepper taken, B11 launched 3 x steps, the TC5 gate, and bitwise equal
+    to its stepper with the same segmentation."""
+    import os
+    import shutil
+    import tempfile
+
+    from jaxstream_torch.ops.cuda.swe_step import SweStageInkernel
+    from jaxstream_torch.simulation import Simulation
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_sim_",
+                            dir=os.path.join(here, "build"))
+    try:
+        cfg = sim_tc5_config(root, "cart_ppm", name="auto", scheme="ppm")
+        cfg["grid"]["halo"] = 3
+        cfg["time"]["nsteps"] = FUSED_RECON_SIM_STEPS
+        cfg["io"].update(history_stride=FUSED_RECON_SIM_STRIDE,
+                         checkpoint_stride=FUSED_RECON_SIM_STRIDE)
+        sim = Simulation(cfg)
+        kinds = [(type(st).__name__, st.mode)
+                 for st in sim._fused_step.stages]
+        if (sim.stepper_kind != "extended" or sim.grid.halo != 3
+                or kinds != [("SweStageInkernel", "ppm")] * 3):
+            raise RuntimeError(f"Cartesian PPM config took the "
+                               f"{sim.stepper_kind} stepper {kinds}")
+        c0 = {k: v.clone() for k, v in sim.state.items()}
+        SweStageInkernel.launches = 0
+        sim.run()
+        launches = SweStageInkernel.launches
+        log(f"Simulation Cartesian TC5 PPM (halo 3) C{N}: "
+            f"{FUSED_RECON_SIM_STEPS} steps, B11 ppm launches {launches} "
+            f"(want {3 * FUSED_RECON_SIM_STEPS}); card {card}")
+        if launches != 3 * FUSED_RECON_SIM_STEPS:
+            raise RuntimeError("Simulation Cartesian PPM: B11 launch count")
+        tc5_gate("Simulation Cartesian PPM", sim.grid, c0, sim.state["h"],
+                 FUSED_RECON_SIM_STEPS * STEP_DT / 86400.0)
+        check_io("Simulation Cartesian PPM", sim, FUSED_RECON_SIM_STEPS,
+                 FUSED_RECON_SIM_STRIDE)
+        m = sim.model
+        ref, t = segmented(m, m.make_fused_step(STEP_DT),
+                           lambda s: m.extend_state(s, with_strips=True),
+                           c0, STEP_DT, FUSED_RECON_SIM_STEPS,
+                           FUSED_RECON_SIM_STRIDE)
+        hold_bitwise("Simulation Cartesian TC5 PPM", sim, ref, t)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def fused_recon_paths(card: str, t_start: float) -> list:
+    """Phases 48-52: every reconstruction besides PLR-MC on B9-B11 and B8
+    (see :func:`cartesian_mode_path`, :func:`extended_mode_path`), then
+    the Cartesian PPM ``Simulation``.  Returns the records."""
+    records = []
+    for mode in RECON_MODES:
+        stamp(t_start, f"Cartesian {mode} (phases 48-49)")
+        records += cartesian_mode_path(card, mode)
+        stamp(t_start, f"extended carry {mode} (phase 50)")
+        records.append(extended_mode_path(card, mode))
+    stamp(t_start, "Simulation: Cartesian TC5 PPM (phase 52)")
+    cartesian_ppm_simulation(card)
+    return records
+
+
+def build_kernels() -> None:
+    """Phase 1's builds: every kernel library, one nvcc per source, all
+    started together, with each library's ptxas lines, its PLR-MC
+    functions against ``EARLIER_PTXAS`` and its mode instances logged."""
+    from jaxstream_torch import _build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(_build.KERNELS)) as pool:
+        built = list(pool.map(_build.build, _build.KERNELS))
+    log(f"build: {len(built)} kernel(s) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for b in built:
+        log(f"build {b.name}: {b.path.name} nvcc {b.seconds:.2f} s")
+        for line in b.log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas: {line.strip()}")
+        if b.name in EARLIER_PTXAS and b.log:
+            want = EARLIER_PTXAS[b.name]
+            usage = ptxas_usage(b.log)
+            got = [tuple(use) for fn, *use in usage
+                   if not MODE_KERNEL.search(fn)]
+            log(f"  ptxas (registers, smem, spill stores) {got}: "
+                + ("as before" if got == want else f"before: {want}"))
+            modes = [(" ".join(MODE_KERNEL.search(fn).groups()), *use)
+                     for fn, *use in usage if MODE_KERNEL.search(fn)]
+            if modes:
+                log(f"  ptxas of the mode instances (mode, registers, "
+                    f"smem, spill stores): {modes}")
+            if b.name in EARLIER_SASS:
+                sass = sass_counts(b.path)
+                got = [sass.get(fn, -1) for fn, *_ in usage
+                       if not MODE_KERNEL.search(fn)]
+                was = EARLIER_SASS[b.name]
+                log(f"  SASS of the PLR-MC functions {got}: "
+                    + ("as before" if got == was else f"before: {was}")
+                    + "; of the mode instances "
+                    + str([(" ".join(MODE_KERNEL.search(fn).groups()),
+                            sass.get(fn, -1)) for fn, *_ in usage
+                           if MODE_KERNEL.search(fn)]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on "
               "the GPU", file=sys.stderr)
         return 1
 
-    from jaxstream_torch import _build
     from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
                                         EARTH_RADIUS)
     from jaxstream_torch.geometry.cubed_sphere import build_grid
@@ -2998,28 +3415,7 @@ def main() -> int:
     card = smi.splitlines()[0]
     log(f"device: {kind} (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}); nvidia-smi: {card}")
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(_build.KERNELS)) as pool:
-        built = list(pool.map(_build.build, _build.KERNELS))
-    log(f"build: {len(built)} kernel(s) in "
-        f"{time.perf_counter() - t0:.2f} s")
-    for b in built:
-        log(f"build {b.name}: {b.path.name} nvcc {b.seconds:.2f} s")
-        for line in b.log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas: {line.strip()}")
-        if b.name in EARLIER_PTXAS and b.log:
-            want = EARLIER_PTXAS[b.name]
-            usage = ptxas_usage(b.log)
-            got = [tuple(use) for fn, *use in usage
-                   if not MODE_KERNEL.search(fn)]
-            log(f"  ptxas (registers, smem, spill stores) {got}: "
-                + ("as before" if got == want else f"before: {want}"))
-            modes = [(MODE_KERNEL.search(fn).group(1), *use)
-                     for fn, *use in usage if MODE_KERNEL.search(fn)]
-            if modes:
-                log(f"  ptxas of the mode instances (mode, registers, "
-                    f"smem, spill stores): {modes}")
+    build_kernels()
 
     # ---- the port's main path, through its entry points -----------------
     t0 = time.perf_counter()
@@ -3167,6 +3563,7 @@ def main() -> int:
     del y300
     recon_records = recon_paths(card, t_start)
     simulation_paths(card, t_start)
+    recon_records += fused_recon_paths(card, t_start)
     # B4's record: the classic path's six-face launches (phase 16) and the
     # face serialized tier's stacked ones (phase 32).
     rhs_record = record("cov_rhs", "jaxstream_torch/csrc/cov_rhs.cu",

@@ -166,15 +166,6 @@ __device__ __forceinline__ float upwind_flux(float U, Q q) {
   return fmaxf(U, 0.0f) * qL + fminf(U, 0.0f) * qR;
 }
 
-// The PLR-MC flux from the four cells qm (i-2), q0 (i-1), q1 (i) and qp
-// (i+1) (the Cartesian kernels').
-__device__ __forceinline__ float upwind_flux(float U, float qm, float q0,
-                                             float q1, float qp) {
-  float qL, qR;
-  PlrMc::face(qm, q0, q1, qp, qL, qR);
-  return fmaxf(U, 0.0f) * qL + fminf(U, 0.0f) * qR;
-}
-
 // The SSPRK3 combine: stage 1 yc + g_dt*L, stages 2-3 (a*y0 + b*yc) +
 // g_dt*L.
 __device__ __forceinline__ float combine(int with_y0, float a, float b,

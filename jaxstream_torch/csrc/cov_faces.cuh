@@ -309,7 +309,7 @@ struct StageMetric {
 // momentum terms reconstruct nothing; tile cell (y, x) at h[y + A][A +
 // x], ua[y + 1][WOFF + x]), and the orography on the band (cell (ly, lx)
 // as in StageMetric).  StageWindow, PLR-MC's, is what every kernel but
-// B1's and B4's other modes stage.
+// B1's, B4's and B8's other modes stage.
 template <class R>
 struct StageWindowR {
   using Recon = R;
@@ -536,10 +536,11 @@ __device__ __forceinline__ void stage_face_tile(
 // for the stages that write whole (n + 2 hh)^2 blocks (B8, B13): those
 // whose nearest interior cell the tile holds (interior tiles own none),
 // the ghost corners with the S and N rows.  The cells (at most 116 per
-// face for a corner tile at halo 2) are listed flat over the FPB faces,
-// S and N rows first, then W and E columns, so that a block writes them
-// in one pass, a thread taking up to two (swe_stage_inkernel.cu's Ring,
-// which that kernel keeps for itself).
+// face for a corner tile at halo 2, 177 at halo 3) are listed flat over
+// the FPB faces, S and N rows first, then W and E columns, so that a
+// block writes them in one pass (two at halo 3), a thread taking up to
+// two a pass (swe_stage_inkernel.cu's Ring, which that kernel keeps for
+// itself).
 struct FrameRing {
   int ilo, cols;          // the S/N rows' first column and width
   int ns, nn, nw;         // S, N, W cells per face

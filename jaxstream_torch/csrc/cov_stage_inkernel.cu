@@ -19,7 +19,9 @@
 //            symmetrized edge normals S, N, W, E, not prescaled: the
 //            kernel multiplies them by the closed-form edge sqrtg.
 //   tend     the covariant RHS of the frames (rhs_core_cov), as
-//            cov_stage.cu computes it.
+//            cov_stage.cu computes it, h's face states by the launch's
+//            reconstruction (PLR with one of the five limiters, or PPM at
+//            halo >= 3).
 //   out      the whole (m, m) block is val = a*y0 + b*frame (stage 1:
 //            the frame); its interior becomes val + b*dt*tend.  So the
 //            ghost ring holds a*y0 + b*(routed ghost) and the corners
@@ -46,8 +48,9 @@
 //   1. loads the ghost ring cells it owns, of all three faces in one flat
 //      pass (FrameRing: frame and y0 of the three fields, two cells a
 //      thread), then issues the asynchronous copies (cp.async) of its
-//      first face's window: h with a 2-deep apron, u_a and u_b with a
-//      1-deep one, each cell from the input block or, past the face edge,
+//      first face's window: h with the reconstruction's apron (2 deep for
+//      PLR, 3 for PPM), u_a and u_b with a 1-deep one, each cell from the
+//      input block or, past the face edge,
 //      the routed ghosts (0 past the frame), b on the Bernoulli band; then
 //      stores the ring (a*y0 + b*frame).  All blocks issue their first
 //      window at once, and loads issued after those wait behind them;
@@ -64,9 +67,16 @@
 //      ~2.4 us slower per launch on an H100 80GB HBM3 at 700 W,
 //      scripts/torch_faces_probe.py.)
 // Occupancy: B1's 72 576 B of dynamic shared memory (two windows
-// 2 x 15 056, metric 32 560, scratch 9 904) and __launch_bounds__(256, 3):
-// 3 blocks (24 warps) per SM, <= 80 registers; 384 blocks on 132 SMs x 3
-// slots = 396: one wave.
+// 2 x 15 056, metric 32 560, scratch 9 904; PPM's 3-deep h apron adds
+// 2 x 528) and __launch_bounds__(256, 3): 3 blocks (24 warps) per SM,
+// <= 80 registers; 384 blocks on 132 SMs x 3 slots = 396: one wave.
+// The ring and the strips are any halo's: at halo 3 a corner tile owns
+// 177 ring cells per face, and a group's 531 take two passes.
+//
+// Modes.  The body is a template on the face-state policy of
+// cov_common.cuh; each of the six reconstructions is its own kernel and
+// its own C entry point (cov_stage_inkernel_<mode>_f32; PLR-MC keeps the
+// kernel cov_stage_inkernel_kernel and the entry cov_stage_inkernel_f32).
 
 #include "cov_faces.cuh"
 
@@ -91,8 +101,9 @@ struct Params {
   float R2, gravity, two_omega, inv2d, inv_d, a, bcoef, g_dt;
 };
 
+template <class R>
 struct Smem {
-  StageWindow w[2];   // this face's window and the next one's
+  StageWindowR<R> w[2];   // this face's window and the next one's
   StageMetric mt;
   StageScratch s;
 };
@@ -134,9 +145,9 @@ __device__ __forceinline__ void put_packed(float* so, int fi, int n, int hh,
 }
 
 // Issues the copies of rows jw .. jw+ROWS-1, columns i0-A .. i0+FTX+A-1
-// of field fi's frame into s (row stride WS, tile column c at s[r * WS +
-// WOFF + c]); 0 past the frame.
-template <int ROWS, int A>
+// of field fi's frame into s (row stride S, tile column c at s[r * S +
+// OFF + c]; OFF >= A); 0 past the frame.
+template <int ROWS, int A, int S = WS, int OFF = WOFF>
 __device__ __forceinline__ void stage_routed(float* s,
                                              const float* __restrict__ q,
                                              const float* __restrict__ gi,
@@ -144,7 +155,7 @@ __device__ __forceinline__ void stage_routed(float* s,
                                              int i0) {
   for_region<ROWS, FTX + 2 * A>([&](int r, int cc) {
     const int c = cc - A;
-    float* dst = s + r * WS + WOFF + c;
+    float* dst = s + r * S + OFF + c;
     const float* src = routed_src(q, gi, fi, n, hh, jw + r, i0 + c);
     if (src != nullptr)
       async_copy4(dst, src);
@@ -154,13 +165,16 @@ __device__ __forceinline__ void stage_routed(float* s,
 }
 
 // Issues the copies of face f's window into w (no commit).
-__device__ __forceinline__ void stage_window(const Params& p, StageWindow& w,
-                                             int f, int j0, int i0) {
+template <class R>
+__device__ __forceinline__ void stage_window(const Params& p,
+                                             StageWindowR<R>& w, int f,
+                                             int j0, int i0) {
+  constexpr int A = R::A;
   const int n = p.n, hh = p.halo, m = n + 2 * hh;
   const long mm = (long)m * m;
   const float* gi = p.gi + (long)f * (12 * hh + 4) * n;
-  stage_routed<FTY + 4, 2>(&w.h[0][0], p.hc + block_of(0, f, mm), gi, 0, n,
-                           hh, j0 - 2, i0);
+  stage_routed<FTY + 2 * A, A, FTX + 2 * A, A>(
+      &w.h[0][0], p.hc + block_of(0, f, mm), gi, 0, n, hh, j0 - A, i0);
   stage_routed<FTY + 2, 1>(&w.ua[0][0], p.uc + block_of(1, f, mm), gi, 1, n,
                            hh, j0 - 1, i0);
   stage_routed<FTY + 2, 1>(&w.ub[0][0], p.uc + block_of(2, f, mm), gi, 2, n,
@@ -222,10 +236,13 @@ __device__ __forceinline__ void ring_store(const Params& p,
   }
 }
 
-// The three faces of the block's group on one tile position.
-__device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
+// The three faces of the block's group on one tile position, h's face
+// states by policy R.
+template <class R>
+__device__ __forceinline__ void stage_faces(const Params& p, Smem<R>& sm,
                                             int f0, int j0, int i0) {
-  const int n = p.n, hh = p.halo, m = n + 2 * hh, R = 12 * hh;
+  // nr: the rows of a face's packed strips.
+  const int n = p.n, hh = p.halo, m = n + 2 * hh, nr = 12 * hh;
   const long mm = (long)m * m;
   const int lx = threadIdx.x;
   const StageConsts k{p.R2, p.gravity, p.two_omega, p.inv2d, p.inv_d};
@@ -240,7 +257,7 @@ __device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
   stage_window(p, sm.w[0], f0, j0, i0);
   async_commit();
   ring_store(p, rp);
-  for (int k0 = 2 * NT; k0 < ring.count; k0 += 2 * NT) {   // small n only
+  for (int k0 = 2 * NT; k0 < ring.count; k0 += 2 * NT) {   // small n, halo 3
     ring_load(p, ring, f0, j0, k0, rp);
     ring_store(p, rp);
   }
@@ -273,9 +290,9 @@ __device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
       async_wait<0>();
     __syncthreads();   // this face's window (and, first, mt) complete
 
-    const StageWindow& w = sm.w[cur];
-    const float* sym = p.gi + ((long)f * (R + 4) + R) * n;
-    float* so = p.so + (long)f * R * n;
+    const StageWindowR<R>& w = sm.w[cur];
+    const float* sym = p.gi + ((long)f * (nr + 4) + nr) * n;
+    float* so = p.so + (long)f * nr * n;
     stage_face_tile<Seam::Frame>(
         w, sm.mt, sm.s, SymRows{sym, sym + n, sym + 2 * n, sym + 3 * n, 1},
         p.xc, p.xf, p.xc, p.xf, p.fz + 3 * f, k, n, hh, j0, i0,
@@ -297,36 +314,84 @@ __device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
   }
 }
 
+template <class R>
+__device__ __forceinline__ void stage_block(const Params& p) {
+  extern __shared__ float smem_raw[];
+  Smem<R>& sm = *reinterpret_cast<Smem<R>*>(smem_raw);
+  stage_faces<R>(p, sm, blockIdx.z * FPB, blockIdx.y * FTY,
+                 blockIdx.x * FTX);
+}
+
+// One kernel per reconstruction; PLR-MC's keeps its name.
 __global__ void __launch_bounds__(NT, 3)
 cov_stage_inkernel_kernel(const Params p) {
-  extern __shared__ float smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  stage_faces(p, sm, blockIdx.z * FPB, blockIdx.y * FTY, blockIdx.x * FTX);
+  stage_block<PlrMc>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_inkernel_kernel_none(const Params p) {
+  stage_block<Plr<SlopeNone>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_inkernel_kernel_minmod(const Params p) {
+  stage_block<Plr<SlopeMinmod>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_inkernel_kernel_mc_sign(const Params p) {
+  stage_block<Plr<SlopeMcSign>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_inkernel_kernel_vanleer(const Params p) {
+  stage_block<Plr<SlopeVanleer>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_inkernel_kernel_ppm(const Params p) {
+  stage_block<Ppm>(p);
+}
+
+// Launches kernel (the instance of policy R) on `stream`.
+template <class R>
+int launch(void (*kernel)(Params), const Params& p, void* stream) {
+  const int rc = dynamic_smem_limit<R>(kernel, sizeof(Smem<R>));
+  if (rc != 0) return rc;
+  const int n = p.n;
+  const dim3 grid((n + FTX - 1) / FTX, (n + FTY - 1) / FTY, 6 / FPB);
+  const dim3 block(BX, BY);
+  const size_t smem = sizeof(Smem<R>);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches one stage on `stream`; returns the cudaError_t of the shared
+// Launch one stage on `stream`; each returns the cudaError_t of the shared
 // memory attribute or of the launch (0 = ok).  with_y0 == 0: frame +
 // g_dt*L (stage 1); with_y0 != 0: (a*y0 + b*frame) + g_dt*L (stages 2-3;
 // h0/u0 read only then).  All tensors float32, contiguous, in the layouts
-// of Params.
-extern "C" int cov_stage_inkernel_f32(
-    const float* h0, const float* u0, const float* hc, const float* uc,
-    const float* ghosts, const float* b_ext, const float* xc,
-    const float* xf, const float* fz, float* ho, float* uo, float* so,
-    int n, int halo, int with_y0,
-    float R2, float gravity, float two_omega, float inv2d, float inv_d,
-    float a, float b, float g_dt, void* stream) {
-  Params p{h0, u0, hc, uc, ghosts, b_ext, xc, xf, fz, ho, uo, so,
-           n, halo, with_y0, R2, gravity, two_omega, inv2d, inv_d, a, b,
-           g_dt};
-  const int rc = dynamic_smem_limit(cov_stage_inkernel_kernel, sizeof(Smem));
-  if (rc != 0) return rc;
-  const dim3 grid((n + FTX - 1) / FTX, (n + FTY - 1) / FTY, 6 / FPB);
-  const dim3 block(BX, BY);
-  const size_t smem = sizeof(Smem);
-  cov_stage_inkernel_kernel<<<grid, block, smem,
-                              static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
+// of Params.  cov_stage_inkernel_f32 is PLR-MC,
+// cov_stage_inkernel_<mode>_f32 the other reconstructions (PPM needs halo
+// >= 3).
+#define COV_INKERNEL_ENTRY(NAME, KERNEL, POLICY)                            \
+  extern "C" int NAME(                                                      \
+      const float* h0, const float* u0, const float* hc, const float* uc,   \
+      const float* ghosts, const float* b_ext, const float* xc,             \
+      const float* xf, const float* fz, float* ho, float* uo, float* so,    \
+      int n, int halo, int with_y0, float R2, float gravity,                \
+      float two_omega, float inv2d, float inv_d, float a, float b,          \
+      float g_dt, void* stream) {                                           \
+    const Params p{h0, u0, hc, uc, ghosts, b_ext, xc, xf, fz, ho, uo, so,   \
+                   n, halo, with_y0, R2, gravity, two_omega, inv2d, inv_d,  \
+                   a, b, g_dt};                                             \
+    return launch<POLICY>(KERNEL, p, stream);                               \
+  }
+
+COV_INKERNEL_ENTRY(cov_stage_inkernel_f32, cov_stage_inkernel_kernel, PlrMc)
+COV_INKERNEL_ENTRY(cov_stage_inkernel_none_f32,
+                   cov_stage_inkernel_kernel_none, Plr<SlopeNone>)
+COV_INKERNEL_ENTRY(cov_stage_inkernel_minmod_f32,
+                   cov_stage_inkernel_kernel_minmod, Plr<SlopeMinmod>)
+COV_INKERNEL_ENTRY(cov_stage_inkernel_mc_sign_f32,
+                   cov_stage_inkernel_kernel_mc_sign, Plr<SlopeMcSign>)
+COV_INKERNEL_ENTRY(cov_stage_inkernel_vanleer_f32,
+                   cov_stage_inkernel_kernel_vanleer, Plr<SlopeVanleer>)
+COV_INKERNEL_ENTRY(cov_stage_inkernel_ppm_f32, cov_stage_inkernel_kernel_ppm,
+                   Ppm)

@@ -21,6 +21,12 @@
 // Fast_ = false) runs the same body with its basis per face in place, or
 // with the basis's IEEE divisions (1/det g at the faces and centres,
 // 1/sqrtg at the centres) read from a per-tile SweBasis (12.5 KB).
+//
+// Reconstructions.  The window type carries h's face-state policy
+// (cov_common.cuh: PLR with each limiter, PPM): SweWindowR<R> stages h
+// with R's apron (2 deep for PLR, 3 for PPM) and swe_face_tile takes the
+// mass fluxes' face states from it, so each kernel builds one instance
+// per reconstruction from the same body.
 
 #pragma once
 
@@ -67,15 +73,25 @@ struct SweMetric {
   float irho_y[FTY + 1][FTX];
 };
 
-// One face's staged frame: h with a 2-deep apron, v0, v1, v2 with a
-// 1-deep one (tile cell (y, x) at h[y + 2][WOFF + x], v[c][y + 1][WOFF +
-// x]), and the orography on the band (cell (ly, lx) at (j0 + ly - 1, i0 +
-// lx - 1)).
-struct SweWindow {
-  float h[FTY + 4][WS];
+// One face's staged frame for h's face-state policy R: h with R's apron
+// A (Plr::A = 2, Ppm::A = 3), v0, v1, v2 with a 1-deep one (the momentum
+// terms reconstruct nothing; tile cell (y, x) at h[y + A][A + x],
+// v[c][y + 1][WOFF + x]), and the orography on the band (cell (ly, lx) at
+// (j0 + ly - 1, i0 + lx - 1)).  SweWindow is PLR-MC's.
+template <class R>
+struct SweWindowR {
+  using Recon = R;
+  static constexpr int A = R::A;
+  float h[FTY + 2 * A][FTX + 2 * A];
   float v[3][FTY + 2][WS];
   float b[FTY + 2][FTX + 2];
+
+  // h at tile cell (y, x).
+  __device__ __forceinline__ float hc(int y, int x) const {
+    return h[y + A][A + x];
+  }
 };
+using SweWindow = SweWindowR<cov::PlrMc>;
 
 // The covariant components and the Bernoulli function on the band, and
 // the face fluxes, of one face's tile.
@@ -217,13 +233,18 @@ struct TilePoints {
 
 // Issues the copies of face f's window into w (no commit) from extended
 // ghost-filled arrays: h (6, m, m), v (3, 6, m, m), b (6, m, m), m = n +
-// 2 hh.  halo >= 2 puts every apron cell inside the m x m block; 0 past it
-// (the ragged last tiles' aprons, which feed no kept output).
+// 2 hh.  halo >= A (2 for PLR, 3 for PPM) puts every apron cell inside
+// the m x m block; 0 past it (the ragged last tiles' aprons, which feed
+// no kept output).
+template <class R>
 __device__ __forceinline__ void stage_frame_window(
-    SweWindow& w, const float* __restrict__ h, const float* __restrict__ v,
-    const float* __restrict__ b, int f, int n, int hh, int j0, int i0) {
+    SweWindowR<R>& w, const float* __restrict__ h,
+    const float* __restrict__ v, const float* __restrict__ b, int f, int n,
+    int hh, int j0, int i0) {
+  constexpr int A = R::A;
   const long mm = (long)(n + 2 * hh) * (n + 2 * hh);
-  cov::stage_frame<FTY + 4, 2>(&w.h[0][0], h + f * mm, n, hh, j0 - 2, i0);
+  cov::stage_frame<FTY + 2 * A, A, FTX + 2 * A, A>(&w.h[0][0], h + f * mm, n,
+                                                   hh, j0 - A, i0);
   for (int c = 0; c < 3; ++c)
     cov::stage_frame<FTY + 2, 1>(&w.v[c][0][0], v + (c * 6 + f) * mm, n, hh,
                                  j0 - 1, i0);
@@ -277,21 +298,23 @@ __device__ __forceinline__ void swe_basis(SweBasis& bt,
 }
 
 // The Cartesian right-hand side of one face's tile from its staged window
-// w (synchronised): the fast core (rhs_core_fast) when Fast_, from the
-// tile's SweMetric mt; else the general core (rhs_core), whose divisions
-// come from mt when it is the tile's SweBasis and are computed per face
-// for any other mt (unread then).  fr is the face frame (c0, cx, cy).
+// w (a SweWindowR, synchronised; h's face states by its policy): the fast
+// core (rhs_core_fast) when Fast_, from the tile's SweMetric mt; else the
+// general core (rhs_core), whose divisions come from mt when it is the
+// tile's SweBasis and are computed per face for any other mt (unread
+// then).  fr is the face frame (c0, cx, cy).
 // For every interior cell it calls epi(r, ly, lx, j, i, dh, dv0, dv1, dv2)
 // with r the thread's row index (ly = ty + r * BY, lx = tx).  Every
 // thread of the block must call it: it synchronises once, between the
 // fluxes and the tendencies.
-template <bool Fast_, class Mt, class Epilogue>
+template <bool Fast_, class W, class Mt, class Epilogue>
 __device__ __forceinline__ void swe_face_tile(
-    const SweWindow& w, const Mt& mt, SweScratch& s, const float* fr,
+    const W& w, const Mt& mt, SweScratch& s, const float* fr,
     const float* __restrict__ xc, const float* __restrict__ xf,
     const Consts& k, int n, int hh, int j0, int i0, Epilogue epi) {
+  using R = typename W::Recon;
   constexpr bool table = std::is_same<Mt, SweBasis>::value;
-  auto H = [&](int y, int x) { return w.h[y + 2][WOFF + x]; };
+  auto H = [&](int y, int x) { return w.hc(y, x); };
   auto V = [&](int c, int y, int x) { return w.v[c][y + 1][WOFF + x]; };
 
   // ---- covariant components and Bernoulli function on the band ---------
@@ -345,8 +368,9 @@ __device__ __forceinline__ void swe_face_tile(
                             },
                             u, sg);
       }
-      flux = sg * cov::upwind_flux(u, H(ly, lf - 2), H(ly, lf - 1),
-                                   H(ly, lf), H(ly, lf + 1));
+      flux = sg * cov::upwind_flux<R>(u, [&](int q) {
+        return H(ly, lf + q);
+      });
     }
     s.fx[ly][lf] = flux;
   });
@@ -372,8 +396,9 @@ __device__ __forceinline__ void swe_face_tile(
                              },
                              u, sg);
       }
-      flux = sg * cov::upwind_flux(u, H(lf - 2, lx), H(lf - 1, lx),
-                                   H(lf, lx), H(lf + 1, lx));
+      flux = sg * cov::upwind_flux<R>(u, [&](int q) {
+        return H(lf + q, lx);
+      });
     }
     s.fy[lf][lx] = flux;
   });

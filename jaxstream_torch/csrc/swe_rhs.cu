@@ -13,7 +13,9 @@
 // RHS (rhs_core, the general basis _basis) of the extended frames h_ext
 // (6, m, m) and v_ext (3, 6, m, m), whose ghosts the caller's halo
 // exchangers filled, with the orography b_ext (6, m, m): the upwind
-// PLR-MC mass flux through sqrtg a^i at the faces, the vorticity from the
+// mass flux through sqrtg a^i at the faces (h's face states by the
+// launch's reconstruction: PLR with one of the five limiters, or PPM at
+// halo >= 3), the vorticity from the
 // covariant components v . e_i on the band, the Bernoulli gradient, the
 // Coriolis term and the tangent projection.  Out: dh (6, n, n) and dv
 // (3, 6, n, n); the RK combine is the stepper's.
@@ -32,9 +34,9 @@
 // and a group of three faces (swe_faces.cuh), a grid of (ceil(n/32),
 // ceil(n/24), 2), 12 x 16 x 2 = 384 blocks at C384.  The block
 //   1. issues the asynchronous copies (cp.async) of its first face's
-//      window: h with a 2-deep apron, v0, v1, v2 with a 1-deep one, b on
-//      the Bernoulli band, straight from the extended frames (0 past
-//      them);
+//      window: h with the reconstruction's apron (2 deep for PLR, 3 for
+//      PPM), v0, v1, v2 with a 1-deep one, b on the Bernoulli band,
+//      straight from the extended frames (0 past them);
 //   2. meanwhile computes the general basis's IEEE divisions, which do not
 //      read the face frame, once for the group's three faces into shared
 //      memory (SweBasis: 1/det g at the x-faces, y-faces and centres,
@@ -44,9 +46,14 @@
 //      swe_face_tile<false> (rhs_core) with the divisions from the table,
 //      and stores dh and dv at the tile's interior cells.
 // Occupancy: 67 196 B of dynamic shared memory (two windows 2 x 18 800,
-// basis 12 512, scratch 16 976, frames 108) and __launch_bounds__(256,
-// 3): 3 blocks (24 warps) per SM, <= 80 registers.  384 blocks on 132 SMs
-// x 3 slots = 396: one wave.
+// basis 12 512, scratch 16 976, frames 108; PPM's 3-deep h apron adds
+// 2 x 528) and __launch_bounds__(256, 3): 3 blocks (24 warps) per SM,
+// <= 80 registers.  384 blocks on 132 SMs x 3 slots = 396: one wave.
+//
+// Modes.  The body is a template on the face-state policy of
+// cov_common.cuh; each of the six reconstructions is its own kernel and
+// its own C entry point (swe_rhs_<mode>_f32; PLR-MC keeps the kernel
+// swe_rhs_kernel and the entry swe_rhs_f32).
 
 #include "swe_faces.cuh"
 
@@ -68,16 +75,19 @@ struct Params {
   Consts k;
 };
 
+template <class R>
 struct Smem {
-  SweWindow w[2];     // this face's window and the next one's
+  SweWindowR<R> w[2];   // this face's window and the next one's
   SweBasis bt;
   SweScratch s;
   float fr[FPB][9];   // the group's face frames
 };
 
-// The three faces of the block's group on one tile position.
-__device__ __forceinline__ void rhs_faces(const Params& p, Smem& sm, int f0,
-                                          int j0, int i0) {
+// The three faces of the block's group on one tile position, h's face
+// states by policy R.
+template <class R>
+__device__ __forceinline__ void rhs_faces(const Params& p, Smem<R>& sm,
+                                          int f0, int j0, int i0) {
   const int n = p.n, hh = p.halo;
   const long nn = (long)n * n;
   stage_frame_window(sm.w[0], p.h, p.v, p.b, f0, n, hh, j0, i0);
@@ -113,29 +123,69 @@ __device__ __forceinline__ void rhs_faces(const Params& p, Smem& sm, int f0,
   }
 }
 
-__global__ void __launch_bounds__(NT, 3) swe_rhs_kernel(const Params p) {
+template <class R>
+__device__ __forceinline__ void rhs_block(const Params& p) {
   extern __shared__ float smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  rhs_faces(p, sm, blockIdx.z * FPB, blockIdx.y * FTY, blockIdx.x * FTX);
+  Smem<R>& sm = *reinterpret_cast<Smem<R>*>(smem_raw);
+  rhs_faces<R>(p, sm, blockIdx.z * FPB, blockIdx.y * FTY, blockIdx.x * FTX);
+}
+
+// One kernel per reconstruction; PLR-MC's keeps its name.
+__global__ void __launch_bounds__(NT, 3) swe_rhs_kernel(const Params p) {
+  rhs_block<PlrMc>(p);
+}
+__global__ void __launch_bounds__(NT, 3) swe_rhs_kernel_none(const Params p) {
+  rhs_block<Plr<SlopeNone>>(p);
+}
+__global__ void __launch_bounds__(NT, 3) swe_rhs_kernel_minmod(
+    const Params p) {
+  rhs_block<Plr<SlopeMinmod>>(p);
+}
+__global__ void __launch_bounds__(NT, 3) swe_rhs_kernel_mc_sign(
+    const Params p) {
+  rhs_block<Plr<SlopeMcSign>>(p);
+}
+__global__ void __launch_bounds__(NT, 3) swe_rhs_kernel_vanleer(
+    const Params p) {
+  rhs_block<Plr<SlopeVanleer>>(p);
+}
+__global__ void __launch_bounds__(NT, 3) swe_rhs_kernel_ppm(const Params p) {
+  rhs_block<Ppm>(p);
+}
+
+// Launches kernel (the instance of policy R) on `stream`.
+template <class R>
+int launch(void (*kernel)(Params), const Params& p, void* stream) {
+  const int rc = dynamic_smem_limit<R>(kernel, sizeof(Smem<R>));
+  if (rc != 0) return rc;
+  const int n = p.n;
+  const dim3 grid((n + FTX - 1) / FTX, (n + FTY - 1) / FTY, 6 / FPB);
+  const dim3 block(BX, BY);
+  const size_t smem = sizeof(Smem<R>);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches the RHS on `stream`; returns the cudaError_t of the shared
+// Launch the RHS on `stream`; each returns the cudaError_t of the shared
 // memory attribute or of the launch (0 = ok).  All tensors float32,
-// contiguous, in the layouts of Params.
-extern "C" int swe_rhs_f32(
-    const float* frames, const float* h_ext, const float* v_ext,
-    const float* b_ext, const float* xc, const float* xf, float* dh,
-    float* dv, int n, int halo, float R, float R2, float gravity,
-    float two_omega, float inv2d, float inv_d, void* stream) {
-  Params p{frames, h_ext, v_ext, b_ext, xc, xf, dh, dv, n, halo,
-           Consts{R, R2, gravity, two_omega, inv2d, inv_d}};
-  const int rc = dynamic_smem_limit(swe_rhs_kernel, sizeof(Smem));
-  if (rc != 0) return rc;
-  const dim3 grid((n + FTX - 1) / FTX, (n + FTY - 1) / FTY, 6 / FPB);
-  const dim3 block(BX, BY);
-  const size_t smem = sizeof(Smem);
-  swe_rhs_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
+// contiguous, in the layouts of Params.  swe_rhs_f32 is PLR-MC,
+// swe_rhs_<mode>_f32 the other reconstructions (PPM needs halo >= 3).
+#define SWE_RHS_ENTRY(NAME, KERNEL, POLICY)                                 \
+  extern "C" int NAME(                                                      \
+      const float* frames, const float* h_ext, const float* v_ext,          \
+      const float* b_ext, const float* xc, const float* xf, float* dh,      \
+      float* dv, int n, int halo, float R, float R2, float gravity,         \
+      float two_omega, float inv2d, float inv_d, void* stream) {            \
+    const Params p{frames, h_ext, v_ext, b_ext, xc, xf, dh, dv, n, halo,    \
+                   Consts{R, R2, gravity, two_omega, inv2d, inv_d}};        \
+    return launch<POLICY>(KERNEL, p, stream);                               \
+  }
+
+SWE_RHS_ENTRY(swe_rhs_f32, swe_rhs_kernel, PlrMc)
+SWE_RHS_ENTRY(swe_rhs_none_f32, swe_rhs_kernel_none, Plr<SlopeNone>)
+SWE_RHS_ENTRY(swe_rhs_minmod_f32, swe_rhs_kernel_minmod, Plr<SlopeMinmod>)
+SWE_RHS_ENTRY(swe_rhs_mc_sign_f32, swe_rhs_kernel_mc_sign, Plr<SlopeMcSign>)
+SWE_RHS_ENTRY(swe_rhs_vanleer_f32, swe_rhs_kernel_vanleer, Plr<SlopeVanleer>)
+SWE_RHS_ENTRY(swe_rhs_ppm_f32, swe_rhs_kernel_ppm, Ppm)

@@ -14,7 +14,9 @@
 //   tend     the Cartesian RHS L(yc) of the input blocks hc (6, m, m) and
 //            vc (3, 6, m, m), whose ghosts (corners averaged) the
 //            caller's exchanger filled: rhs_core_fast when fast != 0,
-//            rhs_core otherwise (a compile-time switch, both built).
+//            rhs_core otherwise (a compile-time switch, both built); h's
+//            face states by the launch's reconstruction (PLR with one of
+//            the five limiters, or PPM at halo >= 3).
 //   out      the whole (m, m) block is a*y0 + b*yc (stage 1, with_y0 ==
 //            0: yc itself); its interior becomes that value +
 //            b*dt*tend.  Every cell is written once.
@@ -30,14 +32,16 @@
 // face and centre of every face.
 //
 // Design.  swe_stage_inkernel.cu's (B11's) faces-in-block body with the
-// input blocks as the frame (halo >= 2 puts every apron cell inside the
-// m x m block, so no ghost is routed here): a block of 256 threads takes
+// input blocks as the frame (halo >= A, h's apron, puts every apron cell
+// inside the m x m block, so no ghost is routed here): a block of 256
+// threads takes
 // one 32 x 24 tile position and a group of three faces (cov_faces.cuh,
 // swe_faces.cuh), a grid of (ceil(n/32), ceil(n/24), 2), 12 x 16 x 2 =
 // 384 blocks at C384.  The block
 //   1. issues the asynchronous copies (cp.async) of its first face's
-//      window (h with a 2-deep apron, v0, v1, v2 with a 1-deep one, b on
-//      the Bernoulli band; 0 past the frame), then writes the ghost ring
+//      window (h with the reconstruction's apron, 2 deep for PLR and 3 for
+//      PPM, v0, v1, v2 with a 1-deep one, b on the Bernoulli band; 0 past
+//      the frame), then writes the ghost ring
 //      cells it owns (cov::FrameRing: the cells an edge tile owns, of all
 //      three faces in one flat list, one cell a thread and pass: a*y0 +
 //      b*yc of the four fields; a corner tile owns 348 cells at C384);
@@ -49,9 +53,16 @@
 //      buffer, loads the combine's y0 at its cells, waits for this face's
 //      window, runs swe_face_tile, and stores the combine into the block.
 // Occupancy: 67 420 B of dynamic shared memory (two windows 2 x 18 800,
-// metric 12 736 or basis 12 512, scratch 16 976, frames 108) and
-// __launch_bounds__(256, 3): 3 blocks (24 warps) per SM, <= 80 registers.
-// 384 blocks on 132 SMs x 3 slots = 396: one wave.
+// metric 12 736 or basis 12 512, scratch 16 976, frames 108; PPM's 3-deep
+// h apron adds 2 x 528) and __launch_bounds__(256, 3): 3 blocks (24
+// warps) per SM, <= 80 registers.  384 blocks on 132 SMs x 3 slots = 396:
+// one wave.
+//
+// Modes.  The body is a template on the core and on the face-state policy
+// of cov_common.cuh; each reconstruction has a kernel per core
+// (swe_stage_kernel_<mode>, swe_stage_general_kernel_<mode>) and one C
+// entry point (swe_stage_<mode>_f32).  PLR-MC keeps the kernels
+// swe_stage_kernel<fast> and the entry swe_stage_f32.
 
 #include "swe_faces.cuh"
 
@@ -76,8 +87,9 @@ struct Params {
   float a, bcoef, g_dt;
 };
 
+template <class R>
 struct Smem {
-  SweWindow w[2];     // this face's window and the next one's
+  SweWindowR<R> w[2];   // this face's window and the next one's
   union {
     SweMetric mt;     // the fast core's metric terms
     SweBasis bt;      // the general core's divisions
@@ -133,9 +145,10 @@ __device__ __forceinline__ void ring_store(const Params& p,
   }
 }
 
-// The three faces of the block's group on one tile position.
-template <bool Fast_>
-__device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
+// The three faces of the block's group on one tile position, h's face
+// states by policy R.
+template <bool Fast_, class R>
+__device__ __forceinline__ void stage_faces(const Params& p, Smem<R>& sm,
                                             int f0, int j0, int i0) {
   const int n = p.n, hh = p.halo, m = n + 2 * hh;
   const long mm = (long)m * m;
@@ -189,14 +202,14 @@ __device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
       async_wait<0>();
     __syncthreads();   // this face's window (and, first, mt) complete
 
-    const SweWindow& w = sm.w[cur];
+    const SweWindowR<R>& w = sm.w[cur];
     auto epi = [&](int r, int ly, int lx_, int j, int i, float dh,
                    float dv0, float dv1, float dv2) {
       const long c = (long)(j + hh) * m + i + hh;
       const float tend[4] = {dh, dv0, dv1, dv2};
 #pragma unroll
       for (int fi = 0; fi < 4; ++fi) {
-        const float yc = fi == 0 ? w.h[ly + 2][WOFF + lx_]
+        const float yc = fi == 0 ? w.hc(ly, lx_)
                                  : w.v[fi - 1][ly + 1][WOFF + lx_];
         (fi == 0 ? p.ho : p.vo)[block_of(fi, f, mm) + c] =
             combine(p.with_y0, p.a, p.bcoef, p.g_dt, y0[r][fi], yc,
@@ -213,47 +226,89 @@ __device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
   }
 }
 
-// The launch parameters of one core: a type per kernel, so that
-// dynamic_smem_limit keeps a flag for each.
-template <bool Fast_>
+// The launch parameters of one core and policy: a type per kernel, so
+// that dynamic_smem_limit keeps a flag for each.
+template <bool Fast_, class R>
 struct CoreParams : Params {};
 
-template <bool Fast_>
-__global__ void __launch_bounds__(NT, 3)
-swe_stage_kernel(const CoreParams<Fast_> p) {
+template <bool Fast_, class R>
+__device__ __forceinline__ void stage_block(const CoreParams<Fast_, R>& p) {
   extern __shared__ float smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  stage_faces<Fast_>(p, sm, blockIdx.z * FPB, blockIdx.y * FTY,
-                     blockIdx.x * FTX);
+  Smem<R>& sm = *reinterpret_cast<Smem<R>*>(smem_raw);
+  stage_faces<Fast_, R>(p, sm, blockIdx.z * FPB, blockIdx.y * FTY,
+                        blockIdx.x * FTX);
 }
 
+// PLR-MC's kernels, one per core.
 template <bool Fast_>
-int launch(const Params& p, void* stream) {
-  void (*kern)(const CoreParams<Fast_>) = swe_stage_kernel<Fast_>;
-  const int rc = dynamic_smem_limit(kern, sizeof(Smem));
+__global__ void __launch_bounds__(NT, 3)
+swe_stage_kernel(const CoreParams<Fast_, PlrMc> p) {
+  stage_block<Fast_, PlrMc>(p);
+}
+
+// The other reconstructions' kernels: the fast core's and the general
+// core's of each.
+#define SWE_STAGE_KERNELS(MODE, POLICY)                                     \
+  __global__ void __launch_bounds__(NT, 3)                                  \
+      swe_stage_kernel_##MODE(const CoreParams<true, POLICY> p) {           \
+    stage_block<true, POLICY>(p);                                           \
+  }                                                                         \
+  __global__ void __launch_bounds__(NT, 3)                                  \
+      swe_stage_general_kernel_##MODE(const CoreParams<false, POLICY> p) {  \
+    stage_block<false, POLICY>(p);                                          \
+  }
+
+SWE_STAGE_KERNELS(none, Plr<SlopeNone>)
+SWE_STAGE_KERNELS(minmod, Plr<SlopeMinmod>)
+SWE_STAGE_KERNELS(mc_sign, Plr<SlopeMcSign>)
+SWE_STAGE_KERNELS(vanleer, Plr<SlopeVanleer>)
+SWE_STAGE_KERNELS(ppm, Ppm)
+
+// Launches kern, the instance of core Fast_ and policy R, on `stream`.
+template <bool Fast_, class R>
+int launch(void (*kern)(const CoreParams<Fast_, R>), const Params& p,
+           void* stream) {
+  const int rc = dynamic_smem_limit(kern, sizeof(Smem<R>));
   if (rc != 0) return rc;
-  const CoreParams<Fast_> cp{p};
+  const CoreParams<Fast_, R> cp{p};
   const dim3 grid((p.n + FTX - 1) / FTX, (p.n + FTY - 1) / FTY, 6 / FPB);
   const dim3 block(BX, BY);
-  const size_t smem = sizeof(Smem);
+  const size_t smem = sizeof(Smem<R>);
   kern<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(cp);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches one stage on `stream`; returns the cudaError_t of the shared
+// Launch one stage on `stream`; each returns the cudaError_t of the shared
 // memory attribute or of the launch (0 = ok).  with_y0 == 0: yc + g_dt*L
 // (stage 1; h0/v0 not read); with_y0 != 0: (a*y0 + b*yc) + g_dt*L.
 // fast != 0 selects rhs_core_fast.  All tensors float32, contiguous, in
-// the layouts of Params.
-extern "C" int swe_stage_f32(
-    const float* h0, const float* v0, const float* hc, const float* vc,
-    const float* b_ext, const float* xc, const float* xf,
-    const float* frames, float* ho, float* vo, int n, int halo, int with_y0,
-    int fast, float R, float R2, float gravity, float two_omega,
-    float inv2d, float inv_d, float a, float b, float g_dt, void* stream) {
-  Params p{h0, v0, hc, vc, b_ext, xc, xf, frames, ho, vo, n, halo, with_y0,
-           Consts{R, R2, gravity, two_omega, inv2d, inv_d}, a, b, g_dt};
-  return fast ? launch<true>(p, stream) : launch<false>(p, stream);
-}
+// the layouts of Params.  swe_stage_f32 is PLR-MC, swe_stage_<mode>_f32
+// the other reconstructions (PPM needs halo >= 3).
+#define SWE_STAGE_ENTRY(NAME, FAST, GENERAL)                                \
+  extern "C" int NAME(                                                      \
+      const float* h0, const float* v0, const float* hc, const float* vc,   \
+      const float* b_ext, const float* xc, const float* xf,                 \
+      const float* frames, float* ho, float* vo, int n, int halo,           \
+      int with_y0, int fast, float R, float R2, float gravity,              \
+      float two_omega, float inv2d, float inv_d, float a, float b,          \
+      float g_dt, void* stream) {                                           \
+    const Params p{h0, v0, hc, vc, b_ext, xc, xf, frames, ho, vo, n, halo,  \
+                   with_y0, Consts{R, R2, gravity, two_omega, inv2d, inv_d}, \
+                   a, b, g_dt};                                             \
+    return fast ? launch(FAST, p, stream) : launch(GENERAL, p, stream);     \
+  }
+
+SWE_STAGE_ENTRY(swe_stage_f32, swe_stage_kernel<true>,
+                swe_stage_kernel<false>)
+SWE_STAGE_ENTRY(swe_stage_none_f32, swe_stage_kernel_none,
+                swe_stage_general_kernel_none)
+SWE_STAGE_ENTRY(swe_stage_minmod_f32, swe_stage_kernel_minmod,
+                swe_stage_general_kernel_minmod)
+SWE_STAGE_ENTRY(swe_stage_mc_sign_f32, swe_stage_kernel_mc_sign,
+                swe_stage_general_kernel_mc_sign)
+SWE_STAGE_ENTRY(swe_stage_vanleer_f32, swe_stage_kernel_vanleer,
+                swe_stage_general_kernel_vanleer)
+SWE_STAGE_ENTRY(swe_stage_ppm_f32, swe_stage_kernel_ppm,
+                swe_stage_general_kernel_ppm)

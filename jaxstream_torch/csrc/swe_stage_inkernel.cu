@@ -17,7 +17,9 @@
 //            vgsn (3, 6, 2, h, n) / vgwe (3, 6, 2, n, h).  The ghost
 //            corners stay the input's, which no kept output reads.
 //   tend     the Cartesian RHS of the frames, as swe_stage.cu computes it
-//            (rhs_core_fast when fast != 0, rhs_core otherwise).
+//            (rhs_core_fast when fast != 0, rhs_core otherwise; h's face
+//            states by the launch's reconstruction, PLR with one of the
+//            five limiters or PPM at halo >= 3).
 //   out      the whole (m, m) block is a*y0 + b*frame (stage 1: the
 //            frame); its interior becomes that value + b*dt*tend.  The raw
 //            strips of the new interior go out too: sn (6, 2, h, n) its S
@@ -41,7 +43,8 @@
 // (ceil(n/32), ceil(n/24), 2), 12 x 16 x 2 = 384 blocks at C384.  The
 // block
 //   1. issues the asynchronous copies (cp.async) of its first face's
-//      window: h with a 2-deep apron, v0, v1, v2 with a 1-deep one (each
+//      window: h with the reconstruction's apron (2 deep for PLR, 3 for
+//      PPM), v0, v1, v2 with a 1-deep one (each
 //      cell from the input block or the face's routed ghost block, as the
 //      frame above has it; 0 past the frame), b on the Bernoulli band;
 //   2. meanwhile writes the ghost ring cells an edge tile owns, of all
@@ -57,9 +60,16 @@
 //      stores.
 // Every per-cell phase maps one tile column to one lane (for_region).
 // Occupancy: 67 420 B of dynamic shared memory (two windows 2 x 18 800,
-// metric 12 736, scratch 16 976, frames 108) and __launch_bounds__(256,
-// 3): 3 blocks (24 warps) per SM, <= 80 registers.  384 blocks on 132 SMs
-// x 3 slots = 396: one wave.
+// metric 12 736, scratch 16 976, frames 108; PPM's 3-deep h apron adds
+// 2 x 528) and __launch_bounds__(256, 3): 3 blocks (24 warps) per SM,
+// <= 80 registers.  384 blocks on 132 SMs x 3 slots = 396: one wave.
+//
+// Modes.  The body is a template on the core and on the face-state policy
+// of cov_common.cuh; each reconstruction has a kernel per core
+// (swe_stage_inkernel_kernel_<mode>,
+// swe_stage_inkernel_general_kernel_<mode>) and one C entry point
+// (swe_stage_inkernel_<mode>_f32).  PLR-MC keeps the kernels
+// swe_stage_inkernel_kernel<fast> and the entry swe_stage_inkernel_f32.
 
 #include "swe_faces.cuh"
 
@@ -92,8 +102,9 @@ struct Params {
   float a, bcoef, g_dt;
 };
 
+template <class R>
 struct Smem {
-  SweWindow w[2];     // this face's window and the next one's
+  SweWindowR<R> w[2];   // this face's window and the next one's
   SweMetric mt;
   SweScratch s;
   float fr[FPB][9];   // the group's face frames
@@ -132,15 +143,15 @@ __device__ __forceinline__ Field field(const Params& p, int q, int f) {
 }
 
 // Issues the copies of rows jw .. jw+ROWS-1, columns i0-A .. i0+FTX+A-1
-// of field fl's frame into s (row stride WS, tile column c at s[r * WS +
-// WOFF + c]); 0 past the frame.
-template <int ROWS, int A>
+// of field fl's frame into s (row stride S, tile column c at s[r * S +
+// OFF + c]; OFF >= A); 0 past the frame.
+template <int ROWS, int A, int S = WS, int OFF = WOFF>
 __device__ __forceinline__ void stage_frame_field(float* s, const Field& fl,
                                                   int n, int hh, int jw,
                                                   int i0) {
   for_region<ROWS, FTX + 2 * A>([&](int r, int cc) {
     const int c = cc - A;
-    float* dst = s + r * WS + WOFF + c;
+    float* dst = s + r * S + OFF + c;
     const float* src = frame_src(fl.in, fl.gs, fl.gw, n, hh, jw + r, i0 + c);
     if (src != nullptr)
       async_copy4(dst, src);
@@ -152,11 +163,14 @@ __device__ __forceinline__ void stage_frame_field(float* s, const Field& fl,
 // Issues the copies of face f's window into w (no commit).  (16-byte
 // copies of an interior tile's rows measured slower on the H100: 46.71 /
 // 48.67 against 46.31 / 47.77 us at C384, stages 1 / 2.)
-__device__ __forceinline__ void stage_window(const Params& p, SweWindow& w,
-                                             int f, int j0, int i0) {
+template <class R>
+__device__ __forceinline__ void stage_window(const Params& p,
+                                             SweWindowR<R>& w, int f, int j0,
+                                             int i0) {
+  constexpr int A = R::A;
   const int n = p.n, hh = p.halo, m = n + 2 * hh;
-  stage_frame_field<FTY + 4, 2>(&w.h[0][0], field(p, 0, f), n, hh, j0 - 2,
-                                i0);
+  stage_frame_field<FTY + 2 * A, A, FTX + 2 * A, A>(
+      &w.h[0][0], field(p, 0, f), n, hh, j0 - A, i0);
   for (int c = 0; c < 3; ++c)
     stage_frame_field<FTY + 2, 1>(&w.v[c][0][0], field(p, 1 + c, f), n, hh,
                                   j0 - 1, i0);
@@ -166,9 +180,11 @@ __device__ __forceinline__ void stage_window(const Params& p, SweWindow& w,
 // The ghost ring cells of the group's faces f0 .. f0+FPB-1 that the tile
 // at (j0, i0) owns (those whose nearest interior cell it holds; interior
 // tiles own none): a*y0 + b*frame, from the inputs.  The cells (at most
-// 116 per face for a corner tile at halo 2) are listed flat over the
-// faces, S and N rows (with the corners) first, then W and E columns; a
-// thread takes up to two of them per pass of the block.
+// 116 per face for a corner tile at halo 2, 177 at halo 3) are listed flat
+// over the faces, S and N rows (with the corners) first, then W and E
+// columns; a thread takes up to two of them per pass of the block, and a
+// group of more than 2 x 256 cells (3 x 177 at halo 3) takes more
+// passes.
 struct Ring {
   int ilo, cols;          // the S/N rows' first column and width
   int ns, nn, nw, count;  // S, N, W cells per face; all cells of the group
@@ -245,9 +261,10 @@ __device__ __forceinline__ void ring_store(const Params& p,
   }
 }
 
-// The three faces of the block's group on one tile position.
-template <bool Fast_>
-__device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
+// The three faces of the block's group on one tile position, h's face
+// states by policy R.
+template <bool Fast_, class R>
+__device__ __forceinline__ void stage_faces(const Params& p, Smem<R>& sm,
                                             int f0, int j0, int i0) {
   const int n = p.n, hh = p.halo, m = n + 2 * hh;
   const long mm = (long)m * m, sw = 2L * hh * n;
@@ -264,7 +281,7 @@ __device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
   stage_window(p, sm.w[0], f0, j0, i0);
   async_commit();
   ring_store(p, rp);
-  for (int k0 = 2 * NT; k0 < ring.count; k0 += 2 * NT) {   // small n only
+  for (int k0 = 2 * NT; k0 < ring.count; k0 += 2 * NT) {   // small n, halo 3
     ring_load(p, ring, f0, j0, k0, rp);
     ring_store(p, rp);
   }
@@ -300,7 +317,7 @@ __device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
       async_wait<0>();
     __syncthreads();   // this face's window (and, first, mt) complete
 
-    const SweWindow& w = sm.w[cur];
+    const SweWindowR<R>& w = sm.w[cur];
     swe_face_tile<Fast_>(
         w, sm.mt, sm.s, sm.fr[q], p.xc, p.xf, p.k, n, hh, j0, i0,
         [&](int r, int ly, int lx_, int j, int i, float dh, float dv0,
@@ -309,7 +326,7 @@ __device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
           const float tend[4] = {dh, dv0, dv1, dv2};
           for (int fi = 0; fi < 4; ++fi) {
             const int blk = fi == 0 ? f : (fi - 1) * 6 + f;
-            const float yc = fi == 0 ? w.h[ly + 2][WOFF + lx_]
+            const float yc = fi == 0 ? w.hc(ly, lx_)
                                      : w.v[fi - 1][ly + 1][WOFF + lx_];
             const float val = cov::combine(p.with_y0, p.a, p.bcoef, p.g_dt,
                                            y0[r][fi], yc, tend[fi]);
@@ -328,51 +345,98 @@ __device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
   }
 }
 
-// The launch parameters of one core: a type per kernel, so that
-// dynamic_smem_limit keeps a flag for each.
-template <bool Fast_>
+// The launch parameters of one core and policy: a type per kernel, so
+// that dynamic_smem_limit keeps a flag for each.
+template <bool Fast_, class R>
 struct CoreParams : Params {};
 
-template <bool Fast_>
-__global__ void __launch_bounds__(NT, 3)
-swe_stage_inkernel_kernel(const CoreParams<Fast_> p) {
+template <bool Fast_, class R>
+__device__ __forceinline__ void stage_block(const CoreParams<Fast_, R>& p) {
   extern __shared__ float smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  stage_faces<Fast_>(p, sm, blockIdx.z * FPB, blockIdx.y * FTY,
-                     blockIdx.x * FTX);
+  Smem<R>& sm = *reinterpret_cast<Smem<R>*>(smem_raw);
+  stage_faces<Fast_, R>(p, sm, blockIdx.z * FPB, blockIdx.y * FTY,
+                        blockIdx.x * FTX);
 }
 
+// PLR-MC's kernels, one per core.
 template <bool Fast_>
-int launch(const Params& p, void* stream) {
-  void (*kern)(const CoreParams<Fast_>) = swe_stage_inkernel_kernel<Fast_>;
-  const int rc = cov::dynamic_smem_limit(kern, sizeof(Smem));
+__global__ void __launch_bounds__(NT, 3)
+swe_stage_inkernel_kernel(const CoreParams<Fast_, PlrMc> p) {
+  stage_block<Fast_, PlrMc>(p);
+}
+
+// The other reconstructions' kernels: the fast core's and the general
+// core's of each.
+#define SWE_INKERNEL_KERNELS(MODE, POLICY)                                  \
+  __global__ void __launch_bounds__(NT, 3)                                  \
+      swe_stage_inkernel_kernel_##MODE(const CoreParams<true, POLICY> p) {  \
+    stage_block<true, POLICY>(p);                                           \
+  }                                                                         \
+  __global__ void __launch_bounds__(NT, 3)                                  \
+      swe_stage_inkernel_general_kernel_##MODE(                             \
+          const CoreParams<false, POLICY> p) {                              \
+    stage_block<false, POLICY>(p);                                          \
+  }
+
+SWE_INKERNEL_KERNELS(none, Plr<SlopeNone>)
+SWE_INKERNEL_KERNELS(minmod, Plr<SlopeMinmod>)
+SWE_INKERNEL_KERNELS(mc_sign, Plr<SlopeMcSign>)
+SWE_INKERNEL_KERNELS(vanleer, Plr<SlopeVanleer>)
+SWE_INKERNEL_KERNELS(ppm, Ppm)
+
+// Launches kern, the instance of core Fast_ and policy R, on `stream`.
+template <bool Fast_, class R>
+int launch(void (*kern)(const CoreParams<Fast_, R>), const Params& p,
+           void* stream) {
+  const int rc = cov::dynamic_smem_limit(kern, sizeof(Smem<R>));
   if (rc != 0) return rc;
-  const CoreParams<Fast_> cp{p};
+  const CoreParams<Fast_, R> cp{p};
   const dim3 grid((p.n + FTX - 1) / FTX, (p.n + FTY - 1) / FTY, 6 / FPB);
   const dim3 block(cov::BX, cov::BY);
-  const size_t smem = sizeof(Smem);
+  const size_t smem = sizeof(Smem<R>);
   kern<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(cp);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches one stage on `stream`; returns the cudaError_t of the shared
+// Launch one stage on `stream`; each returns the cudaError_t of the shared
 // memory attribute or of the launch (0 = ok).  with_y0 == 0: frame +
 // g_dt*L (stage 1; h0/v0 not read); with_y0 != 0: (a*y0 + b*frame) +
 // g_dt*L.  fast != 0 selects rhs_core_fast.  All tensors float32,
-// contiguous, in the layouts of Params.
+// contiguous, in the layouts of Params.  swe_stage_inkernel_f32 is
+// PLR-MC, swe_stage_inkernel_<mode>_f32 the other reconstructions (PPM
+// needs halo >= 3).
+#define SWE_INKERNEL_ENTRY(NAME, FAST, GENERAL)                             \
+  extern "C" int NAME(                                                      \
+      const float* h0, const float* v0, const float* hc, const float* vc,   \
+      const float* gsn, const float* gwe, const float* vgsn,                \
+      const float* vgwe, const float* b_ext, const float* xc,               \
+      const float* xf, const float* frames, float* ho, float* vo,           \
+      float* sn, float* we, float* vsn, float* vwe, int n, int halo,        \
+      int with_y0, int fast, float R, float R2, float gravity,              \
+      float two_omega, float inv2d, float inv_d, float a, float b,          \
+      float g_dt, void* stream) {                                           \
+    const Params p{h0, v0, hc, vc, gsn, gwe, vgsn, vgwe, b_ext, xc, xf,     \
+                   frames, ho, vo, sn, we, vsn, vwe, n, halo, with_y0,      \
+                   Consts{R, R2, gravity, two_omega, inv2d, inv_d}, a, b,   \
+                   g_dt};                                                   \
+    return fast ? launch(FAST, p, stream) : launch(GENERAL, p, stream);     \
+  }
 
-extern "C" int swe_stage_inkernel_f32(
-    const float* h0, const float* v0, const float* hc, const float* vc,
-    const float* gsn, const float* gwe, const float* vgsn,
-    const float* vgwe, const float* b_ext, const float* xc, const float* xf,
-    const float* frames, float* ho, float* vo, float* sn, float* we,
-    float* vsn, float* vwe, int n, int halo, int with_y0, int fast,
-    float R, float R2, float gravity, float two_omega, float inv2d,
-    float inv_d, float a, float b, float g_dt, void* stream) {
-  Params p{h0, v0, hc, vc, gsn, gwe, vgsn, vgwe, b_ext, xc, xf, frames,
-           ho, vo, sn, we, vsn, vwe, n, halo, with_y0,
-           Consts{R, R2, gravity, two_omega, inv2d, inv_d}, a, b, g_dt};
-  return fast ? launch<true>(p, stream) : launch<false>(p, stream);
-}
+SWE_INKERNEL_ENTRY(swe_stage_inkernel_f32, swe_stage_inkernel_kernel<true>,
+                   swe_stage_inkernel_kernel<false>)
+SWE_INKERNEL_ENTRY(swe_stage_inkernel_none_f32,
+                   swe_stage_inkernel_kernel_none,
+                   swe_stage_inkernel_general_kernel_none)
+SWE_INKERNEL_ENTRY(swe_stage_inkernel_minmod_f32,
+                   swe_stage_inkernel_kernel_minmod,
+                   swe_stage_inkernel_general_kernel_minmod)
+SWE_INKERNEL_ENTRY(swe_stage_inkernel_mc_sign_f32,
+                   swe_stage_inkernel_kernel_mc_sign,
+                   swe_stage_inkernel_general_kernel_mc_sign)
+SWE_INKERNEL_ENTRY(swe_stage_inkernel_vanleer_f32,
+                   swe_stage_inkernel_kernel_vanleer,
+                   swe_stage_inkernel_general_kernel_vanleer)
+SWE_INKERNEL_ENTRY(swe_stage_inkernel_ppm_f32, swe_stage_inkernel_kernel_ppm,
+                   swe_stage_inkernel_general_kernel_ppm)

@@ -14,6 +14,7 @@ import ctypes
 import torch
 
 from ... import _build
+from ..reconstruct import LIMITERS, SCHEMES
 
 __all__ = ["KernelBase"]
 
@@ -24,6 +25,30 @@ def _ptr(t):
     """A tensor's device pointer, or NULL for an operand a launch does not
     read (a stage-1 kernel's y0)."""
     return None if t is None else t.data_ptr()
+
+
+def _recon_mode(scheme: str, limiter: str, halo: int) -> str:
+    """A kernel's reconstruction, checked as the JAX kernels check it
+    (``ValueError`` for an unknown scheme or limiter, a halo below 2, PPM
+    below halo 3), and its mode name: ``"ppm"``, or the PLR limiter."""
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown scheme {scheme!r}; available: "
+                         + ", ".join(SCHEMES))
+    if limiter not in LIMITERS:
+        raise ValueError(f"unknown limiter {limiter!r}; available: "
+                         + ", ".join(LIMITERS))
+    if halo < 2:
+        raise ValueError(f"PLR needs halo >= 2, got {halo}")
+    if scheme == "ppm" and halo < 3:
+        raise ValueError(f"PPM needs halo >= 3, got {halo}")
+    return "ppm" if scheme == "ppm" else limiter
+
+
+def _entry_name(stem: str, mode: str) -> str:
+    """A reconstruction mode's C entry point: ``{stem}_f32`` for PLR-MC
+    (the name the kernel had before it took modes), else
+    ``{stem}_{mode}_f32``."""
+    return f"{stem}_f32" if mode == "mc" else f"{stem}_{mode}_f32"
 
 
 def _entry(lib_name: str, fn_name: str, argtypes):

@@ -85,8 +85,9 @@ from ..._device import resolve_device
 from ...geometry.connectivity import (EDGE_E, EDGE_N, EDGE_S, EDGE_W,
                                       build_connectivity, edge_pairs)
 from ...parallel.halo import _fill_corners
-from ..reconstruct import LIMITERS, SCHEMES, pick_recon
-from ._launch import KernelBase, _P, _check_tensors, _entry, _ptr
+from ..reconstruct import pick_recon
+from ._launch import (KernelBase, _P, _check_tensors, _entry, _entry_name,
+                      _ptr, _recon_mode)
 from .swe_rhs import _f32, _fast_frame, coord_rows
 
 __all__ = [
@@ -712,12 +713,6 @@ def cov_stage_compact_reference(stage, *args):
 # ---------------------------------------------------------------------------
 
 
-def _entry_name(stem: str, mode: str) -> str:
-    """A mode's C entry point: ``{stem}_f32`` for PLR-MC (the name the
-    kernel had before it took modes), else ``{stem}_{mode}_f32``."""
-    return f"{stem}_f32" if mode == "mc" else f"{stem}_{mode}_f32"
-
-
 def _kernel(mode: str = "mc"):
     """The stage kernel of reconstruction ``mode``: 14 tensor pointers; n,
     halo, with_y0; 8 float constants; the stream."""
@@ -731,28 +726,18 @@ class _ConstsBase(KernelBase):
     kernel wrapper of this module shares.
 
     ``scheme`` and ``limiter`` pick the reconstruction, ``mode`` names it
-    (``"ppm"``, or the PLR limiter): the compact stage and the unfused
-    RHS take every mode, the other kernels PLR-MC only
-    (:meth:`_mc_only`)."""
+    (``"ppm"``, or the PLR limiter): the compact stage (B1), the unfused
+    RHS (B4) and the extended-carry stage (B8) take every mode; B3, B5,
+    B6, B7, B12 and B13 PLR-MC only (:meth:`_mc_only`)."""
 
     def __init__(self, n: int, halo: int, dalpha: float, radius: float,
                  gravity: float, omega: float, scheme: str = "plr",
                  limiter: str = "mc", device="cuda"):
-        if scheme not in SCHEMES:
-            raise ValueError(f"unknown scheme {scheme!r}; available: "
-                             + ", ".join(SCHEMES))
-        if limiter not in LIMITERS:
-            raise ValueError(f"unknown limiter {limiter!r}; available: "
-                             + ", ".join(LIMITERS))
-        if halo < 2:
-            raise ValueError(f"PLR needs halo >= 2, got {halo}")
-        if scheme == "ppm" and halo < 3:
-            raise ValueError(f"PPM needs halo >= 3, got {halo}")
+        self.mode = _recon_mode(scheme, limiter, halo)
         self.n, self.halo, self.m = n, halo, n + 2 * halo
         self.dalpha, self.radius = float(dalpha), float(radius)
         self.gravity, self.omega = float(gravity), float(omega)
         self.scheme, self.limiter = scheme, limiter
-        self.mode = "ppm" if scheme == "ppm" else limiter
         # The kernels' float32 constants of the RHS, rounded as
         # rhs_core_cov and _fast_frame round them.
         self._rhs_consts = (
@@ -763,7 +748,7 @@ class _ConstsBase(KernelBase):
 
     def _mc_only(self, kernel: str):
         """Refuse every reconstruction but PLR-MC: ``kernel``'s modes are
-        still owed."""
+        still owed (B3, B5, B6, B7, B12, B13)."""
         if self.mode != "mc":
             raise NotImplementedError(
                 f"the {kernel} kernel implements PLR with the MC limiter; "
@@ -2409,10 +2394,11 @@ def cov_stage_inkernel_reference(stage, *args):
     return h_new, u_new, pack_strips_cov(h_new, u_new, n, h)
 
 
-def _inkernel_kernel():
-    """The extended-carry stage kernel: 12 tensor pointers; n, halo,
-    with_y0; 8 float constants; the stream."""
-    return _entry("cov_stage_inkernel", "cov_stage_inkernel_f32",
+def _inkernel_kernel(mode: str = "mc"):
+    """The extended-carry stage kernel of reconstruction ``mode``: 12
+    tensor pointers; n, halo, with_y0; 8 float constants; the stream."""
+    return _entry("cov_stage_inkernel",
+                  _entry_name("cov_stage_inkernel", mode),
                   [_P] * 12 + [ctypes.c_int] * 3 + [ctypes.c_float] * 8
                   + [_P])
 
@@ -2425,20 +2411,17 @@ class CovStageInkernel(_StageBase):
     hc, uc, ghosts, b_ext)``, with ``h*`` (6, M, M), ``u*`` (2, 6, M, M)
     and ``ghosts`` (6, 12h+4, n) from :func:`make_cov_strip_router_linear`.
     Returns ``(h, u, strips)``: the whole new blocks (see
-    :func:`cov_stage_inkernel_reference`) and their packed strips.  CUDA
-    tensors launch ``csrc/cov_stage_inkernel.cu`` (the port of the Pallas
-    kernel ``make_cov_stage_inkernel``); CPU tensors run the plain
-    version.  There is no other path: a kernel that fails to build or
-    launch raises.
+    :func:`cov_stage_inkernel_reference`) and their packed strips.  Every
+    reconstruction (PLR with each limiter; PPM at halo >= 3): CUDA tensors
+    launch the mode's instance of ``csrc/cov_stage_inkernel.cu`` (the
+    port of the Pallas kernel ``make_cov_stage_inkernel``); CPU tensors
+    run the plain version.  There is no other path: a kernel that fails
+    to build or launch raises.
     """
 
     #: Launches of the CUDA kernel, all instances together (the plain
     #: version does not count).
     launches = 0
-
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        self._mc_only("extended-carry stage (B8)")
 
     def _unpack(self, args):
         if self.with_y0:
@@ -2469,7 +2452,7 @@ class CovStageInkernel(_StageBase):
         ho = torch.empty_like(hc)
         uo = torch.empty_like(uc)
         so = hc.new_empty((6, 12 * self.halo, self.n))
-        rc = _inkernel_kernel()(
+        rc = _inkernel_kernel(self.mode)(
             _ptr(h0), _ptr(u0), hc.data_ptr(), uc.data_ptr(),
             ghosts.data_ptr(), b_ext.data_ptr(), self._xc.data_ptr(),
             self._xf.data_ptr(), self.fz.data_ptr(), ho.data_ptr(),
@@ -2478,7 +2461,7 @@ class CovStageInkernel(_StageBase):
         if rc != 0:
             raise RuntimeError(
                 f"cov_stage_inkernel kernel launch failed: cudaError {rc} "
-                f"(n={self.n}, halo={self.halo})")
+                f"(n={self.n}, halo={self.halo}, mode={self.mode})")
         CovStageInkernel.launches += 1
         return ho, uo, so
 

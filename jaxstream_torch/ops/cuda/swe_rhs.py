@@ -13,13 +13,14 @@ fields from memory.
   :func:`_fast_frame` (the orthonormal-frame closed forms, shared with
   the covariant kernels);
 * :func:`rhs_core` and :func:`rhs_core_fast`: the two cores of the
-  Cartesian RHS (upwind PLR-MC mass flux, vorticity, Bernoulli gradient,
-  Coriolis, tangent projection) for all faces at once, with the JAX
-  package's operations in its order;
+  Cartesian RHS (upwind mass flux with PLR under any limiter or PPM,
+  vorticity, Bernoulli gradient, Coriolis, tangent projection) for all
+  faces at once, with the JAX package's operations in its order;
 * :class:`SweRhs` (:func:`make_swe_rhs_pallas`): the RHS of ghost-filled
-  extended faces.  CUDA tensors launch ``csrc/swe_rhs.cu`` (the port of
-  the Pallas kernel ``make_swe_rhs_pallas``), CPU tensors run the plain
-  version :func:`swe_rhs_reference`, which is :func:`rhs_core`.
+  extended faces.  CUDA tensors launch the reconstruction's instance of
+  ``csrc/swe_rhs.cu`` (the port of the Pallas kernel
+  ``make_swe_rhs_pallas``), CPU tensors run the plain version
+  :func:`swe_rhs_reference`, which is :func:`rhs_core`.
 
 Layouts: ``h``, ``b`` ``(6, M, M)``; the Cartesian velocity ``v``
 component-leading ``(3, 6, M, M)``; tendencies ``(6, n, n)`` /
@@ -35,7 +36,8 @@ import torch
 
 from ...geometry.cubed_sphere import FACE_AXES, extended_coords
 from ..reconstruct import pick_recon
-from ._launch import KernelBase, _P, _check_tensors, _entry
+from ._launch import (KernelBase, _P, _check_tensors, _entry, _entry_name,
+                      _recon_mode)
 
 __all__ = ["coord_rows", "_fast_frame", "_basis", "pick_recon", "rhs_core",
            "rhs_core_fast", "swe_rhs_reference", "SweRhs",
@@ -164,16 +166,17 @@ def _upwind(u, qL, qR):
 
 
 def rhs_core(frames, xr, xfr, yc, yfc, hf, v, bf, *, n, halo, d, radius,
-             gravity, omega, limiter="mc"):
+             gravity, omega, scheme="plr", limiter="mc"):
     """The Cartesian SWE right-hand side of all faces at once, through
     the general basis :func:`_basis` (plain torch).
 
     ``frames`` (F, 3, 3) the faces' frames; ``xr``/``xfr`` (1, M) and
     ``yc``/``yfc`` (M, 1) coordinate rows/columns; ``hf``, ``bf``
     (F, M, M) and ``v`` (3, F, M, M) (or three (F, M, M)) with edge
-    ghosts filled (corners are never read by a kept output).  Returns
-    interior ``(dh, [dv0, dv1, dv2])``.  The operations and their order
-    follow the JAX package's ``rhs_core``.
+    ghosts filled (corners are never read by a kept output).  h's face
+    states are ``pick_recon(scheme, halo, n, limiter)``'s (PPM needs halo
+    >= 3).  Returns interior ``(dh, [dv0, dv1, dv2])``.  The operations
+    and their order follow the JAX package's ``rhs_core``.
     """
     h0, h1 = halo, halo + n
     inv2d = _f32(1.0 / (2.0 * d))
@@ -181,9 +184,9 @@ def rhs_core(frames, xr, xfr, yc, yfc, hf, v, bf, *, n, halo, d, radius,
     c0, cx, cy = (_frame_vec(frames, k) for k in range(3))
     g = _f32(gravity)
     two_omega = _f32(2.0 * omega)
-    recon = pick_recon("plr", halo, n, limiter)
+    recon = pick_recon(scheme, halo, n, limiter)
 
-    # ---- continuity: dh = -div(h v), PLR-upwind flux form ------------
+    # ---- continuity: dh = -div(h v), upwind flux form -----------------
     bx = _basis(xfr[:, h0:h1 + 1], yc[h0:h1], c0, cx, cy, radius,
                 need=("a", "sqrtg"))
     vxf = [0.5 * (v[i][:, h0:h1, h0 - 1:h1] + v[i][:, h0:h1, h0:h1 + 1])
@@ -241,7 +244,7 @@ def rhs_core(frames, xr, xfr, yc, yfc, hf, v, bf, *, n, halo, d, radius,
 
 
 def rhs_core_fast(frames, xr, xfr, yc, yfc, hf, v, bf, *, n, halo, d,
-                  radius, gravity, omega, limiter="mc"):
+                  radius, gravity, omega, scheme="plr", limiter="mc"):
     """The flop-lean twin of :func:`rhs_core` (same discretization): the
     metric algebra runs through :func:`_fast_frame`'s scalar forms and the
     three frame dot products of ``v``.  Arguments and result as for
@@ -253,7 +256,7 @@ def rhs_core_fast(frames, xr, xfr, yc, yfc, hf, v, bf, *, n, halo, d,
     c0, cx, cy = (_frame_vec(frames, k) for k in range(3))
     g = _f32(gravity)
     two_omega = _f32(2.0 * omega)
-    recon = pick_recon("plr", halo, n, limiter)
+    recon = pick_recon(scheme, halo, n, limiter)
 
     def dots(vl):
         """(v.c0, v.cx, v.cy): the only 3-vector contractions needed."""
@@ -333,25 +336,20 @@ class _SweBase(KernelBase):
     """Float32 constants, coordinate rows and face frames of the Cartesian
     right-hand side: what the Cartesian kernels' wrappers share.
 
-    ``interpret=True`` runs the plain version on any device (the port's
-    counterpart of the JAX kernels' interpret mode)."""
+    ``scheme`` and ``limiter`` pick h's reconstruction and ``mode`` names
+    it (``"ppm"``, or the PLR limiter): every kernel takes every mode, one
+    instance each.  ``interpret=True`` runs the plain version on any
+    device (the port's counterpart of the JAX kernels' interpret mode)."""
 
     def __init__(self, n: int, halo: int, dalpha: float, radius: float,
                  gravity: float, omega: float, scheme: str = "plr",
                  limiter: str = "mc", interpret: bool = False,
                  device="cuda"):
-        if scheme != "plr" or limiter != "mc":
-            raise NotImplementedError(
-                f"the Cartesian kernels implement PLR with the MC limiter; "
-                f"got scheme={scheme!r}, limiter={limiter!r} (PPM and the "
-                "other limiters on B9-B11: ROADMAP queue B item 1; "
-                "backend='jnp' runs every reconstruction)")
-        if halo < 2:
-            raise ValueError(f"PLR needs halo >= 2, got {halo}")
+        self.mode = _recon_mode(scheme, limiter, halo)
         self.n, self.halo, self.m = n, halo, n + 2 * halo
         self.dalpha, self.radius = float(dalpha), float(radius)
         self.gravity, self.omega = float(gravity), float(omega)
-        self.limiter = limiter
+        self.scheme, self.limiter = scheme, limiter
         self.interpret = bool(interpret)
         R = _f32(self.radius)
         # The kernels' float32 constants, rounded as the cores round them.
@@ -375,7 +373,7 @@ class _SweBase(KernelBase):
                     xf_col.to(hf.dtype), hf, v, bf, n=self.n,
                     halo=self.halo, d=self.dalpha, radius=self.radius,
                     gravity=self.gravity, omega=self.omega,
-                    limiter=self.limiter)
+                    scheme=self.scheme, limiter=self.limiter)
 
     def _plain(self, t) -> bool:
         """True where the plain version runs: ``interpret``, or a CPU
@@ -396,10 +394,10 @@ def swe_rhs_reference(rhs, h_ext, v_ext, b_ext):
     return dh, torch.stack(dv)
 
 
-def _rhs_kernel():
-    """The Cartesian RHS kernel: 8 tensor pointers; n, halo; 6 float
-    constants; the stream."""
-    return _entry("swe_rhs", "swe_rhs_f32",
+def _rhs_kernel(mode: str = "mc"):
+    """The Cartesian RHS kernel of reconstruction ``mode``: 8 tensor
+    pointers; n, halo; 6 float constants; the stream."""
+    return _entry("swe_rhs", _entry_name("swe_rhs", mode),
                   [_P] * 8 + [ctypes.c_int] * 2 + [ctypes.c_float] * 6
                   + [_P])
 
@@ -409,11 +407,12 @@ class SweRhs(_SweBase):
 
     ``rhs(h_ext, v_ext, b_ext) -> (dh, dv)``: ``h_ext``, ``b_ext``
     (6, M, M), ``v_ext`` (3, 6, M, M) with ghosts filled; interior
-    tendencies ``dh`` (6, n, n) and ``dv`` (3, 6, n, n).  CUDA tensors
-    launch ``csrc/swe_rhs.cu`` (the port of the Pallas kernel
-    ``make_swe_rhs_pallas``); CPU tensors, or any tensors with
-    ``interpret=True``, run :func:`swe_rhs_reference`.  There is no other
-    path: a kernel that fails to build or launch raises.
+    tendencies ``dh`` (6, n, n) and ``dv`` (3, 6, n, n).  Every
+    reconstruction (PLR with each limiter; PPM at halo >= 3): CUDA tensors
+    launch the mode's instance of ``csrc/swe_rhs.cu`` (the port of the
+    Pallas kernel ``make_swe_rhs_pallas``); CPU tensors, or any tensors
+    with ``interpret=True``, run :func:`swe_rhs_reference`.  There is no
+    other path: a kernel that fails to build or launch raises.
     """
 
     #: Launches of the CUDA kernel, all instances together (the plain
@@ -433,14 +432,15 @@ class SweRhs(_SweBase):
         n = self.n
         dh = h_ext.new_empty((6, n, n))
         dv = h_ext.new_empty((3, 6, n, n))
-        rc = _rhs_kernel()(
+        rc = _rhs_kernel(self.mode)(
             self.frames.data_ptr(), h_ext.data_ptr(), v_ext.data_ptr(),
             b_ext.data_ptr(), self._xc.data_ptr(), self._xf.data_ptr(),
             dh.data_ptr(), dv.data_ptr(), n, self.halo, *self._rhs_consts,
             self._stream())
         if rc != 0:
             raise RuntimeError(f"swe_rhs kernel launch failed: cudaError "
-                               f"{rc} (n={n}, halo={self.halo})")
+                               f"{rc} (n={n}, halo={self.halo}, "
+                               f"mode={self.mode})")
         SweRhs.launches += 1
         return dh, dv
 

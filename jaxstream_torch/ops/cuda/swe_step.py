@@ -12,8 +12,9 @@ rhs_core_fast`, or :func:`rhs_core` with ``fast=False``) and writes the
 combined next-stage state, ghost ring included (``a*y0 + b*y_c`` there).
 
 * :class:`SweStage` (:func:`make_swe_stage_pallas`): CUDA tensors launch
-  ``csrc/swe_stage.cu`` (the port of the Pallas kernel
-  ``make_swe_stage_pallas``), CPU tensors run :func:`swe_stage_reference`;
+  the reconstruction's instance of ``csrc/swe_stage.cu`` (the port of the
+  Pallas kernel ``make_swe_stage_pallas``), CPU tensors run
+  :func:`swe_stage_reference`;
   :func:`make_fused_ssprk3_step` steps with three of them and a
   concat-layout halo exchange of h and v before each.
 * The in-kernel exchange: :func:`raw_strips` (the strip carry),
@@ -21,9 +22,13 @@ combined next-stage state, ghost ring included (``a*y0 + b*y_c`` there).
   ghost blocks, one static gather) and :class:`SweStageInkernel`
   (:func:`make_swe_stage_inkernel`), which fills its ghosts from the
   routed strips and emits the raw strips of its new interior; CUDA
-  tensors launch ``csrc/swe_stage_inkernel.cu`` (the port of
+  tensors launch the reconstruction's instance of
+  ``csrc/swe_stage_inkernel.cu`` (the port of
   ``make_swe_stage_inkernel``), CPU tensors run
   :func:`swe_stage_inkernel_reference`.
+
+Every stage takes every reconstruction of the JAX kernels (PLR with each
+limiter at halo >= 2, PPM at halo >= 3), one kernel instance each.
   :func:`make_fused_ssprk3_step_inkernel` steps with three of them.
 
 Shu-Osher coefficients: stage 1 (a=0, b=1), stage 2 (3/4, 1/4), stage 3
@@ -44,7 +49,7 @@ import torch
 from ...geometry.connectivity import (EDGE_E, EDGE_N, EDGE_S, EDGE_W,
                                       build_connectivity)
 from ...parallel.halo import canonicalize_strip, place_strip
-from ._launch import _P, _check_tensors, _entry, _ptr
+from ._launch import _P, _check_tensors, _entry, _entry_name, _ptr
 from .swe_rhs import _f32, _SweBase
 
 __all__ = [
@@ -125,10 +130,10 @@ def swe_stage_reference(stage, *args):
     return out_h, out_v
 
 
-def _stage_kernel():
-    """The fused stage kernel: 10 tensor pointers; n, halo, with_y0, fast;
-    9 float constants; the stream."""
-    return _entry("swe_stage", "swe_stage_f32",
+def _stage_kernel(mode: str = "mc"):
+    """The fused stage kernel of reconstruction ``mode``: 10 tensor
+    pointers; n, halo, with_y0, fast; 9 float constants; the stream."""
+    return _entry("swe_stage", _entry_name("swe_stage", mode),
                   [_P] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] * 9
                   + [_P])
 
@@ -139,9 +144,9 @@ class SweStage(_SweStageBase):
     ``a == 0``: ``stage(hc, vc, b_ext)``; else ``stage(h0, v0, hc, vc,
     b_ext)``, all extended (``(6, M, M)`` / ``(3, 6, M, M)``).  Returns
     ``(h, v)`` (see :func:`swe_stage_reference`).  CUDA tensors launch
-    ``csrc/swe_stage.cu``; CPU tensors, or ``interpret=True``, run the
-    plain version.  There is no other path: a kernel that fails to build
-    or launch raises.
+    the mode's instance of ``csrc/swe_stage.cu``; CPU tensors, or
+    ``interpret=True``, run the plain version.  There is no other path: a
+    kernel that fails to build or launch raises.
     """
 
     #: Launches of the CUDA kernel, all instances together (the plain
@@ -168,7 +173,7 @@ class SweStage(_SweStageBase):
             return swe_stage_reference(self, *args)
         ho = torch.empty_like(hc)
         vo = torch.empty_like(vc)
-        rc = _stage_kernel()(
+        rc = _stage_kernel(self.mode)(
             _ptr(h0), _ptr(v0), hc.data_ptr(), vc.data_ptr(),
             b_ext.data_ptr(), self._xc.data_ptr(), self._xf.data_ptr(),
             self.frames.data_ptr(), ho.data_ptr(), vo.data_ptr(), self.n,
@@ -176,7 +181,8 @@ class SweStage(_SweStageBase):
             self._stream())
         if rc != 0:
             raise RuntimeError(f"swe_stage kernel launch failed: cudaError "
-                               f"{rc} (n={self.n}, halo={self.halo})")
+                               f"{rc} (n={self.n}, halo={self.halo}, "
+                               f"mode={self.mode})")
         SweStage.launches += 1
         return ho, vo
 
@@ -362,10 +368,12 @@ def swe_stage_inkernel_reference(stage, *args):
     return (out_h, out_v) + raw_strips(out_h, n, h) + raw_strips(out_v, n, h)
 
 
-def _inkernel_kernel():
-    """The in-kernel-exchange stage kernel: 18 tensor pointers; n, halo,
-    with_y0, fast; 9 float constants; the stream."""
-    return _entry("swe_stage_inkernel", "swe_stage_inkernel_f32",
+def _inkernel_kernel(mode: str = "mc"):
+    """The in-kernel-exchange stage kernel of reconstruction ``mode``: 18
+    tensor pointers; n, halo, with_y0, fast; 9 float constants; the
+    stream."""
+    return _entry("swe_stage_inkernel",
+                  _entry_name("swe_stage_inkernel", mode),
                   [_P] * 18 + [ctypes.c_int] * 4 + [ctypes.c_float] * 9
                   + [_P])
 
@@ -377,9 +385,9 @@ class SweStageInkernel(_SweStageBase):
     hc, vc, ghosts, b_ext)``; ``ghosts`` is the routed 4-tuple ``(gsn,
     gwe, vgsn, vgwe)`` of :func:`make_strip_router`.  Returns ``(h, v,
     sn, we, vsn, vwe)`` (see :func:`swe_stage_inkernel_reference`).  CUDA
-    tensors launch ``csrc/swe_stage_inkernel.cu``; CPU tensors, or
-    ``interpret=True``, run the plain version.  There is no other path: a
-    kernel that fails to build or launch raises.
+    tensors launch the mode's instance of ``csrc/swe_stage_inkernel.cu``;
+    CPU tensors, or ``interpret=True``, run the plain version.  There is
+    no other path: a kernel that fails to build or launch raises.
     """
 
     #: Launches of the CUDA kernel, all instances together (the plain
@@ -417,7 +425,7 @@ class SweStageInkernel(_SweStageBase):
         we = hc.new_empty((6, 2, n, h))
         vsn = hc.new_empty((3, 6, 2, h, n))
         vwe = hc.new_empty((3, 6, 2, n, h))
-        rc = _inkernel_kernel()(
+        rc = _inkernel_kernel(self.mode)(
             _ptr(h0), _ptr(v0), hc.data_ptr(), vc.data_ptr(),
             *[g.data_ptr() for g in ghosts], b_ext.data_ptr(),
             self._xc.data_ptr(), self._xf.data_ptr(), self.frames.data_ptr(),
@@ -427,7 +435,7 @@ class SweStageInkernel(_SweStageBase):
         if rc != 0:
             raise RuntimeError(
                 f"swe_stage_inkernel kernel launch failed: cudaError {rc} "
-                f"(n={n}, halo={h})")
+                f"(n={n}, halo={h}, mode={self.mode})")
         SweStageInkernel.launches += 1
         return ho, vo, sn, we, vsn, vwe
 

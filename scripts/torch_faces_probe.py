@@ -179,6 +179,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+from chip_smoke import sass_counts  # noqa: E402
+
 REPS = 20          # launches per captured window
 REPLAYS = 5        # graph replays per figure
 
@@ -298,20 +300,6 @@ def ptxas_lines(log: str) -> list:
     return [ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln or "smem" in ln
             or "Compiling entry function" in ln]
-
-
-def sass_counts(lib: Path) -> dict:
-    """SASS instructions per kernel function of ``lib``."""
-    from jaxstream_torch import _build
-
-    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
-    out = subprocess.run([str(tool), "-sass", str(lib)], check=True,
-                         capture_output=True, text=True).stdout
-    counts = {}
-    for sec in re.split(r"\n\s*Function : ", out)[1:]:
-        name = sec.split("\n", 1)[0].strip()
-        counts[name] = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+\S", sec))
-    return counts
 
 
 def entry(lib: Path, fn_name: str, argtypes):

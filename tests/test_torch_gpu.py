@@ -549,6 +549,12 @@ def _stage_inkernel_matches_plain(n):
     g, m, s0 = _tc5(n)
     step = m.make_fused_step(75.0 * 384 / n, compact=False)
     y1 = step(m.extend_state(s0, with_strips=True), 0.0)
+    _extended_stages_match_plain(m, s0, step, y1, f"C{n}")
+
+
+def _extended_stages_match_plain(m, s0, step, y1, label):
+    """B8's stages 1-3 and the stage-3 probe on the extended carry
+    ``y1``: bitwise equal to the plain version, one launch each."""
     ghosts = step.route(y1["strips"])
     yc = (y1["h"], y1["u"])
     y0 = (m.fill(s0["h"]), m._fill_u(s0["u"]))
@@ -559,7 +565,7 @@ def _stage_inkernel_matches_plain(n):
     cases.append((step.stages[2], (-2.0 * yc[0], -2.0 * yc[1])))
     for k, (st, base) in enumerate(cases):
         before = tcov.CovStageInkernel.launches
-        _check(f"C{n} case {k}", st, st.reference,
+        _check(f"{label} case {k}", st, st.reference,
                base + yc + (ghosts, m.b_ext), TOL if k < 3 else TENDENCY_TOL,
                exact=True)
         assert tcov.CovStageInkernel.launches == before + 1
@@ -647,13 +653,14 @@ def test_step_mega_matches_plain_c48():
         y = step(y, 0.0)
 
 
-def _cart(n):
-    """The Cartesian TC5 model at C``n`` (backend 'pallas'), its state,
-    and the state after one in-kernel fused step."""
-    g = build_grid(n, halo=2, radius=EARTH_RADIUS, device="cuda")
+def _cart(n, scheme="plr", limiter="mc"):
+    """The Cartesian TC5 model at C``n`` (backend 'pallas'; halo 3 for
+    PPM), its state, and the state after one in-kernel fused step."""
+    g = build_grid(n, halo=3 if scheme == "ppm" else 2, radius=EARTH_RADIUS,
+                   device="cuda")
     h, v, b = williamson_tc5(g, EARTH_GRAVITY, EARTH_OMEGA)
     m = ShallowWater(g, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA, b_ext=b,
-                     backend="pallas")
+                     backend="pallas", scheme=scheme, limiter=limiter)
     s0 = m.initial_state(h, v)
     step = m.make_fused_step(75.0 * 384 / n)
     return g, m, s0, step, step(m.extend_state(s0, with_strips=True), 0.0)
@@ -735,6 +742,7 @@ def _swe_stages_match_plain(g, m, s0, step, y1, dt):
         tol = TENDENCY_TOL if k == 4 else TOL
         st = tss.make_swe_stage_pallas(g.n, g.halo, g.dalpha, g.radius,
                                        EARTH_GRAVITY, EARTH_OMEGA, dt, a, b,
+                                       scheme=m.scheme, limiter=m.limiter,
                                        fast=fast, device=g.device)
         before = tss.SweStage.launches
         _check(f"concat stage {k}", st, st.reference,
@@ -744,7 +752,9 @@ def _swe_stages_match_plain(g, m, s0, step, y1, dt):
             base = (-2.0 * ink[0], -2.0 * ink[1])
         st = tss.make_swe_stage_inkernel(g.n, g.halo, g.dalpha, g.radius,
                                          EARTH_GRAVITY, EARTH_OMEGA, dt, a,
-                                         b, fast=fast, device=g.device)
+                                         b, scheme=m.scheme,
+                                         limiter=m.limiter, fast=fast,
+                                         device=g.device)
         before = tss.SweStageInkernel.launches
         _check(f"in-kernel stage {k}", st, st.reference,
                base + ink + (ghosts, m.b_ext), tol, exact=True)
@@ -762,9 +772,12 @@ _NEW_MODES = {"none": ("plr", "none"), "minmod": ("plr", "minmod"),
 def test_recon_mode_kernels_match_plain(n):
     """B1 (stages 1-3 and stage 3 with y0 = -2*yc) and B4 (six faces) in
     each reconstruction besides PLR-MC (PPM at halo 3), on the TC5 carry
-    after one step and after eleven, and B2 at halo 3 on the Galewsky
-    carry after one split PPM step and its probe (nu4 1e21): bitwise
-    equal to their plain versions."""
+    after one step and after eleven; B8 (stages 1-3 and the probe) on the
+    extended carry, and B9, B10 and B11 (both cores, stages 1-3 and the
+    probe) on the Cartesian in-kernel carry, after one step and after
+    eleven; and B2 at halo 3 on the Galewsky carry after one split PPM
+    step and its probe (nu4 1e21): bitwise equal to their plain
+    versions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the stage, RHS and filter kernels "
                     "have no CPU form)")
@@ -801,6 +814,21 @@ def test_recon_mode_kernels_match_plain(n):
             _check(f"B4 {mode}", rhs.kernel, rhs.kernel.reference, args,
                    TENDENCY_TOL, exact=True)
             assert tcov.CovRhs.launches == before + 1
+        dt = 75.0 * 384 / n
+        ext = m.make_fused_step(dt, compact=False)
+        assert [st.mode for st in ext.stages] == [mode] * 3
+        y1 = ext(m.extend_state(m.initial_state(h, v), with_strips=True),
+                 0.0)
+        y11, _ = integrate(ext, y1, dt, 10, dt)
+        for k, y in ((1, y1), (11, y11)):
+            _extended_stages_match_plain(m, m.initial_state(h, v), ext, y,
+                                         f"B8 {mode} after {k}")
+        g, cm, s0, step, y1 = _cart(n, scheme, limiter)
+        assert [st.mode for st in step.stages] == [mode] * 3
+        y11, _ = integrate(step, y1, dt, 10, dt)
+        for y in (y1, y11):
+            _swe_rhs_matches_plain(cm, (cm.restrict_state(y),))
+            _swe_stages_match_plain(g, cm, s0, step, y, dt)
     g = build_grid(n, halo=3, radius=EARTH_RADIUS, device="cuda")
     m = CovariantShallowWater(g, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA,
                               nu4=1.0e14, scheme="ppm")

@@ -166,8 +166,6 @@ def _owed(kernel, limiter):
         "B6": lambda: tcov.make_cov_rhs_pallas_local(*c, device="cpu", **kw),
         "B7": lambda: tcov.make_cov_stage_nu4(g, G, OM, 60.0, 0.0, 1.0,
                                               1e14, device="cpu", **kw),
-        "B8": lambda: tcov.make_cov_stage_inkernel(*c, 60.0, 0.0, 1.0,
-                                                   device="cpu", **kw),
         "B12": lambda: swe_mega.make_fused_ssprk3_cov_mega(
             g, G, OM, 60.0, torch.zeros(6, 12, 12), **kw),
         "B13": lambda: swe_cov_nbr.make_cov_stage_nbr(g, G, OM, 60.0, 0.0,
@@ -175,8 +173,7 @@ def _owed(kernel, limiter):
     }[kernel]()
 
 
-@pytest.mark.parametrize("kernel", ["B3", "B5", "B6", "B7", "B8", "B12",
-                                    "B13"])
+@pytest.mark.parametrize("kernel", ["B3", "B5", "B6", "B7", "B12", "B13"])
 def test_owed_kernels_refuse_other_modes(kernel):
     """The covariant kernels whose modes are still owed build in PLR-MC
     and refuse every other mode, naming ROADMAP queue B item 1."""
@@ -184,6 +181,36 @@ def test_owed_kernels_refuse_other_modes(kernel):
     with pytest.raises(NotImplementedError,
                        match="MC limiter.*queue B item 1"):
         _owed(kernel, "vanleer")
+
+
+def _every_mode_kernel(kernel, scheme, limiter, halo=None):
+    """Build kernel ``kernel`` (one that takes every mode) at C8 in the
+    mode, at ``halo`` (default: 3 for PPM, else 2)."""
+    from jaxstream_torch.ops.cuda import swe_rhs as tsr
+    from jaxstream_torch.ops.cuda import swe_step as tss
+
+    h = _halo_of(scheme) if halo is None else halo
+    g = build_grid(8, halo=h, radius=EARTH_RADIUS, dtype=torch.float32,
+                   device="cpu")
+    c = (8, h, g.dalpha, g.radius, G, OM)
+    kw = {"scheme": scheme, "limiter": limiter, "device": "cpu"}
+    return {
+        "B8": lambda: tcov.make_cov_stage_inkernel(*c, 60.0, 0.0, 1.0, **kw),
+        "B9": lambda: tsr.make_swe_rhs_pallas(*c, **kw),
+        "B10": lambda: tss.make_swe_stage_pallas(*c, 60.0, 0.75, 0.25, **kw),
+        "B11": lambda: tss.make_swe_stage_inkernel(*c, 60.0, 0.0, 1.0, **kw),
+    }[kernel]()
+
+
+@pytest.mark.parametrize("kernel", ["B8", "B9", "B10", "B11"])
+def test_kernels_take_every_mode(kernel):
+    """B8 (off the owed list since it takes every mode) and the Cartesian
+    kernels build in each mode and name it; PPM below halo 3 raises the
+    JAX package's ValueError."""
+    for (scheme, limiter), mode in zip(MODES, MODE_IDS):
+        assert _every_mode_kernel(kernel, scheme, limiter).mode == mode
+    with pytest.raises(ValueError, match="PPM needs halo >= 3"):
+        _every_mode_kernel(kernel, "ppm", "mc", halo=2)
 
 
 # ---- operators and classic right-hand sides --------------------------------

@@ -233,20 +233,36 @@ def test_backends_and_refusals():
                          backend="pallas_interpret")
     with pytest.raises(ValueError, match="nu4"):
         hyper.make_fused_step(60.0)
-    # The kernels implement PLR with the MC limiter only; backend 'jnp'
-    # keeps every limiter the port has.
-    for be in ("pallas", "pallas_interpret"):
-        with pytest.raises(NotImplementedError, match="limiter"):
-            ShallowWater(tg, gravity=G, omega=OM, limiter="minmod",
-                         backend=be)
-    with pytest.raises(NotImplementedError, match="PPM"):
-        ShallowWater(build_grid(8, halo=3, device="cpu"), gravity=G,
-                     omega=OM, scheme="ppm", backend="pallas")
-    with pytest.raises(NotImplementedError, match="limiter"):
+    # The kernels build and step in every reconstruction (PPM at halo 3),
+    # each kernel-backed form as near the torch one as the MC form's.
+    g3 = build_grid(8, halo=3, device="cpu")
+    h3, v3, b3 = tic.williamson_tc5(g3, G, OM)
+    for scheme, lim in [("plr", m) for m in ("none", "minmod", "mc_sign",
+                                             "vanleer")] + [("ppm", "mc")]:
+        gm, (hm, vm, bm) = (g3, (h3, v3, b3)) if scheme == "ppm" else (
+            tg, (h, v, b))
+        mode = "ppm" if scheme == "ppm" else lim
+        ref = ShallowWater(gm, gravity=G, omega=OM, b_ext=bm, scheme=scheme,
+                           limiter=lim)
+        sm = ref.initial_state(hm, vm)
+        for be in ("pallas", "pallas_interpret"):
+            m = ShallowWater(gm, gravity=G, omega=OM, b_ext=bm,
+                             scheme=scheme, limiter=lim, backend=be)
+            assert m._pallas_rhs.mode == mode
+            d, dr = m.rhs(sm, 0.0), ref.rhs(sm, 0.0)
+            for k in ("h", "v"):
+                assert _rel(dr[k], d[k]) <= CLASSIC_TOL, (mode, be, k)
+            for ink in (True, False):
+                step = m.make_fused_step(60.0, in_kernel_exchange=ink)
+                assert [st.mode for st in step.stages] == [mode] * 3
+                y = step(m.extend_state(sm, with_strips=ink), 0.0)
+                assert bool(torch.isfinite(y["h"]).all()), (mode, be, ink)
+    with pytest.raises(ValueError, match="halo >= 3"):
         tsr.make_swe_rhs_pallas(8, 2, tg.dalpha, tg.radius, G, OM,
                                 scheme="ppm", device="cpu")
-    mm = ShallowWater(tg, gravity=G, omega=OM, limiter="minmod")
-    assert bool(torch.isfinite(mm.rhs(s, 0.0)["h"]).all())
+    with pytest.raises(ValueError, match="unknown limiter"):
+        tsr.make_swe_rhs_pallas(8, 2, tg.dalpha, tg.radius, G, OM,
+                                limiter="superbee", device="cpu")
     g64 = build_grid(8, dtype=torch.float64, device="cpu")
     with pytest.raises(ValueError, match="float32"):
         ShallowWater(g64, gravity=G, omega=OM, backend="pallas")
