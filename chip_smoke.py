@@ -331,7 +331,29 @@ Phases, each fatal on failure:
 52. ``Simulation`` of Cartesian TC5 with PPM at halo 3 (``backend:
     pallas``, 200 steps, history and checkpoints every 100): the
     in-kernel stepper in mode PPM, B11 600 launches, the TC5 gate,
-    bitwise equal to its stepper with the same segmentation.
+    bitwise equal to its stepper with the same segmentation;
+53. for each reconstruction besides PLR-MC, TC5 on the router-free
+    steppers in that mode (B13's and B12's instances): 3 nbr steps
+    against 3 classic ``backend='jnp'`` steps (<= 2e-4 of max) and 3 mega
+    steps against 3 compact ones (<= 1e-6), then 20 steps of each (PPM
+    at halo 3: 20 + 1 000, timed and gated as phase 4), the launches
+    checked;
+54. B13 as stages 1-3 and as stage 3 with y0 = -2 yc, and B12, bitwise
+    against their plain versions on the TC5 carry and on the stepped
+    one, their times, and B12's blocks per SM and grid;
+55. the Galewsky jet in that mode (dt = 60 s, nu4 = 1e14): 3 re-fused
+    (B3) and 3 in-stage (B7 A and B) steps against 3 split steps (<= 2e-3
+    of max, mass <= 1e-5), the in-stage ones against 3 classic del^4
+    steps (<= 5e-4); PPM: day 6 on the re-fused stepper under
+    ``bench_galewsky``'s gate and 500 timed in-stage steps; the launches
+    checked;
+56. B3 (at nu4 and at a probe's) and A (stages 1-3) bitwise against
+    their plain versions on the initial carry and the stepped ones, and
+    their times;
+57. ``examples/configs/galewsky_c384.yaml`` changed in code to PPM, halo
+    3 and ``nu4_mode: refused`` (io every 720), ``run(nsteps=1440)``: the
+    re-fused PPM stepper, B3 1 440 and B1 2 880 launches, bitwise equal
+    to its stepper with the same segmentation.
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -428,13 +450,17 @@ EARLIER_PTXAS = {
 }
 # SASS instructions (cuobjdump -sass) of the PLR-MC kernel functions, in
 # ptxas's order, of the libraries that carry one instance per
-# reconstruction, as the tree before B8-B11 took their modes built them
-# with nvcc of CUDA 12.8 (scripts/torch_sass_counts.py on an NVIDIA H100
-# 80GB HBM3): the log says whether each still builds to the same code.
+# reconstruction, as the tree before each took its modes built them with
+# nvcc of CUDA 12.8 (scripts/torch_sass_counts.py on an NVIDIA H100 80GB
+# HBM3; cov_stage_nu4: kernel B's NoLap, NoFill and Full, then A): the
+# log says whether each still builds to the same code.
 EARLIER_SASS = {"cov_stage": [5624], "cov_rhs": [3472],
                 "cov_stage_inkernel": [6608], "swe_rhs": [4920],
                 "swe_stage": [5424, 4616],
-                "swe_stage_inkernel": [8488, 7984]}
+                "swe_stage_inkernel": [8488, 7984],
+                "cov_stage_refused_nu4": [8904],
+                "cov_stage_nu4": [3832, 2848, 5064, 6264],
+                "cov_step_mega": [6632], "cov_stage_nbr": [7040]}
 # The tendency alone is ill-conditioned in float32 (its flux differences
 # cancel): two f32 evaluations differ by ~1e-5 of its max.
 TENDENCY_TOL = 1e-4
@@ -523,11 +549,13 @@ RECON_MODES = {"none": ("plr", "none"), "minmod": ("plr", "minmod"),
                "ppm": ("ppm", "mc")}
 RECON_WARM_STEPS = 20
 # The C functions' mangled names of the mode instances (cov_stage.cu,
-# cov_rhs.cu, cov_stage_inkernel.cu, swe_rhs.cu, swe_stage.cu,
-# swe_stage_inkernel.cu): the kernel's stem and the mode.  The ptxas
-# lines of EARLIER_PTXAS are the other functions.
+# cov_rhs.cu, cov_stage_inkernel.cu, cov_stage_refused_nu4.cu,
+# cov_stage_nu4.cu's kernel A, cov_step_mega.cu, cov_stage_nbr.cu,
+# swe_rhs.cu, swe_stage.cu, swe_stage_inkernel.cu): the kernel's stem and
+# the mode.  The ptxas lines of EARLIER_PTXAS are the other functions.
 MODE_KERNEL = re.compile(
-    r"([a-z][a-z_]*)_kernel_(none|minmod|mc_sign|vanleer|ppm)E")
+    r"\d([a-z][a-z_]*(?:nu4[a-z_]*)?)_kernel_"
+    r"(none|minmod|mc_sign|vanleer|ppm)E")
 
 
 def log(msg: str) -> None:
@@ -863,7 +891,8 @@ class Galewsky:
     state and carry, and its day-6 gate; ``halo`` and ``scheme`` as the
     model takes them (PPM needs halo 3)."""
 
-    def __init__(self, halo: int = 2, scheme: str = "plr"):
+    def __init__(self, halo: int = 2, scheme: str = "plr",
+                 limiter: str = "mc"):
         from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
                                             EARTH_RADIUS)
         from jaxstream_torch.geometry.cubed_sphere import build_grid
@@ -877,15 +906,15 @@ class Galewsky:
         h_ext, v_ext = galewsky(self.grid, EARTH_GRAVITY, EARTH_OMEGA)
         self.model = CovariantShallowWater(self.grid, gravity=EARTH_GRAVITY,
                                            omega=EARTH_OMEGA, nu4=GAL_NU4,
-                                           scheme=scheme)
+                                           scheme=scheme, limiter=limiter)
         self.s0 = self.model.initial_state(h_ext, v_ext)
         self.y0 = self.model.compact_state(self.s0)
         self.area = self.grid.interior(self.grid.area).double()
         self.mass0 = float(torch.sum(self.area * self.s0["h"].double()))
         torch.cuda.synchronize()
         log(f"setup: C{N} grid (halo {halo}), Galewsky, model (nu4 "
-            f"{GAL_NU4:g}, {scheme}) in {time.perf_counter() - t0:.2f} s on "
-            f"{self.grid.device}")
+            f"{GAL_NU4:g}, {scheme}, {limiter}) in "
+            f"{time.perf_counter() - t0:.2f} s on {self.grid.device}")
 
     def drift(self, h) -> float:
         return abs(float(torch.sum(self.area * h.double())) - self.mass0) \
@@ -3346,6 +3375,366 @@ def fused_recon_paths(card: str, t_start: float) -> list:
     cartesian_ppm_simulation(card)
     return records
 
+# Phases 53-57: every reconstruction on B13, B12, B3 and B7 A.  The PPM
+# paths run the timed and gated depth (TC5: WARM_STEPS + TIMED_STEPS on
+# nbr and mega; Galewsky: day 6 on the re-fused stepper, STAGE_TIMED_STEPS
+# on the in-stage one), the PLR modes RECON_WARM_STEPS TC5 steps and 3
+# checked Galewsky steps.
+PPM_REFUSED_SIM_STEPS = 1440
+PPM_REFUSED_SIM_STRIDE = 720
+
+
+def router_free_mode_path(card: str, mode: str) -> list:
+    """Phases 53-54 for one reconstruction: TC5 at C384 in ``mode`` (halo
+    3 for PPM) on the router-free steppers.  Their paths first, the
+    launches counted around them: 3 nbr steps against 3 classic
+    ``backend='jnp'`` steps (<= 2e-4 of max) and 3 mega steps against 3
+    compact ones (<= 1e-6), then RECON_WARM_STEPS steps of each (PPM: +
+    TIMED_STEPS, timed and gated).  Then B13 (stages 1-3, stage 3 with y0
+    = -2 yc) and B12 bitwise against their plain versions on the TC5
+    carry and on the stepped one, their times there, and B12's blocks per
+    SM and grid.  Returns the two kernels' records."""
+    from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
+                                        EARTH_RADIUS)
+    from jaxstream_torch.experiments import swe_cov_nbr, swe_mega
+    from jaxstream_torch.geometry.cubed_sphere import build_grid
+    from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
+    from jaxstream_torch.physics.initial_conditions import williamson_tc5
+    from jaxstream_torch.stepping import integrate
+
+    Nbr, Mega = swe_cov_nbr.CovStageNbr, swe_mega.CovMegaStep
+    scheme, limiter = RECON_MODES[mode]
+    halo = 3 if scheme == "ppm" else 2
+    t0 = time.perf_counter()
+    grid = build_grid(N, halo=halo, radius=EARTH_RADIUS, dtype=torch.float32)
+    h_ext, v_ext, b_ext = williamson_tc5(grid, EARTH_GRAVITY, EARTH_OMEGA)
+    model = CovariantShallowWater(grid, gravity=EARTH_GRAVITY,
+                                  omega=EARTH_OMEGA, b_ext=b_ext,
+                                  scheme=scheme, limiter=limiter)
+    s0 = model.initial_state(h_ext, v_ext)
+    b = model.b_ext
+    kw = {"scheme": scheme, "limiter": limiter}
+    step_n = swe_cov_nbr.make_fused_ssprk3_cov_nbr(
+        grid, EARTH_GRAVITY, EARTH_OMEGA, STEP_DT, b, **kw)
+    step_m = swe_mega.make_fused_ssprk3_cov_mega(
+        grid, EARTH_GRAVITY, EARTH_OMEGA, STEP_DT, b, **kw)
+    step_c = model.make_fused_step(STEP_DT)
+    kern = step_m.kernel
+    modes = [st.mode for st in step_n.stages + step_c.stages] + [kern.mode]
+    if modes != [mode] * 7:
+        raise RuntimeError(f"router-free {mode}: the steppers' kernels are "
+                           f"in modes {modes}")
+    torch.cuda.synchronize()
+    log(f"setup: C{N} grid (halo {halo}), TC5, {mode} model and router-free "
+        f"steppers in {time.perf_counter() - t0:.2f} s")
+
+    # ---- 53. the mode's paths, their launches counted around them -------
+    ye, yc0 = model.extend_state(s0), model.compact_state(s0)
+    Nbr.launches = Mega.launches = 0
+    yn, _ = integrate(step_n, ye, 0.0, 3, STEP_DT)
+    ym, _ = integrate(step_m, yc0, 0.0, 3, STEP_DT)
+    launches3 = (Nbr.launches, Mega.launches)
+    ycl, _ = integrate(model.make_step(STEP_DT), s0, 0.0, 3, STEP_DT)
+    yc, _ = integrate(step_c, yc0, 0.0, 3, STEP_DT)
+    out = model.restrict_state(yn)
+    errs = {k: rel_err(ycl[k], out[k]) for k in ("h", "u")}
+    log(f"nbr {mode} vs classic jnp C{N}, 3 steps: max rel diff h "
+        f"{errs['h']:.3e}, u {errs['u']:.3e} (tol "
+        f"{FUSED_VS_CLASSIC_TOL:g})")
+    bad = max(errs.values()) > FUSED_VS_CLASSIC_TOL
+    names = ("h", "u", "strips_sn", "strips_we")
+    errs = {k: rel_err(yc[k], ym[k]) for k in names}
+    log(f"mega {mode} vs compact C{N}, 3 steps: max rel diff "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {MEGA_VS_COMPACT_TOL:g}); bitwise="
+        + str(all(torch.equal(yc[k], ym[k]) for k in names)))
+    if bad or max(errs.values()) > MEGA_VS_COMPACT_TOL:
+        raise RuntimeError(f"router-free {mode}: a stepper disagrees")
+    del yn, ym, ycl, yc, out
+    nsteps = RECON_WARM_STEPS + (TIMED_STEPS if mode == "ppm" else 0)
+    runs = {}
+    for label, step, y in (("nbr", step_n, ye), ("mega", step_m, yc0)):
+        y, t = integrate(step, y, 0.0, RECON_WARM_STEPS, STEP_DT)
+        torch.cuda.synchronize()
+        if mode == "ppm":
+            t_w = time.perf_counter()
+            y, t = integrate(step, y, t, TIMED_STEPS, STEP_DT)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_w
+            steps_s = TIMED_STEPS / wall
+            log(f"main path C{N} TC5 {label} PPM (halo 3) dt={STEP_DT:g}: "
+                f"{TIMED_STEPS} steps in {wall:.3f} s -> {steps_s:.1f} "
+                f"steps/s, {1e6 / steps_s:.1f} us/step, "
+                f"{steps_s * STEP_DT / 86400.0:.3f} sim-days/s; card {card}")
+            hi = model.restrict_state(y)["h"] if label == "nbr" else y["h"]
+            tc5_gate(f"{label}, PPM", grid, s0, hi, t / 86400.0)
+        if not bool(torch.isfinite(y["h"]).all()):
+            raise RuntimeError(f"{label} {mode}: carry not finite")
+        runs[label] = (y, t)
+    launches = (Nbr.launches, Mega.launches)
+    want = (3 * (3 + nsteps), 3 + nsteps)
+    log(f"router-free {mode} paths: 3 + {nsteps} steps each; launches B13 "
+        f"{launches[0]} (want {want[0]}), B12 {launches[1]} (want "
+        f"{want[1]}); after the 3 checked steps {launches3}")
+    if launches != want:
+        raise RuntimeError(f"router-free {mode}: launch counts")
+
+    # ---- 54. B13 and B12 vs plain on the TC5 carry and the stepped one --
+    st1, st2, st3 = step_n.stages
+    carry = lambda y: (y["h"], y["u"], y["strips_sn"], y["strips_we"], b)
+    max_n = max_m = 0.0
+    for label, yx, ykc in (("TC5 state", ye, yc0),
+                           (f"after {3 + nsteps} steps", runs["nbr"][0],
+                            runs["mega"][0])):
+        a1 = (yx["h"], yx["u"], b)
+        k1 = st1.reference(*a1)
+        a2 = (yx["h"], yx["u"]) + tuple(k1) + (b,)
+        a3 = (-2.0 * k1[0], -2.0 * k1[1]) + tuple(k1) + (b,)
+        for sl, st, a, tol in (("stage 1", st1, a1, KERNEL_TOL),
+                               ("stage 2", st2, a2, KERNEL_TOL),
+                               ("stage 3", st3, a2, KERNEL_TOL),
+                               ("stage 3, y0=-2yc", st3, a3, TENDENCY_TOL)):
+            max_n = max(max_n, check_kernel(
+                f"B13 {mode} vs plain C{N} {sl}, {label}", st, st.reference,
+                a, ("h", "u"), tol, lambda: Nbr.launches, exact=True))
+        max_m = max(max_m, check_kernel(
+            f"B12 {mode} vs plain C{N}, one step from the {label}", kern,
+            kern.reference, carry(ykc), names, KERNEL_TOL,
+            lambda: Mega.launches, exact=True))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"B12 {mode} grid: {kern.blocks} blocks of 256 threads on {sms} "
+        f"SMs = {kern.blocks / sms:g} per SM (cooperative, all resident)")
+    yx, t = runs["nbr"]
+    a1 = (yx["h"], yx["u"], b)
+    a2 = (yx["h"], yx["u"]) + a1
+    timed = [time_form(f"B13 {mode} {sl}", st, st.reference, a,
+                       FLOPS_PER_CELL, card)
+             for sl, st, a in (("stage 1", st1, a1), ("stage 2", st2, a2),
+                               ("stage 3", st3, a2))]
+    rec_n = mode_record("cov_stage_nbr", mode,
+                        "jaxstream/experiments/swe_cov_nbr.py:404",
+                        launches[0], max_n, timed, card)
+    ykc, t_m = runs["mega"]
+    timed = [time_form(f"B12 {mode} step", kern, kern.reference, carry(ykc),
+                       3 * FLOPS_PER_CELL, card)]
+    rec_m = mode_record("cov_step_mega", mode,
+                        "jaxstream/experiments/swe_mega.py:344", launches[1],
+                        max_m, timed, card)
+    if mode == "ppm":
+        log(f"router-free PPM TC5 steps: device nbr "
+            f"{step_device_us(step_n, yx, t, STEP_DT):.2f}, mega "
+            f"{step_device_us(step_m, ykc, t_m, STEP_DT):.2f} us/step as "
+            f"CUDA graphs of {GRAPH_STEPS} steps; card {card}")
+    return [rec_n, rec_m]
+
+
+def nu4_mode_path(card: str, mode: str) -> list:
+    """Phases 55-56 for one reconstruction: the Galewsky jet at C384 in
+    ``mode`` (halo 3 for PPM; dt = 60 s, nu4 = 1e14).  Its paths first,
+    the launches counted around them: 3 re-fused (B3) and 3 in-stage (B7
+    A and B) steps against 3 split steps (<= 2e-3 of max, mass <= 1e-5)
+    and the in-stage ones against 3 classic del^4 steps (<= 5e-4); for
+    PPM then day 6 on the re-fused stepper under its gate and
+    STAGE_TIMED_STEPS timed in-stage steps.  Then B3 (at nu4 and at the
+    probe's) and A (stages 1-3) bitwise against their plain versions on
+    the initial carry and the stepped ones, and their times there.
+    Returns the two kernels' records."""
+    from jaxstream_torch.ops.cuda import swe_cov
+    from jaxstream_torch.stepping import integrate
+
+    Refused, Pair = swe_cov.CovStageRefusedNu4, swe_cov.CovStageNu4
+    scheme, limiter = RECON_MODES[mode]
+    gal = Galewsky(halo=3 if scheme == "ppm" else 2, scheme=scheme,
+                   limiter=limiter)
+    grid, model, s0, y0 = gal.grid, gal.model, gal.s0, gal.y0
+    split = model.make_fused_step(GAL_DT)
+    refused = model.make_fused_step(GAL_DT, nu4_mode="refused")
+    stage = model.make_fused_step(GAL_DT, nu4_mode="stage")
+    modes = ([refused.stage1f.mode] + [st.mode for st in stage.stages]
+             + [st.mode for st in refused.stages])
+    if modes != [mode] * 6:
+        raise RuntimeError(f"del^4 {mode}: the steppers' kernels are in "
+                           f"modes {modes}")
+
+    # ---- 55. the mode's paths, their launches counted around them -------
+    Refused.launches = Pair.launches_a = Pair.launches_b = 0
+    yr, _ = integrate(refused, y0, 0.0, 3, GAL_DT)
+    ys, _ = integrate(stage, y0, 0.0, 3, GAL_DT)
+    checked = (Refused.launches, Pair.launches_a, Pair.launches_b)
+    ysplit, _ = integrate(split, y0, 0.0, 3, GAL_DT)
+    ycl, _ = integrate(model.make_step(GAL_DT), s0, 0.0, 3, GAL_DT)
+    gal.compare(f"re-fused {mode} vs split del^4", ysplit, yr,
+                DAMP_SCALE_TOL, DAMP_SCALE_MASS_TOL)
+    gal.compare(f"in-stage {mode} vs split del^4", ysplit, ys,
+                DAMP_SCALE_TOL, DAMP_SCALE_MASS_TOL)
+    gal.compare(f"in-stage {mode} vs classic del^4", ycl, ys,
+                STAGE_VS_CLASSIC_TOL)
+    del ysplit, ycl
+    yrun, trun = yr, 3 * GAL_DT
+    ysrun, tsrun = ys, 3 * GAL_DT
+    if mode == "ppm":
+        t0 = time.perf_counter()
+        yrun, trun = integrate(refused, y0, 0.0, GAL_DAY6_STEPS, GAL_DT)
+        torch.cuda.synchronize()
+        wall6 = time.perf_counter() - t0
+        gal.gate("re-fused, PPM", yrun, trun,
+                 f"{GAL_DAY6_STEPS} steps in {wall6:.2f} s "
+                 f"({GAL_DAY6_STEPS / wall6:.1f} steps/s)")
+        ysrun, tsrun, _ = timed_window("Galewsky nu4 (in-stage, PPM, halo "
+                                       "3)", stage, ys, tsrun,
+                                       STAGE_TIMED_STEPS, card)
+    launches = (Refused.launches, Pair.launches_a, Pair.launches_b)
+    nr = 3 + (GAL_DAY6_STEPS if mode == "ppm" else 0)
+    ns = 3 + (STAGE_TIMED_STEPS if mode == "ppm" else 0)
+    want = (nr, 3 * ns, 3 * ns)
+    log(f"del^4 {mode} paths: {nr} re-fused and {ns} in-stage steps; "
+        f"launches B3 {launches[0]} (want {want[0]}), A {launches[1]}, B "
+        f"{launches[2]} (want {want[1]} each); after the 3 checked steps "
+        f"{checked}")
+    if launches != want:
+        raise RuntimeError(f"del^4 {mode}: launch counts")
+    if not bool(torch.isfinite(yrun["h"]).all()):
+        raise RuntimeError(f"del^4 {mode}: carry not finite")
+
+    # ---- 56. B3 and A vs plain on the carry and the stepped ones ---------
+    st1f = refused.stage1f
+    names = ("h1", "u1", "h0f", "u0f", "strips_sn", "strips_we")
+    a_names = ("h_adv", "u_adv", "l1h", "l1u", "strips_sn", "strips_we")
+    route = refused.route
+    max_r = max_a = 0.0
+    probe = None
+    for label, yb, ya in (("initial carry", y0, y0),
+                          ("stepped carries", yrun, ysrun)):
+        args = (yb["h"], yb["u"]) + route(yb["strips_sn"],
+                                          yb["strips_we"]) + (model.b_ext,)
+        if probe is None:
+            exact = st1f.reference(*[a.double() for a in args])
+            scale, _ = probe_scale((args[0], args[1][0], args[1][1]),
+                                   (exact[2], exact[3][0], exact[3][1]))
+            probe = swe_cov.make_cov_stage_refused_nu4(
+                grid, model.gravity, model.omega, GAL_DT, GAL_NU4 * scale,
+                scheme=scheme, limiter=limiter)
+            del exact
+        for st, tol, tag in ((st1f, KERNEL_TOL, ""),
+                             (probe, PROBE_TOL, " probe")):
+            max_r = max(max_r, check_kernel(
+                f"B3 {mode} vs plain C{N}{tag}, {label}", st, st.reference,
+                args, names, tol, lambda: Refused.launches, exact=True))
+        a1 = (ya["h"], ya["u"]) + stage.route(
+            ya["strips_sn"], ya["strips_we"]) + (model.b_ext,)
+        a2 = (ya["h"], ya["u"]) + a1
+        for k, (st, a) in enumerate(zip(stage.stages, (a1, a2, a2))):
+            max_a = max(max_a, check_kernel(
+                f"kernel A {mode} vs plain C{N} stage {k + 1}, {label}",
+                st.call_a, st.reference_a, a, a_names, KERNEL_TOL,
+                lambda: Pair.launches_a, exact=True))
+    timed = [time_form(f"B3 {mode}", st1f, st1f.reference, args,
+                       REFUSED_FLOPS_PER_CELL, card)]
+    rec_r = mode_record("cov_stage_refused_nu4", mode,
+                        "jaxstream/ops/pallas/swe_cov.py:2843", launches[0],
+                        max_r, timed, card)
+    s1, s2, s3 = stage.stages
+    timed = [time_form(f"A {mode} {sl}", st.call_a, st.reference_a, a,
+                       A_FLOPS_PER_CELL, card)
+             for sl, st, a in (("stage 1", s1, a1), ("stage 2", s2, a2),
+                               ("stage 3", s3, a2))]
+    dev_us = sum(t[4] for t in timed) / len(timed) * 1e3
+    bound_us = sum(t[2] for t in timed) / len(timed) * 1e3
+    log(f"cov_stage_nu4_a {mode}: device {dev_us:.2f} us/launch as a CUDA "
+        f"graph, events {sum(t[0] for t in timed) / len(timed) * 1e3:.2f};"
+        f" bound {bound_us:.2f} us, {bound_us / dev_us:.1%} of it; card "
+        f"{card}")
+    rec_a = record(f"cov_stage_nu4_a {mode}",
+                   "jaxstream_torch/csrc/cov_stage_nu4.cu",
+                   "jaxstream/ops/pallas/swe_cov.py:2392", launches[1],
+                   max_a, timed)
+    if mode == "ppm":
+        log(f"PPM Galewsky steps: device re-fused "
+            f"{step_device_us(refused, yrun, trun, GAL_DT):.2f}, in-stage "
+            f"{step_device_us(stage, ysrun, tsrun, GAL_DT):.2f} us/step as "
+            f"CUDA graphs of {GRAPH_STEPS} steps; card {card}")
+    return [rec_r, rec_a]
+
+
+def ppm_refused_simulation(card: str) -> None:
+    """Phase 57: ``examples/configs/galewsky_c384.yaml`` read by the
+    port's loader and changed to PPM, halo 3 and ``nu4_mode: refused``,
+    its io moved into a directory of ``build/`` (strides
+    PPM_REFUSED_SIM_STRIDE), ``run(nsteps=PPM_REFUSED_SIM_STEPS)``: the
+    re-fused stepper in mode PPM taken, B3 once and B1 twice a step,
+    finite, and bitwise equal to its stepper with the same
+    segmentation."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from jaxstream_torch.config import load_config
+    from jaxstream_torch.ops.cuda.swe_cov import (CovStageCompact,
+                                                  CovStageRefusedNu4)
+    from jaxstream_torch.simulation import Simulation
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_sim_",
+                            dir=os.path.join(here, "build"))
+    try:
+        cfg = load_config(os.path.join(here, SIM_GAL_CONFIG))
+        cfg = dataclasses.replace(
+            cfg, grid=dataclasses.replace(cfg.grid, halo=3),
+            model=dataclasses.replace(cfg.model, scheme="ppm",
+                                      nu4_mode="refused"))
+        cfg = with_io(cfg, root, "gal_ppm", PPM_REFUSED_SIM_STRIDE)
+        sim = Simulation(cfg)
+        st = sim._fused_step.stage1f
+        if (sim.stepper_kind != "compact" or sim.grid.halo != 3
+                or not isinstance(st, CovStageRefusedNu4)
+                or st.mode != "ppm"):
+            raise RuntimeError("Galewsky PPM refused config: not the "
+                               "re-fused PPM stepper")
+        c0 = {k: v.clone() for k, v in sim.state.items()}
+        CovStageRefusedNu4.launches = CovStageCompact.launches = 0
+        t0 = time.perf_counter()
+        sim.run(nsteps=PPM_REFUSED_SIM_STEPS)
+        wall = time.perf_counter() - t0
+        launches = (CovStageRefusedNu4.launches, CovStageCompact.launches)
+        log(f"Simulation Galewsky PPM re-fused (halo 3) C{N}: "
+            f"{PPM_REFUSED_SIM_STEPS} steps in {wall:.3f} s "
+            f"({PPM_REFUSED_SIM_STEPS / wall:.1f} steps/s); launches (B3, "
+            f"B1) {launches} (want ({PPM_REFUSED_SIM_STEPS}, "
+            f"{2 * PPM_REFUSED_SIM_STEPS})); card {card}")
+        if launches != (PPM_REFUSED_SIM_STEPS, 2 * PPM_REFUSED_SIM_STEPS):
+            raise RuntimeError("Simulation Galewsky PPM re-fused: launches")
+        if not all(bool(torch.isfinite(v).all())
+                   for v in sim.state.values()):
+            raise RuntimeError("Simulation Galewsky PPM: state not finite")
+        check_io("Simulation Galewsky PPM re-fused", sim,
+                 PPM_REFUSED_SIM_STEPS, PPM_REFUSED_SIM_STRIDE)
+        m = sim.model
+        ref, t = segmented(m, m.make_fused_step(cfg.time.dt,
+                                                nu4_mode="refused"),
+                           m.compact_state, c0, cfg.time.dt,
+                           PPM_REFUSED_SIM_STEPS, PPM_REFUSED_SIM_STRIDE)
+        hold_bitwise("Simulation Galewsky PPM re-fused", sim, ref, t)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def router_free_and_nu4_recon_paths(card: str, t_start: float) -> list:
+    """Phases 53-57: every reconstruction besides PLR-MC on B13 and B12
+    (:func:`router_free_mode_path`) and on B3 and B7 A
+    (:func:`nu4_mode_path`), then the PPM re-fused ``Simulation``.
+    Returns the records."""
+    records = []
+    for mode in RECON_MODES:
+        stamp(t_start, f"router-free {mode} (phases 53-54)")
+        records += router_free_mode_path(card, mode)
+        stamp(t_start, f"Galewsky del^4 {mode} (phases 55-56)")
+        records += nu4_mode_path(card, mode)
+    stamp(t_start, "Simulation: Galewsky PPM re-fused (phase 57)")
+    ppm_refused_simulation(card)
+    return records
+
 
 def build_kernels() -> None:
     """Phase 1's builds: every kernel library, one nvcc per source, all
@@ -3564,6 +3953,7 @@ def main() -> int:
     recon_records = recon_paths(card, t_start)
     simulation_paths(card, t_start)
     recon_records += fused_recon_paths(card, t_start)
+    recon_records += router_free_and_nu4_recon_paths(card, t_start)
     # B4's record: the classic path's six-face launches (phase 16) and the
     # face serialized tier's stacked ones (phase 32).
     rhs_record = record("cov_rhs", "jaxstream_torch/csrc/cov_rhs.cu",

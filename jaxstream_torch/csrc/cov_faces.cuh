@@ -308,8 +308,8 @@ struct StageMetric {
 // apron A (Plr::A = 2, Ppm::A = 3), u_a and u_b with a 1-deep one (the
 // momentum terms reconstruct nothing; tile cell (y, x) at h[y + A][A +
 // x], ua[y + 1][WOFF + x]), and the orography on the band (cell (ly, lx)
-// as in StageMetric).  StageWindow, PLR-MC's, is what every kernel but
-// B1's, B4's and B8's other modes stage.
+// as in StageMetric).  StageWindow, PLR-MC's, is what the kernels that
+// take no other mode (B5, B6) stage.
 template <class R>
 struct StageWindowR {
   using Recon = R;
@@ -331,6 +331,30 @@ template <class W>
 struct ReconOf<W, std::void_t<typename W::Recon>> {
   using type = typename W::Recon;
 };
+
+// Issues the copies of face f's window of a compact stage (B1, B7 A) into
+// w (no commit): h with R's apron, u_a and u_b with a 1-deep one, each
+// cell from the (6, n, n) carry p.hc / p.uc or, past the face edge, the
+// routed ghosts p.gsn (6, 6h+2, n) / p.gwe (6, n, 6h+2) (ghost corners as
+// zeros), and the orography p.b (6, m, m) on the Bernoulli band.  P is
+// the kernel's Params (p.n, p.halo and those pointers).
+template <class R, class P>
+__device__ __forceinline__ void stage_compact_window(const P& p,
+                                                     StageWindowR<R>& w,
+                                                     int f, int j0, int i0) {
+  constexpr int A = R::A;
+  const int n = p.n, hh = p.halo, m = n + 2 * hh, rw = 6 * hh + 2;
+  const long nn = (long)n * n;
+  const float* gsn = p.gsn + (long)f * rw * n;
+  const float* gwe = p.gwe + (long)f * n * rw;
+  stage_field<FTY + 2 * A, A, FTX + 2 * A, A>(
+      &w.h[0][0], p.hc + f * nn, gsn, gwe, 0, n, hh, rw, j0 - A, i0);
+  stage_field<FTY + 2, 1>(&w.ua[0][0], p.uc + f * nn, gsn, gwe, 1, n, hh,
+                          rw, j0 - 1, i0);
+  stage_field<FTY + 2, 1>(&w.ub[0][0], p.uc + (6 + f) * nn, gsn, gwe, 2, n,
+                          hh, rw, j0 - 1, i0);
+  stage_band(w.b, p.b + (long)f * m * m, n, hh, j0, i0);
+}
 
 // The Bernoulli band and the face fluxes of one face's tile.
 struct StageScratch {

@@ -107,25 +107,6 @@ struct Smem {
   StageScratch s;
 };
 
-// Issues the copies of face f's window into w (no commit).
-template <class R>
-__device__ __forceinline__ void stage_window(const Params& p,
-                                             StageWindowR<R>& w, int f,
-                                             int j0, int i0) {
-  constexpr int A = R::A;
-  const int n = p.n, hh = p.halo, m = n + 2 * hh, rw = 6 * hh + 2;
-  const long nn = (long)n * n;
-  const float* gsn = p.gsn + (long)f * rw * n;
-  const float* gwe = p.gwe + (long)f * n * rw;
-  stage_field<FTY + 2 * A, A, FTX + 2 * A, A>(
-      &w.h[0][0], p.hc + f * nn, gsn, gwe, 0, n, hh, rw, j0 - A, i0);
-  stage_field<FTY + 2, 1>(&w.ua[0][0], p.uc + f * nn, gsn, gwe, 1, n, hh,
-                          rw, j0 - 1, i0);
-  stage_field<FTY + 2, 1>(&w.ub[0][0], p.uc + (6 + f) * nn, gsn, gwe, 2, n,
-                          hh, rw, j0 - 1, i0);
-  stage_band(w.b, p.b + (long)f * m * m, n, hh, j0, i0);
-}
-
 // The three faces of the block's group on one tile position, h's face
 // states by policy R.
 template <class R>
@@ -139,14 +120,14 @@ __device__ __forceinline__ void stage_faces(const Params& p, Smem<R>& sm,
   const bool strips = j0 < hh || i0 < hh || j0 + FTY > n - hh
                       || i0 + FTX > n - hh;
 
-  stage_window(p, sm.w[0], f0, j0, i0);
+  stage_compact_window(p, sm.w[0], f0, j0, i0);
   async_commit();
   stage_metric(sm.mt, p.xc, p.xf, p.xc, p.xf, p.R2, p.inv_d, n, hh, j0, i0);
 
   for (int q = 0; q < FPB; ++q) {
     const int f = f0 + q, cur = q & 1;
     if (q + 1 < FPB) {
-      stage_window(p, sm.w[cur ^ 1], f + 1, j0, i0);
+      stage_compact_window(p, sm.w[cur ^ 1], f + 1, j0, i0);
       async_commit();
       async_wait<1>();
     } else {

@@ -29,6 +29,9 @@
 //            evaluate the same expression on the same operands, so their
 //            edge fluxes agree bit for bit and mass stays conserved.  Not
 //            prescaled: the fluxes multiply them by the edge sqrtg.
+//   tend     the covariant RHS of the frames (rhs_core_cov), h's face
+//            states by the launch's reconstruction (PLR with one of the
+//            five limiters, or PPM at halo >= 3).
 //   out      as cov_stage_inkernel.cu: the whole (m, m) block is val =
 //            a*y0 + b*frame (stage 1: the frame), its interior val +
 //            b*dt*tend; every cell is written once.
@@ -50,9 +53,10 @@
 //      group's faces on the tile's face edges (both panels' edge-adjacent
 //      u and T entries; at most 3 faces x 4 edges x 32 entries) and the
 //      first face's u ghosts, then issues the cp.async copies of the first
-//      face's window: h with a 2-deep apron (its edge ghosts straight from
-//      the neighbour's interior: h needs no rotation), u_a and u_b with a
-//      1-deep one (their ghost cells skipped), b on the Bernoulli band;
+//      face's window: h with the reconstruction's apron, 2 deep for PLR
+//      and 3 for PPM (its edge ghosts straight from the neighbour's
+//      interior: h needs no rotation), u_a and u_b with a 1-deep one
+//      (their ghost cells skipped), b on the Bernoulli band;
 //      then rotates and stores the ring cells (y0 and the edge-metric rows
 //      read there), the sym rows (into shared memory) and the first
 //      face's u ghosts (into its window); the rest of the ring (a corner
@@ -67,8 +71,16 @@
 //      whole-block stores; then rotates the next face's ghosts, in the
 //      plain version's order, into the other buffer.
 // Occupancy: 74 112 B of dynamic shared memory (B8's 72 576 and the sym
-// rows 1 536) and __launch_bounds__(256, 3): 3 blocks per SM, <= 80
-// registers; one wave of 384 blocks.
+// rows 1 536; PPM's 3-deep h apron adds 2 x 528) and
+// __launch_bounds__(256, 3): 3 blocks per SM, <= 80 registers; one wave
+// of 384 blocks.
+//
+// Modes.  The body is a template on h's face-state policy (cov_common.cuh);
+// each of the six reconstructions is its own kernel and C entry point
+// (cov_stage_nbr_<mode>_f32; PLR-MC keeps the kernel cov_stage_nbr_kernel
+// and the entry cov_stage_nbr_f32).  At halo 3 the ring and the h apron
+// read the neighbours 3 deep; u's ghosts and the sym rows read depth 0
+// alone, whatever the halo.
 
 #include "cov_faces.cuh"
 
@@ -100,16 +112,19 @@ struct Params {
   float R2, gravity, two_omega, inv2d, inv_d, a, bcoef, g_dt;
 };
 
+template <class R>
 struct Smem {
-  StageWindow w[2];         // this face's window and the next one's
+  StageWindowR<R> w[2];     // this face's window and the next one's
   StageMetric mt;
   StageScratch s;
   float sym[FPB][4][FTX];   // the group's sym rows along the tile, S N W E
 };
 
-// The u_a and u_b arrays' offsets in a StageWindow, in floats.
-constexpr int UA_OFF = (FTY + 4) * WS;
-constexpr int UB_OFF = UA_OFF + (FTY + 2) * WS;
+// The u_a and u_b arrays' offsets in a StageWindowR<R>, in floats.
+template <class R>
+constexpr int UA_OFF = (FTY + 2 * R::A) * (FTX + 2 * R::A);
+template <class R>
+constexpr int UB_OFF = UA_OFF<R> + (FTY + 2) * WS;
 
 // The outward sign of a slot's edge: -1 at S and W, +1 at N and E.
 __device__ __forceinline__ float out_sign(int s) {
@@ -162,12 +177,13 @@ __device__ __forceinline__ long nbr_cell(const Params& p, int f, GhostAt g) {
 // ---- the window ---------------------------------------------------------
 
 // Issues the copies of rows jw .. jw+ROWS-1, columns i0-A .. i0+FTX+A-1
-// of field fi's frame of face f into s (row stride WS): the face's own
-// cells (interior and ghost corners) and, for h, its edge ghosts from the
-// neighbour's interior; 0 past the frame.  u's edge ghosts next to the
-// face are left to ghost_store, those deeper (a ragged last tile's apron,
+// of field fi's frame of face f into s (row stride S, tile column c at
+// s[r * S + OFF + c]): the face's own cells (interior and ghost corners)
+// and, for h, its edge ghosts from the neighbour's interior (at any depth
+// up to the halo); 0 past the frame.  u's edge ghosts next to the face
+// are left to ghost_store, those deeper (a ragged last tile's apron,
 // which feeds no kept output) are 0.
-template <int ROWS, int A>
+template <int ROWS, int A, int S = WS, int OFF = WOFF>
 __device__ __forceinline__ void stage_nbr(float* s, const Params& p, int fi,
                                           int f, int jw, int i0) {
   const int n = p.n, hh = p.halo, m = n + 2 * hh;
@@ -175,7 +191,7 @@ __device__ __forceinline__ void stage_nbr(float* s, const Params& p, int fi,
   const float* q = (fi == 0 ? p.hc : p.uc) + (fi == 2 ? 6 + f : f) * mm;
   for_region<ROWS, FTX + 2 * A>([&](int r, int cc) {
     const int c = cc - A, j = jw + r, i = i0 + c;
-    float* dst = s + r * WS + WOFF + c;
+    float* dst = s + r * S + OFF + c;
     if (j < -hh || j >= n + hh || i < -hh || i >= n + hh) {
       *dst = 0.0f;
       return;
@@ -190,11 +206,16 @@ __device__ __forceinline__ void stage_nbr(float* s, const Params& p, int fi,
   });
 }
 
-// Issues the copies of face f's window into w (no commit).
-__device__ __forceinline__ void stage_window(const Params& p, StageWindow& w,
-                                             int f, int j0, int i0) {
+// Issues the copies of face f's window into w (no commit): h with R's
+// apron.
+template <class R>
+__device__ __forceinline__ void stage_window(const Params& p,
+                                             StageWindowR<R>& w, int f,
+                                             int j0, int i0) {
+  constexpr int A = R::A;
   const int n = p.n, hh = p.halo, m = n + 2 * hh;
-  stage_nbr<FTY + 4, 2>(&w.h[0][0], p, 0, f, j0 - 2, i0);
+  stage_nbr<FTY + 2 * A, A, FTX + 2 * A, A>(&w.h[0][0], p, 0, f, j0 - A,
+                                            i0);
   stage_nbr<FTY + 2, 1>(&w.ua[0][0], p, 1, f, j0 - 1, i0);
   stage_nbr<FTY + 2, 1>(&w.ub[0][0], p, 2, f, j0 - 1, i0);
   stage_band(w.b, p.b + (long)f * m * m, n, hh, j0, i0);
@@ -229,7 +250,9 @@ struct GhostItem {
   int dst;
 };
 
-// Loads the thread's u ghost item of face f.
+// Loads the thread's u ghost item of face f (its place in a
+// StageWindowR<R>).
+template <class R>
 __device__ __forceinline__ void ghost_load(const Params& p, const UGhosts& gu,
                                            int f, int j0, int i0,
                                            GhostItem& g) {
@@ -258,11 +281,12 @@ __device__ __forceinline__ void ghost_load(const Params& p, const UGhosts& gu,
   g.r1 = p.uc[6L * m * m + src];
   g.ta = t_at(p, 2 * comp, f, a.s, 0, a.k);
   g.tb = t_at(p, 2 * comp + 1, f, a.s, 0, a.k);
-  g.dst = (comp ? UB_OFF : UA_OFF) + (j - j0 + 1) * WS + WOFF + i - i0;
+  g.dst = (comp ? UB_OFF<R> : UA_OFF<R>) + (j - j0 + 1) * WS + WOFF + i - i0;
 }
 
 // The rotated ghost into window w (the plain version's T r0 + T' r1).
-__device__ __forceinline__ void ghost_store(StageWindow& w,
+template <class R>
+__device__ __forceinline__ void ghost_store(StageWindowR<R>& w,
                                             const GhostItem& g) {
   if (g.dst >= 0)
     reinterpret_cast<float*>(&w)[g.dst] = g.ta * g.r0 + g.tb * g.r1;
@@ -432,7 +456,8 @@ __device__ __forceinline__ void sym_load(const Params& p, const SymSpan& sp,
 }
 
 // The pair average of the loaded normals, signed for face f, into sm.sym.
-__device__ __forceinline__ void sym_store(const Params& p, Smem& sm,
+template <class R>
+__device__ __forceinline__ void sym_store(const Params& p, Smem<R>& sm,
                                           const SymPass& x) {
   if (x.dst < 0) return;
   const int* pr = p.pair[x.f][x.s];
@@ -445,8 +470,10 @@ __device__ __forceinline__ void sym_store(const Params& p, Smem& sm,
 
 // ---- the stage ---------------------------------------------------------------
 
-// The three faces of the block's group on one tile position.
-__device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
+// The three faces of the block's group on one tile position, h's face
+// states by policy R.
+template <class R>
+__device__ __forceinline__ void stage_faces(const Params& p, Smem<R>& sm,
                                             int f0, int j0, int i0) {
   const int n = p.n, hh = p.halo, m = n + 2 * hh;
   const long mm = (long)m * m;
@@ -464,7 +491,7 @@ __device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
   GhostItem gq;
   ring_load(p, ring, f0, j0, 0, rp);
   sym_load(p, span, f0, j0, i0, 0, sp);
-  ghost_load(p, gu, f0, j0, i0, gq);
+  ghost_load<R>(p, gu, f0, j0, i0, gq);
   stage_window(p, sm.w[0], f0, j0, i0);
   async_commit();
   ring_store(p, rp);
@@ -485,7 +512,7 @@ __device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
     if (q + 1 < FPB) {
       stage_window(p, sm.w[cur ^ 1], f + 1, j0, i0);
       async_commit();
-      ghost_load(p, gu, f + 1, j0, i0, gq);
+      ghost_load<R>(p, gu, f + 1, j0, i0, gq);
     }
     // The combine's y0 at the thread's cells, loaded ahead of the
     // arithmetic.
@@ -508,7 +535,7 @@ __device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
       async_wait<0>();
     __syncthreads();   // this face's window (and, first, mt, sym) complete
 
-    const StageWindow& w = sm.w[cur];
+    const StageWindowR<R>& w = sm.w[cur];
     // The sym rows indexed by the face's along-edge index, as
     // stage_face_tile reads them; only this tile's entries are read.
     const SymRows rows{&sm.sym[q][0][0] - i0, &sm.sym[q][1][0] - i0,
@@ -531,27 +558,60 @@ __device__ __forceinline__ void stage_faces(const Params& p, Smem& sm,
   }
 }
 
-__global__ void __launch_bounds__(NT, 3) cov_stage_nbr_kernel(const Params p) {
+template <class R>
+__device__ __forceinline__ void stage_block(const Params& p) {
   extern __shared__ float smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  stage_faces(p, sm, blockIdx.z * FPB, blockIdx.y * FTY, blockIdx.x * FTX);
+  Smem<R>& sm = *reinterpret_cast<Smem<R>*>(smem_raw);
+  stage_faces<R>(p, sm, blockIdx.z * FPB, blockIdx.y * FTY,
+                 blockIdx.x * FTX);
 }
 
-}  // namespace
+// One kernel per reconstruction; PLR-MC's keeps its name.
+__global__ void __launch_bounds__(NT, 3) cov_stage_nbr_kernel(const Params p) {
+  stage_block<PlrMc>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_nbr_kernel_none(const Params p) {
+  stage_block<Plr<SlopeNone>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_nbr_kernel_minmod(const Params p) {
+  stage_block<Plr<SlopeMinmod>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_nbr_kernel_mc_sign(const Params p) {
+  stage_block<Plr<SlopeMcSign>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_nbr_kernel_vanleer(const Params p) {
+  stage_block<Plr<SlopeVanleer>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_nbr_kernel_ppm(const Params p) {
+  stage_block<Ppm>(p);
+}
 
-// Launches one stage on `stream`; returns the cudaError_t of the shared
-// memory attribute or of the launch (0 = ok).  with_y0 == 0: frame +
-// g_dt*L (stage 1); with_y0 != 0: (a*y0 + b*frame) + g_dt*L (stages 2-3;
-// h0/u0 read only then).  All tensors float32, contiguous, in the layouts
-// of Params; conn (6, 4, 3) and pair (6, 4, 5) are host int32 arrays,
-// copied into the launch's parameters.
-extern "C" int cov_stage_nbr_f32(
-    const float* h0, const float* u0, const float* hc, const float* uc,
-    const float* b_ext, const float* tsn, const float* twe,
-    const float* met, const float* xc, const float* xf, const float* fz,
-    float* ho, float* uo, const int* conn, const int* pair, int n, int halo,
-    int with_y0, float R2, float gravity, float two_omega, float inv2d,
-    float inv_d, float a, float b, float g_dt, void* stream) {
+// Launches kernel (the instance of policy R) on `stream`.
+template <class R>
+int launch(void (*kernel)(Params), const Params& p, void* stream) {
+  const int rc = dynamic_smem_limit<R>(kernel, sizeof(Smem<R>));
+  if (rc != 0) return rc;
+  const int n = p.n;
+  const dim3 grid((n + FTX - 1) / FTX, (n + FTY - 1) / FTY, 6 / FPB);
+  const dim3 block(BX, BY);
+  const size_t smem = sizeof(Smem<R>);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch's parameters, the int tables copied in.
+Params make_params(const float* h0, const float* u0, const float* hc,
+                   const float* uc, const float* b_ext, const float* tsn,
+                   const float* twe, const float* met, const float* xc,
+                   const float* xf, const float* fz, float* ho, float* uo,
+                   const int* conn, const int* pair, int n, int halo,
+                   int with_y0, float R2, float gravity, float two_omega,
+                   float inv2d, float inv_d, float a, float b, float g_dt) {
   Params p{h0, u0, hc, uc, b_ext, tsn, twe, met, xc, xf, fz, ho, uo, {}, {},
            n, halo, with_y0, R2, gravity, two_omega, inv2d, inv_d, a, b,
            g_dt};
@@ -560,12 +620,41 @@ extern "C" int cov_stage_nbr_f32(
       for (int c = 0; c < 3; ++c) p.conn[f][s][c] = conn[(f * 4 + s) * 3 + c];
       for (int c = 0; c < 5; ++c) p.pair[f][s][c] = pair[(f * 4 + s) * 5 + c];
     }
-  const int rc = dynamic_smem_limit(cov_stage_nbr_kernel, sizeof(Smem));
-  if (rc != 0) return rc;
-  const dim3 grid((n + FTX - 1) / FTX, (n + FTY - 1) / FTY, 6 / FPB);
-  const dim3 block(BX, BY);
-  const size_t smem = sizeof(Smem);
-  cov_stage_nbr_kernel<<<grid, block, smem,
-                         static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return p;
 }
+
+}  // namespace
+
+// Launch one stage on `stream`; each returns the cudaError_t of the shared
+// memory attribute or of the launch (0 = ok).  with_y0 == 0: frame +
+// g_dt*L (stage 1); with_y0 != 0: (a*y0 + b*frame) + g_dt*L (stages 2-3;
+// h0/u0 read only then).  All tensors float32, contiguous, in the layouts
+// of Params; conn (6, 4, 3) and pair (6, 4, 5) are host int32 arrays,
+// copied into the launch's parameters.  cov_stage_nbr_f32 is PLR-MC,
+// cov_stage_nbr_<mode>_f32 the other reconstructions (PPM needs halo >= 3).
+#define COV_NBR_ENTRY(NAME, KERNEL, POLICY)                                 \
+  extern "C" int NAME(                                                      \
+      const float* h0, const float* u0, const float* hc, const float* uc,   \
+      const float* b_ext, const float* tsn, const float* twe,               \
+      const float* met, const float* xc, const float* xf, const float* fz,  \
+      float* ho, float* uo, const int* conn, const int* pair, int n,        \
+      int halo, int with_y0, float R2, float gravity, float two_omega,      \
+      float inv2d, float inv_d, float a, float b, float g_dt,               \
+      void* stream) {                                                       \
+    const Params p = make_params(h0, u0, hc, uc, b_ext, tsn, twe, met, xc,  \
+                                 xf, fz, ho, uo, conn, pair, n, halo,       \
+                                 with_y0, R2, gravity, two_omega, inv2d,    \
+                                 inv_d, a, b, g_dt);                        \
+    return launch<POLICY>(KERNEL, p, stream);                               \
+  }
+
+COV_NBR_ENTRY(cov_stage_nbr_f32, cov_stage_nbr_kernel, PlrMc)
+COV_NBR_ENTRY(cov_stage_nbr_none_f32, cov_stage_nbr_kernel_none,
+              Plr<SlopeNone>)
+COV_NBR_ENTRY(cov_stage_nbr_minmod_f32, cov_stage_nbr_kernel_minmod,
+              Plr<SlopeMinmod>)
+COV_NBR_ENTRY(cov_stage_nbr_mc_sign_f32, cov_stage_nbr_kernel_mc_sign,
+              Plr<SlopeMcSign>)
+COV_NBR_ENTRY(cov_stage_nbr_vanleer_f32, cov_stage_nbr_kernel_vanleer,
+              Plr<SlopeVanleer>)
+COV_NBR_ENTRY(cov_stage_nbr_ppm_f32, cov_stage_nbr_kernel_ppm, Ppm)

@@ -38,10 +38,12 @@
 // Design of A.  B1's faces-in-block body (cov_faces.cuh): a block of 256
 // threads takes one 32 x 24 tile position and a group of three faces, a
 // grid of (ceil(n/32), ceil(n/24), 2), 384 blocks at C384.  It issues the
-// asynchronous copies (cp.async) of its first face's window (h with a
-// 2-deep apron, u_a, u_b with a 1-deep one, b on the Bernoulli band; each
-// cell from the interior or the routed strips, the ghost corners as
-// zeros), computes the tile's metric terms once (StageMetric), then per
+// asynchronous copies (cp.async) of its first face's window (B1's,
+// cov_faces.cuh's stage_compact_window: h with the reconstruction's apron,
+// 2 deep for PLR and 3 for PPM, u_a, u_b with a 1-deep one, b on the
+// Bernoulli band; each cell from the interior or the routed strips, the
+// ghost corners as zeros), computes the tile's metric terms once
+// (StageMetric), then per
 // face issues the next face's window into the other buffer, loads the
 // combine's y0, waits for this face's window, and on tiles at a face edge
 // builds its ghost corners in shared memory from the staged edge ghosts
@@ -54,7 +56,15 @@
 // holds (every float lap_metric gives for a tile cell: the x-face pair
 // at i and i + 1, the y-face pair at j and j + 1, inv_sqrtg / d), so the
 // Laplacian needs no metric and no shared memory of its own.  72 576 B of
-// dynamic shared memory and __launch_bounds__(256, 3), as B1: one wave.
+// dynamic shared memory (PPM's 3-deep h apron: 73 632) and
+// __launch_bounds__(256, 3), as B1: one wave.  The corners are built at
+// most 2 deep whatever the apron: the ring-0 Laplacian reads 1.
+//
+// Modes of A.  Its body is a template on the face-state policy of
+// cov_common.cuh (only h reconstructs); each of the six reconstructions
+// is its own kernel and C entry point (cov_stage_nu4_a_<mode>_f32; PLR-MC
+// keeps cov_stage_nu4_a_kernel and cov_stage_nu4_a_f32).  B reconstructs
+// nothing and has one instance (and B14's three).
 //
 // Design of B (also B14's body): B2's second half on the same body.  A
 // block of 256 threads takes one 32 x 24 tile position and a group of
@@ -120,28 +130,12 @@ struct ParamsB {
   float R2, invd, inv2d, damp;
 };
 
+template <class R>
 struct SmemA {
-  StageWindow w[2];   // this face's window and the next one's
+  StageWindowR<R> w[2];   // this face's window and the next one's
   StageMetric mt;
   StageScratch s;
 };
-
-// Issues the copies of face f's window into w (no commit).
-__device__ __forceinline__ void stage_window_a(const ParamsA& p,
-                                               StageWindow& w, int f,
-                                               int j0, int i0) {
-  const int n = p.n, hh = p.halo, m = n + 2 * hh, rw = 6 * hh + 2;
-  const long nn = (long)n * n;
-  const float* gsn = p.gsn + (long)f * rw * n;
-  const float* gwe = p.gwe + (long)f * n * rw;
-  stage_field<FTY + 4, 2>(&w.h[0][0], p.hc + f * nn, gsn, gwe, 0, n, hh, rw,
-                          j0 - 2, i0);
-  stage_field<FTY + 2, 1>(&w.ua[0][0], p.uc + f * nn, gsn, gwe, 1, n, hh,
-                          rw, j0 - 1, i0);
-  stage_field<FTY + 2, 1>(&w.ub[0][0], p.uc + (6 + f) * nn, gsn, gwe, 2, n,
-                          hh, rw, j0 - 1, i0);
-  stage_band(w.b, p.b + (long)f * m * m, n, hh, j0, i0);
-}
 
 // lap_at's metric terms of tile cell (ly, lx), as LapMetric::at gathers
 // them: the x-face pairs at its left and right faces, the y-face pairs at
@@ -155,14 +149,17 @@ __device__ __forceinline__ CellMetric tile_cell_metric(const StageMetric& mt,
 
 // l1 = lap(psi) of the three fields at tile cell (ly, lx), (j, i), from
 // the window w, stored with its strips.
-__device__ __forceinline__ void put_l1(const ParamsA& p, const StageWindow& w,
+template <class R>
+__device__ __forceinline__ void put_l1(const ParamsA& p,
+                                       const StageWindowR<R>& w,
                                        const StageMetric& mt, int f, int ly,
                                        int lx, int j, int i, bool strips) {
+  constexpr int A = R::A;
   const int n = p.n, hh = p.halo;
   const long nn = (long)n * n;
   const CellMetric cm = tile_cell_metric(mt, ly, lx);
   const float l1[3] = {
-      lap_at<WS>(&w.h[0][0], ly + 2, WOFF + lx, cm, p.inv_d, p.inv2d),
+      lap_at<FTX + 2 * A>(&w.h[0][0], ly + A, A + lx, cm, p.inv_d, p.inv2d),
       lap_at<WS>(&w.ua[0][0], ly + 1, WOFF + lx, cm, p.inv_d, p.inv2d),
       lap_at<WS>(&w.ub[0][0], ly + 1, WOFF + lx, cm, p.inv_d, p.inv2d)};
   const long c = f * nn + (long)j * n + i;
@@ -177,27 +174,30 @@ __device__ __forceinline__ void put_l1(const ParamsA& p, const StageWindow& w,
   }
 }
 
-// The three faces of the block's group on one tile position.
-__device__ __forceinline__ void stage_faces_a(const ParamsA& p, SmemA& sm,
+// The three faces of the block's group on one tile position, h's face
+// states by policy R.
+template <class R>
+__device__ __forceinline__ void stage_faces_a(const ParamsA& p, SmemA<R>& sm,
                                               int f0, int j0, int i0) {
+  constexpr int A = R::A;
   const int n = p.n, hh = p.halo, rw = 6 * hh + 2;
   const long nn = (long)n * n;
   const int lx = threadIdx.x;
   const StageConsts k{p.R2, p.gravity, p.two_omega, p.inv2d, p.inv_d};
   // The window crosses the face edge (ghost corners to build), the tile
   // holds cells of the boundary strips.
-  const bool edge = j0 < 2 || i0 < 2 || j0 + FTY + 2 > n || i0 + FTX + 2 > n;
+  const bool edge = j0 < A || i0 < A || j0 + FTY + A > n || i0 + FTX + A > n;
   const bool strips = j0 < hh || i0 < hh || j0 + FTY > n - hh
                       || i0 + FTX > n - hh;
 
-  stage_window_a(p, sm.w[0], f0, j0, i0);
+  stage_compact_window(p, sm.w[0], f0, j0, i0);
   async_commit();
   stage_metric(sm.mt, p.xc, p.xf, p.xc, p.xf, p.R2, p.inv_d, n, hh, j0, i0);
 
   for (int q = 0; q < FPB; ++q) {
     const int f = f0 + q, cur = q & 1;
     if (q + 1 < FPB) {
-      stage_window_a(p, sm.w[cur ^ 1], f + 1, j0, i0);
+      stage_compact_window(p, sm.w[cur ^ 1], f + 1, j0, i0);
       async_commit();
       async_wait<1>();
     } else {
@@ -220,11 +220,12 @@ __device__ __forceinline__ void stage_faces_a(const ParamsA& p, SmemA& sm,
     }
     __syncthreads();   // this face's window (and, first, mt) complete
 
-    StageWindow& w = sm.w[cur];
-    // The corners: stage_face_tile reads none of them, and its barrier
-    // publishes them before the Laplacian reads them.
+    StageWindowR<R>& w = sm.w[cur];
+    // The corners, at most 2 deep (the ring-0 Laplacian reads 1):
+    // stage_face_tile reads none of them, and its barrier publishes them
+    // before the Laplacian reads them.
     if (edge) {
-      fill_corners<2>(w.h, n, j0, i0);
+      fill_corners<A, 2, FTX + 2 * A, A>(w.h, n, j0, i0);
       fill_corners<1>(w.ua, n, j0, i0);
       fill_corners<1>(w.ub, n, j0, i0);
     }
@@ -256,11 +257,51 @@ __device__ __forceinline__ void stage_faces_a(const ParamsA& p, SmemA& sm,
   }
 }
 
+template <class R>
+__device__ __forceinline__ void stage_block_a(const ParamsA& p) {
+  extern __shared__ float smem_raw[];
+  SmemA<R>& sm = *reinterpret_cast<SmemA<R>*>(smem_raw);
+  stage_faces_a<R>(p, sm, blockIdx.z * FPB, blockIdx.y * FTY,
+                   blockIdx.x * FTX);
+}
+
+// Kernel A, one instance per reconstruction; PLR-MC's keeps its name.
 __global__ void __launch_bounds__(NT, 3)
 cov_stage_nu4_a_kernel(const ParamsA p) {
-  extern __shared__ float smem_raw[];
-  SmemA& sm = *reinterpret_cast<SmemA*>(smem_raw);
-  stage_faces_a(p, sm, blockIdx.z * FPB, blockIdx.y * FTY, blockIdx.x * FTX);
+  stage_block_a<PlrMc>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_nu4_a_kernel_none(const ParamsA p) {
+  stage_block_a<Plr<SlopeNone>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_nu4_a_kernel_minmod(const ParamsA p) {
+  stage_block_a<Plr<SlopeMinmod>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_nu4_a_kernel_mc_sign(const ParamsA p) {
+  stage_block_a<Plr<SlopeMcSign>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_nu4_a_kernel_vanleer(const ParamsA p) {
+  stage_block_a<Plr<SlopeVanleer>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_nu4_a_kernel_ppm(const ParamsA p) {
+  stage_block_a<Ppm>(p);
+}
+
+// Launches kernel A's instance of policy R on `stream`.
+template <class R>
+int launch_a(void (*kernel)(ParamsA), const ParamsA& p, void* stream) {
+  const int rc = dynamic_smem_limit<R>(kernel, sizeof(SmemA<R>));
+  if (rc != 0) return rc;
+  const int n = p.n;
+  const dim3 grid((n + FTX - 1) / FTX, (n + FTY - 1) / FTY, 6 / FPB);
+  const dim3 block(BX, BY);
+  const size_t smem = sizeof(SmemA<R>);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // What kernel B computes: Full is the in-stage pair's B; NoFill and NoLap
@@ -398,31 +439,37 @@ int launch_b(const ParamsB& p, void* stream) {
 
 }  // namespace
 
-// Launches kernel A on `stream`; returns the cudaError_t of the shared
-// memory attribute or of the launch (0 = ok).
-// with_y0 == 0: yc + g_dt*L (stage 1); with_y0 != 0: (a*y0 + b*yc) +
-// g_dt*L (h0/u0 read only then).  All tensors float32, contiguous, in the
-// layouts of ParamsA.
-extern "C" int cov_stage_nu4_a_f32(
-    const float* h0, const float* u0, const float* hc, const float* uc,
-    const float* gsn, const float* gwe, const float* b_ext,
-    const float* xc, const float* xf, const float* fz,
-    float* ho, float* uo, float* l1h, float* l1u, float* ssn, float* swe,
-    int n, int halo, int with_y0,
-    float R2, float gravity, float two_omega, float inv2d, float inv_d,
-    float a, float b, float g_dt, void* stream) {
-  ParamsA p{h0, u0, hc, uc, gsn, gwe, b_ext, xc, xf, fz, ho, uo, l1h, l1u,
-            ssn, swe, n, halo, with_y0, R2, gravity, two_omega, inv2d,
-            inv_d, a, b, g_dt};
-  const int rc = dynamic_smem_limit(cov_stage_nu4_a_kernel, sizeof(SmemA));
-  if (rc != 0) return rc;
-  const dim3 grid((n + FTX - 1) / FTX, (n + FTY - 1) / FTY, 6 / FPB);
-  const dim3 block(BX, BY);
-  const size_t smem = sizeof(SmemA);
-  cov_stage_nu4_a_kernel<<<grid, block, smem,
-                           static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
+// Launch kernel A on `stream`; each returns the cudaError_t of the shared
+// memory attribute or of the launch (0 = ok).  with_y0 == 0: yc +
+// g_dt*L (stage 1); with_y0 != 0: (a*y0 + b*yc) + g_dt*L (h0/u0 read only
+// then).  All tensors float32, contiguous, in the layouts of ParamsA.
+// cov_stage_nu4_a_f32 is PLR-MC, cov_stage_nu4_a_<mode>_f32 the other
+// reconstructions (PPM needs halo >= 3).
+#define COV_NU4_A_ENTRY(NAME, KERNEL, POLICY)                               \
+  extern "C" int NAME(                                                      \
+      const float* h0, const float* u0, const float* hc, const float* uc,   \
+      const float* gsn, const float* gwe, const float* b_ext,               \
+      const float* xc, const float* xf, const float* fz, float* ho,         \
+      float* uo, float* l1h, float* l1u, float* ssn, float* swe, int n,     \
+      int halo, int with_y0, float R2, float gravity, float two_omega,      \
+      float inv2d, float inv_d, float a, float b, float g_dt,               \
+      void* stream) {                                                       \
+    const ParamsA p{h0, u0, hc, uc, gsn, gwe, b_ext, xc, xf, fz, ho, uo,    \
+                    l1h, l1u, ssn, swe, n, halo, with_y0, R2, gravity,      \
+                    two_omega, inv2d, inv_d, a, b, g_dt};                   \
+    return launch_a<POLICY>(KERNEL, p, stream);                             \
+  }
+
+COV_NU4_A_ENTRY(cov_stage_nu4_a_f32, cov_stage_nu4_a_kernel, PlrMc)
+COV_NU4_A_ENTRY(cov_stage_nu4_a_none_f32, cov_stage_nu4_a_kernel_none,
+                Plr<SlopeNone>)
+COV_NU4_A_ENTRY(cov_stage_nu4_a_minmod_f32, cov_stage_nu4_a_kernel_minmod,
+                Plr<SlopeMinmod>)
+COV_NU4_A_ENTRY(cov_stage_nu4_a_mc_sign_f32, cov_stage_nu4_a_kernel_mc_sign,
+                Plr<SlopeMcSign>)
+COV_NU4_A_ENTRY(cov_stage_nu4_a_vanleer_f32,
+                cov_stage_nu4_a_kernel_vanleer, Plr<SlopeVanleer>)
+COV_NU4_A_ENTRY(cov_stage_nu4_a_ppm_f32, cov_stage_nu4_a_kernel_ppm, Ppm)
 
 // Launches kernel B on `stream`; returns cudaGetLastError() (0 = ok).
 // All tensors float32, contiguous, in the layouts of ParamsB.

@@ -18,7 +18,9 @@
 //          edge (the re-fused design's O(damp) seam inconsistency: the
 //          filtered ghosts would need deeper strips);
 //   L(E)   the covariant right-hand side on E (rhs_core_cov, the
-//          prescaled sym rows imposed on the boundary faces);
+//          prescaled sym rows imposed on the boundary faces), h's face
+//          states by the launch's reconstruction (PLR with one of the
+//          five limiters, or PPM at halo >= 3);
 //   out    h1 = fv + f32(dt) L (stage 1: a = 0, b = 1), u1 likewise, the
 //          filtered base h0f = fv, u0f = fv_u for stages 2 and 3, and the
 //          boundary strips of (h1, u1).
@@ -34,8 +36,9 @@
 // Design: B1's and B2's faces-in-block body (cov_faces.cuh).  A block of
 // 256 threads takes one 32 x 24 tile position and a group of three faces:
 // a grid of (ceil(n/32), ceil(n/24), 2), 384 blocks at C384.  The stage
-// reads E up to 2 cells past the tile (PLR; u 1 cell), so E is needed on
-// tile + 2, l2 there needs l1 on tile + 3, and l1 needs psi on tile + 4.
+// reads E up to 2 cells past the tile (PLR; PPM 3; u 1 cell), so E is
+// needed on tile + 2, l2 there needs l1 on tile + 3, and l1 needs psi on
+// tile + 4 (PPM: tile + 3, + 4, + 5; the windows of Aprons below).
 // The block computes its tile's metric terms once: the Laplacian's over
 // the l1 window (LapMetric<30, 38>: the x/y-face pairs and inv_sqrtg / d,
 // which also are the stage's face pairs and inv_sqrtg / d on the tile,
@@ -59,6 +62,21 @@
 // (scripts/torch_faces_probe.py --parts b3b7b) it takes 56.5-58.7 us per
 // launch at C384; psi double-buffered (88 KB, two blocks per SM, 1.45
 // waves) took 72.4-72.6, u filtered on tile + 2 (EU = 2) 58.3-60.5.
+//
+// Modes.  The body is a template on h's face-state policy (cov_common.cuh);
+// each of the six reconstructions is its own kernel and C entry point
+// (cov_stage_refused_nu4_<mode>_f32; PLR-MC keeps the kernel
+// cov_stage_refused_nu4_kernel and the entry cov_stage_refused_nu4_f32).
+// The PLR modes share PLR-MC's body and windows (refused_faces).  PPM's
+// stage reads h a cell further: its body (refused_faces_deep) deepens h's
+// chain alone (psi on tile + 5, l1 and the Laplacian's metric on tile +
+// 4) and keeps u's on its own need (psi on tile + 3, l1 on tile + 2):
+// 74 480 B, 3 blocks per SM.  Three fields alike at h's depth would take
+// 78 960 B and leave 2 blocks per SM (264 slots for 384 blocks): 84.42 us
+// against 60.70 per launch at C384 on an H100 80GB HBM3 at 700 W
+// (scripts/torch_faces_probe.py --parts b3ppm).  The per-field windows
+// stay out of PLR's body: written for both, they changed PLR-MC's code
+// (8 904 SASS instructions, 16 B spilled, became 9 144 and 20 B).
 
 #include "cov_faces.cuh"
 
@@ -87,11 +105,18 @@ struct Params {
   float R2, gravity, two_omega, inv2d, inv_d, g_dt, damp;
 };
 
-constexpr int AP = 4;                          // psi apron
-constexpr int PY = FTY + 2 * AP, PX = FTX + 2 * AP;   // psi: 32 x 40
-constexpr int LA = AP - 1;                     // l1 apron
-constexpr int LY = FTY + 2 * LA, LX = FTX + 2 * LA;   // l1: 30 x 38
-constexpr int EA = 2;                          // E apron (PLR)
+// The windows of h's face-state policy R: the stage reads E up to R::A
+// cells past the tile (h; u 1 cell), l2 there reads l1 one cell further,
+// and l1 psi one further again.  PLR: psi 32 x 40, l1 30 x 38; PPM: psi
+// 34 x 42, l1 32 x 40.
+template <class R>
+struct Aprons {
+  static constexpr int EA = R::A;              // E apron
+  static constexpr int AP = EA + 2;            // psi apron
+  static constexpr int PY = FTY + 2 * AP, PX = FTX + 2 * AP;
+  static constexpr int LA = AP - 1;            // l1 apron
+  static constexpr int LY = FTY + 2 * LA, LX = FTX + 2 * LA;
+};
 constexpr int EU = 1;                          // u's E apron
 
 // The stage's band inverse metric and the centres' sqrtg and inv_rho:
@@ -103,33 +128,38 @@ struct BandMetric {
 
 // One face's staged inputs: psi (then E, in place) and the orography on
 // the Bernoulli band.
+template <class R>
 struct FaceWindow {
-  float psi[3][PY][PX];
+  float psi[3][Aprons<R>::PY][Aprons<R>::PX];
   float b[FTY + 2][FTX + 2];
 };
 
+template <class R>
 struct Smem {
-  FaceWindow w;
+  FaceWindow<R> w;
   union {
-    float l1[3][LY][LX];
+    float l1[3][Aprons<R>::LY][Aprons<R>::LX];
     StageScratch s;             // once E is built
   } x;
-  LapMetric<LY, LX> lm;
+  LapMetric<Aprons<R>::LY, Aprons<R>::LX> lm;
   BandMetric bm;
 };
 
-// E as stage_face_tile reads its window, in psi's layout: h with a 2-deep
+// E as stage_face_tile reads its window, in psi's layout: h with R's
 // apron, u_a and u_b with a 1-deep one; b on the band.
+template <class R>
 struct EWindow {
-  const float (*h)[PX];
-  const float (*ua)[PX];
-  const float (*ub)[PX];
+  using Recon = R;
+  const float (*h)[Aprons<R>::PX];
+  const float (*ua)[Aprons<R>::PX];
+  const float (*ub)[Aprons<R>::PX];
   const float (*b)[FTX + 2];
 };
 
 // The tile's metric terms as stage_face_tile reads a StageMetric: the face
 // pairs and inv_sqrtg / d from the Laplacian's window (its origin LA
 // cells before the tile's), the rest from the BandMetric.
+template <int LX>
 struct TileMetric {
   const float (*gaa)[FTX + 2];
   const float (*gab)[FTX + 2];
@@ -176,8 +206,10 @@ __device__ __forceinline__ void band_metric(BandMetric& bm,
 // Issues the copies of face f's psi (h, u_a, u_b on rows j0-AP ..
 // j0+FTY+AP-1, columns i0-AP .. i0+FTX+AP-1; ghost corners as zeros) and
 // of its orography on the band into w (no commit).
-__device__ __forceinline__ void stage_psi(const Params& p, FaceWindow& w,
+template <class R>
+__device__ __forceinline__ void stage_psi(const Params& p, FaceWindow<R>& w,
                                           int f, int j0, int i0) {
+  constexpr int AP = Aprons<R>::AP, PY = Aprons<R>::PY, PX = Aprons<R>::PX;
   const int n = p.n, hh = p.halo, m = n + 2 * hh, rw = 6 * hh + 2;
   const long nn = (long)n * n;
   const float* gsn = p.gsn + (long)f * rw * n;
@@ -191,8 +223,12 @@ __device__ __forceinline__ void stage_psi(const Params& p, FaceWindow& w,
   stage_band(w.b, p.b + (long)f * m * m, n, hh, j0, i0);
 }
 
-__device__ __forceinline__ void refused_faces(const Params& p, Smem& sm,
+template <class R>
+__device__ __forceinline__ void refused_faces(const Params& p, Smem<R>& sm,
                                               int f0, int j0, int i0) {
+  using K = Aprons<R>;
+  constexpr int A = R::A, EA = K::EA, AP = K::AP, PY = K::PY, PX = K::PX;
+  constexpr int LA = K::LA, LY = K::LY, LX = K::LX;
   const int n = p.n, hh = p.halo, rw = 6 * hh + 2;
   const long nn = (long)n * n;
   const StageConsts k{p.R2, p.gravity, p.two_omega, p.inv2d, p.inv_d};
@@ -260,20 +296,20 @@ __device__ __forceinline__ void refused_faces(const Params& p, Smem& sm,
     const float* gwe = p.gwe + (long)f * n * rw;
     float* ssn = p.ssn + (long)f * 6 * hh * n;
     float* swe = p.swe + (long)f * n * 6 * hh;
-    const EWindow e{rows_at<PX>(&psi[0][AP - 2][AP - WOFF]),
-                    rows_at<PX>(&psi[1][AP - 1][AP - WOFF]),
-                    rows_at<PX>(&psi[2][AP - 1][AP - WOFF]),
-                    rows_at<FTX + 2>(&sm.w.b[0][0])};
-    const TileMetric tm{rows_at<FTX + 2>(&sm.bm.gaa[0][0]),
-                        rows_at<FTX + 2>(&sm.bm.gab[0][0]),
-                        rows_at<FTX + 2>(&sm.bm.gbb[0][0]),
-                        rows_at<LX + 1>(&sm.lm.xa[LA][LA]),
-                        rows_at<LX + 1>(&sm.lm.xb[LA][LA]),
-                        rows_at<LX>(&sm.lm.ya[LA][LA]),
-                        rows_at<LX>(&sm.lm.yb[LA][LA]),
-                        rows_at<LX>(&sm.lm.isg[LA][LA]),
-                        rows_at<FTX>(&sm.bm.sqrtg[0][0]),
-                        rows_at<FTX>(&sm.bm.irho[0][0])};
+    const EWindow<R> e{rows_at<PX>(&psi[0][AP - A][AP - A]),
+                       rows_at<PX>(&psi[1][AP - 1][AP - WOFF]),
+                       rows_at<PX>(&psi[2][AP - 1][AP - WOFF]),
+                       rows_at<FTX + 2>(&sm.w.b[0][0])};
+    const TileMetric<LX> tm{rows_at<FTX + 2>(&sm.bm.gaa[0][0]),
+                            rows_at<FTX + 2>(&sm.bm.gab[0][0]),
+                            rows_at<FTX + 2>(&sm.bm.gbb[0][0]),
+                            rows_at<LX + 1>(&sm.lm.xa[LA][LA]),
+                            rows_at<LX + 1>(&sm.lm.xb[LA][LA]),
+                            rows_at<LX>(&sm.lm.ya[LA][LA]),
+                            rows_at<LX>(&sm.lm.yb[LA][LA]),
+                            rows_at<LX>(&sm.lm.isg[LA][LA]),
+                            rows_at<FTX>(&sm.bm.sqrtg[0][0]),
+                            rows_at<FTX>(&sm.bm.irho[0][0])};
     stage_face_tile<Seam::Prescaled>(
         e, tm, sm.x.s, routed_sym(gsn, gwe, n, hh), p.xc, p.xf, p.xc, p.xf,
         p.fz + 3 * f, k, n, hh, j0, i0,
@@ -296,33 +332,277 @@ __device__ __forceinline__ void refused_faces(const Params& p, Smem& sm,
   }
 }
 
+// ---- PPM: h's chain deeper than u's ------------------------------------
+
+// Policy R's body deepens h's chain alone (PPM: its apron is 3 deep).
+template <class R>
+constexpr bool DEEP_H = R::A > 2;
+
+// h's windows as Aprons<R>'s; u's on their own need: psi on tile + EU +
+// 2, l1 on tile + EU + 1 (u's sit DP and DL cells inside h's).
+template <class R>
+struct DeepAprons : Aprons<R> {
+  static constexpr int APU = EU + 2;
+  static constexpr int PYU = FTY + 2 * APU, PXU = FTX + 2 * APU;
+  static constexpr int LAU = APU - 1;
+  static constexpr int LYU = FTY + 2 * LAU, LXU = FTX + 2 * LAU;
+  static constexpr int DP = Aprons<R>::AP - APU, DL = Aprons<R>::LA - LAU;
+};
+
+template <class R>
+struct DeepWindow {
+  float h[DeepAprons<R>::PY][DeepAprons<R>::PX];
+  float u[2][DeepAprons<R>::PYU][DeepAprons<R>::PXU];
+  float b[FTY + 2][FTX + 2];
+};
+
+template <class R>
+struct DeepSmem {
+  DeepWindow<R> w;
+  union {
+    struct {
+      float h[DeepAprons<R>::LY][DeepAprons<R>::LX];
+      float u[2][DeepAprons<R>::LYU][DeepAprons<R>::LXU];
+    } l1;
+    StageScratch s;             // once E is built
+  } x;
+  LapMetric<DeepAprons<R>::LY, DeepAprons<R>::LX> lm;
+  BandMetric bm;
+};
+
+template <class R>
+struct DeepEWindow {
+  using Recon = R;
+  const float (*h)[DeepAprons<R>::PX];
+  const float (*ua)[DeepAprons<R>::PXU];
+  const float (*ub)[DeepAprons<R>::PXU];
+  const float (*b)[FTX + 2];
+};
+
+// stage_psi with u's windows APU deep.
+template <class R>
+__device__ __forceinline__ void stage_psi_deep(const Params& p,
+                                               DeepWindow<R>& w, int f,
+                                               int j0, int i0) {
+  using K = DeepAprons<R>;
+  const int n = p.n, hh = p.halo, m = n + 2 * hh, rw = 6 * hh + 2;
+  const long nn = (long)n * n;
+  const float* gsn = p.gsn + (long)f * rw * n;
+  const float* gwe = p.gwe + (long)f * n * rw;
+  stage_field<K::PY, K::AP, K::PX, K::AP>(&w.h[0][0], p.hc + f * nn, gsn,
+                                          gwe, 0, n, hh, rw, j0 - K::AP,
+                                          i0);
+  for (int c = 0; c < 2; ++c)
+    stage_field<K::PYU, K::APU, K::PXU, K::APU>(
+        &w.u[c][0][0], p.uc + (c * 6 + f) * nn, gsn, gwe, 1 + c, n, hh, rw,
+        j0 - K::APU, i0);
+  stage_band(w.b, p.b + (long)f * m * m, n, hh, j0, i0);
+}
+
+// refused_faces with h's chain and u's apart.
+template <class R>
+__device__ __forceinline__ void refused_faces_deep(const Params& p,
+                                                   DeepSmem<R>& sm, int f0,
+                                                   int j0, int i0) {
+  using K = DeepAprons<R>;
+  constexpr int A = R::A, EA = K::EA, AP = K::AP, PX = K::PX;
+  constexpr int LA = K::LA, LY = K::LY, LX = K::LX;
+  constexpr int APU = K::APU, PXU = K::PXU, LXU = K::LXU, DP = K::DP,
+                DL = K::DL;
+  const int n = p.n, hh = p.halo, rw = 6 * hh + 2;
+  const long nn = (long)n * n;
+  const StageConsts k{p.R2, p.gravity, p.two_omega, p.inv2d, p.inv_d};
+  const bool edge = j0 < AP || i0 < AP || j0 + FTY + AP > n
+                    || i0 + FTX + AP > n;
+  const bool strips = j0 < hh || i0 < hh || j0 + FTY > n - hh
+                      || i0 + FTX > n - hh;
+  DeepWindow<R>& w = sm.w;
+  auto& l1 = sm.x.l1;
+
+  stage_psi_deep(p, w, f0, j0, i0);
+  async_commit();
+  lap_metric(sm.lm, p.xc, p.xf, n, hh, j0 - LA, i0 - LA, p.R2, p.inv_d);
+  band_metric(sm.bm, p.xc, p.R2, p.inv_d, n, hh, j0, i0);
+
+  for (int q = 0; q < FPB; ++q) {
+    const int f = f0 + q;
+    if (q > 0) {   // E was built over the last face's psi
+      stage_psi_deep(p, w, f, j0, i0);
+      async_commit();
+    }
+    async_wait<0>();
+    __syncthreads();   // this face's psi (and, first, the metric) complete
+    if (edge) {
+      fill_corners<AP, 2, PX, AP>(w.h, n, j0, i0);
+      for (int c = 0; c < 2; ++c)
+        fill_corners<APU, 2, PXU, APU>(w.u[c], n, j0, i0);
+      __syncthreads();
+    }
+
+    // ---- l1 = lap(psi) on the ring-1 window, tile + 4 (u: tile + 2) -----
+    for_region<LY, LX>([&](int wy, int wx) {
+      const int r = j0 - LA + wy, c = i0 - LA + wx;
+      const bool ok = r >= -1 && r <= n && c >= -1 && c <= n;
+      const bool uin = wy >= DL && wy < LY - DL && wx >= DL && wx < LX - DL;
+      const CellMetric cm = sm.lm.at(wy, wx);
+      l1.h[wy][wx] = ok ? lap_at<PX>(&w.h[0][0], wy + 1, wx + 1, cm,
+                                     p.inv_d, p.inv2d)
+                        : 0.0f;
+      if (uin)
+        for (int cu = 0; cu < 2; ++cu)
+          l1.u[cu][wy - DL][wx - DL] =
+              ok ? lap_at<PXU>(&w.u[cu][0][0], wy + 1 - DP, wx + 1 - DP, cm,
+                               p.inv_d, p.inv2d)
+                 : 0.0f;
+    });
+    __syncthreads();
+
+    // ---- E: q - damp lap(l1) on the face's cells of tile + 3 (u: + EU) --
+    for_region<FTY + 2 * EA, FTX + 2 * EA>([&](int ey, int ex) {
+      const int j = j0 - EA + ey, i = i0 - EA + ex;
+      if (j < 0 || i < 0 || j >= n || i >= n) return;   // off the face
+      const bool uin = ey >= EA - EU && ey < FTY + EA + EU
+                       && ex >= EA - EU && ex < FTX + EA + EU;
+      const CellMetric cm = sm.lm.at(ey + 1, ex + 1);
+      float& e = w.h[ey + AP - EA][ex + AP - EA];
+      e = e - p.damp * lap_at<LX>(&l1.h[0][0], ey + 1, ex + 1, cm, p.inv_d,
+                                  p.inv2d);
+      if (uin)
+        for (int cu = 0; cu < 2; ++cu) {
+          float& eu = w.u[cu][ey + APU - EA][ex + APU - EA];
+          eu = eu - p.damp * lap_at<LXU>(&l1.u[cu][0][0], ey + 1 - DL,
+                                         ex + 1 - DL, cm, p.inv_d, p.inv2d);
+        }
+    });
+    __syncthreads();
+
+    // ---- the stage on E; h1, u1, h0f, u0f and strips --------------------
+    const float* gsn = p.gsn + (long)f * rw * n;
+    const float* gwe = p.gwe + (long)f * n * rw;
+    float* ssn = p.ssn + (long)f * 6 * hh * n;
+    float* swe = p.swe + (long)f * n * 6 * hh;
+    const DeepEWindow<R> e{rows_at<PX>(&w.h[AP - A][AP - A]),
+                           rows_at<PXU>(&w.u[0][APU - 1][APU - WOFF]),
+                           rows_at<PXU>(&w.u[1][APU - 1][APU - WOFF]),
+                           rows_at<FTX + 2>(&w.b[0][0])};
+    const TileMetric<LX> tm{rows_at<FTX + 2>(&sm.bm.gaa[0][0]),
+                            rows_at<FTX + 2>(&sm.bm.gab[0][0]),
+                            rows_at<FTX + 2>(&sm.bm.gbb[0][0]),
+                            rows_at<LX + 1>(&sm.lm.xa[LA][LA]),
+                            rows_at<LX + 1>(&sm.lm.xb[LA][LA]),
+                            rows_at<LX>(&sm.lm.ya[LA][LA]),
+                            rows_at<LX>(&sm.lm.yb[LA][LA]),
+                            rows_at<LX>(&sm.lm.isg[LA][LA]),
+                            rows_at<FTX>(&sm.bm.sqrtg[0][0]),
+                            rows_at<FTX>(&sm.bm.irho[0][0])};
+    stage_face_tile<Seam::Prescaled>(
+        e, tm, sm.x.s, routed_sym(gsn, gwe, n, hh), p.xc, p.xf, p.xc, p.xf,
+        p.fz + 3 * f, k, n, hh, j0, i0,
+        [&](int, int j, int i, float dh, float dua, float dub, float fh,
+            float fa, float fb) {
+          const long c = f * nn + (long)j * n + i;
+          const float v[3] = {fh + p.g_dt * dh, fa + p.g_dt * dua,
+                              fb + p.g_dt * dub};
+          p.ho[c] = v[0];
+          p.uo[c] = v[1];
+          p.uo[6 * nn + c] = v[2];
+          p.h0f[c] = fh;
+          p.u0f[c] = fa;
+          p.u0f[6 * nn + c] = fb;
+          if (strips)
+            for (int fi = 0; fi < 3; ++fi)
+              put_strips(ssn, swe, fi, n, hh, j, i, v[fi]);
+        });
+    __syncthreads();   // psi / E and the scratch are free for the next face
+  }
+}
+
+template <class R>
+using SmemOf = std::conditional_t<DEEP_H<R>, DeepSmem<R>, Smem<R>>;
+
+template <class R>
+__device__ __forceinline__ void refused_block(const Params& p) {
+  extern __shared__ float smem_raw[];
+  if constexpr (DEEP_H<R>) {
+    DeepSmem<R>& sm = *reinterpret_cast<DeepSmem<R>*>(smem_raw);
+    refused_faces_deep<R>(p, sm, blockIdx.z * FPB, blockIdx.y * FTY,
+                          blockIdx.x * FTX);
+  } else {
+    Smem<R>& sm = *reinterpret_cast<Smem<R>*>(smem_raw);
+    refused_faces<R>(p, sm, blockIdx.z * FPB, blockIdx.y * FTY,
+                     blockIdx.x * FTX);
+  }
+}
+
+// One kernel per reconstruction; PLR-MC's keeps its name.
 __global__ void __launch_bounds__(NT, 3)
 cov_stage_refused_nu4_kernel(const Params p) {
-  extern __shared__ float smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  refused_faces(p, sm, blockIdx.z * FPB, blockIdx.y * FTY, blockIdx.x * FTX);
+  refused_block<PlrMc>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_refused_nu4_kernel_none(const Params p) {
+  refused_block<Plr<SlopeNone>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_refused_nu4_kernel_minmod(const Params p) {
+  refused_block<Plr<SlopeMinmod>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_refused_nu4_kernel_mc_sign(const Params p) {
+  refused_block<Plr<SlopeMcSign>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_refused_nu4_kernel_vanleer(const Params p) {
+  refused_block<Plr<SlopeVanleer>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_refused_nu4_kernel_ppm(const Params p) {
+  refused_block<Ppm>(p);
+}
+
+// Launches kernel (the instance of policy R) on `stream`.
+template <class R>
+int launch(void (*kernel)(Params), const Params& p, void* stream) {
+  const int rc = dynamic_smem_limit<R>(kernel, sizeof(SmemOf<R>));
+  if (rc != 0) return rc;
+  const int n = p.n;
+  const dim3 grid((n + FTX - 1) / FTX, (n + FTY - 1) / FTY, 6 / FPB);
+  const dim3 block(BX, BY);
+  const size_t smem = sizeof(SmemOf<R>);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches the re-fused stage 1 on `stream`; returns the cudaError_t of
-// the shared memory attribute or of the launch (0 = ok).  All tensors
-// float32, contiguous, in the layouts of Params.
-extern "C" int cov_stage_refused_nu4_f32(
-    const float* hc, const float* uc, const float* gsn, const float* gwe,
-    const float* b_ext, const float* xc, const float* xf, const float* fz,
-    float* ho, float* uo, float* h0f, float* u0f, float* ssn, float* swe,
-    int n, int halo, float R2, float gravity, float two_omega, float inv2d,
-    float inv_d, float g_dt, float damp, void* stream) {
-  Params p{hc, uc, gsn, gwe, b_ext, xc, xf, fz, ho, uo, h0f, u0f, ssn, swe,
-           n, halo, R2, gravity, two_omega, inv2d, inv_d, g_dt, damp};
-  const int rc = dynamic_smem_limit(cov_stage_refused_nu4_kernel,
-                                    sizeof(Smem));
-  if (rc != 0) return rc;
-  const dim3 grid((n + FTX - 1) / FTX, (n + FTY - 1) / FTY, 6 / FPB);
-  const dim3 block(BX, BY);
-  const size_t smem = sizeof(Smem);
-  cov_stage_refused_nu4_kernel<<<grid, block, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
+// Launch the re-fused stage 1 on `stream`; each returns the cudaError_t
+// of the shared memory attribute or of the launch (0 = ok).  All tensors
+// float32, contiguous, in the layouts of Params.  cov_stage_refused_nu4_f32
+// is PLR-MC, cov_stage_refused_nu4_<mode>_f32 the other reconstructions
+// (PPM needs halo >= 3).
+#define COV_REFUSED_ENTRY(NAME, KERNEL, POLICY)                             \
+  extern "C" int NAME(                                                      \
+      const float* hc, const float* uc, const float* gsn, const float* gwe, \
+      const float* b_ext, const float* xc, const float* xf,                 \
+      const float* fz, float* ho, float* uo, float* h0f, float* u0f,        \
+      float* ssn, float* swe, int n, int halo, float R2, float gravity,     \
+      float two_omega, float inv2d, float inv_d, float g_dt, float damp,    \
+      void* stream) {                                                       \
+    const Params p{hc, uc, gsn, gwe, b_ext, xc, xf, fz, ho, uo, h0f, u0f,   \
+                   ssn, swe, n, halo, R2, gravity, two_omega, inv2d, inv_d, \
+                   g_dt, damp};                                             \
+    return launch<POLICY>(KERNEL, p, stream);                               \
+  }
+
+COV_REFUSED_ENTRY(cov_stage_refused_nu4_f32, cov_stage_refused_nu4_kernel,
+                  PlrMc)
+COV_REFUSED_ENTRY(cov_stage_refused_nu4_none_f32,
+                  cov_stage_refused_nu4_kernel_none, Plr<SlopeNone>)
+COV_REFUSED_ENTRY(cov_stage_refused_nu4_minmod_f32,
+                  cov_stage_refused_nu4_kernel_minmod, Plr<SlopeMinmod>)
+COV_REFUSED_ENTRY(cov_stage_refused_nu4_mc_sign_f32,
+                  cov_stage_refused_nu4_kernel_mc_sign, Plr<SlopeMcSign>)
+COV_REFUSED_ENTRY(cov_stage_refused_nu4_vanleer_f32,
+                  cov_stage_refused_nu4_kernel_vanleer, Plr<SlopeVanleer>)
+COV_REFUSED_ENTRY(cov_stage_refused_nu4_ppm_f32,
+                  cov_stage_refused_nu4_kernel_ppm, Ppm)

@@ -20,7 +20,9 @@
 //            prescaled;
 //   faces    the compact stage on every tile: ghosts from gsn / gwe,
 //            rhs_core_cov with the un-prescaled sym rows (the tile
-//            multiplies them by the closed-form edge sqrtg), the combine
+//            multiplies them by the closed-form edge sqrtg) and h's face
+//            states by the launch's reconstruction (PLR with one of the
+//            five limiters, or PPM at halo >= 3), the combine
 //            (A y0 + B cur) + C tend with the stage's row of the float32
 //            table AB, and the new boundary strips.
 //
@@ -75,8 +77,9 @@
 // is aligned.
 //
 // Occupancy: 72 584 B of dynamic shared memory (two windows, the metric,
-// the scratch) and __launch_bounds__(256, 3): 3 blocks per SM, <= 80
-// registers.  The occupancy query runs after the shared-memory attribute
+// the scratch; PPM's windows 2 x 15 840 with their padding: 74 148) and
+// __launch_bounds__(256, 3): 3 blocks per SM, <= 80 registers.  The
+// occupancy query runs after the shared-memory attribute
 // is set (it reports 0 blocks above 48 KB until then).  The stages run as
 // one loop over one copy of the body, and the body reads the thread
 // coordinates opaquely (COV_OPAQUE_TID), so the compiler keeps no
@@ -89,10 +92,20 @@
 // phases stays in L2.  The earlier design (one 32 x 16 tile of one face
 // per block, 4 blocks per SM, synchronous apron loads, the metric per
 // tile and stage) took 260.62 us.
+//
+// Modes.  The body is a template on h's face-state policy (cov_common.cuh);
+// each of the six reconstructions is its own kernel and C entry point
+// (cov_step_mega_<mode>_f32; PLR-MC keeps the kernel cov_step_mega_kernel
+// and the entry cov_step_mega_f32).  The PLR modes stage PLR-MC's window.
+// PPM's h apron is 3 deep: its rows are padded to 40 floats
+// (DeepWindow), its 30 rows' bodies take 240 16-byte copies, and its 180
+// apron cells with u's 104 are more than one a thread, so some threads
+// hold two.  The routes are any halo's (the strips 6 h wide).
 
 #include <cooperative_groups.h>
 
 #include <cstddef>
+#include <type_traits>
 
 // The face phases run the faces-in-block body once per stage and work
 // item: cov_faces.cuh reads the thread coordinates opaquely (see tid_x).
@@ -133,16 +146,49 @@ struct Params {
   float R2, gravity, two_omega, inv2d, inv_d;
 };
 
+// PPM's window (h's apron 3 deep): StageWindowR<Ppm>'s members, h's rows
+// padded to 40 floats so that tile column 0 (at h[r][3]) of every row can
+// sit on 16 bytes, and a float between h and u_a so that theirs (at
+// ua[r][WOFF]) can too.
+template <class R>
+struct DeepWindow {
+  using Recon = R;
+  static_assert(R::A == 3, "PPM's apron");
+  float h[FTY + 6][FTX + 8];
+  float gap[1];
+  float ua[FTY + 2][WS];
+  float ub[FTY + 2][WS];
+  float b[FTY + 2][FTX + 2];
+  float tail[3];   // a window a multiple of 16 bytes
+};
+
+// The window of h's policy R: StageWindowR for PLR (its 36-float rows
+// serve as they are), DeepWindow for PPM.
+template <class R>
+using MegaWindow =
+    std::conditional_t<R::A == 2, StageWindowR<R>, DeepWindow<R>>;
+
+template <class R>
 struct Smem {
-  float pad[2];       // puts tile column 0 of each window row on 16 bytes
-  StageWindow w[2];   // this face's window and the next one's
+  float pad[(4 - R::A % 4) % 4];   // puts tile column 0 of each window row
+                                   // on 16 bytes
+  MegaWindow<R> w[2];   // this face's window and the next one's
   StageMetric mt;
   StageScratch s;
 };
-static_assert(offsetof(Smem, w) % 16 == 8 && (WOFF * 4) % 16 == 8
-                  && (WS * 4) % 16 == 0 && sizeof(StageWindow) % 16 == 0
-                  && offsetof(StageWindow, ua) % 16 == 0
-                  && offsetof(StageWindow, ub) % 16 == 0,
+
+// Every window row's tile column 0 on 16 bytes: h's at h[r][A], u_a's and
+// u_b's at [r][WOFF], in both windows.
+template <class R>
+constexpr bool rows_aligned() {
+  using W = MegaWindow<R>;
+  constexpr size_t w0 = offsetof(Smem<R>, w);
+  return (w0 + 4 * R::A) % 16 == 0 && sizeof(W::h[0]) % 16 == 0
+         && (WS * 4) % 16 == 0 && sizeof(W) % 16 == 0
+         && (w0 + offsetof(W, ua) + 4 * WOFF) % 16 == 0
+         && (w0 + offsetof(W, ub) + 4 * WOFF) % 16 == 0;
+}
+static_assert(rows_aligned<PlrMc>() && rows_aligned<Ppm>(),
               "16-byte window rows at tile column 0");
 
 #ifdef __CUDACC__
@@ -261,21 +307,33 @@ __device__ __forceinline__ void route_phase(const Params& p, const float* sn,
   }
 }
 
-// A thread's apron cell of a face window (the columns the 16-byte body
+// A thread's apron cells of a face window (the columns the 16-byte body
 // copies leave out): field fi, window row r, tile column c; fi < 0 for a
-// thread without one.  h has 4 apron columns per row, u_a and u_b 2.  A
-// function of the thread alone, recomputed where used (no registers held).
+// thread without one.  h has 2 A apron columns per row (A its apron: 4
+// columns for PLR, 6 for PPM), u_a and u_b 2.  Cell k of the thread is the
+// block's cell tid + k * NT: one for PLR (216 cells), two for some
+// threads for PPM (284).  A function of the thread alone, recomputed
+// where used (no registers held).
 struct ApronCell {
   int fi, r, c;
 };
 
-__device__ __forceinline__ ApronCell apron_cell() {
-  constexpr int NH = (FTY + 4) * 4, NU = (FTY + 2) * 2;
-  static_assert(NH + 2 * NU <= NT, "one apron cell per thread");
-  const int t = tid_y() * BX + tid_x();
+// The apron cells a thread may hold (APRON_CELLS) and their values.
+template <int A>
+constexpr int APRON_CELLS =
+    ((FTY + 2 * A) * 2 * A + 2 * (FTY + 2) * 2 + NT - 1) / NT;
+template <int A>
+struct ApronValues {
+  float v[APRON_CELLS<A>];
+};
+
+template <int A>
+__device__ __forceinline__ ApronCell apron_cell(int k) {
+  constexpr int NH = (FTY + 2 * A) * 2 * A, NU = (FTY + 2) * 2;
+  const int t = tid_y() * BX + tid_x() + k * NT;
   if (t < NH) {
-    const int k = t % 4;
-    return {0, t / 4, k < 2 ? k - 2 : FTX + k - 2};
+    const int c = t % (2 * A);
+    return {0, t / (2 * A), c < A ? c - A : FTX + c - A};
   }
   const int u = t - NH;
   if (u < 2 * NU) {
@@ -286,11 +344,11 @@ __device__ __forceinline__ ApronCell apron_cell() {
 }
 
 // Copies the body columns (tile columns 0 .. FTX-1) of rows jw ..
-// jw+ROWS-1 of field fi of one face into s (row stride WS, tile column c
-// at s[r * WS + WOFF + c]): a 16-byte cp.async.cg per 4 cells of an
+// jw+ROWS-1 of field fi of one face into s (row stride S, tile column c
+// at s[r * S + OFF + c]): a 16-byte cp.async.cg per 4 cells of an
 // interior or S/N ghost row wholly inside the face's columns, else cell by
 // cell with __ldcg (0 where edge_src gives none).  No commit.
-template <int ROWS>
+template <int ROWS, int S = WS, int OFF = WOFF>
 __device__ __forceinline__ void stage_body(float* s, const float* q,
                                            const float* gsn,
                                            const float* gwe, int fi, int n,
@@ -302,7 +360,7 @@ __device__ __forceinline__ void stage_body(float* s, const float* q,
   if (t >= ROWS * CH) return;
   const int r = t / CH, k = t - r * CH;
   const int j = jw + r, i = i0 + 4 * k;
-  float* dst = s + r * WS + WOFF + 4 * k;
+  float* dst = s + r * S + OFF + 4 * k;
   const float* row = nullptr;
   if (j >= 0 && j < n)
     row = q + (long)j * n;
@@ -321,14 +379,34 @@ __device__ __forceinline__ void stage_body(float* s, const float* q,
   }
 }
 
+// The value of the thread's apron cell k of face f's window (an __ldcg),
+// h's apron A deep; 0 for none.
+template <int A>
+__device__ __forceinline__ float apron_value(const float* qh,
+                                             const float* qa,
+                                             const float* qb,
+                                             const float* gsn,
+                                             const float* gwe, int n, int hh,
+                                             int rw, int j0, int i0, int k) {
+  const ApronCell a = apron_cell<A>(k);
+  if (a.fi < 0) return 0.0f;
+  const int jw = a.fi == 0 ? j0 - A : j0 - 1;
+  const float* q = a.fi == 0 ? qh : a.fi == 1 ? qa : qb;
+  const float* src = edge_src(q, gsn, gwe, a.fi, n, hh, rw, jw + a.r,
+                              i0 + a.c);
+  return src != nullptr ? __ldcg(src) : 0.0f;
+}
+
 // Issues the copies of face f's window of the stage input (h ch, u cu)
 // into w (no commit): the bodies and the orography band asynchronously;
-// returns the thread's apron cell's value (an __ldcg in flight), for
+// returns the values of the thread's apron cells (__ldcg in flight), for
 // put_apron.
-__device__ __forceinline__ float stage_window(const Params& p, StageWindow& w,
-                                              const float* ch,
-                                              const float* cu, int f, int j0,
-                                              int i0) {
+template <class R>
+__device__ __forceinline__ ApronValues<R::A> stage_window(
+    const Params& p, MegaWindow<R>& w, const float* ch, const float* cu,
+    int f, int j0, int i0) {
+  constexpr int A = R::A;
+  constexpr int HS = sizeof(MegaWindow<R>::h[0]) / sizeof(float);
   const int n = p.n, hh = p.halo, m = n + 2 * hh, rw = 6 * hh + 2;
   const long nn = (long)n * n;
   const float* gsn = p.gsn + (long)f * rw * n;
@@ -337,37 +415,44 @@ __device__ __forceinline__ float stage_window(const Params& p, StageWindow& w,
   const float* qa = cu + f * nn;
   const float* qb = cu + (6 + f) * nn;
   const bool vec = p.vec != 0;
-  stage_body<FTY + 4>(&w.h[0][0], qh, gsn, gwe, 0, n, hh, rw, j0 - 2, i0,
-                      vec);
+  stage_body<FTY + 2 * A, HS, A>(&w.h[0][0], qh, gsn, gwe, 0, n, hh, rw,
+                                 j0 - A, i0, vec);
   stage_body<FTY + 2>(&w.ua[0][0], qa, gsn, gwe, 1, n, hh, rw, j0 - 1, i0,
                       vec);
   stage_body<FTY + 2>(&w.ub[0][0], qb, gsn, gwe, 2, n, hh, rw, j0 - 1, i0,
                       vec);
   stage_band(w.b, p.b + (long)f * m * m, n, hh, j0, i0);
-  const ApronCell a = apron_cell();
-  if (a.fi < 0) return 0.0f;
-  const int jw = a.fi == 0 ? j0 - 2 : j0 - 1;
-  const float* q = a.fi == 0 ? qh : a.fi == 1 ? qa : qb;
-  const float* src = edge_src(q, gsn, gwe, a.fi, n, hh, rw, jw + a.r,
-                              i0 + a.c);
-  return src != nullptr ? __ldcg(src) : 0.0f;
+  ApronValues<A> v;
+#pragma unroll
+  for (int k = 0; k < APRON_CELLS<A>; ++k)
+    v.v[k] = apron_value<A>(qh, qa, qb, gsn, gwe, n, hh, rw, j0, i0, k);
+  return v;
 }
 
-// Stores the thread's apron value v into window w.
-__device__ __forceinline__ void put_apron(StageWindow& w, float v) {
-  const ApronCell a = apron_cell();
-  if (a.fi == 0)
-    w.h[a.r][WOFF + a.c] = v;
-  else if (a.fi == 1)
-    w.ua[a.r][WOFF + a.c] = v;
-  else if (a.fi == 2)
-    w.ub[a.r][WOFF + a.c] = v;
+// Stores the thread's apron values v into window w.
+template <class R>
+__device__ __forceinline__ void put_apron(MegaWindow<R>& w,
+                                          const ApronValues<R::A>& v) {
+  constexpr int A = R::A;
+#pragma unroll
+  for (int k = 0; k < APRON_CELLS<A>; ++k) {
+    const ApronCell a = apron_cell<A>(k);
+    if (a.fi == 0)
+      w.h[a.r][A + a.c] = v.v[k];
+    else if (a.fi == 1)
+      w.ua[a.r][WOFF + a.c] = v.v[k];
+    else if (a.fi == 2)
+      w.ub[a.r][WOFF + a.c] = v.v[k];
+  }
 }
 
 // Stage st on work item t: the three faces from f0 of the tile at (j0,
-// i0), from the stage input (h ch, u cu) into oh / ou and the strips.
-// mt_item is the item whose metric terms sm.mt holds (-1: none yet).
-__device__ __forceinline__ void stage_faces(const Params& p, Smem& sm, int st,
+// i0), from the stage input (h ch, u cu) into oh / ou and the strips, h's
+// face states by policy R.  mt_item is the item whose metric terms sm.mt
+// holds (-1: none yet).
+template <class R>
+__device__ __forceinline__ void stage_faces(const Params& p, Smem<R>& sm,
+                                            int st,
                                             const float* ch, const float* cu,
                                             float* oh, float* ou, int t,
                                             int f0, int j0, int i0,
@@ -381,19 +466,20 @@ __device__ __forceinline__ void stage_faces(const Params& p, Smem& sm, int st,
   const bool strips = j0 < hh || i0 < hh || j0 + FTY > n - hh
                       || i0 + FTX > n - hh;
 
-  float apron = stage_window(p, sm.w[0], ch, cu, f0, j0, i0);
+  ApronValues<R::A> apron =
+      stage_window<R>(p, sm.w[0], ch, cu, f0, j0, i0);
   async_commit();
   if (mt_item != t) {
     stage_metric(sm.mt, p.xc, p.xf, p.xc, p.xf, p.R2, p.inv_d, n, hh, j0,
                  i0);
     mt_item = t;
   }
-  put_apron(sm.w[0], apron);
+  put_apron<R>(sm.w[0], apron);
 
   for (int q = 0; q < FPB; ++q) {
     const int f = f0 + q, cur = q & 1;
     if (q + 1 < FPB) {
-      apron = stage_window(p, sm.w[cur ^ 1], ch, cu, f + 1, j0, i0);
+      apron = stage_window<R>(p, sm.w[cur ^ 1], ch, cu, f + 1, j0, i0);
       async_commit();
       async_wait<1>();
     } else {
@@ -434,15 +520,16 @@ __device__ __forceinline__ void stage_faces(const Params& p, Smem& sm, int st,
             for (int fi = 0; fi < 3; ++fi)
               put_strips(ssn, swe, fi, n, hh, j, i, vals[fi]);
         });
-    if (q + 1 < FPB) put_apron(sm.w[cur ^ 1], apron);
+    if (q + 1 < FPB) put_apron<R>(sm.w[cur ^ 1], apron);
     __syncthreads();   // w and the scratch are free for the next face
   }
 }
 
 // The face phase of stage st: every work item (tile positions x face
 // groups), one pass of the grid when gridDim.x >= the item count.
-__device__ __forceinline__ void face_phase(const Params& p, Smem& sm, int st,
-                                           int& mt_item) {
+template <class R>
+__device__ __forceinline__ void face_phase(const Params& p, Smem<R>& sm,
+                                           int st, int& mt_item) {
   // Stage inputs and outputs: y0 -> out, out -> B, B -> out.
   const float* ch = st == 0 ? p.y0h : st == 1 ? p.ho : p.bh;
   const float* cu = st == 0 ? p.y0u : st == 1 ? p.uo : p.bu;
@@ -453,45 +540,61 @@ __device__ __forceinline__ void face_phase(const Params& p, Smem& sm, int st,
   const int items = nx * ny * (6 / FPB);
   for (int t = blockIdx.x; t < items; t += gridDim.x) {
     const int g = t / (nx * ny), rem = t - g * nx * ny;
-    stage_faces(p, sm, st, ch, cu, oh, ou, t, g * FPB, rem / nx * FTY,
-                rem % nx * FTX, mt_item);
+    stage_faces<R>(p, sm, st, ch, cu, oh, ou, t, g * FPB, rem / nx * FTY,
+                   rem % nx * FTX, mt_item);
   }
 }
 
-__global__ void __launch_bounds__(NT, 3)
-cov_step_mega_kernel(const Params p) {
+template <class R>
+__device__ __forceinline__ void mega_step(const Params& p) {
   extern __shared__ __align__(16) float smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  Smem<R>& sm = *reinterpret_cast<Smem<R>*>(smem_raw);
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   int mt_item = -1;
   for (int st = 0; st < 3; ++st) {
     route_phase(p, st == 0 ? p.sn0 : p.sno, st == 0 ? p.we0 : p.weo);
     grid.sync();
-    face_phase(p, sm, st, mt_item);
+    face_phase<R>(p, sm, st, mt_item);
     if (st < 2) grid.sync();
   }
 }
 
-}  // namespace
+// One kernel per reconstruction; PLR-MC's keeps its name.
+__global__ void __launch_bounds__(NT, 3)
+cov_step_mega_kernel(const Params p) {
+  mega_step<PlrMc>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_step_mega_kernel_none(const Params p) {
+  mega_step<Plr<SlopeNone>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_step_mega_kernel_minmod(const Params p) {
+  mega_step<Plr<SlopeMinmod>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_step_mega_kernel_mc_sign(const Params p) {
+  mega_step<Plr<SlopeMcSign>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_step_mega_kernel_vanleer(const Params p) {
+  mega_step<Plr<SlopeVanleer>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_step_mega_kernel_ppm(const Params p) {
+  mega_step<Ppm>(p);
+}
 
-// Launches one step on `stream`; returns the cudaError_t of the shared
-// memory attribute, the occupancy query or the launch (0 = ok; -1: no
-// block fits) and the grid's block count in *blocks: every block the card
-// holds at once, at most max_blocks (> 0).  All tensors float32 (idx
-// int32), contiguous, in the layouts of Params; vec != 0 when n % 4 == 0
-// and the carry, its outputs and gsn / gwe are 16-byte aligned; tab holds
-// the host int32 arrays link_row (12), back_row (12), rev (12), sym_src
-// (24), and ab the host float32 table AB (3, 3), both copied into the
-// launch's parameters.
-extern "C" int cov_step_mega_f32(
-    const float* y0h, const float* y0u, const float* sn0, const float* we0,
-    const float* b_ext, const float* xc, const float* xf, const float* fz,
-    const int* idx, const float* tsn, const float* twe, const float* met,
-    float* ho, float* uo, float* sno, float* weo, float* bh, float* bu,
-    float* gsn, float* gwe, const int* tab, const float* ab, int n,
-    int halo, int n_sn, int n_we, int vec, int max_blocks, float R2,
-    float gravity, float two_omega, float inv2d, float inv_d, int* blocks,
-    void* stream) {
+// The launch's parameters, the host tables copied in.
+Params make_params(const float* y0h, const float* y0u, const float* sn0,
+                   const float* we0, const float* b_ext, const float* xc,
+                   const float* xf, const float* fz, const int* idx,
+                   const float* tsn, const float* twe, const float* met,
+                   float* ho, float* uo, float* sno, float* weo, float* bh,
+                   float* bu, float* gsn, float* gwe, const int* tab,
+                   const float* ab, int n, int halo, int n_sn, int n_we,
+                   int vec, float R2, float gravity, float two_omega,
+                   float inv2d, float inv_d) {
   Params p{y0h, y0u, sn0, we0, b_ext, xc, xf, fz, idx, tsn, twe, met, ho,
            uo, sno, weo, bh, bu, gsn, gwe, {}, {}, {}, {}, {}, n, halo,
            n_sn, n_we, vec, R2, gravity, two_omega, inv2d, inv_d};
@@ -502,25 +605,74 @@ extern "C" int cov_step_mega_f32(
   }
   for (int i = 0; i < 24; ++i) p.sym_src[i] = tab[36 + i];
   for (int i = 0; i < 9; ++i) p.AB[i / 3][i % 3] = ab[i];
+  return p;
+}
 
+// Launches kernel (the instance of policy R) cooperatively on `stream`,
+// on every block the card holds at once (at most max_blocks > 0), the
+// grid's block count in *blocks.
+template <class R>
+int launch(void (*kernel)(Params), const Params& p, int max_blocks,
+           int* blocks, void* stream) {
   *blocks = 0;
-  int rc = dynamic_smem_limit(cov_step_mega_kernel, sizeof(Smem));
+  int rc = dynamic_smem_limit<R>(kernel, sizeof(Smem<R>));
   if (rc != 0) return rc;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, cov_step_mega_kernel, NT, sizeof(Smem));
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT,
+                                                        sizeof(Smem<R>));
   if (err != cudaSuccess) return static_cast<int>(err);
   int nb = per_sm * sms;
   if (max_blocks > 0 && max_blocks < nb) nb = max_blocks;
   *blocks = nb;
   if (nb < 1) return -1;
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel(cov_step_mega_kernel, dim3(nb),
-                                    dim3(BX, BY), args, sizeof(Smem),
+  void* args[] = {const_cast<Params*>(&p)};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(nb), dim3(BX, BY), args,
+                                    sizeof(Smem<R>),
                                     static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
+
+}  // namespace
+
+// Launch one step on `stream`; each returns the cudaError_t of the shared
+// memory attribute, the occupancy query or the launch (0 = ok; -1: no
+// block fits) and the grid's block count in *blocks: every block the card
+// holds at once, at most max_blocks (> 0).  All tensors float32 (idx
+// int32), contiguous, in the layouts of Params; vec != 0 when n % 4 == 0
+// and the carry, its outputs and gsn / gwe are 16-byte aligned; tab holds
+// the host int32 arrays link_row (12), back_row (12), rev (12), sym_src
+// (24), and ab the host float32 table AB (3, 3), both copied into the
+// launch's parameters.  cov_step_mega_f32 is PLR-MC, cov_step_mega_<mode>_f32
+// the other reconstructions (PPM needs halo >= 3).
+#define COV_MEGA_ENTRY(NAME, KERNEL, POLICY)                                \
+  extern "C" int NAME(                                                      \
+      const float* y0h, const float* y0u, const float* sn0,                 \
+      const float* we0, const float* b_ext, const float* xc,                \
+      const float* xf, const float* fz, const int* idx, const float* tsn,   \
+      const float* twe, const float* met, float* ho, float* uo, float* sno, \
+      float* weo, float* bh, float* bu, float* gsn, float* gwe,             \
+      const int* tab, const float* ab, int n, int halo, int n_sn,           \
+      int n_we, int vec, int max_blocks, float R2, float gravity,           \
+      float two_omega, float inv2d, float inv_d, int* blocks,               \
+      void* stream) {                                                       \
+    const Params p = make_params(                                           \
+        y0h, y0u, sn0, we0, b_ext, xc, xf, fz, idx, tsn, twe, met, ho, uo,  \
+        sno, weo, bh, bu, gsn, gwe, tab, ab, n, halo, n_sn, n_we, vec, R2,  \
+        gravity, two_omega, inv2d, inv_d);                                  \
+    return launch<POLICY>(KERNEL, p, max_blocks, blocks, stream);           \
+  }
+
+COV_MEGA_ENTRY(cov_step_mega_f32, cov_step_mega_kernel, PlrMc)
+COV_MEGA_ENTRY(cov_step_mega_none_f32, cov_step_mega_kernel_none,
+               Plr<SlopeNone>)
+COV_MEGA_ENTRY(cov_step_mega_minmod_f32, cov_step_mega_kernel_minmod,
+               Plr<SlopeMinmod>)
+COV_MEGA_ENTRY(cov_step_mega_mc_sign_f32, cov_step_mega_kernel_mc_sign,
+               Plr<SlopeMcSign>)
+COV_MEGA_ENTRY(cov_step_mega_vanleer_f32, cov_step_mega_kernel_vanleer,
+               Plr<SlopeVanleer>)
+COV_MEGA_ENTRY(cov_step_mega_ppm_f32, cov_step_mega_kernel_ppm, Ppm)

@@ -32,7 +32,7 @@ import torch
 
 from ..geometry.connectivity import (EDGE_E, EDGE_N, EDGE_S, EDGE_W,
                                      build_connectivity, edge_pairs)
-from ..ops.cuda._launch import _P, _check_tensors, _entry, _ptr
+from ..ops.cuda._launch import _P, _check_tensors, _entry, _entry_name, _ptr
 from ..ops.cuda.swe_cov import (SSPRK3_COEFFS, _EORDER, _OUT_SIGN, _SLOT,
                                 _StageBase, _rotation_tables)
 from ..ops.cuda.swe_rhs import _fast_frame
@@ -251,11 +251,11 @@ def cov_stage_nbr_reference(stage, *args):
 # ---------------------------------------------------------------------------
 
 
-def _nbr_kernel():
-    """The neighbour-read stage kernel: 13 tensor pointers, 2 host
-    pointers to the int tables; n, halo, with_y0; 8 float constants; the
-    stream."""
-    return _entry("cov_stage_nbr", "cov_stage_nbr_f32",
+def _nbr_kernel(mode: str = "mc"):
+    """The neighbour-read stage kernel of reconstruction ``mode``: 13
+    tensor pointers, 2 host pointers to the int tables; n, halo, with_y0;
+    8 float constants; the stream."""
+    return _entry("cov_stage_nbr", _entry_name("cov_stage_nbr", mode),
                   [_P] * 15 + [ctypes.c_int] * 3 + [ctypes.c_float] * 8
                   + [_P])
 
@@ -266,8 +266,9 @@ class CovStageNbr(_StageBase):
     ``a == 0``: ``stage(hc, uc, b_ext)``; else ``stage(h0, u0, hc, uc,
     b_ext)``, with ``h*``, ``b_ext`` (6, M, M) and ``u*`` (2, 6, M, M).
     Returns ``(h, u)``, the whole new blocks (see
-    :func:`cov_stage_nbr_reference`).  CUDA tensors launch
-    ``csrc/cov_stage_nbr.cu``; CPU tensors, or any tensors with
+    :func:`cov_stage_nbr_reference`).  Every reconstruction (PLR with each
+    limiter; PPM at halo >= 3): CUDA tensors launch the mode's instance
+    of ``csrc/cov_stage_nbr.cu``; CPU tensors, or any tensors with
     ``interpret=True``, run the plain version.  There is no other path:
     a kernel that fails to build or launch raises.
     """
@@ -282,7 +283,6 @@ class CovStageNbr(_StageBase):
         super().__init__(grid.n, grid.halo, grid.dalpha, grid.radius,
                          gravity, omega, dt, a, b, scheme=scheme,
                          limiter=limiter, device=grid.device)
-        self._mc_only("neighbour-read stage (B13)")
         self.interpret = bool(interpret)
         n, h = self.n, self.halo
         self.tables = _nbr_tables(grid) if tables is None else tables
@@ -339,7 +339,7 @@ class CovStageNbr(_StageBase):
         ho = torch.empty_like(hc)
         uo = torch.empty_like(uc)
         T_sn, T_we = self.tables
-        rc = _nbr_kernel()(
+        rc = _nbr_kernel(self.mode)(
             _ptr(h0), _ptr(u0), hc.data_ptr(), uc.data_ptr(),
             b_ext.data_ptr(), T_sn.data_ptr(), T_we.data_ptr(),
             self._met.data_ptr(), self._xc.data_ptr(), self._xf.data_ptr(),
@@ -349,7 +349,7 @@ class CovStageNbr(_StageBase):
         if rc != 0:
             raise RuntimeError(
                 f"cov_stage_nbr kernel launch failed: cudaError {rc} "
-                f"(n={self.n}, halo={self.halo})")
+                f"(n={self.n}, halo={self.halo}, mode={self.mode})")
         CovStageNbr.launches += 1
         return ho, uo
 

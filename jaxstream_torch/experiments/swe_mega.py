@@ -29,7 +29,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..ops.cuda._launch import _P, _check_tensors, _entry
+from ..ops.cuda._launch import _P, _check_tensors, _entry, _entry_name
 from ..ops.cuda.swe_cov import (SSPRK3_COEFFS, _RhsBase, _SplitRoute, _fill,
                                 pack_strips_cov_split)
 from ..ops.cuda.swe_rhs import _f32
@@ -61,11 +61,12 @@ def cov_mega_step_reference(mega, h, u, strips_sn, strips_we, b_ext):
     return cur_h, cur_u, sn, we
 
 
-def _mega_kernel():
-    """The whole-step kernel: 20 tensor pointers, 2 host table pointers;
-    n, halo, n_sn, n_we, vec, max_blocks; 5 float constants; the
-    block-count out-pointer; the stream."""
-    return _entry("cov_step_mega", "cov_step_mega_f32",
+def _mega_kernel(mode: str = "mc"):
+    """The whole-step kernel of reconstruction ``mode``: 20 tensor
+    pointers, 2 host table pointers; n, halo, n_sn, n_we, vec,
+    max_blocks; 5 float constants; the block-count out-pointer; the
+    stream."""
+    return _entry("cov_step_mega", _entry_name("cov_step_mega", mode),
                   [_P] * 22 + [ctypes.c_int] * 6 + [ctypes.c_float] * 5
                   + [_P, _P])
 
@@ -76,11 +77,13 @@ class CovMegaStep(_RhsBase):
 
     ``step(h, u, strips_sn, strips_we, b_ext) -> (h, u, strips_sn,
     strips_we)`` with ``h`` (6, n, n), ``u`` (2, 6, n, n), the strips
-    (6, 6h, n) / (6, n, 6h) and ``b_ext`` (6, M, M).  CUDA tensors launch
-    ``csrc/cov_step_mega.cu``, one cooperative launch per step on as many
-    blocks as the card holds at once (at most ``max_blocks``, where given:
-    fewer blocks than work items take several each and recompute their
-    tiles' metric terms per item); CPU tensors, or any tensors with
+    (6, 6h, n) / (6, n, 6h) and ``b_ext`` (6, M, M).  Every reconstruction
+    (PLR with each limiter; PPM at halo >= 3): CUDA tensors launch the
+    mode's instance of ``csrc/cov_step_mega.cu``, one cooperative launch
+    per step on as many blocks as the card holds at once (at most
+    ``max_blocks``, where given: fewer blocks than work items take
+    several each and recompute their tiles' metric terms per item); CPU
+    tensors, or any tensors with
     ``interpret=True``, run :func:`cov_mega_step_reference`.  There is no
     other path: a kernel that fails to build or launch raises.
     ``blocks`` is the last launch's grid.
@@ -96,7 +99,6 @@ class CovMegaStep(_RhsBase):
         super().__init__(grid.n, grid.halo, grid.dalpha, grid.radius,
                          gravity, omega, scheme=scheme, limiter=limiter,
                          device=grid.device)
-        self._mc_only("whole-step (B12)")
         self.dt = float(dt)
         self.interpret = bool(interpret)
         self.max_blocks = max_blocks
@@ -138,7 +140,7 @@ class CovMegaStep(_RhsBase):
         vec = n % 4 == 0 and all(
             t.data_ptr() % 16 == 0 for t in (h, u, ho, uo, bh, bu, gsn, gwe))
         blocks = ctypes.c_int(0)
-        rc = _mega_kernel()(
+        rc = _mega_kernel(self.mode)(
             *[t.data_ptr() for t in args], self._xc.data_ptr(),
             self._xf.data_ptr(), self.fz.data_ptr(), self._idx.data_ptr(),
             r.T_sn.data_ptr(), r.T_we.data_ptr(), self._met.data_ptr(),
@@ -150,7 +152,8 @@ class CovMegaStep(_RhsBase):
         if rc != 0:
             raise RuntimeError(
                 f"cov_step_mega kernel launch failed: cudaError {rc} "
-                f"(n={n}, halo={hh}, blocks={blocks.value})")
+                f"(n={n}, halo={hh}, mode={self.mode}, "
+                f"blocks={blocks.value})")
         self.blocks = blocks.value
         CovMegaStep.launches += 1
         return ho, uo, sno, weo

@@ -726,9 +726,9 @@ class _ConstsBase(KernelBase):
     kernel wrapper of this module shares.
 
     ``scheme`` and ``limiter`` pick the reconstruction, ``mode`` names it
-    (``"ppm"``, or the PLR limiter): the compact stage (B1), the unfused
-    RHS (B4) and the extended-carry stage (B8) take every mode; B3, B5,
-    B6, B7, B12 and B13 PLR-MC only (:meth:`_mc_only`)."""
+    (``"ppm"``, or the PLR limiter): every kernel takes every mode (one
+    instance each) but the sharded tiers' block kernels, B5 and B6, which
+    run PLR-MC only (:meth:`_mc_only`)."""
 
     def __init__(self, n: int, halo: int, dalpha: float, radius: float,
                  gravity: float, omega: float, scheme: str = "plr",
@@ -748,7 +748,7 @@ class _ConstsBase(KernelBase):
 
     def _mc_only(self, kernel: str):
         """Refuse every reconstruction but PLR-MC: ``kernel``'s modes are
-        still owed (B3, B5, B6, B7, B12, B13)."""
+        still owed (B5, B6)."""
         if self.mode != "mc":
             raise NotImplementedError(
                 f"the {kernel} kernel implements PLR with the MC limiter; "
@@ -1186,10 +1186,11 @@ def cov_stage_refused_nu4_reference(stage, hc, uc, gsn, gwe, b_ext):
     return h1, u1, filt[0], torch.stack(filt[1:]), sn, we
 
 
-def _refused_kernel():
-    """The re-fused stage-1 kernel: 14 tensor pointers; n, halo; 7 float
-    constants; the stream."""
-    return _entry("cov_stage_refused_nu4", "cov_stage_refused_nu4_f32",
+def _refused_kernel(mode: str = "mc"):
+    """The re-fused stage-1 kernel of reconstruction ``mode``: 14 tensor
+    pointers; n, halo; 7 float constants; the stream."""
+    return _entry("cov_stage_refused_nu4",
+                  _entry_name("cov_stage_refused_nu4", mode),
                   [_P] * 14 + [ctypes.c_int] * 2 + [ctypes.c_float] * 7
                   + [_P])
 
@@ -1201,9 +1202,10 @@ class CovStageRefusedNu4(_StageBase):
     strips_we)``: the filter ``q -= dt nu4 lap(lap q)`` on the interiors
     of h, u_a, u_b (the split filter's arithmetic, ring-1 first
     Laplacian), then the plain stage-1 RHS and combine on the filtered
-    interior with the unfiltered routed ghosts.  CUDA tensors launch
-    ``csrc/cov_stage_refused_nu4.cu`` (the port of the Pallas kernel
-    ``make_cov_stage_refused_nu4``); CPU tensors run
+    interior with the unfiltered routed ghosts.  Every reconstruction
+    (PLR with each limiter; PPM at halo >= 3): CUDA tensors launch the
+    mode's instance of ``csrc/cov_stage_refused_nu4.cu`` (the port of the
+    Pallas kernel ``make_cov_stage_refused_nu4``); CPU tensors run
     :func:`cov_stage_refused_nu4_reference`.  There is no other path: a
     kernel that fails to build or launch raises.
     """
@@ -1217,7 +1219,6 @@ class CovStageRefusedNu4(_StageBase):
                  scheme: str = "plr", limiter: str = "mc", device="cuda"):
         super().__init__(n, halo, dalpha, radius, gravity, omega, dt, 0.0,
                          1.0, scheme=scheme, limiter=limiter, device=device)
-        self._mc_only("re-fused del^4 stage (B3)")
         self.nu4 = float(nu4)
         # Rounded once from float64, as the JAX kernel rounds it.
         self.damp = _f32(self.dt * self.nu4)
@@ -1232,7 +1233,7 @@ class CovStageRefusedNu4(_StageBase):
         outs = (torch.empty_like(hc), torch.empty_like(uc),
                 torch.empty_like(hc), torch.empty_like(uc),
                 hc.new_empty((6, 6 * h, n)), hc.new_empty((6, n, 6 * h)))
-        rc = _refused_kernel()(
+        rc = _refused_kernel(self.mode)(
             hc.data_ptr(), uc.data_ptr(), gsn.data_ptr(), gwe.data_ptr(),
             b_ext.data_ptr(), self._xc.data_ptr(), self._xf.data_ptr(),
             self.fz.data_ptr(), *[t.data_ptr() for t in outs],
@@ -1240,7 +1241,7 @@ class CovStageRefusedNu4(_StageBase):
         if rc != 0:
             raise RuntimeError(
                 f"cov_stage_refused_nu4 kernel launch failed: cudaError "
-                f"{rc} (n={n}, halo={h})")
+                f"{rc} (n={n}, halo={h}, mode={self.mode})")
         CovStageRefusedNu4.launches += 1
         return outs
 
@@ -1348,10 +1349,10 @@ def cov_stage_nu4_b_reference(stage, h_adv, u_adv, l1h, l1u, gsn, gwe):
     return h_new, u_new, sn, we
 
 
-def _nu4_a_kernel():
-    """Kernel A: 16 tensor pointers; n, halo, with_y0; 8 float constants;
-    the stream."""
-    return _entry("cov_stage_nu4", "cov_stage_nu4_a_f32",
+def _nu4_a_kernel(mode: str = "mc"):
+    """Kernel A of reconstruction ``mode``: 16 tensor pointers; n, halo,
+    with_y0; 8 float constants; the stream."""
+    return _entry("cov_stage_nu4", _entry_name("cov_stage_nu4_a", mode),
                   [_P] * 16 + [ctypes.c_int] * 3 + [ctypes.c_float] * 8
                   + [_P])
 
@@ -1375,8 +1376,10 @@ class CovStageNu4(_StageBase):
       ``gsn``/``gwe`` the routed l1 strips: ``adv - b dt nu4 lap(l1)``.
 
     CUDA tensors launch ``csrc/cov_stage_nu4.cu``'s two kernels (the port
-    of the Pallas pair of ``make_cov_stage_nu4``), each with its own
-    launch counter; CPU tensors run :func:`cov_stage_nu4_a_reference` /
+    of the Pallas pair of ``make_cov_stage_nu4``; A in the instance of
+    the reconstruction, PLR with each limiter or PPM at halo >= 3, B
+    reconstructs nothing), each with its own launch counter; CPU tensors
+    run :func:`cov_stage_nu4_a_reference` /
     :func:`cov_stage_nu4_b_reference`.  There is no other path.
 
     The JAX pair routes with the unprescaled router and multiplies the
@@ -1398,7 +1401,6 @@ class CovStageNu4(_StageBase):
                  device="cuda"):
         super().__init__(n, halo, dalpha, radius, gravity, omega, dt, a, b,
                          scheme=scheme, limiter=limiter, device=device)
-        self._mc_only("in-stage del^4 pair (B7)")
         self.nu4 = float(nu4)
         # f32(b dt nu4), rounded once from float64 as the JAX kernel B.
         self.damp = _f32(self.b * self.dt * self.nu4)
@@ -1415,7 +1417,7 @@ class CovStageNu4(_StageBase):
         outs = (torch.empty_like(hc), torch.empty_like(uc),
                 torch.empty_like(hc), torch.empty_like(uc),
                 hc.new_empty((6, 6 * h, n)), hc.new_empty((6, n, 6 * h)))
-        rc = _nu4_a_kernel()(
+        rc = _nu4_a_kernel(self.mode)(
             _ptr(h0), _ptr(u0), hc.data_ptr(), uc.data_ptr(),
             gsn.data_ptr(), gwe.data_ptr(), b_ext.data_ptr(),
             self._xc.data_ptr(), self._xf.data_ptr(), self.fz.data_ptr(),
@@ -1423,7 +1425,8 @@ class CovStageNu4(_StageBase):
             *self._kconsts, self._stream())
         if rc != 0:
             raise RuntimeError(f"cov_stage_nu4 kernel A launch failed: "
-                               f"cudaError {rc} (n={n}, halo={h})")
+                               f"cudaError {rc} (n={n}, halo={h}, "
+                               f"mode={self.mode})")
         CovStageNu4.launches_a += 1
         return outs
 

@@ -12,7 +12,9 @@ levers of B12, B11, B7 A, B13, B8, B9, B10, B3 and B7 B.
 
 ``--parts`` picks what runs (default all): ``b1b2`` (B1, B2 and the
 OTHER variants), ``b12``, ``b4``, ``b11b7a``, ``b13b8``, ``b9b10``,
-``b3b7b``.  ``--ink DIR``,
+``b3b7b``, ``b3ppm`` (B3's PPM instance against the same source with
+u's windows as deep as h's, on the Galewsky jet at halo 3; the earlier
+tree is not read).  ``--ink DIR``,
 ``--nu4a DIR``, ``--nbr DIR`` and ``--ext DIR`` add variant .cu files of
 this tree's ``swe_stage_inkernel.cu``, ``cov_stage_nu4.cu``,
 ``cov_stage_nbr.cu`` and ``cov_stage_inkernel.cu`` (built against this
@@ -1180,6 +1182,63 @@ def probe_b3b7b(libs, n, card, sass):
     return checks, times, steps
 
 
+#: B3's PPM layouts: label -> library name.
+B3_PPM_FORMS = {"uniform windows": "b3_ppm_uniform",
+                "h's chain alone": "cov_stage_refused_nu4"}
+
+
+def b3_ppm_uniform() -> str:
+    """This tree's B3 with u's windows as deep as h's in every mode (PPM:
+    psi 34 x 42 and l1 32 x 40 for all three fields, 78 960 B, two blocks
+    per SM)."""
+    from jaxstream_torch import _build
+
+    src = (_build.CSRC_DIR / "cov_stage_refused_nu4.cu").read_text()
+    return _sub(src, "constexpr bool DEEP_H = R::A > 2;",
+                "constexpr bool DEEP_H = false;")
+
+
+def probe_b3_ppm(libs, n, card):
+    """B3's PPM instance in both layouts on the C``n`` Galewsky carry at
+    halo 3 after one re-fused PPM step (nu4 = 1e14 and a probe's 1e21):
+    bitwise checks and device µs per launch in turns."""
+    from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
+                                        EARTH_RADIUS)
+    from jaxstream_torch.geometry.cubed_sphere import build_grid
+    from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
+    from jaxstream_torch.ops.cuda import swe_cov
+    from jaxstream_torch.physics.initial_conditions import galewsky
+
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fns = {k: entry(libs[lib], "cov_stage_refused_nu4_ppm_f32",
+                    [P] * 14 + [I] * 2 + [F] * 7 + [P])
+           for k, lib in B3_PPM_FORMS.items()}
+
+    def use(key):
+        return lambda: setattr(swe_cov, "_refused_kernel",
+                               lambda mode="mc": fns[key])
+
+    grid = build_grid(n, halo=3, radius=EARTH_RADIUS, dtype=torch.float32)
+    gal = CovariantShallowWater(grid, gravity=EARTH_GRAVITY,
+                                omega=EARTH_OMEGA, nu4=1.0e14, scheme="ppm")
+    step = gal.make_fused_step(60.0, nu4_mode="refused")
+    y = step(gal.compact_state(gal.initial_state(
+        *galewsky(grid, EARTH_GRAVITY, EARTH_OMEGA))), 0.0)
+    a = (y["h"], y["u"]) + step.route(y["strips_sn"], y["strips_we"]) + (
+        gal.b_ext,)
+    probe = swe_cov.make_cov_stage_refused_nu4(
+        grid, EARTH_GRAVITY, EARTH_OMEGA, 60.0, 1.0e21, scheme="ppm")
+    checks = {}
+    for key in B3_PPM_FORMS:
+        use(key)()
+        for label, st in (("Galewsky", step.stage1f), ("probe", probe)):
+            checks[f"B3 PPM {key} {label}"] = bitwise(st, st.reference, a)
+    times = {"B3 PPM Galewsky": in_turns(
+        {k: use(k) for k in B3_PPM_FORMS}, step.stage1f, a)}
+    use("h's chain alone")()
+    return checks, times
+
+
 def sass_kept(sass) -> None:
     """Print the SASS counts of the libraries (or the functions) of
     ``SASS_KEPT`` beside the earlier tree's.  The functions' names differ
@@ -1213,7 +1272,8 @@ def main() -> int:
     args = sys.argv[1:]
     n = 384
     mega_dir = None
-    parts = {"b1b2", "b12", "b4", "b11b7a", "b13b8", "b9b10", "b3b7b"}
+    parts = {"b1b2", "b12", "b4", "b11b7a", "b13b8", "b9b10", "b3b7b",
+             "b3ppm"}
     var_dirs = {}
     while args[:1] in (["--n"], ["--mega"], ["--parts"], ["--ink"],
                        ["--nu4a"], ["--nbr"], ["--ext"]):
@@ -1322,6 +1382,9 @@ def main() -> int:
                 (parent / f"{name}.cu").read_text(), parent))
         for name, text in b3b7b_levers().items():
             variants[name] = (text, _build.CSRC_DIR)
+    if "b3ppm" in parts:
+        ours.append("cov_stage_refused_nu4")
+        variants["b3_ppm_uniform"] = (b3_ppm_uniform(), _build.CSRC_DIR)
     if "b13b8" in parts:
         for name, text in b13b8_levers().items():
             variants[name] = (text, _build.CSRC_DIR)
@@ -1469,6 +1532,10 @@ def main() -> int:
             libs, n, card, sass)
         more.update(nu4_checks)
         times.update(nu4_times)
+    if "b3ppm" in parts:
+        ppm_checks, ppm_times = probe_b3_ppm(libs, n, card)
+        more.update(ppm_checks)
+        times.update(ppm_times)
     checks.update(more)
     print(f"bitwise vs plain at C{n} (B12, B4, B11, B7 A, B13, B8, B9, "
           f"B10, B3, B7 B, B14): {more}", flush=True)

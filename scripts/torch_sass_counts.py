@@ -12,8 +12,10 @@ mode.  A tree is a directory holding ``jaxstream_torch/csrc`` (this
 checkout is ``.``; an earlier one, ``git archive <commit>
 jaxstream_torch/csrc | tar -x -C build/jaxstream_torch/parent``).  The
 functions' names carry a hash of their file, so two trees are compared
-by the counts, in ptxas's order.  Needs the CUDA toolkit (the machine
-with the GPU).
+by the counts, in ptxas's order: for each library, a last line says
+whether every later tree's PLR-MC functions (those without a mode) build
+to the first tree's SASS counts and ptxas figures.  Needs the CUDA
+toolkit (the machine with the GPU).
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ def main() -> int:
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip(jobs, pool.map(lambda j: build(*j), jobs)))
     for nm in names:
+        plain = {}
         for t in trees:
             lib, log = built[(t, nm)]
             sass = sass_counts(lib)
@@ -67,7 +70,16 @@ def main() -> int:
                 tag = " ".join(m.groups()) if m else "mc"
                 rows.append(f"{tag}: sass {sass.get(fn, -1)}, regs {regs}, "
                             f"smem {smem}, spill {spill}")
+                if m is None:
+                    plain.setdefault(t, []).append(
+                        (sass.get(fn, -1), regs, smem, spill))
             print(f"{nm} [{t}]: " + "; ".join(rows), flush=True)
+        first = plain.get(trees[0], [])
+        for t in trees[1:]:
+            got = plain.get(t, [])
+            print(f"{nm} [{t}] PLR-MC functions (sass, regs, smem, spill) "
+                  + ("as " if got == first else f"{got}, not as ")
+                  + f"[{trees[0]}] {first}", flush=True)
     return 0
 
 

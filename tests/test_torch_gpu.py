@@ -841,3 +841,127 @@ def test_recon_mode_kernels_match_plain(n):
         before = tcov.CovNu4Filter.launches
         _check("B2 halo 3", f, f.reference, args, tol, exact=True)
         assert tcov.CovNu4Filter.launches == before + 1
+
+
+def _mode_model(n, mode, nu4=0.0):
+    """The C``n`` TC5 model on the card in ``mode`` (halo 3 for PPM), at
+    ``nu4``, its initial state and dt at the C384 CFL."""
+    scheme, limiter = _NEW_MODES[mode]
+    g = build_grid(n, halo=3 if scheme == "ppm" else 2, radius=EARTH_RADIUS,
+                   device="cuda")
+    h, v, b = williamson_tc5(g, EARTH_GRAVITY, EARTH_OMEGA)
+    m = CovariantShallowWater(g, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA,
+                              b_ext=b, nu4=nu4, scheme=scheme,
+                              limiter=limiter)
+    return g, m, m.initial_state(h, v), 75.0 * 384 / n
+
+
+def _every_mode(n, body):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
+    for mode in ("mc",) + tuple(_NEW_MODES):
+        body(n, mode)
+
+
+def _nbr_modes(n, mode):
+    scheme, limiter = ("plr", "mc") if mode == "mc" else _NEW_MODES[mode]
+    g, m, s0, dt = _mode_model(n, "ppm" if scheme == "ppm" else "none")
+    step = nbr.make_fused_ssprk3_cov_nbr(g, EARTH_GRAVITY, EARTH_OMEGA, dt,
+                                         m.b_ext, scheme=scheme,
+                                         limiter=limiter)
+    st1, st2, st3 = step.stages
+    assert [st.mode for st in step.stages] == [mode] * 3
+    y1 = step(m.extend_state(s0), 0.0)
+    y11, _ = integrate(step, y1, dt, 10, dt)
+    for y in (y1, y11):
+        b = m.b_ext
+        k1 = st1.reference(y["h"], y["u"], b)
+        rest = tuple(k1) + (b,)
+        for st, args, tol in (
+                (st1, (y["h"], y["u"], b), TOL),
+                (st2, (y["h"], y["u"]) + rest, TOL),
+                (st3, (y["h"], y["u"]) + rest, TOL),
+                (st3, (-2.0 * k1[0], -2.0 * k1[1]) + rest, TENDENCY_TOL)):
+            before = nbr.CovStageNbr.launches
+            _check(f"B13 {mode}", st, st.reference, args, tol, exact=True)
+            assert nbr.CovStageNbr.launches == before + 1
+
+
+def _mega_modes(n, mode):
+    scheme, limiter = ("plr", "mc") if mode == "mc" else _NEW_MODES[mode]
+    g, m, s0, dt = _mode_model(n, "ppm" if scheme == "ppm" else "none")
+    step = mega.make_fused_ssprk3_cov_mega(g, EARTH_GRAVITY, EARTH_OMEGA, dt,
+                                           m.b_ext, scheme=scheme,
+                                           limiter=limiter)
+    kern = step.kernel
+    assert kern.mode == mode
+    few = mega.CovMegaStep(g, EARTH_GRAVITY, EARTH_OMEGA, dt, scheme=scheme,
+                           limiter=limiter, max_blocks=5)
+    y1 = step(m.compact_state(s0), 0.0)
+    y11, _ = integrate(step, y1, dt, 10, dt)
+    for y in (y1, y11):
+        args = (y["h"], y["u"], y["strips_sn"], y["strips_we"], m.b_ext)
+        for k in (kern, few):
+            before = mega.CovMegaStep.launches
+            _check(f"B12 {mode}", k, k.reference, args, TOL, exact=True)
+            assert mega.CovMegaStep.launches == before + 1
+    assert few.blocks == 5 and kern.blocks > 5
+
+
+def _nu4_modes(n, mode):
+    scheme, limiter = ("plr", "mc") if mode == "mc" else _NEW_MODES[mode]
+    g, m, s0, dt = _mode_model(n, "ppm" if scheme == "ppm" else "none",
+                               nu4=1.0e14)
+    split = m.make_fused_step(dt)
+    y1 = split(m.compact_state(s0), 0.0)
+    y11, _ = integrate(split, y1, dt, 10, dt)
+    c = (g, EARTH_GRAVITY, EARTH_OMEGA, dt)
+    refused = [tcov.make_cov_stage_refused_nu4(*c, nu4, scheme=scheme,
+                                               limiter=limiter)
+               for nu4 in (1.0e14, 1.0e21)]
+    pairs = [tcov.CovStageNu4(n, g.halo, g.dalpha, g.radius, EARTH_GRAVITY,
+                              EARTH_OMEGA, dt, a, bb, 1.0e14, scheme=scheme,
+                              limiter=limiter, device=g.device)
+             for a, bb in tcov.SSPRK3_COEFFS]
+    for y in (y1, y11):
+        a1 = (y["h"], y["u"]) + split.route(y["strips_sn"], y["strips_we"]) \
+            + (m.b_ext,)
+        for st, tol in zip(refused, (TOL, PROBE_TOL)):
+            assert st.mode == mode
+            before = tcov.CovStageRefusedNu4.launches
+            _check(f"B3 {mode}", st, st.reference, a1, tol, exact=True)
+            assert tcov.CovStageRefusedNu4.launches == before + 1
+        for st in pairs:
+            assert st.mode == mode
+            args = (y["h"], y["u"]) + a1 if st.with_y0 else a1
+            before = tcov.CovStageNu4.launches_a
+            _check(f"B7 A {mode}", st.call_a, st.reference_a, args, TOL,
+                   exact=True)
+            assert tcov.CovStageNu4.launches_a == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [48, 74], ids=["c48", "c74"])
+def test_nbr_kernel_every_mode_matches_plain(n):
+    """B13 in PLR-MC and each other mode (PPM at halo 3), stages 1-3 and
+    the probe, on the TC5 carry after one nbr step and after eleven:
+    bitwise equal to its plain version."""
+    _every_mode(n, _nbr_modes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [48, 74], ids=["c48", "c74"])
+def test_mega_kernel_every_mode_matches_plain(n):
+    """B12 in every mode, on its own grid and on 5 blocks (blocks take
+    several items), one step from the carry after one step and after
+    eleven: bitwise equal to its plain version."""
+    _every_mode(n, _mega_modes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [48, 74], ids=["c48", "c74"])
+def test_refused_and_stage_a_kernels_every_mode_match_plain(n):
+    """B3 (nu4 = 1e14 and a probe's 1e21) and B7 A (stages 1-3) in every
+    mode, on TC5's orography at nu4 = 1e14, the carry after one split
+    step and after eleven: bitwise equal to their plain versions."""
+    _every_mode(n, _nu4_modes)

@@ -326,7 +326,7 @@ _FACES_WINDOW = {"cov_stage": "= sm.w[cur];",
                  "cov_nu4_filter": "= sm.psi[cur];"}
 #: B1's prefetch of the next face's window; the mutation stages the
 #: current face again, which a field symmetric across faces would hide.
-_STAGE_PREFETCH = "stage_window(p, sm.w[cur ^ 1], f + 1, j0, i0);"
+_STAGE_PREFETCH = "stage_compact_window(p, sm.w[cur ^ 1], f + 1, j0, i0);"
 
 
 def _faces_operands(n, scheme="plr", limiter="mc"):
@@ -917,7 +917,7 @@ def test_stage_nu4_a_kernel_tc5_orography(launch_on_cpu, redesign_cases, n):
 
 _INK_WINDOW = "const SweWindowR<R>& w = sm.w[cur];"
 _INK_PREFETCH = "stage_window(p, sm.w[cur ^ 1], f + 1, j0, i0);"
-_A_CORNERS = "    if (edge) {\n      fill_corners<2>"
+_A_CORNERS = "    if (edge) {\n      fill_corners<A, 2, FTX + 2 * A, A>"
 _A_XFACES = "return CellMetric{mt.xa[ly][lx],     mt.xb[ly][lx],"
 
 
@@ -1259,17 +1259,16 @@ def test_whole_block_stage_kernels_larger_grids(launch_on_cpu,
     assert cls.launches == before + len(stages)
 
 
-_WB_WINDOW = "const StageWindow& w = sm.w[cur];"
-_B8_WINDOW = "const StageWindowR<R>& w = sm.w[cur];"
+_WB_WINDOW = "const StageWindowR<R>& w = sm.w[cur];"
 _WB_PREFETCH = "stage_window(p, sm.w[cur ^ 1], f + 1, j0, i0);"
-_NBR_GHOSTS = "ghost_load(p, gu, f + 1, j0, i0, gq);"
+_NBR_GHOSTS = "ghost_load<R>(p, gu, f + 1, j0, i0, gq);"
 _NBR_T = "g.ta = t_at(p, 2 * comp, f, a.s, 0, a.k);"
 _NBR_SYM = ("const SymRows rows{&sm.sym[q][0][0] - i0, "
             "&sm.sym[q][1][0] - i0,")
 
 
 @pytest.mark.parametrize("kernel, old, new", [
-    ("B8", _B8_WINDOW, _B8_WINDOW.replace("cur", "cur ^ 1")),
+    ("B8", _WB_WINDOW, _WB_WINDOW.replace("cur", "cur ^ 1")),
     ("B8", _WB_PREFETCH, _WB_PREFETCH.replace("f + 1", "f")),
     ("B13", _WB_WINDOW, _WB_WINDOW.replace("cur", "cur ^ 1")),
     ("B13", _WB_PREFETCH, _WB_PREFETCH.replace("f + 1", "f")),
@@ -1608,7 +1607,9 @@ def test_whole_face_kernels_pass_rows_as_columns():
     face's one pair), the group kernels their groups' own rows and
     columns: the two block kernels through cov_faces.cuh's rhs_group, B4
     through its own group loop (its wrapper hands every group the
-    full-face pair as rows and columns)."""
+    full-face pair as rows and columns).  The re-fused stage has two
+    bodies, PLR's and PPM's (``refused_faces_deep``): each call site is
+    checked."""
     sources = {name: (_build.CSRC_DIR / fname).read_text()
                for name, fname in _build.KERNELS.items()}
     sources["cov_faces.cuh"] = (_build.CSRC_DIR / "cov_faces.cuh").read_text()
@@ -1634,8 +1635,10 @@ def test_whole_face_kernels_pass_rows_as_columns():
                 else ["stage_face_tile", "stage_metric"])
         assert sorted(fns) == want, (name, fns)
         for fn in want:
-            assert len(fns[fn]) == 1, (name, fn)
-            assert faces_in_block[name] in fns[fn][0], (name, fns[fn][0])
+            sites = 2 if name == "cov_stage_refused_nu4" else 1
+            assert len(fns[fn]) == sites, (name, fn)
+            for call in fns[fn]:
+                assert faces_in_block[name] in call, (name, call)
     for name, seam in (("cov_rhs_interior", "None"),
                        ("cov_rhs_local", "Frame")):
         assert sources[name].count(f"rhs_group<Seam::{seam}>(p, sm,") == 1
@@ -1643,5 +1646,145 @@ def test_whole_face_kernels_pass_rows_as_columns():
                        ("cov_stage_refused_nu4", "Prescaled"),
                        ("cov_stage_inkernel", "Frame"),
                        ("cov_stage_nbr", "Frame")):
-        assert calls[name]["stage_face_tile"][0].count(
-            f"stage_face_tile<Seam::{seam}>(") == 1
+        for call in calls[name]["stage_face_tile"]:
+            assert call.count(f"stage_face_tile<Seam::{seam}>(") == 1
+
+
+# ---- every reconstruction on B13, B12, B3 and B7 A ------------------------
+#
+# Each mode is its own instance of the neighbour-read stage (csrc/
+# cov_stage_nbr.cu), the whole step (csrc/cov_step_mega.cu), the re-fused
+# stage (csrc/cov_stage_refused_nu4.cu) and the in-stage kernel A (csrc/
+# cov_stage_nu4.cu): PLR with the four limiters besides MC at halo 2, and
+# PPM at halo 3, whose h windows have 3-deep aprons (B3's whole chain one
+# cell deeper, B12's rows padded), whose neighbour reads and ghost rings
+# are 3 deep and whose routes carry 20-row strips.
+
+
+def _router_free_mode_operands(n, mode):
+    """C``n`` TC5 in ``mode`` (halo 3 for PPM): B13's stages 1-3 and stage
+    3 with y0 = -2*yc on the state after one classic step (with the halo
+    exchangers' ghost corners), and B12 (its grid as the stand-in
+    occupancy gives it, and 5 blocks: blocks take two items) on the carry
+    after one plain step: ``[(kernel, args), ...]``."""
+    scheme, limiter = _NEW_MODES[mode]
+    g = build_grid(n, halo=3 if scheme == "ppm" else 2, radius=EARTH_RADIUS,
+                   device="cpu")
+    h, v, b = williamson_tc5(g, G, OM)
+    m = CovariantShallowWater(g, gravity=G, omega=OM, b_ext=b, scheme=scheme,
+                              limiter=limiter)
+    s0 = m.initial_state(h, v)
+    dt = 75.0 * 384 / n
+    b = m.b_ext
+    step = nbr.make_fused_ssprk3_cov_nbr(g, G, OM, dt, b, scheme=scheme,
+                                         limiter=limiter)
+    hc, uc = _exchanged_corners(m, m.extend_state(m.make_step(dt)(s0, 0.0)))
+    st1, st2, st3 = step.stages
+    k1 = st1.reference(hc, uc, b)
+    rest = tuple(k1) + (b,)
+    cases = [(st1, (hc, uc, b)), (st2, (hc, uc) + rest),
+             (st3, (hc, uc) + rest),
+             (st3, (-2.0 * k1[0], -2.0 * k1[1]) + rest)]
+    for blocks in (None, 5):
+        kern = mega.CovMegaStep(g, G, OM, dt, scheme=scheme, limiter=limiter,
+                                max_blocks=blocks)
+        cases.append((kern, _mega_args(kern, m, s0, 1)))
+    return cases
+
+
+def _nu4_mode_operands(n, mode):
+    """C``n`` TC5 (the mountain's orography) at nu4 = 1e14 in ``mode``:
+    B3 at nu4 = 1e14 and at the probe's (the filter term dominating), and
+    kernel A as stages 1 and 2, on the compact carry of the state after
+    one classic del^4 step, with its routed ghosts:
+    ``[(kernel, call, reference, args), ...]``."""
+    scheme, limiter = _NEW_MODES[mode]
+    g = build_grid(n, halo=3 if scheme == "ppm" else 2, radius=EARTH_RADIUS,
+                   device="cpu")
+    h, v, b = williamson_tc5(g, G, OM)
+    m = CovariantShallowWater(g, gravity=G, omega=OM, b_ext=b, nu4=1.0e14,
+                              scheme=scheme, limiter=limiter)
+    dt = 75.0 * 384 / n
+    y = m.compact_state(m.make_step(dt)(m.initial_state(h, v), 0.0))
+    a1 = (y["h"], y["u"]) + tsc.make_cov_strip_router_split(g)(
+        y["strips_sn"], y["strips_we"]) + (m.b_ext,)
+    cases = []
+    for nu4 in (1.0e14, _PROBE_NU4):
+        st = tsc.make_cov_stage_refused_nu4(g, G, OM, dt, nu4, scheme=scheme,
+                                            limiter=limiter)
+        cases.append((st, st, st.reference, a1))
+    for a, bb in tsc.SSPRK3_COEFFS[:2]:
+        st = tsc.CovStageNu4(n, g.halo, g.dalpha, g.radius, G, OM, dt, a, bb,
+                             1.0e14, scheme=scheme, limiter=limiter,
+                             device="cpu")
+        args = a1 if a == 0.0 else (y["h"], y["u"]) + a1
+        cases.append((st, st.call_a, st.reference_a, args))
+    return cases
+
+
+@pytest.mark.parametrize("mode", sorted(_NEW_MODES))
+@pytest.mark.parametrize("n", _MODE_SIZES)
+def test_router_free_and_nu4_kernels_in_each_mode(launch_on_cpu, n, mode):
+    """B13 (stages 1-3 and the probe), B12 (on its own grid and on 5
+    blocks), B3 (nu4 = 1e14 and the probe's) and B7 A (stages 1 and 2) in
+    each mode besides PLR-MC, bitwise equal to their plain versions: at
+    C40 (every tile on an edge, ragged) and C74 (ragged by 2 and 10
+    cells)."""
+    counters = lambda: (nbr.CovStageNbr.launches, mega.CovMegaStep.launches,
+                        tsc.CovStageRefusedNu4.launches,
+                        tsc.CovStageNu4.launches_a)
+    router_free, nu4 = (_router_free_mode_operands(n, mode),
+                        _nu4_mode_operands(n, mode))
+    before = counters()
+    for kern, args in router_free:
+        assert kern.mode == mode
+        _equal(kern(*args), kern.reference(*args))
+    for kern, call, ref, args in nu4:
+        assert kern.mode == mode
+        _equal(call(*args), ref(*args))
+    assert [c - k for c, k in zip(counters(), before)] == [4, 2, 2, 2]
+
+
+#: One mutation per source, each one only PPM's 3-deep h apron can show:
+#: B13's h window a row off; B12's second apron cell of a thread (PPM's h
+#: apron needs 284 cells of 256 threads) the first one again; B3's E read
+#: by the stage from psi one cell off; B7 A's Laplacian of h centred one
+#: cell off.
+_MODE_MUTATIONS = {
+    "b13-ppm-window-row": (
+        "cov_stage_nbr",
+        "(&w.h[0][0], p, 0, f, j0 - A,", "(&w.h[0][0], p, 0, f, j0 - 2,"),
+    "b12-ppm-second-apron-cell": (
+        "cov_step_mega",
+        "const int t = tid_y() * BX + tid_x() + k * NT;",
+        "const int t = tid_y() * BX + tid_x();"),
+    "b3-ppm-e-window": (
+        "cov_stage_refused_nu4",
+        "rows_at<PX>(&w.h[AP - A][AP - A]),",
+        "rows_at<PX>(&w.h[AP - 2][AP - 2]),"),
+    "b7a-ppm-laplacian": (
+        "cov_stage_nu4",
+        "lap_at<FTX + 2 * A>(&w.h[0][0], ly + A, A + lx,",
+        "lap_at<FTX + 2 * A>(&w.h[0][0], ly + 2, 2 + lx,"),
+}
+
+
+@pytest.mark.parametrize("mutation", sorted(_MODE_MUTATIONS))
+def test_mode_mutation_is_caught(emulated, launch_on_cpu, monkeypatch,
+                                 mutation):
+    """Each mutation, in mode PPM at C40, must disagree with the plain
+    version (B13 as stage 2, B12 on 5 blocks, B3 at the probe's nu4, A as
+    stage 2)."""
+    name, old, new = _MODE_MUTATIONS[mutation]
+    lib = _mutated_lib(emulated, name, old, new)
+    monkeypatch.setattr(_build, "load", lambda nm: ctypes.CDLL(
+        str(lib if nm == name else emulated[nm])))
+    if name in ("cov_stage_nbr", "cov_step_mega"):
+        cases = _router_free_mode_operands(40, "ppm")
+        kern, args = cases[1 if name == "cov_stage_nbr" else 5]
+        out, ref = kern(*args), kern.reference(*args)
+    else:
+        cases = _nu4_mode_operands(40, "ppm")
+        _, call, reference, args = cases[1 if name != "cov_stage_nu4" else 3]
+        out, ref = call(*args), reference(*args)
+    assert not all(torch.equal(x, r) for x, r in zip(out, ref))

@@ -152,31 +152,22 @@ def test_ppm_needs_halo_3():
 def _owed(kernel, limiter):
     """Build kernel ``kernel`` (one whose modes are still owed) at C8 with
     ``limiter``."""
-    from jaxstream_torch.experiments import swe_cov_nbr, swe_mega
-
     g = build_grid(8, halo=2, radius=EARTH_RADIUS, dtype=torch.float32,
                    device="cpu")
     c = (8, 2, g.dalpha, g.radius, G, OM)
     kw = {"limiter": limiter}
     return {
-        "B3": lambda: tcov.make_cov_stage_refused_nu4(g, G, OM, 60.0, 1e14,
-                                                      device="cpu", **kw),
         "B5": lambda: tcov.make_cov_rhs_interior_local(*c, device="cpu",
                                                        **kw),
         "B6": lambda: tcov.make_cov_rhs_pallas_local(*c, device="cpu", **kw),
-        "B7": lambda: tcov.make_cov_stage_nu4(g, G, OM, 60.0, 0.0, 1.0,
-                                              1e14, device="cpu", **kw),
-        "B12": lambda: swe_mega.make_fused_ssprk3_cov_mega(
-            g, G, OM, 60.0, torch.zeros(6, 12, 12), **kw),
-        "B13": lambda: swe_cov_nbr.make_cov_stage_nbr(g, G, OM, 60.0, 0.0,
-                                                      1.0, **kw),
     }[kernel]()
 
 
-@pytest.mark.parametrize("kernel", ["B3", "B5", "B6", "B7", "B12", "B13"])
+@pytest.mark.parametrize("kernel", ["B5", "B6"])
 def test_owed_kernels_refuse_other_modes(kernel):
-    """The covariant kernels whose modes are still owed build in PLR-MC
-    and refuse every other mode, naming ROADMAP queue B item 1."""
+    """The covariant kernels whose modes are still owed (the sharded
+    tiers' block kernels) build in PLR-MC and refuse every other mode,
+    naming ROADMAP queue B item 1."""
     _owed(kernel, "mc")
     with pytest.raises(NotImplementedError,
                        match="MC limiter.*queue B item 1"):
@@ -186,6 +177,7 @@ def test_owed_kernels_refuse_other_modes(kernel):
 def _every_mode_kernel(kernel, scheme, limiter, halo=None):
     """Build kernel ``kernel`` (one that takes every mode) at C8 in the
     mode, at ``halo`` (default: 3 for PPM, else 2)."""
+    from jaxstream_torch.experiments import swe_cov_nbr, swe_mega
     from jaxstream_torch.ops.cuda import swe_rhs as tsr
     from jaxstream_torch.ops.cuda import swe_step as tss
 
@@ -193,20 +185,31 @@ def _every_mode_kernel(kernel, scheme, limiter, halo=None):
     g = build_grid(8, halo=h, radius=EARTH_RADIUS, dtype=torch.float32,
                    device="cpu")
     c = (8, h, g.dalpha, g.radius, G, OM)
-    kw = {"scheme": scheme, "limiter": limiter, "device": "cpu"}
+    mode = {"scheme": scheme, "limiter": limiter}
+    kw = dict(mode, device="cpu")
     return {
+        "B3": lambda: tcov.make_cov_stage_refused_nu4(g, G, OM, 60.0, 1e14,
+                                                      **kw),
+        "B7": lambda: tcov.make_cov_stage_nu4(g, G, OM, 60.0, 0.0, 1.0,
+                                              1e14, **kw)[0].__self__,
         "B8": lambda: tcov.make_cov_stage_inkernel(*c, 60.0, 0.0, 1.0, **kw),
         "B9": lambda: tsr.make_swe_rhs_pallas(*c, **kw),
         "B10": lambda: tss.make_swe_stage_pallas(*c, 60.0, 0.75, 0.25, **kw),
         "B11": lambda: tss.make_swe_stage_inkernel(*c, 60.0, 0.0, 1.0, **kw),
+        "B12": lambda: swe_mega.make_fused_ssprk3_cov_mega(
+            g, G, OM, 60.0, torch.zeros(6, 8 + 2 * h, 8 + 2 * h),
+            **mode).kernel,
+        "B13": lambda: swe_cov_nbr.make_cov_stage_nbr(g, G, OM, 60.0, 0.0,
+                                                      1.0, **mode),
     }[kernel]()
 
 
-@pytest.mark.parametrize("kernel", ["B8", "B9", "B10", "B11"])
+@pytest.mark.parametrize("kernel", ["B3", "B7", "B8", "B9", "B10", "B11",
+                                    "B12", "B13"])
 def test_kernels_take_every_mode(kernel):
-    """B8 (off the owed list since it takes every mode) and the Cartesian
-    kernels build in each mode and name it; PPM below halo 3 raises the
-    JAX package's ValueError."""
+    """B3, B7 (kernel A), B12 and B13 (off the owed list since they take
+    every mode), B8 and the Cartesian kernels build in each mode and name
+    it; PPM below halo 3 raises the JAX package's ValueError."""
     for (scheme, limiter), mode in zip(MODES, MODE_IDS):
         assert _every_mode_kernel(kernel, scheme, limiter).mode == mode
     with pytest.raises(ValueError, match="PPM needs halo >= 3"):
