@@ -40,7 +40,24 @@ KERNELS = {"cov_stage": "cov_stage.cu",
            "cov_step_mega": "cov_step_mega.cu",
            "swe_rhs": "swe_rhs.cu",
            "swe_stage": "swe_stage.cu",
-           "swe_stage_inkernel": "swe_stage_inkernel.cu"}
+           "swe_stage_inkernel": "swe_stage_inkernel.cu",
+           "cov_stage_policy": "cov_stage_policy.cu",
+           "cov_stage_policy_bf16": "cov_stage_policy_bf16.cu",
+           "cov_nu4_filter_bf16": "cov_nu4_filter_bf16.cu",
+           "cov_stage_refused_nu4_policy": "cov_stage_refused_nu4_policy.cu",
+           "cov_stage_refused_nu4_policy_bf16":
+               "cov_stage_refused_nu4_policy_bf16.cu",
+           "cov_stage_inkernel_bf16": "cov_stage_inkernel_bf16.cu",
+           "cov_stage_members": "cov_stage_members.cu"}
+
+#: The libraries of the stage precision policy, the carry encodings and the
+#: ensemble member axis: their sources include another kernel's source
+#: with a macro that selects the policy instances, or include
+#: ``cov_half.cuh``'s 16-bit conversions.
+POLICY_KERNELS = ("cov_stage_policy", "cov_stage_policy_bf16",
+                  "cov_nu4_filter_bf16", "cov_stage_refused_nu4_policy",
+                  "cov_stage_refused_nu4_policy_bf16",
+                  "cov_stage_inkernel_bf16", "cov_stage_members")
 
 # -fmad=false keeps every multiply and add separately rounded, as the
 # plain PyTorch version rounds them; the kernels are memory-bound, so
@@ -78,8 +95,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    # The key covers the shared headers too: every kernel includes them.
-    sources = [CSRC_DIR / KERNELS[name]] + sorted(CSRC_DIR.glob("*.cuh"))
+    # The key covers the shared headers and the other sources too: every
+    # kernel includes the headers, and a policy library another source.
+    sources = [CSRC_DIR / KERNELS[name]] + sorted(CSRC_DIR.glob("*.cuh")) \
+        + sorted(CSRC_DIR.glob("*.cu"))
     key = hashlib.sha256(b"".join(s.read_bytes() for s in sources)
                          + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"

@@ -128,7 +128,8 @@ class IOConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EnsembleConfig:
-    """Perturbed-IC ensemble block (``members > 1`` is not ported yet)."""
+    """Perturbed-IC ensemble block (``members > 1``: single-device runs
+    only; the tiers' ensembles are not ported yet)."""
     members: int = 1
     seed: int = 0
     amplitude: float = 1.0e-3
@@ -150,8 +151,8 @@ class ObservabilityConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PrecisionConfig:
-    """Per-stage dtype policy of the fused covariant stepper (anything
-    but all-f32 is not ported yet)."""
+    """Per-stage dtype policy and carry encoding of the fused covariant
+    stepper."""
     stage: str = "f32"               # 'f32' | 'bf16'
     strips: str = "auto"             # 'auto' | 'f32' | 'bf16'
     carry: str = "f32"               # 'f32' | 'bf16' | 'mixed16'

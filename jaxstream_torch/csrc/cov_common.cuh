@@ -13,6 +13,8 @@
 
 #include <cuda_runtime.h>
 
+#include "cov_half.cuh"
+
 namespace cov {
 
 constexpr int BX = 32;     // threads along i
@@ -114,6 +116,80 @@ struct Plr {
 };
 
 using PlrMc = Plr<SlopeMc>;
+
+// ---- the bf16 stage policy's PLR (pick_recon_precision) -----------------
+// The cell differences are formed in float32 and rounded to bfloat16, the
+// limiter algebra runs in bfloat16 (each operation's float32 result
+// rounded, bf16_round, as PyTorch computes a bfloat16 op), and the
+// half-slope, rounded, is widened and added to the float32 cell value.
+// min, max, abs, sign and the selects are exact in any format.
+
+struct SlopeNoneLo {
+  static __device__ __forceinline__ float f(float dqm, float dqp) {
+    return bf16_round(0.5f * bf16_round(dqm + dqp));
+  }
+};
+
+struct SlopeMinmodLo {
+  static __device__ __forceinline__ float f(float dqm, float dqp) {
+    return bf16_round(fmaxf(fminf(dqm, dqp), 0.0f)
+                      + fminf(fmaxf(dqm, dqp), 0.0f));
+  }
+};
+
+struct SlopeMcLo {
+  static __device__ __forceinline__ float f(float dqm, float dqp) {
+    const float a = bf16_round(0.5f * bf16_round(dqm + dqp));
+    const float b = bf16_round(2.0f * dqm);
+    const float c = bf16_round(2.0f * dqp);
+    return bf16_round(fmaxf(fminf(fminf(a, b), c), 0.0f)
+                      + fminf(fmaxf(fmaxf(a, b), c), 0.0f));
+  }
+};
+
+struct SlopeMcSignLo {
+  static __device__ __forceinline__ float f(float dqm, float dqp) {
+    const float sgn = bf16_round(0.5f * bf16_round(sign_of(dqm)
+                                                   + sign_of(dqp)));
+    const float mag = fminf(
+        bf16_round(0.5f * fabsf(bf16_round(dqm + dqp))),
+        bf16_round(2.0f * fminf(fabsf(dqm), fabsf(dqp))));
+    return bf16_round(sgn * mag);
+  }
+};
+
+struct SlopeVanleerLo {
+  static __device__ __forceinline__ float f(float dqm, float dqp) {
+    const float prod = bf16_round(dqm * dqp);
+    return prod > 0.0f
+               ? bf16_round(bf16_round(2.0f * prod)
+                            / bf16_round(bf16_round(dqm + dqp) + 0.0f))
+               : 0.0f;
+  }
+};
+
+// PLR with the bfloat16 slope L (one of the *Lo slopes above).  lo: the
+// stage's flux face-average velocities are bfloat16 too (stage_face_tile
+// reads it through LoOf).
+template <class L>
+struct PlrLo {
+  static constexpr int A = 2;
+  static constexpr bool lo = true;
+
+  static __device__ __forceinline__ void face(float qm, float q0, float q1,
+                                              float qp, float& qL,
+                                              float& qR) {
+    qL = q0 + bf16_round(0.5f * L::f(bf16_round(q0 - qm),
+                                     bf16_round(q1 - q0)));
+    qR = q1 - bf16_round(0.5f * L::f(bf16_round(q1 - q0),
+                                     bf16_round(qp - q1)));
+  }
+
+  template <class Q>
+  static __device__ __forceinline__ void states(Q q, float& qL, float& qR) {
+    face(q(-2), q(-1), q(0), q(1), qL, qR);
+  }
+};
 
 // PPM (ppm_face_states): a 3-deep apron.  Face i's states are the right
 // edge of cell i-1's parabola and the left edge of cell i's; the three

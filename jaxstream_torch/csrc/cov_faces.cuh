@@ -201,6 +201,132 @@ __device__ __forceinline__ void stage_field(float* s,
   });
 }
 
+// Where the cell (j, i) of field fi comes from (edge_src's rule): 0 the
+// interior q at j * n + i, 1 the routed S/N ghosts and 2 the W/E ghosts
+// at element g, -1 nowhere (a ghost corner, past the ring).
+__device__ __forceinline__ int edge_kind(int fi, int n, int hh, int rw,
+                                         int j, int i, long& g) {
+  const bool jin = j >= 0 && j < n;
+  const bool iin = i >= 0 && i < n;
+  if (jin && iin) return 0;
+  if (iin) {
+    if (j < 0 && j >= -hh) {
+      g = (long)(fi * 2 * hh + (j + hh)) * n + i;
+      return 1;
+    }
+    if (j >= n && j < n + hh) {
+      g = (long)(fi * 2 * hh + hh + (j - n)) * n + i;
+      return 1;
+    }
+  } else if (jin) {
+    if (i < 0 && i >= -hh) {
+      g = (long)j * rw + fi * 2 * hh + (i + hh);
+      return 2;
+    }
+    if (i >= n && i < n + hh) {
+      g = (long)j * rw + fi * 2 * hh + hh + (i - n);
+      return 2;
+    }
+  }
+  return -1;
+}
+
+// stage_field with the routed ghosts gsn / gwe stored float32 or, s16,
+// bfloat16 (the stage precision policy's 16-bit strips): float32 cells by
+// cp.async, bfloat16 ones loaded and widened.
+template <int ROWS, int A, int S = WS, int OFF = WOFF>
+__device__ __forceinline__ void stage_field_rt(float* s,
+                                               const float* __restrict__ q,
+                                               const void* __restrict__ gsn,
+                                               const void* __restrict__ gwe,
+                                               int s16, int fi, int n,
+                                               int hh, int rw, int jw,
+                                               int i0) {
+  for_region<ROWS, FTX + 2 * A>([&](int r, int cc) {
+    const int c = cc - A;
+    float* dst = s + r * S + OFF + c;
+    long g = 0;
+    const int kind = edge_kind(fi, n, hh, rw, jw + r, i0 + c, g);
+    if (kind == 0) {
+      async_copy4(dst, q + (long)(jw + r) * n + i0 + c);
+    } else if (kind < 0) {
+      *dst = 0.0f;
+    } else {
+      const void* src = kind == 1 ? gsn : gwe;
+      if (s16)
+        *dst = strip_load(src, g, 1);
+      else
+        async_copy4(dst, static_cast<const float*>(src) + g);
+    }
+  });
+}
+
+// Element off of a strip or routed-ghost tensor g stored float32 or, s16,
+// bfloat16 (the kernels' Params keep float pointers to either).
+__device__ __forceinline__ const void* ghosts_at(const float* g, long off,
+                                                 int s16) {
+  return s16 ? static_cast<const void*>(
+                   reinterpret_cast<const unsigned short*>(g) + off)
+             : static_cast<const void*>(g + off);
+}
+__device__ __forceinline__ void* ghosts_at(float* g, long off, int s16) {
+  return s16 ? static_cast<void*>(reinterpret_cast<unsigned short*>(g) + off)
+             : static_cast<void*>(g + off);
+}
+
+// put_strips for strips stored float32 or, s16, bfloat16.
+__device__ __forceinline__ void put_strips_rt(void* ssn, void* swe, int s16,
+                                              int fi, int n, int hh, int j,
+                                              int i, float v) {
+  const int sw = 6 * hh;
+  const int base = fi * 2 * hh;
+  if (j < hh) strip_store(ssn, (long)(base + j) * n + i, s16, v);
+  if (j >= n - hh)
+    strip_store(ssn, (long)(base + hh + j - (n - hh)) * n + i, s16, v);
+  if (i < hh) strip_store(swe, (long)j * sw + base + i, s16, v);
+  if (i >= n - hh)
+    strip_store(swe, (long)j * sw + base + hh + i - (n - hh), s16, v);
+}
+
+// The sym rows of one face's tile as the stage imposes them, in shared
+// memory: S and N at the tile's columns, W and E at its rows.
+struct SymBuf {
+  float s[FTX], n[FTX], w[FTY], e[FTY];
+};
+
+// Fills b from the face's routed ghosts gsn (6h+2, n) / gwe (n, 6h+2),
+// stored float32 or, s16, bfloat16 (widened), for the tile at (j0, i0) (0
+// past the face); frame: the rows are un-prescaled and get the edge sqrtg
+// of the closed-form frame here, as stage_face_tile's Seam::Frame would
+// (frame_sqrtg(x, y) * sym, xc / xf a whole face's coordinates).  Returns
+// the SymRows that read b as stage_face_tile indexes them (by the face's
+// column i and row j).  No barrier: the caller's next __syncthreads()
+// publishes b.
+__device__ __forceinline__ SymRows sym_rows_buf(
+    SymBuf& b, const void* gsn, const void* gwe, int s16, int frame,
+    const float* __restrict__ xc, const float* __restrict__ xf, float R2,
+    int n, int hh, int j0, int i0) {
+  const int t = threadIdx.y * BX + threadIdx.x, rw = 6 * hh + 2;
+  if (t < 2 * FTX) {
+    const int c = t % FTX, i = i0 + c, row = t / FTX;   // 0: S, 1: N
+    float v = 0.0f;
+    if (i < n) {
+      v = strip_load(gsn, (long)(6 * hh + row) * n + i, s16);
+      if (frame) v = frame_sqrtg(xc[i + hh], xf[row * n + hh], R2) * v;
+    }
+    (row == 0 ? b.s : b.n)[c] = v;
+  } else if (t < 2 * FTX + 2 * FTY) {
+    const int u = t - 2 * FTX, r = u % FTY, j = j0 + r, col = u / FTY;
+    float v = 0.0f;
+    if (j < n) {
+      v = strip_load(gwe, (long)j * rw + 6 * hh + col, s16);
+      if (frame) v = frame_sqrtg(xf[col * n + hh], xc[j + hh], R2) * v;
+    }
+    (col == 0 ? b.w : b.e)[r] = v;
+  }
+  return SymRows{b.s - i0, b.n - i0, b.w - j0, b.e - j0, 1};
+}
+
 // The h x h ghost corners of one staged field s (rows j0-A .. j0+FTY+A-1,
 // columns i0-A .. i0+FTX+A-1; row stride S, tile column c at s[r][OFF +
 // c]): _fill(corners=True)'s average of the S/N ghost at the nearest
@@ -320,6 +446,28 @@ struct StageWindowR {
 };
 using StageWindow = StageWindowR<PlrMc>;
 static_assert(WS == FTX + 4 && WOFF == 2, "StageWindow's h is WS wide");
+
+// The bf16 stage policy's flag of a face-state policy R: R::lo where R
+// has one (PlrLo), else false.
+template <class R, class = void>
+struct LoOf {
+  static constexpr bool value = false;
+};
+template <class R>
+struct LoOf<R, std::void_t<decltype(R::lo)>> {
+  static constexpr bool value = R::lo;
+};
+
+// A flux face-average velocity 0.5 (a + b): float32, or under the bf16
+// policy (Lo) from the bfloat16 operands, each operation rounded (the
+// plain version's 0.5 * (lo(a) + lo(b)) on bfloat16 tensors).
+template <bool Lo>
+__device__ __forceinline__ float face_avg(float a, float b) {
+  if constexpr (Lo)
+    return bf16_round(0.5f * bf16_round(bf16_round(a) + bf16_round(b)));
+  else
+    return 0.5f * (a + b);
+}
 
 // The face-state policy of a window type W: its Recon, else PLR-MC (the
 // windows of the kernels that take no other mode).
@@ -466,6 +614,7 @@ __device__ __forceinline__ void stage_face_tile(
     const StageConsts& k, int n, int hh, int j0, int i0, Epilogue epi) {
   using R = typename ReconOf<W>::type;
   constexpr int A = R::A;
+  constexpr bool Lo = LoOf<R>::value;
   auto H = [&](int y, int x) { return w.h[y + A][A + x]; };
   auto UA = [&](int y, int x) { return w.ua[y + 1][WOFF + x]; };
   auto UB = [&](int y, int x) { return w.ub[y + 1][WOFF + x]; };
@@ -494,8 +643,8 @@ __device__ __forceinline__ void stage_face_tile(
         if (S == Seam::Frame || S == Seam::FrameCg)
           U = frame_sqrtg(xf[i + hh], yc[j + hh], k.R2) * U;
       } else {
-        const float uba = 0.5f * (UA(ly, lf - 1) + UA(ly, lf));
-        const float ubb = 0.5f * (UB(ly, lf - 1) + UB(ly, lf));
+        const float uba = face_avg<Lo>(UA(ly, lf - 1), UA(ly, lf));
+        const float ubb = face_avg<Lo>(UB(ly, lf - 1), UB(ly, lf));
         U = mt.xa[ly][lf] * uba + mt.xb[ly][lf] * ubb;
       }
       flux = upwind_flux<R>(U, [&](int k) { return H(ly, lf + k); });
@@ -512,8 +661,8 @@ __device__ __forceinline__ void stage_face_tile(
         if (S == Seam::Frame || S == Seam::FrameCg)
           U = frame_sqrtg(xc[i + hh], yf[j + hh], k.R2) * U;
       } else {
-        const float vba = 0.5f * (UA(lf - 1, lx) + UA(lf, lx));
-        const float vbb = 0.5f * (UB(lf - 1, lx) + UB(lf, lx));
+        const float vba = face_avg<Lo>(UA(lf - 1, lx), UA(lf, lx));
+        const float vbb = face_avg<Lo>(UB(lf - 1, lx), UB(lf, lx));
         U = mt.ya[lf][lx] * vba + mt.yb[lf][lx] * vbb;
       }
       flux = upwind_flux<R>(U, [&](int k) { return H(lf + k, lx); });

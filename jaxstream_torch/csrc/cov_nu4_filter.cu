@@ -59,17 +59,21 @@ namespace {
 
 using namespace cov;
 
+// The routed ghosts and the strips are float32, or bfloat16 in the
+// instance of cov_nu4_filter_bf16.cu (S16: the stage precision policy's
+// 16-bit strips, loaded and widened, narrowed on the store); the
+// arithmetic is float32 in both.
 struct Params {
   const float* hc;   // (6, n, n)
   const float* uc;   // (2, 6, n, n)
-  const float* gsn;  // (6, 6h+2, n) routed S/N ghosts (+ sym rows, unread)
-  const float* gwe;  // (6, n, 6h+2) routed W/E ghosts (+ sym columns)
+  const void* gsn;   // (6, 6h+2, n) routed S/N ghosts (+ sym rows, unread)
+  const void* gwe;   // (6, n, 6h+2) routed W/E ghosts (+ sym columns)
   const float* xc;   // (m,) tan of the cell-center coordinates
   const float* xf;   // (m,) tan of the left-face coordinates
   float* ho;         // (6, n, n)
   float* uo;         // (2, 6, n, n)
-  float* ssn;        // (6, 6h, n)
-  float* swe;        // (6, n, 6h)
+  void* ssn;         // (6, 6h, n)
+  void* swe;         // (6, n, 6h)
   int n, halo;
   float R2, invd, inv2d, damp;
 };
@@ -86,19 +90,33 @@ struct Smem {
 // Issues the copies of face f's psi (h, u_a, u_b on rows j0-2 .. j0+FTY+1,
 // columns i0-2 .. i0+FTX+1) into psi (no commit); edge tiles stage the
 // ghost corners as zeros.
+template <bool S16>
 __device__ __forceinline__ void stage_psi(const Params& p,
                                           float (*psi)[PY][WS], int f,
                                           int j0, int i0) {
   const int n = p.n, hh = p.halo, rw = 6 * hh + 2;
   const long nn = (long)n * n;
-  const float* gsn = p.gsn + (long)f * rw * n;
-  const float* gwe = p.gwe + (long)f * n * rw;
-  stage_field<PY, 2>(&psi[0][0][0], p.hc + f * nn, gsn, gwe, 0, n, hh, rw,
-                     j0 - 2, i0);
-  stage_field<PY, 2>(&psi[1][0][0], p.uc + f * nn, gsn, gwe, 1, n, hh, rw,
-                     j0 - 2, i0);
-  stage_field<PY, 2>(&psi[2][0][0], p.uc + (6 + f) * nn, gsn, gwe, 2, n, hh,
-                     rw, j0 - 2, i0);
+  if constexpr (S16) {
+    const unsigned short* gsn =
+        static_cast<const unsigned short*>(p.gsn) + (long)f * rw * n;
+    const unsigned short* gwe =
+        static_cast<const unsigned short*>(p.gwe) + (long)f * n * rw;
+    stage_field_rt<PY, 2>(&psi[0][0][0], p.hc + f * nn, gsn, gwe, 1, 0, n,
+                          hh, rw, j0 - 2, i0);
+    stage_field_rt<PY, 2>(&psi[1][0][0], p.uc + f * nn, gsn, gwe, 1, 1, n,
+                          hh, rw, j0 - 2, i0);
+    stage_field_rt<PY, 2>(&psi[2][0][0], p.uc + (6 + f) * nn, gsn, gwe, 1,
+                          2, n, hh, rw, j0 - 2, i0);
+  } else {
+    const float* gsn = static_cast<const float*>(p.gsn) + (long)f * rw * n;
+    const float* gwe = static_cast<const float*>(p.gwe) + (long)f * n * rw;
+    stage_field<PY, 2>(&psi[0][0][0], p.hc + f * nn, gsn, gwe, 0, n, hh, rw,
+                       j0 - 2, i0);
+    stage_field<PY, 2>(&psi[1][0][0], p.uc + f * nn, gsn, gwe, 1, n, hh, rw,
+                       j0 - 2, i0);
+    stage_field<PY, 2>(&psi[2][0][0], p.uc + (6 + f) * nn, gsn, gwe, 2, n,
+                       hh, rw, j0 - 2, i0);
+  }
 }
 
 // The h x h ghost corners of the staged psi: _fill(corners=True)'s
@@ -121,6 +139,7 @@ __device__ __forceinline__ void fill_corners(float (*psi)[PY][WS], int n,
   }
 }
 
+template <bool S16>
 __device__ __forceinline__ void filter_faces(const Params& p, Smem& sm,
                                              int f0, int j0, int i0) {
   const int n = p.n, hh = p.halo;
@@ -132,14 +151,14 @@ __device__ __forceinline__ void filter_faces(const Params& p, Smem& sm,
   const bool strips = j0 < hh || i0 < hh || j0 + FTY > n - hh
                       || i0 + FTX > n - hh;
 
-  stage_psi(p, sm.psi[0], f0, j0, i0);
+  stage_psi<S16>(p, sm.psi[0], f0, j0, i0);
   async_commit();
   lap_metric(sm.mt, p.xc, p.xf, n, hh, j0 - 1, i0 - 1, p.R2, p.invd);
 
   for (int q = 0; q < FPB; ++q) {
     const int f = f0 + q, cur = q & 1;
     if (q + 1 < FPB) {
-      stage_psi(p, sm.psi[cur ^ 1], f + 1, j0, i0);
+      stage_psi<S16>(p, sm.psi[cur ^ 1], f + 1, j0, i0);
       async_commit();
       async_wait<1>();
     } else {
@@ -166,8 +185,9 @@ __device__ __forceinline__ void filter_faces(const Params& p, Smem& sm,
     __syncthreads();
 
     // ---- l2 = lap(l1) on the tile, damp, state and strip stores ---------
-    float* ssn = p.ssn + (long)f * 6 * hh * n;
-    float* swe = p.swe + (long)f * n * 6 * hh;
+    const long so = (long)f * 6 * hh * n;   // the face's strips
+    float* ssn = static_cast<float*>(p.ssn) + so;
+    float* swe = static_cast<float*>(p.swe) + so;
     for (int ly = ty; ly < FTY; ly += BY) {
       const int lx = tx;
       const int j = j0 + ly, i = i0 + lx;
@@ -180,38 +200,61 @@ __device__ __forceinline__ void filter_faces(const Params& p, Smem& sm,
                                     p.invd, p.inv2d);
         const float v = psi[fi][ly + 2][WOFF + lx] - p.damp * l2;
         *outs[fi] = v;
-        if (strips) put_strips(ssn, swe, fi, n, hh, j, i, v);
+        if (strips) {
+          if constexpr (S16)
+            put_strips_rt(static_cast<unsigned short*>(p.ssn) + so,
+                          static_cast<unsigned short*>(p.swe) + so, 1, fi, n,
+                          hh, j, i, v);
+          else
+            put_strips(ssn, swe, fi, n, hh, j, i, v);
+        }
       }
     }
     __syncthreads();   // psi[cur] and l1 are free for the next face
   }
 }
 
+#ifndef COV_FILTER_BF16
 __global__ void __launch_bounds__(NT, 3)
 cov_nu4_filter_kernel(const Params p) {
   extern __shared__ float smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  filter_faces(p, sm, blockIdx.z * FPB, blockIdx.y * FTY, blockIdx.x * FTX);
+  filter_faces<false>(p, sm, blockIdx.z * FPB, blockIdx.y * FTY,
+                      blockIdx.x * FTX);
 }
+#define COV_FILTER_NAME cov_nu4_filter_f32
+#define COV_FILTER_KERNEL cov_nu4_filter_kernel
+#else
+__global__ void __launch_bounds__(NT, 3)
+cov_nu4_filter_bf16_kernel(const Params p) {
+  extern __shared__ float smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  filter_faces<true>(p, sm, blockIdx.z * FPB, blockIdx.y * FTY,
+                     blockIdx.x * FTX);
+}
+#define COV_FILTER_NAME cov_nu4_filter_bf16
+#define COV_FILTER_KERNEL cov_nu4_filter_bf16_kernel
+#endif
 
 }  // namespace
 
 // Launches the filter on `stream`; returns the cudaError_t of the shared
-// memory attribute or of the launch (0 = ok).  All tensors float32,
-// contiguous, in the layouts of Params.
-extern "C" int cov_nu4_filter_f32(
-    const float* hc, const float* uc, const float* gsn, const float* gwe,
-    const float* xc, const float* xf, float* ho, float* uo, float* ssn,
-    float* swe, int n, int halo, float R2, float invd, float inv2d,
+// memory attribute or of the launch (0 = ok).  Tensors contiguous, in the
+// layouts of Params; cov_nu4_filter_f32: all float32; cov_nu4_filter_bf16
+// (cov_nu4_filter_bf16.cu): the routed ghosts and strips bfloat16.
+extern "C" int COV_FILTER_NAME(
+    const float* hc, const float* uc, const void* gsn, const void* gwe,
+    const float* xc, const float* xf, float* ho, float* uo, void* ssn,
+    void* swe, int n, int halo, float R2, float invd, float inv2d,
     float damp, void* stream) {
   Params p{hc, uc, gsn, gwe, xc, xf, ho, uo, ssn, swe,
            n, halo, R2, invd, inv2d, damp};
-  const int rc = dynamic_smem_limit(cov_nu4_filter_kernel, sizeof(Smem));
+  const int rc = dynamic_smem_limit(COV_FILTER_KERNEL, sizeof(Smem));
   if (rc != 0) return rc;
   const dim3 grid((n + FTX - 1) / FTX, (n + FTY - 1) / FTY, 6 / FPB);
   const dim3 block(BX, BY);
   const size_t smem = sizeof(Smem);
-  cov_nu4_filter_kernel<<<grid, block, smem,
-                          static_cast<cudaStream_t>(stream)>>>(p);
+  COV_FILTER_KERNEL<<<grid, block, smem,
+                      static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

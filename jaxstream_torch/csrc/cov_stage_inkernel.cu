@@ -322,6 +322,7 @@ __device__ __forceinline__ void stage_block(const Params& p) {
                  blockIdx.x * FTX);
 }
 
+#ifndef COV_INKERNEL_BF16
 // One kernel per reconstruction; PLR-MC's keeps its name.
 __global__ void __launch_bounds__(NT, 3)
 cov_stage_inkernel_kernel(const Params p) {
@@ -347,6 +348,31 @@ __global__ void __launch_bounds__(NT, 3)
 cov_stage_inkernel_kernel_ppm(const Params p) {
   stage_block<Ppm>(p);
 }
+#else
+// The bf16 compute policy (cov_stage_inkernel_bf16.cu): one kernel per
+// PLR limiter, the limiter algebra and the flux face-average velocities
+// in bfloat16 (PlrLo).
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_inkernel_bf16_kernel_mc(const Params p) {
+  stage_block<PlrLo<SlopeMcLo>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_inkernel_bf16_kernel_none(const Params p) {
+  stage_block<PlrLo<SlopeNoneLo>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_inkernel_bf16_kernel_minmod(const Params p) {
+  stage_block<PlrLo<SlopeMinmodLo>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_inkernel_bf16_kernel_mc_sign(const Params p) {
+  stage_block<PlrLo<SlopeMcSignLo>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_inkernel_bf16_kernel_vanleer(const Params p) {
+  stage_block<PlrLo<SlopeVanleerLo>>(p);
+}
+#endif
 
 // Launches kernel (the instance of policy R) on `stream`.
 template <class R>
@@ -384,6 +410,7 @@ int launch(void (*kernel)(Params), const Params& p, void* stream) {
     return launch<POLICY>(KERNEL, p, stream);                               \
   }
 
+#ifndef COV_INKERNEL_BF16
 COV_INKERNEL_ENTRY(cov_stage_inkernel_f32, cov_stage_inkernel_kernel, PlrMc)
 COV_INKERNEL_ENTRY(cov_stage_inkernel_none_f32,
                    cov_stage_inkernel_kernel_none, Plr<SlopeNone>)
@@ -395,3 +422,19 @@ COV_INKERNEL_ENTRY(cov_stage_inkernel_vanleer_f32,
                    cov_stage_inkernel_kernel_vanleer, Plr<SlopeVanleer>)
 COV_INKERNEL_ENTRY(cov_stage_inkernel_ppm_f32, cov_stage_inkernel_kernel_ppm,
                    Ppm)
+#else
+// The bf16 compute policy: cov_stage_inkernel_<mode>_bf16, PLR only.
+COV_INKERNEL_ENTRY(cov_stage_inkernel_mc_bf16,
+                   cov_stage_inkernel_bf16_kernel_mc, PlrLo<SlopeMcLo>)
+COV_INKERNEL_ENTRY(cov_stage_inkernel_none_bf16,
+                   cov_stage_inkernel_bf16_kernel_none, PlrLo<SlopeNoneLo>)
+COV_INKERNEL_ENTRY(cov_stage_inkernel_minmod_bf16,
+                   cov_stage_inkernel_bf16_kernel_minmod,
+                   PlrLo<SlopeMinmodLo>)
+COV_INKERNEL_ENTRY(cov_stage_inkernel_mc_sign_bf16,
+                   cov_stage_inkernel_bf16_kernel_mc_sign,
+                   PlrLo<SlopeMcSignLo>)
+COV_INKERNEL_ENTRY(cov_stage_inkernel_vanleer_bf16,
+                   cov_stage_inkernel_bf16_kernel_vanleer,
+                   PlrLo<SlopeVanleerLo>)
+#endif

@@ -103,6 +103,11 @@ struct Params {
   // inv2d = f32(1/(2d)) serves the stage and the Laplacians alike: it is
   // the correctly rounded 1/(2d), as f32(0.5/d) is.
   float R2, gravity, two_omega, inv2d, inv_d, g_dt, damp;
+  // The policy instances (cov_stage_refused_nu4_policy.cu): the routed
+  // ghosts gsn / gwe and the strips ssn / swe are bfloat16 when set (the
+  // pointers then point at bfloat16 bits); the float32 instances leave it
+  // 0 and never read it.
+  int s16;
 };
 
 // The windows of h's face-state policy R: the stage reads E up to R::A
@@ -206,26 +211,50 @@ __device__ __forceinline__ void band_metric(BandMetric& bm,
 // Issues the copies of face f's psi (h, u_a, u_b on rows j0-AP ..
 // j0+FTY+AP-1, columns i0-AP .. i0+FTX+AP-1; ghost corners as zeros) and
 // of its orography on the band into w (no commit).
-template <class R>
+template <class R, bool RT = false>
 __device__ __forceinline__ void stage_psi(const Params& p, FaceWindow<R>& w,
                                           int f, int j0, int i0) {
   constexpr int AP = Aprons<R>::AP, PY = Aprons<R>::PY, PX = Aprons<R>::PX;
   const int n = p.n, hh = p.halo, m = n + 2 * hh, rw = 6 * hh + 2;
   const long nn = (long)n * n;
-  const float* gsn = p.gsn + (long)f * rw * n;
-  const float* gwe = p.gwe + (long)f * n * rw;
-  stage_field<PY, AP, PX, AP>(&w.psi[0][0][0], p.hc + f * nn, gsn, gwe, 0,
-                              n, hh, rw, j0 - AP, i0);
-  stage_field<PY, AP, PX, AP>(&w.psi[1][0][0], p.uc + f * nn, gsn, gwe, 1,
-                              n, hh, rw, j0 - AP, i0);
-  stage_field<PY, AP, PX, AP>(&w.psi[2][0][0], p.uc + (6 + f) * nn, gsn,
-                              gwe, 2, n, hh, rw, j0 - AP, i0);
+  if constexpr (RT) {
+    const void* gsn = ghosts_at(p.gsn, (long)f * rw * n, p.s16);
+    const void* gwe = ghosts_at(p.gwe, (long)f * n * rw, p.s16);
+    for (int fi = 0; fi < 3; ++fi)
+      stage_field_rt<PY, AP, PX, AP>(
+          &w.psi[fi][0][0], (fi == 0 ? p.hc : p.uc)
+                                + ((fi == 2 ? 6 : 0) + f) * nn,
+          gsn, gwe, p.s16, fi, n, hh, rw, j0 - AP, i0);
+  } else {
+    const float* gsn = p.gsn + (long)f * rw * n;
+    const float* gwe = p.gwe + (long)f * n * rw;
+    stage_field<PY, AP, PX, AP>(&w.psi[0][0][0], p.hc + f * nn, gsn, gwe,
+                                0, n, hh, rw, j0 - AP, i0);
+    stage_field<PY, AP, PX, AP>(&w.psi[1][0][0], p.uc + f * nn, gsn, gwe,
+                                1, n, hh, rw, j0 - AP, i0);
+    stage_field<PY, AP, PX, AP>(&w.psi[2][0][0], p.uc + (6 + f) * nn, gsn,
+                                gwe, 2, n, hh, rw, j0 - AP, i0);
+  }
   stage_band(w.b, p.b + (long)f * m * m, n, hh, j0, i0);
 }
 
-template <class R>
+// The sym rows of face f's tile for a policy instance: the routed ones
+// where they are float32, else widened into sb.
+__device__ __forceinline__ SymRows face_sym(const Params& p, SymBuf* sb,
+                                            int f, int j0, int i0) {
+  const int n = p.n, hh = p.halo;
+  const long gf = (long)f * (6 * hh + 2) * n;
+  if (p.s16)
+    return sym_rows_buf(*sb, ghosts_at(p.gsn, gf, 1),
+                        ghosts_at(p.gwe, gf, 1), 1, 0, p.xc, p.xf, p.R2, n,
+                        hh, j0, i0);
+  return routed_sym(p.gsn + gf, p.gwe + gf, n, hh);
+}
+
+template <class R, bool RT = false>
 __device__ __forceinline__ void refused_faces(const Params& p, Smem<R>& sm,
-                                              int f0, int j0, int i0) {
+                                              SymBuf* sb, int f0, int j0,
+                                              int i0) {
   using K = Aprons<R>;
   constexpr int A = R::A, EA = K::EA, AP = K::AP, PY = K::PY, PX = K::PX;
   constexpr int LA = K::LA, LY = K::LY, LX = K::LX;
@@ -239,7 +268,7 @@ __device__ __forceinline__ void refused_faces(const Params& p, Smem<R>& sm,
   const bool strips = j0 < hh || i0 < hh || j0 + FTY > n - hh
                       || i0 + FTX > n - hh;
 
-  stage_psi(p, sm.w, f0, j0, i0);
+  stage_psi<R, RT>(p, sm.w, f0, j0, i0);
   async_commit();
   lap_metric(sm.lm, p.xc, p.xf, n, hh, j0 - LA, i0 - LA, p.R2, p.inv_d);
   band_metric(sm.bm, p.xc, p.R2, p.inv_d, n, hh, j0, i0);
@@ -247,10 +276,12 @@ __device__ __forceinline__ void refused_faces(const Params& p, Smem<R>& sm,
   for (int q = 0; q < FPB; ++q) {
     const int f = f0 + q;
     if (q > 0) {   // E was built over the last face's psi
-      stage_psi(p, sm.w, f, j0, i0);
+      stage_psi<R, RT>(p, sm.w, f, j0, i0);
       async_commit();
     }
     async_wait<0>();
+    SymRows sym{};
+    if constexpr (RT) sym = face_sym(p, sb, f, j0, i0);
     __syncthreads();   // this face's psi (and, first, the metric) complete
     float(*psi)[PY][PX] = sm.w.psi;
     if (edge) {
@@ -296,6 +327,7 @@ __device__ __forceinline__ void refused_faces(const Params& p, Smem<R>& sm,
     const float* gwe = p.gwe + (long)f * n * rw;
     float* ssn = p.ssn + (long)f * 6 * hh * n;
     float* swe = p.swe + (long)f * n * 6 * hh;
+    if constexpr (!RT) sym = routed_sym(gsn, gwe, n, hh);
     const EWindow<R> e{rows_at<PX>(&psi[0][AP - A][AP - A]),
                        rows_at<PX>(&psi[1][AP - 1][AP - WOFF]),
                        rows_at<PX>(&psi[2][AP - 1][AP - WOFF]),
@@ -311,7 +343,7 @@ __device__ __forceinline__ void refused_faces(const Params& p, Smem<R>& sm,
                             rows_at<FTX>(&sm.bm.sqrtg[0][0]),
                             rows_at<FTX>(&sm.bm.irho[0][0])};
     stage_face_tile<Seam::Prescaled>(
-        e, tm, sm.x.s, routed_sym(gsn, gwe, n, hh), p.xc, p.xf, p.xc, p.xf,
+        e, tm, sm.x.s, sym, p.xc, p.xf, p.xc, p.xf,
         p.fz + 3 * f, k, n, hh, j0, i0,
         [&](int, int j, int i, float dh, float dua, float dub, float fh,
             float fa, float fb) {
@@ -326,7 +358,12 @@ __device__ __forceinline__ void refused_faces(const Params& p, Smem<R>& sm,
           p.u0f[6 * nn + c] = fb;
           if (strips)
             for (int fi = 0; fi < 3; ++fi)
-              put_strips(ssn, swe, fi, n, hh, j, i, v[fi]);
+              if constexpr (RT)
+                put_strips_rt(ghosts_at(p.ssn, (long)f * 6 * hh * n, p.s16),
+                              ghosts_at(p.swe, (long)f * 6 * hh * n, p.s16),
+                              p.s16, fi, n, hh, j, i, v[fi]);
+              else
+                put_strips(ssn, swe, fi, n, hh, j, i, v[fi]);
         });
     __syncthreads();   // psi / E and the scratch are free for the next face
   }
@@ -380,29 +417,42 @@ struct DeepEWindow {
 };
 
 // stage_psi with u's windows APU deep.
-template <class R>
+template <class R, bool RT = false>
 __device__ __forceinline__ void stage_psi_deep(const Params& p,
                                                DeepWindow<R>& w, int f,
                                                int j0, int i0) {
   using K = DeepAprons<R>;
   const int n = p.n, hh = p.halo, m = n + 2 * hh, rw = 6 * hh + 2;
   const long nn = (long)n * n;
-  const float* gsn = p.gsn + (long)f * rw * n;
-  const float* gwe = p.gwe + (long)f * n * rw;
-  stage_field<K::PY, K::AP, K::PX, K::AP>(&w.h[0][0], p.hc + f * nn, gsn,
-                                          gwe, 0, n, hh, rw, j0 - K::AP,
-                                          i0);
-  for (int c = 0; c < 2; ++c)
-    stage_field<K::PYU, K::APU, K::PXU, K::APU>(
-        &w.u[c][0][0], p.uc + (c * 6 + f) * nn, gsn, gwe, 1 + c, n, hh, rw,
-        j0 - K::APU, i0);
+  if constexpr (RT) {
+    const void* gsn = ghosts_at(p.gsn, (long)f * rw * n, p.s16);
+    const void* gwe = ghosts_at(p.gwe, (long)f * n * rw, p.s16);
+    stage_field_rt<K::PY, K::AP, K::PX, K::AP>(&w.h[0][0], p.hc + f * nn,
+                                               gsn, gwe, p.s16, 0, n, hh, rw,
+                                               j0 - K::AP, i0);
+    for (int c = 0; c < 2; ++c)
+      stage_field_rt<K::PYU, K::APU, K::PXU, K::APU>(
+          &w.u[c][0][0], p.uc + (c * 6 + f) * nn, gsn, gwe, p.s16, 1 + c, n,
+          hh, rw, j0 - K::APU, i0);
+  } else {
+    const float* gsn = p.gsn + (long)f * rw * n;
+    const float* gwe = p.gwe + (long)f * n * rw;
+    stage_field<K::PY, K::AP, K::PX, K::AP>(&w.h[0][0], p.hc + f * nn, gsn,
+                                            gwe, 0, n, hh, rw, j0 - K::AP,
+                                            i0);
+    for (int c = 0; c < 2; ++c)
+      stage_field<K::PYU, K::APU, K::PXU, K::APU>(
+          &w.u[c][0][0], p.uc + (c * 6 + f) * nn, gsn, gwe, 1 + c, n, hh,
+          rw, j0 - K::APU, i0);
+  }
   stage_band(w.b, p.b + (long)f * m * m, n, hh, j0, i0);
 }
 
 // refused_faces with h's chain and u's apart.
-template <class R>
+template <class R, bool RT = false>
 __device__ __forceinline__ void refused_faces_deep(const Params& p,
-                                                   DeepSmem<R>& sm, int f0,
+                                                   DeepSmem<R>& sm,
+                                                   SymBuf* sb, int f0,
                                                    int j0, int i0) {
   using K = DeepAprons<R>;
   constexpr int A = R::A, EA = K::EA, AP = K::AP, PX = K::PX;
@@ -419,7 +469,7 @@ __device__ __forceinline__ void refused_faces_deep(const Params& p,
   DeepWindow<R>& w = sm.w;
   auto& l1 = sm.x.l1;
 
-  stage_psi_deep(p, w, f0, j0, i0);
+  stage_psi_deep<R, RT>(p, w, f0, j0, i0);
   async_commit();
   lap_metric(sm.lm, p.xc, p.xf, n, hh, j0 - LA, i0 - LA, p.R2, p.inv_d);
   band_metric(sm.bm, p.xc, p.R2, p.inv_d, n, hh, j0, i0);
@@ -427,10 +477,12 @@ __device__ __forceinline__ void refused_faces_deep(const Params& p,
   for (int q = 0; q < FPB; ++q) {
     const int f = f0 + q;
     if (q > 0) {   // E was built over the last face's psi
-      stage_psi_deep(p, w, f, j0, i0);
+      stage_psi_deep<R, RT>(p, w, f, j0, i0);
       async_commit();
     }
     async_wait<0>();
+    SymRows sym{};
+    if constexpr (RT) sym = face_sym(p, sb, f, j0, i0);
     __syncthreads();   // this face's psi (and, first, the metric) complete
     if (edge) {
       fill_corners<AP, 2, PX, AP>(w.h, n, j0, i0);
@@ -481,6 +533,7 @@ __device__ __forceinline__ void refused_faces_deep(const Params& p,
     const float* gwe = p.gwe + (long)f * n * rw;
     float* ssn = p.ssn + (long)f * 6 * hh * n;
     float* swe = p.swe + (long)f * n * 6 * hh;
+    if constexpr (!RT) sym = routed_sym(gsn, gwe, n, hh);
     const DeepEWindow<R> e{rows_at<PX>(&w.h[AP - A][AP - A]),
                            rows_at<PXU>(&w.u[0][APU - 1][APU - WOFF]),
                            rows_at<PXU>(&w.u[1][APU - 1][APU - WOFF]),
@@ -496,7 +549,7 @@ __device__ __forceinline__ void refused_faces_deep(const Params& p,
                             rows_at<FTX>(&sm.bm.sqrtg[0][0]),
                             rows_at<FTX>(&sm.bm.irho[0][0])};
     stage_face_tile<Seam::Prescaled>(
-        e, tm, sm.x.s, routed_sym(gsn, gwe, n, hh), p.xc, p.xf, p.xc, p.xf,
+        e, tm, sm.x.s, sym, p.xc, p.xf, p.xc, p.xf,
         p.fz + 3 * f, k, n, hh, j0, i0,
         [&](int, int j, int i, float dh, float dua, float dub, float fh,
             float fa, float fb) {
@@ -511,7 +564,12 @@ __device__ __forceinline__ void refused_faces_deep(const Params& p,
           p.u0f[6 * nn + c] = fb;
           if (strips)
             for (int fi = 0; fi < 3; ++fi)
-              put_strips(ssn, swe, fi, n, hh, j, i, v[fi]);
+              if constexpr (RT)
+                put_strips_rt(ghosts_at(p.ssn, (long)f * 6 * hh * n, p.s16),
+                              ghosts_at(p.swe, (long)f * 6 * hh * n, p.s16),
+                              p.s16, fi, n, hh, j, i, v[fi]);
+              else
+                put_strips(ssn, swe, fi, n, hh, j, i, v[fi]);
         });
     __syncthreads();   // psi / E and the scratch are free for the next face
   }
@@ -520,20 +578,31 @@ __device__ __forceinline__ void refused_faces_deep(const Params& p,
 template <class R>
 using SmemOf = std::conditional_t<DEEP_H<R>, DeepSmem<R>, Smem<R>>;
 
+// A policy instance's shared memory: the body's, then the face's sym rows
+// widened from bfloat16.
 template <class R>
+struct SmemRt {
+  SmemOf<R> body;
+  SymBuf sym;
+};
+
+template <class R, bool RT = false>
 __device__ __forceinline__ void refused_block(const Params& p) {
   extern __shared__ float smem_raw[];
+  SymBuf* sb = nullptr;
+  if constexpr (RT) sb = &reinterpret_cast<SmemRt<R>*>(smem_raw)->sym;
   if constexpr (DEEP_H<R>) {
     DeepSmem<R>& sm = *reinterpret_cast<DeepSmem<R>*>(smem_raw);
-    refused_faces_deep<R>(p, sm, blockIdx.z * FPB, blockIdx.y * FTY,
-                          blockIdx.x * FTX);
+    refused_faces_deep<R, RT>(p, sm, sb, blockIdx.z * FPB, blockIdx.y * FTY,
+                              blockIdx.x * FTX);
   } else {
     Smem<R>& sm = *reinterpret_cast<Smem<R>*>(smem_raw);
-    refused_faces<R>(p, sm, blockIdx.z * FPB, blockIdx.y * FTY,
-                     blockIdx.x * FTX);
+    refused_faces<R, RT>(p, sm, sb, blockIdx.z * FPB, blockIdx.y * FTY,
+                         blockIdx.x * FTX);
   }
 }
 
+#ifndef COV_REFUSED_POLICY
 // One kernel per reconstruction; PLR-MC's keeps its name.
 __global__ void __launch_bounds__(NT, 3)
 cov_stage_refused_nu4_kernel(const Params p) {
@@ -559,16 +628,69 @@ __global__ void __launch_bounds__(NT, 3)
 cov_stage_refused_nu4_kernel_ppm(const Params p) {
   refused_block<Ppm>(p);
 }
+#elif COV_REFUSED_POLICY == 1
+// The stage precision policy with float32 arithmetic (16-bit strips),
+// every reconstruction: cov_stage_refused_nu4_policy.cu.
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_refused_nu4_policy_kernel_mc(const Params p) {
+  refused_block<PlrMc, true>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_refused_nu4_policy_kernel_none(const Params p) {
+  refused_block<Plr<SlopeNone>, true>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_refused_nu4_policy_kernel_minmod(const Params p) {
+  refused_block<Plr<SlopeMinmod>, true>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_refused_nu4_policy_kernel_mc_sign(const Params p) {
+  refused_block<Plr<SlopeMcSign>, true>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_refused_nu4_policy_kernel_vanleer(const Params p) {
+  refused_block<Plr<SlopeVanleer>, true>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_refused_nu4_policy_kernel_ppm(const Params p) {
+  refused_block<Ppm, true>(p);
+}
+#else
+// The bf16 compute policy, the PLR limiters:
+// cov_stage_refused_nu4_policy_bf16.cu.
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_refused_nu4_policy_bf16_kernel_mc(const Params p) {
+  refused_block<PlrLo<SlopeMcLo>, true>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_refused_nu4_policy_bf16_kernel_none(const Params p) {
+  refused_block<PlrLo<SlopeNoneLo>, true>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_refused_nu4_policy_bf16_kernel_minmod(const Params p) {
+  refused_block<PlrLo<SlopeMinmodLo>, true>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_refused_nu4_policy_bf16_kernel_mc_sign(const Params p) {
+  refused_block<PlrLo<SlopeMcSignLo>, true>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_stage_refused_nu4_policy_bf16_kernel_vanleer(const Params p) {
+  refused_block<PlrLo<SlopeVanleerLo>, true>(p);
+}
+#endif
 
-// Launches kernel (the instance of policy R) on `stream`.
-template <class R>
+// Launches kernel (the instance of policy R) on `stream`; RT: a policy
+// instance (its shared memory is SmemRt's).
+template <class R, bool RT = false>
 int launch(void (*kernel)(Params), const Params& p, void* stream) {
-  const int rc = dynamic_smem_limit<R>(kernel, sizeof(SmemOf<R>));
+  constexpr size_t bytes = RT ? sizeof(SmemRt<R>) : sizeof(SmemOf<R>);
+  const int rc = dynamic_smem_limit<R>(kernel, bytes);
   if (rc != 0) return rc;
   const int n = p.n;
   const dim3 grid((n + FTX - 1) / FTX, (n + FTY - 1) / FTY, 6 / FPB);
   const dim3 block(BX, BY);
-  const size_t smem = sizeof(SmemOf<R>);
+  const size_t smem = bytes;
   kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -594,6 +716,7 @@ int launch(void (*kernel)(Params), const Params& p, void* stream) {
     return launch<POLICY>(KERNEL, p, stream);                               \
   }
 
+#ifndef COV_REFUSED_POLICY
 COV_REFUSED_ENTRY(cov_stage_refused_nu4_f32, cov_stage_refused_nu4_kernel,
                   PlrMc)
 COV_REFUSED_ENTRY(cov_stage_refused_nu4_none_f32,
@@ -606,3 +729,55 @@ COV_REFUSED_ENTRY(cov_stage_refused_nu4_vanleer_f32,
                   cov_stage_refused_nu4_kernel_vanleer, Plr<SlopeVanleer>)
 COV_REFUSED_ENTRY(cov_stage_refused_nu4_ppm_f32,
                   cov_stage_refused_nu4_kernel_ppm, Ppm)
+#else
+// The policy instances: cov_stage_refused_nu4_policy_<mode>_f32 (float32
+// arithmetic) and _<mode>_bf16 (the bf16 compute policy, PLR only); s16:
+// the routed ghosts and the strips are bfloat16.
+#define COV_REFUSED_POLICY_ENTRY(NAME, KERNEL, POLICY)                      \
+  extern "C" int NAME(                                                      \
+      const float* hc, const float* uc, const float* gsn, const float* gwe, \
+      const float* b_ext, const float* xc, const float* xf,                 \
+      const float* fz, float* ho, float* uo, float* h0f, float* u0f,        \
+      float* ssn, float* swe, int n, int halo, int s16, float R2,           \
+      float gravity, float two_omega, float inv2d, float inv_d, float g_dt, \
+      float damp, void* stream) {                                           \
+    const Params p{hc, uc, gsn, gwe, b_ext, xc, xf, fz, ho, uo, h0f, u0f,   \
+                   ssn, swe, n, halo, R2, gravity, two_omega, inv2d, inv_d, \
+                   g_dt, damp, s16};                                        \
+    return launch<POLICY, true>(KERNEL, p, stream);                         \
+  }
+#if COV_REFUSED_POLICY == 1
+COV_REFUSED_POLICY_ENTRY(cov_stage_refused_nu4_policy_mc_f32,
+                         cov_stage_refused_nu4_policy_kernel_mc, PlrMc)
+COV_REFUSED_POLICY_ENTRY(cov_stage_refused_nu4_policy_none_f32,
+                         cov_stage_refused_nu4_policy_kernel_none,
+                         Plr<SlopeNone>)
+COV_REFUSED_POLICY_ENTRY(cov_stage_refused_nu4_policy_minmod_f32,
+                         cov_stage_refused_nu4_policy_kernel_minmod,
+                         Plr<SlopeMinmod>)
+COV_REFUSED_POLICY_ENTRY(cov_stage_refused_nu4_policy_mc_sign_f32,
+                         cov_stage_refused_nu4_policy_kernel_mc_sign,
+                         Plr<SlopeMcSign>)
+COV_REFUSED_POLICY_ENTRY(cov_stage_refused_nu4_policy_vanleer_f32,
+                         cov_stage_refused_nu4_policy_kernel_vanleer,
+                         Plr<SlopeVanleer>)
+COV_REFUSED_POLICY_ENTRY(cov_stage_refused_nu4_policy_ppm_f32,
+                         cov_stage_refused_nu4_policy_kernel_ppm, Ppm)
+#else
+COV_REFUSED_POLICY_ENTRY(cov_stage_refused_nu4_policy_mc_bf16,
+                         cov_stage_refused_nu4_policy_bf16_kernel_mc,
+                         PlrLo<SlopeMcLo>)
+COV_REFUSED_POLICY_ENTRY(cov_stage_refused_nu4_policy_none_bf16,
+                         cov_stage_refused_nu4_policy_bf16_kernel_none,
+                         PlrLo<SlopeNoneLo>)
+COV_REFUSED_POLICY_ENTRY(cov_stage_refused_nu4_policy_minmod_bf16,
+                         cov_stage_refused_nu4_policy_bf16_kernel_minmod,
+                         PlrLo<SlopeMinmodLo>)
+COV_REFUSED_POLICY_ENTRY(cov_stage_refused_nu4_policy_mc_sign_bf16,
+                         cov_stage_refused_nu4_policy_bf16_kernel_mc_sign,
+                         PlrLo<SlopeMcSignLo>)
+COV_REFUSED_POLICY_ENTRY(cov_stage_refused_nu4_policy_vanleer_bf16,
+                         cov_stage_refused_nu4_policy_bf16_kernel_vanleer,
+                         PlrLo<SlopeVanleerLo>)
+#endif
+#endif

@@ -18,7 +18,14 @@ their whole input.
 Arrays cross as numpy, so neither package imports the other:
 :func:`to_torch` turns numpy arrays (or anything ``np.asarray`` accepts,
 such as a JAX array) into tensors on a device, :func:`to_numpy` turns
-tensors back.  Values and dtypes are kept bit for bit.
+tensors back.  Values and dtypes are kept bit for bit.  Member-batched
+carries (``h (B, 6, n, n)``, ``u (2, B, 6, n, n)``, ``strips_* (B, 6,
+...)``) and the 16-bit carries (int16, float16, and bfloat16 h / u or
+strips) cross the same way: numpy has no bfloat16 of its own (the JAX
+package's comes from ``ml_dtypes``, which ``torch.from_numpy`` rejects and
+``Tensor.numpy()`` cannot make), so a bfloat16 array crosses as its 16 bits
+through an int16 view, recognised by the dtype's name; the port imports
+no ``ml_dtypes``.
 """
 
 from __future__ import annotations
@@ -45,7 +52,11 @@ def to_torch(tree, device=None):
         return {k: int(v) if k == FILTER_K else to_torch(v, dev)
                 for k, v in tree.items()}
     # np.array copies: JAX hands out read-only buffers.
-    return torch.from_numpy(np.array(tree, order="C")).to(dev)
+    arr = np.array(tree, order="C")
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(arr).to(dev)
 
 
 def to_numpy(tree):
@@ -54,4 +65,13 @@ def to_numpy(tree):
     if isinstance(tree, Mapping):
         return {k: int(v) if k == FILTER_K else to_numpy(v)
                 for k, v in tree.items()}
-    return tree.detach().cpu().numpy()
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        # numpy's bfloat16 where a package registered one (JAX's
+        # ml_dtypes), else the raw bits as uint16.
+        bits = t.view(torch.int16).numpy()
+        try:
+            return bits.view(np.dtype("bfloat16"))
+        except TypeError:
+            return bits.view(np.uint16)
+    return t.numpy()

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..geometry.cubed_sphere import CubedSphereGrid
@@ -44,12 +45,38 @@ from ..parallel.vector_halo import make_vector_halo_exchanger
 from .base import State
 from .shallow_water import SWEBase
 
-__all__ = ["CovariantShallowWater"]
+__all__ = ["CovariantShallowWater", "ENSEMBLE_STATE_AXES",
+           "ENSEMBLE_CARRY_AXES"]
+
+#: Member-axis position per key of the batched interior state ``{"h": (B,
+#: 6, n, n), "u": (2, B, 6, n, n)}`` (u's component axis first).
+ENSEMBLE_STATE_AXES = {"h": 0, "u": 1}
+#: Ditto for the batched compact fused-stepper carry.
+ENSEMBLE_CARRY_AXES = {"h": 0, "u": 1, "strips_sn": 0, "strips_we": 0}
+
+#: The JAX package's capability-plan pointers of the fused-step refusals
+#: (``jaxstream/plan/rules.py``), raised with its ``PlanError`` text.
+_PLAN_POINTERS = {
+    "fused-ensemble-nu4": (
+        "ensemble > 0 supports nu4 = 0 only (the del^4 filter "
+        "kernels are not batched yet); run ensemble_impl='vmap' "
+        "over a nu4 stepper manually if needed"),
+    "carry-needs-single-member": (
+        "precision.carry encodings are wired for single runs "
+        "(members: 1); the batched ensemble carry stays f32"),
+    "nu4-no-carry-encoding": (
+        "carry_dtype/h_offset/u_scale/_ablate_seam are not "
+        "supported on the nu4 paths"),
+    "nu4-stage-oracle-f32": (
+        "nu4_mode='stage' is the f32 parity oracle and takes no "
+        "precision policy; use nu4_mode='split' or 'refused'"),
+}
 
 
-def _not_ported(knob: str, item: str):
-    raise NotImplementedError(
-        f"make_fused_step({knob}) is not ported yet: ROADMAP {item}")
+def plan_fail(rule: str):
+    """Raise the JAX package's refusal ``rule`` as a ``ValueError`` with
+    its message."""
+    raise ValueError(f"illegal capability plan: {_PLAN_POINTERS[rule]}")
 
 
 class CovariantShallowWater(SWEBase):
@@ -96,6 +123,81 @@ class CovariantShallowWater(SWEBase):
         return {"h": state["h"], "u": state["u"],
                 "strips_sn": sn, "strips_we": we}
 
+    @staticmethod
+    def stack_ensemble(states) -> State:
+        """A list of interior states -> one batched ensemble state
+        ``{"h": (B, 6, n, n), "u": (2, B, 6, n, n)}``
+        (:data:`ENSEMBLE_STATE_AXES`)."""
+        return {"h": torch.stack([s["h"] for s in states], dim=0),
+                "u": torch.stack([s["u"] for s in states], dim=1)}
+
+    @staticmethod
+    def member_state(batched: State, i: int) -> State:
+        """One member's interior state out of a batched ensemble state."""
+        return {"h": batched["h"][i], "u": batched["u"][:, i]}
+
+    def ensemble_compact_state(self, batched: State) -> State:
+        """Batched interior state -> the batched compact carry: the strip
+        pack on the member axis folded into the face axis, then unfolded,
+        so each member's strips are the unbatched pack's."""
+        from ..ops.cuda.swe_cov import pack_strips_cov_split
+
+        g = self.grid
+        h, u = batched["h"], batched["u"]
+        B = h.shape[0]
+        sn, we = pack_strips_cov_split(
+            h.reshape((B * 6,) + tuple(h.shape[2:])),
+            u.reshape((2, B * 6) + tuple(u.shape[3:])), g.n, g.halo)
+        return {"h": h, "u": u,
+                "strips_sn": sn.reshape((B, 6) + tuple(sn.shape[1:])),
+                "strips_we": we.reshape((B, 6) + tuple(we.shape[1:]))}
+
+    @staticmethod
+    def encode_carry(y: State, carry_dtype=None, h_offset: float = 0.0,
+                     h_scale: float = 1.0, u_scale: float = 1.0) -> State:
+        """A :meth:`compact_state` carry in the stepper's storage encoding
+        (per-field dtype; h stored as ``(h - h_offset) / h_scale``, u as
+        ``u / u_scale``; integer storage rounded to nearest even and
+        saturated)."""
+        if carry_dtype is None:
+            if h_offset or h_scale != 1.0 or u_scale != 1.0:
+                carry_dtype = torch.float32
+            else:
+                return y
+        dt_h, dt_u = (tuple(carry_dtype)
+                      if isinstance(carry_dtype, (tuple, list))
+                      else (carry_dtype,) * 2)
+
+        def enc(x, off, scale, dt):
+            if off:
+                x = x - float(np.float32(off))
+            if scale != 1.0:
+                x = x / float(np.float32(scale))
+            if not dt.is_floating_point:
+                info = torch.iinfo(dt)
+                return torch.round(x).clamp(info.min, info.max).to(dt)
+            return x.to(dt)
+
+        out = dict(y)
+        out["h"] = enc(y["h"], h_offset, h_scale, dt_h)
+        out["u"] = enc(y["u"], 0.0, u_scale, dt_u)
+        return out
+
+    @staticmethod
+    def decode_carry(y: State, h_offset: float = 0.0, h_scale: float = 1.0,
+                     u_scale: float = 1.0) -> State:
+        """Inverse of :meth:`encode_carry`: back to absolute float32."""
+        def dec(x, off, scale):
+            x = x.to(torch.float32)
+            if scale != 1.0:
+                x = x * float(np.float32(scale))
+            return x + float(np.float32(off)) if off else x
+
+        out = dict(y)
+        out["h"] = dec(y["h"], h_offset, h_scale)
+        out["u"] = dec(y["u"], 0.0, u_scale)
+        return out
+
     def extend_state(self, state: State, with_strips: bool = False) -> State:
         """Interior state -> extended state; ``with_strips=True`` adds the
         packed strips of the extended-carry stepper
@@ -121,13 +223,13 @@ class CovariantShallowWater(SWEBase):
                         carry_dtype=None, h_offset: float = 0.0,
                         h_scale: float = 1.0, u_scale: float = 1.0,
                         nu4_mode: str = "split", temporal_block: int = 1,
-                        ensemble: int = 0, precision=None):
+                        ensemble: int = 0, ensemble_impl: str = "kernel",
+                        precision=None):
         """The fused SSPRK3 step ``step(y, t) -> y``.
 
-        Ported: f32 carry, one step per call, one member, f32 arithmetic.
         ``compact=True`` (the production path) steps ``y =
         compact_state(state)``.  With ``nu4 == 0`` it is
-        :func:`make_fused_ssprk3_cov_compact` and ``nu4_mode`` is
+        :func:`make_fused_ssprk3_cov_multistep` and ``nu4_mode`` is
         ignored, as in the JAX package.  With ``nu4 > 0``, ``nu4_mode``
         picks the del^4 stepper: ``'split'``
         :func:`make_fused_ssprk3_cov_split_nu4` (three stages, then one
@@ -139,67 +241,100 @@ class CovariantShallowWater(SWEBase):
         with_strips=True)`` with :func:`make_fused_ssprk3_cov_inkernel`
         (nu4 == 0 only).
 
-        The JAX package's refusals stand: ``compact=False`` with
-        ``nu4 > 0``, ``ensemble > 0`` or a carry encoding raises
-        ``ValueError``.  Every other knob of the JAX package raises
-        ``NotImplementedError`` naming its ROADMAP item.  One difference:
-        the JAX package builds the fused step only with
+        The JAX package's knobs: ``carry_dtype`` / ``h_offset`` /
+        ``h_scale`` / ``u_scale`` (compact, nu4 == 0, one member:
+        initialise with :meth:`encode_carry`), ``temporal_block = k``
+        (k exact steps per call, ``steps_per_call`` set), ``ensemble =
+        B`` (compact, nu4 == 0: the batched carry of
+        :meth:`ensemble_compact_state`, one launch per stage over all
+        members with ``ensemble_impl='kernel'``, or
+        :func:`~jaxstream_torch.stepping.vmap_ensemble` over the
+        one-member step with ``'vmap'``) and ``precision`` (the stage
+        policy of :mod:`jaxstream_torch.ops.cuda.precision`; not on the
+        ``'stage'`` oracle; the extended carry takes its compute half
+        only).  Its refusals are ``ValueError``s with its messages.  One
+        difference: the JAX package builds the fused step only with
         ``backend='pallas'``; the port builds it on every backend, since
         its stage wrappers launch their kernels on CUDA tensors whatever
         the classic ``rhs`` runs.
         """
-        from ..ops.cuda.swe_cov import (make_fused_ssprk3_cov_compact,
-                                        make_fused_ssprk3_cov_inkernel,
+        from ..ops.cuda.precision import resolve_stage_precision
+        from ..ops.cuda.swe_cov import (make_fused_ssprk3_cov_inkernel,
+                                        make_fused_ssprk3_cov_multistep,
                                         make_fused_ssprk3_cov_nu4,
                                         make_fused_ssprk3_cov_refused_nu4,
                                         make_fused_ssprk3_cov_split_nu4)
+        from ..stepping import blocked, vmap_ensemble
 
         if nu4_mode not in ("split", "stage", "refused"):
             raise ValueError(f"nu4_mode must be 'split', 'stage' or "
                              f"'refused', got {nu4_mode!r}")
+        precision = resolve_stage_precision(precision)
+        if temporal_block < 1:
+            raise ValueError(
+                f"temporal_block must be >= 1, got {temporal_block}")
+        if ensemble < 0:
+            raise ValueError(f"ensemble must be >= 0, got {ensemble}")
+        if ensemble:
+            if ensemble_impl not in ("kernel", "vmap"):
+                raise ValueError(f"ensemble_impl must be 'kernel' or "
+                                 f"'vmap', got {ensemble_impl!r}")
+            if not compact:
+                raise ValueError(
+                    "ensemble > 0 requires the compact carry (the "
+                    "extended-state stepper has no batched form)")
+            if self.nu4 != 0.0:
+                plan_fail("fused-ensemble-nu4")
+            if carry_dtype is not None:
+                plan_fail("carry-needs-single-member")
         encoded = (carry_dtype is not None or h_offset or h_scale != 1.0
                    or u_scale != 1.0)
-        # The JAX package's own refusals.
-        if ensemble and not compact:
-            raise ValueError(
-                "ensemble > 0 requires the compact carry (the "
-                "extended-state stepper has no batched form)")
-        if self.nu4 != 0.0:
-            if not compact:
-                raise ValueError("nu4 > 0 requires the compact carry")
-            if encoded:
-                raise ValueError("carry_dtype/h_offset/h_scale/u_scale are "
-                                 "not supported on the nu4 paths")
-        if encoded and not compact:
-            raise ValueError("carry_dtype/h_offset/u_scale require the "
-                             "compact carry")
-        if encoded:
-            _not_ported("carry_dtype/h_offset/h_scale/u_scale",
-                        "queue A item 5 (16-bit carry encodings)")
-        if temporal_block != 1:
-            _not_ported(f"temporal_block={temporal_block}",
-                        "queue A item 5 (temporal_block)")
-        if ensemble:
-            _not_ported(f"ensemble={ensemble}",
-                        "queue A item 5 (the ensemble member axis)")
-        if precision is not None:
-            _not_ported(f"precision={precision!r}",
-                        "queue A item 5 (ops/pallas/precision.py)")
         if self.grid.dtype != torch.float32:
             raise ValueError(
                 f"the fused stepper runs float32 grids only (the stage "
                 f"kernel is f32); got {self.grid.dtype}. Use make_step or "
                 f"build the grid with dtype=torch.float32.")
+
+        def _blocked(step1):
+            if temporal_block == 1:
+                return step1
+            step = blocked(step1, temporal_block, dt)
+            step.steps_per_call = temporal_block
+            return step
+
         args = (self.grid, self.gravity, self.omega, dt, self.b_ext)
         kw = {"scheme": self.scheme, "limiter": self.limiter}
-        if not compact:
-            return make_fused_ssprk3_cov_inkernel(*args, **kw)
         if self.nu4 != 0.0:
+            if not compact:
+                raise ValueError("nu4 > 0 requires the compact carry")
+            if encoded:
+                plan_fail("nu4-no-carry-encoding")
+            if nu4_mode == "stage" and precision is not None:
+                plan_fail("nu4-stage-oracle-f32")
+            if nu4_mode == "stage":
+                return _blocked(make_fused_ssprk3_cov_nu4(
+                    *args, self.nu4, **kw))
             make = {"split": make_fused_ssprk3_cov_split_nu4,
-                    "refused": make_fused_ssprk3_cov_refused_nu4,
-                    "stage": make_fused_ssprk3_cov_nu4}[nu4_mode]
-            return make(*args, self.nu4, **kw)
-        return make_fused_ssprk3_cov_compact(*args, **kw)
+                    "refused": make_fused_ssprk3_cov_refused_nu4}[nu4_mode]
+            return _blocked(make(*args, self.nu4, precision=precision,
+                                 **kw))
+        if compact:
+            kernel_ensemble = ensemble if ensemble_impl == "kernel" else 0
+            step = make_fused_ssprk3_cov_multistep(
+                *args, temporal_block, carry_dtype=carry_dtype,
+                h_offset=h_offset, h_scale=h_scale, u_scale=u_scale,
+                ensemble=kernel_ensemble, precision=precision, **kw)
+            if ensemble and ensemble_impl == "vmap":
+                step = vmap_ensemble(step, ENSEMBLE_CARRY_AXES)
+                step.ensemble = ensemble
+            if temporal_block > 1:
+                step.steps_per_call = temporal_block
+            return step
+        if encoded:
+            raise ValueError("carry_dtype/h_offset/u_scale/_ablate_seam "
+                             "require the compact carry")
+        return _blocked(make_fused_ssprk3_cov_inkernel(
+            *args, precision=precision, **kw))
 
     def to_cartesian(self, state: State) -> torch.Tensor:
         """Interior covariant velocity -> Cartesian (3, 6, n, n)."""

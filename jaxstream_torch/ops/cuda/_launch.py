@@ -61,16 +61,19 @@ def _entry(lib_name: str, fn_name: str, argtypes):
 
 
 def _check_tensors(want, device):
-    """Validate ``{name: (tensor, shape)}`` before pointers are passed:
-    float32, contiguous, the expected shape, on ``device``."""
-    for name, (t, shape) in want.items():
+    """Validate ``{name: (tensor, shape)}`` or ``{name: (tensor, shape,
+    dtype)}`` before pointers are passed: the dtype (float32 by default),
+    contiguous, the expected shape, on ``device``."""
+    for name, spec in want.items():
+        t, shape = spec[0], spec[1]
+        dtype = spec[2] if len(spec) > 2 else torch.float32
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor, got {type(t)}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, got "
                              f"{tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: expected float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}; this kernel was "
                              f"built for {device}")

@@ -77,6 +77,7 @@ four un-prescaled sym rows S, N, W, E.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -85,9 +86,10 @@ from ..._device import resolve_device
 from ...geometry.connectivity import (EDGE_E, EDGE_N, EDGE_S, EDGE_W,
                                       build_connectivity, edge_pairs)
 from ...parallel.halo import _fill_corners
-from ..reconstruct import pick_recon
+from ..reconstruct import pick_recon, plr_face_states
 from ._launch import (KernelBase, _P, _check_tensors, _entry, _entry_name,
                       _ptr, _recon_mode)
+from .precision import resolve_stage_precision
 from .swe_rhs import _f32, _fast_frame, coord_rows
 
 __all__ = [
@@ -98,6 +100,8 @@ __all__ = [
     "make_cov_stage_compact",
     "cov_stage_compact_reference",
     "make_fused_ssprk3_cov_compact",
+    "make_fused_ssprk3_cov_multistep",
+    "pick_recon_precision",
     "lap_core",
     "CovNu4Filter",
     "make_cov_nu4_filter",
@@ -197,28 +201,34 @@ def _pair_sym_tables(grid):
 def _pair_symmetrize(I_u, gadj_a, gadj_b, tables):
     """Seam-symmetrized edge normals, (6, 4, n) in slot order.
 
-    ``I_u``: (2, 6, 4, n) interior boundary-adjacent covariant rows;
-    ``gadj_*``: (6, 4, n) edge-adjacent rotated ghost rows.  One average
-    per physical edge, distributed to both faces by exact permutation.
+    ``I_u``: (2, 6, 4, n) interior boundary-adjacent covariant rows (or
+    the pair of its two components); ``gadj_*``: (6, 4, n) edge-adjacent
+    rotated ghost rows (each with leading member axes in the batched
+    router).  One average per physical edge, distributed to both faces
+    by exact permutation.
     """
     M0, M1 = tables[:2]
     ubar0 = 0.5 * (I_u[0] + gadj_a)
     ubar1 = 0.5 * (I_u[1] + gadj_b)
-    return _pair_average((M0 * ubar0 + M1 * ubar1).reshape(24, -1), tables)
+    L = M0 * ubar0 + M1 * ubar1
+    return _pair_average(L.reshape(L.shape[:-3] + (24, L.shape[-1])),
+                         tables)
 
 
 def _pair_average(L, tables):
     """The pair algebra of :func:`_pair_symmetrize` on the (24, n) local
-    edge normals ``L`` in (face*4 + slot) order: (6, 4, n) out."""
+    edge normals ``L`` in (face*4 + slot) order: (6, 4, n) out.  Leading
+    (member) axes of ``L`` carry through."""
     _, _, link_rows, back_rows, rev, sga, sgb, sym_src = tables
-    la = L.index_select(0, link_rows)
-    lb = L.index_select(0, back_rows)
+    la = L.index_select(-2, link_rows)
+    lb = L.index_select(-2, back_rows)
     lb = torch.where(rev, torch.flip(lb, dims=[-1]), lb)
     avg = 0.5 * (sga * la - sgb * lb)
     na = sga * avg
     nb = sgb * (-avg)
     nb = torch.where(rev, torch.flip(nb, dims=[-1]), nb)
-    return torch.cat([na, nb], dim=0).index_select(0, sym_src).reshape(6, 4, -1)
+    out = torch.cat([na, nb], dim=-2).index_select(-2, sym_src)
+    return out.reshape(L.shape[:-2] + (6, 4, L.shape[-1]))
 
 
 def _local_edge_normal(grid, u_ext, face: int, edge: int):
@@ -405,7 +415,7 @@ class _SplitRoute:
     of :func:`_pair_sym_tables`.
     """
 
-    def __init__(self, grid):
+    def __init__(self, grid, precision=None):
         n, h = grid.n, grid.halo
         self.n, self.halo = n, h
         adj = build_connectivity()
@@ -451,8 +461,28 @@ class _SplitRoute:
         self.T_we = torch.stack([torch.flip(Tc[:, :, EDGE_W], dims=[-2]),
                                  Tc[:, :, EDGE_E]], dim=2)
         self.sym_tables = _pair_sym_tables(grid)
+        # The stage precision policy: strips (and routed ghosts) in sdt;
+        # the rotation tables in bf16 only when both compute and strips
+        # are (against f32 strips they would only round the
+        # coefficients), as the JAX package's router.
+        pol = resolve_stage_precision(precision)
+        self.sdt = torch.float32 if pol is None else pol.strips_dtype
+        if pol is not None and pol.compute == "bf16" and pol.strips == "bf16":
+            self.T_sn = self.T_sn.to(torch.bfloat16)
+            self.T_we = self.T_we.to(torch.bfloat16)
 
     def __call__(self, strips_sn, strips_we, sym_scale=None):
+        """``strips_sn (..., 6, 6h, n)``, ``strips_we (..., 6, n, 6h)``:
+        leading member axes batch the route (one set of torch ops for the
+        whole ensemble; the gathers index the last two axes and the
+        tables broadcast, so each member's values are its own route's)."""
+        if strips_sn.dim() == 3 and self.sdt == torch.float32:
+            return self._route(strips_sn, strips_we, sym_scale)
+        return self._route_batched(strips_sn, strips_we, sym_scale)
+
+    def _route(self, strips_sn, strips_we, sym_scale):
+        """One member with f32 strips: the fewest torch ops (the router is
+        bound by their host dispatch on the main path)."""
         n, h = self.n, self.halo
         n_sn, n_we = self.n_sn, self.n_we
         T_sn, T_we = self.T_sn, self.T_we
@@ -489,8 +519,69 @@ class _SplitRoute:
                              + [sym[:, 2:4]], dim=1)
         return gsn, gwe_rows.transpose(1, 2).contiguous()
 
+    def _route_batched(self, strips_sn, strips_we, sym_scale):
+        """:meth:`_route`'s algebra over leading member axes and the 16-bit
+        strips policy (the same values per member: every op is
+        elementwise or indexes the last two axes)."""
+        n, h = self.n, self.halo
+        n_sn, n_we = self.n_sn, self.n_we
+        T_sn, T_we = self.T_sn, self.T_we
+        lead = tuple(strips_sn.shape[:-3])
+        sdt = self.sdt
+        # 16-bit strips: the inputs narrowed (an f32 initial carry; no-ops
+        # after), the sym inputs widened to f32 (the seam symmetrization
+        # stays full precision), the outputs narrowed.
+        s16 = sdt != torch.float32
+        if s16:
+            strips_sn, strips_we = strips_sn.to(sdt), strips_we.to(sdt)
+        s_src = torch.cat(
+            [strips_sn.reshape(lead + (6 * 6 * h, n)),
+             strips_we.transpose(-1, -2).reshape(lead + (6 * 6 * h, n))],
+            dim=-2)
+        s_all = torch.cat([s_src, torch.flip(s_src, dims=[-1])], dim=-2)
+        rows = s_all.index_select(-2, self.idx)
+        C_sn = rows[..., :n_sn, :].reshape(lead + (3, 6, 2, h, n)).unbind(-5)
+        C_we = rows[..., n_sn:n_sn + n_we, :].reshape(
+            lead + (3, 6, 2, h, n)).unbind(-5)
+        I_u = rows[..., n_sn + n_we:, :].reshape(
+            lead + (2, 6, 4, n)).unbind(-4)
 
-def make_cov_strip_router_split(grid):
+        G_sn = [C_sn[0],
+                T_sn[0] * C_sn[1] + T_sn[1] * C_sn[2],
+                T_sn[2] * C_sn[1] + T_sn[3] * C_sn[2]]
+        G_we = [C_we[0],
+                T_we[0] * C_we[1] + T_we[1] * C_we[2],
+                T_we[2] * C_we[1] + T_we[3] * C_we[2]]
+
+        ka, kb = h - 1, 0
+        gadj_a = torch.stack([G_sn[1][..., 0, ka, :], G_sn[1][..., 1, kb, :],
+                              G_we[1][..., 0, ka, :], G_we[1][..., 1, kb, :]],
+                             dim=-2)
+        gadj_b = torch.stack([G_sn[2][..., 0, ka, :], G_sn[2][..., 1, kb, :],
+                              G_we[2][..., 0, ka, :], G_we[2][..., 1, kb, :]],
+                             dim=-2)
+        if s16:
+            I_u = tuple(x.float() for x in I_u)
+            gadj_a, gadj_b = gadj_a.float(), gadj_b.float()
+        sym = _pair_symmetrize(I_u, gadj_a, gadj_b, self.sym_tables)
+        if sym_scale is not None:
+            sym = sym * sym_scale
+        if s16:
+            # Rounded once per physical edge, then distributed: both faces
+            # get the identical value.
+            sym = sym.to(sdt)
+            G_sn = [g.to(sdt) for g in G_sn]
+            G_we = [g.to(sdt) for g in G_we]
+
+        gsn = torch.cat([g.reshape(lead + (6, 2 * h, n)) for g in G_sn]
+                        + [sym[..., 0:2, :]], dim=-2)
+        gwe_rows = torch.cat([g.reshape(lead + (6, 2 * h, n)) for g in G_we]
+                             + [sym[..., 2:4, :]], dim=-2)
+        return gsn, gwe_rows.transpose(-1, -2).contiguous()
+
+
+def make_cov_strip_router_split(grid, precision=None,
+                                prescale_sym: bool = True):
     """``route(strips_sn, strips_we) -> (gsn, gwe)``.
 
     ``gsn`` ``(6, 6h+2, n)``: placed S/N ghost blocks per field plus the
@@ -498,10 +589,19 @@ def make_cov_strip_router_split(grid):
     W/E ghost columns plus the W/E sym columns.  Same algebra and operand
     order as the JAX package's router with ``prescale_sym=True``: the sym
     rows are multiplied by the static edge sqrtg, so the stage imposes
-    them as they are.
+    them as they are.  Leading member axes batch it (the JAX package's
+    ``jax.vmap(route)``).
+
+    ``precision``: with 16-bit strips the ghosts and sym rows are taken
+    and emitted in bfloat16; with bf16 compute too the 2x2 rotations run
+    in bfloat16.  The sym rows are computed in f32 and rounded once.
+    ``prescale_sym=False``: the sym rows as the pair average leaves them
+    (the stages then take ``sym_prescaled=False``).
     """
     n, h = grid.n, grid.halo
-    core = _SplitRoute(grid)
+    core = _SplitRoute(grid, precision)
+    if not prescale_sym:
+        return core
 
     # Static edge sqrtg rows in [S, N, W, E] order, identical for all
     # faces, from the same closed forms the stage would evaluate.
@@ -535,10 +635,33 @@ def _center(v):
     return v[..., 1:-1, 1:-1]
 
 
+def pick_recon_precision(scheme: str, halo: int, n: int, limiter: str,
+                         precision=None):
+    """The stage kernels' reconstruction under a precision policy.
+
+    Policy off (or f32 compute): :func:`pick_recon`.  ``compute='bf16'``
+    with PLR: the cell differences in f32, the limiter algebra in
+    bfloat16, the face state ``f32 cell value +- f32(bf16 half-slope)``
+    (:func:`~jaxstream_torch.ops.reconstruct.plr_face_states` with
+    ``slope_dtype``).  PPM has no bf16 form: ``ValueError``, the JAX
+    package's message.
+    """
+    if precision is None or precision.compute != "bf16":
+        return pick_recon(scheme, halo, n, limiter)
+    if scheme == "ppm":
+        raise ValueError(
+            "the bf16 stage policy is defined for the PLR "
+            "reconstruction (its op split and mixed-roof accounting "
+            "assume the limiter algebra); PPM has no bf16 form — drop "
+            "the precision policy or use scheme='plr'")
+    return functools.partial(plr_face_states, h=halo, n=n, limiter=limiter,
+                             slope_dtype=torch.bfloat16)
+
+
 def rhs_core_cov(fz, xr, xfr, yc, yfc, hf, ua, ub, bf, sym_sn, sym_we, *,
                  n, halo, d, radius, gravity, omega, scheme="plr",
                  limiter="mc", sym_prescaled=True,
-                 seam_edges=(True, True, True, True)):
+                 seam_edges=(True, True, True, True), precision=None):
     """Covariant-SWE right-hand side of all faces at once (plain torch).
 
     ``fz = (c0z, cxz, cyz)``: the face frames' z-components, each
@@ -561,6 +684,12 @@ def rhs_core_cov(fz, xr, xfr, yc, yfc, hf, ua, ub, bf, sym_sn, sym_we, *,
     W, E)`` gates each seam imposition (a window edge that is not a seam
     keeps its local flux; ``sym_sn`` or ``sym_we`` may be ``None`` where
     both of its edges are off).
+
+    ``precision`` (a resolved :class:`~.precision.StagePrecision` or
+    None): with ``compute='bf16'`` the flux face-average velocities are
+    formed in bfloat16 (promoted back to f32 by the f32 metric) and h's
+    PLR face states by :func:`pick_recon_precision`; every accumulator
+    and metric term stays f32.
     """
     ny, nx = (n, n) if isinstance(n, int) else n
     eS, eN, eW, eE = seam_edges
@@ -587,25 +716,38 @@ def rhs_core_cov(fz, xr, xfr, yc, yfc, hf, ua, ub, bf, sym_sn, sym_we, *,
     uE = seam(sym_we, (slice(None), slice(None), slice(1, 2)),
               xfr[..., h1x:h1x + 1], yc[..., h0y:h1y, :], eE)
 
+    if precision is not None and precision.compute == "bf16":
+        def lo(x):
+            return x.to(torch.bfloat16)
+    else:
+        def lo(x):
+            return x
+
     # ---- continuity: upwind flux with the sqrtg-folded metric ----------
     Fx = _fast_frame(xfr[..., h0x:h1x + 1], yc[..., h0y:h1y, :], radius)
-    uba = 0.5 * (ua[..., h0y:h1y, h0x - 1:h1x] + ua[..., h0y:h1y, h0x:h1x + 1])
-    ubb = 0.5 * (ub[..., h0y:h1y, h0x - 1:h1x] + ub[..., h0y:h1y, h0x:h1x + 1])
+    uba = 0.5 * (lo(ua[..., h0y:h1y, h0x - 1:h1x])
+                 + lo(ua[..., h0y:h1y, h0x:h1x + 1]))
+    ubb = 0.5 * (lo(ub[..., h0y:h1y, h0x - 1:h1x])
+                 + lo(ub[..., h0y:h1y, h0x:h1x + 1]))
     ux = Fx["fg_aa"] * uba + Fx["fg_ab"] * ubb          # sqrtg u^a
     if eW or eE:
         ux = torch.cat([uW if eW else ux[..., 0:1], ux[..., 1:nx],
                         uE if eE else ux[..., nx:nx + 1]], dim=-1)
-    qL, qR = pick_recon(scheme, halo, nx, limiter)(hf[..., h0y:h1y, :], -1)
+    qL, qR = pick_recon_precision(scheme, halo, nx, limiter, precision)(
+        hf[..., h0y:h1y, :], -1)
     fx = torch.clamp(ux, min=0.0) * qL + torch.clamp(ux, max=0.0) * qR
 
     Fy = _fast_frame(xr[..., h0x:h1x], yfc[..., h0y:h1y + 1, :], radius)
-    vba = 0.5 * (ua[..., h0y - 1:h1y, h0x:h1x] + ua[..., h0y:h1y + 1, h0x:h1x])
-    vbb = 0.5 * (ub[..., h0y - 1:h1y, h0x:h1x] + ub[..., h0y:h1y + 1, h0x:h1x])
+    vba = 0.5 * (lo(ua[..., h0y - 1:h1y, h0x:h1x])
+                 + lo(ua[..., h0y:h1y + 1, h0x:h1x]))
+    vbb = 0.5 * (lo(ub[..., h0y - 1:h1y, h0x:h1x])
+                 + lo(ub[..., h0y:h1y + 1, h0x:h1x]))
     uy = Fy["fg_ab"] * vba + Fy["fg_bb"] * vbb          # sqrtg u^b
     if eS or eN:
         uy = torch.cat([uS if eS else uy[..., 0:1, :], uy[..., 1:ny, :],
                         uN if eN else uy[..., ny:ny + 1, :]], dim=-2)
-    qL, qR = pick_recon(scheme, halo, ny, limiter)(hf[..., :, h0x:h1x], -2)
+    qL, qR = pick_recon_precision(scheme, halo, ny, limiter, precision)(
+        hf[..., :, h0x:h1x], -2)
     fy = torch.clamp(uy, min=0.0) * qL + torch.clamp(uy, max=0.0) * qR
 
     # ---- momentum, vector-invariant in covariant components ------------
@@ -647,11 +789,13 @@ def _fill(q_int, gsn, gwe, fi, n, halo, corners=False):
     dimension-split stencils never read them.  ``corners=True`` fills
     them by edge-ghost averaging (``_make_fill(corners=True)``, the same
     formula as the halo exchanger's): the del^4 filter needs them, since
-    its Laplacians' cross-derivative terms read the corners.
+    its Laplacians' cross-derivative terms read the corners.  Faces may be
+    6 B deep (an ensemble's folded member axis); 16-bit ghosts are
+    widened by the assignment (exact).
     """
     h = halo
     i0, i1 = h, h + n
-    ext = q_int.new_zeros((6, n + 2 * h, n + 2 * h))
+    ext = q_int.new_zeros((q_int.shape[0], n + 2 * h, n + 2 * h))
     ext[:, i0:i1, i0:i1] = q_int
     ext[:, 0:h, i0:i1] = gsn[:, fi * 2 * h:fi * 2 * h + h]
     ext[:, i1:i1 + h, i0:i1] = gsn[:, fi * 2 * h + h:(fi + 1) * 2 * h]
@@ -664,48 +808,88 @@ def _fill(q_int, gsn, gwe, fi, n, halo, corners=False):
 
 def _stage_rhs(stage, hf, ua, ub, b_ext, gsn, gwe):
     """:func:`rhs_core_cov` on ghost-filled frames with ``stage``'s
-    constants and coordinate rows and the routed (prescaled) sym rows."""
+    constants, coordinate rows and precision policy and the routed
+    (prescaled) sym rows, widened to f32.  Frames 6 B deep (a folded
+    ensemble) read the static fz and b_ext of face ``f % 6``."""
     h = stage.halo
-    return stage._rhs(stage.fz, hf, ua, ub, b_ext, gsn[:, 6 * h:6 * h + 2],
-                      gwe[:, :, 6 * h:6 * h + 2], sym_prescaled=True)
+    reps = hf.shape[0] // 6
+    fz = stage.fz if reps == 1 else stage.fz.repeat(reps, 1)
+    b = b_ext if reps == 1 else b_ext.repeat(reps, 1, 1)
+    return stage._rhs(fz, hf, ua, ub, b, gsn[:, 6 * h:6 * h + 2].float(),
+                      gwe[:, :, 6 * h:6 * h + 2].float(),
+                      sym_prescaled=stage.sym_prescaled)
+
+
+def _widen(x):
+    return x if x.dtype == torch.float32 else x.float()
 
 
 def _stage_advance(stage, args, corners=False):
     """Fill, right-hand side and RK combine of one stage: the plain
     version's core, shared by the compact stage and the in-stage del^4
     kernel A.  Returns ``(h_new, u_new, (hf, ua, ub))``, the last the
-    ghost-filled stage input (``corners``: see :func:`_fill`)."""
+    ghost-filled stage input (``corners``: see :func:`_fill`).
+
+    With a carry encoding (:class:`CovStageCompact`'s ``carry_dtype``,
+    ``h_offset``, ``h_scale``, ``u_scale``) the frames hold the decoded
+    (absolute) values and the combine runs in stored space on the
+    widened stored values, with the tendency constants ``g_dt / scale``:
+    ``h_new`` / ``u_new`` are then the float32 stored-space values,
+    before the storage rounding."""
     h0, u0, hc, uc, gsn, gwe, b_ext = stage._unpack(args)
     n, h = stage.n, stage.halo
-    frames = tuple(_fill(q, gsn, gwe, fi, n, h, corners=corners)
+    frames = tuple(_fill(stage._decode(q, fi == 0), gsn, gwe, fi, n, h,
+                         corners=corners)
                    for fi, q in enumerate((hc, uc[0], uc[1])))
     dh, dua, dub = _stage_rhs(stage, *frames, b_ext, gsn, gwe)
 
-    fa, fb, fg = stage.fa, stage.fb, stage.fg
+    fa, fb = stage.fa, stage.fb
 
-    def combine(yc, y0, tend):
+    def combine(yc, y0, tend, fg):
         if stage.with_y0:
-            return (fa * y0 + fb * yc) + fg * tend
-        return yc + fg * tend
+            return (fa * _widen(y0) + fb * _widen(yc)) + fg * tend
+        return _widen(yc) + fg * tend
 
-    h_new = combine(hc, h0, dh)
+    h_new = combine(hc, h0, dh, stage.fg_h)
     u_new = torch.stack([
-        combine(uc[0], None if u0 is None else u0[0], dua),
-        combine(uc[1], None if u0 is None else u0[1], dub)])
+        combine(uc[0], None if u0 is None else u0[0], dua, stage.fg_u),
+        combine(uc[1], None if u0 is None else u0[1], dub, stage.fg_u)])
     return h_new, u_new, frames
+
+
+def _store(x, dtype):
+    """A float32 stored-space value in its storage ``dtype``: rounded to
+    nearest even (an integer carrier also saturated), as the JAX kernel's
+    ``store``."""
+    if dtype == torch.float32:
+        return x
+    if not dtype.is_floating_point:
+        info = torch.iinfo(dtype)
+        return torch.round(x).clamp(info.min, info.max).to(dtype)
+    return x.to(dtype)
 
 
 def cov_stage_compact_reference(stage, *args):
     """The plain PyTorch version of one compact stage.
 
-    ``stage`` is a :class:`CovStageCompact` (its coefficients, constants
-    and coordinate rows); ``args`` as for calling it.  Used on CPU tensors
-    by the stage itself, and by the tests and ``chip_smoke.py`` to hold
-    the CUDA kernel against it.  Returns ``(h, u, strips_sn, strips_we)``.
+    ``stage`` is a :class:`CovStageCompact` (its coefficients, constants,
+    coordinate rows, carry encoding and precision policy); ``args`` as for
+    calling it.  Used on CPU tensors by the stage itself, and by the tests
+    and ``chip_smoke.py`` to hold the CUDA kernels against it.  Returns
+    ``(h, u, strips_sn, strips_we)``: h and u in their storage dtypes, the
+    strips in absolute units in the policy's strips dtype.
     """
     h_new, u_new, _ = _stage_advance(stage, args)
-    sn, we = pack_strips_cov_split(h_new, u_new, stage.n, stage.halo)
-    return h_new, u_new, sn, we
+    h_abs, u_abs = h_new, u_new
+    if stage.h_scale != 1.0:
+        h_abs = h_abs * _f32(stage.h_scale)
+    if stage.h_offset != 0.0:
+        h_abs = h_abs + _f32(stage.h_offset)
+    if stage.u_scale != 1.0:
+        u_abs = u_abs * _f32(stage.u_scale)
+    sn, we = pack_strips_cov_split(h_abs, u_abs, stage.n, stage.halo)
+    return (_store(h_new, stage.cdt_h), _store(u_new, stage.cdt_u),
+            sn.to(stage.sdt), we.to(stage.sdt))
 
 
 # ---------------------------------------------------------------------------
@@ -745,6 +929,9 @@ class _ConstsBase(KernelBase):
             _f32(2.0 * self.omega), _f32(1.0 / (2.0 * self.dalpha)),
             _f32(1.0 / self.dalpha))
         self.device = torch.device(device)
+        #: The stage precision policy (a resolved StagePrecision, None =
+        #: f32); the stage wrappers that take one set it.
+        self.precision = None
 
     def _mc_only(self, kernel: str):
         """Refuse every reconstruction but PLR-MC: ``kernel``'s modes are
@@ -781,7 +968,13 @@ class _RhsBase(_ConstsBase):
             sym_we, n=self.n, halo=self.halo, d=self.dalpha,
             radius=self.radius, gravity=self.gravity, omega=self.omega,
             scheme=self.scheme, limiter=self.limiter,
-            sym_prescaled=sym_prescaled)
+            sym_prescaled=sym_prescaled, precision=self.precision)
+
+
+#: The carry storage dtypes of the compact stage and their codes in the
+#: policy kernel (``csrc/cov_half.cuh``'s ``Carry``).
+_CARRY_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+                torch.int16: 3}
 
 
 class _StageBase(_RhsBase):
@@ -791,9 +984,16 @@ class _StageBase(_RhsBase):
 
     def __init__(self, n: int, halo: int, dalpha: float, radius: float,
                  gravity: float, omega: float, dt: float, a: float, b: float,
-                 scheme: str = "plr", limiter: str = "mc", device="cuda"):
+                 scheme: str = "plr", limiter: str = "mc", device="cuda",
+                 precision=None):
         super().__init__(n, halo, dalpha, radius, gravity, omega,
                          scheme=scheme, limiter=limiter, device=device)
+        self.precision = resolve_stage_precision(precision)
+        self.sdt = (torch.float32 if self.precision is None
+                    else self.precision.strips_dtype)
+        # PPM under a bf16 compute policy raises here, as in the JAX
+        # package's stage factories.
+        pick_recon_precision(scheme, halo, n, limiter, self.precision)
         self.a, self.b, self.dt = float(a), float(b), float(dt)
         if self.a == 0.0 and self.b != 1.0:
             raise NotImplementedError(
@@ -804,6 +1004,23 @@ class _StageBase(_RhsBase):
         self.fa, self.fb = _f32(self.a), _f32(self.b)
         self.fg = _f32(self.b * self.dt)
         self._kconsts = self._rhs_consts + (self.fa, self.fb, self.fg)
+        # The carry encoding and the sym rows' form (CovStageCompact sets
+        # them): float32, as is; prescaled.
+        self.sym_prescaled = True
+        self.cdt_h = self.cdt_u = torch.float32
+        self.h_offset, self.h_scale, self.u_scale = 0.0, 1.0, 1.0
+        self.fg_h = self.fg_u = self.fg
+
+    def _decode(self, q, is_h):
+        """A carried field's absolute float32 values: widened, times the
+        scale where it is not 1, plus h's offset where it is not 0."""
+        q = _widen(q)
+        scale = self.h_scale if is_h else self.u_scale
+        if scale != 1.0:
+            q = q * _f32(scale)
+        if is_h and self.h_offset != 0.0:
+            q = q + _f32(self.h_offset)
+        return q
 
     def _unpack(self, args):
         if self.with_y0:
@@ -835,15 +1052,98 @@ class CovStageCompact(_StageBase):
     ``a*y0 + b*yc + b*dt*L(yc)`` with the combine association of the JAX
     kernel, and returns ``(h, u, strips_sn, strips_we)``.
 
-    Every reconstruction (PLR with each limiter; PPM at halo >= 3):
-    CUDA tensors launch the mode's instance of ``csrc/cov_stage.cu``;
-    CPU tensors run :func:`cov_stage_compact_reference`.  There is no
-    other path: a kernel that fails to build or launch raises.
+    The JAX kernel's knobs:
+
+    * ``groups = 6 B``: the carry holds B ensemble members with the member
+      axis folded into the face axis (``h (6B, n, n)``, ``u (2, 6B, n,
+      n)``, routed ghosts ``(6B, ...)``); ``b_ext`` stays ``(6, M, M)``.
+    * ``carry_dtype`` (one dtype or ``(h_dtype, u_dtype)``, each float32,
+      bfloat16, float16 or int16), ``h_offset``, ``h_scale``, ``u_scale``:
+      h stored as ``(h - h_offset) / h_scale``, u as ``u / u_scale``; the
+      combine runs in stored space (``h_offset`` needs coefficients
+      summing to 1), integer storage rounds to nearest even, the strips
+      come out in absolute units.
+    * ``precision``: the stage policy (:mod:`.precision`): bf16 limiter
+      algebra and face-average velocities, bf16 strips in and out.
+    * ``sym_prescaled=False``: the routed sym rows come un-prescaled and
+      the stage multiplies them by the edge sqrtg (the JAX split del^4
+      stepper's form).
+
+    Every reconstruction (PLR with each limiter; PPM at halo >= 3, not
+    under bf16 compute).  CUDA tensors launch the mode's instance of
+    ``csrc/cov_stage.cu`` for one member, a float32 carry and no policy,
+    else of ``csrc/cov_stage_policy.cu`` (``cov_stage_policy_bf16.cu``
+    under bf16 compute, ``cov_stage_members.cu`` for more members with
+    a float32 carry and no policy); CPU tensors run
+    :func:`cov_stage_compact_reference`.  There is no other path: a kernel
+    that fails to build or launch raises.
     """
 
-    #: Launches of the CUDA kernel, all instances together (the plain
+    #: Launches of the CUDA kernels, all instances together (the plain
     #: version does not count).
     launches = 0
+
+    def __init__(self, n: int, halo: int, dalpha: float, radius: float,
+                 gravity: float, omega: float, dt: float, a: float, b: float,
+                 scheme: str = "plr", limiter: str = "mc", device="cuda",
+                 carry_dtype=None, h_offset: float = 0.0,
+                 h_scale: float = 1.0, u_scale: float = 1.0,
+                 groups: int = 6, precision=None,
+                 sym_prescaled: bool = True):
+        super().__init__(n, halo, dalpha, radius, gravity, omega, dt, a, b,
+                         scheme=scheme, limiter=limiter, device=device,
+                         precision=precision)
+        self.sym_prescaled = bool(sym_prescaled)
+        if carry_dtype is None:
+            carry_dtype = torch.float32
+        self.cdt_h, self.cdt_u = (
+            tuple(carry_dtype) if isinstance(carry_dtype, (tuple, list))
+            else (carry_dtype,) * 2)
+        for dt_ in (self.cdt_h, self.cdt_u):
+            if dt_ not in _CARRY_CODES:
+                raise ValueError(
+                    f"carry_dtype {dt_} is not a carry storage type; valid: "
+                    + ", ".join(str(d) for d in _CARRY_CODES))
+        self.h_offset = float(h_offset)
+        self.h_scale, self.u_scale = float(h_scale), float(u_scale)
+        a_, b_ = self.a, self.b
+        if self.h_offset != 0.0 and ((self.with_y0 and abs(a_ + b_ - 1.0)
+                                      > 1e-9)
+                                     or (not self.with_y0 and b_ != 1.0)):
+            raise ValueError("h_offset needs stage coefficients summing to "
+                             "1 (anomaly combine is only exact then); got "
+                             f"a={a_}, b={b_}")
+        if groups < 6 or groups % 6:
+            raise ValueError(
+                f"groups must be a positive multiple of 6 (6 * ensemble "
+                f"members), got {groups}")
+        self.groups, self.members = groups, groups // 6
+        g_dt = self.b * self.dt
+        self.fg_h = self.fg if self.h_scale == 1.0 else _f32(g_dt
+                                                             / self.h_scale)
+        self.fg_u = self.fg if self.u_scale == 1.0 else _f32(g_dt
+                                                             / self.u_scale)
+        self.encoded = not (self.cdt_h == self.cdt_u == torch.float32
+                            and self.h_offset == 0.0 and self.h_scale == 1.0
+                            and self.u_scale == 1.0)
+        #: cov_stage.cu's instance (else cov_stage_policy.cu's).
+        self.plain = (self.members == 1 and not self.encoded
+                      and self.precision is None and self.sym_prescaled)
+        self._pconsts = self._rhs_consts + (
+            self.fa, self.fb, self.fg_h, self.fg_u, _f32(self.h_scale),
+            _f32(self.h_offset), _f32(self.u_scale))
+
+    def _check(self, h0, u0, hc, uc, gsn, gwe, b_ext):
+        n, h, m, G = self.n, self.halo, self.m, self.groups
+        ch, cu, sd = self.cdt_h, self.cdt_u, self.sdt
+        want = {"hc": (hc, (G, n, n), ch), "uc": (uc, (2, G, n, n), cu),
+                "gsn": (gsn, (G, 6 * h + 2, n), sd),
+                "gwe": (gwe, (G, n, 6 * h + 2), sd),
+                "b_ext": (b_ext, (6, m, m))}
+        if self.with_y0:
+            want["h0"] = (h0, (G, n, n), ch)
+            want["u0"] = (u0, (2, G, n, n), cu)
+        _check_tensors(want, self.device)
 
     def __call__(self, *args):
         h0, u0, hc, uc, gsn, gwe, b_ext = self._unpack(args)
@@ -856,62 +1156,179 @@ class CovStageCompact(_StageBase):
         """The plain version on the same arguments (tests and smoke)."""
         return cov_stage_compact_reference(self, *args)
 
+    @property
+    def kernel_name(self) -> str:
+        """The C entry point a launch takes."""
+        if self.plain:
+            return _entry_name("cov_stage_compact", self.mode)
+        if not self.encoded and self.precision is None \
+                and self.sym_prescaled:
+            return f"cov_stage_members_{self.mode}_f32"
+        compute = ("bf16" if self.precision is not None
+                   and self.precision.compute == "bf16" else "f32")
+        return f"cov_stage_policy_{self.mode}_{compute}"
+
     def _launch(self, h0, u0, hc, uc, gsn, gwe, b_ext):
-        n, h = self.n, self.halo
+        n, h, G = self.n, self.halo, self.groups
         ho = torch.empty_like(hc)
         uo = torch.empty_like(uc)
-        ssn = hc.new_empty((6, 6 * h, n))
-        swe = hc.new_empty((6, n, 6 * h))
-        rc = _kernel(self.mode)(
-            _ptr(h0), _ptr(u0), hc.data_ptr(), uc.data_ptr(), gsn.data_ptr(),
-            gwe.data_ptr(), b_ext.data_ptr(), self._xc.data_ptr(),
-            self._xf.data_ptr(), self.fz.data_ptr(), ho.data_ptr(),
-            uo.data_ptr(), ssn.data_ptr(), swe.data_ptr(),
-            n, h, int(self.with_y0), *self._kconsts, self._stream())
+        ssn = gsn.new_empty((G, 6 * h, n))
+        swe = gsn.new_empty((G, n, 6 * h))
+        if self.plain:
+            rc = _kernel(self.mode)(
+                _ptr(h0), _ptr(u0), hc.data_ptr(), uc.data_ptr(),
+                gsn.data_ptr(), gwe.data_ptr(), b_ext.data_ptr(),
+                self._xc.data_ptr(), self._xf.data_ptr(), self.fz.data_ptr(),
+                ho.data_ptr(), uo.data_ptr(), ssn.data_ptr(), swe.data_ptr(),
+                n, h, int(self.with_y0), *self._kconsts, self._stream())
+        else:
+            rc = _policy_kernel(self.kernel_name)(
+                _ptr(h0), _ptr(u0), hc.data_ptr(), uc.data_ptr(),
+                gsn.data_ptr(), gwe.data_ptr(), b_ext.data_ptr(),
+                self._xc.data_ptr(), self._xf.data_ptr(), self.fz.data_ptr(),
+                ho.data_ptr(), uo.data_ptr(), ssn.data_ptr(), swe.data_ptr(),
+                n, h, int(self.with_y0), self.members,
+                _CARRY_CODES[self.cdt_h], _CARRY_CODES[self.cdt_u],
+                int(self.sdt == torch.bfloat16), int(not self.sym_prescaled),
+                *self._pconsts, self._stream())
         if rc != 0:
             raise RuntimeError(
-                f"cov_stage kernel launch failed: cudaError {rc} "
-                f"(n={n}, halo={h}, mode={self.mode})")
+                f"{self.kernel_name} kernel launch failed: cudaError {rc} "
+                f"(n={n}, halo={h}, mode={self.mode}, groups={G})")
         CovStageCompact.launches += 1
         return ho, uo, ssn, swe
 
 
+def _policy_kernel(name: str):
+    """cov_stage_policy.cu's entry ``name``: 14 tensor pointers; n, halo,
+    with_y0, members, the h and u carry codes, s16, frame; 12 float
+    constants; the stream."""
+    lib = ("cov_stage_members" if name.startswith("cov_stage_members")
+           else "cov_stage_policy_bf16" if name.endswith("_bf16")
+           else "cov_stage_policy")
+    return _entry(lib, name, [_P] * 14 + [ctypes.c_int] * 8
+                  + [ctypes.c_float] * 12 + [_P])
+
+
 def make_cov_stage_compact(n, halo, dalpha, radius, gravity, omega, dt, a, b,
-                           scheme="plr", limiter="mc", device="cuda"):
+                           scheme="plr", limiter="mc", device="cuda",
+                           carry_dtype=None, h_offset=0.0, h_scale=1.0,
+                           u_scale=1.0, groups=6, precision=None,
+                           sym_prescaled=True):
     """One compact stage (see :class:`CovStageCompact`)."""
     return CovStageCompact(n, halo, dalpha, radius, gravity, omega, dt, a, b,
-                           scheme=scheme, limiter=limiter, device=device)
+                           scheme=scheme, limiter=limiter, device=device,
+                           carry_dtype=carry_dtype, h_offset=h_offset,
+                           h_scale=h_scale, u_scale=u_scale, groups=groups,
+                           precision=precision, sym_prescaled=sym_prescaled)
 
 
 def make_fused_ssprk3_cov_compact(grid, gravity: float, omega: float,
                                   dt: float, b_ext, scheme: str = "plr",
-                                  limiter: str = "mc"):
+                                  limiter: str = "mc", carry_dtype=None,
+                                  h_offset: float = 0.0,
+                                  h_scale: float = 1.0, u_scale: float = 1.0,
+                                  ensemble: int = 0, precision=None,
+                                  prescale_sym: bool = True):
     """``step(y, t) -> y`` over ``y = {h, u, strips_sn, strips_we}``.
 
     Three stages, each one strip route and one stage launch; initialise
-    the carry with ``CovariantShallowWater.compact_state``.
+    the carry with ``CovariantShallowWater.compact_state`` (encoded per
+    ``carry_dtype`` / ``h_offset`` / ``h_scale`` / ``u_scale`` with
+    ``encode_carry``).  ``precision``: the stage policy; a 16-bit strips
+    policy takes an f32 initial strip carry (the first route narrows it).
+
+    ``ensemble = B > 0``: the carry gains a leading member axis (``h (B, 6,
+    n, n)``, ``u (2, B, 6, n, n)``, ``strips_* (B, 6, ...)``; initialise
+    with ``ensemble_compact_state``); each stage is one launch over the
+    ``6 B`` folded faces and each route one batched route over the
+    members.  Per member the arithmetic is the unbatched step's, so
+    member i is bitwise its own run.  ``prescale_sym=False``: the route
+    leaves the sym rows un-prescaled and the stages scale them.
     """
-    route = make_cov_strip_router_split(grid)
+    B = int(ensemble)
+    precision = resolve_stage_precision(precision)
+    route = make_cov_strip_router_split(grid, precision=precision,
+                                        prescale_sym=prescale_sym)
     stages = [make_cov_stage_compact(
         grid.n, grid.halo, grid.dalpha, grid.radius, gravity, omega, dt,
-        a, b, scheme=scheme, limiter=limiter, device=grid.device)
+        a, b, scheme=scheme, limiter=limiter, device=grid.device,
+        carry_dtype=carry_dtype, h_offset=h_offset, h_scale=h_scale,
+        u_scale=u_scale, groups=6 * max(B, 1), precision=precision,
+        sym_prescaled=prescale_sym)
         for a, b in SSPRK3_COEFFS]
     stage1, stage2, stage3 = stages
 
-    def step(y, t):
-        del t
-        h0, u0 = y["h"], y["u"]
-        gsn, gwe = route(y["strips_sn"], y["strips_we"])
-        h1, u1, sn1, we1 = stage1(h0, u0, gsn, gwe, b_ext)
-        gsn, gwe = route(sn1, we1)
-        h2, u2, sn2, we2 = stage2(h0, u0, h1, u1, gsn, gwe, b_ext)
-        gsn, gwe = route(sn2, we2)
-        h3, u3, sn3, we3 = stage3(h0, u0, h2, u2, gsn, gwe, b_ext)
-        return {"h": h3, "u": u3, "strips_sn": sn3, "strips_we": we3}
+    if not B:
+        def step(y, t):
+            del t
+            h0, u0 = y["h"], y["u"]
+            gsn, gwe = route(y["strips_sn"], y["strips_we"])
+            h1, u1, sn1, we1 = stage1(h0, u0, gsn, gwe, b_ext)
+            gsn, gwe = route(sn1, we1)
+            h2, u2, sn2, we2 = stage2(h0, u0, h1, u1, gsn, gwe, b_ext)
+            gsn, gwe = route(sn2, we2)
+            h3, u3, sn3, we3 = stage3(h0, u0, h2, u2, gsn, gwe, b_ext)
+            return {"h": h3, "u": u3, "strips_sn": sn3, "strips_we": we3}
+    else:
+        # (B, 6) <-> 6B around the stage launches: views of contiguous
+        # tensors.
+        def fold(x, lead=0):
+            s_ = x.shape
+            return x.reshape(s_[:lead] + (B * 6,) + s_[lead + 2:])
+
+        def unfold(x, lead=0):
+            s_ = x.shape
+            return x.reshape(s_[:lead] + (B, 6) + s_[lead + 1:])
+
+        def step(y, t):
+            del t
+            h0, u0 = fold(y["h"]), fold(y["u"], 1)
+            gsn, gwe = route(y["strips_sn"], y["strips_we"])
+            h1, u1, sn1, we1 = stage1(h0, u0, fold(gsn), fold(gwe), b_ext)
+            gsn, gwe = route(unfold(sn1), unfold(we1))
+            h2, u2, sn2, we2 = stage2(h0, u0, h1, u1, fold(gsn), fold(gwe),
+                                      b_ext)
+            gsn, gwe = route(unfold(sn2), unfold(we2))
+            h3, u3, sn3, we3 = stage3(h0, u0, h2, u2, fold(gsn), fold(gwe),
+                                      b_ext)
+            return {"h": unfold(h3), "u": unfold(u3, 1),
+                    "strips_sn": unfold(sn3), "strips_we": unfold(we3)}
+
+        step.ensemble = B
 
     step.route = route
     step.stages = stages
     return step
+
+
+def make_fused_ssprk3_cov_multistep(grid, gravity: float, omega: float,
+                                    dt: float, b_ext, temporal_block: int,
+                                    scheme: str = "plr", limiter: str = "mc",
+                                    carry_dtype=None, h_offset: float = 0.0,
+                                    h_scale: float = 1.0,
+                                    u_scale: float = 1.0, ensemble: int = 0,
+                                    precision=None):
+    """``block(y, t) -> y``: ``temporal_block`` compact steps per call
+    (:func:`~jaxstream_torch.stepping.blocked`, exact: bitwise k separate
+    calls), with ``steps_per_call`` set; k = 1 is
+    :func:`make_fused_ssprk3_cov_compact`."""
+    if temporal_block < 1:
+        raise ValueError(
+            f"temporal_block must be >= 1, got {temporal_block}")
+    step1 = make_fused_ssprk3_cov_compact(
+        grid, gravity, omega, dt, b_ext, scheme=scheme, limiter=limiter,
+        carry_dtype=carry_dtype, h_offset=h_offset, h_scale=h_scale,
+        u_scale=u_scale, ensemble=ensemble, precision=precision)
+    if temporal_block == 1:
+        return step1
+    from ...stepping import blocked
+
+    block = blocked(step1, temporal_block, dt)
+    block.steps_per_call = temporal_block
+    if ensemble:
+        block.ensemble = int(ensemble)
+    return block
 
 
 # ---------------------------------------------------------------------------
@@ -985,7 +1402,8 @@ def cov_nu4_filter_reference(filt, hc, uc, gsn, gwe):
     and becomes ``q - damp * lap(lap q)``.  Used on CPU tensors by the
     filter itself and by the tests and ``chip_smoke.py`` to hold the CUDA
     kernel against it; it also runs in float64.  Returns
-    ``(h, u, strips_sn, strips_we)``.
+    ``(h, u, strips_sn, strips_we)``, the strips in the filter's strips
+    dtype (16-bit ghosts are widened by the fill).
     """
     n, h = filt.n, filt.halo
     x_row, xf_row, x_col, xf_col = filt.coords
@@ -996,7 +1414,8 @@ def cov_nu4_filter_reference(filt, hc, uc, gsn, gwe):
         for fi, q in enumerate((hc, uc[0], uc[1]))]
     h_new, u_new = out[0], torch.stack(out[1:])
     sn, we = pack_strips_cov_split(h_new, u_new, n, h)
-    return h_new, u_new, sn, we
+    sdt = getattr(filt, "sdt", torch.float32)
+    return h_new, u_new, sn.to(sdt), we.to(sdt)
 
 
 # ---------------------------------------------------------------------------
@@ -1004,12 +1423,14 @@ def cov_nu4_filter_reference(filt, hc, uc, gsn, gwe):
 # ---------------------------------------------------------------------------
 
 
-def _filter_kernel():
-    """The filter kernel: 10 tensor pointers; n, halo; R^2, 1/d, 0.5/d,
-    damp; the stream."""
-    return _entry("cov_nu4_filter", "cov_nu4_filter_f32",
-                  [_P] * 10 + [ctypes.c_int] * 2 + [ctypes.c_float] * 4
-                  + [_P])
+def _filter_kernel(strips: str = "f32"):
+    """The filter kernel of strips dtype ``strips`` (``"f32"``, or
+    ``"bf16"``: ``csrc/cov_nu4_filter_bf16.cu``): 10 tensor pointers; n,
+    halo; R^2, 1/d, 0.5/d, damp; the stream."""
+    lib, name = (("cov_nu4_filter", "cov_nu4_filter_f32") if strips == "f32"
+                 else ("cov_nu4_filter_bf16", "cov_nu4_filter_bf16"))
+    return _entry(lib, name, [_P] * 10 + [ctypes.c_int] * 2
+                  + [ctypes.c_float] * 4 + [_P])
 
 
 class CovNu4Filter:
@@ -1021,6 +1442,10 @@ class CovNu4Filter:
     Pallas kernel ``make_cov_nu4_filter``); CPU tensors run
     :func:`cov_nu4_filter_reference`.  There is no other path: a kernel
     that fails to build or launch raises.
+
+    ``precision``: under a 16-bit strips policy the routed ghosts arrive
+    and the strips leave in bfloat16 (``csrc/cov_nu4_filter_bf16.cu``);
+    the filter arithmetic stays float32.
     """
 
     #: Launches of the CUDA kernel, all instances together (the plain
@@ -1028,7 +1453,7 @@ class CovNu4Filter:
     launches = 0
 
     def __init__(self, n: int, halo: int, dalpha: float, radius: float,
-                 nu4: float, dt_eff: float, device="cuda"):
+                 nu4: float, dt_eff: float, device="cuda", precision=None):
         if halo < 2:
             raise ValueError(f"split nu4 filter needs halo >= 2 (ring-1 "
                              f"first Laplacian), got halo={halo}")
@@ -1047,12 +1472,14 @@ class CovNu4Filter:
         self.coords = (x_row, xf_row, x_col, xf_col)
         self._xc = x_row.reshape(-1).contiguous()
         self._xf = xf_row.reshape(-1).contiguous()
+        pol = resolve_stage_precision(precision)
+        self.sdt = torch.float32 if pol is None else pol.strips_dtype
 
     def _check(self, hc, uc, gsn, gwe):
-        n, h = self.n, self.halo
+        n, h, sd = self.n, self.halo, self.sdt
         _check_tensors({"hc": (hc, (6, n, n)), "uc": (uc, (2, 6, n, n)),
-                        "gsn": (gsn, (6, 6 * h + 2, n)),
-                        "gwe": (gwe, (6, n, 6 * h + 2))}, self.device)
+                        "gsn": (gsn, (6, 6 * h + 2, n), sd),
+                        "gwe": (gwe, (6, n, 6 * h + 2), sd)}, self.device)
 
     def __call__(self, hc, uc, gsn, gwe):
         self._check(hc, uc, gsn, gwe)
@@ -1070,10 +1497,11 @@ class CovNu4Filter:
         n, h = self.n, self.halo
         ho = torch.empty_like(hc)
         uo = torch.empty_like(uc)
-        ssn = hc.new_empty((6, 6 * h, n))
-        swe = hc.new_empty((6, n, 6 * h))
+        ssn = gsn.new_empty((6, 6 * h, n))
+        swe = gsn.new_empty((6, n, 6 * h))
         stream = torch.cuda.current_stream(self.device).cuda_stream
-        rc = _filter_kernel()(
+        strips = "bf16" if self.sdt == torch.bfloat16 else "f32"
+        rc = _filter_kernel(strips)(
             hc.data_ptr(), uc.data_ptr(), gsn.data_ptr(), gwe.data_ptr(),
             self._xc.data_ptr(), self._xf.data_ptr(), ho.data_ptr(),
             uo.data_ptr(), ssn.data_ptr(), swe.data_ptr(),
@@ -1086,18 +1514,19 @@ class CovNu4Filter:
         return ho, uo, ssn, swe
 
 
-def make_cov_nu4_filter(grid, nu4: float, dt_eff: float, device=None):
+def make_cov_nu4_filter(grid, nu4: float, dt_eff: float, device=None,
+                        precision=None):
     """The del^4 filter on ``grid`` (see :class:`CovNu4Filter`); ``device``
     defaults to the grid's."""
     return CovNu4Filter(grid.n, grid.halo, grid.dalpha, grid.radius, nu4,
                         dt_eff, device=grid.device if device is None
-                        else device)
+                        else device, precision=precision)
 
 
 def make_fused_ssprk3_cov_split_nu4(grid, gravity: float, omega: float,
                                     dt: float, b_ext, nu4: float,
                                     interval: int = 1, scheme: str = "plr",
-                                    limiter: str = "mc"):
+                                    limiter: str = "mc", precision=None):
     """``step(y, t) -> y``: the three compact stages of
     :func:`make_fused_ssprk3_cov_compact`, then one route and one del^4
     filter launch — the JAX package's ``nu4_mode='split'`` stepper.
@@ -1114,13 +1543,24 @@ def make_fused_ssprk3_cov_split_nu4(grid, gravity: float, omega: float,
     ``dict(model.compact_state(state), filter_k=0)``.  It is never
     reconstructed as ``round(t/dt)``, which an accumulated ``t`` can make
     skip or repeat an index.
+
+    ``precision``: the stage policy for the stages and the router; the
+    filter takes its strips half (its arithmetic stays f32).  The JAX
+    package's split stepper routes the sym rows un-prescaled and scales
+    them in the stages; in float32 that is bitwise the prescaled form
+    this stepper takes, under 16-bit strips it is not (the rounding lands
+    on the unscaled row), so 16-bit strips take the JAX form.
     """
     if interval < 1:
         raise ValueError(f"interval must be >= 1, got {interval}")
-    advance = make_fused_ssprk3_cov_compact(grid, gravity, omega, dt, b_ext,
-                                            scheme=scheme, limiter=limiter)
+    precision = resolve_stage_precision(precision)
+    advance = make_fused_ssprk3_cov_compact(
+        grid, gravity, omega, dt, b_ext, scheme=scheme, limiter=limiter,
+        precision=precision,
+        prescale_sym=precision is None or precision.strips != "bf16")
     route = advance.route
-    filt = make_cov_nu4_filter(grid, nu4, dt * interval)
+    filt = make_cov_nu4_filter(grid, nu4, dt * interval,
+                               precision=precision)
 
     def filtered(y):
         gsn, gwe = route(y["strips_sn"], y["strips_we"])
@@ -1183,7 +1623,8 @@ def cov_stage_refused_nu4_reference(stage, hc, uc, gsn, gwe, b_ext):
     h1, ua1, ub1 = (fv + stage.fg * tend for fv, tend in zip(filt, tends))
     u1 = torch.stack([ua1, ub1])
     sn, we = pack_strips_cov_split(h1, u1, n, h)
-    return h1, u1, filt[0], torch.stack(filt[1:]), sn, we
+    return (h1, u1, filt[0], torch.stack(filt[1:]), sn.to(stage.sdt),
+            we.to(stage.sdt))
 
 
 def _refused_kernel(mode: str = "mc"):
@@ -1192,6 +1633,18 @@ def _refused_kernel(mode: str = "mc"):
     return _entry("cov_stage_refused_nu4",
                   _entry_name("cov_stage_refused_nu4", mode),
                   [_P] * 14 + [ctypes.c_int] * 2 + [ctypes.c_float] * 7
+                  + [_P])
+
+
+def _refused_policy_kernel(mode: str, compute: str):
+    """The re-fused stage-1 kernel under the stage precision policy
+    (``csrc/cov_stage_refused_nu4_policy.cu``, the bf16 compute instances
+    ``..._policy_bf16.cu``): 14 tensor pointers; n, halo, s16; 7 float
+    constants; the stream."""
+    lib = "cov_stage_refused_nu4_policy" + (
+        "_bf16" if compute == "bf16" else "")
+    return _entry(lib, f"cov_stage_refused_nu4_policy_{mode}_{compute}",
+                  [_P] * 14 + [ctypes.c_int] * 3 + [ctypes.c_float] * 7
                   + [_P])
 
 
@@ -1207,7 +1660,9 @@ class CovStageRefusedNu4(_StageBase):
     mode's instance of ``csrc/cov_stage_refused_nu4.cu`` (the port of the
     Pallas kernel ``make_cov_stage_refused_nu4``); CPU tensors run
     :func:`cov_stage_refused_nu4_reference`.  There is no other path: a
-    kernel that fails to build or launch raises.
+    kernel that fails to build or launch raises.  ``precision``: the
+    stage policy, compute and strips (``csrc/cov_stage_refused_nu4_policy
+    .cu`` and ``..._policy_bf16.cu``); the filter arithmetic stays f32.
     """
 
     #: Launches of the CUDA kernel, all instances together (the plain
@@ -1216,13 +1671,22 @@ class CovStageRefusedNu4(_StageBase):
 
     def __init__(self, n: int, halo: int, dalpha: float, radius: float,
                  gravity: float, omega: float, dt: float, nu4: float,
-                 scheme: str = "plr", limiter: str = "mc", device="cuda"):
+                 scheme: str = "plr", limiter: str = "mc", device="cuda",
+                 precision=None):
         super().__init__(n, halo, dalpha, radius, gravity, omega, dt, 0.0,
-                         1.0, scheme=scheme, limiter=limiter, device=device)
+                         1.0, scheme=scheme, limiter=limiter, device=device,
+                         precision=precision)
         self.nu4 = float(nu4)
         # Rounded once from float64, as the JAX kernel rounds it.
         self.damp = _f32(self.dt * self.nu4)
         self._rconsts = self._kconsts[:5] + (self.fg, self.damp)
+
+    def _check(self, h0, u0, hc, uc, gsn, gwe, b_ext):
+        n, h, m, sd = self.n, self.halo, self.m, self.sdt
+        _check_tensors({"hc": (hc, (6, n, n)), "uc": (uc, (2, 6, n, n)),
+                        "gsn": (gsn, (6, 6 * h + 2, n), sd),
+                        "gwe": (gwe, (6, n, 6 * h + 2), sd),
+                        "b_ext": (b_ext, (6, m, m))}, self.device)
 
     def __call__(self, hc, uc, gsn, gwe, b_ext):
         self._check(None, None, hc, uc, gsn, gwe, b_ext)
@@ -1232,12 +1696,17 @@ class CovStageRefusedNu4(_StageBase):
         n, h = self.n, self.halo
         outs = (torch.empty_like(hc), torch.empty_like(uc),
                 torch.empty_like(hc), torch.empty_like(uc),
-                hc.new_empty((6, 6 * h, n)), hc.new_empty((6, n, 6 * h)))
-        rc = _refused_kernel(self.mode)(
-            hc.data_ptr(), uc.data_ptr(), gsn.data_ptr(), gwe.data_ptr(),
-            b_ext.data_ptr(), self._xc.data_ptr(), self._xf.data_ptr(),
-            self.fz.data_ptr(), *[t.data_ptr() for t in outs],
-            n, h, *self._rconsts, self._stream())
+                gsn.new_empty((6, 6 * h, n)), gsn.new_empty((6, n, 6 * h)))
+        ptrs = (hc.data_ptr(), uc.data_ptr(), gsn.data_ptr(), gwe.data_ptr(),
+                b_ext.data_ptr(), self._xc.data_ptr(), self._xf.data_ptr(),
+                self.fz.data_ptr(), *[t.data_ptr() for t in outs])
+        if self.precision is None:
+            rc = _refused_kernel(self.mode)(
+                *ptrs, n, h, *self._rconsts, self._stream())
+        else:
+            rc = _refused_policy_kernel(self.mode, self.precision.compute)(
+                *ptrs, n, h, int(self.sdt == torch.bfloat16),
+                *self._rconsts, self._stream())
         if rc != 0:
             raise RuntimeError(
                 f"cov_stage_refused_nu4 kernel launch failed: cudaError "
@@ -1252,19 +1721,21 @@ class CovStageRefusedNu4(_StageBase):
 
 def make_cov_stage_refused_nu4(grid, gravity: float, omega: float,
                                dt: float, nu4: float, scheme: str = "plr",
-                               limiter: str = "mc", device=None):
+                               limiter: str = "mc", device=None,
+                               precision=None):
     """The re-fused stage 1 on ``grid`` (see :class:`CovStageRefusedNu4`);
     ``device`` defaults to the grid's."""
     return CovStageRefusedNu4(
         grid.n, grid.halo, grid.dalpha, grid.radius, gravity, omega, dt, nu4,
         scheme=scheme, limiter=limiter,
-        device=grid.device if device is None else device)
+        device=grid.device if device is None else device,
+        precision=precision)
 
 
 def make_fused_ssprk3_cov_refused_nu4(grid, gravity: float, omega: float,
                                       dt: float, b_ext, nu4: float,
                                       scheme: str = "plr",
-                                      limiter: str = "mc"):
+                                      limiter: str = "mc", precision=None):
     """``step(y, t) -> y``: the re-fused del^4 stepper (the JAX package's
     ``nu4_mode='refused'``), 3 kernels and 3 routes per step.
 
@@ -1278,14 +1749,18 @@ def make_fused_ssprk3_cov_refused_nu4(grid, gravity: float, omega: float,
     carry and prescaled router as :func:`make_fused_ssprk3_cov_compact`.
     No ``interval``: filter-cycling stays on the split stepper, as in the
     JAX package.  ``step.stage1f`` is the re-fused kernel, ``step.stages``
-    the two compact stages.
+    the two compact stages.  ``precision``: the stage policy for all
+    three stages and the router.
     """
-    route = make_cov_strip_router_split(grid)
+    precision = resolve_stage_precision(precision)
+    route = make_cov_strip_router_split(grid, precision=precision)
     stage1f = make_cov_stage_refused_nu4(grid, gravity, omega, dt, nu4,
-                                         scheme=scheme, limiter=limiter)
+                                         scheme=scheme, limiter=limiter,
+                                         precision=precision)
     stage2, stage3 = [make_cov_stage_compact(
         grid.n, grid.halo, grid.dalpha, grid.radius, gravity, omega, dt,
-        a, b, scheme=scheme, limiter=limiter, device=grid.device)
+        a, b, scheme=scheme, limiter=limiter, device=grid.device,
+        precision=precision)
         for a, b in SSPRK3_COEFFS[1:]]
 
     def step(y, t):
@@ -2397,13 +2872,18 @@ def cov_stage_inkernel_reference(stage, *args):
     return h_new, u_new, pack_strips_cov(h_new, u_new, n, h)
 
 
-def _inkernel_kernel(mode: str = "mc"):
-    """The extended-carry stage kernel of reconstruction ``mode``: 12
-    tensor pointers; n, halo, with_y0; 8 float constants; the stream."""
-    return _entry("cov_stage_inkernel",
-                  _entry_name("cov_stage_inkernel", mode),
-                  [_P] * 12 + [ctypes.c_int] * 3 + [ctypes.c_float] * 8
-                  + [_P])
+def _inkernel_kernel(mode: str = "mc", compute: str = "f32"):
+    """The extended-carry stage kernel of reconstruction ``mode`` (the bf16
+    compute policy's from ``csrc/cov_stage_inkernel_bf16.cu``): 12 tensor
+    pointers; n, halo, with_y0; 8 float constants; the stream."""
+    if compute == "bf16":
+        lib, name = ("cov_stage_inkernel_bf16",
+                     f"cov_stage_inkernel_{mode}_bf16")
+    else:
+        lib, name = ("cov_stage_inkernel",
+                     _entry_name("cov_stage_inkernel", mode))
+    return _entry(lib, name, [_P] * 12 + [ctypes.c_int] * 3
+                  + [ctypes.c_float] * 8 + [_P])
 
 
 class CovStageInkernel(_StageBase):
@@ -2419,12 +2899,23 @@ class CovStageInkernel(_StageBase):
     launch the mode's instance of ``csrc/cov_stage_inkernel.cu`` (the
     port of the Pallas kernel ``make_cov_stage_inkernel``); CPU tensors
     run the plain version.  There is no other path: a kernel that fails
-    to build or launch raises.
+    to build or launch raises.  ``precision``: its compute half only (the
+    bf16 instances of ``csrc/cov_stage_inkernel_bf16.cu``); 16-bit strips
+    raise ``ValueError``, as in the JAX package.
     """
 
     #: Launches of the CUDA kernel, all instances together (the plain
     #: version does not count).
     launches = 0
+
+    def __init__(self, *args, precision=None, **kw):
+        pol = resolve_stage_precision(precision)
+        if pol is not None and pol.strips == "bf16":
+            raise ValueError(
+                "the extended-carry (in-kernel exchange) stepper keeps f32 "
+                "strips; 16-bit strip storage needs the compact carry "
+                "(make_cov_stage_compact / make_fused_ssprk3_cov_compact)")
+        super().__init__(*args, precision=pol, **kw)
 
     def _unpack(self, args):
         if self.with_y0:
@@ -2455,7 +2946,8 @@ class CovStageInkernel(_StageBase):
         ho = torch.empty_like(hc)
         uo = torch.empty_like(uc)
         so = hc.new_empty((6, 12 * self.halo, self.n))
-        rc = _inkernel_kernel(self.mode)(
+        compute = "f32" if self.precision is None else self.precision.compute
+        rc = _inkernel_kernel(self.mode, compute)(
             _ptr(h0), _ptr(u0), hc.data_ptr(), uc.data_ptr(),
             ghosts.data_ptr(), b_ext.data_ptr(), self._xc.data_ptr(),
             self._xf.data_ptr(), self.fz.data_ptr(), ho.data_ptr(),
@@ -2474,15 +2966,17 @@ class CovStageInkernel(_StageBase):
 
 
 def make_cov_stage_inkernel(n, halo, dalpha, radius, gravity, omega, dt, a,
-                            b, scheme="plr", limiter="mc", device="cuda"):
+                            b, scheme="plr", limiter="mc", device="cuda",
+                            precision=None):
     """One extended-carry stage (see :class:`CovStageInkernel`)."""
     return CovStageInkernel(n, halo, dalpha, radius, gravity, omega, dt, a,
-                            b, scheme=scheme, limiter=limiter, device=device)
+                            b, scheme=scheme, limiter=limiter, device=device,
+                            precision=precision)
 
 
 def make_fused_ssprk3_cov_inkernel(grid, gravity: float, omega: float,
                                    dt: float, b_ext, scheme: str = "plr",
-                                   limiter: str = "mc"):
+                                   limiter: str = "mc", precision=None):
     """``step(y, t) -> y`` over the extended carry ``y = {h, u, strips}``.
 
     Three stages, each one linear strip route and one stage launch;
@@ -2493,7 +2987,8 @@ def make_fused_ssprk3_cov_inkernel(grid, gravity: float, omega: float,
     route = make_cov_strip_router_linear(grid)
     stages = [make_cov_stage_inkernel(
         grid.n, grid.halo, grid.dalpha, grid.radius, gravity, omega, dt,
-        a, b, scheme=scheme, limiter=limiter, device=grid.device)
+        a, b, scheme=scheme, limiter=limiter, device=grid.device,
+        precision=precision)
         for a, b in SSPRK3_COEFFS]
     stage1, stage2, stage3 = stages
 

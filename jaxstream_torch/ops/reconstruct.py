@@ -77,26 +77,39 @@ def _sl(arr, lo, hi, axis):
     return arr[tuple(idx)]
 
 
-def slope(q, axis: int, limiter: str = "mc"):
-    """Limited slope for cells 1..len-2 along ``axis`` (shrinks by 2)."""
+def slope(q, axis: int, limiter: str = "mc", slope_dtype=None):
+    """Limited slope for cells 1..len-2 along ``axis`` (shrinks by 2).
+
+    ``slope_dtype`` (the stage precision policy, e.g. ``torch.bfloat16``):
+    the cell differences are formed in ``q``'s dtype and cast to it, so
+    the limiter algebra runs in that dtype.  ``None`` is the plain
+    path."""
     lim = LIMITERS[limiter]
     qm = _sl(q, 0, -2, axis)
     qc = _sl(q, 1, -1, axis)
     qp = _sl(q, 2, None, axis)
-    return lim(qc - qm, qp - qc)
+    if slope_dtype is None:
+        return lim(qc - qm, qp - qc)
+    return lim((qc - qm).to(slope_dtype), (qp - qc).to(slope_dtype))
 
 
-def plr_face_states(q, axis: int, h: int, n: int, limiter: str = "mc"):
+def plr_face_states(q, axis: int, h: int, n: int, limiter: str = "mc",
+                    slope_dtype=None):
     """Left/right states at the n+1 interior-bounding faces along ``axis``.
 
     ``q`` is extended along ``axis`` (length n + 2h, h >= 2).  Face i
     (i = h..h+n) separates cells i-1 and i; returns ``(qL, qR)``, each
-    of length n+1 along ``axis``.
+    of length n+1 along ``axis``.  ``slope_dtype``: the limiter algebra
+    and the half-slope in that dtype, widened back to ``q``'s before it
+    is added to the cell value (see :func:`slope`).
     """
     if h < 2:
         raise ValueError(f"PLR fluxes need halo >= 2, got halo={h}")
     c1 = _sl(q, h - 1, h + n + 1, axis)
-    half = 0.5 * slope(_sl(q, h - 2, h + n + 2, axis), axis, limiter)
+    half = 0.5 * slope(_sl(q, h - 2, h + n + 2, axis), axis, limiter,
+                       slope_dtype)
+    if slope_dtype is not None:
+        half = half.to(q.dtype)
     qL = _sl(c1 + half, 0, n + 1, axis)
     qR = _sl(c1 - half, 1, n + 2, axis)
     return qL, qR

@@ -2,7 +2,8 @@
 :func:`jaxstream.parallel.sharded_model.make_stepper_for`).
 
 Ported: the single-device branch (no setup, or a one-rank setup) —
-the model's classic step, ``temporal_block`` steps per call — and the
+the model's classic step, ``temporal_block`` steps per call, vmapped over
+an ensemble's member axis — and the
 explicit covariant branch (``use_shard_map: true`` with a covariant
 model) — the face tier on a ``(6, 1, 1)`` mesh, the block tier on
 ``(6, s, s)``.  Everything else the JAX dispatcher builds raises
@@ -14,9 +15,6 @@ from __future__ import annotations
 from .shard_cov import not_ported
 
 __all__ = ["make_stepper_for"]
-
-_F32_POLICIES = (None, "f32", "off", "none", "")
-
 
 def make_stepper_for(model, setup, example_state, dt: float,
                      scheme: str = "ssprk3", temporal_block: int = None,
@@ -34,19 +32,24 @@ def make_stepper_for(model, setup, example_state, dt: float,
     signature and not read.
     """
     del example_state
-    if not (precision in _F32_POLICIES
-            or (isinstance(precision, str)
-                and precision.lower() in _F32_POLICIES)):
-        not_ported(f"precision={precision!r} (a non-f32 stage policy)")
+    from ..ops.cuda.precision import resolve_stage_precision
+
+    if resolve_stage_precision(precision) is not None:
+        not_ported(f"precision={precision!r} (a non-f32 stage policy on "
+                   "the sharded tiers)")
     k = (getattr(setup, "temporal_block", 1) if temporal_block is None
          else temporal_block)
     if setup is None or setup.ranks is None:
-        if ensemble:
-            raise NotImplementedError(
-                f"make_stepper_for(ensemble={ensemble}) on one device is "
-                "not ported yet: ROADMAP queue A item 5 (the ensemble "
-                "member axis)")
         step = model.make_step(dt, scheme)
+        if ensemble:
+            # The single-device ensemble: the classic step over the member
+            # axis (ENSEMBLE_STATE_AXES' rule: vector fields keep their
+            # component axis first, member second; scalars lead with it).
+            from ..stepping import vmap_ensemble
+
+            axes = {kk: (1 if kk in ("u", "v") else 0)
+                    for kk in ("h", "u", "v", "q", "T")}
+            step = vmap_ensemble(step, axes)
         if k > 1:
             from ..stepping import blocked
 
@@ -62,8 +65,8 @@ def make_stepper_for(model, setup, example_state, dt: float,
         raise ValueError(f"the explicit covariant shard path implements "
                          f"ssprk3 only; got scheme={scheme!r}")
     if ensemble:
-        not_ported(f"ensemble={ensemble} (the ensemble stepper and the "
-                   "batched exchange)")
+        not_ported(f"ensemble={ensemble} on the sharded tiers (the "
+                   "ensemble stepper and the batched exchange)")
     if float(getattr(model, "nu4", 0.0)) != 0.0:
         not_ported("nu4 != 0 on the sharded covariant tiers")
     if (model.scheme, model.limiter) != ("plr", "mc"):

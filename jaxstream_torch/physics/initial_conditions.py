@@ -19,7 +19,8 @@ from ..geometry.cubed_sphere import CubedSphereGrid, _np_dtype
 
 __all__ = ["solid_body_wind", "zonal_meridional_to_cartesian",
            "cosine_bell", "checkerboard", "williamson_tc2",
-           "williamson_tc5", "williamson_tc6", "galewsky"]
+           "williamson_tc5", "williamson_tc6", "galewsky",
+           "perturbed_ensemble"]
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
@@ -184,3 +185,33 @@ def galewsky(grid: CubedSphereGrid, gravity: float, omega: float,
     u = u_of(lat)
     return _out(grid, h), zonal_meridional_to_cartesian(grid, u,
                                                         np.zeros_like(u))
+
+
+def perturbed_ensemble(grid: CubedSphereGrid, h_ext, members: int,
+                       seed: int = 0, amplitude: float = 1.0e-3):
+    """Perturbed-IC height ensemble ``(B, 6, M, M)`` for batched runs.
+
+    Member 0 is the unperturbed ``h_ext``; members ``1..B-1`` add
+    ``amplitude * mean|h| * mode``, ``mode`` a random unit-normalized
+    combination of three ``l = 1`` spherical modes ``ghat_j . rhat``,
+    evaluated in float64 at the extended cell centres with numpy's
+    ``default_rng(seed)``: the JAX package's recipe and draws, so a given
+    ``(seed, members)`` gives its ensemble bitwise.  The wind is left
+    unperturbed.
+    """
+    if members < 1:
+        raise ValueError(f"members must be >= 1, got {members}")
+    h = _np(h_ext) if isinstance(h_ext, torch.Tensor) else np.asarray(
+        h_ext, np.float64)
+    rhat = _np(grid.xyz) / grid.radius               # (3, 6, M, M)
+    rng = np.random.default_rng(seed)
+    href = float(np.mean(np.abs(h)))
+    out = [h]
+    for _ in range(members - 1):
+        g = rng.standard_normal((3, 3))
+        g /= np.linalg.norm(g, axis=1, keepdims=True)
+        w = rng.standard_normal(3)
+        mode = np.einsum("jk,k...->...", g * w[:, None], rhat)
+        mode /= max(float(np.abs(mode).max()), 1e-300)
+        out.append(h + amplitude * href * mode)
+    return _out(grid, np.stack(out))

@@ -23,10 +23,18 @@ on the device the caller gives (the GPU unless it asks for the CPU).
 * Restart is automatic: with a checkpoint stride, a run resumes from
   the newest saved step (regridded if its resolution differs).
 
+* ``ensemble.members > 1`` (one device): a perturbed-IC batched state;
+  covariant ``pallas`` runs with ``nu4 == 0`` take the batched fused
+  stepper (every member in one launch per stage), the rest the classic
+  step over the member axis.  ``diagnostics()`` then reports member 0's
+  invariants and the ensemble's height spread.
+* ``precision:`` (stage, strips, carry) rides the single-device fused
+  covariant stepper; a carry encoding wraps its prep and every exit.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-config key and ROADMAP item: the TT tier, ensembles, non-f32 precision,
-lazy metrics, observability, the async pipeline, TT history, data
-assimilation and the GSPMD tier.  The capability plan (``plan_for``) is
+config key and ROADMAP item: the TT tier, the tiers' ensembles, a
+bfloat16 grid, lazy metrics, observability, the async pipeline, TT
+history, data assimilation and the GSPMD tier.  The capability plan (``plan_for``) is
 not ported; the rules it applies to the runs ported here are checked
 where the run is built.
 """
@@ -99,15 +107,10 @@ def _refuse_unported(cfg: Config) -> None:
     if m.numerics == "tt":
         _refuse("model.numerics: tt (the factored TT tier)",
                 "queue A item 8 (A11)")
-    if cfg.ensemble.members > 1:
-        _refuse(f"ensemble.members: {cfg.ensemble.members} (the ensemble "
-                "member axis)", "queue A item 5")
-    p = cfg.precision
-    if p.stage != "f32" or p.strips not in ("auto", "f32") \
-            or p.carry != "f32":
-        _refuse(f"precision: {{stage: {p.stage}, strips: {p.strips}, "
-                f"carry: {p.carry}}} (a non-f32 precision block)",
-                "queue A item 5")
+    if cfg.ensemble.members > 1 and par.num_devices > 1:
+        _refuse(f"ensemble.members: {cfg.ensemble.members} with "
+                f"parallelization.num_devices: {par.num_devices} (the "
+                "tiers' ensembles)", "queue A item 4 (A8)")
     if cfg.grid.dtype not in _DTYPES:
         _refuse(f"grid.dtype: {cfg.grid.dtype} (grids are float32 or "
                 "float64)", "queue A item 5")
@@ -194,53 +197,85 @@ class Simulation:
         self.model, self.state = self._build_model_and_state()
 
         par = cfg.parallelization
+        if self.members > 1:
+            self.state = self._build_ensemble_state()
         if par.num_devices > 1:
             self.setup = setup_sharding(cfg, device=self.device)
+        # The tiers take the precision spec only where they run (they
+        # refuse a non-f32 policy); one device takes the fused stepper.
+        pspec = ({"stage": cfg.precision.stage,
+                  "strips": cfg.precision.strips}
+                 if par.num_devices > 1 else None)
         self._step = make_stepper_for(
             self.model, self.setup, self.state, cfg.time.dt,
-            cfg.time.scheme, temporal_block=par.temporal_block)
+            cfg.time.scheme, temporal_block=par.temporal_block,
+            ensemble=self.members if self.members > 1 else 0,
+            precision=pspec)
 
         # Single-device fused stepper, under the JAX package's guards.
         self._fused_step = None
         self._fused_prep = None
+        # Decode of a 16-bit carry encoding (precision.carry), applied to
+        # every carry exit so that the state, history, checkpoints and
+        # diagnostics see absolute f32 fields; None: the f32 carry.
+        self._fused_post = None
         m = self.model
         tb = par.temporal_block
-        pkw = ({} if mcfg.nu4_mode == "split"
-               else {"nu4_mode": mcfg.nu4_mode})
-        if (self.setup is None
-                and cfg.time.scheme == "ssprk3"
-                and getattr(m, "backend", "").startswith("pallas")
+        pkw, p_enc, p_dec = self._resolve_precision()
+        touched = bool(pkw) or p_enc is not None
+        fusable = (self.setup is None
+                   and cfg.time.scheme == "ssprk3"
+                   and getattr(m, "backend", "").startswith("pallas"))
+        if (self.members > 1 and fusable
+                and getattr(m, "nu4", 0.0) == 0.0
+                and hasattr(m, "ensemble_compact_state")):
+            # The batched fused path: the member axis folds into the
+            # stage kernels' faces, one launch per stage for every member.
+            try:
+                self._fused_step = m.make_fused_step(
+                    cfg.time.dt, temporal_block=tb, ensemble=self.members,
+                    **pkw)
+            except (TypeError, ValueError) as e:
+                self._fused_failed(e, touched, "batched fused stepper",
+                                   "the vmapped classic path")
+            else:
+                if p_enc is not None:
+                    self._fused_prep = (
+                        lambda s, _e=p_enc: _e(m.ensemble_compact_state(s)))
+                else:
+                    self._fused_prep = m.ensemble_compact_state
+                log.info("using batched ensemble fused SSPRK3 stepper "
+                         "(%d members per kernel launch)", self.members)
+        elif (self.members == 1 and fusable
                 and (getattr(m, "nu4", 0.0) == 0.0
                      or getattr(m, "fused_supports_nu4", False))
                 and hasattr(m, "make_fused_step")):
             try:
+                if not hasattr(m, "compact_state") and (
+                        pkw.get("precision") or p_enc is not None):
+                    raise ValueError(
+                        "precision: block needs the compact-carry fused "
+                        "stepper (this model only has the extended-state "
+                        "form)")
                 self._fused_step = self._make_fused(m, cfg.time.dt, tb, pkw)
             except (TypeError, ValueError) as e:
-                # A nu4_mode the stepper cannot honour has no classic
-                # form.  Otherwise only the model's own validation falls
-                # back (a refusal the JAX package makes too); a
-                # NotImplementedError and every kernel build or launch
-                # failure propagate.
-                if pkw:
-                    raise ValueError(
-                        "precision: block configured but the fused "
-                        f"stepper failed to build ({type(e).__name__}: "
-                        f"{e}); the policy has no classic-path form, so "
-                        "refusing to silently run f32") from e
-                if isinstance(e, TypeError):
-                    raise
-                log.warning("fused stepper unavailable (%s: %s); falling "
-                            "back to the classic path", type(e).__name__, e)
+                self._fused_failed(e, touched, "fused stepper",
+                                   "the classic path")
             else:
                 if hasattr(m, "compact_state"):
-                    self._fused_prep = m.compact_state
+                    if p_enc is not None:
+                        self._fused_prep = (
+                            lambda s, _e=p_enc: _e(m.compact_state(s)))
+                        self._fused_post = p_dec
+                    else:
+                        self._fused_prep = m.compact_state
                     log.info("using compact fused SSPRK3 stepper "
                              "(interior-only carry)")
                 else:
                     self._fused_prep = functools.partial(
                         m.extend_state, with_strips=True)
                     log.info("using fused extended-state SSPRK3 stepper")
-        if pkw and self._fused_step is None:
+        if touched and self._fused_step is None:
             raise ValueError(_NEEDS_FUSED)
 
         io = cfg.io
@@ -261,6 +296,76 @@ class Simulation:
             self._maybe_resume()
 
     # ------------------------------------------------------------------ build
+    @staticmethod
+    def _fused_failed(e, touched: bool, what: str, fallback: str):
+        """A fused stepper that failed to build: a precision block or a
+        nu4_mode has no classic form (``ValueError``); otherwise only the
+        model's own validation (a ``ValueError``, a refusal the JAX package
+        makes too) falls back, and a ``TypeError`` propagates, as every
+        ``NotImplementedError`` and kernel build or launch failure does."""
+        if touched:
+            raise ValueError(
+                f"precision: block configured but the {what} failed to "
+                f"build ({type(e).__name__}: {e}); the policy has no "
+                "classic-path form, so refusing to silently run "
+                "f32") from e
+        if isinstance(e, TypeError):
+            raise e
+        log.warning("%s unavailable (%s: %s); falling back to %s", what,
+                    type(e).__name__, e, fallback)
+
+    def _resolve_precision(self):
+        """``precision:`` and ``model.nu4_mode`` -> ``(kwargs, encode,
+        decode)``: the fused stepper's kwargs (``precision``, ``nu4_mode``
+        and the ``carry_dtype`` / ``h_offset`` / ``h_scale`` encoding) and
+        the carry hooks (``encode`` wraps the prep, ``decode`` every carry
+        exit; both None for the f32 carry, ``encode`` alone narrowing the
+        strips under a 16-bit strips policy).  The JAX package's rule: the
+        mixed16 offset is the initial h's mid-range, so re-encoding at a
+        segment boundary (a round of an on-grid value) is exact and the
+        segment length never changes the trajectory."""
+        from .ops.cuda.precision import (encode_strips, mixed16_encoding,
+                                         resolve_stage_precision)
+        from .models.shallow_water_cov import plan_fail
+
+        pcfg = self.config.precision
+        kw = {}
+        if self.config.model.nu4_mode != "split":
+            kw["nu4_mode"] = self.config.model.nu4_mode
+        if pcfg.stage != "f32" or pcfg.strips not in ("auto", "f32"):
+            kw["precision"] = {"stage": pcfg.stage, "strips": pcfg.strips}
+        pol = resolve_stage_precision(kw.get("precision"))
+        narrow = ((lambda y, _p=pol: encode_strips(y, _p))
+                  if pol is not None and pol.strips == "bf16" else None)
+        if pcfg.carry == "f32":
+            return kw, narrow, None
+        if self.members > 1:
+            plan_fail("carry-needs-single-member")
+        m = self.model
+        if m is None or not hasattr(m, "encode_carry"):
+            raise ValueError(
+                "illegal capability plan: precision.carry != 'f32' needs "
+                "the covariant dense model (model.numerics: dense, "
+                "shallow-water family)")
+        h = self.state["h"]
+        if pcfg.carry == "mixed16":
+            cd, off, hs = mixed16_encoding(h)
+        else:
+            off = float(0.5 * (float(torch.min(h)) + float(torch.max(h))))
+            cd, hs = (torch.bfloat16, torch.bfloat16), 1.0
+        kw.update(carry_dtype=cd, h_offset=off, h_scale=hs)
+        if narrow is not None:
+            def enc(s):
+                return narrow(m.encode_carry(s, cd, off, hs))
+        else:
+            def enc(s):
+                return m.encode_carry(s, cd, off, hs)
+
+        def dec(s):
+            return m.decode_carry(s, off, hs)
+
+        return kw, enc, dec
+
     @staticmethod
     def _make_fused(m, dt: float, tb: int, pkw: dict):
         """The fused step, honouring temporal_block where the model takes
@@ -336,6 +441,29 @@ class Simulation:
         )
         return model, model.initial_state(fields["h"], fields["v"])
 
+    def _build_ensemble_state(self):
+        """The batched perturbed-IC state ``{"h": (B, 6, n, n), "u"|"v":
+        (c, B, 6, n, n)}``: member 0 unperturbed, members 1..B-1 from
+        :func:`~.physics.initial_conditions.perturbed_ensemble` (height
+        only, deterministic in ``ensemble.seed``)."""
+        cfg = self.config
+        ens = cfg.ensemble
+        name = cfg.model.initial_condition
+        family = IC_FAMILY.get(name)
+        if family != "shallow_water":
+            raise ValueError(
+                f"ensemble.members > 1 supports the shallow-water family "
+                f"(tc2/tc5/tc6/galewsky); initial_condition={name!r} "
+                f"drives {family!r}")
+        fields = self._ic_fields(name, family)
+        h_b = ics.perturbed_ensemble(self.grid, fields["h"], ens.members,
+                                     seed=ens.seed, amplitude=ens.amplitude)
+        states = [self.model.initial_state(h_b[i], fields["v"])
+                  for i in range(ens.members)]
+        vkey = "u" if "u" in states[0] else "v"
+        return {"h": torch.stack([s["h"] for s in states]),
+                vkey: torch.stack([s[vkey] for s in states], dim=1)}
+
     def _ic_fields(self, name: str, family: str):
         """The extended IC fields of one IC family."""
         cfg = self.config
@@ -375,6 +503,33 @@ class Simulation:
                 "TT tier (ROADMAP queue A item 8 (A11)); point "
                 "io.checkpoint_path elsewhere")
         n_new = self.config.grid.n
+        if self.members > 1:
+            # The checkpoint holds the member-batched arrays: checked
+            # against this run and placed as they are (no regrid).
+            hb = np.asarray(state["h"]) if "h" in state else None
+            if hb is None or hb.ndim != 4:
+                raise ValueError(
+                    "ensemble.members > 1 but the checkpoint state is "
+                    "not member-batched — it was written by an "
+                    "unbatched run; point io.checkpoint_path elsewhere")
+            if hb.shape[0] != self.members:
+                raise ValueError(
+                    f"checkpoint has {hb.shape[0]} ensemble members but "
+                    f"the run configures {self.members}; set "
+                    f"ensemble.members: {hb.shape[0]} (per-member resume: "
+                    "CheckpointManager.restore_member)")
+            if hb.shape[-1] != n_new:
+                raise ValueError(
+                    f"ensemble checkpoint is C{hb.shape[-1]} but the run "
+                    f"is C{n_new}: cross-resolution resume is "
+                    "unbatched-dense-only")
+            self.state = {k: torch.from_numpy(np.array(v, order="C")).to(
+                self.device) for k, v in state.items()}
+            self.t = t
+            self.step_count = step
+            log.info("resumed %d-member ensemble state from checkpoint "
+                     "step %d (t=%.0f s)", self.members, step, self.t)
+            return
         n_ckpt = infer_resolution(state)   # raises clearly on ambiguity
         if n_ckpt != n_new:
             log.info("resuming across resolutions: checkpoint C%d -> "
@@ -401,10 +556,11 @@ class Simulation:
                 "total step count multiples of temporal_block")
         if self._fused_step is not None:
             m, fused, prep = self.model, self._fused_step, self._fused_prep
+            post = self._fused_post or (lambda s: s)
 
             def fn(y, t, _k=k // spc, _dt=dt * spc):
                 y_c, t = integrate(fused, prep(y), t, _k, _dt)
-                return m.restrict_state(y_c), t
+                return post(m.restrict_state(y_c)), t
 
             return fn
         # unroll=1 (one time add per call), as the JAX package's
@@ -463,6 +619,21 @@ class Simulation:
         computed on the device and fetched with one transfer."""
         g, s = self.grid, self.state
         out: Dict[str, Any] = {}
+        if "h" in s and self.members > 1:
+            # Member 0's invariants and the ensemble's height spread: the
+            # per-cell cross-member std (population), at its max.
+            p = self.config.physics
+            vkey = "u" if "u" in s else "v"
+            s0 = {"h": s["h"][0], vkey: s[vkey][:, 0]}
+            out["mass_m0"] = diag.total_mass(g, s0["h"])
+            b = self.model.b_ext
+            b_int = g.interior(b) if b is not None else 0.0
+            v = s0["v"] if "v" in s0 else self.model.to_cartesian(s0)
+            out["energy_m0"] = diag.total_energy(g, s0["h"], v, p.gravity,
+                                                 b_int)
+            out["h_spread_max"] = torch.max(torch.std(
+                s["h"].to(torch.float32), dim=0, correction=0))
+            return self._fetch_scalars(out)
         if "h" in s:
             p = self.config.physics
             out["mass"] = diag.total_mass(g, s["h"])

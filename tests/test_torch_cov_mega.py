@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_single_thread  # noqa: F401  (one CPU thread per worker)
+
 from jaxstream.config import EARTH_GRAVITY, EARTH_OMEGA, EARTH_RADIUS
 from jaxstream.experiments import swe_mega as jmega
 from jaxstream.geometry.cubed_sphere import build_grid as jax_build_grid

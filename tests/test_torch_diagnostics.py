@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_single_thread  # noqa: F401  (one CPU thread per worker)
+
 from jaxstream.geometry.cubed_sphere import build_grid as jax_build_grid
 from jaxstream.models.shallow_water_cov import CovariantShallowWater as JaxCov
 from jaxstream.physics.initial_conditions import williamson_tc5 as jax_tc5

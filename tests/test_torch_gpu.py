@@ -965,3 +965,179 @@ def test_refused_and_stage_a_kernels_every_mode_match_plain(n):
     mode, on TC5's orography at nu4 = 1e14, the carry after one split
     step and after eleven: bitwise equal to their plain versions."""
     _every_mode(n, _nu4_modes)
+
+
+# ---- the ensemble, carry and precision knobs (B1, B2, B3, B8) ------------
+
+#: B1's policy cases: stepper knobs (``make_fused_ssprk3_cov_compact``).
+_B1_POLICY = {
+    "members4": dict(ensemble=4),
+    "bf16": dict(precision="bf16"),
+    "bf16-compute": dict(precision={"stage": "bf16", "strips": "f32"}),
+    "bf16-strips": dict(precision={"stage": "f32", "strips": "bf16"}),
+    "mixed16": dict(carry_dtype=(torch.int16, torch.bfloat16),
+                    h_offset=5150.0, h_scale=0.0625),
+    "bf16-f16-uscale": dict(carry_dtype=(torch.bfloat16, torch.float16),
+                            h_offset=5150.0, u_scale=EARTH_RADIUS),
+    "bf16-frame": dict(precision="bf16", prescale_sym=False),
+}
+
+
+def _policy_carry(m, s0, kw):
+    """The carry of a policy stepper built with ``kw`` from state s0 (an
+    ensemble: s0 and three members perturbed by 1e-4 relative)."""
+    from jaxstream_torch.ops.cuda.precision import encode_strips
+
+    if kw.get("ensemble"):
+        states = [{"h": s0["h"] * (1.0 + 1e-4 * i), "u": s0["u"]}
+                  for i in range(kw["ensemble"])]
+        return m.ensemble_compact_state(m.stack_ensemble(states))
+    carry = {k: kw[k] for k in ("carry_dtype", "h_offset", "h_scale",
+                                "u_scale") if k in kw}
+    return encode_strips(m.encode_carry(m.compact_state(s0), **carry),
+                         kw.get("precision"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [48, 74], ids=["c48", "c74"])
+def test_policy_stage_kernels_match_plain(n):
+    """B1's policy instances (the member fold at B = 4, the bf16 policy in
+    each PLR limiter and its halves, PPM with bf16 strips, the mixed16
+    and bf16 / f16 carries) over the three stages, on the carry after one
+    step and after eleven of their own stepper: bitwise equal to the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the stage kernels have no CPU "
+                    "form)")
+    cases = dict(_B1_POLICY)
+    for lim in ("none", "minmod", "mc_sign", "vanleer"):
+        cases[f"bf16-{lim}"] = dict(precision="bf16", limiter=lim)
+    cases["ppm-strips"] = dict(precision={"stage": "f32", "strips": "bf16"},
+                               scheme="ppm")
+    for name, kw in cases.items():
+        kw = dict(kw)
+        scheme = kw.pop("scheme", "plr")
+        limiter = kw.pop("limiter", "mc")
+        g = build_grid(n, halo=3 if scheme == "ppm" else 2,
+                       radius=EARTH_RADIUS, device="cuda")
+        h, v, b = williamson_tc5(g, EARTH_GRAVITY, EARTH_OMEGA)
+        m = CovariantShallowWater(g, gravity=EARTH_GRAVITY,
+                                  omega=EARTH_OMEGA, b_ext=b, scheme=scheme,
+                                  limiter=limiter)
+        dt = 75.0 * 384 / n
+        step = tcov.make_fused_ssprk3_cov_compact(
+            g, EARTH_GRAVITY, EARTH_OMEGA, dt, m.b_ext, scheme=scheme,
+            limiter=limiter, **kw)
+        B = kw.get("ensemble", 0)
+        fold = (lambda x, lead=0: x.reshape(
+            x.shape[:lead] + (-1,) + x.shape[lead + 2:])) if B else (
+            lambda x, lead=0: x)
+        y1 = step(_policy_carry(m, m.initial_state(h, v), kw), 0.0)
+        y11, _ = integrate(step, y1, 0.0, 10, dt)
+        for y in (y1, y11):
+            hc, uc = fold(y["h"]), fold(y["u"], 1)
+            gsn, gwe = (fold(r) for r in step.route(y["strips_sn"],
+                                                     y["strips_we"]))
+            st1, st2, st3 = step.stages
+            assert not st1.plain, name
+            for st, args in ((st1, (hc, uc, gsn, gwe, m.b_ext)),
+                             (st2, (hc, uc, hc, uc, gsn, gwe, m.b_ext)),
+                             (st3, (hc, uc, hc, uc, gsn, gwe, m.b_ext))):
+                before = tcov.CovStageCompact.launches
+                out = st(*args)
+                torch.cuda.synchronize()
+                assert tcov.CovStageCompact.launches == before + 1
+                for k, (x, r) in enumerate(zip(out, st.reference(*args))):
+                    assert x.dtype == r.dtype and torch.equal(x, r), (name, k)
+
+
+@pytest.mark.gpu
+def test_ensemble_members_bitwise_single_runs_c48():
+    """The B = 4 kernel-batched stepper against four single-member runs
+    of cov_stage.cu's stepper, three steps: each member bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the stage kernels have no CPU "
+                    "form)")
+    g = build_grid(48, halo=2, radius=EARTH_RADIUS, device="cuda")
+    h, v, b = williamson_tc5(g, EARTH_GRAVITY, EARTH_OMEGA)
+    m = CovariantShallowWater(g, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA,
+                              b_ext=b)
+    s0 = m.initial_state(h, v)
+    states = [{"h": s0["h"] * (1.0 + 1e-4 * i), "u": s0["u"]}
+              for i in range(4)]
+    yb, _ = integrate(m.make_fused_step(600.0, ensemble=4),
+                      m.ensemble_compact_state(m.stack_ensemble(states)),
+                      0.0, 3, 600.0)
+    step1 = m.make_fused_step(600.0)
+    for i, s in enumerate(states):
+        y, _ = integrate(step1, m.compact_state(s), 0.0, 3, 600.0)
+        for k in y:
+            mem = yb[k][:, i] if k == "u" else yb[k][i]
+            assert torch.equal(mem, y[k]), (i, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [48, 74], ids=["c48", "c74"])
+def test_policy_nu4_and_extended_kernels_match_plain(n):
+    """B2 with bf16 strips (nu4 = 1e14 and a probe's 1e21), B3 under the
+    bf16 policy in each PLR limiter, with bf16 strips alone in PLR-MC and
+    PPM, and B8 under bf16 compute in each PLR limiter, on the carry after
+    one step and after eleven: bitwise equal to their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU form)")
+    dt = 60.0 * 384 / n
+    strips = {"stage": "f32", "strips": "bf16"}
+    cases = [("plr", lim, "bf16") for lim in
+             ("mc", "none", "minmod", "mc_sign", "vanleer")]
+    cases += [("plr", "mc", strips), ("ppm", "mc", strips)]
+    for scheme, limiter, pol in cases:
+        g = build_grid(n, halo=3 if scheme == "ppm" else 2,
+                       radius=EARTH_RADIUS, device="cuda")
+        m = CovariantShallowWater(g, gravity=EARTH_GRAVITY,
+                                  omega=EARTH_OMEGA, nu4=1.0e14,
+                                  scheme=scheme, limiter=limiter)
+        step = m.make_fused_step(dt, precision=pol)
+        y1 = step(m.compact_state(m.initial_state(
+            *galewsky(g, EARTH_GRAVITY, EARTH_OMEGA))), 0.0)
+        y11, _ = integrate(step, y1, 0.0, 10, dt)
+        for y in (y1, y11):
+            args = (y["h"], y["u"]) + step.route(y["strips_sn"],
+                                                  y["strips_we"])
+            kernels = [tcov.make_cov_stage_refused_nu4(
+                g, EARTH_GRAVITY, EARTH_OMEGA, dt, 1.0e14, scheme=scheme,
+                limiter=limiter, precision=pol)]
+            if limiter == "mc":
+                kernels += [tcov.make_cov_nu4_filter(g, nu, dt,
+                                                     precision=pol)
+                            for nu in (1.0e14, 1.0e21)]
+            for k in kernels:
+                full = args + ((m.b_ext,) if hasattr(k, "with_y0") else ())
+                out = k(*full)
+                torch.cuda.synchronize()
+                for j, (x, r) in enumerate(zip(out, k.reference(*full))):
+                    assert x.dtype == r.dtype and torch.equal(x, r), (
+                        scheme, limiter, type(k).__name__, j)
+    for limiter in ("mc", "none", "minmod", "mc_sign", "vanleer"):
+        g = build_grid(n, halo=2, radius=EARTH_RADIUS, device="cuda")
+        h, v, b = williamson_tc5(g, EARTH_GRAVITY, EARTH_OMEGA)
+        m = CovariantShallowWater(g, gravity=EARTH_GRAVITY,
+                                  omega=EARTH_OMEGA, b_ext=b,
+                                  limiter=limiter)
+        pol = {"stage": "bf16", "strips": "f32"}
+        step = m.make_fused_step(75.0 * 384 / n, compact=False,
+                                 precision=pol)
+        y1 = step(m.extend_state(m.initial_state(h, v), with_strips=True),
+                  0.0)
+        y11, _ = integrate(step, y1, 0.0, 10, 75.0 * 384 / n)
+        for y in (y1, y11):
+            ghosts = step.route(y["strips"])
+            st1, st2, st3 = step.stages
+            for st, args in ((st1, (y["h"], y["u"], ghosts, m.b_ext)),
+                             (st2, (y["h"], y["u"], y["h"], y["u"], ghosts,
+                                    m.b_ext))):
+                before = tcov.CovStageInkernel.launches
+                out = st(*args)
+                torch.cuda.synchronize()
+                assert tcov.CovStageInkernel.launches == before + 1
+                for j, (x, r) in enumerate(zip(out, st.reference(*args))):
+                    assert torch.equal(x, r), (limiter, j)

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_single_thread  # noqa: F401  (one CPU thread per worker)
+
 import jax.numpy as jnp
 
 from jaxstream.geometry.cubed_sphere import build_grid as jax_build_grid

@@ -35,6 +35,8 @@ from concurrent.futures import ThreadPoolExecutor
 import pytest
 import torch
 
+import torch_single_thread  # noqa: F401  (one CPU thread per worker)
+
 from jaxstream_torch import _build
 from jaxstream_torch.config import EARTH_GRAVITY, EARTH_OMEGA, EARTH_RADIUS
 from jaxstream_torch.experiments import nu4_bisect as nb
@@ -235,8 +237,10 @@ def _emulate(src: str, name: str, out, gxx: str, opt: str = "-O2"):
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """``{kernel name: host library}``, every kernel of ``_build.KERNELS``
-    compiled by g++ in parallel; ``"_compile"`` maps to a function that
-    compiles a mutated source the same way."""
+    but the policy libraries (``_build.POLICY_KERNELS``, which
+    ``test_torch_kernels_emulated_policy.py`` builds) compiled by g++ in
+    parallel; ``"_compile"`` maps to a function that compiles a mutated
+    source the same way."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the CUDA sources for the host")
@@ -248,8 +252,9 @@ def emulated(tmp_path_factory):
         src = (_build.CSRC_DIR / _build.KERNELS[name]).read_text()
         return name, _emulate(src, name, out, gxx)
 
-    with ThreadPoolExecutor(len(_build.KERNELS)) as pool:
-        libs = dict(pool.map(build, _build.KERNELS))
+    names = [k for k in _build.KERNELS if k not in _build.POLICY_KERNELS]
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = dict(pool.map(build, names))
     libs["_compile"] = lambda src, name, opt="-O2": _emulate(src, name, out,
                                                              gxx, opt)
     return libs
@@ -1059,8 +1064,8 @@ _B3B_MUTATIONS = {
         "if (j < -1 || j > n || i < -1 || i > n) return;"),
     "b3-first-face-psi": (
         "cov_stage_refused_nu4",
-        "stage_psi(p, sm.w, f, j0, i0);",
-        "stage_psi(p, sm.w, f0, j0, i0);"),
+        "stage_psi<R, RT>(p, sm.w, f, j0, i0);",
+        "stage_psi<R, RT>(p, sm.w, f0, j0, i0);"),
     "b3-wrong-field": (
         "cov_stage_refused_nu4",
         "rows_at<PX>(&psi[1][AP - 1][AP - WOFF]),",
@@ -1622,6 +1627,7 @@ def test_whole_face_kernels_pass_rows_as_columns():
             fn = mt.group(1).rstrip("<(")
             calls.setdefault(name, {}).setdefault(fn, []).append(args)
     faces_in_block = {"cov_stage": "p.xc, p.xf, p.xc, p.xf,",
+                      "cov_stage_policy": "p.xc, p.xf, p.xc, p.xf,",
                       "cov_stage_refused_nu4": "p.xc, p.xf, p.xc, p.xf,",
                       "cov_stage_nu4": "p.xc, p.xf, p.xc, p.xf,",
                       "cov_stage_inkernel": "p.xc, p.xf, p.xc, p.xf,",

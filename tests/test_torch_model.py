@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_single_thread  # noqa: F401  (one CPU thread per worker)
+
 import jax.numpy as jnp
 
 from jaxstream.config import EARTH_GRAVITY, EARTH_OMEGA, EARTH_RADIUS
@@ -99,9 +101,28 @@ def test_fused_step_conserves_mass():
     ({"precision": "bf16"}, "queue A item 5"),
 ])
 def test_unported_knobs_raise(kwargs, item):
-    g, m, _ = _port(8)
-    with pytest.raises(NotImplementedError, match=item):
-        m.make_fused_step(DT, **kwargs)
+    """The knobs that raised ``NotImplementedError`` naming ``item`` until
+    it landed: each now builds a step that takes its carry and advances
+    it (the ensemble's batched carry, the encoded carry, the bf16 strips),
+    ``temporal_block`` with its ``steps_per_call``."""
+    from jaxstream_torch.ops.cuda.precision import encode_strips
+
+    g, m, s0 = _port(8)
+    step = m.make_fused_step(DT, **kwargs)
+    if kwargs.get("compact") is False:
+        y = m.extend_state(s0, with_strips=True)
+    elif "ensemble" in kwargs:
+        y = m.ensemble_compact_state(m.stack_ensemble([s0, s0]))
+    else:
+        enc = {k: v for k, v in kwargs.items()
+               if k in ("carry_dtype", "h_offset")}
+        y = encode_strips(m.encode_carry(m.compact_state(s0), **enc),
+                          kwargs.get("precision"))
+    out = step(y, 0.0)
+    assert {k: (v.dtype, tuple(v.shape)) for k, v in out.items()} == {
+        k: (v.dtype, tuple(v.shape)) for k, v in y.items()}
+    assert getattr(step, "steps_per_call", 1) == kwargs.get(
+        "temporal_block", 1)
 
 
 @pytest.mark.parametrize("nu4, kwargs, match", [

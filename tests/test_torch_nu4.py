@@ -21,9 +21,13 @@ JAX package and the port; the JAX side runs as its own fast tier runs it
   JAX package's own budget, ``tests/test_cov_swe.py:630``).
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
+
+import torch_single_thread  # noqa: F401  (one CPU thread per worker)
 
 import jax
 import jax.numpy as jnp
@@ -336,12 +340,22 @@ def test_nu4_modes_build_their_steppers(nu4_mode, parts):
 @pytest.mark.parametrize("kwargs", [
     {"temporal_block": 2}, {"ensemble": 2}, {"precision": "bf16"}])
 def test_nu4_modes_refuse_unported_knobs(nu4_mode, kwargs):
-    """The knobs the port has not reached refuse on every del^4 mode,
-    naming their ROADMAP item."""
+    """The knobs of queue A item 5 on the del^4 modes: the JAX package's
+    refusals hold with its messages (no batched del^4 stepper; no
+    precision policy on the 'stage' oracle), the rest build (before the
+    item landed every one raised ``NotImplementedError`` naming it)."""
     tg = build_grid(8, halo=2, device="cpu")
     m = CovariantShallowWater(tg, gravity=9.8, omega=0.0, nu4=NU4)
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        m.make_fused_step(DT, nu4_mode=nu4_mode, **kwargs)
+    refusal = ("ensemble > 0 supports nu4 = 0 only" if "ensemble" in kwargs
+               else "nu4_mode='stage' is the f32 parity oracle"
+               if nu4_mode == "stage" and "precision" in kwargs else None)
+    if refusal is not None:
+        with pytest.raises(ValueError, match=re.escape(refusal)):
+            m.make_fused_step(DT, nu4_mode=nu4_mode, **kwargs)
+        return
+    step = m.make_fused_step(DT, nu4_mode=nu4_mode, **kwargs)
+    assert getattr(step, "steps_per_call", 1) == kwargs.get(
+        "temporal_block", 1)
 
 
 @pytest.mark.parametrize("make", [tsc.make_fused_ssprk3_cov_refused_nu4,

@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_single_thread  # noqa: F401  (one CPU thread per worker)
+
 from jaxstream.geometry.cubed_sphere import build_grid as jax_build_grid
 from jaxstream.ops.pallas import swe_cov as jsc
 from jaxstream.ops.pallas.swe_rhs import coord_rows as jax_coord_rows

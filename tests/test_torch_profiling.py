@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_single_thread  # noqa: F401  (one CPU thread per worker)
+
 from jaxstream.utils import profiling as jp
 
 from jaxstream_torch.utils import profiling as tp

@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_single_thread  # noqa: F401  (one CPU thread per worker)
+
 import jax.numpy as jnp
 
 from jaxstream.config import EARTH_GRAVITY, EARTH_OMEGA, EARTH_RADIUS

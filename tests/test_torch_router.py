@@ -10,6 +10,8 @@ its own way, so those are held to 2 float32 ulp of each block's scale.
 import numpy as np
 import torch
 
+import torch_single_thread  # noqa: F401  (one CPU thread per worker)
+
 import jax.numpy as jnp
 
 from jaxstream.config import EARTH_RADIUS

@@ -20,6 +20,8 @@ Budgets:
 import pytest
 import torch
 
+import torch_single_thread  # noqa: F401  (one CPU thread per worker)
+
 from jaxstream_torch.config import EARTH_GRAVITY, EARTH_OMEGA, EARTH_RADIUS
 from jaxstream_torch.geometry.cubed_sphere import build_grid
 from jaxstream_torch.models.shallow_water import ShallowWater

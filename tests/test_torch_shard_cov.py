@@ -39,6 +39,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_single_thread  # noqa: F401  (one CPU thread per worker)
+
 import jax
 import jax.numpy as jnp
 

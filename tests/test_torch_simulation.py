@@ -31,6 +31,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_single_thread  # noqa: F401  (one CPU thread per worker)
+
 from jaxstream.__main__ import main as jax_main
 from jaxstream.io.checkpoint import CheckpointManager as JaxCkpt
 from jaxstream.io.history import HistoryWriter as JaxHist
@@ -299,10 +301,17 @@ def test_port_checkpoint_resumes_in_jax(jax_runs, tmp_path):
 
 @pytest.mark.parametrize("over, item", [
     ({"model": {"numerics": "tt"}}, r"model\.numerics.*queue A item 8 \(A11\)"),
-    ({"ensemble": {"members": 2}}, r"ensemble\.members.*queue A item 5"),
-    ({"precision": {"stage": "bf16"}}, r"precision.*queue A item 5"),
-    ({"precision": {"strips": "bf16"}}, r"precision.*queue A item 5"),
-    ({"precision": {"carry": "mixed16"}}, r"precision.*queue A item 5"),
+    ({"ensemble": {"members": 2}, "parallelization": {
+        "num_devices": 6, "use_shard_map": True}},
+     r"ensemble\.members.*queue A item 4 \(A8\)"),
+    ({"precision": {"stage": "bf16"}, "parallelization": {
+        "num_devices": 6, "use_shard_map": True}},
+     r"precision.*queue A item 4 \(A8\)"),
+    ({"precision": {"strips": "bf16"}, "parallelization": {
+        "num_devices": 6, "use_shard_map": True}},
+     r"precision.*queue A item 4 \(A8\)"),
+    ({"ensemble": {"members": 2}, "model": {"numerics": "tt"}},
+     r"model\.numerics.*queue A item 8 \(A11\)"),
     ({"grid": {"dtype": "bfloat16"}}, r"grid\.dtype.*queue A item 5"),
     ({"grid": {"metrics": "lazy"}}, r"grid\.metrics.*queue A item 1"),
     ({"observability": {"interval": 2}},
@@ -318,8 +327,8 @@ def test_port_checkpoint_resumes_in_jax(jax_runs, tmp_path):
     ({"da": {"cycles": 1}}, r"da\.cycles.*queue A item 6 \(A7\)"),
     ({"parallelization": {"num_devices": 6}},
      r"use_shard_map: false.*queue A item 4 \(A8\)"),
-    ({"parallelization": {"temporal_block": 2}, "model": {
-        "backend": "pallas"}}, r"temporal_block=2.*queue A item 5"),
+    ({"ensemble": {"members": 2}, "observability": {"interval": 2}},
+     r"observability\.interval.*queue A item 2 \(A4\)"),
     ({"parallelization": {"num_devices": 6, "use_shard_map": True},
       "model": {"name": "auto"}}, r"Cartesian shard.*queue A item 4 \(A8\)"),
     ({"parallelization": {"num_devices": 6, "use_shard_map": True},
