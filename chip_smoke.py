@@ -74,6 +74,10 @@ reconstructions' paths, through the port's entry points
   of ``csrc/swe_stage_inkernel.cu``, ``swe_stage.cu``, ``swe_rhs.cu`` and
   ``cov_stage_inkernel.cu``; and a ``Simulation`` of Cartesian TC5 with
   PPM at halo 3;
+* queue A items 1 and 2 through ``Simulation``: the in-loop telemetry,
+  its guards, sink and flight recorder and the async host pipeline on
+  the compact TC5 path, the split Galewsky jet, the B = 16 ensemble and
+  the face tier, and the lazy grid (phases 67-74);
 * the ensemble, precision and carry knobs of the compact path: TC5
   ensembles of 4 and 16 members on the batched fused stepper (one launch
   of ``csrc/cov_stage_members.cu`` per stage for all members), TC5 and
@@ -114,8 +118,10 @@ Phases, each fatal on failure:
    ``tests/test_torch_nu4.py``); both must also be bitwise equal;
 7. three split steps against three classic del^4 steps (<= 2e-3 of max,
    the JAX package's own split-vs-classic budget);
-8. the Galewsky jet to day 6 (8 640 steps) on the split stepper, gated
-   as ``bench.py::bench_galewsky`` gates it (finite, 8500 < h < 10800 m,
+8. the Galewsky jet to day 6 (8 640 steps) on the split stepper through
+   ``Simulation`` (``examples/configs/galewsky_c384.yaml``, its io off,
+   telemetry every 60 steps: phase 70), gated as
+   ``bench.py::bench_galewsky`` gates it (finite, 8500 < h < 10800 m,
    mass drift < 1e-3, 5e-5 < max|zeta| north of 0.2 rad < 5e-4,
    max|zeta| south of -0.2 rad < 5e-6), with the filter launches checked
    against the steps and the stage launches against 3 x steps;
@@ -253,7 +259,7 @@ Phases, each fatal on failure:
     against serialized on each tier (<= 1e-6,
     ``tests/test_overlap_exchange.py:157``; bitwise expected), block
     against face (<= 2e-4, ``tests/cov_block_worker.py:70``);
-32. each tier path's main run: 5 + 100 steps gated as phase 4, the
+32. each tier path's main run: 5 + 50 steps gated as phase 4, the
     kernel launches checked (B4, B5 and B6: 3 x steps, one launch per
     RK stage over all ranks; the other two counters 0), steps/s, a traced
     window for the busy share, and the time of one exchange and one
@@ -269,7 +275,7 @@ Phases, each fatal on failure:
     from the Galewsky state and after 3 in-stage steps, at nu4 = 1e14
     and with phase 13's probe: bitwise required, and full bitwise equal
     to B7's kernel B;
-35. the bisection's main path, ``nu4_bisect.run`` at 1 000 iterations:
+35. the bisection's main path, ``nu4_bisect.run`` at 500 iterations:
     each chain's wall and device microseconds per iteration, its
     launches checked against its windows (the in-stage pair's and
     B14's counters), and B14's time per mode against its bound and
@@ -320,8 +326,7 @@ Phases, each fatal on failure:
     subprocess: its JSON line's ``steps``, ``t_seconds`` and
     ``diagnostics`` equal to an in-process run's;
 47. ``Simulation.run`` (segments, history, checkpoints) against the bare
-    stepper under ``integrate`` in turns, for phases 41 and 42's
-    configurations;
+    stepper under ``integrate`` in turns, for phase 41's configuration;
 48. for each reconstruction besides PLR-MC, Cartesian TC5 on the
     in-kernel stepper in that mode (its B11 instance): 20 steps (PPM at
     halo 3: 20 + 1 000, timed and gated as phase 4), the launches
@@ -409,7 +414,44 @@ Phases, each fatal on failure:
     B3 (TC5 orography, nu4 = 1e14, re-fused) under the bf16 policy in
     each PLR limiter besides MC and under bf16 strips alone in each mode
     (PPM at halo 3), B8 under bf16 compute in each PLR limiter, and B1's
-    float32 ensemble instance (two members) in each mode besides PLR-MC.
+    float32 ensemble instance (two members) in each mode besides PLR-MC;
+67. ``Simulation`` of TC5 (compact, B1) in three modes, in that order:
+    io off, sync (history and checkpoints every 100 steps, telemetry
+    every 10 with a sink, guards ``checkpoint_and_raise``, a flight dir)
+    and async (the same with ``io.async_pipeline``), each 100 + 1 000
+    steps (the warm-up one io stride, so the timed boundaries fall on the
+    strides): TC5's gate, the final states bitwise equal, the history
+    store byte-equal, the checkpoints restored bitwise and the sink
+    records equal (timing masked) between sync and async; steps/s, each
+    mode's ``host_wait_s`` from its sink, the io overhead; one 100-step
+    metric segment under ``torch.cuda.set_sync_debug_mode("error")``; the
+    final h regridded by ``viz.plots.to_latlon`` on the device, bitwise
+    its numpy form;
+68. one metric sample's device time (CUDA events over 200 calls, and as
+    a CUDA graph), host time and kernel launches; the stream's last sample
+    equal to ``metric_fn`` on the final state, its mass drift against
+    ``utils.diagnostics`` (<= 2e-6); steps/s with metrics on and off in
+    turns, the states bitwise equal;
+69. a stream fault on a sampled step: HealthError with the last good
+    step, the guard record in the sink before the ``flight`` and ``crash``
+    records, the postmortem checkpoint, the committed flight bundle read
+    by ``read_bundle`` and by ``scripts/postmortem.py``; a new
+    ``Simulation`` on the same directories resumes with its lineage and
+    ends bitwise equal to the uninterrupted run;
+70. (on phase 8's run) the covariant ladder with enstrophy, the sink's
+    mass drift against the gate's (<= 2e-6), the guard events CFL breaches
+    only (the jet's CFL number in the ladder's convention passes the
+    default limit of 2 at dt = 60 s; policy ``warn``);
+71. the TC5 ensemble at B = 16 (B1's member fold) with telemetry: a
+    non-finite row per member, the spread in the sink, member-steps/s
+    with metrics on and off in turns, every member under TC5's gate;
+72. the face tier (B4 stacked, six virtual ranks) with telemetry: its
+    samples against the single-device run's (mass <= 2e-6, the rest
+    <= 2e-4, the float32 tier budgets);
+73. ``grid.metrics: lazy``: compact TC5 against eager in turns (the
+    gate, the distance, steps/s), and the classic path's ms per step;
+74. the flight recorder on against ``flight.disabled()``, paired windows
+    in alternating order, the quietest ratio's overhead.
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -581,11 +623,11 @@ TIER_MASS_TOL = 2e-6
 OVERLAP_TOL = 1e-6
 BLOCK_VS_FACE_TOL = 2e-4
 TIER_WARM_STEPS = 5
-TIER_TIMED_STEPS = 100
+TIER_TIMED_STEPS = 50
 TIER_PROFILED_STEPS = 3
 # The step-budget bisection (jaxstream_torch.experiments.nu4_bisect):
 # its two windows are BISECT_ITERS / 4 and BISECT_ITERS iterations.
-BISECT_ITERS = 1000
+BISECT_ITERS = 500
 # Kernel B14 per cell: full and nofill as B (a Laplacian and the damp
 # per field, the metric terms); nolap the damp alone.
 B14_FLOPS_PER_CELL = {"full": B_FLOPS_PER_CELL, "nofill": B_FLOPS_PER_CELL,
@@ -1068,21 +1110,9 @@ def galewsky_path(card: str, gal: Galewsky):
     gal.compare("split vs classic del^4", yc, ysplit, SPLIT_VS_CLASSIC_TOL)
     del yc
 
-    # ---- 8. main path: the jet to day 6, gated as bench_galewsky ----------
-    Stage.launches = 0
-    Filter.launches = 0
-    t0 = time.perf_counter()
-    y, t = integrate(step, y0, 0.0, GAL_DAY6_STEPS, GAL_DT)
-    torch.cuda.synchronize()
-    wall6 = time.perf_counter() - t0
-    launches = (Stage.launches, Filter.launches)
-    if launches != (3 * GAL_DAY6_STEPS, GAL_DAY6_STEPS):
-        raise RuntimeError(f"launches (stage, filter) {launches} != "
-                           f"(3 x, 1 x) {GAL_DAY6_STEPS} steps")
-    gal.gate("split", y, t,
-             f"launches stage {launches[0]} = 3 x {GAL_DAY6_STEPS}, filter "
-             f"{launches[1]} = {GAL_DAY6_STEPS}; {GAL_DAY6_STEPS} steps in "
-             f"{wall6:.2f} s")
+    # ---- 8. main path: the jet to day 6 through Simulation, gated as
+    # bench_galewsky, with telemetry (phase 70's checks) ------------------
+    launches, y, t = galewsky_day6_simulation(card, gal)
 
     # ---- 9. timed window, breakdown, filter times, traced window --------
     y, t, step_us = timed_window("Galewsky nu4 (split)", step, y, t,
@@ -3112,12 +3142,6 @@ def simulation_paths(card: str, t_start: float) -> None:
                   lambda: integrate(step, m.compact_state(s0), 0.0,
                                     SIM_TC5_STEPS, STEP_DT),
                   SIM_TC5_STEPS, card)
-        sim_turns(f"Galewsky C{N} split, io strides {SIM_GAL_STRIDE}",
-                  fresh(lambda tag: with_io(gal_cfg, root, tag,
-                                            SIM_GAL_STRIDE)),
-                  lambda: integrate(gstep, gm.compact_state(g0), 0.0,
-                                    SIM_GAL_STEPS, gal_cfg.time.dt),
-                  SIM_GAL_STEPS, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4547,6 +4571,747 @@ def policy_paths(card: str, t_start: float, grid, model, h_ext, v_ext,
     records += bf16_galewsky_paths(card)
     return records
 
+
+# Phases 67-74: queue A items 1 and 2 on the card (lazy metrics, the
+# in-loop telemetry, guards, sink, flight recorder and async pipeline).
+#: The io modes' windows: a warm-up of one io stride (so the timed
+#: window's boundaries fall on the strides), then OBS_STEPS timed steps.
+OBS_STRIDE = 100
+OBS_STEPS = 1000
+OBS_INTERVAL = 10
+#: Phase 68: one metric sample timed over this many calls.
+SAMPLE_REPS = 200
+#: Phase 69: a run of GUARD_STEPS with the stream's fault at GUARD_FAULT.
+GUARD_STEPS = 500
+GUARD_FAULT = 250
+GAL_OBS_INTERVAL = 60
+ENS_OBS_MEMBERS = 16
+ENS_OBS_WINDOW = 250
+FACE_OBS_STEPS = 20
+LAZY_WINDOW = 500
+LAZY_CLASSIC_STEPS = 3
+FLIGHT_WINDOWS, FLIGHT_K, FLIGHT_REPEATS = 12, 4, 9
+#: The sink's float32 mass drift against the gate's float64 one.
+DRIFT_TOL = 2e-6
+_VOLATILE = ("wall_s", "steps_per_sec", "sim_days_per_sec_per_chip",
+             "host_wait_s", "created_unix")
+
+
+def obs_tc5_config(root: str, tag: str, mode: str, **obs) -> dict:
+    """TC5 at C384 on the compact stepper: ``mode`` 'off' (no io, no
+    telemetry), 'sync' or 'async' (history and checkpoints every
+    OBS_STRIDE, telemetry every OBS_INTERVAL with a sink, guards
+    ``checkpoint_and_raise`` and a flight dir; 'async' with the
+    pipeline)."""
+    import os
+
+    cfg = sim_tc5_config(root, tag)
+    cfg["time"]["nsteps"] = OBS_STRIDE + OBS_STEPS
+    if mode == "off":
+        cfg["io"] = {}
+        return cfg
+    cfg["io"].update(history_stride=OBS_STRIDE, checkpoint_stride=OBS_STRIDE,
+                     async_pipeline={"enabled": mode == "async"})
+    cfg["observability"] = {
+        "interval": OBS_INTERVAL, "sink": os.path.join(root, tag, "t.jsonl"),
+        "guards": "checkpoint_and_raise",
+        "flight_dir": os.path.join(root, tag, "flight"), **obs}
+    return cfg
+
+
+def tree_bytes(root: str) -> dict:
+    """Relative path -> bytes of every file under ``root``."""
+    import os
+
+    out = {}
+    for d, _, names in os.walk(root):
+        for f in names:
+            p = os.path.join(d, f)
+            with open(p, "rb") as fh:
+                out[os.path.relpath(p, root)] = fh.read()
+    return out
+
+
+def same_checkpoints(a, b) -> bool:
+    """Two checkpoint managers hold the same steps, each restoring to the
+    same time and bitwise the same arrays."""
+    import numpy as np
+
+    if a.steps() != b.steps():
+        return False
+    for s in a.steps():
+        (sa, ta), (sb, tb) = a.restore_host(s), b.restore_host(s)
+        if ta != tb or sorted(sa) != sorted(sb) or not all(
+                np.array_equal(sa[k], sb[k]) for k in sa):
+            return False
+    return True
+
+
+def masked_records(path: str) -> list:
+    from jaxstream_torch.obs.sink import read_records
+
+    return [{k: v for k, v in r.items() if k not in _VOLATILE}
+            for r in read_records(path)]
+
+
+def sink_wait(path: str, after: int) -> float:
+    """The ``host_wait_s`` total of a sink's segments past step
+    ``after``."""
+    from jaxstream_torch.obs.sink import read_records
+
+    return sum(r.get("host_wait_s", 0.0)
+               for r in read_records(path, kind="segment")
+               if r["step"] > after)
+
+
+def io_mode_paths(card: str, root: str) -> dict:
+    """Phases 67-68: TC5 C384 through ``Simulation`` with io off, sync and
+    async, then the metric stream's cost.  Returns B1's launches."""
+    import os
+
+    import numpy as np
+
+    from jaxstream_torch.io.checkpoint import CheckpointManager
+    from jaxstream_torch.obs import metrics as obs_metrics
+    from jaxstream_torch.obs.sink import read_records
+    from jaxstream_torch.ops.cuda.swe_cov import CovStageCompact
+    from jaxstream_torch.simulation import Simulation
+    from jaxstream_torch.utils.diagnostics import total_mass
+    from jaxstream_torch.viz.plots import to_latlon
+
+    total = OBS_STRIDE + OBS_STEPS
+    half = OBS_STEPS // 2
+    b1 = 0
+    runs = {}
+    # ---- 67. io off, sync, async: windows of half the steps in turns
+    # (off, sync, async, async, sync, off), after a warm-up of one stride.
+    for mode in ("off", "sync", "async"):
+        sim = Simulation(obs_tc5_config(root, mode, mode))
+        if sim.stepper_kind != "compact":
+            raise RuntimeError(f"{mode}: the {sim.stepper_kind} stepper")
+        s0 = {k: v.clone() for k, v in sim.state.items()}
+        sim.run(OBS_STRIDE)
+        runs[mode] = {"sim": sim, "rates": [], "s0": s0}
+    for mode in ("off", "sync", "async", "async", "sync", "off"):
+        sim = runs[mode]["sim"]
+        torch.cuda.synchronize()
+        CovStageCompact.launches = 0
+        t0 = time.perf_counter()
+        if mode == "off":
+            # The strided modes' segmentation, by run() calls.
+            for _ in range(half // OBS_STRIDE):
+                sim.run(sim.step_count + OBS_STRIDE)
+        else:
+            sim.run(sim.step_count + half)
+        torch.cuda.synchronize()
+        runs[mode]["rates"].append(half / (time.perf_counter() - t0))
+        b1 += CovStageCompact.launches
+        if CovStageCompact.launches != 3 * half:
+            raise RuntimeError(f"{mode}: B1 launches "
+                               f"{CovStageCompact.launches}")
+    for mode, r in runs.items():
+        r["sim"].close()
+        tc5_gate(f"Simulation io {mode}", r["sim"].grid, r["s0"],
+                 r["sim"].state["h"], total * STEP_DT / 86400.0)
+        r["rate"] = sum(r["rates"]) / len(r["rates"])
+        r["wait"] = (sink_wait(os.path.join(root, mode, "t.jsonl"),
+                               OBS_STRIDE) if mode != "off" else 0.0)
+    base = runs["off"]["rate"]
+    log(f"Simulation TC5 C{N} compact, {OBS_STEPS} timed steps after "
+        f"{OBS_STRIDE}, windows of {half} in turns (off, sync, async, "
+        "async, sync, off): " + "; ".join(
+            f"{m} " + ", ".join(f"{x:.1f}" for x in r["rates"])
+            + f" steps/s, mean {r['rate']:.1f} (io overhead "
+            f"{100.0 * (base / r['rate'] - 1.0):+.2f}%, host_wait_s "
+            f"{r['wait']:.4f} from its sink)" for m, r in runs.items())
+        + f"; history and checkpoints every {OBS_STRIDE}, telemetry every "
+        f"{OBS_INTERVAL}; B1 launches 3 x {half} a window; card {card}")
+    ref = runs["off"]["sim"]
+    for mode in ("sync", "async"):
+        sim = runs[mode]["sim"]
+        bad = [k for k in ref.state
+               if not torch.equal(ref.state[k], sim.state[k])]
+        if bad:
+            raise RuntimeError(f"io {mode}: final state differs from io "
+                               f"off in {bad}")
+    log("io off, sync and async: final states bitwise equal")
+    hs = tree_bytes(os.path.join(root, "sync", "hist"))
+    ha = tree_bytes(os.path.join(root, "async", "hist"))
+    cs = CheckpointManager(os.path.join(root, "sync", "ckpt"))
+    ca = CheckpointManager(os.path.join(root, "async", "ckpt"))
+    same_ckpt = same_checkpoints(cs, ca)
+    rs = masked_records(os.path.join(root, "sync", "t.jsonl"))
+    ra = masked_records(os.path.join(root, "async", "t.jsonl"))
+    log(f"sync vs async: history {len(hs)} files, "
+        f"{sum(map(len, hs.values())) / 1e6:.1f} MB: "
+        + ("byte-equal" if hs == ha else "DIFFER")
+        + f"; checkpoints at {cs.steps()}: "
+        + ("restored bitwise" if same_ckpt else "DIFFER")
+        + f"; sink {len(rs)} records, timing masked: "
+        + ("equal" if rs == ra else "DIFFER"))
+    if hs != ha or not same_ckpt or rs != ra:
+        raise RuntimeError("the async pipeline's outputs differ from sync")
+    del hs, ha
+    sim = runs["sync"]["sim"]
+    # One segment under the sync debug mode: no sample reads back.
+    fn = sim._segment_fn(OBS_STRIDE)
+    torch.cuda.synchronize()
+    CovStageCompact.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y_seg, _, buf = fn(sim.state, sim.t, sim.step_count)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    b1 += CovStageCompact.launches
+    host = obs_metrics.fetch_buffer(buf)
+    if not np.all(np.isfinite(host)) or host.shape != (
+            sim._obs.ms.k, OBS_STRIDE // OBS_INTERVAL):
+        raise RuntimeError("sync-debug segment: bad metric buffer")
+    log(f"one {OBS_STRIDE}-step metric segment under "
+        "torch.cuda.set_sync_debug_mode('error'): no synchronizing call; "
+        f"buffer {host.shape}, finite")
+    del y_seg
+    h = sim.state["h"]
+    ll = to_latlon(h, 181, 360)
+    ll_np = to_latlon(h.cpu().numpy(), 181, 360)
+    same = ll.device == h.device and np.array_equal(ll.cpu().numpy(), ll_np)
+    log(f"to_latlon of the final h on {ll.device}: {tuple(ll.shape)}, "
+        + ("bitwise its numpy form" if same else "DIFFERS from numpy"))
+    if not same:
+        raise RuntimeError("to_latlon on the device differs")
+
+    # ---- 68. the metric stream's cost ----------------------------------
+    obs = sim._obs
+    y = sim._fused_prep(sim.state)
+    mfn = obs.metric_fn
+    ev_us = event_ms(lambda: mfn(y, 0.0), SAMPLE_REPS) * 1e3
+    graph_us = device_ms(lambda: mfn(y, 0.0)) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SAMPLE_REPS):
+        mfn(y, 0.0)
+    host_us = (time.perf_counter() - t0) / SAMPLE_REPS * 1e6
+    torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            mfn(y, 0.0)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 10
+    log(f"metric sample C{N} ({obs.ms.k} metrics: {', '.join(obs.ms.names)})"
+        f": {ev_us:.1f} us by CUDA events over {SAMPLE_REPS} calls, "
+        f"{graph_us:.1f} us of device as a CUDA graph, {host_us:.1f} us of "
+        f"host issue per call, {kernels:.0f} kernel launches per sample "
+        f"(torch.profiler); card {card}")
+    recs = read_records(os.path.join(root, "sync", "t.jsonl"),
+                        kind="segment")
+    last = recs[-1]
+    now = obs.ms.values(sim.state).cpu().numpy()
+    eq = all(last["metrics"][n] == float(now[i])
+             for i, n in enumerate(obs.ms.names))
+    s0 = runs["sync"]["s0"]
+    m0, m1 = (float(total_mass(sim.grid, s["h"])) for s in (s0, sim.state))
+    d_diag = (m1 - m0) / abs(m0)
+    area = sim.grid.interior(sim.grid.area).double()
+    g0 = float(torch.sum(area * s0["h"].double()))
+    d_gate = (float(torch.sum(area * sim.state["h"].double())) - g0) / g0
+    d_sink = last["drift"]["mass"]
+    log(f"stream's last sample vs metric_fn on the final state: "
+        + ("equal" if eq else "DIFFER") + f"; mass drift: sink "
+        f"{d_sink:.6e}, utils.diagnostics {d_diag:.6e}, gate (float64) "
+        f"{d_gate:.6e} (|sink - diagnostics| {abs(d_sink - d_diag):.2e}, "
+        f"tol {DRIFT_TOL:g})")
+    if not eq or abs(d_sink - d_diag) > DRIFT_TOL:
+        raise RuntimeError("the metric stream disagrees with the state")
+    runs.clear()
+    del sim, ref, y
+    # Steps/s with metrics on and off, in turns (no io: one segment per
+    # window).
+    sims = {}
+    for name, interval in (("on", OBS_INTERVAL), ("off", 0)):
+        cfg = obs_tc5_config(root, f"rate_{name}", "off")
+        cfg["observability"] = {"interval": interval}
+        sims[name] = Simulation(cfg)
+        sims[name].run(WARM_STEPS)
+    rates = {"on": [], "off": []}
+    window = OBS_STEPS // 4
+    CovStageCompact.launches = 0
+    for name in ("on", "off", "off", "on"):
+        sim = sims[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(sim.step_count + window)
+        torch.cuda.synchronize()
+        rates[name].append(window / (time.perf_counter() - t0))
+    b1 += CovStageCompact.launches
+    if CovStageCompact.launches != 12 * window:
+        raise RuntimeError("metrics on/off: B1 launches")
+    bad = [k for k in sims["on"].state if not torch.equal(
+        sims["on"].state[k], sims["off"].state[k])]
+    mean = {k: sum(v) / len(v) for k, v in rates.items()}
+    log(f"metrics every {OBS_INTERVAL} steps on vs off, {window}-step "
+        "windows in turns (on, off, off, on): on "
+        + ", ".join(f"{r:.1f}" for r in rates["on"]) + " steps/s; off "
+        + ", ".join(f"{r:.1f}" for r in rates["off"]) + " steps/s; cost "
+        f"{100.0 * (mean['off'] / mean['on'] - 1.0):+.2f}% of wall; "
+        f"states after {WARM_STEPS + 2 * window} steps "
+        + ("bitwise equal" if not bad else f"DIFFER in {bad}")
+        + f"; card {card}")
+    if bad:
+        raise RuntimeError("metrics on perturbed the carry")
+    return {"cov_stage_compact": b1}
+
+
+def guard_path(card: str, root: str) -> dict:
+    """Phase 69: a fault on a sampled step raises HealthError; the guard
+    record, the postmortem checkpoint, the flight bundle (read by the
+    port and by scripts/postmortem.py); a new Simulation on the same
+    directories resumes and ends bitwise equal to the uninterrupted
+    run."""
+    import os
+
+    from jaxstream_torch.io.checkpoint import CheckpointManager
+    from jaxstream_torch.obs import flight
+    from jaxstream_torch.obs.monitor import HealthError
+    from jaxstream_torch.obs.sink import read_records
+    from jaxstream_torch.ops.cuda.swe_cov import CovStageCompact
+    from jaxstream_torch.simulation import Simulation
+
+    def cfg(tag, sink, **obs):
+        c = obs_tc5_config(root, tag, "sync", **obs)
+        c["time"]["nsteps"] = GUARD_STEPS
+        c["observability"]["sink"] = os.path.join(root, tag, sink)
+        return c
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    CovStageCompact.launches = 0
+    sim = Simulation(cfg("guard", "a.jsonl", fault_step=GUARD_FAULT))
+    try:
+        sim.run()
+    except HealthError as e:
+        err = e
+    else:
+        raise RuntimeError("the injected fault did not raise HealthError")
+    finally:
+        sim.close()
+    want_good = GUARD_FAULT - OBS_INTERVAL
+    recs = read_records(os.path.join(root, "guard", "a.jsonl"))
+    kinds = [r["kind"] for r in recs]
+    guards = [r for r in recs if r["kind"] == "guard"]
+    cm = CheckpointManager(os.path.join(root, "guard", "ckpt"))
+    post = cm.latest_step()
+    meta = cm.restore_meta(post)
+    bdir = flight.latest_bundle(os.path.join(root, "guard", "flight"))
+    manifest, events = flight.read_bundle(bdir)
+    pm = subprocess.run([sys.executable, os.path.join(here, "scripts",
+                                                      "postmortem.py"),
+                         bdir, "--sink", os.path.join(root, "guard",
+                                                      "a.jsonl")],
+                        capture_output=True, text=True, timeout=120)
+    log(f"guard: {err}; guard records {[(g['step'], g['last_good_step']) for g in guards]}"
+        f", sink kinds after the last segment {kinds[-3:]}; checkpoints "
+        f"{cm.steps()}, the postmortem at {post} (meta {meta}); bundle "
+        f"{manifest['bundle_id']} ({manifest['n_events']} events, reason "
+        f"{manifest['reason']}); scripts/postmortem.py exit "
+        f"{pm.returncode}")
+    ok = (err.kind == "nan" and err.step == GUARD_FAULT
+          and err.last_good_step == want_good
+          and [g["step"] for g in guards] == [GUARD_FAULT]
+          and kinds[-3:] == ["guard", "flight", "crash"]
+          and meta.get("postmortem") == 1
+          and any(s <= want_good for s in cm.steps())
+          and pm.returncode == 0 and manifest["bundle_id"] in pm.stdout)
+    if not ok:
+        log(pm.stdout[-2000:] + pm.stderr[-2000:])
+        raise RuntimeError("guard phase: evidence missing")
+    resumed = Simulation(cfg("guard", "b.jsonl"))
+    start = resumed.step_count
+    resumed.run()
+    resumed.close()
+    stamp_rec = read_records(os.path.join(root, "guard", "b.jsonl"),
+                             kind="resume")
+    ref = Simulation(cfg("guard_ref", "r.jsonl"))
+    ref.run()
+    ref.close()
+    bad = [k for k in ref.state
+           if not torch.equal(ref.state[k], resumed.state[k])]
+    log(f"resumed at step {start} with lineage {stamp_rec}; after "
+        f"{GUARD_STEPS} steps vs the uninterrupted run: "
+        + ("bitwise equal" if not bad and ref.t == resumed.t
+           else f"DIFFERS in {bad}, t {resumed.t} vs {ref.t}"))
+    if (bad or ref.t != resumed.t or not stamp_rec
+            or stamp_rec[0]["bundle"] != manifest["bundle_id"]):
+        raise RuntimeError("the resumed run differs or lost its lineage")
+    return {"cov_stage_compact": CovStageCompact.launches}
+
+
+def galewsky_day6_simulation(card: str, gal: "Galewsky") -> tuple:
+    """Phases 8 and 70: the Galewsky YAML (split, its io block off) to day
+    6 through ``Simulation`` with telemetry every GAL_OBS_INTERVAL steps,
+    guards 'warn' and the covariant ladder; the day-6 gate, the launches,
+    the sink's mass drift against the gate's.  The jet's CFL number in
+    the ladder's convention (both directions summed) passes the default
+    limit of 2 at dt = 60 s, so 'warn' records CFL events; any other event
+    fails the phase.  Returns the (B1, B2) launches and the day-6 compact
+    carry and time (phase 9's start)."""
+    import dataclasses
+    import logging
+    import os
+    import shutil
+    import tempfile
+
+    from jaxstream_torch.config import load_config
+    from jaxstream_torch.obs.sink import read_records
+    from jaxstream_torch.ops.cuda.swe_cov import (CovNu4Filter,
+                                                  CovStageCompact)
+    from jaxstream_torch.simulation import Simulation
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_obs_",
+                            dir=os.path.join(here, "build"))
+    try:
+        cfg = load_config(os.path.join(here, SIM_GAL_CONFIG))
+        sink = os.path.join(root, "t.jsonl")
+        cfg = dataclasses.replace(
+            cfg, io=dataclasses.replace(cfg.io, history_stride=0,
+                                        checkpoint_stride=0),
+            observability=dataclasses.replace(
+                cfg.observability, interval=GAL_OBS_INTERVAL, sink=sink,
+                guards="warn"))
+        sim = Simulation(cfg)
+        if sim.stepper_kind != "compact" or sim.model.nu4 != GAL_NU4:
+            raise RuntimeError("Galewsky config: not the split stepper")
+        if "enstrophy" not in sim._obs.ms.names:
+            raise RuntimeError("the covariant ladder lacks enstrophy")
+        # Under 'warn' the monitor logs each breach; the count is logged.
+        quiet = logging.getLogger("jaxstream_torch.obs.monitor")
+        level = quiet.level
+        quiet.setLevel(logging.ERROR)
+        CovStageCompact.launches = CovNu4Filter.launches = 0
+        t0 = time.perf_counter()
+        try:
+            sim.run(GAL_DAY6_STEPS)
+        finally:
+            quiet.setLevel(level)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sim.close()
+        launches = (CovStageCompact.launches, CovNu4Filter.launches)
+        if launches != (3 * GAL_DAY6_STEPS, GAL_DAY6_STEPS):
+            raise RuntimeError(f"launches (stage, filter) {launches} != "
+                               f"(3 x, 1 x) {GAL_DAY6_STEPS} steps")
+        last = read_records(sink, kind="segment")[-1]
+        guards = read_records(sink, kind="guard")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    d_gate = gal.drift(sim.state["h"])
+    events = sorted({g["event"] for g in guards})
+    gal.gate("split, Simulation with telemetry", sim.state, sim.t,
+             f"launches stage {launches[0]} = 3 x {GAL_DAY6_STEPS}, filter "
+             f"{launches[1]} = {GAL_DAY6_STEPS}; {GAL_DAY6_STEPS} steps in "
+             f"{wall:.2f} s; sink mass drift {last['drift']['mass']:.6e}, "
+             f"{len(guards)} guard events {events} (policy warn)")
+    log(f"Galewsky C{N} day 6 through Simulation ({SIM_GAL_CONFIG}, io "
+        f"off), telemetry every {GAL_OBS_INTERVAL}: "
+        f"{GAL_DAY6_STEPS / wall:.1f} steps/s; last sample "
+        f"{last['metrics']}; |sink drift| {abs(last['drift']['mass']):.6e}"
+        f" vs the gate's {d_gate:.6e} (tol {DRIFT_TOL:g}); card {card}")
+    if (any(g["event"] != "cfl" for g in guards)
+            or abs(abs(last["drift"]["mass"]) - d_gate) > DRIFT_TOL):
+        raise RuntimeError("Galewsky telemetry disagrees with its gate")
+    return launches, gal.model.compact_state(sim.state), sim.t
+
+
+def ensemble_telemetry(card: str, root: str) -> dict:
+    """Phase 71: the TC5 ensemble at B = ENS_OBS_MEMBERS with telemetry:
+    member rows and spread in the sink, member-steps/s with metrics on
+    and off in turns, every member under TC5's gate."""
+    import os
+
+    from jaxstream_torch.obs.sink import read_records
+    from jaxstream_torch.ops.cuda.swe_cov import CovStageCompact
+    from jaxstream_torch.simulation import Simulation
+
+    B = ENS_OBS_MEMBERS
+    sims = {}
+    for name, interval in (("on", OBS_INTERVAL), ("off", 0)):
+        cfg = obs_tc5_config(root, f"ens_{name}", "off")
+        cfg["ensemble"] = {"members": B, "seed": 0, "amplitude": 1e-3}
+        cfg["observability"] = {
+            "interval": interval, "guards": "warn",
+            "sink": os.path.join(root, f"ens_{name}.jsonl"),
+            "metrics": "mass,energy,h_min,h_max,h_spread,ens_mean_drift,"
+                       "nonfinite_count"}
+        sims[name] = Simulation(cfg)
+        if sims[name].stepper_kind != "compact":
+            raise RuntimeError("ensemble: not the batched fused stepper")
+    s0 = {k: v.clone() for k, v in sims["on"].state.items()}
+    for sim in sims.values():
+        sim.run(WARM_STEPS)
+    rates = {"on": [], "off": []}
+    CovStageCompact.launches = 0
+    for name in ("on", "off", "off", "on"):
+        sim = sims[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(sim.step_count + ENS_OBS_WINDOW)
+        torch.cuda.synchronize()
+        rates[name].append(B * ENS_OBS_WINDOW / (time.perf_counter() - t0))
+    launches = CovStageCompact.launches
+    on = sims["on"]
+    on.close()
+    names = on._obs.ms.names
+    recs = read_records(os.path.join(root, "ens_on.jsonl"), kind="segment")
+    last = recs[-1]["metrics"]
+    rows = [n for n in names if n.startswith("nonfinite_m")]
+    mean = {k: sum(v) / len(v) for k, v in rates.items()}
+    log(f"ensemble B={B} C{N} TC5 with telemetry every {OBS_INTERVAL}: "
+        f"member rows {len(rows)}, h_spread {last['h_spread']:.4e}, "
+        f"ens_mean_drift {last['ens_mean_drift']:.4e}, non-finite "
+        f"{sum(last[n] for n in rows):g}; member-steps/s in turns (on, "
+        "off, off, on), windows of " f"{ENS_OBS_WINDOW}: on "
+        + ", ".join(f"{r:.1f}" for r in rates["on"]) + "; off "
+        + ", ".join(f"{r:.1f}" for r in rates["off"]) + f"; cost "
+        f"{100.0 * (mean['off'] / mean['on'] - 1.0):+.2f}%; B1 members "
+        f"launches {launches}; card {card}")
+    if (len(rows) != B or not last["h_spread"] > 0.0
+            or launches != 12 * ENS_OBS_WINDOW
+            or any(last[n] != 0.0 for n in rows)
+            or on._obs.monitor.events):
+        raise RuntimeError("ensemble telemetry")
+    days = (WARM_STEPS + 2 * ENS_OBS_WINDOW) * STEP_DT / 86400.0
+    for i in range(B):
+        tc5_gate(f"ensemble with telemetry, member {i}", on.grid,
+                 {"h": s0["h"][i]}, on.state["h"][i], days)
+    return {"cov_stage_members mc f32": launches}
+
+
+def face_telemetry(card: str, root: str) -> dict:
+    """Phase 72: the face tier on six virtual ranks with telemetry: its
+    samples against the single-device classic run's (the tier's float32
+    budgets, phase 45's)."""
+    import os
+
+    from jaxstream_torch.obs.sink import read_records
+    from jaxstream_torch.ops.cuda.swe_cov import CovRhs
+    from jaxstream_torch.simulation import Simulation
+
+    out = {}
+    CovRhs.launches = 0
+    for name, par in (("face", {"num_devices": 6, "use_shard_map": True}),
+                      ("single", {})):
+        cfg = sim_tc5_config(root, f"obs_{name}", backend="jnp")
+        cfg["io"] = {}
+        cfg["time"]["nsteps"] = FACE_OBS_STEPS
+        cfg["parallelization"].update(par)
+        cfg["observability"] = {
+            "interval": OBS_INTERVAL,
+            "sink": os.path.join(root, f"obs_{name}.jsonl")}
+        sim = Simulation(cfg)
+        sim.run()
+        sim.close()
+        out[name] = read_records(os.path.join(root, f"obs_{name}.jsonl"),
+                                 kind="segment")[-1]
+    launches = CovRhs.launches
+    f, s = out["face"], out["single"]
+    errs = {n: abs(f["metrics"][n] - v) / max(abs(v), 1e-30)
+            for n, v in s["metrics"].items()}
+    tol = {n: TIER_MASS_TOL if n == "mass" else TIER_VS_CLASSIC_TOL
+           for n in errs}
+    log(f"face tier (6 virtual ranks) telemetry, {FACE_OBS_STEPS} steps, "
+        f"samples at {f['samples']['step']}: rel diff vs the single-device "
+        "run " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+        + f" (tol mass {TIER_MASS_TOL:g}, else {TIER_VS_CLASSIC_TOL:g}); "
+        f"B4 stacked launches {launches} (want {3 * FACE_OBS_STEPS})")
+    if (any(e > tol[n] for n, e in errs.items())
+            or launches != 3 * FACE_OBS_STEPS
+            or f["samples"]["step"] != s["samples"]["step"]):
+        raise RuntimeError("face tier telemetry")
+    return {"cov_rhs": launches}
+
+
+def lazy_paths(card: str, root: str) -> dict:
+    """Phase 73: ``grid.metrics: lazy``, TC5 C384: the compact path
+    against the eager one in turns (the gate, the distance), and the
+    classic path's cost per step."""
+    from jaxstream_torch.ops.cuda.swe_cov import CovStageCompact
+    from jaxstream_torch.simulation import Simulation
+
+    sims = {}
+    for metrics in ("lazy", "eager"):
+        cfg = obs_tc5_config(root, f"lazy_{metrics}", "off")
+        cfg["grid"]["metrics"] = metrics
+        sims[metrics] = Simulation(cfg)
+        if sims[metrics].stepper_kind != "compact":
+            raise RuntimeError("lazy: not the compact stepper")
+    s0 = {k: v.clone() for k, v in sims["lazy"].state.items()}
+    init = {k: rel_err(sims["eager"].state[k], v) for k, v in s0.items()}
+    for sim in sims.values():
+        sim.run(WARM_STEPS)
+    rates = {"lazy": [], "eager": []}
+    CovStageCompact.launches = 0
+    for name in ("lazy", "eager", "eager", "lazy"):
+        sim = sims[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(sim.step_count + LAZY_WINDOW)
+        torch.cuda.synchronize()
+        rates[name].append(LAZY_WINDOW / (time.perf_counter() - t0))
+    launches = CovStageCompact.launches
+    steps = WARM_STEPS + 2 * LAZY_WINDOW
+    lz = sims["lazy"]
+    tc5_gate("Simulation lazy metrics", lz.grid, s0, lz.state["h"],
+             steps * STEP_DT / 86400.0)
+    dist = {k: rel_err(sims["eager"].state[k], lz.state[k])
+            for k in ("h", "u")}
+    log(f"lazy vs eager metrics, compact TC5 C{N}: initial state rel diff "
+        f"h {init['h']:.3e}, u {init['u']:.3e}; after {steps} steps h "
+        f"{dist['h']:.3e}, u {dist['u']:.3e}; steps/s in turns (lazy, "
+        "eager, eager, lazy), windows of " f"{LAZY_WINDOW}: lazy "
+        + ", ".join(f"{r:.1f}" for r in rates["lazy"]) + "; eager "
+        + ", ".join(f"{r:.1f}" for r in rates["eager"])
+        + f"; B1 launches {launches}; card {card}")
+    if launches != 12 * LAZY_WINDOW:
+        raise RuntimeError("lazy: B1 launches")
+    sims.clear()
+    del lz
+    # The classic path recomputes the lazy metric expressions every rhs.
+    walls = {"lazy": [], "eager": []}
+    classic = {}
+    for metrics in ("lazy", "eager"):
+        cfg = sim_tc5_config(root, f"lazyc_{metrics}", backend="jnp")
+        cfg["io"] = {}
+        cfg["grid"]["metrics"] = metrics
+        classic[metrics] = Simulation(cfg)
+        classic[metrics].run(1)
+    for name in ("lazy", "eager", "eager", "lazy"):
+        sim = classic[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(sim.step_count + LAZY_CLASSIC_STEPS)
+        torch.cuda.synchronize()
+        walls[name].append((time.perf_counter() - t0) / LAZY_CLASSIC_STEPS)
+    mean = {k: sum(v) / len(v) * 1e3 for k, v in walls.items()}
+    log(f"classic TC5 C{N} (backend jnp) ms per step in turns (lazy, "
+        "eager, eager, lazy): lazy " + ", ".join(
+            f"{w * 1e3:.2f}" for w in walls["lazy"]) + "; eager "
+        + ", ".join(f"{w * 1e3:.2f}" for w in walls["eager"])
+        + f"; lazy costs {mean['lazy'] / mean['eager']:.2f}x eager; "
+        f"card {card}")
+    return {"cov_stage_compact": launches}
+
+
+def flight_overhead(card: str) -> None:
+    """Phase 74: the flight recorder on against ``flight.disabled()``,
+    paired windows in alternating order, the quietest ratio (as
+    ``bench.py::bench_flight_overhead``): FLIGHT_WINDOWS segments of
+    FLIGHT_K compact TC5 steps, each closed by the loop's two records."""
+    from jaxstream_torch.config import EARTH_GRAVITY, EARTH_OMEGA, EARTH_RADIUS
+    from jaxstream_torch.geometry.cubed_sphere import build_grid
+    from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
+    from jaxstream_torch.obs import flight
+    from jaxstream_torch.physics.initial_conditions import williamson_tc5
+    from jaxstream_torch.stepping import integrate
+
+    grid = build_grid(N, halo=2, radius=EARTH_RADIUS, dtype=torch.float32)
+    h_ext, v_ext, b_ext = williamson_tc5(grid, EARTH_GRAVITY, EARTH_OMEGA)
+    model = CovariantShallowWater(grid, gravity=EARTH_GRAVITY,
+                                  omega=EARTH_OMEGA, b_ext=b_ext)
+    step = model.make_fused_step(STEP_DT)
+    y0 = model.compact_state(model.initial_state(h_ext, v_ext))
+
+    def window():
+        y, t = y0, 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for w in range(FLIGHT_WINDOWS):
+            y, t = integrate(step, y, t, FLIGHT_K, STEP_DT)
+            flight.record("segment", step=(w + 1) * FLIGHT_K, k=FLIGHT_K)
+            flight.record("checkpoint", step=(w + 1) * FLIGHT_K)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    window()
+    with flight.disabled():
+        window()
+    ratios, ons, offs = [], [], []
+    for i in range(FLIGHT_REPEATS):
+        if i % 2 == 0:
+            on = window()
+            with flight.disabled():
+                off = window()
+        else:
+            with flight.disabled():
+                off = window()
+            on = window()
+        ons.append(on)
+        offs.append(off)
+        ratios.append(on / off)
+    overhead = (min(ratios) - 1.0) * 100.0
+    # The records' own cost, apart from the host's drift between windows.
+    rec = flight.FlightRecorder()
+    reps = 100_000
+    t0 = time.perf_counter()
+    for i in range(reps):
+        rec.record("segment", step=i, k=FLIGHT_K)
+    per_us = (time.perf_counter() - t0) / reps * 1e6
+    share = 2 * FLIGHT_WINDOWS * per_us * 1e-6 / min(offs) * 100.0
+    log(f"flight recorder on vs off: {FLIGHT_WINDOWS} segments of "
+        f"{FLIGHT_K} compact TC5 C{N} steps per window, {FLIGHT_REPEATS} "
+        f"pairs in alternating order: best on {min(ons) * 1e3:.3f} ms, off "
+        f"{min(offs) * 1e3:.3f} ms; quietest ratio {min(ratios):.5f} -> "
+        f"overhead {overhead:+.3f}% (median ratio "
+        f"{sorted(ratios)[len(ratios) // 2]:.5f}); one record "
+        f"{per_us:.3f} us of host ({reps} records), "
+        f"{2 * FLIGHT_WINDOWS} a window = {share:.4f}% of the off window; "
+        f"card {card}")
+
+
+def telemetry_paths(card: str, t_start: float) -> dict:
+    """Phases 67-74 (see the module docstring); their io in a directory
+    of the checkout's ``build/``.  Returns each kernel record's launches
+    on these paths, by record name."""
+    import os
+    import shutil
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_obs_",
+                            dir=os.path.join(here, "build"))
+    counts: dict = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    try:
+        stamp(t_start, "Simulation io off / sync / async, the metric "
+              "stream (phases 67-68)")
+        add(io_mode_paths(card, root))
+        stamp(t_start, "guards, flight bundle, resume (phase 69)")
+        add(guard_path(card, root))
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        stamp(t_start, "ensemble with telemetry (phase 71)")
+        add(ensemble_telemetry(card, root))
+        stamp(t_start, "face tier with telemetry (phase 72)")
+        add(face_telemetry(card, root))
+        stamp(t_start, "lazy metrics (phase 73)")
+        add(lazy_paths(card, root))
+        stamp(t_start, "flight recorder overhead (phase 74)")
+        flight_overhead(card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"launches on the telemetry paths (phases 67-73): {counts}")
+    return counts
+
+
 def build_kernels() -> None:
     """Phase 1's builds: every kernel library, one nvcc per source, all
     started together, with each library's ptxas lines, its PLR-MC
@@ -4775,6 +5540,7 @@ def main() -> int:
     recon_records += router_free_and_nu4_recon_paths(card, t_start)
     policy_records = policy_paths(card, t_start, grid, model, h_ext, v_ext,
                                   step, s0)
+    obs_launches = telemetry_paths(card, t_start)
     # B4's record: the classic path's six-face launches (phase 16) and the
     # face serialized tier's stacked ones (phase 32).
     rhs_record = record("cov_rhs", "jaxstream_torch/csrc/cov_rhs.cu",
@@ -4793,6 +5559,11 @@ def main() -> int:
               + pair_records + [b14, rhs_record, ext_record] + cart_records
               + [mega_record, nbr_record] + tier_records + recon_records
               + policy_records}
+    # Each kernel's launches on the telemetry paths join its own path's.
+    for rec in report["kernels"]:
+        rec["launches"] += obs_launches.pop(rec["name"], 0)
+    if obs_launches:
+        raise RuntimeError(f"telemetry launches of no record: {obs_launches}")
     log(json.dumps(report))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -49,7 +49,7 @@ class GridConfig:
     halo: int = 2                    # >=2 for PLR, >=3 for PPM
     radius: float = EARTH_RADIUS
     dtype: str = "float32"
-    metrics: str = "eager"           # 'eager' | 'lazy' (not ported yet)
+    metrics: str = "eager"           # 'eager' | 'lazy'
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,7 +111,7 @@ class TimeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class AsyncPipelineConfig:
-    """``io.async_pipeline:`` (not ported yet; refused when enabled)."""
+    """``io.async_pipeline:`` (the async host pipeline)."""
     enabled: bool = False
     max_pending_segments: int = 2
 
@@ -138,8 +138,8 @@ class EnsembleConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ObservabilityConfig:
-    """In-loop run telemetry (``interval > 0``, a ``sink`` or a
-    ``flight_dir`` is not ported yet)."""
+    """In-loop run telemetry, its sink and the flight recorder's bundle
+    directory."""
     metrics: str = "default"
     interval: int = 0
     sink: str = ""

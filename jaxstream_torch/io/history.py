@@ -14,7 +14,6 @@ ported yet.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 from typing import Dict, Optional
@@ -22,7 +21,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..geometry.cubed_sphere import CubedSphereGrid
+from ..geometry.cubed_sphere import METRIC_ATTRS, CubedSphereGrid
 from ..geometry.cubed_sphere import _np_dtype as _torch_np_dtype
 from .zarrlite import ZarrGroup, open_group
 
@@ -161,12 +160,14 @@ class HistoryWriter:
 
 
 def _grid_arrays(grid: CubedSphereGrid):
-    """The grid's array fields in declaration order — the JAX grid's
-    arrays by the same names (``device`` and ``dtype`` are not arrays)."""
-    for f in dataclasses.fields(grid):
-        v = getattr(grid, f.name)
-        if isinstance(v, torch.Tensor):
-            yield f.name, v
+    """The grid's metric arrays in :class:`CubedSphereGrid`'s declaration
+    order, the JAX grid's arrays by the same names.  A lazy grid's are
+    evaluated here, broadcast to the eager grid's shapes."""
+    for name in METRIC_ATTRS:
+        v = getattr(grid, name)
+        if tuple(v.shape[-3:]) != (6, grid.m, grid.m):
+            v = v.expand(v.shape[:-3] + (6, grid.m, grid.m))
+        yield name, v
 
 
 def geometry_matches(path: str, grid: CubedSphereGrid) -> bool:

@@ -25,8 +25,9 @@ __all__ = ["ZarrGroup", "ZarrArray", "open_group"]
 _FILL = {"f": 0.0, "i": 0, "u": 0, "b": False}
 
 
-def _atomic_write_bytes(path: str, data: bytes) -> None:
-    """Write ``path`` via a same-directory temp file + ``os.replace``.
+def _atomic_write_bytes(path: str, data) -> None:
+    """Write ``path`` (``data`` bytes-like: bytes or a C-contiguous
+    array) via a same-directory temp file + ``os.replace``.
 
     Every chunk and metadata write in this store goes through here: a
     killed process can leave a stale ``.__tmp__`` orphan but never a
@@ -157,8 +158,10 @@ class ZarrArray:
                                dtype=self.dtype)
                 full[tuple(slice(0, e) for e in block.shape)] = block
                 block = full
+            # The array's own buffer, not a bytes copy: the write then
+            # runs with the interpreter lock released.
             _atomic_write_bytes(self._chunk_file((i,) + rest),
-                                np.ascontiguousarray(block[None]).tobytes())
+                                np.ascontiguousarray(block[None]))
         if i >= self.shape[0]:
             # Grow the record axis LAST: .zarray's shape is what readers
             # trust for the record count, so a crash between the chunk

@@ -92,7 +92,8 @@ class CovariantShallowWater(SWEBase):
                  backend: str = "jnp"):
         super().__init__(grid, gravity, omega, b_ext=b_ext, scheme=scheme,
                          limiter=limiter, nu4=nu4, backend=backend)
-        self.exchange_u = make_vector_halo_exchanger(grid)
+        self.exchange_u = make_vector_halo_exchanger(
+            grid, components="covariant")
         # Cell-center inverse metric on the extended grid, g^ij = a^i . a^j.
         self.ginv_aa = torch.sum(grid.a_a * grid.a_a, dim=0)
         self.ginv_ab = torch.sum(grid.a_a * grid.a_b, dim=0)

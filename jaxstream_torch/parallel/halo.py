@@ -3,9 +3,10 @@
 Counterpart of :func:`jaxstream.parallel.halo.make_halo_exchanger`.  On
 one device every ghost cell is a copy of one interior cell of a
 neighbouring face, so the 24 directed strip copies of the JAX package
-collapse to one static gather: the index map is built once from the
-canonical strip frame (:func:`read_strip` / :func:`write_strip`, on
-numpy index arrays) and applied as ``index_select`` — the same values,
+(:func:`directed_copies`, the staged schedule flattened) collapse to one
+static gather: the index map is built once by applying those copies to
+numpy index arrays in the canonical strip frame (:func:`read_strip` /
+:func:`write_strip`) and applied as ``index_select`` — the same values,
 copied bit for bit.  The h-by-h ghost corners are then filled by
 edge-ghost averaging (:func:`_fill_corners`), as in the JAX package.
 
@@ -27,10 +28,10 @@ import numpy as np
 import torch
 
 from ..geometry.connectivity import (EDGE_E, EDGE_N, EDGE_S, EDGE_W,
-                                     build_connectivity)
+                                     build_connectivity, build_schedule)
 
 __all__ = ["canonicalize_strip", "place_strip", "read_strip", "write_strip",
-           "make_halo_exchanger", "make_concat_exchanger"]
+           "directed_copies", "make_halo_exchanger", "make_concat_exchanger"]
 
 
 def canonicalize_strip(edge: int, raw):
@@ -117,28 +118,49 @@ def _fill_corners(field: torch.Tensor, halo: int, n: int) -> torch.Tensor:
     return f
 
 
-def ghost_gather_index(n: int, halo: int, adj=None) -> np.ndarray:
-    """Flat ``(6*M*M,)`` source index of every cell after the exchange:
-    identity off the edge ghosts, the neighbour's interior cell on them."""
+def directed_copies(adj=None, schedule=None):
+    """The staged schedule flattened to a static list of directed copies
+    ``(dst_face, dst_edge, src_face, src_edge, reversed)``, in the JAX
+    package's order: the routing of the dense exchanger (and of the TT
+    tier's factored-strip exchange)."""
     adj = adj or build_connectivity()
+    schedule = schedule or build_schedule(adj)
+    copies = []
+    for stage in schedule:
+        for link, back in stage:
+            copies.append((link.face, link.edge, link.nbr_face,
+                           link.nbr_edge, link.reversed_))
+            copies.append((back.face, back.edge, back.nbr_face,
+                           back.nbr_edge, back.reversed_))
+    return copies
+
+
+def ghost_gather_index(n: int, halo: int, adj=None,
+                       schedule=None) -> np.ndarray:
+    """Flat ``(6*M*M,)`` source index of every cell after the exchange:
+    identity off the edge ghosts, the neighbour's interior cell on them
+    (the :func:`directed_copies` applied to an index field, every read
+    before every write)."""
     m = n + 2 * halo
     flat = np.arange(6 * m * m).reshape(6, m, m)
-    out = flat.copy()
-    for f in range(6):
-        for e in range(4):
-            link = adj[f][e]
-            s = read_strip(flat, link.nbr_face, link.nbr_edge, halo, n)
-            if link.reversed_:
-                s = np.flip(s, axis=-1)
-            out = write_strip(out, f, e, s)
+    copies = directed_copies(adj, schedule)
+    strips = []
+    for _, _, sf, se, rev in copies:
+        s = read_strip(flat, sf, se, halo, n)
+        strips.append(np.flip(s, axis=-1) if rev else s)
+    out = flat
+    for (df, de, _, _, _), s in zip(copies, strips):
+        out = write_strip(out, df, de, s)
     return out.reshape(-1)
 
 
-def make_halo_exchanger(n: int, halo: int,
+def make_halo_exchanger(n: int, halo: int, adj=None, schedule=None,
                         fill_corners: bool = True) -> Callable:
-    """Build ``exchange(field) -> field`` for ``(..., 6, M, M)`` tensors."""
+    """Build ``exchange(field) -> field`` for ``(..., 6, M, M)`` tensors,
+    routed by :func:`directed_copies` (``adj`` / ``schedule`` default to
+    the cube's connectivity and its staged schedule)."""
     m = n + 2 * halo
-    index = torch.from_numpy(ghost_gather_index(n, halo))
+    index = torch.from_numpy(ghost_gather_index(n, halo, adj, schedule))
     cache: dict = {}
 
     def exchange(field: torch.Tensor) -> torch.Tensor:

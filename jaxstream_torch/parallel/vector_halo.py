@@ -1,12 +1,15 @@
-"""Covariant-component vector halo exchange with panel-basis rotation.
+"""Panel-local vector halo exchange with panel-basis rotation.
 
-Counterpart of :func:`jaxstream.parallel.vector_halo.
-make_vector_halo_exchanger` with ``components='covariant'``.  A ghost
-cell's value is the neighbour's covariant pair re-expressed in the local
-panel's extended basis, ``T[i][j] = e_i^local(ghost) . a_j^nbr(src)``.
-The 2x2 rotations are computed once, in numpy from the grid's stored
-bases, exactly as the JAX package computes them; the exchange is then
-one gather, two multiply-adds and one scatter over all 24 strips.
+Counterpart of :mod:`jaxstream.parallel.vector_halo`.  A ghost cell's
+value is the neighbour's vector re-expressed in the local panel's
+extended basis: for contravariant components ``(u^a, u^b)`` the rotation
+is ``T[i][j] = a_i^local(ghost) . e_j^nbr(src)``, for covariant ones
+``(u_a, u_b)`` the two bases swap roles, ``T[i][j] = e_i^local(ghost) .
+a_j^nbr(src)``.  The 2x2 rotations are computed once, in numpy from the
+grid's bases, exactly as the JAX package computes them; the exchange is
+then one gather, two multiply-adds and one scatter over all 24 strips.
+:func:`to_contravariant` and :func:`to_cartesian` convert between the
+Cartesian ``(3, 6, M, M)`` vector and the contravariant pair.
 
 Layout: ``(2, 6, M, M)`` — component axis leading.
 """
@@ -22,7 +25,18 @@ from ..geometry.connectivity import build_connectivity
 from ..geometry.cubed_sphere import CubedSphereGrid
 from .halo import _fill_corners, read_strip, write_strip
 
-__all__ = ["make_vector_halo_exchanger"]
+__all__ = ["make_vector_halo_exchanger", "to_contravariant", "to_cartesian"]
+
+
+def to_contravariant(grid: CubedSphereGrid, v: torch.Tensor) -> torch.Tensor:
+    """Cartesian ``(3, 6, M, M)`` -> contravariant ``(2, 6, M, M)``."""
+    return torch.stack([torch.sum(v * grid.a_a, dim=0),
+                        torch.sum(v * grid.a_b, dim=0)])
+
+
+def to_cartesian(grid: CubedSphereGrid, uv: torch.Tensor) -> torch.Tensor:
+    """Contravariant ``(2, 6, M, M)`` -> Cartesian ``(3, 6, M, M)``."""
+    return uv[0][None] * grid.e_a + uv[1][None] * grid.e_b
 
 
 def _strip_indices(n: int, halo: int):
@@ -50,8 +64,13 @@ def _strip_indices(n: int, halo: int):
 
 
 def make_vector_halo_exchanger(grid: CubedSphereGrid,
-                               fill_corners: bool = True) -> Callable:
-    """Build ``exchange(u) -> u`` for covariant ``(2, 6, M, M)`` tensors."""
+                               fill_corners: bool = True,
+                               components: str = "contravariant") -> Callable:
+    """Build ``exchange(uv) -> uv`` for panel-local ``(2, 6, M, M)``
+    tensors of ``components`` ``'contravariant'`` (the JAX package's
+    default) or ``'covariant'``."""
+    if components not in ("contravariant", "covariant"):
+        raise ValueError(f"unknown components {components!r}")
     n, halo, m = grid.n, grid.halo, grid.m
     adj = build_connectivity()
     src_idx, dst_idx = _strip_indices(n, halo)
@@ -61,6 +80,8 @@ def make_vector_halo_exchanger(grid: CubedSphereGrid,
 
     e_a, e_b = flat_basis(grid.e_a), flat_basis(grid.e_b)
     a_a, a_b = flat_basis(grid.a_a), flat_basis(grid.a_b)
+    loc = (a_a, a_b) if components == "contravariant" else (e_a, e_b)
+    nbr = (e_a, e_b) if components == "contravariant" else (a_a, a_b)
 
     # The JAX package walks the copies in its staged schedule order; the
     # scatter targets are disjoint, so any order gives the same field.
@@ -73,9 +94,10 @@ def make_vector_halo_exchanger(grid: CubedSphereGrid,
                 src_flat = src_flat[:, ::-1]
             src_flat = src_flat.reshape(-1)
             dst_flat = dst_idx[link.edge]
-            al = np.stack([e_a[f, dst_flat], e_b[f, dst_flat]], axis=1)
-            en = np.stack([a_a[link.nbr_face, src_flat],
-                           a_b[link.nbr_face, src_flat]], axis=2)
+            al = np.stack([loc[0][f, dst_flat], loc[1][f, dst_flat]],
+                          axis=1)                            # (h*n, 2, 3)
+            en = np.stack([nbr[0][link.nbr_face, src_flat],
+                           nbr[1][link.nbr_face, src_flat]], axis=2)
             rots.append(al @ en)                             # (h*n, 2, 2)
             srcs.append(link.nbr_face * m * m + src_flat)
             dsts.append(f * m * m + dst_flat)

@@ -30,13 +30,24 @@ on the device the caller gives (the GPU unless it asks for the CPU).
   invariants and the ensemble's height spread.
 * ``precision:`` (stage, strips, carry) rides the single-device fused
   covariant stepper; a carry encoding wraps its prep and every exit.
+* ``grid.metrics: lazy`` builds a :class:`~.geometry.cubed_sphere.
+  LazyCubedSphereGrid` (metric terms evaluated on access).
+* ``observability:`` (``interval > 0``): each segment runs
+  :func:`~.stepping.integrate_with_metrics` (the same state operations in
+  the same order, one ``+ dt`` per call as the JAX package's
+  instrumented loop) and keeps the metric ladder in a device buffer
+  fetched once per segment; the health monitor checks it under the guard
+  policy, the sink writes the JAX package's JSONL records, and a failure
+  flushes the flight recorder into a crash bundle under ``flight_dir``.
+* ``io.async_pipeline.enabled``: segment k+1 is dispatched before segment
+  k's boundary is resolved; its copies ride a side stream and its writes
+  go to one background writer thread, in the synchronous path's order.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
 config key and ROADMAP item: the TT tier, the tiers' ensembles, a
-bfloat16 grid, lazy metrics, observability, the async pipeline, TT
-history, data assimilation and the GSPMD tier.  The capability plan (``plan_for``) is
-not ported; the rules it applies to the runs ported here are checked
-where the run is built.
+bfloat16 grid, TT history, data assimilation and the GSPMD tier.  The
+capability plan (``plan_for``) is not ported; the rules it applies to
+the runs ported here are checked where the run is built.
 """
 
 from __future__ import annotations
@@ -53,21 +64,52 @@ import torch
 from ._device import resolve_device
 from .config import Config, load_config
 from .geometry.cubed_sphere import build_grid
+from .io.async_pipeline import BackgroundWriter, HostFetch
 from .io.checkpoint import CheckpointManager
 from .io.history import HistoryWriter, save_geometry
 from .models.advection import TracerAdvection
 from .models.diffusion import ThermalDiffusion
 from .models.shallow_water import ShallowWater
+from .obs import flight
+from .obs import metrics as obs_metrics
+from .obs.monitor import HealthMonitor
+from .obs.sink import TelemetrySink, run_manifest
 from .parallel.mesh import setup_sharding, shard_state, unshard_state
 from .parallel.sharded_model import make_stepper_for
 from .physics import initial_conditions as ics
-from .stepping import integrate, jit_integrate
+from .stepping import integrate, integrate_with_metrics, jit_integrate
 from .utils import diagnostics as diag
 from .utils.logging import get_logger
 
 __all__ = ["Simulation", "run_from_config", "IC_FAMILY"]
 
 log = get_logger(__name__)
+
+#: The prognostic keys of every dense state family: what the in-loop
+#: metric functions see (a fused carry's strips are dropped first).
+_PROG_KEYS = ("h", "u", "v", "q", "T")
+
+
+class _ObsRuntime:
+    """Per-Simulation telemetry wiring (built by ``_build_obs``)."""
+
+    def __init__(self, cfg, metric_set, metric_fn, monitor, sink, ref):
+        self.cfg = cfg                  # the ObservabilityConfig block
+        self.ms = metric_set
+        self.metric_fn = metric_fn      # fn(loop_carry, t) -> (k,) tensor
+        self.monitor = monitor
+        self.sink = sink
+        self.ref = ref                  # step-0 metric values (np, (k,))
+        self.wrote_initial = False
+
+
+def _run_tasks(tasks):
+    """One async boundary's writes, in order, as ONE writer task: the
+    queue bound counts segments, and a failure aborts the boundary's
+    remaining writes."""
+    for fn, args in tasks:
+        fn(*args)
+
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -103,7 +145,7 @@ def _refuse(knob: str, item: str):
 def _refuse_unported(cfg: Config) -> None:
     """Refuse every config knob the port does not run yet, before any
     build; each message names the key and its ROADMAP item."""
-    m, par, io, o = cfg.model, cfg.parallelization, cfg.io, cfg.observability
+    m, par, io = cfg.model, cfg.parallelization, cfg.io
     if m.numerics == "tt":
         _refuse("model.numerics: tt (the factored TT tier)",
                 "queue A item 8 (A11)")
@@ -114,21 +156,6 @@ def _refuse_unported(cfg: Config) -> None:
     if cfg.grid.dtype not in _DTYPES:
         _refuse(f"grid.dtype: {cfg.grid.dtype} (grids are float32 or "
                 "float64)", "queue A item 5")
-    if cfg.grid.metrics == "lazy":
-        _refuse("grid.metrics: lazy (LazyCubedSphereGrid)",
-                "queue A item 1")
-    if o.interval > 0:
-        _refuse(f"observability.interval: {o.interval} (in-loop telemetry)",
-                "queue A item 2 (A4)")
-    if o.sink:
-        _refuse(f"observability.sink: {o.sink!r} (the telemetry sink)",
-                "queue A item 2 (A4)")
-    if o.flight_dir:
-        _refuse(f"observability.flight_dir: {o.flight_dir!r} (the flight "
-                "recorder)", "queue A item 2 (A4)")
-    if io.async_pipeline.enabled:
-        _refuse("io.async_pipeline.enabled: true (the async host pipeline)",
-                "queue A item 2 (A4)")
     if io.history_tt_rank > 0:
         _refuse(f"io.history_tt_rank: {io.history_tt_rank} (TT-compressed "
                 "history)", "queue A item 8 (A11)")
@@ -188,7 +215,7 @@ class Simulation:
             halo = max(halo, 3)
         self.grid = build_grid(cfg.grid.n, halo=halo, radius=cfg.grid.radius,
                                dtype=_DTYPES[cfg.grid.dtype],
-                               device=self.device)
+                               device=self.device, metrics=cfg.grid.metrics)
         self.t = 0.0
         self.step_count = 0
         self.setup = None
@@ -285,15 +312,31 @@ class Simulation:
         #: Host seconds spent writing history frames and checkpoints
         #: (the loop waits on them), summed over this object's runs.
         self.host_wait = 0.0
+        # The same seconds since the last telemetry record (its
+        # host_wait_s); under the async pipeline, the seconds its submits
+        # blocked.  The writer thread starts with the first async run.
+        self._host_wait = 0.0
+        self._writer: Optional[BackgroundWriter] = None
+        self._copy_stream = None
+        self._t_carry = None         # the async loop's latest dispatched t
         if io.history_stride > 0:
             save_geometry(io.history_path + ".geometry", self.grid)
             self.history = HistoryWriter(
                 io.history_path,
                 attrs={"model": mcfg.name, "ic": mcfg.initial_condition,
                        "numerics": mcfg.numerics, "members": self.members})
+        # Crash forensics: a dump-once latch, and the lineage of a resumed
+        # run (the newest committed bundle in the flight dir).
+        self._flight_dumped = False
+        self._resume_lineage: Optional[dict] = None
         if io.checkpoint_stride > 0:
             self.checkpoints = CheckpointManager(io.checkpoint_path)
             self._maybe_resume()
+            if self.step_count > 0:
+                self._resume_lineage = self._find_lineage()
+        # Telemetry last: its reference sees the resumed state, and the
+        # guard's postmortem needs the checkpoint manager.
+        self._obs = self._build_obs()
 
     # ------------------------------------------------------------------ build
     @staticmethod
@@ -393,9 +436,209 @@ class Simulation:
         return "compact" if hasattr(self.model, "compact_state") \
             else "extended"
 
+    def _build_obs(self) -> Optional[_ObsRuntime]:
+        """Wire the ``observability:`` block into this run (or None): the
+        resolved :class:`~.obs.metrics.MetricSet`, the metric function the
+        instrumented segments call, the :class:`HealthMonitor` (policy !=
+        'off'), the JSONL sink, and the step-0 reference values the drift
+        columns are measured against (the resume point on a resumed
+        run)."""
+        o = self.config.observability
+        if o.interval <= 0:
+            return None
+        tb = self.config.parallelization.temporal_block
+        if o.interval % tb:
+            raise ValueError(
+                f"observability.interval={o.interval} must be a multiple "
+                f"of parallelization.temporal_block={tb} (samples are "
+                "taken at stepper-call boundaries)")
+        # Segments are gcd(history_stride, checkpoint_stride) steps: a
+        # longer interval would leave every segment without a sample.
+        io = self.config.io
+        strides = [s for s in (io.history_stride, io.checkpoint_stride)
+                   if s > 0]
+        seg = math.gcd(*strides) if strides else 0
+        if seg and o.interval > seg:
+            raise ValueError(
+                f"observability.interval={o.interval} exceeds the "
+                f"compiled segment length {seg} (= gcd of "
+                f"io.history_stride/io.checkpoint_stride): every segment "
+                "would take zero samples and the guards could never "
+                "fire; lower the interval or raise the io strides")
+        p, tc = self.config.physics, self.config.time
+        ex = {k: v for k, v in self.state.items() if k in _PROG_KEYS}
+        # An ensemble with guards gets one non-finite row per member, so
+        # that a guard event names the offending member.
+        ms = obs_metrics.build_metric_set(
+            self.grid, self.model, ex, o.metrics, tc.dt, p.gravity,
+            member_rows=(self.members > 1 and o.guards != "off"))
+        m, setup = self.model, self.setup
+        if self._fused_step is not None:
+            post = self._fused_post
+
+            def loop_prep(y):
+                s = m.restrict_state(y)
+                return post(s) if post is not None else s
+        elif setup is not None:
+            # The tiers step the ranks' blocks: the metrics see the whole
+            # sphere, gathered once per sample.
+            def loop_prep(y):
+                return unshard_state(setup, y)
+        else:
+            def loop_prep(y):
+                return {k: v for k, v in y.items() if k in _PROG_KEYS}
+
+        def metric_fn(y, t):
+            del t
+            return ms.values(loop_prep(y))
+
+        monitor = None
+        if o.guards != "off":
+            monitor = HealthMonitor(ms.names, o.guards, o.cfl_limit,
+                                    on_breach=self._postmortem_checkpoint)
+        sink = None
+        if o.sink:
+            cfg = self.config
+            manifest = run_manifest(
+                ms.names, o.interval, o.guards,
+                config={
+                    "grid_n": cfg.grid.n, "dtype": cfg.grid.dtype,
+                    "dt": tc.dt, "scheme": tc.scheme,
+                    "initial_condition": cfg.model.initial_condition,
+                    "numerics": cfg.model.numerics,
+                    "members": self.members,
+                    "num_devices": cfg.parallelization.num_devices,
+                    "use_shard_map": cfg.parallelization.use_shard_map,
+                    "temporal_block": tb,
+                    "stepper": self.stepper_kind,
+                }, device=self.device)
+            sink = TelemetrySink(o.sink, manifest)
+            if self._resume_lineage is not None:
+                sink.write({
+                    "kind": "resume",
+                    "bundle": self._resume_lineage["bundle"],
+                    "checkpoint_step":
+                        self._resume_lineage["checkpoint_step"],
+                    "step": self.step_count,
+                    "path": self._resume_lineage["path"],
+                })
+        ref = ms.values(ex).detach().cpu().numpy()
+        log.info("observability: %d metrics every %d steps (guards=%s%s)",
+                 ms.k, o.interval, o.guards,
+                 f", sink={o.sink}" if o.sink else "")
+        return _ObsRuntime(o, ms, metric_fn, monitor, sink, ref)
+
+    def _postmortem_checkpoint(self, event=None):
+        """The 'checkpoint_and_raise' breach callback: save the current
+        (possibly corrupt) state for inspection, with the guard event's
+        ``member`` in the checkpoint's meta.  The HealthError's last-good
+        step is the restart target.  Queued background saves are drained
+        first; under the async loop ``self.state`` is the latest
+        dispatched segment's output."""
+        if self.checkpoints is None:
+            log.warning(
+                "guard policy 'checkpoint_and_raise' with no checkpoint "
+                "manager (io.checkpoint_stride is 0) — raising without "
+                "a postmortem save")
+            return
+        if self._writer is not None and self._writer.alive:
+            try:
+                self._writer.flush()
+            except Exception as e:  # the postmortem save must still run
+                log.warning("async writer flush before postmortem failed "
+                            "(%s: %s)", type(e).__name__, e)
+        # Under the async loop the state is the latest dispatched
+        # segment's, one boundary ahead of self.t.
+        t = self.t if self._t_carry is None else float(self._t_carry)
+        member = (event or {}).get("member")
+        self.checkpoints.save(self.step_count, self.state, t,
+                              meta={"postmortem": True, "member": member})
+        log.warning("guard breach: postmortem checkpoint saved at step "
+                    "%d%s", self.step_count,
+                    f" (member {member})" if member is not None else "")
+
+    # ------------------------------------------------------ crash forensics
+    def _find_lineage(self) -> Optional[dict]:
+        """The newest committed crash bundle in the flight dir, verified
+        readable: the incident this resumed run descends from.  None
+        without a flight dir or a bundle, or when the newest is torn."""
+        fdir = flight.resolve_flight_dir(self.config)
+        bdir = flight.latest_bundle(fdir) if fdir else None
+        if bdir is None:
+            return None
+        try:
+            manifest, _ = flight.read_bundle(bdir)
+        except flight.TornBundleError as e:
+            log.warning("resume: latest crash bundle %s is torn (%s); "
+                        "resuming without lineage", bdir, e)
+            return None
+        return {"bundle": manifest["bundle_id"], "path": bdir,
+                "checkpoint_step": self.step_count}
+
+    def _device_memory(self) -> Optional[dict]:
+        """The allocator's counters of the run's GPU (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        return {"bytes_in_use": torch.cuda.memory_allocated(self.device),
+                "peak_bytes_in_use":
+                    torch.cuda.max_memory_allocated(self.device),
+                "bytes_limit": torch.cuda.get_device_properties(
+                    self.device).total_memory}
+
+    def _flight_dump(self, reason: str) -> None:
+        """Flush the flight ring as an atomic crash bundle and typed
+        ``flight`` / ``crash`` sink records: once per incident, only with
+        ``observability.flight_dir``, never raising (forensics must not
+        mask the exception in flight)."""
+        if self._flight_dumped:
+            return
+        fdir = flight.resolve_flight_dir(self.config)
+        if not fdir:
+            return
+        self._flight_dumped = True
+        try:
+            cfg = self.config
+            ckpt = None
+            if self.checkpoints is not None:
+                step = self.checkpoints.latest_step()
+                if step is not None:
+                    ckpt = {"step": step, "path": self.checkpoints.path}
+            writer = flight.BundleWriter(fdir)
+            writer.commit(
+                reason,
+                config={"grid_n": cfg.grid.n, "dt": cfg.time.dt,
+                        "members": self.members,
+                        "step": self.step_count,
+                        "guards": cfg.observability.guards},
+                device_memory=self._device_memory(),
+                checkpoint=ckpt)
+            obs = self._obs
+            if obs is not None and obs.sink is not None:
+                events, threads, dropped = flight.RECORDER.dump()
+                obs.sink.write({
+                    "kind": "flight", "events": len(events),
+                    "threads": len(threads), "dropped": dropped})
+                obs.sink.write({
+                    "kind": "crash", "bundle": writer.bundle_id,
+                    "path": writer.path, "reason": reason})
+        except Exception as e:
+            log.warning("flight bundle dump failed (%s: %s)",
+                        type(e).__name__, e)
+
+    def _ensure_writer(self) -> BackgroundWriter:
+        if self._writer is None or not self._writer.alive:
+            self._writer = BackgroundWriter(
+                self.config.io.async_pipeline.max_pending_segments)
+        return self._writer
+
     def close(self):
-        """Release background resources (none yet: the async pipeline is
-        not ported).  Idempotent."""
+        """Release background resources: drain and join the async writer
+        thread, close the telemetry sink.  Idempotent."""
+        if self._writer is not None:
+            w, self._writer = self._writer, None
+            w.close()
+        if self._obs is not None and self._obs.sink is not None:
+            self._obs.sink.close()
 
     def __enter__(self):
         return self
@@ -542,7 +785,15 @@ class Simulation:
         log.info("resumed from checkpoint step %d (t=%.0f s)", step, self.t)
 
     def _build_segment_fn(self, k: int):
-        """The ``k``-step segment ``fn(y, t) -> (y, t)``."""
+        """The ``k``-step segment.
+
+        Without telemetry: ``fn(y, t) -> (y, t)``.  With
+        ``observability.interval > 0`` and at least one sample inside the
+        segment, the loop is :func:`~.stepping.integrate_with_metrics`
+        (the same state operations in the same order, one ``+ dt`` per
+        call as the JAX package's instrumented loop), with signature
+        ``fn(y, t, step0) -> (y, t, buf)`` and an ``obs_samples``
+        attribute, the buffer's column count."""
         dt = self.config.time.dt
         active = (self._fused_step if self._fused_step is not None
                   else self._step)
@@ -554,20 +805,52 @@ class Simulation:
                 f"parallelization.temporal_block={spc}; make "
                 "io.history_stride/io.checkpoint_stride and the "
                 "total step count multiples of temporal_block")
+        obs = self._obs
+        samples = every = 0
+        if obs is not None:
+            every = obs.cfg.interval // spc
+            samples = (k // spc) // every
         if self._fused_step is not None:
             m, fused, prep = self.model, self._fused_step, self._fused_prep
             post = self._fused_post or (lambda s: s)
+            if samples > 0:
+                mfn, fault = obs.metric_fn, obs.cfg.fault_step
+
+                def fn(y, t, step0, _n=k // spc, _dt=dt * spc):
+                    y_c, t, buf = integrate_with_metrics(
+                        fused, prep(y), t, _n, _dt, mfn, every, samples,
+                        step0, steps_per_call=spc, fault_step=fault)
+                    return post(m.restrict_state(y_c)), t, buf
+
+                fn.obs_samples = samples
+                return fn
 
             def fn(y, t, _k=k // spc, _dt=dt * spc):
                 y_c, t = integrate(fused, prep(y), t, _k, _dt)
                 return post(m.restrict_state(y_c)), t
 
             return fn
+        setup = self.setup
+        if samples > 0:
+            step, mfn, fault = self._step, obs.metric_fn, obs.cfg.fault_step
+            cut = ((lambda y: shard_state(setup, y)) if setup is not None
+                   else (lambda y: y))
+            glue = ((lambda y: unshard_state(setup, y)) if setup is not None
+                    else (lambda y: y))
+
+            def fn(y, t, step0, _n=k // spc, _dt=dt * spc):
+                y_l, t, buf = integrate_with_metrics(
+                    step, cut(y), t, _n, _dt, mfn, every, samples, step0,
+                    steps_per_call=spc, fault_step=fault)
+                return glue(y_l), t, buf
+
+            fn.obs_samples = samples
+            return fn
         # unroll=1 (one time add per call), as the JAX package's
         # classic segments.
         if self._classic_run is None:
             self._classic_run = jit_integrate(self._step, dt * spc, unroll=1)
-        run, setup = self._classic_run, self.setup
+        run = self._classic_run
 
         if setup is None:
             def fn(y, t, _k=k // spc):
@@ -587,9 +870,77 @@ class Simulation:
         return fn
 
     def _run_segment(self, k: int):
-        self.state, t = self._segment_fn(k)(self.state, self.t)
+        fn = self._segment_fn(k)
+        if getattr(fn, "obs_samples", 0) > 0:
+            # An instrumented segment: its metric buffer is fetched with
+            # ONE device-to-host copy, which also waits for the segment,
+            # so ``wall`` is the segment's wall time.
+            step0, t0 = self.step_count, self.t
+            wall0 = time.perf_counter()
+            self.state, t, buf = fn(self.state, self.t, step0)
+            host = obs_metrics.fetch_buffer(buf)
+            wall = time.perf_counter() - wall0
+            self.t = float(t)
+            self.step_count += k
+            self._ingest_telemetry(host, step0, t0, k, wall,
+                                   self.step_count, self.t)
+            return
+        self.state, t = fn(self.state, self.t)
         self.t = float(t)
         self.step_count += k
+
+    def _ingest_telemetry(self, host, step0: int, t0: float, k: int,
+                          wall: float, step_end: int, t_end: float,
+                          emit: Optional[Callable] = None):
+        """One fetched ``(k_metrics, samples)`` buffer -> a ``segment``
+        record and the guard check.  Sample j is global step ``step0 +
+        (j+1) * interval``.  The record goes first, so a guard's raise
+        leaves it on disk; guard events are emitted even when the policy
+        raises.  ``emit`` overrides the destination (the async pipeline
+        routes records through its writer, FIFO with the history and
+        checkpoint tasks)."""
+        obs = self._obs
+        if emit is None and obs.sink is not None:
+            emit = obs.sink.write
+        interval = obs.cfg.interval
+        names = obs.ms.names
+        samples = host.shape[1]
+        steps = step0 + interval * np.arange(1, samples + 1)
+        dt = self.config.time.dt
+        ts = t0 + interval * dt * np.arange(1, samples + 1)
+        drift = {}
+        for i, n in enumerate(names):
+            if n in obs_metrics.CONSERVED:
+                v0 = float(obs.ref[i])
+                d = float(host[i, -1]) - v0
+                drift[n] = d / abs(v0) if v0 else d
+        if emit is not None:
+            rate = k / wall if wall > 0 else float("inf")
+            chips = (self.config.parallelization.num_devices
+                     if self.setup is not None else 1)
+            host_wait, self._host_wait = self._host_wait, 0.0
+            emit({
+                "kind": "segment",
+                "step": step_end, "t": t_end, "steps": k,
+                "wall_s": wall, "steps_per_sec": rate,
+                "sim_days_per_sec_per_chip":
+                    rate * dt / 86400.0 / chips,
+                "host_wait_s": host_wait,
+                "metrics": {n: float(host[i, -1])
+                            for i, n in enumerate(names)},
+                "drift": drift,
+                "samples": {"step": steps.tolist(),
+                            **{n: host[i].tolist()
+                               for i, n in enumerate(names)}},
+            })
+        if obs.monitor is not None:
+            n0 = len(obs.monitor.events)
+            try:
+                obs.monitor.check(steps, ts, host)
+            finally:
+                if emit is not None:
+                    for ev in obs.monitor.events[n0:]:
+                        emit(ev)
 
     def _emit(self):
         if self.history is not None:
@@ -665,7 +1016,9 @@ class Simulation:
 
         Returns the final state (``self.state``).  History and
         checkpoints fire on their strides; between strides the state
-        stays on the device.
+        stays on the device.  On any exception the flight ring is
+        flushed into a crash bundle (with ``observability.flight_dir``)
+        before it propagates.
         """
         total = self.total_steps() if nsteps is None else nsteps
         start = self.step_count
@@ -677,17 +1030,46 @@ class Simulation:
         if self.step_count == 0 and self.history is not None:
             self._emit()  # record the initial condition
             self.host_wait += time.perf_counter() - wall0
-        while self.step_count < total:
-            k = (min(seg, total - self.step_count) if seg
-                 else total - self.step_count)
-            self._run_segment(k)
-            w0 = time.perf_counter()
-            if io.history_stride and self.step_count % io.history_stride == 0:
-                self._emit()
-            if (self.checkpoints is not None
-                    and self.step_count % io.checkpoint_stride == 0):
-                self.checkpoints.save(self.step_count, self.state, self.t)
-            self.host_wait += time.perf_counter() - w0
+        obs = self._obs
+        if (obs is not None and obs.sink is not None
+                and not obs.wrote_initial):
+            # The step-0 record: the drift columns' anchor, in the file.
+            obs.sink.write({
+                "kind": "segment", "step": self.step_count, "t": self.t,
+                "steps": 0, "wall_s": 0.0, "steps_per_sec": 0.0,
+                "sim_days_per_sec_per_chip": 0.0,
+                "metrics": {n: float(obs.ref[i])
+                            for i, n in enumerate(obs.ms.names)},
+                "drift": {n: 0.0 for n in obs.ms.names
+                          if n in obs_metrics.CONSERVED},
+            })
+            obs.wrote_initial = True
+        try:
+            if io.async_pipeline.enabled:
+                self._run_loop_async(total, seg, io)
+            else:
+                while self.step_count < total:
+                    k = (min(seg, total - self.step_count) if seg
+                         else total - self.step_count)
+                    self._run_segment(k)
+                    flight.record("segment", step=self.step_count, k=k)
+                    w0 = time.perf_counter()
+                    if (io.history_stride
+                            and self.step_count % io.history_stride == 0):
+                        self._emit()
+                    if (self.checkpoints is not None
+                            and self.step_count % io.checkpoint_stride == 0):
+                        self.checkpoints.save(self.step_count, self.state,
+                                              self.t)
+                        flight.record("checkpoint", step=self.step_count)
+                    waited = time.perf_counter() - w0
+                    self.host_wait += waited
+                    self._host_wait += waited
+        except BaseException as e:
+            # HealthError or any other failure: flush the black box
+            # before unwinding.
+            self._flight_dump(type(e).__name__)
+            raise
         self._synchronize()
         wall = time.perf_counter() - wall0
         ran = self.step_count - start
@@ -697,6 +1079,152 @@ class Simulation:
             ran, days, wall, days / wall if wall > 0 else float("inf"),
         )
         return self.state
+
+    # --------------------------------------------------------- async pipeline
+    def _run_loop_async(self, total: int, seg: int, io):
+        """The ``io.async_pipeline`` segment loop.
+
+        Double-buffered: segment k+1 is dispatched with segment k's
+        boundary unresolved.  The boundary's device-to-host copies (the
+        metric buffer; at a history or checkpoint boundary an on-device
+        copy of the state, a buffer of its own) were started on the side
+        stream right behind segment k, and only with segment k+1 in
+        flight does the host wait for them.  A resolved boundary hands its
+        writes to the bounded background writer as one task; at the
+        queue bound ``submit`` blocks (the backpressure: host memory stays
+        at ``max_pending_segments`` queued + 1 writing + 1 unresolved).
+        The time carry stays the segment's own scalar between segments,
+        the value the synchronous loop round-trips through ``float``.  On
+        any exception the writer is still flushed before it propagates.
+        """
+        obs = self._obs
+        writer = None
+        if (self.history is not None or self.checkpoints is not None
+                or (obs is not None and obs.sink is not None)):
+            writer = self._ensure_writer()
+        if self.device.type == "cuda" and self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        t_carry = self._t_carry = self.t
+        self._seg_anchor = time.perf_counter()
+        t_host = self.t              # resolved host time (trails one segment)
+        pending = None
+        raised = False
+        try:
+            while self.step_count < total:
+                k = (min(seg, total - self.step_count) if seg
+                     else total - self.step_count)
+                fn = self._segment_fn(k)
+                samples = getattr(fn, "obs_samples", 0)
+                step0 = self.step_count
+                buf = None
+                if samples > 0:
+                    self.state, t_carry, buf = fn(self.state, t_carry, step0)
+                else:
+                    self.state, t_carry = fn(self.state, t_carry)
+                self._t_carry = t_carry
+                self.step_count += k
+                want_hist = bool(
+                    io.history_stride
+                    and self.step_count % io.history_stride == 0
+                    and self.history is not None)
+                want_ckpt = bool(
+                    self.checkpoints is not None and io.checkpoint_stride
+                    and self.step_count % io.checkpoint_stride == 0)
+                snap = None
+                if want_hist or want_ckpt:
+                    # The boundary's snapshot is a device buffer of its
+                    # own, so nothing the next segment writes reaches the
+                    # copy in flight.
+                    snap = {k_: v.clone() for k_, v in self.state.items()}
+                b = {
+                    "k": k, "step0": step0, "step_end": self.step_count,
+                    "samples": samples, "t": float(t_carry),
+                    "buf": (HostFetch(buf, self._copy_stream)
+                            if samples > 0 else None),
+                    "state": (HostFetch(snap, self._copy_stream)
+                              if snap is not None else None),
+                    "hist": want_hist, "ckpt": want_ckpt,
+                }
+                # The double buffer: resolve the previous boundary only
+                # now, with this segment in flight (popped first, so that
+                # a raise in the resolve cannot resolve it twice).
+                prev, pending = pending, None
+                if prev is not None:
+                    t_host = self._resolve_boundary(prev, t_host, writer)
+                pending = b
+            prev, pending = pending, None
+            if prev is not None:
+                t_host = self._resolve_boundary(prev, t_host, writer)
+        except BaseException:
+            raised = True
+            # A pending boundary is computed already: the synchronous
+            # loop would have written it before the segment that raised,
+            # so land its I/O (never masking the exception in flight).
+            if pending is not None:
+                try:
+                    self._resolve_boundary(pending, t_host, writer)
+                except Exception:
+                    log.warning("could not land the in-flight boundary "
+                                "during exception unwind", exc_info=True)
+                pending = None
+            raise
+        finally:
+            self._t_carry = None
+            if writer is not None:
+                try:
+                    writer.flush()
+                except Exception:
+                    if not raised:
+                        raise
+                    log.warning("async writer flush failed during "
+                                "exception unwind", exc_info=True)
+        self.t = float(t_carry)
+
+    def _resolve_boundary(self, b, t_prev: float, writer) -> float:
+        """Resolve one dispatched segment's host copies and hand its
+        boundary writes to the background writer as ONE task, in the
+        synchronous order (segment record, guard events, history append,
+        checkpoint save).  Called with the next segment dispatched;
+        returns the boundary's host time.  A guard's raise still submits
+        the records gathered so far and skips the history and checkpoint
+        writes, as the synchronous loop does."""
+        t_host = b["t"]
+        self.t = t_host
+        now = time.perf_counter()
+        wall = now - self._seg_anchor
+        self._seg_anchor = now
+        flight.record("segment", step=b["step_end"], k=b["k"],
+                      wall_s=round(wall, 6))
+        host_state = (b["state"].resolve() if b["state"] is not None
+                      else None)
+        tasks = []
+        try:
+            if b["samples"] > 0:
+                host = b["buf"].resolve()
+                emit = None
+                obs = self._obs
+                if obs is not None and obs.sink is not None:
+                    sink_write = obs.sink.write
+
+                    def emit(rec):
+                        tasks.append((sink_write, (rec,)))
+                self._ingest_telemetry(host, b["step0"], t_prev, b["k"],
+                                       wall, b["step_end"], t_host,
+                                       emit=emit)
+            if b["hist"]:
+                tasks.append((self.history.append, (host_state, t_host)))
+            if b["ckpt"]:
+                flight.record("checkpoint", step=b["step_end"])
+                tasks.append((self.checkpoints.save,
+                              (b["step_end"], host_state, t_host)))
+        finally:
+            if tasks:
+                w0 = time.perf_counter()
+                writer.submit(_run_tasks, tasks)
+                waited = time.perf_counter() - w0
+                self.host_wait += waited
+                self._host_wait += waited
+        return t_host
 
 
 def run_from_config(source: Any, nsteps: Optional[int] = None, device=None):

@@ -231,20 +231,24 @@ def integrate_with_metrics(step: Callable, y0, t0: float, ncalls: int,
     No write reads a value back to the host: fetch ``buf`` once at the
     end.  Returns ``(y, t, buf)``.
 
-    ``metric_fn`` is evaluated once on ``y0`` for the buffer's shape and
-    dtype (the JAX package traces it abstractly).  ``step0`` is an int or
-    a device scalar.  ``fault_step >= 0`` is the testing hook: the
-    sample whose global step equals it is overwritten with NaN in the
-    stream only, the state untouched.
+    The buffer takes the first sample's shape, dtype and device; a loop
+    too short for any sample evaluates ``metric_fn`` on ``y0`` for them
+    (the JAX package traces it abstractly).  ``step0`` is an int or a
+    device scalar.  ``fault_step >= 0`` is the testing hook: the sample
+    whose global step equals it is overwritten with NaN in the stream
+    only, the state untouched.
     """
     if every < 1:
         raise ValueError(f"every must be >= 1, got {every}")
     if n_samples < 1:
         raise ValueError(f"n_samples must be >= 1, got {n_samples}")
     t = time_carry(t0)
-    vec = metric_fn(y0, t)
-    buf = torch.full((vec.shape[0], n_samples), float("nan"),
-                     dtype=vec.dtype, device=vec.device)
+    buf = None
+
+    def empty(vec):
+        return torch.full((vec.shape[0], n_samples), float("nan"),
+                          dtype=vec.dtype, device=vec.device)
+
     y = y0
     for i in range(int(ncalls)):
         y = step(y, t)
@@ -259,7 +263,11 @@ def integrate_with_metrics(step: Callable, y0, t0: float, ncalls: int,
                                   torch.full_like(vec, float("nan")), vec)
             elif g == fault_step:
                 vec = torch.full_like(vec, float("nan"))
+        if buf is None:
+            buf = empty(vec)
         buf[:, (i + 1) // every - 1] = vec.to(buf.dtype)
+    if buf is None:
+        buf = empty(metric_fn(y0, time_carry(t0)))
     return y, t, buf
 
 

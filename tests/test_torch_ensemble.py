@@ -324,7 +324,3 @@ def test_simulation_ensemble_refusals():
         Simulation({"model": {"initial_condition": "tc1"},
                     "grid": {"n": 8}, "ensemble": {"members": 2},
                     "parallelization": {"num_devices": 1}}, device="cpu")
-    cfg = _ens_cfg()
-    cfg["observability"] = {"interval": 10}
-    with pytest.raises(NotImplementedError, match="A4"):
-        Simulation(cfg, device="cpu")

@@ -1141,3 +1141,48 @@ def test_policy_nu4_and_extended_kernels_match_plain(n):
                 assert tcov.CovStageInkernel.launches == before + 1
                 for j, (x, r) in enumerate(zip(out, st.reference(*args))):
                     assert torch.equal(x, r), (limiter, j)
+
+
+@pytest.mark.gpu
+def test_host_fetch_copies_behind_the_compute_stream():
+    """The async pipeline's fetch of tensors a kernel has just been
+    enqueued to write: pinned host buffers filled on the side stream
+    after the compute stream's event, equal to a blocking copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the fetch's side stream and "
+                    "pinned buffers)")
+    from jaxstream_torch.io.async_pipeline import HostFetch
+
+    a = torch.rand(6, 384, 384, device="cuda")
+    b = torch.sqrt(a * 3.0 + 1.0)
+    f = HostFetch({"b": b, "l": [a], "t": 2.5}, torch.cuda.Stream())
+    out = f.resolve()
+    assert (out["b"] == b.cpu().numpy()).all()
+    assert (out["l"][0] == a.cpu().numpy()).all()
+    assert out["t"] == 2.5 and f.resolve() is out
+
+
+@pytest.mark.gpu
+def test_metric_segment_reads_nothing_back():
+    """A ``Simulation`` segment with telemetry on the compact stepper
+    (B1) makes no synchronizing call: the samples stay on the card until
+    the one fetch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the stage kernel has no CPU form)")
+    from jaxstream_torch.simulation import Simulation
+
+    sim = Simulation({
+        "grid": {"n": 48}, "time": {"dt": 300.0, "nsteps": 10},
+        "model": {"name": "shallow_water_cov", "initial_condition": "tc5",
+                  "backend": "pallas"},
+        "parallelization": {"num_devices": 1},
+        "observability": {"interval": 2}})
+    fn = sim._segment_fn(10)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, buf = fn(sim.state, sim.t, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert buf.shape == (sim._obs.ms.k, 5)
+    assert torch.isfinite(buf).all()

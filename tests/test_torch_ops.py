@@ -76,7 +76,8 @@ def test_covariant_vector_halo_exchange():
     rng = np.random.default_rng(2)
     u = rng.standard_normal((2, 6, tg.m, tg.m))
     a = np.asarray(jax_vhalo(jg, components="covariant")(jnp.asarray(u)))
-    b = make_vector_halo_exchanger(tg)(torch.from_numpy(u)).numpy()
+    b = make_vector_halo_exchanger(tg, components="covariant")(
+        torch.from_numpy(u)).numpy()
     assert _rel(a, b) <= F64_REL
 
 

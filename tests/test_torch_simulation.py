@@ -313,22 +313,11 @@ def test_port_checkpoint_resumes_in_jax(jax_runs, tmp_path):
     ({"ensemble": {"members": 2}, "model": {"numerics": "tt"}},
      r"model\.numerics.*queue A item 8 \(A11\)"),
     ({"grid": {"dtype": "bfloat16"}}, r"grid\.dtype.*queue A item 5"),
-    ({"grid": {"metrics": "lazy"}}, r"grid\.metrics.*queue A item 1"),
-    ({"observability": {"interval": 2}},
-     r"observability\.interval.*queue A item 2 \(A4\)"),
-    ({"observability": {"sink": "x.jsonl"}},
-     r"observability\.sink.*queue A item 2 \(A4\)"),
-    ({"observability": {"flight_dir": "fl"}},
-     r"observability\.flight_dir.*queue A item 2 \(A4\)"),
-    ({"io": {"async_pipeline": {"enabled": True}}},
-     r"io\.async_pipeline.*queue A item 2 \(A4\)"),
     ({"io": {"history_tt_rank": 4}},
      r"io\.history_tt_rank.*queue A item 8 \(A11\)"),
     ({"da": {"cycles": 1}}, r"da\.cycles.*queue A item 6 \(A7\)"),
     ({"parallelization": {"num_devices": 6}},
      r"use_shard_map: false.*queue A item 4 \(A8\)"),
-    ({"ensemble": {"members": 2}, "observability": {"interval": 2}},
-     r"observability\.interval.*queue A item 2 \(A4\)"),
     ({"parallelization": {"num_devices": 6, "use_shard_map": True},
       "model": {"name": "auto"}}, r"Cartesian shard.*queue A item 4 \(A8\)"),
     ({"parallelization": {"num_devices": 6, "use_shard_map": True},
