@@ -451,7 +451,38 @@ Phases, each fatal on failure:
 73. ``grid.metrics: lazy``: compact TC5 against eager in turns (the
     gate, the distance, steps/s), and the classic path's ms per step;
 74. the flight recorder on against ``flight.disabled()``, paired windows
-    in alternating order, the quietest ratio's overhead.
+    in alternating order, the quietest ratio's overhead;
+75. the serving stack (``jaxstream_torch.serve``): a grouped TC5
+    ``EnsembleServer`` at C384 (dt = 75 s, segments of 8 steps, buckets 1
+    and 16: B1 and B1's member fold), one segment of each bucket under
+    ``torch.cuda.set_sync_debug_mode("error")``; bench_serving's ragged
+    ladder (48 requests, lengths 24, 43, 17, 56, 37) packed (cap 16),
+    serial (cap 1) and on the static B = 16 ensemble stepper for the same
+    member-steps, in turns (packed, static, serial, static, packed):
+    every request ok, the member-steps, every
+    request bitwise packed vs serial, three bitwise their solo runs, a
+    B = 1 request bitwise ``Simulation``, ``compile_count`` unchanged
+    after warm-up; member-steps/s, packed / static, occupancy,
+    utilization, latency p50/p99, ``host_wait_s`` and host microseconds
+    per boundary; the buckets' masked segments against the bare
+    steppers in turns, and one request's state build;
+76. a mixed-orography batch (tc2, tc5, tc6, galewsky) on B4 through the
+    ``vmap_b`` bucket: one batch, each result bitwise its baked-static
+    solo run, B4 bitwise its plain version with a per-member orography
+    (the mountain and zeros), one segment under sync debug ``error``;
+    B4 launches per member-step and the member-step wall;
+77. guards: ``fault_member`` under ``evict`` (the rest of the batch
+    bitwise its solo runs) and under ``halt`` (the popped refill back at
+    the queue head, the crash bundle's open requests);
+78. the stdlib ``Gateway`` over phase 75's deployment with tracing, both
+    sinks and an ``AutoscaleController`` over (1, 4, 16), driven by
+    ``run_load`` with bench_serving_slo's trace (seed 1404, mean gap
+    0.02 s, tail alpha 1.4, lengths 16, 25, 8, 43; 32 requests): every
+    request ok or typed-shed, span coverage 1.0, the metrics scrape
+    parsed, no build after warm-up, WebSocket == HTTP == a direct
+    submission bitwise, a ``POST /v1/profile`` capture holding
+    ``serve.segment`` and the stage kernels; goodput / phase 75's packed
+    rate, p50/p99, the resizes.
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -5312,6 +5343,541 @@ def telemetry_paths(card: str, t_start: float) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phases 75-78: the serving stack (EnsembleServer, Gateway, load harness)
+# ---------------------------------------------------------------------------
+
+#: bench_serving's ragged ladder: 48 requests with distinct seeds, their
+#: lengths cycling through SERVE_LENGTHS.
+SERVE_REQUESTS = 48
+SERVE_LENGTHS = (24, 43, 17, 56, 37)
+SERVE_SEGMENT = 8
+SERVE_PACKED = 16
+#: Segments per window of the masked-vs-bare stepper comparison.
+SERVE_TIMED_SEGMENTS = 12
+#: Requests of phase 75 checked bitwise against their solo runs.
+SERVE_SOLO = (0, 7, 30)
+#: Phase 76: one request of each family, 3-5 steps.
+SERVE_MIXED = (("m-tc2", "tc2", 3), ("m-tc5", "tc5", 5),
+               ("m-tc6", "tc6", 4), ("m-gal", "galewsky", 5))
+#: Phase 78: bench_serving_slo's arrival trace, sized to the budget.
+SLO_REQUESTS = 32
+SLO_SEED = 1404
+SLO_LENGTHS = (16, 25, 8, 43)
+
+
+def serve_config(**serve) -> dict:
+    """The serving deployment of phases 75-78: C384 TC5 physics, dt = 75
+    s, backend pallas, one device."""
+    s = {"buckets": f"1,{SERVE_PACKED}", "segment_steps": SERVE_SEGMENT,
+         "queue_capacity": 64, "group_by_orography": True}
+    s.update(serve)
+    return {"grid": {"n": N, "halo": 2}, "time": {"dt": STEP_DT},
+            "model": {"name": "shallow_water_cov", "backend": "pallas",
+                      "initial_condition": "tc5"},
+            "parallelization": {"num_devices": 1},
+            "serve": s}
+
+
+def serve_ladder(tag: str, outputs_uh=SERVE_SOLO):
+    """The ragged ladder's requests (ids prefixed ``tag``)."""
+    from jaxstream_torch.serve import ScenarioRequest
+
+    return [ScenarioRequest(
+        id=f"{tag}{i}", ic="tc5",
+        nsteps=SERVE_LENGTHS[i % len(SERVE_LENGTHS)], seed=i,
+        amplitude=1e-3,
+        outputs=("h", "u") if i in outputs_uh else ("h",))
+        for i in range(SERVE_REQUESTS)]
+
+
+def served_run(srv, reqs) -> tuple:
+    """Admit ``reqs``, then drain them in a timed window (as
+    ``bench.py::bench_serving`` times ``serve()``); returns (wall seconds,
+    results, the stats' deltas)."""
+    before = dict(srv.stats)
+    srv.results.clear()
+    for r in reqs:
+        srv.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.serve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = {k: srv.stats[k] - before[k] for k in srv.stats
+             if isinstance(srv.stats[k], (int, float))}
+    return wall, dict(srv.results), delta
+
+
+def sync_free_segment(srv, bk, label: str) -> None:
+    """One masked segment of bucket ``bk`` and the start of its health
+    fetch under ``torch.cuda.set_sync_debug_mode("error")``: nothing
+    inside a segment synchronizes."""
+    import numpy as np
+
+    st = srv._warm_member_tree(bk.group)
+    carry = bk.stack([st] * bk.B)
+    rem = np.full(bk.B, SERVE_SEGMENT)
+    rem[0] = 3
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        carry, _, nf = bk.seg(carry, bk.put_rem(rem))
+        fetch = srv._fetch(nf)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    bad = fetch.resolve()
+    log(f"{label}: one segment ({SERVE_SEGMENT} steps, B={bk.B}, "
+        f"{bk.impl}) under sync debug mode 'error': no sync; non-finite "
+        f"{bad.tolist()}")
+    if bad.any():
+        raise RuntimeError(f"{label}: non-finite members")
+
+
+def serving_grouped(card: str) -> tuple:
+    """Phase 75: grouped TC5 serving at C384 on B1 (B = 1) and B1's
+    member fold (B = 16), against the static B = 16 ensemble stepper.
+    Returns (launch counts by record name, the packed member-steps/s)."""
+    import math
+
+    import numpy as np
+
+    from jaxstream_torch.ops.cuda.swe_cov import CovStageCompact
+    from jaxstream_torch.serve import EnsembleServer, ScenarioRequest
+    from jaxstream_torch.simulation import Simulation
+    from jaxstream_torch.stepping import integrate
+
+    t0 = time.perf_counter()
+    srv = EnsembleServer(serve_config())
+    warm = srv.warmup(groups=("oro",))
+    log(f"phase 75 setup: C{N} server, buckets {list(srv.buckets)} warm "
+        f"({srv.bucket_impls()}) in {time.perf_counter() - t0:.2f} s; "
+        f"compile_count {warm}")
+    for B in srv.buckets:
+        sync_free_segment(srv, srv._buckets[("oro", B)],
+                          f"serving B={B}")
+    model = srv._model("oro")
+    total = sum(r.nsteps for r in serve_ladder("x"))
+    static_steps = math.ceil(total / SERVE_PACKED)
+    members = [srv._request_state(r) for r in serve_ladder("s")
+               [:SERVE_PACKED]]
+    y16 = model.ensemble_compact_state(model.stack_ensemble(members))
+    step16 = model.make_fused_step(STEP_DT, ensemble=SERVE_PACKED)
+    integrate(step16, y16, 0.0, 2, STEP_DT)
+    rates = {"packed": [], "serial": [], "static": []}
+    counts = {"cov_stage_compact": 0, "cov_stage_members mc f32": 0}
+    runs = {}
+    for turn, mode in enumerate(("packed", "static", "serial", "static",
+                                 "packed")):
+        if mode == "static":
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            integrate(step16, y16, 0.0, static_steps, STEP_DT)
+            torch.cuda.synchronize()
+            rates[mode].append(SERVE_PACKED * static_steps
+                               / (time.perf_counter() - t1))
+            continue
+        srv.resize(SERVE_PACKED if mode == "packed" else 1)
+        CovStageCompact.launches = 0
+        wall, res, delta = served_run(srv, serve_ladder(f"{mode}{turn}-"))
+        counts["cov_stage_members mc f32" if mode == "packed"
+               else "cov_stage_compact"] += CovStageCompact.launches
+        if CovStageCompact.launches != 3 * SERVE_SEGMENT * delta["segments"]:
+            raise RuntimeError(f"serving {mode}: stage launches "
+                               f"{CovStageCompact.launches} != 3 x "
+                               f"{SERVE_SEGMENT} x {delta['segments']}")
+        if delta["member_steps"] != total or any(
+                r.status != "ok" for r in res.values()) or len(res) != \
+                SERVE_REQUESTS:
+            raise RuntimeError(f"serving {mode}: not every request ok, or "
+                               f"member-steps {delta['member_steps']} != "
+                               f"{total}")
+        rates[mode].append(total / wall)
+        lat = np.sort([r.latency_s for r in res.values()])
+        log(f"serving {mode} (cap {srv._active_max}), turn {turn}: "
+            f"{SERVE_REQUESTS} requests, {total} member-steps in "
+            f"{wall:.3f} s -> {total / wall:.1f} member-steps/s; segments "
+            f"{delta['segments']}, occupancy "
+            f"{delta['occupancy_sum'] / delta['segments']:.4f}, "
+            f"utilization {delta['utilization_sum'] / delta['segments']:.4f}"
+            f", latency p50 {np.percentile(lat, 50):.4f} s p99 "
+            f"{np.percentile(lat, 99):.4f} s, host_wait_s "
+            f"{delta['host_wait_s']:.4f}, host per boundary "
+            f"{1e6 * delta['boundary_s'] / delta['segments']:.1f} us; "
+            f"stage launches {CovStageCompact.launches}; card {card}")
+        runs[mode] = res
+    if srv.compile_count() != warm:
+        raise RuntimeError(f"serving built after warm-up: compile_count "
+                           f"{srv.compile_count()} != {warm}")
+    # Every request bitwise across the two packings, and three of them
+    # bitwise their solo runs on the unbatched fused stepper.
+    for i in range(SERVE_REQUESTS):
+        a, b = runs["packed"][f"packed4-{i}"], runs["serial"][f"serial2-{i}"]
+        for k in a.fields:
+            if a.fields[k].tobytes() != b.fields[k].tobytes():
+                raise RuntimeError(f"request {i} {k}: packed != serial")
+    step1 = model.make_fused_step(STEP_DT)
+    for i in SERVE_SOLO:
+        req = serve_ladder("solo")[i]
+        y = model.compact_state(srv._request_state(req))
+        y, _ = integrate(step1, y, 0.0, req.nsteps, STEP_DT)
+        got = runs["packed"][f"packed4-{i}"].fields
+        for k in ("h", "u"):
+            if got[k].tobytes() != y[k].cpu().numpy().tobytes():
+                raise RuntimeError(f"packed request {i} {k} differs from "
+                                   "its solo run")
+    # Where a served step's time goes: the bucket's masked segments
+    # (every slot active) against the bare stepper, in turns, and one
+    # request's state build on the host.
+    seg_us = {}
+    for label, B, bare, yb in (("B=1", 1, step1, model.compact_state(
+            members[0])), (f"B={SERVE_PACKED}", SERVE_PACKED, step16, y16)):
+        bk = srv._buckets[("oro", B)]
+        carry = bk.stack(members[:B])
+        rem = np.full(B, 10 ** 6)
+        for mode in ("masked", "bare", "bare", "masked"):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(SERVE_TIMED_SEGMENTS):
+                if mode == "masked":
+                    bk.seg(carry, bk.put_rem(rem))
+                else:
+                    integrate(bare, yb, 0.0, SERVE_SEGMENT, STEP_DT)
+            torch.cuda.synchronize()
+            seg_us.setdefault((label, mode), []).append(
+                1e6 * (time.perf_counter() - t1)
+                / (SERVE_TIMED_SEGMENTS * SERVE_SEGMENT))
+    t1 = time.perf_counter()
+    for r in serve_ladder("build")[:4]:
+        srv._member_tree(r)
+    torch.cuda.synchronize()
+    build_ms = 1e3 * (time.perf_counter() - t1) / 4
+    log("serving step, us of wall per step over "
+        f"{SERVE_TIMED_SEGMENTS} segments of {SERVE_SEGMENT} (masked, "
+        "bare, bare, masked): " + "; ".join(
+            f"{lab} {mode} " + ", ".join(f"{v:.1f}" for v in vals)
+            for (lab, mode), vals in seg_us.items())
+        + f"; one request's state build on the host {build_ms:.2f} ms; "
+        f"card {card}")
+    sim_steps = SERVE_LENGTHS[2]
+    srv.resize(1)
+    srv.results.clear()
+    srv.submit(ScenarioRequest(id="sim", ic="tc5", nsteps=sim_steps,
+                               seed=-1, outputs=("h", "u")))
+    srv.serve()
+    cfg = serve_config()
+    cfg["time"]["nsteps"] = sim_steps
+    sim = Simulation(cfg)
+    sim.run()
+    for k in ("h", "u"):
+        if srv.results["sim"].fields[k].tobytes() != \
+                sim.state[k].cpu().numpy().tobytes():
+            raise RuntimeError(f"B=1 request {k} differs from Simulation")
+    mean = {k: sum(v) / len(v) for k, v in rates.items()}
+    log(f"serving C{N} TC5 dt={STEP_DT:g} (ragged ladder {SERVE_LENGTHS}, "
+        f"{SERVE_REQUESTS} requests): member-steps/s packed B={SERVE_PACKED}"
+        f" {', '.join(f'{r:.1f}' for r in rates['packed'])}, serial B=1 "
+        f"{', '.join(f'{r:.1f}' for r in rates['serial'])}, static B="
+        f"{SERVE_PACKED} ensemble stepper "
+        f"{', '.join(f'{r:.1f}' for r in rates['static'])}; packed / static"
+        f" {mean['packed'] / mean['static']:.3f} (the JAX package's floor "
+        f"0.9), packed / serial {mean['packed'] / mean['serial']:.3f}; "
+        f"every request bitwise packed vs serial, requests {SERVE_SOLO} "
+        f"bitwise their solo runs, B=1 bitwise Simulation; compile_count "
+        f"{warm} after warm-up and after serving; card {card}")
+    srv.close()
+    return counts, mean["packed"]
+
+
+def serving_mixed(card: str) -> dict:
+    """Phase 76: a mixed-orography batch on B4 (the classic SSPRK3, each
+    member's own orography).  Returns B4's launches."""
+    from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
+    from jaxstream_torch.ops.cuda.swe_cov import CovRhs
+    from jaxstream_torch.serve import EnsembleServer, ScenarioRequest
+    from jaxstream_torch.stepping import integrate
+
+    srv = EnsembleServer(serve_config(buckets="4",
+                                      group_by_orography=False))
+    srv.warmup()
+    for _, ic, _ in SERVE_MIXED:          # the families' base fields
+        srv._ic(ic)
+    sync_free_segment(srv, srv._buckets[("any", 4)], "serving mixed B=4")
+    reqs = [ScenarioRequest(id=rid, ic=ic, nsteps=ns, seed=-1,
+                            outputs=("h", "u"))
+            for rid, ic, ns in SERVE_MIXED]
+    CovRhs.launches = 0
+    wall, res, delta = served_run(srv, reqs)
+    launches = CovRhs.launches
+    iters = SERVE_SEGMENT * delta["segments"]
+    if delta["batches"] != 1 or launches != 3 * 4 * iters:
+        raise RuntimeError(f"mixed batch: batches {delta['batches']}, B4 "
+                           f"launches {launches} != 3 x 4 x {iters}")
+    m = srv._model("any")
+    p = srv.config.physics
+    for rid, ic, ns in SERVE_MIXED:
+        b = srv._ic("tc5")[2] if ic == "tc5" else None
+        baked = CovariantShallowWater(srv.grid, gravity=p.gravity,
+                                      omega=p.omega, b_ext=b,
+                                      backend="pallas")
+        y = srv._request_state(ScenarioRequest(id=rid, ic=ic, nsteps=ns))
+        y, _ = integrate(baked.make_step(STEP_DT), y, 0.0, ns, STEP_DT)
+        for k in ("h", "u"):
+            if res[rid].fields[k].tobytes() != y[k].cpu().numpy().tobytes():
+                raise RuntimeError(f"mixed request {rid} {k} differs from "
+                                   "its baked-static solo run")
+    kern = m._pallas_rhs.kernel
+    y = srv._request_state(reqs[1])
+    h_ext, u_ext = m.fill(y["h"]), m._fill_u(y["u"])
+    max_abs = 0.0
+    for fam in ("tc5", "tc2"):
+        args = (kern.fz[:, None], h_ext, u_ext, srv._b_ext(fam)) \
+            + m._pallas_rhs.sym(u_ext)
+        max_abs = max(max_abs, check_bitwise(
+            f"B4 vs plain C{N}, per-member orography "
+            f"({'mountain' if fam == 'tc5' else 'zeros'})", kern,
+            kern.reference, args, ("dh", "du"), lambda: CovRhs.launches))
+    member_steps = delta["member_steps"]
+    log(f"serving mixed C{N} (tc2, tc5, tc6, galewsky, one batch of 4): "
+        f"{member_steps} member-steps in {wall:.3f} s, "
+        f"{1e3 * wall / member_steps:.2f} ms per member-step; B4 launches "
+        f"{launches} = 3 per member per iteration x 4 members x {iters} "
+        f"iterations, {launches / member_steps:.2f} per advanced "
+        f"member-step; each result bitwise its baked-static solo run; "
+        f"card {card}")
+    srv.close()
+    return {"cov_rhs": launches}
+
+
+def serving_guards(card: str, root: str) -> dict:
+    """Phase 77: eviction keeps the batch bitwise; halt puts the popped
+    refill back and the crash bundle names the open requests.  Returns
+    the stage launches by record name."""
+    import os
+
+    from jaxstream_torch.obs import flight
+    from jaxstream_torch.obs.monitor import HealthError
+    from jaxstream_torch.ops.cuda.swe_cov import CovStageCompact
+    from jaxstream_torch.serve import EnsembleServer, ScenarioRequest
+    from jaxstream_torch.stepping import integrate
+
+    cfg = serve_config(buckets="4", fault_member=1)
+    cfg["observability"] = {"fault_step": SERVE_SEGMENT}
+    srv = EnsembleServer(cfg)
+    srv.warmup(groups=("oro",))
+    reqs = [ScenarioRequest(id=f"e{i}", ic="tc5", nsteps=ns, seed=i,
+                            outputs=("h", "u"))
+            for i, ns in enumerate((2 * SERVE_SEGMENT, 2 * SERVE_SEGMENT,
+                                    SERVE_SEGMENT + 3))]
+    CovStageCompact.launches = 0
+    _, res, _ = served_run(srv, reqs)
+    members = CovStageCompact.launches
+    if res["e1"].status != "evicted" or res["e1"].guard_event[
+            "member"] != 1:
+        raise RuntimeError("evict: member 1 not evicted")
+    m = srv._model("oro")
+    step1 = m.make_fused_step(STEP_DT)
+    for r in (reqs[0], reqs[2]):
+        y, _ = integrate(step1, m.compact_state(srv._request_state(r)),
+                         0.0, r.nsteps, STEP_DT)
+        for k in ("h", "u"):
+            if res[r.id].fields[k].tobytes() != y[k].cpu().numpy().tobytes():
+                raise RuntimeError(f"evict: {r.id} {k} differs from its "
+                                   "solo run")
+    srv.close()
+
+    fdir = os.path.join(root, "serve_flight")
+    cfg = serve_config(buckets="2", guards="halt", fault_member=0)
+    cfg["observability"] = {"fault_step": SERVE_SEGMENT,
+                            "flight_dir": fdir}
+    srv = EnsembleServer(cfg)
+    for i, ns in enumerate((3 * SERVE_SEGMENT, SERVE_SEGMENT,
+                            SERVE_SEGMENT)):
+        srv.submit(ScenarioRequest(id=f"h{i}", ic="tc5", nsteps=ns, seed=i))
+    CovStageCompact.launches = 0
+    try:
+        srv.serve()
+    except HealthError:
+        pass
+    else:
+        raise RuntimeError("halt: no HealthError")
+    members += CovStageCompact.launches
+    manifest, _ = flight.read_bundle(flight.latest_bundle(fdir))
+    opened = manifest["open_requests"]
+    if (srv.queue.snapshot() != ["h2"]
+            or [r["id"] for r in opened["queued"]] != ["h2"]
+            or sorted(r["id"] for r in opened["in_flight"])
+            != ["h0", "h1"] or manifest["reason"] != "HealthError"):
+        raise RuntimeError(f"halt: queue {srv.queue.snapshot()}, bundle "
+                           f"{opened}")
+    srv.close()
+    log(f"serving guards C{N}: evict - member 1 evicted at step "
+        f"{res['e1'].steps_run}, members 0 and 2 bitwise their solo runs; "
+        f"halt - HealthError, the popped refill h2 back at the queue head, "
+        f"the crash bundle's open requests {opened}; card {card}")
+    return {"cov_stage_members mc f32": members}
+
+
+def serving_gateway(card: str, root: str, packed_rate: float) -> dict:
+    """Phase 78: the gateway and the load harness over phase 75's
+    deployment.  Returns the stage launches by record name."""
+    import os
+
+    import numpy as np
+
+    from jaxstream_torch.gateway import (Gateway, get_json, get_text,
+                                         post_json, protocol,
+                                         submit_streaming)
+    from jaxstream_torch.gateway.client import (final_result,
+                                                submit_websocket)
+    from jaxstream_torch.loadgen import (AutoscaleController,
+                                         AutoscalePolicy, generate_trace,
+                                         run_load)
+    from jaxstream_torch.obs.registry import parse_exposition
+    from jaxstream_torch.obs.sink import read_records
+    from jaxstream_torch.ops.cuda.swe_cov import CovStageCompact
+    from jaxstream_torch.serve import ScenarioRequest
+
+    host = "127.0.0.1"
+    serve_sink = os.path.join(root, "serve.jsonl")
+    gw_sink = os.path.join(root, "gateway.jsonl")
+    cfg = serve_config(buckets=f"1,4,{SERVE_PACKED}", trace=True,
+                       sink=serve_sink)
+    ctrl = AutoscaleController(AutoscalePolicy(
+        levels=(1, 4, SERVE_PACKED), queue_high=4, queue_low=0,
+        occ_low=0.5, patience=2, cooldown=2))
+    gw = Gateway(cfg, host=host, port=0, autoscale=ctrl, warm=False,
+                 sink=gw_sink, profile_dir=os.path.join(root, "profile"))
+    gw.warm_compiles = gw.server.warmup(groups=("oro",))
+    gw.start()
+    try:
+        CovStageCompact.launches = 0
+        trace = generate_trace(SLO_REQUESTS, seed=SLO_SEED,
+                               mean_gap_s=0.02, tail_alpha=1.4,
+                               lengths=SLO_LENGTHS,
+                               family_weights={"tc5": 1.0})
+        summary = run_load(host, gw.port, trace, time_scale=1.0,
+                           max_workers=16,
+                           sink=os.path.join(root, "loadgen.jsonl"),
+                           dt=STEP_DT, trace_spans=True,
+                           span_sinks=[serve_sink, gw_sink])
+        if not summary["accounting_exact"] or \
+                summary["spans_complete"] != 1.0:
+            raise RuntimeError(f"load harness: {summary}")
+        body = {"id": "via-http", "ic": "tc5", "nsteps": 12, "seed": 5,
+                "amplitude": 1e-3, "outputs": ["h", "u"]}
+        _, http_ev = submit_streaming(host, gw.port, body)
+        ws_ev = submit_websocket(host, gw.port, dict(body, id="via-ws"))
+        if ws_ev[-1]["fields"] != http_ev[-1]["fields"]:
+            raise RuntimeError("WebSocket fields differ from HTTP fields")
+        gw.server.submit(ScenarioRequest.from_dict(dict(body,
+                                                        id="direct")))
+        t_wait = time.perf_counter() + 120
+        while "direct" not in gw.server.results:
+            if time.perf_counter() > t_wait:
+                raise RuntimeError("direct submission: no result")
+            time.sleep(0.01)
+        direct = gw.server.results["direct"]
+        via = final_result(http_ev)
+        for k in ("h", "u"):
+            if direct.fields[k].tobytes() != via.fields[k].tobytes():
+                raise RuntimeError(f"gateway {k} differs from the direct "
+                                   "submission")
+        st, _ = post_json(host, gw.port, "/v1/profile", {"action": "start"})
+        submit_streaming(host, gw.port, dict(body, id="profiled"))
+        st2, prof = post_json(host, gw.port, "/v1/profile",
+                              {"action": "stop"})
+        with open(prof["trace"]) as fh:
+            names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+        kernels = sorted(n for n in names if "cov_stage" in n)
+        on_card = gw.server.device.type == "cuda"
+        if (st, st2) != (200, 200) or "serve.segment" not in names \
+                or (on_card and not kernels):
+            raise RuntimeError(f"profile capture: {st} {st2}, kernels "
+                               f"{kernels}")
+        # The wire's host cost of one (h, u) result: the writer thread's
+        # encode, the HTTP thread's serialization, the client's parse.
+        t1 = time.perf_counter()
+        line = json.dumps(protocol.result_event(direct))
+        t2 = time.perf_counter()
+        protocol.decode_result(json.loads(line))
+        wire_ms = (1e3 * (t2 - t1), 1e3 * (time.perf_counter() - t2),
+                   len(line) / 1e6)
+        code, _, text = get_text(host, gw.port, "/v1/metrics")
+        parsed = parse_exposition(text)
+        code2, stats = get_json(host, gw.port, "/v1/stats")
+        if code != 200 or code2 != 200 or \
+                gw.server.compile_count() != gw.warm_compiles:
+            raise RuntimeError(f"gateway: metrics {code}, stats {code2}, "
+                               f"compile_count {gw.server.compile_count()}"
+                               f" != {gw.warm_compiles}")
+    finally:
+        gw.close()
+    launches = CovStageCompact.launches
+    segs = read_records(serve_sink, kind="serve")
+    single = 3 * SERVE_SEGMENT * sum(1 for r in segs if r["bucket"] == 1)
+    if launches != 3 * SERVE_SEGMENT * len(segs):
+        raise RuntimeError(f"gateway: stage launches {launches} != 3 x "
+                           f"{SERVE_SEGMENT} x {len(segs)} segments")
+    by_bucket = {b: sum(1 for r in segs if r["bucket"] == b)
+                 for b in sorted({r["bucket"] for r in segs})}
+    log(f"gateway + load harness C{N} ({SLO_REQUESTS} requests, seed "
+        f"{SLO_SEED}, mean gap 0.02 s, tail alpha 1.4, lengths "
+        f"{SLO_LENGTHS}): completed {summary['completed']}, shed "
+        f"{summary['shed']}, errors {summary['errors']}; goodput "
+        f"{summary['goodput_member_steps_per_sec']:.1f} member-steps/s = "
+        f"{summary['goodput_member_steps_per_sec'] / packed_rate:.3f} of "
+        f"phase 75's packed rate (the JAX package's floor 0.5); latency "
+        f"p50 {summary['latency_p50_s']} s p99 {summary['latency_p99_s']} "
+        f"s; span coverage {summary['spans_complete']}; autoscale resizes "
+        f"{[(e['from_bucket'], e['to_bucket']) for e in ctrl.events]}; "
+        f"segments by bucket {by_bucket}; HTTP == WebSocket == direct "
+        f"bitwise; a profile capture holds serve.segment and {kernels}; "
+        f"metrics families {len(parsed['types'])}; one (h, u) result on "
+        f"the wire {wire_ms[2]:.2f} MB: encode + serialize "
+        f"{wire_ms[0]:.1f} ms, parse + decode {wire_ms[1]:.1f} ms of host; "
+        f"compile_count "
+        f"{gw.warm_compiles} throughout; card {card}")
+    return {"cov_stage_compact": single,
+            "cov_stage_members mc f32": launches - single}
+
+
+def serving_paths(card: str, t_start: float) -> dict:
+    """Phases 75-78 (see the module docstring); their files in a
+    directory of the checkout's ``build/``.  Returns each kernel record's
+    launches on these paths, by record name."""
+    import os
+    import shutil
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_",
+                            dir=os.path.join(here, "build"))
+    counts: dict = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    try:
+        stamp(t_start, "grouped serving on B1 and its member fold "
+              "(phase 75)")
+        c, packed_rate = serving_grouped(card)
+        add(c)
+        stamp(t_start, "mixed-orography serving on B4 (phase 76)")
+        add(serving_mixed(card))
+        stamp(t_start, "serving guards (phase 77)")
+        add(serving_guards(card, root))
+        stamp(t_start, "gateway and load harness (phase 78)")
+        add(serving_gateway(card, root, packed_rate))
+        stamp(t_start, "serving phases done")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"launches on the serving paths (phases 75-78): {counts}")
+    return counts
+
+
 def build_kernels() -> None:
     """Phase 1's builds: every kernel library, one nvcc per source, all
     started together, with each library's ptxas lines, its PLR-MC
@@ -5541,6 +6107,8 @@ def main() -> int:
     policy_records = policy_paths(card, t_start, grid, model, h_ext, v_ext,
                                   step, s0)
     obs_launches = telemetry_paths(card, t_start)
+    for k, v in serving_paths(card, t_start).items():
+        obs_launches[k] = obs_launches.get(k, 0) + v
     # B4's record: the classic path's six-face launches (phase 16) and the
     # face serialized tier's stacked ones (phase 32).
     rhs_record = record("cov_rhs", "jaxstream_torch/csrc/cov_rhs.cu",
@@ -5559,11 +6127,13 @@ def main() -> int:
               + pair_records + [b14, rhs_record, ext_record] + cart_records
               + [mega_record, nbr_record] + tier_records + recon_records
               + policy_records}
-    # Each kernel's launches on the telemetry paths join its own path's.
+    # Each kernel's launches on the telemetry and serving paths join its
+    # own path's.
     for rec in report["kernels"]:
         rec["launches"] += obs_launches.pop(rec["name"], 0)
     if obs_launches:
-        raise RuntimeError(f"telemetry launches of no record: {obs_launches}")
+        raise RuntimeError(f"telemetry/serving launches of no record: "
+                           f"{obs_launches}")
     log(json.dumps(report))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -132,3 +132,9 @@ def load(name: str) -> ctypes.CDLL:
         built = build(name)
         lib = _loaded[name] = ctypes.CDLL(str(built.path))
     return lib
+
+
+def loaded_libraries() -> frozenset:
+    """Names of the kernel libraries :func:`load` has opened in this
+    process (each is built, or found built, at its first load)."""
+    return frozenset(_loaded)

@@ -42,6 +42,7 @@ from ..ops.fv import (covariant_components, covariant_face_normal_velocity,
                       embed_interior, flux_divergence_faces, laplacian,
                       vorticity_cov)
 from ..parallel.vector_halo import make_vector_halo_exchanger
+from ..plan.rules import fail as plan_fail
 from .base import State
 from .shallow_water import SWEBase
 
@@ -53,31 +54,6 @@ __all__ = ["CovariantShallowWater", "ENSEMBLE_STATE_AXES",
 ENSEMBLE_STATE_AXES = {"h": 0, "u": 1}
 #: Ditto for the batched compact fused-stepper carry.
 ENSEMBLE_CARRY_AXES = {"h": 0, "u": 1, "strips_sn": 0, "strips_we": 0}
-
-#: The JAX package's capability-plan pointers of the fused-step refusals
-#: (``jaxstream/plan/rules.py``), raised with its ``PlanError`` text.
-_PLAN_POINTERS = {
-    "fused-ensemble-nu4": (
-        "ensemble > 0 supports nu4 = 0 only (the del^4 filter "
-        "kernels are not batched yet); run ensemble_impl='vmap' "
-        "over a nu4 stepper manually if needed"),
-    "carry-needs-single-member": (
-        "precision.carry encodings are wired for single runs "
-        "(members: 1); the batched ensemble carry stays f32"),
-    "nu4-no-carry-encoding": (
-        "carry_dtype/h_offset/u_scale/_ablate_seam are not "
-        "supported on the nu4 paths"),
-    "nu4-stage-oracle-f32": (
-        "nu4_mode='stage' is the f32 parity oracle and takes no "
-        "precision policy; use nu4_mode='split' or 'refused'"),
-}
-
-
-def plan_fail(rule: str):
-    """Raise the JAX package's refusal ``rule`` as a ``ValueError`` with
-    its message."""
-    raise ValueError(f"illegal capability plan: {_PLAN_POINTERS[rule]}")
-
 
 class CovariantShallowWater(SWEBase):
     """State ``{"h": (6, n, n), "u": (2, 6, n, n)}``, u covariant."""
@@ -253,8 +229,9 @@ class CovariantShallowWater(SWEBase):
         one-member step with ``'vmap'``) and ``precision`` (the stage
         policy of :mod:`jaxstream_torch.ops.cuda.precision`; not on the
         ``'stage'`` oracle; the extended carry takes its compute half
-        only).  Its refusals are ``ValueError``s with its messages.  One
-        difference: the JAX package builds the fused step only with
+        only).  Its refusals are the rule table's
+        (:func:`jaxstream_torch.plan.rules.fail`: a ``PlanError``, a
+        ``ValueError``, with the JAX messages).  One difference: the JAX package builds the fused step only with
         ``backend='pallas'``; the port builds it on every backend, since
         its stage wrappers launch their kernels on CUDA tensors whatever
         the classic ``rhs`` runs.

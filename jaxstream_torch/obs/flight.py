@@ -29,7 +29,7 @@ import time
 from collections import deque
 from contextlib import contextmanager
 from itertools import count
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = [
     "FlightRecorder",
@@ -41,6 +41,7 @@ __all__ = [
     "read_bundle",
     "latest_bundle",
     "resolve_flight_dir",
+    "open_request_manifest",
     "BUNDLE_MANIFEST",
     "RING_CAPACITY",
     "BUNDLE_SCHEMA_VERSION",
@@ -360,3 +361,16 @@ def resolve_flight_dir(config) -> str:
     except AttributeError:
         return ""
 
+
+
+def open_request_manifest(queued, in_flight) -> Dict[str, Any]:
+    """The bundle's open-request section: queued + in-flight request
+    ids, each with its deterministic trace id (``trace_id_for`` works
+    whether or not tracing was on — the id is a pure digest)."""
+    from . import trace as obs_trace
+
+    def rows(ids):
+        return [{"id": rid, "trace_id": obs_trace.trace_id_for(rid)}
+                for rid in ids]
+
+    return {"queued": rows(queued), "in_flight": rows(in_flight)}

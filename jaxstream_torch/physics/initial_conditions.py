@@ -20,7 +20,7 @@ from ..geometry.cubed_sphere import CubedSphereGrid, _np_dtype
 __all__ = ["solid_body_wind", "zonal_meridional_to_cartesian",
            "cosine_bell", "checkerboard", "williamson_tc2",
            "williamson_tc5", "williamson_tc6", "galewsky",
-           "perturbed_ensemble"]
+           "perturbed_ensemble", "EnsembleBasis"]
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
@@ -208,10 +208,46 @@ def perturbed_ensemble(grid: CubedSphereGrid, h_ext, members: int,
     href = float(np.mean(np.abs(h)))
     out = [h]
     for _ in range(members - 1):
-        g = rng.standard_normal((3, 3))
-        g /= np.linalg.norm(g, axis=1, keepdims=True)
-        w = rng.standard_normal(3)
-        mode = np.einsum("jk,k...->...", g * w[:, None], rhat)
-        mode /= max(float(np.abs(mode).max()), 1e-300)
-        out.append(h + amplitude * href * mode)
+        out.append(_perturbed(h, rhat, href, rng, amplitude))
     return _out(grid, np.stack(out))
+
+
+def _perturbed(h, rhat, href, rng, amplitude):
+    """One perturbed member: ``h + amplitude * href * mode`` with the next
+    draws of ``rng`` (float64)."""
+    g = rng.standard_normal((3, 3))
+    g /= np.linalg.norm(g, axis=1, keepdims=True)
+    w = rng.standard_normal(3)
+    mode = np.einsum("jk,k...->...", g * w[:, None], rhat)
+    mode /= max(float(np.abs(mode).max()), 1e-300)
+    return h + amplitude * href * mode
+
+
+class EnsembleBasis:
+    """What :func:`perturbed_ensemble` reads of one base height field,
+    kept as host float64 arrays, for building members one at a time.
+
+    The serving loop builds an incoming request's state while the device
+    runs a segment; :func:`perturbed_ensemble` would read the grid's
+    coordinates and the base field back from the device there, which
+    waits for the segment.  :meth:`member` runs the same float64
+    arithmetic on the kept arrays and puts the result on the grid's
+    device with a non-blocking copy from pinned memory.
+    """
+
+    def __init__(self, grid: CubedSphereGrid, h_ext):
+        self.grid = grid
+        self.h = _np(h_ext)
+        self.rhat = _np(grid.xyz) / grid.radius
+        self.href = float(np.mean(np.abs(self.h)))
+
+    def member(self, seed: int, amplitude: float) -> torch.Tensor:
+        """Member 1 of ``perturbed_ensemble(grid, h_ext, 2, seed,
+        amplitude)``, bitwise."""
+        arr = _perturbed(self.h, self.rhat, self.href,
+                         np.random.default_rng(seed), amplitude)
+        t = torch.from_numpy(np.ascontiguousarray(
+            arr.astype(_np_dtype(self.grid.dtype))))
+        if self.grid.device.type != "cuda":
+            return t.to(self.grid.device)
+        return t.pin_memory().to(self.grid.device, non_blocking=True)

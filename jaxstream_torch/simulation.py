@@ -369,7 +369,7 @@ class Simulation:
         segment length never changes the trajectory."""
         from .ops.cuda.precision import (encode_strips, mixed16_encoding,
                                          resolve_stage_precision)
-        from .models.shallow_water_cov import plan_fail
+        from .plan.rules import fail as plan_fail
 
         pcfg = self.config.precision
         kw = {}

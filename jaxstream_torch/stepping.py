@@ -1,7 +1,6 @@
 """Time integration.
 
-Counterpart of :mod:`jaxstream.stepping` (all but ``integrate_masked``,
-the serving loop's, which waits for the serving stack).  PyTorch runs
+Counterpart of :mod:`jaxstream.stepping`.  PyTorch runs
 eagerly, so every loop here is a Python loop that steps the state as the
 JAX package's compiled loop does and carries time as that loop carries
 it (:func:`time_carry`).  Schemes work on dicts of tensors.
@@ -16,7 +15,8 @@ import torch
 
 __all__ = ["ssprk3_step", "rk4_step", "euler_step", "make_stepper",
            "blocked", "time_carry", "integrate", "integrate_with_history",
-           "integrate_with_metrics", "vmap_ensemble", "jit_integrate",
+           "integrate_with_metrics", "integrate_masked", "vmap_ensemble",
+           "jit_integrate",
            "jit_integrate_with_history", "SCHEMES", "UNROLL"]
 
 
@@ -170,6 +170,48 @@ def vmap_ensemble(step: Callable, axes) -> Callable:
     if spc != 1:
         vstep.steps_per_call = spc
     return vstep
+
+
+def integrate_masked(step: Callable, y0, t0: float, rem0, nsteps: int,
+                     dt: float, axes):
+    """:func:`integrate` over a member-batched carry with per-member
+    run-length masking: the continuous-batching server's segment.
+
+    ``rem0`` is a ``(B,)`` integer tensor of *remaining* stepper calls
+    per member, on the carry's device; ``axes`` maps each key of ``y0``
+    to its member axis (the :func:`vmap_ensemble` convention).  Every
+    iteration steps the WHOLE batch, then ``torch.where`` on each key's
+    member axis keeps the new value only for members whose remaining
+    count is still positive: a finished member's state is frozen bit for
+    bit at its own final step while the rest of the batch drains.  A
+    member with ``rem0[i] >= nsteps`` gets ``where(True, new, old)``,
+    bitwise the unmasked loop.  ``rem`` decrements on the device, so the
+    segment reads nothing back to the host.  Time is one batch-wide
+    carry advanced by one ``+ dt`` per iteration (the JAX loop is not
+    unrolled).  The segment runs inside a ``torch.profiler``
+    ``record_function("serve.segment")`` region, the request span name
+    of :mod:`jaxstream_torch.obs.trace`, so a profile lines up with the
+    sink's spans.  Returns ``(y, t, rem)``.
+
+    The JAX package's ``sharding=`` argument (GSPMD layout constraints)
+    has no counterpart: the port has no GSPMD.
+    """
+    y = y0
+    t = time_carry(t0)
+    rem = rem0
+    with torch.profiler.record_function("serve.segment"):
+        for _ in range(int(nsteps)):
+            y2 = step(y, t)
+            active = rem > 0
+            out = {}
+            for k, new in y2.items():
+                shape = [1] * new.dim()
+                shape[axes[k]] = active.shape[0]
+                out[k] = torch.where(active.view(shape), new, y[k])
+            y = out
+            t = _add(t, dt)
+            rem = rem - active.to(rem.dtype)
+    return y, t, rem
 
 
 def _stack(snaps, like):
