@@ -125,7 +125,7 @@ Phases, each fatal on failure:
    mass drift < 1e-3, 5e-5 < max|zeta| north of 0.2 rad < 5e-4,
    max|zeta| south of -0.2 rad < 5e-6), with the filter launches checked
    against the steps and the stage launches against 3 x steps;
-9. a timed window of 1 000 split steps, its breakdown (4 routes, 3 stage
+9. a timed window of 500 split steps, its breakdown (4 routes, 3 stage
    launches, 1 filter launch, the rest), the filter bitwise against its
    plain version on the run's own state, its time (beside the earlier
    design's) against its plain version and its bound, the step's device
@@ -139,9 +139,9 @@ Phases, each fatal on failure:
 11. three re-fused steps against three split steps (<= 2e-3 of max, the
     JAX package's damp-scale budget: the two differ by one endpoint
     filter application; mass <= 1e-5);
-12. the jet to day 6 on the re-fused stepper under the same gate, with
-    the launches checked (re-fused 8 640, stage 17 280), then a timed
-    window of 1 000 steps, its breakdown (3 routes, 1 re-fused launch,
+12. the jet to day 1 on the re-fused stepper under the same gate, with
+    the launches checked (re-fused 1 440, stage 2 880), then a timed
+    window of 500 steps, its breakdown (3 routes, 1 re-fused launch,
     2 stage launches, the rest), the kernel's device time beside its
     earlier design's (``EARLIER_DEVICE_US``) and the step's device time
     as a CUDA graph, a traced window, and 300-step windows of the split
@@ -173,7 +173,7 @@ Phases, each fatal on failure:
     -2 yc (<= 1e-4), on the carry after one step and after 300 steps,
     bitwise required; then three extended steps against three compact
     steps (interiors and strips, <= 1e-6; bitwise predicted);
-18. a timed window of 1 000 extended steps with the launches checked
+18. a timed window of 500 extended steps with the launches checked
     (3 x steps), the TC5 gate, its breakdown (3 routes, 3 stage launches,
     the rest), the kernel's device time beside its earlier design's
     (``EARLIER_DEVICE_US``) and the step's device time as a CUDA graph, a
@@ -198,7 +198,7 @@ Phases, each fatal on failure:
     three steps of each fused form: in-kernel vs concat interiors
     (<= 1e-6; bitwise predicted, corners are never read), each against
     three classic steps (<= 2e-4, ``tests/test_fused_step.py:52``);
-21. the main path: 20 + 1 000 in-kernel steps of TC5 gated, the launches
+21. the main path: 20 + 500 in-kernel steps of TC5 gated, the launches
     checked against 3 x steps, the breakdown (3 routes, 3 stage launches,
     the rest), a traced window, a timed window of the concat form with
     its launches checked, its stages 1-3 bitwise against the plain
@@ -216,7 +216,7 @@ Phases, each fatal on failure:
     neighbour-read steps against three classic steps and three compact
     steps (<= 2e-4: its edge normals take the closed-form metric, not
     the routers' stored one);
-24. 20 + 1 000 neighbour-read steps of TC5 gated, the launches checked
+24. 20 + 500 neighbour-read steps of TC5 gated, the launches checked
     against 3 x steps, the breakdown (3 stage launches, the rest), the
     kernel's times against its bounds, its device time beside its earlier
     design's (``EARLIER_DEVICE_US``) and the step's device time as a CUDA
@@ -228,7 +228,7 @@ Phases, each fatal on failure:
     against three compact steps
     (<= 1e-6, ``tests/test_cov_swe.py:533``'s budget; bitwise
     predicted);
-26. 20 + 1 000 whole steps of TC5 gated, the launches checked against
+26. 20 + 500 whole steps of TC5 gated, the launches checked against
     the steps, the kernel's time against two bounds (the carry read and
     written once; the compact stepper's three stages' bytes) and beside
     its earlier design's (``EARLIER_DEVICE_US``), the step's device time
@@ -289,7 +289,7 @@ Phases, each fatal on failure:
 37. (after phase 33) for each reconstruction besides PLR-MC, its path:
     three compact steps against three steps of the kernel-backed classic
     path (``backend='pallas'``, <= 2e-4 of max), then 20 compact steps
-    (PPM: 20 + 1 000, timed, gated as phase 4), the launches of the
+    (PPM: 20 + 500, timed, gated as phase 4), the launches of the
     mode's stage (B1) and RHS (B4) instances checked;
 38. B1 in that mode as stages 1-3 and as stage 3 with y0 = -2 yc, and B4
     over six faces, against their plain versions on the TC5 state and on
@@ -299,7 +299,7 @@ Phases, each fatal on failure:
     the filter kernel (B2) bitwise against its plain version at halo 3
     on the carry after one step, with its probe; three split steps
     against three classic del^4 steps (<= 2e-3 of max, mass <= 1e-5);
-    1 000 timed steps, finite, mass drift < 1e-3, the launches checked,
+    500 timed steps, finite, mass drift < 1e-3, the launches checked,
     and B2 bitwise and timed on that carry;
 41. ``Simulation`` of TC5 as a config dict (covariant, ``backend:
     pallas``, dt = 75 s, 1 000 steps, history and checkpoints every 500
@@ -329,7 +329,7 @@ Phases, each fatal on failure:
     stepper under ``integrate`` in turns, for phase 41's configuration;
 48. for each reconstruction besides PLR-MC, Cartesian TC5 on the
     in-kernel stepper in that mode (its B11 instance): 20 steps (PPM at
-    halo 3: 20 + 1 000, timed and gated as phase 4), the launches
+    halo 3: 20 + 500, timed and gated as phase 4), the launches
     checked;
 49. its concat (B10) and classic ``backend='pallas'`` (B9) paths: 3
     steps of each and of the in-kernel stepper against 3 classic
@@ -351,7 +351,7 @@ Phases, each fatal on failure:
     steppers in that mode (B13's and B12's instances): 3 nbr steps
     against 3 classic ``backend='jnp'`` steps (<= 2e-4 of max) and 3 mega
     steps against 3 compact ones (<= 1e-6), then 20 steps of each (PPM
-    at halo 3: 20 + 1 000, timed and gated as phase 4), the launches
+    at halo 3: 20 + 500, timed and gated as phase 4), the launches
     checked;
 54. B13 as stages 1-3 and as stage 3 with y0 = -2 yc, and B12, bitwise
     against their plain versions on the TC5 carry and on the stepped
@@ -359,7 +359,7 @@ Phases, each fatal on failure:
 55. the Galewsky jet in that mode (dt = 60 s, nu4 = 1e14): 3 re-fused
     (B3) and 3 in-stage (B7 A and B) steps against 3 split steps (<= 2e-3
     of max, mass <= 1e-5), the in-stage ones against 3 classic del^4
-    steps (<= 5e-4); PPM: day 6 on the re-fused stepper under
+    steps (<= 5e-4); PPM: day 1 on the re-fused stepper under
     ``bench_galewsky``'s gate and 500 timed in-stage steps; the launches
     checked;
 56. B3 (at nu4 and at a probe's) and A (stages 1-3) bitwise against
@@ -376,13 +376,13 @@ Phases, each fatal on failure:
     one batched route): at B = 4 and B = 16 the batched launch bitwise
     against its plain version; at B = 4 each member after 3 steps bitwise
     its single-member run on cov_stage.cu's stepper;
-59. B = 16: 20 + 1 000 steps, every member under TC5's gate, the launches
+59. B = 16: 20 + 500 steps, every member under TC5's gate, the launches
     checked, member-steps/s, the step's device time as a CUDA graph, the
     idle share, the peak memory, the batched route against one member's,
     the instance's times at B = 16 and B = 4;
 60. compact TC5 at ``precision='bf16'`` (B1's bf16 instance,
     ``cov_stage_policy_bf16.cu``): bitwise on the TC5 carry and after 20 +
-    1 000 gated steps, the distance from the f32 path; the Galewsky jet
+    500 gated steps, the distance from the f32 path; the Galewsky jet
     at bf16: B2 with bf16 strips (filter and probe) and B3's bf16 instance
     bitwise, 3 split and re-fused bf16 steps against 3 f32 split steps;
 61. the re-fused bf16 jet to day 6 (the launches, B3 bitwise at day 6
@@ -392,7 +392,7 @@ Phases, each fatal on failure:
     5e-6 is missed by the bf16 policy's rounding in the JAX package's jet
     too: PERF.md, ``scripts/torch_precision_probe.py galewsky6``);
 62. the mixed16 (int16 h in 1/16 m about the mid-range, bf16 u) and bf16
-    TC5 carries: B1's policy instance bitwise on the encoded carry, 1 000
+    TC5 carries: B1's policy instance bitwise on the encoded carry, 500
     steps, TC5's gate on the decoded h (mass drift < 1e-3; for the bf16
     carry the lesser of the band ``bench.py`` documents for its leak,
     3e-2, and twice that leak's rate over the run), the times;
@@ -407,7 +407,7 @@ Phases, each fatal on failure:
     the first non-finite chunk reported (at nu4 = 1e14 twice the
     coefficient is past the explicit filter's stability limit, in the JAX
     package too, PERF.md); then at nu4 = 5e13, where the filter of two
-    steps is the single-step filter of nu4 = 1e14, to day 6 under the
+    steps is the single-step filter of nu4 = 1e14, to day 1 under the
     Galewsky gate;
 66. every other policy instance on 3 steps of its own stepper, bitwise
     against its plain version on the carry it reached, and timed: B1 and
@@ -482,7 +482,28 @@ Phases, each fatal on failure:
     parsed, no build after warm-up, WebSocket == HTTP == a direct
     submission bitwise, a ``POST /v1/profile`` capture holding
     ``serve.segment`` and the stage kernels; goodput / phase 75's packed
-    rate, p50/p99, the resizes.
+    rate, p50/p99, the resizes;
+79. the serving warm pool (``serve.warm_pool``): phase 75's deployment
+    with buckets 1, 4 and 16, server A cold on an empty pool (its
+    buckets' warm-up seconds, three entries saved), three ladder
+    requests; server B in a child process whose kernel-library
+    directory starts empty, from the pool: 0 nvcc builds, 0 table
+    builds, ``compile_count`` 0, each bucket's warm-up seconds, the three
+    results' sha256 equal to A's; one byte of an entry's payload flipped:
+    one ``corrupt`` record, a rebuild, the same sha256; a changed
+    ``time.dt`` misses;
+80. the tiers in every reconstruction besides PLR-MC (PLR none, minmod,
+    mc_sign, vanleer at halo 2, PPM at halo 3): the face tier and the
+    (6, 2, 2) block tier, serialized and overlapped, 3 steps against the
+    classic path (<= 2e-4 of max, mass < 2e-6), PPM then 5 + 50 steps
+    gated as phase 32 with steps/s, the launches counted around the
+    paths; B4's stacked instance, B5's and B6's bitwise against their
+    plain versions at the IC and on the run's state, their device
+    times, bounds and shares;
+81. face-tier del^4: the Galewsky jet (nu4 = 1e14 m^4/s, dt = 60 s) on
+    the face tier, serialized and overlapped, 3 steps against the
+    classic del^4 path (<= 5e-4 of max), then 5 + 50 steps gated
+    (finite, 8500 < h < 10800 m, mass < 2e-6) with steps/s.
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -492,6 +513,7 @@ result, without a CUDA device or without the rest of the repository.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -503,7 +525,9 @@ import torch
 STEP_DT = 75.0
 N = 384
 WARM_STEPS = 20
-TIMED_STEPS = 1000
+# The timed windows (500 since the warm pool's and the tiers' modes'
+# phases joined: the script must finish in its time limit on a slow host).
+TIMED_STEPS = 500
 PROFILED_STEPS = 50
 # Per cell per stage (jaxstream/utils/profiling.py: 137 for PLR-MC).
 FLOPS_PER_CELL = 137
@@ -589,7 +613,8 @@ EARLIER_SASS = {"cov_stage": [5624], "cov_rhs": [3472],
                 "swe_stage_inkernel": [8488, 7984],
                 "cov_stage_refused_nu4": [8904],
                 "cov_stage_nu4": [3832, 2848, 5064, 6264],
-                "cov_step_mega": [6632], "cov_stage_nbr": [7040]}
+                "cov_step_mega": [6632], "cov_stage_nbr": [7040],
+                "cov_rhs_interior": [3256], "cov_rhs_local": [3520]}
 # The tendency alone is ill-conditioned in float32 (its flux differences
 # cancel): two f32 evaluations differ by ~1e-5 of its max.
 TENDENCY_TOL = 1e-4
@@ -598,6 +623,10 @@ FUSED_VS_CLASSIC_TOL = 2e-4
 GAL_DT = 60.0
 GAL_NU4 = 1.0e14
 GAL_DAY6_STEPS = 8640
+# The runs that day 6 of another stepper already covers (the re-fused MC
+# and PPM jets, the split filter every second step) go to day 1, under
+# the same gate.
+GAL_DAY1_STEPS = 1440
 STAGE_TIMED_STEPS = 500
 PAIRED_STEPS = 300
 # The filter's increment probe: lap(lap q) in float32 cancels; the plain
@@ -658,7 +687,7 @@ TIER_TIMED_STEPS = 50
 TIER_PROFILED_STEPS = 3
 # The step-budget bisection (jaxstream_torch.experiments.nu4_bisect):
 # its two windows are BISECT_ITERS / 4 and BISECT_ITERS iterations.
-BISECT_ITERS = 500
+BISECT_ITERS = 250
 # Kernel B14 per cell: full and nofill as B (a Laplacian and the damp
 # per field, the metric terms); nolap the damp alone.
 B14_FLOPS_PER_CELL = {"full": B_FLOPS_PER_CELL, "nofill": B_FLOPS_PER_CELL,
@@ -678,10 +707,10 @@ RECON_MODES = {"none": ("plr", "none"), "minmod": ("plr", "minmod"),
                "ppm": ("ppm", "mc")}
 RECON_WARM_STEPS = 20
 # The C functions' mangled names of the mode instances (cov_stage.cu,
-# cov_rhs.cu, cov_stage_inkernel.cu, cov_stage_refused_nu4.cu,
-# cov_stage_nu4.cu's kernel A, cov_step_mega.cu, cov_stage_nbr.cu,
-# swe_rhs.cu, swe_stage.cu, swe_stage_inkernel.cu): the kernel's stem and
-# the mode.  The ptxas lines of EARLIER_PTXAS are the other functions.
+# cov_rhs.cu, cov_rhs_interior.cu, cov_rhs_local.cu,
+# cov_stage_inkernel.cu, cov_stage_refused_nu4.cu, cov_stage_nu4.cu's
+# kernel A, cov_step_mega.cu, cov_stage_nbr.cu, swe_rhs.cu, swe_stage.cu,
+# swe_stage_inkernel.cu): the kernel's stem and the mode.  The ptxas lines of EARLIER_PTXAS are the other functions.
 # The kernel of a policy library's mangled function name.
 POLICY_KERNEL = re.compile(r"\d(cov_[a-z0-9_]*kernel[a-z_]*)E")
 MODE_KERNEL = re.compile(
@@ -1227,20 +1256,20 @@ def refused_path(card: str, gal: Galewsky, ysplit) -> dict:
     gal.compare("re-fused vs split del^4", ysplit, yr, DAMP_SCALE_TOL,
                 DAMP_SCALE_MASS_TOL)
 
-    # ---- 12. main path: day 6 on the re-fused stepper, timed window -------
+    # ---- 12. main path: day 1 on the re-fused stepper, timed window -------
     Stage.launches = 0
     Refused.launches = 0
     t0 = time.perf_counter()
-    y, t = integrate(step, y0, 0.0, GAL_DAY6_STEPS, GAL_DT)
+    y, t = integrate(step, y0, 0.0, GAL_DAY1_STEPS, GAL_DT)
     torch.cuda.synchronize()
     wall6 = time.perf_counter() - t0
     launches = (Refused.launches, Stage.launches)
-    if launches != (GAL_DAY6_STEPS, 2 * GAL_DAY6_STEPS):
+    if launches != (GAL_DAY1_STEPS, 2 * GAL_DAY1_STEPS):
         raise RuntimeError(f"launches (re-fused, stage) {launches} != "
-                           f"(1 x, 2 x) {GAL_DAY6_STEPS} steps")
+                           f"(1 x, 2 x) {GAL_DAY1_STEPS} steps")
     gal.gate("re-fused", y, t,
-             f"launches re-fused {launches[0]} = {GAL_DAY6_STEPS}, stage "
-             f"{launches[1]} = 2 x {GAL_DAY6_STEPS}; {GAL_DAY6_STEPS} steps "
+             f"launches re-fused {launches[0]} = {GAL_DAY1_STEPS}, stage "
+             f"{launches[1]} = 2 x {GAL_DAY1_STEPS}; {GAL_DAY1_STEPS} steps "
              f"in {wall6:.2f} s")
     y, t, step_us = timed_window("Galewsky nu4 (re-fused)", step, y, t,
                                  TIMED_STEPS, card)
@@ -1251,7 +1280,7 @@ def refused_path(card: str, gal: Galewsky, ysplit) -> dict:
     stage_us = 1e3 * sum(event_ms(lambda: st(*a2), 200) for st in (st2, st3))
     r_ms = event_ms(lambda: route(y["strips_sn"], y["strips_we"]), 200)
     max_abs = max(max_abs, check_kernel(
-        f"re-fused kernel vs plain C{N}, day 6 + {TIMED_STEPS} steps", st1f,
+        f"re-fused kernel vs plain C{N}, day 1 + {TIMED_STEPS} steps", st1f,
         st1f.reference, a1, names, KERNEL_TOL, count, exact=True))
     timed = [time_form("re-fused stage 1", st1f, st1f.reference, a1,
                        REFUSED_FLOPS_PER_CELL, card)]
@@ -1986,7 +2015,7 @@ def cartesian_fused_path(card: str, grid, b_ext, s0, ref, cov_step,
                                "with the classic path")
     del yi, yk, ycl, oi, ok
 
-    # ---- 21. main path: 20 + 1 000 in-kernel steps, launches, gate --------
+    # ---- 21. main path: 20 + 500 in-kernel steps, launches, gate --------
     Ink.launches = 0
     y, t = integrate(step, ye, 0.0, WARM_STEPS, STEP_DT)
     torch.cuda.synchronize()
@@ -2133,7 +2162,7 @@ def nbr_path(card: str, grid, model, step_c, s0, ref_step) -> tuple:
             raise RuntimeError(f"nbr stepper disagrees with the {label} one")
     del yn, yc, ycl, out
 
-    # ---- 24. main path: 20 + 1 000 nbr steps, launches, gate --------------
+    # ---- 24. main path: 20 + 500 nbr steps, launches, gate --------------
     Stage.launches = 0
     y, t = integrate(step, ye, 0.0, WARM_STEPS, STEP_DT)
     torch.cuda.synchronize()
@@ -2221,7 +2250,7 @@ def mega_path(card: str, grid, model, step_c, s0) -> tuple:
         raise RuntimeError("mega stepper disagrees with the compact one")
     del ym, yc
 
-    # ---- 26. main path: 20 + 1 000 mega steps, launches, gate -------------
+    # ---- 26. main path: 20 + 500 mega steps, launches, gate -------------
     Mega.launches = 0
     y, t = integrate(step, yc0, 0.0, WARM_STEPS, STEP_DT)
     torch.cuda.synchronize()
@@ -2645,7 +2674,7 @@ def sharded_paths(card: str, grid, model, s0, y300, t_start) -> list:
 def recon_mode_path(card: str, mode: str) -> list:
     """Phases 37-39 for one reconstruction: TC5 at C384 in ``mode``
     (halo 3 for PPM).  Its path first: the compact stepper (20 steps; for
-    PPM 20 + 1 000, timed and gated) and 3 steps of the kernel-backed
+    PPM 20 + 500, timed and gated) and 3 steps of the kernel-backed
     classic path (``backend='pallas'``) against 3 fused steps, the
     launches counted around it; then B1 (stages 1-3, stage 3 with y0 =
     -2 yc) and B4 (six faces) bitwise against their plain versions on the
@@ -2768,7 +2797,7 @@ def ppm_galewsky_path(card: str) -> dict:
     stepper (dt = 60 s, nu4 = 1e14): B2 bitwise against its plain version
     at halo 3 on the carry after one split step, with its probe; 3 split
     steps against 3 classic del^4 steps (<= 2e-3 of max, mass <= 1e-5);
-    then 1 000 timed steps (finite, mass drift < 1e-3) with the launches
+    then 500 timed steps (finite, mass drift < 1e-3) with the launches
     checked, and B2's times there.  Returns B2's halo-3 record."""
     from jaxstream_torch.ops.cuda import swe_cov
     from jaxstream_torch.stepping import integrate
@@ -3498,7 +3527,7 @@ def fused_recon_paths(card: str, t_start: float) -> list:
 
 # Phases 53-57: every reconstruction on B13, B12, B3 and B7 A.  The PPM
 # paths run the timed and gated depth (TC5: WARM_STEPS + TIMED_STEPS on
-# nbr and mega; Galewsky: day 6 on the re-fused stepper, STAGE_TIMED_STEPS
+# nbr and mega; Galewsky: day 1 on the re-fused stepper, STAGE_TIMED_STEPS
 # on the in-stage one), the PLR modes RECON_WARM_STEPS TC5 steps and 3
 # checked Galewsky steps.
 PPM_REFUSED_SIM_STEPS = 1440
@@ -3655,7 +3684,7 @@ def nu4_mode_path(card: str, mode: str) -> list:
     the launches counted around them: 3 re-fused (B3) and 3 in-stage (B7
     A and B) steps against 3 split steps (<= 2e-3 of max, mass <= 1e-5)
     and the in-stage ones against 3 classic del^4 steps (<= 5e-4); for
-    PPM then day 6 on the re-fused stepper under its gate and
+    PPM then day 1 on the re-fused stepper under its gate and
     STAGE_TIMED_STEPS timed in-stage steps.  Then B3 (at nu4 and at the
     probe's) and A (stages 1-3) bitwise against their plain versions on
     the initial carry and the stepped ones, and their times there.
@@ -3695,17 +3724,17 @@ def nu4_mode_path(card: str, mode: str) -> list:
     ysrun, tsrun = ys, 3 * GAL_DT
     if mode == "ppm":
         t0 = time.perf_counter()
-        yrun, trun = integrate(refused, y0, 0.0, GAL_DAY6_STEPS, GAL_DT)
+        yrun, trun = integrate(refused, y0, 0.0, GAL_DAY1_STEPS, GAL_DT)
         torch.cuda.synchronize()
         wall6 = time.perf_counter() - t0
         gal.gate("re-fused, PPM", yrun, trun,
-                 f"{GAL_DAY6_STEPS} steps in {wall6:.2f} s "
-                 f"({GAL_DAY6_STEPS / wall6:.1f} steps/s)")
+                 f"{GAL_DAY1_STEPS} steps in {wall6:.2f} s "
+                 f"({GAL_DAY1_STEPS / wall6:.1f} steps/s)")
         ysrun, tsrun, _ = timed_window("Galewsky nu4 (in-stage, PPM, halo "
                                        "3)", stage, ys, tsrun,
                                        STAGE_TIMED_STEPS, card)
     launches = (Refused.launches, Pair.launches_a, Pair.launches_b)
-    nr = 3 + (GAL_DAY6_STEPS if mode == "ppm" else 0)
+    nr = 3 + (GAL_DAY1_STEPS if mode == "ppm" else 0)
     ns = 3 + (STAGE_TIMED_STEPS if mode == "ppm" else 0)
     want = (nr, 3 * ns, 3 * ns)
     log(f"del^4 {mode} paths: {nr} re-fused and {ns} in-stage steps; "
@@ -3996,7 +4025,7 @@ def ensemble_path(card: str, grid, model, h_ext, v_ext, step) -> dict:
                                    "single runs")
             del yk
             continue
-        # ---- 59. B = 16: 1 000 steps gated, rates, device, memory --------
+        # ---- 59. B = 16: 500 steps gated, rates, device, memory --------
         y, t = integrate(stepb, yb, 0.0, WARM_STEPS, STEP_DT)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4056,7 +4085,7 @@ def ensemble_path(card: str, grid, model, h_ext, v_ext, step) -> dict:
 
 def bf16_tc5_path(card: str, grid, model, s0, y_f32_at) -> list:
     """Phase 60: compact TC5 under the bf16 stage policy: B1's bf16
-    instance bitwise on the TC5 carry, 1 000 steps gated, the distance
+    instance bitwise on the TC5 carry, 500 steps gated, the distance
     from the f32 path, times.  Returns the instance's record."""
     from jaxstream_torch.ops.cuda import swe_cov
     from jaxstream_torch.ops.cuda.precision import encode_strips
@@ -4099,7 +4128,7 @@ def bf16_tc5_path(card: str, grid, model, s0, y_f32_at) -> list:
 
 
 def carry_paths(card: str, grid, model, s0) -> None:
-    """Phase 62: the mixed16 and bf16 TC5 carries, 1 000 steps each, the
+    """Phase 62: the mixed16 and bf16 TC5 carries, 500 steps each, the
     TC5 gate on the decoded h, B1's policy instance bitwise on the encoded
     carry, and its device time per launch."""
     from jaxstream_torch.ops.cuda import swe_cov
@@ -4281,23 +4310,23 @@ def bf16_galewsky_paths(card: str) -> list:
                            f"{done - INTERVAL_CHUNK_STEPS}")
         + f"; {time.perf_counter() - t0:.2f} s; card {card}")
     # At half the coefficient the filter of two steps is the single-step
-    # filter's (nu4 dt / dx^4 as at interval 1): to day 6 under the gate.
+    # filter's (nu4 dt / dx^4 as at interval 1): to day 1 under the gate.
     cyc = swe_cov.make_fused_ssprk3_cov_split_nu4(
         grid, model.gravity, model.omega, GAL_DT, model.b_ext,
         GAL_NU4 / FILTER_INTERVAL, interval=FILTER_INTERVAL)
     Stage.launches = Filter.launches = 0
     t0 = time.perf_counter()
-    y, t = integrate(cyc, dict(gal.y0, filter_k=0), 0.0, GAL_DAY6_STEPS,
+    y, t = integrate(cyc, dict(gal.y0, filter_k=0), 0.0, GAL_DAY1_STEPS,
                      GAL_DT)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = (Stage.launches, Filter.launches)
-    if got != (3 * GAL_DAY6_STEPS, GAL_DAY6_STEPS // FILTER_INTERVAL):
+    if got != (3 * GAL_DAY1_STEPS, GAL_DAY1_STEPS // FILTER_INTERVAL):
         raise RuntimeError(f"interval={FILTER_INTERVAL}: launches {got}")
     gal.gate(f"split, interval={FILTER_INTERVAL}, nu4 "
              f"{GAL_NU4 / FILTER_INTERVAL:g}", y, t,
-             f"launches (B1, B2) {got}; {GAL_DAY6_STEPS} steps in "
-             f"{wall:.2f} s ({GAL_DAY6_STEPS / wall:.1f} steps/s)")
+             f"launches (B1, B2) {got}; {GAL_DAY1_STEPS} steps in "
+             f"{wall:.2f} s ({GAL_DAY1_STEPS / wall:.1f} steps/s)")
     # ---- 61. the split bf16 jet to day 6 under the gate ---------------------
     Stage.launches = Filter.launches = 0
     t0 = time.perf_counter()
@@ -5878,6 +5907,429 @@ def serving_paths(card: str, t_start: float) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 79: the serving warm pool; phases 80-81: the tiers in every mode and
+# face-tier del^4
+# ---------------------------------------------------------------------------
+
+#: Phase 79: the buckets of the pooled deployment and its three requests
+#: (the ladder's first three lengths), each with h and u back.
+POOL_BUCKETS = "1,4,16"
+POOL_REQUESTS = 3
+
+
+def pool_config(pool: str, **over) -> dict:
+    """Phase 75's deployment with buckets 1, 4 and 16 under
+    ``serve.warm_pool``."""
+    cfg = serve_config(buckets=POOL_BUCKETS, warm_pool=pool)
+    for k, v in over.items():
+        cfg.setdefault(k, {}).update(v)
+    return cfg
+
+
+def pool_requests():
+    from jaxstream_torch.serve import ScenarioRequest
+
+    return [ScenarioRequest(id=f"w{i}", ic="tc5", nsteps=SERVE_LENGTHS[i],
+                            seed=i, amplitude=1e-3, outputs=("h", "u"))
+            for i in range(POOL_REQUESTS)]
+
+
+def pool_serve(srv) -> tuple:
+    """Warm every bucket of ``srv`` (B = 1 first, counted apart: B1's
+    instance; the member fold after) and serve :func:`pool_requests`.
+    Returns (the results' sha256 per request over h then u, launches by
+    record name)."""
+    import hashlib
+
+    from jaxstream_torch.ops.cuda.swe_cov import CovStageCompact as Stage
+
+    Stage.launches = 0
+    srv._bucket("oro", 1)
+    single = Stage.launches
+    srv.warmup(groups=("oro",))
+    for r in pool_requests():
+        srv.submit(r)
+    res = srv.serve()
+    torch.cuda.synchronize()
+    digests = {}
+    for rid, r in sorted(res.items()):
+        if r.status != "ok":
+            raise RuntimeError(f"pooled request {rid}: {r.status}")
+        digests[rid] = hashlib.sha256(
+            r.fields["h"].tobytes() + r.fields["u"].tobytes()).hexdigest()
+    return digests, {"cov_stage_compact": single,
+                     "cov_stage_members mc f32": Stage.launches - single}
+
+
+def warm_pool_child(spec_path: str) -> int:
+    """Phase 79's restarted server, in a process of its own whose library
+    directory starts empty: server B from the pool; writes its builds,
+    warm-ups, digests and launches as JSON to ``spec['out']``."""
+    from jaxstream_torch import _build
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    _build.set_build_dir(spec["build_dir"])
+    from jaxstream_torch.serve import EnsembleServer
+
+    t0 = time.perf_counter()
+    srv = EnsembleServer(pool_config(spec["pool"]))
+    digests, launches = pool_serve(srv)
+    out = {"nvcc_builds": _build.nvcc_builds,
+           "table_builds": srv.stats["table_builds"],
+           "compile_count": srv.compile_count(),
+           "warmups": srv.bucket_warmups(),
+           "summary": srv.warmpool_summary(),
+           "libraries": sorted(_build.loaded_libraries()),
+           "built_files": sorted(os.listdir(spec["build_dir"])),
+           "digests": digests, "launches": launches,
+           "wall_s": time.perf_counter() - t0}
+    srv.close()
+    with open(spec["out"], "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def warm_pool_path(card: str, root: str) -> dict:
+    """Phase 79: server A starts cold on an empty pool, saves its
+    buckets' entries and serves three ladder requests; a child process
+    whose library directory starts empty builds server B from the pool
+    (no nvcc build, no table build, compile_count 0) and serves them
+    byte-equal; one payload byte flipped gives a ``corrupt`` record, a
+    rebuild and the same digests; a changed ``time.dt`` misses.  Returns
+    the launches by record name."""
+    from jaxstream_torch import _build
+    from jaxstream_torch.obs.sink import read_records
+    from jaxstream_torch.ops.cuda.swe_cov import CovStageCompact as Stage
+    from jaxstream_torch.serve import EnsembleServer
+
+    pool = os.path.join(root, "pool")
+    counts: dict = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    srv = EnsembleServer(pool_config(pool))
+    nvcc0 = _build.nvcc_builds
+    digests, c = pool_serve(srv)
+    add(c)
+    warm_a, summary_a = srv.bucket_warmups(), srv.warmpool_summary()
+    srv.close()
+    log(f"phase 79 server A (cold pool): warm-ups {warm_a}; nvcc builds "
+        f"{_build.nvcc_builds - nvcc0} (this process built its libraries "
+        f"in phase 1); pool saves {summary_a['saves']}; card {card}")
+    if summary_a["saves"] != 3 or any(w["rung"] != "cold"
+                                      for w in warm_a.values()):
+        raise RuntimeError("server A did not save three cold buckets")
+    spec = {"pool": pool, "build_dir": os.path.join(root, "child_build"),
+            "out": os.path.join(root, "child.json")}
+    os.makedirs(spec["build_dir"])
+    with open(os.path.join(root, "child_spec.json"), "w") as fh:
+        json.dump(spec, fh)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--warm-pool-child",
+                           os.path.join(root, "child_spec.json")],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 79 child exited {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+    with open(spec["out"]) as fh:
+        child = json.load(fh)
+    add(child["launches"])
+    log(f"phase 79 server B (a child process, empty library directory, "
+        f"{time.perf_counter() - t0:.1f} s with its start): nvcc builds "
+        f"{child['nvcc_builds']}, table builds {child['table_builds']}, "
+        f"compile_count {child['compile_count']}; warm-ups "
+        f"{child['warmups']}; libraries {child['libraries']} from the pool "
+        f"({child['built_files']}); hits {child['summary']['hits']}; "
+        f"card {card}")
+    same = child["digests"] == digests
+    log(f"phase 79 results sha256, A vs B: {digests} -> "
+        f"{'equal' if same else child['digests']}")
+    if (child["nvcc_builds"] or child["table_builds"]
+            or child["compile_count"] or not same
+            or child["summary"]["hits"] != 3
+            or any(w["rung"] != "aot" for w in child["warmups"].values())):
+        raise RuntimeError("phase 79: the restart from the pool built or "
+                           "differed")
+    # One byte of the B = 4 entry's library flipped: corrupt, rebuilt.
+    b4 = None
+    for f in os.listdir(pool):
+        if f.endswith(".json") and not f.startswith("probe_"):
+            with open(os.path.join(pool, f)) as fh:
+                if json.load(fh)["plan_key"].endswith("/B4"):
+                    b4 = f[:-5]
+    payloads = sorted(f for f in os.listdir(pool)
+                      if f.startswith(b4) and not f.endswith(".json"))
+    # The member fold's library where the entry holds one, else its tables.
+    victim = os.path.join(pool, ([f for f in payloads if f.endswith(".so")]
+                                 or payloads)[0])
+    with open(victim, "r+b") as fh:
+        fh.seek(os.path.getsize(victim) // 2)
+        byte = fh.read(1)[0]
+        fh.seek(-1, os.SEEK_CUR)
+        fh.write(bytes([byte ^ 0x01]))
+    sink = os.path.join(root, "c.jsonl")
+    srv = EnsembleServer(pool_config(pool, serve={"sink": sink}))
+    digests_c, c = pool_serve(srv)
+    add(c)
+    summary_c = srv.warmpool_summary()
+    srv.close()
+    corrupt = [r for r in read_records(sink)
+               if r["kind"] == "warmpool" and r["event"] == "corrupt"]
+    log(f"phase 79 server C ({os.path.basename(victim)} one byte off): "
+        f"corrupt records {len(corrupt)} ({corrupt[0]['reason'] if corrupt else ''}), "
+        f"hits {summary_c['hits']}, saves {summary_c['saves']}; digests "
+        + ("equal" if digests_c == digests else str(digests_c)))
+    if (len(corrupt) != 1 or summary_c["saves"] != 1
+            or digests_c != digests):
+        raise RuntimeError("phase 79: the torn entry was not rebuilt the "
+                           "same")
+    srv = EnsembleServer(pool_config(pool, time={"dt": 2 * STEP_DT}))
+    before = Stage.launches
+    srv._bucket("oro", 1)
+    add({"cov_stage_compact": Stage.launches - before})
+    summary_d = srv.warmpool_summary()
+    srv.close()
+    log(f"phase 79 server D (time.dt {2 * STEP_DT:g}): hits "
+        f"{summary_d['hits']}, misses {summary_d['misses']}")
+    if summary_d["hits"] or summary_d["misses"] != 1:
+        raise RuntimeError("phase 79: a changed dt did not miss")
+    return counts
+
+
+def tier_mode_path(card: str, mode: str, grids: dict) -> tuple:
+    """Phase 80 for one reconstruction: TC5 at C384 in ``mode`` (halo 3
+    for PPM) on the face tier (6 ranks) and the (6, 2, 2) block tier (24),
+    serialized and overlapped.  The path first, its launches counted
+    around it: 3 steps of each tier against 3 classic steps (<= 2e-4 of
+    max, mass < 2e-6), and for PPM then 5 + 50 steps of each, gated as
+    phase 32; then B4's stacked instance, B5's and B6's bitwise against
+    their plain versions at the IC and on the face serialized run's
+    state, and timed there.  Returns (the B5 and B6 records, B4's
+    launches)."""
+    from jaxstream_torch.config import EARTH_GRAVITY, EARTH_OMEGA
+    from jaxstream_torch.models.shallow_water_cov import CovariantShallowWater
+    from jaxstream_torch.ops.cuda import swe_cov
+    from jaxstream_torch.parallel.mesh import shard_state, unshard_state
+    from jaxstream_torch.parallel.sharded_model import make_stepper_for
+    from jaxstream_torch.stepping import integrate
+
+    Rhs, Core, Local = swe_cov.CovRhs, swe_cov.CovRhsInterior, \
+        swe_cov.CovRhsLocal
+    scheme, limiter = RECON_MODES[mode]
+    grid, h_ext, v_ext, b_ext = grids[3 if scheme == "ppm" else 2]
+    model = CovariantShallowWater(grid, gravity=EARTH_GRAVITY,
+                                  omega=EARTH_OMEGA, b_ext=b_ext,
+                                  scheme=scheme, limiter=limiter)
+    s0 = model.initial_state(h_ext, v_ext)
+    ycl, _ = integrate(model.make_step(STEP_DT), s0, 0.0, 3, STEP_DT)
+    area = grid.interior(grid.area).double()
+    mass0 = float((area * s0["h"].double()).sum())
+
+    # ---- the mode's tier paths, their launches counted around them ------
+    Rhs.launches = Core.launches = Local.launches = 0
+    nsteps = 3 + (TIER_WARM_STEPS + TIER_TIMED_STEPS if mode == "ppm"
+                  else 0)
+    runs = {}
+    for tiles, overlap in ((1, False), (1, True), (2, False), (2, True)):
+        tier = ("face" if tiles == 1 else "block") + (
+            " overlapped" if overlap else " serialized")
+        setup = tier_setup(tiles, overlap)
+        step = make_stepper_for(model, setup, None, STEP_DT)
+        y, t = integrate(step, shard_state(setup, s0), 0.0, 3, STEP_DT)
+        out = runs[tier] = unshard_state(setup, y)
+        errs = {k: rel_err(ycl[k], out[k]) for k in ("h", "u")}
+        drift = abs(float((area * out["h"].double()).sum()) - mass0) / mass0
+        log(f"{mode} {tier} tier vs classic C{N}, 3 steps: max rel diff h "
+            f"{errs['h']:.3e}, u {errs['u']:.3e} (tol "
+            f"{TIER_VS_CLASSIC_TOL:g}); mass drift {drift:.3e} (tol "
+            f"{TIER_MASS_TOL:g})")
+        if max(errs.values()) > TIER_VS_CLASSIC_TOL or drift > TIER_MASS_TOL:
+            raise RuntimeError(f"{mode} {tier} tier outside its budget")
+        if mode == "ppm":
+            y, t = integrate(step, y, t, TIER_WARM_STEPS, STEP_DT)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, t = integrate(step, y, t, TIER_TIMED_STEPS, STEP_DT)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            tc5_gate(f"PPM {tier} tier", grid, s0,
+                     unshard_state(setup, y)["h"], t / 86400.0)
+            log(f"main path C{N} TC5 PPM (halo 3) {tier} tier "
+                f"({setup.num_devices} virtual ranks): {TIER_TIMED_STEPS} "
+                f"steps in {wall:.3f} s -> {TIER_TIMED_STEPS / wall:.1f} "
+                f"steps/s, {wall / TIER_TIMED_STEPS * 1e6:.1f} us/step; card "
+                f"{card}")
+    launches = (Rhs.launches, Core.launches, Local.launches)
+    if launches != (3 * nsteps, 6 * nsteps, 3 * nsteps):
+        raise RuntimeError(f"{mode} tiers: launches (B4, B5, B6) {launches}"
+                           f" != (3, 6, 3) x {nsteps}")
+    log(f"{mode} tier paths: {nsteps} steps each; launches B4 stacked "
+        f"{launches[0]}, B5 {launches[1]}, B6 {launches[2]}")
+
+    # ---- 80. B4 stacked, B5 and B6 vs plain at the IC and on the run ----
+    consts = (grid.halo, grid.dalpha, grid.radius, model.gravity,
+              model.omega)
+    kw = dict(scheme=scheme, limiter=limiter)
+    nl = N // 2
+    face_core = swe_cov.make_cov_rhs_interior_local(N, *consts, **kw)
+    block_core = swe_cov.make_cov_rhs_interior_local(nl, *consts, **kw)
+    block_rhs = swe_cov.make_cov_rhs_pallas_local(nl, *consts, **kw)
+    one = swe_cov.make_cov_rhs_pallas(grid, model.gravity, model.omega,
+                                      n_faces=1, external_sym=True, **kw)
+    if {k.mode for k in (face_core, block_core, block_rhs, one)} != {mode}:
+        raise RuntimeError(f"{mode}: a tier kernel is in another mode")
+    max_b4 = max_b5 = max_b6 = 0.0
+    forms = {}
+    for label, st in (("TC5 state", s0),
+                      ("after 3 face-tier steps", runs["face serialized"])):
+        _, _, b5, rhs, _, b5s, b4s = tier_operands(model, st, 1)
+        max_b5 = max(max_b5, check_stacked(
+            f"B5 {mode} stacked vs plain C{N}, 6 faces, {label}", face_core,
+            b5s, b5)[0])
+        max_b4 = max(max_b4, check_stacked(
+            f"B4 {mode} stacked vs plain C{N}, 6 faces, {label}", one, b4s,
+            rhs)[0])
+        _, _, b5b, rhsb, _, b5sb, b6s = tier_operands(model, st, 2)
+        max_b6 = max(max_b6, check_stacked(
+            f"B6 {mode} stacked vs plain C{N}, 24 blocks, {label}",
+            block_rhs, b6s, rhsb)[0])
+        max_b5 = max(max_b5, check_stacked(
+            f"B5 {mode} stacked vs plain C{N}, 24 block cores, {label}",
+            block_core, b5sb, b5b)[0])
+        forms = {"b5": b5s, "b4": b4s, "b5b": b5sb, "b6": b6s}
+    h = grid.halo
+    ni, nbi = N - 2 * h, nl - 2 * h
+    timed_b5 = [
+        time_form(f"B5 {mode} stacked, face tier", face_core.stacked,
+                  face_core.stacked_reference, forms["b5"], FLOPS_PER_CELL,
+                  card, 6 * ni * ni, read=stacked_read(forms["b5"])),
+        time_form(f"B5 {mode} stacked, block tier", block_core.stacked,
+                  block_core.stacked_reference, forms["b5b"],
+                  FLOPS_PER_CELL, card, 24 * nbi * nbi,
+                  read=stacked_read(forms["b5b"]))]
+    timed_b6 = [time_form(f"B6 {mode} stacked, block tier",
+                          block_rhs.stacked, block_rhs.stacked_reference,
+                          forms["b6"], FLOPS_PER_CELL, card, 24 * nl * nl,
+                          read=stacked_read(forms["b6"]))]
+    timed_b4 = [time_form(f"B4 {mode} stacked, face tier", one.stacked,
+                          one.stacked_reference, forms["b4"],
+                          FLOPS_PER_CELL, card, 6 * N * N,
+                          read=stacked_read(forms["b4"]))]
+    # B4's stacked form is the instance of B4's own record for the mode
+    # (phase 37): logged here, its launches join that record.
+    mode_record("cov_rhs", f"{mode} stacked",
+                "jaxstream/ops/pallas/swe_cov.py:508", launches[0], max_b4,
+                timed_b4, card)
+    return ([mode_record("cov_rhs_interior", mode,
+                         "jaxstream/ops/pallas/swe_cov.py:733", launches[1],
+                         max_b5, timed_b5, card),
+             mode_record("cov_rhs_local", mode,
+                         "jaxstream/ops/pallas/swe_cov.py:610", launches[2],
+                         max_b6, timed_b6, card)],
+            {f"cov_rhs {mode}": launches[0]})
+
+
+def face_nu4_path(card: str) -> dict:
+    """Phase 81: the Galewsky jet (nu4 = 1e14 m^4/s, dt = 60 s) on the
+    face tier, serialized and overlapped: 3 steps against 3 classic del^4
+    steps (<= 5e-4 of max, the JAX package's budget), then 5 + 50 steps
+    gated (finite, Galewsky's h range, mass < 2e-6) and timed.  Returns
+    the launches by record name (B4 serialized, B5 overlapped)."""
+    from jaxstream_torch.ops.cuda import swe_cov
+    from jaxstream_torch.parallel.mesh import shard_state, unshard_state
+    from jaxstream_torch.parallel.sharded_model import make_stepper_for
+    from jaxstream_torch.stepping import integrate
+
+    Rhs, Core = swe_cov.CovRhs, swe_cov.CovRhsInterior
+    gal = Galewsky()
+    yc, _ = integrate(gal.model.make_step(GAL_DT), gal.s0, 0.0, 3, GAL_DT)
+    Rhs.launches = Core.launches = 0
+    for overlap in (False, True):
+        form = "overlapped" if overlap else "serialized"
+        setup = tier_setup(1, overlap)
+        step = make_stepper_for(gal.model, setup, None, GAL_DT)
+        y, t = integrate(step, shard_state(setup, gal.s0), 0.0, 3, GAL_DT)
+        gal.compare(f"face tier del^4 ({form}) vs classic del^4",
+                    yc, unshard_state(setup, y), STAGE_VS_CLASSIC_TOL,
+                    TIER_MASS_TOL)
+        y, t = integrate(step, y, t, TIER_WARM_STEPS, GAL_DT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, t = integrate(step, y, t, TIER_TIMED_STEPS, GAL_DT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        h = unshard_state(setup, y)["h"].double()
+        drift = gal.drift(h)
+        hmin, hmax = float(h.min()), float(h.max())
+        ok = (bool(torch.isfinite(h).all()) and 8500.0 < hmin
+              and hmax < 10800.0 and drift < TIER_MASS_TOL)
+        log(f"gate Galewsky C{N} nu4 face tier ({form}, 6 virtual ranks) "
+            f"after {3 + TIER_WARM_STEPS + TIER_TIMED_STEPS} steps: h_range="
+            f"[{hmin:.1f}, {hmax:.1f}] (in (8500, 10800)) mass_drift="
+            f"{drift:.3e} (<{TIER_MASS_TOL:g}); {TIER_TIMED_STEPS} steps in "
+            f"{wall:.3f} s -> {TIER_TIMED_STEPS / wall:.1f} steps/s, "
+            f"{wall / TIER_TIMED_STEPS * 1e6:.1f} us/step; card {card} -> "
+            + ("passed" if ok else "FAILED"))
+        if not ok:
+            raise RuntimeError(f"face tier del^4 ({form}): gate failed")
+    n = 3 + TIER_WARM_STEPS + TIER_TIMED_STEPS
+    if (Rhs.launches, Core.launches) != (3 * n, 3 * n):
+        raise RuntimeError(f"face tier del^4 launches (B4, B5) "
+                           f"{(Rhs.launches, Core.launches)} != 3 x {n}")
+    return {"cov_rhs": Rhs.launches, "cov_rhs_interior": Core.launches}
+
+
+def pool_and_tier_paths(card: str, t_start: float) -> tuple:
+    """Phases 79-81; their files in a directory of the checkout's
+    ``build/``.  Returns (the tier mode records, the launches by record
+    name)."""
+    import shutil
+    import tempfile
+
+    from jaxstream_torch.config import (EARTH_GRAVITY, EARTH_OMEGA,
+                                        EARTH_RADIUS)
+    from jaxstream_torch.geometry.cubed_sphere import build_grid
+    from jaxstream_torch.physics.initial_conditions import williamson_tc5
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_pool_",
+                            dir=os.path.join(here, "build"))
+    counts: dict = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    try:
+        stamp(t_start, "the serving warm pool (phase 79)")
+        add(warm_pool_path(card, root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    grids = {}
+    for halo in (2, 3):
+        g = build_grid(N, halo=halo, radius=EARTH_RADIUS,
+                       dtype=torch.float32)
+        grids[halo] = (g,) + williamson_tc5(g, EARTH_GRAVITY, EARTH_OMEGA)
+    records = []
+    for mode in RECON_MODES:
+        stamp(t_start, f"the tiers in {mode} (phase 80)")
+        recs, c = tier_mode_path(card, mode, grids)
+        records += recs
+        add(c)
+    del grids
+    stamp(t_start, "face-tier del^4 (phase 81)")
+    add(face_nu4_path(card))
+    stamp(t_start, "phases 79-81 done")
+    log(f"launches on phases 79-81: {counts}")
+    return records, counts
+
+
 def build_kernels() -> None:
     """Phase 1's builds: every kernel library, one nvcc per source, all
     started together, with each library's ptxas lines, its PLR-MC
@@ -5928,6 +6380,8 @@ def build_kernels() -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--warm-pool-child"]:
+        return warm_pool_child(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on "
               "the GPU", file=sys.stderr)
@@ -6109,6 +6563,10 @@ def main() -> int:
     obs_launches = telemetry_paths(card, t_start)
     for k, v in serving_paths(card, t_start).items():
         obs_launches[k] = obs_launches.get(k, 0) + v
+    tier_mode_records, pool_tier_launches = pool_and_tier_paths(card,
+                                                                t_start)
+    for k, v in pool_tier_launches.items():
+        obs_launches[k] = obs_launches.get(k, 0) + v
     # B4's record: the classic path's six-face launches (phase 16) and the
     # face serialized tier's stacked ones (phase 32).
     rhs_record = record("cov_rhs", "jaxstream_torch/csrc/cov_rhs.cu",
@@ -6126,14 +6584,14 @@ def main() -> int:
     report = {"kernels": [stage_record, filter_record, refused_record]
               + pair_records + [b14, rhs_record, ext_record] + cart_records
               + [mega_record, nbr_record] + tier_records + recon_records
-              + policy_records}
+              + policy_records + tier_mode_records}
     # Each kernel's launches on the telemetry and serving paths join its
     # own path's.
     for rec in report["kernels"]:
         rec["launches"] += obs_launches.pop(rec["name"], 0)
     if obs_launches:
-        raise RuntimeError(f"telemetry/serving launches of no record: "
-                           f"{obs_launches}")
+        raise RuntimeError(f"telemetry/serving/tier launches of no "
+                           f"record: {obs_launches}")
     log(json.dumps(report))
     log(card)
     log(json.dumps({"ok": True, "device": {

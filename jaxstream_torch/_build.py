@@ -12,16 +12,18 @@ imported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional, Set
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -78,6 +80,11 @@ class Built:
 
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: How many libraries ``nvcc`` built in this process.
+nvcc_builds = 0
+_count_lock = threading.Lock()
+# Per thread: the set that :func:`recording` collects library names in.
+_recorder = threading.local()
 
 
 def nvcc_path() -> str:
@@ -94,7 +101,9 @@ def nvcc_path() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def target_path(name: str) -> Path:
+    """Where kernel ``name``'s library is (or will be) built: in
+    :data:`BUILD_DIR`, named by the digest of the sources and flags."""
     # The key covers the shared headers and the other sources too: every
     # kernel includes the headers, and a policy library another source.
     sources = [CSRC_DIR / KERNELS[name]] + sorted(CSRC_DIR.glob("*.cuh")) \
@@ -104,10 +113,41 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 
+def sources_digest() -> str:
+    """The digest of every source and header under ``csrc/`` and the nvcc
+    flags: what every library's build depends on."""
+    sources = sorted(CSRC_DIR.glob("*.cuh")) + sorted(CSRC_DIR.glob("*.cu"))
+    key = hashlib.sha256(b"".join(s.name.encode() + s.read_bytes()
+                                  for s in sources)
+                         + " ".join(NVCC_FLAGS).encode())
+    return key.hexdigest()[:16]
+
+
+def set_build_dir(path) -> None:
+    """Build into and load from ``path`` from now on (a shared library
+    directory: the serving warm pool's ``compile_cache`` rung)."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect, in the yielded set, the name of every library this thread
+    asks :func:`load` for inside the block (a launch asks each time)."""
+    prev = getattr(_recorder, "names", None)
+    names: Set[str] = set()
+    _recorder.names = names
+    try:
+        yield names
+    finally:
+        _recorder.names = prev
+
+
 def build(name: str) -> Built:
     """Build kernel ``name`` with ``nvcc`` unless its library exists.
     Raises if the build fails."""
-    target = _target(name)
+    global nvcc_builds
+    target = target_path(name)
     if target.exists():
         return Built(name, target, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -115,6 +155,8 @@ def build(name: str) -> Built:
     os.close(fd)
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / KERNELS[name])]
     t0 = time.perf_counter()
+    with _count_lock:
+        nvcc_builds += 1
     proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
@@ -127,6 +169,9 @@ def build(name: str) -> Built:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
+    names: Optional[Set[str]] = getattr(_recorder, "names", None)
+    if names is not None:
+        names.add(name)
     lib = _loaded.get(name)
     if lib is None:
         built = build(name)

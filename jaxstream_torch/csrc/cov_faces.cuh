@@ -434,8 +434,7 @@ struct StageMetric {
 // apron A (Plr::A = 2, Ppm::A = 3), u_a and u_b with a 1-deep one (the
 // momentum terms reconstruct nothing; tile cell (y, x) at h[y + A][A +
 // x], ua[y + 1][WOFF + x]), and the orography on the band (cell (ly, lx)
-// as in StageMetric).  StageWindow, PLR-MC's, is what the kernels that
-// take no other mode (B5, B6) stage.
+// as in StageMetric).  StageWindow is PLR-MC's.
 template <class R>
 struct StageWindowR {
   using Recon = R;
@@ -835,7 +834,7 @@ struct RanksParams {
   float R2, gravity, two_omega, inv2d, inv_d;
 };
 
-// R is h's face-state policy (B4's modes; the block kernels take PLR-MC).
+// R is h's face-state policy (every mode of B4, B5 and B6).
 template <class R>
 struct RanksSmemR {
   StageWindowR<R> w[2];   // this rank's window and the next one's
@@ -844,13 +843,18 @@ struct RanksSmemR {
 };
 using RanksSmem = RanksSmemR<PlrMc>;
 
-// Issues the copies of rank r's window into w (no commit).
+// Issues the copies of rank r's window into w (no commit): h with R's
+// apron (PLR-MC's is the 2-deep window these kernels staged before they
+// took modes).
+template <class R>
 __device__ __forceinline__ void stage_rank_window(const RanksParams& p,
-                                                  StageWindow& w, int r,
+                                                  StageWindowR<R>& w, int r,
                                                   int j0, int i0) {
+  constexpr int A = R::A;
   const int n = p.n, hh = p.halo, m = n + 2 * hh;
   const float* u = p.u + r * p.su;
-  stage_frame<FTY + 4, 2>(&w.h[0][0], p.h + r * p.sh, n, hh, j0 - 2, i0);
+  stage_frame<FTY + 2 * A, A, FTX + 2 * A, A>(&w.h[0][0], p.h + r * p.sh, n,
+                                              hh, j0 - A, i0);
   stage_frame<FTY + 2, 1>(&w.ua[0][0], u, n, hh, j0 - 1, i0);
   stage_frame<FTY + 2, 1>(&w.ub[0][0], u + (long)m * m, n, hh, j0 - 1, i0);
   stage_band(w.b, p.b + r * p.sb, n, hh, j0, i0);
@@ -858,10 +862,11 @@ __device__ __forceinline__ void stage_rank_window(const RanksParams& p,
 
 // The ranks of group g on the tile at (j0, i0): the group's metric terms
 // once, then each rank's tile from its window while the next rank's is
-// staged.
-template <Seam S>
-__device__ __forceinline__ void rhs_group(const RanksParams& p, RanksSmem& sm,
-                                          int g, int j0, int i0) {
+// staged; h's face states by policy R.
+template <Seam S, class R = PlrMc>
+__device__ __forceinline__ void rhs_group(const RanksParams& p,
+                                          RanksSmemR<R>& sm, int g, int j0,
+                                          int i0) {
   const int n = p.n, hh = p.halo, m = n + 2 * hh;
   const long nn = (long)n * n;
   const StageConsts k{p.R2, p.gravity, p.two_omega, p.inv2d, p.inv_d};
@@ -890,7 +895,7 @@ __device__ __forceinline__ void rhs_group(const RanksParams& p, RanksSmem& sm,
     }
     __syncthreads();   // this rank's window (and, first, mt) complete
 
-    const StageWindow& w = sm.w[cur];
+    const StageWindowR<R>& w = sm.w[cur];
     SymRows sym{nullptr, nullptr, nullptr, nullptr, 0};
     if (S == Seam::Frame) {
       const float* sn = p.sym_sn + 2L * r * n;

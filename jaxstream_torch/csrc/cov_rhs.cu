@@ -56,7 +56,7 @@
 // one C entry point per mode (cov_rhs_<mode>_f32; PLR-MC keeps
 // cov_rhs_kernel and cov_rhs_f32).  PPM stages h with a 3-deep apron
 // (73 632 B of dynamic shared memory, still 3 blocks per SM).  The face
-// tier launches PLR-MC only: the tiers take no other mode yet.
+// tier's stacked form launches the same instances.
 
 #include "cov_faces.cuh"
 

@@ -40,6 +40,13 @@
 // blocks on the face tier, 6 x 8 x 8 = 384 on the block tier, one wave at
 // 3 blocks per SM (72 576 B of dynamic shared memory,
 // __launch_bounds__(256, 3)).
+//
+// Modes.  h's face states follow the launch's reconstruction, as B4's:
+// one kernel and one C entry point per policy of cov_common.cuh
+// (cov_rhs_interior_<mode>_f32; PLR-MC keeps cov_rhs_interior_kernel and
+// cov_rhs_interior_f32).  PPM stages h with a 3-deep apron (73 632 B,
+// still 3 blocks per SM) and needs halo >= 3, whose ring is then the
+// stencil halo of the core.
 
 #include "cov_faces.cuh"
 
@@ -54,12 +61,52 @@ using namespace cov;
 // first and the other would launch without its shared memory attribute.
 struct Params : RanksParams {};
 
+template <class R>
+__device__ __forceinline__ void interior_block(const Params& p) {
+  extern __shared__ float smem_raw[];
+  RanksSmemR<R>& sm = *reinterpret_cast<RanksSmemR<R>*>(smem_raw);
+  rhs_group<Seam::None, R>(p, sm, blockIdx.z, blockIdx.y * FTY,
+                           blockIdx.x * FTX);
+}
+
+// One kernel per reconstruction; PLR-MC's keeps its name.
 __global__ void __launch_bounds__(NT, 3)
 cov_rhs_interior_kernel(const Params p) {
-  extern __shared__ float smem_raw[];
-  RanksSmem& sm = *reinterpret_cast<RanksSmem*>(smem_raw);
-  rhs_group<Seam::None>(p, sm, blockIdx.z, blockIdx.y * FTY,
-                         blockIdx.x * FTX);
+  interior_block<PlrMc>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_rhs_interior_kernel_none(const Params p) {
+  interior_block<Plr<SlopeNone>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_rhs_interior_kernel_minmod(const Params p) {
+  interior_block<Plr<SlopeMinmod>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_rhs_interior_kernel_mc_sign(const Params p) {
+  interior_block<Plr<SlopeMcSign>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_rhs_interior_kernel_vanleer(const Params p) {
+  interior_block<Plr<SlopeVanleer>>(p);
+}
+__global__ void __launch_bounds__(NT, 3)
+cov_rhs_interior_kernel_ppm(const Params p) {
+  interior_block<Ppm>(p);
+}
+
+// Launches kernel (the instance of policy R) over ngroups groups.
+template <class R>
+int launch(void (*kernel)(Params), const Params& p, int ngroups,
+           void* stream) {
+  const int rc = dynamic_smem_limit<R>(kernel, sizeof(RanksSmemR<R>));
+  if (rc != 0) return rc;
+  const int ni = p.n;
+  const dim3 grid((ni + FTX - 1) / FTX, (ni + FTY - 1) / FTY, ngroups);
+  const dim3 block(BX, BY);
+  const size_t smem = sizeof(RanksSmemR<R>);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -69,23 +116,30 @@ cov_rhs_interior_kernel(const Params p) {
 // the launch (0 = ok).  Tensors float32 (groups int32) in the layouts of
 // cov::RanksParams with n = ni = the block's n - 2 halo > 0; h, u and b
 // with rank strides sh, su and sb, each rank's block contiguous.
-extern "C" int cov_rhs_interior_f32(
-    const float* fz, const float* xr, const float* xfr, const float* yc,
-    const float* yfc, const int* groups, const float* h_int,
-    const float* u_int, const float* b_int, float* dh, float* du,
-    long long sh, long long su, long long sb, int ni, int halo, int ngroups,
-    float R2, float gravity, float two_omega, float inv2d, float inv_d,
-    void* stream) {
-  const Params p{{fz, xr, xfr, yc, yfc, groups, h_int, u_int,
-                  b_int, nullptr, nullptr, dh, du, sh, su, sb, ni,
-                  halo, R2, gravity, two_omega, inv2d, inv_d}};
-  const int rc =
-      dynamic_smem_limit(cov_rhs_interior_kernel, sizeof(RanksSmem));
-  if (rc != 0) return rc;
-  const dim3 grid((ni + FTX - 1) / FTX, (ni + FTY - 1) / FTY, ngroups);
-  const dim3 block(BX, BY);
-  const size_t smem = sizeof(RanksSmem);
-  cov_rhs_interior_kernel<<<grid, block, smem,
-      static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
+// cov_rhs_interior_f32 is PLR-MC, cov_rhs_interior_<mode>_f32 the other
+// reconstructions (PPM needs halo >= 3).
+#define COV_RHS_INTERIOR_ENTRY(NAME, KERNEL, POLICY)                         \
+  extern "C" int NAME(                                                      \
+      const float* fz, const float* xr, const float* xfr, const float* yc,  \
+      const float* yfc, const int* groups, const float* h_int,              \
+      const float* u_int, const float* b_int, float* dh, float* du,         \
+      long long sh, long long su, long long sb, int ni, int halo,           \
+      int ngroups, float R2, float gravity, float two_omega, float inv2d,   \
+      float inv_d, void* stream) {                                          \
+    const Params p{{fz, xr, xfr, yc, yfc, groups, h_int, u_int, b_int,      \
+                    nullptr, nullptr, dh, du, sh, su, sb, ni, halo, R2,     \
+                    gravity, two_omega, inv2d, inv_d}};                     \
+    return launch<POLICY>(KERNEL, p, ngroups, stream);                      \
+  }
+
+COV_RHS_INTERIOR_ENTRY(cov_rhs_interior_f32, cov_rhs_interior_kernel, PlrMc)
+COV_RHS_INTERIOR_ENTRY(cov_rhs_interior_none_f32,
+                       cov_rhs_interior_kernel_none, Plr<SlopeNone>)
+COV_RHS_INTERIOR_ENTRY(cov_rhs_interior_minmod_f32,
+                       cov_rhs_interior_kernel_minmod, Plr<SlopeMinmod>)
+COV_RHS_INTERIOR_ENTRY(cov_rhs_interior_mc_sign_f32,
+                       cov_rhs_interior_kernel_mc_sign, Plr<SlopeMcSign>)
+COV_RHS_INTERIOR_ENTRY(cov_rhs_interior_vanleer_f32,
+                       cov_rhs_interior_kernel_vanleer, Plr<SlopeVanleer>)
+COV_RHS_INTERIOR_ENTRY(cov_rhs_interior_ppm_f32,
+                       cov_rhs_interior_kernel_ppm, Ppm)

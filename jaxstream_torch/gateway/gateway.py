@@ -942,4 +942,10 @@ class Gateway:
         memory = srv.memory_snapshot()
         if memory is not None:
             snap["memory"] = memory
+        # The warm pool's counters, probe verdicts and speculative builds,
+        # only where a pool is configured (a pool-less deployment's
+        # payload is unchanged).
+        warm = srv.warmpool_summary()
+        if warm is not None:
+            snap["warm_pool"] = warm
         return snap

@@ -19,16 +19,25 @@ lines 106-450 there).
   records.  On the CPU, which keeps no allocator stats, the first poll
   emits one typed-unavailable record and later polls are no-ops.
 
-The bench-history half of the JAX module (``parse_bench_point`` ...
-``write_broken_bench_history``) serves the perf ledger, not the server,
-and is not ported yet (ROADMAP queue A item 3).
+* **The bench-history ledger** (:func:`parse_bench_point`,
+  :func:`load_bench_history`, :func:`check_trajectory`,
+  :func:`render_trajectory`, :func:`broken_bench_history`,
+  :func:`write_broken_bench_history`; the JAX module's lines 446-733,
+  stdlib arithmetic kept as it is): the recorded ``BENCH_r*.json``
+  rounds as machine-normalized trajectory points, and the gate of the
+  last one against the best comparable history, which
+  ``scripts/torch_perf_ledger.py`` drives.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
+import json
+import os
+import re
 import time
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -37,7 +46,16 @@ __all__ = [
     "measure_cost", "plan_analytic_cost", "analytic_cost",
     "roofline_json", "headroom_fraction",
     "MemoryWatcher", "device_memory_record", "device_memory_stats",
+    "DEFAULT_MAX_REGRESSION", "DEFAULT_MAX_FOOTPRINT_GROWTH",
+    "parse_bench_point", "load_bench_history", "check_trajectory",
+    "render_trajectory", "broken_bench_history",
+    "write_broken_bench_history",
 ]
+
+#: The ledger's default bands: a section more than 10% below the best
+#: comparable point, or a footprint grown more than 50%, regresses.
+DEFAULT_MAX_REGRESSION = 0.10
+DEFAULT_MAX_FOOTPRINT_GROWTH = 0.50
 
 #: Tiers whose per-step arithmetic the covariant analytic model
 #: describes.
@@ -341,3 +359,293 @@ def headroom_fraction(footprint_bytes: Optional[float],
     if not footprint_bytes or not limit_bytes:
         return None
     return round(1.0 - float(footprint_bytes) / float(limit_bytes), 4)
+
+
+# -------------------------------------------------------------- ledger
+_HW_RE = re.compile(r"\bon (tpu|gpu|cpu)\b")
+
+
+def _hardware_class(hardware: str) -> str:
+    if hardware in ("tpu", "gpu"):
+        return "accelerator"
+    if hardware == "cpu":
+        return "cpu"
+    return "unknown"
+
+
+def parse_bench_point(obj: dict, label: str = "?") -> dict:
+    """One BENCH round -> one machine-normalized trajectory point.
+
+    Accepts the round envelope (``{"n", "cmd", "rc", "tail",
+    "parsed"}``) or a bare bench stdout record.  Normalization rules
+    (docs/DESIGN.md): the hardware id comes from the record's own
+    ``hardware`` field (round 19+) or the warmup log line in the
+    envelope tail (historic rounds; ``unknown`` when neither exists);
+    smoke records and every non-accelerator point are
+    ``reported_only``; section values are sim-days/sec/chip with
+    variant entries read from either the round-4 scalar or the
+    round-6+ ``{"sim_days_per_sec": ...}`` dict form; zero/suppressed
+    entries are dropped (a gate breach is not a trajectory point).
+    """
+    parsed = obj.get("parsed", obj) if isinstance(obj, dict) else {}
+    if not isinstance(parsed, dict):
+        parsed = {}
+    tail = str(obj.get("tail", "")) if isinstance(obj, dict) else ""
+    smoke = bool(parsed.get("smoke"))
+    hardware = parsed.get("hardware")
+    if not hardware:
+        m = _HW_RE.search(tail)
+        if m:
+            hardware = m.group(1)
+        elif not smoke and parsed.get("value"):
+            # Historic envelopes (r01-r05) predate the recorded
+            # ``hardware`` field, and the envelope's tail keeps only the
+            # LAST stderr lines — the warmup "on tpu" line survives in
+            # some rounds (r01) and scrolls out in others (r05).
+            # Normalization rule: a full (non-smoke) bench whose
+            # headline gated green IS the recorded accelerator run —
+            # the C384 gates cannot complete on CPU in the round's
+            # budget — unless the tail explicitly says otherwise.
+            hardware = "tpu"
+        else:
+            hardware = "unknown"
+    hw_class = _hardware_class(hardware)
+    point = {
+        "label": label,
+        "round": obj.get("n") if isinstance(obj, dict) else None,
+        "hardware": hardware,
+        "hardware_class": hw_class,
+        "smoke": smoke,
+        "reported_only": smoke or hw_class != "accelerator",
+        "sections": {},
+        "pct_of_roof": (parsed.get("roofline") or {}).get(
+            "pct_of_compute_roof"),
+        "footprint_bytes": None,
+        "compile_seconds": None,
+        "dt60_equivalent": parsed.get("dt60_equivalent"),
+    }
+    secs = point["sections"]
+    value = parsed.get("value")
+    if isinstance(value, (int, float)) and value > 0:
+        secs["headline"] = float(value)
+    for name, v in (parsed.get("variants") or {}).items():
+        val = v.get("sim_days_per_sec") if isinstance(v, dict) else v
+        if isinstance(val, (int, float)) and val > 0:
+            secs[f"variant:{name}"] = float(val)
+    ens = parsed.get("ensemble") or {}
+    if isinstance(ens, dict):
+        for k, v in ens.items():
+            if (k.startswith("B") and isinstance(v, dict)
+                    and isinstance(v.get("sim_days_per_sec"),
+                                   (int, float))
+                    and v["sim_days_per_sec"] > 0):
+                secs[f"ensemble:{k}"] = float(v["sim_days_per_sec"])
+    srv = parsed.get("serving") or {}
+    packed = srv.get("packed") if isinstance(srv, dict) else None
+    if (isinstance(packed, dict)
+            and isinstance(packed.get("agg_sim_days_per_sec_per_chip"),
+                           (int, float))):
+        secs["serving:packed"] = float(
+            packed["agg_sim_days_per_sec_per_chip"])
+    # Round 21 (warm pools): the cold_start bench section lands as
+    # warm-over-cold SPEEDUP ratios (higher is better, like every
+    # other section), so future rounds gate scale-up latency the way
+    # throughput is gated today.
+    cold = parsed.get("cold_start") or {}
+    if isinstance(cold, dict):
+        for src, name in (("warm_speedup", "cold_start:warm_speedup"),
+                          ("resize_speedup",
+                           "cold_start:resize_speedup")):
+            val = cold.get(src)
+            if isinstance(val, (int, float)) and val > 0:
+                secs[name] = float(val)
+    perf = parsed.get("perf") or {}
+    cost = perf.get("cost") or {}
+    mem = cost.get("memory") or {}
+    if isinstance(mem.get("total_bytes"), (int, float)):
+        point["footprint_bytes"] = int(mem["total_bytes"])
+    if isinstance(cost.get("compile_seconds"), (int, float)):
+        point["compile_seconds"] = float(cost["compile_seconds"])
+    # The stamped stepper rung (cov_fused vs classic): footprints are
+    # only comparable within one rung — a Pallas-compile fallback must
+    # not be gated against a fused footprint (or vice versa).
+    point["rung"] = perf.get("rung")
+    return point
+
+
+def load_bench_history(root: str) -> List[dict]:
+    """Every ``BENCH_r*.json`` under ``root``, as trajectory points in
+    round order."""
+    points = []
+    for path in sorted(glob.glob(os.path.join(root, "BENCH_r*.json"))):
+        with open(path) as fh:
+            obj = json.load(fh)
+        points.append(parse_bench_point(
+            obj, label=os.path.basename(path).rsplit(".", 1)[0]))
+    return points
+
+
+def check_trajectory(points: Sequence[dict],
+                     max_regression: float = DEFAULT_MAX_REGRESSION,
+                     max_footprint_growth: float =
+                     DEFAULT_MAX_FOOTPRINT_GROWTH) -> dict:
+    """Gate the LAST point against the best comparable history.
+
+    Comparable = same section name, same hardware class.  An enforced
+    candidate additionally requires the historical point to be
+    enforced itself (a smoke window must never set the bar); a
+    reported-only candidate (CPU smoke) compares against ANY
+    same-class point and produces advisories, never failures —
+    ``enforced`` says which mode ran, so a CI consumer can distinguish
+    "passed" from "nothing to gate".
+    """
+    if not points:
+        raise ValueError("check_trajectory needs at least one point")
+    cand = points[-1]
+    same_class = [p for p in points[:-1]
+                  if p["hardware_class"] == cand["hardware_class"]]
+    enforced = not cand["reported_only"]
+    # An ENFORCED candidate only gates against enforced history (a
+    # smoke window must never set the bar); a reported-only candidate
+    # still gets ADVISORIES against any same-class point — a CPU
+    # smoke trend that halves should say so, even if it cannot gate.
+    prior = ([p for p in same_class if not p["reported_only"]]
+             if enforced else same_class)
+    regressions, advisories = [], []
+    sink = regressions if enforced else advisories
+    compared = 0
+    for name, val in sorted(cand["sections"].items()):
+        best = max((p["sections"][name] for p in prior
+                    if name in p["sections"]), default=None)
+        if best is None:
+            continue
+        compared += 1
+        floor = best * (1.0 - max_regression)
+        if val < floor:
+            sink.append({
+                "section": name, "value": round(val, 4),
+                "best": round(best, 4),
+                "change_pct": round(100.0 * (val / best - 1.0), 1),
+                "detail": (
+                    f"{name}: {val:.4f} sim-days/sec/chip is "
+                    f"{100 * (1 - val / best):.1f}% below the best "
+                    f"recorded {cand['hardware_class']} point "
+                    f"({best:.4f}) — beyond the "
+                    f"{100 * max_regression:.0f}% band"),
+            })
+    fp = cand.get("footprint_bytes")
+    # Footprints only compare within one stamped rung: the classic
+    # fallback's executable is a structurally different program from
+    # the fused one — gating across the rung flip would fail healthy
+    # runs (and mask genuinely grown fused footprints).
+    prior_fp = [p["footprint_bytes"] for p in prior
+                if p.get("footprint_bytes")
+                and p.get("rung") == cand.get("rung")]
+    if fp and prior_fp:
+        compared += 1
+        smallest = min(prior_fp)
+        if fp > smallest * (1.0 + max_footprint_growth):
+            sink.append({
+                "section": "footprint", "value": fp,
+                "best": smallest,
+                "change_pct": round(100.0 * (fp / smallest - 1.0), 1),
+                "detail": (
+                    f"footprint: {fp} bytes is "
+                    f"{100 * (fp / smallest - 1):.0f}% above the "
+                    f"smallest recorded comparable footprint "
+                    f"({smallest}) — beyond the "
+                    f"{100 * max_footprint_growth:.0f}% band (a "
+                    f"silently fatter hot path is a regression)"),
+            })
+    return {
+        "ok": not regressions,
+        "enforced": enforced,
+        #: A green ENFORCED verdict with compared_sections == 0 is a
+        #: VACUOUS pass (no comparable history yet — e.g. the first
+        #: accelerator run after a new section lands); CI consumers
+        #: must read this count, not just ``ok``.
+        "compared_sections": compared,
+        "points": len(points),
+        "candidate": cand["label"],
+        "hardware_class": cand["hardware_class"],
+        "max_regression_pct": round(100 * max_regression, 1),
+        "max_footprint_growth_pct": round(
+            100 * max_footprint_growth, 1),
+        "regressions": regressions,
+        "advisories": advisories,
+    }
+
+
+def render_trajectory(points: Sequence[dict]) -> str:
+    """The human trend table (``scripts/perf_ledger.py`` default)."""
+    lines = [f"{'round':<10} {'hw':<8} {'mode':<13} {'headline':>9} "
+             f"{'dt60':>7} {'%roof':>6} {'footprint':>12} "
+             f"{'compile':>8}  sections"]
+    for p in points:
+        head = p["sections"].get("headline")
+        dt60 = p.get("dt60_equivalent")
+        roof = p.get("pct_of_roof")
+        fp = p.get("footprint_bytes")
+        cs = p.get("compile_seconds")
+        def cell(v, width, spec):
+            return (format(v, spec) if v is not None
+                    else format("-", f">{width}"))
+
+        lines.append(
+            f"{p['label']:<10} {p['hardware']:<8} "
+            f"{'reported-only' if p['reported_only'] else 'enforced':<13} "
+            f"{cell(head, 9, '>9.4f')} {cell(dt60, 7, '>7.4f')} "
+            f"{cell(roof, 6, '>6.1f')} {cell(fp, 12, '>12d')} "
+            f"{cell(cs, 8, '>8.2f')}  {len(p['sections'])}")
+        for name in sorted(p["sections"]):
+            if name == "headline":
+                continue
+            lines.append(f"  {'':<8} {name:<28} "
+                         f"{p['sections'][name]:>9.4f}")
+    return "\n".join(lines)
+
+
+# ------------------------------------------------- seeded-broken fixture
+def broken_bench_history() -> List[dict]:
+    """The ledger's regression corpus (``analysis/fixtures.py``
+    pattern of the JAX package): a clean accelerator round followed by a candidate with a
+    30% throughput regression AND a silently-grown footprint.  The
+    check MUST fail on it — tier-1 asserts the gate cannot lose its
+    teeth (``perf_regression`` fixture + ``perf_ledger.py check``)."""
+    good = {
+        "n": 1, "cmd": "fixture", "rc": 0,
+        "tail": "bench: warmup 10 steps (incl. compile) 7.6s on tpu",
+        "parsed": {
+            "metric": "sim_days_per_sec_per_chip_TC5_C384",
+            "value": 3.0, "unit": "sim-days/sec/chip",
+            "hardware": "tpu",
+            "variants": {"mixed16_carry": 3.19},
+            "perf": {"cost": {"compile_seconds": 20.0,
+                              "memory": {"total_bytes": 1_000_000_000}}},
+        },
+    }
+    bad = {
+        "n": 2, "cmd": "fixture", "rc": 0,
+        "tail": "bench: warmup 10 steps (incl. compile) 8.1s on tpu",
+        "parsed": {
+            "metric": "sim_days_per_sec_per_chip_TC5_C384",
+            "value": 2.1, "unit": "sim-days/sec/chip",   # -30%
+            "hardware": "tpu",
+            "variants": {"mixed16_carry": 3.21},
+            "perf": {"cost": {"compile_seconds": 21.0,
+                              "memory": {"total_bytes": 1_600_000_000}}},
+        },
+    }
+    return [good, bad]
+
+
+def write_broken_bench_history(dirpath: str) -> List[str]:
+    """Materialize the broken corpus as ``BENCH_r*.json`` files (for
+    driving ``scripts/perf_ledger.py check`` end to end)."""
+    paths = []
+    for obj in broken_bench_history():
+        p = os.path.join(dirpath, f"BENCH_r{obj['n']:02d}.json")
+        with open(p, "w") as fh:
+            json.dump(obj, fh)
+        paths.append(p)
+    return paths

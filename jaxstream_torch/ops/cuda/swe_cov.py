@@ -91,6 +91,7 @@ from ._launch import (KernelBase, _P, _check_tensors, _entry, _entry_name,
                       _ptr, _recon_mode)
 from .precision import resolve_stage_precision
 from .swe_rhs import _f32, _fast_frame, coord_rows
+from .tables import table
 
 __all__ = [
     "pack_strips_cov_split",
@@ -418,6 +419,24 @@ class _SplitRoute:
     def __init__(self, grid, precision=None):
         n, h = grid.n, grid.halo
         self.n, self.halo = n, h
+        self.idx, self.T_sn, self.T_we, self.sym_tables = table(
+            f"split_route/{n}/{h}", lambda: self._tables(grid))
+        self.n_sn = self.n_we = 3 * 6 * 2 * h
+        # The stage precision policy: strips (and routed ghosts) in sdt;
+        # the rotation tables in bf16 only when both compute and strips
+        # are (against f32 strips they would only round the
+        # coefficients), as the JAX package's router.
+        pol = resolve_stage_precision(precision)
+        self.sdt = torch.float32 if pol is None else pol.strips_dtype
+        if pol is not None and pol.compute == "bf16" and pol.strips == "bf16":
+            self.T_sn = self.T_sn.to(torch.bfloat16)
+            self.T_we = self.T_we.to(torch.bfloat16)
+
+    @staticmethod
+    def _tables(grid):
+        """``(idx, T_sn, T_we, sym_tables)`` of ``grid``: built on the host
+        from the connectivity and the grid's bases."""
+        n, h = grid.n, grid.halo
         adj = build_connectivity()
         F = 2 * 6 * 6 * h          # sn section + weT section row count
 
@@ -448,28 +467,17 @@ class _SplitRoute:
             for f in range(6):
                 for s, e in enumerate(_EORDER):
                     idx_int[c, f, s] = src_row(1 + c, f, e, 0)
-        self.idx = torch.from_numpy(np.concatenate(
+        idx = torch.from_numpy(np.concatenate(
             [idx_sn.reshape(-1), idx_we.reshape(-1), idx_int.reshape(-1)]
         )).to(grid.device)
-        self.n_sn = idx_sn.size
-        self.n_we = idx_we.size
 
         # Placed rotation tables, split by orientation: (4, 6, 2, h, n).
         Tc = _rotation_tables(grid)
-        self.T_sn = torch.stack([torch.flip(Tc[:, :, EDGE_S], dims=[-2]),
-                                 Tc[:, :, EDGE_N]], dim=2)
-        self.T_we = torch.stack([torch.flip(Tc[:, :, EDGE_W], dims=[-2]),
-                                 Tc[:, :, EDGE_E]], dim=2)
-        self.sym_tables = _pair_sym_tables(grid)
-        # The stage precision policy: strips (and routed ghosts) in sdt;
-        # the rotation tables in bf16 only when both compute and strips
-        # are (against f32 strips they would only round the
-        # coefficients), as the JAX package's router.
-        pol = resolve_stage_precision(precision)
-        self.sdt = torch.float32 if pol is None else pol.strips_dtype
-        if pol is not None and pol.compute == "bf16" and pol.strips == "bf16":
-            self.T_sn = self.T_sn.to(torch.bfloat16)
-            self.T_we = self.T_we.to(torch.bfloat16)
+        T_sn = torch.stack([torch.flip(Tc[:, :, EDGE_S], dims=[-2]),
+                            Tc[:, :, EDGE_N]], dim=2)
+        T_we = torch.stack([torch.flip(Tc[:, :, EDGE_W], dims=[-2]),
+                            Tc[:, :, EDGE_E]], dim=2)
+        return idx, T_sn, T_we, _pair_sym_tables(grid)
 
     def __call__(self, strips_sn, strips_we, sym_scale=None):
         """``strips_sn (..., 6, 6h, n)``, ``strips_we (..., 6, n, 6h)``:
@@ -605,15 +613,19 @@ def make_cov_strip_router_split(grid, precision=None,
 
     # Static edge sqrtg rows in [S, N, W, E] order, identical for all
     # faces, from the same closed forms the stage would evaluate.
-    x_row, xf_row, x_col, xf_col, _ = coord_rows(n, h, grid.device)
-    h0, h1 = h, h + n
-    r = float(grid.radius)
-    sgS = _fast_frame(x_row[:, h0:h1], xf_col[h0:h0 + 1], r)["sqrtg"]
-    sgN = _fast_frame(x_row[:, h0:h1], xf_col[h1:h1 + 1], r)["sqrtg"]
-    sgW = _fast_frame(xf_row[:, h0:h0 + 1], x_col[h0:h1], r)["sqrtg"]
-    sgE = _fast_frame(xf_row[:, h1:h1 + 1], x_col[h0:h1], r)["sqrtg"]
-    sym_scale = torch.stack([sgS.reshape(n), sgN.reshape(n),
-                             sgW.reshape(n), sgE.reshape(n)])[None]
+    def edge_sqrtg():
+        x_row, xf_row, x_col, xf_col, _ = coord_rows(n, h, grid.device)
+        h0, h1 = h, h + n
+        r = float(grid.radius)
+        sgS = _fast_frame(x_row[:, h0:h1], xf_col[h0:h0 + 1], r)["sqrtg"]
+        sgN = _fast_frame(x_row[:, h0:h1], xf_col[h1:h1 + 1], r)["sqrtg"]
+        sgW = _fast_frame(xf_row[:, h0:h0 + 1], x_col[h0:h1], r)["sqrtg"]
+        sgE = _fast_frame(xf_row[:, h1:h1 + 1], x_col[h0:h1], r)["sqrtg"]
+        return torch.stack([sgS.reshape(n), sgN.reshape(n),
+                            sgW.reshape(n), sgE.reshape(n)])[None]
+
+    sym_scale = table(f"edge_sqrtg/{n}/{h}/{float(grid.radius)!r}",
+                      edge_sqrtg)
 
     def route(strips_sn, strips_we):
         return core(strips_sn, strips_we, sym_scale)
@@ -910,9 +922,8 @@ class _ConstsBase(KernelBase):
     kernel wrapper of this module shares.
 
     ``scheme`` and ``limiter`` pick the reconstruction, ``mode`` names it
-    (``"ppm"``, or the PLR limiter): every kernel takes every mode (one
-    instance each) but the sharded tiers' block kernels, B5 and B6, which
-    run PLR-MC only (:meth:`_mc_only`)."""
+    (``"ppm"``, or the PLR limiter): every kernel takes every mode, one
+    instance each."""
 
     def __init__(self, n: int, halo: int, dalpha: float, radius: float,
                  gravity: float, omega: float, scheme: str = "plr",
@@ -933,16 +944,6 @@ class _ConstsBase(KernelBase):
         #: f32); the stage wrappers that take one set it.
         self.precision = None
 
-    def _mc_only(self, kernel: str):
-        """Refuse every reconstruction but PLR-MC: ``kernel``'s modes are
-        still owed (B5, B6)."""
-        if self.mode != "mc":
-            raise NotImplementedError(
-                f"the {kernel} kernel implements PLR with the MC limiter; "
-                f"got scheme={self.scheme!r}, limiter={self.limiter!r} "
-                "(other reconstructions on this kernel: ROADMAP queue B "
-                "item 1)")
-
 
 class _RhsBase(_ConstsBase):
     """The constants, coordinate rows and face frames of whole faces."""
@@ -952,11 +953,17 @@ class _RhsBase(_ConstsBase):
                  limiter: str = "mc", device="cuda"):
         super().__init__(n, halo, dalpha, radius, gravity, omega,
                          scheme=scheme, limiter=limiter, device=device)
-        x_row, xf_row, x_col, xf_col, frames = coord_rows(n, halo, self.device)
-        self.coords = (x_row, xf_row, x_col, xf_col)
-        self.fz = frames[:, :, 2].contiguous()            # (6, 3) frame z
-        self._xc = x_row.reshape(-1).contiguous()
-        self._xf = xf_row.reshape(-1).contiguous()
+        def rows():
+            x_row, xf_row, x_col, xf_col, frames = coord_rows(n, halo,
+                                                              self.device)
+            return (x_row, xf_row, x_col, xf_col,
+                    frames[:, :, 2].contiguous())   # (6, 3) frame z
+
+        *coords, self.fz = table(f"stage_rows/{n}/{halo}/{self.device}",
+                                 rows)
+        self.coords = tuple(coords)
+        self._xc = coords[0].reshape(-1).contiguous()
+        self._xf = coords[1].reshape(-1).contiguous()
 
     def _rhs(self, fz, hf, ua, ub, b_ext, sym_sn, sym_we, sym_prescaled):
         """:func:`rhs_core_cov` with these constants and coordinate rows;
@@ -2045,8 +2052,7 @@ class CovRhs(_RhsBase):
 
     CUDA tensors launch ``csrc/cov_rhs.cu`` (the port of the Pallas kernel
     ``make_cov_rhs_pallas``), one launch per call in either form, the
-    classic forms in every reconstruction (the mode's instance), the
-    stacked one in PLR-MC only (the tiers take no other mode yet); CPU
+    instance of the reconstruction's mode; CPU
     tensors, or any tensors with ``interpret=True``, run
     :func:`cov_rhs_reference`, or for the stacked form the block RHS's
     stacked plain version :func:`cov_rhs_local_stacked_reference` (whole
@@ -2115,11 +2121,6 @@ class CovRhs(_RhsBase):
         return dh, du
 
     def stacked(self, fz, groups, h_ext, u_ext, b_ext, sym_sn, sym_we):
-        if self.mode != "mc":
-            raise NotImplementedError(
-                f"the face tier's stacked RHS runs PLR with the MC limiter "
-                f"only; got mode {self.mode!r} (the tiers' reconstructions: "
-                "ROADMAP queue A item 4 (A8))")
         n, m = self.n, self.m
         r = _RanksRhsBase._check_groups(self, fz, groups, m)
         _check_ranked({"h_ext": (h_ext, (1, m, m)),
@@ -2301,7 +2302,6 @@ class _RanksRhsBase(_ConstsBase):
                  device="cuda"):
         super().__init__(n, halo, dalpha, radius, gravity, omega,
                          scheme=scheme, limiter=limiter, device=device)
-        self._mc_only(self._KERNEL)
         self.interpret = bool(interpret)
 
     def _check_groups(self, fz, groups, w):
@@ -2336,8 +2336,8 @@ class _RanksRhsBase(_ConstsBase):
         if rc != 0:
             raise RuntimeError(
                 f"{type(self).__name__} kernel launch failed: cudaError {rc}"
-                f" (n={self.n}, halo={self.halo}, {r} ranks in "
-                f"{groups.count} groups)")
+                f" (n={self.n}, halo={self.halo}, mode={self.mode}, {r} "
+                f"ranks in {groups.count} groups)")
         type(self).launches += 1
         return dh, du
 
@@ -2357,8 +2357,8 @@ def cov_rhs_interior_reference(rhs, fz, xr, xfr, yc, yfc, h_int, u_int,
     dh, dua, dub = rhs_core_cov(
         _fz3(fz), xr, xfr, yc, yfc, h_int, u_int[0], u_int[1], b_int, None,
         None, n=rhs.ni, halo=rhs.halo, d=rhs.dalpha, radius=rhs.radius,
-        gravity=rhs.gravity, omega=rhs.omega, limiter=rhs.limiter,
-        seam_edges=(False, False, False, False))
+        gravity=rhs.gravity, omega=rhs.omega, scheme=rhs.scheme,
+        limiter=rhs.limiter, seam_edges=(False, False, False, False))
     return dh, torch.stack([dua, dub])
 
 
@@ -2373,16 +2373,17 @@ def cov_rhs_interior_stacked_reference(rhs, fz, groups, h_int, u_int,
         _fz3(fz), xr, xfr, yc, yfc, h_int[:, 0], u_int[:, 0, 0],
         u_int[:, 1, 0], b_int[:, 0], None, None, n=rhs.ni, halo=rhs.halo,
         d=rhs.dalpha, radius=rhs.radius, gravity=rhs.gravity,
-        omega=rhs.omega, limiter=rhs.limiter,
+        omega=rhs.omega, scheme=rhs.scheme, limiter=rhs.limiter,
         seam_edges=(False, False, False, False))
     return dh[:, None], torch.stack([dua, dub], dim=1)[:, :, None]
 
 
-def _interior_kernel():
-    """The interior pass's kernel: 11 pointers (fz, the groups' rows, the
-    group table, h, u, b, dh, du); the rank strides of h, u, b; ni, halo,
-    the group count; 5 float constants; the stream."""
-    return _entry("cov_rhs_interior", "cov_rhs_interior_f32",
+def _interior_kernel(mode: str = "mc"):
+    """The interior pass's kernel of reconstruction ``mode``: 11 pointers
+    (fz, the groups' rows, the group table, h, u, b, dh, du); the rank
+    strides of h, u, b; ni, halo, the group count; 5 float constants; the
+    stream."""
+    return _entry("cov_rhs_interior", _entry_name("cov_rhs_interior", mode),
                   [_P] * 11 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
                   + [ctypes.c_float] * 5 + [_P])
 
@@ -2407,7 +2408,8 @@ class CovRhsInterior(_RanksRhsBase):
     rank.
 
     CUDA tensors launch ``csrc/cov_rhs_interior.cu`` (the port of the
-    Pallas kernel ``make_cov_rhs_interior_local``); CPU tensors, or any
+    Pallas kernel ``make_cov_rhs_interior_local``), the instance of the
+    reconstruction's mode (PPM at halo >= 3); CPU tensors, or any
     tensors with ``interpret=True``, run the plain versions
     :func:`cov_rhs_interior_stacked_reference` /
     :func:`cov_rhs_interior_reference`.
@@ -2415,7 +2417,6 @@ class CovRhsInterior(_RanksRhsBase):
 
     #: Launches of the CUDA kernel, all instances together: one per call.
     launches = 0
-    _KERNEL = "block interior RHS (B5)"
 
     def __init__(self, n: int, halo: int, dalpha: float, radius: float,
                  gravity: float, omega: float, scheme: str = "plr",
@@ -2440,7 +2441,7 @@ class CovRhsInterior(_RanksRhsBase):
         if self.interpret or not self._on_cuda(h_int):
             return cov_rhs_interior_stacked_reference(self, fz, groups,
                                                       h_int, u_int, b_int)
-        return self._launch(_interior_kernel(), fz, groups, h_int, u_int,
+        return self._launch(_interior_kernel(self.mode), fz, groups, h_int, u_int,
                             b_int, (), self.ni)
 
     def __call__(self, fz, xr, xfr, yc, yfc, h_int, u_int, b_int):
@@ -2547,8 +2548,8 @@ def cov_rhs_local_reference(rhs, fz, xr, xfr, yc, yfc, h_ext, u_ext, b_ext,
     dh, dua, dub = rhs_core_cov(
         _fz3(fz), xr, xfr, yc, yfc, h_ext, u_ext[0], u_ext[1], b_ext, sym_sn,
         sym_we, n=rhs.n, halo=rhs.halo, d=rhs.dalpha, radius=rhs.radius,
-        gravity=rhs.gravity, omega=rhs.omega, limiter=rhs.limiter,
-        sym_prescaled=False)
+        gravity=rhs.gravity, omega=rhs.omega, scheme=rhs.scheme,
+        limiter=rhs.limiter, sym_prescaled=False)
     return dh, torch.stack([dua, dub])
 
 
@@ -2562,15 +2563,17 @@ def cov_rhs_local_stacked_reference(rhs, fz, groups, h_ext, u_ext, b_ext,
         _fz3(fz), xr, xfr, yc, yfc, h_ext[:, 0], u_ext[:, 0, 0],
         u_ext[:, 1, 0], b_ext[:, 0], sym_sn[:, 0], sym_we[:, 0], n=rhs.n,
         halo=rhs.halo, d=rhs.dalpha, radius=rhs.radius, gravity=rhs.gravity,
-        omega=rhs.omega, limiter=rhs.limiter, sym_prescaled=False)
+        omega=rhs.omega, scheme=rhs.scheme, limiter=rhs.limiter,
+        sym_prescaled=False)
     return dh[:, None], torch.stack([dua, dub], dim=1)[:, :, None]
 
 
-def _local_kernel():
-    """The block RHS kernel: 13 pointers (fz, the groups' rows, the group
-    table, h, u, b, sym_sn, sym_we, dh, du); the rank strides of h, u, b;
-    n, halo, the group count; 5 float constants; the stream."""
-    return _entry("cov_rhs_local", "cov_rhs_local_f32",
+def _local_kernel(mode: str = "mc"):
+    """The block RHS kernel of reconstruction ``mode``: 13 pointers (fz,
+    the groups' rows, the group table, h, u, b, sym_sn, sym_we, dh, du);
+    the rank strides of h, u, b; n, halo, the group count; 5 float
+    constants; the stream."""
+    return _entry("cov_rhs_local", _entry_name("cov_rhs_local", mode),
                   [_P] * 13 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
                   + [ctypes.c_float] * 5 + [_P])
 
@@ -2596,7 +2599,8 @@ class CovRhsLocal(_RanksRhsBase):
     one rank.
 
     CUDA tensors launch ``csrc/cov_rhs_local.cu`` (the port of the Pallas
-    kernel ``make_cov_rhs_pallas_local``); CPU tensors, or any tensors
+    kernel ``make_cov_rhs_pallas_local``), the instance of the
+    reconstruction's mode (PPM at halo >= 3); CPU tensors, or any tensors
     with ``interpret=True``, run the plain versions
     :func:`cov_rhs_local_stacked_reference` /
     :func:`cov_rhs_local_reference`.
@@ -2604,7 +2608,6 @@ class CovRhsLocal(_RanksRhsBase):
 
     #: Launches of the CUDA kernel, all instances together: one per call.
     launches = 0
-    _KERNEL = "block RHS (B6)"
 
     def stacked(self, fz, groups, h_ext, u_ext, b_ext, sym_sn, sym_we):
         n, m = self.n, self.m
@@ -2617,7 +2620,7 @@ class CovRhsLocal(_RanksRhsBase):
         if self.interpret or not self._on_cuda(h_ext):
             return cov_rhs_local_stacked_reference(
                 self, fz, groups, h_ext, u_ext, b_ext, sym_sn, sym_we)
-        return self._launch(_local_kernel(), fz, groups, h_ext, u_ext, b_ext,
+        return self._launch(_local_kernel(self.mode), fz, groups, h_ext, u_ext, b_ext,
                             (sym_sn, sym_we), n)
 
     def __call__(self, fz, xr, xfr, yc, yfc, h_ext, u_ext, b_ext, sym_sn,

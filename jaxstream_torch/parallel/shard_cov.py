@@ -1,7 +1,7 @@
 """The explicit sharded covariant tier: one cube face per rank.
 
-Counterpart of :mod:`jaxstream.parallel.shard_cov` (its ``nu4 = 0``,
-one-step-per-call form).  Each SSPRK3 stage is the reference's four
+Counterpart of :mod:`jaxstream.parallel.shard_cov` (its one-step-per-call
+form, with ``nu4``).  Each SSPRK3 stage is the reference's four
 race-free exchange stages (:func:`~..geometry.connectivity.build_schedule`),
 each ONE :meth:`ppermute` of a ``(3, halo, n)`` payload per rank — the h
 strip and both covariant velocity components together — then the
@@ -27,10 +27,16 @@ writes the ghosts and computes the seam normals.  The serialized form
 then runs the RHS kernel of whole faces (B4, ``CovRhs.stacked``) once
 over all local faces; the overlapped form runs the interior kernel (B5)
 between the phases, one launch over all local faces, and the torch band
-after them (both grouped by :func:`rank_groups`).
+after them (both grouped by :func:`rank_groups`).  With ``nu4 != 0``
+each stage then subtracts ``nu4 * lap(lap(.))`` of the exchanged state,
+the Laplacians the plain :func:`~..ops.cuda.swe_cov.lap_core` on corner-
+filled blocks with one more exchange between them, as the JAX tier
+computes it (in jnp, so no kernel).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -38,7 +44,7 @@ import torch
 from ..geometry.connectivity import (EDGE_E, EDGE_N, EDGE_S, EDGE_W,
                                      build_connectivity, build_schedule)
 from ..geometry.cubed_sphere import FACE_AXES
-from .halo import canonicalize_strip, place_strip
+from .halo import _fill_corners, canonicalize_strip, place_strip
 
 __all__ = ["CovShardProgram", "CUBE_ROW_NAMES", "apply_cov_cube_recv",
            "ssprk3_sharded_body", "make_cov_shard_exchange_phases",
@@ -351,6 +357,16 @@ def _embed(h_int, u_int, halo: int):
     return q
 
 
+def _embed3(x, halo: int):
+    """Interior stacked fields (R, 3, n, n) -> extended blocks (R, 3, M,
+    M), ghosts zero."""
+    r, c, n = x.shape[0], x.shape[1], x.shape[-1]
+    m = n + 2 * halo
+    q = x.new_zeros((r, c, m, m))
+    q[..., halo:halo + n, halo:halo + n] = x
+    return q
+
+
 def _band_outputs(dh, du):
     """The band's ``(F, n, n)``, ``(2, F, n, n)`` -> the local layout
     (contiguous: the next stage hands each rank's block to a kernel)."""
@@ -361,10 +377,11 @@ def _make_cov_face_rhs(model, program: CovShardProgram, setup, overlap):
     """Per-rank RHS closure of the face tier: ``f(h_int, u_int) -> (dh,
     du)`` over the stacked local state — embed, the 4-stage exchange
     (phase-split under ``overlap``), the covariant RHS of every local
-    face."""
+    face, and with ``model.nu4 != 0`` the del^4 term: lap, exchange,
+    lap of the corner-filled blocks (the JAX tier's ``lap3`` twice)."""
     from ..ops.cuda.swe_cov import (make_cov_rhs_band_local,
                                     make_cov_rhs_interior_local,
-                                    make_cov_rhs_pallas)
+                                    make_cov_rhs_pallas, lap_core)
     from ..ops.cuda.swe_rhs import coord_rows
 
     grid = model.grid
@@ -400,6 +417,24 @@ def _make_cov_face_rhs(model, program: CovShardProgram, setup, overlap):
             t.expand(r, -1, -1) for t in (xr_f[:, sl], xfr_f[:, sl],
                                           yc_f[sl], yfc_f[sl])))
         b_int = b_loc[:, None, sl, sl].contiguous()
+    nu4 = float(getattr(model, "nu4", 0.0))
+    lap1 = functools.partial(lap_core, xr_f, xfr_f, yc_f, yfc_f, n=n,
+                             halo=halo, d=grid.dalpha, radius=grid.radius)
+
+    def lap3(q):
+        # The Laplace-Beltrami cross terms read the ghost corners
+        # (face-local averaging, in place: q is this stage's own).
+        return lap1(_fill_corners(q, halo, n))
+
+    def with_nu4(dh, du, q):
+        """``(dh, du) - nu4 * lap(lap(q))``: the lap of a covariant pair
+        is a covariant pair, so the state's exchange refills l1."""
+        if nu4 == 0.0:
+            return dh, du
+        l1 = _embed3(lap3(q), halo)
+        l1, _, _ = finish(l1, start(l1))
+        l2 = lap3(l1)
+        return dh - nu4 * l2[:, 0:1], du - nu4 * l2[:, 1:3, None]
 
     def f(h_int, u_int):
         q = _embed(h_int, u_int, halo)
@@ -415,10 +450,11 @@ def _make_cov_face_rhs(model, program: CovShardProgram, setup, overlap):
                 fz_loc, xr_f, xfr_f, yc_f, yfc_f, q[:, 0],
                 q[:, 1:3].transpose(0, 1), b_loc, ssn[:, 0], swe[:, 0],
                 dh_c[:, 0], du_c[:, :, 0].transpose(0, 1))
-            return _band_outputs(dh, du)
+            return with_nu4(*_band_outputs(dh, du), q)
         q, ssn, swe = finish(q, start(q))
-        return rhs_faces.stacked(fz_loc, groups, q[:, 0:1],
-                                 q[:, 1:3].unsqueeze(2), b_fr, ssn, swe)
+        dh, du = rhs_faces.stacked(fz_loc, groups, q[:, 0:1],
+                                   q[:, 1:3].unsqueeze(2), b_fr, ssn, swe)
+        return with_nu4(dh, du, q)
 
     return f
 
@@ -435,9 +471,10 @@ def make_sharded_cov_stepper(model, setup, dt: float, overlap=None,
     ``overlap`` (default: the setup's ``overlap_exchange``): issue the
     four stages first, run the interior kernel on every face's
     ghost-free ``(n-2h)^2`` core in one launch, then finish the exchange
-    and the torch band — the same arithmetic, tiled.
-    ``temporal_block > 1`` (the JAX package's deep-halo stepper) and
-    ``nu4 != 0`` are not ported.
+    and the torch band — the same arithmetic, tiled.  ``model.nu4 != 0``
+    adds the del^4 term to every stage (exchange, lap, exchange, lap).
+    ``temporal_block > 1`` (the JAX package's deep-halo stepper) is not
+    ported.
     """
     if temporal_block > 1:
         not_ported(f"temporal_block={temporal_block} on the face tier (the "
@@ -448,8 +485,6 @@ def make_sharded_cov_stepper(model, setup, dt: float, overlap=None,
             f"got panel={setup.panel}, y={setup.sy}, x={setup.sx}. Use the "
             f"GSPMD path (use_shard_map: false) for other layouts."
         )
-    if float(getattr(model, "nu4", 0.0)) != 0.0:
-        not_ported("nu4 != 0 on the face tier")
     if model.grid.device != setup.device:
         raise ValueError(f"the model's grid is on {model.grid.device}, the "
                          f"ranks on {setup.device}")

@@ -5,8 +5,9 @@ Ported: the single-device branch (no setup, or a one-rank setup) —
 the model's classic step, ``temporal_block`` steps per call, vmapped over
 an ensemble's member axis — and the
 explicit covariant branch (``use_shard_map: true`` with a covariant
-model) — the face tier on a ``(6, 1, 1)`` mesh, the block tier on
-``(6, s, s)``.  Everything else the JAX dispatcher builds raises
+model) — the face tier on a ``(6, 1, 1)`` mesh (with ``nu4``), the
+block tier on ``(6, s, s)`` (``nu4 = 0``), both in every
+reconstruction.  Everything else the JAX dispatcher builds raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -67,12 +68,6 @@ def make_stepper_for(model, setup, example_state, dt: float,
     if ensemble:
         not_ported(f"ensemble={ensemble} on the sharded tiers (the "
                    "ensemble stepper and the batched exchange)")
-    if float(getattr(model, "nu4", 0.0)) != 0.0:
-        not_ported("nu4 != 0 on the sharded covariant tiers")
-    if (model.scheme, model.limiter) != ("plr", "mc"):
-        not_ported(f"scheme={model.scheme!r}, limiter={model.limiter!r} on "
-                   "the sharded covariant tiers (their kernels B4's stacked "
-                   "form, B5 and B6 run PLR-MC)")
     from .shard_cov import make_sharded_cov_stepper
     from .shard_cov_block import make_sharded_cov_block_stepper
 

@@ -10,8 +10,8 @@ buckets under ``model.backend: pallas`` step on the CUDA stage kernels
 batches run the classic SSPRK3 over each member with its own orography
 (the CUDA RHS kernel B4 under ``pallas``).  :mod:`.placement` holds the
 pure multi-chip planner; the server itself runs ``placement.mode: off``.
-The warm pool (``serve.warm_pool``, ``compile_cache``, ``speculate``) is
-not ported yet.
+:mod:`.warmpool` persists a bucket's kernel libraries and host-built
+tables (``serve.warm_pool``, ``compile_cache``, ``speculate``).
 """
 
 from .placement import BucketPlan, plan_placement, placement_report

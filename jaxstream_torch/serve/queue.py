@@ -28,6 +28,9 @@ from typing import List, Optional
 
 from ..obs import flight
 from .request import ScenarioRequest
+# The warm pool defines it (as the JAX package's); re-exported here, where
+# the serving layer's other refusals live.
+from .warmpool import HeadroomRefused
 
 __all__ = ["AdmissionRefused", "HeadroomRefused", "QueueFull",
            "RequestQueue", "ServerDraining"]
@@ -48,13 +51,6 @@ class ServerDraining(AdmissionRefused):
     step.  Subclasses :class:`AdmissionRefused` so existing callers
     treating any refusal uniformly keep working; the gateway maps it
     to a typed 503 ``draining``."""
-
-
-class HeadroomRefused(ValueError):
-    """A resize target whose stamped per-chip footprint would breach
-    ``serve.min_headroom_frac`` (the JAX package keeps it in
-    ``jaxstream.serve.warmpool``; the port's warm pool is not ported
-    yet, and :meth:`EnsembleServer.resize` raises it)."""
 
 
 class RequestQueue:

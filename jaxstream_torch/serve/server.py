@@ -47,14 +47,20 @@ memory; the gateway's HTTP thread touches bytes.  The kernels launch on
 the serving thread's current stream; the side stream of the copies is
 entered only around the copies.
 
+* **Warm pools** (``serve.warm_pool``, ``compile_cache``, ``speculate``;
+  :mod:`.warmpool`): a bucket's kernel libraries and host-built tables
+  persist on disk, so that a restarted server builds no table and runs
+  no ``nvcc``; the speculative compiler warms the buckets next to the
+  active cap on a thread and a CUDA stream of its own.
+
 Not ported yet (ROADMAP queue A): ``serve.placement.mode`` ``member``
 and ``panel`` (item 4, A8), which pass the JAX package's rule checks and
-are then refused; the warm pool (``serve.warm_pool``, ``compile_cache``,
-``speculate``; item 3, A6), refused.
+are then refused.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import threading
@@ -76,6 +82,7 @@ from ..obs.monitor import HealthMonitor
 from ..obs.registry import (HOST_WAIT_BUCKETS_S, LATENCY_BUCKETS_S,
                             WALL_BUCKETS_S, MetricsRegistry)
 from ..obs.sink import TelemetrySink, run_manifest
+from ..ops.cuda import tables as _tables
 from ..physics import initial_conditions as ics
 from ..plan import rules as _plan_rules
 from ..plan.rules import RULES_VERSION as _PLAN_RULES_VERSION
@@ -85,6 +92,7 @@ from .placement import PLACEMENT_MODES, BucketPlan, plan_placement
 from .queue import (AdmissionRefused, HeadroomRefused, QueueFull,
                     RequestQueue, ServerDraining)
 from .request import RequestResult, ScenarioRequest
+from . import warmpool as _warmpool
 
 __all__ = ["EnsembleServer", "serve_requests", "SERVE_WRITER_THREAD_NAME"]
 
@@ -129,7 +137,10 @@ class _Bucket:
     as tensors of their own; ``inject(carry, i, member)`` writes a
     member carry into slot ``i`` in place and returns the carry.
     ``libraries`` counts the kernel libraries first opened while the
-    bucket was built and warmed."""
+    bucket was built and warmed (less those a warm-pool entry gave);
+    ``compiles`` is 3 for a bucket built cold, 0 for one its pool entry
+    gave; ``warmup`` what its warm-up took (seconds, rung, table and
+    ``nvcc`` builds)."""
 
     def __init__(self, group: str, B: int, impl: str, seg_fn, extract_fn,
                  inject_fn, stack, member_carry, plan: BucketPlan,
@@ -145,6 +156,8 @@ class _Bucket:
         self.cost = cost
         self.device = device
         self.libraries = 0
+        self.compiles = 3
+        self.warmup = {}
         self._stack = stack
         self._member_carry = member_carry
 
@@ -237,11 +250,11 @@ class EnsembleServer:
                     _plan_rules.fail("serve-panel-ssprk3")
             _refuse(f"serve.placement.mode: {p.mode} (multi-chip "
                     "serving)", "queue A item 4 (A8)")
-        for knob, on in (("serve.warm_pool", bool(s.warm_pool)),
-                         ("serve.compile_cache", bool(s.compile_cache)),
-                         ("serve.speculate", bool(s.speculate))):
-            if on:
-                _refuse(f"{knob} (the warm pool)", "queue A item 3 (A6)")
+        if s.speculate and not s.warm_pool:
+            raise ValueError(
+                "serve.speculate requires serve.warm_pool — a "
+                "speculative compile is only worth its thread when "
+                "the executable persists for the next process too")
         if cfg.grid.dtype not in _DTYPES:
             _refuse(f"grid.dtype: {cfg.grid.dtype} (grids are float32 or "
                     "float64)", "queue A item 5")
@@ -270,7 +283,7 @@ class EnsembleServer:
             "member_steps": 0, "occupancy_sum": 0.0,
             "utilization_sum": 0.0, "warmup_compiles": 0,
             "host_wait_s": 0.0, "resizes": 0, "last_occupancy": 0.0,
-            "boundary_s": 0.0,
+            "boundary_s": 0.0, "table_builds": 0,
         }
         #: The ACTIVE bucket cap: every configured bucket stays warm;
         #: packing uses only buckets <= the cap, so a resize never
@@ -287,8 +300,10 @@ class EnsembleServer:
         #: The side stream of every device-to-host copy (one per server).
         self._copy_stream = None
         #: Kernel libraries open before this server: compile_count
-        #: counts the ones opened since.
+        #: counts the ones opened since (less those warm-pool entries
+        #: gave, ``_pool_libs``).
         self._libs0 = _build.loaded_libraries()
+        self._pool_libs = set()
         #: Request-scoped tracing (serve.trace): one RequestTrace per
         #: in-flight admitted request; spans land in the sink at
         #: finalize, or, on sink-less servers only, in ``trace_spans``.
@@ -343,6 +358,29 @@ class EnsembleServer:
         fdir = flight.resolve_flight_dir(cfg)
         if fdir:
             self._blackbox = flight.BundleWriter(fdir)
+        #: The warm pool (``serve.warm_pool``), the probe-gated shared
+        #: library directory (``serve.compile_cache``) and the
+        #: speculative compiler (``serve.speculate``).  The build lock
+        #: serializes first-use bucket builds between the serving thread
+        #: and the speculator; the deployment digest folds the config
+        #: fields the plan key does not carry into every entry key.
+        self._deploy_digest = _warmpool.deployment_digest(cfg)
+        self._build_lock = threading.RLock()
+        self._warmpool: Optional[_warmpool.WarmPool] = None
+        self._speculator = None
+        #: Entries persist only when ``serve.warm_pool`` names a
+        #: directory; a compile-cache-only deployment still gets a pool
+        #: (it owns the probe verdict) with load and save off.
+        self._pool_entries = bool(s.warm_pool)
+        if s.warm_pool or s.compile_cache:
+            self._warmpool = _warmpool.WarmPool(
+                s.warm_pool or s.compile_cache + ".pool",
+                compile_cache=s.compile_cache, sink_write=self._sink_write,
+                counter_inc=self.metrics.counter_inc, device=self.device)
+            if s.compile_cache:
+                self._warmpool.enable_compile_cache()
+        if s.speculate:
+            self._speculator = _warmpool.SpeculativeCompiler(self)
 
     # --------------------------------------------------- flight recorder
     def _open_requests(self) -> dict:
@@ -462,6 +500,9 @@ class EnsembleServer:
         if self._closed:
             return
         self._closed = True
+        if self._speculator is not None:
+            sp, self._speculator = self._speculator, None
+            sp.close()
         if self._writer is not None:
             w, self._writer = self._writer, None
             w.close()
@@ -538,6 +579,8 @@ class EnsembleServer:
                     else float(occupancy), 4),
                 "reason": reason or "manual",
             })
+        if self._speculator is not None:
+            self._speculator.nudge(self._active_max)
         return old
 
     def headroom_refusal(self, B: int) -> Optional[dict]:
@@ -687,12 +730,31 @@ class EnsembleServer:
             return "fused"
         return "vmap"
 
-    def _build_bucket(self, group: str, B: int, impl: str) -> _Bucket:
-        from ..models.shallow_water_cov import (ENSEMBLE_CARRY_AXES,
-                                                ENSEMBLE_STATE_AXES)
+    def _bucket_proof(self, B: int, impl: str):
+        """The bucket's normalized plan and its proof stamp."""
         from ..plan.plan import CapabilityPlan
         from ..plan.proof import build_proof
         from ..plan.rules import normalize as plan_normalize
+
+        cfg = self.config
+        tier = {"fused": "fused", "vmap": "classic",
+                "vmap_b": "classic"}[impl]
+        splan = plan_normalize(CapabilityPlan(
+            tier=tier, n=cfg.grid.n, halo=self.grid.halo,
+            scheme=cfg.time.scheme, ensemble=B,
+            donate=cfg.serve.donate, serving=True, placement="off",
+            serve_grouping=self._grouping, num_devices=1,
+            backend=("pallas" if impl == "fused"
+                     else cfg.model.backend),
+            covariant=True))
+        return splan, build_proof(splan)
+
+    def _build_bucket(self, group: str, B: int, impl: str,
+                      planned) -> _Bucket:
+        """The bucket's callables; ``planned`` is its
+        :meth:`_bucket_proof`."""
+        from ..models.shallow_water_cov import (ENSEMBLE_CARRY_AXES,
+                                                ENSEMBLE_STATE_AXES)
 
         cfg = self.config
         model = self._model(group)
@@ -757,41 +819,87 @@ class EnsembleServer:
                 y[k].select(ax, int(i)).copy_(member[k])
             return y
 
-        tier = {"fused": "fused", "vmap": "classic",
-                "vmap_b": "classic"}[impl]
-        splan = plan_normalize(CapabilityPlan(
-            tier=tier, n=cfg.grid.n, halo=self.grid.halo,
-            scheme=cfg.time.scheme, ensemble=B,
-            donate=cfg.serve.donate, serving=True, placement="off",
-            serve_grouping=self._grouping, num_devices=1,
-            backend=("pallas" if impl == "fused"
-                     else cfg.model.backend),
-            covariant=True))
-        proof = build_proof(splan)
+        splan, proof = planned
         cost = obs_perf.build_cost(splan, plan_key=proof.plan_key)
         return _Bucket(group, B, impl, seg_fn, extract_fn, inject_fn,
                        stack, member_carry, plan, self.device,
                        proof=proof, cost=cost)
 
-    def _bucket(self, group: str, B: int) -> _Bucket:
+    def _bucket(self, group: str, B: int,
+                side_stream: bool = False) -> _Bucket:
         """The warm (group, B) runtime — built and probed on first use
-        (the probe run IS the warm-up)."""
+        (the probe run IS the warm-up).  Under ``serve.warm_pool`` its
+        tables and kernel libraries come from the pool where an entry
+        holds them (no table build, no ``nvcc``), and a cold build saves
+        them.  The build lock serializes first-use builds between the
+        serving thread and the speculator (``side_stream``: the build
+        and its probe run on a CUDA stream of their own)."""
         key = (group, B)
         bk = self._buckets.get(key)
         if bk is not None:
             return bk
-        impl = self._impl_for(group)
+        with self._build_lock:
+            bk = self._buckets.get(key)
+            if bk is not None:      # raced the speculator; it won
+                return bk
+            impl = self._impl_for(group)
+            # The group's model and the shared IC fields are the
+            # server's, built once (not tables of any one bucket) and on
+            # the caller's current stream: the serving thread reads them
+            # on its stream, so they must not come from a side stream.
+            self._warm_member_tree(group)
+            stream = (torch.cuda.Stream(self.device)
+                      if side_stream and self.device.type == "cuda"
+                      else None)
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                bk = self._build_warm(group, B, impl, stream)
+            self._stamp_bucket(bk)
+            self._buckets[key] = bk
+            self.stats["warmup_compiles"] = self.compile_count()
+            log.info("serve: bucket (%s, B=%d) warm (%s stepper on %s, "
+                     "%.3f s, rung %s)", group, B, impl, self.device,
+                     bk.warmup["seconds"], bk.warmup["rung"])
+            return bk
+
+    def _build_warm(self, group: str, B: int, impl: str, stream):
+        """Build bucket (group, B) from its pool entry's tables where there
+        is one, probe it, and save a cold build's entry."""
+        t0 = time.perf_counter()
         libs0 = _build.loaded_libraries()
-        bk = self._build_bucket(group, B, impl)
-        t_warm = time.perf_counter()
-        self._warm_bucket(bk)
+        nvcc0 = _build.nvcc_builds
+        entry = ekey = ident = None
+        planned = self._bucket_proof(B, impl)
+        pool = self._warmpool if self._pool_entries else None
+        if pool is not None:
+            proof = planned[1]
+            # The plan key names the strategy, not the bucket or the
+            # batching group: fold both in, as the JAX server does.
+            ident = f"{proof.plan_key or 'unplanned'}/{group}/B{B}"
+            ekey = _warmpool.entry_key(
+                ident, proof.schedule_fingerprint, proof.rules_version,
+                self._deploy_digest, "bucket",
+                environment=pool.environment)
+            entry = pool.load(ekey, ident, device=self.device)
+        store = _tables.TableStore(entry.tables if entry else None)
+        with _tables.using(store), _build.recording() as used:
+            bk = self._build_bucket(group, B, impl, planned)
+            t_warm = time.perf_counter()
+            self._warm_bucket(bk, stream)
         bk.cost.compile_seconds = round(time.perf_counter() - t_warm, 4)
-        bk.libraries = len(_build.loaded_libraries() - libs0)
-        self._stamp_bucket(bk)
-        self._buckets[key] = bk
-        self.stats["warmup_compiles"] = self.compile_count()
-        log.info("serve: bucket (%s, B=%d) warm (%s stepper on %s)",
-                 group, B, impl, self.device)
+        given = set(entry.libraries) if entry is not None else set()
+        opened = _build.loaded_libraries() - libs0
+        self._pool_libs |= opened & given
+        bk.libraries = len(opened - given)
+        bk.compiles = 0 if entry is not None else 3
+        rung = entry.rung if entry is not None else None
+        if entry is None and pool is not None:
+            pool.save(ekey, store.tables, used, plan_key=ident)
+        bk.warmup = {"seconds": round(time.perf_counter() - t0, 4),
+                     "rung": rung or "cold",
+                     "table_builds": store.builds,
+                     "nvcc_builds": _build.nvcc_builds - nvcc0}
+        self.stats["table_builds"] += store.builds
         return bk
 
     def _warm_member_tree(self, group: str):
@@ -802,13 +910,16 @@ class EnsembleServer:
             st["b"] = self._b_ext(family)
         return st
 
-    def _synchronize(self):
-        if self.device.type == "cuda":
+    def _synchronize(self, stream=None):
+        if stream is not None:
+            stream.synchronize()
+        elif self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _warm_bucket(self, bk: _Bucket):
+    def _warm_bucket(self, bk: _Bucket, stream=None):
         """One dummy masked segment + extract + inject: builds (and
-        probes) every kernel the bucket will ever launch."""
+        probes) every kernel the bucket will ever launch; on ``stream``
+        (the speculator's), waited for there alone."""
         st = self._warm_member_tree(bk.group)
         carry = bk.stack([st] * bk.B)
         rem = np.zeros(bk.B, np.int64)
@@ -816,7 +927,7 @@ class EnsembleServer:
         carry, _, nf = bk.seg(carry, bk.put_rem(rem))
         ex = bk.extract(carry, 0)
         carry = bk.inject(carry, 0, bk.put_member(st))
-        self._synchronize()
+        self._synchronize(stream)
         del ex, nf, carry
 
     def _stamp_bucket(self, bk: _Bucket) -> None:
@@ -882,12 +993,43 @@ class EnsembleServer:
         return self.compile_count()
 
     def compile_count(self) -> int:
-        """What the server has built: three callables per warm bucket
-        (segment, extract, inject — the JAX package's three executables)
-        plus every kernel library first opened while this server
-        exists.  Serving after warm-up must leave it unchanged."""
-        return (3 * len(self._buckets)
-                + len(_build.loaded_libraries() - self._libs0))
+        """What the server has built: three callables per bucket built
+        cold (segment, extract, inject — the JAX package's three
+        executables; a warm-pool hit builds none) plus every kernel
+        library first opened while this server exists, less those its
+        pool entries gave.  Serving after warm-up must leave it
+        unchanged; a restart from a full pool makes it 0."""
+        return (sum(bk.compiles for bk in list(self._buckets.values()))
+                + len(_build.loaded_libraries() - self._libs0
+                      - self._pool_libs))
+
+    def bucket_warmups(self) -> Dict[str, dict]:
+        """Per warm bucket: its warm-up's wall seconds, the pool rung it
+        came from (``cold`` for a build), and its table and ``nvcc``
+        builds."""
+        return {f"{g}/B{B}": dict(bk.warmup)
+                for (g, B), bk in sorted(self._buckets.items())}
+
+    def warm_groups(self) -> tuple:
+        """Batching groups the speculative compiler warms: those that
+        already have buckets, else the deployment's default group."""
+        groups = {g for (g, _B) in list(self._buckets)}
+        if not groups:
+            groups = {"any" if not self._grouping else "flat"}
+        return tuple(sorted(groups))
+
+    def warmpool_summary(self) -> Optional[dict]:
+        """The warm pool's ``/v1/stats`` surface (None = pool off):
+        counters, per-rung hits, probe verdicts, and what the
+        speculative compiler built and skipped."""
+        if self._warmpool is None:
+            return None
+        out = self._warmpool.summary()
+        if self._speculator is not None:
+            out["speculative_built"] = [
+                list(t) for t in self._speculator.built]
+            out["speculative_skipped"] = len(self._speculator.skipped)
+        return out
 
     def placement_summary(self) -> Optional[dict]:
         """The resolved per-bucket placement: None, since the port serves
@@ -1065,7 +1207,7 @@ class EnsembleServer:
         ``serve.memory_watch``, one device-memory poll."""
         attributed = 0
         for key, bk in list(self._buckets.items()):
-            cur = 3 + bk.libraries
+            cur = bk.compiles + bk.libraries
             attributed += bk.libraries
             prev = self._compiles_seen.get(key, 0)
             if cur > prev:

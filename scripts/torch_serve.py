@@ -22,7 +22,8 @@ request by the background writer.  The server runs on the GPU unless
 ``--device cpu`` asks for the host.  Prints exactly ONE JSON summary
 line on stdout (statuses, occupancy and utilization, latency
 percentiles, build counts, host-wait totals, the bucket proof and cost
-stamps and which stepper each bucket ran); everything else goes to
+stamps and which stepper each bucket ran, and under ``serve.warm_pool``
+the pool's counters and each bucket's warm-up); everything else goes to
 stderr.  SIGTERM/SIGINT dump the flight bundle and drain.
 """
 
@@ -174,6 +175,10 @@ def main(argv=None) -> int:
     memory = server.memory_snapshot()
     if memory is not None:
         summary["memory"] = memory
+    warm = server.warmpool_summary()
+    if warm is not None:
+        summary["warm_pool"] = warm
+        summary["bucket_warmups"] = server.bucket_warmups()
     if flight_dir:
         summary["flight_dir"] = flight_dir
     if unsubmitted:

@@ -983,6 +983,63 @@ _B1_POLICY = {
 }
 
 
+def _tier_modes(n, mode):
+    """B4's stacked form (the six faces), B5 (the faces' and the 2 x 2
+    split's cores) and B6 (the split's blocks) in ``mode``, one launch
+    each, from the TC5 state after a classic step: bitwise equal to their
+    stacked plain versions."""
+    scheme, limiter = ("plr", "mc") if mode == "mc" else _NEW_MODES[mode]
+    g, m, s0, dt = _mode_model(n, "ppm" if scheme == "ppm" else "none")
+    m = CovariantShallowWater(g, gravity=EARTH_GRAVITY, omega=EARTH_OMEGA,
+                              b_ext=m.b_ext, scheme=scheme, limiter=limiter)
+    s1 = m.make_step(dt)(s0, 0.0)
+    kw = dict(scheme=scheme, limiter=limiter, device=g.device)
+    one = tcov.make_cov_rhs_pallas(g, EARTH_GRAVITY, EARTH_OMEGA, n_faces=1,
+                                   external_sym=True, scheme=scheme,
+                                   limiter=limiter)
+    he, ue = m.fill(s1["h"]), m._fill_u(s1["u"])
+    ssn, swe = tcov.sym_edge_normals(g, ue)
+    q = torch.cat([he[:, None], ue.transpose(0, 1)], dim=1)
+    groups = tcov.RankGroups([(0, 0)] * 6, *(
+        t.expand((6,) + tuple(t.shape)) for t in one.coords))
+    cases = [(one, (one.fz[:, None], groups, q[:, 0:1],
+                    q[:, 1:3].unsqueeze(2), m.b_ext[:, None], ssn[:, None],
+                    swe[:, None]))]
+    for s, cores in ((1, True), (2, True), (2, False)):
+        make = (tcov.make_cov_rhs_interior_local if cores
+                else tcov.make_cov_rhs_pallas_local)
+        kern = make(g.n // s, g.halo, g.dalpha, g.radius, EARTH_GRAVITY,
+                    EARTH_OMEGA, **kw)
+        per = list(_block_operands(g, m, s1, s, cores))
+        keys = [((r // s) % s, r % s) for r in range(len(per))]
+        grp = tcov.RankGroups(keys, *(
+            torch.stack([a[k] for a in per]) for k in (1, 2, 3, 4)))
+        args = (torch.cat([a[0] for a in per]), grp,
+                torch.cat([a[5] for a in per])[:, None],
+                torch.stack([a[6] for a in per]),
+                torch.cat([a[7] for a in per])[:, None])
+        if not cores:
+            args += tuple(torch.stack([a[k] for a in per]) for k in (8, 9))
+        cases.append((kern, args))
+    for kern, args in cases:
+        assert kern.mode == mode
+        cls = type(kern)
+        before = cls.launches
+        out = kern.stacked(*args)
+        torch.cuda.synchronize()
+        assert cls.launches == before + 1
+        for x, r in zip(out, kern.stacked_reference(*args)):
+            assert bool(torch.all(torch.isfinite(x))), (cls.__name__, mode)
+            assert torch.equal(x, r), (cls.__name__, mode, _rel(r, x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [48, 74], ids=["c48", "c74"])
+def test_tier_kernels_every_mode_match_plain(n):
+    """The tiers' kernels (B4's stacked form, B5, B6) in all six modes."""
+    _every_mode(n, _tier_modes)
+
+
 def _policy_carry(m, s0, kw):
     """The carry of a policy stepper built with ``kw`` from state s0 (an
     ensemble: s0 and three members perturbed by 1e-4 relative)."""
@@ -1186,3 +1243,51 @@ def test_metric_segment_reads_nothing_back():
         torch.cuda.set_sync_debug_mode(0)
     assert buf.shape == (sim._obs.ms.k, 5)
     assert torch.isfinite(buf).all()
+
+
+@pytest.mark.gpu
+def test_speculator_side_stream_leaves_results_unchanged(tmp_path):
+    """The speculative compiler builds the bucket next to the active cap
+    on a thread and a CUDA stream of its own while the serving thread
+    serves B = 1 batches: every result is byte-equal to a server without
+    it, and the speculated bucket lands warm (its pool entry saved)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the stage kernels have no CPU "
+                    "form)")
+    import time
+
+    from jaxstream_torch.serve import EnsembleServer, ScenarioRequest
+
+    def cfg(**serve):
+        s = {"buckets": "1,4", "segment_steps": 4, "queue_capacity": 8,
+             "group_by_orography": True}
+        s.update(serve)
+        return {"grid": {"n": 48}, "time": {"dt": 600.0},
+                "model": {"name": "shallow_water_cov", "backend": "pallas"},
+                "parallelization": {"num_devices": 1}, "serve": s}
+
+    def run(srv):
+        srv.warmup(groups=("oro",), buckets=(1,))
+        srv.resize(1)       # the speculator's nudge: the bucket of 4
+        for i in range(3):
+            srv.submit(ScenarioRequest(id=f"s{i}", ic="tc5", nsteps=6 + i,
+                                       seed=i, amplitude=1e-3,
+                                       outputs=("h", "u")))
+        res = srv.serve()
+        return {k: r.fields["h"].tobytes() + r.fields["u"].tobytes()
+                for k, r in res.items()}
+
+    plain = EnsembleServer(cfg())
+    want = run(plain)
+    plain.close()
+    srv = EnsembleServer(cfg(warm_pool=str(tmp_path / "pool"),
+                             speculate=True))
+    got = run(srv)
+    deadline = time.monotonic() + 120
+    while ("oro", 4) not in srv._buckets and time.monotonic() < deadline:
+        time.sleep(0.1)
+    summary = srv.warmpool_summary()
+    srv.close()
+    assert got == want
+    assert summary["speculative_built"] == [["oro", 4]]
+    assert summary["saves"] == 2

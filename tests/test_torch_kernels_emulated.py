@@ -582,7 +582,7 @@ def tc5_c40():
     return g, m, s0, m.fill(s0["h"]), m._fill_u(s0["u"])
 
 
-def _rhs_forms(g, m, state):
+def _rhs_forms(g, m, state, one=None):
     """B4's three forms on one state (filled frames, sym rows): the
     six-face classic layout, each face alone (the JAX one-face form), and
     the face tier's stacked form over views of a stacked ``q`` (R, 3, M,
@@ -590,7 +590,9 @@ def _rhs_forms(g, m, state):
     of ``(kernel, call, reference, args)``."""
     _, he, ue, ssn, swe = state
     six = tsc.make_cov_rhs_pallas(g, G, OM).kernel
-    one = tsc.make_cov_rhs_pallas(g, G, OM, n_faces=1, external_sym=True)
+    if one is None:
+        one = tsc.make_cov_rhs_pallas(g, G, OM, n_faces=1,
+                                      external_sym=True)
     fz = six.fz[:, None]
     args6 = (fz, he, ue, m.b_ext, ssn, swe)
     ones = [(one, one, one.reference,
@@ -1579,8 +1581,8 @@ _GROUP_MUTATIONS = {
                      "stage_rank_window(p, sm.w[0], ranks[1], j0, i0);"),
     "wrong-position-rows": ("const long rows = (long)g * m;",
                             "const long rows = 0;"),
-    "swapped-buffer": ("const StageWindow& w = sm.w[cur];",
-                       "const StageWindow& w = sm.w[cur ^ 1];"),
+    "swapped-buffer": ("const StageWindowR<R>& w = sm.w[cur];",
+                       "const StageWindowR<R>& w = sm.w[cur ^ 1];"),
 }
 
 
@@ -1601,6 +1603,93 @@ def test_stacked_kernel_mutation_is_caught(emulated, launch_on_cpu,
     args, _ = _stacked_args(g, m, states[1], 2, cores, list(range(24)))
     out, ref = kern.stacked(*args), kern.stacked_reference(*args)
     assert not all(torch.equal(x, r) for x, r in zip(out, ref))
+
+
+# ---- The tiers' kernels in every reconstruction ----------------------------
+#
+# B4's stacked form, B5 and B6 take each mode as an instance of their own
+# (cov_rhs.cu, cov_rhs_interior.cu, cov_rhs_local.cu on cov_faces.cuh's
+# rhs_group<S, R>): PLR with the four limiters besides MC at halo 2, PPM
+# at halo 3, whose h window has a 3-deep apron.
+
+
+def _tier_mode_operands(n, mode):
+    """The C``n`` TC5 model in ``mode`` (``"mc"`` or one of
+    :data:`_NEW_MODES`) and its state after one classic step, with the
+    filled frames and sym rows (``tc5_c40_states``' layout)."""
+    scheme, limiter = _NEW_MODES.get(mode, ("plr", mode))
+    g = build_grid(n, halo=3 if scheme == "ppm" else 2,
+                   radius=EARTH_RADIUS, device="cpu")
+    h, v, b = williamson_tc5(g, G, OM)
+    m = CovariantShallowWater(g, gravity=G, omega=OM, b_ext=b,
+                              scheme=scheme, limiter=limiter)
+    s1 = m.make_step(75.0 * 384 / n)(m.initial_state(h, v), 0.0)
+    he, ue = m.fill(s1["h"]), m._fill_u(s1["u"])
+    return g, m, (s1, he, ue) + tuple(tsc.sym_edge_normals(g, ue))
+
+
+def _tier_mode_cases(g, m, state):
+    """``(kernel, args)`` of each tier instance on ``state``: B4's stacked
+    form over the six faces (groups of three), B5 over the faces' and
+    the 2 x 2 split's cores, B6 over the split's blocks."""
+    kw = dict(scheme=m.scheme, limiter=m.limiter, device="cpu")
+    one = tsc.make_cov_rhs_pallas(g, G, OM, n_faces=1, external_sym=True,
+                                  scheme=m.scheme, limiter=m.limiter)
+    stacked = _rhs_forms(g, m, state, one)[2][0]
+    cases = [(one, stacked[3])]
+    for s, cores in ((1, True), (2, True), (2, False)):
+        make = (tsc.make_cov_rhs_interior_local if cores
+                else tsc.make_cov_rhs_pallas_local)
+        kern = make(g.n // s, g.halo, g.dalpha, g.radius, G, OM, **kw)
+        args, _ = _stacked_args(g, m, state, s, cores,
+                                list(range(6 * s * s)))
+        cases.append((kern, args))
+    return cases
+
+
+@pytest.mark.parametrize("mode", sorted(_NEW_MODES))
+def test_tier_kernels_in_each_mode(launch_on_cpu, mode):
+    """B4's stacked form, B5 (face and block cores) and B6 (blocks) in
+    each mode besides PLR-MC, one launch per call, bitwise equal to their
+    stacked plain versions at C40 after a TC5 step (every tile on an
+    edge, ragged; B5's PPM core 14 cells on the split)."""
+    g, m, state = _tier_mode_operands(N, mode)
+    for kern, args in _tier_mode_cases(g, m, state):
+        assert kern.mode == mode
+        cls = type(kern)
+        before = cls.launches
+        out = kern.stacked(*args)
+        assert cls.launches == before + 1
+        _equal(out, kern.stacked_reference(*args))
+
+
+#: h's window of a rank or face of the tier kernels (cov_faces.cuh's
+#: stage_rank_window, cov_rhs.cu's stage_face_window): the mutation stages
+#: it as deep as PLR's apron, which only PPM's 3-deep one tells apart.
+_TIER_H_WINDOW = ("stage_frame<FTY + 2 * A, A, FTX + 2 * A, A>(&w.h[0][0], "
+                  "p.h + r * p.sh, n,\n"
+                  "                                              hh, j0 - A, "
+                  "i0);")
+
+
+@pytest.mark.parametrize("name", ["cov_rhs", "cov_rhs_interior",
+                                  "cov_rhs_local"])
+def test_tier_mode_mutation_is_caught(emulated, launch_on_cpu, monkeypatch,
+                                      name):
+    """A mutant of each tier library (a library of its own name): h's
+    window staged as PLR stages it must disagree with the plain version
+    under PPM and agree under PLR-MC (the mutation is a no-op there)."""
+    lib = _mutated_lib(emulated, name, _TIER_H_WINDOW,
+                       _TIER_H_WINDOW.replace("j0 - A", "j0 - 2"))
+    monkeypatch.setattr(_build, "load", lambda nm: ctypes.CDLL(
+        str(lib if nm == name else emulated[nm])))
+    index = {"cov_rhs": 0, "cov_rhs_interior": 2, "cov_rhs_local": 3}[name]
+    g, m, state = _tier_mode_operands(N, "ppm")
+    kern, args = _tier_mode_cases(g, m, state)[index]
+    out, ref = kern.stacked(*args), kern.stacked_reference(*args)
+    assert not all(torch.equal(x, r) for x, r in zip(out, ref))
+    kern, args = _tier_mode_cases(*_tier_mode_operands(N, "mc"))[index]
+    _equal(kern.stacked(*args), kern.stacked_reference(*args))
 
 
 def test_whole_face_kernels_pass_rows_as_columns():
@@ -1647,7 +1736,7 @@ def test_whole_face_kernels_pass_rows_as_columns():
                 assert faces_in_block[name] in call, (name, call)
     for name, seam in (("cov_rhs_interior", "None"),
                        ("cov_rhs_local", "Frame")):
-        assert sources[name].count(f"rhs_group<Seam::{seam}>(p, sm,") == 1
+        assert sources[name].count(f"rhs_group<Seam::{seam}, R>(p, sm,") == 1
     for name, seam in (("cov_rhs", "Frame"), ("cov_step_mega", "FrameCg"),
                        ("cov_stage_refused_nu4", "Prescaled"),
                        ("cov_stage_inkernel", "Frame"),

@@ -592,12 +592,8 @@ def test_sinkless_trace_spans_complete():
 
 
 _REFUSALS = [
-    ({"serve": {"warm_pool": "pool"}}, NotImplementedError,
-     r"serve\.warm_pool .*queue A item 3 \(A6\)"),
-    ({"serve": {"compile_cache": "cc"}}, NotImplementedError,
-     r"serve\.compile_cache .*queue A item 3 \(A6\)"),
-    ({"serve": {"speculate": True}}, NotImplementedError,
-     r"serve\.speculate .*queue A item 3 \(A6\)"),
+    ({"serve": {"speculate": True}}, ValueError,
+     r"serve\.speculate requires serve\.warm_pool"),
     ({"serve": {"placement": {"mode": "member"}}}, NotImplementedError,
      r"placement\.mode: member .*queue A item 4 \(A8\)"),
     ({"model": {"backend": "pallas"},

@@ -14,7 +14,13 @@ Budgets:
 * two block-tier steps per call (``temporal_block=2``) against two
   calls: bitwise (the same operations);
 * mass drift over the 3 steps: < 2e-6 on both tiers;
-* ``shard_state`` / ``unshard_state``: a bitwise round trip.
+* ``shard_state`` / ``unshard_state``: a bitwise round trip;
+* every reconstruction (PLR with each limiter at halo 2, PPM at halo 3)
+  on both tiers, serialized and overlapped, against the model's classic
+  step, 3 steps at C16: 2e-4 of max, mass < 2e-6;
+* face-tier del^4 against the classic del^4 path, 3 steps at C8: 5e-4
+  of max (``tests/test_shard_cov.py``'s budget), at a nu4 whose term
+  moves the fields by ~1e-2 of max there.
 """
 
 import pytest
@@ -38,6 +44,9 @@ G, OM = EARTH_GRAVITY, EARTH_OMEGA
 BLOCK_VS_FACE_TOL = 2e-4
 OVERLAP_TOL = 1e-6
 MASS_TOL = 2e-6
+# Face-tier del^4 against the classic del^4 path, of max after 3 steps:
+# the JAX package's budget (tests/test_shard_cov.py).
+NU4_TOL = 5e-4
 DT = 600.0
 
 
@@ -100,6 +109,56 @@ def test_tiers_conserve_mass(tc5_c16, tier_runs, key):
     m1 = float((area * tier_runs[key]["h"].double()).sum())
     assert torch.isfinite(tier_runs[key]["h"]).all()
     assert abs(m1 - m0) / m0 < MASS_TOL
+
+
+#: Every reconstruction: (scheme, limiter).
+MODES = [("plr", lim) for lim in ("none", "minmod", "mc", "mc_sign",
+                                  "vanleer")] + [("ppm", "mc")]
+
+
+@pytest.mark.parametrize("scheme, limiter", MODES,
+                         ids=[lim if sc == "plr" else sc
+                              for sc, lim in MODES])
+def test_every_mode_on_both_tiers_matches_classic(scheme, limiter):
+    """Both tiers, serialized and overlapped, in each mode (their kernels
+    B4's stacked form, B5 and B6 take every one): 3 steps against the
+    model's classic step, and mass."""
+    g = build_grid(16, halo=3 if scheme == "ppm" else 2,
+                   radius=EARTH_RADIUS, device="cpu")
+    h, v, b = williamson_tc5(g, G, OM)
+    m = CovariantShallowWater(g, gravity=G, omega=OM, b_ext=b,
+                              scheme=scheme, limiter=limiter)
+    s0 = m.initial_state(h, v)
+    ref = s0
+    for _ in range(3):
+        ref = m.make_step(DT)(ref, 0.0)
+    area = g.interior(g.area).double()
+    m0 = float(torch.sum(area * s0["h"].double()))
+    for tiles in (1, 2):
+        for overlap in (False, True):
+            out = _run(m, _setup(tiles, 6 * tiles * tiles, overlap), s0)
+            for k in ("h", "u"):
+                assert _rel(ref[k], out[k]) <= BLOCK_VS_FACE_TOL, (
+                    tiles, overlap, k, _rel(ref[k], out[k]))
+            m1 = float(torch.sum(area * out["h"].double()))
+            assert abs(m1 - m0) / m0 < MASS_TOL, (tiles, overlap)
+
+
+@pytest.mark.parametrize("overlap", [False, True],
+                         ids=["serialized", "overlapped"])
+def test_face_tier_nu4_matches_classic(overlap):
+    """Face-tier del^4 (exchange, lap, exchange, lap per stage) against
+    the classic del^4 path after 3 steps at C8, at nu4 = 1e19 m^4/s."""
+    g = build_grid(8, halo=2, radius=EARTH_RADIUS, device="cpu")
+    h, v, b = williamson_tc5(g, G, OM)
+    m = CovariantShallowWater(g, gravity=G, omega=OM, b_ext=b, nu4=1.0e19)
+    s0 = m.initial_state(h, v)
+    ref = s0
+    for _ in range(3):
+        ref = m.make_step(DT)(ref, 0.0)
+    out = _run(m, _setup(1, 6, overlap), s0)
+    for k in ("h", "u"):
+        assert _rel(ref[k], out[k]) <= NU4_TOL, (k, _rel(ref[k], out[k]))
 
 
 def test_block_tier_temporal_block_is_exact(tc5_c16):
@@ -179,6 +238,8 @@ def c8_models():
 def test_unported_options_name_a8(c8_models, case):
     cov, cov_nu4, cart = c8_models
     face, block = _setup(1, 6), _setup(2, 24)
+    van = CovariantShallowWater(cov.grid, gravity=G, omega=OM,
+                                limiter="vanleer")
     calls = {
         "ensemble": lambda: make_stepper_for(cov, face, None, DT,
                                              ensemble=4),
@@ -194,9 +255,7 @@ def test_unported_options_name_a8(c8_models, case):
         "cartesian": lambda: make_stepper_for(cart, face, None, DT),
         "bf16": lambda: make_stepper_for(cov, face, None, DT,
                                          precision="bf16"),
-        "vanleer": lambda: make_stepper_for(CovariantShallowWater(
-            cov.grid, gravity=G, omega=OM, limiter="vanleer"), face, None,
-            DT),
+        "vanleer": lambda: make_stepper_for(van, face, None, DT),
     }
     if case == "single":
         # The single-device branch is ported: the model's classic step.
@@ -204,6 +263,17 @@ def test_unported_options_name_a8(c8_models, case):
              "u": torch.zeros((2, 6, 8, 8), dtype=torch.float32)}
         y, ref = calls[case]()(s, 0.0), cov.make_step(DT)(s, 0.0)
         assert all(torch.equal(y[k], ref[k]) for k in s)
+        return
+    if case in ("face-nu4", "vanleer"):
+        # Ported: face-tier del^4 and every mode on the tiers; one step
+        # against the model's classic step (the budgets of
+        # tests/test_torch_shard_cov.py's tier parity).
+        model = {"face-nu4": cov_nu4, "vanleer": van}[case]
+        s = model.initial_state(*williamson_tc5(cov.grid, G, OM)[:2])
+        y = unshard_state(face, calls[case]()(shard_state(face, s), 0.0))
+        ref = model.make_step(DT)(s, 0.0)
+        tol = NU4_TOL if case == "face-nu4" else BLOCK_VS_FACE_TOL
+        assert all(_rel(ref[k], y[k]) <= tol for k in s), case
         return
     with pytest.raises(NotImplementedError, match=r"queue A item 4 \(A8\)"):
         calls[case]()

@@ -320,7 +320,9 @@ def test_port_checkpoint_resumes_in_jax(jax_runs, tmp_path):
      r"use_shard_map: false.*queue A item 4 \(A8\)"),
     ({"parallelization": {"num_devices": 6, "use_shard_map": True},
       "model": {"name": "auto"}}, r"Cartesian shard.*queue A item 4 \(A8\)"),
-    ({"parallelization": {"num_devices": 6, "use_shard_map": True},
+    # The face tier takes nu4; the block tier still refuses it.
+    ({"parallelization": {"num_devices": 24, "tiles_per_edge": 2,
+                          "use_shard_map": True},
       "physics": {"hyperdiffusion": 1e15}},
      r"nu4.*queue A item 4 \(A8\)"),
 ])

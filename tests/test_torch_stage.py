@@ -143,19 +143,17 @@ def test_stage_wrapper_rejects_bad_inputs():
         stage(yc["h"].to("meta"), *ok[1:])
     with pytest.raises(TypeError, match="takes 5"):
         stage(s0["h"], s0["u"], *ok)
-    # The stage and the re-fused stage take every limiter
-    # (tests/test_torch_recon.py holds each against JAX); a kernel whose
-    # modes are still owed (the tiers' B5) refuses them.
+    # The stage, the re-fused stage and the tiers' B5 take every limiter
+    # (tests/test_torch_recon.py holds each against JAX).
     assert tcov.make_cov_stage_compact(
         8, 2, 0.1, 1.0, 9.8, 0.0, 1.0, 0.0, 1.0, limiter="minmod",
         device="cpu").mode == "minmod"
     assert tcov.make_cov_stage_refused_nu4(
         tg, EARTH_GRAVITY, EARTH_OMEGA, DT, 1e14, limiter="minmod",
         device="cpu").mode == "minmod"
-    with pytest.raises(NotImplementedError,
-                       match="MC limiter.*queue B item 1"):
-        tcov.make_cov_rhs_interior_local(8, 2, 0.1, 1.0, 9.8, 0.0,
-                                         limiter="minmod", device="cpu")
+    assert tcov.make_cov_rhs_interior_local(
+        8, 2, 0.1, 1.0, 9.8, 0.0, limiter="minmod",
+        device="cpu").mode == "minmod"
     with pytest.raises(NotImplementedError, match="b == 1"):
         tcov.make_cov_stage_compact(8, 2, 0.1, 1.0, 9.8, 0.0, 1.0, 0.0, 0.5,
                                     device="cpu")
